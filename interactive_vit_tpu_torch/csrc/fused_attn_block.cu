@@ -1,0 +1,398 @@
+// Fused ViT attention block for Hopper (sm_90a):
+//     y = x + proj(MHSA(LN1(x))), with optional per-head probs and head-mean.
+//
+// Replaces the Pallas TPU kernel interactive_vit_tpu/ops/fused_block.py::
+// fused_attn_block (_kernel, _row_softmax). Numerics follow its cast points:
+// f32 LayerNorm statistics, LN output cast to the activation dtype T, QKV
+// f32-accumulated and cast to T, scores and softmax in f32 (fast form:
+// exp(min(s, 80)) with the normalisation deferred), probs cast to T before
+// the PV product when they are emitted, head outputs cast to T, and the
+// projection f32-accumulated with the residual added in f32.
+//
+// What bounds it on this card: at the served shapes (N=197, D=768, B<=8)
+// the three products are ~1.4 GFLOP per image and the bytes are small
+// (weights 3.4 MB bf16, activations < 1 MB), so the kernel is bound by
+// arithmetic issue and, at batch 1, by how many of the 132 SMs its grids
+// fill -- not by HBM. This version does every product with f32 FMA from
+// shared memory (no tensor cores), so it runs far below the card's bf16
+// peak. What the design does about it: the N x N scores and probabilities
+// stay in shared memory (only the requested probs taps and the head-mean
+// inputs reach device memory); the attention grid spans query tiles x
+// heads x images (84 blocks for one vit_b16 image) with register-tiled
+// float4 inner loops; the head-mean is a separate pass that sums the heads
+// in a fixed order, so it stays deterministic without atomics. Moving the
+// products onto wgmma/mma tiles is later work.
+//
+//   Kernel A  gemm<T, LN=true>   LN1 (f32 row stats in shared memory)
+//                                + qkv = LN(x) @ qkv_w + qkv_b -> workspace
+//   Kernel B  attention<T>       one block per (query-row tile, head,
+//                                image): scores, softmax, probs taps, f32
+//                                probs for the mean, o_h = P V -> workspace
+//   Kernel D  head_mean<T>       mean over heads of the f32 probs (only
+//                                when the head-mean is asked for)
+//   Kernel C  gemm<T, LN=false>  y = (x + o @ proj_w) + proj_b
+//
+// Plain C interface, bound from Python with ctypes; every launch goes on
+// the caller's stream and the entry returns cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch and XLA cast
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// Kernels A and C: out[M, Nc] = A'[M, K] @ W[K, Nc] (+ epilogue).
+// 64 x 64 output tile per block, 256 threads, 4 x 4 outputs per thread.
+constexpr int TM = 64, TN = 64, TK = 16, GEMM_THREADS = 256;
+
+template <typename T, bool LN>
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict__ bias,
+            const T* __restrict__ ln_s, const T* __restrict__ ln_b, const T* __restrict__ res,
+            T* __restrict__ out, int M, int K, int Nc, float eps) {
+  __shared__ float As[TK][TM + 4];
+  __shared__ float Ws[TK][TN + 4];
+  __shared__ float row_mean[TM];
+  __shared__ float row_rstd[TM];
+
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * TM;
+  const int col0 = blockIdx.x * TN;
+
+  if (LN) {
+    // two-pass f32 statistics, one warp per row
+    const int warp = tid / 32, lane = tid % 32;
+    for (int r = warp; r < TM; r += GEMM_THREADS / 32) {
+      const int row = row0 + r;
+      float mean = 0.f, rstd = 0.f;
+      if (row < M) {
+        const T* xr = A + (size_t)row * K;
+        float s = 0.f;
+        for (int k = lane; k < K; k += 32) s += to_f(xr[k]);
+        mean = warp_sum(s) / (float)K;
+        float v = 0.f;
+        for (int k = lane; k < K; k += 32) {
+          const float d = to_f(xr[k]) - mean;
+          v += d * d;
+        }
+        rstd = rsqrtf(warp_sum(v) / (float)K + eps);
+      }
+      if (lane == 0) {
+        row_mean[r] = mean;
+        row_rstd[r] = rstd;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int tx = tid % 16, ty = tid / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += TK) {
+#pragma unroll
+    for (int i = 0; i < (TM * TK) / GEMM_THREADS; ++i) {
+      const int e = tid + i * GEMM_THREADS;
+      const int m = e / TK, kk = e % TK;
+      const int row = row0 + m, k = k0 + kk;
+      float v = 0.f;
+      if (row < M && k < K) {
+        v = to_f(A[(size_t)row * K + k]);
+        if (LN) {
+          // LN output is cast to the activation dtype before the product
+          v = to_f(from_f<T>((v - row_mean[m]) * row_rstd[m] * to_f(ln_s[k]) + to_f(ln_b[k])));
+        }
+      }
+      As[kk][m] = v;
+    }
+#pragma unroll
+    for (int i = 0; i < (TK * TN) / GEMM_THREADS; ++i) {
+      const int e = tid + i * GEMM_THREADS;
+      const int kk = e / TN, n = e % TN;
+      const int k = k0 + kk, col = col0 + n;
+      Ws[kk][n] = (k < K && col < Nc) ? to_f(W[(size_t)k * Nc + col]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < TK; ++kk) {
+      float a[4], w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty * 4 + r];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = Ws[kk][tx * 4 + c];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = row0 + ty * 4 + r;
+    if (row >= M) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = col0 + tx * 4 + c;
+      if (col >= Nc) continue;
+      const size_t idx = (size_t)row * Nc + col;
+      float v = acc[r][c];
+      if (LN) {
+        v = v + to_f(bias[col]);
+      } else {
+        v = (to_f(res[idx]) + v) + to_f(bias[col]);
+      }
+      out[idx] = from_f<T>(v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel B: attention for one (query-row tile, head, image).
+constexpr int QT = 32, ATT_THREADS = 256;
+
+__host__ __device__ inline size_t attn_smem_floats(int n, int dh) {
+  // K [n][dh+4] + V [n][dh] + Q [QT][dh] + S [QT][n]; rows of K, V and Q
+  // start on 16-byte boundaries (dh % 4 == 0) for float4 reads
+  return (size_t)n * (dh + 4) + (size_t)n * dh + (size_t)QT * dh + (size_t)QT * n;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_THREADS)
+attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ probs,
+                 float* __restrict__ head_probs, int N, int D, int H, float scale, int fast,
+                 unsigned long long emit_mask, int n_emit) {
+  extern __shared__ float4 smem4[];
+  __shared__ float rinv[QT];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int dh = D / H, nd4 = dh / 4;
+  const int ks = dh + 4;  // padded K rows: float4 reads of 8 keys hit distinct banks
+  float* Ks = smem;
+  float* Vs = Ks + (size_t)N * ks;
+  float* Qs = Vs + (size_t)N * dh;
+  float* S = Qs + (size_t)QT * dh;
+
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int rows = min(QT, N - q0);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t ld = 3 * (size_t)D;
+  const T* base = qkv + (size_t)b * N * ld + (size_t)h * dh;
+  const bool emit_h = (emit_mask >> h) & 1ULL;
+  const bool want_mean = head_probs != nullptr;
+  // heads whose probs are emitted (or feed the mean) are normalised before
+  // PV; the others fold the reciprocal row sum into the [N, dh] output
+  const bool norm_h = emit_h || want_mean;
+  const int tap = __popcll(emit_mask & ((1ULL << h) - 1ULL));
+
+  for (int e = tid; e < N * dh; e += ATT_THREADS) {
+    const int j = e / dh, d = e % dh;
+    const T* r = base + (size_t)j * ld + d;
+    Ks[j * ks + d] = to_f(r[D]);
+    Vs[e] = to_f(r[2 * D]);
+  }
+  for (int e = tid; e < QT * dh; e += ATT_THREADS) {
+    const int i = e / dh, d = e % dh;
+    Qs[e] = (i < rows) ? to_f(base[(size_t)(q0 + i) * ld + d]) : 0.f;
+  }
+  __syncthreads();
+
+  // scores: one key per thread against all QT query rows (Q reads broadcast)
+  for (int j = tid; j < N; j += ATT_THREADS) {
+    float acc[QT];
+#pragma unroll
+    for (int i = 0; i < QT; ++i) acc[i] = 0.f;
+    const float4* k4 = reinterpret_cast<const float4*>(Ks + (size_t)j * ks);
+    for (int c = 0; c < nd4; ++c) {
+      const float4 kv = k4[c];
+#pragma unroll
+      for (int i = 0; i < QT; ++i) {
+        const float4 qv = reinterpret_cast<const float4*>(Qs + i * dh)[c];
+        acc[i] = fmaf(qv.x, kv.x, acc[i]);
+        acc[i] = fmaf(qv.y, kv.y, acc[i]);
+        acc[i] = fmaf(qv.z, kv.z, acc[i]);
+        acc[i] = fmaf(qv.w, kv.w, acc[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < QT; ++i)
+      if (i < rows) S[i * N + j] = acc[i] * scale;
+  }
+  __syncthreads();
+
+  // softmax: one warp per query row
+  for (int i = warp; i < rows; i += ATT_THREADS / 32) {
+    float* s = S + i * N;
+    float mx = 0.f;
+    if (!fast) {
+      mx = -INFINITY;
+      for (int j = lane; j < N; j += 32) mx = fmaxf(mx, s[j]);
+      mx = warp_max(mx);
+    }
+    float sum = 0.f;
+    for (int j = lane; j < N; j += 32) {
+      const float p = fast ? expf(fminf(s[j], 80.f)) : expf(s[j] - mx);
+      s[j] = p;
+      sum += p;
+    }
+    const float r = 1.f / warp_sum(sum);
+    if (lane == 0) rinv[i] = r;
+    if (norm_h) {
+      T* prow = emit_h ? probs + (((size_t)b * n_emit + tap) * N + q0 + i) * N : nullptr;
+      float* hrow = want_mean ? head_probs + (((size_t)b * H + h) * N + q0 + i) * N : nullptr;
+      for (int j = lane; j < N; j += 32) {
+        const float pr = s[j] * r;
+        const T pb = from_f<T>(pr);
+        if (emit_h) prow[j] = pb;
+        if (want_mean) hrow[j] = pr;  // f32 probs, summed over heads by kernel D
+        s[j] = to_f(pb);              // PV consumes the cast probs
+      }
+    } else {
+      for (int j = lane; j < N; j += 32) s[j] = to_f(from_f<T>(s[j]));
+    }
+  }
+  __syncthreads();
+
+  // o = P V: one (query row, 4 columns) per thread
+  for (int e = tid; e < rows * nd4; e += ATT_THREADS) {
+    const int i = e / nd4, c = e % nd4;
+    const float* s = S + i * N;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = 0; j < N; ++j) {
+      const float p = s[j];
+      const float4 v = reinterpret_cast<const float4*>(Vs + (size_t)j * dh)[c];
+      acc.x = fmaf(p, v.x, acc.x);
+      acc.y = fmaf(p, v.y, acc.y);
+      acc.z = fmaf(p, v.z, acc.z);
+      acc.w = fmaf(p, v.w, acc.w);
+    }
+    if (!norm_h) {
+      const float r = rinv[i];
+      acc.x *= r;
+      acc.y *= r;
+      acc.z *= r;
+      acc.w *= r;
+    }
+    T* out = o + ((size_t)b * N + q0 + i) * D + (size_t)h * dh + 4 * c;
+    out[0] = from_f<T>(acc.x);
+    out[1] = from_f<T>(acc.y);
+    out[2] = from_f<T>(acc.z);
+    out[3] = from_f<T>(acc.w);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel D: head-mean of the f32 probs, summed in head order (the order of
+// the JAX kernel's accumulator), cast to T.
+template <typename T>
+__global__ void head_mean_kernel(const float* __restrict__ head_probs, T* __restrict__ mean,
+                                 int B, int H, int NN, float inv_heads) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * NN) return;
+  const size_t b = idx / NN, k = idx % NN;
+  const float* p = head_probs + b * H * NN + k;
+  float s = p[0];
+  for (int h = 1; h < H; ++h) s += p[(size_t)h * NN];
+  mean[idx] = from_f<T>(s * inv_heads);
+}
+
+template <typename T>
+int launch(const void* x, const void* ln_s, const void* ln_b, const void* qkv_w,
+           const void* qkv_b, const void* proj_w, const void* proj_b, void* qkv_ws, void* o_ws,
+           void* probs_ws, void* y, void* probs, void* mean, int B, int N, int D, int H,
+           float eps, float scale, float inv_heads, int fast, unsigned long long emit_mask,
+           int n_emit, cudaStream_t stream) {
+  const int M = B * N;
+  const dim3 grid_a((3 * D + TN - 1) / TN, (M + TM - 1) / TM);
+  gemm_kernel<T, true><<<grid_a, GEMM_THREADS, 0, stream>>>(
+      (const T*)x, (const T*)qkv_w, (const T*)qkv_b, (const T*)ln_s, (const T*)ln_b, nullptr,
+      (T*)qkv_ws, M, D, 3 * D, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const size_t smem = attn_smem_floats(N, D / H) * sizeof(float);
+  err = cudaFuncSetAttribute(attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid_b((N + QT - 1) / QT, H, B);
+  attention_kernel<T><<<grid_b, ATT_THREADS, smem, stream>>>(
+      (const T*)qkv_ws, (T*)o_ws, (T*)probs, mean ? (float*)probs_ws : nullptr, N, D, H, scale,
+      fast, emit_mask, n_emit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  if (mean != nullptr) {
+    const size_t total = (size_t)B * N * N;
+    head_mean_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        (const float*)probs_ws, (T*)mean, B, H, N * N, inv_heads);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  const dim3 grid_c((D + TN - 1) / TN, (M + TM - 1) / TM);
+  gemm_kernel<T, false><<<grid_c, GEMM_THREADS, 0, stream>>>(
+      (const T*)o_ws, (const T*)proj_w, (const T*)proj_b, nullptr, nullptr, (const T*)x,
+      (T*)y, M, D, D, 0.f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Dynamic shared memory of the attention kernel, in bytes; the Python side
+// holds the same formula for its dispatch envelope and checks it against
+// this one after the build.
+size_t ivt_attn_smem_bytes(int n, int dh) { return attn_smem_floats(n, dh) * sizeof(float); }
+
+// dtype: 0 = float32, 1 = bfloat16. Workspaces (allocated by the caller):
+// qkv_ws [B, N, 3D] and o_ws [B, N, D] in the dtype, probs_ws [B, H, N, N]
+// f32 (only read when mean is given). probs / mean may be null (taps off).
+// emit_mask: bit h set = head h's probs are written, to tap row
+// popcount(emit_mask & ((1 << h) - 1)). Returns a cudaError_t value.
+int ivt_fused_attn_block(int dtype, const void* x, const void* ln_s, const void* ln_b,
+                         const void* qkv_w, const void* qkv_b, const void* proj_w,
+                         const void* proj_b, void* qkv_ws, void* o_ws, void* probs_ws, void* y,
+                         void* probs, void* mean, int B, int N, int D, int H, float eps,
+                         float scale, float inv_heads, int fast, unsigned long long emit_mask,
+                         int n_emit, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch<float>(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, qkv_ws, o_ws, probs_ws,
+                         y, probs, mean, B, N, D, H, eps, scale, inv_heads, fast, emit_mask,
+                         n_emit, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, qkv_ws, o_ws,
+                                 probs_ws, y, probs, mean, B, N, D, H, eps, scale, inv_heads,
+                                 fast, emit_mask, n_emit, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,0 +1,30 @@
+"""Parameter conversion from the JAX package's ViT tree.
+
+The two packages share one parameter layout (``models/vit.py``: linear
+weights ``[D_in, D_out]``, qkv columns ``[3][H][dh]``, dicts and lists of
+leaves), so conversion is a tree-map of numpy arrays to tensors. The JAX
+package's own converters (torchvision, timm, safetensors) produce that
+tree, and this is the one bridge the tests use to make both packages
+compute the same thing.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def from_jax(params_np: Any, device="cpu", dtype=torch.float32) -> Any:
+    """Map a JAX ViT parameter tree (leaves as numpy arrays, or anything
+    ``np.asarray`` takes) to tensors on ``device`` in ``dtype``.
+
+    Leaves go through f32 on the host, so bf16 numpy leaves (``ml_dtypes``)
+    convert exactly."""
+    if isinstance(params_np, dict):
+        return {k: from_jax(v, device, dtype) for k, v in params_np.items()}
+    if isinstance(params_np, (list, tuple)):
+        return type(params_np)(from_jax(v, device, dtype) for v in params_np)
+    arr = np.array(params_np, dtype=np.float32)  # a writable copy
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)

@@ -1,0 +1,265 @@
+"""Fused attention block: LN1 + QKV + MHSA + proj + residual in one call.
+
+Counterpart of ``interactive_vit_tpu/ops/fused_block.py::fused_attn_block``
+(the Pallas TPU kernel). Three pieces, as every kernel of this package has:
+
+* ``fused_attn_block`` -- the wrapper. For a CUDA tensor it launches the
+  hand-written kernel ``csrc/fused_attn_block.cu`` (built at first use) or
+  raises; for a CPU tensor it runs the plain version. It counts its kernel
+  launches in ``fused_attn_block.launches``.
+* ``fused_attn_block_reference`` -- the plain PyTorch version of the same
+  function with the same cast points, used on the CPU and to check the
+  kernel on the card.
+* ``fits`` -- the kernel's shape envelope, used by ``ops/dispatch.py``.
+
+Numerics (the JAX kernel's): f32 LayerNorm cast to the activation dtype;
+qkv f32-accumulated plus bias, cast; per-head scores and softmax in f32 --
+``fast_softmax`` is ``exp(min(s, 80))`` with no max subtraction and the
+normalisation deferred; heads whose maps are emitted (or feed the mean)
+multiply by the reciprocal row sum and cast the probs before PV, the others
+fold it into the [N, dh] output; heads concatenate and cast; the
+projection accumulates in f32 and the residual is added in f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Tuple
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+# Overflow guard of the no-max-subtract softmax (the JAX kernel's):
+# exp(80) * N stays below f32 max for N up to ~6000.
+SOFTMAX_CLAMP = 80.0
+
+# Query rows per attention block and the card's shared-memory cap per
+# block (H100: 227 KB); both mirror csrc/fused_attn_block.cu.
+_QT = 32
+_SMEM_LIMIT = 232448
+_MAX_HEADS = 64  # the kernel's per-head emit mask is one 64-bit word
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attn_smem_bytes(n: int, dh: int) -> int:
+    """Dynamic shared memory of the attention kernel: K [n][dh+4], V [n][dh],
+    Q [32][dh] and scores [32][n], all f32."""
+    return 4 * (n * (dh + 4) + n * dh + _QT * dh + _QT * n)
+
+
+def fits(n: int, d: int, heads: int) -> bool:
+    """True when the kernel takes a block of n tokens, width d, ``heads``
+    heads: the width splits into heads of a multiple of 4 columns (float4
+    rows), and one head's K and V for all n keys fit the attention
+    kernel's shared memory."""
+    if n <= 0 or heads <= 0 or heads > _MAX_HEADS or d % heads:
+        return False
+    dh = d // heads
+    return dh % 4 == 0 and attn_smem_bytes(n, dh) <= _SMEM_LIMIT
+
+
+def _emit_heads(heads: int, want_attn: bool, attn_heads) -> Optional[Tuple[int, ...]]:
+    """Sorted unique tap heads, or None for all heads (JAX validation)."""
+    if not want_attn or attn_heads is None:
+        return None
+    emit = tuple(sorted(set(int(h) for h in attn_heads)))
+    if not emit:
+        raise ValueError("attn_heads must be non-empty when want_attn=True "
+                         "(None = all heads)")
+    if any(h < 0 or h >= heads for h in emit):
+        raise ValueError(f"attn_heads {attn_heads} out of range for "
+                         f"{heads} heads")
+    return emit
+
+
+def fused_attn_block_reference(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+):
+    """Plain PyTorch version of the kernel, same contract and cast points.
+
+    Returns ``(y, probs | None)``, or ``(y, probs | None, mean)`` when
+    ``want_mean``."""
+    emit = _emit_heads(heads, want_attn, attn_heads)
+    dt = x.dtype
+    b, n, d = x.shape
+    dh = d // heads
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    ln = (xf - mu) * torch.rsqrt(var + eps)
+    ln = (ln * p["ln1_s"].float() + p["ln1_b"].float()).to(dt)
+    qkv = (torch.matmul(ln.float(), p["qkv_w"].float())
+           + p["qkv_b"].float()).to(dt)
+    q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, dh)
+               .transpose(1, 2) for i in range(3))          # [B, H, N, dh]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
+    if fast_softmax:
+        pexp = torch.exp(torch.clamp(s, max=SOFTMAX_CLAMP))
+    else:
+        pexp = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    r = 1.0 / pexp.sum(dim=-1, keepdim=True)
+    vf = v.float()
+    # per head: normalise-then-PV where maps are emitted or meaned,
+    # PV-then-rescale elsewhere
+    norm = torch.zeros(heads, dtype=torch.bool, device=x.device)
+    if want_mean or (want_attn and emit is None):
+        norm[:] = True
+    elif want_attn:
+        norm[list(emit)] = True
+    probs = pexp * r
+    pb = probs.to(dt)
+    o_norm = torch.matmul(pb.float(), vf)
+    o_raw = torch.matmul(pexp.to(dt).float(), vf) * r
+    o = torch.where(norm[None, :, None, None], o_norm, o_raw)
+    o = o.transpose(1, 2).reshape(b, n, d).to(dt)
+    y = (xf + torch.matmul(o.float(), p["proj_w"].float())
+         + p["proj_b"].float()).to(dt)
+    tap = None
+    if want_attn:
+        tap = pb if emit is None else pb[:, list(emit)]
+    if want_mean:
+        msum = probs[:, 0]
+        for h in range(1, heads):  # the kernel's head order, in f32
+            msum = msum + probs[:, h]
+        return y, tap, (msum * (1.0 / heads)).to(dt)
+    return y, tap
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    """Build (first use) and load the kernel library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("fused_attn_block")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_fused_attn_block.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 3
+            + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
+        lib.ivt_fused_attn_block.restype = ctypes.c_int
+        lib.ivt_attn_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ivt_attn_smem_bytes.restype = ctypes.c_size_t
+        lib._ivt_bound = True
+    return lib
+
+
+def load_kernel() -> ctypes.CDLL:
+    """Build and load the CUDA kernel now (``chip_smoke.py`` times this);
+    checks that the library's shared-memory formula is the envelope's."""
+    lib = _kernel_lib()
+    for n, dh in ((197, 64), (50, 64), (17, 16)):
+        if lib.ivt_attn_smem_bytes(n, dh) != attn_smem_bytes(n, dh):
+            raise RuntimeError("csrc/fused_attn_block.cu and fits() disagree "
+                               "on the attention kernel's shared memory")
+    return lib
+
+
+def _check_operands(x: torch.Tensor, p: Params, heads: int) -> None:
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"fused_attn_block kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if x.ndim != 3:
+        raise ValueError(f"x must be [B, N, D], got shape {tuple(x.shape)}")
+    b, n, d = x.shape
+    if not fits(n, d, heads):
+        raise ValueError(f"fused_attn_block kernel does not take n={n}, "
+                         f"d={d}, heads={heads} (see fits())")
+    want = {"ln1_s": (d,), "ln1_b": (d,), "qkv_w": (d, 3 * d),
+            "qkv_b": (3 * d,), "proj_w": (d, d), "proj_b": (d,)}
+    for name, shape in want.items():
+        t = p[name]
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; the kernel "
+                             f"needs {x.dtype} on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+
+
+def fused_attn_block(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+    key_bias: Optional[torch.Tensor] = None,
+    want_metric: bool = False,
+    int8_scores: bool = False,
+    int8_pv: bool = True,
+):
+    """x [B, N, D] -> (x + proj(MHSA(LN(x))), probs [B, H|sel, N, N] | None)
+    [, mean [B, N, N] when ``want_mean``].
+
+    Arguments as the JAX function's. ``attn_heads`` limits the probs tap
+    to those heads (ascending order); the others are never written.
+    ``key_bias``/``want_metric`` (ToMe) and ``int8_scores``/``int8_pv``
+    are not ported yet and raise ``NotImplementedError``."""
+    if key_bias is not None or want_metric:
+        raise NotImplementedError(
+            "key_bias / want_metric (ToMe) are not ported to the CUDA block "
+            "kernel yet")
+    if int8_scores:
+        raise NotImplementedError(
+            "int8_scores is not ported to the CUDA block kernel yet")
+    if x.device.type == "cpu":
+        return fused_attn_block_reference(
+            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
+            fast_softmax=fast_softmax, attn_heads=attn_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_attn_block runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    emit = _emit_heads(heads, want_attn, attn_heads)
+    _check_operands(x, p, heads)
+    b, n, d = x.shape
+    emit_list = (list(range(heads)) if emit is None else list(emit)) \
+        if want_attn else []
+    mask = 0
+    for h in emit_list:
+        mask |= 1 << h
+    lib = _kernel_lib()
+    with torch.cuda.device(x.device):
+        qkv_ws = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
+        o_ws = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
+        # f32 per-head probs, summed in head order by the head-mean pass
+        probs_ws = (torch.empty((b, heads, n, n), dtype=torch.float32,
+                                device=x.device) if want_mean else None)
+        y = torch.empty_like(x)
+        probs = (torch.empty((b, len(emit_list), n, n), dtype=x.dtype,
+                             device=x.device) if want_attn else None)
+        mean = (torch.empty((b, n, n), dtype=x.dtype, device=x.device)
+                if want_mean else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ivt_fused_attn_block(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), p["ln1_s"].data_ptr(),
+            p["ln1_b"].data_ptr(), p["qkv_w"].data_ptr(),
+            p["qkv_b"].data_ptr(), p["proj_w"].data_ptr(),
+            p["proj_b"].data_ptr(), qkv_ws.data_ptr(), o_ws.data_ptr(),
+            None if probs_ws is None else probs_ws.data_ptr(), y.data_ptr(),
+            None if probs is None else probs.data_ptr(),
+            None if mean is None else mean.data_ptr(), b, n, d, heads,
+            float(eps), float(d // heads) ** -0.5, 1.0 / heads,
+            int(bool(fast_softmax)), mask, len(emit_list), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_attn_block kernel launch failed: "
+                           f"cudaError {err}")
+    fused_attn_block.launches += 1
+    if want_mean:
+        return y, probs, mean
+    return y, probs
+
+
+fused_attn_block.launches = 0
