@@ -32,148 +32,13 @@
 //                                when the head-mean is asked for)
 //   Kernel C  gemm<T, LN=false>  y = (x + o @ proj_w) + proj_b
 //
+// Kernels A, C and D live in common.cuh, shared with the headwise block.
 // Plain C interface, bound from Python with ctypes; every launch goes on
 // the caller's stream and the entry returns cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-template <typename T> __device__ __forceinline__ float to_f(T v);
-template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as torch and XLA cast
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// Kernels A and C: out[M, Nc] = A'[M, K] @ W[K, Nc] (+ epilogue).
-// 64 x 64 output tile per block, 256 threads, 4 x 4 outputs per thread.
-constexpr int TM = 64, TN = 64, TK = 16, GEMM_THREADS = 256;
-
-template <typename T, bool LN>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict__ bias,
-            const T* __restrict__ ln_s, const T* __restrict__ ln_b, const T* __restrict__ res,
-            T* __restrict__ out, int M, int K, int Nc, float eps) {
-  __shared__ float As[TK][TM + 4];
-  __shared__ float Ws[TK][TN + 4];
-  __shared__ float row_mean[TM];
-  __shared__ float row_rstd[TM];
-
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.y * TM;
-  const int col0 = blockIdx.x * TN;
-
-  if (LN) {
-    // two-pass f32 statistics, one warp per row
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < TM; r += GEMM_THREADS / 32) {
-      const int row = row0 + r;
-      float mean = 0.f, rstd = 0.f;
-      if (row < M) {
-        const T* xr = A + (size_t)row * K;
-        float s = 0.f;
-        for (int k = lane; k < K; k += 32) s += to_f(xr[k]);
-        mean = warp_sum(s) / (float)K;
-        float v = 0.f;
-        for (int k = lane; k < K; k += 32) {
-          const float d = to_f(xr[k]) - mean;
-          v += d * d;
-        }
-        rstd = rsqrtf(warp_sum(v) / (float)K + eps);
-      }
-      if (lane == 0) {
-        row_mean[r] = mean;
-        row_rstd[r] = rstd;
-      }
-    }
-    __syncthreads();
-  }
-
-  const int tx = tid % 16, ty = tid / 16;
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += TK) {
-#pragma unroll
-    for (int i = 0; i < (TM * TK) / GEMM_THREADS; ++i) {
-      const int e = tid + i * GEMM_THREADS;
-      const int m = e / TK, kk = e % TK;
-      const int row = row0 + m, k = k0 + kk;
-      float v = 0.f;
-      if (row < M && k < K) {
-        v = to_f(A[(size_t)row * K + k]);
-        if (LN) {
-          // LN output is cast to the activation dtype before the product
-          v = to_f(from_f<T>((v - row_mean[m]) * row_rstd[m] * to_f(ln_s[k]) + to_f(ln_b[k])));
-        }
-      }
-      As[kk][m] = v;
-    }
-#pragma unroll
-    for (int i = 0; i < (TK * TN) / GEMM_THREADS; ++i) {
-      const int e = tid + i * GEMM_THREADS;
-      const int kk = e / TN, n = e % TN;
-      const int k = k0 + kk, col = col0 + n;
-      Ws[kk][n] = (k < K && col < Nc) ? to_f(W[(size_t)k * Nc + col]) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < TK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[kk][ty * 4 + r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) w[c] = Ws[kk][tx * 4 + c];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], w[c], acc[r][c]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = row0 + ty * 4 + r;
-    if (row >= M) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int col = col0 + tx * 4 + c;
-      if (col >= Nc) continue;
-      const size_t idx = (size_t)row * Nc + col;
-      float v = acc[r][c];
-      if (LN) {
-        v = v + to_f(bias[col]);
-      } else {
-        v = (to_f(res[idx]) + v) + to_f(bias[col]);
-      }
-      out[idx] = from_f<T>(v);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // Kernel B: attention for one (query-row tile, head, image).
@@ -308,21 +173,6 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ p
   }
 }
 
-// ---------------------------------------------------------------------------
-// Kernel D: head-mean of the f32 probs, summed in head order (the order of
-// the JAX kernel's accumulator), cast to T.
-template <typename T>
-__global__ void head_mean_kernel(const float* __restrict__ head_probs, T* __restrict__ mean,
-                                 int B, int H, int NN, float inv_heads) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * NN) return;
-  const size_t b = idx / NN, k = idx % NN;
-  const float* p = head_probs + b * H * NN + k;
-  float s = p[0];
-  for (int h = 1; h < H; ++h) s += p[(size_t)h * NN];
-  mean[idx] = from_f<T>(s * inv_heads);
-}
-
 template <typename T>
 int launch(const void* x, const void* ln_s, const void* ln_b, const void* qkv_w,
            const void* qkv_b, const void* proj_w, const void* proj_b, void* qkv_ws, void* o_ws,
@@ -349,18 +199,11 @@ int launch(const void* x, const void* ln_s, const void* ln_b, const void* qkv_w,
   if (err != cudaSuccess) return (int)err;
 
   if (mean != nullptr) {
-    const size_t total = (size_t)B * N * N;
-    head_mean_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        (const float*)probs_ws, (T*)mean, B, H, N * N, inv_heads);
-    err = cudaGetLastError();
+    err = launch_head_mean<T>((const float*)probs_ws, (T*)mean, B, H, N, inv_heads, stream);
     if (err != cudaSuccess) return (int)err;
   }
-
-  const dim3 grid_c((D + TN - 1) / TN, (M + TM - 1) / TM);
-  gemm_kernel<T, false><<<grid_c, GEMM_THREADS, 0, stream>>>(
-      (const T*)o_ws, (const T*)proj_w, (const T*)proj_b, nullptr, nullptr, (const T*)x,
-      (T*)y, M, D, D, 0.f);
-  return (int)cudaGetLastError();
+  return (int)launch_proj_residual<T>((const T*)o_ws, (const T*)proj_w, (const T*)proj_b,
+                                      (const T*)x, (T*)y, M, D, stream);
 }
 
 }  // namespace

@@ -32,6 +32,7 @@ import torch
 
 from interactive_vit_tpu_torch.graph.ir import Graph, GraphError, effective_params
 from interactive_vit_tpu_torch.graph.registry import Registry, registry
+from interactive_vit_tpu_torch.runtime.device import require_device
 
 logger = logging.getLogger(__name__)
 
@@ -104,11 +105,12 @@ def host_array(t: torch.Tensor) -> np.ndarray:
 
 
 class Executor:
-    """Runs graphs eagerly on ``device``."""
+    """Runs graphs eagerly on ``device`` (the card unless the caller asks
+    for the CPU; raises without a card)."""
 
-    def __init__(self, reg: Optional[Registry] = None, device="cpu"):
+    def __init__(self, reg: Optional[Registry] = None, device="cuda"):
         self.reg = reg or registry()
-        self.device = torch.device(device)
+        self.device = require_device(device)
         self.last_stats = ExecStats()
 
     # -- validation -----------------------------------------------------------

@@ -112,7 +112,9 @@ def init_params(cfg: ViTConfig, generator: torch.Generator,
     """Random init with the JAX package's layout and scales (normal weights
     scaled by fan_in^-0.5, zero biases, 0.02 position table). Draws on the
     CPU from ``generator`` so a seed gives the same weights on any device;
-    the numbers differ from ``jax.random``'s."""
+    the numbers differ from ``jax.random``'s. ``device`` is where the
+    tensors are put: callers pass it explicitly (the model plugin passes
+    its serving device); the CPU default is a staging place only."""
     d, md = cfg.width, cfg.mlp_dim
     pdim = cfg.in_chans * cfg.patch * cfg.patch
 
@@ -190,6 +192,7 @@ def block(
     x: torch.Tensor,
     cfg: ViTConfig,
     want_attn: bool = False,
+    attn_impl=None,
     n_real: Optional[int] = None,
     block_impl=None,
     want_mean: bool = False,
@@ -201,7 +204,8 @@ def block(
     probs [B,H|sel,N,N] when ``want_attn``; mean [B,N,N] head-meaned maps
     (the rollout's input) when ``want_mean``. ``block_impl``: a fused
     attention-branch kernel (``ops/fused_block.fused_attn_block``
-    signature) replacing LN1+QKV+attention+proj+residual."""
+    signature) replacing LN1+QKV+attention+proj+residual. ``attn_impl``:
+    the attention of the unfused path (``ops/attention.mhsa``)."""
     pmean = None
     if qkv_head_major and block_impl is not None:
         raise ValueError("qkv_head_major is incompatible with fused block "
@@ -231,7 +235,7 @@ def block(
         h, probs = attn_ops.mhsa(
             L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps),
             p, cfg.heads, want_attn=want_attn or want_mean, n_real=n_real,
-            head_major=qkv_head_major,
+            head_major=qkv_head_major, attn_impl=attn_impl,
         )
         if "ls1" in p:
             h = h * p["ls1"].to(h.dtype)
@@ -276,6 +280,7 @@ def forward(
     cfg: ViTConfig,
     want_attn: bool = False,
     want_cls_trajectory: bool = False,
+    attn_impl=None,
     block_impl=None,
     attn_heads=None,
 ) -> Dict[str, Any]:
@@ -293,8 +298,8 @@ def forward(
     want_probs = want_attn and (attn_heads is None or len(attn_heads) > 0)
     for p in params["blocks"]:
         x, probs, pmean = block(
-            p, x, cfg, want_attn=want_probs, block_impl=block_impl,
-            want_mean=want_attn,
+            p, x, cfg, want_attn=want_probs, attn_impl=attn_impl,
+            block_impl=block_impl, want_mean=want_attn,
             attn_heads=attn_heads if want_probs else None,
         )
         if want_probs:
@@ -339,10 +344,11 @@ def rollout_carry(pmean: torch.Tensor, ins, x: torch.Tensor) -> torch.Tensor:
     return attn_ops.rollout_step(pmean, r_in).to(x.dtype)
 
 
-def layer_fns(cfg: ViTConfig, block_impl=None):
+def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None):
     """The model as an ordered list of ``(layer_name, extra_out_channels,
     fn(params_subtree, ins) -> outs)``; channel "o" carries the flowing
-    activation, the block extras "attn", "r" and "cls" carry taps."""
+    activation, the block extras "attn", "r" and "cls" carry taps.
+    ``attn_impl`` / ``block_impl`` as in ``block``."""
     layers: List[Tuple[str, List[str], Callable]] = []
 
     def transform_fn(p, ins):
@@ -363,8 +369,8 @@ def layer_fns(cfg: ViTConfig, block_impl=None):
         x = ins["o"]
         sel = parse_attn_heads(node_params)
         y, probs, pmean = block(
-            p, x, cfg, want_attn="attn" in want, block_impl=block_impl,
-            want_mean="r" in want, attn_heads=sel,
+            p, x, cfg, want_attn="attn" in want, attn_impl=attn_impl,
+            block_impl=block_impl, want_mean="r" in want, attn_heads=sel,
         )
         outs = {"o": y}
         if probs is not None and "attn" in want:

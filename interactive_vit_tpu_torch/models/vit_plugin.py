@@ -22,6 +22,7 @@ from interactive_vit_tpu_torch.models import vit
 from interactive_vit_tpu_torch.models.labels import class_names
 from interactive_vit_tpu_torch.models.model_plugin import TorchModel
 from interactive_vit_tpu_torch.ops.dispatch import default_block_impl
+from interactive_vit_tpu_torch.runtime.device import require_device
 
 
 def make_vit_model(
@@ -29,16 +30,23 @@ def make_vit_model(
     params: Optional[Any] = None,
     seed: int = 0,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     block_kernel: str = "auto",
+    attn_impl=None,
 ) -> TorchModel:
-    """Build a registerable ``TorchModel`` for a ViT variant.
+    """Build a registerable ``TorchModel`` for a ViT variant on ``device``
+    (the card unless the caller asks for the CPU; raises without a card).
 
     ``params=None`` -> random init from ``torch.Generator`` seeded with
     ``seed``; given params (e.g. ``models/weights.from_jax``) must already
     be on ``device`` in ``dtype``. ``block_kernel`` is an
-    ``ops/dispatch.default_block_impl`` policy name: under "auto" a CUDA
-    model runs the hand-written fused block kernel when its shape fits."""
+    ``ops/dispatch.default_block_impl`` policy name ("auto", "fused",
+    "headwise", "reference"): under "auto" a CUDA model runs the
+    whole-image block kernel when its shape fits, else the headwise one.
+    ``attn_impl`` (``ops/dispatch.default_attn_impl``) is the attention of
+    blocks that run the unfused path -- LayerScale (DINOv2) blocks always
+    do."""
+    device = require_device(device)
     cfg = vit.resolve_variant(variant)
     if params is None:
         gen = torch.Generator().manual_seed(seed)
@@ -64,7 +72,8 @@ def make_vit_model(
     cats = class_names(cfg.num_classes) if cfg.num_classes else None
     return TorchModel(
         name=variant,
-        layers=vit.layer_fns(cfg, block_impl=block_impl),
+        layers=vit.layer_fns(cfg, attn_impl=attn_impl,
+                             block_impl=block_impl),
         params=params,
         layer_params_fn=vit.layer_params,
         descriptions=descriptions,

@@ -21,7 +21,8 @@ def from_jax(params_np: Any, device="cpu", dtype=torch.float32) -> Any:
     ``np.asarray`` takes) to tensors on ``device`` in ``dtype``.
 
     Leaves go through f32 on the host, so bf16 numpy leaves (``ml_dtypes``)
-    convert exactly."""
+    convert exactly. Callers pass ``device`` explicitly; the CPU default is
+    a staging place (the tests' CPU path), not where a model serves."""
     if isinstance(params_np, dict):
         return {k: from_jax(v, device, dtype) for k, v in params_np.items()}
     if isinstance(params_np, (list, tuple)):

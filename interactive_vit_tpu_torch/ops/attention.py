@@ -63,11 +63,18 @@ def mhsa(
     want_attn: bool = False,
     n_real: Optional[int] = None,
     head_major: bool = False,
+    attn_impl=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Full MHSA: fused QKV -> attention -> output projection."""
+    """Full MHSA: fused QKV -> attention -> output projection.
+
+    ``attn_impl`` swaps in another attention (``ops/flash_attention.
+    flash_mhsa``, ``ops/dispatch.auto_attention``); it takes
+    ``(q, k, v, want_attn, n_real=None)`` and keeps the contract of
+    ``attention_reference``."""
     b, n, d = x.shape
     q, k, v = qkv_proj(x, p, heads, head_major=head_major)
-    out, probs = attention_reference(q, k, v, want_attn, n_real=n_real)
+    impl = attn_impl or attention_reference
+    out, probs = impl(q, k, v, want_attn, n_real=n_real)
     out = out.transpose(1, 2).reshape(b, n, d)
     return linear(out, p["proj_w"], p["proj_b"]), probs
 

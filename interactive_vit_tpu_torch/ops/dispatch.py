@@ -1,13 +1,28 @@
-"""Kernel dispatch: the hand-written CUDA block kernel or the plain path.
+"""Kernel dispatch: the hand-written CUDA kernels or the plain path.
 
-Counterpart of ``interactive_vit_tpu/ops/dispatch.py::default_block_impl``.
-Policy names:
+Counterpart of ``interactive_vit_tpu/ops/dispatch.py``'s
+``default_block_impl``, ``default_attn_impl`` and ``auto_attention``.
 
-    "auto"       the fused block kernel for every model on a CUDA device
-                 whose shape the kernel takes (``fused_block.fits``), in
-                 bf16 and in f32; None (the unfused plain path) otherwise
-    "fused"      always the fused block wrapper (its plain version on CPU)
-    "reference"  None: the unfused plain path
+Block policy names (``default_block_impl``):
+
+    "auto"       on a CUDA device, in bf16 and in f32: the whole-image block
+                 kernel where its shape fits (``fused_block.fits``), else the
+                 headwise block kernel where that fits
+                 (``fused_block.fits_headwise``: vit_l16 at 384 px); None (the
+                 unfused path) otherwise
+    "fused"      always the whole-image block wrapper (its plain version on
+                 CPU)
+    "headwise"   always the headwise block wrapper
+    "reference"  None: the unfused path
+
+Attention policy names (``default_attn_impl``), for blocks that run the
+unfused path (LayerScale models such as DINOv2, or shapes no block kernel
+takes):
+
+    "auto"       ``auto_attention``: the flash kernel for CUDA tensors with
+                 N >= ``FLASH_MIN_SEQ``, ``attention_reference`` otherwise
+    "flash"      always the flash wrapper (its plain version on CPU)
+    "reference"  None: ``attention_reference``
 
 Unlike the JAX policy, f32 is not excluded on CUDA: that exclusion worked
 around HIGHEST-precision dots compiling slowly inside Mosaic, which has no
@@ -23,21 +38,57 @@ import torch
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
+# The JAX package's threshold, measured on a TPU (XLA's fused attention
+# chain against the Pallas kernel); not re-tuned for the card.
+FLASH_MIN_SEQ = 256
+
+
+def auto_attention(q, k, v, want_attn=False, n_real=None):
+    """Sequence-length- and device-aware attention: the flash kernel for
+    CUDA tensors of at least ``FLASH_MIN_SEQ`` tokens."""
+    from interactive_vit_tpu_torch.ops.attention import attention_reference
+    from interactive_vit_tpu_torch.ops.flash_attention import flash_mhsa
+
+    if q.device.type == "cuda" and q.shape[2] >= FLASH_MIN_SEQ:
+        return flash_mhsa(q, k, v, want_attn=want_attn, n_real=n_real)
+    return attention_reference(q, k, v, want_attn=want_attn, n_real=n_real)
+
+
+def default_attn_impl(name: str = "auto"):
+    """Resolve an attention policy name to a callable
+    ``(q, k, v, want_attn, n_real=None) -> (out, probs | None)``, or None
+    for ``attention_reference``."""
+    if name == "reference":
+        return None
+    if name == "flash":
+        from interactive_vit_tpu_torch.ops.flash_attention import flash_mhsa
+
+        return flash_mhsa
+    if name == "auto":
+        return auto_attention
+    raise ValueError(f"unknown attention impl {name!r}")
+
 
 def default_block_impl(name: str = "auto", dtype=None, n: int = 0,
                        d: int = 0, heads: int = 0, device=None):
     """Resolve the fused attention-block policy to a callable or None."""
     if name in ("none", "reference"):
         return None
-    from interactive_vit_tpu_torch.ops.fused_block import fits, fused_attn_block
+    from interactive_vit_tpu_torch.ops.fused_block import (
+        fits, fits_headwise, fused_attn_block, headwise_attn_block,
+    )
 
     if name == "fused":
         return fused_attn_block
+    if name == "headwise":
+        return headwise_attn_block
     if name == "auto":
         dev: Optional[torch.device] = (torch.device(device)
                                        if device is not None else None)
-        if (dev is not None and dev.type == "cuda" and dtype in _DTYPES
-                and fits(n, d, heads)):
-            return fused_attn_block
+        if dev is not None and dev.type == "cuda" and dtype in _DTYPES:
+            if fits(n, d, heads):
+                return fused_attn_block
+            if fits_headwise(n, d, heads):
+                return headwise_attn_block
         return None
     raise ValueError(f"unknown block impl {name!r}")

@@ -1,24 +1,32 @@
-"""Fused attention block: LN1 + QKV + MHSA + proj + residual in one call.
+"""Fused attention blocks: LN1 + QKV + MHSA + proj + residual.
 
-Counterpart of ``interactive_vit_tpu/ops/fused_block.py::fused_attn_block``
-(the Pallas TPU kernel). Three pieces, as every kernel of this package has:
+Counterparts of ``interactive_vit_tpu/ops/fused_block.py``'s two Pallas TPU
+kernels, each in three pieces, as every kernel of this package has:
 
-* ``fused_attn_block`` -- the wrapper. For a CUDA tensor it launches the
-  hand-written kernel ``csrc/fused_attn_block.cu`` (built at first use) or
-  raises; for a CPU tensor it runs the plain version. It counts its kernel
-  launches in ``fused_attn_block.launches``.
-* ``fused_attn_block_reference`` -- the plain PyTorch version of the same
-  function with the same cast points, used on the CPU and to check the
-  kernel on the card.
-* ``fits`` -- the kernel's shape envelope, used by ``ops/dispatch.py``.
+* ``fused_attn_block`` / ``headwise_attn_block`` -- the wrappers. For a
+  CUDA tensor each launches its hand-written kernel
+  (``csrc/fused_attn_block.cu``, ``csrc/headwise_attn_block.cu``, built at
+  first use) or raises; for a CPU tensor it runs the plain version. Each
+  counts its kernel launches in ``<wrapper>.launches``.
+* ``fused_attn_block_reference`` / ``headwise_attn_block_reference`` -- the
+  plain PyTorch versions with the same cast points, used on the CPU and to
+  check the kernels on the card.
+* ``fits`` / ``fits_headwise`` -- the kernels' shape envelopes, used by
+  ``ops/dispatch.py``: the whole-image kernel holds one head's K and V for
+  all keys in shared memory; the headwise one streams keys in tiles and
+  takes the longer sequences (vit_l16 at 384 px).
 
-Numerics (the JAX kernel's): f32 LayerNorm cast to the activation dtype;
+Numerics (the JAX kernels'): f32 LayerNorm cast to the activation dtype;
 qkv f32-accumulated plus bias, cast; per-head scores and softmax in f32 --
 ``fast_softmax`` is ``exp(min(s, 80))`` with no max subtraction and the
 normalisation deferred; heads whose maps are emitted (or feed the mean)
 multiply by the reciprocal row sum and cast the probs before PV, the others
 fold it into the [N, dh] output; heads concatenate and cast; the
-projection accumulates in f32 and the residual is added in f32.
+projection accumulates in f32 and the residual is added in f32. The
+headwise block runs LN1 and QKV as plain PyTorch ops before its kernel
+(XLA ops outside the Pallas kernel in JAX), and recomputes the maps of an
+``attn_heads`` subset outside the kernel with an exact max-subtracted
+softmax while the kernel runs maps-off, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -28,16 +36,18 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from interactive_vit_tpu_torch.ops import layers as L
+from interactive_vit_tpu_torch.ops import tiled_attention
+
 Params = Dict[str, torch.Tensor]
 
 # Overflow guard of the no-max-subtract softmax (the JAX kernel's):
 # exp(80) * N stays below f32 max for N up to ~6000.
 SOFTMAX_CLAMP = 80.0
 
-# Query rows per attention block and the card's shared-memory cap per
-# block (H100: 227 KB); both mirror csrc/fused_attn_block.cu.
+# Query rows per block of the whole-image attention kernel (mirrors
+# csrc/fused_attn_block.cu).
 _QT = 32
-_SMEM_LIMIT = 232448
 _MAX_HEADS = 64  # the kernel's per-head emit mask is one 64-bit word
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,7 +67,8 @@ def fits(n: int, d: int, heads: int) -> bool:
     if n <= 0 or heads <= 0 or heads > _MAX_HEADS or d % heads:
         return False
     dh = d // heads
-    return dh % 4 == 0 and attn_smem_bytes(n, dh) <= _SMEM_LIMIT
+    return (dh % 4 == 0
+            and attn_smem_bytes(n, dh) <= tiled_attention.SMEM_LIMIT)
 
 
 def _emit_heads(heads: int, want_attn: bool, attn_heads) -> Optional[Tuple[int, ...]]:
@@ -162,16 +173,18 @@ def load_kernel() -> ctypes.CDLL:
     return lib
 
 
-def _check_operands(x: torch.Tensor, p: Params, heads: int) -> None:
+def _check_operands(x: torch.Tensor, p: Params, heads: int,
+                    name: str = "fused_attn_block", fits_fn=None) -> None:
+    fits_fn = fits_fn or fits
     if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"fused_attn_block kernel takes float32 or bfloat16, "
+        raise TypeError(f"{name} kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
     if x.ndim != 3:
         raise ValueError(f"x must be [B, N, D], got shape {tuple(x.shape)}")
     b, n, d = x.shape
-    if not fits(n, d, heads):
-        raise ValueError(f"fused_attn_block kernel does not take n={n}, "
-                         f"d={d}, heads={heads} (see fits())")
+    if not fits_fn(n, d, heads):
+        raise ValueError(f"{name} kernel does not take n={n}, "
+                         f"d={d}, heads={heads} (see {fits_fn.__name__}())")
     want = {"ln1_s": (d,), "ln1_b": (d,), "qkv_w": (d, 3 * d),
             "qkv_b": (3 * d,), "proj_w": (d, d), "proj_b": (d,)}
     for name, shape in want.items():
@@ -263,3 +276,148 @@ def fused_attn_block(
 
 
 fused_attn_block.launches = 0
+
+
+# -- headwise_attn_block ---------------------------------------------------------
+
+
+def fits_headwise(n: int, d: int, heads: int) -> bool:
+    """True when the headwise kernel takes a block of n tokens, width d,
+    ``heads`` heads: heads of a multiple of 4 columns up to 128, and 32 (or
+    16) query rows of f32 scores for all n keys in shared memory -- N up to
+    ~1600 with 32 rows, ~3200 with 16, at dh=64."""
+    if n <= 0 or heads <= 0 or d % heads:
+        return False
+    return tiled_attention.query_tile(n, d // heads) > 0
+
+
+def _subset_maps(qkv: torch.Tensor, heads: int, emit: Tuple[int, ...]
+                 ) -> torch.Tensor:
+    """Maps of the ``emit`` heads from the untransposed qkv, with an exact
+    max-subtracted softmax, cast to qkv's dtype: [B, |emit|, N, N]."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    dh = d // heads
+    q, k = (qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, dh)
+            [:, :, list(emit)].transpose(1, 2) for i in range(2))
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
+    return torch.softmax(s, dim=-1).to(qkv.dtype)
+
+
+def _ln_qkv(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
+    return L.linear(L.layer_norm(x, p["ln1_s"], p["ln1_b"], eps),
+                    p["qkv_w"], p["qkv_b"])
+
+
+def headwise_attn_block_reference(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+):
+    """Plain PyTorch version of the headwise block, same contract and cast
+    points. Its kernel computes what the whole-image kernel computes with
+    every head or no head emitted, so that plain version does the work; an
+    ``attn_heads`` subset is recomputed with the exact softmax, as in the
+    wrapper."""
+    emit = _emit_heads(heads, want_attn, attn_heads)
+    if emit is None:
+        return fused_attn_block_reference(
+            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
+            fast_softmax=fast_softmax)
+    out = fused_attn_block_reference(x, p, heads, eps, want_mean=want_mean,
+                                     fast_softmax=fast_softmax)
+    return (out[0], _subset_maps(_ln_qkv(x, p, eps), heads, emit), *out[2:])
+
+
+def _headwise_lib() -> ctypes.CDLL:
+    """Build (first use) and load the headwise kernel library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("headwise_attn_block")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_headwise_attn_block.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        lib.ivt_headwise_attn_block.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_headwise_kernel() -> ctypes.CDLL:
+    """Build and load the headwise kernel now; checks that the library's
+    shared-memory formula is the envelope's."""
+    lib = _headwise_lib()
+    tiled_attention.check_library(lib)
+    return lib
+
+
+def headwise_attn_block(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+):
+    """x [B, N, D] -> (x + proj(MHSA(LN(x))), probs [B, H|sel, N, N] | None)
+    [, mean [B, N, N] when ``want_mean``]; the contract of
+    ``fused_attn_block`` for blocks too long for it.
+
+    LN1 and QKV run as plain PyTorch ops, then one kernel launch does the
+    per-head attention, the head-mean and the projection with the
+    residual. An ``attn_heads`` subset's maps are recomputed outside the
+    kernel (exact softmax) and the kernel runs maps-off."""
+    if x.device.type == "cpu":
+        return headwise_attn_block_reference(
+            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
+            fast_softmax=fast_softmax, attn_heads=attn_heads)
+    if x.device.type != "cuda":
+        raise ValueError(f"headwise_attn_block runs on cuda or cpu tensors, "
+                         f"got {x.device}")
+    emit = _emit_heads(heads, want_attn, attn_heads)
+    _check_operands(x, p, heads, "headwise_attn_block", fits_headwise)
+    b, n, d = x.shape
+    qkv = _ln_qkv(x, p, eps)
+    sel = None
+    if emit is not None:
+        sel = _subset_maps(qkv, heads, emit)
+        want_attn = False  # the kernel itself runs maps-off
+    lib = _headwise_lib()
+    with torch.cuda.device(x.device):
+        o_ws = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
+        # f32 per-head probs, summed in head order by the head-mean pass
+        probs_ws = (torch.empty((b, heads, n, n), dtype=torch.float32,
+                                device=x.device) if want_mean else None)
+        y = torch.empty_like(x)
+        probs = (torch.empty((b, heads, n, n), dtype=x.dtype,
+                             device=x.device) if want_attn else None)
+        mean = (torch.empty((b, n, n), dtype=x.dtype, device=x.device)
+                if want_mean else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ivt_headwise_attn_block(
+            _DTYPE_CODE[x.dtype], x.data_ptr(), qkv.data_ptr(),
+            p["proj_w"].data_ptr(), p["proj_b"].data_ptr(), o_ws.data_ptr(),
+            None if probs_ws is None else probs_ws.data_ptr(), y.data_ptr(),
+            None if probs is None else probs.data_ptr(),
+            None if mean is None else mean.data_ptr(), b, n, d, heads,
+            float(d // heads) ** -0.5, 1.0 / heads, int(bool(fast_softmax)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"headwise_attn_block kernel launch failed: "
+                           f"cudaError {err}")
+    headwise_attn_block.launches += 1
+    if sel is not None:
+        probs = sel
+    if want_mean:
+        return y, probs, mean
+    return y, probs
+
+
+headwise_attn_block.launches = 0

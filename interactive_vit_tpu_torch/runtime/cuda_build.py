@@ -3,20 +3,24 @@
 Each ``csrc/<name>.cu`` has a plain C interface. On first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/torch_kernels/`` at the repository root and loaded with ``ctypes``.
-The file name carries a hash of the source and the compiler flags, so an
-edited source never loads a stale library. Nothing here runs at import
-time: the CPU-only test environment imports this module but never builds.
+The file name carries a hash of the source, of every shared header
+``csrc/*.cuh`` and of the compiler flags, so an edited source or header
+never loads a stale library. ``build_all`` compiles several sources at
+once, one ``nvcc`` each. Nothing here runs at import time: the CPU-only
+test environment imports this module but never builds.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -41,11 +45,15 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Where ``csrc/<name>.cu`` builds to, keyed by source and flags."""
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"{name}-{digest[:16]}.so")
+    """Where ``csrc/<name>.cu`` builds to, keyed by the source, the shared
+    headers and the flags."""
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC_DIR, name + ".cu"),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:
@@ -65,6 +73,13 @@ def build(name: str) -> str:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{res.stderr}")
     os.replace(tmp, so)
     return so
+
+
+def build_all(names: Sequence[str]) -> List[str]:
+    """Compile the named sources side by side (one ``nvcc`` each); returns
+    their library paths. Raises on the first failed build."""
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(names))) as pool:
+        return list(pool.map(build, names))
 
 
 def load(name: str) -> ctypes.CDLL:

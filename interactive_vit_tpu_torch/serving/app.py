@@ -67,7 +67,7 @@ class App:
         reg: Optional[Registry] = None,
         graphs_dir: str = "static/graphs",
         frontend_dir: Optional[str] = None,
-        device="cpu",
+        device="cuda",
         max_batch: int = 8,
         max_wait_ms: float = 3.0,
         compute_timeout_s: float = 120.0,

@@ -7,7 +7,11 @@ library when it lacks one; the repository's own ``static/graphs`` (the
 default) is only read. Example, on one CUDA card:
 
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \\
-        --dtype bfloat16 --device cuda --port 8965
+        --dtype bfloat16 --port 8965
+
+``--models vit_l16`` (384 px, 577 tokens) serves through the headwise
+block kernel, ``--models dinov2_s14_reg`` (518 px, 1374 tokens) through the
+flash attention kernel (``--attn``).
 
 Weights are a seeded random init; checkpoint loading, plugin scanning,
 multi-device serving and the other families are not ported yet.
@@ -23,7 +27,9 @@ import torch
 
 from interactive_vit_tpu_torch.graph.registry import Registry
 from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
+from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+from interactive_vit_tpu_torch.runtime.device import require_device
 from interactive_vit_tpu_torch.serving.app import App
 
 logger = logging.getLogger(__name__)
@@ -38,16 +44,18 @@ def build_app(
     models=("vit_t16",),
     graphs_dir: str = None,
     dtype_name: str = "float32",
-    device="cpu",
+    device="cuda",
     seed: int = 0,
     max_batch: int = 8,
     max_wait_ms: float = 3.0,
+    attn_impl_name: str = "auto",
 ) -> App:
-    """An ``App`` with its own registry serving ``models`` on ``device``."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda requested but no CUDA device is "
-                           "available")
+    """An ``App`` with its own registry serving ``models`` on ``device``
+    (the card unless the caller asks for the CPU; raises without a card).
+    ``attn_impl_name``: the attention policy of blocks on the unfused path
+    (``ops/dispatch.default_attn_impl``)."""
+    device = require_device(device)
+    attn_impl = default_attn_impl(attn_impl_name)
     reg = Registry()
     register_builtin(reg)
     repo_lib = graphs_dir is None
@@ -63,7 +71,8 @@ def build_app(
     )
     dtype = DTYPES[dtype_name]
     for variant in models:
-        model = make_vit_model(variant, seed=seed, dtype=dtype, device=device)
+        model = make_vit_model(variant, seed=seed, dtype=dtype, device=device,
+                               attn_impl=attn_impl)
         # the repository's library is never written: a variant without a
         # saved graph there gets none
         model.register(reg, None if repo_lib else app.graphs)
@@ -84,6 +93,11 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on, e.g. cuda, cuda:1 "
                              "or cpu")
+    parser.add_argument("--attn", default="auto",
+                        choices=["auto", "flash", "reference"],
+                        help="attention of blocks on the unfused path "
+                             "(LayerScale models such as DINOv2): auto = "
+                             "the flash kernel on CUDA for N >= 256")
     parser.add_argument("--graphs-dir", default=None,
                         help="saved-graph library; a variant's chain graph "
                              "is generated into it when missing (default: "
@@ -106,6 +120,7 @@ def main(argv=None) -> None:
         seed=args.seed,
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
+        attn_impl_name=args.attn,
     )
     app.serve(args.host, args.port)
 

@@ -172,14 +172,15 @@ def test_fits_envelope(n, d, heads, ok):
     ("auto", torch.float32, "cuda:0", 197, 192, 3, "kernel"),
     ("auto", torch.bfloat16, "cpu", 197, 768, 12, None),
     ("auto", torch.float16, "cuda", 197, 768, 12, None),
-    ("auto", torch.bfloat16, "cuda", 577, 1024, 16, None),
+    ("auto", torch.bfloat16, "cuda", 577, 1024, 16, "headwise"),
     ("fused", torch.float32, "cpu", 197, 768, 12, "kernel"),
     ("reference", torch.bfloat16, "cuda", 197, 768, 12, None),
 ])
 def test_dispatch_policy(name, dtype, device, n, d, heads, want):
     impl = dispatch.default_block_impl(name, dtype=dtype, n=n, d=d,
                                        heads=heads, device=device)
-    assert impl is (tfb.fused_attn_block if want == "kernel" else None)
+    assert impl is {"kernel": tfb.fused_attn_block,
+                    "headwise": tfb.headwise_attn_block, None: None}[want]
 
 
 def test_dispatch_unknown_name():

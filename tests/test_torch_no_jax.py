@@ -13,6 +13,8 @@ import sys
 import time
 import urllib.request
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 PORT_MODULES = [
@@ -21,12 +23,17 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.wire.codec",
     "interactive_vit_tpu_torch.wire.schema",
     "interactive_vit_tpu_torch.ops.fused_block",
+    "interactive_vit_tpu_torch.ops.flash_attention",
+    "interactive_vit_tpu_torch.ops.tiled_attention",
+    "interactive_vit_tpu_torch.ops.attention",
     "interactive_vit_tpu_torch.ops.dispatch",
     "interactive_vit_tpu_torch.ops.preprocess_mm",
     "interactive_vit_tpu_torch.ops.node_ops",
     "interactive_vit_tpu_torch.models.vit_plugin",
     "interactive_vit_tpu_torch.models.weights",
     "interactive_vit_tpu_torch.runtime.cuda_build",
+    "interactive_vit_tpu_torch.runtime.device",
+    "interactive_vit_tpu_torch.models.vit",
     "interactive_vit_tpu_torch.serving.app",
     "interactive_vit_tpu_torch.serving.batcher",
     "interactive_vit_tpu_torch.serving.server",
@@ -91,8 +98,36 @@ def test_server_entry_point_parses():
         timeout=120)
     assert res.returncode == 0, res.stderr
     for flag in ("--models", "--dtype", "--device", "--port", "--graphs-dir",
-                 "--seed", "--max-batch", "--max-wait-ms"):
+                 "--seed", "--max-batch", "--max-wait-ms", "--attn"):
         assert flag in res.stdout
+
+
+def _default_device_entry_points():
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
+    from interactive_vit_tpu_torch.serving.app import App
+    from interactive_vit_tpu_torch.serving.server import build_app
+
+    return {
+        "build_app": lambda tmp: build_app(models=["vit_t16"],
+                                           graphs_dir=str(tmp)),
+        "App": lambda tmp: App(graphs_dir=str(tmp)),
+        "Executor": lambda tmp: Executor(),
+        "make_vit_model": lambda tmp: make_vit_model("vit_t16"),
+    }
+
+
+@pytest.mark.parametrize("entry", ["build_app", "App", "Executor",
+                                   "make_vit_model"])
+def test_default_device_entry_points_raise_without_a_card(
+        entry, tmp_path, monkeypatch):
+    """The entry points run on the card unless asked for the CPU: with no
+    card they raise a clear error instead of carrying on on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _default_device_entry_points()[entry](tmp_path)
 
 
 def test_server_entry_point_serves_on_cpu(tmp_path):

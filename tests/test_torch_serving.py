@@ -286,7 +286,7 @@ def test_frontend_assets_and_traversal_guard(tmp_path):
     (front / "index.html").write_text("<html>hi</html>")
     (tmp_path / "secret.txt").write_text("no")
     app = App(reg=Registry(), graphs_dir=str(tmp_path / "g"),
-              frontend_dir=str(front))
+              frontend_dir=str(front), device="cpu")
     httpd = app.serve("127.0.0.1", 0, background=True)
     try:
         url = f"http://127.0.0.1:{httpd.server_address[1]}"
