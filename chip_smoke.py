@@ -7,7 +7,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the three hand-written kernels from ``csrc/`` with
+2. build   -- builds the five hand-written kernels from ``csrc/`` with
    nvcc, one compiler process each, all at once.
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
@@ -20,8 +20,19 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * the flash attention at the dinov2_s14_reg@518 shape (6 heads, N=1374,
      dh=64) and at N=577, maps on and off, plus keys masked beyond
      n_real=1374 of N=1408; ``scaled_dot_product_attention`` is timed
-     beside it with maps off (a yardstick; the port never calls it).
-4. slice   -- three paths through the HTTP server in-process, seeded random
+     beside it with maps off (a yardstick; the port never calls it);
+   * the window attention at swin_t's four stage shapes (maps 56/28/14/7,
+     widths 96/192/384/768, 3/6/12/24 heads, window 7; each at B=1 and
+     B=8) and one swin_b stage (14x14, 512, 16 heads), unshifted and, where
+     the stage has more than one window, shifted by 3 with the seam mask
+     (masked pairs must get probs of exactly 0 in bf16), maps off and on,
+     fast and exact softmax, bf16 and f32; ``scaled_dot_product_attention``
+     with the additive bias + mask is timed beside the attention part;
+   * the fused MLP at vit_b16 (197 x 768) and at swin_t's four stages
+     (3136 x 96, 784 x 192, 196 x 384, 49 x 768), each at B=1 and 8, bf16
+     and f32; the bound must refuse a kernel that returned the residual
+     alone.
+4. slice   -- four paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -34,12 +45,21 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * dinov2_s14_reg @518, bf16: ``attn`` + ``r`` on block 0, ``r`` on
      blocks 6 and 11, the CLS features; 3 in sequence; the flash kernel
      in all 12 blocks;
+   * swin_t, bf16, a 240 x 300 image through the bicubic transform:
+     ``attn`` on stages.0.0, stages.0.1 (shifted), stages.2.5 (window 2
+     only) and stages.3.1 (heads 0, 11, 23), the logits; 5 in sequence and
+     4 at once; the window kernel in all 12 blocks, 12 launches a request;
    each checked for shapes, finiteness, probs rows summing to 1 and
    agreement with the port's plain path on the card (the kernels' plain
    versions in every block), then one f32 request per path whose output
    must match the plain path at 1e-4. Each path also prints its
    ``/metrics`` p50s and one ``executor.run`` under ``torch.profiler``
    (device busy share, the kernels that take the most time).
+   Then the monolithic forwards ``vit.forward`` (vit_b16) and
+   ``swin.forward`` (swin_t) at B=1 and B=8, bf16, with the block or window
+   kernel and the fused MLP kernel from ``default_mlp_impl("fused")``,
+   against the same forwards with the plain versions: 12 MLP launches a
+   call.
 5. result  -- a JSON line describing the kernels, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -72,6 +92,10 @@ KERNELS = {
                             "interactive_vit_tpu/ops/fused_block.py:501"),
     "flash_attention": (CSRC + "flash_attention.cu",
                         "interactive_vit_tpu/ops/flash_attention.py:87"),
+    "fused_window_attn": (CSRC + "fused_window_attn.cu",
+                          "interactive_vit_tpu/ops/fused_window.py:128"),
+    "fused_mlp_block": (CSRC + "fused_mlp_block.cu",
+                        "interactive_vit_tpu/ops/fused_mlp.py:60"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -345,6 +369,187 @@ def phase_flash_kernel(device) -> dict:
     return out
 
 
+def window_cost(b, res, c, heads, win, esize, maps, masked):
+    """Bytes and FLOPs of one window-attention branch (QKV + W-MSA + proj)
+    on a [b, res, res, c] map: the map, the weights, the f32 bias (and
+    seam mask) read once; the branch output (and the maps) written once."""
+    t, nw = win * win, (res // win) ** 2
+    rows = b * res * res
+    nbytes = (esize * (2 * rows * c + 4 * c * c + 4 * c
+                       + (b * nw * heads * t * t if maps else 0))
+              + 4 * (heads * t * t + (nw * t * t if masked else 0)))
+    flops = (2 * rows * c * 3 * c + 2 * rows * c * c
+             + 4 * b * nw * heads * t * t * (c // heads))
+    return nbytes, flops
+
+
+def mlp_cost(rows, d, md, esize):
+    """Bytes and FLOPs of one MLP branch on ``rows`` rows of width d: x,
+    LN, both weight matrices and biases read once, y written once."""
+    return esize * (2 * rows * d + 2 * d * md + md + 3 * d), 4 * rows * d * md
+
+
+def check_window_case(tag, fw, args, dtype, maps, fast):
+    """One launch of the window kernel against its plain version, the
+    bounds' refusal of a zeroed or halved tap, and the seam pairs of a
+    shifted block. Returns (max abs errs, the line for the log)."""
+    import torch
+
+    mask = args[-1]
+    kw = {"want_attn": maps, "fast_softmax": fast}
+    got = fw.fused_window_attn(*args, **kw)
+    ref = fw.fused_window_attn_reference(*args, **kw)
+    torch.cuda.synchronize()
+    errs, line = check_outputs(tag, got, ref, dtype, ("a", "probs"))
+    check_bounds_refuse(tag, got, ref, dtype, ("a", "probs"))
+    if maps and mask is not None:
+        seam = got[1].float()[(mask[None, :, None] < 0).expand_as(got[1])]
+        # exp(-100): exactly 0 in bf16, a denormal in f32
+        clean = (seam == 0 if dtype == torch.bfloat16 else seam < 1e-37)
+        if seam.numel() == 0 or not bool(clean.all()):
+            raise AssertionError(f"{tag}: masked seam pairs got probs")
+    return errs, line
+
+
+def phase_window_kernel(device) -> dict:
+    """The window-attention kernel against its plain version; returns the
+    numbers of the shape most of a served swin_t request's launches have
+    (stage 2: 6 of 12 blocks; bf16, unshifted, maps off)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from interactive_vit_tpu_torch.models import swin
+    from interactive_vit_tpu_torch.ops import fused_window as fw
+
+    out = {}
+    win = 7
+    t = win * win
+    # every shape a served request (B=1; concurrent requests batch) or the
+    # monolithic forward (B=1 and 8) gives the kernel, and one swin_b stage
+    stage_shapes = [("swin_t stage0", 56, 96, 3), ("swin_t stage1", 28, 192, 6),
+                    ("swin_t stage2", 14, 384, 12),
+                    ("swin_t stage3", 7, 768, 24)]
+    shapes = ([(sname, b, res, c, heads)
+               for sname, res, c, heads in stage_shapes for b in (1, 8)]
+              + [("swin_b stage2", 1, 14, 512, 16)])
+    for (sname, b, res, c, heads), dtype in itertools.product(
+            shapes, (torch.bfloat16, torch.float32)):
+        nw = (res // win) ** 2
+        dt = str(dtype).replace("torch.", "")
+        g = torch.Generator().manual_seed(res * 1000 + c + b)
+
+        def rnd(*shape, std=1.0):
+            return (torch.randn(shape, generator=g) * std).to(
+                device=device, dtype=dtype)
+
+        p = {"qkv_w": rnd(c, 3 * c, std=c ** -0.5), "qkv_b": rnd(3 * c, std=0.1),
+             "proj_w": rnd(c, c, std=c ** -0.5), "proj_b": rnd(c, std=0.1)}
+        y = rnd(b, res, res, c)
+        bias = rnd(heads, t, t, std=0.5)
+        # a stage of one window has no shifted block (the shift clamps to 0)
+        for shift, maps in itertools.product((0, 3) if nw > 1 else (0,),
+                                             (False, True)):
+            mask = swin.shift_attn_mask(res, win, shift)
+            if mask is not None:
+                mask = torch.from_numpy(mask).to(device)
+            args = (y, p, heads, win, bias, mask)
+            tag = (f"fused_window_attn {sname} B={b} {dt} shift={shift} "
+                   f"maps {'on' if maps else 'off'}")
+            exact_errs, _ = check_window_case(tag + " exact", fw, args, dtype,
+                                              maps, fast=False)
+            errs, line = check_window_case(tag, fw, args, dtype, maps,
+                                           fast=True)
+            kw = {"want_attn": maps}
+            t_k, t_p = time_turns(
+                lambda: fw.fused_window_attn(*args, **kw),
+                lambda: fw.fused_window_attn_reference(*args, **kw))
+            nbytes, flops = window_cost(b, res, c, heads, win,
+                                        y.element_size(), maps,
+                                        mask is not None)
+            bms, by = bound(nbytes, flops, dt)
+            log(line + f"; exact softmax {max(exact_errs):.3g}; kernel "
+                f"{t_k:.4f} ms, plain {t_p:.4f} ms; bound {bms:.5f} ms ({by}: "
+                f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+            if (sname, b, dt, shift, maps) == ("swin_t stage2", 1, "bfloat16",
+                                               0, False):
+                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+        if b == 1 and dtype == torch.bfloat16:
+            # yardstick for the attention part alone (no QKV, no proj): one
+            # library call on ready-made q, k, v with the additive bias; the
+            # port never calls it
+            q, k, v = (rnd(b, nw, heads, t, c // heads) for _ in range(3))
+            add = bias[None].expand(nw, heads, t, t)
+            t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=add))
+            log(f"  {sname} {dt}: scaled_dot_product_attention on the "
+                f"attention part (q, k, v [{b}, {nw}, {heads}, {t}, "
+                f"{c // heads}] + bias) {t_lib:.4f} ms")
+    return out
+
+
+def phase_mlp_kernel(device) -> dict:
+    """The fused MLP kernel against its plain version; returns the numbers
+    of the vit_b16 shape (197 x 768, B=1, bf16) for the result line."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+
+    out = {}
+    # every shape the monolithic forwards give the kernel (B=1 and 8):
+    # vit_b16's block and swin_t's four stages, each width its own
+    # instantiation of the kernel
+    shapes = [(sname, b, n, d, eps)
+              for sname, n, d, eps in (("vit_b16", 197, 768, 1e-6),
+                                       ("swin_t stage0", 3136, 96, 1e-5),
+                                       ("swin_t stage1", 784, 192, 1e-5),
+                                       ("swin_t stage2", 196, 384, 1e-5),
+                                       ("swin_t stage3", 49, 768, 1e-5))
+              for b in (1, 8)]
+    for sname, b, n, d, eps in shapes:
+        md = 4 * d
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            g = torch.Generator().manual_seed(n + d + b)
+
+            def rnd(*shape, std=1.0, mean=0.0):
+                return (torch.randn(shape, generator=g) * std + mean).to(
+                    device=device, dtype=dtype)
+
+            p = {"ln2_s": rnd(d, std=0.1, mean=1.0), "ln2_b": rnd(d, std=0.1),
+                 "fc1_w": rnd(d, md, std=d ** -0.5),
+                 "fc1_b": rnd(md, std=0.1),
+                 "fc2_w": rnd(md, d, std=md ** -0.5),
+                 "fc2_b": rnd(d, std=0.1)}
+            x = rnd(b, n, d)
+            got = fm.fused_mlp_block(x, p, eps)
+            ref = fm.fused_mlp_block_reference(x, p, eps)
+            torch.cuda.synchronize()
+            tag = f"fused_mlp_block {sname} B={b} {n}x{d} {dt}"
+            errs, line = check_outputs(tag, (got,), (ref,), dtype, ("y",))
+            try:  # the bound must refuse the residual alone
+                check_outputs(tag, (x,), (ref,), dtype, ("y",), quiet=True)
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError(f"{tag}: x alone passed the bound")
+            t_k, t_p = time_turns(
+                lambda: fm.fused_mlp_block(x, p, eps),
+                lambda: fm.fused_mlp_block_reference(x, p, eps))
+            nbytes, flops = mlp_cost(b * n, d, md, x.element_size())
+            bms, by = bound(nbytes, flops, dt)
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
+                     f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+                     f"{flops / 1e9:.3f} GFLOP)")
+            if (sname, b, dt) == ("vit_b16", 1, "bfloat16"):
+                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+            log(line)
+    return out
+
+
 def chain_graph(graph_obj, image, node_params=None):
     """A saved graph with per-node params and ``image`` bound to node 0."""
     from interactive_vit_tpu_torch.wire.schema import graph_from_json
@@ -422,84 +627,140 @@ def stop(app, httpd) -> None:
 
 
 class Path:
-    """One served path: a model, its taps and what its blocks launch."""
+    """One served path: a model of ``family`` (the ``models`` module with
+    its ``layer_fns``), its taps (graph node -> channels; a generated chain
+    graph's node i is the model's layer i) and the kernel its blocks
+    launch. ``plain`` holds the ``layer_fns`` arguments that put the
+    kernels' plain versions into every block. ``tap_shape(path, node, ch)``
+    gives a tap's expected shape and ``check_tap(path, node, arr, tag,
+    bf16)`` holds what else the family asks of a tapped array. ``other``:
+    a second Path served beside this one and asked once."""
 
-    def __init__(self, model, img, blocks, kernel, plain, seq, conc,
-                 node_params=None, other=None):
-        self.model, self.img, self.blocks = model, img, blocks
+    def __init__(self, model, family, cfg, img, taps, kernel, plain,
+                 tap_shape, seq, conc, check_tap=None, node_params=None,
+                 other=None):
+        self.model, self.family, self.cfg = model, family, cfg
+        self.img, self.tap_nodes = img, taps
         self.kernel, self.plain = kernel, plain
+        self.tap_shape, self.check_tap = tap_shape, check_tap
         self.seq, self.conc = seq, conc
         self.node_params = node_params or {}
         self.other = other
+        layers = family.layer_fns(cfg)
+        self.names = [name for name, _, _ in layers]
+        self.head_node = self.names.index("head")
+        # the blocks are the layers with extra (tap) channels
+        self.depth = sum(1 for _, extra, _ in layers if extra)
+        self.head_shape = (1, cfg.num_classes or cfg.width)
 
-    def taps(self, cfg):
-        return ([(2 + i, ch) for i, chs in self.blocks.items() for ch in chs]
-                + [(2 + cfg.depth + 1, "o")])
+    def taps(self):
+        return ([(i, ch) for i, chs in self.tap_nodes.items() for ch in chs]
+                + [(self.head_node, "o")])
 
-    def block_params(self, i):
-        return {k: v for k, v in self.node_params.get(2 + i, {}).items()}
+    def params_of(self, node):
+        return dict(self.node_params.get(node, {}))
+
+
+def vit_tap_shape(path, node, ch):
+    """Plain ViT: ``attn`` [1, heads or the selected ones, N, N], the
+    head-mean ``r`` [1, N, N]."""
+    from interactive_vit_tpu_torch.models.vit import parse_attn_heads
+
+    sel = parse_attn_heads(path.params_of(node))
+    n = path.cfg.tokens
+    return {"attn": (1, len(sel) if sel else path.cfg.heads, n, n),
+            "r": (1, n, n)}[ch]
+
+
+def swin_stage_block(path, node):
+    _, s, b = path.names[node].split(".")
+    return int(s), int(b)
+
+
+def swin_tap_shape(path, node, ch):
+    """Swin: ``attn`` [1, nW, heads or the selected ones, T, T]; with
+    ``attn_win`` the one window's [1, heads, T, T]."""
+    from interactive_vit_tpu_torch.models.vit import parse_attn_heads
+
+    cfg = path.cfg
+    s, _ = swin_stage_block(path, node)
+    params = path.params_of(node)
+    sel = parse_attn_heads(params)
+    t = cfg.window ** 2
+    shape = (1, (cfg.stage_res(s) // cfg.window) ** 2,
+             len(sel) if sel else cfg.heads[s], t, t)
+    return shape[:1] + shape[2:] if params.get("attn_win") else shape
+
+
+def swin_check_tap(path, node, arr, tag, bf16) -> None:
+    """A shifted block's seam pairs get no attention: exactly 0 in bf16
+    (exp(-100) rounds to 0), a denormal in f32."""
+    cfg = path.cfg
+    s, b = swin_stage_block(path, node)
+    shift = cfg.stage_shift(s, b)
+    if not shift or path.params_of(node):
+        return
+    mask = path.family.shift_attn_mask(cfg.stage_res(s), cfg.window, shift)
+    seam = arr[np.broadcast_to(mask[None, :, None] < 0, arr.shape)]
+    if seam.size == 0 or not (seam == 0 if bf16 else seam < 1e-37).all():
+        raise AssertionError(f"{tag}: node {node} masked seam pairs got "
+                             f"probs (max {seam.max()})")
 
 
 def plain_taps(path, model, image, device):
     """The port's plain path on ``device`` with the served model's weights:
     the same layer chain with the kernels' plain versions in every block.
-    Returns (head output, {block: {channel: tensor}})."""
+    Returns (head output, {node: {channel: tensor}})."""
     import torch
 
-    from interactive_vit_tpu_torch.models import vit
-
-    cfg = vit.resolve_variant(model.name)
+    fam, cfg = path.family, path.cfg
     x = torch.from_numpy(image).to(device)
     maps = {}
     with torch.inference_mode():
-        for name, extra, fn in vit.layer_fns(cfg, **path.plain):
-            p = vit.layer_params(model.params, name)
+        for node, (name, extra, fn) in enumerate(
+                fam.layer_fns(cfg, **path.plain)):
+            p = fam.layer_params(model.params, name)
             if extra:
-                i = int(name.split(".")[1])
-                want = frozenset(path.blocks.get(i, ()))
+                want = frozenset(path.tap_nodes.get(node, ()))
                 out = fn(p, {"o": x}, want=want,
-                         node_params=path.block_params(i))
+                         node_params=path.params_of(node))
                 if want:
-                    maps[i] = {ch: out[ch] for ch in want}
+                    maps[node] = {ch: out[ch] for ch in want}
             else:
                 out = fn(p, {"o": x})
             x = out["o"]
     return x, maps
 
 
-def check_response(raw, path, cfg, plain, tag, bf16=True):
+def check_response(raw, path, plain, tag, bf16=True):
     """Shapes, finiteness, row sums and agreement with the plain path.
     Returns ({output: max abs err}, {output: the share of its bound that
     err uses})."""
-    from interactive_vit_tpu_torch.models.vit import parse_attn_heads
     from interactive_vit_tpu_torch.wire.codec import Response
 
     out = Response.decode(raw)
-    n = cfg.tokens
-    head = out[2 + cfg.depth + 1]["o"]
-    want_head = (1, cfg.num_classes or cfg.width)
-    if head.shape != want_head:
+    head = out[path.head_node]["o"]
+    if head.shape != path.head_shape:
         raise AssertionError(f"{tag}: head output shape {head.shape}")
     if not np.isfinite(head).all():
         raise AssertionError(f"{tag}: non-finite head output")
     p_head, p_maps = plain
     pairs = {"head": (head, p_head.float().cpu().numpy())}
-    for i, chs in path.blocks.items():
-        sel = parse_attn_heads(path.block_params(i))
-        heads = len(sel) if sel else cfg.heads
-        shapes = {"attn": (1, heads, n, n), "r": (1, n, n)}
+    for i, chs in path.tap_nodes.items():
         for ch in chs:
-            arr = out[2 + i][ch]
-            if arr.shape != shapes[ch]:
-                raise AssertionError(f"{tag}: block {i} {ch} {arr.shape}")
+            arr = out[i][ch]
+            if arr.shape != path.tap_shape(path, i, ch):
+                raise AssertionError(f"{tag}: node {i} {ch} {arr.shape}")
             if not np.isfinite(arr).all():
-                raise AssertionError(f"{tag}: non-finite block {i} {ch}")
+                raise AssertionError(f"{tag}: non-finite node {i} {ch}")
             if ch == "attn":
                 row_err = float(np.abs(arr.sum(-1) - 1.0).max())
                 if row_err > ROW_SUM_BOUND:
                     raise AssertionError(
-                        f"{tag}: block {i} probs rows sum to 1 within "
+                        f"{tag}: node {i} probs rows sum to 1 within "
                         f"{row_err} > {ROW_SUM_BOUND}")
+            if path.check_tap is not None:
+                path.check_tap(path, i, arr, tag, bf16)
             pairs[f"{ch}{i}"] = (arr, p_maps[i][ch].float().cpu().numpy())
     errs, uses = {}, {}
     for key, (got, ref) in pairs.items():
@@ -523,28 +784,24 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     requests in sequence, ``conc`` at once (and one request to
     ``path.other``), then one f32 request on a fresh f32 server; the
     counts are read after it. Returns the counts and the p50."""
-    from interactive_vit_tpu_torch.models import vit
-
-    cfg = vit.resolve_variant(path.model)
     rng = np.random.default_rng(0)
-    images = [rng.random((3, path.img, path.img), dtype=np.float32)
+    shape = path.img if isinstance(path.img, tuple) else (path.img, path.img)
+    images = [rng.random((3, *shape), dtype=np.float32)
               for _ in range(path.seq + path.conc)]
-    variants = [path.model] + ([path.other] if path.other else [])
+    opath = path.other
+    variants = [path.model] + ([opath.model] if opath else [])
     app, httpd, url = serve(variants, "bfloat16", device, graphs_dir)
     try:
         graph = app.graphs.load(path.model + ".json")
         model = app.reg.get_node(path.model + ":head").model
-        bodies = [chain_request(graph, im, path.taps(cfg), path.node_params)
+        bodies = [chain_request(graph, im, path.taps(), path.node_params)
                   for im in images]
         other_raw = None
-        if path.other:
-            ocfg = vit.resolve_variant(path.other)
-            opath = Path(path.other, 224, path.blocks, path.kernel,
-                         path.plain, 1, 0)
-            other_body = chain_request(app.graphs.load(path.other + ".json"),
-                                       images[0][:, :224, :224],
-                                       opath.taps(ocfg))
-            other_model = app.reg.get_node(path.other + ":head").model
+        if opath:
+            other_image = images[0][:, :opath.img, :opath.img]
+            other_body = chain_request(app.graphs.load(opath.model + ".json"),
+                                       other_image, opath.taps())
+            other_model = app.reg.get_node(opath.model + ":head").model
         post(url + "/compute", bodies[0])  # warms the allocator
 
         for fn in counters.values():  # the path starts here
@@ -555,6 +812,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             t0 = time.perf_counter()
             raws.append(post(url + "/compute", body))
             lat.append(time.perf_counter() - t0)
+        per_request = counters[path.kernel].launches / path.seq
         conc = [None] * path.conc
 
         def worker(k):
@@ -571,19 +829,23 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         # concurrent requests may share a batch, and a batch runs each
         # block once for all its requests
         batches = app.metrics.counters.get("batches", 0) - batches0
-        if path.other:
+        if opath:
             other_raw = post(url + "/compute", other_body)
         bf16_counts = {k: fn.launches for k, fn in counters.items()}
         metrics = json.loads(urllib.request.urlopen(
             url + "/metrics", timeout=30).read())
         profile_request(app, chain_graph(graph, images[0], path.node_params),
-                        path.taps(cfg), path.model)
+                        path.taps(), path.model)
     finally:
         stop(app, httpd)
 
     served = path.seq + path.conc
-    want = cfg.depth * batches + (vit.resolve_variant(path.other).depth
-                                  if path.other else 0)
+    depth = path.depth
+    want = depth * batches + (opath.depth if opath else 0)
+    if per_request != depth:
+        raise AssertionError(f"{path.kernel} launched {per_request} times a "
+                             f"sequential {path.model} request; expected "
+                             f"{depth}")
     if batches < path.seq or bf16_counts[path.kernel] < want:
         raise AssertionError(f"{path.kernel} launched "
                              f"{bf16_counts[path.kernel]} times for {served} "
@@ -591,7 +853,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
                              f"expected >= {want}")
     worst, worst_use = {}, {}
     for k, raw in enumerate(raws + conc):
-        errs, uses = check_response(raw, path, cfg,
+        errs, uses = check_response(raw, path,
                                     plain_taps(path, model, images[k],
                                                device),
                                     f"{path.model} request {k}")
@@ -600,9 +862,10 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             worst_use[key] = max(worst_use.get(key, 0.0), uses[key])
     p50 = float(np.median(lat)) * 1e3
     log(f"  {path.model} bf16: {path.seq} sequential + {path.conc} "
-        f"concurrent requests{' + 1 ' + path.other if path.other else ''} "
+        f"concurrent requests{' + 1 ' + opath.model if opath else ''} "
         f"in {batches} {path.model} batches; launches {bf16_counts} "
-        f"({path.kernel} >= {want}); p50 latency per "
+        f"({path.kernel}: {per_request:g} a sequential request, >= {want} in "
+        f"all); p50 latency per "
         f"request {p50:.2f} ms (client wall, sequential)")
     log("  server p50s (ms, all requests): " + ", ".join(
         f"{k.removesuffix('_p50_ms')} {metrics[k]:.2f}" for k in (
@@ -612,12 +875,12 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     log(f"  {path.model} bf16 vs plain path, worst max abs err (share of "
         f"its bound): " + ", ".join(f"{k}={v:.3g} ({worst_use[k]:.2f})"
                                     for k, v in sorted(worst.items())))
-    if path.other:
-        errs, _ = check_response(other_raw, opath, ocfg,
-                                 plain_taps(opath, other_model, images[0]
-                                            [:, :224, :224], device),
-                                 f"{path.other} request")
-        log(f"  {path.other} head output vs plain {errs['head']:.3g}")
+    if opath:
+        errs, _ = check_response(other_raw, opath,
+                                 plain_taps(opath, other_model, other_image,
+                                            device),
+                                 f"{opath.model} request")
+        log(f"  {opath.model} head output vs plain {errs['head']:.3g}")
 
     # one f32 request: the output must match the plain path at 1e-4
     app, httpd, url = serve([path.model], "float32", device, graphs_dir)
@@ -630,10 +893,10 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     finally:
         stop(app, httpd)
     launches_f32 = counts[path.kernel] - bf16_counts[path.kernel]
-    if launches_f32 < cfg.depth:
+    if launches_f32 < depth:
         raise AssertionError(f"f32 request launched {path.kernel} "
-                             f"{launches_f32} times; expected >= {cfg.depth}")
-    errs32, _ = check_response(raw, path, cfg,
+                             f"{launches_f32} times; expected >= {depth}")
+    errs32, _ = check_response(raw, path,
                                plain_taps(path, model, images[0], device),
                                f"{path.model} f32 request", bf16=False)
     log(f"  {path.model} f32: 1 request, {path.kernel} launches "
@@ -644,6 +907,125 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     return {"launches": counts, "p50_ms": p50}
 
 
+def run_forwards(device, counters) -> int:
+    """The monolithic forwards with the fused MLP kernel: ``vit.forward``
+    at vit_b16 width (block kernel + MLP kernel) and ``swin.forward`` at
+    swin_t width (window kernel + one MLP kernel per stage), bf16, B=1 and
+    B=8, seeded random weights, against the same forwards with the
+    kernels' plain versions. Every launch count is set to 0 before the
+    checked forwards and the MLP kernel's count (12 a call) is read and
+    returned straight after them; the forwards timed afterwards do not
+    enter it."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import swin, vit
+    from interactive_vit_tpu_torch.ops import dispatch
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+    from interactive_vit_tpu_torch.ops import fused_window as fw
+
+    dtype = torch.bfloat16
+    vcfg, scfg = vit.resolve_variant("vit_b16"), swin.VARIANTS["swin_t"]
+    vparams = vit.init_params(vcfg, torch.Generator().manual_seed(0), dtype,
+                              device)
+    sparams = swin.init_params(scfg, torch.Generator().manual_seed(0), dtype,
+                               device)
+    stages = range(len(scfg.depths))
+    kernel_kw = {
+        "vit_b16": {
+            "block_impl": dispatch.default_block_impl(
+                "auto", dtype, vcfg.tokens, vcfg.width, vcfg.heads, device),
+            "mlp_impl": dispatch.default_mlp_impl(
+                "fused", dtype, vcfg.width, vcfg.mlp_dim, device=device)},
+        "swin_t": {
+            "window_impl": dispatch.default_window_impl(
+                "auto", dtype, scfg, device),
+            "mlp_impls": [dispatch.default_mlp_impl(
+                "fused", dtype, scfg.stage_dim(s),
+                scfg.stage_dim(s) * scfg.mlp_ratio, device=device)
+                for s in stages]},
+    }
+    plain_kw = {
+        "vit_b16": {"block_impl": fb.fused_attn_block_reference,
+                    "mlp_impl": fm.fused_mlp_block_reference},
+        "swin_t": {"window_impl": fw.fused_window_attn_reference,
+                   "mlp_impls": [fm.fused_mlp_block_reference for _ in stages]},
+    }
+    if (kernel_kw["vit_b16"]["block_impl"] is not fb.fused_attn_block
+            or kernel_kw["swin_t"]["window_impl"] is not fw.fused_window_attn):
+        raise AssertionError("dispatch did not pick the kernels on the card")
+    runs = {"vit_b16": (vit.forward, vparams, vcfg, "fused_attn_block"),
+            "swin_t": (swin.forward, sparams, scfg, "fused_window_attn")}
+
+    def wall_ms(fn, iters=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    cases = [(name, b, torch.rand((b, 3, runs[name][2].img_size,
+                                   runs[name][2].img_size),
+                                  generator=torch.Generator().manual_seed(b)
+                                  ).to(device))
+             for name in runs for b in (1, 8)]
+    for fn in counters.values():  # the path starts here
+        fn.launches = 0
+    lines = {}
+    with torch.inference_mode():
+        for name, b, imgs in cases:
+            forward, params, cfg, attn_kernel = runs[name]
+            before = {k: f.launches for k, f in counters.items()}
+            got = forward(params, imgs, cfg, want_attn=True,
+                          **kernel_kw[name])
+            torch.cuda.synchronize()
+            delta = {k: f.launches - before[k]
+                     for k, f in counters.items() if f.launches > before[k]}
+            if delta != {attn_kernel: 12, "fused_mlp_block": 12}:
+                raise AssertionError(f"{name} forward B={b} launched "
+                                     f"{delta}; expected 12 {attn_kernel} "
+                                     f"and 12 fused_mlp_block")
+            ref = forward(params, imgs, cfg, want_attn=True,
+                          **plain_kw[name])
+            logits, rlogits = got["logits"].float(), ref["logits"].float()
+            if (logits.shape != (b, cfg.num_classes)
+                    or not torch.isfinite(logits).all()):
+                raise AssertionError(f"{name} forward B={b}: logits "
+                                     f"{tuple(logits.shape)} or non-finite")
+            bound = SLICE_REL * max(1.0, rlogits.abs().max().item())
+            err = (logits - rlogits).abs().max().item()
+            map_use = max(
+                ((g.float() - r.float()).abs().max()
+                 / (SLICE_REL * r.float().abs().max())).item()
+                for g, r in zip(got["attn"], ref["attn"]))
+            if err > bound or map_use > 1.0:
+                raise AssertionError(
+                    f"{name} forward B={b}: logits {err:.3g} (bound "
+                    f"{bound:.3g}), maps {map_use:.2f} of their bound")
+            lines[name, b] = (
+                f"  {name} forward B={b} bf16, {attn_kernel} + "
+                f"fused_mlp_block: launches {delta}; logits max abs err "
+                f"vs the plain versions {err:.3g} (bound {bound:.3g}), "
+                f"maps {map_use:.2f} of their bound")
+        # the path ends here: the count is read before the timed forwards
+        count = counters["fused_mlp_block"].launches
+        if count != 12 * len(cases):
+            raise AssertionError(f"fused_mlp_block launched {count} times in "
+                                 f"{len(cases)} forwards; expected "
+                                 f"{12 * len(cases)}")
+        for name, b, imgs in cases:
+            forward, params, cfg, _ = runs[name]
+            t_k = wall_ms(lambda: forward(params, imgs, cfg,
+                                          **kernel_kw[name]))
+            t_p = wall_ms(lambda: forward(params, imgs, cfg,
+                                          **plain_kw[name]))
+            log(lines[name, b] + f"; maps off: kernels {t_k:.2f} ms, plain "
+                f"versions {t_p:.2f} ms (host wall, synchronized)")
+    return count
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -652,6 +1034,8 @@ def main() -> int:
 
     from interactive_vit_tpu_torch.ops import flash_attention as fa
     from interactive_vit_tpu_torch.ops import fused_block as fb
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+    from interactive_vit_tpu_torch.ops import fused_window as fw
     from interactive_vit_tpu_torch.runtime import cuda_build
 
     # 1. device
@@ -676,11 +1060,15 @@ def main() -> int:
     fb.load_kernel()
     fb.load_headwise_kernel()
     fa.load_kernel()
+    fw.load_kernel()
+    fm.load_kernel()
     log(f"phase 2 build: {', '.join(KERNELS)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     counters = {"fused_attn_block": fb.fused_attn_block,
                 "headwise_attn_block": fb.headwise_attn_block,
-                "flash_attention": fa.flash_attention}
+                "flash_attention": fa.flash_attention,
+                "fused_window_attn": fw.fused_window_attn,
+                "fused_mlp_block": fm.fused_mlp_block}
 
     # 3. kernels against their plain versions
     log("phase 3 kernels vs plain versions on the card:")
@@ -708,22 +1096,41 @@ def main() -> int:
                            "attn_heads": (0, 7, 15)}},
             ("vit_l16", 1, "bfloat16", "maps_mean")),
         "flash_attention": phase_flash_kernel(device),
+        "fused_window_attn": phase_window_kernel(device),
+        "fused_mlp_block": phase_mlp_kernel(device),
     }
 
     # 4. the paths through the server
     log("phase 4 slice through the HTTP server:")
+    from interactive_vit_tpu_torch.models import swin, vit
+
+    def vit_path(name, img, taps, kernel, plain, seq, conc, **kw):
+        return Path(name, vit, vit.resolve_variant(name), img, taps, kernel,
+                    plain, vit_tap_shape, seq, conc, **kw)
+
+    b16_taps = {2: ("attn", "r"), 7: ("attn", "r"), 13: ("attn", "r")}
+    b16_plain = {"block_impl": fb.fused_attn_block_reference}
     paths = [
-        Path("vit_b16", 224, {0: ("attn", "r"), 5: ("attn", "r"),
-                              11: ("attn", "r")}, "fused_attn_block",
-             {"block_impl": fb.fused_attn_block_reference}, seq=5, conc=4,
-             other="vit_t16"),
-        Path("vit_l16", 384, {0: ("attn", "r"), 12: ("attn", "r"),
-                              23: ("r",)}, "headwise_attn_block",
-             {"block_impl": fb.headwise_attn_block_reference}, seq=3,
-             conc=2, node_params={2 + 12: {"attn_heads": "[0,7,15]"}}),
-        Path("dinov2_s14_reg", 518, {0: ("attn", "r"), 6: ("r",),
-                                     11: ("r",)}, "flash_attention",
-             {"attn_impl": fa.flash_attention_reference}, seq=3, conc=0),
+        vit_path("vit_b16", 224, b16_taps, "fused_attn_block", b16_plain,
+                 seq=5, conc=4,
+                 other=vit_path("vit_t16", 224, b16_taps, "fused_attn_block",
+                                b16_plain, seq=1, conc=0)),
+        vit_path("vit_l16", 384, {2: ("attn", "r"), 14: ("attn", "r"),
+                                  25: ("r",)}, "headwise_attn_block",
+                 {"block_impl": fb.headwise_attn_block_reference}, seq=3,
+                 conc=2, node_params={14: {"attn_heads": "[0,7,15]"}}),
+        vit_path("dinov2_s14_reg", 518, {2: ("attn", "r"), 8: ("r",),
+                                         13: ("r",)}, "flash_attention",
+                 {"attn_impl": fa.flash_attention_reference}, seq=3, conc=0),
+        # nodes 2, 3: stages.0.0 and stages.0.1 (shifted); 13: stages.2.5;
+        # 16: stages.3.1; a non-square image exercises the bicubic resize
+        Path("swin_t", swin, swin.VARIANTS["swin_t"], (240, 300),
+             {2: ("attn",), 3: ("attn",), 13: ("attn",), 16: ("attn",)},
+             "fused_window_attn",
+             {"window_impl": fw.fused_window_attn_reference},
+             swin_tap_shape, seq=5, conc=4, check_tap=swin_check_tap,
+             node_params={13: {"attn_win": "2"},
+                          16: {"attn_heads": "[0,11,23]"}}),
     ]
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_")
     try:
@@ -734,6 +1141,7 @@ def main() -> int:
             numbers[path.kernel]["launches"] = res["launches"][path.kernel]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    numbers["fused_mlp_block"]["launches"] = run_forwards(device, counters)
 
     # 5. result
     log("phase 5 result: all phases passed")

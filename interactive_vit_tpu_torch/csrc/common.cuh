@@ -1,8 +1,9 @@
 // Pieces shared by the hand-written attention kernels under csrc/:
 // dtype conversion, warp reductions, the f32-FMA GEMM with the LN-prologue
-// and residual-epilogue variants, the deterministic head-mean pass, and a
-// key-tiled attention kernel for sequences whose keys do not fit in shared
-// memory. Each .cu file that includes this header builds into its own
+// and residual-epilogue variants (and the plain one with only a bias), the
+// deterministic head-mean pass, and a key-tiled attention kernel for
+// sequences whose keys do not fit in shared memory. Each .cu file that
+// includes this header builds into its own
 // library (runtime/cuda_build.py hashes this header into every library
 // name, so an edit here rebuilds them all).
 //
@@ -45,12 +46,14 @@ constexpr size_t SMEM_LIMIT = 232448;
 
 // ---------------------------------------------------------------------------
 // out[M, Nc] = A'[M, K] @ W[K, Nc] (+ epilogue).
-// LN=true:  A' = cast_T(LN(A) * ln_s + ln_b) with f32 row statistics; out = acc + bias.
-// LN=false: out = (res + acc) + bias, all in f32, then cast.
+// LN=true:   A' = cast_T(LN(A) * ln_s + ln_b) with f32 row statistics; else A' = A.
+// RES=true:  out = (res + acc) + bias; else out = acc + bias. All in f32, then cast.
+// The attention blocks use <LN, !RES> for QKV and <!LN, RES> for the
+// projection; the window attention uses <!LN, !RES> for both.
 // 64 x 64 output tile per block, 256 threads, 4 x 4 outputs per thread.
 constexpr int TM = 64, TN = 64, TK = 16, GEMM_THREADS = 256;
 
-template <typename T, bool LN>
+template <typename T, bool LN, bool RES = !LN>
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, const T* __restrict__ bias,
             const T* __restrict__ ln_s, const T* __restrict__ ln_b, const T* __restrict__ res,
@@ -146,10 +149,10 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, const T* __restric
       if (col >= Nc) continue;
       const size_t idx = (size_t)row * Nc + col;
       float v = acc[r][c];
-      if (LN) {
-        v = v + to_f(bias[col]);
-      } else {
+      if (RES) {
         v = (to_f(res[idx]) + v) + to_f(bias[col]);
+      } else {
+        v = v + to_f(bias[col]);
       }
       out[idx] = from_f<T>(v);
     }
@@ -164,6 +167,16 @@ cudaError_t launch_proj_residual(const T* o, const T* proj_w, const T* proj_b, c
   const dim3 grid((D + TN - 1) / TN, (M + TM - 1) / TM);
   gemm_kernel<T, false><<<grid, GEMM_THREADS, 0, stream>>>(o, proj_w, proj_b, nullptr, nullptr,
                                                            x, y, M, D, D, 0.f);
+  return cudaGetLastError();
+}
+
+// out[M, Nc] = A[M, K] @ W[K, Nc] + bias: no LayerNorm, no residual.
+template <typename T>
+cudaError_t launch_linear(const T* a, const T* w, const T* bias, T* out, int M, int K, int Nc,
+                          cudaStream_t stream) {
+  const dim3 grid((Nc + TN - 1) / TN, (M + TM - 1) / TM);
+  gemm_kernel<T, false, false><<<grid, GEMM_THREADS, 0, stream>>>(a, w, bias, nullptr, nullptr,
+                                                                  nullptr, out, M, K, Nc, 0.f);
   return cudaGetLastError();
 }
 

@@ -142,10 +142,15 @@ class TorchModel:
             })
         return obj
 
+    def _kind_cls(self, layer_name: str) -> type:
+        """Node-kind class for ``layer_name``; a subclass hook (the Swin
+        model swaps in a kind with a window selector)."""
+        return LayerNodeKind
+
     def register(self, reg: Registry,
                  graph_lib: Optional[GraphLibrary] = None) -> None:
         if graph_lib is not None and not graph_lib.exists(self.name + ".json"):
             graph_lib.save(self.name + ".json", self.generate_graph_json())
             logger.info("generated graph %s.json", self.name)
         for lname, extra, fn in self.layers:
-            LayerNodeKind(self, lname, extra, fn).register(reg)
+            self._kind_cls(lname)(self, lname, extra, fn).register(reg)

@@ -195,6 +195,7 @@ def block(
     attn_impl=None,
     n_real: Optional[int] = None,
     block_impl=None,
+    mlp_impl=None,
     want_mean: bool = False,
     qkv_head_major: bool = False,
     attn_heads=None,
@@ -204,13 +205,16 @@ def block(
     probs [B,H|sel,N,N] when ``want_attn``; mean [B,N,N] head-meaned maps
     (the rollout's input) when ``want_mean``. ``block_impl``: a fused
     attention-branch kernel (``ops/fused_block.fused_attn_block``
-    signature) replacing LN1+QKV+attention+proj+residual. ``attn_impl``:
-    the attention of the unfused path (``ops/attention.mhsa``)."""
+    signature) replacing LN1+QKV+attention+proj+residual. ``mlp_impl``: a
+    fused MLP-branch kernel (``ops/fused_mlp.fused_mlp_block`` signature)
+    replacing LN2+fc1+GELU+fc2+residual. ``attn_impl``: the attention of
+    the unfused path (``ops/attention.mhsa``)."""
     pmean = None
     if qkv_head_major and block_impl is not None:
         raise ValueError("qkv_head_major is incompatible with fused block "
                          "kernels (mesh serving disables them)")
-    if "ls1" in p and block_impl is not None:
+    if "ls1" in p and (block_impl is not None or mlp_impl is not None):
+        # the fused kernels bake in the plain residual add
         raise ValueError("LayerScale blocks (DINOv2) require the unfused "
                          "block path (dispatch disables fused kernels for "
                          "layer_scale configs)")
@@ -247,6 +251,8 @@ def block(
             probs = None
         elif sel is not None and probs is not None:
             probs = probs[:, list(sel)]
+    if mlp_impl is not None:
+        return mlp_impl(x, p, cfg.ln_eps), probs, pmean
     m = L.mlp(L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p)
     if "ls2" in p:
         m = m * p["ls2"].to(m.dtype)
@@ -282,6 +288,7 @@ def forward(
     want_cls_trajectory: bool = False,
     attn_impl=None,
     block_impl=None,
+    mlp_impl=None,
     attn_heads=None,
 ) -> Dict[str, Any]:
     """Full forward with optional taps.
@@ -299,7 +306,7 @@ def forward(
     for p in params["blocks"]:
         x, probs, pmean = block(
             p, x, cfg, want_attn=want_probs, attn_impl=attn_impl,
-            block_impl=block_impl, want_mean=want_attn,
+            block_impl=block_impl, mlp_impl=mlp_impl, want_mean=want_attn,
             attn_heads=attn_heads if want_probs else None,
         )
         if want_probs:
@@ -344,11 +351,12 @@ def rollout_carry(pmean: torch.Tensor, ins, x: torch.Tensor) -> torch.Tensor:
     return attn_ops.rollout_step(pmean, r_in).to(x.dtype)
 
 
-def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None):
+def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None,
+              mlp_impl=None):
     """The model as an ordered list of ``(layer_name, extra_out_channels,
     fn(params_subtree, ins) -> outs)``; channel "o" carries the flowing
     activation, the block extras "attn", "r" and "cls" carry taps.
-    ``attn_impl`` / ``block_impl`` as in ``block``."""
+    ``attn_impl`` / ``block_impl`` / ``mlp_impl`` as in ``block``."""
     layers: List[Tuple[str, List[str], Callable]] = []
 
     def transform_fn(p, ins):
@@ -370,7 +378,8 @@ def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None):
         sel = parse_attn_heads(node_params)
         y, probs, pmean = block(
             p, x, cfg, want_attn="attn" in want, attn_impl=attn_impl,
-            block_impl=block_impl, want_mean="r" in want, attn_heads=sel,
+            block_impl=block_impl, mlp_impl=mlp_impl, want_mean="r" in want,
+            attn_heads=sel,
         )
         outs = {"o": y}
         if probs is not None and "attn" in want:

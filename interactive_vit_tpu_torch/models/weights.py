@@ -1,8 +1,12 @@
-"""Parameter conversion from the JAX package's ViT tree.
+"""Parameter conversion from the JAX package's parameter trees.
 
-The two packages share one parameter layout (``models/vit.py``: linear
-weights ``[D_in, D_out]``, qkv columns ``[3][H][dh]``, dicts and lists of
-leaves), so conversion is a tree-map of numpy arrays to tensors. The JAX
+The two packages share one parameter layout (``models/vit.py`` and
+``models/swin.py``: linear weights ``[D_in, D_out]``, qkv columns
+``[3][H][dh]``, dicts and lists of leaves), so conversion is a tree-map of
+numpy arrays to tensors. The Swin tree nests further than the ViT one
+(``stages`` is a list of lists of block dicts, ``merges`` a list, and a
+headless config's ``head`` is an empty dict); the map keeps every
+container as it is. The JAX
 package's own converters (torchvision, timm, safetensors) produce that
 tree, and this is the one bridge the tests use to make both packages
 compute the same thing.
@@ -17,8 +21,8 @@ import torch
 
 
 def from_jax(params_np: Any, device="cpu", dtype=torch.float32) -> Any:
-    """Map a JAX ViT parameter tree (leaves as numpy arrays, or anything
-    ``np.asarray`` takes) to tensors on ``device`` in ``dtype``.
+    """Map a JAX ViT or Swin parameter tree (leaves as numpy arrays, or
+    anything ``np.asarray`` takes) to tensors on ``device`` in ``dtype``.
 
     Leaves go through f32 on the host, so bf16 numpy leaves (``ml_dtypes``)
     convert exactly. Callers pass ``device`` explicitly; the CPU default is

@@ -80,10 +80,13 @@ def add_cls_and_pos(x: torch.Tensor, cls_token: torch.Tensor,
     return x + pos_emb.to(x.dtype)
 
 
-def target_dims(h: int, w: int, size: int):
-    """Shorter-side resize target (nh, nw) for the eval transform (the
-    ImageNet recipe: shorter side to size*256/224, then crop ``size``)."""
-    resize_to = int(size * 256 / 224)
+def target_dims(h: int, w: int, size: int,
+                resize_to: Optional[int] = None):
+    """Shorter-side resize target (nh, nw) for the eval transform. The
+    default ``resize_to`` is the ImageNet recipe (shorter side to
+    size*256/224, then crop ``size``); Swin's recipe passes 232 for 224."""
+    if resize_to is None:
+        resize_to = int(size * 256 / 224)
     if h < w:
         return resize_to, max(resize_to, int(round(w * resize_to / h)))
     return max(resize_to, int(round(h * resize_to / w))), resize_to

@@ -1,7 +1,8 @@
 """Server entry point: ``python -m interactive_vit_tpu_torch.serving.server``.
 
 Counterpart of ``interactive_vit_tpu/serving/server.py``: register the
-built-in node kinds and the requested ViT variants, then serve. With
+built-in node kinds and the requested model variants (plain ViTs and Swin,
+through ``models/autoregister``), then serve. With
 ``--graphs-dir``, a variant's chained graph JSON is written into that
 library when it lacks one; the repository's own ``static/graphs`` (the
 default) is only read. Example, on one CUDA card:
@@ -11,7 +12,9 @@ default) is only read. Example, on one CUDA card:
 
 ``--models vit_l16`` (384 px, 577 tokens) serves through the headwise
 block kernel, ``--models dinov2_s14_reg`` (518 px, 1374 tokens) through the
-flash attention kernel (``--attn``).
+flash attention kernel (``--attn``), ``--models swin_t`` through the fused
+window attention kernel in all 12 blocks (``--models swin_t,vit_b16``
+serves both).
 
 Weights are a seeded random init; checkpoint loading, plugin scanning,
 multi-device serving and the other families are not ported yet.
@@ -26,7 +29,7 @@ import os
 import torch
 
 from interactive_vit_tpu_torch.graph.registry import Registry
-from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
+from interactive_vit_tpu_torch.models.autoregister import make_model
 from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
 from interactive_vit_tpu_torch.runtime.device import require_device
@@ -71,8 +74,8 @@ def build_app(
     )
     dtype = DTYPES[dtype_name]
     for variant in models:
-        model = make_vit_model(variant, seed=seed, dtype=dtype, device=device,
-                               attn_impl=attn_impl)
+        model = make_model(variant, seed=seed, dtype=dtype, device=device,
+                           attn_impl=attn_impl)
         # the repository's library is never written: a variant without a
         # saved graph there gets none
         model.register(reg, None if repo_lib else app.graphs)
@@ -87,7 +90,8 @@ def main(argv=None) -> None:
     parser.add_argument("--host", default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--models", default="vit_t16",
-                        help="comma-separated ViT variants to register")
+                        help="comma-separated model variants to register "
+                             "(plain ViTs and swin_t/s/b)")
     parser.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                         help="weight and activation dtype")
     parser.add_argument("--device", default="cuda",

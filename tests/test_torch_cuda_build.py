@@ -3,6 +3,9 @@
 A library's file name must change with its source, with every shared
 header under ``csrc/`` and with the flags, or an edited header would load
 a stale library. Without ``nvcc`` a build raises; nothing falls back.
+
+The two ``cuda``-marked cases build the window-attention and MLP kernels
+from ``csrc/`` and skip without a card.
 """
 
 import os
@@ -53,3 +56,24 @@ def test_build_without_nvcc_raises(csrc, monkeypatch):
         cuda_build.build_all(["k"])
     assert not any(f.endswith(".so") for f in
                    os.listdir(cuda_build.BUILD_DIR))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,module,entry", [
+    ("fused_window_attn", "fused_window", "ivt_fused_window_attn"),
+    ("fused_mlp_block", "fused_mlp", "ivt_fused_mlp_block"),
+])
+def test_kernel_builds_and_loads_on_the_card(name, module, entry):
+    """The source builds with nvcc into its keyed library, exports its
+    entry, and agrees with its Python module on the shape envelope."""
+    import importlib
+
+    import torch
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    so = cuda_build.build(name)
+    assert so == cuda_build.library_path(name) and os.path.exists(so)
+    mod = importlib.import_module("interactive_vit_tpu_torch.ops." + module)
+    lib = mod.load_kernel()  # raises if the envelopes disagree
+    assert hasattr(lib, entry)

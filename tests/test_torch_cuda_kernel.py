@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels -- the fused and headwise attention blocks
-and the row-resident flash attention -- against their plain PyTorch
-versions, on the card.
+"""The hand-written CUDA kernels -- the fused and headwise attention blocks,
+the row-resident flash attention, the Swin window attention and the fused
+MLP branch -- against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips (inside a fixture) when no CUDA device is
 present. On a machine with the card and the CUDA toolkit, run
@@ -20,7 +20,9 @@ slightly. y may move by a few ulps at the top of its range: 2^-6 of its
 scale. A probs or mean element moves in proportion to itself, so its bound
 is per element: 2^-5 of the plain value (four ulps) plus 1e-6, never above
 2^-7; a tap that is zero or half the plain one fails at any N. The flash
-output is a probs-weighted mean of V rows; its bound is that of y.
+output is a probs-weighted mean of V rows; its bound is that of y. The
+window kernel's branch output and the MLP kernel's y take y's bound, the
+window probs the per-element one.
 """
 
 import pytest
@@ -28,6 +30,8 @@ import torch
 
 from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.ops import fused_block as fb
+from interactive_vit_tpu_torch.ops import fused_mlp as fm
+from interactive_vit_tpu_torch.ops import fused_window as fw
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +49,8 @@ def cuda():
     fb.load_kernel()
     fb.load_headwise_kernel()
     fa.load_kernel()
+    fw.load_kernel()
+    fm.load_kernel()
     return torch.device("cuda")
 
 
@@ -220,3 +226,129 @@ def test_flash_wrapper_branches_above_rowfull_max(cuda):
     assert probs.dtype == torch.float32
     with pytest.raises(NotImplementedError):
         fa.flash_attention(q, k, v)
+
+
+# window attention: (batch, map side, width, heads, window) -- swin_t's
+# four stages, a swin_b stage, window 12 (T=144, the 384 px models), and
+# a tiny ragged geometry (T=16 is less than a warp)
+WINDOW_SHAPES = [(2, 56, 96, 3, 7), (1, 28, 192, 6, 7), (1, 14, 384, 12, 7),
+                 (2, 7, 768, 24, 7), (1, 14, 512, 16, 7), (1, 24, 128, 4, 12),
+                 (3, 8, 16, 2, 4)]
+
+
+def _window_case(shape, dtype, device, shifted):
+    from interactive_vit_tpu_torch.models import swin
+
+    b, res, c, heads, win = shape
+    g = torch.Generator().manual_seed(res + c)
+
+    def rnd(*s, std=1.0):
+        return (torch.randn(s, generator=g) * std).to(device=device,
+                                                      dtype=dtype)
+
+    p = {"qkv_w": rnd(c, 3 * c, std=c ** -0.5), "qkv_b": rnd(3 * c, std=0.1),
+         "proj_w": rnd(c, c, std=c ** -0.5), "proj_b": rnd(c, std=0.1)}
+    t = win * win
+    mask = swin.shift_attn_mask(res, win, win // 2) if shifted else None
+    return rnd(b, res, res, c), p, rnd(heads, t, t, std=0.5), mask
+
+
+@pytest.mark.parametrize("shape", WINDOW_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["maps_off", "maps_on", "shifted_off",
+                                  "shifted_on", "exact_softmax"])
+def test_window_kernel_matches_plain(cuda, shape, dtype, mode):
+    b, res, c, heads, win = shape
+    shifted = mode.startswith("shifted")
+    if shifted and res == win:
+        pytest.skip("one window per map: the shift clamps to 0, no mask")
+    y, p, bias, mask = _window_case(shape, dtype, cuda, shifted)
+    kw = {"want_attn": mode in ("maps_on", "shifted_on", "exact_softmax"),
+          "fast_softmax": mode != "exact_softmax"}
+    before = fw.fused_window_attn.launches
+    got = fw.fused_window_attn(y, p, heads, win, bias, mask, **kw)
+    torch.cuda.synchronize()
+    assert fw.fused_window_attn.launches == before + 1
+    ref = fw.fused_window_attn_reference(y, p, heads, win, bias, mask, **kw)
+    assert got[0].shape == y.shape and got[0].dtype == dtype
+    _check(got, ref, dtype)
+    if kw["want_attn"]:
+        t = win * win
+        assert got[1].shape == (b, (res // win) ** 2, heads, t, t)
+        if shifted:  # seam pairs: exp(-100) is 0 in bf16, a denormal in f32
+            blocked = torch.as_tensor(mask, device=cuda)[None, :, None] < 0
+            seam = got[1].float()[blocked.expand_as(got[1])]
+            assert seam.numel() > 0 and bool((seam < 1e-37).all())
+            if dtype == torch.bfloat16:
+                assert bool((seam == 0).all())
+
+
+def test_window_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    y, p, bias, _ = _window_case((2, 8, 16, 2, 4), torch.float32, cuda,
+                                 False)
+    with pytest.raises(TypeError):
+        fw.fused_window_attn(y.half(), {k: v.half() for k, v in p.items()},
+                             2, 4, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        fw.fused_window_attn(y.transpose(1, 2), p, 2, 4, bias)
+    with pytest.raises(ValueError):
+        fw.fused_window_attn(y, {**p, "qkv_w": p["qkv_w"].cpu()}, 2, 4, bias)
+    with pytest.raises(ValueError, match="does not take"):
+        fw.fused_window_attn(y, p, 3, 4, bias)  # width does not split
+    with pytest.raises(ValueError, match="bias must be"):
+        fw.fused_window_attn(y, p, 2, 4, bias[:1])
+    with pytest.raises(ValueError, match="mask must be"):
+        fw.fused_window_attn(y, p, 2, 4, bias, torch.zeros((3, 16, 16)))
+
+
+# fused MLP: (batch, tokens, width) -- vit_b16, swin_t's stages 0 and 3,
+# the widest row the kernel takes, and widths that are no multiple of 32
+# or of the thread block
+MLP_SHAPES = [(2, 197, 768), (1, 3136, 96), (1, 49, 768), (1, 196, 384),
+              (2, 50, 1280), (1, 17, 100), (3, 5, 300)]
+
+
+def _mlp_case(shape, dtype, device):
+    b, n, d = shape
+    md = 4 * d
+    g = torch.Generator().manual_seed(n + d)
+
+    def rnd(*s, std=1.0, mean=0.0):
+        return (torch.randn(s, generator=g) * std + mean).to(device=device,
+                                                             dtype=dtype)
+
+    p = {"ln2_s": rnd(d, std=0.1, mean=1.0), "ln2_b": rnd(d, std=0.1),
+         "fc1_w": rnd(d, md, std=d ** -0.5), "fc1_b": rnd(md, std=0.1),
+         "fc2_w": rnd(md, d, std=md ** -0.5), "fc2_b": rnd(d, std=0.1)}
+    return rnd(b, n, d), p
+
+
+@pytest.mark.parametrize("shape", MLP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+def test_mlp_kernel_matches_plain(cuda, shape, dtype, eps):
+    x, p = _mlp_case(shape, dtype, cuda)
+    before = fm.fused_mlp_block.launches
+    got = fm.fused_mlp_block(x, p, eps)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_block.launches == before + 1
+    ref = fm.fused_mlp_block_reference(x, p, eps)
+    assert got.shape == x.shape and got.dtype == dtype
+    _check((got,), (ref,), dtype)
+    # the bound must refuse a kernel that returned the residual alone
+    assert not _within(x, ref, 0, dtype)
+
+
+def test_mlp_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, p = _mlp_case((2, 17, 64), torch.float32, cuda)
+    with pytest.raises(TypeError):
+        fm.fused_mlp_block(x.half(), {k: v.half() for k, v in p.items()})
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_mlp_block(x.transpose(0, 1), p)
+    with pytest.raises(ValueError):
+        fm.fused_mlp_block(x, {**p, "fc1_w": p["fc1_w"].cpu()})
+    with pytest.raises(ValueError, match="must be"):
+        fm.fused_mlp_block(x, {**p, "fc2_b": p["fc2_b"][:8]})
+    wide, pw = _mlp_case((1, 2, 1284), torch.float32, cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        fm.fused_mlp_block(wide, pw)

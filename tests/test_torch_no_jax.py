@@ -23,6 +23,9 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.wire.codec",
     "interactive_vit_tpu_torch.wire.schema",
     "interactive_vit_tpu_torch.ops.fused_block",
+    "interactive_vit_tpu_torch.ops.fused_window",
+    "interactive_vit_tpu_torch.ops.fused_mlp",
+    "interactive_vit_tpu_torch.ops.layers",
     "interactive_vit_tpu_torch.ops.flash_attention",
     "interactive_vit_tpu_torch.ops.tiled_attention",
     "interactive_vit_tpu_torch.ops.attention",
@@ -30,6 +33,10 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.ops.preprocess_mm",
     "interactive_vit_tpu_torch.ops.node_ops",
     "interactive_vit_tpu_torch.models.vit_plugin",
+    "interactive_vit_tpu_torch.models.swin",
+    "interactive_vit_tpu_torch.models.swin_plugin",
+    "interactive_vit_tpu_torch.models.autoregister",
+    "interactive_vit_tpu_torch.models.model_plugin",
     "interactive_vit_tpu_torch.models.weights",
     "interactive_vit_tpu_torch.runtime.cuda_build",
     "interactive_vit_tpu_torch.runtime.device",
@@ -57,6 +64,26 @@ def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
     return env
+
+
+def test_every_port_module_is_checked():
+    """PORT_MODULES names every module of the package, so a new module
+    cannot slip past the import check."""
+    pkg = os.path.join(ROOT, "interactive_vit_tpu_torch")
+    found = set()
+    for dirpath, _, files in os.walk(pkg):
+        for f in files:
+            if f.endswith(".py") and f != "__init__.py":
+                rel = os.path.relpath(os.path.join(dirpath, f), ROOT)
+                found.add(rel[:-3].replace(os.sep, "."))
+    # importing a module imports its parents and whatever it uses
+    imported_by_others = {
+        "interactive_vit_tpu_torch.graph.ir",
+        "interactive_vit_tpu_torch.graph.registry",
+        "interactive_vit_tpu_torch.models.labels",
+        "interactive_vit_tpu_torch.serving.metrics",
+    }
+    assert found - set(PORT_MODULES) - imported_by_others == set()
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -104,6 +131,8 @@ def test_server_entry_point_parses():
 
 def _default_device_entry_points():
     from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.models.autoregister import make_model
+    from interactive_vit_tpu_torch.models.swin_plugin import make_swin_model
     from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
     from interactive_vit_tpu_torch.serving.app import App
     from interactive_vit_tpu_torch.serving.server import build_app
@@ -114,11 +143,16 @@ def _default_device_entry_points():
         "App": lambda tmp: App(graphs_dir=str(tmp)),
         "Executor": lambda tmp: Executor(),
         "make_vit_model": lambda tmp: make_vit_model("vit_t16"),
+        "build_app_swin": lambda tmp: build_app(models=("swin_t",),
+                                                graphs_dir=str(tmp)),
+        "make_swin_model": lambda tmp: make_swin_model("swin_t"),
+        "make_model": lambda tmp: make_model("swin_t"),
     }
 
 
 @pytest.mark.parametrize("entry", ["build_app", "App", "Executor",
-                                   "make_vit_model"])
+                                   "make_vit_model", "build_app_swin",
+                                   "make_swin_model", "make_model"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):
     """The entry points run on the card unless asked for the CPU: with no
