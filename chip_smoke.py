@@ -7,14 +7,16 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the five hand-written kernels from ``csrc/`` with
-   nvcc, one compiler process each, all at once.
+2. build   -- builds the seven hand-written kernel sources from ``csrc/``
+   with nvcc, one compiler process each, all at once (the s8 mode of the
+   block is a mode of ``fused_attn_block.cu``: eight kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
    plain, kernel, kernel, plain):
-   * the fused attention block at the vit_b16 (B=1 and 8) and vit_t16
-     block shapes, bf16 and f32, maps off / maps + head-mean / a subset;
+   * the fused attention block at the vit_b16 (B=1 and 8), vit_t16 and
+     vit_t16@256 (N=257) block shapes, bf16 and f32, maps off / maps +
+     head-mean / a subset;
    * the headwise attention block at the vit_l16@384 block shape (B=1 and
      4), bf16 and f32, maps off / maps + mean / heads (0, 7, 15) + mean;
    * the flash attention at the dinov2_s14_reg@518 shape (6 heads, N=1374,
@@ -31,8 +33,20 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * the fused MLP at vit_b16 (197 x 768) and at swin_t's four stages
      (3136 x 96, 784 x 192, 196 x 384, 49 x 768), each at B=1 and 8, bf16
      and f32; the bound must refuse a kernel that returned the residual
-     alone.
-4. slice   -- four paths through the HTTP server in-process, seeded random
+     alone;
+   * the online flash attention at the dinov2_s14_reg@742 shape (6 heads,
+     N=2814, dh=64; B=1 and 8, and keys masked beyond n_real=2800), bf16
+     and f32, against its plain version at the kernel's key tile (128);
+     ``scaled_dot_product_attention`` timed beside it;
+   * the W8A8 MLP at vit_b16 (197 x 768, B=1 and 8), bf16 and f32: its
+     s32 accumulators equal to the exact products of its own int8
+     activations, those activations the plain version's but in at most 1%
+     of places (by 1), y within its bound; ``torch._int_mm`` timed on the
+     fc1 product;
+   * the s8 mode of the fused block at vit_b16 (B=1 and 8), bf16 and f32,
+     maps off / maps + mean / a subset with s8 scores and PV, and maps +
+     mean with s8 scores only.
+4. slice   -- eight paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -49,10 +63,22 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      ``attn`` on stages.0.0, stages.0.1 (shifted), stages.2.5 (window 2
      only) and stages.3.1 (heads 0, 11, 23), the logits; 5 in sequence and
      4 at once; the window kernel in all 12 blocks, 12 launches a request;
+   * dinov2_s14_reg@742, bf16: the block outputs ``o`` of blocks 0, 6 and
+     11 and the CLS features, 2 in sequence; the online flash kernel in
+     all 12 blocks;
+   * vit_t16@256 from the repository's saved graph: ``attn`` + ``r`` on
+     blocks 0 and 6, ``r`` on block 11, the logits; the fused block kernel;
+   * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
+     in sequence; the W8A8 MLP kernel and the s8 block in every block
+     (12 + 12 launches a request), against the plain path with the two
+     kernels' plain versions (whose quantizers round half up, as the
+     kernels');
+   * vit_b16 ``--dtype int8`` (weight-only): no kernel launches;
    each checked for shapes, finiteness, probs rows summing to 1 and
    agreement with the port's plain path on the card (the kernels' plain
-   versions in every block), then one f32 request per path whose output
-   must match the plain path at 1e-4. Each path also prints its
+   versions in every block) and for the launches of every kernel, then
+   one f32 request per path of a float dtype whose output must match the
+   plain path at 1e-4. Each path also prints its
    ``/metrics`` p50s and one ``executor.run`` under ``torch.profiler``
    (device busy share, the kernels that take the most time).
    Then the monolithic forwards ``vit.forward`` (vit_b16) and
@@ -70,6 +96,7 @@ and the plain path agree.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -96,6 +123,13 @@ KERNELS = {
                           "interactive_vit_tpu/ops/fused_window.py:128"),
     "fused_mlp_block": (CSRC + "fused_mlp_block.cu",
                         "interactive_vit_tpu/ops/fused_mlp.py:60"),
+    "flash_attention_online": (CSRC + "flash_attention_online.cu",
+                               "interactive_vit_tpu/ops/flash_attention.py:188"),
+    "fused_mlp_w8a8_block": (CSRC + "fused_mlp_w8a8_block.cu",
+                             "interactive_vit_tpu/ops/fused_mlp.py:154"),
+    # the s8 mode (int8_scores) of the block kernel: the same source
+    "fused_attn_block_s8": (CSRC + "fused_attn_block.cu",
+                            "interactive_vit_tpu/ops/fused_block.py:205"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -124,12 +158,34 @@ SLICE_REL = 2.0 ** -4
 # bf16 probs rows: each of N probs rounds by <= 2^-9 relative, so a row
 # sums to 1 within 2^-9; bound 2^-7.
 ROW_SUM_BOUND = 2.0 ** -7
+# The int8 kernels (the W8A8 MLP, the s8 block), in both dtypes. Their s32
+# products are exact, but each int8 is the rounding of an f32 (or bf16)
+# value that the kernel and the plain version compute in another order, so
+# a value within that difference of a .5 boundary rounds to the other int8.
+# One flipped int8 of q or k moves a score by at most scale * max|q| *
+# max|k| / 127 (~0.02 at the shapes below) and its probability by about
+# that share of itself; one flipped int8 of p moves o by at most ps *
+# max|v|, one of the MLP's activations y by one quantization step through
+# a product. So y is held to 2^-6 of its scale (as bf16's y) in f32 too,
+# and probs and mean, per element, to 2^-4 of the plain value plus 1e-6,
+# never above 2^-5; a tap zeroed or halved still fails. The W8A8 MLP's
+# integer stages are checked exactly instead: acc1 = q1 @ fc1_q and acc2 =
+# q2 @ fc2_q on the kernel's own int8 activations, which differ from the
+# plain version's in at most 1% of places (``check_w8a8_parts``).
+S8_P_REL = 2.0 ** -4
+S8_P_CAP = 2.0 ** -5
+W8A8_Q_SHARE = 0.01
 
 # The least time the card could take (H100 SXM published peaks): bytes over
 # the memory rate, operations over the peak rate for the inputs' type (bf16
 # tensor cores; f32 outside them).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# The new kernels' main-path shapes: dinov2_s14_reg@742's attention (heads,
+# tokens, head width) and vit_b16's MLP (tokens, width, hidden).
+ONLINE_SHAPE = (6, 2814, 64)
+W8A8_SHAPE = (197, 768, 3072)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -164,11 +220,14 @@ def time_turns(kernel_fn, plain_fn):
     return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
 
 
-def bound(nbytes: float, flops: float, dtype_name: str):
+def bound(nbytes: float, flops, dtype_name: str):
     """(bound_ms, bound_by) for work that moves ``nbytes`` and does
-    ``flops`` multiply-adds x 2 on inputs of ``dtype_name``."""
+    ``flops`` multiply-adds x 2 on inputs of ``dtype_name`` (or, as a dict,
+    that many on inputs of each type: the times add)."""
+    if not isinstance(flops, dict):
+        flops = {dtype_name: flops}
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = sum(n / PEAK_FLOPS[t] for t, n in flops.items())
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -207,12 +266,16 @@ def random_block(d: int, dtype, device, seed: int):
     }
 
 
-def output_bound(i, ref, dtype):
+def output_bound(i, ref, dtype, s8=False):
     """(bound of each element of output ``i`` against the plain ``ref``, a
-    tensor or a number; its description)."""
+    tensor or a number; its description). ``s8``: the int8 kernels'."""
     import torch
 
-    if dtype == torch.float32:
+    if s8 and i > 0:
+        return ((S8_P_REL * ref.float().abs() + BF16_P_ABS).clamp(
+            max=S8_P_CAP), f"min({S8_P_CAP:g}, {S8_P_REL:g}|ref|+"
+                           f"{BF16_P_ABS:g})")
+    if dtype == torch.float32 and not s8:
         return F32_BOUND, f"{F32_BOUND:g}"
     if i == 0:
         bound = BF16_Y_REL * max(1.0, ref.abs().max().item())
@@ -222,7 +285,7 @@ def output_bound(i, ref, dtype):
             f"min({BF16_P_CAP:g}, {BF16_P_REL:g}|ref|+{BF16_P_ABS:g})")
 
 
-def check_outputs(tag, got, ref, dtype, labels, quiet=False):
+def check_outputs(tag, got, ref, dtype, labels, quiet=False, s8=False):
     """Max abs errors of ``got`` against ``ref`` (same layout, ``None``
     where absent) and their bounds; raises outside a bound. The first
     tensor is y (or the attention output), the rest probs / mean."""
@@ -236,7 +299,7 @@ def check_outputs(tag, got, ref, dtype, labels, quiet=False):
             raise AssertionError(f"{tag}: output {i} is {tuple(g.shape)} "
                                  f"{g.dtype}, plain {tuple(r.shape)} "
                                  f"{r.dtype}")
-        bound, text = output_bound(i, r, dtype)
+        bound, text = output_bound(i, r, dtype, s8)
         diff = (g.float() - r.float()).abs()
         use = (diff / bound).max().item()
         ok = ok and use <= 1.0
@@ -251,27 +314,32 @@ def check_outputs(tag, got, ref, dtype, labels, quiet=False):
     return errs, line
 
 
-def check_bounds_refuse(tag, got, ref, dtype, labels) -> None:
-    """The bounds must refuse a kernel whose maps or mean are zero or half
-    the plain values: each such corruption of ``got`` has to fail."""
-    for i in range(1, len(got)):
+def check_bounds_refuse(tag, got, ref, dtype, labels, s8=False,
+                        first=1) -> None:
+    """The bounds must refuse a kernel whose outputs from ``first`` on (by
+    default the maps and mean; 0 takes y too) are zero or half the plain
+    values: each such corruption of ``got`` has to fail."""
+    for i in range(first, len(got)):
         if got[i] is None:
             continue
         for factor in (0.0, 0.5):
             bad = list(got)
             bad[i] = got[i] * factor
             try:
-                check_outputs(tag, bad, ref, dtype, labels, quiet=True)
+                check_outputs(tag, bad, ref, dtype, labels, quiet=True,
+                              s8=s8)
             except AssertionError:
                 continue
             raise AssertionError(f"{tag}: {labels[i]} x {factor} passed "
                                  f"the bounds")
 
 
-def phase_block_kernel(device, name, kernel, plain, shapes, modes, served):
+def phase_block_kernel(device, name, kernel, plain, shapes, modes, served,
+                       s8=False):
     """A block kernel against its plain version over ``shapes`` x dtypes x
     ``modes``; returns the numbers of the ``served`` (shape name, batch,
-    dtype, mode) for the result line."""
+    dtype, mode) for the result line. ``s8``: the s8 mode's bounds, and
+    its attention products counted as int8 operations."""
     import torch
 
     out = {}
@@ -287,8 +355,10 @@ def phase_block_kernel(device, name, kernel, plain, shapes, modes, served):
                 torch.cuda.synchronize()
                 tag = f"{name} {sname} B={b} {dt} {mode}"
                 labels = ("y", "probs", "mean")
-                errs, line = check_outputs(tag, got, ref, dtype, labels)
-                check_bounds_refuse(tag, got, ref, dtype, labels)
+                errs, line = check_outputs(tag, got, ref, dtype, labels,
+                                           s8=s8)
+                check_bounds_refuse(tag, got, ref, dtype, labels, s8=s8,
+                                    first=0)
                 if mode != "subset":
                     t_k, t_p = time_turns(
                         lambda: kernel(x, p, heads, 1e-6, **kw),
@@ -301,13 +371,17 @@ def phase_block_kernel(device, name, kernel, plain, shapes, modes, served):
                         nbytes, flops = block_cost(
                             b, n, d, heads, x.element_size(), n_maps,
                             kw.get("want_mean", False))
+                        if s8:  # QK^T and PV in int8, the GEMMs in dt
+                            attn = 4 * b * heads * n * n * (d // heads)
+                            flops = {dt: flops - attn, "int8": attn}
                         bms, by = bound(nbytes, flops, dt)
                         out = {"max_abs_err": max(errs), "ms": t_k,
                                "plain_ms": t_p, "bound_ms": bms,
                                "bound_by": by, "library_ms": None}
+                        ops = sum(flops.values()) if s8 else flops
                         line += (f"; bound {bms:.5f} ms ({by}: "
                                  f"{nbytes / 1e6:.2f} MB, "
-                                 f"{flops / 1e9:.3f} GFLOP)")
+                                 f"{ops / 1e9:.3f} G operations)")
                 log(line)
     return out
 
@@ -550,6 +624,166 @@ def phase_mlp_kernel(device) -> dict:
     return out
 
 
+def online_plain(q, k, v, want_attn=False, n_real=None):
+    """``attn_impl`` of the served dinov2_s14_reg@742 path's plain version:
+    the online kernel's plain version (no maps)."""
+    from interactive_vit_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention_online_reference(q, k, v, n_real), None
+
+
+def phase_online_kernel(device) -> dict:
+    """The online flash kernel against its plain version at its own key
+    tile, at the dinov2_s14_reg@742 shape (6 heads, N=2814, dh=64; B=1 and
+    8, and keys masked beyond n_real=2800); returns the B=1 bf16 numbers,
+    SDPA's time beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from interactive_vit_tpu_torch.ops import flash_attention as fa
+
+    out = {}
+    heads, n, dh = ONLINE_SHAPE
+    for b, n_real in ((1, None), (8, None), (1, n - 14)):
+        shape = (b, heads, n, dh)
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            g = torch.Generator().manual_seed(b)
+            q, k, v = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
+                       for _ in range(3)]
+            got = fa.flash_attention_online(q, k, v, n_real)
+            ref = fa.flash_attention_online_reference(
+                q, k, v, n_real, block_k=fa.ONLINE_BLOCK_K)
+            torch.cuda.synchronize()
+            tag = (f"flash_attention_online dinov2_s14_reg@742 {shape} {dt}"
+                   + (f" n_real={n_real}" if n_real else ""))
+            errs, line = check_outputs(tag, (got,), (ref,), dtype, ("o",))
+            check_bounds_refuse(tag, (got,), (ref,), dtype, ("o",), first=0)
+            if n_real is not None:
+                log(line)
+                continue
+            t_k, t_p = time_turns(
+                lambda: fa.flash_attention_online(q, k, v),
+                lambda: fa.flash_attention_online_reference(q, k, v))
+            nbytes, flops = flash_cost(*shape, q.element_size(), False)
+            bms, by = bound(nbytes, flops, dt)
+            t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+            log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
+                f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP); scaled_dot_product_attention "
+                f"{t_lib:.4f} ms")
+            if (b, dt) == (1, "bfloat16"):
+                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                       "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
+    return out
+
+
+def check_w8a8_parts(tag, p, parts, rparts) -> str:
+    """The W8A8 kernel's integer stages: its s32 accumulators equal the
+    exact products of its own int8 activations (a zeroed or halved
+    accumulator fails), and those activations are the plain version's but
+    for at most ``W8A8_Q_SHARE`` of them: q1 off by 1 (an LN value one ulp
+    away), q2 off by at most 2 in rows whose q1 agrees (an h value and the
+    row's scale each one bf16 ulp away); a row whose q1 differs moves its
+    h by a whole fc1 quantization step, which only y's bound holds."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import quant
+
+    notes = []
+    q1_rows = (parts["q1"] == rparts["q1"]).all(dim=-1, keepdim=True)
+    for acc, q, w, most in (("acc1", "q1", "fc1_w", 1),
+                            ("acc2", "q2", "fc2_w", 2)):
+        exact = quant.int_matmul(parts[q], p[w][quant.AQKEY])
+        if not torch.equal(parts[acc], exact):
+            raise AssertionError(f"{tag}: {acc} is not the exact product")
+        if torch.equal(parts[acc] * 0, exact) or torch.equal(
+                parts[acc] // 2, exact):
+            raise AssertionError(f"{tag}: a zeroed or halved {acc} passed")
+        diff = (parts[q].int() - rparts[q].int()).abs()
+        share = (diff > 0).float().mean().item()
+        held = (diff * q1_rows).max().item()
+        if held > most or share > W8A8_Q_SHARE:
+            raise AssertionError(f"{tag}: {q} differs from the plain "
+                                 f"version's in {share:.3g} of places, by up "
+                                 f"to {held} where q1 agrees")
+        notes.append(f"{acc} exact, {q} differs in {share:.3g} (by up to "
+                     f"{diff.max().item()})")
+    return ", ".join(notes)
+
+
+def phase_w8a8_kernel(device) -> dict:
+    """The W8A8 MLP kernel against its plain version at vit_b16 (197 x 768,
+    hidden 3072; B=1 and 8), bf16 and f32: exact integer stages, y within
+    its bound; returns the B=1 bf16 numbers, ``torch._int_mm``'s time for
+    the fc1 product beside them."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+    from interactive_vit_tpu_torch.ops import quant
+
+    out = {}
+    n, d, md = W8A8_SHAPE
+    eps = 1e-6
+    for b in (1, 8):
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            g = torch.Generator().manual_seed(b + 7)
+
+            def rnd(*shape, std=1.0, mean=0.0):
+                return (torch.randn(shape, generator=g) * std + mean).to(
+                    device=device, dtype=dtype)
+
+            p = {"ln2_s": rnd(d, std=0.1, mean=1.0), "ln2_b": rnd(d, std=0.1),
+                 "fc1_w": quant.quantize_weight(rnd(d, md, std=d ** -0.5),
+                                                "w8a8"),
+                 "fc1_b": rnd(md, std=0.1),
+                 "fc2_w": quant.quantize_weight(rnd(md, d, std=md ** -0.5),
+                                                "w8a8"),
+                 "fc2_b": rnd(d, std=0.1)}
+            x = rnd(b, n, d)
+            got, parts = fm.fused_mlp_w8a8_block(x, p, eps, want_parts=True)
+            ref, rparts = fm.fused_mlp_w8a8_parts(x, p, eps)
+            torch.cuda.synchronize()
+            tag = f"fused_mlp_w8a8_block vit_b16 B={b} {n}x{d} {dt}"
+            errs, line = check_outputs(tag, (got,), (ref,), dtype, ("y",),
+                                       s8=True)
+            check_bounds_refuse(tag, (got,), (ref,), dtype, ("y",), s8=True,
+                                first=0)
+            try:  # the bound must refuse the residual alone
+                check_outputs(tag, (x,), (ref,), dtype, ("y",), quiet=True,
+                              s8=True)
+            except AssertionError:
+                pass
+            else:
+                raise AssertionError(f"{tag}: x alone passed the bound")
+            line += "; " + check_w8a8_parts(tag, p, parts, rparts)
+            t_k, t_p = time_turns(lambda: fm.fused_mlp_w8a8_block(x, p, eps),
+                                  lambda: fm.fused_mlp_w8a8_reference(x, p,
+                                                                      eps))
+            rows = b * n
+            nbytes = (x.element_size() * (2 * rows * d + 3 * d + md)
+                      + 2 * d * md + 4 * (md + d))
+            ops = {"int8": 4 * rows * d * md}
+            bms, by = bound(nbytes, ops, dt)
+            line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
+                     f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+                     f"{ops['int8'] / 1e9:.3f} G int8 operations)")
+            t_lib = None
+            a = parts["q1"].reshape(rows, d)
+            w1 = p["fc1_w"][quant.AQKEY]
+            try:  # the fc1 product alone, one library call
+                t_lib = time_ms(lambda: torch._int_mm(a, w1))
+                line += f"; torch._int_mm (fc1 only) {t_lib:.4f} ms"
+            except RuntimeError as e:
+                line += f"; torch._int_mm refused: {str(e)[:80]}"
+            if (b, dt) == (1, "bfloat16"):
+                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                       "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
+            log(line)
+    return out
+
+
 def chain_graph(graph_obj, image, node_params=None):
     """A saved graph with per-node params and ``image`` bound to node 0."""
     from interactive_vit_tpu_torch.wire.schema import graph_from_json
@@ -611,11 +845,12 @@ def post(url: str, body: bytes) -> bytes:
         return r.read()
 
 
-def serve(models, dtype_name, device, graphs_dir):
+def serve(models, dtype_name, device, graphs_dir, attn="auto"):
     from interactive_vit_tpu_torch.serving.server import build_app
 
     app = build_app(models=models, graphs_dir=graphs_dir,
-                    dtype_name=dtype_name, device=device, seed=0)
+                    dtype_name=dtype_name, device=device, seed=0,
+                    attn_impl_name=attn)
     httpd = app.serve("127.0.0.1", 0, background=True)
     return app, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
 
@@ -629,19 +864,23 @@ def stop(app, httpd) -> None:
 class Path:
     """One served path: a model of ``family`` (the ``models`` module with
     its ``layer_fns``), its taps (graph node -> channels; a generated chain
-    graph's node i is the model's layer i) and the kernel its blocks
-    launch. ``plain`` holds the ``layer_fns`` arguments that put the
-    kernels' plain versions into every block. ``tap_shape(path, node, ch)``
-    gives a tap's expected shape and ``check_tap(path, node, arr, tag,
-    bf16)`` holds what else the family asks of a tapped array. ``other``:
-    a second Path served beside this one and asked once."""
+    graph's node i is the model's layer i) and the launches of each kernel
+    that one request makes (``kernels``: name -> count; every other kernel
+    must launch no time). ``plain`` holds the ``layer_fns`` arguments that
+    put the kernels' plain versions into every block. ``tap_shape(path,
+    node, ch)`` gives a tap's expected shape and ``check_tap(path, node,
+    arr, tag, bf16)`` holds what else the family asks of a tapped array.
+    ``other``: a second Path served beside this one and asked once.
+    ``dtype`` and ``attn``: the server's ``--dtype`` and ``--attn``;
+    ``f32``: whether one float32 request follows."""
 
-    def __init__(self, model, family, cfg, img, taps, kernel, plain,
+    def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
-                 other=None):
+                 other=None, dtype="bfloat16", attn="auto", f32=True):
         self.model, self.family, self.cfg = model, family, cfg
         self.img, self.tap_nodes = img, taps
-        self.kernel, self.plain = kernel, plain
+        self.kernels, self.plain = kernels, plain
+        self.dtype, self.attn, self.f32 = dtype, attn, f32
         self.tap_shape, self.check_tap = tap_shape, check_tap
         self.seq, self.conc = seq, conc
         self.node_params = node_params or {}
@@ -663,13 +902,13 @@ class Path:
 
 def vit_tap_shape(path, node, ch):
     """Plain ViT: ``attn`` [1, heads or the selected ones, N, N], the
-    head-mean ``r`` [1, N, N]."""
+    head-mean ``r`` [1, N, N], a block's output ``o`` [1, N, D]."""
     from interactive_vit_tpu_torch.models.vit import parse_attn_heads
 
     sel = parse_attn_heads(path.params_of(node))
     n = path.cfg.tokens
     return {"attn": (1, len(sel) if sel else path.cfg.heads, n, n),
-            "r": (1, n, n)}[ch]
+            "r": (1, n, n), "o": (1, n, path.cfg.width)}[ch]
 
 
 def swin_stage_block(path, node):
@@ -782,15 +1021,18 @@ def check_response(raw, path, plain, tag, bf16=True):
 def run_path(path, device, graphs_dir, counters) -> dict:
     """One path: warm-up, then with every launch count at 0, ``seq``
     requests in sequence, ``conc`` at once (and one request to
-    ``path.other``), then one f32 request on a fresh f32 server; the
-    counts are read after it. Returns the counts and the p50."""
+    ``path.other``), then (``path.f32``) one f32 request on a fresh f32
+    server; the counts are read after it. Returns the counts and the
+    p50."""
     rng = np.random.default_rng(0)
     shape = path.img if isinstance(path.img, tuple) else (path.img, path.img)
     images = [rng.random((3, *shape), dtype=np.float32)
               for _ in range(path.seq + path.conc)]
     opath = path.other
     variants = [path.model] + ([opath.model] if opath else [])
-    app, httpd, url = serve(variants, "bfloat16", device, graphs_dir)
+    tag = f"{path.model} {path.dtype}"
+    app, httpd, url = serve(variants, path.dtype, device, graphs_dir,
+                            path.attn)
     try:
         graph = app.graphs.load(path.model + ".json")
         model = app.reg.get_node(path.model + ":head").model
@@ -812,7 +1054,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             t0 = time.perf_counter()
             raws.append(post(url + "/compute", body))
             lat.append(time.perf_counter() - t0)
-        per_request = counters[path.kernel].launches / path.seq
+        per_request = {k: fn.launches / path.seq for k, fn in counters.items()}
         conc = [None] * path.conc
 
         def worker(k):
@@ -831,79 +1073,79 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         batches = app.metrics.counters.get("batches", 0) - batches0
         if opath:
             other_raw = post(url + "/compute", other_body)
-        bf16_counts = {k: fn.launches for k, fn in counters.items()}
+        counts = {k: fn.launches for k, fn in counters.items()}
         metrics = json.loads(urllib.request.urlopen(
             url + "/metrics", timeout=30).read())
         profile_request(app, chain_graph(graph, images[0], path.node_params),
-                        path.taps(), path.model)
+                        path.taps(), tag)
     finally:
         stop(app, httpd)
 
     served = path.seq + path.conc
-    depth = path.depth
-    want = depth * batches + (opath.depth if opath else 0)
-    if per_request != depth:
-        raise AssertionError(f"{path.kernel} launched {per_request} times a "
-                             f"sequential {path.model} request; expected "
-                             f"{depth}")
-    if batches < path.seq or bf16_counts[path.kernel] < want:
-        raise AssertionError(f"{path.kernel} launched "
-                             f"{bf16_counts[path.kernel]} times for {served} "
-                             f"{path.model} requests in {batches} batches; "
-                             f"expected >= {want}")
+    expected = {k: path.kernels.get(k, 0) for k in counters}
+    if per_request != expected:
+        raise AssertionError(f"a sequential {tag} request launched "
+                             f"{per_request}; expected {expected}")
+    want = {k: n * batches + (opath.kernels.get(k, 0) if opath else 0)
+            for k, n in path.kernels.items()}
+    if batches < path.seq or any(counts[k] < n for k, n in want.items()):
+        raise AssertionError(f"{counts} launches for {served} {tag} requests "
+                             f"in {batches} batches; expected >= {want}")
     worst, worst_use = {}, {}
     for k, raw in enumerate(raws + conc):
         errs, uses = check_response(raw, path,
                                     plain_taps(path, model, images[k],
                                                device),
-                                    f"{path.model} request {k}")
+                                    f"{tag} request {k}")
         for key, v in errs.items():
             worst[key] = max(worst.get(key, 0.0), v)
             worst_use[key] = max(worst_use.get(key, 0.0), uses[key])
     p50 = float(np.median(lat)) * 1e3
-    log(f"  {path.model} bf16: {path.seq} sequential + {path.conc} "
-        f"concurrent requests{' + 1 ' + opath.model if opath else ''} "
-        f"in {batches} {path.model} batches; launches {bf16_counts} "
-        f"({path.kernel}: {per_request:g} a sequential request, >= {want} in "
-        f"all); p50 latency per "
-        f"request {p50:.2f} ms (client wall, sequential)")
+    log(f"  {tag}: {path.seq} sequential + {path.conc} concurrent "
+        f"requests{' + 1 ' + opath.model if opath else ''} in {batches} "
+        f"{path.model} batches; launches a sequential request "
+        f"{ {k: v for k, v in per_request.items() if v} }, all "
+        f"{ {k: v for k, v in counts.items() if v} } (>= {want}); p50 "
+        f"latency per request {p50:.2f} ms (client wall, sequential)")
     log("  server p50s (ms, all requests): " + ", ".join(
         f"{k.removesuffix('_p50_ms')} {metrics[k]:.2f}" for k in (
             "wire_p50_ms", "decode_p50_ms", "queue_p50_ms",
             "compute_p50_ms", "encode_p50_ms", "request_p50_ms"))
         + f"; mean batch {metrics['mean_batch_size']:.2f}")
-    log(f"  {path.model} bf16 vs plain path, worst max abs err (share of "
-        f"its bound): " + ", ".join(f"{k}={v:.3g} ({worst_use[k]:.2f})"
-                                    for k, v in sorted(worst.items())))
+    log(f"  {tag} vs plain path, worst max abs err (share of its bound): "
+        + ", ".join(f"{k}={v:.3g} ({worst_use[k]:.2f})"
+                    for k, v in sorted(worst.items())))
     if opath:
         errs, _ = check_response(other_raw, opath,
                                  plain_taps(opath, other_model, other_image,
                                             device),
                                  f"{opath.model} request")
         log(f"  {opath.model} head output vs plain {errs['head']:.3g}")
+    if not path.f32:
+        return {"launches": counts, "p50_ms": p50}
 
     # one f32 request: the output must match the plain path at 1e-4
-    app, httpd, url = serve([path.model], "float32", device, graphs_dir)
+    app, httpd, url = serve([path.model], "float32", device, graphs_dir,
+                            path.attn)
     try:
         before = {k: fn.launches for k, fn in counters.items()}
         raw = post(url + "/compute", bodies[0])
-        counts = {k: bf16_counts[k] + fn.launches - before[k]
-                  for k, fn in counters.items()}
+        launches_f32 = {k: fn.launches - before[k]
+                        for k, fn in counters.items()}
+        counts = {k: counts[k] + launches_f32[k] for k in counters}
         model = app.reg.get_node(path.model + ":head").model
     finally:
         stop(app, httpd)
-    launches_f32 = counts[path.kernel] - bf16_counts[path.kernel]
-    if launches_f32 < depth:
-        raise AssertionError(f"f32 request launched {path.kernel} "
-                             f"{launches_f32} times; expected >= {depth}")
+    if {k: launches_f32[k] for k in path.kernels} != path.kernels:
+        raise AssertionError(f"f32 {path.model} request launched "
+                             f"{launches_f32}; expected {path.kernels}")
     errs32, _ = check_response(raw, path,
                                plain_taps(path, model, images[0], device),
                                f"{path.model} f32 request", bf16=False)
-    log(f"  {path.model} f32: 1 request, {path.kernel} launches "
-        f"{launches_f32}; head output max abs err vs plain "
-        f"{errs32['head']:.3g} (bound {F32_BOUND:g}), maps "
-        f"{max(v for k, v in errs32.items() if k != 'head'):.3g}; path "
-        f"launch counts {counts}")
+    log(f"  {path.model} f32: 1 request, launches {path.kernels}; head output "
+        f"max abs err vs plain {errs32['head']:.3g} (bound {F32_BOUND:g}), "
+        f"taps {max(v for k, v in errs32.items() if k != 'head'):.3g}; path "
+        f"launch counts { {k: v for k, v in counts.items() if v} }")
     return {"launches": counts, "p50_ms": p50}
 
 
@@ -1030,6 +1272,7 @@ def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
                          "repository (interactive_vit_tpu_torch/ missing)")
+    t_start = time.perf_counter()
     import torch
 
     from interactive_vit_tpu_torch.ops import flash_attention as fa
@@ -1056,19 +1299,28 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all at once
     t0 = time.perf_counter()
-    cuda_build.build_all(list(KERNELS))
+    sources = sorted({os.path.basename(src)[:-3]
+                      for src, _ in KERNELS.values()})
+    cuda_build.build_all(sources)
     fb.load_kernel()
     fb.load_headwise_kernel()
     fa.load_kernel()
+    fa.load_online_kernel()
     fw.load_kernel()
     fm.load_kernel()
-    log(f"phase 2 build: {', '.join(KERNELS)} built and loaded in "
+    fm.load_w8a8_kernel()
+    log(f"phase 2 build: {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     counters = {"fused_attn_block": fb.fused_attn_block,
                 "headwise_attn_block": fb.headwise_attn_block,
                 "flash_attention": fa.flash_attention,
                 "fused_window_attn": fw.fused_window_attn,
-                "fused_mlp_block": fm.fused_mlp_block}
+                "fused_mlp_block": fm.fused_mlp_block,
+                "flash_attention_online": fa.flash_attention_online,
+                "fused_mlp_w8a8_block": fm.fused_mlp_w8a8_block,
+                "fused_attn_block_s8": fb.fused_attn_block_s8}
+    if set(counters) != set(KERNELS):
+        raise AssertionError("every kernel needs its launch count")
 
     # 3. kernels against their plain versions
     log("phase 3 kernels vs plain versions on the card:")
@@ -1077,7 +1329,7 @@ def main() -> int:
             device, "fused_attn_block", fb.fused_attn_block,
             fb.fused_attn_block_reference,
             (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12),
-             ("vit_t16", 1, 197, 192, 3)),
+             ("vit_t16", 1, 197, 192, 3), ("vit_t16@256", 1, 257, 192, 3)),
             lambda heads: {
                 "maps_off": {},
                 "maps_mean": {"want_attn": True, "want_mean": True},
@@ -1098,39 +1350,75 @@ def main() -> int:
         "flash_attention": phase_flash_kernel(device),
         "fused_window_attn": phase_window_kernel(device),
         "fused_mlp_block": phase_mlp_kernel(device),
+        "flash_attention_online": phase_online_kernel(device),
+        "fused_mlp_w8a8_block": phase_w8a8_kernel(device),
+        "fused_attn_block_s8": phase_block_kernel(
+            device, "fused_attn_block_s8", fb.fused_attn_block_s8,
+            functools.partial(fb.fused_attn_block_reference,
+                              int8_scores=True),
+            (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12)),
+            lambda heads: {
+                "maps_off": {},
+                "maps_mean": {"want_attn": True, "want_mean": True},
+                "subset": {"want_attn": True, "attn_heads": (0, 6, 11)},
+                "qk_maps_mean": {"want_attn": True, "want_mean": True,
+                                 "int8_pv": False}},
+            ("vit_b16", 1, "bfloat16", "maps_mean"), s8=True),
     }
 
     # 4. the paths through the server
     log("phase 4 slice through the HTTP server:")
     from interactive_vit_tpu_torch.models import swin, vit
 
-    def vit_path(name, img, taps, kernel, plain, seq, conc, **kw):
-        return Path(name, vit, vit.resolve_variant(name), img, taps, kernel,
+    def vit_path(name, img, taps, kernels, plain, seq, conc, **kw):
+        return Path(name, vit, vit.resolve_variant(name), img, taps, kernels,
                     plain, vit_tap_shape, seq, conc, **kw)
 
     b16_taps = {2: ("attn", "r"), 7: ("attn", "r"), 13: ("attn", "r")}
     b16_plain = {"block_impl": fb.fused_attn_block_reference}
     paths = [
-        vit_path("vit_b16", 224, b16_taps, "fused_attn_block", b16_plain,
-                 seq=5, conc=4,
-                 other=vit_path("vit_t16", 224, b16_taps, "fused_attn_block",
-                                b16_plain, seq=1, conc=0)),
+        vit_path("vit_b16", 224, b16_taps, {"fused_attn_block": 12},
+                 b16_plain, seq=5, conc=4,
+                 other=vit_path("vit_t16", 224, b16_taps,
+                                {"fused_attn_block": 12}, b16_plain, seq=1,
+                                conc=0)),
         vit_path("vit_l16", 384, {2: ("attn", "r"), 14: ("attn", "r"),
-                                  25: ("r",)}, "headwise_attn_block",
+                                  25: ("r",)}, {"headwise_attn_block": 24},
                  {"block_impl": fb.headwise_attn_block_reference}, seq=3,
                  conc=2, node_params={14: {"attn_heads": "[0,7,15]"}}),
         vit_path("dinov2_s14_reg", 518, {2: ("attn", "r"), 8: ("r",),
-                                         13: ("r",)}, "flash_attention",
+                                         13: ("r",)}, {"flash_attention": 12},
                  {"attn_impl": fa.flash_attention_reference}, seq=3, conc=0),
         # nodes 2, 3: stages.0.0 and stages.0.1 (shifted); 13: stages.2.5;
         # 16: stages.3.1; a non-square image exercises the bicubic resize
         Path("swin_t", swin, swin.VARIANTS["swin_t"], (240, 300),
              {2: ("attn",), 3: ("attn",), 13: ("attn",), 16: ("attn",)},
-             "fused_window_attn",
+             {"fused_window_attn": 12},
              {"window_impl": fw.fused_window_attn_reference},
              swin_tap_shape, seq=5, conc=4, check_tap=swin_check_tap,
              node_params={13: {"attn_win": "2"},
                           16: {"attn_heads": "[0,11,23]"}}),
+        # a 53 x 53 grid: N=2814, the online kernel in all 12 blocks; the
+        # block outputs o of blocks 0, 6, 11 and the CLS features
+        vit_path("dinov2_s14_reg@742", 742, {2: ("o",), 8: ("o",),
+                                             13: ("o",)},
+                 {"flash_attention_online": 12}, {"attn_impl": online_plain},
+                 seq=2, conc=0),
+        # the repository's saved graph for an @ geometry (N=257)
+        vit_path("vit_t16@256", 256, {2: ("attn", "r"), 8: ("attn", "r"),
+                                      13: ("r",)}, {"fused_attn_block": 12},
+                 b16_plain, seq=2, conc=0),
+        # W8A8 fc1/fc2 and the s8 block in every block
+        vit_path("vit_b16", 224, b16_taps,
+                 {"fused_mlp_w8a8_block": 12, "fused_attn_block_s8": 12},
+                 {"block_impl": functools.partial(
+                     fb.fused_attn_block_reference, int8_scores=True),
+                  "mlp_impl": fm.fused_mlp_w8a8_reference},
+                 seq=3, conc=0, dtype="int8w8a8", attn="int8-scores",
+                 f32=False),
+        # weight-only int8: the unfused path, no kernel
+        vit_path("vit_b16", 224, b16_taps, {}, {}, seq=2, conc=0,
+                 dtype="int8", f32=False),
     ]
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_")
     try:
@@ -1138,13 +1426,15 @@ def main() -> int:
         shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
         for path in paths:
             res = run_path(path, device, graphs_dir, counters)
-            numbers[path.kernel]["launches"] = res["launches"][path.kernel]
+            for k in path.kernels:  # a kernel's first path gives its count
+                numbers[k].setdefault("launches", res["launches"][k])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     numbers["fused_mlp_block"]["launches"] = run_forwards(device, counters)
 
     # 5. result
-    log("phase 5 result: all phases passed")
+    log(f"phase 5 result: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         nums = numbers[name]

@@ -41,6 +41,36 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// tanh GELU as torch's approximate="tanh" (and jax.nn.gelu(approximate=True))
+__device__ __forceinline__ float gelu_tanh(float x) {
+  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
+  const float kKappa = 0.044715f;
+  const float inner = kBeta * (x + kKappa * x * x * x);
+  return 0.5f * x * (1.f + tanhf(inner));
+}
+
+// The in-kernel int8 quantizer of the W8A8 MLP and the s8 attention block
+// (ops/quant.py quant_rows_mosaic / quant_cols_mosaic): the scale of a row
+// or column is max|x| / 127 (1 where that is 0), and x rounds half up,
+// floor(x / s + 0.5), with a true f32 division and no contraction, clipped
+// to [-127, 127].
+__device__ __forceinline__ float quant_scale(float absmax) {
+  const float s = __fdiv_rn(absmax, 127.f);
+  return s == 0.f ? 1.f : s;
+}
+
+__device__ __forceinline__ int quant_half_up(float x, float s) {
+  const float q = floorf(__fadd_rn(__fdiv_rn(x, s), 0.5f));
+  return (int)fminf(fmaxf(q, -127.f), 127.f);
+}
+
+// Four int8 values, k to k + 3, packed into one word for __dp4a (k in the
+// low byte).
+__device__ __forceinline__ int pack4(int b0, int b1, int b2, int b3) {
+  return (int)((unsigned)(b0 & 0xff) | ((unsigned)(b1 & 0xff) << 8) |
+               ((unsigned)(b2 & 0xff) << 16) | ((unsigned)(b3 & 0xff) << 24));
+}
+
 // Shared memory one block may use on an H100 (227 KB).
 constexpr size_t SMEM_LIMIT = 232448;
 

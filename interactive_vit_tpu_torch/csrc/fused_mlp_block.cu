@@ -43,14 +43,6 @@ __host__ __device__ inline size_t mlp_smem_floats(int d) {
   return (size_t)d * MLP_ROWS + (size_t)MLP_THREADS * MLP_ROWS;
 }
 
-// tanh GELU as torch's approximate="tanh" (and jax.nn.gelu(approximate=True))
-__device__ __forceinline__ float gelu_tanh(float x) {
-  const float kBeta = 0.7978845608028654f;  // sqrt(2 / pi)
-  const float kKappa = 0.044715f;
-  const float inner = kBeta * (x + kKappa * x * x * x);
-  return 0.5f * x * (1.f + tanhf(inner));
-}
-
 // NC: output columns per thread, ceil(D / 256).
 template <typename T, int NC>
 __global__ void __launch_bounds__(MLP_THREADS)

@@ -2,8 +2,9 @@
 
 Counterpart of ``interactive_vit_tpu/models/autoregister.py`` for the
 families this package has: the plain ViTs (``vit_*``, ``dino_*``,
-``deit_*``, ``dinov2_*``) and Swin (``swin_*``). A variant of a family
-that is not ported yet raises with the family's name.
+``deit_*``, ``dinov2_*``, each also at an ``@<pixels>p<patch>`` geometry)
+and Swin (``swin_*``). A variant of a family that is not ported yet raises
+with the family's name.
 """
 
 from __future__ import annotations
@@ -41,10 +42,16 @@ def make_model(
     dtype=torch.float32,
     device="cuda",
     attn_impl=None,
+    quantize=False,
+    block_kernel: str = "auto",
 ):
     """Build the registerable ``TorchModel`` for ``variant`` on ``device``
     (the card unless the caller asks for the CPU). ``attn_impl`` is the
-    attention of plain-ViT blocks on the unfused path."""
+    attention of plain-ViT blocks on the unfused path; ``quantize`` and
+    ``block_kernel`` go to ``make_vit_model`` for the plain-ViT family
+    (``@<pixels>p<patch>`` geometries included). Swin refuses the ``@``
+    suffix and a ``block_kernel`` other than "auto", as in the JAX package,
+    and its quantized modes are not ported (``make_swin_model`` raises)."""
     if variant.startswith("swin_"):
         from interactive_vit_tpu_torch.models.swin_plugin import (
             make_swin_model,
@@ -58,9 +65,14 @@ def make_model(
         if variant not in known_variants():
             raise ValueError(f"unknown model variant {variant!r}; known: "
                              f"{known_variants()}")
+        if block_kernel != "auto":
+            raise ValueError(
+                f"block_kernel={block_kernel!r} applies to the plain-ViT "
+                f"family only (the fused block kernel); {variant} has no "
+                f"s8-scores variant")
         return make_swin_model(variant, params=params, seed=seed,
-                               dtype=dtype, device=device)
-    family = _unported_family(variant)
+                               dtype=dtype, device=device, quantize=quantize)
+    family = _unported_family(variant.partition("@")[0])
     if family is not None:
         raise NotImplementedError(
             f"{variant!r}: the {family} family is not ported to the torch "
@@ -68,4 +80,5 @@ def make_model(
     from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
 
     return make_vit_model(variant, params=params, seed=seed, dtype=dtype,
-                          device=device, attn_impl=attn_impl)
+                          device=device, attn_impl=attn_impl,
+                          quantize=quantize, block_kernel=block_kernel)

@@ -4,8 +4,9 @@ Counterpart of ``interactive_vit_tpu/models/vit.py``: the same configs,
 parameter layout (linear weights ``[D_in, D_out]``, qkv columns
 ``[3][H][dh]``), per-layer functions and monolithic forward, so a JAX
 parameter tree converts by a tree-map (``models/weights.from_jax``) and
-both packages compute the same thing. The ``@<pixels>p<patch>`` geometry
-suffixes and checkpoint adaptation are not ported yet.
+both packages compute the same thing, including the
+``@<pixels>p<patch>`` geometries (``resolve_variant``) and the adaptation
+of a native checkpoint to them (``adapt_checkpoint``).
 """
 
 from __future__ import annotations
@@ -93,15 +94,111 @@ VARIANTS: Dict[str, ViTConfig] = {
 
 
 def resolve_variant(name: str) -> ViTConfig:
-    """Variant name -> config. Geometry suffixes (``vit_b16@384``) are not
-    ported yet and raise."""
-    if "@" in name:
-        raise ValueError(f"{name!r}: '@<pixels>p<patch>' geometries are not "
-                         f"ported to the torch package yet")
-    if name not in VARIANTS:
+    """``"vit_b16"``, ``"vit_b16@384"``, ``"vit_b16@p8"`` or
+    ``"vit_b16@384p32"`` -> config. The ``@[<pixels>][p<patch>]`` suffix
+    serves a known variant at another resolution and/or patch size; width,
+    depth and heads are unchanged, and a checkpoint of the native geometry
+    adapts on load (``adapt_checkpoint``). The very ``VARIANTS`` entry comes
+    back when the suffix changes nothing. Errors as the JAX function's."""
+    base, sep, suffix = name.partition("@")
+    if base not in VARIANTS:
         raise ValueError(
-            f"unknown ViT variant {name!r}; known: {sorted(VARIANTS)}")
-    return VARIANTS[name]
+            f"unknown ViT variant {base!r}; known: {sorted(VARIANTS)}")
+    cfg = VARIANTS[base]
+    if sep:
+        res, psep, patch = suffix.partition("p")
+        ok = (res.isdigit() or (not res and psep)) \
+            and (patch.isdigit() or not psep)
+        if not ok:
+            raise ValueError(
+                f"bad resolution suffix in {name!r}: expected "
+                f"<variant>@<pixels>, <variant>@p<patch>, or "
+                f"<variant>@<pixels>p<patch> (e.g. vit_b16@384, "
+                f"dino_s16@p8, vit_b16@384p32)")
+        img = int(res) if res else cfg.img_size
+        p = int(patch) if psep else cfg.patch
+        if img % p:
+            raise ValueError(
+                f"{name!r}: resolution {img} must be a multiple of the "
+                f"patch size {p}")
+        if (img, p) != (cfg.img_size, cfg.patch):
+            cfg = dataclasses.replace(cfg, name=f"{base}@{suffix}",
+                                      img_size=img, patch=p)
+    return cfg
+
+
+def adapt_pos_embed(params: Params, cfg: ViTConfig) -> Params:
+    """Resample a checkpoint's position table to ``cfg``'s grid.
+
+    timm's ``resample_abs_pos_embed`` construction: the prefix rows (CLS,
+    DIST; registers carry no position) pass through, the grid part is
+    resampled bicubically per side with ``preprocess_mm.resize_matrix``,
+    in f32, and cast back. Identity when the token count already matches."""
+    pe = params["pos_emb"]
+    if pe.shape[1] == cfg.pos_tokens:
+        return params
+    from interactive_vit_tpu_torch.ops.preprocess_mm import resize_matrix
+
+    prefix = cfg.prefix_tokens - cfg.registers
+    d = pe.shape[2]
+    g_sq = pe.shape[1] - prefix
+    g_old = int(round(g_sq ** 0.5))
+    if g_old * g_old != g_sq:
+        raise ValueError(
+            f"cannot adapt pos_emb of {pe.shape[1]} tokens to "
+            f"{cfg.name}: grid part ({g_sq} rows after {prefix} prefix "
+            f"tokens) is not square")
+    g_new = cfg.img_size // cfg.patch
+    r = torch.from_numpy(resize_matrix(g_old, g_new, "bicubic").copy()).to(
+        pe.device)
+    grid = pe[0, prefix:].float().reshape(g_old, g_old, d)
+    grid = torch.einsum("sh,hwd->swd", r, grid)
+    grid = torch.einsum("tw,swd->std", r, grid)
+    new_pe = torch.cat([pe[:, :prefix].float(),
+                        grid.reshape(1, g_new * g_new, d)], dim=1)
+    return {**params, "pos_emb": new_pe.to(pe.dtype)}
+
+
+def adapt_patch_embed(params: Params, cfg: ViTConfig) -> Params:
+    """FlexiViT pseudo-inverse resize of the patch-embedding kernel (Beyer
+    et al. 2023): with ``B`` the bilinear patch resize p0 -> p1, the new
+    kernel is ``(B^+)^T w``, applied per spatial axis, in host numpy as
+    the JAX function does. Identity when the patch size already matches;
+    refuses a quantized kernel (adapt before quantizing)."""
+    pe = params["patch_embed"]
+    w = pe["w"]
+    if not isinstance(w, torch.Tensor):
+        raise ValueError("adapt_patch_embed needs float weights "
+                         "(load/adapt the checkpoint before quantizing)")
+    import numpy as np
+
+    c = cfg.in_chans
+    pdim, d = w.shape
+    p0 = int(round((pdim // c) ** 0.5))
+    if c * p0 * p0 != pdim:
+        raise ValueError(
+            f"patch_embed rows {pdim} are not {c} x p x p -- cannot "
+            f"infer the checkpoint's patch size")
+    if p0 == cfg.patch:
+        return params
+    from interactive_vit_tpu_torch.ops.preprocess_mm import resize_matrix
+
+    r = resize_matrix(p0, cfg.patch, "bilinear")        # [p1, p0]
+    pinv_t = np.linalg.pinv(r).T.astype(np.float32)     # [p1, p0]
+    w4 = w.detach().to("cpu", torch.float32).numpy().reshape(c, p0, p0, d)
+    w_new = np.einsum("ai,bj,cijd->cabd", pinv_t, pinv_t, w4,
+                      optimize=True)
+    w_new = torch.from_numpy(np.ascontiguousarray(
+        w_new.reshape(c * cfg.patch * cfg.patch, d), dtype=np.float32))
+    return {**params, "patch_embed": {
+        "w": w_new.to(device=w.device, dtype=w.dtype), "b": pe["b"]}}
+
+
+def adapt_checkpoint(params: Params, cfg: ViTConfig) -> Params:
+    """Adapt a plain-ViT checkpoint of the native geometry to a derived
+    ``@<pixels>p<patch>`` config: the patch kernel first, then the position
+    table to the resulting grid. Identity when nothing changed."""
+    return adapt_pos_embed(adapt_patch_embed(params, cfg), cfg)
 
 
 # -- init ----------------------------------------------------------------------

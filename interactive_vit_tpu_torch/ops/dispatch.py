@@ -2,7 +2,7 @@
 
 Counterpart of ``interactive_vit_tpu/ops/dispatch.py``'s
 ``default_block_impl``, ``default_window_impl``, ``default_mlp_impl``,
-``default_attn_impl`` and ``auto_attention``.
+``default_attn_impl`` and ``auto_attention``, by the same policy names.
 
 Block policy names (``default_block_impl``):
 
@@ -14,6 +14,12 @@ Block policy names (``default_block_impl``):
     "fused"      always the whole-image block wrapper (its plain version on
                  CPU)
     "headwise"   always the headwise block wrapper
+    "int8-scores"     the s8 mode of the whole-image block
+                 (``fused_block.fused_attn_block_s8``, s8 score and PV
+                 products); raises where the s8 envelope
+                 (``fused_block.fits(..., int8_scores=True)``) does not hold:
+                 the headwise kernel has no s8 mode
+    "int8-scores-qk"  the same with s8 scores and a dense PV product
     "reference"  None: the unfused path
 
 Attention policy names (``default_attn_impl``), for blocks that run the
@@ -21,7 +27,9 @@ unfused path (LayerScale models such as DINOv2, or shapes no block kernel
 takes):
 
     "auto"       ``auto_attention``: the flash kernel for CUDA tensors with
-                 N >= ``FLASH_MIN_SEQ``, ``attention_reference`` otherwise
+                 N >= ``FLASH_MIN_SEQ`` (the online-softmax kernel above
+                 ``flash_attention.ROWFULL_MAX_N`` with maps off),
+                 ``attention_reference`` otherwise
     "flash"      always the flash wrapper (its plain version on CPU)
     "reference"  None: ``attention_reference``
 
@@ -36,21 +44,28 @@ Window policy names (``default_window_impl``), for the Swin family:
 MLP policy names (``default_mlp_impl``):
 
     "auto"       None for dense models, as in the JAX package (there the
-                 fused MLP is an opt-in; "auto" only ever selected the int8
-                 variant, which is not ported)
+                 fused MLP is an opt-in); for a W8A8 model (``quant=
+                 "w8a8"``) on a CUDA device, in bf16 and in f32, the W8A8
+                 MLP kernel where its shape fits (``fused_mlp.fits_w8a8``),
+                 else None (``layers.linear`` runs ``quant.linear_w8a8``)
     "fused"      the fused MLP wrapper (its plain version on CPU); raises
                  where the shape does not fit the kernel
+    "w8a8"       the W8A8 MLP wrapper (its plain version on CPU); raises
+                 where the shape does not fit the kernel
     "reference"  None: the unfused MLP
-    "w8a8"       not ported (TPU kernel ``fused_mlp_w8a8_block``): raises
 
 Unlike the JAX policy, f32 is not excluded on CUDA: that exclusion worked
 around HIGHEST-precision dots compiling slowly inside Mosaic, which has no
-counterpart here. The decision is made by shape and device at dispatch
-time, never by whether a build or launch succeeds.
+counterpart here. So "auto" picks the kernels in f32 too, "int8-scores"
+takes an f32 model where the JAX policy raises, and "auto" with
+``quant="w8a8"`` picks the W8A8 kernel in f32 where the JAX policy returns
+None. The decision is made by shape, dtype and device at dispatch time,
+never by whether a build or launch succeeds.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -101,6 +116,17 @@ def default_block_impl(name: str = "auto", dtype=None, n: int = 0,
         return fused_attn_block
     if name == "headwise":
         return headwise_attn_block
+    if name in ("int8-scores", "int8-scores-qk"):
+        from interactive_vit_tpu_torch.ops.fused_block import (
+            fused_attn_block_s8,
+        )
+
+        if d and n and not fits(n, d, heads, int8_scores=True):
+            raise ValueError(
+                f"{name} fused block does not fit shared memory for n={n}, "
+                f"d={d}; the headwise kernel has no s8 mode")
+        return functools.partial(fused_attn_block_s8,
+                                 int8_pv=(name == "int8-scores"))
     if name == "auto":
         dev: Optional[torch.device] = (torch.device(device)
                                        if device is not None else None)
@@ -142,23 +168,29 @@ def default_window_impl(name: str = "auto", dtype=None, cfg=None,
 def default_mlp_impl(name: str = "auto", dtype=None, d: int = 0,
                      mlp_dim: int = 0, quant: str = "", device=None):
     """Resolve the fused MLP-branch policy to a callable
-    ``(x, p, eps) -> y`` or None. ``dtype`` and ``device`` are accepted for
-    the JAX signature's sake; no policy reads them yet ("auto" is None for
-    every dense model)."""
+    ``(x, p, eps) -> y`` or None."""
     if name in ("none", "reference"):
         return None
-    if name == "w8a8" or quant == "w8a8":
-        raise NotImplementedError(
-            "the W8A8 MLP kernel (interactive_vit_tpu/ops/fused_mlp.py:154 "
-            "fused_mlp_w8a8_block) is not ported to CUDA yet")
-    if name == "auto":
-        return None
-    if name == "fused":
-        from interactive_vit_tpu_torch.ops import fused_mlp as fm
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
 
+    if name == "fused":
         if d and mlp_dim and not fm.fits(d, mlp_dim):
             raise ValueError(
                 f"fused MLP kernel does not take d={d}, mlp_dim={mlp_dim}; "
                 f"use mlp_impl='auto'/'reference'")
         return fm.fused_mlp_block
+    if name == "w8a8":
+        if d and mlp_dim and not fm.fits_w8a8(d, mlp_dim,
+                                               dtype or torch.bfloat16):
+            raise ValueError(
+                f"W8A8 MLP kernel does not take d={d}, mlp_dim={mlp_dim} in "
+                f"{dtype}; use mlp_impl='auto' for the unfused W8A8 path")
+        return fm.fused_mlp_w8a8_block
+    if name == "auto":
+        dev: Optional[torch.device] = (torch.device(device)
+                                       if device is not None else None)
+        if (quant == "w8a8" and dev is not None and dev.type == "cuda"
+                and dtype in _DTYPES and fm.fits_w8a8(d, mlp_dim, dtype)):
+            return fm.fused_mlp_w8a8_block
+        return None
     raise ValueError(f"unknown mlp impl {name!r}")

@@ -27,6 +27,17 @@ headwise block runs LN1 and QKV as plain PyTorch ops before its kernel
 (XLA ops outside the Pallas kernel in JAX), and recomputes the maps of an
 ``attn_heads`` subset outside the kernel with an exact max-subtracted
 softmax while the kernel runs maps-off, as the JAX function does.
+
+The s8 mode (JAX ``int8_scores`` / ``int8_pv``, the server's ``--attn
+int8-scores``) is a mode of the whole-image kernel with its own wrapper,
+``fused_attn_block_s8`` (count ``fused_attn_block_s8.launches``):
+per head, q and k are quantized per row with ``quant.quant_rows_mosaic``
+(half up), the scores are ``si.f32 * (qs * scale) * ks`` from an exact
+s8 x s8 -> s32 product and, with ``int8_pv``, the PV product is s8 too:
+the probs (maps on) or the unnormalised fast-softmax p (maps off)
+quantized per row, v per column, ``oi.f32 * ps * vs`` (maps off: ``oi.f32
+* (ps * r) * vs``). The probs taps and the head-mean are as in the dense
+mode.
 """
 
 from __future__ import annotations
@@ -37,7 +48,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from interactive_vit_tpu_torch.ops import layers as L
-from interactive_vit_tpu_torch.ops import tiled_attention
+from interactive_vit_tpu_torch.ops import quant, tiled_attention
 
 Params = Dict[str, torch.Tensor]
 
@@ -59,16 +70,32 @@ def attn_smem_bytes(n: int, dh: int) -> int:
     return 4 * (n * (dh + 4) + n * dh + _QT * dh + _QT * n)
 
 
-def fits(n: int, d: int, heads: int) -> bool:
+def attn_s8_extra_bytes(n: int, dh: int) -> int:
+    """What the s8 mode adds to the attention kernel's shared memory: int8
+    q [32][dh], k [n][dh] and v^T [dh][n] and probs [32][n] packed four to
+    a 32-bit word (k and v^T rows padded to an odd word count), and the f32
+    scales of q rows, k rows, v columns and probs rows."""
+    def odd(w):
+        return w | 1
+
+    nw = (n + 3) // 4
+    return 4 * (_QT * (dh // 4) + n * odd(dh // 4) + dh * odd(nw) + _QT * nw
+                + _QT + n + dh + _QT)
+
+
+def fits(n: int, d: int, heads: int, int8_scores: bool = False) -> bool:
     """True when the kernel takes a block of n tokens, width d, ``heads``
     heads: the width splits into heads of a multiple of 4 columns (float4
     rows), and one head's K and V for all n keys fit the attention
-    kernel's shared memory."""
+    kernel's shared memory -- with the s8 mode's int8 copies and scales
+    when ``int8_scores`` (this card's shared memory, not the TPU's VMEM:
+    N up to 341 at dh=64 dense, 268 in s8)."""
     if n <= 0 or heads <= 0 or heads > _MAX_HEADS or d % heads:
         return False
     dh = d // heads
-    return (dh % 4 == 0
-            and attn_smem_bytes(n, dh) <= tiled_attention.SMEM_LIMIT)
+    smem = attn_smem_bytes(n, dh) + (attn_s8_extra_bytes(n, dh)
+                                     if int8_scores else 0)
+    return dh % 4 == 0 and smem <= tiled_attention.SMEM_LIMIT
 
 
 def _emit_heads(heads: int, want_attn: bool, attn_heads) -> Optional[Tuple[int, ...]]:
@@ -94,8 +121,14 @@ def fused_attn_block_reference(
     want_mean: bool = False,
     fast_softmax: bool = True,
     attn_heads: Optional[Tuple[int, ...]] = None,
+    int8_scores: bool = False,
+    int8_pv: bool = True,
 ):
     """Plain PyTorch version of the kernel, same contract and cast points.
+
+    ``int8_scores`` (and ``int8_pv``): the s8 mode, with the JAX kernel's
+    quantizers (``quant_rows_mosaic`` / ``quant_cols_mosaic``, half up) and
+    exact integer products (float64 matmuls of the int8 values).
 
     Returns ``(y, probs | None)``, or ``(y, probs | None, mean)`` when
     ``want_mean``."""
@@ -112,7 +145,14 @@ def fused_attn_block_reference(
            + p["qkv_b"].float()).to(dt)
     q, k, v = (qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, dh)
                .transpose(1, 2) for i in range(3))          # [B, H, N, dh]
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
+    scale = dh ** -0.5
+    if int8_scores:
+        qq, qs = quant.quant_rows_mosaic(q.float())
+        kq, ks = quant.quant_rows_mosaic(k.float())
+        si = quant.int_matmul(qq, kq.transpose(-1, -2))
+        s = si.float() * (qs * scale) * ks.transpose(-1, -2)
+    else:
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if fast_softmax:
         pexp = torch.exp(torch.clamp(s, max=SOFTMAX_CLAMP))
     else:
@@ -128,8 +168,16 @@ def fused_attn_block_reference(
         norm[list(emit)] = True
     probs = pexp * r
     pb = probs.to(dt)
-    o_norm = torch.matmul(pb.float(), vf)
-    o_raw = torch.matmul(pexp.to(dt).float(), vf) * r
+    if int8_scores and int8_pv:
+        # probs (maps on) or the unnormalised p (off) per row, v per column
+        vq, vs = quant.quant_cols_mosaic(vf)
+        pq, ps = quant.quant_rows_mosaic(probs)
+        o_norm = quant.int_matmul(pq, vq).float() * ps * vs
+        pq, ps = quant.quant_rows_mosaic(pexp)
+        o_raw = quant.int_matmul(pq, vq).float() * (ps * r) * vs
+    else:
+        o_norm = torch.matmul(pb.float(), vf)
+        o_raw = torch.matmul(pexp.to(dt).float(), vf) * r
     o = torch.where(norm[None, :, None, None], o_norm, o_raw)
     o = o.transpose(1, 2).reshape(b, n, d).to(dt)
     y = (xf + torch.matmul(o.float(), p["proj_w"].float())
@@ -154,10 +202,12 @@ def _kernel_lib() -> ctypes.CDLL:
         lib.ivt_fused_attn_block.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
             + [ctypes.c_float] * 3
-            + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_void_p])
+            + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p])
         lib.ivt_fused_attn_block.restype = ctypes.c_int
-        lib.ivt_attn_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.ivt_attn_smem_bytes.restype = ctypes.c_size_t
+        for fn in (lib.ivt_attn_smem_bytes, lib.ivt_attn_s8_extra_bytes):
+            fn.argtypes = [ctypes.c_int, ctypes.c_int]
+            fn.restype = ctypes.c_size_t
         lib._ivt_bound = True
     return lib
 
@@ -166,23 +216,25 @@ def load_kernel() -> ctypes.CDLL:
     """Build and load the CUDA kernel now (``chip_smoke.py`` times this);
     checks that the library's shared-memory formula is the envelope's."""
     lib = _kernel_lib()
-    for n, dh in ((197, 64), (50, 64), (17, 16)):
-        if lib.ivt_attn_smem_bytes(n, dh) != attn_smem_bytes(n, dh):
+    for n, dh in ((197, 64), (50, 64), (17, 16), (257, 64)):
+        if (lib.ivt_attn_smem_bytes(n, dh) != attn_smem_bytes(n, dh)
+                or lib.ivt_attn_s8_extra_bytes(n, dh)
+                != attn_s8_extra_bytes(n, dh)):
             raise RuntimeError("csrc/fused_attn_block.cu and fits() disagree "
                                "on the attention kernel's shared memory")
     return lib
 
 
 def _check_operands(x: torch.Tensor, p: Params, heads: int,
-                    name: str = "fused_attn_block", fits_fn=None) -> None:
-    fits_fn = fits_fn or fits
+                    name: str = "fused_attn_block", fits_fn=fits,
+                    **fits_kw) -> None:
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name} kernel takes float32 or bfloat16, "
                         f"got {x.dtype}")
     if x.ndim != 3:
         raise ValueError(f"x must be [B, N, D], got shape {tuple(x.shape)}")
     b, n, d = x.shape
-    if not fits_fn(n, d, heads):
+    if not fits_fn(n, d, heads, **fits_kw):
         raise ValueError(f"{name} kernel does not take n={n}, "
                          f"d={d}, heads={heads} (see {fits_fn.__name__}())")
     want = {"ln1_s": (d,), "ln1_b": (d,), "qkv_w": (d, 3 * d),
@@ -200,43 +252,13 @@ def _check_operands(x: torch.Tensor, p: Params, heads: int,
         raise ValueError("x must be contiguous")
 
 
-def fused_attn_block(
-    x: torch.Tensor,
-    p: Params,
-    heads: int,
-    eps: float = 1e-6,
-    want_attn: bool = False,
-    want_mean: bool = False,
-    fast_softmax: bool = True,
-    attn_heads: Optional[Tuple[int, ...]] = None,
-    key_bias: Optional[torch.Tensor] = None,
-    want_metric: bool = False,
-    int8_scores: bool = False,
-    int8_pv: bool = True,
-):
-    """x [B, N, D] -> (x + proj(MHSA(LN(x))), probs [B, H|sel, N, N] | None)
-    [, mean [B, N, N] when ``want_mean``].
-
-    Arguments as the JAX function's. ``attn_heads`` limits the probs tap
-    to those heads (ascending order); the others are never written.
-    ``key_bias``/``want_metric`` (ToMe) and ``int8_scores``/``int8_pv``
-    are not ported yet and raise ``NotImplementedError``."""
-    if key_bias is not None or want_metric:
-        raise NotImplementedError(
-            "key_bias / want_metric (ToMe) are not ported to the CUDA block "
-            "kernel yet")
-    if int8_scores:
-        raise NotImplementedError(
-            "int8_scores is not ported to the CUDA block kernel yet")
-    if x.device.type == "cpu":
-        return fused_attn_block_reference(
-            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
-            fast_softmax=fast_softmax, attn_heads=attn_heads)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attn_block runs on cuda or cpu tensors, got "
-                         f"{x.device}")
+def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
+                  attn_heads, int8_mode: int):
+    """One launch of ``csrc/fused_attn_block.cu`` (``int8_mode``: 0 dense,
+    1 s8 scores with a dense PV product, 2 s8 scores and PV); returns the
+    wrapper's result."""
     emit = _emit_heads(heads, want_attn, attn_heads)
-    _check_operands(x, p, heads)
+    _check_operands(x, p, heads, int8_scores=int8_mode > 0)
     b, n, d = x.shape
     emit_list = (list(range(heads)) if emit is None else list(emit)) \
         if want_attn else []
@@ -265,17 +287,94 @@ def fused_attn_block(
             None if probs is None else probs.data_ptr(),
             None if mean is None else mean.data_ptr(), b, n, d, heads,
             float(eps), float(d // heads) ** -0.5, 1.0 / heads,
-            int(bool(fast_softmax)), mask, len(emit_list), stream)
+            int(bool(fast_softmax)), mask, len(emit_list), int8_mode, stream)
     if err != 0:
         raise RuntimeError(f"fused_attn_block kernel launch failed: "
                            f"cudaError {err}")
-    fused_attn_block.launches += 1
     if want_mean:
         return y, probs, mean
     return y, probs
 
 
+def _on_device(x, name):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    return x.device.type == "cuda"
+
+
+def fused_attn_block(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+    key_bias: Optional[torch.Tensor] = None,
+    want_metric: bool = False,
+    int8_scores: bool = False,
+    int8_pv: bool = True,
+):
+    """x [B, N, D] -> (x + proj(MHSA(LN(x))), probs [B, H|sel, N, N] | None)
+    [, mean [B, N, N] when ``want_mean``].
+
+    Arguments as the JAX function's. ``attn_heads`` limits the probs tap
+    to those heads (ascending order); the others are never written.
+    ``int8_scores`` / ``int8_pv`` run the s8 mode (``fused_attn_block_s8``,
+    which counts those launches). ``key_bias``/``want_metric`` (ToMe) are
+    not ported yet and raise ``NotImplementedError``."""
+    if key_bias is not None or want_metric:
+        raise NotImplementedError(
+            "key_bias / want_metric (ToMe) are not ported to the CUDA block "
+            "kernel yet")
+    if int8_scores:
+        return fused_attn_block_s8(
+            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
+            fast_softmax=fast_softmax, attn_heads=attn_heads,
+            int8_pv=int8_pv)
+    if not _on_device(x, "fused_attn_block"):
+        return fused_attn_block_reference(
+            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
+            fast_softmax=fast_softmax, attn_heads=attn_heads)
+    out = _launch_block(x, p, heads, eps, want_attn, want_mean,
+                        fast_softmax, attn_heads, 0)
+    fused_attn_block.launches += 1
+    return out
+
+
 fused_attn_block.launches = 0
+
+
+def fused_attn_block_s8(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+    int8_pv: bool = True,
+):
+    """The s8 mode of ``fused_attn_block`` (the JAX function's
+    ``int8_scores=True``; ``int8_pv`` quantizes the PV product too), same
+    contract. On a CUDA tensor one launch of the block kernel with its s8
+    attention (envelope ``fits(..., int8_scores=True)``), counted in
+    ``fused_attn_block_s8.launches``; on a CPU tensor the plain version."""
+    if not _on_device(x, "fused_attn_block_s8"):
+        return fused_attn_block_reference(
+            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
+            fast_softmax=fast_softmax, attn_heads=attn_heads,
+            int8_scores=True, int8_pv=int8_pv)
+    out = _launch_block(x, p, heads, eps, want_attn, want_mean,
+                        fast_softmax, attn_heads, 2 if int8_pv else 1)
+    fused_attn_block_s8.launches += 1
+    return out
+
+
+fused_attn_block_s8.launches = 0
 
 
 # -- headwise_attn_block ---------------------------------------------------------

@@ -16,6 +16,10 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from interactive_vit_tpu_torch.ops.quant import (
+    QKEY, SKEY, is_quantized, is_w8a8, linear_w8a8,
+)
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -36,14 +40,22 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
                   else "tanh")
 
 
-def linear(x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor]) -> torch.Tensor:
+def linear(x: torch.Tensor, w, b: Optional[torch.Tensor]) -> torch.Tensor:
     """x @ w + b accumulated in f32, cast back to x's dtype once.
 
+    ``w`` is a dense ``[D_in, D_out]`` tensor or an int8 leaf-dict
+    (``ops/quant.py``). Weight-only int8 multiplies by the int8 weight cast
+    to x's dtype and rescales the f32 accumulator by the column scale (the
+    scale commutes with the product); W8A8 goes to ``quant.linear_w8a8``.
     The product runs on f32 upcasts, so bf16 operands multiply exactly and
     sum in f32 like the JAX ``preferred_element_type=f32`` dot; on CUDA
     this assumes TF32 is off for matmuls (PyTorch's default)."""
-    y = torch.matmul(x.float(), w.float())
+    if is_w8a8(w):
+        return linear_w8a8(x, w, b)
+    if is_quantized(w):
+        y = torch.matmul(x.float(), w[QKEY].to(x.dtype).float()) * w[SKEY]
+    else:
+        y = torch.matmul(x.float(), w.float())
     if b is not None:
         y = y + b.float()
     return y.to(x.dtype)

@@ -16,8 +16,23 @@ flash attention kernel (``--attn``), ``--models swin_t`` through the fused
 window attention kernel in all 12 blocks (``--models swin_t,vit_b16``
 serves both).
 
+A plain-ViT name takes an ``@[<pixels>][p<patch>]`` suffix:
+``--models dinov2_s14_reg@742`` (a 53 x 53 grid, 2814 tokens) serves
+through the online-softmax flash kernel, ``--models vit_t16@256`` through
+the fused block kernel (the repository has its saved graph).
+
+``--dtype int8`` serves weight-only int8 (qkv, proj, fc1, fc2) over bf16
+activations on the unfused path; ``--dtype int8w8a8`` quantizes fc1 and
+fc2 as W8A8 and runs the W8A8 MLP kernel beside the block kernel, which
+``--attn int8-scores`` switches to its s8 mode (plain-ViT models only;
+refused with ``--dtype int8``):
+
+    python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
+        --dtype int8w8a8 --attn int8-scores --port 8965
+
 Weights are a seeded random init; checkpoint loading, plugin scanning,
-multi-device serving and the other families are not ported yet.
+multi-device serving, quantized Swin and the other families are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -40,7 +55,13 @@ logger = logging.getLogger(__name__)
 _REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# --dtype -> (activation and weight dtype, quantize mode): the int8 modes
+# serve bf16 activations, as in the JAX package
+DTYPES = {"float32": (torch.float32, False),
+          "bfloat16": (torch.bfloat16, False),
+          "int8": (torch.bfloat16, "w8"),
+          "int8w8a8": (torch.bfloat16, "w8a8")}
+ATTN_CHOICES = ("auto", "flash", "reference", "int8-scores")
 
 
 def build_app(
@@ -55,8 +76,21 @@ def build_app(
 ) -> App:
     """An ``App`` with its own registry serving ``models`` on ``device``
     (the card unless the caller asks for the CPU; raises without a card).
-    ``attn_impl_name``: the attention policy of blocks on the unfused path
-    (``ops/dispatch.default_attn_impl``)."""
+    ``dtype_name``: a ``DTYPES`` key. ``attn_impl_name``: the attention
+    policy of blocks on the unfused path (``ops/dispatch.
+    default_attn_impl``), or "int8-scores": the s8 mode of the fused block
+    for plain-ViT models (the others keep "auto"), refused with the
+    weight-only "int8" dtype, as in the JAX server."""
+    dtype, quantize = DTYPES[dtype_name]
+    block_kernel = "auto"
+    if attn_impl_name == "int8-scores":
+        if quantize and quantize != "w8a8":
+            raise ValueError(
+                "--attn int8-scores needs dense attention weights "
+                "(float32/bfloat16/int8w8a8 --dtype; weight-only int8 "
+                "runs the unfused path)")
+        block_kernel = "int8-scores"
+        attn_impl_name = "auto"
     device = require_device(device)
     attn_impl = default_attn_impl(attn_impl_name)
     reg = Registry()
@@ -72,10 +106,12 @@ def build_app(
         max_batch=max_batch,
         max_wait_ms=max_wait_ms,
     )
-    dtype = DTYPES[dtype_name]
     for variant in models:
+        # the s8 mode exists for the plain-ViT block only
+        bk = "auto" if variant.startswith("swin_") else block_kernel
         model = make_model(variant, seed=seed, dtype=dtype, device=device,
-                           attn_impl=attn_impl)
+                           attn_impl=attn_impl, quantize=quantize,
+                           block_kernel=bk)
         # the repository's library is never written: a variant without a
         # saved graph there gets none
         model.register(reg, None if repo_lib else app.graphs)
@@ -93,15 +129,18 @@ def main(argv=None) -> None:
                         help="comma-separated model variants to register "
                              "(plain ViTs and swin_t/s/b)")
     parser.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
-                        help="weight and activation dtype")
+                        help="weight and activation dtype; int8 = weight-"
+                             "only int8 weights, int8w8a8 = W8A8 fc1/fc2 "
+                             "(both over bfloat16 activations)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to serve on, e.g. cuda, cuda:1 "
                              "or cpu")
-    parser.add_argument("--attn", default="auto",
-                        choices=["auto", "flash", "reference"],
+    parser.add_argument("--attn", default="auto", choices=ATTN_CHOICES,
                         help="attention of blocks on the unfused path "
                              "(LayerScale models such as DINOv2): auto = "
-                             "the flash kernel on CUDA for N >= 256")
+                             "the flash kernel on CUDA for N >= 256; "
+                             "int8-scores = the s8 mode of the fused block "
+                             "(plain-ViT models)")
     parser.add_argument("--graphs-dir", default=None,
                         help="saved-graph library; a variant's chain graph "
                              "is generated into it when missing (default: "

@@ -4,8 +4,8 @@ A library's file name must change with its source, with every shared
 header under ``csrc/`` and with the flags, or an edited header would load
 a stale library. Without ``nvcc`` a build raises; nothing falls back.
 
-The two ``cuda``-marked cases build the window-attention and MLP kernels
-from ``csrc/`` and skip without a card.
+The ``cuda``-marked cases build the window-attention, MLP, W8A8 MLP and
+online flash kernels from ``csrc/`` and skip without a card.
 """
 
 import os
@@ -62,6 +62,9 @@ def test_build_without_nvcc_raises(csrc, monkeypatch):
 @pytest.mark.parametrize("name,module,entry", [
     ("fused_window_attn", "fused_window", "ivt_fused_window_attn"),
     ("fused_mlp_block", "fused_mlp", "ivt_fused_mlp_block"),
+    ("fused_mlp_w8a8_block", "fused_mlp", "ivt_fused_mlp_w8a8_block"),
+    ("flash_attention_online", "flash_attention",
+     "ivt_flash_attention_online"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its
@@ -75,5 +78,8 @@ def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     so = cuda_build.build(name)
     assert so == cuda_build.library_path(name) and os.path.exists(so)
     mod = importlib.import_module("interactive_vit_tpu_torch.ops." + module)
-    lib = mod.load_kernel()  # raises if the envelopes disagree
+    loader = {"fused_mlp_w8a8_block": "load_w8a8_kernel",
+              "flash_attention_online": "load_online_kernel"}.get(
+                  name, "load_kernel")
+    lib = getattr(mod, loader)()  # raises if the envelopes disagree
     assert hasattr(lib, entry)

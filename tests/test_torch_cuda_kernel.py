@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels -- the fused and headwise attention blocks,
-the row-resident flash attention, the Swin window attention and the fused
-MLP branch -- against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels -- the fused and headwise attention blocks
+(the fused one also in its s8 mode), the row-resident and the online flash
+attention, the Swin window attention and the fused MLP branch (also its
+W8A8 variant) -- against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips (inside a fixture) when no CUDA device is
 present. On a machine with the card and the CUDA toolkit, run
@@ -22,7 +23,22 @@ is per element: 2^-5 of the plain value (four ulps) plus 1e-6, never above
 2^-7; a tap that is zero or half the plain one fails at any N. The flash
 output is a probs-weighted mean of V rows; its bound is that of y. The
 window kernel's branch output and the MLP kernel's y take y's bound, the
-window probs the per-element one.
+window probs the per-element one. The online flash output takes y's bound.
+
+The int8 kernels. Their s32 products are exact, but an int8 is the
+rounding of an f32 value, and an f32 (or bf16) value that the kernel and
+the plain version compute in another order can fall on the other side of
+a .5 boundary. The W8A8 MLP's integer stages are therefore checked
+exactly against the kernel's own int8 activations (acc1 = q1 @ fc1_q, acc2
+= q2 @ fc2_q), its int8 activations against the plain version's (at most
+1% differ: q1 by 1, q2 by 2 in rows whose q1 agrees), and y, in both
+dtypes, to 2^-6 of its scale: one
+flipped int8 moves y by one quantization step through a product. The s8
+block: one flipped int8 of q or k moves a score by at most scale * max|q| *
+max|k| / 127 (~0.02 here) and its probability by about that share of
+itself, and one flipped int8 of p moves o by at most ps * max|v|; so y
+takes 2^-6 of its scale in both dtypes, and probs and mean, per element,
+2^-4 of the plain value plus 1e-6, never above 2^-5.
 """
 
 import pytest
@@ -51,6 +67,8 @@ def cuda():
     fa.load_kernel()
     fw.load_kernel()
     fm.load_kernel()
+    fa.load_online_kernel()
+    fm.load_w8a8_kernel()
     return torch.device("cuda")
 
 
@@ -69,11 +87,17 @@ def _block(b, n, d, heads, dtype, device, seed=0):
     return rnd(b, n, d), p
 
 
-def _within(got, ref, i, dtype):
+def _within(got, ref, i, dtype, s8=False):
     """Output ``i`` (0: y or the attention output; else probs or mean)
-    within its bound of the plain version's."""
+    within its bound of the plain version's (``s8``: the int8 kernels')."""
     g, r = got.float(), ref.float()
     err = (g - r).abs()
+    if s8:
+        if i == 0:
+            return err.max().item() <= 2.0 ** -6 * max(1.0,
+                                                      r.abs().max().item())
+        return bool((err <= (2.0 ** -4 * r.abs() + 1e-6).clamp(max=2.0 ** -5))
+                    .all())
     if dtype == torch.float32:
         return err.max().item() <= 1e-4
     if i == 0:
@@ -82,7 +106,7 @@ def _within(got, ref, i, dtype):
                 .all())
 
 
-def _check(got, ref, dtype):
+def _check(got, ref, dtype, s8=False):
     """Every output of a kernel within its bound, and the bounds of the
     maps and mean strict enough to refuse them zeroed or halved."""
     assert len(got) == len(ref)
@@ -91,10 +115,10 @@ def _check(got, ref, dtype):
             assert g is None
             continue
         assert g.shape == r.shape and g.dtype == r.dtype
-        assert _within(g, r, i, dtype), i
+        assert _within(g, r, i, dtype, s8), i
         if i > 0:
-            assert not _within(g * 0.5, r, i, dtype), i
-            assert not _within(torch.zeros_like(g), r, i, dtype), i
+            assert not _within(g * 0.5, r, i, dtype, s8), i
+            assert not _within(torch.zeros_like(g), r, i, dtype, s8), i
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -220,12 +244,134 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 def test_flash_wrapper_branches_above_rowfull_max(cuda):
     q, k, v = _qkv((1, 1, fa.ROWFULL_MAX_N + 8, 64), torch.bfloat16, cuda)
-    before = fa.flash_attention.launches
+    before = (fa.flash_attention.launches, fa.flash_attention_online.launches)
     o, probs = fa.flash_attention(q, k, v, want_attn=True)
-    assert fa.flash_attention.launches == before  # attention_reference
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_online.launches) == before  # the reference
     assert probs.dtype == torch.float32
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention(q, k, v)
+    o, probs = fa.flash_attention(q, k, v)  # maps off: the online kernel
+    torch.cuda.synchronize()
+    assert probs is None
+    assert (fa.flash_attention.launches,
+            fa.flash_attention_online.launches) == (before[0], before[1] + 1)
+
+
+# online flash: dinov2_s14_reg@742 (N=2814: 22 key tiles, the last of 126
+# keys), just above ROWFULL_MAX_N, a ragged small shape, dh=128 and dh=16
+ONLINE_SHAPES = [(1, 6, 2814, 64), (2, 2, 2049, 64), (3, 3, 17, 16),
+                 (1, 2, 300, 128)]
+
+
+@pytest.mark.parametrize("shape", ONLINE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_real", [None, -40])
+def test_online_kernel_matches_plain(cuda, shape, dtype, n_real):
+    q, k, v = _qkv(shape, dtype, cuda, seed=shape[2] + shape[3])
+    n_real = None if n_real is None else max(1, shape[2] + n_real)
+    before = fa.flash_attention_online.launches
+    got = fa.flash_attention_online(q, k, v, n_real)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_online.launches == before + 1
+    ref = fa.flash_attention_online_reference(q, k, v, n_real,
+                                              block_k=fa.ONLINE_BLOCK_K)
+    assert got.shape == q.shape and got.dtype == dtype
+    _check((got,), (ref,), dtype)
+    assert not _within(got * 0.5, ref, 0, dtype)
+
+
+def test_online_kernel_reads_strided_views(cuda):
+    b, n, heads, dh = 1, 2100, 6, 64
+    qkv = torch.randn((b, n, 3 * heads * dh), generator=torch.Generator()
+                      .manual_seed(2)).to(cuda, torch.bfloat16)
+    q, k, v = (qkv.reshape(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
+               for i in range(3))
+    got = fa.flash_attention_online(q, k, v)
+    ref = fa.flash_attention_online_reference(q, k, v)
+    torch.cuda.synchronize()
+    _check((got,), (ref,), torch.bfloat16)
+
+
+# s8 block: vit_b16 (B=1 and 8), vit_t16@256 (N=257, near the s8 envelope)
+# and a ragged small block
+S8_SHAPES = [(1, 197, 768, 12), (8, 197, 768, 12), (1, 257, 192, 3),
+             (3, 17, 64, 4)]
+
+
+@pytest.mark.parametrize("shape", S8_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["maps_off", "maps_mean", "subset",
+                                  "exact_softmax"])
+@pytest.mark.parametrize("int8_pv", [True, False])
+def test_s8_block_matches_plain(cuda, shape, dtype, mode, int8_pv):
+    b, n, d, heads = shape
+    x, p = _block(b, n, d, heads, dtype, cuda)
+    kw = {
+        "maps_off": {},
+        "maps_mean": {"want_attn": True, "want_mean": True},
+        "subset": {"want_attn": True,
+                   "attn_heads": (heads - 1, 0) if heads > 1 else (0,)},
+        "exact_softmax": {"want_attn": True, "fast_softmax": False},
+    }[mode]
+    before = (fb.fused_attn_block.launches, fb.fused_attn_block_s8.launches)
+    got = fb.fused_attn_block_s8(x, p, heads, 1e-6, int8_pv=int8_pv, **kw)
+    torch.cuda.synchronize()
+    assert (fb.fused_attn_block.launches,
+            fb.fused_attn_block_s8.launches) == (before[0], before[1] + 1)
+    ref = fb.fused_attn_block_reference(x, p, heads, 1e-6, int8_scores=True,
+                                        int8_pv=int8_pv, **kw)
+    _check(got, ref, dtype, s8=True)
+
+
+def _w8a8_case(shape, dtype, device):
+    from interactive_vit_tpu_torch.ops import quant
+
+    x, p = _mlp_case(shape, dtype, device)
+    for name in ("fc1_w", "fc2_w"):
+        p[name] = quant.quantize_weight(p[name], "w8a8")
+    return x, p
+
+
+def _check_w8a8(x, p, got, parts, dtype):
+    from interactive_vit_tpu_torch.ops import quant
+
+    ref, rparts = fm.fused_mlp_w8a8_parts(x, p)
+    q1_rows = (parts["q1"] == rparts["q1"]).all(dim=-1, keepdim=True)
+    for acc, q, w, most in (("acc1", "q1", "fc1_w", 1),
+                            ("acc2", "q2", "fc2_w", 2)):
+        exact = quant.int_matmul(parts[q], p[w][quant.AQKEY])
+        assert torch.equal(parts[acc], exact), acc
+        assert not torch.equal(parts[acc] // 2, exact)
+        diff = (parts[q].int() - rparts[q].int()).abs()
+        assert (diff * q1_rows).max().item() <= most, q
+        assert (diff > 0).float().mean().item() <= 0.01, q
+    _check((got,), (ref,), dtype, s8=True)
+    assert not _within(x, ref, 0, dtype, s8=True)
+    assert not _within(got * 0.5, ref, 0, dtype, s8=True)
+
+
+@pytest.mark.parametrize("shape", [(1, 197, 768), (8, 197, 768),
+                                   (1, 17, 100), (2, 50, 1280), (1, 3, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_mlp_kernel_matches_plain(cuda, shape, dtype):
+    x, p = _w8a8_case(shape, dtype, cuda)
+    before = fm.fused_mlp_w8a8_block.launches
+    got, parts = fm.fused_mlp_w8a8_block(x, p, want_parts=True)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_w8a8_block.launches == before + 1
+    assert torch.equal(got, fm.fused_mlp_w8a8_block(x, p))
+    _check_w8a8(x, p, got, parts, dtype)
+
+
+def test_w8a8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, p = _w8a8_case((2, 17, 64), torch.bfloat16, cuda)
+    with pytest.raises(TypeError):
+        fm.fused_mlp_w8a8_block(x.half(), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        fm.fused_mlp_w8a8_block(x.transpose(0, 1), p)
+    with pytest.raises(ValueError, match="W8A8 leaf-dict"):
+        fm.fused_mlp_w8a8_block(x, {**p, "fc1_w": p["fc1_w"]["int8a8_q"]})
+    with pytest.raises(ValueError):
+        fm.fused_mlp_w8a8_block(x, {**p, "fc2_b": p["fc2_b"].float()})
 
 
 # window attention: (batch, map side, width, heads, window) -- swin_t's

@@ -138,7 +138,7 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch(shared):
     ({"want_attn": True, "attn_heads": (4,)}, ValueError),
     ({"want_metric": True}, NotImplementedError),
     ({"key_bias": torch.zeros(2, 5)}, NotImplementedError),
-    ({"int8_scores": True}, NotImplementedError),
+    ({"int8_scores": True, "want_metric": True}, NotImplementedError),
 ])
 def test_wrapper_rejects(shared, kw, exc):
     blk, x = shared

@@ -193,10 +193,15 @@ def test_default_mlp_impl_names(name, want):
 
 
 def test_default_mlp_impl_refusals():
-    with pytest.raises(NotImplementedError, match="fused_mlp_w8a8_block"):
-        dispatch.default_mlp_impl("w8a8", d=768, mlp_dim=3072)
-    with pytest.raises(NotImplementedError, match="fused_mlp.py:154"):
-        dispatch.default_mlp_impl("auto", d=768, mlp_dim=3072, quant="w8a8")
+    """The W8A8 names resolve (to the W8A8 wrapper, or None off the card)
+    and refuse only a shape the W8A8 kernel does not take."""
+    assert (dispatch.default_mlp_impl("w8a8", d=768, mlp_dim=3072)
+            is fm.fused_mlp_w8a8_block)
+    assert dispatch.default_mlp_impl("auto", d=768, mlp_dim=3072,
+                                     quant="w8a8") is None
+    with pytest.raises(ValueError, match="W8A8 MLP kernel does not take"):
+        dispatch.default_mlp_impl("w8a8", dtype=torch.float32, d=768,
+                                  mlp_dim=16384)
     with pytest.raises(ValueError, match="does not take"):
         dispatch.default_mlp_impl("fused", d=4096, mlp_dim=16384)
     with pytest.raises(ValueError, match="unknown mlp impl"):

@@ -25,6 +25,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.ops.fused_block",
     "interactive_vit_tpu_torch.ops.fused_window",
     "interactive_vit_tpu_torch.ops.fused_mlp",
+    "interactive_vit_tpu_torch.ops.quant",
     "interactive_vit_tpu_torch.ops.layers",
     "interactive_vit_tpu_torch.ops.flash_attention",
     "interactive_vit_tpu_torch.ops.tiled_attention",

@@ -195,16 +195,18 @@ def test_bf16_forward_is_finite_and_close(shared):
 
 
 @pytest.mark.parametrize("name,ok", [
-    ("vit_b16", True), ("vit_t16", True), ("vit_b16@384", False),
-    ("nope", False),
+    ("vit_b16", True), ("vit_t16", True), ("vit_b16@384", True),
+    ("vit_b16@38x", False), ("nope", False),
 ])
 def test_resolve_variant(name, ok):
     if ok:
-        assert tvit.resolve_variant(name) == tvit.VARIANTS[name]
+        if "@" not in name:
+            assert tvit.resolve_variant(name) is tvit.VARIANTS[name]
         j = jvit.resolve_variant(name)
         t = tvit.resolve_variant(name)
-        assert (t.tokens, t.width, t.heads, t.depth) == \
-            (j.tokens, j.width, j.heads, j.depth)
+        assert (t.name, t.img_size, t.patch, t.tokens, t.width, t.heads,
+                t.depth) == (j.name, j.img_size, j.patch, j.tokens, j.width,
+                             j.heads, j.depth)
     else:
         with pytest.raises(ValueError):
             tvit.resolve_variant(name)
