@@ -7,9 +7,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the seven hand-written kernel sources from ``csrc/``
+2. build   -- builds the eight hand-written kernel sources from ``csrc/``
    with nvcc, one compiler process each, all at once (the s8 mode of the
-   block is a mode of ``fused_attn_block.cu``: eight kernels).
+   block is a mode of ``fused_attn_block.cu``, and the two trainable
+   attentions share ``flash_attention.cu`` forward and
+   ``attention_bwd.cu`` backward: ten kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -45,7 +47,14 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      fc1 product;
    * the s8 mode of the fused block at vit_b16 (B=1 and 8), bf16 and f32,
      maps off / maps + mean / a subset with s8 scores and PV, and maps +
-     mean with s8 scores only.
+     mean with s8 scores only;
+   * the trainable attention, forward and backward (o, dq, dk, dv), in
+     both layouts: ``attention_train`` on [B, H, N, dh] at vit_b16's and
+     vit_t16's train shapes (B=64, 12 or 3 heads, N=197, dh=64) and with
+     keys masked beyond n_real=197 of N=208; ``attention_train_packed`` on
+     the head-major [B, N, 3D] at vit_b16's and at the masked shape; bf16
+     and f32, each bound refusing a gradient zeroed or halved;
+     ``scaled_dot_product_attention`` forward + backward timed beside.
 4. slice   -- eight paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
@@ -86,7 +95,23 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    kernel and the fused MLP kernel from ``default_mlp_impl("fused")``,
    against the same forwards with the plain versions: 12 MLP launches a
    call.
-5. result  -- a JSON line describing the kernels, then the final line
+5. train   -- ``tools.train.main`` in-process, launch counts zeroed
+   before each run and read after it:
+   (a) vit_b16 @224, ``--dtype mixed --attn auto --batch 64 --steps 10
+       --memorize 64``: ``--remat auto`` must resolve to off; exactly 12
+       packed forward and 12 backward launches a step; a finite loss at
+       every step, the last below the first; ms a step and images/s, and
+       one profiled step (device busy / idle, the top kernels) beside one
+       of the plain attention;
+   (b) vit_t16, ``--dtype bfloat16 --batch 64 --steps 5``: 12 + 12
+       launches a step of ``attention_train`` ([B, H, N, dh], 3 heads), no
+       packed launch; timed and profiled as (a);
+   (c) vit_b16 with ``--remat on``, 2 steps: 24 forward launches a step
+       (the checkpointed blocks run again in the backward);
+   (d) the first step's gradients in f32, vit_b16 at B=8: the kernels
+       (head-major params, unpermuted) against the plain attention on the
+       same params and batch, every parameter within its bound.
+6. result  -- a JSON line describing the kernels, then the final line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Weights are random (seeded), so the logits are
@@ -130,6 +155,11 @@ KERNELS = {
     # the s8 mode (int8_scores) of the block kernel: the same source
     "fused_attn_block_s8": (CSRC + "fused_attn_block.cu",
                             "interactive_vit_tpu/ops/fused_block.py:205"),
+    # forward: flash_attention.cu on strided views; backward: the new source
+    "attention_train": (CSRC + "attention_bwd.cu",
+                        "interactive_vit_tpu/ops/attention_vjp.py:141"),
+    "attention_train_packed": (CSRC + "attention_bwd.cu",
+                               "interactive_vit_tpu/ops/attention_vjp.py:293"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -175,6 +205,25 @@ ROW_SUM_BOUND = 2.0 ** -7
 S8_P_REL = 2.0 ** -4
 S8_P_CAP = 2.0 ** -5
 W8A8_Q_SHARE = 0.01
+# The trainable attention's o, dq, dk, dv against the plain versions. f32:
+# only the order of f32 sums differs (scores over dh, delta and dq over N
+# keys, dk and dv over N queries), ~1e-6 of a tensor's largest value; bound
+# 1e-5 of it. bf16: both round P (for dv), ds and the outputs at the same
+# points; a value within its f32 error of a bf16 boundary rounds to the
+# neighbour, one ulp of the element, or one ulp of one term inside a sum of
+# N; so each element within 2^-6 of its plain value (two ulps) plus 2^-8 of
+# the tensor's largest value. A gradient zeroed or halved fails either way.
+TRAIN_F32_REL = 1e-5
+TRAIN_BF16_REL = 2.0 ** -6
+TRAIN_BF16_SCALE = 2.0 ** -8
+# First-step f32 gradients of vit_b16 (12 blocks), the kernels against the
+# plain attention: the per-block differences above (~1e-6 of the scale)
+# pass through 12 blocks forward and back; each parameter's gradient is
+# held to 1e-4 of its largest value, the loss to 1e-5.
+TRAIN_GRAD_REL = 1e-4
+# vit_b16's and vit_t16's train attention shapes: (B, heads, N, dh)
+TRAIN_B16 = (64, 12, 197, 64)
+TRAIN_T16 = (64, 3, 197, 64)
 
 # The least time the card could take (H100 SXM published peaks): bytes over
 # the memory rate, operations over the peak rate for the inputs' type (bf16
@@ -808,12 +857,9 @@ def chain_request(graph_obj, image, taps, node_params=None):
 
 
 def profile_request(app, graph, taps, tag) -> None:
-    """One ``executor.run`` of a served request under ``torch.profiler``:
-    host wall time, device busy time (the sum of kernel times: the port
-    runs on one stream, so kernels do not overlap) and the kernels that
-    take the most device time."""
+    """One ``executor.run`` of a served request under ``torch.profiler``
+    (``report_profile``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -823,18 +869,27 @@ def profile_request(app, graph, taps, tag) -> None:
         app.executor.run(graph, taps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall_ms, f"{tag} profile of one executor.run")
+
+
+def report_profile(prof, wall_ms: float, what: str) -> None:
+    """Log a profile's host wall time, device busy time (the sum of kernel
+    times: the port runs on one stream, so kernels do not overlap) and the
+    kernels that take the most device time."""
+    from torch.autograd import DeviceType
+
     kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
                and e.self_device_time_total > 0]
     busy = sum(t for t, _, _ in kernels)
     if not kernels:
-        log(f"  {tag} profile: wall {wall_ms:.2f} ms; device time not "
-            f"measured (the profiler saw no kernel)")
+        log(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
+            f"(the profiler saw no kernel)")
         return
     top = sorted(kernels, reverse=True)[:6]
-    log(f"  {tag} profile of one executor.run: wall {wall_ms:.2f} ms, device "
-        f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%, idle "
+    log(f"  {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
+        f"({100 * busy / wall_ms:.1f}%, idle "
         f"{100 - 100 * busy / wall_ms:.1f}%); top: " + "; ".join(
             f"{name[:48]} x{n} {t:.3f} ms" for t, n, name in top))
 
@@ -1268,6 +1323,351 @@ def run_forwards(device, counters) -> int:
     return count
 
 
+class FwdBwdCount:
+    """The forward and backward launch counts of a trainable attention as
+    one ``launches`` counter: reading sums them, setting sets both."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.fwd_launches + self.fn.bwd_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.fwd_launches = self.fn.bwd_launches = value
+
+
+def train_bound(ref, dtype):
+    """(bound of each element of a trainable-attention output or gradient
+    against the plain ``ref``; its description)."""
+    import torch
+
+    scale = ref.float().abs().max().item()
+    if dtype == torch.float32:
+        return TRAIN_F32_REL * scale, f"{TRAIN_F32_REL * scale:.3g}"
+    return (TRAIN_BF16_REL * ref.float().abs() + TRAIN_BF16_SCALE * scale,
+            f"2^-6|ref|+{TRAIN_BF16_SCALE * scale:.3g}")
+
+
+def check_train(tag, got, ref, dtype, labels, quiet=False):
+    """Max abs errors of o, dq, dk, dv (or o, dqkv) against the plain
+    versions' and their bounds; raises outside a bound."""
+    errs, parts, ok = [], [], True
+    for g, r, label in zip(got, ref, labels):
+        if g.shape != r.shape or g.dtype != r.dtype:
+            raise AssertionError(f"{tag}: {label} is {tuple(g.shape)} "
+                                 f"{g.dtype}, plain {tuple(r.shape)} "
+                                 f"{r.dtype}")
+        bound, text = train_bound(r, dtype)
+        diff = (g.float() - r.float()).abs()
+        use = (diff / bound).max().item()
+        ok = ok and use <= 1.0
+        errs.append(diff.max().item())
+        parts.append(f"{label}={errs[-1]:.3g} (bound {text}, {use:.2f} of "
+                     f"it)")
+    line = f"  {tag}: max abs err " + ", ".join(parts)
+    if not ok:
+        if not quiet:
+            log(line)
+        raise AssertionError(f"{tag} outside its bounds")
+    return errs, line
+
+
+def check_train_refuse(tag, got, ref, dtype, labels) -> None:
+    """Each bound must refuse its output or gradient zeroed or halved."""
+    for i in range(len(got)):
+        for factor in (0.0, 0.5):
+            bad = list(got)
+            bad[i] = got[i] * factor
+            try:
+                check_train(tag, bad, ref, dtype, labels, quiet=True)
+            except AssertionError:
+                continue
+            raise AssertionError(f"{tag}: {labels[i]} x {factor} passed "
+                                 f"the bounds")
+
+
+def train_attn_cost(b, h, n, dh, esize):
+    """Bytes and FLOPs of attention's forward and backward on [b, h, n, dh]:
+    the forward reads q, k, v and writes o; the backward reads q, k, v, do
+    and writes dq, dk, dv; per head 4 n^2 dh FLOPs forward (S, PV) and
+    10 n^2 dh backward (S, dv, dP, dq, dk)."""
+    return 11 * b * h * n * dh * esize, 14 * b * h * n * n * dh
+
+
+def phase_train_kernel(device, packed: bool) -> dict:
+    """``attention_train`` (or, ``packed``, ``attention_train_packed``)
+    forward and backward against the plain versions; returns the main
+    path's numbers (vit_b16 packed, vit_t16 [B, H, N, dh]; bf16) with
+    SDPA forward + backward beside them."""
+    import torch
+    import torch.nn.functional as F
+
+    from interactive_vit_tpu_torch.ops import attention_vjp as av
+
+    name = "attention_train_packed" if packed else "attention_train"
+    served = TRAIN_B16 if packed else TRAIN_T16
+    cases = [TRAIN_B16] + ([] if packed else [TRAIN_T16])
+    out = {}
+    for shape, n_real in [(c, None) for c in cases] + [((8, 2, 208, 64),
+                                                        197)]:
+        b, h, n, dh = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            g = torch.Generator().manual_seed(n + h)
+            qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(device,
+                                                                  dtype)
+            do = torch.randn((b, n, h * dh), generator=g).to(device, dtype)
+            if packed:
+                inputs = [qkv.clone().requires_grad_(True)]
+                fn = functools.partial(av.attention_train_packed,
+                                       n_real=n_real)
+                dout, labels = do, ("o", "dqkv")
+
+                def plain():
+                    return (av.attention_train_packed_reference(qkv, n_real),
+                            av.packed_head_grads_reference(qkv, do, n_real))
+            else:
+                # q, k, v as qkv_proj makes them: views of one [B, N, 3D]
+                views = [qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
+                         for i in range(3)]
+                inputs = [t.detach().requires_grad_(True) for t in views]
+                fn = functools.partial(av.attention_train, n_real=n_real)
+                dout = do.reshape(b, n, h, dh).transpose(1, 2)
+                labels = ("o", "dq", "dk", "dv")
+
+                def plain():
+                    return (av.attention_train_reference(*views, n_real),
+                            *av.head_grads_reference(*views, dout, n_real))
+
+            def kernel():
+                o = fn(*inputs)
+                return (o.detach(), *torch.autograd.grad(o, inputs, dout))
+
+            got, ref = kernel(), plain()
+            torch.cuda.synchronize()
+            tag = (f"{name} {(b, n, 3 * h * dh) if packed else shape} {dt}"
+                   + (f" n_real={n_real}" if n_real else ""))
+            errs, line = check_train(tag, got, ref, dtype, labels)
+            check_train_refuse(tag, got, ref, dtype, labels)
+            if n_real is not None:
+                dk_dv = (got[1][:, n_real:].reshape(b, n - n_real, h, 3,
+                                                    dh)[:, :, :, 1:]
+                         if packed else torch.stack(got[2:])[:, :, :,
+                                                             n_real:])
+                if not torch.all(dk_dv == 0):
+                    raise AssertionError(f"{tag}: masked keys got dk or dv")
+                log(line)
+                continue
+            t_k, t_p = time_turns(kernel, plain)
+            # SDPA on the [B, H, N, dh] views, forward + backward
+            sv = ([t.detach().requires_grad_(True) for t in
+                   (qkv.reshape(b, n, h, 3, dh)[:, :, :, i].transpose(1, 2)
+                    for i in range(3))] if packed else inputs)
+            sdo = do.reshape(b, n, h, dh).transpose(1, 2)
+
+            def sdpa():
+                o = F.scaled_dot_product_attention(*sv)
+                return torch.autograd.grad(o, sv, sdo)
+
+            t_lib = time_ms(sdpa)
+            if packed:
+                t_f = time_ms(lambda: av._packed_fwd(qkv, n))
+                t_b = time_ms(lambda: av._packed_bwd(qkv, do, n))
+            else:
+                t_f = time_ms(lambda: av._fwd(*views, n))
+                t_b = time_ms(lambda: av._bwd(*views, dout, n))
+            nbytes, flops = train_attn_cost(b, h, n, dh, qkv.element_size())
+            bms, by = bound(nbytes, flops, dt)
+            line += (f"; kernel fwd+bwd {t_k:.4f} ms (fwd {t_f:.4f}, bwd "
+                     f"{t_b:.4f}), plain {t_p:.4f} ms; bound {bms:.5f} ms "
+                     f"({by}); scaled_dot_product_attention fwd+bwd "
+                     f"{t_lib:.4f} ms")
+            if (shape, dt) == (served, "bfloat16"):
+                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                       "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
+            log(line)
+    return out
+
+
+def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag):
+    """One train step of ``parallel.train.setup``'s under torch.profiler
+    after two warm-up steps (``report_profile``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+
+    params, state, step, _ = train_lib.setup(
+        cfg, device=device, seed=1, attn_impl=attn, remat=False,
+        dtype=dtype, compute_dtype=compute_dtype)
+    g = torch.Generator().manual_seed(2)
+    images = torch.randn((64, 3, cfg.img_size, cfg.img_size),
+                         generator=g).to(device)
+    labels = torch.randint(0, cfg.num_classes, (64,), generator=g).to(device)
+    for _ in range(2):
+        params, state, loss = step(params, state, images, labels)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, loss = step(params, state, images, labels)
+        float(loss)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(prof, wall_ms, f"{tag} profile of one step")
+
+
+def run_train(tag, argv, counters, expect) -> dict:
+    """``tools.train.main(argv)`` with every count set to 0 just before and
+    read just after; ``expect``: {kernel: (forward, backward) launches}
+    (every other kernel 0). Checks a finite loss at every logged step;
+    returns main's result with ``counts`` and steady ``ms_per_step`` (the
+    steps after the first two, when every step is logged)."""
+    import math
+
+    import torch
+
+    from interactive_vit_tpu_torch.tools import train as train_tool
+
+    for fn in counters.values():  # the run starts here
+        fn.launches = 0
+    res = train_tool.main(argv)
+    torch.cuda.synchronize()
+    counts = {k: ((fn.fn.fwd_launches, fn.fn.bwd_launches)
+                  if isinstance(fn, FwdBwdCount) else fn.launches)
+              for k, fn in counters.items()}
+    want = {k: expect.get(k, (0, 0) if isinstance(fn, FwdBwdCount) else 0)
+            for k, fn in counters.items()}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    losses = [loss for _, loss, _ in res["history"]]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: loss not finite: {losses}")
+    t = [s for _, _, s in res["history"]]
+    res["counts"] = counts
+    if len(t) > 2:
+        res["ms_per_step"] = (t[-1] - t[1]) / (len(t) - 2) * 1e3
+    return res
+
+
+def phase_train(device, counters) -> dict:
+    """Phase 5: the trainer's runs (a)-(d); returns the launches of the
+    two trainable attentions (forward + backward) in their main-path runs."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.ops import attention_vjp as av
+    from interactive_vit_tpu_torch.parallel import mesh
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+    from interactive_vit_tpu_torch.tools.train import pattern_set
+
+    launches = {}
+    # (a) vit_b16, mixed precision, the packed kernels
+    steps, batch = 10, 64
+    res = run_train(
+        "train vit_b16", ["--variant", "vit_b16", "--dtype", "mixed",
+                          "--attn", "auto", "--batch", str(batch),
+                          "--steps", str(steps), "--memorize", "64",
+                          "--log-every", "1"],
+        counters, {"attention_train_packed": (12 * steps, 12 * steps)})
+    if res["remat"] is not False:
+        raise AssertionError(f"--remat auto resolved to {res['remat']} for "
+                             f"vit_b16 at B=64 on this card")
+    losses = [loss for _, loss, _ in res["history"]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train vit_b16: loss did not fall: {losses}")
+    launches["attention_train_packed"] = sum(res["counts"][
+        "attention_train_packed"])
+    log(f"  train vit_b16 @224 mixed, B={batch}, {steps} steps: remat auto "
+        f"-> off, head-major {res['head_major']}, packed launches "
+        f"{res['counts']['attention_train_packed']} (12 + 12 a step); loss "
+        + " ".join(f"{x:.4f}" for x in losses)
+        + f"; {res['ms_per_step']:.2f} ms a step, "
+        f"{batch * 1e3 / res['ms_per_step']:.1f} images/s (steps 3-{steps})")
+    cfg = vit.VARIANTS["vit_b16"]
+    profile_train_step(cfg, device, "auto", torch.bfloat16, None,
+                       "train vit_b16 mixed, kernels")
+    profile_train_step(cfg, device, "reference", torch.bfloat16, None,
+                       "train vit_b16 mixed, plain attention")
+
+    # (b) vit_t16, bf16, 3 heads: the [B, H, N, dh] kernels
+    steps = 5
+    res = run_train(
+        "train vit_t16", ["--variant", "vit_t16", "--dtype", "bfloat16",
+                          "--batch", str(batch), "--steps", str(steps),
+                          "--log-every", "1"],
+        counters, {"attention_train": (12 * steps, 12 * steps)})
+    launches["attention_train"] = sum(res["counts"]["attention_train"])
+    log(f"  train vit_t16 @224 bf16, B={batch}, {steps} steps: head-major "
+        f"{res['head_major']}, launches {res['counts']['attention_train']} "
+        f"(12 + 12 a step), packed 0; loss "
+        + " ".join(f"{x:.4f}" for _, x, _ in res["history"])
+        + f"; {res['ms_per_step']:.2f} ms a step, "
+        f"{batch * 1e3 / res['ms_per_step']:.1f} images/s (steps 3-{steps})")
+    profile_train_step(vit.VARIANTS["vit_t16"], device, "auto", None,
+                       torch.bfloat16, "train vit_t16 bf16, kernels")
+
+    # (c) remat on: the blocks' forwards run again in the backward
+    steps = 2
+    res = run_train(
+        "train vit_b16 remat", ["--variant", "vit_b16", "--dtype", "mixed",
+                                "--batch", str(batch), "--steps",
+                                str(steps), "--remat", "on",
+                                "--log-every", "1"],
+        counters, {"attention_train_packed": (24 * steps, 12 * steps)})
+    log(f"  train vit_b16 --remat on, {steps} steps: packed launches "
+        f"{res['counts']['attention_train_packed']} (24 + 12 a step); loss "
+        + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
+
+    # (d) first-step f32 gradients: kernels against the plain attention
+    params = vit.init_params(cfg, torch.Generator().manual_seed(3),
+                             device=device)
+    images, labels = pattern_set(3, 8, cfg.img_size, cfg.num_classes)
+    images = torch.from_numpy(images).to(device)
+    labels = torch.from_numpy(labels).to(device)
+
+    def value_and_grads(p, **kw):
+        leaves = [x.detach().requires_grad_(True)
+                  for x in train_lib.tree_leaves(p)]
+        loss = train_lib.loss_fn(train_lib.tree_unflatten(p, leaves),
+                                 images, labels, cfg, **kw)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    for fn in counters.values():
+        fn.launches = 0
+    loss_k, g_k = value_and_grads(mesh.permute_qkv_head_major(params,
+                                                              cfg.heads),
+                                  attn_impl=av.trainable_flash_mhsa,
+                                  qkv_head_major=True)
+    torch.cuda.synchronize()
+    counts = (av.attention_train_packed.fwd_launches,
+              av.attention_train_packed.bwd_launches)
+    if counts != (12, 12):
+        raise AssertionError(f"gradients: packed launches {counts}")
+    g_k = train_lib.tree_leaves(mesh.unpermute_qkv_head_major(
+        train_lib.tree_unflatten(params, g_k), cfg.heads))
+    loss_r, g_r = value_and_grads(params)
+    if abs(loss_k - loss_r) > 1e-5 * max(1.0, abs(loss_r)):
+        raise AssertionError(f"gradients: loss {loss_k} vs plain {loss_r}")
+    worst = (0.0, "")
+    for (path, _), a, b in zip(train_lib.tree_leaves_with_path(params), g_k,
+                               g_r):
+        use = ((a - b).abs().max() / (TRAIN_GRAD_REL * b.abs().max())).item()
+        if not use <= 1.0:
+            raise AssertionError(f"gradients: {path} at {use:.2f} of its "
+                                 f"bound")
+        worst = max(worst, (use, path))
+    log(f"  train vit_b16 f32 first-step gradients, B=8: kernels (packed, "
+        f"12 + 12 launches) vs plain attention: loss {loss_k:.6f} vs "
+        f"{loss_r:.6f}; every parameter's gradient within {TRAIN_GRAD_REL:g} "
+        f"of its largest value, the nearest {worst[1]} at {worst[0]:.3f} of "
+        f"its bound")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -1275,6 +1675,7 @@ def main() -> int:
     t_start = time.perf_counter()
     import torch
 
+    from interactive_vit_tpu_torch.ops import attention_vjp as av
     from interactive_vit_tpu_torch.ops import flash_attention as fa
     from interactive_vit_tpu_torch.ops import fused_block as fb
     from interactive_vit_tpu_torch.ops import fused_mlp as fm
@@ -1309,6 +1710,7 @@ def main() -> int:
     fw.load_kernel()
     fm.load_kernel()
     fm.load_w8a8_kernel()
+    av.load_kernel()
     log(f"phase 2 build: {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     counters = {"fused_attn_block": fb.fused_attn_block,
@@ -1318,7 +1720,10 @@ def main() -> int:
                 "fused_mlp_block": fm.fused_mlp_block,
                 "flash_attention_online": fa.flash_attention_online,
                 "fused_mlp_w8a8_block": fm.fused_mlp_w8a8_block,
-                "fused_attn_block_s8": fb.fused_attn_block_s8}
+                "fused_attn_block_s8": fb.fused_attn_block_s8,
+                "attention_train": FwdBwdCount(av.attention_train),
+                "attention_train_packed": FwdBwdCount(
+                    av.attention_train_packed)}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
@@ -1364,6 +1769,8 @@ def main() -> int:
                 "qk_maps_mean": {"want_attn": True, "want_mean": True,
                                  "int8_pv": False}},
             ("vit_b16", 1, "bfloat16", "maps_mean"), s8=True),
+        "attention_train": phase_train_kernel(device, packed=False),
+        "attention_train_packed": phase_train_kernel(device, packed=True),
     }
 
     # 4. the paths through the server
@@ -1432,8 +1839,13 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     numbers["fused_mlp_block"]["launches"] = run_forwards(device, counters)
 
-    # 5. result
-    log(f"phase 5 result: all phases passed in "
+    # 5. the trainer
+    log("phase 5 train through tools.train.main:")
+    for k, n in phase_train(device, counters).items():
+        numbers[k]["launches"] = n
+
+    # 6. result
+    log(f"phase 6 result: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     kernels = []
     for name, (source, replaces) in KERNELS.items():

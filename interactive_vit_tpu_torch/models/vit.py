@@ -387,14 +387,37 @@ def forward(
     block_impl=None,
     mlp_impl=None,
     attn_heads=None,
+    qkv_head_major: bool = False,
+    block_wrapper=None,
 ) -> Dict[str, Any]:
     """Full forward with optional taps.
 
     Returns {"logits": [B,K]} plus, when requested, "attn" (a tuple of
     per-layer [B,H|sel,N,N] maps in the activation dtype), "rollout"
     [B,N,N] and "cls" [L+1,B,D]. An empty ``attn_heads`` means
-    rollout-only."""
+    rollout-only.
+
+    ``qkv_head_major``: the qkv columns are ``[H][3][dh]``
+    (``parallel/mesh.permute_qkv_head_major``). ``block_wrapper``: the
+    training hook; each block runs as one ``(p, x) -> x`` unit wrapped by
+    it (``parallel/train.remat_wrapper``), so the trained trunk is this
+    one. Taps do not compose with it."""
     x = embed(params, images, cfg)
+    if block_wrapper is not None:
+        if want_attn or want_cls_trajectory:
+            raise ValueError("block_wrapper requires taps off")
+
+        def one(p, x):
+            y, _, _ = block(p, x, cfg, attn_impl=attn_impl,
+                            block_impl=block_impl, mlp_impl=mlp_impl,
+                            qkv_head_major=qkv_head_major)
+            return y
+
+        one = block_wrapper(one)
+        for p in params["blocks"]:
+            x = one(p, x)
+        return {"logits": head(
+            params, final_norm(params, x[:, : cfg.prefix_tokens], cfg))}
     n_real = x.shape[1]
     attns: List[torch.Tensor] = []
     means: List[torch.Tensor] = []
@@ -405,6 +428,7 @@ def forward(
             p, x, cfg, want_attn=want_probs, attn_impl=attn_impl,
             block_impl=block_impl, mlp_impl=mlp_impl, want_mean=want_attn,
             attn_heads=attn_heads if want_probs else None,
+            qkv_head_major=qkv_head_major,
         )
         if want_probs:
             attns.append(probs[..., :n_real, :n_real].to(x.dtype))

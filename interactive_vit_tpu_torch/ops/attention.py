@@ -70,8 +70,16 @@ def mhsa(
     ``attn_impl`` swaps in another attention (``ops/flash_attention.
     flash_mhsa``, ``ops/dispatch.auto_attention``); it takes
     ``(q, k, v, want_attn, n_real=None)`` and keeps the contract of
-    ``attention_reference``."""
+    ``attention_reference``. An ``attn_impl`` with a ``packed`` attribute
+    (``ops/attention_vjp.trainable_flash_mhsa``) takes the head-major qkv
+    activation whole when ``head_major`` is set, maps are off and its
+    ``packed_ok`` holds: no per-head split or transpose around it."""
     b, n, d = x.shape
+    packed = getattr(attn_impl, "packed", None)
+    if (packed is not None and head_major and not want_attn
+            and attn_impl.packed_ok(heads, d // heads, n)):
+        out = packed(linear(x, p["qkv_w"], p["qkv_b"]), n_real)
+        return linear(out, p["proj_w"], p["proj_b"]), None
     q, k, v = qkv_proj(x, p, heads, head_major=head_major)
     impl = attn_impl or attention_reference
     out, probs = impl(q, k, v, want_attn, n_real=n_real)

@@ -54,6 +54,19 @@ MLP policy names (``default_mlp_impl``):
                  where the shape does not fit the kernel
     "reference"  None: the unfused MLP
 
+Train attention policy names (``default_train_attn_impl``), for train
+steps (``parallel/train.py``):
+
+    "auto"       on a CUDA device, in bf16 and in f32:
+                 ``attention_vjp.trainable_flash_mhsa`` (the forward and
+                 backward kernels); None (``attention_reference`` under
+                 autograd) otherwise, the CPU included
+    "flash_vjp"  always ``trainable_flash_mhsa`` (its plain versions on CPU)
+    "reference"  None ("none" too)
+
+Swin trains its windowed attention: "auto" gives None for a Swin config
+and "flash_vjp" raises, as in the JAX package.
+
 Unlike the JAX policy, f32 is not excluded on CUDA: that exclusion worked
 around HIGHEST-precision dots compiling slowly inside Mosaic, which has no
 counterpart here. So "auto" picks the kernels in f32 too, "int8-scores"
@@ -194,3 +207,35 @@ def default_mlp_impl(name: str = "auto", dtype=None, d: int = 0,
             return fm.fused_mlp_w8a8_block
         return None
     raise ValueError(f"unknown mlp impl {name!r}")
+
+
+def default_train_attn_impl(name: str = "auto", dtype=None, cfg=None,
+                            device=None):
+    """Resolve the attention of a train step to a callable (the
+    ``attention.mhsa`` contract, with ``.packed`` / ``.packed_ok``) or
+    None. ``cfg``: the model config, when known; ``device``: where the
+    step runs."""
+    if cfg is not None:
+        from interactive_vit_tpu_torch.models import swin
+
+        if isinstance(cfg, swin.SwinConfig):
+            if name == "flash_vjp":
+                raise ValueError(
+                    "swin trains shifted-window attention; the flash_vjp "
+                    "train kernels do not apply")
+            return None
+    if name in ("reference", "none"):
+        return None
+    from interactive_vit_tpu_torch.ops.attention_vjp import (
+        trainable_flash_mhsa,
+    )
+
+    if name == "flash_vjp":
+        return trainable_flash_mhsa
+    if name == "auto":
+        dev: Optional[torch.device] = (torch.device(device)
+                                       if device is not None else None)
+        if dev is not None and dev.type == "cuda" and dtype in _DTYPES:
+            return trainable_flash_mhsa
+        return None
+    raise ValueError(f"unknown train attention impl {name!r}")

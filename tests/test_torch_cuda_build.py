@@ -4,8 +4,9 @@ A library's file name must change with its source, with every shared
 header under ``csrc/`` and with the flags, or an edited header would load
 a stale library. Without ``nvcc`` a build raises; nothing falls back.
 
-The ``cuda``-marked cases build the window-attention, MLP, W8A8 MLP and
-online flash kernels from ``csrc/`` and skip without a card.
+The ``cuda``-marked cases build the window-attention, MLP, W8A8 MLP, online
+flash and attention-backward kernels from ``csrc/`` and skip without a
+card.
 """
 
 import os
@@ -65,6 +66,7 @@ def test_build_without_nvcc_raises(csrc, monkeypatch):
     ("fused_mlp_w8a8_block", "fused_mlp", "ivt_fused_mlp_w8a8_block"),
     ("flash_attention_online", "flash_attention",
      "ivt_flash_attention_online"),
+    ("attention_bwd", "attention_vjp", "ivt_attention_bwd"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels -- the fused and headwise attention blocks
 (the fused one also in its s8 mode), the row-resident and the online flash
-attention, the Swin window attention and the fused MLP branch (also its
-W8A8 variant) -- against their plain PyTorch versions, on the card.
+attention, the Swin window attention, the fused MLP branch (also its W8A8
+variant) and the trainable attention's forward and backward (both
+layouts) -- against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips (inside a fixture) when no CUDA device is
 present. On a machine with the card and the CUDA toolkit, run
@@ -39,11 +40,23 @@ max|k| / 127 (~0.02 here) and its probability by about that share of
 itself, and one flipped int8 of p moves o by at most ps * max|v|; so y
 takes 2^-6 of its scale in both dtypes, and probs and mean, per element,
 2^-4 of the plain value plus 1e-6, never above 2^-5.
+
+The trainable attention (``attention_vjp``): o, dq, dk and dv. f32: the
+kernel and the plain version differ in the order of f32 sums (scores over
+dh, delta over N keys, dq over N keys, dk and dv over N queries), ~1e-6 of
+the tensor's largest value; the bound is 1e-5 of it. bf16: both round P
+(for dv), ds and the outputs at the same points; where an f32 value lands
+within its rounding error of a bf16 boundary it rounds to the neighbour,
+one ulp (2^-8 to 2^-7 of the element) of the output, or one ulp of a P or
+ds term inside a sum of N, which moves the sum by far less than the sum's
+scale. So each element is bound by 2^-6 of its plain value (two ulps) plus
+2^-8 of the tensor's largest value; a gradient zeroed or halved fails.
 """
 
 import pytest
 import torch
 
+from interactive_vit_tpu_torch.ops import attention_vjp as av
 from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.ops import fused_block as fb
 from interactive_vit_tpu_torch.ops import fused_mlp as fm
@@ -69,6 +82,7 @@ def cuda():
     fm.load_kernel()
     fa.load_online_kernel()
     fm.load_w8a8_kernel()
+    av.load_kernel()
     return torch.device("cuda")
 
 
@@ -498,3 +512,116 @@ def test_mlp_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     wide, pw = _mlp_case((1, 2, 1284), torch.float32, cuda)
     with pytest.raises(ValueError, match="does not take"):
         fm.fused_mlp_block(wide, pw)
+
+
+# -- the trainable attention: forward and backward, both layouts ---------------
+
+
+def _grad_within(got, ref, dtype):
+    g, r = got.float(), ref.float()
+    err = (g - r).abs()
+    scale = r.abs().max().item()
+    if dtype == torch.float32:
+        return err.max().item() <= 1e-5 * scale
+    return bool((err <= 2.0 ** -6 * r.abs() + 2.0 ** -8 * scale).all())
+
+
+def _check_grads(got, ref, dtype):
+    """o and the gradients within their bounds; each bound refuses the
+    tensor zeroed or halved."""
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and g.dtype == r.dtype, i
+        assert _grad_within(g, r, dtype), i
+        assert not _grad_within(g * 0.5, r, dtype), i
+        assert not _grad_within(torch.zeros_like(g), r, dtype), i
+
+
+# (B, H, N, dh, n_real): vit_b16's and vit_t16's train shapes, keys masked
+# beyond 197 of 208, a ragged small shape, dh=128, TRAIN_MAX_N
+TRAIN_SHAPES = [(4, 12, 197, 64, None), (4, 3, 197, 64, None),
+                (2, 2, 208, 64, 197), (3, 2, 17, 16, None),
+                (1, 2, 300, 128, None), (1, 1, 1024, 64, None)]
+
+
+@pytest.mark.parametrize("shape", TRAIN_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_kernels_match_plain(cuda, shape, dtype):
+    """q, k, v as ``qkv_proj`` makes them (transposed views of one
+    [B, N, 3D] tensor); o and its gradients against the plain versions."""
+    b, h, n, dh, n_real = shape
+    g = torch.Generator().manual_seed(n + dh)
+    qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(cuda, dtype)
+    do = torch.randn((b, h, n, dh), generator=g).to(cuda, dtype)
+    q, k, v = (qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
+               .detach().requires_grad_(True) for i in range(3))
+    before = (av.attention_train.fwd_launches,
+              av.attention_train.bwd_launches)
+    o = av.attention_train(q, k, v, n_real)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (av.attention_train.fwd_launches,
+            av.attention_train.bwd_launches) == (before[0] + 1, before[1] + 1)
+    ref_o = av.attention_train_reference(q.detach(), k.detach(), v.detach(),
+                                         n_real)
+    ref = av.head_grads_reference(q.detach(), k.detach(), v.detach(), do,
+                                  n_real)
+    _check_grads((o.detach(), q.grad, k.grad, v.grad), (ref_o, *ref), dtype)
+    if n_real is not None:
+        assert torch.all(k.grad[:, :, n_real:] == 0)
+        assert torch.all(v.grad[:, :, n_real:] == 0)
+
+
+# (B, N, H, n_real): vit_b16's train shape, masked keys, a ragged one
+PACKED_SHAPES = [(4, 197, 12, None), (2, 208, 2, 197), (3, 17, 4, None)]
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_train_kernels_match_plain(cuda, shape, dtype):
+    b, n, h, n_real = shape
+    d = h * av.PACKED_DH
+    g = torch.Generator().manual_seed(n + h)
+    qkv = torch.randn((b, n, 3 * d), generator=g).to(cuda, dtype)
+    do = torch.randn((b, n, d), generator=g).to(cuda, dtype)
+    qkv.requires_grad_(True)
+    before = (av.attention_train_packed.fwd_launches,
+              av.attention_train_packed.bwd_launches)
+    o = av.attention_train_packed(qkv, n_real)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert (av.attention_train_packed.fwd_launches,
+            av.attention_train_packed.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    ref_o = av.attention_train_packed_reference(qkv.detach(), n_real)
+    ref_g = av.packed_head_grads_reference(qkv.detach(), do, n_real)
+    _check_grads((o.detach(), qkv.grad), (ref_o, ref_g), dtype)
+    if n_real is not None:
+        # the k and v columns of masked keys
+        dk_dv = qkv.grad[:, n_real:].reshape(b, n - n_real, h, 3, -1)[:, :,
+                                                                       :, 1:]
+        assert torch.all(dk_dv == 0)
+
+
+def test_train_wrapper_refuses_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 2, 8, 64), device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        av.attention_train(q, q, q)
+    q = torch.zeros((1, 2, 8, 130), device=cuda)
+    with pytest.raises(ValueError, match="do not take"):
+        av.attention_train(q, q, q)
+
+
+def test_trainable_mhsa_falls_back_by_shape(cuda):
+    """Maps asked for, or N above TRAIN_MAX_N: the plain attention, no
+    launch, as the JAX function chooses."""
+    before = (av.attention_train.fwd_launches,
+              av.attention_train.bwd_launches)
+    q, k, v = _qkv((1, 2, av.TRAIN_MAX_N + 8, 64), torch.bfloat16, cuda)
+    o, probs = av.trainable_flash_mhsa(q, k, v)
+    assert probs is None
+    q, k, v = _qkv((1, 2, 197, 64), torch.bfloat16, cuda)
+    o, probs = av.trainable_flash_mhsa(q, k, v, want_attn=True)
+    assert probs is not None
+    torch.cuda.synchronize()
+    assert (av.attention_train.fwd_launches,
+            av.attention_train.bwd_launches) == before

@@ -30,6 +30,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.ops.flash_attention",
     "interactive_vit_tpu_torch.ops.tiled_attention",
     "interactive_vit_tpu_torch.ops.attention",
+    "interactive_vit_tpu_torch.ops.attention_vjp",
     "interactive_vit_tpu_torch.ops.dispatch",
     "interactive_vit_tpu_torch.ops.preprocess_mm",
     "interactive_vit_tpu_torch.ops.node_ops",
@@ -45,6 +46,10 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.serving.app",
     "interactive_vit_tpu_torch.serving.batcher",
     "interactive_vit_tpu_torch.serving.server",
+    "interactive_vit_tpu_torch.parallel.mesh",
+    "interactive_vit_tpu_torch.parallel.train",
+    "interactive_vit_tpu_torch.tools.evaluate",
+    "interactive_vit_tpu_torch.tools.train",
     "chip_smoke",
 ]
 
@@ -130,13 +135,30 @@ def test_server_entry_point_parses():
         assert flag in res.stdout
 
 
+def test_train_entry_point_parses():
+    res = subprocess.run(
+        [sys.executable, "-m", "interactive_vit_tpu_torch.tools.train",
+         "--help"], capture_output=True, text=True, cwd=ROOT, env=_env(),
+        timeout=120)
+    assert res.returncode == 0, res.stderr
+    for flag in ("--variant", "--steps", "--batch", "--lr", "--warmup",
+                 "--clip-norm", "--llrd", "--seed", "--remat", "--dtype",
+                 "--accum-steps", "--attn", "--eval-every", "--memorize",
+                 "--distinct-classes", "--label-smoothing", "--ema-decay",
+                 "--log-every", "--device"):
+        assert flag in res.stdout
+
+
 def _default_device_entry_points():
     from interactive_vit_tpu_torch.graph.executor import Executor
     from interactive_vit_tpu_torch.models.autoregister import make_model
     from interactive_vit_tpu_torch.models.swin_plugin import make_swin_model
+    from interactive_vit_tpu_torch.models.vit import VARIANTS
     from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
+    from interactive_vit_tpu_torch.parallel.train import setup
     from interactive_vit_tpu_torch.serving.app import App
     from interactive_vit_tpu_torch.serving.server import build_app
+    from interactive_vit_tpu_torch.tools.train import main as train_main
 
     return {
         "build_app": lambda tmp: build_app(models=["vit_t16"],
@@ -148,12 +170,15 @@ def _default_device_entry_points():
                                                 graphs_dir=str(tmp)),
         "make_swin_model": lambda tmp: make_swin_model("swin_t"),
         "make_model": lambda tmp: make_model("swin_t"),
+        "train_setup": lambda tmp: setup(VARIANTS["vit_t16"]),
+        "train_main": lambda tmp: train_main(["--steps", "1"]),
     }
 
 
 @pytest.mark.parametrize("entry", ["build_app", "App", "Executor",
                                    "make_vit_model", "build_app_swin",
-                                   "make_swin_model", "make_model"])
+                                   "make_swin_model", "make_model",
+                                   "train_setup", "train_main"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):
     """The entry points run on the card unless asked for the CPU: with no
