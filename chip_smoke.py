@@ -8,10 +8,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
 2. build   -- builds the eight hand-written kernel sources from ``csrc/``
-   with nvcc, one compiler process each, all at once (the s8 mode of the
-   block is a mode of ``fused_attn_block.cu``, and the two trainable
-   attentions share ``flash_attention.cu`` forward and
-   ``attention_bwd.cu`` backward: ten kernels).
+   with nvcc, one compiler process each, all at once (the s8 and ToMe
+   modes of the block are modes of ``fused_attn_block.cu``, and the two
+   trainable attentions share ``flash_attention.cu`` forward and
+   ``attention_bwd.cu`` backward: eleven kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -48,6 +48,12 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * the s8 mode of the fused block at vit_b16 (B=1 and 8), bf16 and f32,
      maps off / maps + mean / a subset with s8 scores and PV, and maps +
      mean with s8 scores only;
+   * ToMe's mode of the fused block (``key_bias`` = log of token sizes,
+     ``want_metric``) at the ends of the served ladders, N=197 (B=1 and
+     8), 109, 21 and 11, bf16 and f32, maps off and maps + mean, and the s8
+     mode with both operands at N=197; the key metric takes y's bound, a
+     zeroed or halved metric must fail, and so must the plain version
+     without the bias;
    * the trainable attention, forward and backward (o, dq, dk, dv), in
      both layouts: ``attention_train`` on [B, H, N, dh] at vit_b16's and
      vit_t16's train shapes (B=64, 12 or 3 heads, N=197, dh=64) and with
@@ -55,7 +61,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      the head-major [B, N, 3D] at vit_b16's and at the masked shape; bf16
      and f32, each bound refusing a gradient zeroed or halved;
      ``scaled_dot_product_attention`` forward + backward timed beside.
-4. slice   -- eight paths through the HTTP server in-process, seeded random
+4. slice   -- nine paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -83,6 +89,20 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      kernels' plain versions (whose quantizers round half up, as the
      kernels');
    * vit_b16 ``--dtype int8`` (weight-only): no kernel launches;
+   * vit_b16_tome from the repository's saved graph (``o``, ``s`` and
+     ``a`` wired along the chain), bf16: ``attn`` + ``r`` + ``merge`` on
+     blocks 0, 5 and 11 and the logits, 3 in sequence and 2 at once, and
+     one vit_b16_tome16 request (``merge`` etc. on block 11: N 21 -> 11);
+     the block kernel with ``key_bias`` and ``want_metric`` in all 12
+     blocks, 12 launches a request, N 197 -> 109. Matching decisions are
+     discrete, so each request's reference is the kernel path run
+     in-process, with every block's one launch held against its plain
+     version on that path's own inputs (y and the metric in every block,
+     probs and mean where the block's taps ask for them, within their
+     bounds; no lut entry may differ in f32, and in bf16 only a near tie
+     may); the f32 request must match the plain path from the image at
+     1e-4; one more request logs the host time spent in the matching,
+     the merges and the merge map;
    each checked for shapes, finiteness, probs rows summing to 1 and
    agreement with the port's plain path on the card (the kernels' plain
    versions in every block) and for the launches of every kernel, then
@@ -155,6 +175,9 @@ KERNELS = {
     # the s8 mode (int8_scores) of the block kernel: the same source
     "fused_attn_block_s8": (CSRC + "fused_attn_block.cu",
                             "interactive_vit_tpu/ops/fused_block.py:205"),
+    # ToMe's mode of the block kernel (key_bias + the key metric)
+    "fused_attn_block_tome": (CSRC + "fused_attn_block.cu",
+                              "interactive_vit_tpu/ops/fused_block.py:205"),
     # forward: flash_attention.cu on strided views; backward: the new source
     "attention_train": (CSRC + "attention_bwd.cu",
                         "interactive_vit_tpu/ops/attention_vjp.py:141"),
@@ -180,6 +203,16 @@ BF16_Y_REL = 2.0 ** -6
 BF16_P_REL = 2.0 ** -5
 BF16_P_ABS = 1e-6
 BF16_P_CAP = 2.0 ** -7
+# ToMe's key metric (the head-meaned keys, f32) takes y's bound: in f32
+# only the order of the QKV product's f32 sums differs; in bf16 a key
+# element that rounds to its neighbour moves the mean by at most one ulp
+# of that element over the head count. The matching's decisions on it
+# (argmax and a stable argsort of cosine scores) are discrete: on the same
+# inputs the kernel's and the plain metric must pick the same lut in f32.
+# In bf16 a decision may differ only where the plain scores of the two
+# choices lie within 2 d of each other, d being the largest difference
+# between the scores from the two metrics, itself at most TOME_SCORE_CAP.
+TOME_SCORE_CAP = 2.0 ** -5
 # A served bf16 path against the plain path through all its blocks: the
 # rare one-ulp flips above enter the residual stream and propagate through
 # later blocks, so each output is bound by its own scale: within 2^-4 of
@@ -281,14 +314,19 @@ def bound(nbytes: float, flops, dtype_name: str):
                                        else "operations")
 
 
-def block_cost(b, n, d, heads, esize, n_maps, mean):
+def block_cost(b, n, d, heads, esize, n_maps, mean, tome=False):
     """Bytes and FLOPs of one attention block (LN1 + QKV + attention +
     projection + residual): x, LN, qkv and proj weights read once, y, the
-    maps of ``n_maps`` heads and the mean written once."""
+    maps of ``n_maps`` heads and the mean written once. ``tome``: ToMe's
+    f32 key bias read and f32 key metric written too, and the metric's
+    sums over the heads."""
     nbytes = esize * (2 * b * n * d + 4 * d * d + 6 * d
                       + n_maps * b * n * n + (b * n * n if mean else 0))
     flops = (2 * b * n * d * 3 * d + 4 * b * heads * n * n * (d // heads)
              + 2 * b * n * d * d)
+    if tome:
+        nbytes += 4 * (b * n + b * n * (d // heads))
+        flops += b * n * d
     return nbytes, flops
 
 
@@ -348,7 +386,9 @@ def check_outputs(tag, got, ref, dtype, labels, quiet=False, s8=False):
             raise AssertionError(f"{tag}: output {i} is {tuple(g.shape)} "
                                  f"{g.dtype}, plain {tuple(r.shape)} "
                                  f"{r.dtype}")
-        bound, text = output_bound(i, r, dtype, s8)
+        # ToMe's key metric is bound as y is (module note above)
+        bound, text = output_bound(0 if labels[i] == "metric" else i, r,
+                                   dtype, s8)
         diff = (g.float() - r.float()).abs()
         use = (diff / bound).max().item()
         ok = ok and use <= 1.0
@@ -431,6 +471,84 @@ def phase_block_kernel(device, name, kernel, plain, shapes, modes, served,
                         line += (f"; bound {bms:.5f} ms ({by}: "
                                  f"{nbytes / 1e6:.2f} MB, "
                                  f"{ops / 1e9:.3f} G operations)")
+                log(line)
+    return out
+
+
+def phase_tome_kernel(device) -> dict:
+    """ToMe's mode of the block kernel (``key_bias`` + ``want_metric``)
+    against its plain version at the ends of the served ladders: vit_b16
+    at N=197 (B=1 and 8) and N=109 (vit_b16_tome's last block), N=21
+    (vit_b16_tome16's last) and N=11, bf16 and f32, maps off and maps +
+    mean, and the s8 mode with both operands. The bias is the log of token
+    sizes drawn from 1..16; the result must also differ beyond the bounds
+    from the plain version without the bias (on the maps, or on y in dense
+    f32). Returns the served configuration's numbers (N=197, B=1, bf16,
+    maps + mean: the shape of row 1's entry)."""
+    import torch
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+
+    out = {}
+    served = (197, 1, "bfloat16", "maps_mean")
+    for n, b in ((197, 1), (197, 8), (109, 1), (21, 1), (11, 1)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            p = random_block(768, dtype, device, seed=n + b)
+            g = torch.Generator().manual_seed(n * 10 + b)
+            x = torch.randn((b, n, 768), generator=g).to(device=device,
+                                                         dtype=dtype)
+            kb = torch.log(torch.randint(1, 17, (b, n), generator=g).float()
+                           ).to(device)
+            for mode, kw, s8 in (
+                    ("maps_off", {}, False),
+                    ("maps_mean", {"want_attn": True, "want_mean": True},
+                     False),
+                    ("s8_maps_mean", {"want_attn": True, "want_mean": True},
+                     True)):
+                if s8 and (n, b) != (197, 1):
+                    continue
+                kernel = fb.fused_attn_block_s8 if s8 else fb.fused_attn_block
+                plain = functools.partial(fb.fused_attn_block_reference,
+                                          int8_scores=s8)
+                kw = dict(kw, want_metric=True)
+                got = kernel(x, p, 12, 1e-6, key_bias=kb, **kw)
+                ref = plain(x, p, 12, 1e-6, key_bias=kb, **kw)
+                torch.cuda.synchronize()
+                tag = f"fused_attn_block_tome N={n} B={b} {dt} {mode}"
+                labels = (("y", "probs", "mean", "metric") if kw.get(
+                    "want_mean") else ("y", "probs", "metric"))
+                errs, line = check_outputs(tag, got, ref, dtype, labels,
+                                           s8=s8)
+                check_bounds_refuse(tag, got, ref, dtype, labels, s8=s8,
+                                    first=0)
+                if kw.get("want_mean") or (dtype == torch.float32
+                                           and not s8):
+                    try:
+                        check_outputs(tag, got, plain(x, p, 12, 1e-6, **kw),
+                                      dtype, labels, quiet=True, s8=s8)
+                    except AssertionError:
+                        pass
+                    else:
+                        raise AssertionError(f"{tag}: the result without "
+                                             f"the key bias passed")
+                if not s8:
+                    t_k, t_p = time_turns(
+                        lambda: kernel(x, p, 12, 1e-6, key_bias=kb, **kw),
+                        lambda: plain(x, p, 12, 1e-6, key_bias=kb, **kw))
+                    line += f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
+                    maps = bool(kw.get("want_attn"))
+                    nbytes, flops = block_cost(b, n, 768, 12,
+                                               x.element_size(),
+                                               12 if maps else 0, maps,
+                                               tome=True)
+                    bms, by = bound(nbytes, flops, dt)
+                    line += (f"; bound {bms:.5f} ms ({by}: "
+                             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G "
+                             f"operations)")
+                    if (n, b, dt, mode) == served:
+                        out = {"max_abs_err": max(errs), "ms": t_k,
+                               "plain_ms": t_p, "bound_ms": bms,
+                               "bound_by": by, "library_ms": None}
                 log(line)
     return out
 
@@ -872,6 +990,40 @@ def profile_request(app, graph, taps, tag) -> None:
     report_profile(prof, wall_ms, f"{tag} profile of one executor.run")
 
 
+def time_host_spans(app, graph, taps, tag, spans) -> None:
+    """One ``executor.run`` of a served request without the profiler, each
+    (module, name) of ``spans`` wrapped for the run to sum the host time of
+    its calls (``time.perf_counter``; nothing inside them waits for the
+    device, so this is the time the host takes to issue them). Logs each
+    span's calls and host ms beside the run's wall."""
+    import torch
+
+    spent = {name: [0, 0.0] for _, name in spans}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in spans]
+    for mod, name, fn in saved:
+        def timed(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                spent[_name][0] += 1
+                spent[_name][1] += time.perf_counter() - t0
+        setattr(mod, name, timed)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        app.executor.run(graph, taps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    log(f"  {tag} host time in one executor.run (perf_counter, no "
+        f"profiler): wall {wall_ms:.2f} ms; " + "; ".join(
+            f"{name} x{n} {t * 1e3:.3f} ms" for name, (n, t) in spent.items())
+        + f"; together {sum(t for _, t in spent.values()) * 1e3:.3f} ms")
+
+
 def report_profile(prof, wall_ms: float, what: str) -> None:
     """Log a profile's host wall time, device busy time (the sum of kernel
     times: the port runs on one stream, so kernels do not overlap) and the
@@ -927,12 +1079,21 @@ class Path:
     arr, tag, bf16)`` holds what else the family asks of a tapped array.
     ``other``: a second Path served beside this one and asked once.
     ``dtype`` and ``attn``: the server's ``--dtype`` and ``--attn``;
-    ``f32``: whether one float32 request follows."""
+    ``f32``: whether one float32 request follows. ``chain``: the channels
+    besides ``o`` that the saved graph wires from block to block.
+    ``lockstep(path, model, image, device)``: where given, the reference of
+    the requests in ``dtype`` instead of the plain path (and a check that
+    runs before the f32 request's comparison with it); it returns what
+    ``plain_taps`` returns. ``host_spans``: (module, function name) pairs
+    whose host time in one request ``time_host_spans`` logs."""
 
     def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
-                 other=None, dtype="bfloat16", attn="auto", f32=True):
+                 other=None, dtype="bfloat16", attn="auto", f32=True,
+                 chain=(), lockstep=None, host_spans=()):
         self.model, self.family, self.cfg = model, family, cfg
+        self.chain, self.lockstep = tuple(chain), lockstep
+        self.host_spans = tuple(host_spans)
         self.img, self.tap_nodes = img, taps
         self.kernels, self.plain = kernels, plain
         self.dtype, self.attn, self.f32 = dtype, attn, f32
@@ -1009,20 +1170,132 @@ def plain_taps(path, model, image, device):
 
     fam, cfg = path.family, path.cfg
     x = torch.from_numpy(image).to(device)
-    maps = {}
+    maps, carry = {}, {}
     with torch.inference_mode():
         for node, (name, extra, fn) in enumerate(
                 fam.layer_fns(cfg, **path.plain)):
             p = fam.layer_params(model.params, name)
             if extra:
-                want = frozenset(path.tap_nodes.get(node, ()))
-                out = fn(p, {"o": x}, want=want,
+                taps = path.tap_nodes.get(node, ())
+                out = fn(p, {"o": x, **carry},
+                         want=frozenset(taps) | frozenset(path.chain),
                          node_params=path.params_of(node))
-                if want:
-                    maps[node] = {ch: out[ch] for ch in want}
+                if taps:
+                    maps[node] = {ch: out[ch] for ch in taps}
+                carry = {ch: out[ch] for ch in path.chain}
             else:
                 out = fn(p, {"o": x})
             x = out["o"]
+    return x, maps
+
+
+def tome_tap_shape(path, node, ch):
+    """ToMe: block i (node i + 2) runs attention on the ladder's N_i tokens
+    and leaves N_{i+1}: ``attn`` [1, heads, N_i, N_i], the unwired rollout
+    ``r`` [1, N_{i+1}, N_i], ``merge`` [1, 3, g, g], ``a`` [1, N_0], ``s``
+    [1, N_{i+1}], ``o`` [1, N_{i+1}, D]."""
+    cfg = path.cfg
+    n_in, n_out = cfg.n_tokens(node - 2), cfg.n_tokens(node - 1)
+    g = cfg.img_size // cfg.patch
+    return {"attn": (1, cfg.heads, n_in, n_in), "r": (1, n_out, n_in),
+            "merge": (1, 3, g, g), "a": (1, cfg.tokens), "s": (1, n_out),
+            "o": (1, n_out, cfg.width)}[ch]
+
+
+def tome_decisions(metric, r):
+    """The matching's data on ``metric`` [1, N, dh], from ``tome_ops.
+    match_scores`` as ``bipartite_matching`` reads it: (cosine scores
+    [Na, Nb] with CLS's row -inf, each a-token's best score and partner,
+    the merged a-tokens)."""
+    from interactive_vit_tpu_torch.ops import tome_ops
+
+    scores, best, idx, order = tome_ops.match_scores(metric)
+    return scores[0], best[0], idx[0], set(order[0, :r].tolist())
+
+
+def tome_lut_check(tag, metric_k, metric_p, r, f32) -> dict:
+    """The lut that the kernel's metric gives against the plain metric's,
+    on the same block inputs: no entry may differ in f32; in bf16 each
+    decision that differs must be a near tie (``TOME_SCORE_CAP`` note)."""
+    from interactive_vit_tpu_torch.ops import tome_ops
+
+    lut_k, _ = tome_ops.bipartite_matching(metric_k, r)
+    lut_p, _ = tome_ops.bipartite_matching(metric_p, r)
+    n_lut = int((lut_k != lut_p).sum())
+    r = tome_ops.merge_counts(metric_k.shape[1], r)
+    sk, _, idx_k, merged_k = tome_decisions(metric_k, r)
+    sp, best_p, idx_p, merged_p = tome_decisions(metric_p, r)
+    d = float((sk[1:] - sp[1:]).abs().max())
+    gaps = []
+    for i in merged_k ^ merged_p:  # swapped into or out of the merged set
+        other = merged_p - merged_k if i in merged_k else merged_k - merged_p
+        gaps.append(min(abs(float(best_p[i] - best_p[j])) for j in other))
+    for i in merged_k & merged_p:  # merged into another partner
+        if idx_k[i] != idx_p[i]:
+            gaps.append(abs(float(sp[i, idx_k[i]] - sp[i, idx_p[i]])))
+    if f32 and n_lut:
+        raise AssertionError(f"{tag}: {n_lut} lut entries differ in f32")
+    if d > TOME_SCORE_CAP or any(gap > 2 * d for gap in gaps):
+        raise AssertionError(f"{tag}: scores differ by {d:.3g}; decisions "
+                             f"that differ have plain gaps {gaps}")
+    return {"lut": n_lut, "decisions": len(gaps), "score_diff": d}
+
+
+def tome_lockstep(path, model, image, device):
+    """The served ToMe model's kernel path run in-process, and every block
+    against its plain version on the kernel path's own inputs: a
+    ``block_impl`` handed to ``tome.layer_fns`` launches the block kernel
+    once, with the served block's operands and maps flags, holds its
+    result against ``fused_attn_block_reference`` on the same x and key
+    bias (y, the key metric and the maps the block's taps ask for, within
+    their bounds; the lut by ``tome_lut_check``) and passes it on. Returns
+    the kernel path's head output and taps."""
+    import torch
+    from interactive_vit_tpu_torch.models import tome
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+
+    cfg = path.cfg
+    worst, stats, tag = {}, {"lut": 0, "decisions": 0, "score_diff": 0.0}, []
+
+    def checked_block(x, p, heads, eps, **kw):
+        got = fb.fused_attn_block(x, p, heads, eps, **kw)
+        ref = fb.fused_attn_block_reference(x, p, heads, eps, **kw)
+        labels = (("y", "probs") + (("mean",) if kw["want_mean"] else ())
+                  + ("metric",))
+        errs, _ = check_outputs(tag[-1], got, ref, x.dtype, labels)
+        for label, err in zip([lb for lb, r in zip(labels, ref)
+                               if r is not None], errs):
+            worst[label] = max(worst.get(label, 0.0), err)
+        res = tome_lut_check(tag[-1], got[-1], ref[-1], cfg.r,
+                             x.dtype == torch.float32)
+        stats["lut"] += res["lut"]
+        stats["decisions"] += res["decisions"]
+        stats["score_diff"] = max(stats["score_diff"], res["score_diff"])
+        return got
+
+    layers = tome.layer_fns(cfg, block_impl=checked_block)
+    x = torch.from_numpy(image).to(device)
+    maps, carry = {}, {}
+    with torch.inference_mode():
+        for node, (name, extra, fn) in enumerate(layers):
+            p = model.layer_params(name)
+            if not extra:
+                x = fn(p, {"o": x})["o"]
+                continue
+            tag.append(f"{path.model} block {node - 2} (N={x.shape[1]})")
+            taps = path.tap_nodes.get(node, ())
+            out = fn(p, {"o": x, **carry},
+                     want=frozenset(taps) | frozenset(path.chain),
+                     node_params=path.params_of(node))
+            if taps:
+                maps[node] = {ch: out[ch] for ch in taps}
+            carry = {ch: out[ch] for ch in path.chain}
+            x = out["o"]
+    log(f"  {path.model} {x.dtype}: {cfg.depth} blocks vs plain on the kernel "
+        f"path's inputs: max abs err " + ", ".join(
+            f"{k}={v:.3g}" for k, v in worst.items())
+        + f"; lut entries differing {stats['lut']}, decisions "
+          f"{stats['decisions']}, scores within {stats['score_diff']:.3g}")
     return x, maps
 
 
@@ -1133,6 +1406,10 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             url + "/metrics", timeout=30).read())
         profile_request(app, chain_graph(graph, images[0], path.node_params),
                         path.taps(), tag)
+        if path.host_spans:
+            time_host_spans(app, chain_graph(graph, images[0],
+                                             path.node_params),
+                            path.taps(), tag, path.host_spans)
     finally:
         stop(app, httpd)
 
@@ -1146,11 +1423,12 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     if batches < path.seq or any(counts[k] < n for k, n in want.items()):
         raise AssertionError(f"{counts} launches for {served} {tag} requests "
                              f"in {batches} batches; expected >= {want}")
+    reference = path.lockstep or plain_taps
     worst, worst_use = {}, {}
     for k, raw in enumerate(raws + conc):
         errs, uses = check_response(raw, path,
-                                    plain_taps(path, model, images[k],
-                                               device),
+                                    reference(path, model, images[k],
+                                              device),
                                     f"{tag} request {k}")
         for key, v in errs.items():
             worst[key] = max(worst.get(key, 0.0), v)
@@ -1172,8 +1450,8 @@ def run_path(path, device, graphs_dir, counters) -> dict:
                     for k, v in sorted(worst.items())))
     if opath:
         errs, _ = check_response(other_raw, opath,
-                                 plain_taps(opath, other_model, other_image,
-                                            device),
+                                 (opath.lockstep or plain_taps)(
+                                     opath, other_model, other_image, device),
                                  f"{opath.model} request")
         log(f"  {opath.model} head output vs plain {errs['head']:.3g}")
     if not path.f32:
@@ -1194,6 +1472,8 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     if {k: launches_f32[k] for k in path.kernels} != path.kernels:
         raise AssertionError(f"f32 {path.model} request launched "
                              f"{launches_f32}; expected {path.kernels}")
+    if path.lockstep:
+        path.lockstep(path, model, images[0], device)
     errs32, _ = check_response(raw, path,
                                plain_taps(path, model, images[0], device),
                                f"{path.model} f32 request", bf16=False)
@@ -1321,6 +1601,22 @@ def run_forwards(device, counters) -> int:
             log(lines[name, b] + f"; maps off: kernels {t_k:.2f} ms, plain "
                 f"versions {t_p:.2f} ms (host wall, synchronized)")
     return count
+
+
+class ToMeCount:
+    """The block kernel's launches in ToMe's mode (with ``key_bias`` or
+    ``want_metric``) as one ``launches`` counter."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.tome_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.tome_launches = value
 
 
 class FwdBwdCount:
@@ -1721,6 +2017,7 @@ def main() -> int:
                 "flash_attention_online": fa.flash_attention_online,
                 "fused_mlp_w8a8_block": fm.fused_mlp_w8a8_block,
                 "fused_attn_block_s8": fb.fused_attn_block_s8,
+                "fused_attn_block_tome": ToMeCount(fb.fused_attn_block),
                 "attention_train": FwdBwdCount(av.attention_train),
                 "attention_train_packed": FwdBwdCount(
                     av.attention_train_packed)}
@@ -1769,13 +2066,15 @@ def main() -> int:
                 "qk_maps_mean": {"want_attn": True, "want_mean": True,
                                  "int8_pv": False}},
             ("vit_b16", 1, "bfloat16", "maps_mean"), s8=True),
+        "fused_attn_block_tome": phase_tome_kernel(device),
         "attention_train": phase_train_kernel(device, packed=False),
         "attention_train_packed": phase_train_kernel(device, packed=True),
     }
 
     # 4. the paths through the server
     log("phase 4 slice through the HTTP server:")
-    from interactive_vit_tpu_torch.models import swin, vit
+    from interactive_vit_tpu_torch.models import swin, tome, vit
+    from interactive_vit_tpu_torch.ops import tome_ops
 
     def vit_path(name, img, taps, kernels, plain, seq, conc, **kw):
         return Path(name, vit, vit.resolve_variant(name), img, taps, kernels,
@@ -1783,6 +2082,15 @@ def main() -> int:
 
     b16_taps = {2: ("attn", "r"), 7: ("attn", "r"), 13: ("attn", "r")}
     b16_plain = {"block_impl": fb.fused_attn_block_reference}
+    tome_taps = ("attn", "r", "merge")
+
+    def tome_path(name, taps, seq, conc, **kw):
+        return Path(name, tome, tome.VARIANTS[name], 224, taps,
+                    {"fused_attn_block": 12, "fused_attn_block_tome": 12},
+                    b16_plain, tome_tap_shape, seq, conc, chain=("s", "a"),
+                    lockstep=tome_lockstep, **kw)
+    tome_spans = [(tome_ops, name) for name in (
+        "bipartite_matching", "apply_merge", "merge_map_render")]
     paths = [
         vit_path("vit_b16", 224, b16_taps, {"fused_attn_block": 12},
                  b16_plain, seq=5, conc=4,
@@ -1826,6 +2134,14 @@ def main() -> int:
         # weight-only int8: the unfused path, no kernel
         vit_path("vit_b16", 224, b16_taps, {}, {}, seq=2, conc=0,
                  dtype="int8", f32=False),
+        # ToMe from the repository's saved graph (s and a wired along the
+        # chain): the block kernel with key_bias + the key metric in every
+        # block, N 197 -> 109; one vit_b16_tome16 request reaches N=11
+        tome_path("vit_b16_tome", {2: tome_taps, 7: tome_taps,
+                                   13: tome_taps}, seq=3, conc=2,
+                  other=tome_path("vit_b16_tome16", {13: tome_taps}, seq=1,
+                                  conc=0),
+                  host_spans=tome_spans),
     ]
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_")
     try:

@@ -33,11 +33,25 @@
 // a qkv element or a probability lands on the other side of a rounding
 // boundary.
 //
+// ToMe's operands (the TPU kernel's key_bias / want_metric), both optional
+// and in both modes: kernel B adds the per-key logit bias kb[b, j] (f32,
+// shared by every head and query row) to the scaled score -- after the s8
+// rescale in the s8 mode -- before the softmax, with a separately rounded
+// add so that no FMA contraction departs from the plain version; kernel E
+// writes the head-meaned keys metric[b, n, :] = (sum over heads 0..H-1 in
+// order of k) * (1/H) in f32 from the qkv workspace, each add and the
+// product rounded on their own, so that it is bit-equal to the plain
+// version on the same qkv. The bias reads N floats per (tile, head); the
+// metric reads the K third of the workspace once and writes B*N*dh floats.
+//
 //   Kernel A  gemm<T, LN=true>   LN1 (f32 row stats in shared memory)
 //                                + qkv = LN(x) @ qkv_w + qkv_b -> workspace
 //   Kernel B  attention<T>       one block per (query-row tile, head,
 //                                image): scores, softmax, probs taps, f32
 //                                probs for the mean, o_h = P V -> workspace
+//   Kernel E  key_mean<T>        ToMe's metric: the mean over heads of
+//                                the keys in the workspace (only when
+//                                the metric is asked for)
 //   Kernel D  head_mean<T>       mean over heads of the f32 probs (only
 //                                when the head-mean is asked for)
 //   Kernel C  gemm<T, LN=false>  y = (x + o @ proj_w) + proj_b
@@ -79,11 +93,13 @@ __host__ __device__ inline size_t attn_s8_extra_bytes(int n, int dh) {
 // product too, on probs (maps on: normalised; off: the unnormalised fast p)
 // quantized per row and v per column, rescaled as oi.f32 * ps * vs (maps
 // off: oi.f32 * (ps * r) * vs). Without int8_pv the PV product is dense.
+// kb: ToMe's per-key logit bias [B, N] f32, or null.
 template <typename T, bool S8>
 __global__ void __launch_bounds__(ATT_THREADS)
 attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ probs,
-                 float* __restrict__ head_probs, int N, int D, int H, float scale, int fast,
-                 unsigned long long emit_mask, int n_emit, int int8_pv) {
+                 float* __restrict__ head_probs, const float* __restrict__ kb, int N, int D,
+                 int H, float scale, int fast, unsigned long long emit_mask, int n_emit,
+                 int int8_pv) {
   extern __shared__ float4 smem4[];
   __shared__ float rinv[QT];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -116,6 +132,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ p
   const bool norm_h = emit_h || want_mean;
   const bool pv8 = S8 && int8_pv;
   const int tap = __popcll(emit_mask & ((1ULL << h) - 1ULL));
+  const float* kbr = kb != nullptr ? kb + (size_t)b * N : nullptr;
 
   for (int e = tid; e < N * dh; e += ATT_THREADS) {
     const int j = e / dh, d = e % dh;
@@ -170,9 +187,13 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ p
         for (int i = 0; i < QT; ++i) acc[i] = __dp4a(Qw[i * nd4 + c], kv, acc[i]);
       }
       const float ksj = k_sc[j];
+      const float kbj = kbr != nullptr ? kbr[j] : 0.f;
 #pragma unroll
       for (int i = 0; i < QT; ++i)
-        if (i < rows) S[i * N + j] = __fmul_rn(__fmul_rn((float)acc[i], __fmul_rn(q_sc[i], scale)), ksj);
+        if (i < rows) {
+          const float sc = __fmul_rn(__fmul_rn((float)acc[i], __fmul_rn(q_sc[i], scale)), ksj);
+          S[i * N + j] = kbr != nullptr ? __fadd_rn(sc, kbj) : sc;
+        }
     }
   } else {
     // scores: one key per thread against all QT query rows (Q reads broadcast)
@@ -192,9 +213,13 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ p
           acc[i] = fmaf(qv.w, kv.w, acc[i]);
         }
       }
+      const float kbj = kbr != nullptr ? kbr[j] : 0.f;
 #pragma unroll
       for (int i = 0; i < QT; ++i)
-        if (i < rows) S[i * N + j] = acc[i] * scale;
+        if (i < rows) {
+          const float sc = __fmul_rn(acc[i], scale);
+          S[i * N + j] = kbr != nullptr ? __fadd_rn(sc, kbj) : sc;
+        }
     }
   }
   __syncthreads();
@@ -285,10 +310,26 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ p
   }
 }
 
+// Kernel E: ToMe's metric, one (row, column) of [B*N, dh] per thread.
+template <typename T>
+__global__ void key_mean_kernel(const T* __restrict__ qkv, float* __restrict__ metric, int rows,
+                                int D, int H, float inv_heads) {
+  const int dh = D / H;
+  const size_t total = (size_t)rows * dh;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const T* k = qkv + (e / dh) * 3 * (size_t)D + D + e % dh;
+    float acc = to_f(k[0]);
+    for (int h = 1; h < H; ++h) acc = __fadd_rn(acc, to_f(k[(size_t)h * dh]));
+    metric[e] = __fmul_rn(acc, inv_heads);
+  }
+}
+
 template <typename T, bool S8>
-cudaError_t launch_attention(const T* qkv_ws, T* o_ws, T* probs, float* head_probs, int B, int N,
-                             int D, int H, float scale, int fast, unsigned long long emit_mask,
-                             int n_emit, int int8_pv, cudaStream_t stream) {
+cudaError_t launch_attention(const T* qkv_ws, T* o_ws, T* probs, float* head_probs,
+                             const float* kb, int B, int N, int D, int H, float scale, int fast,
+                             unsigned long long emit_mask, int n_emit, int int8_pv,
+                             cudaStream_t stream) {
   const int dh = D / H;
   const size_t smem = attn_smem_floats(N, dh) * sizeof(float) + (S8 ? attn_s8_extra_bytes(N, dh) : 0);
   cudaError_t err = cudaFuncSetAttribute(attention_kernel<T, S8>,
@@ -296,16 +337,16 @@ cudaError_t launch_attention(const T* qkv_ws, T* o_ws, T* probs, float* head_pro
   if (err != cudaSuccess) return err;
   const dim3 grid((N + QT - 1) / QT, H, B);
   attention_kernel<T, S8><<<grid, ATT_THREADS, smem, stream>>>(
-      qkv_ws, o_ws, probs, head_probs, N, D, H, scale, fast, emit_mask, n_emit, int8_pv);
+      qkv_ws, o_ws, probs, head_probs, kb, N, D, H, scale, fast, emit_mask, n_emit, int8_pv);
   return cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* x, const void* ln_s, const void* ln_b, const void* qkv_w,
            const void* qkv_b, const void* proj_w, const void* proj_b, void* qkv_ws, void* o_ws,
-           void* probs_ws, void* y, void* probs, void* mean, int B, int N, int D, int H,
-           float eps, float scale, float inv_heads, int fast, unsigned long long emit_mask,
-           int n_emit, int int8_mode, cudaStream_t stream) {
+           void* probs_ws, void* y, void* probs, void* mean, const void* kb, void* metric, int B,
+           int N, int D, int H, float eps, float scale, float inv_heads, int fast,
+           unsigned long long emit_mask, int n_emit, int int8_mode, cudaStream_t stream) {
   const int M = B * N;
   const dim3 grid_a((3 * D + TN - 1) / TN, (M + TM - 1) / TM);
   gemm_kernel<T, true><<<grid_a, GEMM_THREADS, 0, stream>>>(
@@ -314,13 +355,22 @@ int launch(const void* x, const void* ln_s, const void* ln_b, const void* qkv_w,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
+  if (metric != nullptr) {
+    const size_t total = (size_t)M * (D / H);
+    key_mean_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        (const T*)qkv_ws, (float*)metric, M, D, H, inv_heads);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+
   err = int8_mode == 0
             ? launch_attention<T, false>((const T*)qkv_ws, (T*)o_ws, (T*)probs,
-                                         mean ? (float*)probs_ws : nullptr, B, N, D, H, scale,
-                                         fast, emit_mask, n_emit, 0, stream)
+                                         mean ? (float*)probs_ws : nullptr, (const float*)kb,
+                                         B, N, D, H, scale, fast, emit_mask, n_emit, 0, stream)
             : launch_attention<T, true>((const T*)qkv_ws, (T*)o_ws, (T*)probs,
-                                        mean ? (float*)probs_ws : nullptr, B, N, D, H, scale,
-                                        fast, emit_mask, n_emit, int8_mode == 2, stream);
+                                        mean ? (float*)probs_ws : nullptr, (const float*)kb, B,
+                                        N, D, H, scale, fast, emit_mask, n_emit,
+                                        int8_mode == 2, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (mean != nullptr) {
@@ -346,6 +396,8 @@ size_t ivt_attn_s8_extra_bytes(int n, int dh) { return attn_s8_extra_bytes(n, dh
 // dtype: 0 = float32, 1 = bfloat16. Workspaces (allocated by the caller):
 // qkv_ws [B, N, 3D] and o_ws [B, N, D] in the dtype, probs_ws [B, H, N, N]
 // f32 (only read when mean is given). probs / mean may be null (taps off).
+// ToMe: kb [B, N] f32 (null = no bias); metric [B, N, D/H] f32 (null = not
+// asked for).
 // emit_mask: bit h set = head h's probs are written, to tap row
 // popcount(emit_mask & ((1 << h) - 1)). int8_mode: 0 = dense, 1 = s8
 // scores with a dense PV product, 2 = s8 scores and PV. Returns a
@@ -353,19 +405,20 @@ size_t ivt_attn_s8_extra_bytes(int n, int dh) { return attn_s8_extra_bytes(n, dh
 int ivt_fused_attn_block(int dtype, const void* x, const void* ln_s, const void* ln_b,
                          const void* qkv_w, const void* qkv_b, const void* proj_w,
                          const void* proj_b, void* qkv_ws, void* o_ws, void* probs_ws, void* y,
-                         void* probs, void* mean, int B, int N, int D, int H, float eps,
-                         float scale, float inv_heads, int fast, unsigned long long emit_mask,
-                         int n_emit, int int8_mode, void* stream) {
+                         void* probs, void* mean, const void* kb, void* metric, int B, int N,
+                         int D, int H, float eps, float scale, float inv_heads, int fast,
+                         unsigned long long emit_mask, int n_emit, int int8_mode,
+                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (int8_mode < 0 || int8_mode > 2) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, qkv_ws, o_ws, probs_ws,
-                         y, probs, mean, B, N, D, H, eps, scale, inv_heads, fast, emit_mask,
-                         n_emit, int8_mode, s);
+                         y, probs, mean, kb, metric, B, N, D, H, eps, scale, inv_heads, fast,
+                         emit_mask, n_emit, int8_mode, s);
   if (dtype == 1)
     return launch<__nv_bfloat16>(x, ln_s, ln_b, qkv_w, qkv_b, proj_w, proj_b, qkv_ws, o_ws,
-                                 probs_ws, y, probs, mean, B, N, D, H, eps, scale, inv_heads,
-                                 fast, emit_mask, n_emit, int8_mode, s);
+                                 probs_ws, y, probs, mean, kb, metric, B, N, D, H, eps, scale,
+                                 inv_heads, fast, emit_mask, n_emit, int8_mode, s);
   return (int)cudaErrorInvalidValue;
 }
 

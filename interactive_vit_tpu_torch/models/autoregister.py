@@ -2,16 +2,19 @@
 
 Counterpart of ``interactive_vit_tpu/models/autoregister.py`` for the
 families this package has: the plain ViTs (``vit_*``, ``dino_*``,
-``deit_*``, ``dinov2_*``, each also at an ``@<pixels>p<patch>`` geometry)
-and Swin (``swin_*``). A variant of a family that is not ported yet raises
-with the family's name.
+``deit_*``, ``dinov2_*``, each also at an ``@<pixels>p<patch>`` geometry),
+Swin (``swin_*``) and ToMe (``*_tome*``). A variant of a family that is not
+ported yet raises with the family's name.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Any, List, Optional
 
 import torch
+
+logger = logging.getLogger(__name__)
 
 # Families the JAX package serves that this package does not yet: prefix
 # (or whole name) -> what it is.
@@ -22,17 +25,33 @@ _UNPORTED = {
 
 
 def _unported_family(variant: str) -> Optional[str]:
-    if "_tome" in variant:
-        return "ToMe"
     return next((family for prefix, family in _UNPORTED.items()
                  if variant.startswith(prefix)), None)
 
 
 def known_variants() -> List[str]:
     """Every variant name ``make_model`` accepts (sorted)."""
-    from interactive_vit_tpu_torch.models import swin, vit
+    from interactive_vit_tpu_torch.models import swin, tome, vit
 
-    return sorted(set(vit.VARIANTS) | set(swin.VARIANTS))
+    return sorted(set(vit.VARIANTS) | set(swin.VARIANTS) | set(tome.VARIANTS))
+
+
+def _check_family_options(variant: str, block_kernel: str) -> None:
+    """The refusals of a non-plain-ViT family, as in the JAX package: no
+    ``@`` suffix, no ``block_kernel`` other than "auto", a known name."""
+    if "@" in variant:
+        raise ValueError(
+            f"{variant!r}: the @<pixels>p<patch> suffix is for the "
+            f"plain-ViT family; this family's geometry is "
+            f"resolution-specific")
+    if variant not in known_variants():
+        raise ValueError(f"unknown model variant {variant!r}; known: "
+                         f"{known_variants()}")
+    if block_kernel != "auto":
+        raise ValueError(
+            f"block_kernel={block_kernel!r} applies to the plain-ViT "
+            f"family only (the fused block kernel); {variant} has no "
+            f"s8-scores variant")
 
 
 def make_model(
@@ -49,29 +68,30 @@ def make_model(
     (the card unless the caller asks for the CPU). ``attn_impl`` is the
     attention of plain-ViT blocks on the unfused path; ``quantize`` and
     ``block_kernel`` go to ``make_vit_model`` for the plain-ViT family
-    (``@<pixels>p<patch>`` geometries included). Swin refuses the ``@``
-    suffix and a ``block_kernel`` other than "auto", as in the JAX package,
-    and its quantized modes are not ported (``make_swin_model`` raises)."""
+    (``@<pixels>p<patch>`` geometries included). Swin and ToMe refuse the
+    ``@`` suffix and a ``block_kernel`` other than "auto", as in the JAX
+    package; Swin's quantized modes are not ported (``make_swin_model``
+    raises) and ToMe, as in JAX, logs a warning for ``quantize`` and serves
+    the float ``dtype``."""
     if variant.startswith("swin_"):
         from interactive_vit_tpu_torch.models.swin_plugin import (
             make_swin_model,
         )
 
-        if "@" in variant:
-            raise ValueError(
-                f"{variant!r}: the @<pixels>p<patch> suffix is for the "
-                f"plain-ViT family; swin's stage geometry is "
-                f"resolution-specific")
-        if variant not in known_variants():
-            raise ValueError(f"unknown model variant {variant!r}; known: "
-                             f"{known_variants()}")
-        if block_kernel != "auto":
-            raise ValueError(
-                f"block_kernel={block_kernel!r} applies to the plain-ViT "
-                f"family only (the fused block kernel); {variant} has no "
-                f"s8-scores variant")
+        _check_family_options(variant, block_kernel)
         return make_swin_model(variant, params=params, seed=seed,
                                dtype=dtype, device=device, quantize=quantize)
+    if "_tome" in variant:
+        from interactive_vit_tpu_torch.models.tome_plugin import (
+            make_tome_model,
+        )
+
+        _check_family_options(variant, block_kernel)
+        if quantize:
+            logger.warning("int8 not wired for %s; serving %s", variant,
+                           dtype)
+        return make_tome_model(variant, params=params, seed=seed,
+                               dtype=dtype, device=device)
     family = _unported_family(variant.partition("@")[0])
     if family is not None:
         raise NotImplementedError(

@@ -38,14 +38,20 @@ def attention_reference(
     v: torch.Tensor,
     want_attn: bool = False,
     n_real: Optional[int] = None,
+    key_bias: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """softmax(q k^T / sqrt(dh)) v with f32 softmax, inputs [B, H, N, Dh].
 
-    ``n_real``: keys beyond it are masked out (padded token domain)."""
+    ``n_real``: keys beyond it are masked out (padded token domain).
+    ``key_bias``: a [B, N] logit bias per key, shared by every head and
+    query, added in f32 after the scale -- ToMe's proportional attention
+    (``softmax(q k^T / sqrt(dh) + log s)``, ``models/tome.py``)."""
     dh = q.shape[-1]
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
         * scale.to(q.device)
+    if key_bias is not None:
+        logits = logits + key_bias.float()[:, None, None, :]
     if n_real is not None and n_real < q.shape[2]:
         neg = -0.7 * torch.finfo(torch.float32).max
         col = torch.arange(logits.shape[-1], device=logits.device)

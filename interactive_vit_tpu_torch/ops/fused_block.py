@@ -38,6 +38,12 @@ the probs (maps on) or the unnormalised fast-softmax p (maps off)
 quantized per row, v per column, ``oi.f32 * ps * vs`` (maps off: ``oi.f32
 * (ps * r) * vs``). The probs taps and the head-mean are as in the dense
 mode.
+
+ToMe's two operands (JAX ``key_bias=`` / ``want_metric=``) work in both
+modes: ``key_bias`` [B, N] is added in f32 to every head's scaled scores
+(after the s8 rescale in the s8 mode), before the softmax; ``want_metric``
+appends the head-meaned keys [B, N, dh] f32, ``sum_h k_h`` in ascending
+head order over the qkv in the activation dtype, times ``1 / heads``.
 """
 
 from __future__ import annotations
@@ -121,6 +127,8 @@ def fused_attn_block_reference(
     want_mean: bool = False,
     fast_softmax: bool = True,
     attn_heads: Optional[Tuple[int, ...]] = None,
+    key_bias: Optional[torch.Tensor] = None,
+    want_metric: bool = False,
     int8_scores: bool = False,
     int8_pv: bool = True,
 ):
@@ -129,10 +137,12 @@ def fused_attn_block_reference(
     ``int8_scores`` (and ``int8_pv``): the s8 mode, with the JAX kernel's
     quantizers (``quant_rows_mosaic`` / ``quant_cols_mosaic``, half up) and
     exact integer products (float64 matmuls of the int8 values).
+    ``key_bias`` / ``want_metric``: ToMe's operands (module docstring).
 
-    Returns ``(y, probs | None)``, or ``(y, probs | None, mean)`` when
-    ``want_mean``."""
+    Returns ``(y, probs | None)``, then ``mean`` when ``want_mean`` and
+    ``metric`` when ``want_metric``."""
     emit = _emit_heads(heads, want_attn, attn_heads)
+    kb = _key_bias(x, key_bias)
     dt = x.dtype
     b, n, d = x.shape
     dh = d // heads
@@ -153,6 +163,8 @@ def fused_attn_block_reference(
         s = si.float() * (qs * scale) * ks.transpose(-1, -2)
     else:
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if kb is not None:
+        s = s + kb[:, None, None, :]
     if fast_softmax:
         pexp = torch.exp(torch.clamp(s, max=SOFTMAX_CLAMP))
     else:
@@ -182,15 +194,47 @@ def fused_attn_block_reference(
     o = o.transpose(1, 2).reshape(b, n, d).to(dt)
     y = (xf + torch.matmul(o.float(), p["proj_w"].float())
          + p["proj_b"].float()).to(dt)
-    tap = None
+    out = [y, None]
     if want_attn:
-        tap = pb if emit is None else pb[:, list(emit)]
+        out[1] = pb if emit is None else pb[:, list(emit)]
     if want_mean:
-        msum = probs[:, 0]
-        for h in range(1, heads):  # the kernel's head order, in f32
-            msum = msum + probs[:, h]
-        return y, tap, (msum * (1.0 / heads)).to(dt)
-    return y, tap
+        out.append(_head_mean(probs, heads).to(dt))
+    if want_metric:
+        out.append(_head_mean(k, heads))
+    return tuple(out)
+
+
+def _head_mean(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """``sum_h t[:, h]`` in f32 in the kernels' head order (0 to heads-1),
+    times ``1 / heads``: the probs' head-mean and ToMe's key metric."""
+    acc = t[:, 0].float()
+    for h in range(1, heads):
+        acc = acc + t[:, h].float()
+    return acc * (1.0 / heads)
+
+
+def _key_bias(x: torch.Tensor, key_bias: Optional[torch.Tensor]
+              ) -> Optional[torch.Tensor]:
+    """ToMe's per-key logit bias as contiguous f32 [B, N]; raises
+    ``ValueError`` unless it is [B, N] on x's device."""
+    if key_bias is None:
+        return None
+    if (tuple(key_bias.shape) != tuple(x.shape[:2])
+            or key_bias.device != x.device):
+        raise ValueError(
+            f"key_bias must be [B, N] = {tuple(x.shape[:2])} on {x.device}, "
+            f"got {tuple(key_bias.shape)} on {key_bias.device}")
+    return key_bias.float().contiguous()
+
+
+# ``ivt_fused_attn_block``'s parameters (csrc/fused_attn_block.cu): dtype;
+# x, the six weights, the qkv / o / probs workspaces, y, probs, mean, key
+# bias and metric; B, N, D, H; eps, scale, 1/heads; fast, emit mask,
+# n_emit, int8_mode; stream.
+ENTRY_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                  + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                  + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_void_p])
 
 
 def _kernel_lib() -> ctypes.CDLL:
@@ -199,11 +243,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("fused_attn_block")
     if not getattr(lib, "_ivt_bound", False):
-        lib.ivt_fused_attn_block.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 3
-            + [ctypes.c_int, ctypes.c_ulonglong, ctypes.c_int, ctypes.c_int,
-               ctypes.c_void_p])
+        lib.ivt_fused_attn_block.argtypes = ENTRY_ARGTYPES
         lib.ivt_fused_attn_block.restype = ctypes.c_int
         for fn in (lib.ivt_attn_smem_bytes, lib.ivt_attn_s8_extra_bytes):
             fn.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -253,12 +293,13 @@ def _check_operands(x: torch.Tensor, p: Params, heads: int,
 
 
 def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
-                  attn_heads, int8_mode: int):
+                  attn_heads, key_bias, want_metric, int8_mode: int):
     """One launch of ``csrc/fused_attn_block.cu`` (``int8_mode``: 0 dense,
     1 s8 scores with a dense PV product, 2 s8 scores and PV); returns the
     wrapper's result."""
     emit = _emit_heads(heads, want_attn, attn_heads)
     _check_operands(x, p, heads, int8_scores=int8_mode > 0)
+    kb = _key_bias(x, key_bias)
     b, n, d = x.shape
     emit_list = (list(range(heads)) if emit is None else list(emit)) \
         if want_attn else []
@@ -277,6 +318,8 @@ def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
                              device=x.device) if want_attn else None)
         mean = (torch.empty((b, n, n), dtype=x.dtype, device=x.device)
                 if want_mean else None)
+        metric = (torch.empty((b, n, d // heads), dtype=torch.float32,
+                              device=x.device) if want_metric else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.ivt_fused_attn_block(
             _DTYPE_CODE[x.dtype], x.data_ptr(), p["ln1_s"].data_ptr(),
@@ -285,15 +328,20 @@ def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
             p["proj_b"].data_ptr(), qkv_ws.data_ptr(), o_ws.data_ptr(),
             None if probs_ws is None else probs_ws.data_ptr(), y.data_ptr(),
             None if probs is None else probs.data_ptr(),
-            None if mean is None else mean.data_ptr(), b, n, d, heads,
+            None if mean is None else mean.data_ptr(),
+            None if kb is None else kb.data_ptr(),
+            None if metric is None else metric.data_ptr(), b, n, d, heads,
             float(eps), float(d // heads) ** -0.5, 1.0 / heads,
             int(bool(fast_softmax)), mask, len(emit_list), int8_mode, stream)
     if err != 0:
         raise RuntimeError(f"fused_attn_block kernel launch failed: "
                            f"cudaError {err}")
+    out = [y, probs]
     if want_mean:
-        return y, probs, mean
-    return y, probs
+        out.append(mean)
+    if want_metric:
+        out.append(metric)
+    return tuple(out)
 
 
 def _on_device(x, name):
@@ -318,33 +366,32 @@ def fused_attn_block(
     int8_pv: bool = True,
 ):
     """x [B, N, D] -> (x + proj(MHSA(LN(x))), probs [B, H|sel, N, N] | None)
-    [, mean [B, N, N] when ``want_mean``].
+    [, mean [B, N, N] when ``want_mean``][, metric [B, N, dh] f32 when
+    ``want_metric``].
 
     Arguments as the JAX function's. ``attn_heads`` limits the probs tap
     to those heads (ascending order); the others are never written.
+    ``key_bias`` [B, N] (on x's device, else ``ValueError``) and
+    ``want_metric`` are ToMe's operands (module docstring); a launch with
+    either also counts in ``fused_attn_block.tome_launches``.
     ``int8_scores`` / ``int8_pv`` run the s8 mode (``fused_attn_block_s8``,
-    which counts those launches). ``key_bias``/``want_metric`` (ToMe) are
-    not ported yet and raise ``NotImplementedError``."""
-    if key_bias is not None or want_metric:
-        raise NotImplementedError(
-            "key_bias / want_metric (ToMe) are not ported to the CUDA block "
-            "kernel yet")
+    which counts those launches)."""
+    kw = dict(want_attn=want_attn, want_mean=want_mean,
+              fast_softmax=fast_softmax, attn_heads=attn_heads,
+              key_bias=key_bias, want_metric=want_metric)
     if int8_scores:
-        return fused_attn_block_s8(
-            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
-            fast_softmax=fast_softmax, attn_heads=attn_heads,
-            int8_pv=int8_pv)
+        return fused_attn_block_s8(x, p, heads, eps, int8_pv=int8_pv, **kw)
     if not _on_device(x, "fused_attn_block"):
-        return fused_attn_block_reference(
-            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
-            fast_softmax=fast_softmax, attn_heads=attn_heads)
-    out = _launch_block(x, p, heads, eps, want_attn, want_mean,
-                        fast_softmax, attn_heads, 0)
+        return fused_attn_block_reference(x, p, heads, eps, **kw)
+    out = _launch_block(x, p, heads, eps, int8_mode=0, **kw)
     fused_attn_block.launches += 1
+    if key_bias is not None or want_metric:
+        fused_attn_block.tome_launches += 1
     return out
 
 
 fused_attn_block.launches = 0
+fused_attn_block.tome_launches = 0
 
 
 def fused_attn_block_s8(
@@ -356,20 +403,24 @@ def fused_attn_block_s8(
     want_mean: bool = False,
     fast_softmax: bool = True,
     attn_heads: Optional[Tuple[int, ...]] = None,
+    key_bias: Optional[torch.Tensor] = None,
+    want_metric: bool = False,
     int8_pv: bool = True,
 ):
     """The s8 mode of ``fused_attn_block`` (the JAX function's
     ``int8_scores=True``; ``int8_pv`` quantizes the PV product too), same
-    contract. On a CUDA tensor one launch of the block kernel with its s8
-    attention (envelope ``fits(..., int8_scores=True)``), counted in
-    ``fused_attn_block_s8.launches``; on a CPU tensor the plain version."""
+    contract, ToMe's operands included. On a CUDA tensor one launch of the
+    block kernel with its s8 attention (envelope ``fits(...,
+    int8_scores=True)``), counted in ``fused_attn_block_s8.launches``; on a
+    CPU tensor the plain version."""
+    kw = dict(want_attn=want_attn, want_mean=want_mean,
+              fast_softmax=fast_softmax, attn_heads=attn_heads,
+              key_bias=key_bias, want_metric=want_metric)
     if not _on_device(x, "fused_attn_block_s8"):
-        return fused_attn_block_reference(
-            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
-            fast_softmax=fast_softmax, attn_heads=attn_heads,
-            int8_scores=True, int8_pv=int8_pv)
-    out = _launch_block(x, p, heads, eps, want_attn, want_mean,
-                        fast_softmax, attn_heads, 2 if int8_pv else 1)
+        return fused_attn_block_reference(x, p, heads, eps, int8_scores=True,
+                                          int8_pv=int8_pv, **kw)
+    out = _launch_block(x, p, heads, eps, int8_mode=2 if int8_pv else 1,
+                        **kw)
     fused_attn_block_s8.launches += 1
     return out
 

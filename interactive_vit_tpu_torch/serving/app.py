@@ -15,7 +15,9 @@ Counterpart of ``interactive_vit_tpu/serving/app.py``:
 
 Error contract: failures return HTTP 400 with the error text as the body;
 compute errors attributed to a node are prefixed with ``node <i> (<name>):``.
-A /compute past its deadline returns 503. Not ported yet: ``/profile``,
+A /compute past its deadline returns 503. Every /compute response, an error
+included, carries ``X-IVT-Request-Id: g0-<pid hex>-<counter hex>``
+(generation 0: the port does not recycle its workers). Not ported yet: ``/profile``,
 ``/debug_eval``, ``/save_graph``, tap speculation, the program inventory and
 worker recycling.
 """
@@ -84,6 +86,14 @@ class App:
         self._health_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="health-probe")
         self._health_fut: Optional[concurrent.futures.Future] = None
+        self._rid_lock = threading.Lock()
+        self._rid_counter = 0
+
+    def next_request_id(self) -> str:
+        """A fresh /compute request id: ``g0-<pid hex>-<counter hex>``."""
+        with self._rid_lock:
+            self._rid_counter += 1
+            return f"g0-{os.getpid():x}-{self._rid_counter:x}"
 
     # -- endpoint implementations (transport-independent) ---------------------
     def compute(self, body: bytes, timing_out: Optional[Dict] = None) -> bytes:
@@ -175,6 +185,7 @@ class App:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            _rid: Optional[str] = None  # this request's /compute id
 
             def log_message(self, fmt, *args):  # route through logging
                 logger.debug("%s " + fmt, self.client_address[0], *args)
@@ -184,6 +195,10 @@ class App:
                 self.send_response(code)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
+                if self._rid:
+                    # correlates a client's observation with the server
+                    # log; the error body stays untouched
+                    self.send_header("X-IVT-Request-Id", self._rid)
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)
                 self.end_headers()
@@ -197,6 +212,9 @@ class App:
                 self._send(400, message.encode(), "text/plain")
 
             def do_GET(self):  # noqa: N802 -- http.server API
+                # a handler serves every request of a keep-alive
+                # connection: a stale id would be echoed on the next one
+                self._rid = None
                 try:
                     url = urlparse(self.path)
                     path = unquote(url.path)
@@ -236,6 +254,7 @@ class App:
                     self._bad(str(e))
 
             def do_POST(self):  # noqa: N802
+                self._rid = None
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     body = self.rfile.read(length)
@@ -243,6 +262,7 @@ class App:
                     if path != "/compute":
                         self._send(404, b"not found", "text/plain")
                         return
+                    self._rid = app.next_request_id()
                     timing: Dict = {}
                     raw = app.compute(body, timing_out=timing)
                     header = ";".join(f"{k.removesuffix('_ms')}={v}"
@@ -251,10 +271,12 @@ class App:
                                {"X-IVT-Timing": header})
                 except ComputeTimeout as e:
                     app.metrics.inc("errors")
-                    logger.error("POST %s timed out: %s", self.path, e)
+                    logger.error("POST %s (rid=%s) timed out: %s", self.path,
+                                 self._rid, e)
                     self._send(503, str(e).encode(), "text/plain")
                 except Exception as e:  # noqa: BLE001 -- 400 contract
-                    logger.exception("POST %s failed", self.path)
+                    logger.exception("POST %s (rid=%s) failed", self.path,
+                                     self._rid)
                     self._bad(str(e))
 
             def _serve_frontend(self, rel: str) -> None:

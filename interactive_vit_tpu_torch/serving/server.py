@@ -1,8 +1,8 @@
 """Server entry point: ``python -m interactive_vit_tpu_torch.serving.server``.
 
 Counterpart of ``interactive_vit_tpu/serving/server.py``: register the
-built-in node kinds and the requested model variants (plain ViTs and Swin,
-through ``models/autoregister``), then serve. With
+built-in node kinds and the requested model variants (plain ViTs, Swin and
+ToMe, through ``models/autoregister``), then serve. With
 ``--graphs-dir``, a variant's chained graph JSON is written into that
 library when it lacks one; the repository's own ``static/graphs`` (the
 default) is only read. Example, on one CUDA card:
@@ -14,7 +14,14 @@ default) is only read. Example, on one CUDA card:
 block kernel, ``--models dinov2_s14_reg`` (518 px, 1374 tokens) through the
 flash attention kernel (``--attn``), ``--models swin_t`` through the fused
 window attention kernel in all 12 blocks (``--models swin_t,vit_b16``
-serves both).
+serves both). ``--models vit_b16_tome`` (token merging, r=8: 197 tokens
+entering the first block, 109 the last) serves the repository's saved graph
+through the fused block kernel with ToMe's key bias and key metric in all
+12 blocks (``vit_b16_tome16`` and ``vit_s16_tome`` too; ``--attn
+int8-scores`` is refused for them, as in the JAX server):
+
+    python -m interactive_vit_tpu_torch.serving.server \\
+        --models vit_b16_tome --dtype bfloat16 --port 8965
 
 A plain-ViT name takes an ``@[<pixels>][p<patch>]`` suffix:
 ``--models dinov2_s14_reg@742`` (a 53 x 53 grid, 2814 tokens) serves
@@ -127,7 +134,8 @@ def main(argv=None) -> None:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--models", default="vit_t16",
                         help="comma-separated model variants to register "
-                             "(plain ViTs and swin_t/s/b)")
+                             "(plain ViTs, swin_t/s/b and the *_tome "
+                             "variants)")
     parser.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                         help="weight and activation dtype; int8 = weight-"
                              "only int8 weights, int8w8a8 = W8A8 fc1/fc2 "

@@ -4,12 +4,15 @@ A library's file name must change with its source, with every shared
 header under ``csrc/`` and with the flags, or an edited header would load
 a stale library. Without ``nvcc`` a build raises; nothing falls back.
 
-The ``cuda``-marked cases build the window-attention, MLP, W8A8 MLP, online
-flash and attention-backward kernels from ``csrc/`` and skip without a
-card.
+The ``cuda``-marked cases build the fused-block, window-attention, MLP,
+W8A8 MLP, online flash and attention-backward kernels from ``csrc/`` and
+skip without a card. The fused block's C entry is also read from its
+source here, so that its ctypes signature cannot drift from it.
 """
 
+import ctypes
 import os
+import re
 
 import pytest
 
@@ -59,8 +62,33 @@ def test_build_without_nvcc_raises(csrc, monkeypatch):
                    os.listdir(cuda_build.BUILD_DIR))
 
 
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+            "unsigned long long": ctypes.c_ulonglong}
+
+
+def test_fused_block_entry_matches_its_ctypes_signature():
+    """``ivt_fused_attn_block``'s parameters in ``csrc/fused_attn_block.cu``
+    (ToMe's key bias and metric pointers included) against the argtypes
+    that ``ops/fused_block.py`` binds: the same count and kinds, in
+    order."""
+    from interactive_vit_tpu_torch.ops import fused_block
+
+    with open(os.path.join(cuda_build.CSRC_DIR, "fused_attn_block.cu")) as f:
+        src = f.read()
+    params = re.search(r"int ivt_fused_attn_block\(([^)]*)\)", src).group(1)
+    kinds = []
+    for decl in (" ".join(p.split()) for p in params.split(",")):
+        ctype = decl.rsplit(" ", 1)[0]
+        kinds.append(ctypes.c_void_p if "*" in decl
+                     else _C_TYPES[ctype.replace("const ", "")])
+    names = [decl.split()[-1].lstrip("*") for decl in params.split(",")]
+    assert names[14:16] == ["kb", "metric"]
+    assert kinds == fused_block.ENTRY_ARGTYPES
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,module,entry", [
+    ("fused_attn_block", "fused_block", "ivt_fused_attn_block"),
     ("fused_window_attn", "fused_window", "ivt_fused_window_attn"),
     ("fused_mlp_block", "fused_mlp", "ivt_fused_mlp_block"),
     ("fused_mlp_w8a8_block", "fused_mlp", "ivt_fused_mlp_w8a8_block"),

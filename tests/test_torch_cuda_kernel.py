@@ -1,5 +1,5 @@
 """The hand-written CUDA kernels -- the fused and headwise attention blocks
-(the fused one also in its s8 mode), the row-resident and the online flash
+(the fused one also in its s8 and ToMe modes), the row-resident and the online flash
 attention, the Swin window attention, the fused MLP branch (also its W8A8
 variant) and the trainable attention's forward and backward (both
 layouts) -- against their plain PyTorch versions, on the card.
@@ -41,6 +41,12 @@ itself, and one flipped int8 of p moves o by at most ps * max|v|; so y
 takes 2^-6 of its scale in both dtypes, and probs and mean, per element,
 2^-4 of the plain value plus 1e-6, never above 2^-5.
 
+ToMe's mode of the fused block (``key_bias``, ``want_metric``) takes the
+same bounds, and its key metric takes y's: in f32 it differs from the
+plain version's only by the order of the f32 sums of the QKV product; in
+bf16 a key element that rounds to its neighbour (one ulp, 2^-8 of the
+element) moves the head-mean by at most that over the head count.
+
 The trainable attention (``attention_vjp``): o, dq, dk and dv. f32: the
 kernel and the plain version differ in the order of f32 sums (scores over
 dh, delta over N keys, dq over N keys, dk and dv over N queries), ~1e-6 of
@@ -52,6 +58,8 @@ ds term inside a sum of N, which moves the sum by far less than the sum's
 scale. So each element is bound by 2^-6 of its plain value (two ulps) plus
 2^-8 of the tensor's largest value; a gradient zeroed or halved fails.
 """
+
+import functools
 
 import pytest
 import torch
@@ -102,8 +110,9 @@ def _block(b, n, d, heads, dtype, device, seed=0):
 
 
 def _within(got, ref, i, dtype, s8=False):
-    """Output ``i`` (0: y or the attention output; else probs or mean)
-    within its bound of the plain version's (``s8``: the int8 kernels')."""
+    """Output ``i`` (0: y, the attention output or ToMe's key metric; else
+    probs or mean) within its bound of the plain version's (``s8``: the
+    int8 kernels')."""
     g, r = got.float(), ref.float()
     err = (g - r).abs()
     if s8:
@@ -120,19 +129,21 @@ def _within(got, ref, i, dtype, s8=False):
                 .all())
 
 
-def _check(got, ref, dtype, s8=False):
+def _check(got, ref, dtype, s8=False, metric=False):
     """Every output of a kernel within its bound, and the bounds of the
-    maps and mean strict enough to refuse them zeroed or halved."""
+    maps, mean and ToMe's metric (the last output when ``metric``, bound
+    as y is) strict enough to refuse them zeroed or halved."""
     assert len(got) == len(ref)
     for i, (g, r) in enumerate(zip(got, ref)):
         if r is None:
             assert g is None
             continue
+        kind = 0 if metric and i == len(ref) - 1 else i
         assert g.shape == r.shape and g.dtype == r.dtype
-        assert _within(g, r, i, dtype, s8), i
+        assert _within(g, r, kind, dtype, s8), i
         if i > 0:
-            assert not _within(g * 0.5, r, i, dtype, s8), i
-            assert not _within(torch.zeros_like(g), r, i, dtype, s8), i
+            assert not _within(g * 0.5, r, kind, dtype, s8), i
+            assert not _within(torch.zeros_like(g), r, kind, dtype, s8), i
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -170,8 +181,49 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         fb.fused_attn_block(x, {**p, "qkv_w": p["qkv_w"].cpu()}, 4)
     with pytest.raises(ValueError):
         fb.fused_attn_block(x, p, 5)  # width does not split into heads
-    with pytest.raises(NotImplementedError):
-        fb.fused_attn_block(x, p, 4, want_metric=True)
+    with pytest.raises(ValueError):  # ToMe's key bias must be [B, N]
+        fb.fused_attn_block(x, p, 4, key_bias=torch.zeros(2, 16, device=cuda))
+    with pytest.raises(ValueError):  # on x's device
+        fb.fused_attn_block(x, p, 4, key_bias=torch.zeros(2, 17))
+
+
+# ToMe: vit_b16's ladder at r=8 enters at N=197 and leaves the last block's
+# attention at 109; vit_b16_tome16's last block runs at N=21 and leaves 11
+TOME_N = [197, 109, 21, 11]
+
+
+@pytest.mark.parametrize("n", TOME_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s8", [False, True])
+@pytest.mark.parametrize("mode", ["maps_off", "maps_mean"])
+def test_tome_mode_matches_plain(cuda, n, dtype, s8, mode):
+    """ToMe's operands (key_bias = log of token sizes, the key metric) at
+    every end of the token ladders, dense and s8. A metric zeroed or halved
+    fails its bound, and so does the kernel's result against the plain
+    version without the bias (on the maps, or on y in dense f32)."""
+    x, p = _block(1, n, 768, 12, dtype, cuda, seed=n)
+    sizes = torch.randint(1, 17, (1, n), generator=torch.Generator()
+                          .manual_seed(n)).float()
+    kb = torch.log(sizes).to(cuda)
+    maps = mode == "maps_mean"
+    kw = {"want_attn": maps, "want_mean": maps, "want_metric": True}
+    wrapper = fb.fused_attn_block_s8 if s8 else fb.fused_attn_block
+    before = (wrapper.launches, fb.fused_attn_block.tome_launches)
+    got = wrapper(x, p, 12, 1e-6, key_bias=kb, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before[0] + 1
+    assert fb.fused_attn_block.tome_launches == before[1] + (0 if s8 else 1)
+    plain = functools.partial(fb.fused_attn_block_reference, x, p, 12, 1e-6,
+                              int8_scores=s8, **kw)
+    ref = plain(key_bias=kb)
+    assert len(got) == (4 if maps else 3)
+    assert got[-1].shape == (1, n, 64) and got[-1].dtype == torch.float32
+    _check(got, ref, dtype, s8, metric=True)
+    if maps or (dtype == torch.float32 and not s8):
+        no_bias = plain()
+        assert not all(_within(g, r, i, dtype, s8) for i, (g, r)
+                       in enumerate(zip(got[:-1], no_bias[:-1]))
+                       if r is not None)
 
 
 # headwise: vit_l16 @384 (N=577: 10 key tiles, the last partial), vit_b16

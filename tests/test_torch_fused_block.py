@@ -133,17 +133,76 @@ def test_cpu_wrapper_runs_the_plain_version_and_counts_no_launch(shared):
         assert torch.equal(g, r)
 
 
+# ToMe's operands (key_bias, want_metric) with the maps' modes:
+# (key_bias, want_metric, want_attn, want_mean, attn_heads, fast_softmax)
+TOME_MODES = [
+    (True, False, False, False, None, True),
+    (False, True, False, False, None, True),
+    (True, True, False, False, None, True),
+    (True, True, True, True, None, True),
+    (True, True, True, False, (3, 0), True),
+    (True, True, False, True, None, True),
+    (True, True, True, True, None, False),
+]
+
+
+@pytest.mark.parametrize("n", [9, 12])  # odd and even token counts
+@pytest.mark.parametrize("int8_scores", [False, True])
+@pytest.mark.parametrize("bias,metric,want_attn,want_mean,attn_heads,fast",
+                         TOME_MODES)
+def test_tome_operands_match_pallas(shared, n, int8_scores, bias, metric,
+                                    want_attn, want_mean, attn_heads, fast):
+    """key_bias (log of token sizes) and the key metric, dense and s8,
+    against the interpreted Pallas kernel: results in the JAX order (y,
+    probs[, mean][, metric])."""
+    blk, _ = shared
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((2, n, JCFG.width)).astype(np.float32)
+    kb = (np.log(rng.integers(1, 6, size=(2, n))).astype(np.float32)
+          if bias else None)
+    kw = dict(want_attn=want_attn, want_mean=want_mean, fast_softmax=fast,
+              attn_heads=attn_heads, want_metric=metric,
+              int8_scores=int8_scores)
+    want = jfb.fused_attn_block(
+        jnp.asarray(x), jax.tree.map(jnp.asarray, blk), JCFG.heads,
+        JCFG.ln_eps, key_bias=None if kb is None else jnp.asarray(kb), **kw)
+    got = tfb.fused_attn_block(
+        torch.from_numpy(x), from_jax(blk), TCFG.heads, TCFG.ln_eps,
+        key_bias=None if kb is None else torch.from_numpy(kb), **kw)
+    assert len(got) == len(want)
+    if metric:
+        assert got[-1].dtype == torch.float32
+        assert tuple(got[-1].shape) == (2, n, JCFG.width // JCFG.heads)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 @pytest.mark.parametrize("kw,exc", [
     ({"want_attn": True, "attn_heads": ()}, ValueError),
     ({"want_attn": True, "attn_heads": (4,)}, ValueError),
-    ({"want_metric": True}, NotImplementedError),
-    ({"key_bias": torch.zeros(2, 5)}, NotImplementedError),
-    ({"int8_scores": True, "want_metric": True}, NotImplementedError),
+    ({"key_bias": torch.zeros(2, 4)}, ValueError),   # not [B, N]
+    ({"key_bias": torch.zeros(2, 5, 1)}, ValueError),
+    ({"key_bias": torch.zeros(2, 5, device="meta")}, ValueError),
+    ({"int8_scores": True, "key_bias": torch.zeros(5)}, ValueError),
 ])
 def test_wrapper_rejects(shared, kw, exc):
     blk, x = shared
     with pytest.raises(exc):
         tfb.fused_attn_block(torch.from_numpy(x), from_jax(blk), 4, **kw)
+
+
+def test_metric_is_the_head_mean_of_the_keys(shared):
+    """The metric is sum_h k_h in f32, heads in ascending order, times
+    1/heads, over the keys of the block's own LN1 + QKV."""
+    blk, x = shared
+    p = from_jax(blk)
+    xt = torch.from_numpy(x)
+    _, _, metric = tfb.fused_attn_block(xt, p, 4, want_metric=True)
+    ln = tvit.L.layer_norm(xt, p["ln1_s"], p["ln1_b"], 1e-6)
+    k = (torch.matmul(ln, p["qkv_w"]) + p["qkv_b"])[..., 64:128]
+    k = k.reshape(2, -1, 4, 16)
+    want = ((k[:, :, 0] + k[:, :, 1]) + k[:, :, 2] + k[:, :, 3]) * 0.25
+    torch.testing.assert_close(metric, want, atol=1e-6, rtol=0)
 
 
 def test_wrapper_refuses_devices_it_has_no_path_for(shared):

@@ -37,6 +37,9 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.models.vit_plugin",
     "interactive_vit_tpu_torch.models.swin",
     "interactive_vit_tpu_torch.models.swin_plugin",
+    "interactive_vit_tpu_torch.models.tome",
+    "interactive_vit_tpu_torch.models.tome_plugin",
+    "interactive_vit_tpu_torch.ops.tome_ops",
     "interactive_vit_tpu_torch.models.autoregister",
     "interactive_vit_tpu_torch.models.model_plugin",
     "interactive_vit_tpu_torch.models.weights",
@@ -153,6 +156,7 @@ def _default_device_entry_points():
     from interactive_vit_tpu_torch.graph.executor import Executor
     from interactive_vit_tpu_torch.models.autoregister import make_model
     from interactive_vit_tpu_torch.models.swin_plugin import make_swin_model
+    from interactive_vit_tpu_torch.models.tome_plugin import make_tome_model
     from interactive_vit_tpu_torch.models.vit import VARIANTS
     from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
     from interactive_vit_tpu_torch.parallel.train import setup
@@ -170,6 +174,8 @@ def _default_device_entry_points():
                                                 graphs_dir=str(tmp)),
         "make_swin_model": lambda tmp: make_swin_model("swin_t"),
         "make_model": lambda tmp: make_model("swin_t"),
+        "make_tome_model": lambda tmp: make_tome_model("vit_s16_tome"),
+        "make_model_tome": lambda tmp: make_model("vit_s16_tome"),
         "train_setup": lambda tmp: setup(VARIANTS["vit_t16"]),
         "train_main": lambda tmp: train_main(["--steps", "1"]),
     }
@@ -178,6 +184,7 @@ def _default_device_entry_points():
 @pytest.mark.parametrize("entry", ["build_app", "App", "Executor",
                                    "make_vit_model", "build_app_swin",
                                    "make_swin_model", "make_model",
+                                   "make_tome_model", "make_model_tome",
                                    "train_setup", "train_main"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):

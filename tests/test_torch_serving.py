@@ -327,3 +327,46 @@ def test_metrics_and_health(servers):
     assert "request_p50_ms" in m and m["device"] == "cpu"
     h = json.loads(_get(url + "/health"))
     assert h["ok"] is True and h["device"] == "cpu"
+
+
+def test_request_id_header(servers):
+    """Every /compute response carries a fresh X-IVT-Request-Id,
+    ``g0-<pid hex>-<counter hex>``, as the JAX app's; an error response
+    too."""
+    app, url, _, _ = servers
+    _, body = _chain_request(app)
+    ids = []
+    for _ in range(2):
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/compute", data=body, method="POST"), timeout=60) as r:
+            r.read()
+            ids.append(r.headers.get("X-IVT-Request-Id"))
+    assert ids[0] and ids[1] and ids[0] != ids[1]
+    assert ids[0].startswith("g0-") and ids[0].split("-")[1] == \
+        f"{os.getpid():x}"
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(url + "/compute", b"garbage")
+    assert ei.value.code == 400
+    assert ei.value.headers.get("X-IVT-Request-Id", "").startswith("g0-")
+
+
+def test_request_id_not_reused_on_keepalive_get(servers):
+    """A GET after a /compute on the same keep-alive connection does not
+    echo the compute's request id."""
+    import http.client
+
+    app, url, _, _ = servers
+    host, port = url.split("//")[1].split(":")
+    _, body = _chain_request(app)
+    c = http.client.HTTPConnection(host, int(port), timeout=60)
+    try:
+        c.request("POST", "/compute", body=body)
+        r1 = c.getresponse()
+        r1.read()
+        assert r1.getheader("X-IVT-Request-Id")
+        c.request("GET", "/metrics")
+        r2 = c.getresponse()
+        r2.read()
+        assert r2.getheader("X-IVT-Request-Id") is None
+    finally:
+        c.close()
