@@ -7,11 +7,14 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the eight hand-written kernel sources from ``csrc/``
+2. build   -- builds the ten hand-written kernel sources from ``csrc/``
    with nvcc, one compiler process each, all at once (the s8 and ToMe
-   modes of the block are modes of ``fused_attn_block.cu``, and the two
+   modes of the block are modes of ``fused_attn_block.cu``; the two
    trainable attentions share ``flash_attention.cu`` forward and
-   ``attention_bwd.cu`` backward: eleven kernels).
+   ``attention_bwd.cu`` backward on their f32 FMA route and
+   ``attention_train_mma.cu`` on their bf16 tensor-core route; the online
+   flash attention is ``flash_attention_online.cu`` (FMA) and
+   ``flash_attention_online_mma.cu`` (tensor cores): fourteen kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -37,9 +40,12 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      and f32; the bound must refuse a kernel that returned the residual
      alone;
    * the online flash attention at the dinov2_s14_reg@742 shape (6 heads,
-     N=2814, dh=64; B=1 and 8, and keys masked beyond n_real=2800), bf16
-     and f32, against its plain version at the kernel's key tile (128);
-     ``scaled_dot_product_attention`` timed beside it;
+     N=2814, dh=64; B=1 and 8, and keys masked beyond n_real=2800) on q,
+     k, v views of one qkv tensor, against its plain version at the
+     kernel's key tile (128): bf16 on the tensor-core kernel and, on a
+     copy whose rows sit off the 16-byte grid, on the FMA kernel it
+     replaces; f32 on the FMA kernel; ``scaled_dot_product_attention``
+     timed beside it;
    * the W8A8 MLP at vit_b16 (197 x 768, B=1 and 8), bf16 and f32: its
      s32 accumulators equal to the exact products of its own int8
      activations, those activations the plain version's but in at most 1%
@@ -56,11 +62,14 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      without the bias;
    * the trainable attention, forward and backward (o, dq, dk, dv), in
      both layouts: ``attention_train`` on [B, H, N, dh] at vit_b16's and
-     vit_t16's train shapes (B=64, 12 or 3 heads, N=197, dh=64) and with
-     keys masked beyond n_real=197 of N=208; ``attention_train_packed`` on
-     the head-major [B, N, 3D] at vit_b16's and at the masked shape; bf16
-     and f32, each bound refusing a gradient zeroed or halved;
-     ``scaled_dot_product_attention`` forward + backward timed beside.
+     vit_t16's train shapes (B=64, 12 or 3 heads, N=197, dh=64), with keys
+     masked beyond n_real=197 of N=208 (their dk, dv exactly 0) and at
+     N=577; ``attention_train_packed`` on the head-major [B, N, 3D] at
+     vit_b16's, the masked and the N=577 shape; bf16 on the tensor-core
+     route (its saved (m, l) against the plain statistics) and, off the
+     16-byte grid, on the FMA route; f32 on the FMA route; each bound
+     refusing a gradient zeroed or halved; ``scaled_dot_product_attention``
+     forward + backward timed beside.
 4. slice   -- nine paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
@@ -79,8 +88,9 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      only) and stages.3.1 (heads 0, 11, 23), the logits; 5 in sequence and
      4 at once; the window kernel in all 12 blocks, 12 launches a request;
    * dinov2_s14_reg@742, bf16: the block outputs ``o`` of blocks 0, 6 and
-     11 and the CLS features, 2 in sequence; the online flash kernel in
-     all 12 blocks;
+     11 and the CLS features, 2 in sequence; the tensor-core online kernel
+     in all 12 blocks (the profile must show it 12 times and the FMA
+     online kernel never), the f32 request's 12 on the FMA kernel;
    * vit_t16@256 from the repository's saved graph: ``attn`` + ``r`` on
      blocks 0 and 6, ``r`` on block 11, the logits; the fused block kernel;
    * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
@@ -119,18 +129,22 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    before each run and read after it:
    (a) vit_b16 @224, ``--dtype mixed --attn auto --batch 64 --steps 10
        --memorize 64``: ``--remat auto`` must resolve to off; exactly 12
-       packed forward and 12 backward launches a step; a finite loss at
-       every step, the last below the first; ms a step and images/s, and
-       one profiled step (device busy / idle, the top kernels) beside one
-       of the plain attention;
+       packed tensor-core forward and 12 backward launches a step, no FMA
+       one; a finite loss at every step, the last below the first; ms a
+       step and images/s, and one profiled step (device busy / idle, the
+       top kernels; by name 12 each of the tensor-core forward, dq and
+       dk/dv kernels and no FMA attention kernel) beside one of the plain
+       attention;
    (b) vit_t16, ``--dtype bfloat16 --batch 64 --steps 5``: 12 + 12
-       launches a step of ``attention_train`` ([B, H, N, dh], 3 heads), no
-       packed launch; timed and profiled as (a);
+       tensor-core launches a step of ``attention_train`` ([B, H, N, dh],
+       3 heads), no packed or FMA launch; timed and profiled as (a);
    (c) vit_b16 with ``--remat on``, 2 steps: 24 forward launches a step
        (the checkpointed blocks run again in the backward);
-   (d) the first step's gradients in f32, vit_b16 at B=8: the kernels
-       (head-major params, unpermuted) against the plain attention on the
-       same params and batch, every parameter within its bound.
+   (d) the first step's gradients in f32, vit_b16 at B=8: the packed FMA
+       kernels (head-major params, unpermuted) against the plain attention
+       on the same params and batch, every parameter within its bound;
+   (e) vit_t16 ``--dtype float32``, 2 steps: 12 + 12 FMA launches a step
+       of ``attention_train``.
 6. result  -- a JSON line describing the kernels, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -183,6 +197,16 @@ KERNELS = {
                         "interactive_vit_tpu/ops/attention_vjp.py:141"),
     "attention_train_packed": (CSRC + "attention_bwd.cu",
                                "interactive_vit_tpu/ops/attention_vjp.py:293"),
+    # the bf16 tensor-core routes of rows 4, 8 and 9 (mma.sync); f32 stays
+    # on the FMA kernels above
+    "flash_attention_online_mma": (
+        CSRC + "flash_attention_online_mma.cu",
+        "interactive_vit_tpu/ops/flash_attention.py:188"),
+    "attention_train_mma": (CSRC + "attention_train_mma.cu",
+                            "interactive_vit_tpu/ops/attention_vjp.py:141"),
+    "attention_train_packed_mma": (
+        CSRC + "attention_train_mma.cu",
+        "interactive_vit_tpu/ops/attention_vjp.py:293"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -254,6 +278,12 @@ TRAIN_BF16_SCALE = 2.0 ** -8
 # pass through 12 blocks forward and back; each parameter's gradient is
 # held to 1e-4 of its largest value, the loss to 1e-5.
 TRAIN_GRAD_REL = 1e-4
+# The tensor-core forward's saved row statistics (m, l) against the plain
+# ones: only the order of the f32 sums differs (scores over dh; l a running
+# sum over N keys), so m within 1e-5 of 1 + |m| and l within 1e-4 of
+# itself; a halved l fails.
+STATS_M_REL = 1e-5
+STATS_L_REL = 1e-4
 # vit_b16's and vit_t16's train attention shapes: (B, heads, N, dh)
 TRAIN_B16 = (64, 12, 197, 64)
 TRAIN_T16 = (64, 3, 197, 64)
@@ -799,15 +829,33 @@ def online_plain(q, k, v, want_attn=False, n_real=None):
     return fa.flash_attention_online_reference(q, k, v, n_real), None
 
 
+def misaligned(t, pad: int = 4):
+    """A copy of ``t`` [B, N, W] whose token stride is ``pad`` elements
+    longer: bf16 rows then start 8 bytes off the 16-byte grid, so
+    ``mma_route`` sends them to the FMA kernels (the same values)."""
+    import torch
+
+    wide = torch.zeros(t.shape[:-1] + (t.shape[-1] + pad,), dtype=t.dtype,
+                       device=t.device)
+    wide[..., :t.shape[-1]] = t
+    return wide[..., :t.shape[-1]]
+
+
 def phase_online_kernel(device) -> dict:
-    """The online flash kernel against its plain version at its own key
+    """The online flash attention against its plain version at its own key
     tile, at the dinov2_s14_reg@742 shape (6 heads, N=2814, dh=64; B=1 and
-    8, and keys masked beyond n_real=2800); returns the B=1 bf16 numbers,
-    SDPA's time beside them."""
+    8, and keys masked beyond n_real=2800): bf16 on the tensor-core kernel
+    (and, on a copy off the 16-byte grid, the FMA kernel it replaces), f32
+    on the FMA kernel. Returns the B=1 numbers of both kernels (bf16 for
+    the tensor cores, f32 for FMA), SDPA's time beside each."""
     import torch
     import torch.nn.functional as F
 
     from interactive_vit_tpu_torch.ops import flash_attention as fa
+
+    def counts():
+        return (fa.flash_attention_online.launches,
+                fa.flash_attention_online_mma.launches)
 
     out = {}
     heads, n, dh = ONLINE_SHAPE
@@ -815,33 +863,62 @@ def phase_online_kernel(device) -> dict:
         shape = (b, heads, n, dh)
         for dtype in (torch.bfloat16, torch.float32):
             dt = str(dtype).replace("torch.", "")
+            mma = dtype == torch.bfloat16
             g = torch.Generator().manual_seed(b)
-            q, k, v = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
-                       for _ in range(3)]
-            got = fa.flash_attention_online(q, k, v, n_real)
-            ref = fa.flash_attention_online_reference(
-                q, k, v, n_real, block_k=fa.ONLINE_BLOCK_K)
-            torch.cuda.synchronize()
-            tag = (f"flash_attention_online dinov2_s14_reg@742 {shape} {dt}"
-                   + (f" n_real={n_real}" if n_real else ""))
-            errs, line = check_outputs(tag, (got,), (ref,), dtype, ("o",))
-            check_bounds_refuse(tag, (got,), (ref,), dtype, ("o",), first=0)
-            if n_real is not None:
+            # q, k, v as qkv_proj makes them: views of one [B, N, 3D]
+            qkv = (torch.randn((b, n, 3 * heads * dh), generator=g) * 2).to(
+                device, dtype)
+            routes = [("tensor cores" if mma else "FMA", qkv)]
+            if mma:
+                routes.append(("FMA, off the 16-byte grid", misaligned(qkv)))
+            ref = None
+            t_routes = {}
+            for route, x in routes:
+                q, k, v = (x.reshape(b, n, 3, heads, dh)[:, :, i]
+                           .transpose(1, 2) for i in range(3))
+                before = counts()
+                got = fa.flash_attention_online(q, k, v, n_real)
+                torch.cuda.synchronize()
+                fma = route.startswith("FMA")
+                if counts() != (before[0] + fma, before[1] + (not fma)):
+                    raise AssertionError(f"online {dt} {route}: launches "
+                                         f"{counts()} after {before}")
+                if ref is None:
+                    ref = fa.flash_attention_online_reference(
+                        q, k, v, n_real, block_k=fa.ONLINE_BLOCK_K)
+                tag = (f"flash_attention_online dinov2_s14_reg@742 {shape} "
+                       f"{dt} ({route})"
+                       + (f" n_real={n_real}" if n_real else ""))
+                errs, line = check_outputs(tag, (got,), (ref,), dtype,
+                                           ("o",))
+                check_bounds_refuse(tag, (got,), (ref,), dtype, ("o",),
+                                    first=0)
                 log(line)
+                if n_real is None:
+                    t_routes[route] = (time_ms(
+                        lambda: fa.flash_attention_online(q, k, v)), errs)
+            if n_real is not None:
                 continue
+            q, k, v = (qkv.reshape(b, n, 3, heads, dh)[:, :, i]
+                       .transpose(1, 2) for i in range(3))
             t_k, t_p = time_turns(
                 lambda: fa.flash_attention_online(q, k, v),
                 lambda: fa.flash_attention_online_reference(q, k, v))
             nbytes, flops = flash_cost(*shape, q.element_size(), False)
             bms, by = bound(nbytes, flops, dt)
             t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-            log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
-                f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+            log(f"  flash_attention_online {shape} {dt}: "
+                + ", ".join(f"{r} {t:.4f} ms" for r, (t, _) in
+                            t_routes.items())
+                + f"; in turns kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
+                f"bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.3f} GFLOP); scaled_dot_product_attention "
                 f"{t_lib:.4f} ms")
-            if (b, dt) == (1, "bfloat16"):
-                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
-                       "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
+            if b == 1:
+                out["mma" if mma else "fma"] = {
+                    "max_abs_err": max(t_routes[routes[0][0]][1]),
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": bms,
+                    "bound_by": by, "library_ms": t_lib}
     return out
 
 
@@ -974,9 +1051,9 @@ def chain_request(graph_obj, image, taps, node_params=None):
     return encode_message(REQUEST_MAGIC, obj, tensors)
 
 
-def profile_request(app, graph, taps, tag) -> None:
+def profile_request(app, graph, taps, tag, expect=None) -> None:
     """One ``executor.run`` of a served request under ``torch.profiler``
-    (``report_profile``)."""
+    (``report_profile``, ``expect`` as there)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -987,7 +1064,8 @@ def profile_request(app, graph, taps, tag) -> None:
         app.executor.run(graph, taps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, f"{tag} profile of one executor.run")
+    report_profile(prof, wall_ms, f"{tag} profile of one executor.run",
+                   expect)
 
 
 def time_host_spans(app, graph, taps, tag, spans) -> None:
@@ -1024,10 +1102,12 @@ def time_host_spans(app, graph, taps, tag, spans) -> None:
         + f"; together {sum(t for _, t in spent.values()) * 1e3:.3f} ms")
 
 
-def report_profile(prof, wall_ms: float, what: str) -> None:
+def report_profile(prof, wall_ms: float, what: str, expect=None) -> None:
     """Log a profile's host wall time, device busy time (the sum of kernel
     times: the port runs on one stream, so kernels do not overlap) and the
-    kernels that take the most device time."""
+    kernels that take the most device time. ``expect``: {a substring of a
+    kernel's name: the launches the profile must show of the kernels whose
+    names hold it} (0: none may run)."""
     from torch.autograd import DeviceType
 
     kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
@@ -1036,9 +1116,19 @@ def report_profile(prof, wall_ms: float, what: str) -> None:
                and e.self_device_time_total > 0]
     busy = sum(t for t, _, _ in kernels)
     if not kernels:
+        if expect:
+            raise AssertionError(f"{what}: the profiler saw no kernel, so "
+                                 f"{sorted(expect)} cannot be checked")
         log(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
             f"(the profiler saw no kernel)")
         return
+    if expect:
+        seen = {part: sum(n for _, n, name in kernels if part in name)
+                for part in expect}
+        if seen != expect:
+            raise AssertionError(f"{what}: kernels by name {seen}, expected "
+                                 f"{expect}")
+        log(f"  {what}: kernels by name {seen} (as expected)")
     top = sorted(kernels, reverse=True)[:6]
     log(f"  {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle "
@@ -1085,13 +1175,20 @@ class Path:
     the requests in ``dtype`` instead of the plain path (and a check that
     runs before the f32 request's comparison with it); it returns what
     ``plain_taps`` returns. ``host_spans``: (module, function name) pairs
-    whose host time in one request ``time_host_spans`` logs."""
+    whose host time in one request ``time_host_spans`` logs.
+    ``f32_kernels``: the launches of the f32 request where they differ from
+    ``kernels`` (a bf16 tensor-core route whose f32 twin is an FMA
+    kernel). ``profile_kernels``: ``report_profile``'s ``expect`` for the
+    profiled request."""
 
     def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
                  other=None, dtype="bfloat16", attn="auto", f32=True,
-                 chain=(), lockstep=None, host_spans=()):
+                 chain=(), lockstep=None, host_spans=(), f32_kernels=None,
+                 profile_kernels=None):
         self.model, self.family, self.cfg = model, family, cfg
+        self.f32_kernels = kernels if f32_kernels is None else f32_kernels
+        self.profile_kernels = profile_kernels
         self.chain, self.lockstep = tuple(chain), lockstep
         self.host_spans = tuple(host_spans)
         self.img, self.tap_nodes = img, taps
@@ -1405,7 +1502,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         metrics = json.loads(urllib.request.urlopen(
             url + "/metrics", timeout=30).read())
         profile_request(app, chain_graph(graph, images[0], path.node_params),
-                        path.taps(), tag)
+                        path.taps(), tag, path.profile_kernels)
         if path.host_spans:
             time_host_spans(app, chain_graph(graph, images[0],
                                              path.node_params),
@@ -1469,15 +1566,17 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         model = app.reg.get_node(path.model + ":head").model
     finally:
         stop(app, httpd)
-    if {k: launches_f32[k] for k in path.kernels} != path.kernels:
+    want32 = {k: path.f32_kernels.get(k, 0)
+              for k in set(path.kernels) | set(path.f32_kernels)}
+    if {k: launches_f32[k] for k in want32} != want32:
         raise AssertionError(f"f32 {path.model} request launched "
-                             f"{launches_f32}; expected {path.kernels}")
+                             f"{launches_f32}; expected {want32}")
     if path.lockstep:
         path.lockstep(path, model, images[0], device)
     errs32, _ = check_response(raw, path,
                                plain_taps(path, model, images[0], device),
                                f"{path.model} f32 request", bf16=False)
-    log(f"  {path.model} f32: 1 request, launches {path.kernels}; head output "
+    log(f"  {path.model} f32: 1 request, launches {path.f32_kernels}; head output "
         f"max abs err vs plain {errs32['head']:.3g} (bound {F32_BOUND:g}), "
         f"taps {max(v for k, v in errs32.items() if k != 'head'):.3g}; path "
         f"launch counts { {k: v for k, v in counts.items() if v} }")
@@ -1620,19 +1719,26 @@ class ToMeCount:
 
 
 class FwdBwdCount:
-    """The forward and backward launch counts of a trainable attention as
-    one ``launches`` counter: reading sums them, setting sets both."""
+    """The forward and backward launch counts of a trainable attention's
+    route (``prefix`` "" for FMA, "mma_" for the tensor cores) as one
+    ``launches`` counter: reading sums them, setting sets both."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, fn, prefix=""):
+        self.fn, self.prefix = fn, prefix
+
+    @property
+    def pair(self):
+        return (getattr(self.fn, self.prefix + "fwd_launches"),
+                getattr(self.fn, self.prefix + "bwd_launches"))
 
     @property
     def launches(self) -> int:
-        return self.fn.fwd_launches + self.fn.bwd_launches
+        return sum(self.pair)
 
     @launches.setter
     def launches(self, value: int) -> None:
-        self.fn.fwd_launches = self.fn.bwd_launches = value
+        setattr(self.fn, self.prefix + "fwd_launches", value)
+        setattr(self.fn, self.prefix + "bwd_launches", value)
 
 
 def train_bound(ref, dtype):
@@ -1693,104 +1799,173 @@ def train_attn_cost(b, h, n, dh, esize):
     return 11 * b * h * n * dh * esize, 14 * b * h * n * n * dh
 
 
+def check_stats(tag, got, ref) -> str:
+    """The tensor-core forward's saved (m, l) [2, B, H, N] against the plain
+    statistics within STATS_M_REL / STATS_L_REL; the bound must refuse l
+    halved."""
+    def use(m, l):
+        return max(((m - ref[0]).abs()
+                    / (STATS_M_REL * (1 + ref[0].abs()))).max().item(),
+                   ((l - ref[1]).abs() / (STATS_L_REL * ref[1])).max().item())
+
+    u = use(got[0], got[1])
+    if not u <= 1.0:
+        raise AssertionError(f"{tag}: saved (m, l) at {u:.2f} of the bound")
+    if use(got[0], got[1] * 0.5) <= 1.0:
+        raise AssertionError(f"{tag}: a halved l passed the stats bound")
+    return f"(m, l) at {u:.3f} of their bound"
+
+
 def phase_train_kernel(device, packed: bool) -> dict:
     """``attention_train`` (or, ``packed``, ``attention_train_packed``)
-    forward and backward against the plain versions; returns the main
-    path's numbers (vit_b16 packed, vit_t16 [B, H, N, dh]; bf16) with
-    SDPA forward + backward beside them."""
+    forward and backward against the plain versions: bf16 on the
+    tensor-core route (and, on a copy off the 16-byte grid, the FMA route
+    it replaces), f32 on the FMA route; the tensor-core forward's (m, l)
+    against the plain statistics. Returns the main path's numbers (vit_b16
+    packed, vit_t16 [B, H, N, dh]) of both routes (bf16 for the tensor
+    cores, f32 for FMA), SDPA forward + backward beside each."""
     import torch
     import torch.nn.functional as F
 
     from interactive_vit_tpu_torch.ops import attention_vjp as av
 
     name = "attention_train_packed" if packed else "attention_train"
+    fn_counts = av.attention_train_packed if packed else av.attention_train
     served = TRAIN_B16 if packed else TRAIN_T16
-    cases = [TRAIN_B16] + ([] if packed else [TRAIN_T16])
+    cases = ([(c, None) for c in [TRAIN_B16] + ([] if packed else [TRAIN_T16])]
+             + [((8, 2, 208, 64), 197), ((8, 6, 577, 64), None)])
+
+    def counts():
+        return (fn_counts.fwd_launches, fn_counts.bwd_launches,
+                fn_counts.mma_fwd_launches, fn_counts.mma_bwd_launches)
+
     out = {}
-    for shape, n_real in [(c, None) for c in cases] + [((8, 2, 208, 64),
-                                                        197)]:
+    for shape, n_real in cases:
         b, h, n, dh = shape
+        nr = n if n_real is None else n_real
         for dtype in (torch.bfloat16, torch.float32):
             dt = str(dtype).replace("torch.", "")
+            mma = dtype == torch.bfloat16
             g = torch.Generator().manual_seed(n + h)
-            qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(device,
-                                                                  dtype)
+            qkv0 = torch.randn((b, n, 3 * h * dh), generator=g).to(device,
+                                                                   dtype)
             do = torch.randn((b, n, h * dh), generator=g).to(device, dtype)
-            if packed:
-                inputs = [qkv.clone().requires_grad_(True)]
-                fn = functools.partial(av.attention_train_packed,
-                                       n_real=n_real)
-                dout, labels = do, ("o", "dqkv")
+            routes = [("tensor cores" if mma else "FMA", qkv0)]
+            if mma:
+                routes.append(("FMA, off the 16-byte grid", misaligned(qkv0)))
+            ref = None
+            t_routes = {}
+            for route, qkv in routes:
+                if packed:
+                    inputs = [qkv.detach().requires_grad_(True)]
+                    fn = functools.partial(av.attention_train_packed,
+                                           n_real=n_real)
+                    dout, labels = do, ("o", "dqkv")
 
-                def plain():
-                    return (av.attention_train_packed_reference(qkv, n_real),
-                            av.packed_head_grads_reference(qkv, do, n_real))
-            else:
-                # q, k, v as qkv_proj makes them: views of one [B, N, 3D]
-                views = [qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
-                         for i in range(3)]
-                inputs = [t.detach().requires_grad_(True) for t in views]
-                fn = functools.partial(av.attention_train, n_real=n_real)
-                dout = do.reshape(b, n, h, dh).transpose(1, 2)
-                labels = ("o", "dq", "dk", "dv")
+                    def plain(qkv=qkv):
+                        return (av.attention_train_packed_reference(qkv,
+                                                                    n_real),
+                                av.packed_head_grads_reference(qkv, do,
+                                                               n_real))
+                else:
+                    # q, k, v as qkv_proj makes them: views of one [B, N, 3D]
+                    views = [qkv.reshape(b, n, 3, h, dh)[:, :, i]
+                             .transpose(1, 2) for i in range(3)]
+                    inputs = [t.detach().requires_grad_(True) for t in views]
+                    fn = functools.partial(av.attention_train, n_real=n_real)
+                    dout = do.reshape(b, n, h, dh).transpose(1, 2)
+                    labels = ("o", "dq", "dk", "dv")
 
-                def plain():
-                    return (av.attention_train_reference(*views, n_real),
-                            *av.head_grads_reference(*views, dout, n_real))
+                    def plain(views=views, dout=dout):
+                        return (av.attention_train_reference(*views, n_real),
+                                *av.head_grads_reference(*views, dout,
+                                                         n_real))
 
-            def kernel():
-                o = fn(*inputs)
-                return (o.detach(), *torch.autograd.grad(o, inputs, dout))
+                def kernel(fn=fn, inputs=inputs, dout=dout):
+                    o = fn(*inputs)
+                    return (o.detach(), *torch.autograd.grad(o, inputs, dout))
 
-            got, ref = kernel(), plain()
-            torch.cuda.synchronize()
-            tag = (f"{name} {(b, n, 3 * h * dh) if packed else shape} {dt}"
-                   + (f" n_real={n_real}" if n_real else ""))
-            errs, line = check_train(tag, got, ref, dtype, labels)
-            check_train_refuse(tag, got, ref, dtype, labels)
-            if n_real is not None:
-                dk_dv = (got[1][:, n_real:].reshape(b, n - n_real, h, 3,
-                                                    dh)[:, :, :, 1:]
-                         if packed else torch.stack(got[2:])[:, :, :,
-                                                             n_real:])
-                if not torch.all(dk_dv == 0):
-                    raise AssertionError(f"{tag}: masked keys got dk or dv")
+                before = counts()
+                got = kernel()
+                torch.cuda.synchronize()
+                fma = route.startswith("FMA")
+                step = (1, 1, 0, 0) if fma else (0, 0, 1, 1)
+                if counts() != tuple(x + d for x, d in zip(before, step)):
+                    raise AssertionError(f"{name} {dt} {route}: launches "
+                                         f"{counts()} after {before}")
+                if ref is None:
+                    ref = plain()
+                tag = (f"{name} {(b, n, 3 * h * dh) if packed else shape} "
+                       f"{dt} ({route})"
+                       + (f" n_real={n_real}" if n_real else ""))
+                errs, line = check_train(tag, got, ref, dtype, labels)
+                check_train_refuse(tag, got, ref, dtype, labels)
+                if not fma:
+                    if packed:
+                        _, stats = av._packed_fwd(qkv, nr)
+                        sq, sk = av._split_packed(qkv)[:2]
+                    else:
+                        _, stats = av._fwd(*views, nr)
+                        sq, sk = views[:2]
+                    line += "; " + check_stats(
+                        tag, stats, av.row_stats_reference(sq, sk, n_real))
+                if n_real is not None:
+                    dk_dv = (got[1][:, n_real:].reshape(b, n - n_real, h, 3,
+                                                        dh)[:, :, :, 1:]
+                             if packed else torch.stack(got[2:])[:, :, :,
+                                                                 n_real:])
+                    if not torch.all(dk_dv == 0):
+                        raise AssertionError(f"{tag}: masked keys got dk or "
+                                             f"dv")
+                    line += "; masked keys' dk, dv exactly 0"
                 log(line)
+                if shape == served:
+                    if packed:
+                        t_f = time_ms(lambda: av._packed_fwd(qkv, n))
+                        _, st = av._packed_fwd(qkv, n)
+                        t_b = time_ms(lambda: av._packed_bwd(qkv, do, n, st))
+                    else:
+                        t_f = time_ms(lambda: av._fwd(*views, n))
+                        _, st = av._fwd(*views, n)
+                        t_b = time_ms(lambda: av._bwd(*views, dout, n, st))
+                    t_routes[route] = (time_ms(kernel), t_f, t_b, errs,
+                                       kernel, plain)
+            if shape != served:
                 continue
-            t_k, t_p = time_turns(kernel, plain)
             # SDPA on the [B, H, N, dh] views, forward + backward
-            sv = ([t.detach().requires_grad_(True) for t in
-                   (qkv.reshape(b, n, h, 3, dh)[:, :, :, i].transpose(1, 2)
-                    for i in range(3))] if packed else inputs)
+            sv = [t.detach().requires_grad_(True) for t in
+                  (qkv0.reshape(b, n, h, 3, dh)[:, :, :, i].transpose(1, 2)
+                   if packed else
+                   qkv0.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
+                   for i in range(3))]
             sdo = do.reshape(b, n, h, dh).transpose(1, 2)
 
             def sdpa():
                 o = F.scaled_dot_product_attention(*sv)
                 return torch.autograd.grad(o, sv, sdo)
 
+            first = routes[0][0]
+            t_k, t_p = time_turns(t_routes[first][4], t_routes[first][5])
             t_lib = time_ms(sdpa)
-            if packed:
-                t_f = time_ms(lambda: av._packed_fwd(qkv, n))
-                t_b = time_ms(lambda: av._packed_bwd(qkv, do, n))
-            else:
-                t_f = time_ms(lambda: av._fwd(*views, n))
-                t_b = time_ms(lambda: av._bwd(*views, dout, n))
-            nbytes, flops = train_attn_cost(b, h, n, dh, qkv.element_size())
+            nbytes, flops = train_attn_cost(b, h, n, dh, qkv0.element_size())
             bms, by = bound(nbytes, flops, dt)
-            line += (f"; kernel fwd+bwd {t_k:.4f} ms (fwd {t_f:.4f}, bwd "
-                     f"{t_b:.4f}), plain {t_p:.4f} ms; bound {bms:.5f} ms "
-                     f"({by}); scaled_dot_product_attention fwd+bwd "
-                     f"{t_lib:.4f} ms")
-            if (shape, dt) == (served, "bfloat16"):
-                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
-                       "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
-            log(line)
+            log(f"  {name} {shape} {dt}: " + ", ".join(
+                f"{r} fwd+bwd {t:.4f} ms (fwd {tf:.4f}, bwd {tb:.4f})"
+                for r, (t, tf, tb, _, _, _) in t_routes.items())
+                + f"; in turns kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
+                f"{bms:.5f} ms ({by}); scaled_dot_product_attention fwd+bwd "
+                f"{t_lib:.4f} ms")
+            out["mma" if mma else "fma"] = {
+                "max_abs_err": max(t_routes[first][3]), "ms": t_k,
+                "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+                "library_ms": t_lib}
     return out
 
 
-def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag):
+def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag,
+                       expect=None):
     """One train step of ``parallel.train.setup``'s under torch.profiler
-    after two warm-up steps (``report_profile``)."""
+    after two warm-up steps (``report_profile``, ``expect`` as there)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1813,7 +1988,7 @@ def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag):
         float(loss)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(prof, wall_ms, f"{tag} profile of one step")
+    report_profile(prof, wall_ms, f"{tag} profile of one step", expect)
 
 
 def run_train(tag, argv, counters, expect) -> dict:
@@ -1832,8 +2007,7 @@ def run_train(tag, argv, counters, expect) -> dict:
         fn.launches = 0
     res = train_tool.main(argv)
     torch.cuda.synchronize()
-    counts = {k: ((fn.fn.fwd_launches, fn.fn.bwd_launches)
-                  if isinstance(fn, FwdBwdCount) else fn.launches)
+    counts = {k: (fn.pair if isinstance(fn, FwdBwdCount) else fn.launches)
               for k, fn in counters.items()}
     want = {k: expect.get(k, (0, 0) if isinstance(fn, FwdBwdCount) else 0)
             for k, fn in counters.items()}
@@ -1849,9 +2023,16 @@ def run_train(tag, argv, counters, expect) -> dict:
     return res
 
 
+# A train step's attention kernels by name in the profile: 12 launches
+# each of the tensor-core forward, dq and dk/dv kernels, no FMA attention
+TRAIN_MMA_PROFILE = {"train_fwd_mma_kernel": 12, "train_dq_mma_kernel": 12,
+                     "train_dkdv_mma_kernel": 12, "tiled_attention_kernel": 0,
+                     "attn_bwd_dq_kernel": 0, "attn_bwd_dkdv_kernel": 0}
+
+
 def phase_train(device, counters) -> dict:
-    """Phase 5: the trainer's runs (a)-(d); returns the launches of the
-    two trainable attentions (forward + backward) in their main-path runs."""
+    """Phase 5: the trainer's runs (a)-(e); returns the launches (forward +
+    backward) of each trainable-attention route in its main-path run."""
     import torch
 
     from interactive_vit_tpu_torch.models import vit
@@ -1868,24 +2049,25 @@ def phase_train(device, counters) -> dict:
                           "--attn", "auto", "--batch", str(batch),
                           "--steps", str(steps), "--memorize", "64",
                           "--log-every", "1"],
-        counters, {"attention_train_packed": (12 * steps, 12 * steps)})
+        counters, {"attention_train_packed_mma": (12 * steps, 12 * steps)})
     if res["remat"] is not False:
         raise AssertionError(f"--remat auto resolved to {res['remat']} for "
                              f"vit_b16 at B=64 on this card")
     losses = [loss for _, loss, _ in res["history"]]
     if not losses[-1] < losses[0]:
         raise AssertionError(f"train vit_b16: loss did not fall: {losses}")
-    launches["attention_train_packed"] = sum(res["counts"][
-        "attention_train_packed"])
+    launches["attention_train_packed_mma"] = sum(res["counts"][
+        "attention_train_packed_mma"])
     log(f"  train vit_b16 @224 mixed, B={batch}, {steps} steps: remat auto "
-        f"-> off, head-major {res['head_major']}, packed launches "
-        f"{res['counts']['attention_train_packed']} (12 + 12 a step); loss "
+        f"-> off, head-major {res['head_major']}, packed tensor-core "
+        f"launches {res['counts']['attention_train_packed_mma']} (12 + 12 a "
+        f"step), FMA 0; loss "
         + " ".join(f"{x:.4f}" for x in losses)
         + f"; {res['ms_per_step']:.2f} ms a step, "
         f"{batch * 1e3 / res['ms_per_step']:.1f} images/s (steps 3-{steps})")
     cfg = vit.VARIANTS["vit_b16"]
     profile_train_step(cfg, device, "auto", torch.bfloat16, None,
-                       "train vit_b16 mixed, kernels")
+                       "train vit_b16 mixed, kernels", TRAIN_MMA_PROFILE)
     profile_train_step(cfg, device, "reference", torch.bfloat16, None,
                        "train vit_b16 mixed, plain attention")
 
@@ -1895,16 +2077,18 @@ def phase_train(device, counters) -> dict:
         "train vit_t16", ["--variant", "vit_t16", "--dtype", "bfloat16",
                           "--batch", str(batch), "--steps", str(steps),
                           "--log-every", "1"],
-        counters, {"attention_train": (12 * steps, 12 * steps)})
-    launches["attention_train"] = sum(res["counts"]["attention_train"])
+        counters, {"attention_train_mma": (12 * steps, 12 * steps)})
+    launches["attention_train_mma"] = sum(res["counts"]["attention_train_mma"])
     log(f"  train vit_t16 @224 bf16, B={batch}, {steps} steps: head-major "
-        f"{res['head_major']}, launches {res['counts']['attention_train']} "
-        f"(12 + 12 a step), packed 0; loss "
+        f"{res['head_major']}, tensor-core launches "
+        f"{res['counts']['attention_train_mma']} (12 + 12 a step), FMA and "
+        f"packed 0; loss "
         + " ".join(f"{x:.4f}" for _, x, _ in res["history"])
         + f"; {res['ms_per_step']:.2f} ms a step, "
         f"{batch * 1e3 / res['ms_per_step']:.1f} images/s (steps 3-{steps})")
     profile_train_step(vit.VARIANTS["vit_t16"], device, "auto", None,
-                       torch.bfloat16, "train vit_t16 bf16, kernels")
+                       torch.bfloat16, "train vit_t16 bf16, kernels",
+                       TRAIN_MMA_PROFILE)
 
     # (c) remat on: the blocks' forwards run again in the backward
     steps = 2
@@ -1913,9 +2097,10 @@ def phase_train(device, counters) -> dict:
                                 "--batch", str(batch), "--steps",
                                 str(steps), "--remat", "on",
                                 "--log-every", "1"],
-        counters, {"attention_train_packed": (24 * steps, 12 * steps)})
-    log(f"  train vit_b16 --remat on, {steps} steps: packed launches "
-        f"{res['counts']['attention_train_packed']} (24 + 12 a step); loss "
+        counters, {"attention_train_packed_mma": (24 * steps, 12 * steps)})
+    log(f"  train vit_b16 --remat on, {steps} steps: packed tensor-core "
+        f"launches {res['counts']['attention_train_packed_mma']} (24 + 12 a "
+        f"step); loss "
         + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
 
     # (d) first-step f32 gradients: kernels against the plain attention
@@ -1943,6 +2128,7 @@ def phase_train(device, counters) -> dict:
               av.attention_train_packed.bwd_launches)
     if counts != (12, 12):
         raise AssertionError(f"gradients: packed launches {counts}")
+    launches["attention_train_packed"] = sum(counts)
     g_k = train_lib.tree_leaves(mesh.unpermute_qkv_head_major(
         train_lib.tree_unflatten(params, g_k), cfg.heads))
     loss_r, g_r = value_and_grads(params)
@@ -1961,6 +2147,18 @@ def phase_train(device, counters) -> dict:
         f"{loss_r:.6f}; every parameter's gradient within {TRAIN_GRAD_REL:g} "
         f"of its largest value, the nearest {worst[1]} at {worst[0]:.3f} of "
         f"its bound")
+
+    # (e) vit_t16 in f32: attention_train's FMA kernels
+    steps = 2
+    res = run_train(
+        "train vit_t16 f32", ["--variant", "vit_t16", "--dtype", "float32",
+                              "--batch", str(batch), "--steps", str(steps),
+                              "--log-every", "1"],
+        counters, {"attention_train": (12 * steps, 12 * steps)})
+    launches["attention_train"] = sum(res["counts"]["attention_train"])
+    log(f"  train vit_t16 @224 f32, B={batch}, {steps} steps: FMA launches "
+        f"{res['counts']['attention_train']} (12 + 12 a step), tensor-core "
+        f"0; loss " + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
     return launches
 
 
@@ -2003,10 +2201,12 @@ def main() -> int:
     fb.load_headwise_kernel()
     fa.load_kernel()
     fa.load_online_kernel()
+    fa.load_online_mma_kernel()
     fw.load_kernel()
     fm.load_kernel()
     fm.load_w8a8_kernel()
     av.load_kernel()
+    av.load_mma_kernel()
     log(f"phase 2 build: {', '.join(sources)} built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     counters = {"fused_attn_block": fb.fused_attn_block,
@@ -2020,12 +2220,19 @@ def main() -> int:
                 "fused_attn_block_tome": ToMeCount(fb.fused_attn_block),
                 "attention_train": FwdBwdCount(av.attention_train),
                 "attention_train_packed": FwdBwdCount(
-                    av.attention_train_packed)}
+                    av.attention_train_packed),
+                "flash_attention_online_mma": fa.flash_attention_online_mma,
+                "attention_train_mma": FwdBwdCount(av.attention_train, "mma_"),
+                "attention_train_packed_mma": FwdBwdCount(
+                    av.attention_train_packed, "mma_")}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
     # 3. kernels against their plain versions
     log("phase 3 kernels vs plain versions on the card:")
+    online = phase_online_kernel(device)
+    train = phase_train_kernel(device, packed=False)
+    train_packed = phase_train_kernel(device, packed=True)
     numbers = {
         "fused_attn_block": phase_block_kernel(
             device, "fused_attn_block", fb.fused_attn_block,
@@ -2052,7 +2259,7 @@ def main() -> int:
         "flash_attention": phase_flash_kernel(device),
         "fused_window_attn": phase_window_kernel(device),
         "fused_mlp_block": phase_mlp_kernel(device),
-        "flash_attention_online": phase_online_kernel(device),
+        "flash_attention_online": online["fma"],
         "fused_mlp_w8a8_block": phase_w8a8_kernel(device),
         "fused_attn_block_s8": phase_block_kernel(
             device, "fused_attn_block_s8", fb.fused_attn_block_s8,
@@ -2067,8 +2274,11 @@ def main() -> int:
                                  "int8_pv": False}},
             ("vit_b16", 1, "bfloat16", "maps_mean"), s8=True),
         "fused_attn_block_tome": phase_tome_kernel(device),
-        "attention_train": phase_train_kernel(device, packed=False),
-        "attention_train_packed": phase_train_kernel(device, packed=True),
+        "attention_train": train["fma"],
+        "attention_train_packed": train_packed["fma"],
+        "flash_attention_online_mma": online["mma"],
+        "attention_train_mma": train["mma"],
+        "attention_train_packed_mma": train_packed["mma"],
     }
 
     # 4. the paths through the server
@@ -2113,12 +2323,16 @@ def main() -> int:
              swin_tap_shape, seq=5, conc=4, check_tap=swin_check_tap,
              node_params={13: {"attn_win": "2"},
                           16: {"attn_heads": "[0,11,23]"}}),
-        # a 53 x 53 grid: N=2814, the online kernel in all 12 blocks; the
-        # block outputs o of blocks 0, 6, 11 and the CLS features
+        # a 53 x 53 grid: N=2814, the online kernel in all 12 blocks (bf16 on
+        # the tensor cores, the f32 request on FMA); the block outputs o of
+        # blocks 0, 6, 11 and the CLS features
         vit_path("dinov2_s14_reg@742", 742, {2: ("o",), 8: ("o",),
                                              13: ("o",)},
-                 {"flash_attention_online": 12}, {"attn_impl": online_plain},
-                 seq=2, conc=0),
+                 {"flash_attention_online_mma": 12},
+                 {"attn_impl": online_plain}, seq=2, conc=0,
+                 f32_kernels={"flash_attention_online": 12},
+                 profile_kernels={"online_mma_kernel": 12,
+                                  "online_attention_kernel": 0}),
         # the repository's saved graph for an @ geometry (N=257)
         vit_path("vit_t16@256", 256, {2: ("attn", "r"), 8: ("attn", "r"),
                                       13: ("r",)}, {"fused_attn_block": 12},
@@ -2149,7 +2363,8 @@ def main() -> int:
         shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
         for path in paths:
             res = run_path(path, device, graphs_dir, counters)
-            for k in path.kernels:  # a kernel's first path gives its count
+            # a kernel's first path gives its count
+            for k in {**path.kernels, **path.f32_kernels}:
                 numbers[k].setdefault("launches", res["launches"][k])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

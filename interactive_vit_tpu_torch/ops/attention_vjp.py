@@ -12,15 +12,28 @@ layouts, one kernel pair for each direction:
   ``[B, N, D]`` in head order and its backward writes the gradient straight
   into a ``[B, N, 3D]`` dqkv, so no cat or transpose exists around it.
 
-For CUDA tensors both launch hand-written kernels: the forward is the
-row-resident kernel of ``csrc/flash_attention.cu`` (given the layout's
-element strides, no copies), the backward ``csrc/attention_bwd.cu``; a
-failed build or launch raises. For CPU tensors they run the plain
-versions beside them (``attention_train_reference``,
-``head_grads_reference`` and their packed twins), in f32 for f32 and bf16
-inputs and in f64 for f64 ones (``torch.autograd.gradcheck``). Launches are
-counted on ``attention_train.fwd_launches`` / ``.bwd_launches`` and
-``attention_train_packed.fwd_launches`` / ``.bwd_launches``.
+For CUDA tensors both launch hand-written kernels, on one of two routes
+chosen by dtype and shape (``flash_attention.mma_route``), never by a
+failure: a failed build or launch raises.
+
+* bf16, heads ``MMA_DH`` (64) wide, 16-byte aligned operands: the tensor-
+  core kernels of ``csrc/attention_train_mma.cu`` (a forward, and a
+  backward pair: dq, then dk / dv). The forward also returns each row's
+  softmax statistics (m, l) in f32, which the autograd Function saves
+  beside q, k, v for the backward (an internal residual: the JAX kernels
+  save q, k, v only; outputs and gradients do not change). Counted on
+  ``.mma_fwd_launches`` / ``.mma_bwd_launches``.
+* everything else (f32; bf16 of other widths or alignments): the f32 FMA
+  kernels, the forward the row-resident kernel of
+  ``csrc/flash_attention.cu`` (given the layout's element strides, no
+  copies), the backward ``csrc/attention_bwd.cu``. Counted on
+  ``.fwd_launches`` / ``.bwd_launches``.
+
+Both counters live on ``attention_train`` and ``attention_train_packed``.
+For CPU tensors they run the plain versions beside them
+(``attention_train_reference``, ``head_grads_reference`` and their packed
+twins; ``row_stats_reference`` for (m, l)), in f32 for f32 and bf16 inputs
+and in f64 for f64 ones (``torch.autograd.gradcheck``).
 
 Numerics (the JAX kernels'): the forward is the row-resident kernel's (f32
 scores times dh^-0.5, keys at or beyond ``n_real`` at ``MASK_VALUE``, the
@@ -51,6 +64,8 @@ TRAIN_MAX_N = 1024
 PACKED_DH = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The head width of the tensor-core route.
+MMA_DH = fa.MMA_DH
 # The widest head csrc/attention_bwd.cu takes (its entry refuses wider).
 BWD_MAX_DH = 128
 
@@ -80,6 +95,21 @@ def _probs(q, k, n_real):
         s = torch.where(col < n_real, s, torch.full_like(s, MASK_VALUE))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     return p / p.sum(dim=-1, keepdim=True)
+
+
+def row_stats_reference(q, k, n_real: Optional[int] = None):
+    """Plain version of the tensor-core forward's per-row statistics: the
+    masked scores' row max m and l = rowsum(exp(s - m)), f32 [B, H, N]
+    each (so that probs = exp(s - m) / l)."""
+    n, dh = q.shape[-2], q.shape[-1]
+    nr = n if n_real is None else min(int(n_real), n)
+    acc = _acc_dtype(q.dtype)
+    s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * (dh ** -0.5)
+    if nr < n:
+        col = torch.arange(n, device=q.device)
+        s = torch.where(col < nr, s, torch.full_like(s, MASK_VALUE))
+    m = s.amax(dim=-1)
+    return m, torch.exp(s - m[..., None]).sum(dim=-1)
 
 
 def attention_train_reference(q, k, v, n_real: Optional[int] = None):
@@ -160,6 +190,41 @@ def load_kernel() -> ctypes.CDLL:
     return _bwd_lib()
 
 
+# ivt_attention_train_fwd_mma's parameters: q, k, v, o, stats, strides; B,
+# H, N, dh, n_real; scale, mask_value; the stream
+TRAIN_MMA_FWD_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                          + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+# ivt_attention_train_bwd_mma's: q, k, v, do, dq, dk, dv, stats, delta,
+# strides; then as the forward
+TRAIN_MMA_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                          + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def _mma_lib() -> ctypes.CDLL:
+    """Build (first use) and load the tensor-core kernels' library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("attention_train_mma")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_attention_train_fwd_mma.argtypes = TRAIN_MMA_FWD_ARGTYPES
+        lib.ivt_attention_train_fwd_mma.restype = ctypes.c_int
+        lib.ivt_attention_train_bwd_mma.argtypes = TRAIN_MMA_BWD_ARGTYPES
+        lib.ivt_attention_train_bwd_mma.restype = ctypes.c_int
+        lib.ivt_train_mma_dh.argtypes = []
+        lib.ivt_train_mma_dh.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_mma_kernel() -> ctypes.CDLL:
+    """Build and load the tensor-core kernels now; checks their head width
+    against ``MMA_DH``."""
+    lib = _mma_lib()
+    if lib.ivt_train_mma_dh() != MMA_DH:
+        raise RuntimeError("csrc/attention_train_mma.cu and MMA_DH disagree")
+    return lib
+
+
 def _check_cuda(name, tensors, n, dh):
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
@@ -224,34 +289,89 @@ def _launch_bwd(ptrs, strides, dtype, device, b, h, n, dh, n_real) -> None:
                            f"cudaError {err}")
 
 
+def _mma_ok(dtype, dh, ptrs, strides) -> bool:
+    """``flash_attention.mma_route`` on element pointers and (image, head,
+    token) stride triples."""
+    return fa.mma_route(dtype, dh, ptrs, [s for st in strides for s in st])
+
+
+def _launch_fwd_mma(ptrs, strides, device, b, h, n, n_real):
+    """One launch of the tensor-core forward. ``ptrs``: q, k, v, o;
+    ``strides``: their stride triples. Returns the rows' (m, l), f32
+    [2, B, H, N]."""
+    lib = _mma_lib()
+    flat = (ctypes.c_longlong * 12)(*[s for st in strides for s in st])
+    with torch.cuda.device(device):
+        stats = torch.empty((2, b, h, n), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.ivt_attention_train_fwd_mma(
+            *ptrs, stats.data_ptr(), ctypes.addressof(flat), b, h, n, MMA_DH,
+            n_real, float(MMA_DH) ** -0.5, MASK_VALUE, stream)
+    if err != 0:
+        raise RuntimeError(f"tensor-core attention forward launch failed: "
+                           f"cudaError {err}")
+    return stats
+
+
+def _launch_bwd_mma(ptrs, strides, stats, device, b, h, n, n_real) -> None:
+    """One launch of the tensor-core backward pair. ``ptrs``: q, k, v, do,
+    dq, dk, dv; ``strides``: their stride triples; ``stats``: the
+    forward's (m, l)."""
+    lib = _mma_lib()
+    flat = (ctypes.c_longlong * 21)(*[s for st in strides for s in st])
+    with torch.cuda.device(device):
+        # delta per (image, head, query row), from the dq kernel to dk / dv
+        delta = torch.empty((b, h, n), dtype=torch.float32, device=device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.ivt_attention_train_bwd_mma(
+            *ptrs, stats.data_ptr(), delta.data_ptr(), ctypes.addressof(flat),
+            b, h, n, MMA_DH, n_real, float(MMA_DH) ** -0.5, MASK_VALUE,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"tensor-core attention backward launch failed: "
+                           f"cudaError {err}")
+
+
 def _fwd(q, k, v, n_real):
+    """-> (o, the rows' (m, l) on the tensor-core route, else None)."""
     if q.device.type == "cpu":
-        return attention_train_reference(q, k, v, n_real)
+        return attention_train_reference(q, k, v, n_real), None
     b, h, n, dh = q.shape
     _check_cuda("attention_train", (q, k, v), n, dh)
     # token-major, so the caller's transpose back to [B, N, D] is a view
     o = torch.empty((b, n, h, dh), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
-    _launch_fwd(q, k, v, o, (0, 0, 0),
-                [_strides(t, None) for t in (q, k, v, o)], b, h, n, dh,
-                n_real)
+    strides = [_strides(t, None) for t in (q, k, v, o)]
+    ptrs = [_ptr(t) for t in (q, k, v, o)]
+    if _mma_ok(q.dtype, dh, ptrs, strides):
+        stats = _launch_fwd_mma(ptrs, strides, q.device, b, h, n, n_real)
+        attention_train.mma_fwd_launches += 1
+        return o, stats
+    _launch_fwd(q, k, v, o, (0, 0, 0), strides, b, h, n, dh, n_real)
     attention_train.fwd_launches += 1
-    return o
+    return o, None
 
 
-def _bwd(q, k, v, do, n_real):
+def _bwd(q, k, v, do, n_real, stats=None):
+    """dq, dk, dv; ``stats``: the forward's (m, l) where it took the
+    tensor-core route (the backward takes it too), else None."""
     if q.device.type == "cpu":
         return head_grads_reference(q, k, v, do, n_real)
     b, h, n, dh = q.shape
-    if do.stride(-1) != 1:
+    if do.stride(-1) != 1 or (stats is not None and not _mma_ok(
+            do.dtype, dh, [_ptr(do)], [_strides(do, None)])):
         do = do.contiguous()
     _check_cuda("attention_train", (q, k, v, do), n, dh)
     dq, dk, dv = (torch.empty((b, n, h, dh), dtype=q.dtype,
                               device=q.device).transpose(1, 2)
                   for _ in range(3))
     ts = (q, k, v, do, dq, dk, dv)
-    _launch_bwd([_ptr(t) for t in ts], [_strides(t, None) for t in ts],
-                q.dtype, q.device, b, h, n, dh, n_real)
+    ptrs, strides = [_ptr(t) for t in ts], [_strides(t, None) for t in ts]
+    if stats is not None:
+        _launch_bwd_mma(ptrs, strides, stats, q.device, b, h, n, n_real)
+        attention_train.mma_bwd_launches += 1
+        return dq, dk, dv
+    _launch_bwd(ptrs, strides, q.dtype, q.device, b, h, n, dh, n_real)
     attention_train.bwd_launches += 1
     return dq, dk, dv
 
@@ -262,14 +382,16 @@ class _AttentionTrain(torch.autograd.Function):
         n = q.shape[-2]
         nr = n if n_real is None else min(int(n_real), n)
         ctx.n_real = nr
-        # residuals: q, k, v only, as in JAX; the backward recomputes P
-        ctx.save_for_backward(q, k, v)
-        return _fwd(q, k, v, nr)
+        # residuals: q, k, v, as in JAX, and on the tensor-core route the
+        # rows' (m, l); the backward recomputes P
+        o, stats = _fwd(q, k, v, nr)
+        ctx.save_for_backward(q, k, v, stats)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, do, ctx.n_real)
+        q, k, v, stats = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, do, ctx.n_real, stats)
         return dq, dk, dv, None
 
 
@@ -283,11 +405,15 @@ def attention_train(q, k, v, n_real: Optional[int] = None) -> torch.Tensor:
 
 attention_train.fwd_launches = 0
 attention_train.bwd_launches = 0
+attention_train.mma_fwd_launches = 0
+attention_train.mma_bwd_launches = 0
 
 
 def _packed_fwd(qkv, n_real):
+    """-> (o [B, N, D], the rows' (m, l) on the tensor-core route, else
+    None)."""
     if qkv.device.type == "cpu":
-        return attention_train_packed_reference(qkv, n_real)
+        return attention_train_packed_reference(qkv, n_real), None
     b, n, d3 = qkv.shape
     d, dh = d3 // 3, PACKED_DH
     h = d // dh
@@ -297,19 +423,27 @@ def _packed_fwd(qkv, n_real):
     o = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     # q, k and v of head h start at columns 3*dh*h, +dh, +2dh
     s_in = _strides(qkv, 3 * dh)
-    _launch_fwd(qkv, qkv, qkv, o, (0, dh, 2 * dh),
-                [s_in, s_in, s_in, _strides(o, dh)], b, h, n, dh, n_real)
+    strides = [s_in, s_in, s_in, _strides(o, dh)]
+    ptrs = [_ptr(qkv), _ptr(qkv, dh), _ptr(qkv, 2 * dh), _ptr(o)]
+    if _mma_ok(qkv.dtype, dh, ptrs, strides):
+        stats = _launch_fwd_mma(ptrs, strides, qkv.device, b, h, n, n_real)
+        attention_train_packed.mma_fwd_launches += 1
+        return o, stats
+    _launch_fwd(qkv, qkv, qkv, o, (0, dh, 2 * dh), strides, b, h, n, dh,
+                n_real)
     attention_train_packed.fwd_launches += 1
-    return o
+    return o, None
 
 
-def _packed_bwd(qkv, do, n_real):
+def _packed_bwd(qkv, do, n_real, stats=None):
+    """dqkv [B, N, 3D]; ``stats`` as ``_bwd``'s."""
     if qkv.device.type == "cpu":
         return packed_head_grads_reference(qkv, do, n_real)
     b, n, d3 = qkv.shape
     dh = PACKED_DH
     h = d3 // (3 * dh)
-    if do.stride(-1) != 1:
+    if do.stride(-1) != 1 or (stats is not None and not _mma_ok(
+            do.dtype, dh, [_ptr(do)], [_strides(do, dh)])):
         do = do.contiguous()
     _check_cuda("attention_train_packed", (qkv, do), n, dh)
     dqkv = torch.empty_like(qkv, memory_format=torch.contiguous_format)
@@ -317,8 +451,12 @@ def _packed_bwd(qkv, do, n_real):
                          _strides(dqkv, 3 * dh))
     ptrs = [_ptr(qkv), _ptr(qkv, dh), _ptr(qkv, 2 * dh), _ptr(do),
             _ptr(dqkv), _ptr(dqkv, dh), _ptr(dqkv, 2 * dh)]
-    _launch_bwd(ptrs, [s_in, s_in, s_in, s_do, s_out, s_out, s_out],
-                qkv.dtype, qkv.device, b, h, n, dh, n_real)
+    strides = [s_in, s_in, s_in, s_do, s_out, s_out, s_out]
+    if stats is not None:
+        _launch_bwd_mma(ptrs, strides, stats, qkv.device, b, h, n, n_real)
+        attention_train_packed.mma_bwd_launches += 1
+        return dqkv
+    _launch_bwd(ptrs, strides, qkv.dtype, qkv.device, b, h, n, dh, n_real)
     attention_train_packed.bwd_launches += 1
     return dqkv
 
@@ -328,13 +466,14 @@ class _AttentionTrainPacked(torch.autograd.Function):
     def forward(ctx, qkv, n_real):
         n = qkv.shape[1]
         ctx.n_real = n if n_real is None else min(int(n_real), n)
-        ctx.save_for_backward(qkv)
-        return _packed_fwd(qkv, ctx.n_real)
+        o, stats = _packed_fwd(qkv, ctx.n_real)
+        ctx.save_for_backward(qkv, stats)
+        return o
 
     @staticmethod
     def backward(ctx, do):
-        (qkv,) = ctx.saved_tensors
-        return _packed_bwd(qkv, do, ctx.n_real), None
+        qkv, stats = ctx.saved_tensors
+        return _packed_bwd(qkv, do, ctx.n_real, stats), None
 
 
 def attention_train_packed(qkv, n_real: Optional[int] = None
@@ -347,6 +486,8 @@ def attention_train_packed(qkv, n_real: Optional[int] = None
 
 attention_train_packed.fwd_launches = 0
 attention_train_packed.bwd_launches = 0
+attention_train_packed.mma_fwd_launches = 0
+attention_train_packed.mma_bwd_launches = 0
 
 
 def trainable_flash_mhsa(q, k, v, want_attn: bool = False,

@@ -17,7 +17,12 @@ above it go to the online-softmax kernel, which has the same three pieces:
 ``flash_attention_online`` (kernel ``csrc/flash_attention_online.cu``,
 count ``flash_attention_online.launches``),
 ``flash_attention_online_reference`` and ``fits_online``; everything else
-is the row-resident kernel (``fits``).
+is the row-resident kernel (``fits``). bf16 heads of ``MMA_DH`` (64)
+columns with 16-byte aligned operands (``mma_route``) take the online
+branch on Hopper's tensor cores instead: ``flash_attention_online_mma``
+(kernel ``csrc/flash_attention_online_mma.cu``, count
+``flash_attention_online_mma.launches``), the same contract and plain
+version; f32 and other bf16 operands keep the f32 FMA kernel.
 
 Numerics (the JAX row-resident kernel's): f32 scores times dh^-0.5, keys
 at or beyond ``n_real`` set to ``MASK_VALUE``, the row max subtracted,
@@ -50,6 +55,31 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # of 128 (the JAX kernel's block_k), heads up to 128 wide.
 ONLINE_QT = 32
 ONLINE_BLOCK_K = 128
+
+
+# The head width of the tensor-core kernels (csrc/mma_attention.cuh) and
+# the alignment their 16-byte copies need, in bytes.
+MMA_DH = 64
+MMA_ALIGN = 16
+
+
+def mma_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
+    """True when operands take the bf16 tensor-core kernels: bf16, heads
+    ``MMA_DH`` wide, every base address (bytes) and every (image, head,
+    token) element stride a multiple of 16 bytes. f32 never does (TF32
+    would not keep the f32 contract)."""
+    esize = 2  # bf16
+    return (dtype == torch.bfloat16 and dh == MMA_DH
+            and all(int(a) % MMA_ALIGN == 0 for a in addrs)
+            and all((int(s) * esize) % MMA_ALIGN == 0 for s in strides))
+
+
+def _mma_operands(*tensors) -> bool:
+    """``mma_route`` for [B, H, N, dh] views (head dim contiguous)."""
+    return (all(t.stride(-1) == 1 for t in tensors)
+            and mma_route(tensors[0].dtype, tensors[0].shape[-1],
+                          [t.data_ptr() for t in tensors],
+                          [s for t in tensors for s in t.stride()[:3]]))
 
 
 def fits(n: int, dh: int) -> bool:
@@ -260,9 +290,11 @@ def flash_attention_online(
     n_real: Optional[int] = None,
 ) -> torch.Tensor:
     """Online-softmax attention on [B, H, N, dh], no maps: o [B, H, N, dh].
-    For CUDA tensors one launch of ``csrc/flash_attention_online.cu``,
-    counted in ``flash_attention_online.launches``; for CPU tensors the
-    plain version at the kernel's key tile."""
+    For CUDA tensors one launch: bf16 operands that ``mma_route`` takes go
+    to the tensor-core kernel (``flash_attention_online_mma``, which counts
+    them), the rest to ``csrc/flash_attention_online.cu``, counted in
+    ``flash_attention_online.launches``; for CPU tensors the plain version
+    at the kernel's key tile."""
     b, h, n, dh = q.shape
     n_real = n if n_real is None else min(int(n_real), n)
     if q.device.type == "cpu":
@@ -271,6 +303,8 @@ def flash_attention_online(
         raise ValueError(f"flash_attention_online runs on cuda or cpu "
                          f"tensors, got {q.device}")
     _check_operands(q, k, v, fits_online)
+    if _mma_operands(q, k, v):
+        return flash_attention_online_mma(q, k, v, n_real)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     lib = _online_lib()
     with torch.cuda.device(q.device):
@@ -291,3 +325,79 @@ def flash_attention_online(
 
 
 flash_attention_online.launches = 0
+
+
+# -- the online kernel on the tensor cores (bf16) -------------------------------
+
+
+# ivt_flash_attention_online_mma's parameters: q, k, v, o; 12 strides; B,
+# H, N, dh, n_real; scale, mask_value; the stream
+ONLINE_MMA_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+
+
+def _online_mma_lib() -> ctypes.CDLL:
+    """Build (first use) and load the tensor-core online kernel library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("flash_attention_online_mma")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_flash_attention_online_mma.argtypes = ONLINE_MMA_ARGTYPES
+        lib.ivt_flash_attention_online_mma.restype = ctypes.c_int
+        for name in ("ivt_online_mma_block_k", "ivt_online_mma_dh"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_online_mma_kernel() -> ctypes.CDLL:
+    """Build and load the tensor-core online kernel now; checks its key
+    tile and head width against ``ONLINE_BLOCK_K`` and ``MMA_DH``."""
+    lib = _online_mma_lib()
+    if (lib.ivt_online_mma_block_k(), lib.ivt_online_mma_dh()) != (
+            ONLINE_BLOCK_K, MMA_DH):
+        raise RuntimeError("csrc/flash_attention_online_mma.cu and "
+                           "ONLINE_BLOCK_K / MMA_DH disagree")
+    return lib
+
+
+def flash_attention_online_mma(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_real: Optional[int] = None,
+) -> torch.Tensor:
+    """``flash_attention_online``'s contract on the bf16 tensor-core kernel
+    ``csrc/flash_attention_online_mma.cu``: one launch for CUDA tensors,
+    counted in ``flash_attention_online_mma.launches``; raises on operands
+    that ``mma_route`` refuses. For CPU tensors the plain version."""
+    b, h, n, dh = q.shape
+    n_real = n if n_real is None else min(int(n_real), n)
+    if q.device.type == "cpu":
+        return flash_attention_online_reference(q, k, v, n_real)
+    _check_operands(q, k, v, fits_online)
+    if not _mma_operands(q, k, v):
+        raise ValueError(
+            f"flash_attention_online_mma takes bf16 heads {MMA_DH} wide with "
+            f"16-byte aligned pointers and strides, got {q.dtype}, dh={dh}, "
+            f"strides {[t.stride() for t in (q, k, v)]}")
+    lib = _online_mma_lib()
+    with torch.cuda.device(q.device):
+        o = torch.empty((b, n, h, dh), dtype=q.dtype,
+                        device=q.device).transpose(1, 2)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ivt_flash_attention_online_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], b, h, n, dh, n_real, float(dh) ** -0.5,
+            MASK_VALUE, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_online_mma kernel launch "
+                           f"failed: cudaError {err}")
+    flash_attention_online_mma.launches += 1
+    return o
+
+
+flash_attention_online_mma.launches = 0

@@ -5,8 +5,8 @@ header under ``csrc/`` and with the flags, or an edited header would load
 a stale library. Without ``nvcc`` a build raises; nothing falls back.
 
 The ``cuda``-marked cases build the fused-block, window-attention, MLP,
-W8A8 MLP, online flash and attention-backward kernels from ``csrc/`` and
-skip without a card. The fused block's C entry is also read from its
+W8A8 MLP, online flash and attention-backward kernels and the two
+tensor-core sources from ``csrc/`` and skip without a card. The fused block's C entry is also read from its
 source here, so that its ctypes signature cannot drift from it.
 """
 
@@ -95,6 +95,9 @@ def test_fused_block_entry_matches_its_ctypes_signature():
     ("flash_attention_online", "flash_attention",
      "ivt_flash_attention_online"),
     ("attention_bwd", "attention_vjp", "ivt_attention_bwd"),
+    ("flash_attention_online_mma", "flash_attention",
+     "ivt_flash_attention_online_mma"),
+    ("attention_train_mma", "attention_vjp", "ivt_attention_train_bwd_mma"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its
@@ -109,7 +112,9 @@ def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     assert so == cuda_build.library_path(name) and os.path.exists(so)
     mod = importlib.import_module("interactive_vit_tpu_torch.ops." + module)
     loader = {"fused_mlp_w8a8_block": "load_w8a8_kernel",
-              "flash_attention_online": "load_online_kernel"}.get(
+              "flash_attention_online": "load_online_kernel",
+              "flash_attention_online_mma": "load_online_mma_kernel",
+              "attention_train_mma": "load_mma_kernel"}.get(
                   name, "load_kernel")
     lib = getattr(mod, loader)()  # raises if the envelopes disagree
     assert hasattr(lib, entry)

@@ -47,6 +47,11 @@ plain version's only by the order of the f32 sums of the QKV product; in
 bf16 a key element that rounds to its neighbour (one ulp, 2^-8 of the
 element) moves the head-mean by at most that over the head count.
 
+The bf16 tensor-core kernels (``flash_attention_online_mma`` and the
+tensor-core route of both trainable attentions) take the same bounds as
+the FMA kernels they stand beside: they round at the same points, and only
+the order of the f32 sums inside the tensor cores differs.
+
 The trainable attention (``attention_vjp``): o, dq, dk and dv. f32: the
 kernel and the plain version differ in the order of f32 sums (scores over
 dh, delta over N keys, dq over N keys, dk and dv over N queries), ~1e-6 of
@@ -60,6 +65,8 @@ scale. So each element is bound by 2^-6 of its plain value (two ulps) plus
 """
 
 import functools
+import glob
+import os
 
 import pytest
 import torch
@@ -69,6 +76,7 @@ from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.ops import fused_block as fb
 from interactive_vit_tpu_torch.ops import fused_mlp as fm
 from interactive_vit_tpu_torch.ops import fused_window as fw
+from interactive_vit_tpu_torch.runtime import cuda_build
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +91,10 @@ def cuda():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # every source at once, one nvcc each (a no-op once built)
+    cuda_build.build_all(sorted(
+        os.path.basename(p)[:-3]
+        for p in glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu"))))
     fb.load_kernel()
     fb.load_headwise_kernel()
     fa.load_kernel()
@@ -91,6 +103,8 @@ def cuda():
     fa.load_online_kernel()
     fm.load_w8a8_kernel()
     av.load_kernel()
+    fa.load_online_mma_kernel()
+    av.load_mma_kernel()
     return torch.device("cuda")
 
 
@@ -308,24 +322,32 @@ def test_flash_kernel_reads_strided_views(cuda):
     _check(got, ref, torch.bfloat16)
 
 
+def _online_counts():
+    return (fa.flash_attention.launches, fa.flash_attention_online.launches,
+            fa.flash_attention_online_mma.launches)
+
+
 def test_flash_wrapper_branches_above_rowfull_max(cuda):
     q, k, v = _qkv((1, 1, fa.ROWFULL_MAX_N + 8, 64), torch.bfloat16, cuda)
-    before = (fa.flash_attention.launches, fa.flash_attention_online.launches)
+    before = _online_counts()
     o, probs = fa.flash_attention(q, k, v, want_attn=True)
-    assert (fa.flash_attention.launches,
-            fa.flash_attention_online.launches) == before  # the reference
+    assert _online_counts() == before  # the reference
     assert probs.dtype == torch.float32
-    o, probs = fa.flash_attention(q, k, v)  # maps off: the online kernel
+    # maps off: the online branch, bf16 at dh=64 on the tensor cores
+    o, probs = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert probs is None
-    assert (fa.flash_attention.launches,
-            fa.flash_attention_online.launches) == (before[0], before[1] + 1)
+    assert _online_counts() == (before[0], before[1], before[2] + 1)
+    o, probs = fa.flash_attention(*(t.float() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert _online_counts() == (before[0], before[1] + 1, before[2] + 1)
 
 
 # online flash: dinov2_s14_reg@742 (N=2814: 22 key tiles, the last of 126
-# keys), just above ROWFULL_MAX_N, a ragged small shape, dh=128 and dh=16
-ONLINE_SHAPES = [(1, 6, 2814, 64), (2, 2, 2049, 64), (3, 3, 17, 16),
-                 (1, 2, 300, 128)]
+# keys; B=1 and 8), just above ROWFULL_MAX_N, ragged small shapes, dh=128
+# and dh=16 (bf16 at dh=64 runs on the tensor cores, the rest on FMA)
+ONLINE_SHAPES = [(1, 6, 2814, 64), (8, 6, 2814, 64), (2, 2, 2049, 64),
+                 (3, 3, 17, 64), (3, 3, 17, 16), (1, 2, 300, 128)]
 
 
 @pytest.mark.parametrize("shape", ONLINE_SHAPES)
@@ -334,10 +356,12 @@ ONLINE_SHAPES = [(1, 6, 2814, 64), (2, 2, 2049, 64), (3, 3, 17, 16),
 def test_online_kernel_matches_plain(cuda, shape, dtype, n_real):
     q, k, v = _qkv(shape, dtype, cuda, seed=shape[2] + shape[3])
     n_real = None if n_real is None else max(1, shape[2] + n_real)
-    before = fa.flash_attention_online.launches
+    mma = dtype == torch.bfloat16 and shape[3] == fa.MMA_DH
+    before = _online_counts()
     got = fa.flash_attention_online(q, k, v, n_real)
     torch.cuda.synchronize()
-    assert fa.flash_attention_online.launches == before + 1
+    assert _online_counts() == (before[0], before[1] + (not mma),
+                                before[2] + mma)
     ref = fa.flash_attention_online_reference(q, k, v, n_real,
                                               block_k=fa.ONLINE_BLOCK_K)
     assert got.shape == q.shape and got.dtype == dtype
@@ -351,10 +375,44 @@ def test_online_kernel_reads_strided_views(cuda):
                       .manual_seed(2)).to(cuda, torch.bfloat16)
     q, k, v = (qkv.reshape(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
                for i in range(3))
+    before = _online_counts()
     got = fa.flash_attention_online(q, k, v)
     ref = fa.flash_attention_online_reference(q, k, v)
     torch.cuda.synchronize()
+    assert _online_counts() == (before[0], before[1], before[2] + 1)
     _check((got,), (ref,), torch.bfloat16)
+
+
+def test_online_fma_kernel_takes_misaligned_bf16(cuda):
+    """bf16 heads of 64 whose token stride is not a multiple of 16 bytes:
+    ``mma_route`` refuses them, so the FMA kernel runs; the tensor-core
+    wrapper called on them raises."""
+    b, n, heads, dh = 1, 2100, 2, 64
+    x = torch.randn((b, n, 3 * heads * dh + 4), generator=torch.Generator()
+                    .manual_seed(3)).to(cuda, torch.bfloat16)
+    q, k, v = (x[..., :-4].reshape(b, n, 3, heads, dh)[:, :, i]
+               .transpose(1, 2) for i in range(3))
+    before = _online_counts()
+    got = fa.flash_attention_online(q, k, v)
+    ref = fa.flash_attention_online_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert _online_counts() == (before[0], before[1] + 1, before[2])
+    _check((got,), (ref,), torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_online_mma(q, k, v)
+
+
+def test_online_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 300, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+        fa.flash_attention_online_mma(q, k, v)  # f32 stays on FMA
+    q, k, v = _qkv((1, 2, 300, 128), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+        fa.flash_attention_online_mma(q, k, v)
+    q, k, v = _qkv((1, 2, 300, 72), torch.bfloat16, cuda)
+    # a view one element in: pointers 2 bytes off the 16-byte grid
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_online_mma(*(t[..., 1:65] for t in (q, k, v)))
 
 
 # s8 block: vit_b16 (B=1 and 8), vit_t16@256 (N=257, near the s8 envelope)
@@ -589,10 +647,25 @@ def _check_grads(got, ref, dtype):
 
 
 # (B, H, N, dh, n_real): vit_b16's and vit_t16's train shapes, keys masked
-# beyond 197 of 208, a ragged small shape, dh=128, TRAIN_MAX_N
+# beyond 197 of 208, vit_l16@384's N=577, ragged small shapes, dh=128,
+# TRAIN_MAX_N, B=1 and 8 (bf16 at dh=64 runs on the tensor cores)
 TRAIN_SHAPES = [(4, 12, 197, 64, None), (4, 3, 197, 64, None),
-                (2, 2, 208, 64, 197), (3, 2, 17, 16, None),
+                (8, 3, 197, 64, None), (1, 3, 197, 64, None),
+                (2, 2, 208, 64, 197), (2, 4, 577, 64, None),
+                (3, 2, 17, 64, None), (3, 2, 17, 16, None),
                 (1, 2, 300, 128, None), (1, 1, 1024, 64, None)]
+
+
+def _train_counts(fn):
+    return (fn.fwd_launches, fn.bwd_launches, fn.mma_fwd_launches,
+            fn.mma_bwd_launches)
+
+
+def _after_one(before, mma):
+    """The counts after one forward + backward on the FMA or the
+    tensor-core route."""
+    step = (0, 0, 1, 1) if mma else (1, 1, 0, 0)
+    return tuple(x + d for x, d in zip(before, step))
 
 
 @pytest.mark.parametrize("shape", TRAIN_SHAPES)
@@ -606,13 +679,12 @@ def test_train_kernels_match_plain(cuda, shape, dtype):
     do = torch.randn((b, h, n, dh), generator=g).to(cuda, dtype)
     q, k, v = (qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
                .detach().requires_grad_(True) for i in range(3))
-    before = (av.attention_train.fwd_launches,
-              av.attention_train.bwd_launches)
+    before = _train_counts(av.attention_train)
     o = av.attention_train(q, k, v, n_real)
     o.backward(do)
     torch.cuda.synchronize()
-    assert (av.attention_train.fwd_launches,
-            av.attention_train.bwd_launches) == (before[0] + 1, before[1] + 1)
+    mma = dtype == torch.bfloat16 and dh == av.MMA_DH
+    assert _train_counts(av.attention_train) == _after_one(before, mma)
     ref_o = av.attention_train_reference(q.detach(), k.detach(), v.detach(),
                                          n_real)
     ref = av.head_grads_reference(q.detach(), k.detach(), v.detach(), do,
@@ -623,8 +695,10 @@ def test_train_kernels_match_plain(cuda, shape, dtype):
         assert torch.all(v.grad[:, :, n_real:] == 0)
 
 
-# (B, N, H, n_real): vit_b16's train shape, masked keys, a ragged one
-PACKED_SHAPES = [(4, 197, 12, None), (2, 208, 2, 197), (3, 17, 4, None)]
+# (B, N, H, n_real): vit_b16's train shape at B=4, 8 and 1, masked keys,
+# N=577, a ragged one
+PACKED_SHAPES = [(4, 197, 12, None), (8, 197, 12, None), (1, 197, 12, None),
+                 (2, 208, 2, 197), (2, 577, 4, None), (3, 17, 4, None)]
 
 
 @pytest.mark.parametrize("shape", PACKED_SHAPES)
@@ -636,14 +710,12 @@ def test_packed_train_kernels_match_plain(cuda, shape, dtype):
     qkv = torch.randn((b, n, 3 * d), generator=g).to(cuda, dtype)
     do = torch.randn((b, n, d), generator=g).to(cuda, dtype)
     qkv.requires_grad_(True)
-    before = (av.attention_train_packed.fwd_launches,
-              av.attention_train_packed.bwd_launches)
+    before = _train_counts(av.attention_train_packed)
     o = av.attention_train_packed(qkv, n_real)
     o.backward(do)
     torch.cuda.synchronize()
-    assert (av.attention_train_packed.fwd_launches,
-            av.attention_train_packed.bwd_launches) == (before[0] + 1,
-                                                        before[1] + 1)
+    assert _train_counts(av.attention_train_packed) == _after_one(
+        before, dtype == torch.bfloat16)
     ref_o = av.attention_train_packed_reference(qkv.detach(), n_real)
     ref_g = av.packed_head_grads_reference(qkv.detach(), do, n_real)
     _check_grads((o.detach(), qkv.grad), (ref_o, ref_g), dtype)
@@ -666,8 +738,7 @@ def test_train_wrapper_refuses_what_the_kernels_do_not_take(cuda):
 def test_trainable_mhsa_falls_back_by_shape(cuda):
     """Maps asked for, or N above TRAIN_MAX_N: the plain attention, no
     launch, as the JAX function chooses."""
-    before = (av.attention_train.fwd_launches,
-              av.attention_train.bwd_launches)
+    before = _train_counts(av.attention_train)
     q, k, v = _qkv((1, 2, av.TRAIN_MAX_N + 8, 64), torch.bfloat16, cuda)
     o, probs = av.trainable_flash_mhsa(q, k, v)
     assert probs is None
@@ -675,5 +746,70 @@ def test_trainable_mhsa_falls_back_by_shape(cuda):
     o, probs = av.trainable_flash_mhsa(q, k, v, want_attn=True)
     assert probs is not None
     torch.cuda.synchronize()
-    assert (av.attention_train.fwd_launches,
-            av.attention_train.bwd_launches) == before
+    assert _train_counts(av.attention_train) == before
+
+
+# the tensor-core forward's (m, l): only the order of the f32 sums differs
+# from the plain statistics (scores over dh; l over N as a running sum), so
+# m within 1e-5 of 1 + |m| and l within 1e-4 of itself; a halved l fails
+STATS_M_REL = 1e-5
+STATS_L_REL = 1e-4
+
+
+def _stats_within(got, ref):
+    m, l = got
+    m_ref, l_ref = ref
+    return bool(((m - m_ref).abs() <= STATS_M_REL * (1 + m_ref.abs())).all()
+                and ((l - l_ref).abs() <= STATS_L_REL * l_ref).all())
+
+
+@pytest.mark.parametrize("shape", [(4, 12, 197, 64, None),
+                                   (2, 2, 208, 64, 197),
+                                   (2, 4, 577, 64, None),
+                                   (3, 2, 17, 64, None)])
+def test_train_mma_forward_saves_the_row_statistics(cuda, shape):
+    b, h, n, dh, n_real = shape
+    g = torch.Generator().manual_seed(n + 1)
+    qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(cuda,
+                                                          torch.bfloat16)
+    q, k, v = (qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
+               for i in range(3))
+    o, stats = av._fwd(q, k, v, n if n_real is None else n_real)
+    torch.cuda.synchronize()
+    assert stats is not None and stats.shape == (2, b, h, n)
+    assert stats.dtype == torch.float32
+    ref = av.row_stats_reference(q, k, n_real)
+    assert _stats_within((stats[0], stats[1]), ref)
+    assert not _stats_within((stats[0], stats[1] * 0.5), ref)
+    # the packed layout gives the same rows
+    o_p, stats_p = av._packed_fwd(
+        qkv.reshape(b, n, 3, h, dh).transpose(2, 3).reshape(b, n, 3 * h * dh),
+        n if n_real is None else n_real)
+    torch.cuda.synchronize()
+    assert _stats_within((stats_p[0], stats_p[1]), ref)
+    assert torch.equal(o_p, o.transpose(1, 2).reshape(b, n, h * dh))
+
+
+def test_train_mma_routes_by_dtype_width_and_alignment(cuda):
+    """bf16 at dh=64 on aligned views: the tensor cores; f32, dh=128 and a
+    misaligned bf16 view: FMA; both routes agree with the plain version."""
+    g = torch.Generator().manual_seed(5)
+    cases = [((2, 3, 100, 64), torch.bfloat16, 0, True),
+             ((2, 3, 100, 64), torch.float32, 0, False),
+             ((2, 3, 100, 128), torch.bfloat16, 0, False),
+             ((2, 3, 100, 64), torch.bfloat16, 4, False)]
+    for (b, h, n, dh), dtype, pad, mma in cases:
+        x = torch.randn((b, n, 3 * h * dh + pad), generator=g).to(cuda, dtype)
+        q, k, v = (x[..., :3 * h * dh].reshape(b, n, 3, h, dh)[:, :, i]
+                   .transpose(1, 2).detach().requires_grad_(True)
+                   for i in range(3))
+        do = torch.randn((b, h, n, dh), generator=g).to(cuda, dtype)
+        before = _train_counts(av.attention_train)
+        o = av.attention_train(q, k, v)
+        o.backward(do)
+        torch.cuda.synchronize()
+        assert _train_counts(av.attention_train) == _after_one(before, mma)
+        ref = av.head_grads_reference(q.detach(), k.detach(), v.detach(), do)
+        _check_grads((o.detach(), q.grad, k.grad, v.grad),
+                     (av.attention_train_reference(q.detach(), k.detach(),
+                                                   v.detach()), *ref), dtype)
