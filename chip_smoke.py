@@ -7,14 +7,17 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the ten hand-written kernel sources from ``csrc/``
+2. build   -- builds the twelve hand-written kernel sources from ``csrc/``
    with nvcc, one compiler process each, all at once (the s8 and ToMe
    modes of the block are modes of ``fused_attn_block.cu``; the two
    trainable attentions share ``flash_attention.cu`` forward and
    ``attention_bwd.cu`` backward on their f32 FMA route and
-   ``attention_train_mma.cu`` on their bf16 tensor-core route; the online
-   flash attention is ``flash_attention_online.cu`` (FMA) and
-   ``flash_attention_online_mma.cu`` (tensor cores): fourteen kernels).
+   ``attention_train_mma.cu`` on their bf16 tensor-core route; the
+   row-resident flash attention is ``flash_attention.cu`` (FMA) and
+   ``flash_attention_mma.cu`` (bf16 tensor cores), the online one
+   ``flash_attention_online.cu`` (FMA), ``flash_attention_online_mma.cu``
+   (bf16 tensor cores) and ``flash_attention_online_tf32.cu`` (f32 on
+   split TF32): sixteen kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -24,10 +27,17 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      head-mean / a subset;
    * the headwise attention block at the vit_l16@384 block shape (B=1 and
      4), bf16 and f32, maps off / maps + mean / heads (0, 7, 15) + mean;
-   * the flash attention at the dinov2_s14_reg@518 shape (6 heads, N=1374,
-     dh=64) and at N=577, maps on and off, plus keys masked beyond
-     n_real=1374 of N=1408; ``scaled_dot_product_attention`` is timed
-     beside it with maps off (a yardstick; the port never calls it);
+   * the row-resident flash attention at the dinov2_s14_reg@518 shape (6
+     heads, N=1374, dh=64) and at N=577, maps on and off, plus keys masked
+     beyond n_real=1374 of N=1408 (their probs exactly 0): bf16 on the
+     tensor-core kernel and, on a copy off the 16-byte grid, on the FMA
+     kernel; f32 on the FMA kernel; ``scaled_dot_product_attention`` is
+     timed beside it with maps off in both dtypes (a yardstick; the port
+     never calls it); then the plain attention's time beside the
+     tensor-core kernel's at N = 197, 257 and 577 (the crossover of
+     ``dispatch.FLASH_MIN_SEQ``); these times are the device's alone
+     (``time_held``: the timed calls queue behind a spinning stream),
+     with the wrapper's host time a call beside them;
    * the window attention at swin_t's four stage shapes (maps 56/28/14/7,
      widths 96/192/384/768, 3/6/12/24 heads, window 7; each at B=1 and
      B=8) and one swin_b stage (14x14, 512, 16 heads), unshifted and, where
@@ -41,11 +51,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      alone;
    * the online flash attention at the dinov2_s14_reg@742 shape (6 heads,
      N=2814, dh=64; B=1 and 8, and keys masked beyond n_real=2800) on q,
-     k, v views of one qkv tensor, against its plain version at the
-     kernel's key tile (128): bf16 on the tensor-core kernel and, on a
-     copy whose rows sit off the 16-byte grid, on the FMA kernel it
-     replaces; f32 on the FMA kernel; ``scaled_dot_product_attention``
-     timed beside it;
+     k, v views of one qkv tensor, against its plain version at JAX's key
+     tile (128): bf16 on the tensor-core kernel, f32 on the split-TF32
+     kernel, and both, on a copy whose rows sit off the 16-byte grid, on
+     the FMA kernel they replace; ``scaled_dot_product_attention`` timed
+     beside it;
    * the W8A8 MLP at vit_b16 (197 x 768, B=1 and 8), bf16 and f32: its
      s32 accumulators equal to the exact products of its own int8
      activations, those activations the plain version's but in at most 1%
@@ -81,8 +91,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      (0, 7, 15) + ``r`` on block 12, ``r`` on block 23, the logits; 3 in
      sequence and 2 at once; the headwise kernel in all 24 blocks;
    * dinov2_s14_reg @518, bf16: ``attn`` + ``r`` on block 0, ``r`` on
-     blocks 6 and 11, the CLS features; 3 in sequence; the flash kernel
-     in all 12 blocks;
+     blocks 6 and 11, the CLS features; 3 in sequence; the row-resident
+     flash kernel on the tensor cores in all 12 blocks (the profile must
+     show it 12 times and the FMA kernel never), the f32 request's 12 on
+     the FMA kernel;
    * swin_t, bf16, a 240 x 300 image through the bicubic transform:
      ``attn`` on stages.0.0, stages.0.1 (shifted), stages.2.5 (window 2
      only) and stages.3.1 (heads 0, 11, 23), the logits; 5 in sequence and
@@ -90,7 +102,8 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * dinov2_s14_reg@742, bf16: the block outputs ``o`` of blocks 0, 6 and
      11 and the CLS features, 2 in sequence; the tensor-core online kernel
      in all 12 blocks (the profile must show it 12 times and the FMA
-     online kernel never), the f32 request's 12 on the FMA kernel;
+     online kernel never), the f32 request's 12 on the split-TF32
+     kernel;
    * vit_t16@256 from the repository's saved graph: ``attn`` + ``r`` on
      blocks 0 and 6, ``r`` on block 11, the logits; the fused block kernel;
    * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
@@ -124,7 +137,9 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``swin.forward`` (swin_t) at B=1 and B=8, bf16, with the block or window
    kernel and the fused MLP kernel from ``default_mlp_impl("fused")``,
    against the same forwards with the plain versions: 12 MLP launches a
-   call.
+   call; and one f32 ``vit.forward`` of vit_h14@742 (N=2810, heads 80
+   wide, depth cut to 2) through ``--attn auto``, whose attention keeps
+   the FMA online kernel (2 launches), against the plain online attention.
 5. train   -- ``tools.train.main`` in-process, launch counts zeroed
    before each run and read after it:
    (a) vit_b16 @224, ``--dtype mixed --attn auto --batch 64 --steps 10
@@ -207,6 +222,12 @@ KERNELS = {
     "attention_train_packed_mma": (
         CSRC + "attention_train_mma.cu",
         "interactive_vit_tpu/ops/attention_vjp.py:293"),
+    # row 3 in bf16 on the tensor cores; row 4 in f32 on split TF32
+    "flash_attention_mma": (CSRC + "flash_attention_mma.cu",
+                            "interactive_vit_tpu/ops/flash_attention.py:87"),
+    "flash_attention_online_tf32x3": (
+        CSRC + "flash_attention_online_tf32.cu",
+        "interactive_vit_tpu/ops/flash_attention.py:188"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -290,14 +311,16 @@ TRAIN_T16 = (64, 3, 197, 64)
 
 # The least time the card could take (H100 SXM published peaks): bytes over
 # the memory rate, operations over the peak rate for the inputs' type (bf16
-# tensor cores; f32 outside them).
+# tensor cores; f32 outside them; the split-TF32 route's TF32 products on
+# the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 
 # The new kernels' main-path shapes: dinov2_s14_reg@742's attention (heads,
 # tokens, head width) and vit_b16's MLP (tokens, width, hidden).
 ONLINE_SHAPE = (6, 2814, 64)
 W8A8_SHAPE = (197, 768, 3072)
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+              "tf32": 495e12}
 
 
 def log(msg: str) -> None:
@@ -330,6 +353,45 @@ def time_turns(kernel_fn, plain_fn):
     t_k2 = time_ms(kernel_fn)
     t_p2 = time_ms(plain_fn)
     return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2
+
+
+# Cycles the card spins before a held timing (``time_held``): ~10 ms at
+# the H100's clocks, longer than the host takes to issue the timed calls.
+HOLD_CYCLES = 20_000_000
+
+
+def time_held(fn, iters: int = 20, warmup: int = 3):
+    """``time_ms`` on the device's time alone: the stream first spins for
+    HOLD_CYCLES, so the host has issued every timed call before the card
+    starts them, and a kernel that takes less time than its wrapper's host
+    code is timed as the kernel. Returns (device ms, host ms to issue one
+    call)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(HOLD_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, host_ms
+
+
+def time_turns_held(kernel_fn, plain_fn):
+    """``time_turns`` on device time alone (``time_held``): (kernel ms,
+    plain ms, host ms to issue one kernel call)."""
+    t_p1, _ = time_held(plain_fn)
+    t_k1, h1 = time_held(kernel_fn)
+    t_k2, h2 = time_held(kernel_fn)
+    t_p2, _ = time_held(plain_fn)
+    return (t_k1 + t_k2) / 2, (t_p1 + t_p2) / 2, (h1 + h2) / 2
 
 
 def bound(nbytes: float, flops, dtype_name: str):
@@ -584,13 +646,23 @@ def phase_tome_kernel(device) -> dict:
 
 
 def phase_flash_kernel(device) -> dict:
-    """The flash kernel against its plain version; returns the served
-    configuration's numbers (dinov2_s14_reg, bf16, maps off) for the result
-    line, SDPA's time beside them."""
+    """The row-resident flash attention against its plain version at every
+    case and dtype: bf16 on the tensor-core kernel and, on a copy off the
+    16-byte grid, on the FMA kernel; f32 on the FMA kernel. Returns the
+    dinov2_s14_reg numbers (maps off) of both kernels for the result line:
+    bf16 for the tensor cores, f32 for FMA (its route on the served path),
+    SDPA's time in the same dtype beside each. Then the crossover of
+    ``dispatch.FLASH_MIN_SEQ``: the plain attention's time beside the
+    tensor-core kernel's at N = 197, 257 and 577."""
     import torch
     import torch.nn.functional as F
 
+    from interactive_vit_tpu_torch.ops import dispatch
     from interactive_vit_tpu_torch.ops import flash_attention as fa
+    from interactive_vit_tpu_torch.ops.attention import attention_reference
+
+    def counts():
+        return fa.flash_attention.launches, fa.flash_attention_mma.launches
 
     out = {}
     cases = [("dinov2_s14_reg", (1, 6, 1374, 64), None),
@@ -599,44 +671,80 @@ def phase_flash_kernel(device) -> dict:
     for cname, shape, n_real in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dt = str(dtype).replace("torch.", "")
+            mma = dtype == torch.bfloat16
             g = torch.Generator().manual_seed(shape[2])
-            q, k, v = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
-                       for _ in range(3)]
+            qkv = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
+                   for _ in range(3)]
+            routes = [("tensor cores" if mma else "FMA", qkv)]
+            if mma:
+                routes.append(("FMA, off the 16-byte grid",
+                               [misaligned(t) for t in qkv]))
+            t_lib = None
             for maps in (False, True):
                 if n_real is not None and not maps:
                     continue
                 kw = {"want_attn": maps, "n_real": n_real}
-                got = fa.flash_attention(q, k, v, **kw)
-                ref = fa.flash_attention_reference(q, k, v, **kw)
-                torch.cuda.synchronize()
-                tag = (f"flash_attention {cname} {shape} {dt} "
-                       f"maps {'on' if maps else 'off'}"
-                       + (f" n_real={n_real}" if n_real else ""))
-                errs, line = check_outputs(tag, got, ref, dtype,
-                                           ("o", "probs"))
-                check_bounds_refuse(tag, got, ref, dtype, ("o", "probs"))
-                if n_real is not None:
-                    if not torch.all(got[1][..., n_real:] == 0):
-                        raise AssertionError(f"{tag}: masked keys got probs")
-                    log(line)
-                    continue
-                t_k, t_p = time_turns(
-                    lambda: fa.flash_attention(q, k, v, **kw),
-                    lambda: fa.flash_attention_reference(q, k, v, **kw))
-                nbytes, flops = flash_cost(*shape, q.element_size(), maps)
+                ref = fa.flash_attention_reference(*qkv, **kw)
+                nbytes, flops = flash_cost(*shape, qkv[0].element_size(),
+                                           maps)
                 bms, by = bound(nbytes, flops, dt)
-                line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
-                         f"{bms:.5f} ms ({by})")
-                t_lib = None
-                if not maps:
-                    t_lib = time_ms(
-                        lambda: F.scaled_dot_product_attention(q, k, v))
-                    line += f"; scaled_dot_product_attention {t_lib:.4f} ms"
-                if (cname, dt, maps) == ("dinov2_s14_reg", "bfloat16", False):
-                    out = {"max_abs_err": max(errs), "ms": t_k,
-                           "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
-                           "library_ms": t_lib}
-                log(line)
+                for route, (q, k, v) in routes:
+                    fma = route.startswith("FMA")
+                    before = counts()
+                    got = fa.flash_attention(q, k, v, **kw)
+                    torch.cuda.synchronize()
+                    if counts() != (before[0] + fma, before[1] + (not fma)):
+                        raise AssertionError(f"flash {dt} {route}: launches "
+                                             f"{counts()} after {before}")
+                    tag = (f"flash_attention {cname} {shape} {dt} ({route}) "
+                           f"maps {'on' if maps else 'off'}"
+                           + (f" n_real={n_real}" if n_real else ""))
+                    errs, line = check_outputs(tag, got, ref, dtype,
+                                               ("o", "probs"))
+                    check_bounds_refuse(tag, got, ref, dtype, ("o", "probs"))
+                    if n_real is not None:
+                        if not torch.all(got[1][..., n_real:] == 0):
+                            raise AssertionError(f"{tag}: masked keys got "
+                                                 f"probs")
+                        log(line)
+                        continue
+                    t_k, t_p, t_host = time_turns_held(
+                        lambda: fa.flash_attention(q, k, v, **kw),
+                        lambda: fa.flash_attention_reference(q, k, v, **kw))
+                    line += (f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms "
+                             f"(device time; the wrapper's host time "
+                             f"{t_host:.4f} ms a call); bound {bms:.5f} ms "
+                             f"({by}: {nbytes / 1e6:.2f} MB, "
+                             f"{flops / 1e9:.3f} GFLOP)")
+                    if not maps and t_lib is None:
+                        t_lib, _ = time_held(
+                            lambda: F.scaled_dot_product_attention(*qkv))
+                    if not maps:
+                        line += (f"; scaled_dot_product_attention ({dt}) "
+                                 f"{t_lib:.4f} ms")
+                    if cname == "dinov2_s14_reg" and not maps and (
+                            route == routes[0][0]):
+                        out["mma" if mma else "fma"] = {
+                            "max_abs_err": max(errs), "ms": t_k,
+                            "plain_ms": t_p, "bound_ms": bms,
+                            "bound_by": by, "library_ms": t_lib}
+                    log(line)
+
+    # FLASH_MIN_SEQ: below it auto_attention runs the plain attention
+    for n in (197, 257, 577):
+        g = torch.Generator().manual_seed(n)
+        q, k, v = [(torch.randn((1, 6, n, 64), generator=g) * 2).to(
+            device, torch.bfloat16) for _ in range(3)]
+        parts = []
+        for maps in (False, True):
+            t_k, t_p, t_host = time_turns_held(
+                lambda: fa.flash_attention(q, k, v, want_attn=maps),
+                lambda: attention_reference(q, k, v, want_attn=maps))
+            parts.append(f"maps {'on' if maps else 'off'}: tensor-core "
+                         f"kernel {t_k:.4f} ms (host {t_host:.4f} ms a "
+                         f"call), plain attention {t_p:.4f} ms")
+        log(f"  FLASH_MIN_SEQ={dispatch.FLASH_MIN_SEQ} crossover, 6 heads, "
+            f"N={n}, bf16, device time: " + "; ".join(parts))
     return out
 
 
@@ -830,9 +938,10 @@ def online_plain(q, k, v, want_attn=False, n_real=None):
 
 
 def misaligned(t, pad: int = 4):
-    """A copy of ``t`` [B, N, W] whose token stride is ``pad`` elements
-    longer: bf16 rows then start 8 bytes off the 16-byte grid, so
-    ``mma_route`` sends them to the FMA kernels (the same values)."""
+    """A copy of ``t`` [..., W] whose row stride is ``pad`` elements
+    longer: bf16 rows (pad 4) or f32 rows (pad 2) then start 8 bytes off
+    the 16-byte grid, so ``mma_route`` and ``tf32_route`` send them to the
+    FMA kernels (the same values)."""
     import torch
 
     wide = torch.zeros(t.shape[:-1] + (t.shape[-1] + pad,), dtype=t.dtype,
@@ -842,12 +951,13 @@ def misaligned(t, pad: int = 4):
 
 
 def phase_online_kernel(device) -> dict:
-    """The online flash attention against its plain version at its own key
+    """The online flash attention against its plain version at JAX's key
     tile, at the dinov2_s14_reg@742 shape (6 heads, N=2814, dh=64; B=1 and
-    8, and keys masked beyond n_real=2800): bf16 on the tensor-core kernel
-    (and, on a copy off the 16-byte grid, the FMA kernel it replaces), f32
-    on the FMA kernel. Returns the B=1 numbers of both kernels (bf16 for
-    the tensor cores, f32 for FMA), SDPA's time beside each."""
+    8, and keys masked beyond n_real=2800): bf16 on the tensor-core kernel,
+    f32 on the split-TF32 kernel, and each dtype, on a copy off the 16-byte
+    grid, on the FMA kernel they replace. Returns the B=1 numbers of the
+    three kernels (bf16 for mma, f32 for tf32 and for FMA, its f32 time
+    from a copy off the grid), SDPA's time in the same dtype beside each."""
     import torch
     import torch.nn.functional as F
 
@@ -855,7 +965,8 @@ def phase_online_kernel(device) -> dict:
 
     def counts():
         return (fa.flash_attention_online.launches,
-                fa.flash_attention_online_mma.launches)
+                fa.flash_attention_online_mma.launches,
+                fa.flash_attention_online_tf32x3.launches)
 
     out = {}
     heads, n, dh = ONLINE_SHAPE
@@ -868,9 +979,9 @@ def phase_online_kernel(device) -> dict:
             # q, k, v as qkv_proj makes them: views of one [B, N, 3D]
             qkv = (torch.randn((b, n, 3 * heads * dh), generator=g) * 2).to(
                 device, dtype)
-            routes = [("tensor cores" if mma else "FMA", qkv)]
-            if mma:
-                routes.append(("FMA, off the 16-byte grid", misaligned(qkv)))
+            routes = [("tensor cores" if mma else "split TF32", qkv),
+                      ("FMA, off the 16-byte grid",
+                       misaligned(qkv, 4 if mma else 2))]
             ref = None
             t_routes = {}
             for route, x in routes:
@@ -880,7 +991,9 @@ def phase_online_kernel(device) -> dict:
                 got = fa.flash_attention_online(q, k, v, n_real)
                 torch.cuda.synchronize()
                 fma = route.startswith("FMA")
-                if counts() != (before[0] + fma, before[1] + (not fma)):
+                want = (before[0] + fma, before[1] + (mma and not fma),
+                        before[2] + (not mma and not fma))
+                if counts() != want:
                     raise AssertionError(f"online {dt} {route}: launches "
                                          f"{counts()} after {before}")
                 if ref is None:
@@ -906,19 +1019,34 @@ def phase_online_kernel(device) -> dict:
                 lambda: fa.flash_attention_online_reference(q, k, v))
             nbytes, flops = flash_cost(*shape, q.element_size(), False)
             bms, by = bound(nbytes, flops, dt)
+            # the split route's own products: three TF32 ones a product
+            tms, tby = bound(nbytes, {"tf32": 3 * flops}, dt)
             t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
             log(f"  flash_attention_online {shape} {dt}: "
                 + ", ".join(f"{r} {t:.4f} ms" for r, (t, _) in
                             t_routes.items())
                 + f"; in turns kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
                 f"bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-                f"{flops / 1e9:.3f} GFLOP); scaled_dot_product_attention "
-                f"{t_lib:.4f} ms")
+                f"{flops / 1e9:.3f} GFLOP)"
+                + ("" if mma else f", the split's {3 * flops / 1e9:.3f} "
+                   f"GFLOP of TF32 products {tms:.5f} ms ({tby})")
+                + f"; scaled_dot_product_attention {t_lib:.4f} ms")
             if b == 1:
-                out["mma" if mma else "fma"] = {
+                fma_t, fma_errs = t_routes[routes[1][0]]
+                if mma:
+                    out["mma"] = {
+                        "max_abs_err": max(t_routes[routes[0][0]][1]),
+                        "ms": t_k, "plain_ms": t_p, "bound_ms": bms,
+                        "bound_by": by, "library_ms": t_lib}
+                    continue
+                out["tf32"] = {
                     "max_abs_err": max(t_routes[routes[0][0]][1]),
-                    "ms": t_k, "plain_ms": t_p, "bound_ms": bms,
-                    "bound_by": by, "library_ms": t_lib}
+                    "ms": t_k, "plain_ms": t_p, "bound_ms": tms,
+                    "bound_by": tby, "library_ms": t_lib}
+                out["fma"] = {
+                    "max_abs_err": max(fma_errs), "ms": fma_t,
+                    "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+                    "library_ms": t_lib}
     return out
 
 
@@ -1583,15 +1711,21 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     return {"launches": counts, "p50_ms": p50}
 
 
-def run_forwards(device, counters) -> int:
+def run_forwards(device, counters) -> dict:
     """The monolithic forwards with the fused MLP kernel: ``vit.forward``
     at vit_b16 width (block kernel + MLP kernel) and ``swin.forward`` at
     swin_t width (window kernel + one MLP kernel per stage), bf16, B=1 and
     B=8, seeded random weights, against the same forwards with the
-    kernels' plain versions. Every launch count is set to 0 before the
-    checked forwards and the MLP kernel's count (12 a call) is read and
-    returned straight after them; the forwards timed afterwards do not
-    enter it."""
+    kernels' plain versions. Then one f32 ``vit.forward`` of vit_h14@742
+    (N=2810, heads 80 wide, depth cut to 2) with ``--attn auto``: heads
+    that are not 64 wide keep the f32 FMA online kernel, one launch a
+    block, against the plain online attention at 1e-4 of the logits'
+    scale. Every launch count is set to 0 before the checked forwards and
+    the MLP kernel's count (12 a call) and the FMA online kernel's are
+    read and returned straight after them; the forwards timed afterwards
+    do not enter them."""
+    import dataclasses
+
     import torch
 
     from interactive_vit_tpu_torch.models import swin, vit
@@ -1685,8 +1819,39 @@ def run_forwards(device, counters) -> int:
                 f"fused_mlp_block: launches {delta}; logits max abs err "
                 f"vs the plain versions {err:.3g} (bound {bound:.3g}), "
                 f"maps {map_use:.2f} of their bound")
-        # the path ends here: the count is read before the timed forwards
+        # f32 heads 80 wide above ROWFULL_MAX_N: the FMA online kernel
+        hcfg = dataclasses.replace(vit.resolve_variant("vit_h14@742"),
+                                   depth=2)
+        hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
+                                  torch.float32, device)
+        himg = torch.rand((1, 3, 742, 742), generator=torch.Generator()
+                          .manual_seed(1)).to(device)
+        before = {k: f.launches for k, f in counters.items()}
+        got = vit.forward(hparams, himg, hcfg,
+                          attn_impl=dispatch.default_attn_impl("auto"))
+        torch.cuda.synchronize()
+        delta = {k: f.launches - before[k]
+                 for k, f in counters.items() if f.launches > before[k]}
+        if delta != {"flash_attention_online": hcfg.depth}:
+            raise AssertionError(f"vit_h14@742 f32 forward launched {delta}; "
+                                 f"expected {hcfg.depth} "
+                                 f"flash_attention_online")
+        ref = vit.forward(hparams, himg, hcfg, attn_impl=online_plain)
+        logits, rlogits = got["logits"], ref["logits"]
+        bound = F32_BOUND * max(1.0, rlogits.abs().max().item())
+        err = (logits - rlogits).abs().max().item()
+        if (logits.shape != (1, hcfg.num_classes)
+                or not torch.isfinite(logits).all() or err > bound):
+            raise AssertionError(f"vit_h14@742 f32 forward: logits "
+                                 f"{tuple(logits.shape)}, max abs err "
+                                 f"{err:.3g} (bound {bound:.3g})")
+        log(f"  vit_h14@742 (depth 2) forward B=1 f32, N={hcfg.tokens}, "
+            f"dh={hcfg.width // hcfg.heads}: launches {delta}; logits max "
+            f"abs err vs the plain online attention {err:.3g} (bound "
+            f"{bound:.3g})")
+        # the path ends here: the counts are read before the timed forwards
         count = counters["fused_mlp_block"].launches
+        online = counters["flash_attention_online"].launches
         if count != 12 * len(cases):
             raise AssertionError(f"fused_mlp_block launched {count} times in "
                                  f"{len(cases)} forwards; expected "
@@ -1699,7 +1864,7 @@ def run_forwards(device, counters) -> int:
                                           **plain_kw[name]))
             log(lines[name, b] + f"; maps off: kernels {t_k:.2f} ms, plain "
                 f"versions {t_p:.2f} ms (host wall, synchronized)")
-    return count
+    return {"fused_mlp_block": count, "flash_attention_online": online}
 
 
 class ToMeCount:
@@ -2202,6 +2367,8 @@ def main() -> int:
     fa.load_kernel()
     fa.load_online_kernel()
     fa.load_online_mma_kernel()
+    fa.load_mma_kernel()
+    fa.load_online_tf32_kernel()
     fw.load_kernel()
     fm.load_kernel()
     fm.load_w8a8_kernel()
@@ -2224,13 +2391,17 @@ def main() -> int:
                 "flash_attention_online_mma": fa.flash_attention_online_mma,
                 "attention_train_mma": FwdBwdCount(av.attention_train, "mma_"),
                 "attention_train_packed_mma": FwdBwdCount(
-                    av.attention_train_packed, "mma_")}
+                    av.attention_train_packed, "mma_"),
+                "flash_attention_mma": fa.flash_attention_mma,
+                "flash_attention_online_tf32x3":
+                    fa.flash_attention_online_tf32x3}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
     # 3. kernels against their plain versions
     log("phase 3 kernels vs plain versions on the card:")
     online = phase_online_kernel(device)
+    flash = phase_flash_kernel(device)
     train = phase_train_kernel(device, packed=False)
     train_packed = phase_train_kernel(device, packed=True)
     numbers = {
@@ -2256,7 +2427,7 @@ def main() -> int:
                 "subset": {"want_attn": True, "want_mean": True,
                            "attn_heads": (0, 7, 15)}},
             ("vit_l16", 1, "bfloat16", "maps_mean")),
-        "flash_attention": phase_flash_kernel(device),
+        "flash_attention": flash["fma"],
         "fused_window_attn": phase_window_kernel(device),
         "fused_mlp_block": phase_mlp_kernel(device),
         "flash_attention_online": online["fma"],
@@ -2279,6 +2450,8 @@ def main() -> int:
         "flash_attention_online_mma": online["mma"],
         "attention_train_mma": train["mma"],
         "attention_train_packed_mma": train_packed["mma"],
+        "flash_attention_mma": flash["mma"],
+        "flash_attention_online_tf32x3": online["tf32"],
     }
 
     # 4. the paths through the server
@@ -2311,9 +2484,16 @@ def main() -> int:
                                   25: ("r",)}, {"headwise_attn_block": 24},
                  {"block_impl": fb.headwise_attn_block_reference}, seq=3,
                  conc=2, node_params={14: {"attn_heads": "[0,7,15]"}}),
+        # the row-resident kernel on the tensor cores in all 12 blocks (the
+        # profile must show it 12 times and the FMA kernel never); the f32
+        # request's 12 on the FMA kernel
         vit_path("dinov2_s14_reg", 518, {2: ("attn", "r"), 8: ("r",),
-                                         13: ("r",)}, {"flash_attention": 12},
-                 {"attn_impl": fa.flash_attention_reference}, seq=3, conc=0),
+                                         13: ("r",)},
+                 {"flash_attention_mma": 12},
+                 {"attn_impl": fa.flash_attention_reference}, seq=3, conc=0,
+                 f32_kernels={"flash_attention": 12},
+                 profile_kernels={"rowfull_mma_kernel": 12,
+                                  "tiled_attention_kernel": 0}),
         # nodes 2, 3: stages.0.0 and stages.0.1 (shifted); 13: stages.2.5;
         # 16: stages.3.1; a non-square image exercises the bicubic resize
         Path("swin_t", swin, swin.VARIANTS["swin_t"], (240, 300),
@@ -2324,13 +2504,13 @@ def main() -> int:
              node_params={13: {"attn_win": "2"},
                           16: {"attn_heads": "[0,11,23]"}}),
         # a 53 x 53 grid: N=2814, the online kernel in all 12 blocks (bf16 on
-        # the tensor cores, the f32 request on FMA); the block outputs o of
-        # blocks 0, 6, 11 and the CLS features
+        # the tensor cores, the f32 request on split TF32); the block
+        # outputs o of blocks 0, 6, 11 and the CLS features
         vit_path("dinov2_s14_reg@742", 742, {2: ("o",), 8: ("o",),
                                              13: ("o",)},
                  {"flash_attention_online_mma": 12},
                  {"attn_impl": online_plain}, seq=2, conc=0,
-                 f32_kernels={"flash_attention_online": 12},
+                 f32_kernels={"flash_attention_online_tf32x3": 12},
                  profile_kernels={"online_mma_kernel": 12,
                                   "online_attention_kernel": 0}),
         # the repository's saved graph for an @ geometry (N=257)
@@ -2368,7 +2548,8 @@ def main() -> int:
                 numbers[k].setdefault("launches", res["launches"][k])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    numbers["fused_mlp_block"]["launches"] = run_forwards(device, counters)
+    for k, n in run_forwards(device, counters).items():
+        numbers[k]["launches"] = n
 
     # 5. the trainer
     log("phase 5 train through tools.train.main:")

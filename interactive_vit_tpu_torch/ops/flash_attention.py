@@ -17,12 +17,23 @@ above it go to the online-softmax kernel, which has the same three pieces:
 ``flash_attention_online`` (kernel ``csrc/flash_attention_online.cu``,
 count ``flash_attention_online.launches``),
 ``flash_attention_online_reference`` and ``fits_online``; everything else
-is the row-resident kernel (``fits``). bf16 heads of ``MMA_DH`` (64)
-columns with 16-byte aligned operands (``mma_route``) take the online
-branch on Hopper's tensor cores instead: ``flash_attention_online_mma``
-(kernel ``csrc/flash_attention_online_mma.cu``, count
-``flash_attention_online_mma.launches``), the same contract and plain
-version; f32 and other bf16 operands keep the f32 FMA kernel.
+is the row-resident kernel (``fits``).
+
+Routes on Hopper's tensor cores, chosen by dtype, head width and alignment
+only, each with the same contract and plain version as the branch it
+serves, and its own launch count:
+
+* bf16 heads of ``MMA_DH`` (64) columns with 16-byte aligned operands
+  (``mma_route``): the row-resident branch runs ``flash_attention_mma``
+  (kernel ``csrc/flash_attention_mma.cu``, the probs tap included), the
+  online branch ``flash_attention_online_mma``
+  (``csrc/flash_attention_online_mma.cu``);
+* f32 heads of ``MMA_DH`` columns with 16-byte aligned operands
+  (``tf32_route``): the online branch runs
+  ``flash_attention_online_tf32x3`` (``csrc/flash_attention_online_tf32.cu``:
+  every product as three TF32 products of a hi / lo split, which keeps the
+  f32 contract); the row-resident branch stays on the f32 FMA kernel;
+* everything else keeps the f32 FMA kernels.
 
 Numerics (the JAX row-resident kernel's): f32 scores times dh^-0.5, keys
 at or beyond ``n_real`` set to ``MASK_VALUE``, the row max subtracted,
@@ -55,6 +66,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # of 128 (the JAX kernel's block_k), heads up to 128 wide.
 ONLINE_QT = 32
 ONLINE_BLOCK_K = 128
+# csrc/flash_attention_online_tf32.cu's key tile (f32: p is never cast, so
+# the width changes only the rounding of the running sums)
+ONLINE_TF32_BLOCK_K = 64
 
 
 # The head width of the tensor-core kernels (csrc/mma_attention.cuh) and
@@ -63,23 +77,46 @@ MMA_DH = 64
 MMA_ALIGN = 16
 
 
+def _aligned(addrs, strides, esize: int) -> bool:
+    """Every base address (bytes) and every element stride (of ``esize``
+    bytes) a multiple of ``MMA_ALIGN``."""
+    return (all(int(a) % MMA_ALIGN == 0 for a in addrs)
+            and all((int(s) * esize) % MMA_ALIGN == 0 for s in strides))
+
+
 def mma_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
     """True when operands take the bf16 tensor-core kernels: bf16, heads
     ``MMA_DH`` wide, every base address (bytes) and every (image, head,
     token) element stride a multiple of 16 bytes. f32 never does (TF32
-    would not keep the f32 contract)."""
-    esize = 2  # bf16
+    would not keep the f32 contract; ``tf32_route`` is its own)."""
     return (dtype == torch.bfloat16 and dh == MMA_DH
-            and all(int(a) % MMA_ALIGN == 0 for a in addrs)
-            and all((int(s) * esize) % MMA_ALIGN == 0 for s in strides))
+            and _aligned(addrs, strides, 2))
+
+
+def tf32_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
+    """True when operands take the split-TF32 online kernel: f32, heads
+    ``MMA_DH`` wide, every base address and every (image, head, token)
+    stride a multiple of 16 bytes."""
+    return (dtype == torch.float32 and dh == MMA_DH
+            and _aligned(addrs, strides, 4))
+
+
+def _route_operands(route, *tensors) -> bool:
+    """``route`` for [B, H, N, dh] views (head dim contiguous)."""
+    return (all(t.stride(-1) == 1 for t in tensors)
+            and route(tensors[0].dtype, tensors[0].shape[-1],
+                      [t.data_ptr() for t in tensors],
+                      [s for t in tensors for s in t.stride()[:3]]))
 
 
 def _mma_operands(*tensors) -> bool:
     """``mma_route`` for [B, H, N, dh] views (head dim contiguous)."""
-    return (all(t.stride(-1) == 1 for t in tensors)
-            and mma_route(tensors[0].dtype, tensors[0].shape[-1],
-                          [t.data_ptr() for t in tensors],
-                          [s for t in tensors for s in t.stride()[:3]]))
+    return _route_operands(mma_route, *tensors)
+
+
+def _tf32_operands(*tensors) -> bool:
+    """``tf32_route`` for [B, H, N, dh] views (head dim contiguous)."""
+    return _route_operands(tf32_route, *tensors)
 
 
 def fits(n: int, dh: int) -> bool:
@@ -204,8 +241,9 @@ def flash_attention(
     ``attention.attention_reference``: returns ``(o, probs | None)``.
     ``n_real``: keys at or beyond it are masked (padded token domain).
     N above ``ROWFULL_MAX_N`` with maps off goes to
-    ``flash_attention_online``, which counts those launches; this
-    wrapper's count is the row-resident kernel's."""
+    ``flash_attention_online``, bf16 operands that ``mma_route`` takes to
+    ``flash_attention_mma``, each counting its launches; this wrapper's
+    count is the f32 FMA row-resident kernel's."""
     b, h, n, dh = q.shape
     n_real = n if n_real is None else min(int(n_real), n)
     if want_attn and n > ROWFULL_MAX_N:
@@ -219,6 +257,8 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
     _check_operands(q, k, v)
+    if _mma_operands(q, k, v):
+        return flash_attention_mma(q, k, v, want_attn, n_real)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
@@ -248,6 +288,85 @@ flash_attention.launches = 0
 def flash_mhsa(q, k, v, want_attn=False, n_real=None):
     """Drop-in ``attn_impl`` for ``attention.mhsa``."""
     return flash_attention(q, k, v, want_attn=want_attn, n_real=n_real)
+
+
+# -- the row-resident kernel on the tensor cores (bf16) ---------------------------
+
+
+# ivt_flash_attention_mma's parameters: q, k, v, o, probs; 12 strides; B,
+# H, N, dh, n_real; scale, mask_value; the stream
+FLASH_MMA_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12
+                      + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                      + [ctypes.c_void_p])
+
+
+def _flash_mma_lib() -> ctypes.CDLL:
+    """Build (first use) and load the tensor-core row-resident library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("flash_attention_mma")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_flash_attention_mma.argtypes = FLASH_MMA_ARGTYPES
+        lib.ivt_flash_attention_mma.restype = ctypes.c_int
+        lib.ivt_flash_mma_dh.argtypes = []
+        lib.ivt_flash_mma_dh.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_mma_kernel() -> ctypes.CDLL:
+    """Build and load the tensor-core row-resident kernel now; checks its
+    head width against ``MMA_DH``."""
+    lib = _flash_mma_lib()
+    if lib.ivt_flash_mma_dh() != MMA_DH:
+        raise RuntimeError("csrc/flash_attention_mma.cu and MMA_DH disagree")
+    return lib
+
+
+def flash_attention_mma(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    want_attn: bool = False,
+    n_real: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``flash_attention``'s row-resident contract (probs tap included) on
+    the bf16 tensor-core kernel ``csrc/flash_attention_mma.cu``: one launch
+    for CUDA tensors, counted in ``flash_attention_mma.launches``; raises
+    on operands that ``mma_route`` or ``fits`` refuses. For CPU tensors
+    the plain version."""
+    b, h, n, dh = q.shape
+    n_real = n if n_real is None else min(int(n_real), n)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, want_attn, n_real)
+    _check_operands(q, k, v)
+    if not _mma_operands(q, k, v):
+        raise ValueError(
+            f"flash_attention_mma takes bf16 heads {MMA_DH} wide with "
+            f"16-byte aligned pointers and strides, got {q.dtype}, dh={dh}, "
+            f"strides {[t.stride() for t in (q, k, v)]}")
+    lib = _flash_mma_lib()
+    with torch.cuda.device(q.device):
+        # token-major o, as the FMA kernel's wrapper writes it
+        o = torch.empty((b, n, h, dh), dtype=q.dtype,
+                        device=q.device).transpose(1, 2)
+        probs = (torch.empty((b, h, n, n), dtype=q.dtype, device=q.device)
+                 if want_attn else None)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ivt_flash_attention_mma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if probs is None else probs.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], b, h, n, dh, n_real, float(dh) ** -0.5,
+            MASK_VALUE, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_mma kernel launch failed: "
+                           f"cudaError {err}")
+    flash_attention_mma.launches += 1
+    return o, probs
+
+
+flash_attention_mma.launches = 0
 
 
 # -- the online-softmax kernel ------------------------------------------------
@@ -291,8 +410,10 @@ def flash_attention_online(
 ) -> torch.Tensor:
     """Online-softmax attention on [B, H, N, dh], no maps: o [B, H, N, dh].
     For CUDA tensors one launch: bf16 operands that ``mma_route`` takes go
-    to the tensor-core kernel (``flash_attention_online_mma``, which counts
-    them), the rest to ``csrc/flash_attention_online.cu``, counted in
+    to the tensor-core kernel (``flash_attention_online_mma``), f32 ones
+    that ``tf32_route`` takes to the split-TF32 kernel
+    (``flash_attention_online_tf32x3``), each counting its launches; the
+    rest to ``csrc/flash_attention_online.cu``, counted in
     ``flash_attention_online.launches``; for CPU tensors the plain version
     at the kernel's key tile."""
     b, h, n, dh = q.shape
@@ -305,6 +426,8 @@ def flash_attention_online(
     _check_operands(q, k, v, fits_online)
     if _mma_operands(q, k, v):
         return flash_attention_online_mma(q, k, v, n_real)
+    if _tf32_operands(q, k, v):
+        return flash_attention_online_tf32x3(q, k, v, n_real)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     lib = _online_lib()
     with torch.cuda.device(q.device):
@@ -401,3 +524,78 @@ def flash_attention_online_mma(
 
 
 flash_attention_online_mma.launches = 0
+
+
+# -- the online kernel on the tensor cores (f32, split TF32) --------------------
+
+
+# ivt_flash_attention_online_tf32x3's parameters: those of the bf16 entry
+ONLINE_TF32_ARGTYPES = ONLINE_MMA_ARGTYPES
+
+
+def _online_tf32_lib() -> ctypes.CDLL:
+    """Build (first use) and load the split-TF32 online kernel library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("flash_attention_online_tf32")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_flash_attention_online_tf32x3.argtypes = ONLINE_TF32_ARGTYPES
+        lib.ivt_flash_attention_online_tf32x3.restype = ctypes.c_int
+        for name in ("ivt_online_tf32_block_k", "ivt_online_tf32_dh"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_online_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 online kernel now; checks its key tile
+    and head width against ``ONLINE_TF32_BLOCK_K`` and ``MMA_DH``."""
+    lib = _online_tf32_lib()
+    if (lib.ivt_online_tf32_block_k(), lib.ivt_online_tf32_dh()) != (
+            ONLINE_TF32_BLOCK_K, MMA_DH):
+        raise RuntimeError("csrc/flash_attention_online_tf32.cu and "
+                           "ONLINE_TF32_BLOCK_K / MMA_DH disagree")
+    return lib
+
+
+def flash_attention_online_tf32x3(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    n_real: Optional[int] = None,
+) -> torch.Tensor:
+    """``flash_attention_online``'s contract in f32 on the split-TF32
+    tensor-core kernel ``csrc/flash_attention_online_tf32.cu``: one launch
+    for CUDA tensors, counted in ``flash_attention_online_tf32x3.launches``;
+    raises on operands that ``tf32_route`` refuses. For CPU tensors the
+    plain version at the kernel's key tile."""
+    b, h, n, dh = q.shape
+    n_real = n if n_real is None else min(int(n_real), n)
+    if q.device.type == "cpu":
+        return flash_attention_online_reference(
+            q, k, v, n_real, block_k=ONLINE_TF32_BLOCK_K)
+    _check_operands(q, k, v, fits_online)
+    if not _tf32_operands(q, k, v):
+        raise ValueError(
+            f"flash_attention_online_tf32x3 takes f32 heads {MMA_DH} wide "
+            f"with 16-byte aligned pointers and strides, got {q.dtype}, "
+            f"dh={dh}, strides {[t.stride() for t in (q, k, v)]}")
+    lib = _online_tf32_lib()
+    with torch.cuda.device(q.device):
+        o = torch.empty((b, n, h, dh), dtype=q.dtype,
+                        device=q.device).transpose(1, 2)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.ivt_flash_attention_online_tf32x3(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *o.stride()[:3], b, h, n, dh, n_real, float(dh) ** -0.5,
+            MASK_VALUE, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_online_tf32x3 kernel launch "
+                           f"failed: cudaError {err}")
+    flash_attention_online_tf32x3.launches += 1
+    return o
+
+
+flash_attention_online_tf32x3.launches = 0

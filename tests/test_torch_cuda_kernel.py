@@ -47,10 +47,14 @@ plain version's only by the order of the f32 sums of the QKV product; in
 bf16 a key element that rounds to its neighbour (one ulp, 2^-8 of the
 element) moves the head-mean by at most that over the head count.
 
-The bf16 tensor-core kernels (``flash_attention_online_mma`` and the
-tensor-core route of both trainable attentions) take the same bounds as
-the FMA kernels they stand beside: they round at the same points, and only
-the order of the f32 sums inside the tensor cores differs.
+The bf16 tensor-core kernels (``flash_attention_mma``,
+``flash_attention_online_mma`` and the tensor-core route of both trainable
+attentions) take the same bounds as the FMA kernels they stand beside: they
+round at the same points, and only the order of the f32 sums inside the
+tensor cores differs. The f32 split-TF32 kernel
+(``flash_attention_online_tf32x3``) takes f32's 1e-4: each of its products
+is three TF32 products of a hi / lo split, within ~2^-21 of the f32
+product (``tests/test_torch_tf32_split.py``).
 
 The trainable attention (``attention_vjp``): o, dq, dk and dv. f32: the
 kernel and the plain version differ in the order of f32 sums (scores over
@@ -105,6 +109,8 @@ def cuda():
     av.load_kernel()
     fa.load_online_mma_kernel()
     av.load_mma_kernel()
+    fa.load_mma_kernel()
+    fa.load_online_tf32_kernel()
     return torch.device("cuda")
 
 
@@ -282,15 +288,21 @@ def _qkv(shape, dtype, device, seed=0):
             for _ in range(3)]
 
 
+def _row_counts():
+    return fa.flash_attention.launches, fa.flash_attention_mma.launches
+
+
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("want_attn", [False, True])
 def test_flash_kernel_matches_plain(cuda, shape, dtype, want_attn):
     q, k, v = _qkv(shape, dtype, cuda, seed=shape[2])
-    before = fa.flash_attention.launches
+    mma = dtype == torch.bfloat16 and shape[3] == fa.MMA_DH
+    before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=want_attn)
     torch.cuda.synchronize()
-    assert fa.flash_attention.launches == before + 1
+    # bf16 heads of 64 run on the tensor cores, the rest on FMA
+    assert _row_counts() == (before[0] + (not mma), before[1] + mma)
     ref = fa.flash_attention_reference(q, k, v, want_attn=want_attn)
     _check(got, ref, dtype)
 
@@ -324,7 +336,8 @@ def test_flash_kernel_reads_strided_views(cuda):
 
 def _online_counts():
     return (fa.flash_attention.launches, fa.flash_attention_online.launches,
-            fa.flash_attention_online_mma.launches)
+            fa.flash_attention_online_mma.launches,
+            fa.flash_attention_online_tf32x3.launches)
 
 
 def test_flash_wrapper_branches_above_rowfull_max(cuda):
@@ -337,10 +350,13 @@ def test_flash_wrapper_branches_above_rowfull_max(cuda):
     o, probs = fa.flash_attention(q, k, v)
     torch.cuda.synchronize()
     assert probs is None
-    assert _online_counts() == (before[0], before[1], before[2] + 1)
+    assert _online_counts() == (before[0], before[1], before[2] + 1,
+                                before[3])
+    # f32 at dh=64: the split-TF32 kernel
     o, probs = fa.flash_attention(*(t.float() for t in (q, k, v)))
     torch.cuda.synchronize()
-    assert _online_counts() == (before[0], before[1] + 1, before[2] + 1)
+    assert _online_counts() == (before[0], before[1], before[2] + 1,
+                                before[3] + 1)
 
 
 # online flash: dinov2_s14_reg@742 (N=2814: 22 key tiles, the last of 126
@@ -357,11 +373,12 @@ def test_online_kernel_matches_plain(cuda, shape, dtype, n_real):
     q, k, v = _qkv(shape, dtype, cuda, seed=shape[2] + shape[3])
     n_real = None if n_real is None else max(1, shape[2] + n_real)
     mma = dtype == torch.bfloat16 and shape[3] == fa.MMA_DH
+    tf32 = dtype == torch.float32 and shape[3] == fa.MMA_DH
     before = _online_counts()
     got = fa.flash_attention_online(q, k, v, n_real)
     torch.cuda.synchronize()
-    assert _online_counts() == (before[0], before[1] + (not mma),
-                                before[2] + mma)
+    assert _online_counts() == (before[0], before[1] + (not mma and not tf32),
+                                before[2] + mma, before[3] + tf32)
     ref = fa.flash_attention_online_reference(q, k, v, n_real,
                                               block_k=fa.ONLINE_BLOCK_K)
     assert got.shape == q.shape and got.dtype == dtype
@@ -379,7 +396,8 @@ def test_online_kernel_reads_strided_views(cuda):
     got = fa.flash_attention_online(q, k, v)
     ref = fa.flash_attention_online_reference(q, k, v)
     torch.cuda.synchronize()
-    assert _online_counts() == (before[0], before[1], before[2] + 1)
+    assert _online_counts() == (before[0], before[1], before[2] + 1,
+                                before[3])
     _check((got,), (ref,), torch.bfloat16)
 
 
@@ -396,7 +414,8 @@ def test_online_fma_kernel_takes_misaligned_bf16(cuda):
     got = fa.flash_attention_online(q, k, v)
     ref = fa.flash_attention_online_reference(q, k, v)
     torch.cuda.synchronize()
-    assert _online_counts() == (before[0], before[1] + 1, before[2])
+    assert _online_counts() == (before[0], before[1] + 1, before[2],
+                                before[3])
     _check((got,), (ref,), torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_online_mma(q, k, v)
@@ -413,6 +432,136 @@ def test_online_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     # a view one element in: pointers 2 bytes off the 16-byte grid
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_online_mma(*(t[..., 1:65] for t in (q, k, v)))
+
+
+# the row-resident kernel on the tensor cores (bf16): dinov2_s14_reg @518
+# (N=1374; B=1 takes each key tile in four parts, B=2 in two), vit_l16 @384
+# (N=577, two parts), vit_b16 (N=197, odd: the probs rows sit off the
+# 4-byte grid), ragged small N, and the longest row-resident N
+MMA_ROW_SHAPES = [(1, 6, 1374, 64), (2, 6, 1374, 64), (1, 16, 577, 64),
+                  (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64)]
+
+
+def _qkv_views(b, n, heads, dtype, device, seed, pad=0):
+    """q, k, v as ``qkv_proj`` makes them: views of one [B, N, 3D] tensor;
+    ``pad`` extra elements a token put the rows off the 16-byte grid."""
+    x = torch.randn((b, n, 3 * heads * 64 + pad), generator=torch.Generator()
+                    .manual_seed(seed)).to(device, dtype) * 2
+    x = x[..., :3 * heads * 64]
+    return [x.reshape(b, n, 3, heads, 64)[:, :, i].transpose(1, 2)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize("shape", MMA_ROW_SHAPES)
+@pytest.mark.parametrize("want_attn", [False, True])
+def test_flash_mma_kernel_matches_plain(cuda, shape, want_attn):
+    b, h, n, _ = shape
+    q, k, v = _qkv_views(b, n, h, torch.bfloat16, cuda, seed=n)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=want_attn)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0], before[1] + 1)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=want_attn)
+    _check(got, ref, torch.bfloat16)
+    assert not _within(got[0] * 0.5, ref[0], 0, torch.bfloat16)
+
+
+# B=1 at N=1408 is one block an SM (four key parts), B=2 more (two parts)
+@pytest.mark.parametrize("b,n,n_real", [(1, 1408, 1374), (2, 1408, 1374),
+                                        (1, 208, 197), (1, 130, 100)])
+def test_flash_mma_masks_keys_beyond_n_real(cuda, b, n, n_real):
+    q, k, v = _qkv_views(b, n, 6, torch.bfloat16, cuda, seed=n_real)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=True, n_real=n_real)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=True,
+                                       n_real=n_real)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0], before[1] + 1)
+    _check(got, ref, torch.bfloat16)
+    assert torch.all(got[1][..., n_real:] == 0)
+
+
+@pytest.mark.parametrize("n", [1374, 197])
+def test_flash_fma_kernel_takes_misaligned_bf16(cuda, n):
+    """bf16 heads of 64 off the 16-byte grid: ``mma_route`` refuses them,
+    so the FMA kernel runs; the tensor-core wrapper called on them
+    raises."""
+    q, k, v = _qkv_views(1, n, 6, torch.bfloat16, cuda, seed=n, pad=4)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=True)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=True)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0] + 1, before[1])
+    _check(got, ref, torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_mma(q, k, v)
+
+
+def test_flash_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 300, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+        fa.flash_attention_mma(q, k, v)  # f32 stays on FMA
+    q, k, v = _qkv((1, 2, 300, 128), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+        fa.flash_attention_mma(q, k, v)
+    q, k, v = _qkv((1, 2, 300, 72), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_mma(*(t[..., 1:65] for t in (q, k, v)))
+    q, k, v = _qkv((1, 1, fa.ROWFULL_MAX_N + 8, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        fa.flash_attention_mma(q, k, v)
+
+
+# the online kernel in f32 on split TF32: dinov2_s14_reg@742 (B=1 and 2),
+# just above ROWFULL_MAX_N, ragged small N
+TF32_SHAPES = [(1, 6, 2814, 64), (2, 6, 2814, 64), (2, 2, 2049, 64),
+               (3, 3, 17, 64), (1, 2, 197, 64)]
+
+
+@pytest.mark.parametrize("shape", TF32_SHAPES)
+@pytest.mark.parametrize("n_real", [None, -40])
+def test_online_tf32_kernel_matches_plain(cuda, shape, n_real):
+    b, h, n, _ = shape
+    q, k, v = _qkv_views(b, n, h, torch.float32, cuda, seed=n + h)
+    n_real = None if n_real is None else max(1, n + n_real)
+    before = _online_counts()
+    got = fa.flash_attention_online(q, k, v, n_real)
+    torch.cuda.synchronize()
+    assert _online_counts() == (before[0], before[1], before[2],
+                                before[3] + 1)
+    for block_k in (fa.ONLINE_TF32_BLOCK_K, fa.ONLINE_BLOCK_K):
+        ref = fa.flash_attention_online_reference(q, k, v, n_real,
+                                                  block_k=block_k)
+        _check((got,), (ref,), torch.float32)
+    assert not _within(got * 0.5, ref, 0, torch.float32)
+
+
+def test_online_fma_kernel_takes_misaligned_f32(cuda):
+    """f32 heads of 64 whose token stride is off the 16-byte grid:
+    ``tf32_route`` refuses them, so the FMA kernel runs; the split-TF32
+    wrapper called on them raises."""
+    q, k, v = _qkv_views(1, 2100, 2, torch.float32, cuda, seed=4, pad=2)
+    before = _online_counts()
+    got = fa.flash_attention_online(q, k, v)
+    ref = fa.flash_attention_online_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert _online_counts() == (before[0], before[1] + 1, before[2],
+                                before[3])
+    _check((got,), (ref,), torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_online_tf32x3(q, k, v)
+
+
+def test_online_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 300, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+        fa.flash_attention_online_tf32x3(q, k, v)  # bf16 has its own route
+    q, k, v = _qkv((1, 2, 300, 128), torch.float32, cuda)
+    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+        fa.flash_attention_online_tf32x3(q, k, v)
+    q, k, v = _qkv((1, 2, 300, 72), torch.float32, cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_online_tf32x3(*(t[..., 1:65] for t in (q, k, v)))
 
 
 # s8 block: vit_b16 (B=1 and 8), vit_t16@256 (N=257, near the s8 envelope)

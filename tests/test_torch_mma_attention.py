@@ -140,6 +140,10 @@ def _entry_kinds(source: str, entry: str):
     ("attention_train_mma.cu", "ivt_attention_train_bwd_mma",
      av.TRAIN_MMA_BWD_ARGTYPES, ["q", "k", "v", "dout", "dq", "dk", "dv",
                                  "stats", "delta", "strides"]),
+    ("flash_attention_mma.cu", "ivt_flash_attention_mma",
+     fa.FLASH_MMA_ARGTYPES, ["q", "k", "v", "o", "probs", "q_sb"]),
+    ("flash_attention_online_tf32.cu", "ivt_flash_attention_online_tf32x3",
+     fa.ONLINE_TF32_ARGTYPES, ["q", "k", "v", "o", "q_sb"]),
 ])
 def test_mma_entry_matches_its_ctypes_signature(source, entry, argtypes,
                                                 first):
