@@ -7,17 +7,20 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the twelve hand-written kernel sources from ``csrc/``
-   with nvcc, one compiler process each, all at once (the s8 and ToMe
-   modes of the block are modes of ``fused_attn_block.cu``; the two
+2. build   -- builds the fourteen hand-written kernel sources from
+   ``csrc/`` with nvcc, one compiler process each, all at once (the s8 and
+   ToMe modes of the block are modes of ``fused_attn_block.cu``; the two
    trainable attentions share ``flash_attention.cu`` forward and
-   ``attention_bwd.cu`` backward on their f32 FMA route and
-   ``attention_train_mma.cu`` on their bf16 tensor-core route; the
-   row-resident flash attention is ``flash_attention.cu`` (FMA) and
-   ``flash_attention_mma.cu`` (bf16 tensor cores), the online one
-   ``flash_attention_online.cu`` (FMA), ``flash_attention_online_mma.cu``
-   (bf16 tensor cores) and ``flash_attention_online_tf32.cu`` (f32 on
-   split TF32): sixteen kernels).
+   ``attention_bwd.cu`` backward on their FMA route,
+   ``attention_train_mma.cu`` on their bf16 tensor-core route and
+   ``flash_attention_tf32.cu`` forward and ``attention_train_tf32.cu``
+   backward on their f32 split-TF32 route; the row-resident flash
+   attention is ``flash_attention.cu`` (FMA), ``flash_attention_mma.cu``
+   (bf16 tensor cores) and ``flash_attention_tf32.cu`` (f32 on split
+   TF32), the online one ``flash_attention_online.cu`` (FMA),
+   ``flash_attention_online_mma.cu`` (bf16 tensor cores) and
+   ``flash_attention_online_tf32.cu`` (f32 on split TF32): nineteen
+   kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -29,11 +32,14 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      4), bf16 and f32, maps off / maps + mean / heads (0, 7, 15) + mean;
    * the row-resident flash attention at the dinov2_s14_reg@518 shape (6
      heads, N=1374, dh=64) and at N=577, maps on and off, plus keys masked
-     beyond n_real=1374 of N=1408 (their probs exactly 0): bf16 on the
-     tensor-core kernel and, on a copy off the 16-byte grid, on the FMA
-     kernel; f32 on the FMA kernel; ``scaled_dot_product_attention`` is
-     timed beside it with maps off in both dtypes (a yardstick; the port
-     never calls it); then the plain attention's time beside the
+     beyond n_real=1374 of N=1408 (their probs exactly 0; o and the probs
+     zeroed or halved must fail their bounds): bf16 on the
+     tensor-core kernel, f32 on the split-TF32 kernel and each, on a copy
+     off the 16-byte grid, on the FMA kernel;
+     ``scaled_dot_product_attention`` is timed beside it with maps off in
+     both dtypes (a yardstick; the port never calls it), and f32 gives its
+     bound at the TF32 peak and at the f32 FMA peak; then the plain
+     attention's time beside the
      tensor-core kernel's at N = 197, 257 and 577 (the crossover of
      ``dispatch.FLASH_MIN_SEQ``); these times are the device's alone
      (``time_held``: the timed calls queue behind a spinning stream),
@@ -55,7 +61,9 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      tile (128): bf16 on the tensor-core kernel, f32 on the split-TF32
      kernel, and both, on a copy whose rows sit off the 16-byte grid, on
      the FMA kernel they replace; ``scaled_dot_product_attention`` timed
-     beside it;
+     beside it; and the FMA kernel at its own main-path shape,
+     vit_h14@742's f32 attention (16 heads 80 wide, N=2810), beside SDPA
+     f32 and its bound;
    * the W8A8 MLP at vit_b16 (197 x 768, B=1 and 8), bf16 and f32: its
      s32 accumulators equal to the exact products of its own int8
      activations, those activations the plain version's but in at most 1%
@@ -76,10 +84,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      masked beyond n_real=197 of N=208 (their dk, dv exactly 0) and at
      N=577; ``attention_train_packed`` on the head-major [B, N, 3D] at
      vit_b16's, the masked and the N=577 shape; bf16 on the tensor-core
-     route (its saved (m, l) against the plain statistics) and, off the
-     16-byte grid, on the FMA route; f32 on the FMA route; each bound
-     refusing a gradient zeroed or halved; ``scaled_dot_product_attention``
-     forward + backward timed beside.
+     route, f32 on the split-TF32 route (each forward's saved (m, l)
+     against the plain statistics) and each, off the 16-byte grid, on the
+     FMA route; each bound refusing a gradient zeroed or halved;
+     ``scaled_dot_product_attention`` forward + backward timed beside.
 4. slice   -- nine paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
@@ -94,7 +102,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      blocks 6 and 11, the CLS features; 3 in sequence; the row-resident
      flash kernel on the tensor cores in all 12 blocks (the profile must
      show it 12 times and the FMA kernel never), the f32 request's 12 on
-     the FMA kernel;
+     the split-TF32 kernel (and none on the FMA kernel);
    * swin_t, bf16, a 240 x 300 image through the bicubic transform:
      ``attn`` on stages.0.0, stages.0.1 (shifted), stages.2.5 (window 2
      only) and stages.3.1 (heads 0, 11, 23), the logits; 5 in sequence and
@@ -137,9 +145,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``swin.forward`` (swin_t) at B=1 and B=8, bf16, with the block or window
    kernel and the fused MLP kernel from ``default_mlp_impl("fused")``,
    against the same forwards with the plain versions: 12 MLP launches a
-   call; and one f32 ``vit.forward`` of vit_h14@742 (N=2810, heads 80
-   wide, depth cut to 2) through ``--attn auto``, whose attention keeps
-   the FMA online kernel (2 launches), against the plain online attention.
+   call; and two f32 ``vit.forward`` of vit_h14 (heads 80 wide, depth cut
+   to 2) through ``--attn auto``, whose heads keep the FMA kernels (2
+   launches each): @224 (N=257) the row-resident one against its plain
+   version, @742 (N=2810) the online one against the plain online
+   attention.
 5. train   -- ``tools.train.main`` in-process, launch counts zeroed
    before each run and read after it:
    (a) vit_b16 @224, ``--dtype mixed --attn auto --batch 64 --steps 10
@@ -155,11 +165,17 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        3 heads), no packed or FMA launch; timed and profiled as (a);
    (c) vit_b16 with ``--remat on``, 2 steps: 24 forward launches a step
        (the checkpointed blocks run again in the backward);
-   (d) the first step's gradients in f32, vit_b16 at B=8: the packed FMA
-       kernels (head-major params, unpermuted) against the plain attention
-       on the same params and batch, every parameter within its bound;
-   (e) vit_t16 ``--dtype float32``, 2 steps: 12 + 12 FMA launches a step
-       of ``attention_train``.
+   (d) the first step's gradients in f32, vit_b16 at B=8: the packed
+       split-TF32 kernels (head-major params, unpermuted; no FMA launch)
+       against the plain attention on the same params and batch, every
+       parameter within its bound;
+   (e) vit_t16 ``--dtype float32``, 2 steps: 12 + 12 split-TF32 launches
+       a step of ``attention_train``, no FMA launch;
+   (f) the first step's gradients in f32 of vit_h14 (heads 80 wide, depth
+       cut to 2) at B=2: ``attention_train``'s FMA kernels, 2 + 2
+       launches, against the plain attention. No configuration gives the
+       packed layout operands off the 16-byte grid, so its FMA route has
+       no main-path launch (phase 3 holds it against its plain version).
 6. result  -- a JSON line describing the kernels, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -228,6 +244,15 @@ KERNELS = {
     "flash_attention_online_tf32x3": (
         CSRC + "flash_attention_online_tf32.cu",
         "interactive_vit_tpu/ops/flash_attention.py:188"),
+    # rows 3, 8 and 9 in f32 on split TF32: the trainable attentions'
+    # forward is flash_attention_tf32.cu on strided views, with (m, l)
+    "flash_attention_tf32x3": (CSRC + "flash_attention_tf32.cu",
+                               "interactive_vit_tpu/ops/flash_attention.py:87"),
+    "attention_train_tf32": (CSRC + "attention_train_tf32.cu",
+                             "interactive_vit_tpu/ops/attention_vjp.py:141"),
+    "attention_train_packed_tf32": (
+        CSRC + "attention_train_tf32.cu",
+        "interactive_vit_tpu/ops/attention_vjp.py:293"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -318,6 +343,9 @@ HBM_BYTES_PER_S = 3.35e12
 # The new kernels' main-path shapes: dinov2_s14_reg@742's attention (heads,
 # tokens, head width) and vit_b16's MLP (tokens, width, hidden).
 ONLINE_SHAPE = (6, 2814, 64)
+# vit_h14@742's attention (B, heads, tokens, head width): f32 heads 80 wide,
+# the FMA online kernel's own main-path use
+VIT_H14_742_SHAPE = (1, 16, 2810, 80)
 W8A8_SHAPE = (197, 768, 3072)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
               "tf32": 495e12}
@@ -647,13 +675,15 @@ def phase_tome_kernel(device) -> dict:
 
 def phase_flash_kernel(device) -> dict:
     """The row-resident flash attention against its plain version at every
-    case and dtype: bf16 on the tensor-core kernel and, on a copy off the
-    16-byte grid, on the FMA kernel; f32 on the FMA kernel. Returns the
-    dinov2_s14_reg numbers (maps off) of both kernels for the result line:
-    bf16 for the tensor cores, f32 for FMA (its route on the served path),
-    SDPA's time in the same dtype beside each. Then the crossover of
-    ``dispatch.FLASH_MIN_SEQ``: the plain attention's time beside the
-    tensor-core kernel's at N = 197, 257 and 577."""
+    case and dtype: bf16 on the tensor-core kernel, f32 on the split-TF32
+    kernel, and each, on a copy off the 16-byte grid, on the FMA kernel.
+    Returns the dinov2_s14_reg numbers (maps off) of the three kernels
+    (bf16 for the tensor cores, f32 for split TF32 and for FMA, its time
+    from the copy off the grid), SDPA's time in the same dtype beside each;
+    the split-TF32 kernel's bound at the TF32 peak (three TF32 products a
+    product). Then the crossover of ``dispatch.FLASH_MIN_SEQ``: the plain
+    attention's time beside the tensor-core kernel's at N = 197, 257 and
+    577."""
     import torch
     import torch.nn.functional as F
 
@@ -662,7 +692,8 @@ def phase_flash_kernel(device) -> dict:
     from interactive_vit_tpu_torch.ops.attention import attention_reference
 
     def counts():
-        return fa.flash_attention.launches, fa.flash_attention_mma.launches
+        return (fa.flash_attention.launches, fa.flash_attention_mma.launches,
+                fa.flash_attention_tf32x3.launches)
 
     out = {}
     cases = [("dinov2_s14_reg", (1, 6, 1374, 64), None),
@@ -675,10 +706,9 @@ def phase_flash_kernel(device) -> dict:
             g = torch.Generator().manual_seed(shape[2])
             qkv = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
                    for _ in range(3)]
-            routes = [("tensor cores" if mma else "FMA", qkv)]
-            if mma:
-                routes.append(("FMA, off the 16-byte grid",
-                               [misaligned(t) for t in qkv]))
+            routes = [("tensor cores" if mma else "split TF32", qkv),
+                      ("FMA, off the 16-byte grid",
+                       [misaligned(t, 4 if mma else 2) for t in qkv])]
             t_lib = None
             for maps in (False, True):
                 if n_real is not None and not maps:
@@ -688,12 +718,15 @@ def phase_flash_kernel(device) -> dict:
                 nbytes, flops = flash_cost(*shape, qkv[0].element_size(),
                                            maps)
                 bms, by = bound(nbytes, flops, dt)
+                # the split route's own products: three TF32 ones a product
+                tms, tby = bound(nbytes, {"tf32": 3 * flops}, dt)
                 for route, (q, k, v) in routes:
                     fma = route.startswith("FMA")
                     before = counts()
                     got = fa.flash_attention(q, k, v, **kw)
                     torch.cuda.synchronize()
-                    if counts() != (before[0] + fma, before[1] + (not fma)):
+                    step = (fma, mma and not fma, not mma and not fma)
+                    if counts() != tuple(x + d for x, d in zip(before, step)):
                         raise AssertionError(f"flash {dt} {route}: launches "
                                              f"{counts()} after {before}")
                     tag = (f"flash_attention {cname} {shape} {dt} ({route}) "
@@ -701,12 +734,14 @@ def phase_flash_kernel(device) -> dict:
                            + (f" n_real={n_real}" if n_real else ""))
                     errs, line = check_outputs(tag, got, ref, dtype,
                                                ("o", "probs"))
-                    check_bounds_refuse(tag, got, ref, dtype, ("o", "probs"))
+                    # the bounds refuse o and the tap zeroed or halved
+                    check_bounds_refuse(tag, got, ref, dtype, ("o", "probs"),
+                                        first=0)
                     if n_real is not None:
                         if not torch.all(got[1][..., n_real:] == 0):
                             raise AssertionError(f"{tag}: masked keys got "
                                                  f"probs")
-                        log(line)
+                        log(line + "; masked keys' probs exactly 0")
                         continue
                     t_k, t_p, t_host = time_turns_held(
                         lambda: fa.flash_attention(q, k, v, **kw),
@@ -716,18 +751,27 @@ def phase_flash_kernel(device) -> dict:
                              f"{t_host:.4f} ms a call); bound {bms:.5f} ms "
                              f"({by}: {nbytes / 1e6:.2f} MB, "
                              f"{flops / 1e9:.3f} GFLOP)")
+                    if not mma:
+                        line += (f", at the TF32 peak (the split's "
+                                 f"{3 * flops / 1e9:.3f} GFLOP) {tms:.5f} ms "
+                                 f"({tby})")
                     if not maps and t_lib is None:
                         t_lib, _ = time_held(
                             lambda: F.scaled_dot_product_attention(*qkv))
                     if not maps:
                         line += (f"; scaled_dot_product_attention ({dt}) "
                                  f"{t_lib:.4f} ms")
-                    if cname == "dinov2_s14_reg" and not maps and (
-                            route == routes[0][0]):
-                        out["mma" if mma else "fma"] = {
+                    # the result line: bf16 on the tensor cores; f32 on
+                    # split TF32 and (off the grid) on FMA
+                    if cname == "dinov2_s14_reg" and not maps and not (
+                            mma and fma):
+                        split = not mma and not fma
+                        out["mma" if mma else "fma" if fma else "tf32"] = {
                             "max_abs_err": max(errs), "ms": t_k,
-                            "plain_ms": t_p, "bound_ms": bms,
-                            "bound_by": by, "library_ms": t_lib}
+                            "plain_ms": t_p,
+                            "bound_ms": tms if split else bms,
+                            "bound_by": tby if split else by,
+                            "library_ms": t_lib}
                     log(line)
 
     # FLASH_MIN_SEQ: below it auto_attention runs the plain attention
@@ -929,6 +973,14 @@ def phase_mlp_kernel(device) -> dict:
     return out
 
 
+def rowfull_plain(q, k, v, want_attn=False, n_real=None):
+    """``attn_impl`` of the row-resident kernel's plain version (the
+    vit_h14 forward's reference)."""
+    from interactive_vit_tpu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention_reference(q, k, v, want_attn, n_real)
+
+
 def online_plain(q, k, v, want_attn=False, n_real=None):
     """``attn_impl`` of the served dinov2_s14_reg@742 path's plain version:
     the online kernel's plain version (no maps)."""
@@ -955,9 +1007,11 @@ def phase_online_kernel(device) -> dict:
     tile, at the dinov2_s14_reg@742 shape (6 heads, N=2814, dh=64; B=1 and
     8, and keys masked beyond n_real=2800): bf16 on the tensor-core kernel,
     f32 on the split-TF32 kernel, and each dtype, on a copy off the 16-byte
-    grid, on the FMA kernel they replace. Returns the B=1 numbers of the
-    three kernels (bf16 for mma, f32 for tf32 and for FMA, its f32 time
-    from a copy off the grid), SDPA's time in the same dtype beside each."""
+    grid, on the FMA kernel they replace; then the FMA kernel at its own
+    main-path shape (vit_h14@742, f32, heads 80 wide). Returns the B=1
+    numbers of the tensor-core kernels (bf16 for mma, f32 for tf32) and
+    the FMA kernel's at vit_h14@742, SDPA's time in the same dtype beside
+    each."""
     import torch
     import torch.nn.functional as F
 
@@ -1032,7 +1086,6 @@ def phase_online_kernel(device) -> dict:
                    f"GFLOP of TF32 products {tms:.5f} ms ({tby})")
                 + f"; scaled_dot_product_attention {t_lib:.4f} ms")
             if b == 1:
-                fma_t, fma_errs = t_routes[routes[1][0]]
                 if mma:
                     out["mma"] = {
                         "max_abs_err": max(t_routes[routes[0][0]][1]),
@@ -1043,10 +1096,36 @@ def phase_online_kernel(device) -> dict:
                     "max_abs_err": max(t_routes[routes[0][0]][1]),
                     "ms": t_k, "plain_ms": t_p, "bound_ms": tms,
                     "bound_by": tby, "library_ms": t_lib}
-                out["fma"] = {
-                    "max_abs_err": max(fma_errs), "ms": fma_t,
-                    "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
-                    "library_ms": t_lib}
+
+    # the FMA kernel at its own main-path shape: vit_h14@742's f32
+    # attention, heads 80 wide, which neither tensor-core route takes
+    b, heads, n, dh = VIT_H14_742_SHAPE
+    g = torch.Generator().manual_seed(n)
+    qkv = (torch.randn((b, n, 3 * heads * dh), generator=g) * 2).to(
+        device, torch.float32)
+    q, k, v = (qkv.reshape(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
+               for i in range(3))
+    before = counts()
+    got = fa.flash_attention_online(q, k, v)
+    torch.cuda.synchronize()
+    if counts() != (before[0] + 1, before[1], before[2]):
+        raise AssertionError(f"online f32 dh={dh}: launches {counts()} after "
+                             f"{before}")
+    ref = fa.flash_attention_online_reference(q, k, v,
+                                              block_k=fa.ONLINE_BLOCK_K)
+    tag = f"flash_attention_online vit_h14@742 {tuple(q.shape)} float32 (FMA)"
+    errs, line = check_outputs(tag, (got,), (ref,), torch.float32, ("o",))
+    check_bounds_refuse(tag, (got,), (ref,), torch.float32, ("o",), first=0)
+    t_k, t_p = time_turns(lambda: fa.flash_attention_online(q, k, v),
+                          lambda: fa.flash_attention_online_reference(q, k, v))
+    nbytes, flops = flash_cost(b, heads, n, dh, 4, False)
+    bms, by = bound(nbytes, flops, "float32")
+    t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
+        f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+        f"GFLOP); scaled_dot_product_attention (float32) {t_lib:.4f} ms")
+    out["fma"] = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                  "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
     return out
 
 
@@ -1716,14 +1795,15 @@ def run_forwards(device, counters) -> dict:
     at vit_b16 width (block kernel + MLP kernel) and ``swin.forward`` at
     swin_t width (window kernel + one MLP kernel per stage), bf16, B=1 and
     B=8, seeded random weights, against the same forwards with the
-    kernels' plain versions. Then one f32 ``vit.forward`` of vit_h14@742
-    (N=2810, heads 80 wide, depth cut to 2) with ``--attn auto``: heads
-    that are not 64 wide keep the f32 FMA online kernel, one launch a
-    block, against the plain online attention at 1e-4 of the logits'
-    scale. Every launch count is set to 0 before the checked forwards and
-    the MLP kernel's count (12 a call) and the FMA online kernel's are
-    read and returned straight after them; the forwards timed afterwards
-    do not enter them."""
+    kernels' plain versions. Then two f32 ``vit.forward`` of vit_h14
+    (heads 80 wide, depth cut to 2) with ``--attn auto``: heads that are
+    not 64 wide keep the FMA kernels, one launch a block, the row-resident
+    one at 224 (N=257) against its plain version, the online one at 742
+    (N=2810) against the plain online attention, each at 1e-4 of the
+    logits' scale. Every launch count is set to 0 before the checked
+    forwards and the MLP kernel's count (12 a call) and the FMA kernels'
+    are read and returned straight after them; the forwards timed
+    afterwards do not enter them."""
     import dataclasses
 
     import torch
@@ -1819,38 +1899,44 @@ def run_forwards(device, counters) -> dict:
                 f"fused_mlp_block: launches {delta}; logits max abs err "
                 f"vs the plain versions {err:.3g} (bound {bound:.3g}), "
                 f"maps {map_use:.2f} of their bound")
-        # f32 heads 80 wide above ROWFULL_MAX_N: the FMA online kernel
-        hcfg = dataclasses.replace(vit.resolve_variant("vit_h14@742"),
-                                   depth=2)
-        hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
-                                  torch.float32, device)
-        himg = torch.rand((1, 3, 742, 742), generator=torch.Generator()
-                          .manual_seed(1)).to(device)
-        before = {k: f.launches for k, f in counters.items()}
-        got = vit.forward(hparams, himg, hcfg,
-                          attn_impl=dispatch.default_attn_impl("auto"))
-        torch.cuda.synchronize()
-        delta = {k: f.launches - before[k]
-                 for k, f in counters.items() if f.launches > before[k]}
-        if delta != {"flash_attention_online": hcfg.depth}:
-            raise AssertionError(f"vit_h14@742 f32 forward launched {delta}; "
-                                 f"expected {hcfg.depth} "
-                                 f"flash_attention_online")
-        ref = vit.forward(hparams, himg, hcfg, attn_impl=online_plain)
-        logits, rlogits = got["logits"], ref["logits"]
-        bound = F32_BOUND * max(1.0, rlogits.abs().max().item())
-        err = (logits - rlogits).abs().max().item()
-        if (logits.shape != (1, hcfg.num_classes)
-                or not torch.isfinite(logits).all() or err > bound):
-            raise AssertionError(f"vit_h14@742 f32 forward: logits "
-                                 f"{tuple(logits.shape)}, max abs err "
-                                 f"{err:.3g} (bound {bound:.3g})")
-        log(f"  vit_h14@742 (depth 2) forward B=1 f32, N={hcfg.tokens}, "
-            f"dh={hcfg.width // hcfg.heads}: launches {delta}; logits max "
-            f"abs err vs the plain online attention {err:.3g} (bound "
-            f"{bound:.3g})")
+        # f32 heads 80 wide: the FMA kernels, row-resident at 224 (N=257)
+        # and online above ROWFULL_MAX_N at 742
+        for variant, kernel, plain, what in (
+                ("vit_h14", "flash_attention", rowfull_plain,
+                 "the plain row-resident attention"),
+                ("vit_h14@742", "flash_attention_online", online_plain,
+                 "the plain online attention")):
+            hcfg = dataclasses.replace(vit.resolve_variant(variant), depth=2)
+            hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
+                                      torch.float32, device)
+            himg = torch.rand((1, 3, hcfg.img_size, hcfg.img_size),
+                              generator=torch.Generator().manual_seed(1)
+                              ).to(device)
+            before = {k: f.launches for k, f in counters.items()}
+            got = vit.forward(hparams, himg, hcfg,
+                              attn_impl=dispatch.default_attn_impl("auto"))
+            torch.cuda.synchronize()
+            delta = {k: f.launches - before[k]
+                     for k, f in counters.items() if f.launches > before[k]}
+            if delta != {kernel: hcfg.depth}:
+                raise AssertionError(f"{variant} f32 forward launched "
+                                     f"{delta}; expected {hcfg.depth} "
+                                     f"{kernel}")
+            ref = vit.forward(hparams, himg, hcfg, attn_impl=plain)
+            logits, rlogits = got["logits"], ref["logits"]
+            bound = F32_BOUND * max(1.0, rlogits.abs().max().item())
+            err = (logits - rlogits).abs().max().item()
+            if (logits.shape != (1, hcfg.num_classes)
+                    or not torch.isfinite(logits).all() or err > bound):
+                raise AssertionError(f"{variant} f32 forward: logits "
+                                     f"{tuple(logits.shape)}, max abs err "
+                                     f"{err:.3g} (bound {bound:.3g})")
+            log(f"  {variant} (depth 2) forward B=1 f32, N={hcfg.tokens}, "
+                f"dh={hcfg.width // hcfg.heads}: launches {delta}; logits "
+                f"max abs err vs {what} {err:.3g} (bound {bound:.3g})")
         # the path ends here: the counts are read before the timed forwards
         count = counters["fused_mlp_block"].launches
+        rowfull = counters["flash_attention"].launches
         online = counters["flash_attention_online"].launches
         if count != 12 * len(cases):
             raise AssertionError(f"fused_mlp_block launched {count} times in "
@@ -1864,7 +1950,8 @@ def run_forwards(device, counters) -> dict:
                                           **plain_kw[name]))
             log(lines[name, b] + f"; maps off: kernels {t_k:.2f} ms, plain "
                 f"versions {t_p:.2f} ms (host wall, synchronized)")
-    return {"fused_mlp_block": count, "flash_attention_online": online}
+    return {"fused_mlp_block": count, "flash_attention": rowfull,
+            "flash_attention_online": online}
 
 
 class ToMeCount:
@@ -1885,8 +1972,9 @@ class ToMeCount:
 
 class FwdBwdCount:
     """The forward and backward launch counts of a trainable attention's
-    route (``prefix`` "" for FMA, "mma_" for the tensor cores) as one
-    ``launches`` counter: reading sums them, setting sets both."""
+    route (``prefix`` "" for FMA, "mma_" for the bf16 tensor cores, "tf32_"
+    for split TF32) as one ``launches`` counter: reading sums them, setting
+    sets both."""
 
     def __init__(self, fn, prefix=""):
         self.fn, self.prefix = fn, prefix
@@ -1984,11 +2072,13 @@ def check_stats(tag, got, ref) -> str:
 def phase_train_kernel(device, packed: bool) -> dict:
     """``attention_train`` (or, ``packed``, ``attention_train_packed``)
     forward and backward against the plain versions: bf16 on the
-    tensor-core route (and, on a copy off the 16-byte grid, the FMA route
-    it replaces), f32 on the FMA route; the tensor-core forward's (m, l)
-    against the plain statistics. Returns the main path's numbers (vit_b16
-    packed, vit_t16 [B, H, N, dh]) of both routes (bf16 for the tensor
-    cores, f32 for FMA), SDPA forward + backward beside each."""
+    tensor-core route, f32 on the split-TF32 route (each forward's (m, l)
+    against the plain statistics), and each, on a copy off the 16-byte
+    grid, on the FMA route they replace. Returns the main path's numbers
+    (vit_b16 packed, vit_t16 [B, H, N, dh]) of the three routes (bf16 for
+    the tensor cores, f32 for split TF32 and for FMA, its time from the
+    copy off the grid), SDPA forward + backward beside each; the split
+    route's bound at the TF32 peak (three TF32 products a product)."""
     import torch
     import torch.nn.functional as F
 
@@ -2002,7 +2092,8 @@ def phase_train_kernel(device, packed: bool) -> dict:
 
     def counts():
         return (fn_counts.fwd_launches, fn_counts.bwd_launches,
-                fn_counts.mma_fwd_launches, fn_counts.mma_bwd_launches)
+                fn_counts.mma_fwd_launches, fn_counts.mma_bwd_launches,
+                fn_counts.tf32_fwd_launches, fn_counts.tf32_bwd_launches)
 
     out = {}
     for shape, n_real in cases:
@@ -2015,9 +2106,9 @@ def phase_train_kernel(device, packed: bool) -> dict:
             qkv0 = torch.randn((b, n, 3 * h * dh), generator=g).to(device,
                                                                    dtype)
             do = torch.randn((b, n, h * dh), generator=g).to(device, dtype)
-            routes = [("tensor cores" if mma else "FMA", qkv0)]
-            if mma:
-                routes.append(("FMA, off the 16-byte grid", misaligned(qkv0)))
+            routes = [("tensor cores" if mma else "split TF32", qkv0),
+                      ("FMA, off the 16-byte grid",
+                       misaligned(qkv0, 4 if mma else 2))]
             ref = None
             t_routes = {}
             for route, qkv in routes:
@@ -2054,7 +2145,8 @@ def phase_train_kernel(device, packed: bool) -> dict:
                 got = kernel()
                 torch.cuda.synchronize()
                 fma = route.startswith("FMA")
-                step = (1, 1, 0, 0) if fma else (0, 0, 1, 1)
+                step = ((1, 1, 0, 0, 0, 0) if fma else (0, 0, 1, 1, 0, 0)
+                        if mma else (0, 0, 0, 0, 1, 1))
                 if counts() != tuple(x + d for x, d in zip(before, step)):
                     raise AssertionError(f"{name} {dt} {route}: launches "
                                          f"{counts()} after {before}")
@@ -2109,21 +2201,31 @@ def phase_train_kernel(device, packed: bool) -> dict:
                 o = F.scaled_dot_product_attention(*sv)
                 return torch.autograd.grad(o, sv, sdo)
 
-            first = routes[0][0]
+            first, off_grid = routes[0][0], routes[1][0]
             t_k, t_p = time_turns(t_routes[first][4], t_routes[first][5])
             t_lib = time_ms(sdpa)
             nbytes, flops = train_attn_cost(b, h, n, dh, qkv0.element_size())
             bms, by = bound(nbytes, flops, dt)
+            # the split route's own products: three TF32 ones a product
+            tms, tby = bound(nbytes, {"tf32": 3 * flops}, dt)
             log(f"  {name} {shape} {dt}: " + ", ".join(
                 f"{r} fwd+bwd {t:.4f} ms (fwd {tf:.4f}, bwd {tb:.4f})"
                 for r, (t, tf, tb, _, _, _) in t_routes.items())
                 + f"; in turns kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
-                f"{bms:.5f} ms ({by}); scaled_dot_product_attention fwd+bwd "
-                f"{t_lib:.4f} ms")
-            out["mma" if mma else "fma"] = {
+                f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+                f"{flops / 1e9:.3f} GFLOP)"
+                + ("" if mma else f", at the TF32 peak (the split's "
+                   f"{3 * flops / 1e9:.3f} GFLOP) {tms:.5f} ms ({tby})")
+                + f"; scaled_dot_product_attention fwd+bwd {t_lib:.4f} ms")
+            out["mma" if mma else "tf32"] = {
                 "max_abs_err": max(t_routes[first][3]), "ms": t_k,
-                "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
-                "library_ms": t_lib}
+                "plain_ms": t_p, "bound_ms": bms if mma else tms,
+                "bound_by": by if mma else tby, "library_ms": t_lib}
+            if not mma:
+                out["fma"] = {
+                    "max_abs_err": max(t_routes[off_grid][3]),
+                    "ms": t_routes[off_grid][0], "plain_ms": t_p,
+                    "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
     return out
 
 
@@ -2196,8 +2298,10 @@ TRAIN_MMA_PROFILE = {"train_fwd_mma_kernel": 12, "train_dq_mma_kernel": 12,
 
 
 def phase_train(device, counters) -> dict:
-    """Phase 5: the trainer's runs (a)-(e); returns the launches (forward +
+    """Phase 5: the trainer's runs (a)-(f); returns the launches (forward +
     backward) of each trainable-attention route in its main-path run."""
+    import dataclasses
+
     import torch
 
     from interactive_vit_tpu_torch.models import vit
@@ -2268,62 +2372,92 @@ def phase_train(device, counters) -> dict:
         f"step); loss "
         + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
 
-    # (d) first-step f32 gradients: kernels against the plain attention
-    params = vit.init_params(cfg, torch.Generator().manual_seed(3),
-                             device=device)
-    images, labels = pattern_set(3, 8, cfg.img_size, cfg.num_classes)
-    images = torch.from_numpy(images).to(device)
-    labels = torch.from_numpy(labels).to(device)
+    # (d) first-step f32 gradients: the packed split-TF32 kernels against
+    # the plain attention
+    def first_step_gradients(tag, cfg, batch, packed, expect):
+        """The first step's f32 gradients through the kernels (every count
+        set to 0 just before, read just after: ``expect``, every other
+        kernel 0) against the plain attention on the same params and
+        batch; returns the counts."""
+        params = vit.init_params(cfg, torch.Generator().manual_seed(3),
+                                 device=device)
+        images, labels = pattern_set(3, batch, cfg.img_size,
+                                     cfg.num_classes)
+        images = torch.from_numpy(images).to(device)
+        labels = torch.from_numpy(labels).to(device)
 
-    def value_and_grads(p, **kw):
-        leaves = [x.detach().requires_grad_(True)
-                  for x in train_lib.tree_leaves(p)]
-        loss = train_lib.loss_fn(train_lib.tree_unflatten(p, leaves),
-                                 images, labels, cfg, **kw)
-        return loss.item(), torch.autograd.grad(loss, leaves)
+        def value_and_grads(p, **kw):
+            leaves = [x.detach().requires_grad_(True)
+                      for x in train_lib.tree_leaves(p)]
+            loss = train_lib.loss_fn(train_lib.tree_unflatten(p, leaves),
+                                     images, labels, cfg, **kw)
+            return loss.item(), torch.autograd.grad(loss, leaves)
 
-    for fn in counters.values():
-        fn.launches = 0
-    loss_k, g_k = value_and_grads(mesh.permute_qkv_head_major(params,
-                                                              cfg.heads),
-                                  attn_impl=av.trainable_flash_mhsa,
-                                  qkv_head_major=True)
-    torch.cuda.synchronize()
-    counts = (av.attention_train_packed.fwd_launches,
-              av.attention_train_packed.bwd_launches)
-    if counts != (12, 12):
-        raise AssertionError(f"gradients: packed launches {counts}")
-    launches["attention_train_packed"] = sum(counts)
-    g_k = train_lib.tree_leaves(mesh.unpermute_qkv_head_major(
-        train_lib.tree_unflatten(params, g_k), cfg.heads))
-    loss_r, g_r = value_and_grads(params)
-    if abs(loss_k - loss_r) > 1e-5 * max(1.0, abs(loss_r)):
-        raise AssertionError(f"gradients: loss {loss_k} vs plain {loss_r}")
-    worst = (0.0, "")
-    for (path, _), a, b in zip(train_lib.tree_leaves_with_path(params), g_k,
-                               g_r):
-        use = ((a - b).abs().max() / (TRAIN_GRAD_REL * b.abs().max())).item()
-        if not use <= 1.0:
-            raise AssertionError(f"gradients: {path} at {use:.2f} of its "
-                                 f"bound")
-        worst = max(worst, (use, path))
-    log(f"  train vit_b16 f32 first-step gradients, B=8: kernels (packed, "
-        f"12 + 12 launches) vs plain attention: loss {loss_k:.6f} vs "
-        f"{loss_r:.6f}; every parameter's gradient within {TRAIN_GRAD_REL:g} "
-        f"of its largest value, the nearest {worst[1]} at {worst[0]:.3f} of "
-        f"its bound")
+        for fn in counters.values():
+            fn.launches = 0
+        kw = {"attn_impl": av.trainable_flash_mhsa}
+        if packed:
+            kw["qkv_head_major"] = True
+            loss_k, g_k = value_and_grads(
+                mesh.permute_qkv_head_major(params, cfg.heads), **kw)
+        else:
+            loss_k, g_k = value_and_grads(params, **kw)
+        torch.cuda.synchronize()
+        counts = {k: fn.pair for k, fn in counters.items()
+                  if isinstance(fn, FwdBwdCount)}
+        want = {k: expect.get(k, (0, 0)) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+        if packed:
+            g_k = train_lib.tree_leaves(mesh.unpermute_qkv_head_major(
+                train_lib.tree_unflatten(params, g_k), cfg.heads))
+        loss_r, g_r = value_and_grads(params)
+        if abs(loss_k - loss_r) > 1e-5 * max(1.0, abs(loss_r)):
+            raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_r}")
+        worst = (0.0, "")
+        for (path, _), a, b in zip(train_lib.tree_leaves_with_path(params),
+                                   g_k, g_r):
+            use = ((a - b).abs().max()
+                   / (TRAIN_GRAD_REL * b.abs().max())).item()
+            if not use <= 1.0:
+                raise AssertionError(f"{tag}: {path} at {use:.2f} of its "
+                                     f"bound")
+            worst = max(worst, (use, path))
+        ran = {k: v for k, v in counts.items() if v != (0, 0)}
+        log(f"  {tag}, B={batch}: kernels ({ran}) vs plain attention: loss {loss_k:.6f} vs {loss_r:.6f}; every "
+            f"parameter's gradient within {TRAIN_GRAD_REL:g} of its largest "
+            f"value, the nearest {worst[1]} at {worst[0]:.3f} of its bound")
+        return counts
 
-    # (e) vit_t16 in f32: attention_train's FMA kernels
+    counts = first_step_gradients(
+        "train vit_b16 f32 first-step gradients", cfg, 8, True,
+        {"attention_train_packed_tf32": (12, 12)})
+    launches["attention_train_packed_tf32"] = sum(
+        counts["attention_train_packed_tf32"])
+    # no configuration gives the packed layout operands off the 16-byte
+    # grid: its FMA route has no main-path launch
+    launches["attention_train_packed"] = 0
+
+    # (e) vit_t16 in f32: attention_train's split-TF32 kernels
     steps = 2
     res = run_train(
         "train vit_t16 f32", ["--variant", "vit_t16", "--dtype", "float32",
                               "--batch", str(batch), "--steps", str(steps),
                               "--log-every", "1"],
-        counters, {"attention_train": (12 * steps, 12 * steps)})
-    launches["attention_train"] = sum(res["counts"]["attention_train"])
-    log(f"  train vit_t16 @224 f32, B={batch}, {steps} steps: FMA launches "
-        f"{res['counts']['attention_train']} (12 + 12 a step), tensor-core "
-        f"0; loss " + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
+        counters, {"attention_train_tf32": (12 * steps, 12 * steps)})
+    launches["attention_train_tf32"] = sum(
+        res["counts"]["attention_train_tf32"])
+    log(f"  train vit_t16 @224 f32, B={batch}, {steps} steps: split-TF32 "
+        f"launches {res['counts']['attention_train_tf32']} (12 + 12 a step), "
+        f"FMA and bf16 tensor-core 0; loss "
+        + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
+
+    # (f) heads 80 wide: attention_train's FMA kernels
+    hcfg = dataclasses.replace(vit.VARIANTS["vit_h14"], depth=2)
+    counts = first_step_gradients(
+        "train vit_h14 (depth 2) f32 first-step gradients", hcfg, 2, False,
+        {"attention_train": (2, 2)})
+    launches["attention_train"] = sum(counts["attention_train"])
     return launches
 
 
@@ -2369,6 +2503,7 @@ def main() -> int:
     fa.load_online_mma_kernel()
     fa.load_mma_kernel()
     fa.load_online_tf32_kernel()
+    av.load_tf32_kernel()
     fw.load_kernel()
     fm.load_kernel()
     fm.load_w8a8_kernel()
@@ -2394,7 +2529,12 @@ def main() -> int:
                     av.attention_train_packed, "mma_"),
                 "flash_attention_mma": fa.flash_attention_mma,
                 "flash_attention_online_tf32x3":
-                    fa.flash_attention_online_tf32x3}
+                    fa.flash_attention_online_tf32x3,
+                "flash_attention_tf32x3": fa.flash_attention_tf32x3,
+                "attention_train_tf32": FwdBwdCount(av.attention_train,
+                                                    "tf32_"),
+                "attention_train_packed_tf32": FwdBwdCount(
+                    av.attention_train_packed, "tf32_")}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
@@ -2452,6 +2592,9 @@ def main() -> int:
         "attention_train_packed_mma": train_packed["mma"],
         "flash_attention_mma": flash["mma"],
         "flash_attention_online_tf32x3": online["tf32"],
+        "flash_attention_tf32x3": flash["tf32"],
+        "attention_train_tf32": train["tf32"],
+        "attention_train_packed_tf32": train_packed["tf32"],
     }
 
     # 4. the paths through the server
@@ -2486,12 +2629,13 @@ def main() -> int:
                  conc=2, node_params={14: {"attn_heads": "[0,7,15]"}}),
         # the row-resident kernel on the tensor cores in all 12 blocks (the
         # profile must show it 12 times and the FMA kernel never); the f32
-        # request's 12 on the FMA kernel
+        # request's 12 on split TF32, none on the FMA kernel
         vit_path("dinov2_s14_reg", 518, {2: ("attn", "r"), 8: ("r",),
                                          13: ("r",)},
                  {"flash_attention_mma": 12},
                  {"attn_impl": fa.flash_attention_reference}, seq=3, conc=0,
-                 f32_kernels={"flash_attention": 12},
+                 f32_kernels={"flash_attention_tf32x3": 12,
+                              "flash_attention": 0},
                  profile_kernels={"rowfull_mma_kernel": 12,
                                   "tiled_attention_kernel": 0}),
         # nodes 2, 3: stages.0.0 and stages.0.1 (shifted); 13: stages.2.5;

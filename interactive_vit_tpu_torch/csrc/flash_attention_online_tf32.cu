@@ -17,40 +17,20 @@
 // running sums. The exponent is expf; the scale, subtraction, alpha and l
 // updates and the division are explicitly rounded operations.
 //
-// The products. Plain TF32 keeps 10 mantissa bits and would break the f32
-// contract (1e-4), so every product a b is taken as three tensor-core
-// products on a split of each operand: hi = cvt.rna.tf32.f32(x) and lo =
-// cvt.rna.tf32.f32(x - hi) (x - hi is exact in f32), and
-//   a b ~= a_hi b_hi + (a_lo b_hi + a_hi b_lo),
-// on mma.sync m16n8k8 tf32 with f32 accumulators. The dropped a_lo b_lo and
-// the rounding of lo are about 2^-21 of |a b|. The tensor cores' f32
-// accumulation does not round to nearest (it truncates), so a long sum in
-// one accumulator drifts: on an H100, o accumulated over 2814 keys in one
-// accumulator missed 1e-4 (1.1e-4). So the hi products and the
-// correction terms sum in two accumulators, each over one key tile only
-// (8 or 16 products), and are added, and folded into the running sums,
-// with round-to-nearest f32 operations: s = big + small per score, and
-// acc = alpha * acc + (big + small) per tile, the plain version's form. Q
-// is split once into registers; K, V and p are split in registers as each
-// fragment is read. Splitting K and V into hi and lo tiles in shared
-// memory once a tile instead (a third more shared memory, a barrier) was
-// slower on an H100 SXM: 0.358 against 0.353 ms at two parts
-// (tools/kernel_variants.py).
-//
-// Fragment layout of m16n8k8 tf32 (PTX ISA), g = lane / 4, t = lane % 4:
-// A [16 x 8]: a0 = (g, t), a1 = (g + 8, t), a2 = (g, t + 4), a3 = (g + 8,
-// t + 4); B [8 x 8]: b0 = (k t, n g), b1 = (k t + 4, n g); C [16 x 8]: c0,
-// c1 = (g, 2t), (g, 2t + 1); c2, c3 = (g + 8, 2t), (g + 8, 2t + 1). A
-// product sums over k in any order, so both products take the depth index
-// permuted, k = t <-> 2t and k = t + 4 <-> 2t + 1: then
-//   S = Q K^T: a thread's A and B values (head dims 2t, 2t + 1) are
-//     neighbours, one 8-byte shared load each;
-//   O = P V: the S accumulators (keys 2t, 2t + 1 of rows g, g + 8) are the
-//     A fragment as they stand (a0 = c0, a1 = c2, a2 = c1, a3 = c3), with
-//     V's B fragment read at keys 2t and 2t + 1: no quad shuffles.
-// There is no ldmatrix for 32-bit tiles; the padded rows make the loads
-// conflict-free: K rows of 72 floats for 8-byte loads (a half-warp's 16
-// lanes hit 32 distinct banks), V rows of 68 for 4-byte loads.
+// The products: every product a b is taken as three TF32 tensor-core
+// products on a hi / lo split of each operand (tf32_attention.cuh), with
+// the hi products and the correction terms in two accumulators, each over
+// one key tile only (8 or 16 products), added, and folded into the running
+// sums, with round-to-nearest f32 operations: s = big + small per score,
+// and acc = alpha * acc + (big + small) per tile, the plain version's form.
+// (On an H100, o accumulated over 2814 keys in one accumulator missed 1e-4:
+// 1.1e-4.) Q is split once into registers; K, V and p are split in
+// registers as each fragment is read. Splitting K and V into hi and lo
+// tiles in shared memory once a tile instead (a third more shared memory,
+// a barrier) was slower on an H100 SXM: 0.358 against 0.353 ms at two parts
+// (tools/kernel_variants.py). The depth index is permuted (2t, 2t + 1), so
+// Q and K load as 8-byte pairs and S's accumulators are PV's A fragment as
+// they stand (tf32_attention.cuh); K rows of 72 floats, V rows of 68.
 //
 // Design: one block of 4 warps per (64 query rows, head, image); each warp
 // owns 16 query rows, whose split Q fragments stay in registers. K and V
@@ -66,20 +46,16 @@
 // Plain C interface, bound from Python with ctypes; the launch goes on the
 // caller's stream and the entry returns cudaGetLastError().
 
-#include "mma_attention.cuh"
+#include "tf32_attention.cuh"
 
 namespace {
 
-constexpr int TF_DH = 64, TF_ROWS = 64, TF_KT = 64, TF_WARPS = 4, TF_THREADS = 32 * TF_WARPS;
+constexpr int TF_ROWS = 64, TF_KT = 64, TF_WARPS = 4, TF_THREADS = 32 * TF_WARPS;
 constexpr int TF_NT = TF_KT / 8;      // 8-key tiles of a key tile
-constexpr int TF_KS = TF_DH / 8;      // 8-deep steps over the head dim
-constexpr int TF_DT = TF_DH / 8;      // 8-column tiles of o
 // PV in parts of o's columns (fewer live accumulators): on an H100 SXM
 // one part (254 registers) took 0.341 ms at dinov2_s14_reg@742, two
 // (which spill) 0.353, four 0.351 (tools/kernel_variants.py)
 constexpr int TF_PV_PARTS = 1;
-constexpr int K_LD = TF_DH + 8;       // K (and Q) rows, floats
-constexpr int V_LD = TF_DH + 4;       // V rows, floats
 constexpr int TF_STAGE = TF_KT * (K_LD + V_LD);  // floats: K then V
 constexpr size_t TF_SMEM = 2 * TF_STAGE * sizeof(float);
 static_assert(TF_ROWS * K_LD <= TF_KT * K_LD, "Q fits a K slot");
@@ -94,52 +70,6 @@ struct OnlineTf32Args {
   float scale, mask_value;
 };
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x ~= hi + lo, both TF32 values (f32 bit patterns, low 13 bits zero)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// c += a b, tf32 operands, f32 accumulators
-__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// big += a_hi b_hi and small += a_lo b_hi + a_hi b_lo on the split operands
-__device__ __forceinline__ void mma_3xtf32(float big[4], float small[4], const uint32_t ah[4],
-                                           const uint32_t al[4], float b0, float b1) {
-  uint32_t bh0, bl0, bh1, bl1;
-  split(b0, bh0, bl0);
-  split(b1, bh1, bl1);
-  mma_tf32(small, al, bh0, bh1);
-  mma_tf32(small, ah, bl0, bl1);
-  mma_tf32(big, ah, bh0, bh1);
-}
-
-// Rows [r0, r0 + rows) of an f32 [*, TF_DH] operand (row stride sn
-// elements) into a shared tile with rows of `ld` floats, by cp.async; rows
-// at or past `live` are zero-filled.
-__device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src, long long sn,
-                                              int r0, int rows, int live) {
-  constexpr int CHUNKS = TF_DH / 4;  // 16-byte chunks of a row
-  for (int c = threadIdx.x; c < rows * CHUNKS; c += TF_THREADS) {
-    const int i = c / CHUNKS, part = c % CHUNKS;
-    const bool in = r0 + i < live;
-    const float* s = src + (in ? (long long)(r0 + i) * sn + part * 4 : 0);
-    cp_async16(smem_addr(dst + i * ld + part * 4), s, in ? 16 : 0);
-  }
-}
-
 __global__ void __launch_bounds__(TF_THREADS) online_tf32_kernel(const OnlineTf32Args a) {
   extern __shared__ float4 tf_smem4[];
   float* smem = reinterpret_cast<float*>(tf_smem4);  // stage s: K at s * TF_STAGE, V after it
@@ -150,27 +80,19 @@ __global__ void __launch_bounds__(TF_THREADS) online_tf32_kernel(const OnlineTf3
   const int N = a.N, n_tiles = (N + TF_KT - 1) / TF_KT;
 
   // Q through stage 1's K slot, tile 0 into stage 0
-  load_rows_f32(smem + TF_STAGE, K_LD, a.q + b * a.q_sb + h * a.q_sh, a.q_sn, q0, TF_ROWS, N);
-  load_rows_f32(smem, K_LD, kb, a.k_sn, 0, TF_KT, N);
-  load_rows_f32(smem + TF_KT * K_LD, V_LD, vb, a.v_sn, 0, TF_KT, a.n_real);
+  load_rows_f32(smem + TF_STAGE, K_LD, a.q + b * a.q_sb + h * a.q_sh, a.q_sn, q0, TF_ROWS, N,
+                TF_THREADS);
+  load_rows_f32(smem, K_LD, kb, a.k_sn, 0, TF_KT, N, TF_THREADS);
+  load_rows_f32(smem + TF_KT * K_LD, V_LD, vb, a.v_sn, 0, TF_KT, a.n_real, TF_THREADS);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
   // the warp's split Q fragments: step kc holds head dims 8 kc + 2t (a0,
   // a1) and 8 kc + 2t + 1 (a2, a3) of rows g and g + 8
   uint32_t qh[TF_KS][4], ql[TF_KS][4];
-  {
-    const float* Qs = smem + TF_STAGE + (16 * warp + g) * K_LD + 2 * t;
 #pragma unroll
-    for (int kc = 0; kc < TF_KS; ++kc) {
-      const float2 top = *reinterpret_cast<const float2*>(Qs + 8 * kc);
-      const float2 bot = *reinterpret_cast<const float2*>(Qs + 8 * K_LD + 8 * kc);
-      split(top.x, qh[kc][0], ql[kc][0]);
-      split(bot.x, qh[kc][1], ql[kc][1]);
-      split(top.y, qh[kc][2], ql[kc][2]);
-      split(bot.y, qh[kc][3], ql[kc][3]);
-    }
-  }
+  for (int kc = 0; kc < TF_KS; ++kc)
+    load_a_rows(qh[kc], ql[kc], smem + TF_STAGE + 16 * warp * K_LD, kc, lane);
   __syncthreads();  // Q read before stage 1 is overwritten
 
   float oacc[TF_DT][4];
@@ -183,8 +105,9 @@ __global__ void __launch_bounds__(TF_THREADS) online_tf32_kernel(const OnlineTf3
     const int j0 = it * TF_KT;
     if (it + 1 < n_tiles) {
       float* nxt = smem + ((it + 1) & 1) * TF_STAGE;
-      load_rows_f32(nxt, K_LD, kb, a.k_sn, j0 + TF_KT, TF_KT, N);
-      load_rows_f32(nxt + TF_KT * K_LD, V_LD, vb, a.v_sn, j0 + TF_KT, TF_KT, a.n_real);
+      load_rows_f32(nxt, K_LD, kb, a.k_sn, j0 + TF_KT, TF_KT, N, TF_THREADS);
+      load_rows_f32(nxt + TF_KT * K_LD, V_LD, vb, a.v_sn, j0 + TF_KT, TF_KT, a.n_real,
+                    TF_THREADS);
       cp_async_commit();
       cp_async_wait<1>();  // this tile's group has landed; the next one flies
     } else {
@@ -207,7 +130,7 @@ __global__ void __launch_bounds__(TF_THREADS) online_tf32_kernel(const OnlineTf3
         mma_3xtf32(s[n], small, qh[kc], ql[kc], kv.x, kv.y);
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = __fadd_rn(s[n][e], small[e]);
+      for (int e = 0; e < 4; ++e) s[n][e] = fold_rn(s[n][e], small[e]);
     }
 
     // scale, mask, and the tile's row max (rows g: e = 0, 1; g + 8: e = 2, 3)
@@ -267,7 +190,7 @@ __global__ void __launch_bounds__(TF_THREADS) online_tf32_kernel(const OnlineTf3
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float& o = oacc[HT * part + d][e];
-          o = __fadd_rn(__fmul_rn(o, alpha[e >> 1]), __fadd_rn(big[d][e], small[d][e]));
+          o = __fadd_rn(__fmul_rn(o, alpha[e >> 1]), fold_rn(big[d][e], small[d][e]));
         }
     }
     __syncthreads();  // this stage consumed before the next prefetch reuses it

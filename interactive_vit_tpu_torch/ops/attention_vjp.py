@@ -12,24 +12,32 @@ layouts, one kernel pair for each direction:
   ``[B, N, D]`` in head order and its backward writes the gradient straight
   into a ``[B, N, 3D]`` dqkv, so no cat or transpose exists around it.
 
-For CUDA tensors both launch hand-written kernels, on one of two routes
-chosen by dtype and shape (``flash_attention.mma_route``), never by a
-failure: a failed build or launch raises.
+For CUDA tensors both launch hand-written kernels, on one of three routes
+chosen by dtype, head width and alignment (``flash_attention.mma_route``,
+``flash_attention.tf32_route``, read on the element pointers and
+strides), never by a failure: a failed build or launch raises.
 
 * bf16, heads ``MMA_DH`` (64) wide, 16-byte aligned operands: the tensor-
   core kernels of ``csrc/attention_train_mma.cu`` (a forward, and a
-  backward pair: dq, then dk / dv). The forward also returns each row's
-  softmax statistics (m, l) in f32, which the autograd Function saves
-  beside q, k, v for the backward (an internal residual: the JAX kernels
-  save q, k, v only; outputs and gradients do not change). Counted on
-  ``.mma_fwd_launches`` / ``.mma_bwd_launches``.
-* everything else (f32; bf16 of other widths or alignments): the f32 FMA
-  kernels, the forward the row-resident kernel of
+  backward pair: dq, then dk / dv). Counted on ``.mma_fwd_launches`` /
+  ``.mma_bwd_launches``.
+* f32, heads ``MMA_DH`` wide, 16-byte aligned operands: the split-TF32
+  tensor-core kernels, the forward row 3's ``csrc/flash_attention_tf32.cu``
+  (given the layout's element strides), the backward pair
+  ``csrc/attention_train_tf32.cu``; every product as three TF32 products
+  of a hi / lo split. Counted on ``.tf32_fwd_launches`` /
+  ``.tf32_bwd_launches``.
+* everything else (f32 and bf16 of other widths or alignments): the f32
+  FMA kernels, the forward the row-resident kernel of
   ``csrc/flash_attention.cu`` (given the layout's element strides, no
   copies), the backward ``csrc/attention_bwd.cu``. Counted on
   ``.fwd_launches`` / ``.bwd_launches``.
 
-Both counters live on ``attention_train`` and ``attention_train_packed``.
+On both tensor-core routes the forward also returns each row's softmax
+statistics (m, l) in f32, which the autograd Function saves beside q, k, v
+for the backward (an internal residual: the JAX kernels save q, k, v only;
+outputs and gradients do not change). The counters live on
+``attention_train`` and ``attention_train_packed``.
 For CPU tensors they run the plain versions beside them
 (``attention_train_reference``, ``head_grads_reference`` and their packed
 twins; ``row_stats_reference`` for (m, l)), in f32 for f32 and bf16 inputs
@@ -225,6 +233,34 @@ def load_mma_kernel() -> ctypes.CDLL:
     return lib
 
 
+# ivt_attention_train_bwd_tf32's parameters: those of the bf16 entry
+TRAIN_TF32_BWD_ARGTYPES = TRAIN_MMA_BWD_ARGTYPES
+
+
+def _tf32_lib() -> ctypes.CDLL:
+    """Build (first use) and load the split-TF32 backward's library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("attention_train_tf32")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_attention_train_bwd_tf32.argtypes = TRAIN_TF32_BWD_ARGTYPES
+        lib.ivt_attention_train_bwd_tf32.restype = ctypes.c_int
+        lib.ivt_train_tf32_dh.argtypes = []
+        lib.ivt_train_tf32_dh.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 forward and backward now; checks their
+    head width against ``MMA_DH``."""
+    fa.load_tf32_kernel()
+    lib = _tf32_lib()
+    if lib.ivt_train_tf32_dh() != MMA_DH:
+        raise RuntimeError("csrc/attention_train_tf32.cu and MMA_DH disagree")
+    return lib
+
+
 def _check_cuda(name, tensors, n, dh):
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
@@ -295,6 +331,18 @@ def _mma_ok(dtype, dh, ptrs, strides) -> bool:
     return fa.mma_route(dtype, dh, ptrs, [s for st in strides for s in st])
 
 
+def _tf32_ok(dtype, dh, ptrs, strides) -> bool:
+    """``flash_attention.tf32_route`` on element pointers and (image, head,
+    token) stride triples."""
+    return fa.tf32_route(dtype, dh, ptrs, [s for st in strides for s in st])
+
+
+def _tc_ok(dtype, dh, ptrs, strides) -> bool:
+    """Either tensor-core route (bf16 or f32: their dtypes differ)."""
+    return (_mma_ok(dtype, dh, ptrs, strides)
+            or _tf32_ok(dtype, dh, ptrs, strides))
+
+
 def _launch_fwd_mma(ptrs, strides, device, b, h, n, n_real):
     """One launch of the tensor-core forward. ``ptrs``: q, k, v, o;
     ``strides``: their stride triples. Returns the rows' (m, l), f32
@@ -313,17 +361,31 @@ def _launch_fwd_mma(ptrs, strides, device, b, h, n, n_real):
     return stats
 
 
-def _launch_bwd_mma(ptrs, strides, stats, device, b, h, n, n_real) -> None:
-    """One launch of the tensor-core backward pair. ``ptrs``: q, k, v, do,
-    dq, dk, dv; ``strides``: their stride triples; ``stats``: the
-    forward's (m, l)."""
-    lib = _mma_lib()
+def _launch_fwd_tf32(ptrs, strides, device, b, h, n, n_real):
+    """One launch of the split-TF32 forward (row 3's kernel with the (m, l)
+    output). ``ptrs``: q, k, v, o; ``strides``: their stride triples.
+    Returns the rows' (m, l), f32 [2, B, H, N]."""
+    stats = torch.empty((2, b, h, n), dtype=torch.float32, device=device)
+    fa.launch_flash_tf32(ptrs, strides, device, b, h, n, n_real,
+                         stats_ptr=stats.data_ptr())
+    return stats
+
+
+def _launch_bwd_tc(ptrs, strides, stats, dtype, device, b, h, n,
+                   n_real) -> None:
+    """One launch of a tensor-core backward pair: bf16 on
+    ``csrc/attention_train_mma.cu``, f32 on ``csrc/attention_train_tf32.cu``.
+    ``ptrs``: q, k, v, do, dq, dk, dv; ``strides``: their stride triples;
+    ``stats``: the forward's (m, l)."""
+    entry = (_tf32_lib().ivt_attention_train_bwd_tf32
+             if dtype == torch.float32
+             else _mma_lib().ivt_attention_train_bwd_mma)
     flat = (ctypes.c_longlong * 21)(*[s for st in strides for s in st])
     with torch.cuda.device(device):
         # delta per (image, head, query row), from the dq kernel to dk / dv
         delta = torch.empty((b, h, n), dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.ivt_attention_train_bwd_mma(
+        err = entry(
             *ptrs, stats.data_ptr(), delta.data_ptr(), ctypes.addressof(flat),
             b, h, n, MMA_DH, n_real, float(MMA_DH) ** -0.5, MASK_VALUE,
             stream)
@@ -333,7 +395,7 @@ def _launch_bwd_mma(ptrs, strides, stats, device, b, h, n, n_real) -> None:
 
 
 def _fwd(q, k, v, n_real):
-    """-> (o, the rows' (m, l) on the tensor-core route, else None)."""
+    """-> (o, the rows' (m, l) on a tensor-core route, else None)."""
     if q.device.type == "cpu":
         return attention_train_reference(q, k, v, n_real), None
     b, h, n, dh = q.shape
@@ -347,18 +409,22 @@ def _fwd(q, k, v, n_real):
         stats = _launch_fwd_mma(ptrs, strides, q.device, b, h, n, n_real)
         attention_train.mma_fwd_launches += 1
         return o, stats
+    if _tf32_ok(q.dtype, dh, ptrs, strides):
+        stats = _launch_fwd_tf32(ptrs, strides, q.device, b, h, n, n_real)
+        attention_train.tf32_fwd_launches += 1
+        return o, stats
     _launch_fwd(q, k, v, o, (0, 0, 0), strides, b, h, n, dh, n_real)
     attention_train.fwd_launches += 1
     return o, None
 
 
 def _bwd(q, k, v, do, n_real, stats=None):
-    """dq, dk, dv; ``stats``: the forward's (m, l) where it took the
-    tensor-core route (the backward takes it too), else None."""
+    """dq, dk, dv; ``stats``: the forward's (m, l) where it took a
+    tensor-core route (the backward takes the same one), else None."""
     if q.device.type == "cpu":
         return head_grads_reference(q, k, v, do, n_real)
     b, h, n, dh = q.shape
-    if do.stride(-1) != 1 or (stats is not None and not _mma_ok(
+    if do.stride(-1) != 1 or (stats is not None and not _tc_ok(
             do.dtype, dh, [_ptr(do)], [_strides(do, None)])):
         do = do.contiguous()
     _check_cuda("attention_train", (q, k, v, do), n, dh)
@@ -368,8 +434,12 @@ def _bwd(q, k, v, do, n_real, stats=None):
     ts = (q, k, v, do, dq, dk, dv)
     ptrs, strides = [_ptr(t) for t in ts], [_strides(t, None) for t in ts]
     if stats is not None:
-        _launch_bwd_mma(ptrs, strides, stats, q.device, b, h, n, n_real)
-        attention_train.mma_bwd_launches += 1
+        _launch_bwd_tc(ptrs, strides, stats, q.dtype, q.device, b, h, n,
+                       n_real)
+        if q.dtype == torch.float32:
+            attention_train.tf32_bwd_launches += 1
+        else:
+            attention_train.mma_bwd_launches += 1
         return dq, dk, dv
     _launch_bwd(ptrs, strides, q.dtype, q.device, b, h, n, dh, n_real)
     attention_train.bwd_launches += 1
@@ -382,7 +452,7 @@ class _AttentionTrain(torch.autograd.Function):
         n = q.shape[-2]
         nr = n if n_real is None else min(int(n_real), n)
         ctx.n_real = nr
-        # residuals: q, k, v, as in JAX, and on the tensor-core route the
+        # residuals: q, k, v, as in JAX, and on a tensor-core route the
         # rows' (m, l); the backward recomputes P
         o, stats = _fwd(q, k, v, nr)
         ctx.save_for_backward(q, k, v, stats)
@@ -407,10 +477,12 @@ attention_train.fwd_launches = 0
 attention_train.bwd_launches = 0
 attention_train.mma_fwd_launches = 0
 attention_train.mma_bwd_launches = 0
+attention_train.tf32_fwd_launches = 0
+attention_train.tf32_bwd_launches = 0
 
 
 def _packed_fwd(qkv, n_real):
-    """-> (o [B, N, D], the rows' (m, l) on the tensor-core route, else
+    """-> (o [B, N, D], the rows' (m, l) on a tensor-core route, else
     None)."""
     if qkv.device.type == "cpu":
         return attention_train_packed_reference(qkv, n_real), None
@@ -429,6 +501,10 @@ def _packed_fwd(qkv, n_real):
         stats = _launch_fwd_mma(ptrs, strides, qkv.device, b, h, n, n_real)
         attention_train_packed.mma_fwd_launches += 1
         return o, stats
+    if _tf32_ok(qkv.dtype, dh, ptrs, strides):
+        stats = _launch_fwd_tf32(ptrs, strides, qkv.device, b, h, n, n_real)
+        attention_train_packed.tf32_fwd_launches += 1
+        return o, stats
     _launch_fwd(qkv, qkv, qkv, o, (0, dh, 2 * dh), strides, b, h, n, dh,
                 n_real)
     attention_train_packed.fwd_launches += 1
@@ -442,7 +518,7 @@ def _packed_bwd(qkv, do, n_real, stats=None):
     b, n, d3 = qkv.shape
     dh = PACKED_DH
     h = d3 // (3 * dh)
-    if do.stride(-1) != 1 or (stats is not None and not _mma_ok(
+    if do.stride(-1) != 1 or (stats is not None and not _tc_ok(
             do.dtype, dh, [_ptr(do)], [_strides(do, dh)])):
         do = do.contiguous()
     _check_cuda("attention_train_packed", (qkv, do), n, dh)
@@ -453,8 +529,12 @@ def _packed_bwd(qkv, do, n_real, stats=None):
             _ptr(dqkv), _ptr(dqkv, dh), _ptr(dqkv, 2 * dh)]
     strides = [s_in, s_in, s_in, s_do, s_out, s_out, s_out]
     if stats is not None:
-        _launch_bwd_mma(ptrs, strides, stats, qkv.device, b, h, n, n_real)
-        attention_train_packed.mma_bwd_launches += 1
+        _launch_bwd_tc(ptrs, strides, stats, qkv.dtype, qkv.device, b, h, n,
+                       n_real)
+        if qkv.dtype == torch.float32:
+            attention_train_packed.tf32_bwd_launches += 1
+        else:
+            attention_train_packed.mma_bwd_launches += 1
         return dqkv
     _launch_bwd(ptrs, strides, qkv.dtype, qkv.device, b, h, n, dh, n_real)
     attention_train_packed.bwd_launches += 1
@@ -488,6 +568,8 @@ attention_train_packed.fwd_launches = 0
 attention_train_packed.bwd_launches = 0
 attention_train_packed.mma_fwd_launches = 0
 attention_train_packed.mma_bwd_launches = 0
+attention_train_packed.tf32_fwd_launches = 0
+attention_train_packed.tf32_bwd_launches = 0
 
 
 def trainable_flash_mhsa(q, k, v, want_attn: bool = False,

@@ -29,10 +29,12 @@ serves, and its own launch count:
   online branch ``flash_attention_online_mma``
   (``csrc/flash_attention_online_mma.cu``);
 * f32 heads of ``MMA_DH`` columns with 16-byte aligned operands
-  (``tf32_route``): the online branch runs
-  ``flash_attention_online_tf32x3`` (``csrc/flash_attention_online_tf32.cu``:
-  every product as three TF32 products of a hi / lo split, which keeps the
-  f32 contract); the row-resident branch stays on the f32 FMA kernel;
+  (``tf32_route``): the row-resident branch runs ``flash_attention_tf32x3``
+  (``csrc/flash_attention_tf32.cu``, the probs tap included), the online
+  branch ``flash_attention_online_tf32x3``
+  (``csrc/flash_attention_online_tf32.cu``): every product as three TF32
+  products of a hi / lo split (``csrc/tf32_attention.cuh``), which keeps
+  the f32 contract;
 * everything else keeps the f32 FMA kernels.
 
 Numerics (the JAX row-resident kernel's): f32 scores times dh^-0.5, keys
@@ -94,7 +96,7 @@ def mma_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
 
 
 def tf32_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
-    """True when operands take the split-TF32 online kernel: f32, heads
+    """True when operands take the split-TF32 kernels: f32, heads
     ``MMA_DH`` wide, every base address and every (image, head, token)
     stride a multiple of 16 bytes."""
     return (dtype == torch.float32 and dh == MMA_DH
@@ -242,7 +244,8 @@ def flash_attention(
     ``n_real``: keys at or beyond it are masked (padded token domain).
     N above ``ROWFULL_MAX_N`` with maps off goes to
     ``flash_attention_online``, bf16 operands that ``mma_route`` takes to
-    ``flash_attention_mma``, each counting its launches; this wrapper's
+    ``flash_attention_mma``, f32 ones that ``tf32_route`` takes to
+    ``flash_attention_tf32x3``, each counting its launches; this wrapper's
     count is the f32 FMA row-resident kernel's."""
     b, h, n, dh = q.shape
     n_real = n if n_real is None else min(int(n_real), n)
@@ -259,6 +262,8 @@ def flash_attention(
     _check_operands(q, k, v)
     if _mma_operands(q, k, v):
         return flash_attention_mma(q, k, v, want_attn, n_real)
+    if _tf32_operands(q, k, v):
+        return flash_attention_tf32x3(q, k, v, want_attn, n_real)
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     lib = _kernel_lib()
     with torch.cuda.device(q.device):
@@ -367,6 +372,96 @@ def flash_attention_mma(
 
 
 flash_attention_mma.launches = 0
+
+
+# -- the row-resident kernel on the tensor cores (f32, split TF32) -------------
+
+
+# ivt_flash_attention_tf32x3's parameters: q, k, v, o, probs, stats; 12
+# strides; B, H, N, dh, n_real; scale, mask_value; the stream
+FLASH_TF32_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 12
+                       + [ctypes.c_int] * 5 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+
+
+def _flash_tf32_lib() -> ctypes.CDLL:
+    """Build (first use) and load the split-TF32 row-resident library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("flash_attention_tf32")
+    if not getattr(lib, "_ivt_bound", False):
+        lib.ivt_flash_attention_tf32x3.argtypes = FLASH_TF32_ARGTYPES
+        lib.ivt_flash_attention_tf32x3.restype = ctypes.c_int
+        lib.ivt_flash_tf32_dh.argtypes = []
+        lib.ivt_flash_tf32_dh.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def load_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 row-resident kernel now; checks its
+    head width against ``MMA_DH``."""
+    lib = _flash_tf32_lib()
+    if lib.ivt_flash_tf32_dh() != MMA_DH:
+        raise RuntimeError("csrc/flash_attention_tf32.cu and MMA_DH disagree")
+    return lib
+
+
+def launch_flash_tf32(ptrs, strides, device, b: int, h: int, n: int,
+                      n_real: int, probs_ptr=None, stats_ptr=None) -> None:
+    """One launch of ``csrc/flash_attention_tf32.cu`` on element pointers
+    ``ptrs`` (q, k, v, o) and their (image, head, token) stride triples;
+    ``probs_ptr``: a [B, H, N, N] f32 tap or None; ``stats_ptr``: an f32
+    [2, B, H, N] buffer for each row's (m, l) or None. Raises on a failed
+    launch. The trainable attention's f32 forward calls it too."""
+    lib = _flash_tf32_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.ivt_flash_attention_tf32x3(
+            *ptrs, probs_ptr, stats_ptr, *(s for st in strides for s in st),
+            b, h, n, MMA_DH, n_real, float(MMA_DH) ** -0.5, MASK_VALUE, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_tf32x3 kernel launch failed: "
+                           f"cudaError {err}")
+
+
+def flash_attention_tf32x3(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    want_attn: bool = False,
+    n_real: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``flash_attention``'s row-resident contract (probs tap included) in
+    f32 on the split-TF32 tensor-core kernel ``csrc/flash_attention_tf32.cu``:
+    one launch for CUDA tensors, counted in
+    ``flash_attention_tf32x3.launches``; raises on operands that
+    ``tf32_route`` or ``fits`` refuses. For CPU tensors the plain
+    version."""
+    b, h, n, dh = q.shape
+    n_real = n if n_real is None else min(int(n_real), n)
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, want_attn, n_real)
+    _check_operands(q, k, v)
+    if not _tf32_operands(q, k, v):
+        raise ValueError(
+            f"flash_attention_tf32x3 takes f32 heads {MMA_DH} wide with "
+            f"16-byte aligned pointers and strides, got {q.dtype}, dh={dh}, "
+            f"strides {[t.stride() for t in (q, k, v)]}")
+    # token-major o, as the FMA kernel's wrapper writes it
+    o = torch.empty((b, n, h, dh), dtype=q.dtype,
+                    device=q.device).transpose(1, 2)
+    probs = (torch.empty((b, h, n, n), dtype=q.dtype, device=q.device)
+             if want_attn else None)
+    ts = (q, k, v, o)
+    launch_flash_tf32([t.data_ptr() for t in ts], [t.stride()[:3] for t in ts],
+                      q.device, b, h, n, n_real,
+                      None if probs is None else probs.data_ptr())
+    flash_attention_tf32x3.launches += 1
+    return o, probs
+
+
+flash_attention_tf32x3.launches = 0
 
 
 # -- the online-softmax kernel ------------------------------------------------

@@ -18,7 +18,17 @@ limit first. The variants:
 * ``flash_attention_online_tf32.cu`` (row 4, f32 on split TF32): PV in
   one part of o's columns (the source), in 2 and in 4, and K and V split
   into hi and lo tiles in shared memory once a tile (PV in 2 parts, to
-  compare with the register split at the same parts).
+  compare with the register split at the same parts);
+* ``flash_attention_tf32.cu`` (row 3, f32 on split TF32): the key parts of
+  a tile as chosen by the grid and maps off in one online walk (the
+  source), always 1 part, always 2, and maps off in two walks as maps on
+  (parts by the grid);
+* ``attention_train_tf32.cu`` (rows 8-9's backward, f32 on split TF32):
+  streamed tiles of 32 keys or queries taken whole (the source), tiles of
+  64 in halves of 32, tiles of 32 in halves of 16, and tiles of 16 taken
+  whole; held against
+  ``head_grads_reference`` (dq, dk, dv within 1e-5 of each one's largest
+  value) from the forward's own (m, l).
 
 Needs a CUDA card and ``nvcc``; it raises without them.
 """
@@ -33,6 +43,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from interactive_vit_tpu_torch.ops import attention_vjp as av
 from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.runtime import cuda_build
 
@@ -41,6 +52,11 @@ OUT_DIR = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "kernel_variants")
 ROW_PARTS = ("  return (int)(blocks <= sms ? launch_rowfull<4>(a, B, s) : "
              "launch_rowfull<2>(a, B, s));")
 PV_PARTS = "constexpr int TF_PV_PARTS = 1;"
+ROW_TF32_PARTS = ("  return (int)(blocks <= sms ? launch_split<2>(a, s) : "
+                  "launch_split<1>(a, s));")
+ONE_WALK = "constexpr bool FT_ONE_WALK_MAPS_OFF = true;"
+TRAIN_KT = "constexpr int TT_ROWS = 64, TT_THREADS = 128, TT_KT = 32;"
+TRAIN_HALF = "constexpr int TT_HALF = TT_KT,"
 
 # K and V split into hi and lo in shared memory once a tile: hi overwrites
 # the stage in place, lo goes to a third buffer; the products read both
@@ -93,6 +109,33 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row4_pv_4": ("flash_attention_online_tf32", [
         (PV_PARTS, "constexpr int TF_PV_PARTS = 4;")]),
     "row4_smem_split_pv_2": ("flash_attention_online_tf32", SMEM_SPLIT),
+    "row3_f32_parts_by_grid": ("flash_attention_tf32", []),
+    "row3_f32_parts_1": ("flash_attention_tf32", [
+        (ROW_TF32_PARTS, "  return (int)launch_split<1>(a, s);")]),
+    "row3_f32_parts_2": ("flash_attention_tf32", [
+        (ROW_TF32_PARTS, "  return (int)launch_split<2>(a, s);")]),
+    "row3_f32_two_walks": ("flash_attention_tf32", [
+        (ONE_WALK, "constexpr bool FT_ONE_WALK_MAPS_OFF = false;")]),
+    "train_bwd_kt_32_whole": ("attention_train_tf32", []),
+    "train_bwd_kt_64_halves": ("attention_train_tf32", [
+        (TRAIN_KT, TRAIN_KT.replace("TT_KT = 32", "TT_KT = 64")),
+        (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2,")]),
+    "train_bwd_kt_32_halves": ("attention_train_tf32", [
+        (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2,")]),
+    "train_bwd_kt_16_whole": ("attention_train_tf32", [
+        (TRAIN_KT, TRAIN_KT.replace("TT_KT = 32", "TT_KT = 16"))]),
+}
+
+
+# source -> (C entry, its ctypes argtypes)
+ENTRIES = {
+    "flash_attention_mma": ("ivt_flash_attention_mma", fa.FLASH_MMA_ARGTYPES),
+    "flash_attention_online_tf32": ("ivt_flash_attention_online_tf32x3",
+                                    fa.ONLINE_TF32_ARGTYPES),
+    "flash_attention_tf32": ("ivt_flash_attention_tf32x3",
+                             fa.FLASH_TF32_ARGTYPES),
+    "attention_train_tf32": ("ivt_attention_train_bwd_tf32",
+                             av.TRAIN_TF32_BWD_ARGTYPES),
 }
 
 
@@ -132,11 +175,8 @@ def build_variants() -> Dict[str, ctypes.CDLL]:
                 for line in err.splitlines() if "Used" in line or "spill" in line]
         print(f"{name}: {'; '.join(info)}", flush=True)
         lib = ctypes.CDLL(os.path.join(OUT_DIR, name + ".so"))
-        if VARIANTS[name][0] == "flash_attention_mma":
-            lib.ivt_flash_attention_mma.argtypes = fa.FLASH_MMA_ARGTYPES
-        else:
-            lib.ivt_flash_attention_online_tf32x3.argtypes = (
-                fa.ONLINE_TF32_ARGTYPES)
+        entry, argtypes = ENTRIES[VARIANTS[name][0]]
+        getattr(lib, entry).argtypes = argtypes
         libs[name] = lib
     return libs
 
@@ -162,17 +202,35 @@ def call(lib, name, q, k, v, maps=False, n_real=None):
                *o.stride()[:3]]
     tail = [b, h, n, dh, n if n_real is None else n_real, float(dh) ** -0.5,
             fa.MASK_VALUE, torch.cuda.current_stream().cuda_stream]
-    if VARIANTS[name][0] == "flash_attention_mma":
-        err = lib.ivt_flash_attention_mma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if probs is None else probs.data_ptr(), *strides, *tail)
-    else:
-        err = lib.ivt_flash_attention_online_tf32x3(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *strides,
-            *tail)
+    source = VARIANTS[name][0]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr()]
+    if source != "flash_attention_online_tf32":
+        ptrs.append(None if probs is None else probs.data_ptr())
+    if source == "flash_attention_tf32":
+        ptrs.append(None)  # no (m, l)
+    err = getattr(lib, ENTRIES[source][0])(*ptrs, *strides, *tail)
     if err != 0:
         raise RuntimeError(f"{name}: launch failed, cudaError {err}")
     return o, probs
+
+
+def call_bwd(lib, q, k, v, do, stats, n_real=None):
+    """One launch of a backward variant on [B, H, N, 64] views, from the
+    forward's (m, l) ``stats``: (dq, dk, dv)."""
+    b, h, n, dh = q.shape
+    grads = [torch.empty((b, n, h, dh), dtype=q.dtype,
+                         device=q.device).transpose(1, 2) for _ in range(3)]
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    ts = (q, k, v, do, *grads)
+    flat = (ctypes.c_longlong * 21)(*[s for t in ts for s in t.stride()[:3]])
+    err = lib.ivt_attention_train_bwd_tf32(
+        *(t.data_ptr() for t in ts), stats.data_ptr(), delta.data_ptr(),
+        ctypes.addressof(flat), b, h, n, dh, n if n_real is None else n_real,
+        float(dh) ** -0.5, fa.MASK_VALUE,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"backward variant: launch failed, cudaError {err}")
+    return grads
 
 
 def time_ms(fn, iters: int = 30) -> float:
@@ -199,7 +257,8 @@ def check(name, got, ref, dtype, n_real=None) -> str:
         use = ((o.float() - ro.float()).abs().max().item()
                / (2.0 ** -6 * max(1.0, ro.abs().max().item())))
     if probs is not None:
-        bound = (2.0 ** -5 * rp.float().abs() + 1e-6).clamp(max=2.0 ** -7)
+        bound = (1e-4 if dtype == torch.float32 else
+                 (2.0 ** -5 * rp.float().abs() + 1e-6).clamp(max=2.0 ** -7))
         use = max(use, ((probs.float() - rp.float()).abs() / bound).max()
                   .item())
         if n_real is not None and not torch.all(probs[..., n_real:] == 0):
@@ -207,6 +266,37 @@ def check(name, got, ref, dtype, n_real=None) -> str:
     if use > 1.0:
         raise AssertionError(f"{name}: {use:.2f} of its bound")
     return f"{use:.2f} of the bound"
+
+
+def train_group(libs, names, shapes) -> None:
+    """The backward variants against ``head_grads_reference`` and timed,
+    from the split-TF32 forward's own (m, l)."""
+    for b, h, n, n_real in shapes:
+        q, k, v = qkv_views(b, n, h, torch.float32, seed=n + h)
+        g = torch.Generator().manual_seed(n)
+        do = torch.randn((b, h, n, 64), generator=g).to("cuda")
+        nr = n if n_real is None else n_real
+        _, stats = av._fwd(q, k, v, nr)
+        ref = av.head_grads_reference(q, k, v, do, n_real)
+        for name in names:
+            got = call_bwd(libs[name], q, k, v, do, stats, n_real)
+            torch.cuda.synchronize()
+            use = max(((x - r).abs().max() / (1e-5 * r.abs().max())).item()
+                      for x, r in zip(got, ref))
+            if use > 1.0:
+                raise AssertionError(f"{name}: {use:.2f} of its bound")
+            print(f"  {name} {(b, h, n)} n_real={n_real}: {use:.2f} of the "
+                  f"bound", flush=True)
+        if n_real is not None:
+            continue
+        times = {name: [] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                times[name].append(time_ms(
+                    lambda: call_bwd(libs[name], q, k, v, do, stats)))
+        print(f"  attention_train_tf32 backward {(b, h, n)}: " + ", ".join(
+            f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+            for name, t in times.items()), flush=True)
 
 
 def main() -> int:
@@ -224,10 +314,22 @@ def main() -> int:
             (4, 6, 1374, None), (2, 12, 197, None)]),
         "flash_attention_online_tf32": (torch.float32, [
             (1, 6, 2814, None), (1, 6, 2814, 2800), (8, 6, 2814, None)]),
+        # dinov2_s14_reg@518, its padded form, vit_l16@384, B=4, and the
+        # trainable attention's forward at vit_t16's train shape
+        "flash_attention_tf32": (torch.float32, [
+            (1, 6, 1374, None), (1, 6, 1408, 1374), (1, 16, 577, None),
+            (4, 6, 1374, None), (64, 3, 197, None)]),
+        # vit_t16's and vit_b16's train shapes (B=64, 3 and 12 heads,
+        # N=197), keys masked beyond 197 of 208
+        "attention_train_tf32": (torch.float32, [
+            (64, 3, 197, None), (64, 12, 197, None), (8, 2, 208, 197)]),
     }
     for source, (dtype, shapes) in groups.items():
         names = [n for n, (src, _) in VARIANTS.items() if src == source]
-        row3 = source == "flash_attention_mma"
+        if source == "attention_train_tf32":
+            train_group(libs, names, shapes)
+            continue
+        row3 = source != "flash_attention_online_tf32"
         for b, h, n, n_real in shapes:
             q, k, v = qkv_views(b, n, h, dtype, seed=n + b)
             if row3:

@@ -5,7 +5,7 @@ header under ``csrc/`` and with the flags, or an edited header would load
 a stale library. Without ``nvcc`` a build raises; nothing falls back.
 
 The ``cuda``-marked cases build the fused-block, window-attention, MLP,
-W8A8 MLP, online flash and attention-backward kernels and the four
+W8A8 MLP, online flash and attention-backward kernels and the six
 tensor-core sources from ``csrc/`` and skip without a card. The fused block's C entry is also read from its
 source here, so that its ctypes signature cannot drift from it.
 """
@@ -101,6 +101,8 @@ def test_fused_block_entry_matches_its_ctypes_signature():
     ("flash_attention_mma", "flash_attention", "ivt_flash_attention_mma"),
     ("flash_attention_online_tf32", "flash_attention",
      "ivt_flash_attention_online_tf32x3"),
+    ("flash_attention_tf32", "flash_attention", "ivt_flash_attention_tf32x3"),
+    ("attention_train_tf32", "attention_vjp", "ivt_attention_train_bwd_tf32"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its
@@ -119,7 +121,9 @@ def test_kernel_builds_and_loads_on_the_card(name, module, entry):
               "flash_attention_online_mma": "load_online_mma_kernel",
               "attention_train_mma": "load_mma_kernel",
               "flash_attention_mma": "load_mma_kernel",
-              "flash_attention_online_tf32": "load_online_tf32_kernel"}.get(
+              "flash_attention_online_tf32": "load_online_tf32_kernel",
+              "flash_attention_tf32": "load_tf32_kernel",
+              "attention_train_tf32": "load_tf32_kernel"}.get(
                   name, "load_kernel")
     lib = getattr(mod, loader)()  # raises if the envelopes disagree
     assert hasattr(lib, entry)

@@ -51,10 +51,12 @@ The bf16 tensor-core kernels (``flash_attention_mma``,
 ``flash_attention_online_mma`` and the tensor-core route of both trainable
 attentions) take the same bounds as the FMA kernels they stand beside: they
 round at the same points, and only the order of the f32 sums inside the
-tensor cores differs. The f32 split-TF32 kernel
-(``flash_attention_online_tf32x3``) takes f32's 1e-4: each of its products
-is three TF32 products of a hi / lo split, within ~2^-21 of the f32
-product (``tests/test_torch_tf32_split.py``).
+tensor cores differs. The f32 split-TF32 kernels
+(``flash_attention_online_tf32x3``, ``flash_attention_tf32x3`` and the
+split-TF32 route of both trainable attentions) take f32's bounds (1e-4;
+the gradients 1e-5 of their largest value): each of their products is
+three TF32 products of a hi / lo split, within ~2^-21 of the f32 product
+(``tests/test_torch_tf32_split.py``).
 
 The trainable attention (``attention_vjp``): o, dq, dk and dv. f32: the
 kernel and the plain version differ in the order of f32 sums (scores over
@@ -111,6 +113,7 @@ def cuda():
     av.load_mma_kernel()
     fa.load_mma_kernel()
     fa.load_online_tf32_kernel()
+    av.load_tf32_kernel()
     return torch.device("cuda")
 
 
@@ -289,20 +292,37 @@ def _qkv(shape, dtype, device, seed=0):
 
 
 def _row_counts():
-    return fa.flash_attention.launches, fa.flash_attention_mma.launches
+    return (fa.flash_attention.launches, fa.flash_attention_mma.launches,
+            fa.flash_attention_tf32x3.launches)
+
+
+def _off_grid(t, pad):
+    """A copy of ``t`` [..., W] whose rows are ``pad`` elements longer (2:
+    f32 rows 8 bytes and bf16 rows 4 bytes off the 16-byte grid)."""
+    if pad == 0:
+        return t
+    wide = torch.zeros(t.shape[:-1] + (t.shape[-1] + pad,), dtype=t.dtype,
+                       device=t.device)
+    wide[..., :t.shape[-1]] = t
+    return wide[..., :t.shape[-1]]
 
 
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("want_attn", [False, True])
-def test_flash_kernel_matches_plain(cuda, shape, dtype, want_attn):
-    q, k, v = _qkv(shape, dtype, cuda, seed=shape[2])
-    mma = dtype == torch.bfloat16 and shape[3] == fa.MMA_DH
+@pytest.mark.parametrize("pad", [0, 2])
+def test_flash_kernel_matches_plain(cuda, shape, dtype, want_attn, pad):
+    q, k, v = (_off_grid(t, pad) for t in _qkv(shape, dtype, cuda,
+                                               seed=shape[2]))
+    tc = shape[3] == fa.MMA_DH and pad == 0
+    mma, tf32 = tc and dtype == torch.bfloat16, tc and dtype == torch.float32
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=want_attn)
     torch.cuda.synchronize()
-    # bf16 heads of 64 run on the tensor cores, the rest on FMA
-    assert _row_counts() == (before[0] + (not mma), before[1] + mma)
+    # heads of 64 on the 16-byte grid run on the tensor cores (bf16, or f32
+    # on split TF32), the rest on FMA
+    assert _row_counts() == (before[0] + (not tc), before[1] + mma,
+                             before[2] + tf32)
     ref = fa.flash_attention_reference(q, k, v, want_attn=want_attn)
     _check(got, ref, dtype)
 
@@ -460,7 +480,7 @@ def test_flash_mma_kernel_matches_plain(cuda, shape, want_attn):
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=want_attn)
     torch.cuda.synchronize()
-    assert _row_counts() == (before[0], before[1] + 1)
+    assert _row_counts() == (before[0], before[1] + 1, before[2])
     ref = fa.flash_attention_reference(q, k, v, want_attn=want_attn)
     _check(got, ref, torch.bfloat16)
     assert not _within(got[0] * 0.5, ref[0], 0, torch.bfloat16)
@@ -476,7 +496,7 @@ def test_flash_mma_masks_keys_beyond_n_real(cuda, b, n, n_real):
     ref = fa.flash_attention_reference(q, k, v, want_attn=True,
                                        n_real=n_real)
     torch.cuda.synchronize()
-    assert _row_counts() == (before[0], before[1] + 1)
+    assert _row_counts() == (before[0], before[1] + 1, before[2])
     _check(got, ref, torch.bfloat16)
     assert torch.all(got[1][..., n_real:] == 0)
 
@@ -491,7 +511,7 @@ def test_flash_fma_kernel_takes_misaligned_bf16(cuda, n):
     got = fa.flash_attention(q, k, v, want_attn=True)
     ref = fa.flash_attention_reference(q, k, v, want_attn=True)
     torch.cuda.synchronize()
-    assert _row_counts() == (before[0] + 1, before[1])
+    assert _row_counts() == (before[0] + 1, before[1], before[2])
     _check(got, ref, torch.bfloat16)
     with pytest.raises(ValueError, match="16-byte aligned"):
         fa.flash_attention_mma(q, k, v)
@@ -510,6 +530,73 @@ def test_flash_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 1, fa.ROWFULL_MAX_N + 8, 64), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="does not take"):
         fa.flash_attention_mma(q, k, v)
+
+
+# the row-resident kernel in f32 on split TF32: dinov2_s14_reg @518 (N=1374;
+# B=1 takes each key tile in two parts, B=2 in one), vit_l16 @384 (N=577),
+# vit_b16 (N=197), ragged small N and the longest row-resident N
+TF32_ROW_SHAPES = [(1, 6, 1374, 64), (2, 6, 1374, 64), (1, 16, 577, 64),
+                   (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64)]
+
+
+@pytest.mark.parametrize("shape", TF32_ROW_SHAPES)
+@pytest.mark.parametrize("want_attn", [False, True])
+def test_flash_tf32_kernel_matches_plain(cuda, shape, want_attn):
+    b, h, n, _ = shape
+    q, k, v = _qkv_views(b, n, h, torch.float32, cuda, seed=n + 1)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=want_attn)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0], before[1], before[2] + 1)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=want_attn)
+    _check(got, ref, torch.float32)
+    assert not _within(got[0] * 0.5, ref[0], 0, torch.float32)
+
+
+# B=1 at N=1408 is one block an SM (two key parts), B=2 more (one part)
+@pytest.mark.parametrize("b,n,n_real", [(1, 1408, 1374), (2, 1408, 1374),
+                                        (1, 208, 197), (1, 130, 100)])
+def test_flash_tf32_masks_keys_beyond_n_real(cuda, b, n, n_real):
+    q, k, v = _qkv_views(b, n, 6, torch.float32, cuda, seed=n_real + 1)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=True, n_real=n_real)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=True,
+                                       n_real=n_real)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0], before[1], before[2] + 1)
+    _check(got, ref, torch.float32)
+    assert torch.all(got[1][..., n_real:] == 0)
+
+
+@pytest.mark.parametrize("n", [1374, 197])
+def test_flash_fma_kernel_takes_misaligned_f32(cuda, n):
+    """f32 heads of 64 off the 16-byte grid: ``tf32_route`` refuses them,
+    so the FMA kernel runs; the split-TF32 wrapper called on them
+    raises."""
+    q, k, v = _qkv_views(1, n, 6, torch.float32, cuda, seed=n, pad=2)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=True)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=True)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0] + 1, before[1], before[2])
+    _check(got, ref, torch.float32)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_tf32x3(q, k, v)
+
+
+def test_flash_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv((1, 2, 300, 64), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+        fa.flash_attention_tf32x3(q, k, v)  # bf16 has its own route
+    q, k, v = _qkv((1, 2, 300, 128), torch.float32, cuda)
+    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+        fa.flash_attention_tf32x3(q, k, v)
+    q, k, v = _qkv((1, 2, 300, 72), torch.float32, cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention_tf32x3(*(t[..., 1:65] for t in (q, k, v)))
+    q, k, v = _qkv((1, 1, fa.ROWFULL_MAX_N + 8, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        fa.flash_attention_tf32x3(q, k, v)
 
 
 # the online kernel in f32 on split TF32: dinov2_s14_reg@742 (B=1 and 2),
@@ -807,24 +894,37 @@ TRAIN_SHAPES = [(4, 12, 197, 64, None), (4, 3, 197, 64, None),
 
 def _train_counts(fn):
     return (fn.fwd_launches, fn.bwd_launches, fn.mma_fwd_launches,
-            fn.mma_bwd_launches)
+            fn.mma_bwd_launches, fn.tf32_fwd_launches, fn.tf32_bwd_launches)
 
 
-def _after_one(before, mma):
-    """The counts after one forward + backward on the FMA or the
-    tensor-core route."""
-    step = (0, 0, 1, 1) if mma else (1, 1, 0, 0)
+def _route(dtype, dh, pad=0):
+    """The trainable attention's route: heads of 64 on the 16-byte grid
+    run on the tensor cores (bf16, or f32 on split TF32), the rest on
+    FMA."""
+    if dh != av.MMA_DH or pad:
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
+def _after_one(before, route):
+    """The counts after one forward + backward on the route "fma", "mma"
+    or "tf32"."""
+    step = {"fma": (1, 1, 0, 0, 0, 0), "mma": (0, 0, 1, 1, 0, 0),
+            "tf32": (0, 0, 0, 0, 1, 1)}[route]
     return tuple(x + d for x, d in zip(before, step))
 
 
 @pytest.mark.parametrize("shape", TRAIN_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_train_kernels_match_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("pad", [0, 2])
+def test_train_kernels_match_plain(cuda, shape, dtype, pad):
     """q, k, v as ``qkv_proj`` makes them (transposed views of one
-    [B, N, 3D] tensor); o and its gradients against the plain versions."""
+    [B, N, 3D] tensor, its rows ``pad`` elements longer: 2 puts them off
+    the 16-byte grid); o and its gradients against the plain versions."""
     b, h, n, dh, n_real = shape
     g = torch.Generator().manual_seed(n + dh)
-    qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(cuda, dtype)
+    qkv = _off_grid(torch.randn((b, n, 3 * h * dh), generator=g).to(
+        cuda, dtype), pad)
     do = torch.randn((b, h, n, dh), generator=g).to(cuda, dtype)
     q, k, v = (qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
                .detach().requires_grad_(True) for i in range(3))
@@ -832,8 +932,8 @@ def test_train_kernels_match_plain(cuda, shape, dtype):
     o = av.attention_train(q, k, v, n_real)
     o.backward(do)
     torch.cuda.synchronize()
-    mma = dtype == torch.bfloat16 and dh == av.MMA_DH
-    assert _train_counts(av.attention_train) == _after_one(before, mma)
+    assert _train_counts(av.attention_train) == _after_one(
+        before, _route(dtype, dh, pad))
     ref_o = av.attention_train_reference(q.detach(), k.detach(), v.detach(),
                                          n_real)
     ref = av.head_grads_reference(q.detach(), k.detach(), v.detach(), do,
@@ -852,11 +952,13 @@ PACKED_SHAPES = [(4, 197, 12, None), (8, 197, 12, None), (1, 197, 12, None),
 
 @pytest.mark.parametrize("shape", PACKED_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_packed_train_kernels_match_plain(cuda, shape, dtype):
+@pytest.mark.parametrize("pad", [0, 2])
+def test_packed_train_kernels_match_plain(cuda, shape, dtype, pad):
     b, n, h, n_real = shape
     d = h * av.PACKED_DH
     g = torch.Generator().manual_seed(n + h)
-    qkv = torch.randn((b, n, 3 * d), generator=g).to(cuda, dtype)
+    qkv = _off_grid(torch.randn((b, n, 3 * d), generator=g).to(cuda, dtype),
+                    pad).detach()
     do = torch.randn((b, n, d), generator=g).to(cuda, dtype)
     qkv.requires_grad_(True)
     before = _train_counts(av.attention_train_packed)
@@ -864,7 +966,7 @@ def test_packed_train_kernels_match_plain(cuda, shape, dtype):
     o.backward(do)
     torch.cuda.synchronize()
     assert _train_counts(av.attention_train_packed) == _after_one(
-        before, dtype == torch.bfloat16)
+        before, _route(dtype, av.PACKED_DH, pad))
     ref_o = av.attention_train_packed_reference(qkv.detach(), n_real)
     ref_g = av.packed_head_grads_reference(qkv.detach(), do, n_real)
     _check_grads((o.detach(), qkv.grad), (ref_o, ref_g), dtype)
@@ -898,7 +1000,7 @@ def test_trainable_mhsa_falls_back_by_shape(cuda):
     assert _train_counts(av.attention_train) == before
 
 
-# the tensor-core forward's (m, l): only the order of the f32 sums differs
+# the tensor-core forwards' (m, l): only the order of the f32 sums differs
 # from the plain statistics (scores over dh; l over N as a running sum), so
 # m within 1e-5 of 1 + |m| and l within 1e-4 of itself; a halved l fails
 STATS_M_REL = 1e-5
@@ -916,11 +1018,12 @@ def _stats_within(got, ref):
                                    (2, 2, 208, 64, 197),
                                    (2, 4, 577, 64, None),
                                    (3, 2, 17, 64, None)])
-def test_train_mma_forward_saves_the_row_statistics(cuda, shape):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_train_mma_forward_saves_the_row_statistics(cuda, shape, dtype):
+    """Both tensor-core forwards (bf16 and split TF32) save (m, l)."""
     b, h, n, dh, n_real = shape
     g = torch.Generator().manual_seed(n + 1)
-    qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(cuda,
-                                                          torch.bfloat16)
+    qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(cuda, dtype)
     q, k, v = (qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
                for i in range(3))
     o, stats = av._fwd(q, k, v, n if n_real is None else n_real)
@@ -940,14 +1043,16 @@ def test_train_mma_forward_saves_the_row_statistics(cuda, shape):
 
 
 def test_train_mma_routes_by_dtype_width_and_alignment(cuda):
-    """bf16 at dh=64 on aligned views: the tensor cores; f32, dh=128 and a
-    misaligned bf16 view: FMA; both routes agree with the plain version."""
+    """bf16 at dh=64 on aligned views: the tensor cores; f32 at dh=64 on
+    aligned views: split TF32; dh=128 and misaligned bf16 or f32 views:
+    FMA; every route agrees with the plain version."""
     g = torch.Generator().manual_seed(5)
-    cases = [((2, 3, 100, 64), torch.bfloat16, 0, True),
-             ((2, 3, 100, 64), torch.float32, 0, False),
-             ((2, 3, 100, 128), torch.bfloat16, 0, False),
-             ((2, 3, 100, 64), torch.bfloat16, 4, False)]
-    for (b, h, n, dh), dtype, pad, mma in cases:
+    cases = [((2, 3, 100, 64), torch.bfloat16, 0, "mma"),
+             ((2, 3, 100, 64), torch.float32, 0, "tf32"),
+             ((2, 3, 100, 128), torch.bfloat16, 0, "fma"),
+             ((2, 3, 100, 64), torch.bfloat16, 4, "fma"),
+             ((2, 3, 100, 64), torch.float32, 2, "fma")]
+    for (b, h, n, dh), dtype, pad, route in cases:
         x = torch.randn((b, n, 3 * h * dh + pad), generator=g).to(cuda, dtype)
         q, k, v = (x[..., :3 * h * dh].reshape(b, n, 3, h, dh)[:, :, i]
                    .transpose(1, 2).detach().requires_grad_(True)
@@ -957,7 +1062,7 @@ def test_train_mma_routes_by_dtype_width_and_alignment(cuda):
         o = av.attention_train(q, k, v)
         o.backward(do)
         torch.cuda.synchronize()
-        assert _train_counts(av.attention_train) == _after_one(before, mma)
+        assert _train_counts(av.attention_train) == _after_one(before, route)
         ref = av.head_grads_reference(q.detach(), k.detach(), v.detach(), do)
         _check_grads((o.detach(), q.grad, k.grad, v.grad),
                      (av.attention_train_reference(q.detach(), k.detach(),

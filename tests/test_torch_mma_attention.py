@@ -144,6 +144,11 @@ def _entry_kinds(source: str, entry: str):
      fa.FLASH_MMA_ARGTYPES, ["q", "k", "v", "o", "probs", "q_sb"]),
     ("flash_attention_online_tf32.cu", "ivt_flash_attention_online_tf32x3",
      fa.ONLINE_TF32_ARGTYPES, ["q", "k", "v", "o", "q_sb"]),
+    ("flash_attention_tf32.cu", "ivt_flash_attention_tf32x3",
+     fa.FLASH_TF32_ARGTYPES, ["q", "k", "v", "o", "probs", "stats", "q_sb"]),
+    ("attention_train_tf32.cu", "ivt_attention_train_bwd_tf32",
+     av.TRAIN_TF32_BWD_ARGTYPES, ["q", "k", "v", "dout", "dq", "dk", "dv",
+                                  "stats", "delta", "strides"]),
 ])
 def test_mma_entry_matches_its_ctypes_signature(source, entry, argtypes,
                                                 first):

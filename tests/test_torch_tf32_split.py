@@ -1,8 +1,17 @@
-"""The f32 split-TF32 route of the port's online flash attention and the
-bf16 tensor-core route of its row-resident one, on the CPU: the f32 route
-predicate, an emulation of the 3xTF32 split that the kernel
-``csrc/flash_attention_online_tf32.cu`` computes, held against the JAX
-package's online kernel on shared inputs, and the wrappers' CPU path.
+"""The f32 split-TF32 routes of the port's attention kernels and the bf16
+tensor-core route of its row-resident one, on the CPU: the f32 route
+predicate, emulations of the 3xTF32 split that the kernels compute, held
+against the JAX package on shared inputs, and the wrappers' CPU path:
+
+* row 4, ``csrc/flash_attention_online_tf32.cu``, against the JAX online
+  kernel;
+* row 3, ``csrc/flash_attention_tf32.cu`` (two key walks: each key part's
+  online (m, l), combined; the normalised probs; PV), against the JAX
+  row-resident kernel, o and the probs tap;
+* rows 8-9's backward, ``csrc/attention_train_tf32.cu`` ((a) dq from S = Q
+  K^T, (b) dk and dv from S^T = K Q^T, both from the forward's saved (m,
+  l)), with row 3's emulation as the forward, against ``jax.vjp`` of the
+  JAX ``attention_train`` and ``attention_train_packed``.
 
 The kernels themselves run only on the card: their ``cuda``-marked tests
 are in ``tests/test_torch_cuda_kernel.py``; their C entries' ctypes
@@ -29,7 +38,11 @@ inputs (|q . k| dh^-0.5 up to ~15) moves by ~1e-5 at most, p by that share
 of itself and o by less than 1e-5 of max|v|: the f32 contract's 1e-4
 bound holds with room. Plain TF32 (a_hi b_hi alone, 2^-11 of each
 operand) moves o by ~1e-3 on the same inputs, and the same bound must
-refuse it.
+refuse it. The trainable attention's gradients take the f32 train bound,
+1e-5 of each tensor's largest value (``chip_smoke.TRAIN_F32_REL``): each
+product's ~2^-21 and the f32 sums over N=197 keys or queries (the kernel
+sums dq, dk and dv per tile of 32 and folds with round to nearest)
+stay near 1e-6 of the scale; plain TF32's 2^-11 per operand does not.
 """
 
 import functools
@@ -41,7 +54,11 @@ import torch
 
 import jax.numpy as jnp
 
+import jax
+
+from interactive_vit_tpu.ops import attention_vjp as jav
 from interactive_vit_tpu.ops import flash_attention as jfa
+from interactive_vit_tpu_torch.ops import attention_vjp as av
 from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.runtime import cuda_build
 from interactive_vit_tpu_torch.tools import kernel_variants
@@ -51,15 +68,18 @@ torch.set_num_threads(2)
 F32 = torch.float32
 BF16 = torch.bfloat16
 F32_BOUND = 1e-4
+TRAIN_F32_REL = 1e-5
 
 
 @pytest.fixture
 def pallas_interpret(monkeypatch):
     import jax.experimental.pallas as pl
 
-    monkeypatch.setattr(
-        jfa.pl, "pallas_call", functools.partial(pl.pallas_call,
-                                                 interpret=True))
+    interp = functools.partial(pl.pallas_call, interpret=True)
+    # the trainable attention's forward rides flash_attention's call; its
+    # backward and the packed kernels are attention_vjp's own
+    monkeypatch.setattr(jfa.pl, "pallas_call", interp)
+    monkeypatch.setattr(jav.pl, "pallas_call", interp)
 
 
 # -- the f32 route predicate --------------------------------------------------------
@@ -234,6 +254,224 @@ def test_split_emulation_matches_jax_online_kernel(
     assert np.abs(got - ref).max() <= F32_BOUND
 
 
+def _masked_scores(q, k, n_real, matmul):
+    """(q . k) dh^-0.5 through ``matmul``, keys at or beyond n_real at
+    MASK_VALUE: [..., N, N] f32."""
+    s = matmul(q, k.transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+    live = torch.arange(k.shape[-2]) < n_real
+    return torch.where(live, s, torch.full_like(s, fa.MASK_VALUE))
+
+
+def rowfull_emulated(q, k, v, n_real, matmul, parts=1, kw=64):
+    """Row 3's split-TF32 kernel's arithmetic on f32 [B, H, N, dh]: tiles
+    of ``parts`` x ``kw`` keys (keys past N masked), each part's (m, l) by
+    the online update over its ``kw`` keys of every tile, the parts
+    combined (m the max, l = sum l_j exp(m_j - m), in part order), probs =
+    exp(s - m) / l, and o = the parts' partial PV sums (each a run of
+    ``kw``-key products a tile) added in part order. Returns (o, probs,
+    (m, l))."""
+    n = q.shape[-2]
+    kt = kw * parts
+    n_pad = -(-n // kt) * kt
+    s = _masked_scores(q, k, n_real, matmul)
+    s = torch.cat([s, torch.full(s.shape[:-1] + (n_pad - n,), fa.MASK_VALUE)],
+                  dim=-1)
+    vp = torch.cat([v, torch.zeros(v.shape[:-2] + (n_pad - n, v.shape[-1]))],
+                   dim=-2)
+    stats = []
+    for j in range(parts):
+        m = torch.full(s.shape[:-1], float("-inf"))
+        l = torch.zeros_like(m)
+        for j0 in range(j * kw, n_pad, kt):
+            st = s[..., j0:j0 + kw]
+            m_next = torch.maximum(m, st.amax(dim=-1))
+            l = torch.exp(m - m_next) * l + torch.exp(
+                st - m_next[..., None]).sum(dim=-1)
+            m = m_next
+        stats.append((m, l))
+    m = functools.reduce(torch.maximum, [mj for mj, _ in stats])
+    l = torch.zeros_like(m)
+    for mj, lj in stats:
+        l = l + lj * torch.exp(mj - m)
+    probs = torch.exp(s - m[..., None]) / l[..., None]
+    o = torch.zeros(q.shape, dtype=F32)
+    for j in range(parts):
+        oj = torch.zeros(q.shape, dtype=F32)
+        for j0 in range(j * kw, n_pad, kt):
+            oj = oj + matmul(probs[..., j0:j0 + kw], vp[..., j0:j0 + kw, :])
+        o = o + oj
+    return o, probs[..., :n], (m, l)
+
+
+def _jax_rowfull(q, k, v, n_real):
+    o, probs = jfa.flash_attention(*(jnp.asarray(t) for t in (q, k, v)),
+                                   want_attn=True, n_real=n_real)
+    return np.asarray(o), np.asarray(probs)
+
+
+@pytest.mark.parametrize("parts", [1, 2])
+@pytest.mark.parametrize("b,h,n,n_real", [
+    (1, 2, 300, None),    # 5 of the 64-key tiles, the last of 44 keys
+    (1, 3, 300, 257),     # keys masked beyond n_real inside a tile
+    (2, 2, 130, None),    # two parts: the second part's last tile is empty
+    (1, 2, 197, 180),
+])
+def test_rowfull_split_emulation_matches_jax_kernel(
+        pallas_interpret, b, h, n, n_real, parts):
+    q, k, v = _qkv(b, h, n, fa.MMA_DH, seed=n + h + parts)
+    want_o, want_p = _jax_rowfull(q, k, v, n_real)
+    tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+    nr = n if n_real is None else n_real
+    o, probs, (m, l) = rowfull_emulated(tq, tk, tv, nr, matmul_3xtf32, parts)
+    assert np.abs(o.numpy() - want_o).max() <= F32_BOUND
+    assert np.abs(probs.numpy() - want_p).max() <= F32_BOUND
+    assert not probs[..., nr:].any() and not want_p[..., nr:].any()
+    # the bound refuses plain TF32 on the same inputs
+    plain_o, _, _ = rowfull_emulated(tq, tk, tv, nr, matmul_tf32, parts)
+    assert np.abs(plain_o.numpy() - want_o).max() > F32_BOUND
+    # the (m, l) the kernel saves for the backward are the plain statistics
+    rm, rl = av.row_stats_reference(tq, tk, n_real)
+    assert ((m - rm).abs() <= 1e-5 * (1 + rm.abs())).all()
+    assert ((l - rl).abs() <= 1e-4 * rl).all()
+    # and the plain version agrees with JAX within the same bound
+    ro, rp = fa.flash_attention_reference(tq, tk, tv, True, nr)
+    assert np.abs(ro.numpy() - want_o).max() <= F32_BOUND
+    assert np.abs(rp.numpy() - want_p).max() <= F32_BOUND
+
+
+def backward_emulated(q, k, v, do, stats, n_real, matmul, tile=32):
+    """The split-TF32 backward's arithmetic on f32 [B, H, N, dh], from the
+    forward's (m, l): (a) S = Q K^T, P, dP = dO V^T, delta = rowsum(dP P),
+    ds = P (dP - delta) scale, dq summed over key tiles of ``tile``; (b)
+    S^T = K Q^T, P^T from each query's (m, l), dP^T = V dO^T, dv = P^T dO
+    and dk = dS^T Q summed over query tiles of ``tile``. Returns (dq, dk,
+    dv)."""
+    n, dh = q.shape[-2], q.shape[-1]
+    scale = dh ** -0.5
+    m, l = stats
+    p = torch.exp(_masked_scores(q, k, n_real, matmul) - m[..., None]) / l[
+        ..., None]
+    dp = matmul(do, v.transpose(-1, -2))
+    delta = (dp * p).sum(dim=-1)
+    ds = p * (dp - delta[..., None]) * scale
+    # (b): keys as rows, each query's statistics along the columns
+    st = matmul(k, q.transpose(-1, -2)) * scale
+    live = (torch.arange(n) < n_real)[:, None]
+    st = torch.where(live, st, torch.full_like(st, fa.MASK_VALUE))
+    pt = torch.exp(st - m[..., None, :]) / l[..., None, :]
+    dpt = matmul(v, do.transpose(-1, -2))
+    dst = pt * (dpt - delta[..., None, :]) * scale
+    dq, dk, dv = (torch.zeros(q.shape, dtype=F32) for _ in range(3))
+    for c in range(0, n, tile):
+        dq = dq + matmul(ds[..., c:c + tile], k[..., c:c + tile, :])
+        dv = dv + matmul(pt[..., c:c + tile], do[..., c:c + tile, :])
+        dk = dk + matmul(dst[..., c:c + tile], q[..., c:c + tile, :])
+    return dq, dk, dv
+
+
+def _train_use(got, want):
+    """The largest share of the f32 train bound (1e-5 of each tensor's
+    largest value) over the tensors."""
+    return max(float(np.abs(g - w).max() / (TRAIN_F32_REL * np.abs(w).max()))
+               for g, w in zip(got, want))
+
+
+def _jax_vjp(fn, arrays, ct):
+    out, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in arrays))
+    return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(ct))]
+
+
+def _emulated_train(q, k, v, do, n_real, matmul, parts):
+    o, _, stats = rowfull_emulated(q, k, v, n_real, matmul, parts)
+    return [o, *backward_emulated(q, k, v, do, stats, n_real, matmul)]
+
+
+@pytest.mark.parametrize("b,h,n,n_real,parts", [
+    (2, 2, 197, None, 1),   # vit_t16's N: four 64-row tiles, 77% real
+    (1, 3, 208, 197, 1),    # keys masked beyond n_real
+    (1, 2, 130, None, 2),
+])
+def test_train_split_emulation_matches_jax_vjp(pallas_interpret, b, h, n,
+                                               n_real, parts):
+    q, k, v, do = _qkv(b, h, n, fa.MMA_DH, seed=n + 7) + _qkv(
+        b, h, n, fa.MMA_DH, seed=n + 8)[:1]
+    want = _jax_vjp(functools.partial(jav.attention_train, n_real=n_real),
+                    (q, k, v), do)
+    tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
+    nr = n if n_real is None else n_real
+    got = _emulated_train(tq, tk, tv, tdo, nr, matmul_3xtf32, parts)
+    assert _train_use([t.numpy() for t in got], want) <= 1.0
+    if n_real is not None:  # masked keys' dk and dv exactly 0
+        assert not got[2][..., n_real:, :].any()
+        assert not got[3][..., n_real:, :].any()
+    # the bound refuses plain TF32 on the same inputs
+    plain = _emulated_train(tq, tk, tv, tdo, nr, matmul_tf32, parts)
+    assert _train_use([t.numpy() for t in plain], want) > 1.0
+    # and the plain versions agree with JAX
+    ref = [av.attention_train_reference(tq, tk, tv, n_real),
+           *av.head_grads_reference(tq, tk, tv, tdo, n_real)]
+    assert _train_use([t.numpy() for t in ref], want) <= 0.5
+
+
+def _pack_head_major(q, k, v):
+    """[B, H, N, dh] x3 -> the head-major qkv activation [B, N, 3HD]."""
+    b, h, n, d = q.shape
+    qkv = np.stack([q, k, v], axis=2)  # [B, H, 3, N, dh]
+    return np.ascontiguousarray(qkv.transpose(0, 3, 1, 2, 4)
+                                .reshape(b, n, 3 * h * d))
+
+
+@pytest.mark.parametrize("n,n_real", [(197, None), (208, 197)])
+def test_packed_train_split_emulation_matches_jax_vjp(pallas_interpret, n,
+                                                      n_real):
+    """The same kernels on the head-major strides: the emulation per head
+    against ``jax.vjp`` of the JAX packed kernel, dqkv in its layout."""
+    b, h = 1, 2
+    q, k, v, do = _qkv(b, h, n, av.PACKED_DH, seed=n + 9) + _qkv(
+        b, h, n, av.PACKED_DH, seed=n + 10)[:1]
+    qkv = _pack_head_major(q, k, v)
+    dout = np.ascontiguousarray(do.transpose(0, 2, 1, 3).reshape(b, n, -1))
+    want = _jax_vjp(functools.partial(jav.attention_train_packed,
+                                      n_real=n_real), (qkv,), dout)
+    nr = n if n_real is None else n_real
+    for matmul, ok in ((matmul_3xtf32, True), (matmul_tf32, False)):
+        o, dq, dk, dv = _emulated_train(
+            *(torch.from_numpy(t) for t in (q, k, v, do)), nr, matmul, 1)
+        got_o = o.transpose(1, 2).reshape(b, n, -1).numpy()
+        got_g = (torch.stack([dq, dk, dv], dim=2).permute(0, 3, 1, 2, 4)
+                 .reshape(b, n, -1).numpy())
+        assert (_train_use([got_o, got_g], want) <= 1.0) is ok
+
+
+# (dtype, pad elements a token, dh, split-TF32 route?)
+TRAIN_ROUTE_CASES = [(F32, 0, 64, True), (F32, 4, 64, True),
+                     (F32, 2, 64, False), (F32, 0, 128, False),
+                     (BF16, 0, 64, False)]
+
+
+@pytest.mark.parametrize("layout", ["bhnd", "packed"])
+@pytest.mark.parametrize("dtype,pad,dh,want", TRAIN_ROUTE_CASES)
+def test_tf32_route_of_the_train_layouts(layout, dtype, pad, dh, want):
+    """The pointers and strides the trainable attention's wrappers hand the
+    predicate: [B, H, N, dh] views of one qkv tensor, and the head-major
+    packed slabs, each with ``pad`` extra elements a token (2: f32 rows off
+    the 16-byte grid)."""
+    b, n, h = 2, 197, 4
+    qkv = torch.zeros((b, n, 3 * h * dh + pad), dtype=dtype)[..., :3 * h * dh]
+    if layout == "bhnd":
+        views = [qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
+                 for i in range(3)]
+        ptrs = [av._ptr(t) for t in views]
+        strides = [av._strides(t, None) for t in views]
+    else:
+        ptrs = [av._ptr(qkv, i * dh) for i in range(3)]
+        strides = [av._strides(qkv, 3 * dh)] * 3
+    assert av._tf32_ok(dtype, dh, ptrs, strides) is want
+    assert av._tc_ok(dtype, dh, ptrs, strides) is (
+        want or av._mma_ok(dtype, dh, ptrs, strides))
+    assert not (want and av._mma_ok(dtype, dh, ptrs, strides))
+
+
 # -- the wrappers on the CPU ---------------------------------------------------------
 
 
@@ -241,7 +479,13 @@ def _counts():
     return (fa.flash_attention.launches, fa.flash_attention_mma.launches,
             fa.flash_attention_online.launches,
             fa.flash_attention_online_mma.launches,
-            fa.flash_attention_online_tf32x3.launches)
+            fa.flash_attention_online_tf32x3.launches,
+            fa.flash_attention_tf32x3.launches,
+            *(getattr(fn, c) for fn in (av.attention_train,
+                                        av.attention_train_packed)
+              for c in ("fwd_launches", "bwd_launches", "mma_fwd_launches",
+                        "mma_bwd_launches", "tf32_fwd_launches",
+                        "tf32_bwd_launches")))
 
 
 @pytest.mark.parametrize("n_real", [None, 33])
@@ -266,23 +510,67 @@ def test_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
         q, k, v, n_real, block_k=fa.ONLINE_TF32_BLOCK_K))
     assert torch.equal(fa.flash_attention_online(q, k, v, n_real),
                        fa.flash_attention_online_reference(q, k, v, n_real))
+    # f32 heads of 64: the split-TF32 route on a card
+    for maps in (False, True):
+        ref = fa.flash_attention_reference(q, k, v, maps, n_real)
+        for fn in (fa.flash_attention_tf32x3, fa.flash_attention):
+            got = fn(q, k, v, maps, n_real)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)
+                       if b is not None)
+            assert (got[1] is None) is (not maps)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("n_real", [None, 33])
+def test_train_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
+    """f32 heads of 64 (the split-TF32 route on a card): on CPU tensors the
+    autograd Functions run the plain versions, save no statistics and
+    count no launch, in both layouts."""
+    g = torch.Generator().manual_seed(2)
+    b, h, n = 2, 2, 40
+    nr = n if n_real is None else n_real
+    qkv = torch.randn((b, n, 3 * h * 64), generator=g)
+    q, k, v = (qkv.reshape(b, n, 3, h, 64)[:, :, i].transpose(1, 2)
+               for i in range(3))
+    do = torch.randn((b, h, n, 64), generator=g)
+    before = _counts()
+    o, stats = av._fwd(q, k, v, nr)
+    assert stats is None
+    assert torch.equal(o, av.attention_train_reference(q, k, v, n_real))
+    grads = av._bwd(q, k, v, do, nr)
+    for got, want in zip(grads, av.head_grads_reference(q, k, v, do,
+                                                        n_real)):
+        assert torch.equal(got, want)
+    o, stats = av._packed_fwd(qkv, nr)
+    assert stats is None
+    assert torch.equal(o, av.attention_train_packed_reference(qkv, n_real))
+    dout = do.transpose(1, 2).reshape(b, n, h * 64)
+    assert torch.equal(av._packed_bwd(qkv, dout, nr),
+                       av.packed_head_grads_reference(qkv, dout, n_real))
     assert _counts() == before
 
 
 def test_new_sources_use_their_instructions():
-    """The split-TF32 source rounds with cvt.rna and multiplies on m16n8k8
-    tf32; both new sources take their copies from ``mma_attention.cuh``."""
+    """The split-TF32 header rounds with cvt.rna and multiplies on m16n8k8
+    tf32, and takes its copies from ``mma_attention.cuh``; the three
+    split-TF32 sources include it, and the row-resident sources divide."""
     def read(name):
         with open(os.path.join(cuda_build.CSRC_DIR, name)) as f:
             return f.read()
 
-    tf32 = read("flash_attention_online_tf32.cu")
+    header = read("tf32_attention.cuh")
     for op in ("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
                "cvt.rna.tf32.f32", '#include "mma_attention.cuh"'):
-        assert op in tf32, op
-    row = read("flash_attention_mma.cu")
-    assert '#include "mma_attention.cuh"' in row
-    assert "__fdiv_rn" in row  # probs = p / l, a division
+        assert op in header, op
+    for name in ("flash_attention_online_tf32.cu", "flash_attention_tf32.cu",
+                 "attention_train_tf32.cu"):
+        src = read(name)
+        assert '#include "tf32_attention.cuh"' in src, name
+        # the split lives in the header alone
+        assert "asm(" not in src and "asm volatile" not in src, name
+    for name in ("flash_attention_mma.cu", "flash_attention_tf32.cu"):
+        assert "__fdiv_rn" in read(name), name  # probs = p / l, a division
+    assert '#include "mma_attention.cuh"' in read("flash_attention_mma.cu")
 
 
 @pytest.mark.parametrize("name", sorted(kernel_variants.VARIANTS))
