@@ -35,7 +35,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      beyond n_real=1374 of N=1408 (their probs exactly 0; o and the probs
      zeroed or halved must fail their bounds): bf16 on the
      tensor-core kernel, f32 on the split-TF32 kernel and each, on a copy
-     off the 16-byte grid, on the FMA kernel;
+     off the 16-byte grid, on the FMA kernel; the same at vit_h14@224's
+     heads (16 heads 80 wide, N=257, and keys masked beyond 257 of 320):
+     f32 on the split-TF32 kernel's 80-wide instantiation and, off the
+     grid, on the FMA kernel, bf16 on the FMA kernel;
      ``scaled_dot_product_attention`` is timed beside it with maps off in
      both dtypes (a yardstick; the port never calls it), and f32 gives its
      bound at the TF32 peak and at the f32 FMA peak; then the plain
@@ -61,9 +64,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      tile (128): bf16 on the tensor-core kernel, f32 on the split-TF32
      kernel, and both, on a copy whose rows sit off the 16-byte grid, on
      the FMA kernel they replace; ``scaled_dot_product_attention`` timed
-     beside it; and the FMA kernel at its own main-path shape,
-     vit_h14@742's f32 attention (16 heads 80 wide, N=2810), beside SDPA
-     f32 and its bound;
+     beside it; then at vit_h14@742's shape (16 heads 80 wide, N=2810,
+     and keys masked beyond 2800): f32 on the split-TF32 kernel's 80-wide
+     instantiation and, off the grid, on the FMA kernel, bf16 on the FMA
+     kernel (its main-path use), each beside SDPA in its dtype and the
+     bound;
    * the W8A8 MLP at vit_b16 (197 x 768, B=1 and 8), bf16 and f32: its
      s32 accumulators equal to the exact products of its own int8
      activations, those activations the plain version's but in at most 1%
@@ -86,9 +91,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      vit_b16's, the masked and the N=577 shape; bf16 on the tensor-core
      route, f32 on the split-TF32 route (each forward's saved (m, l)
      against the plain statistics) and each, off the 16-byte grid, on the
-     FMA route; each bound refusing a gradient zeroed or halved;
+     FMA route; and ``attention_train`` at train run (f)'s shape (vit_h14:
+     B=2, 16 heads 80 wide, N=257, f32) on the FMA route; each bound
+     refusing a gradient zeroed or halved;
      ``scaled_dot_product_attention`` forward + backward timed beside.
-4. slice   -- nine paths through the HTTP server in-process, seeded random
+4. slice   -- ten paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -112,6 +119,13 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      in all 12 blocks (the profile must show it 12 times and the FMA
      online kernel never), the f32 request's 12 on the split-TF32
      kernel;
+   * vit_h14@742 at full depth (32 blocks, 16 heads 80 wide, N=2810), one
+     f32 request (the server's default dtype) of a generated chain graph:
+     the block outputs ``o`` of blocks 0, 16 and 31 and the logits, each
+     within 1e-4 of its scale of the plain path; a plain ViT's served
+     blocks run the block kernels, here the headwise kernel in all 32
+     blocks (its attention core 32 times in the profile, the split-TF32
+     online kernel never), with its device time;
    * vit_t16@256 from the repository's saved graph: ``attn`` + ``r`` on
      blocks 0 and 6, ``r`` on block 11, the logits; the fused block kernel;
    * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
@@ -145,11 +159,13 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``swin.forward`` (swin_t) at B=1 and B=8, bf16, with the block or window
    kernel and the fused MLP kernel from ``default_mlp_impl("fused")``,
    against the same forwards with the plain versions: 12 MLP launches a
-   call; and two f32 ``vit.forward`` of vit_h14 (heads 80 wide, depth cut
-   to 2) through ``--attn auto``, whose heads keep the FMA kernels (2
-   launches each): @224 (N=257) the row-resident one against its plain
-   version, @742 (N=2810) the online one against the plain online
-   attention.
+   call; and four ``vit.forward`` of vit_h14 (heads 80 wide, depth cut to
+   2) through ``--attn auto``, 2 launches each: f32 on the split-TF32
+   kernels' 80-wide instantiations, bf16 on the FMA kernels; @224 (N=257)
+   the row-resident kernel against its plain version, @742 (N=2810) the
+   online one against the plain online attention; then vit_h14@742 at
+   full depth (32 blocks) in f32: 32 split-TF32 online launches, its wall
+   time and one profiled forward (the attention's device time).
 5. train   -- ``tools.train.main`` in-process, launch counts zeroed
    before each run and read after it:
    (a) vit_b16 @224, ``--dtype mixed --attn auto --batch 64 --steps 10
@@ -333,6 +349,9 @@ STATS_L_REL = 1e-4
 # vit_b16's and vit_t16's train attention shapes: (B, heads, N, dh)
 TRAIN_B16 = (64, 12, 197, 64)
 TRAIN_T16 = (64, 3, 197, 64)
+# vit_h14's (train run (f): depth 2, B=2, f32): heads 80 wide, which the
+# split-TF32 backward does not take, on the FMA pair
+TRAIN_H14 = (2, 16, 257, 80)
 
 # The least time the card could take (H100 SXM published peaks): bytes over
 # the memory rate, operations over the peak rate for the inputs' type (bf16
@@ -676,11 +695,14 @@ def phase_tome_kernel(device) -> dict:
 def phase_flash_kernel(device) -> dict:
     """The row-resident flash attention against its plain version at every
     case and dtype: bf16 on the tensor-core kernel, f32 on the split-TF32
-    kernel, and each, on a copy off the 16-byte grid, on the FMA kernel.
-    Returns the dinov2_s14_reg numbers (maps off) of the three kernels
-    (bf16 for the tensor cores, f32 for split TF32 and for FMA, its time
-    from the copy off the grid), SDPA's time in the same dtype beside each;
-    the split-TF32 kernel's bound at the TF32 peak (three TF32 products a
+    kernel, and each, on a copy off the 16-byte grid, on the FMA kernel;
+    at vit_h14@224's heads (80 wide) f32 on the split-TF32 kernel's 80-wide
+    instantiation (off the grid on the FMA kernel) and bf16 on the FMA
+    kernel. Returns, maps off, the dinov2_s14_reg numbers of the
+    tensor-core kernels (bf16 mma, f32 tf32), vit_h14@224's of the 80-wide
+    split-TF32 instantiation (tf32_dh80) and of the FMA kernel in bf16
+    (its main-path use), SDPA's time in the same dtype beside each; the
+    split-TF32 kernel's bound at the TF32 peak (three TF32 products a
     product). Then the crossover of ``dispatch.FLASH_MIN_SEQ``: the plain
     attention's time beside the tensor-core kernel's at N = 197, 257 and
     577."""
@@ -696,9 +718,13 @@ def phase_flash_kernel(device) -> dict:
                 fa.flash_attention_tf32x3.launches)
 
     out = {}
+    # dinov2_s14_reg@518, vit_l16@384, a padded N; vit_h14@224 (heads 80
+    # wide: f32 on split TF32, bf16 on the FMA kernel) and its padded form
     cases = [("dinov2_s14_reg", (1, 6, 1374, 64), None),
              ("vit_l16", (1, 16, 577, 64), None),
-             ("padded", (1, 6, 1408, 64), 1374)]
+             ("padded", (1, 6, 1408, 64), 1374),
+             ("vit_h14", (1, 16, 257, 80), None),
+             ("vit_h14 padded", (1, 16, 320, 80), 257)]
     for cname, shape, n_real in cases:
         for dtype in (torch.bfloat16, torch.float32):
             dt = str(dtype).replace("torch.", "")
@@ -706,9 +732,13 @@ def phase_flash_kernel(device) -> dict:
             g = torch.Generator().manual_seed(shape[2])
             qkv = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
                    for _ in range(3)]
-            routes = [("tensor cores" if mma else "split TF32", qkv),
-                      ("FMA, off the 16-byte grid",
+            routes = [("FMA, off the 16-byte grid",
                        [misaligned(t, 4 if mma else 2) for t in qkv])]
+            if shape[3] == fa.MMA_DH or not mma:
+                routes.insert(0, ("tensor cores" if mma else "split TF32",
+                                  qkv))
+            else:  # bf16 heads 80 wide: the FMA kernel on aligned operands
+                routes = [("FMA", qkv)]
             t_lib = None
             for maps in (False, True):
                 if n_real is not None and not maps:
@@ -726,6 +756,7 @@ def phase_flash_kernel(device) -> dict:
                     got = fa.flash_attention(q, k, v, **kw)
                     torch.cuda.synchronize()
                     step = (fma, mma and not fma, not mma and not fma)
+                    split = not mma and not fma
                     if counts() != tuple(x + d for x, d in zip(before, step)):
                         raise AssertionError(f"flash {dt} {route}: launches "
                                              f"{counts()} after {before}")
@@ -761,17 +792,21 @@ def phase_flash_kernel(device) -> dict:
                     if not maps:
                         line += (f"; scaled_dot_product_attention ({dt}) "
                                  f"{t_lib:.4f} ms")
-                    # the result line: bf16 on the tensor cores; f32 on
-                    # split TF32 and (off the grid) on FMA
-                    if cname == "dinov2_s14_reg" and not maps and not (
-                            mma and fma):
-                        split = not mma and not fma
-                        out["mma" if mma else "fma" if fma else "tf32"] = {
-                            "max_abs_err": max(errs), "ms": t_k,
+                    nums = {"max_abs_err": max(errs), "ms": t_k,
                             "plain_ms": t_p,
                             "bound_ms": tms if split else bms,
                             "bound_by": tby if split else by,
                             "library_ms": t_lib}
+                    # the result line: bf16 on the tensor cores and f32 on
+                    # split TF32 at dinov2_s14_reg; the FMA kernel at its
+                    # main-path use, vit_h14@224 in bf16
+                    if cname == "dinov2_s14_reg" and not maps and not fma:
+                        out["mma" if mma else "tf32"] = nums
+                    if cname == "vit_h14" and not maps:
+                        if split:
+                            out["tf32_dh80"] = nums
+                        elif mma:
+                            out["fma"] = nums
                     log(line)
 
     # FLASH_MIN_SEQ: below it auto_attention runs the plain attention
@@ -1007,11 +1042,13 @@ def phase_online_kernel(device) -> dict:
     tile, at the dinov2_s14_reg@742 shape (6 heads, N=2814, dh=64; B=1 and
     8, and keys masked beyond n_real=2800): bf16 on the tensor-core kernel,
     f32 on the split-TF32 kernel, and each dtype, on a copy off the 16-byte
-    grid, on the FMA kernel they replace; then the FMA kernel at its own
-    main-path shape (vit_h14@742, f32, heads 80 wide). Returns the B=1
-    numbers of the tensor-core kernels (bf16 for mma, f32 for tf32) and
-    the FMA kernel's at vit_h14@742, SDPA's time in the same dtype beside
-    each."""
+    grid, on the FMA kernel they replace; then at vit_h14@742's shape (16
+    heads 80 wide, N=2810, and keys masked beyond 2800): f32 on the
+    split-TF32 kernel's 80-wide instantiation and, off the grid, on the
+    FMA kernel, bf16 on the FMA kernel (its main-path use). Returns the B=1
+    numbers of the tensor-core kernels (bf16 for mma, f32 for tf32 at 64
+    and tf32_dh80 at 80 wide) and the FMA kernel's in bf16 at vit_h14@742,
+    SDPA's time in the same dtype beside each."""
     import torch
     import torch.nn.functional as F
 
@@ -1097,35 +1134,72 @@ def phase_online_kernel(device) -> dict:
                     "ms": t_k, "plain_ms": t_p, "bound_ms": tms,
                     "bound_by": tby, "library_ms": t_lib}
 
-    # the FMA kernel at its own main-path shape: vit_h14@742's f32
-    # attention, heads 80 wide, which neither tensor-core route takes
+    # vit_h14@742's attention, heads 80 wide: f32 on the split-TF32
+    # kernel's 80-wide instantiation (and, off the 16-byte grid, on the FMA
+    # kernel), bf16 on the FMA kernel (the tensor-core route is 64 wide)
     b, heads, n, dh = VIT_H14_742_SHAPE
-    g = torch.Generator().manual_seed(n)
-    qkv = (torch.randn((b, n, 3 * heads * dh), generator=g) * 2).to(
-        device, torch.float32)
-    q, k, v = (qkv.reshape(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
-               for i in range(3))
-    before = counts()
-    got = fa.flash_attention_online(q, k, v)
-    torch.cuda.synchronize()
-    if counts() != (before[0] + 1, before[1], before[2]):
-        raise AssertionError(f"online f32 dh={dh}: launches {counts()} after "
-                             f"{before}")
-    ref = fa.flash_attention_online_reference(q, k, v,
-                                              block_k=fa.ONLINE_BLOCK_K)
-    tag = f"flash_attention_online vit_h14@742 {tuple(q.shape)} float32 (FMA)"
-    errs, line = check_outputs(tag, (got,), (ref,), torch.float32, ("o",))
-    check_bounds_refuse(tag, (got,), (ref,), torch.float32, ("o",), first=0)
-    t_k, t_p = time_turns(lambda: fa.flash_attention_online(q, k, v),
-                          lambda: fa.flash_attention_online_reference(q, k, v))
-    nbytes, flops = flash_cost(b, heads, n, dh, 4, False)
-    bms, by = bound(nbytes, flops, "float32")
-    t_lib = time_ms(lambda: F.scaled_dot_product_attention(q, k, v))
-    log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
-        f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
-        f"GFLOP); scaled_dot_product_attention (float32) {t_lib:.4f} ms")
-    out["fma"] = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
-                  "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
+    for dtype in (torch.float32, torch.bfloat16):
+        dt = str(dtype).replace("torch.", "")
+        f32 = dtype == torch.float32
+        g = torch.Generator().manual_seed(n)
+        qkv = (torch.randn((b, n, 3 * heads * dh), generator=g) * 2).to(
+            device, dtype)
+        routes = ([("split TF32", qkv), ("FMA, off the 16-byte grid",
+                                         misaligned(qkv, 2))] if f32
+                  else [("FMA", qkv)])
+        nbytes, flops = flash_cost(b, heads, n, dh, qkv.element_size(),
+                                   False)
+        bms, by = bound(nbytes, flops, dt)
+        tms, tby = bound(nbytes, {"tf32": 3 * flops}, dt)
+        t_lib = None
+        for route, x in routes:
+            q, k, v = (x.reshape(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
+                       for i in range(3))
+            fma = route.startswith("FMA")
+            for n_real in (None, n - 10):
+                before = counts()
+                got = fa.flash_attention_online(q, k, v, n_real)
+                torch.cuda.synchronize()
+                if counts() != (before[0] + fma, before[1],
+                                before[2] + (not fma)):
+                    raise AssertionError(f"online {dt} dh={dh} {route}: "
+                                         f"launches {counts()} after "
+                                         f"{before}")
+                ref = fa.flash_attention_online_reference(
+                    q, k, v, n_real, block_k=fa.ONLINE_BLOCK_K)
+                tag = (f"flash_attention_online vit_h14@742 "
+                       f"{tuple(q.shape)} {dt} ({route})"
+                       + (f" n_real={n_real}" if n_real else ""))
+                errs, line = check_outputs(tag, (got,), (ref,), dtype,
+                                           ("o",))
+                check_bounds_refuse(tag, (got,), (ref,), dtype, ("o",),
+                                    first=0)
+                if n_real is not None:
+                    log(line)
+                    continue
+                t_k, t_p = time_turns(
+                    lambda: fa.flash_attention_online(q, k, v),
+                    lambda: fa.flash_attention_online_reference(q, k, v))
+                if t_lib is None:
+                    t_lib = time_ms(
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+                split = not fma
+                log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
+                    f"bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+                    f"{flops / 1e9:.3f} GFLOP)"
+                    + (f", at the TF32 peak (the split's "
+                       f"{3 * flops / 1e9:.3f} GFLOP) {tms:.5f} ms ({tby})"
+                       if split else "")
+                    + f"; scaled_dot_product_attention ({dt}) "
+                    f"{t_lib:.4f} ms")
+                nums = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": tms if split else bms,
+                        "bound_by": tby if split else by, "library_ms": t_lib}
+                # the FMA kernel's main-path use: vit_h14@742 in bf16
+                if split:
+                    out["tf32_dh80"] = nums
+                elif not f32:
+                    out["fma"] = nums
     return out
 
 
@@ -1335,7 +1409,11 @@ def report_profile(prof, wall_ms: float, what: str, expect=None) -> None:
         if seen != expect:
             raise AssertionError(f"{what}: kernels by name {seen}, expected "
                                  f"{expect}")
-        log(f"  {what}: kernels by name {seen} (as expected)")
+        spent = {part: sum(t for t, _, name in kernels if part in name)
+                 for part, n in expect.items() if n}
+        log(f"  {what}: kernels by name {seen} (as expected); their device "
+            f"time " + ", ".join(f"{part} {t:.3f} ms"
+                                 for part, t in spent.items()))
     top = sorted(kernels, reverse=True)[:6]
     log(f"  {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle "
@@ -1386,14 +1464,17 @@ class Path:
     ``f32_kernels``: the launches of the f32 request where they differ from
     ``kernels`` (a bf16 tensor-core route whose f32 twin is an FMA
     kernel). ``profile_kernels``: ``report_profile``'s ``expect`` for the
-    profiled request."""
+    profiled request. ``f32_rel``: a ``dtype="float32"`` path's requests
+    are held to F32_BOUND of each output's scale (``check_response``'s
+    ``rel``) where F32_BOUND alone would not hold through its depth."""
 
     def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
                  other=None, dtype="bfloat16", attn="auto", f32=True,
                  chain=(), lockstep=None, host_spans=(), f32_kernels=None,
-                 profile_kernels=None):
+                 profile_kernels=None, f32_rel=False):
         self.model, self.family, self.cfg = model, family, cfg
+        self.f32_rel = f32_rel
         self.f32_kernels = kernels if f32_kernels is None else f32_kernels
         self.profile_kernels = profile_kernels
         self.chain, self.lockstep = tuple(chain), lockstep
@@ -1603,10 +1684,11 @@ def tome_lockstep(path, model, image, device):
     return x, maps
 
 
-def check_response(raw, path, plain, tag, bf16=True):
-    """Shapes, finiteness, row sums and agreement with the plain path.
-    Returns ({output: max abs err}, {output: the share of its bound that
-    err uses})."""
+def check_response(raw, path, plain, tag, bf16=True, rel=False):
+    """Shapes, finiteness, row sums and agreement with the plain path
+    (``rel``: an f32 bound of F32_BOUND times max(1, the output's largest
+    value) instead of F32_BOUND). Returns ({output: max abs err}, {output:
+    the share of its bound that err uses})."""
     from interactive_vit_tpu_torch.wire.codec import Response
 
     out = Response.decode(raw)
@@ -1637,7 +1719,7 @@ def check_response(raw, path, plain, tag, bf16=True):
     for key, (got, ref) in pairs.items():
         scale = float(np.abs(ref).max())
         if not bf16:
-            bound = F32_BOUND
+            bound = F32_BOUND * (max(1.0, scale) if rel else 1.0)
         else:
             bound = SLICE_REL * (max(1.0, scale) if key == "head" else scale)
         errs[key] = float(np.abs(got - ref).max())
@@ -1733,7 +1815,9 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         errs, uses = check_response(raw, path,
                                     reference(path, model, images[k],
                                               device),
-                                    f"{tag} request {k}")
+                                    f"{tag} request {k}",
+                                    bf16=path.dtype != "float32",
+                                    rel=path.f32_rel)
         for key, v in errs.items():
             worst[key] = max(worst.get(key, 0.0), v)
             worst_use[key] = max(worst_use.get(key, 0.0), uses[key])
@@ -1795,18 +1879,24 @@ def run_forwards(device, counters) -> dict:
     at vit_b16 width (block kernel + MLP kernel) and ``swin.forward`` at
     swin_t width (window kernel + one MLP kernel per stage), bf16, B=1 and
     B=8, seeded random weights, against the same forwards with the
-    kernels' plain versions. Then two f32 ``vit.forward`` of vit_h14
-    (heads 80 wide, depth cut to 2) with ``--attn auto``: heads that are
-    not 64 wide keep the FMA kernels, one launch a block, the row-resident
-    one at 224 (N=257) against its plain version, the online one at 742
-    (N=2810) against the plain online attention, each at 1e-4 of the
-    logits' scale. Every launch count is set to 0 before the checked
-    forwards and the MLP kernel's count (12 a call) and the FMA kernels'
-    are read and returned straight after them; the forwards timed
-    afterwards do not enter them."""
+    kernels' plain versions. Then four ``vit.forward`` of vit_h14 (heads
+    80 wide, depth cut to 2) with ``--attn auto``, one launch a block: f32
+    on the split-TF32 kernels' 80-wide instantiations, bf16 on the FMA
+    kernels (the bf16 tensor-core route is 64 wide only); the row-resident
+    kernel at 224 (N=257) against its plain version, the online one at 742
+    (N=2810) against the plain online attention, the logits within 1e-4
+    (f32) or 2^-4 (bf16) of their scale. Every launch count is set to 0
+    before the checked forwards and the MLP kernel's count (12 a call) and
+    the FMA kernels' (the bf16 forwards') are read and returned straight
+    after them; the forwards timed afterwards do not enter them. Last,
+    vit_h14@742 at full depth (32 blocks) in f32: 32 launches of the
+    online split-TF32 kernel, the logits within 1e-4 of their scale, the
+    forward's wall time and one profiled forward (the attention's device
+    time)."""
     import dataclasses
 
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from interactive_vit_tpu_torch.models import swin, vit
     from interactive_vit_tpu_torch.ops import dispatch
@@ -1899,16 +1989,24 @@ def run_forwards(device, counters) -> dict:
                 f"fused_mlp_block: launches {delta}; logits max abs err "
                 f"vs the plain versions {err:.3g} (bound {bound:.3g}), "
                 f"maps {map_use:.2f} of their bound")
-        # f32 heads 80 wide: the FMA kernels, row-resident at 224 (N=257)
-        # and online above ROWFULL_MAX_N at 742
-        for variant, kernel, plain, what in (
-                ("vit_h14", "flash_attention", rowfull_plain,
+        # heads 80 wide: f32 on the split-TF32 kernels' 80-wide
+        # instantiations, bf16 on the FMA kernels (mma_route is 64 wide
+        # only); row-resident at 224 (N=257), online above ROWFULL_MAX_N at
+        # 742
+        for variant, dtype_h, kernel, plain, what in (
+                ("vit_h14", torch.float32, "flash_attention_tf32x3",
+                 rowfull_plain, "the plain row-resident attention"),
+                ("vit_h14@742", torch.float32,
+                 "flash_attention_online_tf32x3", online_plain,
+                 "the plain online attention"),
+                ("vit_h14", torch.bfloat16, "flash_attention", rowfull_plain,
                  "the plain row-resident attention"),
-                ("vit_h14@742", "flash_attention_online", online_plain,
-                 "the plain online attention")):
+                ("vit_h14@742", torch.bfloat16, "flash_attention_online",
+                 online_plain, "the plain online attention")):
+            dt = str(dtype_h).replace("torch.", "")
             hcfg = dataclasses.replace(vit.resolve_variant(variant), depth=2)
             hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
-                                      torch.float32, device)
+                                      dtype_h, device)
             himg = torch.rand((1, 3, hcfg.img_size, hcfg.img_size),
                               generator=torch.Generator().manual_seed(1)
                               ).to(device)
@@ -1919,25 +2017,72 @@ def run_forwards(device, counters) -> dict:
             delta = {k: f.launches - before[k]
                      for k, f in counters.items() if f.launches > before[k]}
             if delta != {kernel: hcfg.depth}:
-                raise AssertionError(f"{variant} f32 forward launched "
+                raise AssertionError(f"{variant} {dt} forward launched "
                                      f"{delta}; expected {hcfg.depth} "
                                      f"{kernel}")
             ref = vit.forward(hparams, himg, hcfg, attn_impl=plain)
-            logits, rlogits = got["logits"], ref["logits"]
-            bound = F32_BOUND * max(1.0, rlogits.abs().max().item())
+            logits, rlogits = got["logits"].float(), ref["logits"].float()
+            rel = F32_BOUND if dtype_h == torch.float32 else SLICE_REL
+            bound = rel * max(1.0, rlogits.abs().max().item())
             err = (logits - rlogits).abs().max().item()
             if (logits.shape != (1, hcfg.num_classes)
                     or not torch.isfinite(logits).all() or err > bound):
-                raise AssertionError(f"{variant} f32 forward: logits "
+                raise AssertionError(f"{variant} {dt} forward: logits "
                                      f"{tuple(logits.shape)}, max abs err "
                                      f"{err:.3g} (bound {bound:.3g})")
-            log(f"  {variant} (depth 2) forward B=1 f32, N={hcfg.tokens}, "
+            log(f"  {variant} (depth 2) forward B=1 {dt}, N={hcfg.tokens}, "
                 f"dh={hcfg.width // hcfg.heads}: launches {delta}; logits "
                 f"max abs err vs {what} {err:.3g} (bound {bound:.3g})")
+        # vit_h14@742 at full depth (32 blocks), f32: the online kernel's
+        # 80-wide split-TF32 instantiation in every block, the logits
+        # within 1e-4 of their scale of the plain online attention's
+        hcfg = vit.resolve_variant("vit_h14@742")
+        hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
+                                  torch.float32, device)
+        himg = torch.rand((1, 3, hcfg.img_size, hcfg.img_size),
+                          generator=torch.Generator().manual_seed(1)
+                          ).to(device)
+        auto = dispatch.default_attn_impl("auto")
+        before = {k: f.launches for k, f in counters.items()}
+        got = vit.forward(hparams, himg, hcfg, attn_impl=auto)
+        torch.cuda.synchronize()
+        delta = {k: f.launches - before[k]
+                 for k, f in counters.items() if f.launches > before[k]}
+        if delta != {"flash_attention_online_tf32x3": hcfg.depth}:
+            raise AssertionError(f"vit_h14@742 f32 forward launched {delta}; "
+                                 f"expected {hcfg.depth} "
+                                 f"flash_attention_online_tf32x3")
+        rlogits = vit.forward(hparams, himg, hcfg,
+                              attn_impl=online_plain)["logits"]
+        bound = F32_BOUND * max(1.0, rlogits.abs().max().item())
+        err = (got["logits"] - rlogits).abs().max().item()
+        if not torch.isfinite(got["logits"]).all() or err > bound:
+            raise AssertionError(f"vit_h14@742 f32 forward (depth "
+                                 f"{hcfg.depth}): logits max abs err "
+                                 f"{err:.3g} (bound {bound:.3g})")
+        full_line = (f"  vit_h14@742 (full depth, {hcfg.depth} blocks) "
+                     f"forward B=1 f32: launches {delta}; logits max abs "
+                     f"err vs the plain online attention {err:.3g} (bound "
+                     f"{bound:.3g})")
         # the path ends here: the counts are read before the timed forwards
         count = counters["fused_mlp_block"].launches
         rowfull = counters["flash_attention"].launches
         online = counters["flash_attention_online"].launches
+        t_full = wall_ms(lambda: vit.forward(hparams, himg, hcfg,
+                                             attn_impl=auto), iters=2)
+        log(full_line + f"; {t_full:.2f} ms a forward (host wall, "
+            f"synchronized)")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            vit.forward(hparams, himg, hcfg, attn_impl=auto)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        report_profile(prof, wall, "vit_h14@742 f32 full-depth forward "
+                       "profile", {"online_tf32_kernel": hcfg.depth,
+                                   "online_attention_kernel": 0})
+        del hparams
         if count != 12 * len(cases):
             raise AssertionError(f"fused_mlp_block launched {count} times in "
                                  f"{len(cases)} forwards; expected "
@@ -2088,7 +2233,9 @@ def phase_train_kernel(device, packed: bool) -> dict:
     fn_counts = av.attention_train_packed if packed else av.attention_train
     served = TRAIN_B16 if packed else TRAIN_T16
     cases = ([(c, None) for c in [TRAIN_B16] + ([] if packed else [TRAIN_T16])]
-             + [((8, 2, 208, 64), 197), ((8, 6, 577, 64), None)])
+             + [((8, 2, 208, 64), 197), ((8, 6, 577, 64), None)]
+             + ([] if packed else [(TRAIN_H14, None)]))
+    timed = (served, TRAIN_H14)
 
     def counts():
         return (fn_counts.fwd_launches, fn_counts.bwd_launches,
@@ -2099,16 +2246,20 @@ def phase_train_kernel(device, packed: bool) -> dict:
     for shape, n_real in cases:
         b, h, n, dh = shape
         nr = n if n_real is None else n_real
-        for dtype in (torch.bfloat16, torch.float32):
+        # heads 80 wide (vit_h14, f32): the FMA pair on aligned operands
+        tc = dh == av.MMA_DH
+        for dtype in (torch.bfloat16, torch.float32) if tc else (
+                torch.float32,):
             dt = str(dtype).replace("torch.", "")
             mma = dtype == torch.bfloat16
             g = torch.Generator().manual_seed(n + h)
             qkv0 = torch.randn((b, n, 3 * h * dh), generator=g).to(device,
                                                                    dtype)
             do = torch.randn((b, n, h * dh), generator=g).to(device, dtype)
-            routes = [("tensor cores" if mma else "split TF32", qkv0),
-                      ("FMA, off the 16-byte grid",
-                       misaligned(qkv0, 4 if mma else 2))]
+            routes = ([("tensor cores" if mma else "split TF32", qkv0),
+                       ("FMA, off the 16-byte grid",
+                        misaligned(qkv0, 4 if mma else 2))] if tc
+                      else [("FMA", qkv0)])
             ref = None
             t_routes = {}
             for route, qkv in routes:
@@ -2176,7 +2327,7 @@ def phase_train_kernel(device, packed: bool) -> dict:
                                              f"dv")
                     line += "; masked keys' dk, dv exactly 0"
                 log(line)
-                if shape == served:
+                if shape in timed:
                     if packed:
                         t_f = time_ms(lambda: av._packed_fwd(qkv, n))
                         _, st = av._packed_fwd(qkv, n)
@@ -2187,7 +2338,7 @@ def phase_train_kernel(device, packed: bool) -> dict:
                         t_b = time_ms(lambda: av._bwd(*views, dout, n, st))
                     t_routes[route] = (time_ms(kernel), t_f, t_b, errs,
                                        kernel, plain)
-            if shape != served:
+            if shape not in timed:
                 continue
             # SDPA on the [B, H, N, dh] views, forward + backward
             sv = [t.detach().requires_grad_(True) for t in
@@ -2201,7 +2352,7 @@ def phase_train_kernel(device, packed: bool) -> dict:
                 o = F.scaled_dot_product_attention(*sv)
                 return torch.autograd.grad(o, sv, sdo)
 
-            first, off_grid = routes[0][0], routes[1][0]
+            first, off_grid = routes[0][0], routes[-1][0]
             t_k, t_p = time_turns(t_routes[first][4], t_routes[first][5])
             t_lib = time_ms(sdpa)
             nbytes, flops = train_attn_cost(b, h, n, dh, qkv0.element_size())
@@ -2214,14 +2365,23 @@ def phase_train_kernel(device, packed: bool) -> dict:
                 + f"; in turns kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
                 f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.3f} GFLOP)"
-                + ("" if mma else f", at the TF32 peak (the split's "
-                   f"{3 * flops / 1e9:.3f} GFLOP) {tms:.5f} ms ({tby})")
+                + ("" if mma or not tc else f", at the TF32 peak (the "
+                   f"split's {3 * flops / 1e9:.3f} GFLOP) {tms:.5f} ms "
+                   f"({tby})")
                 + f"; scaled_dot_product_attention fwd+bwd {t_lib:.4f} ms")
+            if not tc:
+                # the FMA pair's main-path use: train run (f)
+                out["fma"] = {
+                    "max_abs_err": max(t_routes[first][3]), "ms": t_k,
+                    "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+                    "library_ms": t_lib}
+                continue
             out["mma" if mma else "tf32"] = {
                 "max_abs_err": max(t_routes[first][3]), "ms": t_k,
                 "plain_ms": t_p, "bound_ms": bms if mma else tms,
                 "bound_by": by if mma else tby, "library_ms": t_lib}
-            if not mma:
+            if not mma and packed:
+                # no configuration gives the packed layout FMA operands
                 out["fma"] = {
                     "max_abs_err": max(t_routes[off_grid][3]),
                     "ms": t_routes[off_grid][0], "plain_ms": t_p,
@@ -2657,6 +2817,20 @@ def main() -> int:
                  f32_kernels={"flash_attention_online_tf32x3": 12},
                  profile_kernels={"online_mma_kernel": 12,
                                   "online_attention_kernel": 0}),
+        # vit_h14@742 at full depth (32 blocks, N=2810, heads 80 wide), one
+        # f32 request (the server's default dtype): a plain ViT's blocks
+        # run the block kernels, here the headwise one (its FMA attention
+        # core by name in the profile), not rows 3-4 (vit.forward's
+        # attention: run_forwards); the block outputs o of blocks 0, 16, 31
+        # and the logits, each within 1e-4 of its scale (32 blocks carry
+        # the kernel's ~1e-6 relative differences through the residual
+        # stream)
+        vit_path("vit_h14@742", 742, {2: ("o",), 18: ("o",), 33: ("o",)},
+                 {"headwise_attn_block": 32},
+                 {"block_impl": fb.headwise_attn_block_reference}, seq=1,
+                 conc=0, dtype="float32", f32=False, f32_rel=True,
+                 profile_kernels={"tiled_attention_kernel": 32,
+                                  "online_tf32_kernel": 0}),
         # the repository's saved graph for an @ geometry (N=257)
         vit_path("vit_t16@256", 256, {2: ("attn", "r"), 8: ("attn", "r"),
                                       13: ("r",)}, {"fused_attn_block": 12},

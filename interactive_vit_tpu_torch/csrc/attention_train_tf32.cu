@@ -80,6 +80,10 @@
 
 namespace {
 
+// The head width these kernels take (heads 80 wide stay on attention_bwd.cu)
+constexpr int TF_DH = 64;
+constexpr int TF_DT = TfDims<TF_DH>::DT, K_LD = TfDims<TF_DH>::K_LD;
+
 // A block's own rows (queries in (a), keys in (b)) and the tiles of the
 // streamed operand (keys in (a), queries in (b)), taken in parts of
 // TT_HALF (the whole tile).
@@ -169,12 +173,12 @@ __global__ void __launch_bounds__(TT_THREADS) train_dq_tf32_kernel(const TrainTf
   const float* vb = head_base(a, a.v, V_, b, h);
 
   // Q and dO resident, key tile 0 into stage 0
-  load_rows_f32(resident(smem, 0), K_LD, head_base(a, a.q, Q_, b, h), a.st[Q_][2], q0, TT_ROWS, N,
-                TT_THREADS);
-  load_rows_f32(resident(smem, 1), K_LD, head_base(a, a.dout, DO_, b, h), a.st[DO_][2], q0,
-                TT_ROWS, N, TT_THREADS);
-  load_rows_f32(stage_tile(smem, 0, 0), K_LD, kb, a.st[K_][2], 0, TT_KT, N, TT_THREADS);
-  load_rows_f32(stage_tile(smem, 0, 1), K_LD, vb, a.st[V_][2], 0, TT_KT, N, TT_THREADS);
+  load_rows_f32<TF_DH>(resident(smem, 0), K_LD, head_base(a, a.q, Q_, b, h), a.st[Q_][2], q0,
+                       TT_ROWS, N, TT_THREADS);
+  load_rows_f32<TF_DH>(resident(smem, 1), K_LD, head_base(a, a.dout, DO_, b, h), a.st[DO_][2], q0,
+                       TT_ROWS, N, TT_THREADS);
+  load_rows_f32<TF_DH>(stage_tile(smem, 0, 0), K_LD, kb, a.st[K_][2], 0, TT_KT, N, TT_THREADS);
+  load_rows_f32<TF_DH>(stage_tile(smem, 0, 1), K_LD, vb, a.st[V_][2], 0, TT_KT, N, TT_THREADS);
   cp_async_commit();
   // the rows' saved statistics; rows past N get probs of 0
   const size_t plane = (size_t)a.B * a.H * N, row0 = ((size_t)b * a.H + h) * N + q0;
@@ -196,8 +200,10 @@ __global__ void __launch_bounds__(TT_THREADS) train_dq_tf32_kernel(const TrainTf
   for (int it = 0; it < steps; ++it) {
     if (it + 1 < steps) {
       const int nx = it + 1, j1 = (nx % n_tiles) * TT_KT;
-      load_rows_f32(stage_tile(smem, nx & 1, 0), K_LD, kb, a.st[K_][2], j1, TT_KT, N, TT_THREADS);
-      load_rows_f32(stage_tile(smem, nx & 1, 1), K_LD, vb, a.st[V_][2], j1, TT_KT, N, TT_THREADS);
+      load_rows_f32<TF_DH>(stage_tile(smem, nx & 1, 0), K_LD, kb, a.st[K_][2], j1, TT_KT, N,
+                           TT_THREADS);
+      load_rows_f32<TF_DH>(stage_tile(smem, nx & 1, 1), K_LD, vb, a.st[V_][2], j1, TT_KT, N,
+                           TT_THREADS);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -213,8 +219,8 @@ __global__ void __launch_bounds__(TT_THREADS) train_dq_tf32_kernel(const TrainTf
     for (int half = 0; half < TT_KT / TT_HALF; ++half) {
       const int c0 = TT_HALF * half;
       float s[TT_HNT][4], dp[TT_HNT][4];
-      mma3_rows_smem<TT_HNT>(s, Qw, Ks + c0 * K_LD, lane);
-      mma3_rows_smem<TT_HNT>(dp, Ow, Vs + c0 * K_LD, lane);
+      mma3_rows_smem<TF_DH, TT_HNT>(s, Qw, Ks + c0 * K_LD, lane);
+      mma3_rows_smem<TF_DH, TT_HNT>(dp, Ow, Vs + c0 * K_LD, lane);
 #pragma unroll
       for (int n = 0; n < TT_HNT; ++n)
 #pragma unroll
@@ -232,7 +238,7 @@ __global__ void __launch_bounds__(TT_THREADS) train_dq_tf32_kernel(const TrainTf
         for (int n = 0; n < TT_HNT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e) dp[n][e] = dscore(s[n][e], dp[n][e], delta[e >> 1], a.scale);
-        mma3_acc_by_cols<TT_HNT>(dq, dp, Ks, K_LD, c0, lane);
+        mma3_acc_by_cols<TF_DH, TT_HNT>(dq, dp, Ks, K_LD, c0, lane);
       }
     }
     if (it == n_tiles - 1) {
@@ -266,12 +272,12 @@ __global__ void __launch_bounds__(TT_THREADS) train_dkdv_tf32_kernel(const Train
   const size_t plane = (size_t)a.B * a.H * N, row0 = ((size_t)b * a.H + h) * N;
 
   // K and V resident, query tile 0 into stage 0
-  load_rows_f32(resident(smem, 0), K_LD, head_base(a, a.k, K_, b, h), a.st[K_][2], k0, TT_ROWS, N,
-                TT_THREADS);
-  load_rows_f32(resident(smem, 1), K_LD, head_base(a, a.v, V_, b, h), a.st[V_][2], k0, TT_ROWS, N,
-                TT_THREADS);
-  load_rows_f32(stage_tile(smem, 0, 0), K_LD, qb, a.st[Q_][2], 0, TT_KT, N, TT_THREADS);
-  load_rows_f32(stage_tile(smem, 0, 1), K_LD, ob, a.st[DO_][2], 0, TT_KT, N, TT_THREADS);
+  load_rows_f32<TF_DH>(resident(smem, 0), K_LD, head_base(a, a.k, K_, b, h), a.st[K_][2], k0,
+                       TT_ROWS, N, TT_THREADS);
+  load_rows_f32<TF_DH>(resident(smem, 1), K_LD, head_base(a, a.v, V_, b, h), a.st[V_][2], k0,
+                       TT_ROWS, N, TT_THREADS);
+  load_rows_f32<TF_DH>(stage_tile(smem, 0, 0), K_LD, qb, a.st[Q_][2], 0, TT_KT, N, TT_THREADS);
+  load_rows_f32<TF_DH>(stage_tile(smem, 0, 1), K_LD, ob, a.st[DO_][2], 0, TT_KT, N, TT_THREADS);
   cp_async_commit();
   const float* Kw = resident(smem, 0) + 16 * warp * K_LD;
   const float* Vw = resident(smem, 1) + 16 * warp * K_LD;
@@ -290,10 +296,10 @@ __global__ void __launch_bounds__(TT_THREADS) train_dkdv_tf32_kernel(const Train
   for (int it = 0; it < steps; ++it) {
     const int i0 = it * TT_KT;
     if (it + 1 < steps) {
-      load_rows_f32(stage_tile(smem, (it + 1) & 1, 0), K_LD, qb, a.st[Q_][2], i0 + TT_KT, TT_KT, N,
-                    TT_THREADS);
-      load_rows_f32(stage_tile(smem, (it + 1) & 1, 1), K_LD, ob, a.st[DO_][2], i0 + TT_KT, TT_KT,
-                    N, TT_THREADS);
+      load_rows_f32<TF_DH>(stage_tile(smem, (it + 1) & 1, 0), K_LD, qb, a.st[Q_][2], i0 + TT_KT,
+                           TT_KT, N, TT_THREADS);
+      load_rows_f32<TF_DH>(stage_tile(smem, (it + 1) & 1, 1), K_LD, ob, a.st[DO_][2], i0 + TT_KT,
+                           TT_KT, N, TT_THREADS);
       cp_async_commit();
     }
     // this tile's (m, l, delta); queries past N get probs of 0
@@ -318,8 +324,8 @@ __global__ void __launch_bounds__(TT_THREADS) train_dkdv_tf32_kernel(const Train
     for (int half = 0; half < TT_KT / TT_HALF; ++half) {
       const int c0 = TT_HALF * half;
       float s[TT_HNT][4], dp[TT_HNT][4];
-      mma3_rows_smem<TT_HNT>(s, Kw, Qs + c0 * K_LD, lane);   // S^T: keys x queries
-      mma3_rows_smem<TT_HNT>(dp, Vw, Os + c0 * K_LD, lane);  // dP^T
+      mma3_rows_smem<TF_DH, TT_HNT>(s, Kw, Qs + c0 * K_LD, lane);   // S^T: keys x queries
+      mma3_rows_smem<TF_DH, TT_HNT>(dp, Vw, Os + c0 * K_LD, lane);  // dP^T
 #pragma unroll
       for (int n = 0; n < TT_HNT; ++n) {
 #pragma unroll
@@ -330,8 +336,8 @@ __global__ void __launch_bounds__(TT_THREADS) train_dkdv_tf32_kernel(const Train
           dp[n][e] = dscore(p, dp[n][e], st[2 * TT_KT + i], a.scale);
         }
       }
-      mma3_acc_by_cols<TT_HNT>(dv, s, Os, K_LD, c0, lane);
-      mma3_acc_by_cols<TT_HNT>(dk, dp, Qs, K_LD, c0, lane);
+      mma3_acc_by_cols<TF_DH, TT_HNT>(dv, s, Os, K_LD, c0, lane);
+      mma3_acc_by_cols<TF_DH, TT_HNT>(dk, dp, Qs, K_LD, c0, lane);
     }
     __syncthreads();
   }

@@ -32,9 +32,18 @@
 //     8) are the A fragment as they stand (a0 = c0, a1 = c2, a2 = c1, a3 =
 //     c3; split_acc), with Y's B fragment read at rows 2t and 2t + 1
 //     (mma3_acc_by_cols): no quad shuffles.
-// There is no ldmatrix for 32-bit tiles. Rows of K_LD = 72 floats make the
-// 8-byte row loads conflict-free (a half-warp's 16 lanes hit 32 distinct
-// banks); rows of V_LD = 68 do that for the 4-byte column loads.
+// There is no ldmatrix for 32-bit tiles, so the shared tiles' row strides
+// are padded to keep the fragment loads free of bank conflicts (TfDims):
+//   8-byte row loads (Q, K, the B pairs): a half-warp's 16 lanes read the
+//     words g K_LD + 2t and + 1 (g = 0..3 within the half-warp, t = 0..3).
+//     With K_LD = 8 or 24 (mod 32), g K_LD is 0, 8, 16, 24 (mod 32) in some
+//     order and 2t, 2t + 1 cover 0..7: 32 distinct banks. K_LD = DH + 8:
+//     72 (= 8 mod 32) at 64, 88 (= 24 mod 32) at 80.
+//   4-byte column loads (V's B fragment, rows 2t and 2t + 1, column g): a
+//     warp reads the words 2t V_LD + g. With 2 V_LD = 8 or 24 (mod 32), 2t
+//     V_LD is 0, 8, 16, 24 and g covers 0..7: 32 distinct banks. V_LD = DH
+//     + 4: 68 (136 = 8 mod 32) at 64, 84 (168 = 8 mod 32) at 80.
+// Both hold for any head width that is a multiple of 16.
 //
 // Everything lives in an anonymous namespace, as in mma_attention.cuh,
 // which this header includes for cp.async and the quad reductions.
@@ -45,11 +54,17 @@
 
 namespace {
 
-constexpr int TF_DH = 64;          // the head width these kernels take
-constexpr int TF_KS = TF_DH / 8;   // 8-deep steps over the head dim
-constexpr int TF_DT = TF_DH / 8;   // 8-column tiles of a [16 x TF_DH] output
-constexpr int K_LD = TF_DH + 8;    // rows read as 8-byte pairs, floats
-constexpr int V_LD = TF_DH + 4;    // rows read as 4-byte columns, floats
+// The shapes that follow from a head width DH (64 or 80 in this port).
+template <int DH>
+struct TfDims {
+  static constexpr int KS = DH / 8;    // 8-deep steps over the head dim
+  static constexpr int DT = DH / 8;    // 8-column tiles of a [16 x DH] output
+  static constexpr int K_LD = DH + 8;  // rows read as 8-byte pairs, floats
+  static constexpr int V_LD = DH + 4;  // rows read as 4-byte columns, floats
+  static_assert(DH % 16 == 0, "heads a multiple of 16 wide");
+  static_assert(K_LD % 32 == 8 || K_LD % 32 == 24, "8-byte row loads conflict-free");
+  static_assert(2 * V_LD % 32 == 8 || 2 * V_LD % 32 == 24, "column loads conflict-free");
+};
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
@@ -89,13 +104,14 @@ __device__ __forceinline__ float fold_rn(float big, float small) { return __fadd
 
 __device__ __forceinline__ void zero4(float c[4]) { c[0] = c[1] = c[2] = c[3] = 0.f; }
 
-// Rows [r0, r0 + rows) of an f32 [*, TF_DH] operand (row stride sn
-// elements) into a shared tile with rows of `ld` floats, by cp.async, all
-// `threads` threads of the block taking part; rows at or past `live` are
+// Rows [r0, r0 + rows) of an f32 [*, DH] operand (row stride sn elements)
+// into a shared tile with rows of `ld` floats, by cp.async, all `threads`
+// threads of the block taking part; rows at or past `live` are
 // zero-filled.
+template <int DH>
 __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* src, long long sn,
                                               int r0, int rows, int live, int threads) {
-  constexpr int CHUNKS = TF_DH / 4;  // 16-byte chunks of a row
+  constexpr int CHUNKS = DH / 4;  // 16-byte chunks of a row: 16 at 64, 20 at 80
   for (int c = threadIdx.x; c < rows * CHUNKS; c += threads) {
     const int i = c / CHUNKS, part = c % CHUNKS;
     const bool in = r0 + i < live;
@@ -107,8 +123,10 @@ __device__ __forceinline__ void load_rows_f32(float* dst, int ld, const float* s
 // The split A fragment of the 8-deep step kc for 16 rows of a shared tile
 // (rows of K_LD floats; `rows` points at the warp's first row): head dims
 // 8 kc + 2t (a0, a1) and 8 kc + 2t + 1 (a2, a3) of rows g and g + 8.
+template <int DH>
 __device__ __forceinline__ void load_a_rows(uint32_t ah[4], uint32_t al[4], const float* rows, int kc,
                                             int lane) {
+  constexpr int K_LD = TfDims<DH>::K_LD;
   const int g = lane >> 2, t = lane & 3;
   const float* p = rows + g * K_LD + 8 * kc + 2 * t;
   const float2 top = *reinterpret_cast<const float2*>(p);
@@ -122,8 +140,10 @@ __device__ __forceinline__ void load_a_rows(uint32_t ah[4], uint32_t al[4], cons
 // The B values of X Y^T for the 8 rows n0.. of a shared tile Y (rows of
 // K_LD floats) at the 8-deep step kc: head dims 8 kc + 2t and 8 kc + 2t + 1
 // of row n0 + g.
+template <int DH>
 __device__ __forceinline__ float2 load_b_pair(const float* tile, int n0, int kc, int lane) {
-  return *reinterpret_cast<const float2*>(tile + (n0 + (lane >> 2)) * K_LD + 8 * kc + 2 * (lane & 3));
+  return *reinterpret_cast<const float2*>(tile + (n0 + (lane >> 2)) * TfDims<DH>::K_LD + 8 * kc +
+                                          2 * (lane & 3));
 }
 
 // The split A fragment of an 8-deep step from the accumulators of one
@@ -139,16 +159,17 @@ __device__ __forceinline__ void split_acc(uint32_t ah[4], uint32_t al[4], const 
 // head dim) against the NT * 8 rows of a shared tile Y (rows of K_LD
 // floats): the hi products and the correction terms over the head dim,
 // folded with round to nearest.
-template <int NT>
-__device__ __forceinline__ void mma3_rows(float s[NT][4], const uint32_t xh[TF_KS][4],
-                                          const uint32_t xl[TF_KS][4], const float* tile, int lane) {
+template <int DH, int NT>
+__device__ __forceinline__ void mma3_rows(float s[NT][4], const uint32_t xh[TfDims<DH>::KS][4],
+                                          const uint32_t xl[TfDims<DH>::KS][4], const float* tile,
+                                          int lane) {
 #pragma unroll
   for (int n = 0; n < NT; ++n) {
     float small[4] = {0.f, 0.f, 0.f, 0.f};
     zero4(s[n]);
 #pragma unroll
-    for (int kc = 0; kc < TF_KS; ++kc) {
-      const float2 b = load_b_pair(tile, 8 * n, kc, lane);
+    for (int kc = 0; kc < TfDims<DH>::KS; ++kc) {
+      const float2 b = load_b_pair<DH>(tile, 8 * n, kc, lane);
       mma_3xtf32(s[n], small, xh[kc], xl[kc], b.x, b.y);
     }
 #pragma unroll
@@ -158,7 +179,7 @@ __device__ __forceinline__ void mma3_rows(float s[NT][4], const uint32_t xh[TF_K
 
 // The same with X's 16 rows read from a shared tile (rows of K_LD floats,
 // `xrows` at the warp's first row) and split as each step is read.
-template <int NT>
+template <int DH, int NT>
 __device__ __forceinline__ void mma3_rows_smem(float s[NT][4], const float* xrows, const float* tile,
                                                int lane) {
   float small[NT][4];
@@ -168,12 +189,12 @@ __device__ __forceinline__ void mma3_rows_smem(float s[NT][4], const float* xrow
     zero4(small[n]);
   }
 #pragma unroll
-  for (int kc = 0; kc < TF_KS; ++kc) {
+  for (int kc = 0; kc < TfDims<DH>::KS; ++kc) {
     uint32_t ah[4], al[4];
-    load_a_rows(ah, al, xrows, kc, lane);
+    load_a_rows<DH>(ah, al, xrows, kc, lane);
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const float2 b = load_b_pair(tile, 8 * n, kc, lane);
+      const float2 b = load_b_pair<DH>(tile, 8 * n, kc, lane);
       mma_3xtf32(s[n], small[n], ah, al, b.x, b.y);
     }
   }
@@ -183,17 +204,18 @@ __device__ __forceinline__ void mma3_rows_smem(float s[NT][4], const float* xrow
     for (int e = 0; e < 4; ++e) s[n][e] = fold_rn(s[n][e], small[n][e]);
 }
 
-// acc[d] += (A Y) for the TF_DT 8-column tiles of Y, A the accumulators of
-// NT 8-column tiles (the NT 8-deep steps over rows k0.. of a shared tile Y
+// acc[d] += (A Y) for the DT 8-column tiles of Y, A the accumulators of NT
+// 8-column tiles (the NT 8-deep steps over rows k0.. of a shared tile Y
 // with rows of `ld` floats): the hi products and the correction terms over
 // the NT steps, folded into acc with round to nearest.
-template <int NT>
-__device__ __forceinline__ void mma3_acc_by_cols(float acc[TF_DT][4], const float a[NT][4],
+template <int DH, int NT>
+__device__ __forceinline__ void mma3_acc_by_cols(float acc[TfDims<DH>::DT][4], const float a[NT][4],
                                                  const float* tile, int ld, int k0, int lane) {
+  constexpr int DT = TfDims<DH>::DT;
   const int g = lane >> 2, t = lane & 3;
-  float big[TF_DT][4], small[TF_DT][4];
+  float big[DT][4], small[DT][4];
 #pragma unroll
-  for (int d = 0; d < TF_DT; ++d) {
+  for (int d = 0; d < DT; ++d) {
     zero4(big[d]);
     zero4(small[d]);
   }
@@ -203,10 +225,10 @@ __device__ __forceinline__ void mma3_acc_by_cols(float acc[TF_DT][4], const floa
     split_acc(ah, al, a[n]);
     const float* yr = tile + (k0 + 8 * n + 2 * t) * ld + g;
 #pragma unroll
-    for (int d = 0; d < TF_DT; ++d) mma_3xtf32(big[d], small[d], ah, al, yr[8 * d], yr[ld + 8 * d]);
+    for (int d = 0; d < DT; ++d) mma_3xtf32(big[d], small[d], ah, al, yr[8 * d], yr[ld + 8 * d]);
   }
 #pragma unroll
-  for (int d = 0; d < TF_DT; ++d)
+  for (int d = 0; d < DT; ++d)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[d][e] = __fadd_rn(acc[d][e], fold_rn(big[d][e], small[d][e]));
 }

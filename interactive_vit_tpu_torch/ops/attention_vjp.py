@@ -13,20 +13,22 @@ layouts, one kernel pair for each direction:
   into a ``[B, N, 3D]`` dqkv, so no cat or transpose exists around it.
 
 For CUDA tensors both launch hand-written kernels, on one of three routes
-chosen by dtype, head width and alignment (``flash_attention.mma_route``,
-``flash_attention.tf32_route``, read on the element pointers and
-strides), never by a failure: a failed build or launch raises.
+chosen by dtype, head width and alignment (``flash_attention.mma_route``
+and ``_tf32_ok``, read on the element pointers and strides), never by a
+failure: a failed build or launch raises.
 
 * bf16, heads ``MMA_DH`` (64) wide, 16-byte aligned operands: the tensor-
   core kernels of ``csrc/attention_train_mma.cu`` (a forward, and a
   backward pair: dq, then dk / dv). Counted on ``.mma_fwd_launches`` /
   ``.mma_bwd_launches``.
-* f32, heads ``MMA_DH`` wide, 16-byte aligned operands: the split-TF32
-  tensor-core kernels, the forward row 3's ``csrc/flash_attention_tf32.cu``
-  (given the layout's element strides), the backward pair
-  ``csrc/attention_train_tf32.cu``; every product as three TF32 products
-  of a hi / lo split. Counted on ``.tf32_fwd_launches`` /
-  ``.tf32_bwd_launches``.
+* f32, heads ``TRAIN_TF32_DH`` (64) wide, 16-byte aligned operands: the
+  split-TF32 tensor-core kernels, the forward row 3's
+  ``csrc/flash_attention_tf32.cu`` (given the layout's element strides),
+  the backward pair ``csrc/attention_train_tf32.cu``; every product as
+  three TF32 products of a hi / lo split. Counted on
+  ``.tf32_fwd_launches`` / ``.tf32_bwd_launches``. Row 3's forward also
+  takes heads 80 wide (``flash_attention.TF32_DHS``), the backward does
+  not: vit_h14's heads train on the FMA pair.
 * everything else (f32 and bf16 of other widths or alignments): the f32
   FMA kernels, the forward the row-resident kernel of
   ``csrc/flash_attention.cu`` (given the layout's element strides, no
@@ -74,6 +76,9 @@ PACKED_DH = 64
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # The head width of the tensor-core route.
 MMA_DH = fa.MMA_DH
+# The head width of the split-TF32 backward (csrc/attention_train_tf32.cu),
+# and so of the f32 train route.
+TRAIN_TF32_DH = MMA_DH
 # The widest head csrc/attention_bwd.cu takes (its entry refuses wider).
 BWD_MAX_DH = 128
 
@@ -252,12 +257,14 @@ def _tf32_lib() -> ctypes.CDLL:
 
 
 def load_tf32_kernel() -> ctypes.CDLL:
-    """Build and load the split-TF32 forward and backward now; checks their
-    head width against ``MMA_DH``."""
+    """Build and load the split-TF32 forward and backward now; checks the
+    forward's head widths against ``flash_attention.TF32_DHS`` and the
+    backward's against ``TRAIN_TF32_DH``."""
     fa.load_tf32_kernel()
     lib = _tf32_lib()
-    if lib.ivt_train_tf32_dh() != MMA_DH:
-        raise RuntimeError("csrc/attention_train_tf32.cu and MMA_DH disagree")
+    if lib.ivt_train_tf32_dh() != TRAIN_TF32_DH:
+        raise RuntimeError("csrc/attention_train_tf32.cu and TRAIN_TF32_DH "
+                           "disagree")
     return lib
 
 
@@ -332,9 +339,13 @@ def _mma_ok(dtype, dh, ptrs, strides) -> bool:
 
 
 def _tf32_ok(dtype, dh, ptrs, strides) -> bool:
-    """``flash_attention.tf32_route`` on element pointers and (image, head,
-    token) stride triples."""
-    return fa.tf32_route(dtype, dh, ptrs, [s for st in strides for s in st])
+    """The split-TF32 train route on element pointers and (image, head,
+    token) stride triples: ``flash_attention.tf32_route`` (f32, 16-byte
+    aligned) at the backward's one width, ``TRAIN_TF32_DH``; widening the
+    forward's widths never sends a backward to a kernel of another
+    width."""
+    return dh == TRAIN_TF32_DH and fa.tf32_route(
+        dtype, dh, ptrs, [s for st in strides for s in st])
 
 
 def _tc_ok(dtype, dh, ptrs, strides) -> bool:
@@ -363,11 +374,12 @@ def _launch_fwd_mma(ptrs, strides, device, b, h, n, n_real):
 
 def _launch_fwd_tf32(ptrs, strides, device, b, h, n, n_real):
     """One launch of the split-TF32 forward (row 3's kernel with the (m, l)
-    output). ``ptrs``: q, k, v, o; ``strides``: their stride triples.
-    Returns the rows' (m, l), f32 [2, B, H, N]."""
+    output) on heads ``TRAIN_TF32_DH`` wide. ``ptrs``: q, k, v, o;
+    ``strides``: their stride triples. Returns the rows' (m, l), f32
+    [2, B, H, N]."""
     stats = torch.empty((2, b, h, n), dtype=torch.float32, device=device)
-    fa.launch_flash_tf32(ptrs, strides, device, b, h, n, n_real,
-                         stats_ptr=stats.data_ptr())
+    fa.launch_flash_tf32(ptrs, strides, device, b, h, n, TRAIN_TF32_DH,
+                         n_real, stats_ptr=stats.data_ptr())
     return stats
 
 

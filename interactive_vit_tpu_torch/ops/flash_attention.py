@@ -28,14 +28,15 @@ serves, and its own launch count:
   (kernel ``csrc/flash_attention_mma.cu``, the probs tap included), the
   online branch ``flash_attention_online_mma``
   (``csrc/flash_attention_online_mma.cu``);
-* f32 heads of ``MMA_DH`` columns with 16-byte aligned operands
-  (``tf32_route``): the row-resident branch runs ``flash_attention_tf32x3``
+* f32 heads of a width in ``TF32_DHS`` (64 and 80 columns: vit_h14's
+  heads are 80 wide) with 16-byte aligned operands (``tf32_route``): the
+  row-resident branch runs ``flash_attention_tf32x3``
   (``csrc/flash_attention_tf32.cu``, the probs tap included), the online
   branch ``flash_attention_online_tf32x3``
   (``csrc/flash_attention_online_tf32.cu``): every product as three TF32
   products of a hi / lo split (``csrc/tf32_attention.cuh``), which keeps
-  the f32 contract;
-* everything else keeps the f32 FMA kernels.
+  the f32 contract; each source holds one instantiation a width;
+* everything else (bf16 heads 80 wide among them) keeps the FMA kernels.
 
 Numerics (the JAX row-resident kernel's): f32 scores times dh^-0.5, keys
 at or beyond ``n_real`` set to ``MASK_VALUE``, the row max subtracted,
@@ -68,15 +69,20 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # of 128 (the JAX kernel's block_k), heads up to 128 wide.
 ONLINE_QT = 32
 ONLINE_BLOCK_K = 128
-# csrc/flash_attention_online_tf32.cu's key tile (f32: p is never cast, so
-# the width changes only the rounding of the running sums)
-ONLINE_TF32_BLOCK_K = 64
+# csrc/flash_attention_online_tf32.cu's key tile at each head width it
+# takes (f32: p is never cast, so the tile changes only the rounding of the
+# running sums); other widths' plain version on the CPU takes 64
+ONLINE_TF32_BLOCK_K = {64: 64, 80: 32}
 
 
 # The head width of the tensor-core kernels (csrc/mma_attention.cuh) and
 # the alignment their 16-byte copies need, in bytes.
 MMA_DH = 64
 MMA_ALIGN = 16
+# The head widths of the split-TF32 kernels (csrc/flash_attention_tf32.cu,
+# csrc/flash_attention_online_tf32.cu), in increasing order.
+TF32_DHS = (64, 80)
+_TF32_WIDTHS = " or ".join(map(str, TF32_DHS))
 
 
 def _aligned(addrs, strides, esize: int) -> bool:
@@ -96,10 +102,10 @@ def mma_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
 
 
 def tf32_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
-    """True when operands take the split-TF32 kernels: f32, heads
-    ``MMA_DH`` wide, every base address and every (image, head, token)
-    stride a multiple of 16 bytes."""
-    return (dtype == torch.float32 and dh == MMA_DH
+    """True when operands take the split-TF32 kernels: f32, heads of a
+    width in ``TF32_DHS``, every base address and every (image, head,
+    token) stride a multiple of 16 bytes."""
+    return (dtype == torch.float32 and dh in TF32_DHS
             and _aligned(addrs, strides, 4))
 
 
@@ -392,34 +398,53 @@ def _flash_tf32_lib() -> ctypes.CDLL:
     if not getattr(lib, "_ivt_bound", False):
         lib.ivt_flash_attention_tf32x3.argtypes = FLASH_TF32_ARGTYPES
         lib.ivt_flash_attention_tf32x3.restype = ctypes.c_int
-        lib.ivt_flash_tf32_dh.argtypes = []
+        lib.ivt_flash_tf32_dh.argtypes = [ctypes.c_int]
         lib.ivt_flash_tf32_dh.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
 
 
+def library_dhs(width_of) -> Tuple[int, ...]:
+    """The head widths a library reports through ``width_of(i)`` (the
+    i-th width, 0 past the last)."""
+    dhs = []
+    while (dh := width_of(len(dhs))) > 0:
+        dhs.append(dh)
+    return tuple(dhs)
+
+
+def check_tf32_dhs(width_of, source: str) -> None:
+    """Raises unless the library built from ``source`` takes exactly the
+    head widths of ``TF32_DHS``."""
+    if library_dhs(width_of) != TF32_DHS:
+        raise RuntimeError(f"{source} and TF32_DHS disagree: the library "
+                           f"takes heads {library_dhs(width_of)} wide, "
+                           f"the route {TF32_DHS}")
+
+
 def load_tf32_kernel() -> ctypes.CDLL:
     """Build and load the split-TF32 row-resident kernel now; checks its
-    head width against ``MMA_DH``."""
+    head widths against ``TF32_DHS``."""
     lib = _flash_tf32_lib()
-    if lib.ivt_flash_tf32_dh() != MMA_DH:
-        raise RuntimeError("csrc/flash_attention_tf32.cu and MMA_DH disagree")
+    check_tf32_dhs(lib.ivt_flash_tf32_dh, "csrc/flash_attention_tf32.cu")
     return lib
 
 
 def launch_flash_tf32(ptrs, strides, device, b: int, h: int, n: int,
-                      n_real: int, probs_ptr=None, stats_ptr=None) -> None:
+                      dh: int, n_real: int, probs_ptr=None,
+                      stats_ptr=None) -> None:
     """One launch of ``csrc/flash_attention_tf32.cu`` on element pointers
-    ``ptrs`` (q, k, v, o) and their (image, head, token) stride triples;
-    ``probs_ptr``: a [B, H, N, N] f32 tap or None; ``stats_ptr``: an f32
-    [2, B, H, N] buffer for each row's (m, l) or None. Raises on a failed
-    launch. The trainable attention's f32 forward calls it too."""
+    ``ptrs`` (q, k, v, o) of heads ``dh`` wide and their (image, head,
+    token) stride triples; ``probs_ptr``: a [B, H, N, N] f32 tap or None;
+    ``stats_ptr``: an f32 [2, B, H, N] buffer for each row's (m, l) or
+    None. Raises on a failed launch. The trainable attention's f32 forward
+    calls it too."""
     lib = _flash_tf32_lib()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ivt_flash_attention_tf32x3(
             *ptrs, probs_ptr, stats_ptr, *(s for st in strides for s in st),
-            b, h, n, MMA_DH, n_real, float(MMA_DH) ** -0.5, MASK_VALUE, stream)
+            b, h, n, dh, n_real, float(dh) ** -0.5, MASK_VALUE, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_tf32x3 kernel launch failed: "
                            f"cudaError {err}")
@@ -445,9 +470,9 @@ def flash_attention_tf32x3(
     _check_operands(q, k, v)
     if not _tf32_operands(q, k, v):
         raise ValueError(
-            f"flash_attention_tf32x3 takes f32 heads {MMA_DH} wide with "
-            f"16-byte aligned pointers and strides, got {q.dtype}, dh={dh}, "
-            f"strides {[t.stride() for t in (q, k, v)]}")
+            f"flash_attention_tf32x3 takes f32 heads {_TF32_WIDTHS} wide "
+            f"with 16-byte aligned pointers and strides, got {q.dtype}, "
+            f"dh={dh}, strides {[t.stride() for t in (q, k, v)]}")
     # token-major o, as the FMA kernel's wrapper writes it
     o = torch.empty((b, n, h, dh), dtype=q.dtype,
                     device=q.device).transpose(1, 2)
@@ -455,7 +480,7 @@ def flash_attention_tf32x3(
              if want_attn else None)
     ts = (q, k, v, o)
     launch_flash_tf32([t.data_ptr() for t in ts], [t.stride()[:3] for t in ts],
-                      q.device, b, h, n, n_real,
+                      q.device, b, h, n, dh, n_real,
                       None if probs is None else probs.data_ptr())
     flash_attention_tf32x3.launches += 1
     return o, probs
@@ -636,21 +661,25 @@ def _online_tf32_lib() -> ctypes.CDLL:
     if not getattr(lib, "_ivt_bound", False):
         lib.ivt_flash_attention_online_tf32x3.argtypes = ONLINE_TF32_ARGTYPES
         lib.ivt_flash_attention_online_tf32x3.restype = ctypes.c_int
-        for name in ("ivt_online_tf32_block_k", "ivt_online_tf32_dh"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.ivt_online_tf32_block_k.argtypes = [ctypes.c_int]
+        lib.ivt_online_tf32_block_k.restype = ctypes.c_int
+        lib.ivt_online_tf32_dh.argtypes = [ctypes.c_int]
+        lib.ivt_online_tf32_dh.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
 
 
 def load_online_tf32_kernel() -> ctypes.CDLL:
-    """Build and load the split-TF32 online kernel now; checks its key tile
-    and head width against ``ONLINE_TF32_BLOCK_K`` and ``MMA_DH``."""
+    """Build and load the split-TF32 online kernel now; checks its head
+    widths against ``TF32_DHS`` and its key tile at each against
+    ``ONLINE_TF32_BLOCK_K``."""
     lib = _online_tf32_lib()
-    if (lib.ivt_online_tf32_block_k(), lib.ivt_online_tf32_dh()) != (
-            ONLINE_TF32_BLOCK_K, MMA_DH):
+    check_tf32_dhs(lib.ivt_online_tf32_dh,
+                   "csrc/flash_attention_online_tf32.cu")
+    if any(lib.ivt_online_tf32_block_k(dh) != ONLINE_TF32_BLOCK_K[dh]
+           for dh in TF32_DHS):
         raise RuntimeError("csrc/flash_attention_online_tf32.cu and "
-                           "ONLINE_TF32_BLOCK_K / MMA_DH disagree")
+                           "ONLINE_TF32_BLOCK_K disagree")
     return lib
 
 
@@ -664,18 +693,18 @@ def flash_attention_online_tf32x3(
     tensor-core kernel ``csrc/flash_attention_online_tf32.cu``: one launch
     for CUDA tensors, counted in ``flash_attention_online_tf32x3.launches``;
     raises on operands that ``tf32_route`` refuses. For CPU tensors the
-    plain version at the kernel's key tile."""
+    plain version at the kernel's key tile for their head width."""
     b, h, n, dh = q.shape
     n_real = n if n_real is None else min(int(n_real), n)
     if q.device.type == "cpu":
         return flash_attention_online_reference(
-            q, k, v, n_real, block_k=ONLINE_TF32_BLOCK_K)
+            q, k, v, n_real, block_k=ONLINE_TF32_BLOCK_K.get(dh, 64))
     _check_operands(q, k, v, fits_online)
     if not _tf32_operands(q, k, v):
         raise ValueError(
-            f"flash_attention_online_tf32x3 takes f32 heads {MMA_DH} wide "
-            f"with 16-byte aligned pointers and strides, got {q.dtype}, "
-            f"dh={dh}, strides {[t.stride() for t in (q, k, v)]}")
+            f"flash_attention_online_tf32x3 takes f32 heads {_TF32_WIDTHS} "
+            f"wide with 16-byte aligned pointers and strides, got "
+            f"{q.dtype}, dh={dh}, strides {[t.stride() for t in (q, k, v)]}")
     lib = _online_tf32_lib()
     with torch.cuda.device(q.device):
         o = torch.empty((b, n, h, dh), dtype=q.dtype,

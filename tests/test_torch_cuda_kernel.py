@@ -462,13 +462,14 @@ MMA_ROW_SHAPES = [(1, 6, 1374, 64), (2, 6, 1374, 64), (1, 16, 577, 64),
                   (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64)]
 
 
-def _qkv_views(b, n, heads, dtype, device, seed, pad=0):
-    """q, k, v as ``qkv_proj`` makes them: views of one [B, N, 3D] tensor;
-    ``pad`` extra elements a token put the rows off the 16-byte grid."""
-    x = torch.randn((b, n, 3 * heads * 64 + pad), generator=torch.Generator()
+def _qkv_views(b, n, heads, dtype, device, seed, pad=0, dh=64):
+    """q, k, v as ``qkv_proj`` makes them: views of one [B, N, 3D] tensor
+    of heads ``dh`` wide; ``pad`` extra elements a token put the rows off
+    the 16-byte grid."""
+    x = torch.randn((b, n, 3 * heads * dh + pad), generator=torch.Generator()
                     .manual_seed(seed)).to(device, dtype) * 2
-    x = x[..., :3 * heads * 64]
-    return [x.reshape(b, n, 3, heads, 64)[:, :, i].transpose(1, 2)
+    x = x[..., :3 * heads * dh]
+    return [x.reshape(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
             for i in range(3)]
 
 
@@ -534,16 +535,20 @@ def test_flash_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 # the row-resident kernel in f32 on split TF32: dinov2_s14_reg @518 (N=1374;
 # B=1 takes each key tile in two parts, B=2 in one), vit_l16 @384 (N=577),
-# vit_b16 (N=197), ragged small N and the longest row-resident N
+# vit_b16 (N=197), ragged small N and the longest row-resident N; heads 80
+# wide: vit_h14 @224 (N=257, B=1 two parts, B=2 one), @448 (N=1025) and
+# ragged small N
 TF32_ROW_SHAPES = [(1, 6, 1374, 64), (2, 6, 1374, 64), (1, 16, 577, 64),
-                   (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64)]
+                   (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64),
+                   (1, 16, 257, 80), (2, 16, 257, 80), (1, 16, 1025, 80),
+                   (3, 2, 17, 80)]
 
 
 @pytest.mark.parametrize("shape", TF32_ROW_SHAPES)
 @pytest.mark.parametrize("want_attn", [False, True])
 def test_flash_tf32_kernel_matches_plain(cuda, shape, want_attn):
-    b, h, n, _ = shape
-    q, k, v = _qkv_views(b, n, h, torch.float32, cuda, seed=n + 1)
+    b, h, n, dh = shape
+    q, k, v = _qkv_views(b, n, h, torch.float32, cuda, seed=n + 1, dh=dh)
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=want_attn)
     torch.cuda.synchronize()
@@ -554,10 +559,12 @@ def test_flash_tf32_kernel_matches_plain(cuda, shape, want_attn):
 
 
 # B=1 at N=1408 is one block an SM (two key parts), B=2 more (one part)
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("b,n,n_real", [(1, 1408, 1374), (2, 1408, 1374),
                                         (1, 208, 197), (1, 130, 100)])
-def test_flash_tf32_masks_keys_beyond_n_real(cuda, b, n, n_real):
-    q, k, v = _qkv_views(b, n, 6, torch.float32, cuda, seed=n_real + 1)
+def test_flash_tf32_masks_keys_beyond_n_real(cuda, b, n, n_real, dh):
+    q, k, v = _qkv_views(b, n, 6, torch.float32, cuda, seed=n_real + 1,
+                         dh=dh)
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=True, n_real=n_real)
     ref = fa.flash_attention_reference(q, k, v, want_attn=True,
@@ -568,12 +575,13 @@ def test_flash_tf32_masks_keys_beyond_n_real(cuda, b, n, n_real):
     assert torch.all(got[1][..., n_real:] == 0)
 
 
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("n", [1374, 197])
-def test_flash_fma_kernel_takes_misaligned_f32(cuda, n):
-    """f32 heads of 64 off the 16-byte grid: ``tf32_route`` refuses them,
-    so the FMA kernel runs; the split-TF32 wrapper called on them
+def test_flash_fma_kernel_takes_misaligned_f32(cuda, n, dh):
+    """f32 heads of 64 or 80 off the 16-byte grid: ``tf32_route`` refuses
+    them, so the FMA kernel runs; the split-TF32 wrapper called on them
     raises."""
-    q, k, v = _qkv_views(1, n, 6, torch.float32, cuda, seed=n, pad=2)
+    q, k, v = _qkv_views(1, n, 6, torch.float32, cuda, seed=n, pad=2, dh=dh)
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=True)
     ref = fa.flash_attention_reference(q, k, v, want_attn=True)
@@ -586,10 +594,13 @@ def test_flash_fma_kernel_takes_misaligned_f32(cuda, n):
 
 def test_flash_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 300, 64), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+    with pytest.raises(ValueError, match="f32 heads 64 or 80 wide"):
         fa.flash_attention_tf32x3(q, k, v)  # bf16 has its own route
+    q, k, v = _qkv((1, 2, 300, 80), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="f32 heads 64 or 80 wide"):
+        fa.flash_attention_tf32x3(q, k, v)  # bf16 at 80: the FMA kernel
     q, k, v = _qkv((1, 2, 300, 128), torch.float32, cuda)
-    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+    with pytest.raises(ValueError, match="f32 heads 64 or 80 wide"):
         fa.flash_attention_tf32x3(q, k, v)
     q, k, v = _qkv((1, 2, 300, 72), torch.float32, cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -600,34 +611,38 @@ def test_flash_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 # the online kernel in f32 on split TF32: dinov2_s14_reg@742 (B=1 and 2),
-# just above ROWFULL_MAX_N, ragged small N
+# just above ROWFULL_MAX_N, ragged small N; heads 80 wide: vit_h14@742
+# (N=2810), just above ROWFULL_MAX_N, ragged small N
 TF32_SHAPES = [(1, 6, 2814, 64), (2, 6, 2814, 64), (2, 2, 2049, 64),
-               (3, 3, 17, 64), (1, 2, 197, 64)]
+               (3, 3, 17, 64), (1, 2, 197, 64), (1, 16, 2810, 80),
+               (2, 2, 2049, 80), (3, 3, 17, 80)]
 
 
 @pytest.mark.parametrize("shape", TF32_SHAPES)
 @pytest.mark.parametrize("n_real", [None, -40])
 def test_online_tf32_kernel_matches_plain(cuda, shape, n_real):
-    b, h, n, _ = shape
-    q, k, v = _qkv_views(b, n, h, torch.float32, cuda, seed=n + h)
+    b, h, n, dh = shape
+    q, k, v = _qkv_views(b, n, h, torch.float32, cuda, seed=n + h, dh=dh)
     n_real = None if n_real is None else max(1, n + n_real)
     before = _online_counts()
     got = fa.flash_attention_online(q, k, v, n_real)
     torch.cuda.synchronize()
     assert _online_counts() == (before[0], before[1], before[2],
                                 before[3] + 1)
-    for block_k in (fa.ONLINE_TF32_BLOCK_K, fa.ONLINE_BLOCK_K):
+    for block_k in (fa.ONLINE_TF32_BLOCK_K[dh], fa.ONLINE_BLOCK_K):
         ref = fa.flash_attention_online_reference(q, k, v, n_real,
                                                   block_k=block_k)
         _check((got,), (ref,), torch.float32)
     assert not _within(got * 0.5, ref, 0, torch.float32)
 
 
-def test_online_fma_kernel_takes_misaligned_f32(cuda):
-    """f32 heads of 64 whose token stride is off the 16-byte grid:
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
+def test_online_fma_kernel_takes_misaligned_f32(cuda, dh):
+    """f32 heads of 64 or 80 whose token stride is off the 16-byte grid:
     ``tf32_route`` refuses them, so the FMA kernel runs; the split-TF32
     wrapper called on them raises."""
-    q, k, v = _qkv_views(1, 2100, 2, torch.float32, cuda, seed=4, pad=2)
+    q, k, v = _qkv_views(1, 2100, 2, torch.float32, cuda, seed=4, pad=2,
+                         dh=dh)
     before = _online_counts()
     got = fa.flash_attention_online(q, k, v)
     ref = fa.flash_attention_online_reference(q, k, v)
@@ -641,10 +656,13 @@ def test_online_fma_kernel_takes_misaligned_f32(cuda):
 
 def test_online_tf32_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 300, 64), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+    with pytest.raises(ValueError, match="f32 heads 64 or 80 wide"):
         fa.flash_attention_online_tf32x3(q, k, v)  # bf16 has its own route
+    q, k, v = _qkv((1, 2, 300, 80), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="f32 heads 64 or 80 wide"):
+        fa.flash_attention_online_tf32x3(q, k, v)
     q, k, v = _qkv((1, 2, 300, 128), torch.float32, cuda)
-    with pytest.raises(ValueError, match="f32 heads 64 wide"):
+    with pytest.raises(ValueError, match="f32 heads 64 or 80 wide"):
         fa.flash_attention_online_tf32x3(q, k, v)
     q, k, v = _qkv((1, 2, 300, 72), torch.float32, cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -1051,7 +1069,9 @@ def test_train_mma_routes_by_dtype_width_and_alignment(cuda):
              ((2, 3, 100, 64), torch.float32, 0, "tf32"),
              ((2, 3, 100, 128), torch.bfloat16, 0, "fma"),
              ((2, 3, 100, 64), torch.bfloat16, 4, "fma"),
-             ((2, 3, 100, 64), torch.float32, 2, "fma")]
+             ((2, 3, 100, 64), torch.float32, 2, "fma"),
+             # heads 80 wide: the split-TF32 backward is 64 wide only
+             ((2, 3, 100, 80), torch.float32, 0, "fma")]
     for (b, h, n, dh), dtype, pad, route in cases:
         x = torch.randn((b, n, 3 * h * dh + pad), generator=g).to(cuda, dtype)
         q, k, v = (x[..., :3 * h * dh].reshape(b, n, 3, h, dh)[:, :, i]

@@ -4,10 +4,10 @@ predicate, emulations of the 3xTF32 split that the kernels compute, held
 against the JAX package on shared inputs, and the wrappers' CPU path:
 
 * row 4, ``csrc/flash_attention_online_tf32.cu``, against the JAX online
-  kernel;
+  kernel, heads 64 and 80 wide;
 * row 3, ``csrc/flash_attention_tf32.cu`` (two key walks: each key part's
   online (m, l), combined; the normalised probs; PV), against the JAX
-  row-resident kernel, o and the probs tap;
+  row-resident kernel, o and the probs tap, heads 64 and 80 wide;
 * rows 8-9's backward, ``csrc/attention_train_tf32.cu`` ((a) dq from S = Q
   K^T, (b) dk and dv from S^T = K Q^T, both from the forward's saved (m,
   l)), with row 3's emulation as the forward, against ``jax.vjp`` of the
@@ -30,7 +30,8 @@ within an accumulator (which is why the kernel keeps those sums short).
 It shows the split's error budget. The JAX online kernel runs
 in interpret mode with ``ROWFULL_MAX_N`` lowered inside the test (the
 module is not edited), f32, at its ``block_k=128``; the emulation at the
-kernel's key tile of 64.
+kernel's key tile (64 for heads 64 wide, 32 for 80). Every emulation runs
+at both of the kernels' head widths, ``TF32_DHS``.
 
 Tolerances. hi + lo is within 2^-22 of |x| (the rounding of lo; the
 dropped a_lo b_lo adds about as much to a product), so a score of these
@@ -94,10 +95,19 @@ TF32_ROUTE_CASES = [
     # bf16 takes its own route (mma_route), never this one
     (BF16, 64, (0, 128, 256), (197 * 2304, 192, 2304), False),
     (torch.float16, 64, (0, 256, 512), (197 * 2304, 192, 2304), False),
+    # vit_h14's heads, 80 wide, take the split-TF32 kernels' second width
+    (F32, 80, (0, 320, 640), (197 * 3840, 240, 3840), True),
+    (F32, 80, (4096, 4096 + 5120, 4096 + 10240), (2810 * 3840, 80, 3840),
+     True),
+    # bf16 at 80 wide keeps the FMA kernels (mma_route is 64 wide only)
+    (BF16, 80, (0, 160, 320), (197 * 3840, 240, 3840), False),
+    # 80 wide off the 16-byte grid: a pointer, a head stride of 82
+    (F32, 80, (0, 328, 640), (197 * 3840, 240, 3840), False),
+    (F32, 80, (0, 320, 640), (197 * 3840, 82, 3840), False),
     # other head widths stay on the FMA kernel
     (F32, 128, (0, 512, 1024), (197 * 4608, 384, 4608), False),
     (F32, 32, (0, 128, 256), (197 * 1152, 96, 1152), False),
-    (F32, 80, (0, 320, 640), (197 * 3840, 240, 3840), False),
+    (F32, 96, (0, 384, 768), (197 * 4608, 288, 4608), False),
     # a pointer off the 16-byte grid
     (F32, 64, (0, 1540, 3072), (2814 * 1152, 64, 1152), False),
     (F32, 64, (8, 1544, 3080), (2814 * 1152, 64, 1152), False),
@@ -121,6 +131,9 @@ def test_tf32_route_by_dtype_width_and_alignment(dtype, dh, addrs, strides,
     (BF16, 64, 0, False, True),
     (BF16, 64, 4, False, False),  # 8 bytes off: the FMA kernel
     (F32, 128, 0, False, False),
+    (F32, 80, 0, True, False),    # vit_h14's heads
+    (F32, 80, 2, False, False),
+    (BF16, 80, 0, False, False),  # bf16 at 80 wide: the FMA kernel
 ])
 def test_routes_of_qkv_views(dtype, dh, pad, tf32, mma):
     """q, k, v as ``qkv_proj`` makes them (views of one [B, N, 3D] tensor,
@@ -163,11 +176,12 @@ def matmul_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.matmul(tf32_rna(a), tf32_rna(b))
 
 
-def online_emulated(q, k, v, n_real, matmul, block_k=fa.ONLINE_TF32_BLOCK_K):
+def online_emulated(q, k, v, n_real, matmul):
     """The split-TF32 kernel's arithmetic on f32 [B, H, N, dh]: the online
     update of ``flash_attention_online_reference`` with ``matmul`` for
-    both products."""
+    both products, at the kernel's key tile for the head width."""
     n, dh = q.shape[-2], q.shape[-1]
+    block_k = fa.ONLINE_TF32_BLOCK_K[dh]
     m = torch.full(q.shape[:-1] + (1,), float("-inf"))
     l = torch.zeros_like(m)
     acc = torch.zeros(q.shape, dtype=F32)
@@ -230,6 +244,7 @@ def _jax_online(q, k, v, n_real, monkeypatch):
     return np.asarray(o)
 
 
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("b,h,n,n_real", [
     (1, 2, 300, None),    # 5 of the kernel's key tiles, the last of 44 keys
     (1, 3, 300, 257),     # keys masked beyond n_real inside a tile
@@ -237,8 +252,8 @@ def _jax_online(q, k, v, n_real, monkeypatch):
     (1, 2, 200, 129),
 ])
 def test_split_emulation_matches_jax_online_kernel(
-        pallas_interpret, monkeypatch, b, h, n, n_real):
-    q, k, v = _qkv(b, h, n, fa.MMA_DH, seed=n + h)
+        pallas_interpret, monkeypatch, b, h, n, n_real, dh):
+    q, k, v = _qkv(b, h, n, dh, seed=n + h + dh)
     want = _jax_online(q, k, v, n_real, monkeypatch)
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
     nr = n if n_real is None else n_real
@@ -249,7 +264,7 @@ def test_split_emulation_matches_jax_online_kernel(
     assert np.abs(plain - want).max() > F32_BOUND
     # and the plain version at the kernel's tile agrees with both
     ref = fa.flash_attention_online_reference(
-        tq, tk, tv, nr, block_k=fa.ONLINE_TF32_BLOCK_K).numpy()
+        tq, tk, tv, nr, block_k=fa.ONLINE_TF32_BLOCK_K[dh]).numpy()
     assert np.abs(ref - want).max() <= 1e-5
     assert np.abs(got - ref).max() <= F32_BOUND
 
@@ -309,6 +324,7 @@ def _jax_rowfull(q, k, v, n_real):
     return np.asarray(o), np.asarray(probs)
 
 
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("parts", [1, 2])
 @pytest.mark.parametrize("b,h,n,n_real", [
     (1, 2, 300, None),    # 5 of the 64-key tiles, the last of 44 keys
@@ -317,8 +333,8 @@ def _jax_rowfull(q, k, v, n_real):
     (1, 2, 197, 180),
 ])
 def test_rowfull_split_emulation_matches_jax_kernel(
-        pallas_interpret, b, h, n, n_real, parts):
-    q, k, v = _qkv(b, h, n, fa.MMA_DH, seed=n + h + parts)
+        pallas_interpret, b, h, n, n_real, parts, dh):
+    q, k, v = _qkv(b, h, n, dh, seed=n + h + parts + dh)
     want_o, want_p = _jax_rowfull(q, k, v, n_real)
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
     nr = n if n_real is None else n_real
@@ -444,9 +460,11 @@ def test_packed_train_split_emulation_matches_jax_vjp(pallas_interpret, n,
 
 
 # (dtype, pad elements a token, dh, split-TF32 route?)
+# (heads 80 wide: the split-TF32 forward takes them, the backward does not,
+# so the trainable attention keeps the FMA pair)
 TRAIN_ROUTE_CASES = [(F32, 0, 64, True), (F32, 4, 64, True),
                      (F32, 2, 64, False), (F32, 0, 128, False),
-                     (BF16, 0, 64, False)]
+                     (BF16, 0, 64, False), (F32, 0, 80, False)]
 
 
 @pytest.mark.parametrize("layout", ["bhnd", "packed"])
@@ -470,6 +488,9 @@ def test_tf32_route_of_the_train_layouts(layout, dtype, pad, dh, want):
     assert av._tc_ok(dtype, dh, ptrs, strides) is (
         want or av._mma_ok(dtype, dh, ptrs, strides))
     assert not (want and av._mma_ok(dtype, dh, ptrs, strides))
+    if dh == 80:  # aligned: row 3's split-TF32 route would take the forward
+        assert fa.tf32_route(dtype, dh, ptrs,
+                             [s for st in strides for s in st])
 
 
 # -- the wrappers on the CPU ---------------------------------------------------------
@@ -488,12 +509,13 @@ def _counts():
                         "tf32_bwd_launches")))
 
 
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("n_real", [None, 33])
-def test_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
+def test_wrappers_keep_the_plain_versions_on_the_cpu(n_real, dh):
     """CPU tensors run the plain versions whatever the route would be; no
     launch is counted."""
     g = torch.Generator().manual_seed(1)
-    q, k, v = (torch.randn((1, 2, 40, 64), generator=g) for _ in range(3))
+    q, k, v = (torch.randn((1, 2, 40, dh), generator=g) for _ in range(3))
     before = _counts()
     o, p = fa.flash_attention_mma(q.to(BF16), k.to(BF16), v.to(BF16),
                                   want_attn=True, n_real=n_real)
@@ -507,10 +529,10 @@ def test_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
                                           v.to(BF16), True, n_real)[1], rp)
     o = fa.flash_attention_online_tf32x3(q, k, v, n_real)
     assert torch.equal(o, fa.flash_attention_online_reference(
-        q, k, v, n_real, block_k=fa.ONLINE_TF32_BLOCK_K))
+        q, k, v, n_real, block_k=fa.ONLINE_TF32_BLOCK_K[dh]))
     assert torch.equal(fa.flash_attention_online(q, k, v, n_real),
                        fa.flash_attention_online_reference(q, k, v, n_real))
-    # f32 heads of 64: the split-TF32 route on a card
+    # f32 heads of 64 or 80: the split-TF32 route on a card
     for maps in (False, True):
         ref = fa.flash_attention_reference(q, k, v, maps, n_real)
         for fn in (fa.flash_attention_tf32x3, fa.flash_attention):
@@ -521,18 +543,20 @@ def test_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
     assert _counts() == before
 
 
+@pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("n_real", [None, 33])
-def test_train_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
-    """f32 heads of 64 (the split-TF32 route on a card): on CPU tensors the
-    autograd Functions run the plain versions, save no statistics and
-    count no launch, in both layouts."""
+def test_train_wrappers_keep_the_plain_versions_on_the_cpu(n_real, dh):
+    """f32 heads of 64 (the split-TF32 route on a card) or 80 (the FMA
+    pair on a card): on CPU tensors the autograd Functions run the plain
+    versions, save no statistics and count no launch; the packed layout
+    (heads of ``PACKED_DH``) at 64 only."""
     g = torch.Generator().manual_seed(2)
     b, h, n = 2, 2, 40
     nr = n if n_real is None else n_real
-    qkv = torch.randn((b, n, 3 * h * 64), generator=g)
-    q, k, v = (qkv.reshape(b, n, 3, h, 64)[:, :, i].transpose(1, 2)
+    qkv = torch.randn((b, n, 3 * h * dh), generator=g)
+    q, k, v = (qkv.reshape(b, n, 3, h, dh)[:, :, i].transpose(1, 2)
                for i in range(3))
-    do = torch.randn((b, h, n, 64), generator=g)
+    do = torch.randn((b, h, n, dh), generator=g)
     before = _counts()
     o, stats = av._fwd(q, k, v, nr)
     assert stats is None
@@ -541,13 +565,41 @@ def test_train_wrappers_keep_the_plain_versions_on_the_cpu(n_real):
     for got, want in zip(grads, av.head_grads_reference(q, k, v, do,
                                                         n_real)):
         assert torch.equal(got, want)
-    o, stats = av._packed_fwd(qkv, nr)
-    assert stats is None
-    assert torch.equal(o, av.attention_train_packed_reference(qkv, n_real))
-    dout = do.transpose(1, 2).reshape(b, n, h * 64)
-    assert torch.equal(av._packed_bwd(qkv, dout, nr),
-                       av.packed_head_grads_reference(qkv, dout, n_real))
+    if dh == av.PACKED_DH:
+        o, stats = av._packed_fwd(qkv, nr)
+        assert stats is None
+        assert torch.equal(o, av.attention_train_packed_reference(qkv,
+                                                                  n_real))
+        dout = do.transpose(1, 2).reshape(b, n, h * dh)
+        assert torch.equal(av._packed_bwd(qkv, dout, nr),
+                           av.packed_head_grads_reference(qkv, dout, n_real))
     assert _counts() == before
+
+
+def _widths(dhs):
+    """A library's ``ivt_*_tf32_dh(i)``: the i-th of ``dhs``, 0 past the
+    last."""
+    return lambda i: dhs[i] if 0 <= i < len(dhs) else 0
+
+
+@pytest.mark.parametrize("dhs,ok", [
+    ((64, 80), True),
+    ((64,), False),       # a library built before heads 80 wide
+    ((80,), False),
+    ((64, 80, 96), False),
+    ((80, 64), False),    # the order is part of the contract
+    ((), False),
+])
+def test_tf32_dh_check_refuses_a_library_that_disagrees(dhs, ok):
+    """The split-TF32 loaders read the library's head widths and refuse
+    any list other than ``TF32_DHS``: the route must never send a width to
+    a library without its instantiation."""
+    assert fa.library_dhs(_widths(dhs)) == dhs
+    if ok:
+        fa.check_tf32_dhs(_widths(dhs), "csrc/flash_attention_tf32.cu")
+        return
+    with pytest.raises(RuntimeError, match="disagree"):
+        fa.check_tf32_dhs(_widths(dhs), "csrc/flash_attention_tf32.cu")
 
 
 def test_new_sources_use_their_instructions():
