@@ -7,7 +7,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the fourteen hand-written kernel sources from
+2. build   -- builds the sixteen hand-written kernel sources from
    ``csrc/`` with nvcc, one compiler process each, all at once (the s8 and
    ToMe modes of the block are modes of ``fused_attn_block.cu``; the two
    trainable attentions share ``flash_attention.cu`` forward and
@@ -19,8 +19,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    (bf16 tensor cores) and ``flash_attention_tf32.cu`` (f32 on split
    TF32), the online one ``flash_attention_online.cu`` (FMA),
    ``flash_attention_online_mma.cu`` (bf16 tensor cores) and
-   ``flash_attention_online_tf32.cu`` (f32 on split TF32): nineteen
-   kernels).
+   ``flash_attention_online_tf32.cu`` (f32 on split TF32); the headwise
+   block ``headwise_attn_block.cu`` (FMA), ``headwise_attn_block_mma.cu``
+   (bf16 tensor cores) and ``headwise_attn_block_tf32.cu`` (f32 on split
+   TF32): twenty-one kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -28,8 +30,15 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * the fused attention block at the vit_b16 (B=1 and 8), vit_t16 and
      vit_t16@256 (N=257) block shapes, bf16 and f32, maps off / maps +
      head-mean / a subset;
-   * the headwise attention block at the vit_l16@384 block shape (B=1 and
-     4), bf16 and f32, maps off / maps + mean / heads (0, 7, 15) + mean;
+   * the headwise attention block (row 2) at the vit_l16@384 block shape
+     (B=1 and 4; 16 heads 64 wide, N=577) maps off / maps + mean / heads
+     (0, 7, 15) + mean, at vit_h14@742's (B=1; 16 heads 80 wide, N=2810)
+     maps off / maps + mean and at vit_h14@224's (N=257) maps + mean: bf16
+     on the tensor cores, f32 on split TF32 (the launch counts show the
+     route); and at vit_l16@384 on a copy of x off the 16-byte grid, on the
+     FMA kernel; device times of the wrapper and of row 2's kernels alone
+     after QKV, each with its bound (f32 also at the TF32 peak), and
+     ``scaled_dot_product_attention`` on the attention part (maps off);
    * the row-resident flash attention at the dinov2_s14_reg@518 shape (6
      heads, N=1374, dh=64) and at N=577, maps on and off, plus keys masked
      beyond n_real=1374 of N=1408 (their probs exactly 0; o and the probs
@@ -95,7 +104,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      B=2, 16 heads 80 wide, N=257, f32) on the FMA route; each bound
      refusing a gradient zeroed or halved;
      ``scaled_dot_product_attention`` forward + backward timed beside.
-4. slice   -- ten paths through the HTTP server in-process, seeded random
+4. slice   -- eleven paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -104,7 +113,9 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      fused block kernel in every block;
    * vit_l16 @384, bf16: ``attn`` + ``r`` on block 0, ``attn`` of heads
      (0, 7, 15) + ``r`` on block 12, ``r`` on block 23, the logits; 3 in
-     sequence and 2 at once; the headwise kernel in all 24 blocks;
+     sequence and 2 at once; the headwise block on the tensor cores in all
+     24 blocks (the profile must show it 24 times and the FMA attention
+     core never), the f32 request's 24 on split TF32;
    * dinov2_s14_reg @518, bf16: ``attn`` + ``r`` on block 0, ``r`` on
      blocks 6 and 11, the CLS features; 3 in sequence; the row-resident
      flash kernel on the tensor cores in all 12 blocks (the profile must
@@ -122,10 +133,13 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * vit_h14@742 at full depth (32 blocks, 16 heads 80 wide, N=2810), one
      f32 request (the server's default dtype) of a generated chain graph:
      the block outputs ``o`` of blocks 0, 16 and 31 and the logits, each
-     within 1e-4 of its scale of the plain path; a plain ViT's served
-     blocks run the block kernels, here the headwise kernel in all 32
-     blocks (its attention core 32 times in the profile, the split-TF32
-     online kernel never), with its device time;
+     within 1e-4 of its scale of the plain path (each one's absolute error
+     logged beside its scale); a plain ViT's served blocks run the block
+     kernels, here the headwise block on split TF32 in all 32 blocks (32
+     times in the profile, the FMA attention core and the split-TF32
+     online kernel never), with its device time; then one bf16 request of
+     the same, the headwise block on the bf16 tensor cores in all 32
+     blocks, with its client p50 and device busy;
    * vit_t16@256 from the repository's saved graph: ``attn`` + ``r`` on
      blocks 0 and 6, ``r`` on block 11, the logits; the fused block kernel;
    * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
@@ -269,6 +283,13 @@ KERNELS = {
     "attention_train_packed_tf32": (
         CSRC + "attention_train_tf32.cu",
         "interactive_vit_tpu/ops/attention_vjp.py:293"),
+    # row 2 on the tensor cores: bf16 on mma.sync, f32 on split TF32, heads
+    # 64 and 80 wide; headwise_attn_block above is its FMA route
+    "headwise_attn_block_mma": (CSRC + "headwise_attn_block_mma.cu",
+                                "interactive_vit_tpu/ops/fused_block.py:501"),
+    "headwise_attn_block_tf32x3": (
+        CSRC + "headwise_attn_block_tf32.cu",
+        "interactive_vit_tpu/ops/fused_block.py:501"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -467,6 +488,162 @@ def block_cost(b, n, d, heads, esize, n_maps, mean, tome=False):
         nbytes += 4 * (b * n + b * n * (d // heads))
         flops += b * n * d
     return nbytes, flops
+
+
+def headwise_cost(b, n, d, heads, esize, n_maps, mean):
+    """Bytes and FLOPs of the headwise block after LN1 + QKV (row 2's own
+    kernels): qkv, x and the projection's weights read once, y, the maps of
+    ``n_maps`` heads and the mean written once; the attention and the
+    projection."""
+    nbytes = esize * (3 * b * n * d + 2 * b * n * d + d * d + d
+                      + n_maps * b * n * n + (b * n * n if mean else 0))
+    return nbytes, 4 * b * heads * n * n * (d // heads) + 2 * b * n * d * d
+
+
+def off_grid(t):
+    """A copy of the contiguous ``t`` that starts one element into its
+    storage, so its base address is 2 (bf16) or 4 (f32) bytes off the
+    16-byte grid and ``headwise_route`` sends the block to the FMA kernel
+    (the same values)."""
+    import torch
+
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def phase_headwise_kernel(device) -> dict:
+    """Row 2, the headwise attention block, against its plain version:
+    vit_l16@384 (16 heads 64 wide, N=577; B=1 and 4) maps off, maps + mean
+    and heads (0, 7, 15) + mean; vit_h14@742 (16 heads 80 wide, N=2810,
+    B=1) maps off and maps + mean; vit_h14@224 (N=257) maps + mean; bf16 on
+    the tensor cores, f32 on split TF32 (the launch counts show the route);
+    and vit_l16@384 on a copy off the 16-byte grid, on the FMA kernel. y,
+    maps and mean within their bounds, which must refuse each zeroed or
+    halved; device times (``time_turns_held``: turns plain, kernel, kernel,
+    plain) of the whole wrapper (LN1 + QKV included) and of row 2's kernels
+    alone after QKV (``headwise_kernels``), with their bounds (f32: at the
+    TF32 peak, three products a product, and at the f32 FMA peak), and
+    ``scaled_dot_product_attention`` on the attention part alone (maps off,
+    the same dtype; a yardstick the port never calls). Returns the numbers
+    of each route for the result line: vit_l16@384 B=1 maps + mean (bf16 on
+    the tensor cores, and bf16 off the grid on FMA), vit_h14@742 f32 maps
+    off (split TF32)."""
+    import torch
+    import torch.nn.functional as F
+
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+
+    def counts():
+        return (fb.headwise_attn_block.launches,
+                fb.headwise_attn_block_mma.launches,
+                fb.headwise_attn_block_tf32x3.launches)
+
+    all_modes = {
+        "maps_off": {},
+        "maps_mean": {"want_attn": True, "want_mean": True},
+        "subset_mean": {"want_attn": True, "want_mean": True,
+                        "attn_heads": (0, 7, 15)}}
+    cases = [("vit_l16@384", 1, 577, 1024, ("maps_off", "maps_mean",
+                                              "subset_mean"), False),
+             ("vit_l16@384", 4, 577, 1024, ("maps_off", "maps_mean",
+                                              "subset_mean"), False),
+             ("vit_h14@742", 1, 2810, 1280, ("maps_off", "maps_mean"), False),
+             ("vit_h14@224", 1, 257, 1280, ("maps_mean",), False),
+             ("vit_l16@384", 1, 577, 1024, ("maps_off", "maps_mean"), True)]
+    heads = 16
+    out = {}
+    for sname, b, n, d, modes, fma in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            dt = str(dtype).replace("torch.", "")
+            esize = 2 if dtype == torch.bfloat16 else 4
+            p = random_block(d, dtype, device, seed=b * 100 + d)
+            x = torch.randn((b, n, d), generator=torch.Generator()
+                            .manual_seed(d + b)).to(device=device, dtype=dtype)
+            route = "fma" if fma else ("mma" if esize == 2 else "tf32")
+            if fma:
+                x = off_grid(x)
+            if fb._route_of(x, p, heads) != route:
+                raise AssertionError(f"headwise {sname} {dt}: route "
+                                     f"{fb._route_of(x, p, heads)}, "
+                                     f"expected {route}")
+            qkv = fb._ln_qkv(x, p, 1e-6)
+            dh = d // heads
+            q, k, v = (qkv.view(b, n, 3, heads, dh)[:, :, i].transpose(1, 2)
+                       for i in range(3))
+            t_lib = None
+            for mode in modes:
+                kw = all_modes[mode]
+                before = counts()
+                got = fb.headwise_attn_block(x, p, heads, 1e-6, **kw)
+                torch.cuda.synchronize()
+                step = {"fma": (1, 0, 0), "mma": (0, 1, 0),
+                        "tf32": (0, 0, 1)}[route]
+                if counts() != tuple(c + s for c, s in zip(before, step)):
+                    raise AssertionError(f"headwise {sname} {dt} {mode}: "
+                                         f"launches {counts()} after "
+                                         f"{before}, route {route}")
+                ref = fb.headwise_attn_block_reference(x, p, heads, 1e-6,
+                                                       **kw)
+                tag = (f"headwise_attn_block {sname} B={b} {dt} ({route}"
+                       + (", off the 16-byte grid" if fma else "")
+                       + f") {mode}")
+                labels = ("y", "probs", "mean")
+                errs, line = check_outputs(tag, got, ref, dtype, labels)
+                check_bounds_refuse(tag, got, ref, dtype, labels, first=0)
+                del got, ref
+                if mode == "subset_mean":
+                    log(line)
+                    continue
+                maps, mean = kw.get("want_attn", False), "want_mean" in kw
+                t_k, t_p, t_host = time_turns_held(
+                    lambda: fb.headwise_attn_block(x, p, heads, 1e-6, **kw),
+                    lambda: fb.headwise_attn_block_reference(
+                        x, p, heads, 1e-6, **kw))
+                t_core, _ = time_held(lambda: fb.headwise_kernels(
+                    route, x, qkv, p, heads, maps, mean))
+                n_maps = heads if maps else 0
+                nbytes, flops = block_cost(b, n, d, heads, esize, n_maps,
+                                           mean)
+                cbytes, cflops = headwise_cost(b, n, d, heads, esize, n_maps,
+                                               mean)
+                bms, by = bound(nbytes, flops, dt)
+                cms, cby = bound(cbytes, cflops, dt)
+                line += (f"; device time: wrapper {t_k:.4f} ms, plain "
+                         f"{t_p:.4f} ms (the wrapper's host time {t_host:.4f}"
+                         f" ms a call), row 2's kernels after QKV "
+                         f"{t_core:.4f} ms; bound: wrapper {bms:.5f} ms "
+                         f"({by}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} "
+                         f"GFLOP), after QKV {cms:.5f} ms ({cby}: "
+                         f"{cbytes / 1e6:.2f} MB, {cflops / 1e9:.3f} GFLOP)")
+                if route == "tf32":
+                    # the split's products, three TF32 ones a product; LN1
+                    # and QKV stay f32 GEMMs
+                    qflops = flops - cflops
+                    bms, by = bound(nbytes, {"float32": qflops,
+                                             "tf32": 3 * cflops}, dt)
+                    cms, cby = bound(cbytes, {"tf32": 3 * cflops}, dt)
+                    line += (f"; at the TF32 peak (the split's "
+                             f"{3 * cflops / 1e9:.3f} GFLOP): wrapper "
+                             f"{bms:.5f} ms ({by}), after QKV {cms:.5f} ms "
+                             f"({cby})")
+                if not maps:
+                    t_lib, _ = time_held(
+                        lambda: F.scaled_dot_product_attention(q, k, v))
+                    line += (f"; scaled_dot_product_attention ({dt}) on the "
+                             f"attention part {t_lib:.4f} ms")
+                log(line)
+                nums = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                        "bound_ms": bms, "bound_by": by, "library_ms": t_lib}
+                key = (sname, b, dt, mode)
+                if key == ("vit_l16@384", 1, "bfloat16", "maps_mean"):
+                    out["fma" if fma else "mma"] = nums
+                if key == ("vit_h14@742", 1, "float32", "maps_off"):
+                    out["tf32"] = nums
+            del q, k, v, qkv
+            torch.cuda.empty_cache()
+    return out
 
 
 def flash_cost(b, h, n, dh, esize, maps):
@@ -1688,7 +1865,8 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
     """Shapes, finiteness, row sums and agreement with the plain path
     (``rel``: an f32 bound of F32_BOUND times max(1, the output's largest
     value) instead of F32_BOUND). Returns ({output: max abs err}, {output:
-    the share of its bound that err uses})."""
+    the share of its bound that err uses}, {output: its largest plain
+    value})."""
     from interactive_vit_tpu_torch.wire.codec import Response
 
     out = Response.decode(raw)
@@ -1715,9 +1893,9 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
             if path.check_tap is not None:
                 path.check_tap(path, i, arr, tag, bf16)
             pairs[f"{ch}{i}"] = (arr, p_maps[i][ch].float().cpu().numpy())
-    errs, uses = {}, {}
+    errs, uses, scales = {}, {}, {}
     for key, (got, ref) in pairs.items():
-        scale = float(np.abs(ref).max())
+        scale = scales[key] = float(np.abs(ref).max())
         if not bf16:
             bound = F32_BOUND * (max(1.0, scale) if rel else 1.0)
         else:
@@ -1729,7 +1907,7 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
     if bad:
         raise AssertionError(f"{tag}: served vs plain path outside bounds: "
                              f"{bad}")
-    return errs, uses
+    return errs, uses, scales
 
 
 def run_path(path, device, graphs_dir, counters) -> dict:
@@ -1810,9 +1988,9 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         raise AssertionError(f"{counts} launches for {served} {tag} requests "
                              f"in {batches} batches; expected >= {want}")
     reference = path.lockstep or plain_taps
-    worst, worst_use = {}, {}
+    worst, worst_use, scales = {}, {}, {}
     for k, raw in enumerate(raws + conc):
-        errs, uses = check_response(raw, path,
+        errs, uses, scales = check_response(raw, path,
                                     reference(path, model, images[k],
                                               device),
                                     f"{tag} request {k}",
@@ -1836,8 +2014,16 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     log(f"  {tag} vs plain path, worst max abs err (share of its bound): "
         + ", ".join(f"{k}={v:.3g} ({worst_use[k]:.2f})"
                     for k, v in sorted(worst.items())))
+    if path.f32_rel:
+        # against the North star's 1e-4 absolute: each output's error
+        # beside its scale
+        log(f"  {tag}: max abs err against 1e-4 absolute, and each "
+            f"output's largest plain value: " + ", ".join(
+                f"{k} {worst[k]:.3g} ("
+                f"{'within' if worst[k] <= F32_BOUND else 'above'} 1e-4; "
+                f"scale {scales[k]:.4g})" for k in sorted(worst)))
     if opath:
-        errs, _ = check_response(other_raw, opath,
+        errs, _, _ = check_response(other_raw, opath,
                                  (opath.lockstep or plain_taps)(
                                      opath, other_model, other_image, device),
                                  f"{opath.model} request")
@@ -1864,7 +2050,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
                              f"{launches_f32}; expected {want32}")
     if path.lockstep:
         path.lockstep(path, model, images[0], device)
-    errs32, _ = check_response(raw, path,
+    errs32, _, _ = check_response(raw, path,
                                plain_taps(path, model, images[0], device),
                                f"{path.model} f32 request", bf16=False)
     log(f"  {path.model} f32: 1 request, launches {path.f32_kernels}; head output "
@@ -2658,6 +2844,8 @@ def main() -> int:
     cuda_build.build_all(sources)
     fb.load_kernel()
     fb.load_headwise_kernel()
+    fb.load_headwise_mma_kernel()
+    fb.load_headwise_tf32_kernel()
     fa.load_kernel()
     fa.load_online_kernel()
     fa.load_online_mma_kernel()
@@ -2694,7 +2882,9 @@ def main() -> int:
                 "attention_train_tf32": FwdBwdCount(av.attention_train,
                                                     "tf32_"),
                 "attention_train_packed_tf32": FwdBwdCount(
-                    av.attention_train_packed, "tf32_")}
+                    av.attention_train_packed, "tf32_"),
+                "headwise_attn_block_mma": fb.headwise_attn_block_mma,
+                "headwise_attn_block_tf32x3": fb.headwise_attn_block_tf32x3}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
@@ -2704,6 +2894,7 @@ def main() -> int:
     flash = phase_flash_kernel(device)
     train = phase_train_kernel(device, packed=False)
     train_packed = phase_train_kernel(device, packed=True)
+    headwise = phase_headwise_kernel(device)
     numbers = {
         "fused_attn_block": phase_block_kernel(
             device, "fused_attn_block", fb.fused_attn_block,
@@ -2717,16 +2908,7 @@ def main() -> int:
                            "attn_heads": tuple(sorted({0, heads // 2,
                                                        heads - 1}))}},
             ("vit_b16", 1, "bfloat16", "maps_mean")),
-        "headwise_attn_block": phase_block_kernel(
-            device, "headwise_attn_block", fb.headwise_attn_block,
-            fb.headwise_attn_block_reference,
-            (("vit_l16", 1, 577, 1024, 16), ("vit_l16", 4, 577, 1024, 16)),
-            lambda heads: {
-                "maps_off": {},
-                "maps_mean": {"want_attn": True, "want_mean": True},
-                "subset": {"want_attn": True, "want_mean": True,
-                           "attn_heads": (0, 7, 15)}},
-            ("vit_l16", 1, "bfloat16", "maps_mean")),
+        "headwise_attn_block": headwise["fma"],
         "flash_attention": flash["fma"],
         "fused_window_attn": phase_window_kernel(device),
         "fused_mlp_block": phase_mlp_kernel(device),
@@ -2755,6 +2937,8 @@ def main() -> int:
         "flash_attention_tf32x3": flash["tf32"],
         "attention_train_tf32": train["tf32"],
         "attention_train_packed_tf32": train_packed["tf32"],
+        "headwise_attn_block_mma": headwise["mma"],
+        "headwise_attn_block_tf32x3": headwise["tf32"],
     }
 
     # 4. the paths through the server
@@ -2783,10 +2967,18 @@ def main() -> int:
                  other=vit_path("vit_t16", 224, b16_taps,
                                 {"fused_attn_block": 12}, b16_plain, seq=1,
                                 conc=0)),
+        # row 2 on the tensor cores in all 24 blocks (the FMA kernel, a
+        # route for operands off the 16-byte grid, never; its count comes
+        # from here), the f32 request's 24 on split TF32
         vit_path("vit_l16", 384, {2: ("attn", "r"), 14: ("attn", "r"),
-                                  25: ("r",)}, {"headwise_attn_block": 24},
+                                  25: ("r",)},
+                 {"headwise_attn_block_mma": 24, "headwise_attn_block": 0},
                  {"block_impl": fb.headwise_attn_block_reference}, seq=3,
-                 conc=2, node_params={14: {"attn_heads": "[0,7,15]"}}),
+                 conc=2, node_params={14: {"attn_heads": "[0,7,15]"}},
+                 f32_kernels={"headwise_attn_block_tf32x3": 24,
+                              "headwise_attn_block": 0},
+                 profile_kernels={"headwise_mma_kernel": 24,
+                                  "tiled_attention_kernel": 0}),
         # the row-resident kernel on the tensor cores in all 12 blocks (the
         # profile must show it 12 times and the FMA kernel never); the f32
         # request's 12 on split TF32, none on the FMA kernel
@@ -2819,18 +3011,27 @@ def main() -> int:
                                   "online_attention_kernel": 0}),
         # vit_h14@742 at full depth (32 blocks, N=2810, heads 80 wide), one
         # f32 request (the server's default dtype): a plain ViT's blocks
-        # run the block kernels, here the headwise one (its FMA attention
-        # core by name in the profile), not rows 3-4 (vit.forward's
-        # attention: run_forwards); the block outputs o of blocks 0, 16, 31
-        # and the logits, each within 1e-4 of its scale (32 blocks carry
-        # the kernel's ~1e-6 relative differences through the residual
-        # stream)
+        # run the block kernels, here the headwise one on split TF32 (by
+        # name in the profile; the FMA attention core never), not rows 3-4
+        # (vit.forward's attention: run_forwards); the block outputs o of
+        # blocks 0, 16, 31 and the logits, each within 1e-4 of its scale
+        # (32 blocks carry the kernel's ~1e-6 relative differences through
+        # the residual stream), each one's absolute error logged beside
+        # its scale
         vit_path("vit_h14@742", 742, {2: ("o",), 18: ("o",), 33: ("o",)},
-                 {"headwise_attn_block": 32},
+                 {"headwise_attn_block_tf32x3": 32},
                  {"block_impl": fb.headwise_attn_block_reference}, seq=1,
                  conc=0, dtype="float32", f32=False, f32_rel=True,
-                 profile_kernels={"tiled_attention_kernel": 32,
+                 profile_kernels={"headwise_tf32_kernel": 32,
+                                  "tiled_attention_kernel": 0,
                                   "online_tf32_kernel": 0}),
+        # the same in bf16: row 2 on the bf16 tensor cores in all 32 blocks
+        vit_path("vit_h14@742", 742, {2: ("o",), 18: ("o",), 33: ("o",)},
+                 {"headwise_attn_block_mma": 32},
+                 {"block_impl": fb.headwise_attn_block_reference}, seq=1,
+                 conc=0, f32=False,
+                 profile_kernels={"headwise_mma_kernel": 32,
+                                  "tiled_attention_kernel": 0}),
         # the repository's saved graph for an @ geometry (N=257)
         vit_path("vit_t16@256", 256, {2: ("attn", "r"), 8: ("attn", "r"),
                                       13: ("r",)}, {"fused_attn_block": 12},

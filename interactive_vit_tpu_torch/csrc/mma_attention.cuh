@@ -19,7 +19,10 @@
 // Shared tiles are [rows][TILE_LD] bf16 with TILE_LD = 64 + 8: a row is 144
 // bytes, so the eight 16-byte rows an ldmatrix 8x8 reads start 4 banks
 // apart and never conflict, and every row start stays 16-byte aligned for
-// cp.async.
+// cp.async. The pieces that depend on the head width are templated on it
+// (MmaDims<DH>, default 64: the 64-wide kernels' code is unchanged); at 80
+// wide a padded row is 88 bf16, 176 bytes, and the eight rows start 44
+// words apart: banks 0, 12, 24, 4, 16, 28, 8, 20, again conflict-free.
 //
 // Everything lives in an anonymous namespace, as in common.cuh.
 
@@ -35,6 +38,20 @@ namespace {
 constexpr int MMA_DH = 64;            // the head width these kernels take
 constexpr int TILE_LD = MMA_DH + 8;   // padded row of a shared tile, in bf16
 constexpr int DH_CHUNKS = MMA_DH / 8; // 16-byte chunks in a row of the head dim
+
+// The shapes that follow from a head width DH (MMA_DH, or 80 for the
+// headwise block's heads).
+template <int DH>
+struct MmaDims {
+  static constexpr int LD = DH + 8;      // padded row of a shared tile, in bf16
+  static constexpr int CHUNKS = DH / 8;  // 16-byte chunks in a row of the head dim
+  static_assert(DH % 16 == 0, "heads a multiple of 16 wide");
+  // an ldmatrix 8x8 reads eight 16-byte rows: they fall on distinct
+  // 4-bank groups when a row spans an odd number of 16-byte units
+  static_assert((LD * 2 / 16) % 2 == 1, "ldmatrix rows conflict-free");
+  static_assert(LD * 2 % 16 == 0, "rows 16-byte aligned for cp.async");
+};
+static_assert(MmaDims<MMA_DH>::LD == TILE_LD, "the 64-wide tiles as before");
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -98,75 +115,84 @@ __device__ __forceinline__ float quad_sum(float v) {
   return __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-// Rows [r0, r0 + rows) of a [*, MMA_DH] bf16 operand (row stride sn
+// Rows [r0, r0 + rows) of a [*, DH] bf16 operand (row stride sn
 // elements) into a shared tile of `cap` rows, with cp.async; rows at or
 // past `live` are zero-filled. All `threads` threads of the block take part.
+template <int DH = MMA_DH>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                                 long long sn, int r0, int cap, int live,
                                                 int threads) {
-  for (int c = threadIdx.x; c < cap * DH_CHUNKS; c += threads) {
-    const int i = c / DH_CHUNKS, part = c % DH_CHUNKS;
+  constexpr int CHUNKS = MmaDims<DH>::CHUNKS, LD = MmaDims<DH>::LD;
+  for (int c = threadIdx.x; c < cap * CHUNKS; c += threads) {
+    const int i = c / CHUNKS, part = c % CHUNKS;
     const bool in = r0 + i < live;
     // an out-of-range row reads nothing; its source address stays in bounds
     const __nv_bfloat16* s = src + (in ? (long long)(r0 + i) * sn + part * 8 : 0);
-    cp_async16(smem_addr(dst + i * TILE_LD + part * 8), s, in ? 16 : 0);
+    cp_async16(smem_addr(dst + i * LD + part * 8), s, in ? 16 : 0);
   }
 }
 
-// The A fragments of a warp's 16 rows x MMA_DH from a shared tile: a[kc] is
+// The A fragments of a warp's 16 rows x DH from a shared tile: a[kc] is
 // the 16-deep step kc (columns 16 kc .. 16 kc + 15).
-__device__ __forceinline__ void load_a_frags(uint32_t a[MMA_DH / 16][4], const __nv_bfloat16* tile,
+template <int DH = MMA_DH>
+__device__ __forceinline__ void load_a_frags(uint32_t a[DH / 16][4], const __nv_bfloat16* tile,
                                              int row0, int lane) {
+  constexpr int LD = MmaDims<DH>::LD;
 #pragma unroll
-  for (int kc = 0; kc < MMA_DH / 16; ++kc)
-    ldmatrix_x4(a[kc], smem_addr(tile + (row0 + (lane & 15)) * TILE_LD + kc * 16 + (lane >> 4) * 8));
+  for (int kc = 0; kc < DH / 16; ++kc)
+    ldmatrix_x4(a[kc], smem_addr(tile + (row0 + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8));
 }
 
-// B fragments for X Y^T where Y is a shared tile [n][MMA_DH] (keys, or
+// B fragments for X Y^T where Y is a shared tile [n][DH] (keys, or
 // queries, by rows): for 16 rows n0.. of Y and the 16-deep step kc, b[0..1]
 // for the 8-column tile n0.. and b[2..3] for n0 + 8.. .
+template <int DH = MMA_DH>
 __device__ __forceinline__ void load_b_rows(uint32_t b[4], const __nv_bfloat16* tile, int n0, int kc,
                                             int lane) {
-  ldmatrix_x4(b, smem_addr(tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * TILE_LD + kc * 16 +
+  constexpr int LD = MmaDims<DH>::LD;
+  ldmatrix_x4(b, smem_addr(tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + kc * 16 +
                            ((lane >> 3) & 1) * 8));
 }
 
-// B fragments for X Y where Y is a shared tile [k][MMA_DH] (k: keys or
+// B fragments for X Y where Y is a shared tile [k][DH] (k: keys or
 // queries): for the 16-deep step over rows k0.. and columns d0..d0 + 15,
 // b[0..1] for the 8 columns d0.. and b[2..3] for d0 + 8.. .
+template <int DH = MMA_DH>
 __device__ __forceinline__ void load_b_cols(uint32_t b[4], const __nv_bfloat16* tile, int k0, int d0,
                                             int lane) {
-  ldmatrix_x4_trans(b, smem_addr(tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * TILE_LD + d0 +
+  constexpr int LD = MmaDims<DH>::LD;
+  ldmatrix_x4_trans(b, smem_addr(tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + d0 +
                                  (lane >> 4) * 8));
 }
 
-// acc[16 x 8 n-tiles] += A[16 x 16 kk-steps] Y, Y a shared [k][MMA_DH] tile:
+// acc[16 x 8 n-tiles] += A[16 x 16 kk-steps] Y, Y a shared [k][DH] tile:
 // the PV / dS K / P^T dO / dS^T Q product of one warp for 16 kk rows of Y
 // starting at k0.
-__device__ __forceinline__ void mma_a_by_cols(float acc[MMA_DH / 8][4], const uint32_t a[4],
+template <int DH = MMA_DH>
+__device__ __forceinline__ void mma_a_by_cols(float acc[DH / 8][4], const uint32_t a[4],
                                               const __nv_bfloat16* tile, int k0, int lane) {
 #pragma unroll
-  for (int dp = 0; dp < MMA_DH / 16; ++dp) {
+  for (int dp = 0; dp < DH / 16; ++dp) {
     uint32_t b[4];
-    load_b_cols(b, tile, k0, dp * 16, lane);
+    load_b_cols<DH>(b, tile, k0, dp * 16, lane);
     mma_bf16(acc[2 * dp], a, b[0], b[1]);
     mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
   }
 }
 
 // s[NT 8-column tiles][4] = A Y^T for a warp's 16 rows (A fragments over
-// the head dim) against NT * 8 rows of a shared tile Y [n][MMA_DH].
-template <int NT>
-__device__ __forceinline__ void mma_rows(float s[NT][4], const uint32_t a[MMA_DH / 16][4],
+// the head dim) against NT * 8 rows of a shared tile Y [n][DH].
+template <int NT, int DH = MMA_DH>
+__device__ __forceinline__ void mma_rows(float s[NT][4], const uint32_t a[DH / 16][4],
                                          const __nv_bfloat16* tile, int lane) {
 #pragma unroll
   for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-  for (int kc = 0; kc < MMA_DH / 16; ++kc) {
+  for (int kc = 0; kc < DH / 16; ++kc) {
 #pragma unroll
     for (int np = 0; np < NT / 2; ++np) {
       uint32_t b[4];
-      load_b_rows(b, tile, np * 16, kc, lane);
+      load_b_rows<DH>(b, tile, np * 16, kc, lane);
       mma_bf16(s[2 * np], a[kc], b[0], b[1]);
       mma_bf16(s[2 * np + 1], a[kc], b[2], b[3]);
     }
@@ -182,10 +208,11 @@ __device__ __forceinline__ void a_from_acc(uint32_t a[4], const float lo[4], con
   a[3] = pack_bf16(hi[2], hi[3]);
 }
 
-// a warp's [16 x MMA_DH] f32 accumulators, cast to bf16, into rows of out
+// a warp's [16 x DH] f32 accumulators, cast to bf16, into rows of out
 // (row stride sn) where the row is below `rows`; row0 is the warp's first
 // row.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sn, const float acc[MMA_DH / 8][4],
+template <int DH = MMA_DH>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sn, const float acc[DH / 8][4],
                                            int row0, int rows, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -194,7 +221,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sn, con
     if (r >= rows) continue;
     __nv_bfloat16* o = out + (long long)r * sn + 2 * t;
 #pragma unroll
-    for (int n = 0; n < MMA_DH / 8; ++n)
+    for (int n = 0; n < DH / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) =
           __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
   }

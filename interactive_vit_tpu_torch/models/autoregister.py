@@ -29,6 +29,17 @@ def _unported_family(variant: str) -> Optional[str]:
                  if variant.startswith(prefix)), None)
 
 
+def plain_vit_family(variant: str) -> bool:
+    """True when ``variant`` (its ``@`` suffix aside) names the plain-ViT
+    family, the only one with the block kernels' policies
+    (``block_kernel``): not Swin, not ToMe, not a family that is not
+    ported. The JAX package's ``_family_maker(variant.partition("@")[0])
+    is None``."""
+    base = variant.partition("@")[0]
+    return not (base.startswith("swin_") or "_tome" in base
+                or _unported_family(base) is not None)
+
+
 def known_variants() -> List[str]:
     """Every variant name ``make_model`` accepts (sorted)."""
     from interactive_vit_tpu_torch.models import swin, tome, vit

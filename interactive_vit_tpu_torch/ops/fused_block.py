@@ -28,6 +28,15 @@ headwise block runs LN1 and QKV as plain PyTorch ops before its kernel
 ``attn_heads`` subset outside the kernel with an exact max-subtracted
 softmax while the kernel runs maps-off, as the JAX function does.
 
+The headwise block has two routes on Hopper's tensor cores, chosen by
+``headwise_route``, a pure function of dtype, head width and alignment,
+each with the same contract and plain version and its own launch count:
+bf16 heads of a width in ``HEADWISE_TC_DHS`` (64, 80) with 16-byte aligned
+operands run ``headwise_attn_block_mma`` (``csrc/headwise_attn_block_mma.cu``,
+mma.sync bf16), f32 ones ``headwise_attn_block_tf32x3``
+(``csrc/headwise_attn_block_tf32.cu``, three TF32 products a product);
+every other operand keeps the FMA kernel (``headwise_attn_block.launches``).
+
 The s8 mode (JAX ``int8_scores`` / ``int8_pv``, the server's ``--attn
 int8-scores``) is a mode of the whole-image kernel with its own wrapper,
 ``fused_attn_block_s8`` (count ``fused_attn_block_s8.launches``):
@@ -55,6 +64,9 @@ import torch
 
 from interactive_vit_tpu_torch.ops import layers as L
 from interactive_vit_tpu_torch.ops import quant, tiled_attention
+from interactive_vit_tpu_torch.ops.flash_attention import (
+    MMA_ALIGN, _aligned, library_dhs,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -484,15 +496,61 @@ def headwise_attn_block_reference(
     return (out[0], _subset_maps(_ln_qkv(x, p, eps), heads, emit), *out[2:])
 
 
+# ``ivt_headwise_attn_block``'s parameters (csrc/headwise_attn_block.cu):
+# dtype; x, qkv, proj_w, proj_b, the o and probs workspaces, y, probs, mean;
+# B, N, D, H; scale, 1/heads; fast; the stream. The tensor-core entries
+# (``HEADWISE_TC_ARGTYPES``) take the same without the dtype.
+HEADWISE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                     + [ctypes.c_int] * 4 + [ctypes.c_float] * 2
+                     + [ctypes.c_int, ctypes.c_void_p])
+HEADWISE_TC_ARGTYPES = HEADWISE_ARGTYPES[1:]
+
+# The head widths of the headwise block's tensor-core routes
+# (csrc/headwise_attn_block_mma.cu, csrc/headwise_attn_block_tf32.cu), in
+# increasing order; their 16-byte copies need the tensor-core flash
+# kernels' alignment (``flash_attention.MMA_ALIGN``).
+HEADWISE_TC_DHS = (64, 80)
+# The key tile of each route's attention kernel at each head width (the
+# order of its f32 sums; in bf16 p is cast before PV either way).
+HEADWISE_MMA_BLOCK_K = 64
+HEADWISE_TF32_BLOCK_K = {64: 32, 80: 64}
+_TC_WIDTHS = " or ".join(map(str, HEADWISE_TC_DHS))
+
+
+def headwise_route(dtype: torch.dtype, dh: int, addrs, strides) -> str:
+    """The headwise block's kernel for operands of ``dtype`` with heads
+    ``dh`` wide, whose base addresses (bytes) are ``addrs`` and whose
+    element strides and offsets are ``strides``: "mma" (bf16 on the tensor
+    cores) or "tf32" (f32 on split TF32) when ``dh`` is in
+    ``HEADWISE_TC_DHS`` and every address and stride is a multiple of 16
+    bytes; else "fma" (the FMA kernel)."""
+    esize = {torch.bfloat16: 2, torch.float32: 4}.get(dtype)
+    if (esize is None or dh not in HEADWISE_TC_DHS
+            or not _aligned(addrs, strides, esize)):
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
+def _route_of(x: torch.Tensor, p: Params, heads: int) -> str:
+    """``headwise_route`` for a block's operands: x (and y, o, proj_w: rows
+    of D), proj_b, and the qkv the wrapper makes (rows of 3D; q, k, v of a
+    head at h dh, D + h dh, 2D + h dh; its own allocation, so its base is
+    aligned)."""
+    d = x.shape[-1]
+    dh = d // heads
+    return headwise_route(x.dtype, dh,
+                          (x.data_ptr(), p["proj_w"].data_ptr(),
+                           p["proj_b"].data_ptr()),
+                          (d, 3 * d, dh))
+
+
 def _headwise_lib() -> ctypes.CDLL:
     """Build (first use) and load the headwise kernel library."""
     from interactive_vit_tpu_torch.runtime import cuda_build
 
     lib = cuda_build.load("headwise_attn_block")
     if not getattr(lib, "_ivt_bound", False):
-        lib.ivt_headwise_attn_block.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
+        lib.ivt_headwise_attn_block.argtypes = HEADWISE_ARGTYPES
         lib.ivt_headwise_attn_block.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
@@ -504,6 +562,126 @@ def load_headwise_kernel() -> ctypes.CDLL:
     lib = _headwise_lib()
     tiled_attention.check_library(lib)
     return lib
+
+
+# route -> (source, C entry, its head widths' entry)
+_TC_SOURCES = {
+    "mma": ("headwise_attn_block_mma", "ivt_headwise_attn_block_mma",
+            "ivt_headwise_mma_dh"),
+    "tf32": ("headwise_attn_block_tf32", "ivt_headwise_attn_block_tf32x3",
+             "ivt_headwise_tf32_dh"),
+}
+
+
+def _headwise_tc_lib(route: str) -> ctypes.CDLL:
+    """Build (first use) and load a tensor-core route's library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    source, entry, widths = _TC_SOURCES[route]
+    lib = cuda_build.load(source)
+    if not getattr(lib, "_ivt_bound", False):
+        getattr(lib, entry).argtypes = HEADWISE_TC_ARGTYPES
+        getattr(lib, entry).restype = ctypes.c_int
+        getattr(lib, widths).argtypes = [ctypes.c_int]
+        getattr(lib, widths).restype = ctypes.c_int
+        if route == "tf32":
+            lib.ivt_headwise_tf32_block_k.argtypes = [ctypes.c_int]
+            lib.ivt_headwise_tf32_block_k.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def check_headwise_dhs(width_of, source: str) -> None:
+    """Raises unless the library built from ``source`` takes exactly the
+    head widths of ``HEADWISE_TC_DHS``: the route must never send a width
+    to a library without its instantiation."""
+    if library_dhs(width_of) != HEADWISE_TC_DHS:
+        raise RuntimeError(f"{source} and HEADWISE_TC_DHS disagree: the "
+                           f"library takes heads {library_dhs(width_of)} "
+                           f"wide, the route {HEADWISE_TC_DHS}")
+
+
+def load_headwise_mma_kernel() -> ctypes.CDLL:
+    """Build and load the bf16 tensor-core route now; checks its head
+    widths against ``HEADWISE_TC_DHS``."""
+    lib = _headwise_tc_lib("mma")
+    check_headwise_dhs(lib.ivt_headwise_mma_dh,
+                       "csrc/headwise_attn_block_mma.cu")
+    return lib
+
+
+def load_headwise_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 route now; checks its head widths
+    against ``HEADWISE_TC_DHS`` and its key tiles against
+    ``HEADWISE_TF32_BLOCK_K``."""
+    lib = _headwise_tc_lib("tf32")
+    check_headwise_dhs(lib.ivt_headwise_tf32_dh,
+                       "csrc/headwise_attn_block_tf32.cu")
+    if any(lib.ivt_headwise_tf32_block_k(dh) != HEADWISE_TF32_BLOCK_K[dh]
+           for dh in HEADWISE_TC_DHS):
+        raise RuntimeError("csrc/headwise_attn_block_tf32.cu and "
+                           "HEADWISE_TF32_BLOCK_K disagree")
+    return lib
+
+
+def _launch_headwise(route, x, p, heads, eps, want_attn, want_mean,
+                     fast_softmax, attn_heads):
+    """LN1 + QKV, then one launch of the headwise block's kernel on
+    ``route``; returns the wrapper's result. An ``attn_heads`` subset's
+    maps are recomputed here and the kernel runs maps-off."""
+    emit = _emit_heads(heads, want_attn, attn_heads)
+    qkv = _ln_qkv(x, p, eps)
+    if emit is None:
+        return headwise_kernels(route, x, qkv, p, heads, want_attn,
+                                want_mean, fast_softmax)
+    out = headwise_kernels(route, x, qkv, p, heads, False, want_mean,
+                           fast_softmax)
+    return (out[0], _subset_maps(qkv, heads, emit), *out[2:])
+
+
+def headwise_kernels(route: str, x: torch.Tensor, qkv: torch.Tensor,
+                     p: Params, heads: int, want_attn: bool = False,
+                     want_mean: bool = False, fast_softmax: bool = True):
+    """The headwise block after LN1 + QKV: one launch of ``route``'s kernels
+    ("fma", "mma" or "tf32") on x [B, N, D] and its qkv [B, N, 3D] (both
+    contiguous on the card, the route ``headwise_route`` gives them);
+    returns (y, probs [B, H, N, N] | None) [, mean]. Counts nothing: the
+    wrappers count their launches."""
+    b, n, d = x.shape
+    if route == "fma":
+        lib = _headwise_lib()
+        entry, lead = lib.ivt_headwise_attn_block, (_DTYPE_CODE[x.dtype],)
+    else:
+        if qkv.data_ptr() % MMA_ALIGN:
+            raise RuntimeError("headwise_attn_block: the qkv workspace is "
+                               "off the 16-byte grid")
+        lib = _headwise_tc_lib(route)
+        entry, lead = getattr(lib, _TC_SOURCES[route][1]), ()
+    with torch.cuda.device(x.device):
+        o_ws = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
+        # f32 per-head probs, summed in head order by the head-mean pass
+        probs_ws = (torch.empty((b, heads, n, n), dtype=torch.float32,
+                                device=x.device) if want_mean else None)
+        y = torch.empty_like(x)
+        probs = (torch.empty((b, heads, n, n), dtype=x.dtype,
+                             device=x.device) if want_attn else None)
+        mean = (torch.empty((b, n, n), dtype=x.dtype, device=x.device)
+                if want_mean else None)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = entry(
+            *lead, x.data_ptr(), qkv.data_ptr(), p["proj_w"].data_ptr(),
+            p["proj_b"].data_ptr(), o_ws.data_ptr(),
+            None if probs_ws is None else probs_ws.data_ptr(), y.data_ptr(),
+            None if probs is None else probs.data_ptr(),
+            None if mean is None else mean.data_ptr(), b, n, d, heads,
+            float(d // heads) ** -0.5, 1.0 / heads, int(bool(fast_softmax)),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"headwise_attn_block kernel launch failed on the "
+                           f"{route} route: cudaError {err}")
+    if want_mean:
+        return y, probs, mean
+    return y, probs
 
 
 def headwise_attn_block(
@@ -523,51 +701,99 @@ def headwise_attn_block(
     LN1 and QKV run as plain PyTorch ops, then one kernel launch does the
     per-head attention, the head-mean and the projection with the
     residual. An ``attn_heads`` subset's maps are recomputed outside the
-    kernel (exact softmax) and the kernel runs maps-off."""
+    kernel (exact softmax) and the kernel runs maps-off. Operands that
+    ``headwise_route`` sends to the tensor cores go to
+    ``headwise_attn_block_mma`` (bf16) or ``headwise_attn_block_tf32x3``
+    (f32), each counting its launches; this wrapper's count is the FMA
+    kernel's."""
+    kw = dict(want_attn=want_attn, want_mean=want_mean,
+              fast_softmax=fast_softmax, attn_heads=attn_heads)
     if x.device.type == "cpu":
-        return headwise_attn_block_reference(
-            x, p, heads, eps, want_attn=want_attn, want_mean=want_mean,
-            fast_softmax=fast_softmax, attn_heads=attn_heads)
+        return headwise_attn_block_reference(x, p, heads, eps, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"headwise_attn_block runs on cuda or cpu tensors, "
                          f"got {x.device}")
-    emit = _emit_heads(heads, want_attn, attn_heads)
+    _emit_heads(heads, want_attn, attn_heads)
     _check_operands(x, p, heads, "headwise_attn_block", fits_headwise)
-    b, n, d = x.shape
-    qkv = _ln_qkv(x, p, eps)
-    sel = None
-    if emit is not None:
-        sel = _subset_maps(qkv, heads, emit)
-        want_attn = False  # the kernel itself runs maps-off
-    lib = _headwise_lib()
-    with torch.cuda.device(x.device):
-        o_ws = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
-        # f32 per-head probs, summed in head order by the head-mean pass
-        probs_ws = (torch.empty((b, heads, n, n), dtype=torch.float32,
-                                device=x.device) if want_mean else None)
-        y = torch.empty_like(x)
-        probs = (torch.empty((b, heads, n, n), dtype=x.dtype,
-                             device=x.device) if want_attn else None)
-        mean = (torch.empty((b, n, n), dtype=x.dtype, device=x.device)
-                if want_mean else None)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ivt_headwise_attn_block(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), qkv.data_ptr(),
-            p["proj_w"].data_ptr(), p["proj_b"].data_ptr(), o_ws.data_ptr(),
-            None if probs_ws is None else probs_ws.data_ptr(), y.data_ptr(),
-            None if probs is None else probs.data_ptr(),
-            None if mean is None else mean.data_ptr(), b, n, d, heads,
-            float(d // heads) ** -0.5, 1.0 / heads, int(bool(fast_softmax)),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"headwise_attn_block kernel launch failed: "
-                           f"cudaError {err}")
+    route = _route_of(x, p, heads)
+    if route == "mma":
+        return headwise_attn_block_mma(x, p, heads, eps, **kw)
+    if route == "tf32":
+        return headwise_attn_block_tf32x3(x, p, heads, eps, **kw)
+    out = _launch_headwise("fma", x, p, heads, eps, **kw)
     headwise_attn_block.launches += 1
-    if sel is not None:
-        probs = sel
-    if want_mean:
-        return y, probs, mean
-    return y, probs
+    return out
 
 
 headwise_attn_block.launches = 0
+
+
+def _headwise_tc(route, name, x, p, heads, eps, **kw):
+    """A tensor-core route's wrapper: the plain version for a CPU tensor;
+    on the card one launch, or ``ValueError`` for operands that
+    ``headwise_route`` does not send to ``route``."""
+    if x.device.type == "cpu":
+        return headwise_attn_block_reference(x, p, heads, eps, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    _emit_heads(heads, kw["want_attn"], kw["attn_heads"])
+    _check_operands(x, p, heads, name, fits_headwise)
+    if _route_of(x, p, heads) != route:
+        raise ValueError(
+            f"{name} takes {'bf16' if route == 'mma' else 'f32'} heads "
+            f"{_TC_WIDTHS} wide with 16-byte aligned operands, got "
+            f"{x.dtype}, dh={x.shape[-1] // heads}")
+    return _launch_headwise(route, x, p, heads, eps, **kw)
+
+
+def headwise_attn_block_mma(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+):
+    """``headwise_attn_block``'s contract in bf16 on the tensor cores
+    (``csrc/headwise_attn_block_mma.cu``): one launch for CUDA tensors,
+    counted in ``headwise_attn_block_mma.launches``; raises on operands
+    that ``headwise_route`` does not send there. For CPU tensors the plain
+    version."""
+    out = _headwise_tc("mma", "headwise_attn_block_mma", x, p, heads, eps,
+                       want_attn=want_attn, want_mean=want_mean,
+                       fast_softmax=fast_softmax, attn_heads=attn_heads)
+    if x.device.type == "cuda":
+        headwise_attn_block_mma.launches += 1
+    return out
+
+
+headwise_attn_block_mma.launches = 0
+
+
+def headwise_attn_block_tf32x3(
+    x: torch.Tensor,
+    p: Params,
+    heads: int,
+    eps: float = 1e-6,
+    want_attn: bool = False,
+    want_mean: bool = False,
+    fast_softmax: bool = True,
+    attn_heads: Optional[Tuple[int, ...]] = None,
+):
+    """``headwise_attn_block``'s contract in f32 on split-TF32 tensor-core
+    products (``csrc/headwise_attn_block_tf32.cu``): one launch for CUDA
+    tensors, counted in ``headwise_attn_block_tf32x3.launches``; raises on
+    operands that ``headwise_route`` does not send there. For CPU tensors
+    the plain version."""
+    out = _headwise_tc("tf32", "headwise_attn_block_tf32x3", x, p, heads,
+                       eps, want_attn=want_attn, want_mean=want_mean,
+                       fast_softmax=fast_softmax, attn_heads=attn_heads)
+    if x.device.type == "cuda":
+        headwise_attn_block_tf32x3.launches += 1
+    return out
+
+
+headwise_attn_block_tf32x3.launches = 0

@@ -17,8 +17,9 @@ window attention kernel in all 12 blocks (``--models swin_t,vit_b16``
 serves both). ``--models vit_b16_tome`` (token merging, r=8: 197 tokens
 entering the first block, 109 the last) serves the repository's saved graph
 through the fused block kernel with ToMe's key bias and key metric in all
-12 blocks (``vit_b16_tome16`` and ``vit_s16_tome`` too; ``--attn
-int8-scores`` is refused for them, as in the JAX server):
+12 blocks (``vit_b16_tome16`` and ``vit_s16_tome`` too; under ``--attn
+int8-scores`` they keep that kernel while the plain ViTs beside them take
+the s8 block, as in the JAX server):
 
     python -m interactive_vit_tpu_torch.serving.server \\
         --models vit_b16_tome --dtype bfloat16 --port 8965
@@ -51,7 +52,9 @@ import os
 import torch
 
 from interactive_vit_tpu_torch.graph.registry import Registry
-from interactive_vit_tpu_torch.models.autoregister import make_model
+from interactive_vit_tpu_torch.models.autoregister import (
+    make_model, plain_vit_family,
+)
 from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
 from interactive_vit_tpu_torch.runtime.device import require_device
@@ -114,8 +117,9 @@ def build_app(
         max_wait_ms=max_wait_ms,
     )
     for variant in models:
-        # the s8 mode exists for the plain-ViT block only
-        bk = "auto" if variant.startswith("swin_") else block_kernel
+        # the s8 mode exists for the plain-ViT block only; the other
+        # families take their own auto dispatch, as in the JAX server
+        bk = block_kernel if plain_vit_family(variant) else "auto"
         model = make_model(variant, seed=seed, dtype=dtype, device=device,
                            attn_impl=attn_impl, quantize=quantize,
                            block_kernel=bk)

@@ -28,6 +28,19 @@ limit first. The variants:
   (parts by the grid); heads 80 wide: the key parts by the grid (the
   source), always 1, always 2, and Q kept in shared memory (in one key
   part: two parts' ring leaves it no room);
+* ``headwise_attn_block_mma.cu`` and ``headwise_attn_block_tf32.cu``
+  (row 2, the headwise block, bf16 on the tensor cores and f32 on split
+  TF32): key tiles as in the sources (bf16 64 keys; f32 32 at 64 wide, 64
+  at 80) and the head-mean through the f32 per-head workspace and the
+  head-mean pass (the sources), against other key tiles (bf16 128; f32 64
+  at 64 wide, 32 at 80) and against one block per query tile walking the
+  heads in order,
+  summing the mean in place; held against ``headwise_attn_block_reference``
+  (y, maps, mean within the bounds above) and timed after QKV, maps off
+  and maps + mean, at vit_l16@384 (heads 64 wide; B=1 and 4) and
+  vit_h14@742 and @224 (heads 80 wide), with ``--baseline`` beside the
+  other checkout's ``headwise_attn_block.cu`` (the FMA kernel the routes
+  replace);
 * ``attention_train_tf32.cu`` (rows 8-9's backward, f32 on split TF32):
   streamed tiles of 32 keys or queries taken whole (the source), tiles of
   64 in halves of 32, tiles of 32 in halves of 16, and tiles of 16 taken
@@ -46,7 +59,16 @@ Heads 64 wide are timed at dinov2_s14_reg's and vit_b16's shapes, heads
 ``--baseline DIR`` adds, to each group of heads 64 wide, the source as it
 stands in another checkout ``DIR`` (the variant ``baseline``), built and
 timed in the same turns: the way to hold a source edit against its parent
-on one card.
+on one card. A header edit that must leave other kernels as they were is
+checked by their machine code instead:
+
+    python -m interactive_vit_tpu_torch.tools.kernel_variants \
+        --baseline DIR --sass flash_attention_mma attention_train_mma
+
+compiles each named source here and in ``DIR`` and compares their SASS
+(``cuobjdump -sass``) kernel by kernel, instruction by instruction
+(addresses, encodings and the anonymous namespace's hash aside); it exits
+non-zero if any differs.
 
 Needs a CUDA card and ``nvcc``; it raises without them.
 """
@@ -56,6 +78,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 from typing import Dict, List, Tuple
@@ -64,6 +87,7 @@ import torch
 
 from interactive_vit_tpu_torch.ops import attention_vjp as av
 from interactive_vit_tpu_torch.ops import flash_attention as fa
+from interactive_vit_tpu_torch.ops import fused_block as fb
 from interactive_vit_tpu_torch.runtime import cuda_build
 
 OUT_DIR = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "kernel_variants")
@@ -164,6 +188,61 @@ SMEM_SPLIT = [
     (PV_PARTS, "constexpr int TF_PV_PARTS = 2;"),
 ]
 
+# Row 2: the key tiles and the head-mean's design of the two tensor-core
+# routes
+ROW2_MMA_KT = "constexpr int HM_KT = 64;"
+ROW2_TF32_KT = "constexpr int HT_KT_64 = 32, HT_PV_PARTS_64 = 1;"
+ROW2_TF32_KT_80 = "constexpr int HT_KT_80 = 64, HT_PV_PARTS_80 = 5;"
+
+
+def _head_walk(t: str, rows: str, cast: str, kernel_call: str,
+               kernel_loop: str):
+    """Row 2's rejected head-mean design as replacements of a route's
+    source (element type ``t``, rows constant ``rows``, the cast ``cast``
+    of an f32 value to ``t``): one block per query tile walks the heads in
+    order, and each lane sums the f32 probs of the (row, key) pairs it owns
+    in place in head order, casting the mean on the last head; no
+    head-mean pass."""
+    return [
+        ("  int H, N, D, norm, fast;\n  float scale;\n};",
+         f"  {t}* mean;\n  int H, N, D, norm, fast;\n"
+         "  float scale, inv_heads;\n};"),
+        ("            if (a.head_probs != nullptr) "
+         "a.head_probs[prow + c] = v;",
+         """            if (a.head_probs != nullptr) {
+              const long long m = ((long long)b * N + row0 + i) * N + j0 + c;
+              const float acc = h == 0 ? v : a.head_probs[m] + v;
+              if (h + 1 < a.H) a.head_probs[m] = acc;
+              else a.mean[m] = """ + cast.format("acc * a.inv_heads") + """;
+            }"""),
+        (kernel_call, kernel_loop),
+        (f"  const dim3 grid((a.N + {rows} - 1) / {rows}, a.H, B);",
+         f"  const dim3 grid((a.N + {rows} - 1) / {rows}, 1, B);"),
+        ("  a.H = H;", f"  a.mean = static_cast<{t}*>(mean);\n"
+                       "  a.inv_heads = inv_heads;\n  a.H = H;"),
+        ("  if (mean != nullptr) {\n    err = launch_head_mean",
+         "  if (false) {\n    err = launch_head_mean"),
+    ]
+
+
+ROW2_MMA_WALK = _head_walk(
+    "bf16", "HM_ROWS", "__float2bfloat16({})",
+    "  attend_head<DH, WALKS>(a, ring, pstage, blockIdx.x * HM_ROWS, "
+    "blockIdx.y, blockIdx.z);",
+    """  for (int h = 0; h < a.H; ++h) {
+    attend_head<DH, WALKS>(a, ring, pstage, blockIdx.x * HM_ROWS, h, blockIdx.z);
+    __syncthreads();
+  }""")
+ROW2_TF32_WALK = _head_walk(
+    "float", "HT_ROWS", "{}",
+    """  attend_head<DH, WALKS>(a, reinterpret_cast<float*>(ht_smem4), blockIdx.x * HT_ROWS, blockIdx.y,
+                         blockIdx.z);""",
+    """  for (int h = 0; h < a.H; ++h) {
+    attend_head<DH, WALKS>(a, reinterpret_cast<float*>(ht_smem4), blockIdx.x * HT_ROWS, h,
+                           blockIdx.z);
+    __syncthreads();
+  }""")
+
 # name -> (source, replacements)
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row3_parts_by_grid": ("flash_attention_mma", []),
@@ -218,6 +297,23 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
         (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2,")]),
     "train_bwd_kt_16_whole": ("attention_train_tf32", [
         (TRAIN_KT, TRAIN_KT.replace("TT_KT = 32", "TT_KT = 16"))]),
+    "row2_mma_kt_64_workspace": ("headwise_attn_block_mma", []),
+    "row2_mma_kt_128": ("headwise_attn_block_mma", [
+        (ROW2_MMA_KT, ROW2_MMA_KT.replace("64", "128"))]),
+    "row2_mma_head_walk": ("headwise_attn_block_mma", ROW2_MMA_WALK),
+    "row2_tf32_kt_32_workspace": ("headwise_attn_block_tf32", []),
+    "row2_tf32_kt_64": ("headwise_attn_block_tf32", [
+        (ROW2_TF32_KT, ROW2_TF32_KT.replace("= 32", "= 64"))]),
+    "row2_tf32_head_walk": ("headwise_attn_block_tf32", ROW2_TF32_WALK),
+    "row2_mma_dh80_kt_64_workspace": ("headwise_attn_block_mma", []),
+    "row2_mma_dh80_kt_128": ("headwise_attn_block_mma", [
+        (ROW2_MMA_KT, ROW2_MMA_KT.replace("64", "128"))]),
+    "row2_mma_dh80_head_walk": ("headwise_attn_block_mma", ROW2_MMA_WALK),
+    "row2_tf32_dh80_kt_64_workspace": ("headwise_attn_block_tf32", []),
+    "row2_tf32_dh80_kt_32": ("headwise_attn_block_tf32", [
+        (ROW2_TF32_KT_80, ROW2_TF32_KT_80.replace("= 64", "= 32"))]),
+    "row2_tf32_dh80_head_walk": ("headwise_attn_block_tf32",
+                                 ROW2_TF32_WALK),
 }
 
 
@@ -230,7 +326,18 @@ ENTRIES = {
                              fa.FLASH_TF32_ARGTYPES),
     "attention_train_tf32": ("ivt_attention_train_bwd_tf32",
                              av.TRAIN_TF32_BWD_ARGTYPES),
+    "headwise_attn_block_mma": ("ivt_headwise_attn_block_mma",
+                                fb.HEADWISE_TC_ARGTYPES),
+    "headwise_attn_block_tf32": ("ivt_headwise_attn_block_tf32x3",
+                                 fb.HEADWISE_TC_ARGTYPES),
+    "headwise_attn_block": ("ivt_headwise_attn_block",
+                            fb.HEADWISE_ARGTYPES),
 }
+
+# A source's counterpart in the ``--baseline`` checkout: row 2's
+# tensor-core routes stand beside the FMA kernel they replace
+BASELINE_OF = {"headwise_attn_block_mma": "headwise_attn_block",
+               "headwise_attn_block_tf32": "headwise_attn_block"}
 
 
 def variant_dh(name: str) -> int:
@@ -264,7 +371,9 @@ def build_variants(names, baseline=None) -> Dict[str, ctypes.CDLL]:
         csrc = os.path.join(baseline, os.path.relpath(
             cuda_build.CSRC_DIR, os.path.dirname(os.path.dirname(
                 cuda_build.CSRC_DIR))))
-        for source in sorted({VARIANTS[name][0] for name in names}):
+        for source in sorted({BASELINE_OF.get(VARIANTS[name][0],
+                                              VARIANTS[name][0])
+                              for name in names}):
             builds[f"baseline:{source}"] = ([], csrc)
     procs = {}
     for name, (replacements, csrc) in builds.items():
@@ -290,6 +399,53 @@ def build_variants(names, baseline=None) -> Dict[str, ctypes.CDLL]:
         getattr(lib, entry).argtypes = argtypes
         libs[name] = lib
     return libs
+
+
+def _sass(csrc: str, source: str, out: str) -> Dict[str, List[str]]:
+    """kernel -> its SASS instructions, for ``<csrc>/<source>.cu``."""
+    flags = [f for f in cuda_build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([cuda_build.nvcc_path(), *flags, "-cubin", "-I", csrc,
+                    "-o", out, os.path.join(csrc, source + ".cu")],
+                   check=True)
+    text = subprocess.run(
+        [os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump"),
+         "-sass", out], check=True, capture_output=True, text=True).stdout
+    kernels: Dict[str, List[str]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]+",
+                         "ANON", m.group(1))
+            kernels[cur] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if m and cur is not None:
+            kernels[cur].append(m.group(1))
+    return kernels
+
+
+def sass_diff(sources, baseline: str) -> int:
+    """Each source's SASS against the same source in the ``baseline``
+    checkout; prints a line a source and returns how many differ."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    csrc = os.path.join(baseline, os.path.relpath(
+        cuda_build.CSRC_DIR, os.path.dirname(os.path.dirname(
+            cuda_build.CSRC_DIR))))
+    bad = 0
+    for source in sources:
+        here = _sass(cuda_build.CSRC_DIR, source,
+                     os.path.join(OUT_DIR, source + ".cubin"))
+        there = _sass(csrc, source,
+                      os.path.join(OUT_DIR, "baseline_" + source + ".cubin"))
+        bad += here != there
+        print(f"{source}: {len(here)} kernels, "
+              f"{sum(map(len, here.values()))} instructions; baseline "
+              f"{len(there)} kernels, {sum(map(len, there.values()))}: "
+              f"{'identical SASS' if here == there else 'DIFFERENT'}",
+              flush=True)
+    return bad
 
 
 def _source_of(name: str) -> str:
@@ -348,6 +504,90 @@ def call_bwd(lib, q, k, v, do, stats, n_real=None):
     if err != 0:
         raise RuntimeError(f"backward variant: launch failed, cudaError {err}")
     return grads
+
+
+def call_headwise(lib, name, x, qkv, p, heads, maps=False, mean=False):
+    """One launch of a row-2 variant after QKV (or of the baseline's FMA
+    kernel), as ``fused_block.headwise_kernels`` launches it: (y, probs |
+    None[, mean])."""
+    b, n, d = x.shape
+    o_ws = torch.empty_like(x)
+    probs_ws = (torch.empty((b, heads, n, n), dtype=torch.float32,
+                            device=x.device) if mean else None)
+    y = torch.empty_like(x)
+    probs = (torch.empty((b, heads, n, n), dtype=x.dtype, device=x.device)
+             if maps else None)
+    mn = (torch.empty((b, n, n), dtype=x.dtype, device=x.device)
+          if mean else None)
+    source = _source_of(name)
+    lead = (() if source != "headwise_attn_block" else
+            (0 if x.dtype == torch.float32 else 1,))
+    err = getattr(lib, ENTRIES[source][0])(
+        *lead, x.data_ptr(), qkv.data_ptr(), p["proj_w"].data_ptr(),
+        p["proj_b"].data_ptr(), o_ws.data_ptr(),
+        None if probs_ws is None else probs_ws.data_ptr(), y.data_ptr(),
+        None if probs is None else probs.data_ptr(),
+        None if mn is None else mn.data_ptr(), b, n, d, heads,
+        float(d // heads) ** -0.5, 1.0 / heads, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+    return (y, probs, mn) if mean else (y, probs)
+
+
+def headwise_group(libs, names, dtype, shapes) -> None:
+    """Row-2 variants against ``headwise_attn_block_reference`` and timed
+    after QKV, maps off and maps + mean, in two orders."""
+    for b, n, d, heads in shapes:
+        g = torch.Generator().manual_seed(n + b)
+
+        def rnd(*shape, std=1.0, mean=0.0):
+            return (torch.randn(shape, generator=g) * std + mean).to(
+                "cuda", dtype)
+
+        p = {"ln1_s": rnd(d, std=0.1, mean=1.0), "ln1_b": rnd(d, std=0.1),
+             "qkv_w": rnd(d, 3 * d, std=d ** -0.5),
+             "qkv_b": rnd(3 * d, std=0.1),
+             "proj_w": rnd(d, d, std=d ** -0.5), "proj_b": rnd(d, std=0.1)}
+        x = rnd(b, n, d)
+        qkv = fb._ln_qkv(x, p, 1e-6)
+        for maps in (False, True):
+            ref = fb.headwise_attn_block_reference(
+                x, p, heads, 1e-6, want_attn=maps, want_mean=maps)
+            for name in names:
+                got = call_headwise(libs[name], name, x, qkv, p, heads, maps,
+                                    maps)
+                torch.cuda.synchronize()
+                use = 0.0
+                for i, (o, r) in enumerate(zip(got, ref)):
+                    if r is None:  # maps off: no tap
+                        continue
+                    if dtype == torch.float32:
+                        bound = 1e-4
+                    elif i == 0:
+                        bound = 2.0 ** -6 * max(1.0, r.abs().max().item())
+                    else:
+                        bound = (2.0 ** -5 * r.float().abs() + 1e-6).clamp(
+                            max=2.0 ** -7)
+                    use = max(use, ((o.float() - r.float()).abs() / bound)
+                              .max().item())
+                if use > 1.0:
+                    raise AssertionError(f"{name}: {use:.2f} of its bound")
+                print(f"  {name} {(b, n, d, heads)} maps+mean={maps}: "
+                      f"{use:.2f} of the bound", flush=True)
+            del ref
+            times = {name: [] for name in names}
+            for order in (names, names[::-1]):
+                for name in order:
+                    times[name].append(time_ms(lambda: call_headwise(
+                        libs[name], name, x, qkv, p, heads, maps, maps)))
+            print(f"  headwise_attn_block {(b, n, d, heads)} "
+                  f"{str(dtype)[6:]} maps + mean {'on' if maps else 'off'}"
+                  f", after QKV: " + ", ".join(
+                      f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, "
+                      f"{t[1]:.4f})" for name, t in times.items()),
+                  flush=True)
+            torch.cuda.empty_cache()
 
 
 def time_ms(fn, iters: int = 30) -> float:
@@ -422,7 +662,13 @@ def main(argv=None) -> int:
                     help="keep the variants whose names hold one of these")
     ap.add_argument("--baseline", default=None,
                     help="another checkout whose sources are timed beside")
+    ap.add_argument("--sass", nargs="+", default=None,
+                    help="only compare these sources' SASS with --baseline's")
     args = ap.parse_args(argv)
+    if args.sass:
+        if args.baseline is None:
+            raise SystemExit("kernel_variants: --sass needs --baseline")
+        return 1 if sass_diff(args.sass, args.baseline) else 0
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -457,11 +703,26 @@ def main(argv=None) -> int:
         # N=197), keys masked beyond 197 of 208
         ("attention_train_tf32", 64): (torch.float32, [
             (64, 3, 197, None), (64, 12, 197, None), (8, 2, 208, 197)]),
+        # row 2: vit_l16@384 at B=1 and 4 (heads 64 wide); vit_h14@742 and
+        # @224 (80 wide); (B, N, D, heads)
+        ("headwise_attn_block_mma", 64): (torch.bfloat16, [
+            (1, 577, 1024, 16), (4, 577, 1024, 16)]),
+        ("headwise_attn_block_tf32", 64): (torch.float32, [
+            (1, 577, 1024, 16), (4, 577, 1024, 16)]),
+        ("headwise_attn_block_mma", 80): (torch.bfloat16, [
+            (1, 2810, 1280, 16), (1, 257, 1280, 16)]),
+        ("headwise_attn_block_tf32", 80): (torch.float32, [
+            (1, 2810, 1280, 16), (1, 257, 1280, 16)]),
     }
     for (source, dh), (dtype, shapes) in groups.items():
         group = [n for n in names
                  if VARIANTS[n][0] == source and variant_dh(n) == dh]
         if not group:
+            continue
+        if source in BASELINE_OF:
+            if args.baseline is not None:
+                group.append(f"baseline:{BASELINE_OF[source]}")
+            headwise_group(libs, group, dtype, shapes)
             continue
         if args.baseline is not None and dh == 64:
             group.append(f"baseline:{source}")

@@ -103,6 +103,9 @@ def test_fused_block_entry_matches_its_ctypes_signature():
      "ivt_flash_attention_online_tf32x3"),
     ("flash_attention_tf32", "flash_attention", "ivt_flash_attention_tf32x3"),
     ("attention_train_tf32", "attention_vjp", "ivt_attention_train_bwd_tf32"),
+    ("headwise_attn_block_mma", "fused_block", "ivt_headwise_attn_block_mma"),
+    ("headwise_attn_block_tf32", "fused_block",
+     "ivt_headwise_attn_block_tf32x3"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its
@@ -123,7 +126,9 @@ def test_kernel_builds_and_loads_on_the_card(name, module, entry):
               "flash_attention_mma": "load_mma_kernel",
               "flash_attention_online_tf32": "load_online_tf32_kernel",
               "flash_attention_tf32": "load_tf32_kernel",
-              "attention_train_tf32": "load_tf32_kernel"}.get(
+              "attention_train_tf32": "load_tf32_kernel",
+              "headwise_attn_block_mma": "load_headwise_mma_kernel",
+              "headwise_attn_block_tf32": "load_headwise_tf32_kernel"}.get(
                   name, "load_kernel")
     lib = getattr(mod, loader)()  # raises if the envelopes disagree
     assert hasattr(lib, entry)

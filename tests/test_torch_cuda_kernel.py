@@ -47,6 +47,11 @@ plain version's only by the order of the f32 sums of the QKV product; in
 bf16 a key element that rounds to its neighbour (one ulp, 2^-8 of the
 element) moves the head-mean by at most that over the head count.
 
+The headwise block's tensor-core routes (``headwise_attn_block_mma``,
+bf16; ``headwise_attn_block_tf32x3``, f32 on split TF32) take the FMA
+kernel's bounds: they round at the same points, and each split-TF32
+product is within ~2^-21 of the f32 one (``tests/test_torch_headwise_tc.py``).
+
 The bf16 tensor-core kernels (``flash_attention_mma``,
 ``flash_attention_online_mma`` and the tensor-core route of both trainable
 attentions) take the same bounds as the FMA kernels they stand beside: they
@@ -103,6 +108,8 @@ def cuda():
         for p in glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu"))))
     fb.load_kernel()
     fb.load_headwise_kernel()
+    fb.load_headwise_mma_kernel()
+    fb.load_headwise_tf32_kernel()
     fa.load_kernel()
     fw.load_kernel()
     fm.load_kernel()
@@ -251,31 +258,89 @@ def test_tome_mode_matches_plain(cuda, n, dtype, s8, mode):
 
 # headwise: vit_l16 @384 (N=577: 10 key tiles, the last partial), vit_b16
 # (N=197), a ragged small block, and dh=24 (column groups that do not
-# divide the thread block)
+# divide the thread block); heads 64 wide take the tensor-core routes
+# (bf16 mma, f32 split TF32), 16 and 24 the FMA kernel
 HEADWISE_SHAPES = [(1, 577, 1024, 16), (2, 197, 768, 12), (3, 17, 64, 4),
                    (1, 130, 96, 4)]
+HEADWISE_MODES = {
+    "maps_off": {},
+    "maps_mean": {"want_attn": True, "want_mean": True},
+    "subset_mean": {"want_attn": True, "want_mean": True},
+    "exact_softmax": {"want_attn": True, "fast_softmax": False},
+}
+
+
+def _headwise_counts():
+    return {"fma": fb.headwise_attn_block.launches,
+            "mma": fb.headwise_attn_block_mma.launches,
+            "tf32": fb.headwise_attn_block_tf32x3.launches}
+
+
+def _headwise_case(x, p, heads, dtype, mode, route):
+    """One launch of ``headwise_attn_block`` on ``route`` (the counts
+    show it) against the plain version."""
+    kw = dict(HEADWISE_MODES[mode])
+    if mode == "subset_mean":
+        kw["attn_heads"] = (heads - 1, 0)
+    assert fb._route_of(x, p, heads) == route
+    before = _headwise_counts()
+    got = fb.headwise_attn_block(x, p, heads, 1e-6, **kw)
+    torch.cuda.synchronize()
+    after = _headwise_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
+    ref = fb.headwise_attn_block_reference(x, p, heads, 1e-6, **kw)
+    _check(got, ref, dtype)
 
 
 @pytest.mark.parametrize("shape", HEADWISE_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("mode", ["maps_off", "maps_mean", "subset_mean",
-                                  "exact_softmax"])
+@pytest.mark.parametrize("mode", list(HEADWISE_MODES))
 def test_headwise_kernel_matches_plain(cuda, shape, dtype, mode):
     b, n, d, heads = shape
     x, p = _block(b, n, d, heads, dtype, cuda, seed=n)
-    kw = {
-        "maps_off": {},
-        "maps_mean": {"want_attn": True, "want_mean": True},
-        "subset_mean": {"want_attn": True, "want_mean": True,
-                        "attn_heads": (heads - 1, 0)},
-        "exact_softmax": {"want_attn": True, "fast_softmax": False},
-    }[mode]
-    before = fb.headwise_attn_block.launches
-    got = fb.headwise_attn_block(x, p, heads, 1e-6, **kw)
-    torch.cuda.synchronize()
-    assert fb.headwise_attn_block.launches == before + 1
-    ref = fb.headwise_attn_block_reference(x, p, heads, 1e-6, **kw)
-    _check(got, ref, dtype)
+    route = ("fma" if d // heads not in fb.HEADWISE_TC_DHS else
+             "mma" if dtype == torch.bfloat16 else "tf32")
+    _headwise_case(x, p, heads, dtype, mode, route)
+
+
+# heads 80 wide on the tensor-core routes: vit_h14 @224 (N=257) and a small
+# ragged block (N=130, two heads); and vit_l16's block with x off the
+# 16-byte grid, which must take the FMA kernel
+@pytest.mark.parametrize("shape", [(1, 257, 1280, 16), (2, 130, 160, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", list(HEADWISE_MODES))
+def test_headwise_80_wide_on_the_tensor_cores(cuda, shape, dtype, mode):
+    b, n, d, heads = shape
+    x, p = _block(b, n, d, heads, dtype, cuda, seed=n)
+    _headwise_case(x, p, heads, dtype, mode,
+                   "mma" if dtype == torch.bfloat16 else "tf32")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["maps_off", "maps_mean"])
+def test_headwise_off_the_grid_takes_the_fma_kernel(cuda, dtype, mode):
+    x, p = _block(1, 577, 1024, 16, dtype, cuda, seed=577)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    _headwise_case(xo, p, 16, dtype, mode, "fma")
+
+
+@pytest.mark.parametrize("route", ["mma", "tf32"])
+def test_headwise_route_wrappers_refuse_other_operands(cuda, route):
+    """A route's wrapper raises on operands its route does not take (the
+    other dtype, or heads 24 wide); nothing falls back."""
+    fn = (fb.headwise_attn_block_mma if route == "mma"
+          else fb.headwise_attn_block_tf32x3)
+    other = torch.float32 if route == "mma" else torch.bfloat16
+    for dtype, shape in ((other, (1, 130, 128, 2)),
+                         (torch.bfloat16 if route == "mma" else
+                          torch.float32, (1, 130, 96, 4))):
+        b, n, d, heads = shape
+        x, p = _block(b, n, d, heads, dtype, cuda)
+        with pytest.raises(ValueError):
+            fn(x, p, heads)
 
 
 # flash: dinov2_s14_reg @518 (N=1374), vit_l16 @384 (N=577), the longest

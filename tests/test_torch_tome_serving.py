@@ -22,15 +22,22 @@ import jax
 import jax.numpy as jnp
 
 from interactive_vit_tpu.graph.registry import Registry as JRegistry
+from interactive_vit_tpu.models import autoregister as jauto
+from interactive_vit_tpu.models import vit as jvit
 from interactive_vit_tpu.models import tome as jtome
 from interactive_vit_tpu.models.tome_plugin import make_tome_model as jmake
 from interactive_vit_tpu.ops.node_ops import register_builtin as jbuiltin
 from interactive_vit_tpu.serving.app import App as JApp
+from interactive_vit_tpu.serving.server import build_app as jbuild_app
 from interactive_vit_tpu_torch.models import tome as ttome
+from interactive_vit_tpu_torch.models import vit as tvit
+from interactive_vit_tpu_torch.models import vit_plugin as tvp
 from interactive_vit_tpu_torch.models.autoregister import (
     known_variants, make_model,
 )
 from interactive_vit_tpu_torch.models.tome_plugin import make_tome_model
+from interactive_vit_tpu_torch.ops import fused_block as tfb
+from interactive_vit_tpu_torch.serving import server as tserver
 from interactive_vit_tpu_torch.serving.server import build_app
 from interactive_vit_tpu_torch.wire import schema
 from interactive_vit_tpu_torch.wire.codec import (
@@ -179,9 +186,10 @@ def test_autoregister_names_and_refusals(narrow, caplog):
         make_model(NAME + "@384", device="cpu")
     with pytest.raises(ValueError, match="plain-ViT family only"):
         make_model(NAME, device="cpu", block_kernel="int8-scores")
-    with pytest.raises(ValueError, match="plain-ViT family only"):
-        build_app(models=[NAME], device="cpu",
-                  attn_impl_name="int8-scores")
+    # the server passes --attn int8-scores to plain ViTs only: ToMe
+    # serves on its auto block kernel, as in the JAX server
+    app = build_app(models=[NAME], device="cpu", attn_impl_name="int8-scores")
+    app.close()
     with pytest.raises(ValueError, match="unknown model variant"):
         make_model("vit_x16_tome", device="cpu")
     with caplog.at_level(logging.WARNING):
@@ -190,6 +198,66 @@ def test_autoregister_names_and_refusals(narrow, caplog):
     assert "int8 not wired for vit_b16_tome" in caplog.text
     leaves = jax.tree.leaves(model.params)
     assert all(t.dtype == torch.bfloat16 for t in leaves)
+
+
+# vit_b16 narrowed for the CPU as vit_b16_tome is (depth cut to 2)
+NARROW_B16 = dict(img_size=224, patch=16, width=64, depth=2, heads=4,
+                  num_classes=1000)
+
+
+def test_int8_scores_serves_a_plain_vit_and_tome_side_by_side(
+        narrow, tmp_path, monkeypatch):
+    """``--models vit_b16,vit_b16_tome --attn int8-scores``: both apps
+    boot; each gives vit_b16 the s8 block policy and the ToMe model its
+    auto block kernel (JAX: ``_family_maker`` decides; the port:
+    ``plain_vit_family``). The port's vit_b16 blocks resolve to the s8
+    mode with an s8 PV product, and both models answer a request."""
+    for mod in (jvit, tvit):
+        monkeypatch.setitem(mod.VARIANTS, "vit_b16",
+                            mod.ViTConfig("vit_b16", **NARROW_B16))
+    kinds = {"torch": {}, "jax": {}}
+
+    def recording(pkg, maker):
+        def make(variant, **kw):
+            kinds[pkg][variant] = kw["block_kernel"]
+            return maker(variant, **kw)
+        return make
+
+    monkeypatch.setattr(tserver, "make_model",
+                        recording("torch", tserver.make_model))
+    monkeypatch.setattr(jauto, "make_model",
+                        recording("jax", jauto.make_model))
+    impls = []
+    real_impl = tvp.default_block_impl
+    monkeypatch.setattr(tvp, "default_block_impl",
+                        lambda name, **kw: impls.append(
+                            real_impl(name, **kw)) or impls[-1])
+    models = ("vit_b16", NAME)
+    for d in ("torch", "jax"):
+        (tmp_path / d).mkdir()
+        shutil.copy(GRAPH, tmp_path / d)
+    app = build_app(models=models, attn_impl_name="int8-scores",
+                    dtype_name="bfloat16", device="cpu",
+                    graphs_dir=str(tmp_path / "torch"), max_wait_ms=1.0)
+    japp = jbuild_app(models=models, attn_impl_name="int8-scores",
+                      dtype_name="bfloat16", speculate=False,
+                      graphs_dir=str(tmp_path / "jax"), max_wait_ms=1.0)
+    try:
+        want = {"vit_b16": "int8-scores", NAME: "auto"}
+        assert kinds["torch"] == kinds["jax"] == want
+        (s8,) = impls
+        assert s8.func is tfb.fused_attn_block_s8
+        assert s8.keywords == {"int8_pv": True}
+        for variant in models:
+            graph = app.graphs.load(variant + ".json")
+            head = [n["instance"].get("endpoint") for n in
+                    graph["nodes"]].index(variant + ":head")
+            out = Response.decode(app.compute(_request(graph, [(head, "o")])))
+            assert out[head]["o"].shape == (1, 1000)
+            assert np.isfinite(out[head]["o"]).all()
+    finally:
+        app.close()
+        japp.batcher.stop()
 
 
 def test_maker_resolves_no_kernel_on_the_cpu(monkeypatch):
