@@ -46,8 +46,8 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      tensor-core kernel, f32 on the split-TF32 kernel and each, on a copy
      off the 16-byte grid, on the FMA kernel; the same at vit_h14@224's
      heads (16 heads 80 wide, N=257, and keys masked beyond 257 of 320):
-     f32 on the split-TF32 kernel's 80-wide instantiation and, off the
-     grid, on the FMA kernel, bf16 on the FMA kernel;
+     each dtype on its tensor-core kernel's 80-wide instantiation and, off
+     the grid, on the FMA kernel (the bf16 pair's times on one line);
      ``scaled_dot_product_attention`` is timed beside it with maps off in
      both dtypes (a yardstick; the port never calls it), and f32 gives its
      bound at the TF32 peak and at the f32 FMA peak; then the plain
@@ -74,10 +74,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      kernel, and both, on a copy whose rows sit off the 16-byte grid, on
      the FMA kernel they replace; ``scaled_dot_product_attention`` timed
      beside it; then at vit_h14@742's shape (16 heads 80 wide, N=2810,
-     and keys masked beyond 2800): f32 on the split-TF32 kernel's 80-wide
-     instantiation and, off the grid, on the FMA kernel, bf16 on the FMA
-     kernel (its main-path use), each beside SDPA in its dtype and the
-     bound;
+     and keys masked beyond 2800): each dtype on its tensor-core kernel's
+     80-wide instantiation and, off the grid, on the FMA kernel, each
+     beside SDPA in its dtype and the bound (the bf16 pair's times on one
+     line);
    * the W8A8 MLP at vit_b16 (197 x 768, B=1 and 8), bf16 and f32: its
      s32 accumulators equal to the exact products of its own int8
      activations, those activations the plain version's but in at most 1%
@@ -175,11 +175,13 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    against the same forwards with the plain versions: 12 MLP launches a
    call; and four ``vit.forward`` of vit_h14 (heads 80 wide, depth cut to
    2) through ``--attn auto``, 2 launches each: f32 on the split-TF32
-   kernels' 80-wide instantiations, bf16 on the FMA kernels; @224 (N=257)
-   the row-resident kernel against its plain version, @742 (N=2810) the
-   online one against the plain online attention; then vit_h14@742 at
-   full depth (32 blocks) in f32: 32 split-TF32 online launches, its wall
-   time and one profiled forward (the attention's device time).
+   kernels' 80-wide instantiations, bf16 on the bf16 tensor-core kernels';
+   @224 (N=257) the row-resident kernel against its plain version, @742
+   (N=2810) the online one against the plain online attention, no FMA
+   flash kernel; then vit_h14@742 at full depth (32 blocks) in f32 and in
+   bf16: 32 online launches each (split TF32, bf16 tensor cores), each
+   forward's wall time and one profiled forward (the attention's device
+   time).
 5. train   -- ``tools.train.main`` in-process, launch counts zeroed
    before each run and read after it:
    (a) vit_b16 @224, ``--dtype mixed --attn auto --batch 64 --steps 10
@@ -383,8 +385,8 @@ HBM_BYTES_PER_S = 3.35e12
 # The new kernels' main-path shapes: dinov2_s14_reg@742's attention (heads,
 # tokens, head width) and vit_b16's MLP (tokens, width, hidden).
 ONLINE_SHAPE = (6, 2814, 64)
-# vit_h14@742's attention (B, heads, tokens, head width): f32 heads 80 wide,
-# the FMA online kernel's own main-path use
+# vit_h14@742's attention (B, heads, tokens, head width): heads 80 wide,
+# the 80-wide instantiations' main-path shape
 VIT_H14_742_SHAPE = (1, 16, 2810, 80)
 W8A8_SHAPE = (197, 768, 3072)
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
@@ -873,16 +875,15 @@ def phase_flash_kernel(device) -> dict:
     """The row-resident flash attention against its plain version at every
     case and dtype: bf16 on the tensor-core kernel, f32 on the split-TF32
     kernel, and each, on a copy off the 16-byte grid, on the FMA kernel;
-    at vit_h14@224's heads (80 wide) f32 on the split-TF32 kernel's 80-wide
-    instantiation (off the grid on the FMA kernel) and bf16 on the FMA
-    kernel. Returns, maps off, the dinov2_s14_reg numbers of the
-    tensor-core kernels (bf16 mma, f32 tf32), vit_h14@224's of the 80-wide
-    split-TF32 instantiation (tf32_dh80) and of the FMA kernel in bf16
-    (its main-path use), SDPA's time in the same dtype beside each; the
-    split-TF32 kernel's bound at the TF32 peak (three TF32 products a
-    product). Then the crossover of ``dispatch.FLASH_MIN_SEQ``: the plain
-    attention's time beside the tensor-core kernel's at N = 197, 257 and
-    577."""
+    at vit_h14@224's heads (80 wide) the two kernels' 80-wide
+    instantiations, and the FMA kernel off the grid. Returns, maps off,
+    the dinov2_s14_reg numbers of the tensor-core kernels (bf16 mma, f32
+    tf32), vit_h14@224's of the 80-wide instantiations (mma_dh80,
+    tf32_dh80) and of the FMA kernel in bf16 off the grid (fma), SDPA's
+    time in the same dtype beside each; the split-TF32 kernel's bound at
+    the TF32 peak (three TF32 products a product). Then the crossover of
+    ``dispatch.FLASH_MIN_SEQ``: the plain attention's time beside the
+    tensor-core kernel's at N = 197, 257 and 577."""
     import torch
     import torch.nn.functional as F
 
@@ -896,7 +897,8 @@ def phase_flash_kernel(device) -> dict:
 
     out = {}
     # dinov2_s14_reg@518, vit_l16@384, a padded N; vit_h14@224 (heads 80
-    # wide: f32 on split TF32, bf16 on the FMA kernel) and its padded form
+    # wide: each dtype on its tensor-core route's 80-wide instantiation)
+    # and its padded form
     cases = [("dinov2_s14_reg", (1, 6, 1374, 64), None),
              ("vit_l16", (1, 16, 577, 64), None),
              ("padded", (1, 6, 1408, 64), 1374),
@@ -909,13 +911,9 @@ def phase_flash_kernel(device) -> dict:
             g = torch.Generator().manual_seed(shape[2])
             qkv = [(torch.randn(shape, generator=g) * 2).to(device, dtype)
                    for _ in range(3)]
-            routes = [("FMA, off the 16-byte grid",
+            routes = [("tensor cores" if mma else "split TF32", qkv),
+                      ("FMA, off the 16-byte grid",
                        [misaligned(t, 4 if mma else 2) for t in qkv])]
-            if shape[3] == fa.MMA_DH or not mma:
-                routes.insert(0, ("tensor cores" if mma else "split TF32",
-                                  qkv))
-            else:  # bf16 heads 80 wide: the FMA kernel on aligned operands
-                routes = [("FMA", qkv)]
             t_lib = None
             for maps in (False, True):
                 if n_real is not None and not maps:
@@ -975,16 +973,19 @@ def phase_flash_kernel(device) -> dict:
                             "bound_by": tby if split else by,
                             "library_ms": t_lib}
                     # the result line: bf16 on the tensor cores and f32 on
-                    # split TF32 at dinov2_s14_reg; the FMA kernel at its
-                    # main-path use, vit_h14@224 in bf16
+                    # split TF32 at dinov2_s14_reg; the FMA kernel in bf16
+                    # at vit_h14@224, off the grid, beside the 80-wide
+                    # instantiations
                     if cname == "dinov2_s14_reg" and not maps and not fma:
                         out["mma" if mma else "tf32"] = nums
                     if cname == "vit_h14" and not maps:
                         if split:
                             out["tf32_dh80"] = nums
                         elif mma:
-                            out["fma"] = nums
+                            out["fma" if fma else "mma_dh80"] = nums
                     log(line)
+    log(dh80_summary("flash_attention", "vit_h14@224 (1, 16, 257, 80) maps "
+                     "off", out["mma_dh80"], out["fma"]))
 
     # FLASH_MIN_SEQ: below it auto_attention runs the plain attention
     for n in (197, 257, 577):
@@ -1002,6 +1003,18 @@ def phase_flash_kernel(device) -> dict:
         log(f"  FLASH_MIN_SEQ={dispatch.FLASH_MIN_SEQ} crossover, 6 heads, "
             f"N={n}, bf16, device time: " + "; ".join(parts))
     return out
+
+
+def dh80_summary(what, shape, mma, fma) -> str:
+    """One line for a bf16 80-wide tensor-core instantiation's numbers
+    beside the FMA kernel's from the same call."""
+    return (f"  {what} {shape} bf16, heads 80 wide: tensor cores "
+            f"{mma['ms']:.4f} ms, FMA (off the 16-byte grid, same call) "
+            f"{fma['ms']:.4f} ms, scaled_dot_product_attention "
+            f"{mma['library_ms']:.4f} ms, plain {mma['plain_ms']:.4f} ms, "
+            f"bound {mma['bound_ms']:.5f} ms ({mma['bound_by']}); the "
+            f"tensor cores at {mma['ms'] / mma['library_ms']:.2f}x SDPA, "
+            f"FMA at {fma['ms'] / mma['library_ms']:.2f}x")
 
 
 def window_cost(b, res, c, heads, win, esize, maps, masked):
@@ -1220,12 +1233,12 @@ def phase_online_kernel(device) -> dict:
     8, and keys masked beyond n_real=2800): bf16 on the tensor-core kernel,
     f32 on the split-TF32 kernel, and each dtype, on a copy off the 16-byte
     grid, on the FMA kernel they replace; then at vit_h14@742's shape (16
-    heads 80 wide, N=2810, and keys masked beyond 2800): f32 on the
-    split-TF32 kernel's 80-wide instantiation and, off the grid, on the
-    FMA kernel, bf16 on the FMA kernel (its main-path use). Returns the B=1
-    numbers of the tensor-core kernels (bf16 for mma, f32 for tf32 at 64
-    and tf32_dh80 at 80 wide) and the FMA kernel's in bf16 at vit_h14@742,
-    SDPA's time in the same dtype beside each."""
+    heads 80 wide, N=2810, and keys masked beyond 2800): each dtype on its
+    tensor-core kernel's 80-wide instantiation and, off the grid, on the
+    FMA kernel. Returns the B=1 numbers of the tensor-core kernels (bf16
+    for mma, f32 for tf32 at 64; mma_dh80 and tf32_dh80 at 80 wide) and
+    the FMA kernel's in bf16 off the grid at vit_h14@742 (fma), SDPA's time
+    in the same dtype beside each."""
     import torch
     import torch.nn.functional as F
 
@@ -1312,8 +1325,8 @@ def phase_online_kernel(device) -> dict:
                     "bound_by": tby, "library_ms": t_lib}
 
     # vit_h14@742's attention, heads 80 wide: f32 on the split-TF32
-    # kernel's 80-wide instantiation (and, off the 16-byte grid, on the FMA
-    # kernel), bf16 on the FMA kernel (the tensor-core route is 64 wide)
+    # kernel's 80-wide instantiation, bf16 on the tensor-core kernel's, and
+    # each, off the 16-byte grid, on the FMA kernel
     b, heads, n, dh = VIT_H14_742_SHAPE
     for dtype in (torch.float32, torch.bfloat16):
         dt = str(dtype).replace("torch.", "")
@@ -1321,9 +1334,9 @@ def phase_online_kernel(device) -> dict:
         g = torch.Generator().manual_seed(n)
         qkv = (torch.randn((b, n, 3 * heads * dh), generator=g) * 2).to(
             device, dtype)
-        routes = ([("split TF32", qkv), ("FMA, off the 16-byte grid",
-                                         misaligned(qkv, 2))] if f32
-                  else [("FMA", qkv)])
+        pad = 2 if f32 else 4  # rows 8 bytes off the 16-byte grid
+        routes = [("split TF32" if f32 else "tensor cores", qkv),
+                  ("FMA, off the 16-byte grid", misaligned(qkv, pad))]
         nbytes, flops = flash_cost(b, heads, n, dh, qkv.element_size(),
                                    False)
         bms, by = bound(nbytes, flops, dt)
@@ -1337,8 +1350,9 @@ def phase_online_kernel(device) -> dict:
                 before = counts()
                 got = fa.flash_attention_online(q, k, v, n_real)
                 torch.cuda.synchronize()
-                if counts() != (before[0] + fma, before[1],
-                                before[2] + (not fma)):
+                tc = not fma
+                if counts() != (before[0] + fma, before[1] + (tc and not f32),
+                                before[2] + (tc and f32)):
                     raise AssertionError(f"online {dt} dh={dh} {route}: "
                                          f"launches {counts()} after "
                                          f"{before}")
@@ -1360,7 +1374,7 @@ def phase_online_kernel(device) -> dict:
                 if t_lib is None:
                     t_lib = time_ms(
                         lambda: F.scaled_dot_product_attention(q, k, v))
-                split = not fma
+                split = f32 and not fma
                 log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms; "
                     f"bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
                     f"{flops / 1e9:.3f} GFLOP)"
@@ -1372,11 +1386,14 @@ def phase_online_kernel(device) -> dict:
                 nums = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
                         "bound_ms": tms if split else bms,
                         "bound_by": tby if split else by, "library_ms": t_lib}
-                # the FMA kernel's main-path use: vit_h14@742 in bf16
+                # the FMA kernel in bf16, off the grid, beside the 80-wide
+                # tensor-core instantiation
                 if split:
                     out["tf32_dh80"] = nums
                 elif not f32:
-                    out["fma"] = nums
+                    out["fma" if fma else "mma_dh80"] = nums
+    log(dh80_summary("flash_attention_online", "vit_h14@742 (1, 16, 2810, "
+                     "80)", out["mma_dh80"], out["fma"]))
     return out
 
 
@@ -2067,16 +2084,17 @@ def run_forwards(device, counters) -> dict:
     B=8, seeded random weights, against the same forwards with the
     kernels' plain versions. Then four ``vit.forward`` of vit_h14 (heads
     80 wide, depth cut to 2) with ``--attn auto``, one launch a block: f32
-    on the split-TF32 kernels' 80-wide instantiations, bf16 on the FMA
-    kernels (the bf16 tensor-core route is 64 wide only); the row-resident
-    kernel at 224 (N=257) against its plain version, the online one at 742
-    (N=2810) against the plain online attention, the logits within 1e-4
-    (f32) or 2^-4 (bf16) of their scale. Every launch count is set to 0
-    before the checked forwards and the MLP kernel's count (12 a call) and
-    the FMA kernels' (the bf16 forwards') are read and returned straight
-    after them; the forwards timed afterwards do not enter them. Last,
-    vit_h14@742 at full depth (32 blocks) in f32: 32 launches of the
-    online split-TF32 kernel, the logits within 1e-4 of their scale, the
+    on the split-TF32 kernels' 80-wide instantiations, bf16 on the bf16
+    tensor-core kernels'; the row-resident kernel at 224 (N=257) against
+    its plain version, the online one at 742 (N=2810) against the plain
+    online attention, the logits within 1e-4 (f32) or 2^-4 (bf16) of their
+    scale; no FMA flash kernel runs. Last, vit_h14@742 at full depth (32
+    blocks) in f32 and in bf16: 32 launches of the online kernel's
+    80-wide split-TF32 or bf16 tensor-core instantiation, the logits
+    within 1e-4 or 2^-4 of their scale. Every launch count is set to 0
+    before the checked forwards, and the MLP kernel's count (12 a call)
+    and the FMA flash kernels' (none) are read and returned straight after
+    them; the forwards timed afterwards do not enter them: each full-depth
     forward's wall time and one profiled forward (the attention's device
     time)."""
     import dataclasses
@@ -2176,18 +2194,17 @@ def run_forwards(device, counters) -> dict:
                 f"vs the plain versions {err:.3g} (bound {bound:.3g}), "
                 f"maps {map_use:.2f} of their bound")
         # heads 80 wide: f32 on the split-TF32 kernels' 80-wide
-        # instantiations, bf16 on the FMA kernels (mma_route is 64 wide
-        # only); row-resident at 224 (N=257), online above ROWFULL_MAX_N at
-        # 742
+        # instantiations, bf16 on the tensor-core kernels'; row-resident
+        # at 224 (N=257), online above ROWFULL_MAX_N at 742
         for variant, dtype_h, kernel, plain, what in (
                 ("vit_h14", torch.float32, "flash_attention_tf32x3",
                  rowfull_plain, "the plain row-resident attention"),
                 ("vit_h14@742", torch.float32,
                  "flash_attention_online_tf32x3", online_plain,
                  "the plain online attention"),
-                ("vit_h14", torch.bfloat16, "flash_attention", rowfull_plain,
-                 "the plain row-resident attention"),
-                ("vit_h14@742", torch.bfloat16, "flash_attention_online",
+                ("vit_h14", torch.bfloat16, "flash_attention_mma",
+                 rowfull_plain, "the plain row-resident attention"),
+                ("vit_h14@742", torch.bfloat16, "flash_attention_online_mma",
                  online_plain, "the plain online attention")):
             dt = str(dtype_h).replace("torch.", "")
             hcfg = dataclasses.replace(vit.resolve_variant(variant), depth=2)
@@ -2219,60 +2236,75 @@ def run_forwards(device, counters) -> dict:
             log(f"  {variant} (depth 2) forward B=1 {dt}, N={hcfg.tokens}, "
                 f"dh={hcfg.width // hcfg.heads}: launches {delta}; logits "
                 f"max abs err vs {what} {err:.3g} (bound {bound:.3g})")
-        # vit_h14@742 at full depth (32 blocks), f32: the online kernel's
-        # 80-wide split-TF32 instantiation in every block, the logits
-        # within 1e-4 of their scale of the plain online attention's
+        # vit_h14@742 at full depth (32 blocks), f32 and bf16: the online
+        # kernel's 80-wide split-TF32 or bf16 tensor-core instantiation in
+        # every block, the logits within 1e-4 or 2^-4 of their scale of the
+        # plain online attention's
         hcfg = vit.resolve_variant("vit_h14@742")
-        hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
-                                  torch.float32, device)
         himg = torch.rand((1, 3, hcfg.img_size, hcfg.img_size),
                           generator=torch.Generator().manual_seed(1)
                           ).to(device)
         auto = dispatch.default_attn_impl("auto")
-        before = {k: f.launches for k, f in counters.items()}
-        got = vit.forward(hparams, himg, hcfg, attn_impl=auto)
-        torch.cuda.synchronize()
-        delta = {k: f.launches - before[k]
-                 for k, f in counters.items() if f.launches > before[k]}
-        if delta != {"flash_attention_online_tf32x3": hcfg.depth}:
-            raise AssertionError(f"vit_h14@742 f32 forward launched {delta}; "
-                                 f"expected {hcfg.depth} "
-                                 f"flash_attention_online_tf32x3")
-        rlogits = vit.forward(hparams, himg, hcfg,
-                              attn_impl=online_plain)["logits"]
-        bound = F32_BOUND * max(1.0, rlogits.abs().max().item())
-        err = (got["logits"] - rlogits).abs().max().item()
-        if not torch.isfinite(got["logits"]).all() or err > bound:
-            raise AssertionError(f"vit_h14@742 f32 forward (depth "
-                                 f"{hcfg.depth}): logits max abs err "
-                                 f"{err:.3g} (bound {bound:.3g})")
-        full_line = (f"  vit_h14@742 (full depth, {hcfg.depth} blocks) "
-                     f"forward B=1 f32: launches {delta}; logits max abs "
-                     f"err vs the plain online attention {err:.3g} (bound "
-                     f"{bound:.3g})")
+        full = {}
+        for dtype_h, kernel, profiled, rel in (
+                (torch.float32, "flash_attention_online_tf32x3",
+                 "online_tf32_kernel", F32_BOUND),
+                (torch.bfloat16, "flash_attention_online_mma",
+                 "online_mma_kernel", SLICE_REL)):
+            dt = str(dtype_h).replace("torch.", "")
+            hparams = vit.init_params(hcfg, torch.Generator().manual_seed(0),
+                                      dtype_h, device)
+            before = {k: f.launches for k, f in counters.items()}
+            got = vit.forward(hparams, himg, hcfg, attn_impl=auto)
+            torch.cuda.synchronize()
+            delta = {k: f.launches - before[k]
+                     for k, f in counters.items() if f.launches > before[k]}
+            if delta != {kernel: hcfg.depth}:
+                raise AssertionError(f"vit_h14@742 {dt} forward launched "
+                                     f"{delta}; expected {hcfg.depth} "
+                                     f"{kernel}")
+            rlogits = vit.forward(hparams, himg, hcfg,
+                                  attn_impl=online_plain)["logits"].float()
+            logits = got["logits"].float()
+            bound = rel * max(1.0, rlogits.abs().max().item())
+            err = (logits - rlogits).abs().max().item()
+            if (logits.shape != (1, hcfg.num_classes)
+                    or not torch.isfinite(logits).all() or err > bound):
+                raise AssertionError(f"vit_h14@742 {dt} forward (depth "
+                                     f"{hcfg.depth}): logits "
+                                     f"{tuple(logits.shape)}, max abs err "
+                                     f"{err:.3g} (bound {bound:.3g})")
+            full[dt] = (hparams, profiled, (
+                f"  vit_h14@742 (full depth, {hcfg.depth} blocks) forward "
+                f"B=1 {dt}: launches {delta}; logits max abs err vs the "
+                f"plain online attention {err:.3g} (bound {bound:.3g})"))
         # the path ends here: the counts are read before the timed forwards
         count = counters["fused_mlp_block"].launches
         rowfull = counters["flash_attention"].launches
         online = counters["flash_attention_online"].launches
-        t_full = wall_ms(lambda: vit.forward(hparams, himg, hcfg,
-                                             attn_impl=auto), iters=2)
-        log(full_line + f"; {t_full:.2f} ms a forward (host wall, "
-            f"synchronized)")
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            vit.forward(hparams, himg, hcfg, attn_impl=auto)
+        for dt, (hparams, profiled, full_line) in full.items():
+            t_full = wall_ms(lambda: vit.forward(hparams, himg, hcfg,
+                                                 attn_impl=auto), iters=2)
+            log(full_line + f"; {t_full:.2f} ms a forward (host wall, "
+                f"synchronized)")
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        report_profile(prof, wall, "vit_h14@742 f32 full-depth forward "
-                       "profile", {"online_tf32_kernel": hcfg.depth,
-                                   "online_attention_kernel": 0})
-        del hparams
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                vit.forward(hparams, himg, hcfg, attn_impl=auto)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            report_profile(prof, wall, f"vit_h14@742 {dt} full-depth forward "
+                           "profile", {profiled: hcfg.depth,
+                                       "online_attention_kernel": 0})
+        del full, hparams
         if count != 12 * len(cases):
             raise AssertionError(f"fused_mlp_block launched {count} times in "
                                  f"{len(cases)} forwards; expected "
                                  f"{12 * len(cases)}")
+        if rowfull or online:
+            raise AssertionError(f"the FMA flash kernels launched {rowfull} "
+                                 f"and {online} times on the path")
         for name, b, imgs in cases:
             forward, params, cfg, _ = runs[name]
             t_k = wall_ms(lambda: forward(params, imgs, cfg,
@@ -2433,7 +2465,8 @@ def phase_train_kernel(device, packed: bool) -> dict:
         b, h, n, dh = shape
         nr = n if n_real is None else n_real
         # heads 80 wide (vit_h14, f32): the FMA pair on aligned operands
-        tc = dh == av.MMA_DH
+        # (the train kernels' width is 64 in both dtypes)
+        tc = dh == av.TRAIN_MMA_DH == av.TRAIN_TF32_DH
         for dtype in (torch.bfloat16, torch.float32) if tc else (
                 torch.float32,):
             dt = str(dtype).replace("torch.", "")

@@ -17,10 +17,12 @@ chosen by dtype, head width and alignment (``flash_attention.mma_route``
 and ``_tf32_ok``, read on the element pointers and strides), never by a
 failure: a failed build or launch raises.
 
-* bf16, heads ``MMA_DH`` (64) wide, 16-byte aligned operands: the tensor-
-  core kernels of ``csrc/attention_train_mma.cu`` (a forward, and a
+* bf16, heads ``TRAIN_MMA_DH`` (64) wide, 16-byte aligned operands: the
+  tensor-core kernels of ``csrc/attention_train_mma.cu`` (a forward, and a
   backward pair: dq, then dk / dv). Counted on ``.mma_fwd_launches`` /
-  ``.mma_bwd_launches``.
+  ``.mma_bwd_launches``. Rows 3-4's bf16 kernels also take heads 80 wide
+  (``flash_attention.MMA_DHS``), these do not: vit_h14's heads train on
+  the FMA pair.
 * f32, heads ``TRAIN_TF32_DH`` (64) wide, 16-byte aligned operands: the
   split-TF32 tensor-core kernels, the forward row 3's
   ``csrc/flash_attention_tf32.cu`` (given the layout's element strides),
@@ -74,11 +76,12 @@ TRAIN_MAX_N = 1024
 PACKED_DH = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The head width of the tensor-core route.
-MMA_DH = fa.MMA_DH
+# The head width of the bf16 tensor-core kernels (csrc/attention_train_mma.cu),
+# and so of the bf16 train route.
+TRAIN_MMA_DH = 64
 # The head width of the split-TF32 backward (csrc/attention_train_tf32.cu),
 # and so of the f32 train route.
-TRAIN_TF32_DH = MMA_DH
+TRAIN_TF32_DH = 64
 # The widest head csrc/attention_bwd.cu takes (its entry refuses wider).
 BWD_MAX_DH = 128
 
@@ -231,10 +234,11 @@ def _mma_lib() -> ctypes.CDLL:
 
 def load_mma_kernel() -> ctypes.CDLL:
     """Build and load the tensor-core kernels now; checks their head width
-    against ``MMA_DH``."""
+    against ``TRAIN_MMA_DH``."""
     lib = _mma_lib()
-    if lib.ivt_train_mma_dh() != MMA_DH:
-        raise RuntimeError("csrc/attention_train_mma.cu and MMA_DH disagree")
+    if lib.ivt_train_mma_dh() != TRAIN_MMA_DH:
+        raise RuntimeError("csrc/attention_train_mma.cu and TRAIN_MMA_DH "
+                           "disagree")
     return lib
 
 
@@ -333,9 +337,13 @@ def _launch_bwd(ptrs, strides, dtype, device, b, h, n, dh, n_real) -> None:
 
 
 def _mma_ok(dtype, dh, ptrs, strides) -> bool:
-    """``flash_attention.mma_route`` on element pointers and (image, head,
-    token) stride triples."""
-    return fa.mma_route(dtype, dh, ptrs, [s for st in strides for s in st])
+    """The bf16 tensor-core train route on element pointers and (image,
+    head, token) stride triples: ``flash_attention.mma_route`` (bf16,
+    16-byte aligned) at the train kernels' one width, ``TRAIN_MMA_DH``;
+    widening rows 3-4's widths never sends a train step to a kernel of
+    another width."""
+    return dh == TRAIN_MMA_DH and fa.mma_route(
+        dtype, dh, ptrs, [s for st in strides for s in st])
 
 
 def _tf32_ok(dtype, dh, ptrs, strides) -> bool:
@@ -364,8 +372,9 @@ def _launch_fwd_mma(ptrs, strides, device, b, h, n, n_real):
         stats = torch.empty((2, b, h, n), dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ivt_attention_train_fwd_mma(
-            *ptrs, stats.data_ptr(), ctypes.addressof(flat), b, h, n, MMA_DH,
-            n_real, float(MMA_DH) ** -0.5, MASK_VALUE, stream)
+            *ptrs, stats.data_ptr(), ctypes.addressof(flat), b, h, n,
+            TRAIN_MMA_DH, n_real, float(TRAIN_MMA_DH) ** -0.5, MASK_VALUE,
+            stream)
     if err != 0:
         raise RuntimeError(f"tensor-core attention forward launch failed: "
                            f"cudaError {err}")
@@ -389,9 +398,10 @@ def _launch_bwd_tc(ptrs, strides, stats, dtype, device, b, h, n,
     ``csrc/attention_train_mma.cu``, f32 on ``csrc/attention_train_tf32.cu``.
     ``ptrs``: q, k, v, do, dq, dk, dv; ``strides``: their stride triples;
     ``stats``: the forward's (m, l)."""
-    entry = (_tf32_lib().ivt_attention_train_bwd_tf32
-             if dtype == torch.float32
+    f32 = dtype == torch.float32
+    entry = (_tf32_lib().ivt_attention_train_bwd_tf32 if f32
              else _mma_lib().ivt_attention_train_bwd_mma)
+    dh = TRAIN_TF32_DH if f32 else TRAIN_MMA_DH
     flat = (ctypes.c_longlong * 21)(*[s for st in strides for s in st])
     with torch.cuda.device(device):
         # delta per (image, head, query row), from the dq kernel to dk / dv
@@ -399,8 +409,7 @@ def _launch_bwd_tc(ptrs, strides, stats, dtype, device, b, h, n,
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(
             *ptrs, stats.data_ptr(), delta.data_ptr(), ctypes.addressof(flat),
-            b, h, n, MMA_DH, n_real, float(MMA_DH) ** -0.5, MASK_VALUE,
-            stream)
+            b, h, n, dh, n_real, float(dh) ** -0.5, MASK_VALUE, stream)
     if err != 0:
         raise RuntimeError(f"tensor-core attention backward launch failed: "
                            f"cudaError {err}")

@@ -23,11 +23,12 @@ Routes on Hopper's tensor cores, chosen by dtype, head width and alignment
 only, each with the same contract and plain version as the branch it
 serves, and its own launch count:
 
-* bf16 heads of ``MMA_DH`` (64) columns with 16-byte aligned operands
-  (``mma_route``): the row-resident branch runs ``flash_attention_mma``
-  (kernel ``csrc/flash_attention_mma.cu``, the probs tap included), the
-  online branch ``flash_attention_online_mma``
-  (``csrc/flash_attention_online_mma.cu``);
+* bf16 heads of a width in ``MMA_DHS`` (64 and 80 columns) with 16-byte
+  aligned operands (``mma_route``): the row-resident branch runs
+  ``flash_attention_mma`` (kernel ``csrc/flash_attention_mma.cu``, the
+  probs tap included), the online branch ``flash_attention_online_mma``
+  (``csrc/flash_attention_online_mma.cu``); each source holds one
+  instantiation a width;
 * f32 heads of a width in ``TF32_DHS`` (64 and 80 columns: vit_h14's
   heads are 80 wide) with 16-byte aligned operands (``tf32_route``): the
   row-resident branch runs ``flash_attention_tf32x3``
@@ -36,7 +37,8 @@ serves, and its own launch count:
   (``csrc/flash_attention_online_tf32.cu``): every product as three TF32
   products of a hi / lo split (``csrc/tf32_attention.cuh``), which keeps
   the f32 contract; each source holds one instantiation a width;
-* everything else (bf16 heads 80 wide among them) keeps the FMA kernels.
+* everything else (operands off the 16-byte grid, other widths) keeps the
+  FMA kernels.
 
 Numerics (the JAX row-resident kernel's): f32 scores times dh^-0.5, keys
 at or beyond ``n_real`` set to ``MASK_VALUE``, the row max subtracted,
@@ -75,9 +77,12 @@ ONLINE_BLOCK_K = 128
 ONLINE_TF32_BLOCK_K = {64: 64, 80: 32}
 
 
-# The head width of the tensor-core kernels (csrc/mma_attention.cuh) and
-# the alignment their 16-byte copies need, in bytes.
-MMA_DH = 64
+# The head widths of the bf16 tensor-core kernels (csrc/flash_attention_mma.cu,
+# csrc/flash_attention_online_mma.cu), in increasing order, and the
+# alignment their 16-byte copies need, in bytes. The trainable attention's
+# tensor-core kernels keep their own width (attention_vjp.TRAIN_MMA_DH).
+MMA_DHS = (64, 80)
+_MMA_WIDTHS = " or ".join(map(str, MMA_DHS))
 MMA_ALIGN = 16
 # The head widths of the split-TF32 kernels (csrc/flash_attention_tf32.cu,
 # csrc/flash_attention_online_tf32.cu), in increasing order.
@@ -93,11 +98,11 @@ def _aligned(addrs, strides, esize: int) -> bool:
 
 
 def mma_route(dtype: torch.dtype, dh: int, addrs, strides) -> bool:
-    """True when operands take the bf16 tensor-core kernels: bf16, heads
-    ``MMA_DH`` wide, every base address (bytes) and every (image, head,
-    token) element stride a multiple of 16 bytes. f32 never does (TF32
-    would not keep the f32 contract; ``tf32_route`` is its own)."""
-    return (dtype == torch.bfloat16 and dh == MMA_DH
+    """True when operands take the bf16 tensor-core kernels: bf16, heads of
+    a width in ``MMA_DHS``, every base address (bytes) and every (image,
+    head, token) element stride a multiple of 16 bytes. f32 never does
+    (TF32 would not keep the f32 contract; ``tf32_route`` is its own)."""
+    return (dtype == torch.bfloat16 and dh in MMA_DHS
             and _aligned(addrs, strides, 2))
 
 
@@ -319,7 +324,7 @@ def _flash_mma_lib() -> ctypes.CDLL:
     if not getattr(lib, "_ivt_bound", False):
         lib.ivt_flash_attention_mma.argtypes = FLASH_MMA_ARGTYPES
         lib.ivt_flash_attention_mma.restype = ctypes.c_int
-        lib.ivt_flash_mma_dh.argtypes = []
+        lib.ivt_flash_mma_dh.argtypes = [ctypes.c_int]
         lib.ivt_flash_mma_dh.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
@@ -327,10 +332,9 @@ def _flash_mma_lib() -> ctypes.CDLL:
 
 def load_mma_kernel() -> ctypes.CDLL:
     """Build and load the tensor-core row-resident kernel now; checks its
-    head width against ``MMA_DH``."""
+    head widths against ``MMA_DHS``."""
     lib = _flash_mma_lib()
-    if lib.ivt_flash_mma_dh() != MMA_DH:
-        raise RuntimeError("csrc/flash_attention_mma.cu and MMA_DH disagree")
+    check_mma_dhs(lib.ivt_flash_mma_dh, "csrc/flash_attention_mma.cu")
     return lib
 
 
@@ -353,7 +357,7 @@ def flash_attention_mma(
     _check_operands(q, k, v)
     if not _mma_operands(q, k, v):
         raise ValueError(
-            f"flash_attention_mma takes bf16 heads {MMA_DH} wide with "
+            f"flash_attention_mma takes bf16 heads {_MMA_WIDTHS} wide with "
             f"16-byte aligned pointers and strides, got {q.dtype}, dh={dh}, "
             f"strides {[t.stride() for t in (q, k, v)]}")
     lib = _flash_mma_lib()
@@ -413,13 +417,26 @@ def library_dhs(width_of) -> Tuple[int, ...]:
     return tuple(dhs)
 
 
+def check_library_dhs(width_of, source: str, dhs, name: str) -> None:
+    """Raises unless the library built from ``source`` takes exactly the
+    head widths ``dhs`` (the route's ``name``): the route must never send
+    a width to a library without its instantiation."""
+    if library_dhs(width_of) != dhs:
+        raise RuntimeError(f"{source} and {name} disagree: the library "
+                           f"takes heads {library_dhs(width_of)} wide, "
+                           f"the route {dhs}")
+
+
 def check_tf32_dhs(width_of, source: str) -> None:
     """Raises unless the library built from ``source`` takes exactly the
     head widths of ``TF32_DHS``."""
-    if library_dhs(width_of) != TF32_DHS:
-        raise RuntimeError(f"{source} and TF32_DHS disagree: the library "
-                           f"takes heads {library_dhs(width_of)} wide, "
-                           f"the route {TF32_DHS}")
+    check_library_dhs(width_of, source, TF32_DHS, "TF32_DHS")
+
+
+def check_mma_dhs(width_of, source: str) -> None:
+    """Raises unless the library built from ``source`` takes exactly the
+    head widths of ``MMA_DHS``."""
+    check_library_dhs(width_of, source, MMA_DHS, "MMA_DHS")
 
 
 def load_tf32_kernel() -> ctypes.CDLL:
@@ -588,21 +605,24 @@ def _online_mma_lib() -> ctypes.CDLL:
     if not getattr(lib, "_ivt_bound", False):
         lib.ivt_flash_attention_online_mma.argtypes = ONLINE_MMA_ARGTYPES
         lib.ivt_flash_attention_online_mma.restype = ctypes.c_int
-        for name in ("ivt_online_mma_block_k", "ivt_online_mma_dh"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+        lib.ivt_online_mma_block_k.argtypes = []
+        lib.ivt_online_mma_block_k.restype = ctypes.c_int
+        lib.ivt_online_mma_dh.argtypes = [ctypes.c_int]
+        lib.ivt_online_mma_dh.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
 
 
 def load_online_mma_kernel() -> ctypes.CDLL:
-    """Build and load the tensor-core online kernel now; checks its key
-    tile and head width against ``ONLINE_BLOCK_K`` and ``MMA_DH``."""
+    """Build and load the tensor-core online kernel now; checks its head
+    widths against ``MMA_DHS`` and its key tile (the same at every width:
+    in bf16 the result depends on it) against ``ONLINE_BLOCK_K``."""
     lib = _online_mma_lib()
-    if (lib.ivt_online_mma_block_k(), lib.ivt_online_mma_dh()) != (
-            ONLINE_BLOCK_K, MMA_DH):
+    check_mma_dhs(lib.ivt_online_mma_dh,
+                  "csrc/flash_attention_online_mma.cu")
+    if lib.ivt_online_mma_block_k() != ONLINE_BLOCK_K:
         raise RuntimeError("csrc/flash_attention_online_mma.cu and "
-                           "ONLINE_BLOCK_K / MMA_DH disagree")
+                           "ONLINE_BLOCK_K disagree")
     return lib
 
 
@@ -623,9 +643,9 @@ def flash_attention_online_mma(
     _check_operands(q, k, v, fits_online)
     if not _mma_operands(q, k, v):
         raise ValueError(
-            f"flash_attention_online_mma takes bf16 heads {MMA_DH} wide with "
-            f"16-byte aligned pointers and strides, got {q.dtype}, dh={dh}, "
-            f"strides {[t.stride() for t in (q, k, v)]}")
+            f"flash_attention_online_mma takes bf16 heads {_MMA_WIDTHS} wide "
+            f"with 16-byte aligned pointers and strides, got {q.dtype}, "
+            f"dh={dh}, strides {[t.stride() for t in (q, k, v)]}")
     lib = _online_mma_lib()
     with torch.cuda.device(q.device):
         o = torch.empty((b, n, h, dh), dtype=q.dtype,

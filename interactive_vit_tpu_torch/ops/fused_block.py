@@ -65,7 +65,7 @@ import torch
 from interactive_vit_tpu_torch.ops import layers as L
 from interactive_vit_tpu_torch.ops import quant, tiled_attention
 from interactive_vit_tpu_torch.ops.flash_attention import (
-    MMA_ALIGN, _aligned, library_dhs,
+    MMA_ALIGN, _aligned, check_library_dhs,
 )
 
 Params = Dict[str, torch.Tensor]
@@ -595,10 +595,7 @@ def check_headwise_dhs(width_of, source: str) -> None:
     """Raises unless the library built from ``source`` takes exactly the
     head widths of ``HEADWISE_TC_DHS``: the route must never send a width
     to a library without its instantiation."""
-    if library_dhs(width_of) != HEADWISE_TC_DHS:
-        raise RuntimeError(f"{source} and HEADWISE_TC_DHS disagree: the "
-                           f"library takes heads {library_dhs(width_of)} "
-                           f"wide, the route {HEADWISE_TC_DHS}")
+    check_library_dhs(width_of, source, HEADWISE_TC_DHS, "HEADWISE_TC_DHS")
 
 
 def load_headwise_mma_kernel() -> ctypes.CDLL:

@@ -14,7 +14,9 @@ one order and then the reverse. It prints the card's name and power
 limit first. The variants:
 
 * ``flash_attention_mma.cu`` (row 3, bf16): the key parts of a tile as
-  chosen by the grid (the source), always 2, always 4;
+  chosen by the grid (the source: at 64 wide 4 for a grid of at most one
+  block an SM, else 2; at 80 wide 2), always 2, always 4; at heads 64 and
+  80 wide;
 * ``flash_attention_online_tf32.cu`` (row 4, f32 on split TF32): PV in
   one part of o's columns (the source), in 2 and in 4, and K and V split
   into hi and lo tiles in shared memory once a tile (PV in 2 parts, to
@@ -50,7 +52,8 @@ limit first. The variants:
 
 Heads 64 wide are timed at dinov2_s14_reg's and vit_b16's shapes, heads
 80 wide (the variants whose names hold ``dh80``) at vit_h14's: N = 2810
-(@742) for row 4, N = 257 (@224) and 1025 (@448) for row 3.
+(@742) for row 4, N = 257 (@224) and 1025 (@448) for row 3 (bf16 and
+f32).
 
     python -m interactive_vit_tpu_torch.tools.kernel_variants \
         --only dh80 row4_pv_1 --baseline DIR
@@ -67,8 +70,11 @@ checked by their machine code instead:
 
 compiles each named source here and in ``DIR`` and compares their SASS
 (``cuobjdump -sass``) kernel by kernel, instruction by instruction
-(addresses, encodings and the anonymous namespace's hash aside); it exits
-non-zero if any differs.
+(addresses, encodings and the anonymous namespace's hash aside): every
+kernel of ``DIR``'s source against its counterpart here, where a kernel
+that has since been templated on the head width is its 64-wide
+instantiation, and the kernels only here (other widths) listed as new; it
+exits non-zero if any differs or has no counterpart.
 
 Needs a CUDA card and ``nvcc``; it raises without them.
 """
@@ -92,8 +98,9 @@ from interactive_vit_tpu_torch.runtime import cuda_build
 
 OUT_DIR = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "kernel_variants")
 
-ROW_PARTS = ("  return (int)(blocks <= sms ? launch_rowfull<4>(a, B, s) : "
-             "launch_rowfull<2>(a, B, s));")
+ROW_PARTS = ("  return blocks <= sms ? launch_rowfull<DH, "
+             "FM_FEW_BLOCKS_PARTS<DH>>(a, B, s)\n"
+             "                       : launch_rowfull<DH, 2>(a, B, s);")
 PV_PARTS = "constexpr int TF_PV_PARTS = 1;"
 ROW_TF32_PARTS = ("  return blocks <= sms ? launch_split<DH, 2>(a, s) : "
                   "launch_split<DH, 1>(a, s);")
@@ -247,9 +254,9 @@ ROW2_TF32_WALK = _head_walk(
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row3_parts_by_grid": ("flash_attention_mma", []),
     "row3_parts_2": ("flash_attention_mma", [
-        (ROW_PARTS, "  return (int)launch_rowfull<2>(a, B, s);")]),
+        (ROW_PARTS, "  return launch_rowfull<DH, 2>(a, B, s);")]),
     "row3_parts_4": ("flash_attention_mma", [
-        (ROW_PARTS, "  return (int)launch_rowfull<4>(a, B, s);")]),
+        (ROW_PARTS, "  return launch_rowfull<DH, 4>(a, B, s);")]),
     "row4_pv_1": ("flash_attention_online_tf32", []),
     "row4_pv_2": ("flash_attention_online_tf32", [
         (PV_PARTS, "constexpr int TF_PV_PARTS = 2;")]),
@@ -283,6 +290,11 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row4_dh80_q_smem_kt_64_pv_2": ("flash_attention_online_tf32", [
         *ONLINE_Q_SMEM, (KT_80, KT_80.replace("32", "64")),
         (PV_PARTS_80, PV_PARTS_80.replace("5;", "2;"))]),
+    "row3_dh80_parts_by_grid": ("flash_attention_mma", []),
+    "row3_dh80_parts_2": ("flash_attention_mma", [
+        (ROW_PARTS, "  return launch_rowfull<DH, 2>(a, B, s);")]),
+    "row3_dh80_parts_4": ("flash_attention_mma", [
+        (ROW_PARTS, "  return launch_rowfull<DH, 4>(a, B, s);")]),
     "row3_f32_dh80_parts_by_grid": ("flash_attention_tf32", []),
     "row3_f32_dh80_parts_1": ("flash_attention_tf32", [
         (ROW_TF32_PARTS, "  return launch_split<DH, 1>(a, s);")]),
@@ -401,6 +413,16 @@ def build_variants(names, baseline=None) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
+def untemplated(kernel: str) -> str:
+    """A kernel's mangled name with a leading head-width template argument
+    of 64 taken out: the name the kernel had before it was templated on
+    the width (``f<64>`` -> ``f``, ``f<64, 4>`` -> ``f<4>``)."""
+    # f<64>: template arguments, the nested name's end and the return type
+    # -> the nested name's end
+    kernel = kernel.replace("ILi64EEEv", "E")
+    return kernel.replace("ILi64ELi", "ILi")
+
+
 def _sass(csrc: str, source: str, out: str) -> Dict[str, List[str]]:
     """kernel -> its SASS instructions, for ``<csrc>/<source>.cu``."""
     flags = [f for f in cuda_build.NVCC_FLAGS
@@ -439,12 +461,21 @@ def sass_diff(sources, baseline: str) -> int:
                      os.path.join(OUT_DIR, source + ".cubin"))
         there = _sass(csrc, source,
                       os.path.join(OUT_DIR, "baseline_" + source + ".cubin"))
-        bad += here != there
-        print(f"{source}: {len(here)} kernels, "
-              f"{sum(map(len, here.values()))} instructions; baseline "
-              f"{len(there)} kernels, {sum(map(len, there.values()))}: "
-              f"{'identical SASS' if here == there else 'DIFFERENT'}",
-              flush=True)
+        # a baseline kernel's counterpart here: itself, or the 64-wide
+        # instantiation it has become
+        ours = {k: k for k in here}
+        ours.update({untemplated(k): k for k in here
+                     if untemplated(k) not in here})
+        same = all(ours.get(k) in here and here[ours[k]] == v
+                   for k, v in there.items())
+        new = sorted(set(here) - {ours.get(k) for k in there})
+        bad += not same
+        print(f"{source}: baseline {len(there)} kernels, "
+              f"{sum(map(len, there.values()))} instructions: "
+              f"{'identical SASS here' if same else 'DIFFERENT'}"
+              + (f"; new here: {', '.join(new)} ("
+                 f"{sum(len(here[k]) for k in new)} instructions)"
+                 if new else ""), flush=True)
     return bad
 
 
@@ -684,6 +715,11 @@ def main(argv=None) -> int:
         ("flash_attention_mma", 64): (torch.bfloat16, [
             (1, 6, 1374, None), (1, 6, 1408, 1374), (1, 16, 577, None),
             (4, 6, 1374, None), (2, 12, 197, None)]),
+        # vit_h14@224 (80 blocks: under one an SM), its padded form,
+        # vit_h14@448 (N=1025: 17 x 16 blocks) and B=2 at 224
+        ("flash_attention_mma", 80): (torch.bfloat16, [
+            (1, 16, 257, None), (1, 16, 320, 257), (1, 16, 1025, None),
+            (2, 16, 257, None)]),
         ("flash_attention_online_tf32", 64): (torch.float32, [
             (1, 6, 2814, None), (1, 6, 2814, 2800), (8, 6, 2814, None)]),
         # vit_h14@742, and keys masked beyond 2800

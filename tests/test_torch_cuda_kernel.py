@@ -344,9 +344,10 @@ def test_headwise_route_wrappers_refuse_other_operands(cuda, route):
 
 
 # flash: dinov2_s14_reg @518 (N=1374), vit_l16 @384 (N=577), the longest
-# row-resident sequence (N=2048: 16-row query tiles), ragged small shapes
+# row-resident sequence (N=2048: 16-row query tiles), ragged small shapes,
+# vit_h14@224 (16 heads 80 wide, N=257)
 FLASH_SHAPES = [(1, 6, 1374, 64), (1, 16, 577, 64), (1, 2, 2048, 64),
-                (2, 3, 17, 16), (1, 2, 130, 24)]
+                (2, 3, 17, 16), (1, 2, 130, 24), (1, 16, 257, 80)]
 
 
 def _qkv(shape, dtype, device, seed=0):
@@ -379,13 +380,14 @@ def _off_grid(t, pad):
 def test_flash_kernel_matches_plain(cuda, shape, dtype, want_attn, pad):
     q, k, v = (_off_grid(t, pad) for t in _qkv(shape, dtype, cuda,
                                                seed=shape[2]))
-    tc = shape[3] == fa.MMA_DH and pad == 0
-    mma, tf32 = tc and dtype == torch.bfloat16, tc and dtype == torch.float32
+    mma = dtype == torch.bfloat16 and shape[3] in fa.MMA_DHS and pad == 0
+    tf32 = dtype == torch.float32 and shape[3] in fa.TF32_DHS and pad == 0
+    tc = mma or tf32
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=want_attn)
     torch.cuda.synchronize()
-    # heads of 64 on the 16-byte grid run on the tensor cores (bf16, or f32
-    # on split TF32), the rest on FMA
+    # heads of 64 or 80 on the 16-byte grid run on the tensor cores (bf16,
+    # or f32 on split TF32), the rest on FMA
     assert _row_counts() == (before[0] + (not tc), before[1] + mma,
                              before[2] + tf32)
     ref = fa.flash_attention_reference(q, k, v, want_attn=want_attn)
@@ -446,9 +448,12 @@ def test_flash_wrapper_branches_above_rowfull_max(cuda):
 
 # online flash: dinov2_s14_reg@742 (N=2814: 22 key tiles, the last of 126
 # keys; B=1 and 8), just above ROWFULL_MAX_N, ragged small shapes, dh=128
-# and dh=16 (bf16 at dh=64 runs on the tensor cores, the rest on FMA)
+# and dh=16, vit_h14@742 (16 heads 80 wide, N=2810) and heads 80 wide at
+# the small shapes (bf16 at dh=64 or 80 runs on the tensor cores, f32 at
+# those widths on split TF32, the rest on FMA)
 ONLINE_SHAPES = [(1, 6, 2814, 64), (8, 6, 2814, 64), (2, 2, 2049, 64),
-                 (3, 3, 17, 64), (3, 3, 17, 16), (1, 2, 300, 128)]
+                 (3, 3, 17, 64), (3, 3, 17, 16), (1, 2, 300, 128),
+                 (1, 16, 2810, 80), (2, 2, 2049, 80), (3, 3, 17, 80)]
 
 
 @pytest.mark.parametrize("shape", ONLINE_SHAPES)
@@ -457,8 +462,8 @@ ONLINE_SHAPES = [(1, 6, 2814, 64), (8, 6, 2814, 64), (2, 2, 2049, 64),
 def test_online_kernel_matches_plain(cuda, shape, dtype, n_real):
     q, k, v = _qkv(shape, dtype, cuda, seed=shape[2] + shape[3])
     n_real = None if n_real is None else max(1, shape[2] + n_real)
-    mma = dtype == torch.bfloat16 and shape[3] == fa.MMA_DH
-    tf32 = dtype == torch.float32 and shape[3] == fa.MMA_DH
+    mma = dtype == torch.bfloat16 and shape[3] in fa.MMA_DHS
+    tf32 = dtype == torch.float32 and shape[3] in fa.TF32_DHS
     before = _online_counts()
     got = fa.flash_attention_online(q, k, v, n_real)
     torch.cuda.synchronize()
@@ -508,10 +513,10 @@ def test_online_fma_kernel_takes_misaligned_bf16(cuda):
 
 def test_online_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 300, 64), torch.float32, cuda)
-    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+    with pytest.raises(ValueError, match="bf16 heads 64 or 80 wide"):
         fa.flash_attention_online_mma(q, k, v)  # f32 stays on FMA
     q, k, v = _qkv((1, 2, 300, 128), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+    with pytest.raises(ValueError, match="bf16 heads 64 or 80 wide"):
         fa.flash_attention_online_mma(q, k, v)
     q, k, v = _qkv((1, 2, 300, 72), torch.bfloat16, cuda)
     # a view one element in: pointers 2 bytes off the 16-byte grid
@@ -522,9 +527,13 @@ def test_online_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # the row-resident kernel on the tensor cores (bf16): dinov2_s14_reg @518
 # (N=1374; B=1 takes each key tile in four parts, B=2 in two), vit_l16 @384
 # (N=577, two parts), vit_b16 (N=197, odd: the probs rows sit off the
-# 4-byte grid), ragged small N, and the longest row-resident N
+# 4-byte grid), ragged small N, and the longest row-resident N; heads 80
+# wide at vit_h14@224 (N=257; B=1 four parts, B=2 two), @448 (N=1025) and
+# a ragged small N
 MMA_ROW_SHAPES = [(1, 6, 1374, 64), (2, 6, 1374, 64), (1, 16, 577, 64),
-                  (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64)]
+                  (2, 12, 197, 64), (3, 2, 17, 64), (1, 2, 2048, 64),
+                  (1, 16, 257, 80), (2, 16, 257, 80), (1, 16, 1025, 80),
+                  (3, 2, 17, 80)]
 
 
 def _qkv_views(b, n, heads, dtype, device, seed, pad=0, dh=64):
@@ -541,8 +550,8 @@ def _qkv_views(b, n, heads, dtype, device, seed, pad=0, dh=64):
 @pytest.mark.parametrize("shape", MMA_ROW_SHAPES)
 @pytest.mark.parametrize("want_attn", [False, True])
 def test_flash_mma_kernel_matches_plain(cuda, shape, want_attn):
-    b, h, n, _ = shape
-    q, k, v = _qkv_views(b, n, h, torch.bfloat16, cuda, seed=n)
+    b, h, n, dh = shape
+    q, k, v = _qkv_views(b, n, h, torch.bfloat16, cuda, seed=n, dh=dh)
     before = _row_counts()
     got = fa.flash_attention(q, k, v, want_attn=want_attn)
     torch.cuda.synchronize()
@@ -567,6 +576,39 @@ def test_flash_mma_masks_keys_beyond_n_real(cuda, b, n, n_real):
     assert torch.all(got[1][..., n_real:] == 0)
 
 
+# vit_h14@224's padded form (N=320, 257 real; B=1 four key parts, B=2 two)
+@pytest.mark.parametrize("b", [1, 2])
+def test_flash_mma_dh80_masks_keys_beyond_n_real(cuda, b):
+    q, k, v = _qkv_views(b, 320, 16, torch.bfloat16, cuda, seed=b, dh=80)
+    before = _row_counts()
+    got = fa.flash_attention(q, k, v, want_attn=True, n_real=257)
+    ref = fa.flash_attention_reference(q, k, v, want_attn=True, n_real=257)
+    torch.cuda.synchronize()
+    assert _row_counts() == (before[0], before[1] + 1, before[2])
+    _check(got, ref, torch.bfloat16)
+    assert torch.all(got[1][..., 257:] == 0)
+
+
+@pytest.mark.parametrize("dh", [64, 80])
+@pytest.mark.parametrize("n", [257, 2810])
+def test_bf16_heads_off_the_grid_take_the_fma_kernels(cuda, dh, n):
+    """bf16 heads 64 or 80 wide whose rows sit 8 bytes off the 16-byte
+    grid: the FMA kernel of the branch runs (row-resident at N=257, online
+    at 2810, maps off), the tensor-core route never."""
+    q, k, v = _qkv_views(1, n, 4, torch.bfloat16, cuda, seed=n, pad=4, dh=dh)
+    before = _online_counts() + _row_counts()[1:]
+    got = fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    online = n > fa.ROWFULL_MAX_N
+    # (row-resident FMA, online FMA, online mma, online tf32, mma, tf32)
+    step = (int(not online), int(online), 0, 0, 0, 0)
+    assert _online_counts() + _row_counts()[1:] == tuple(
+        x + d for x, d in zip(before, step))
+    ref = (fa.flash_attention_online_reference(q, k, v) if online
+           else fa.flash_attention_reference(q, k, v)[0])
+    _check((got[0],), (ref,), torch.bfloat16)
+
+
 @pytest.mark.parametrize("n", [1374, 197])
 def test_flash_fma_kernel_takes_misaligned_bf16(cuda, n):
     """bf16 heads of 64 off the 16-byte grid: ``mma_route`` refuses them,
@@ -585,10 +627,10 @@ def test_flash_fma_kernel_takes_misaligned_bf16(cuda, n):
 
 def test_flash_mma_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv((1, 2, 300, 64), torch.float32, cuda)
-    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+    with pytest.raises(ValueError, match="bf16 heads 64 or 80 wide"):
         fa.flash_attention_mma(q, k, v)  # f32 stays on FMA
     q, k, v = _qkv((1, 2, 300, 128), torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="bf16 heads 64 wide"):
+    with pytest.raises(ValueError, match="bf16 heads 64 or 80 wide"):
         fa.flash_attention_mma(q, k, v)
     q, k, v = _qkv((1, 2, 300, 72), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -967,12 +1009,14 @@ def _check_grads(got, ref, dtype):
 
 # (B, H, N, dh, n_real): vit_b16's and vit_t16's train shapes, keys masked
 # beyond 197 of 208, vit_l16@384's N=577, ragged small shapes, dh=128,
-# TRAIN_MAX_N, B=1 and 8 (bf16 at dh=64 runs on the tensor cores)
+# TRAIN_MAX_N, B=1 and 8, vit_h14's heads (80 wide, N=257: the FMA pair in
+# both dtypes) (bf16 at dh=64 runs on the tensor cores)
 TRAIN_SHAPES = [(4, 12, 197, 64, None), (4, 3, 197, 64, None),
                 (8, 3, 197, 64, None), (1, 3, 197, 64, None),
                 (2, 2, 208, 64, 197), (2, 4, 577, 64, None),
                 (3, 2, 17, 64, None), (3, 2, 17, 16, None),
-                (1, 2, 300, 128, None), (1, 1, 1024, 64, None)]
+                (1, 2, 300, 128, None), (1, 1, 1024, 64, None),
+                (2, 4, 257, 80, None)]
 
 
 def _train_counts(fn):
@@ -981,10 +1025,12 @@ def _train_counts(fn):
 
 
 def _route(dtype, dh, pad=0):
-    """The trainable attention's route: heads of 64 on the 16-byte grid
-    run on the tensor cores (bf16, or f32 on split TF32), the rest on
-    FMA."""
-    if dh != av.MMA_DH or pad:
+    """The trainable attention's route: heads of its tensor-core kernels'
+    width (64: ``TRAIN_MMA_DH`` in bf16, ``TRAIN_TF32_DH`` in f32) on the
+    16-byte grid run on the tensor cores (bf16, or f32 on split TF32), the
+    rest (heads 80 wide among them) on FMA."""
+    tc_dh = av.TRAIN_MMA_DH if dtype == torch.bfloat16 else av.TRAIN_TF32_DH
+    if dh != tc_dh or pad:
         return "fma"
     return "mma" if dtype == torch.bfloat16 else "tf32"
 

@@ -1,7 +1,8 @@
 """The bf16 tensor-core route of the port's attention kernels, on the CPU:
-the route predicate, the new C entries' ctypes signatures read from their
-sources, and the plain version of the tensor-core forward's row statistics
-(m, l) against the JAX package's ``_probs_recompute`` on shared inputs.
+the route predicate (heads 64 and 80 wide), the new C entries' ctypes
+signatures read from their sources, and the plain version of the
+tensor-core forward's row statistics (m, l) against the JAX package's
+``_probs_recompute`` on shared inputs.
 
 The kernels themselves (``csrc/flash_attention_online_mma.cu``,
 ``csrc/attention_train_mma.cu``) run only on the card: their ``cuda``-marked
@@ -56,6 +57,29 @@ ROUTE_CASES = [
     # a token stride of 196 elements (392 bytes) or an image stride of 4
     (BF16, 64, (0, 128, 256), (197 * 196, 64, 196), False),
     (BF16, 64, (0, 128, 256), (4, 192, 2304), False),
+    # heads 80 wide, vit_h14's: @224's [B, H, N, dh] views of a
+    # [1, 257, 3840] bf16 qkv
+    (BF16, 80, (4096, 4096 + 2560, 4096 + 5120), (257 * 3840, 80, 3840),
+     True),
+    # vit_h14@742's (N=2810)
+    (BF16, 80, (0, 2560, 5120), (2810 * 3840, 80, 3840), True),
+    # head-major slabs: q, k, v 160 bytes apart, heads 240 elements
+    (BF16, 80, (0, 160, 320), (197 * 3840, 240, 3840), True),
+    # contiguous [B, H, N, dh] tensors
+    (BF16, 80, (0, 1 << 20, 2 << 20), (16 * 257 * 80, 257 * 80, 80), True),
+    # off the 16-byte grid: a pointer, a token stride of 3842 elements,
+    # a head stride of 84
+    (BF16, 80, (0, 168, 320), (197 * 3840, 240, 3840), False),
+    (BF16, 80, (0, 2560, 5120), (257 * 3842, 80, 3842), False),
+    (BF16, 80, (0, 2560, 5120), (257 * 3840, 84, 3840), False),
+    # f32 and f16 at 80 wide never take the bf16 route
+    (torch.float32, 80, (0, 320, 640), (197 * 3840, 240, 3840), False),
+    (torch.float16, 80, (0, 160, 320), (197 * 3840, 240, 3840), False),
+    # other widths at 80 wide's alignment: no instantiation
+    (BF16, 96, (0, 192, 384), (197 * 4608, 288, 4608), False),
+    (BF16, 128, (0, 256, 512), (197 * 4608, 384, 4608), False),
+    (BF16, 72, (0, 144, 288), (197 * 3456, 216, 3456), False),
+    (BF16, 48, (0, 96, 192), (197 * 2304, 144, 2304), False),
 ]
 
 

@@ -99,7 +99,7 @@ TF32_ROUTE_CASES = [
     (F32, 80, (0, 320, 640), (197 * 3840, 240, 3840), True),
     (F32, 80, (4096, 4096 + 5120, 4096 + 10240), (2810 * 3840, 80, 3840),
      True),
-    # bf16 at 80 wide keeps the FMA kernels (mma_route is 64 wide only)
+    # bf16 at 80 wide takes its own route (mma_route), never this one
     (BF16, 80, (0, 160, 320), (197 * 3840, 240, 3840), False),
     # 80 wide off the 16-byte grid: a pointer, a head stride of 82
     (F32, 80, (0, 328, 640), (197 * 3840, 240, 3840), False),
@@ -133,7 +133,8 @@ def test_tf32_route_by_dtype_width_and_alignment(dtype, dh, addrs, strides,
     (F32, 128, 0, False, False),
     (F32, 80, 0, True, False),    # vit_h14's heads
     (F32, 80, 2, False, False),
-    (BF16, 80, 0, False, False),  # bf16 at 80 wide: the FMA kernel
+    (BF16, 80, 0, False, True),   # bf16 at 80 wide: the tensor cores
+    (BF16, 80, 4, False, False),  # 8 bytes off: the FMA kernel
 ])
 def test_routes_of_qkv_views(dtype, dh, pad, tf32, mma):
     """q, k, v as ``qkv_proj`` makes them (views of one [B, N, 3D] tensor,
@@ -409,8 +410,8 @@ def _emulated_train(q, k, v, do, n_real, matmul, parts):
 ])
 def test_train_split_emulation_matches_jax_vjp(pallas_interpret, b, h, n,
                                                n_real, parts):
-    q, k, v, do = _qkv(b, h, n, fa.MMA_DH, seed=n + 7) + _qkv(
-        b, h, n, fa.MMA_DH, seed=n + 8)[:1]
+    q, k, v, do = _qkv(b, h, n, av.TRAIN_TF32_DH, seed=n + 7) + _qkv(
+        b, h, n, av.TRAIN_TF32_DH, seed=n + 8)[:1]
     want = _jax_vjp(functools.partial(jav.attention_train, n_real=n_real),
                     (q, k, v), do)
     tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
