@@ -100,9 +100,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      vit_b16's, the masked and the N=577 shape; bf16 on the tensor-core
      route, f32 on the split-TF32 route (each forward's saved (m, l)
      against the plain statistics) and each, off the 16-byte grid, on the
-     FMA route; and ``attention_train`` at train run (f)'s shape (vit_h14:
-     B=2, 16 heads 80 wide, N=257, f32) on the FMA route; each bound
-     refusing a gradient zeroed or halved;
+     FMA route; and ``attention_train`` at vit_h14's heads (16 heads 80
+     wide, N=257): train run (f)'s B=2 and run (g)'s B=8, and keys masked
+     beyond 257 of 272, in both dtypes on the 80-wide tensor-core
+     instantiations and off the grid on the FMA pair; each bound refusing
+     a gradient zeroed or halved;
      ``scaled_dot_product_attention`` forward + backward timed beside.
 4. slice   -- eleven paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
@@ -204,10 +206,20 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    (e) vit_t16 ``--dtype float32``, 2 steps: 12 + 12 split-TF32 launches
        a step of ``attention_train``, no FMA launch;
    (f) the first step's gradients in f32 of vit_h14 (heads 80 wide, depth
-       cut to 2) at B=2: ``attention_train``'s FMA kernels, 2 + 2
-       launches, against the plain attention. No configuration gives the
-       packed layout operands off the 16-byte grid, so its FMA route has
-       no main-path launch (phase 3 holds it against its plain version).
+       cut to 2) at B=2: ``attention_train``'s split-TF32 kernels at 80
+       wide, 2 + 2 launches, no FMA launch, against the plain attention;
+   (g) vit_h14 @224 at full width and depth (32 blocks, D=1280, 16 heads
+       80 wide), ``--dtype mixed --batch 8 --steps 3``: ``--remat auto``
+       resolves to off; exactly 32 + 32 bf16 tensor-core launches a step
+       of ``attention_train`` at 80 wide, no FMA or packed launch; a
+       finite loss; ms a step and images/s, one profiled step (by name 32
+       each of the tensor-core forward, dq and dk/dv kernels beside the
+       ``layers.linear`` GEMMs); then the first step's mixed-precision
+       gradients of vit_h14 (depth 2, B=2) through the 80-wide bf16
+       kernels against the plain attention (bounds below).
+   No configuration gives the trainable attentions operands off the
+   16-byte grid, so their FMA routes have no main-path launch (phase 3
+   holds them against their plain versions).
 6. result  -- a JSON line describing the kernels, then the final line
    ``{"ok": true, "device": {...}}``.
 
@@ -363,6 +375,17 @@ TRAIN_BF16_SCALE = 2.0 ** -8
 # pass through 12 blocks forward and back; each parameter's gradient is
 # held to 1e-4 of its largest value, the loss to 1e-5.
 TRAIN_GRAD_REL = 1e-4
+# First-step gradients in mixed precision (bf16 compute), vit_h14 at depth
+# 2, the kernels against the plain attention. The two round at different
+# points: the plain attention's autograd rounds dP and the q, k, v
+# gradients to bf16 (8 significant bits), the kernels keep dP in f32; and a
+# one-ulp flip of a bf16 activation passes through two blocks forward and
+# back. Each parameter's gradient is held to 2^-4 of its largest value (a
+# few bf16 ulps of the largest element, far above the ~2^-9 of one
+# rounding), the loss to 2^-6 of max(1, |loss|); a gradient zeroed or
+# halved (off by 1 or 1/2 of its scale) fails.
+TRAIN_BF16_GRAD_REL = 2.0 ** -4
+TRAIN_BF16_LOSS_REL = 2.0 ** -6
 # The tensor-core forward's saved row statistics (m, l) against the plain
 # ones: only the order of the f32 sums differs (scores over dh; l a running
 # sum over N keys), so m within 1e-5 of 1 + |m| and l within 1e-4 of
@@ -372,9 +395,10 @@ STATS_L_REL = 1e-4
 # vit_b16's and vit_t16's train attention shapes: (B, heads, N, dh)
 TRAIN_B16 = (64, 12, 197, 64)
 TRAIN_T16 = (64, 3, 197, 64)
-# vit_h14's (train run (f): depth 2, B=2, f32): heads 80 wide, which the
-# split-TF32 backward does not take, on the FMA pair
+# vit_h14's, heads 80 wide: train run (f) (depth 2, B=2, f32) and run (g)
+# (full depth, B=8, mixed)
 TRAIN_H14 = (2, 16, 257, 80)
+TRAIN_H14_G = (8, 16, 257, 80)
 
 # The least time the card could take (H100 SXM published peaks): bytes over
 # the memory rate, operations over the peak rate for the inputs' type (bf16
@@ -2437,11 +2461,14 @@ def phase_train_kernel(device, packed: bool) -> dict:
     forward and backward against the plain versions: bf16 on the
     tensor-core route, f32 on the split-TF32 route (each forward's (m, l)
     against the plain statistics), and each, on a copy off the 16-byte
-    grid, on the FMA route they replace. Returns the main path's numbers
-    (vit_b16 packed, vit_t16 [B, H, N, dh]) of the three routes (bf16 for
-    the tensor cores, f32 for split TF32 and for FMA, its time from the
-    copy off the grid), SDPA forward + backward beside each; the split
-    route's bound at the TF32 peak (three TF32 products a product)."""
+    grid, on the FMA route they replace; [B, H, N, dh] also at vit_h14's
+    heads 80 wide (train runs (f) and (g)). Returns the main path's
+    numbers (vit_b16 packed, vit_t16 [B, H, N, dh]) of the three routes
+    (bf16 for the tensor cores, f32 for split TF32 and for FMA, its time
+    from the copy off the grid: at train run (f)'s shape for
+    [B, H, N, dh], where the FMA pair ran until the 80-wide tensor-core
+    kernels), SDPA forward + backward beside each; the split route's bound
+    at the TF32 peak (three TF32 products a product)."""
     import torch
     import torch.nn.functional as F
 
@@ -2452,8 +2479,9 @@ def phase_train_kernel(device, packed: bool) -> dict:
     served = TRAIN_B16 if packed else TRAIN_T16
     cases = ([(c, None) for c in [TRAIN_B16] + ([] if packed else [TRAIN_T16])]
              + [((8, 2, 208, 64), 197), ((8, 6, 577, 64), None)]
-             + ([] if packed else [(TRAIN_H14, None)]))
-    timed = (served, TRAIN_H14)
+             + ([] if packed else [(TRAIN_H14, None), (TRAIN_H14_G, None),
+                                   ((2, 4, 272, 80), 257)]))
+    timed = (served, TRAIN_H14, TRAIN_H14_G)
 
     def counts():
         return (fn_counts.fwd_launches, fn_counts.bwd_launches,
@@ -2464,21 +2492,19 @@ def phase_train_kernel(device, packed: bool) -> dict:
     for shape, n_real in cases:
         b, h, n, dh = shape
         nr = n if n_real is None else n_real
-        # heads 80 wide (vit_h14, f32): the FMA pair on aligned operands
-        # (the train kernels' width is 64 in both dtypes)
-        tc = dh == av.TRAIN_MMA_DH == av.TRAIN_TF32_DH
-        for dtype in (torch.bfloat16, torch.float32) if tc else (
-                torch.float32,):
+        # every shape's heads (64, or vit_h14's 80) take the tensor cores
+        if dh not in av.TRAIN_MMA_DHS or dh not in av.TRAIN_TF32_DHS:
+            raise AssertionError(f"{name}: no tensor-core route at dh={dh}")
+        for dtype in (torch.bfloat16, torch.float32):
             dt = str(dtype).replace("torch.", "")
             mma = dtype == torch.bfloat16
             g = torch.Generator().manual_seed(n + h)
             qkv0 = torch.randn((b, n, 3 * h * dh), generator=g).to(device,
                                                                    dtype)
             do = torch.randn((b, n, h * dh), generator=g).to(device, dtype)
-            routes = ([("tensor cores" if mma else "split TF32", qkv0),
-                       ("FMA, off the 16-byte grid",
-                        misaligned(qkv0, 4 if mma else 2))] if tc
-                      else [("FMA", qkv0)])
+            routes = [("tensor cores" if mma else "split TF32", qkv0),
+                      ("FMA, off the 16-byte grid",
+                       misaligned(qkv0, 4 if mma else 2))]
             ref = None
             t_routes = {}
             for route, qkv in routes:
@@ -2584,23 +2610,20 @@ def phase_train_kernel(device, packed: bool) -> dict:
                 + f"; in turns kernel {t_k:.4f} ms, plain {t_p:.4f} ms; bound "
                 f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
                 f"{flops / 1e9:.3f} GFLOP)"
-                + ("" if mma or not tc else f", at the TF32 peak (the "
+                + ("" if mma else f", at the TF32 peak (the "
                    f"split's {3 * flops / 1e9:.3f} GFLOP) {tms:.5f} ms "
                    f"({tby})")
                 + f"; scaled_dot_product_attention fwd+bwd {t_lib:.4f} ms")
-            if not tc:
-                # the FMA pair's main-path use: train run (f)
-                out["fma"] = {
+            if shape == served:
+                out["mma" if mma else "tf32"] = {
                     "max_abs_err": max(t_routes[first][3]), "ms": t_k,
-                    "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
-                    "library_ms": t_lib}
-                continue
-            out["mma" if mma else "tf32"] = {
-                "max_abs_err": max(t_routes[first][3]), "ms": t_k,
-                "plain_ms": t_p, "bound_ms": bms if mma else tms,
-                "bound_by": by if mma else tby, "library_ms": t_lib}
-            if not mma and packed:
-                # no configuration gives the packed layout FMA operands
+                    "plain_ms": t_p, "bound_ms": bms if mma else tms,
+                    "bound_by": by if mma else tby, "library_ms": t_lib}
+            if not mma and shape == (served if packed else TRAIN_H14):
+                # no configuration gives either layout FMA operands: the
+                # FMA pair's numbers come from the copy off the grid, for
+                # [B, H, N, dh] at train run (f)'s shape (its main-path use
+                # until heads 80 wide took the tensor cores)
                 out["fma"] = {
                     "max_abs_err": max(t_routes[off_grid][3]),
                     "ms": t_routes[off_grid][0], "plain_ms": t_p,
@@ -2609,9 +2632,10 @@ def phase_train_kernel(device, packed: bool) -> dict:
 
 
 def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag,
-                       expect=None):
-    """One train step of ``parallel.train.setup``'s under torch.profiler
-    after two warm-up steps (``report_profile``, ``expect`` as there)."""
+                       expect=None, batch=64):
+    """One train step of ``parallel.train.setup``'s at ``batch`` under
+    torch.profiler after two warm-up steps (``report_profile``, ``expect``
+    as there)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2621,9 +2645,10 @@ def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag,
         cfg, device=device, seed=1, attn_impl=attn, remat=False,
         dtype=dtype, compute_dtype=compute_dtype)
     g = torch.Generator().manual_seed(2)
-    images = torch.randn((64, 3, cfg.img_size, cfg.img_size),
+    images = torch.randn((batch, 3, cfg.img_size, cfg.img_size),
                          generator=g).to(device)
-    labels = torch.randint(0, cfg.num_classes, (64,), generator=g).to(device)
+    labels = torch.randint(0, cfg.num_classes, (batch,),
+                           generator=g).to(device)
     for _ in range(2):
         params, state, loss = step(params, state, images, labels)
     torch.cuda.synchronize()
@@ -2674,10 +2699,13 @@ def run_train(tag, argv, counters, expect) -> dict:
 TRAIN_MMA_PROFILE = {"train_fwd_mma_kernel": 12, "train_dq_mma_kernel": 12,
                      "train_dkdv_mma_kernel": 12, "tiled_attention_kernel": 0,
                      "attn_bwd_dq_kernel": 0, "attn_bwd_dkdv_kernel": 0}
+# vit_h14's step: 32 blocks, every one on the 80-wide instantiations
+TRAIN_MMA_PROFILE_H14 = {k: 32 if v else 0
+                         for k, v in TRAIN_MMA_PROFILE.items()}
 
 
 def phase_train(device, counters) -> dict:
-    """Phase 5: the trainer's runs (a)-(f); returns the launches (forward +
+    """Phase 5: the trainer's runs (a)-(g); returns the launches (forward +
     backward) of each trainable-attention route in its main-path run."""
     import dataclasses
 
@@ -2753,11 +2781,15 @@ def phase_train(device, counters) -> dict:
 
     # (d) first-step f32 gradients: the packed split-TF32 kernels against
     # the plain attention
-    def first_step_gradients(tag, cfg, batch, packed, expect):
-        """The first step's f32 gradients through the kernels (every count
-        set to 0 just before, read just after: ``expect``, every other
-        kernel 0) against the plain attention on the same params and
-        batch; returns the counts."""
+    def first_step_gradients(tag, cfg, batch, packed, expect,
+                             compute_dtype=None):
+        """The first step's gradients (f32 params; ``compute_dtype``
+        bf16: mixed precision, else f32 throughout) through the kernels
+        (every count set to 0 just before, read just after: ``expect``,
+        every other kernel 0) against the plain attention on the same
+        params and batch, each within its bound (f32: TRAIN_GRAD_REL;
+        mixed: TRAIN_BF16_GRAD_REL, which must refuse each gradient
+        zeroed or halved); returns the counts."""
         params = vit.init_params(cfg, torch.Generator().manual_seed(3),
                                  device=device)
         images, labels = pattern_set(3, batch, cfg.img_size,
@@ -2768,8 +2800,9 @@ def phase_train(device, counters) -> dict:
         def value_and_grads(p, **kw):
             leaves = [x.detach().requires_grad_(True)
                       for x in train_lib.tree_leaves(p)]
-            loss = train_lib.loss_fn(train_lib.tree_unflatten(p, leaves),
-                                     images, labels, cfg, **kw)
+            loss = train_lib.loss_fn(train_lib.cast_params(
+                train_lib.tree_unflatten(p, leaves), compute_dtype),
+                images, labels, cfg, **kw)
             return loss.item(), torch.autograd.grad(loss, leaves)
 
         for fn in counters.values():
@@ -2791,21 +2824,31 @@ def phase_train(device, counters) -> dict:
             g_k = train_lib.tree_leaves(mesh.unpermute_qkv_head_major(
                 train_lib.tree_unflatten(params, g_k), cfg.heads))
         loss_r, g_r = value_and_grads(params)
-        if abs(loss_k - loss_r) > 1e-5 * max(1.0, abs(loss_r)):
+        rel, loss_rel = ((TRAIN_GRAD_REL, 1e-5) if compute_dtype is None
+                         else (TRAIN_BF16_GRAD_REL, TRAIN_BF16_LOSS_REL))
+        if abs(loss_k - loss_r) > loss_rel * max(1.0, abs(loss_r)):
             raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_r}")
+
+        def use(a, b):
+            return ((a - b).abs().max() / (rel * b.abs().max())).item()
+
         worst = (0.0, "")
         for (path, _), a, b in zip(train_lib.tree_leaves_with_path(params),
                                    g_k, g_r):
-            use = ((a - b).abs().max()
-                   / (TRAIN_GRAD_REL * b.abs().max())).item()
-            if not use <= 1.0:
-                raise AssertionError(f"{tag}: {path} at {use:.2f} of its "
+            u = use(a, b)
+            if not u <= 1.0:
+                raise AssertionError(f"{tag}: {path} at {u:.2f} of its "
                                      f"bound")
-            worst = max(worst, (use, path))
+            if compute_dtype is not None and not (
+                    use(a * 0.5, b) > 1.0 and use(a * 0.0, b) > 1.0):
+                raise AssertionError(f"{tag}: {path} halved or zeroed "
+                                     f"passed its bound")
+            worst = max(worst, (u, path))
         ran = {k: v for k, v in counts.items() if v != (0, 0)}
-        log(f"  {tag}, B={batch}: kernels ({ran}) vs plain attention: loss {loss_k:.6f} vs {loss_r:.6f}; every "
-            f"parameter's gradient within {TRAIN_GRAD_REL:g} of its largest "
-            f"value, the nearest {worst[1]} at {worst[0]:.3f} of its bound")
+        log(f"  {tag}, B={batch}: kernels ({ran}) vs plain attention: loss "
+            f"{loss_k:.6f} vs {loss_r:.6f}; every parameter's gradient "
+            f"within {rel:g} of its largest value, the nearest {worst[1]} at "
+            f"{worst[0]:.3f} of its bound")
         return counts
 
     counts = first_step_gradients(
@@ -2831,12 +2874,43 @@ def phase_train(device, counters) -> dict:
         f"FMA and bf16 tensor-core 0; loss "
         + " ".join(f"{x:.4f}" for _, x, _ in res["history"]))
 
-    # (f) heads 80 wide: attention_train's FMA kernels
-    hcfg = dataclasses.replace(vit.VARIANTS["vit_h14"], depth=2)
-    counts = first_step_gradients(
+    # (f) heads 80 wide: attention_train's split-TF32 kernels
+    h14 = vit.VARIANTS["vit_h14"]
+    hcfg = dataclasses.replace(h14, depth=2)
+    first_step_gradients(
         "train vit_h14 (depth 2) f32 first-step gradients", hcfg, 2, False,
-        {"attention_train": (2, 2)})
-    launches["attention_train"] = sum(counts["attention_train"])
+        {"attention_train_tf32": (2, 2)})
+    # no configuration gives attention_train operands off the 16-byte grid
+    # since heads 80 wide take the tensor cores: the FMA pair has no
+    # main-path launch
+    launches["attention_train"] = 0
+
+    # (g) vit_h14 at full width and depth, mixed precision: the 80-wide
+    # bf16 tensor-core kernels in all 32 blocks
+    steps, batch = 3, 8
+    torch.cuda.reset_peak_memory_stats()
+    res = run_train(
+        "train vit_h14", ["--variant", "vit_h14", "--dtype", "mixed",
+                          "--batch", str(batch), "--steps", str(steps),
+                          "--log-every", "1"],
+        counters, {"attention_train_mma": (32 * steps, 32 * steps)})
+    if res["remat"] is not False:
+        raise AssertionError(f"--remat auto resolved to {res['remat']} for "
+                             f"vit_h14 at B={batch} on this card")
+    log(f"  train vit_h14 @224 mixed, B={batch}, {steps} steps: remat auto "
+        f"-> off, head-major {res['head_major']}, tensor-core launches "
+        f"{res['counts']['attention_train_mma']} (32 + 32 a step), FMA and "
+        f"packed 0; loss "
+        + " ".join(f"{x:.4f}" for _, x, _ in res["history"])
+        + f"; {res['ms_per_step']:.2f} ms a step, "
+        f"{batch * 1e3 / res['ms_per_step']:.2f} images/s (step 3), peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_train_step(h14, device, "auto", torch.bfloat16, None,
+                       "train vit_h14 mixed, kernels",
+                       TRAIN_MMA_PROFILE_H14, batch=batch)
+    first_step_gradients(
+        "train vit_h14 (depth 2) mixed first-step gradients", hcfg, 2,
+        False, {"attention_train_mma": (2, 2)}, compute_dtype=torch.bfloat16)
     return launches
 
 

@@ -1,6 +1,6 @@
-// The trainable attention on Hopper's tensor cores, bf16, heads 64 wide:
-// the forward o = softmax(q k^T * scale) v with its per-row (m, l), and
-// the backward dq, dk, dv, on q, k, v, do [B, H, N, 64] given by element
+// The trainable attention on Hopper's tensor cores, bf16, heads 64 or 80
+// wide: the forward o = softmax(q k^T * scale) v with its per-row (m, l),
+// and the backward dq, dk, dv, on q, k, v, do [B, H, N, dh] given by element
 // strides of image, head and token (the head dim contiguous, every pointer
 // and stride 16-byte aligned). As attention_bwd.cu, one set of kernels
 // serves both of the port's layouts: the [B, H, N, dh] views of
@@ -62,6 +62,26 @@
 // the scale, subtraction, division and delta terms are explicitly rounded
 // operations (no contraction).
 //
+// Heads 80 wide (vit_h14): every kernel is templated on the width
+// (MmaDims<DH>: shared rows of 88 bf16, five 16-deep steps over the head
+// dim, ten 8-column tiles of an output row), one instantiation a width;
+// the 64-wide ones compile to the same machine code as before. At 80 the
+// backward's fragments and sums grow: dq holds Q and dO fragments of 5
+// steps and dq[10][4] (16 registers more than at 64), dk/dv K and V
+// fragments and dk, dv[10][4] (24 more). So the part of a tile the
+// backward takes at a time and its minimum blocks an SM are functions of
+// the width (TM_HALF_80, TM_DQ_BLOCKS_80, TM_DKDV_BLOCKS_80). From
+// tools/kernel_variants.py on an H100 SXM (the backward alone, at vit_h14's
+// B = 2 / B = 8, 16 heads, N = 257): halves of 32 at two blocks an SM
+// fit dk/dv in 235 registers without spilling (0.1362 / 0.2586 ms); at
+// three they spill 260 bytes (0.1444 / 0.2553); parts of 16 at three
+// blocks spill 88 bytes in dk/dv, none in dq, and took 0.1385 / 0.2424 ms,
+// the fastest at B = 8, the shape of the bf16 train step; whole tiles at
+// two blocks took 0.1390 / 0.2687. So 80 wide takes parts of 16 at three
+// blocks an SM. The sums are the same in any of these: each 16-deep step
+// adds into the same accumulators in the same order. Shared memory at 80:
+// two stages of 2 x 64 x 88 bf16 plus the stats, 46,592 bytes a block.
+//
 // What bounds it on this card: at vit_b16's train shape (B = 64, 12 heads,
 // N = 197, dh = 64) forward and backward are 14 N^2 dh a head, 26.7 GFLOP
 // over 213 MB: bound by bytes (~64 us) at the published rates. This version
@@ -82,12 +102,30 @@ constexpr int TM_NT = TM_KT / 8;             // 8-column tiles of a 64-wide tile
 // The backward kernels take a tile's 64 columns in two halves of 32, so
 // that a thread holds 16 score and 16 dP accumulators at a time, not 32
 // each: with that they fit 168 registers and three blocks share an SM.
-constexpr int TM_HALF = TM_KT / 2, TM_HNT = TM_HALF / 8, TM_BWD_BLOCKS = 3;
-constexpr int TM_TILE = TM_KT * TILE_LD;     // one [64][TILE_LD] bf16 tile
+constexpr int TM_HALF = TM_KT / 2, TM_BWD_BLOCKS = 3;
+// Heads 80 wide: the part of a tile the backward takes at a time, and the
+// minimum blocks an SM of its dq and dk/dv kernels (at three, halves of 32
+// spill; parts of 16 spill less and run faster at vit_h14's train shape)
+constexpr int TM_HALF_80 = 16, TM_DQ_BLOCKS_80 = 3, TM_DKDV_BLOCKS_80 = 3;
 constexpr int TM_STATS = 3 * TM_KT;          // (m, l, delta) of a query tile, f32
-// a stage of the ring: two tiles (K + V, or Q + dO) and, in (b), the stats
-constexpr size_t TM_STAGE_BYTES = 2 * TM_TILE * sizeof(__nv_bfloat16) + TM_STATS * sizeof(float);
-constexpr size_t TM_SMEM = 2 * TM_STAGE_BYTES;
+
+// the head widths the kernels are built for
+constexpr int TM_DHS[] = {64, 80};
+
+// The shapes that follow from the head width DH.
+template <int DH>
+struct TrainMmaCfg {
+  static_assert(DH == 64 || DH == 80, "heads 64 or 80 wide");
+  static constexpr int LD = MmaDims<DH>::LD;  // padded row of a shared tile, bf16
+  static constexpr int TILE = TM_KT * LD;     // one [64][LD] bf16 tile
+  // a stage of the ring: two tiles (K + V, or Q + dO) and, in (b), the stats
+  static constexpr size_t STAGE_BYTES =
+      2 * TILE * sizeof(__nv_bfloat16) + TM_STATS * sizeof(float);
+  static constexpr size_t SMEM = 2 * STAGE_BYTES;
+  static constexpr int HALF = DH == 64 ? TM_HALF : TM_HALF_80, HNT = HALF / 8;
+  static constexpr int DQ_BLOCKS = DH == 64 ? TM_BWD_BLOCKS : TM_DQ_BLOCKS_80;
+  static constexpr int DKDV_BLOCKS = DH == 64 ? TM_BWD_BLOCKS : TM_DKDV_BLOCKS_80;
+};
 
 enum { Q_ = 0, K_, V_, DO_, DQ_, DK_, DV_ };
 
@@ -114,13 +152,17 @@ __device__ __forceinline__ P* head_base(const TrainMmaArgs& a, P* p, int which, 
   return p + b * a.st[which][0] + h * a.st[which][1];
 }
 
+template <int DH>
 __device__ __forceinline__ __nv_bfloat16* stage_tile(unsigned char* smem, int stage, int which) {
-  return reinterpret_cast<__nv_bfloat16*>(smem + stage * TM_STAGE_BYTES) + which * TM_TILE;
+  using C = TrainMmaCfg<DH>;
+  return reinterpret_cast<__nv_bfloat16*>(smem + stage * C::STAGE_BYTES) + which * C::TILE;
 }
 
+template <int DH>
 __device__ __forceinline__ float* stage_stats(unsigned char* smem, int stage) {
-  return reinterpret_cast<float*>(smem + stage * TM_STAGE_BYTES +
-                                  2 * TM_TILE * sizeof(__nv_bfloat16));
+  using C = TrainMmaCfg<DH>;
+  return reinterpret_cast<float*>(smem + stage * C::STAGE_BYTES +
+                                  2 * C::TILE * sizeof(__nv_bfloat16));
 }
 
 // a score from its dot product: scaled, or mask_value for a key >= n_real
@@ -139,6 +181,7 @@ __device__ __forceinline__ float dscore(float p, float dp, float delta, float sc
 // ---------------------------------------------------------------------------
 // The forward: steps 0 .. T-1 are pass 1 (K tiles: m, l), T .. 2T-1 pass 2
 // (K and V tiles: probs and PV), one ring across both.
+template <int DH>
 __global__ void __launch_bounds__(TM_THREADS) train_fwd_mma_kernel(const TrainMmaArgs a) {
   extern __shared__ float4 tm_smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(tm_smem4);
@@ -148,27 +191,29 @@ __global__ void __launch_bounds__(TM_THREADS) train_fwd_mma_kernel(const TrainMm
   const __nv_bfloat16* kb = head_base(a, a.k, K_, b, h);
   const __nv_bfloat16* vb = head_base(a, a.v, V_, b, h);
 
-  load_tile_async(stage_tile(smem, 1, 0), head_base(a, a.q, Q_, b, h), a.st[Q_][2], q0, TM_ROWS, N,
-                  TM_THREADS);
-  load_tile_async(stage_tile(smem, 0, 0), kb, a.st[K_][2], 0, TM_KT, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 1, 0), head_base(a, a.q, Q_, b, h), a.st[Q_][2], q0,
+                      TM_ROWS, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 0, 0), kb, a.st[K_][2], 0, TM_KT, N, TM_THREADS);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[MMA_DH / 16][4];
-  load_a_frags(qf, stage_tile(smem, 1, 0), 16 * warp, lane);
+  uint32_t qf[DH / 16][4];
+  load_a_frags<DH>(qf, stage_tile<DH>(smem, 1, 0), 16 * warp, lane);
   __syncthreads();
 
-  float oacc[MMA_DH / 8][4];
+  float oacc[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < MMA_DH / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  for (int n = 0; n < DH / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   for (int it = 0; it < steps; ++it) {
     if (it + 1 < steps) {
       const int nx = it + 1, j1 = (nx % n_tiles) * TM_KT;
-      load_tile_async(stage_tile(smem, nx & 1, 0), kb, a.st[K_][2], j1, TM_KT, N, TM_THREADS);
+      load_tile_async<DH>(stage_tile<DH>(smem, nx & 1, 0), kb, a.st[K_][2], j1, TM_KT, N,
+                          TM_THREADS);
       if (nx >= n_tiles)
-        load_tile_async(stage_tile(smem, nx & 1, 1), vb, a.st[V_][2], j1, TM_KT, N, TM_THREADS);
+        load_tile_async<DH>(stage_tile<DH>(smem, nx & 1, 1), vb, a.st[V_][2], j1, TM_KT, N,
+                            TM_THREADS);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -178,11 +223,12 @@ __global__ void __launch_bounds__(TM_THREADS) train_fwd_mma_kernel(const TrainMm
     const bool pass2 = it >= n_tiles;
     const int j0 = (it % n_tiles) * TM_KT;
     float s[TM_NT][4];
-    mma_rows<TM_NT>(s, qf, stage_tile(smem, it & 1, 0), lane);
+    mma_rows<TM_NT, DH>(s, qf, stage_tile<DH>(smem, it & 1, 0), lane);
 #pragma unroll
     for (int n = 0; n < TM_NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = score(s[n][e], j0 + 8 * n + 2 * t + (e & 1) < a.n_real, a);
+      for (int e = 0; e < 4; ++e)
+        s[n][e] = score(s[n][e], j0 + 8 * n + 2 * t + (e & 1) < a.n_real, a);
 
     if (!pass2) {
       float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, m_next[2];
@@ -208,19 +254,19 @@ __global__ void __launch_bounds__(TM_THREADS) train_fwd_mma_kernel(const TrainMm
       for (int n = 0; n < TM_NT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = prob(s[n][e], m_run[e >> 1], l_run[e >> 1]);
-      const __nv_bfloat16* Vs = stage_tile(smem, it & 1, 1);
+      const __nv_bfloat16* Vs = stage_tile<DH>(smem, it & 1, 1);
 #pragma unroll
       for (int kk = 0; kk < TM_KT / 16; ++kk) {
         uint32_t pa[4];
         a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
-        mma_a_by_cols(oacc, pa, Vs, 16 * kk, lane);
+        mma_a_by_cols<DH>(oacc, pa, Vs, 16 * kk, lane);
       }
     }
     __syncthreads();
   }
 
-  store_rows(head_base(a, a.o, DQ_, b, h) + (long long)q0 * a.st[DQ_][2], a.st[DQ_][2], oacc,
-             16 * warp, N - q0, lane);
+  store_rows<DH>(head_base(a, a.o, DQ_, b, h) + (long long)q0 * a.st[DQ_][2], a.st[DQ_][2],
+                 oacc, 16 * warp, N - q0, lane);
   if (t == 0) {
     const size_t plane = (size_t)a.B * a.H * N, row0 = ((size_t)b * a.H + h) * N + q0;
 #pragma unroll
@@ -236,8 +282,10 @@ __global__ void __launch_bounds__(TM_THREADS) train_fwd_mma_kernel(const TrainMm
 
 // ---------------------------------------------------------------------------
 // (a) dq and delta: steps 0 .. T-1 form delta, T .. 2T-1 ds and dq.
-__global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
+template <int DH>
+__global__ void __launch_bounds__(TM_THREADS, TrainMmaCfg<DH>::DQ_BLOCKS)
     train_dq_mma_kernel(const TrainMmaArgs a) {
+  using C = TrainMmaCfg<DH>;
   extern __shared__ float4 tm_smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(tm_smem4);
   const int q0 = blockIdx.x * TM_ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -247,12 +295,12 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
   const __nv_bfloat16* vb = head_base(a, a.v, V_, b, h);
 
   // Q and dO through stage 1, key tile 0 into stage 0
-  load_tile_async(stage_tile(smem, 1, 0), head_base(a, a.q, Q_, b, h), a.st[Q_][2], q0, TM_ROWS, N,
-                  TM_THREADS);
-  load_tile_async(stage_tile(smem, 1, 1), head_base(a, a.dout, DO_, b, h), a.st[DO_][2], q0,
+  load_tile_async<DH>(stage_tile<DH>(smem, 1, 0), head_base(a, a.q, Q_, b, h), a.st[Q_][2], q0,
+                      TM_ROWS, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 1, 1), head_base(a, a.dout, DO_, b, h), a.st[DO_][2], q0,
                   TM_ROWS, N, TM_THREADS);
-  load_tile_async(stage_tile(smem, 0, 0), kb, a.st[K_][2], 0, TM_KT, N, TM_THREADS);
-  load_tile_async(stage_tile(smem, 0, 1), vb, a.st[V_][2], 0, TM_KT, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 0, 0), kb, a.st[K_][2], 0, TM_KT, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 0, 1), vb, a.st[V_][2], 0, TM_KT, N, TM_THREADS);
   cp_async_commit();
   // the rows' saved statistics; rows past N get probs of 0
   const size_t plane = (size_t)a.B * a.H * N, row0 = ((size_t)b * a.H + h) * N + q0;
@@ -266,20 +314,22 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
   }
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t qf[MMA_DH / 16][4], of[MMA_DH / 16][4];
-  load_a_frags(qf, stage_tile(smem, 1, 0), 16 * warp, lane);
-  load_a_frags(of, stage_tile(smem, 1, 1), 16 * warp, lane);
+  uint32_t qf[DH / 16][4], of[DH / 16][4];
+  load_a_frags<DH>(qf, stage_tile<DH>(smem, 1, 0), 16 * warp, lane);
+  load_a_frags<DH>(of, stage_tile<DH>(smem, 1, 1), 16 * warp, lane);
   __syncthreads();
 
-  float dq[MMA_DH / 8][4];
+  float dq[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < MMA_DH / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int n = 0; n < DH / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 
   for (int it = 0; it < steps; ++it) {
     if (it + 1 < steps) {
       const int nx = it + 1, j1 = (nx % n_tiles) * TM_KT;
-      load_tile_async(stage_tile(smem, nx & 1, 0), kb, a.st[K_][2], j1, TM_KT, N, TM_THREADS);
-      load_tile_async(stage_tile(smem, nx & 1, 1), vb, a.st[V_][2], j1, TM_KT, N, TM_THREADS);
+      load_tile_async<DH>(stage_tile<DH>(smem, nx & 1, 0), kb, a.st[K_][2], j1, TM_KT, N,
+                          TM_THREADS);
+      load_tile_async<DH>(stage_tile<DH>(smem, nx & 1, 1), vb, a.st[V_][2], j1, TM_KT, N,
+                          TM_THREADS);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -288,30 +338,30 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
     __syncthreads();
     const bool pass2 = it >= n_tiles;
     const int j0 = (it % n_tiles) * TM_KT;
-    const __nv_bfloat16* Ks = stage_tile(smem, it & 1, 0);
-    const __nv_bfloat16* Vs = stage_tile(smem, it & 1, 1);
-    // the keys in two halves of 32, in order
+    const __nv_bfloat16* Ks = stage_tile<DH>(smem, it & 1, 0);
+    const __nv_bfloat16* Vs = stage_tile<DH>(smem, it & 1, 1);
+    // the keys in parts of C::HALF (at 64 wide two halves of 32), in order
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = TM_HALF * half;
-      float s[TM_HNT][4], dp[TM_HNT][4];
-      mma_rows<TM_HNT>(s, qf, Ks + c0 * TILE_LD, lane);
-      mma_rows<TM_HNT>(dp, of, Vs + c0 * TILE_LD, lane);
+    for (int half = 0; half < TM_KT / C::HALF; ++half) {
+      const int c0 = C::HALF * half;
+      float s[C::HNT][4], dp[C::HNT][4];
+      mma_rows<C::HNT, DH>(s, qf, Ks + c0 * C::LD, lane);
+      mma_rows<C::HNT, DH>(dp, of, Vs + c0 * C::LD, lane);
 #pragma unroll
-      for (int n = 0; n < TM_HNT; ++n)
+      for (int n = 0; n < C::HNT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           s[n][e] = prob(score(s[n][e], j0 + c0 + 8 * n + 2 * t + (e & 1) < a.n_real, a),
                          m[e >> 1], l[e >> 1]);
       if (!pass2) {
 #pragma unroll
-        for (int n = 0; n < TM_HNT; ++n)
+        for (int n = 0; n < C::HNT; ++n)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             delta[e >> 1] = __fadd_rn(delta[e >> 1], __fmul_rn(s[n][e], dp[n][e]));
       } else {
 #pragma unroll
-        for (int kk = 0; kk < TM_HALF / 16; ++kk) {
+        for (int kk = 0; kk < C::HALF / 16; ++kk) {
           float lo[4], hi[4];
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
@@ -320,7 +370,7 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
           }
           uint32_t da[4];
           a_from_acc(da, lo, hi);
-          mma_a_by_cols(dq, da, Ks, c0 + 16 * kk, lane);
+          mma_a_by_cols<DH>(dq, da, Ks, c0 + 16 * kk, lane);
         }
       }
     }
@@ -331,8 +381,8 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
     __syncthreads();
   }
 
-  store_rows(head_base(a, a.dq, DQ_, b, h) + (long long)q0 * a.st[DQ_][2], a.st[DQ_][2], dq,
-             16 * warp, N - q0, lane);
+  store_rows<DH>(head_base(a, a.dq, DQ_, b, h) + (long long)q0 * a.st[DQ_][2], a.st[DQ_][2], dq,
+                 16 * warp, N - q0, lane);
   if (t == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -344,8 +394,10 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
 
 // ---------------------------------------------------------------------------
 // (b) dk and dv: each step one query tile of Q, dO and their (m, l, delta).
-__global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
+template <int DH>
+__global__ void __launch_bounds__(TM_THREADS, TrainMmaCfg<DH>::DKDV_BLOCKS)
     train_dkdv_mma_kernel(const TrainMmaArgs a) {
+  using C = TrainMmaCfg<DH>;
   extern __shared__ float4 tm_smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(tm_smem4);
   const int k0 = blockIdx.x * TM_ROWS, h = blockIdx.y, b = blockIdx.z;
@@ -356,23 +408,23 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
   const size_t plane = (size_t)a.B * a.H * N, row0 = ((size_t)b * a.H + h) * N;
 
   // K and V through stage 1, query tile 0 into stage 0
-  load_tile_async(stage_tile(smem, 1, 0), head_base(a, a.k, K_, b, h), a.st[K_][2], k0, TM_ROWS, N,
-                  TM_THREADS);
-  load_tile_async(stage_tile(smem, 1, 1), head_base(a, a.v, V_, b, h), a.st[V_][2], k0, TM_ROWS, N,
-                  TM_THREADS);
-  load_tile_async(stage_tile(smem, 0, 0), qb, a.st[Q_][2], 0, TM_KT, N, TM_THREADS);
-  load_tile_async(stage_tile(smem, 0, 1), ob, a.st[DO_][2], 0, TM_KT, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 1, 0), head_base(a, a.k, K_, b, h), a.st[K_][2], k0,
+                      TM_ROWS, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 1, 1), head_base(a, a.v, V_, b, h), a.st[V_][2], k0,
+                      TM_ROWS, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 0, 0), qb, a.st[Q_][2], 0, TM_KT, N, TM_THREADS);
+  load_tile_async<DH>(stage_tile<DH>(smem, 0, 1), ob, a.st[DO_][2], 0, TM_KT, N, TM_THREADS);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  uint32_t kf[MMA_DH / 16][4], vf[MMA_DH / 16][4];
-  load_a_frags(kf, stage_tile(smem, 1, 0), 16 * warp, lane);
-  load_a_frags(vf, stage_tile(smem, 1, 1), 16 * warp, lane);
+  uint32_t kf[DH / 16][4], vf[DH / 16][4];
+  load_a_frags<DH>(kf, stage_tile<DH>(smem, 1, 0), 16 * warp, lane);
+  load_a_frags<DH>(vf, stage_tile<DH>(smem, 1, 1), 16 * warp, lane);
   __syncthreads();
 
-  float dk[MMA_DH / 8][4], dv[MMA_DH / 8][4];
+  float dk[DH / 8][4], dv[DH / 8][4];
 #pragma unroll
-  for (int n = 0; n < MMA_DH / 8; ++n) {
+  for (int n = 0; n < DH / 8; ++n) {
     dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
     dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
   }
@@ -384,14 +436,14 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
   for (int it = 0; it < steps; ++it) {
     const int i0 = it * TM_KT;
     if (it + 1 < steps) {
-      load_tile_async(stage_tile(smem, (it + 1) & 1, 0), qb, a.st[Q_][2], i0 + TM_KT, TM_KT, N,
-                      TM_THREADS);
-      load_tile_async(stage_tile(smem, (it + 1) & 1, 1), ob, a.st[DO_][2], i0 + TM_KT, TM_KT, N,
-                      TM_THREADS);
+      load_tile_async<DH>(stage_tile<DH>(smem, (it + 1) & 1, 0), qb, a.st[Q_][2], i0 + TM_KT, TM_KT,
+                          N, TM_THREADS);
+      load_tile_async<DH>(stage_tile<DH>(smem, (it + 1) & 1, 1), ob, a.st[DO_][2], i0 + TM_KT,
+                          TM_KT, N, TM_THREADS);
       cp_async_commit();
     }
     // this tile's (m, l, delta); queries past N get probs of 0
-    float* st = stage_stats(smem, it & 1);
+    float* st = stage_stats<DH>(smem, it & 1);
     if (threadIdx.x < TM_KT) {
       const int i = threadIdx.x;
       const bool in = i0 + i < N;
@@ -405,17 +457,18 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const __nv_bfloat16* Qs = stage_tile(smem, it & 1, 0);
-    const __nv_bfloat16* Os = stage_tile(smem, it & 1, 1);
-    // the queries in two halves of 32, in order
+    const __nv_bfloat16* Qs = stage_tile<DH>(smem, it & 1, 0);
+    const __nv_bfloat16* Os = stage_tile<DH>(smem, it & 1, 1);
+    // the queries in parts of C::HALF (at 64 wide two halves of 32), in
+    // order
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int c0 = TM_HALF * half;
-      float s[TM_HNT][4], dp[TM_HNT][4];
-      mma_rows<TM_HNT>(s, kf, Qs + c0 * TILE_LD, lane);   // S^T: keys x queries
-      mma_rows<TM_HNT>(dp, vf, Os + c0 * TILE_LD, lane);  // dP^T
+    for (int half = 0; half < TM_KT / C::HALF; ++half) {
+      const int c0 = C::HALF * half;
+      float s[C::HNT][4], dp[C::HNT][4];
+      mma_rows<C::HNT, DH>(s, kf, Qs + c0 * C::LD, lane);   // S^T: keys x queries
+      mma_rows<C::HNT, DH>(dp, vf, Os + c0 * C::LD, lane);  // dP^T
 #pragma unroll
-      for (int n = 0; n < TM_HNT; ++n) {
+      for (int n = 0; n < C::HNT; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = c0 + 8 * n + 2 * t + (e & 1);  // the query, within the tile
@@ -425,25 +478,25 @@ __global__ void __launch_bounds__(TM_THREADS, TM_BWD_BLOCKS)
         }
       }
 #pragma unroll
-      for (int kk = 0; kk < TM_HALF / 16; ++kk) {
+      for (int kk = 0; kk < C::HALF / 16; ++kk) {
         uint32_t pa[4], da[4];
         a_from_acc(pa, s[2 * kk], s[2 * kk + 1]);
         a_from_acc(da, dp[2 * kk], dp[2 * kk + 1]);
-        mma_a_by_cols(dv, pa, Os, c0 + 16 * kk, lane);
-        mma_a_by_cols(dk, da, Qs, c0 + 16 * kk, lane);
+        mma_a_by_cols<DH>(dv, pa, Os, c0 + 16 * kk, lane);
+        mma_a_by_cols<DH>(dk, da, Qs, c0 + 16 * kk, lane);
       }
     }
     __syncthreads();
   }
 
-  store_rows(head_base(a, a.dk, DK_, b, h) + (long long)k0 * a.st[DK_][2], a.st[DK_][2], dk,
-             16 * warp, N - k0, lane);
-  store_rows(head_base(a, a.dv, DV_, b, h) + (long long)k0 * a.st[DV_][2], a.st[DV_][2], dv,
-             16 * warp, N - k0, lane);
+  store_rows<DH>(head_base(a, a.dk, DK_, b, h) + (long long)k0 * a.st[DK_][2], a.st[DK_][2], dk,
+                 16 * warp, N - k0, lane);
+  store_rows<DH>(head_base(a, a.dv, DV_, b, h) + (long long)k0 * a.st[DV_][2], a.st[DV_][2], dv,
+                 16 * warp, N - k0, lane);
 }
 
 bool args_ok(int B, int H, int N, int dh, int n_real) {
-  return B > 0 && H > 0 && N > 0 && dh == MMA_DH && n_real > 0 && n_real <= N;
+  return B > 0 && H > 0 && N > 0 && (dh == 64 || dh == 80) && n_real > 0 && n_real <= N;
 }
 
 TrainMmaArgs make_args(const long long* strides, int n_sets, int B, int H, int N, int n_real,
@@ -460,25 +513,37 @@ TrainMmaArgs make_args(const long long* strides, int n_sets, int B, int H, int N
   return a;
 }
 
-template <typename Kernel>
+template <int DH, typename Kernel>
 cudaError_t launch(Kernel kernel, const TrainMmaArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = TrainMmaCfg<DH>::SMEM;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TM_SMEM);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3((a.N + TM_ROWS - 1) / TM_ROWS, a.H, a.B), TM_THREADS, TM_SMEM, stream>>>(a);
+  kernel<<<dim3((a.N + TM_ROWS - 1) / TM_ROWS, a.H, a.B), TM_THREADS, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bwd(const TrainMmaArgs& a, cudaStream_t s) {
+  cudaError_t err = launch<DH>(train_dq_mma_kernel<DH>, a, s);
+  if (err != cudaSuccess) return err;
+  return launch<DH>(train_dkdv_mma_kernel<DH>, a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The head width the kernels take.
-int ivt_train_mma_dh() { return MMA_DH; }
+// The i-th head width the kernels take, in increasing order; 0 past the
+// last.
+int ivt_train_mma_dh(int i) {
+  constexpr int n = sizeof(TM_DHS) / sizeof(TM_DHS[0]);
+  return i >= 0 && i < n ? TM_DHS[i] : 0;
+}
 
-// Forward. strides: 12 element strides, (image, head, token) of q, k, v, o.
-// stats: an f32 buffer of 2 * B * H * N floats, (m, l) per row on return.
-// Returns a cudaError_t value.
+// Forward, heads dh wide (ivt_train_mma_dh). strides: 12 element strides,
+// (image, head, token) of q, k, v, o. stats: an f32 buffer of 2 * B * H * N
+// floats, (m, l) per row on return. Returns a cudaError_t value.
 int ivt_attention_train_fwd_mma(const void* q, const void* k, const void* v, void* o, float* stats,
                                 const long long* strides, int B, int H, int N, int dh, int n_real,
                                 float scale, float mask_value, void* stream) {
@@ -493,10 +558,12 @@ int ivt_attention_train_fwd_mma(const void* q, const void* k, const void* v, voi
   a.v = static_cast<const __nv_bfloat16*>(v);
   a.o = static_cast<__nv_bfloat16*>(o);
   a.stats = stats;
-  return (int)launch(train_fwd_mma_kernel, a, (cudaStream_t)stream);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(dh == 64 ? launch<64>(train_fwd_mma_kernel<64>, a, s)
+                        : launch<80>(train_fwd_mma_kernel<80>, a, s));
 }
 
-// Backward. strides: 21 element strides, (image, head, token) of q, k, v,
+// Backward, heads dh wide. strides: 21 element strides, (image, head, token) of q, k, v,
 // do, dq, dk, dv. stats: the forward's (m, l); delta: an f32 workspace of
 // B * H * N floats. Returns a cudaError_t value.
 int ivt_attention_train_bwd_mma(const void* q, const void* k, const void* v, const void* dout,
@@ -514,10 +581,8 @@ int ivt_attention_train_bwd_mma(const void* q, const void* k, const void* v, con
   a.dv = static_cast<__nv_bfloat16*>(dv);
   a.stats = stats;
   a.delta = delta;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = launch(train_dq_mma_kernel, a, s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch(train_dkdv_mma_kernel, a, s);
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(dh == 64 ? launch_bwd<64>(a, s) : launch_bwd<80>(a, s));
 }
 
 }  // extern "C"

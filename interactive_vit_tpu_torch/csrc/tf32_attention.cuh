@@ -233,4 +233,33 @@ __device__ __forceinline__ void mma3_acc_by_cols(float acc[TfDims<DH>::DT][4], c
     for (int e = 0; e < 4; ++e) acc[d][e] = __fadd_rn(acc[d][e], fold_rn(big[d][e], small[d][e]));
 }
 
+// mma3_acc_by_cols with its loops turned round: the NT split A fragments
+// first, then each 8-column tile d of Y over the NT steps, its two
+// accumulators folded into acc[d] before the next tile. Every accumulator
+// takes the same products in the same order, so the values are the same;
+// it holds 8 NT split registers and 8 accumulators where the other holds 8
+// and 8 DT (80 at heads 80 wide).
+template <int DH, int NT>
+__device__ __forceinline__ void mma3_acc_by_cols_dmajor(float acc[TfDims<DH>::DT][4],
+                                                        const float a[NT][4], const float* tile,
+                                                        int ld, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t ah[NT][4], al[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) split_acc(ah[n], al[n], a[n]);
+#pragma unroll
+  for (int d = 0; d < TfDims<DH>::DT; ++d) {
+    float big[4], small[4];
+    zero4(big);
+    zero4(small);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* yr = tile + (k0 + 8 * n + 2 * t) * ld + g;
+      mma_3xtf32(big, small, ah[n], al[n], yr[8 * d], yr[ld + 8 * d]);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = __fadd_rn(acc[d][e], fold_rn(big[e], small[e]));
+  }
+}
+
 }  // namespace

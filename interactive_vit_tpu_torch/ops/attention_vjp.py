@@ -17,20 +17,17 @@ chosen by dtype, head width and alignment (``flash_attention.mma_route``
 and ``_tf32_ok``, read on the element pointers and strides), never by a
 failure: a failed build or launch raises.
 
-* bf16, heads ``TRAIN_MMA_DH`` (64) wide, 16-byte aligned operands: the
-  tensor-core kernels of ``csrc/attention_train_mma.cu`` (a forward, and a
-  backward pair: dq, then dk / dv). Counted on ``.mma_fwd_launches`` /
-  ``.mma_bwd_launches``. Rows 3-4's bf16 kernels also take heads 80 wide
-  (``flash_attention.MMA_DHS``), these do not: vit_h14's heads train on
-  the FMA pair.
-* f32, heads ``TRAIN_TF32_DH`` (64) wide, 16-byte aligned operands: the
-  split-TF32 tensor-core kernels, the forward row 3's
-  ``csrc/flash_attention_tf32.cu`` (given the layout's element strides),
-  the backward pair ``csrc/attention_train_tf32.cu``; every product as
-  three TF32 products of a hi / lo split. Counted on
-  ``.tf32_fwd_launches`` / ``.tf32_bwd_launches``. Row 3's forward also
-  takes heads 80 wide (``flash_attention.TF32_DHS``), the backward does
-  not: vit_h14's heads train on the FMA pair.
+* bf16, heads of a width in ``TRAIN_MMA_DHS`` (64, and vit_h14's 80),
+  16-byte aligned operands: the tensor-core kernels of
+  ``csrc/attention_train_mma.cu`` (a forward, and a backward pair: dq,
+  then dk / dv; one instantiation a width). Counted on
+  ``.mma_fwd_launches`` / ``.mma_bwd_launches``.
+* f32, heads of a width in ``TRAIN_TF32_DHS`` (64 and 80), 16-byte
+  aligned operands: the split-TF32 tensor-core kernels, the forward row
+  3's ``csrc/flash_attention_tf32.cu`` (given the layout's element
+  strides), the backward pair ``csrc/attention_train_tf32.cu``; every
+  product as three TF32 products of a hi / lo split. Counted on
+  ``.tf32_fwd_launches`` / ``.tf32_bwd_launches``.
 * everything else (f32 and bf16 of other widths or alignments): the f32
   FMA kernels, the forward the row-resident kernel of
   ``csrc/flash_attention.cu`` (given the layout's element strides, no
@@ -76,12 +73,13 @@ TRAIN_MAX_N = 1024
 PACKED_DH = 64
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# The head width of the bf16 tensor-core kernels (csrc/attention_train_mma.cu),
-# and so of the bf16 train route.
-TRAIN_MMA_DH = 64
-# The head width of the split-TF32 backward (csrc/attention_train_tf32.cu),
-# and so of the f32 train route.
-TRAIN_TF32_DH = 64
+# The head widths of the bf16 tensor-core kernels (csrc/attention_train_mma.cu),
+# in increasing order, and so of the bf16 train route.
+TRAIN_MMA_DHS = (64, 80)
+# The head widths of the split-TF32 backward (csrc/attention_train_tf32.cu),
+# in increasing order, and so of the f32 train route; its forward, row 3's
+# split-TF32 kernel, takes each of them (flash_attention.TF32_DHS).
+TRAIN_TF32_DHS = (64, 80)
 # The widest head csrc/attention_bwd.cu takes (its entry refuses wider).
 BWD_MAX_DH = 128
 
@@ -226,19 +224,18 @@ def _mma_lib() -> ctypes.CDLL:
         lib.ivt_attention_train_fwd_mma.restype = ctypes.c_int
         lib.ivt_attention_train_bwd_mma.argtypes = TRAIN_MMA_BWD_ARGTYPES
         lib.ivt_attention_train_bwd_mma.restype = ctypes.c_int
-        lib.ivt_train_mma_dh.argtypes = []
+        lib.ivt_train_mma_dh.argtypes = [ctypes.c_int]
         lib.ivt_train_mma_dh.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
 
 
 def load_mma_kernel() -> ctypes.CDLL:
-    """Build and load the tensor-core kernels now; checks their head width
-    against ``TRAIN_MMA_DH``."""
+    """Build and load the tensor-core kernels now; checks their head widths
+    against ``TRAIN_MMA_DHS``."""
     lib = _mma_lib()
-    if lib.ivt_train_mma_dh() != TRAIN_MMA_DH:
-        raise RuntimeError("csrc/attention_train_mma.cu and TRAIN_MMA_DH "
-                           "disagree")
+    fa.check_library_dhs(lib.ivt_train_mma_dh, "csrc/attention_train_mma.cu",
+                         TRAIN_MMA_DHS, "TRAIN_MMA_DHS")
     return lib
 
 
@@ -254,7 +251,7 @@ def _tf32_lib() -> ctypes.CDLL:
     if not getattr(lib, "_ivt_bound", False):
         lib.ivt_attention_train_bwd_tf32.argtypes = TRAIN_TF32_BWD_ARGTYPES
         lib.ivt_attention_train_bwd_tf32.restype = ctypes.c_int
-        lib.ivt_train_tf32_dh.argtypes = []
+        lib.ivt_train_tf32_dh.argtypes = [ctypes.c_int]
         lib.ivt_train_tf32_dh.restype = ctypes.c_int
         lib._ivt_bound = True
     return lib
@@ -263,12 +260,12 @@ def _tf32_lib() -> ctypes.CDLL:
 def load_tf32_kernel() -> ctypes.CDLL:
     """Build and load the split-TF32 forward and backward now; checks the
     forward's head widths against ``flash_attention.TF32_DHS`` and the
-    backward's against ``TRAIN_TF32_DH``."""
+    backward's against ``TRAIN_TF32_DHS``."""
     fa.load_tf32_kernel()
     lib = _tf32_lib()
-    if lib.ivt_train_tf32_dh() != TRAIN_TF32_DH:
-        raise RuntimeError("csrc/attention_train_tf32.cu and TRAIN_TF32_DH "
-                           "disagree")
+    fa.check_library_dhs(lib.ivt_train_tf32_dh,
+                         "csrc/attention_train_tf32.cu", TRAIN_TF32_DHS,
+                         "TRAIN_TF32_DHS")
     return lib
 
 
@@ -339,20 +336,20 @@ def _launch_bwd(ptrs, strides, dtype, device, b, h, n, dh, n_real) -> None:
 def _mma_ok(dtype, dh, ptrs, strides) -> bool:
     """The bf16 tensor-core train route on element pointers and (image,
     head, token) stride triples: ``flash_attention.mma_route`` (bf16,
-    16-byte aligned) at the train kernels' one width, ``TRAIN_MMA_DH``;
-    widening rows 3-4's widths never sends a train step to a kernel of
-    another width."""
-    return dh == TRAIN_MMA_DH and fa.mma_route(
+    16-byte aligned) at the train kernels' own widths, ``TRAIN_MMA_DHS``;
+    widening rows 3-4's widths never sends a train step to a kernel without
+    its width."""
+    return dh in TRAIN_MMA_DHS and fa.mma_route(
         dtype, dh, ptrs, [s for st in strides for s in st])
 
 
 def _tf32_ok(dtype, dh, ptrs, strides) -> bool:
     """The split-TF32 train route on element pointers and (image, head,
     token) stride triples: ``flash_attention.tf32_route`` (f32, 16-byte
-    aligned) at the backward's one width, ``TRAIN_TF32_DH``; widening the
-    forward's widths never sends a backward to a kernel of another
+    aligned) at the backward's own widths, ``TRAIN_TF32_DHS``; widening the
+    forward's widths never sends a backward to a kernel without its
     width."""
-    return dh == TRAIN_TF32_DH and fa.tf32_route(
+    return dh in TRAIN_TF32_DHS and fa.tf32_route(
         dtype, dh, ptrs, [s for st in strides for s in st])
 
 
@@ -362,46 +359,43 @@ def _tc_ok(dtype, dh, ptrs, strides) -> bool:
             or _tf32_ok(dtype, dh, ptrs, strides))
 
 
-def _launch_fwd_mma(ptrs, strides, device, b, h, n, n_real):
-    """One launch of the tensor-core forward. ``ptrs``: q, k, v, o;
-    ``strides``: their stride triples. Returns the rows' (m, l), f32
-    [2, B, H, N]."""
+def _launch_fwd_mma(ptrs, strides, device, b, h, n, dh, n_real):
+    """One launch of the tensor-core forward on heads ``dh`` wide.
+    ``ptrs``: q, k, v, o; ``strides``: their stride triples. Returns the
+    rows' (m, l), f32 [2, B, H, N]."""
     lib = _mma_lib()
     flat = (ctypes.c_longlong * 12)(*[s for st in strides for s in st])
     with torch.cuda.device(device):
         stats = torch.empty((2, b, h, n), dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.ivt_attention_train_fwd_mma(
-            *ptrs, stats.data_ptr(), ctypes.addressof(flat), b, h, n,
-            TRAIN_MMA_DH, n_real, float(TRAIN_MMA_DH) ** -0.5, MASK_VALUE,
-            stream)
+            *ptrs, stats.data_ptr(), ctypes.addressof(flat), b, h, n, dh,
+            n_real, float(dh) ** -0.5, MASK_VALUE, stream)
     if err != 0:
         raise RuntimeError(f"tensor-core attention forward launch failed: "
                            f"cudaError {err}")
     return stats
 
 
-def _launch_fwd_tf32(ptrs, strides, device, b, h, n, n_real):
+def _launch_fwd_tf32(ptrs, strides, device, b, h, n, dh, n_real):
     """One launch of the split-TF32 forward (row 3's kernel with the (m, l)
-    output) on heads ``TRAIN_TF32_DH`` wide. ``ptrs``: q, k, v, o;
-    ``strides``: their stride triples. Returns the rows' (m, l), f32
-    [2, B, H, N]."""
+    output) on heads ``dh`` wide. ``ptrs``: q, k, v, o; ``strides``: their
+    stride triples. Returns the rows' (m, l), f32 [2, B, H, N]."""
     stats = torch.empty((2, b, h, n), dtype=torch.float32, device=device)
-    fa.launch_flash_tf32(ptrs, strides, device, b, h, n, TRAIN_TF32_DH,
-                         n_real, stats_ptr=stats.data_ptr())
+    fa.launch_flash_tf32(ptrs, strides, device, b, h, n, dh, n_real,
+                         stats_ptr=stats.data_ptr())
     return stats
 
 
-def _launch_bwd_tc(ptrs, strides, stats, dtype, device, b, h, n,
+def _launch_bwd_tc(ptrs, strides, stats, dtype, device, b, h, n, dh,
                    n_real) -> None:
-    """One launch of a tensor-core backward pair: bf16 on
-    ``csrc/attention_train_mma.cu``, f32 on ``csrc/attention_train_tf32.cu``.
-    ``ptrs``: q, k, v, do, dq, dk, dv; ``strides``: their stride triples;
-    ``stats``: the forward's (m, l)."""
-    f32 = dtype == torch.float32
-    entry = (_tf32_lib().ivt_attention_train_bwd_tf32 if f32
+    """One launch of a tensor-core backward pair on heads ``dh`` wide: bf16
+    on ``csrc/attention_train_mma.cu``, f32 on
+    ``csrc/attention_train_tf32.cu``. ``ptrs``: q, k, v, do, dq, dk, dv;
+    ``strides``: their stride triples; ``stats``: the forward's (m, l)."""
+    entry = (_tf32_lib().ivt_attention_train_bwd_tf32
+             if dtype == torch.float32
              else _mma_lib().ivt_attention_train_bwd_mma)
-    dh = TRAIN_TF32_DH if f32 else TRAIN_MMA_DH
     flat = (ctypes.c_longlong * 21)(*[s for st in strides for s in st])
     with torch.cuda.device(device):
         # delta per (image, head, query row), from the dq kernel to dk / dv
@@ -427,11 +421,13 @@ def _fwd(q, k, v, n_real):
     strides = [_strides(t, None) for t in (q, k, v, o)]
     ptrs = [_ptr(t) for t in (q, k, v, o)]
     if _mma_ok(q.dtype, dh, ptrs, strides):
-        stats = _launch_fwd_mma(ptrs, strides, q.device, b, h, n, n_real)
+        stats = _launch_fwd_mma(ptrs, strides, q.device, b, h, n, dh,
+                                n_real)
         attention_train.mma_fwd_launches += 1
         return o, stats
     if _tf32_ok(q.dtype, dh, ptrs, strides):
-        stats = _launch_fwd_tf32(ptrs, strides, q.device, b, h, n, n_real)
+        stats = _launch_fwd_tf32(ptrs, strides, q.device, b, h, n, dh,
+                                 n_real)
         attention_train.tf32_fwd_launches += 1
         return o, stats
     _launch_fwd(q, k, v, o, (0, 0, 0), strides, b, h, n, dh, n_real)
@@ -455,7 +451,7 @@ def _bwd(q, k, v, do, n_real, stats=None):
     ts = (q, k, v, do, dq, dk, dv)
     ptrs, strides = [_ptr(t) for t in ts], [_strides(t, None) for t in ts]
     if stats is not None:
-        _launch_bwd_tc(ptrs, strides, stats, q.dtype, q.device, b, h, n,
+        _launch_bwd_tc(ptrs, strides, stats, q.dtype, q.device, b, h, n, dh,
                        n_real)
         if q.dtype == torch.float32:
             attention_train.tf32_bwd_launches += 1
@@ -519,11 +515,13 @@ def _packed_fwd(qkv, n_real):
     strides = [s_in, s_in, s_in, _strides(o, dh)]
     ptrs = [_ptr(qkv), _ptr(qkv, dh), _ptr(qkv, 2 * dh), _ptr(o)]
     if _mma_ok(qkv.dtype, dh, ptrs, strides):
-        stats = _launch_fwd_mma(ptrs, strides, qkv.device, b, h, n, n_real)
+        stats = _launch_fwd_mma(ptrs, strides, qkv.device, b, h, n, dh,
+                                n_real)
         attention_train_packed.mma_fwd_launches += 1
         return o, stats
     if _tf32_ok(qkv.dtype, dh, ptrs, strides):
-        stats = _launch_fwd_tf32(ptrs, strides, qkv.device, b, h, n, n_real)
+        stats = _launch_fwd_tf32(ptrs, strides, qkv.device, b, h, n, dh,
+                                 n_real)
         attention_train_packed.tf32_fwd_launches += 1
         return o, stats
     _launch_fwd(qkv, qkv, qkv, o, (0, dh, 2 * dh), strides, b, h, n, dh,
@@ -551,7 +549,7 @@ def _packed_bwd(qkv, do, n_real, stats=None):
     strides = [s_in, s_in, s_in, s_do, s_out, s_out, s_out]
     if stats is not None:
         _launch_bwd_tc(ptrs, strides, stats, qkv.dtype, qkv.device, b, h, n,
-                       n_real)
+                       dh, n_real)
         if qkv.dtype == torch.float32:
             attention_train_packed.tf32_bwd_launches += 1
         else:

@@ -80,7 +80,7 @@ ONLINE_TF32_BLOCK_K = {64: 64, 80: 32}
 # The head widths of the bf16 tensor-core kernels (csrc/flash_attention_mma.cu,
 # csrc/flash_attention_online_mma.cu), in increasing order, and the
 # alignment their 16-byte copies need, in bytes. The trainable attention's
-# tensor-core kernels keep their own width (attention_vjp.TRAIN_MMA_DH).
+# tensor-core kernels keep their own widths (attention_vjp.TRAIN_MMA_DHS).
 MMA_DHS = (64, 80)
 _MMA_WIDTHS = " or ".join(map(str, MMA_DHS))
 MMA_ALIGN = 16

@@ -46,14 +46,24 @@ limit first. The variants:
 * ``attention_train_tf32.cu`` (rows 8-9's backward, f32 on split TF32):
   streamed tiles of 32 keys or queries taken whole (the source), tiles of
   64 in halves of 32, tiles of 32 in halves of 16, and tiles of 16 taken
-  whole; held against
-  ``head_grads_reference`` (dq, dk, dv within 1e-5 of each one's largest
-  value) from the forward's own (m, l).
+  whole; heads 80 wide: tiles of 16 with the products by a streamed tile
+  one 8-column tile at a time (``mma3_acc_by_cols_dmajor``, the source),
+  the 64-wide layout widened (every 8-column tile's sums at once), tiles
+  of 32 in either order and tiles of 64 one 8-column tile at a time;
+* ``attention_train_mma.cu`` (rows 8-9's backward, bf16 on the tensor
+  cores): heads 80 wide, parts of 16 at three blocks an SM for both
+  kernels (the source), dk/dv at two, halves of 32 with dk/dv at two and
+  three, whole tiles with dk/dv at two, and dq at two;
+  each backward held against
+  ``head_grads_reference`` (f32: dq, dk, dv within 1e-5 of each one's
+  largest value; bf16: each element within 2^-6 of its plain value plus
+  2^-8 of the largest) from the forward's own (m, l).
 
 Heads 64 wide are timed at dinov2_s14_reg's and vit_b16's shapes, heads
 80 wide (the variants whose names hold ``dh80``) at vit_h14's: N = 2810
 (@742) for row 4, N = 257 (@224) and 1025 (@448) for row 3 (bf16 and
-f32).
+f32), and the train backward at train run (f)'s (B=2, 16 heads, N=257)
+and run (g)'s (B=8) shapes.
 
     python -m interactive_vit_tpu_torch.tools.kernel_variants \
         --only dh80 row4_pv_1 --baseline DIR
@@ -66,7 +76,7 @@ on one card. A header edit that must leave other kernels as they were is
 checked by their machine code instead:
 
     python -m interactive_vit_tpu_torch.tools.kernel_variants \
-        --baseline DIR --sass flash_attention_mma attention_train_mma
+        --baseline DIR --sass attention_train_mma attention_train_tf32
 
 compiles each named source here and in ``DIR`` and compares their SASS
 (``cuobjdump -sass``) kernel by kernel, instruction by instruction
@@ -106,7 +116,21 @@ ROW_TF32_PARTS = ("  return blocks <= sms ? launch_split<DH, 2>(a, s) : "
                   "launch_split<DH, 1>(a, s);")
 ONE_WALK = "constexpr bool FT_ONE_WALK_MAPS_OFF = true;"
 TRAIN_KT = "constexpr int TT_ROWS = 64, TT_THREADS = 128, TT_KT = 32;"
-TRAIN_HALF = "constexpr int TT_HALF = TT_KT,"
+TRAIN_HALF = "constexpr int TT_HALF = TT_KT;"
+# heads 80 wide: the f32 backward's streamed tile and product order, the
+# bf16 backward's part of a tile and minimum blocks an SM
+TRAIN_KT_80 = "constexpr int TT_KT_80 = 16;"
+TRAIN_D_MAJOR_80 = "constexpr bool TT_D_MAJOR_80 = true;"
+TRAIN_N_MAJOR_80 = (TRAIN_D_MAJOR_80, TRAIN_D_MAJOR_80.replace("true", "false"))
+TRAIN_MMA_80 = ("constexpr int TM_HALF_80 = 16, TM_DQ_BLOCKS_80 = 3, "
+                "TM_DKDV_BLOCKS_80 = 3;")
+
+
+def _train_mma_80(half: int = 16, dq: int = 3, dkdv: int = 3):
+    """The bf16 backward's 80-wide part of a tile and minimum blocks."""
+    return [(TRAIN_MMA_80, f"constexpr int TM_HALF_80 = {half}, "
+             f"TM_DQ_BLOCKS_80 = {dq}, TM_DKDV_BLOCKS_80 = {dkdv};")]
+
 
 # Heads 80 wide: the online kernel's PV parts and key tile; Q kept in
 # shared memory and split as each step is read (mma3_rows_smem) in place of
@@ -304,11 +328,32 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "train_bwd_kt_32_whole": ("attention_train_tf32", []),
     "train_bwd_kt_64_halves": ("attention_train_tf32", [
         (TRAIN_KT, TRAIN_KT.replace("TT_KT = 32", "TT_KT = 64")),
-        (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2,")]),
+        (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2;")]),
     "train_bwd_kt_32_halves": ("attention_train_tf32", [
-        (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2,")]),
+        (TRAIN_HALF, "constexpr int TT_HALF = TT_KT / 2;")]),
     "train_bwd_kt_16_whole": ("attention_train_tf32", [
         (TRAIN_KT, TRAIN_KT.replace("TT_KT = 32", "TT_KT = 16"))]),
+    "train_bwd_dh80_kt_16_d_major": ("attention_train_tf32", []),
+    "train_bwd_dh80_kt_16_n_major": ("attention_train_tf32",
+                                     [TRAIN_N_MAJOR_80]),
+    "train_bwd_dh80_kt_32_d_major": ("attention_train_tf32", [
+        (TRAIN_KT_80, TRAIN_KT_80.replace("16", "32"))]),
+    "train_bwd_dh80_kt_32_n_major": ("attention_train_tf32", [
+        (TRAIN_KT_80, TRAIN_KT_80.replace("16", "32")), TRAIN_N_MAJOR_80]),
+    "train_bwd_dh80_kt_64_d_major": ("attention_train_tf32", [
+        (TRAIN_KT_80, TRAIN_KT_80.replace("16", "64"))]),
+    "train_mma_halves_32": ("attention_train_mma", []),
+    "train_mma_dh80_halves_16_dkdv_3": ("attention_train_mma", []),
+    "train_mma_dh80_halves_16_dkdv_2": ("attention_train_mma",
+                                        _train_mma_80(dkdv=2)),
+    "train_mma_dh80_halves_32_dkdv_2": ("attention_train_mma",
+                                        _train_mma_80(half=32, dkdv=2)),
+    "train_mma_dh80_halves_32_dkdv_3": ("attention_train_mma",
+                                        _train_mma_80(half=32)),
+    "train_mma_dh80_whole_dkdv_2": ("attention_train_mma",
+                                    _train_mma_80(half=64, dkdv=2)),
+    "train_mma_dh80_halves_16_dq_2": ("attention_train_mma",
+                                      _train_mma_80(dq=2)),
     "row2_mma_kt_64_workspace": ("headwise_attn_block_mma", []),
     "row2_mma_kt_128": ("headwise_attn_block_mma", [
         (ROW2_MMA_KT, ROW2_MMA_KT.replace("64", "128"))]),
@@ -338,6 +383,8 @@ ENTRIES = {
                              fa.FLASH_TF32_ARGTYPES),
     "attention_train_tf32": ("ivt_attention_train_bwd_tf32",
                              av.TRAIN_TF32_BWD_ARGTYPES),
+    "attention_train_mma": ("ivt_attention_train_bwd_mma",
+                            av.TRAIN_MMA_BWD_ARGTYPES),
     "headwise_attn_block_mma": ("ivt_headwise_attn_block_mma",
                                 fb.HEADWISE_TC_ARGTYPES),
     "headwise_attn_block_tf32": ("ivt_headwise_attn_block_tf32x3",
@@ -518,8 +565,8 @@ def call(lib, name, q, k, v, maps=False, n_real=None):
     return o, probs
 
 
-def call_bwd(lib, q, k, v, do, stats, n_real=None):
-    """One launch of a backward variant on [B, H, N, 64] views, from the
+def call_bwd(lib, name, q, k, v, do, stats, n_real=None):
+    """One launch of a backward variant on [B, H, N, dh] views, from the
     forward's (m, l) ``stats``: (dq, dk, dv)."""
     b, h, n, dh = q.shape
     grads = [torch.empty((b, n, h, dh), dtype=q.dtype,
@@ -527,7 +574,7 @@ def call_bwd(lib, q, k, v, do, stats, n_real=None):
     delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     ts = (q, k, v, do, *grads)
     flat = (ctypes.c_longlong * 21)(*[s for t in ts for s in t.stride()[:3]])
-    err = lib.ivt_attention_train_bwd_tf32(
+    err = getattr(lib, ENTRIES[_source_of(name)][0])(
         *(t.data_ptr() for t in ts), stats.data_ptr(), delta.data_ptr(),
         ctypes.addressof(flat), b, h, n, dh, n if n_real is None else n_real,
         float(dh) ** -0.5, fa.MASK_VALUE,
@@ -656,21 +703,37 @@ def check(name, got, ref, dtype, n_real=None) -> str:
     return f"{use:.2f} of the bound"
 
 
-def train_group(libs, names, shapes) -> None:
+def train_use(got, ref, dtype) -> float:
+    """The largest share of the train bound over dq, dk, dv: f32 1e-5 of
+    each one's largest value; bf16 each element 2^-6 of its plain value
+    plus 2^-8 of the largest."""
+    def one(x, r):
+        x, r = x.float(), r.float()
+        scale = r.abs().max()
+        if dtype == torch.float32:
+            return ((x - r).abs().max() / (1e-5 * scale)).item()
+        return ((x - r).abs() / (2.0 ** -6 * r.abs() + 2.0 ** -8 * scale)
+                ).max().item()
+    return max(one(x, r) for x, r in zip(got, ref))
+
+
+def train_group(libs, names, dtype, shapes, dh=64) -> None:
     """The backward variants against ``head_grads_reference`` and timed,
-    from the split-TF32 forward's own (m, l)."""
+    from the tensor-core forward's own (m, l)."""
     for b, h, n, n_real in shapes:
-        q, k, v = qkv_views(b, n, h, torch.float32, seed=n + h)
+        q, k, v = qkv_views(b, n, h, dtype, seed=n + h, dh=dh)
         g = torch.Generator().manual_seed(n)
-        do = torch.randn((b, h, n, 64), generator=g).to("cuda")
+        do = torch.randn((b, h, n, dh), generator=g).to("cuda", dtype)
         nr = n if n_real is None else n_real
         _, stats = av._fwd(q, k, v, nr)
         ref = av.head_grads_reference(q, k, v, do, n_real)
         for name in names:
-            got = call_bwd(libs[name], q, k, v, do, stats, n_real)
+            got = call_bwd(libs[name], name, q, k, v, do, stats, n_real)
             torch.cuda.synchronize()
-            use = max(((x - r).abs().max() / (1e-5 * r.abs().max())).item()
-                      for x, r in zip(got, ref))
+            use = train_use(got, ref, dtype)
+            if n_real is not None and not all(
+                    torch.all(x[:, :, n_real:] == 0) for x in got[1:]):
+                raise AssertionError(f"{name}: masked keys got dk or dv")
             if use > 1.0:
                 raise AssertionError(f"{name}: {use:.2f} of its bound")
             print(f"  {name} {(b, h, n)} n_real={n_real}: {use:.2f} of the "
@@ -681,8 +744,9 @@ def train_group(libs, names, shapes) -> None:
         for order in (names, names[::-1]):
             for name in order:
                 times[name].append(time_ms(
-                    lambda: call_bwd(libs[name], q, k, v, do, stats)))
-        print(f"  attention_train_tf32 backward {(b, h, n)}: " + ", ".join(
+                    lambda: call_bwd(libs[name], name, q, k, v, do, stats)))
+        print(f"  {_source_of(names[0])} backward {(b, h, n, dh)} "
+              f"{str(dtype)[6:]}: " + ", ".join(
             f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
             for name, t in times.items()), flush=True)
 
@@ -739,6 +803,14 @@ def main(argv=None) -> int:
         # N=197), keys masked beyond 197 of 208
         ("attention_train_tf32", 64): (torch.float32, [
             (64, 3, 197, None), (64, 12, 197, None), (8, 2, 208, 197)]),
+        ("attention_train_mma", 64): (torch.bfloat16, [
+            (64, 3, 197, None), (64, 12, 197, None), (8, 2, 208, 197)]),
+        # vit_h14's: train run (f) (B=2) and run (g) (B=8), 16 heads 80
+        # wide, N=257; keys masked beyond 257 of 272
+        ("attention_train_tf32", 80): (torch.float32, [
+            (2, 16, 257, None), (8, 16, 257, None), (2, 4, 272, 257)]),
+        ("attention_train_mma", 80): (torch.bfloat16, [
+            (2, 16, 257, None), (8, 16, 257, None), (2, 4, 272, 257)]),
         # row 2: vit_l16@384 at B=1 and 4 (heads 64 wide); vit_h14@742 and
         # @224 (80 wide); (B, N, D, heads)
         ("headwise_attn_block_mma", 64): (torch.bfloat16, [
@@ -762,8 +834,8 @@ def main(argv=None) -> int:
             continue
         if args.baseline is not None and dh == 64:
             group.append(f"baseline:{source}")
-        if source == "attention_train_tf32":
-            train_group(libs, group, shapes)
+        if source.startswith("attention_train"):
+            train_group(libs, group, dtype, shapes, dh)
             continue
         row3 = source != "flash_attention_online_tf32"
         for b, h, n, n_real in shapes:

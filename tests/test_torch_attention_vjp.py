@@ -94,9 +94,12 @@ def _within_bf16(got, want):
     return bool(np.all(np.abs(got - want) <= bound))
 
 
-@pytest.mark.parametrize("n,n_real", [(197, None), (208, 197)])
-def test_attention_train_bf16_grads_match_pallas(n, n_real):
-    q, k, v, ct = _arrays((2, 2, n, 64), 4, seed=n + 1)
+@pytest.mark.parametrize("dh,n,n_real", [
+    (64, 197, None), (64, 208, 197),
+    # vit_h14's heads, 80 wide (the bf16 tensor-core route on a card)
+    (80, 33, None), (80, 130, 100)])
+def test_attention_train_bf16_grads_match_pallas(dh, n, n_real):
+    q, k, v, ct = _arrays((2, 2, n, dh), 4, seed=n + 1)
     jo, jgrads = _jax_value_and_grads(
         functools.partial(jav.attention_train, n_real=n_real), (q, k, v), ct,
         jnp.bfloat16)
@@ -109,6 +112,9 @@ def test_attention_train_bf16_grads_match_pallas(n, n_real):
         # the bound refuses a gradient zeroed or halved
         assert not _within_bf16(g * 0.5, jg)
         assert not _within_bf16(np.zeros_like(g), jg)
+    if n_real is not None:  # masked keys' dk and dv exactly 0
+        assert not grads[1][:, :, n_real:].any()
+        assert not grads[2][:, :, n_real:].any()
 
 
 @pytest.mark.parametrize("n_real", [None, 4])

@@ -1009,14 +1009,16 @@ def _check_grads(got, ref, dtype):
 
 # (B, H, N, dh, n_real): vit_b16's and vit_t16's train shapes, keys masked
 # beyond 197 of 208, vit_l16@384's N=577, ragged small shapes, dh=128,
-# TRAIN_MAX_N, B=1 and 8, vit_h14's heads (80 wide, N=257: the FMA pair in
-# both dtypes) (bf16 at dh=64 runs on the tensor cores)
+# TRAIN_MAX_N, B=1 and 8, vit_h14's heads (80 wide, N=257, and keys masked
+# beyond 257 of 272: the tensor cores in both dtypes on the grid) (dh=64
+# and 80 run on the tensor cores)
 TRAIN_SHAPES = [(4, 12, 197, 64, None), (4, 3, 197, 64, None),
                 (8, 3, 197, 64, None), (1, 3, 197, 64, None),
                 (2, 2, 208, 64, 197), (2, 4, 577, 64, None),
                 (3, 2, 17, 64, None), (3, 2, 17, 16, None),
                 (1, 2, 300, 128, None), (1, 1, 1024, 64, None),
-                (2, 4, 257, 80, None)]
+                (2, 4, 257, 80, None), (2, 2, 272, 80, 257),
+                (3, 2, 17, 80, None)]
 
 
 def _train_counts(fn):
@@ -1026,11 +1028,12 @@ def _train_counts(fn):
 
 def _route(dtype, dh, pad=0):
     """The trainable attention's route: heads of its tensor-core kernels'
-    width (64: ``TRAIN_MMA_DH`` in bf16, ``TRAIN_TF32_DH`` in f32) on the
-    16-byte grid run on the tensor cores (bf16, or f32 on split TF32), the
-    rest (heads 80 wide among them) on FMA."""
-    tc_dh = av.TRAIN_MMA_DH if dtype == torch.bfloat16 else av.TRAIN_TF32_DH
-    if dh != tc_dh or pad:
+    widths (64 and 80: ``TRAIN_MMA_DHS`` in bf16, ``TRAIN_TF32_DHS`` in
+    f32) on the 16-byte grid run on the tensor cores (bf16, or f32 on split
+    TF32), the rest on FMA."""
+    tc_dhs = (av.TRAIN_MMA_DHS if dtype == torch.bfloat16
+              else av.TRAIN_TF32_DHS)
+    if dh not in tc_dhs or pad:
         return "fma"
     return "mma" if dtype == torch.bfloat16 else "tf32"
 
@@ -1146,10 +1149,13 @@ def _stats_within(got, ref):
 @pytest.mark.parametrize("shape", [(4, 12, 197, 64, None),
                                    (2, 2, 208, 64, 197),
                                    (2, 4, 577, 64, None),
-                                   (3, 2, 17, 64, None)])
+                                   (3, 2, 17, 64, None),
+                                   (2, 16, 257, 80, None),
+                                   (2, 2, 272, 80, 257)])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_train_mma_forward_saves_the_row_statistics(cuda, shape, dtype):
-    """Both tensor-core forwards (bf16 and split TF32) save (m, l)."""
+    """Both tensor-core forwards (bf16 and split TF32) save (m, l), at
+    heads 64 and 80 wide; the packed layout (heads 64 wide) the same."""
     b, h, n, dh, n_real = shape
     g = torch.Generator().manual_seed(n + 1)
     qkv = torch.randn((b, n, 3 * h * dh), generator=g).to(cuda, dtype)
@@ -1162,6 +1168,8 @@ def test_train_mma_forward_saves_the_row_statistics(cuda, shape, dtype):
     ref = av.row_stats_reference(q, k, n_real)
     assert _stats_within((stats[0], stats[1]), ref)
     assert not _stats_within((stats[0], stats[1] * 0.5), ref)
+    if dh != av.PACKED_DH:
+        return
     # the packed layout gives the same rows
     o_p, stats_p = av._packed_fwd(
         qkv.reshape(b, n, 3, h, dh).transpose(2, 3).reshape(b, n, 3 * h * dh),
@@ -1172,17 +1180,21 @@ def test_train_mma_forward_saves_the_row_statistics(cuda, shape, dtype):
 
 
 def test_train_mma_routes_by_dtype_width_and_alignment(cuda):
-    """bf16 at dh=64 on aligned views: the tensor cores; f32 at dh=64 on
-    aligned views: split TF32; dh=128 and misaligned bf16 or f32 views:
-    FMA; every route agrees with the plain version."""
+    """bf16 at dh=64 or 80 on aligned views: the tensor cores; f32 at
+    dh=64 or 80 on aligned views: split TF32; dh=128 and misaligned bf16 or
+    f32 views: FMA; every route agrees with the plain version."""
     g = torch.Generator().manual_seed(5)
     cases = [((2, 3, 100, 64), torch.bfloat16, 0, "mma"),
              ((2, 3, 100, 64), torch.float32, 0, "tf32"),
              ((2, 3, 100, 128), torch.bfloat16, 0, "fma"),
              ((2, 3, 100, 64), torch.bfloat16, 4, "fma"),
              ((2, 3, 100, 64), torch.float32, 2, "fma"),
-             # heads 80 wide: the split-TF32 backward is 64 wide only
-             ((2, 3, 100, 80), torch.float32, 0, "fma")]
+             # heads 80 wide (vit_h14's): each dtype's tensor cores on
+             # the grid, the FMA pair off it
+             ((2, 3, 100, 80), torch.float32, 0, "tf32"),
+             ((2, 3, 100, 80), torch.bfloat16, 0, "mma"),
+             ((2, 3, 100, 80), torch.float32, 2, "fma"),
+             ((2, 3, 100, 80), torch.bfloat16, 4, "fma")]
     for (b, h, n, dh), dtype, pad, route in cases:
         x = torch.randn((b, n, 3 * h * dh + pad), generator=g).to(cuda, dtype)
         q, k, v = (x[..., :3 * h * dh].reshape(b, n, 3, h, dh)[:, :, i]

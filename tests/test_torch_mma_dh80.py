@@ -1,14 +1,17 @@
-"""The bf16 tensor-core route of rows 3 and 4 at heads 80 wide (vit_h14's
-heads), on the CPU: the route's widths (the trainable attention's stays
-at its own; the route predicate's 80-wide cases are in
-``tests/test_torch_mma_attention.py``), the plain versions against the JAX package's Pallas
-kernels in interpret mode at dh=80 on shared inputs, an emulation of the
+"""The tensor-core routes at heads 80 wide (vit_h14's heads), on the CPU:
+rows 3 and 4 in bf16, and the trainable attention (row 8) in bf16 and f32.
+The routes' widths (the trainable attention's are its own; the packed
+layout stays 64 wide; the route predicate's 80-wide cases of rows 3-4 are
+in ``tests/test_torch_mma_attention.py``), the train routes on and off the
+16-byte grid, the plain versions against the JAX package's Pallas kernels
+in interpret mode at dh=80 on shared inputs, an emulation of the
 row-resident kernel's key parts against the JAX kernel, the wrappers' CPU
 path, and the libraries' width entries and the loaders' check of them.
 
 The kernels themselves (``csrc/flash_attention_mma.cu``,
-``csrc/flash_attention_online_mma.cu``, one instantiation a width) run
-only on the card: their ``cuda``-marked tests are in
+``csrc/flash_attention_online_mma.cu``, ``csrc/attention_train_mma.cu``,
+``csrc/attention_train_tf32.cu``, one instantiation a width) run only on
+the card: their ``cuda``-marked tests are in
 ``tests/test_torch_cuda_kernel.py``.
 
 Tolerances, as ``tests/test_torch_online_flash.py`` and
@@ -19,9 +22,11 @@ to the other bf16 neighbour: 2^-6 of the output's scale; a probs element
 within one bf16 ulp of its own value (2^-7 of it, plus 1e-6).
 """
 
+import ctypes
 import functools
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -53,10 +58,13 @@ def pallas_interpret(monkeypatch):
 # -- the route predicate ----------------------------------------------------------
 
 def test_mma_widths():
-    """The route's widths, in increasing order, and the train route's own
-    width, which stays 64."""
+    """The route's widths, in increasing order, and the train routes' own
+    widths: 64 and 80 in both dtypes, each of them a width of the
+    forward's row-3 kernels; the packed layout's heads stay 64 wide."""
     assert fa.MMA_DHS == (64, 80)
-    assert av.TRAIN_MMA_DH == av.TRAIN_TF32_DH == 64
+    assert av.TRAIN_MMA_DHS == av.TRAIN_TF32_DHS == (64, 80)
+    assert set(av.TRAIN_TF32_DHS) <= set(fa.TF32_DHS)
+    assert av.PACKED_DH == 64
 
 
 def _layout(layout, dtype, dh, pad=0):
@@ -76,27 +84,43 @@ def _layout(layout, dtype, dh, pad=0):
 
 @pytest.mark.parametrize("layout", ["bhnd", "packed"])
 def test_train_route_stays_64_wide(layout):
-    """bf16 heads 80 wide on the 16-byte grid: rows 3-4 take the tensor
-    cores, the trainable attention does not (its kernels are 64 wide), in
-    both of its layouts; at 64 wide both do."""
+    """bf16 heads 80 wide on the 16-byte grid: rows 3-4 and the trainable
+    attention both take the tensor cores, in both of its layouts' pointer
+    and stride shapes; the packed layout itself stays 64 wide (its
+    kernels are chosen by ``packed_ok``, which asks for ``PACKED_DH``), and
+    64 wide takes the tensor cores as before."""
     ptrs, strides, views = _layout(layout, BF16, 80)
     flat = [s for st in strides for s in st]
     assert fa.mma_route(BF16, 80, ptrs, flat)
-    assert av._mma_ok(BF16, 80, ptrs, strides) is False
-    assert av._tc_ok(BF16, 80, ptrs, strides) is False
+    assert av._mma_ok(BF16, 80, ptrs, strides) is True
+    assert av._tc_ok(BF16, 80, ptrs, strides) is True
+    assert av._tf32_ok(BF16, 80, ptrs, strides) is False
     if views is not None:
         assert fa._mma_operands(*views)
+    assert av.packed_ok(16, 80, 257) is False
+    assert av.packed_ok(16, 64, 257) is True
     ptrs, strides, _ = _layout(layout, BF16, 64)
     assert av._mma_ok(BF16, 64, ptrs, strides) is True
 
 
 @pytest.mark.parametrize("layout", ["bhnd", "packed"])
-@pytest.mark.parametrize("dtype,pad", [(BF16, 4), (F32, 0), (F32, 2)])
+@pytest.mark.parametrize("dtype,pad", [
+    (BF16, 4), (F32, 0), (F32, 2),
+    (BF16, 0), (BF16, 8),   # a token 16 bytes longer: still on the grid
+    (BF16, 2), (F32, 4), (F32, 1),
+])
 def test_train_route_at_80_wide_is_the_fma_pair(layout, dtype, pad):
-    """Heads 80 wide in either dtype, on or off the grid: neither
-    tensor-core train route."""
+    """Heads 80 wide: the FMA pair only off the 16-byte grid; on it,
+    ``_mma_ok`` (bf16) or ``_tf32_ok`` (f32) takes them, never the other
+    dtype's; other widths are neither route's."""
     ptrs, strides, _ = _layout(layout, dtype, 80, pad)
-    assert av._tc_ok(dtype, 80, ptrs, strides) is False
+    on_grid = pad * (2 if dtype == BF16 else 4) % 16 == 0
+    assert av._tc_ok(dtype, 80, ptrs, strides) is on_grid
+    assert av._mma_ok(dtype, 80, ptrs, strides) is (on_grid and dtype == BF16)
+    assert av._tf32_ok(dtype, 80, ptrs, strides) is (on_grid and dtype == F32)
+    for dh in (48, 96, 128):
+        ptrs, strides, _ = _layout(layout, dtype, dh, pad)
+        assert av._tc_ok(dtype, dh, ptrs, strides) is False
 
 
 # -- the plain versions against JAX at 80 wide ---------------------------------------
@@ -276,6 +300,8 @@ def _source(name):
 @pytest.mark.parametrize("source,entry", [
     ("flash_attention_mma.cu", "ivt_flash_mma_dh"),
     ("flash_attention_online_mma.cu", "ivt_online_mma_dh"),
+    ("attention_train_mma.cu", "ivt_train_mma_dh"),
+    ("attention_train_tf32.cu", "ivt_train_tf32_dh"),
 ])
 def test_width_entries_take_one_int(source, entry):
     """The i-th width: one int parameter, as the loader binds it."""
@@ -300,6 +326,27 @@ def test_sources_are_built_for_the_route_widths(source, array):
         assert f"<{dh}>" in src or f"<{dh}," in src
 
 
+@pytest.mark.parametrize("source,array,dhs", [
+    ("attention_train_mma.cu", "TM_DHS", av.TRAIN_MMA_DHS),
+    ("attention_train_tf32.cu", "TT_DHS", av.TRAIN_TF32_DHS),
+])
+def test_train_sources_are_built_for_the_route_widths(source, array, dhs):
+    """Each train source's list of instantiated widths is its route's, its
+    entries refuse any other width, and both kernels of the backward (and
+    the bf16 forward) are instantiated at each."""
+    src = _source(source)
+    listed = re.search(r"constexpr int " + array + r"\[\] = \{([^}]*)\}",
+                       src).group(1)
+    assert tuple(int(x) for x in listed.split(",")) == dhs
+    assert ("(dh == 64 || dh == 80)" in src
+            or "(dh != 64 && dh != 80)" in src)
+    for dh in dhs:
+        assert f"launch_bwd<{dh}>" in src
+    if source == "attention_train_mma.cu":
+        for dh in dhs:
+            assert f"train_fwd_mma_kernel<{dh}>" in src
+
+
 def _widths(dhs):
     """A library's ``ivt_*_dh(i)``: the i-th of ``dhs``, 0 past the last."""
     return lambda i: dhs[i] if 0 <= i < len(dhs) else 0
@@ -322,3 +369,69 @@ def test_mma_dh_check_refuses_a_library_that_disagrees(source, dhs, ok):
     with pytest.raises(RuntimeError, match="MMA_DHS disagree"):
         fa.check_mma_dhs(_widths(dhs), source)
 
+
+
+class _Entry:
+    """A C entry's stand-in: takes ctypes' argtypes / restype, and calls
+    ``fn``."""
+
+    def __init__(self, fn=None):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args)
+
+
+def _fake_library(entries, dhs):
+    """A stand-in for a loaded kernel library whose width entry (the last
+    of ``entries``) reports ``dhs``."""
+    lib = types.SimpleNamespace(**{name: _Entry() for name in entries})
+    lib.__dict__[entries[-1]] = _Entry(_widths(dhs))
+    return lib
+
+
+TRAIN_LIBS = {
+    "attention_train_mma": ("_mma_lib", "load_mma_kernel", "TRAIN_MMA_DHS",
+                            ["ivt_attention_train_fwd_mma",
+                             "ivt_attention_train_bwd_mma",
+                             "ivt_train_mma_dh"]),
+    "attention_train_tf32": ("_tf32_lib", "load_tf32_kernel",
+                             "TRAIN_TF32_DHS",
+                             ["ivt_attention_train_bwd_tf32",
+                              "ivt_train_tf32_dh"]),
+}
+
+
+@pytest.mark.parametrize("dhs,ok", [
+    ((64, 80), True),
+    ((64,), False),       # a library built before heads 80 wide
+    ((80,), False),
+    ((80, 64), False),    # the order is part of the contract
+    ((64, 80, 96), False),
+    ((), False),
+])
+@pytest.mark.parametrize("name", sorted(TRAIN_LIBS))
+def test_train_loaders_refuse_a_library_that_disagrees(monkeypatch, name,
+                                                       dhs, ok):
+    """``load_mma_kernel`` / ``load_tf32_kernel`` bind the width entry as
+    one int parameter, read the library's widths through it and raise
+    unless they are the route's: a train step must never reach a library
+    without its width's instantiation."""
+    binder, loader, route, entries = TRAIN_LIBS[name]
+    lib = _fake_library(entries, dhs)
+    built = []
+    monkeypatch.setattr(cuda_build, "load",
+                        lambda source: built.append(source) or lib)
+    # the f32 loader builds and checks row 3's forward first
+    monkeypatch.setattr(fa, "load_tf32_kernel", lambda: None)
+    load = getattr(av, loader)
+    if ok:
+        assert load() is lib
+    else:
+        with pytest.raises(RuntimeError, match=route + " disagree"):
+            load()
+    assert built[0] == name
+    width = getattr(lib, entries[-1])
+    assert width.argtypes == [ctypes.c_int]
+    assert width.restype is ctypes.c_int
+    assert getattr(av, binder)() is lib

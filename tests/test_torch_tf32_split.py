@@ -11,7 +11,8 @@ against the JAX package on shared inputs, and the wrappers' CPU path:
 * rows 8-9's backward, ``csrc/attention_train_tf32.cu`` ((a) dq from S = Q
   K^T, (b) dk and dv from S^T = K Q^T, both from the forward's saved (m,
   l)), with row 3's emulation as the forward, against ``jax.vjp`` of the
-  JAX ``attention_train`` and ``attention_train_packed``.
+  JAX ``attention_train`` (heads 64 and 80 wide) and
+  ``attention_train_packed``.
 
 The kernels themselves run only on the card: their ``cuda``-marked tests
 are in ``tests/test_torch_cuda_kernel.py``; their C entries' ctypes
@@ -48,6 +49,7 @@ stay near 1e-6 of the scale; plain TF32's 2^-11 per operand does not.
 
 import functools
 import os
+import re
 
 import numpy as np
 import pytest
@@ -398,20 +400,46 @@ def _jax_vjp(fn, arrays, ct):
     return [np.asarray(out)] + [np.asarray(g) for g in vjp(jnp.asarray(ct))]
 
 
+def train_tile(dh: int) -> int:
+    """The backward kernel's streamed tile at head width ``dh``, as
+    ``csrc/attention_train_tf32.cu`` sets it (``TT_KT``, ``TT_KT_80``)."""
+    with open(os.path.join(cuda_build.CSRC_DIR,
+                           "attention_train_tf32.cu")) as f:
+        src = f.read()
+    name = "TT_KT" if dh == 64 else f"TT_KT_{dh}"
+    return int(re.search(r"\b" + name + r" = (\d+)", src).group(1))
+
+
 def _emulated_train(q, k, v, do, n_real, matmul, parts):
+    """o, dq, dk, dv: row 3's forward emulation, then the backward's at
+    the kernel's tile for the head width."""
     o, _, stats = rowfull_emulated(q, k, v, n_real, matmul, parts)
-    return [o, *backward_emulated(q, k, v, do, stats, n_real, matmul)]
+    return [o, *backward_emulated(q, k, v, do, stats, n_real, matmul,
+                                  tile=train_tile(q.shape[-1]))]
 
 
-@pytest.mark.parametrize("b,h,n,n_real,parts", [
-    (2, 2, 197, None, 1),   # vit_t16's N: four 64-row tiles, 77% real
-    (1, 3, 208, 197, 1),    # keys masked beyond n_real
-    (1, 2, 130, None, 2),
+@pytest.mark.parametrize("dh,b,h,n,n_real,parts", [
+    (64, 2, 2, 197, None, 1),   # vit_t16's N: four 64-row tiles, 77% real
+    (64, 1, 3, 208, 197, 1),    # keys masked beyond n_real
+    (64, 1, 2, 130, None, 2),
+    # vit_h14's heads, 80 wide: one query tile, a ragged key tile; keys
+    # masked inside the seventh of nine 16-key tiles; the forward's two
+    # parts
+    (80, 1, 2, 33, None, 1),
+    (80, 1, 2, 130, 100, 1),
+    (80, 1, 2, 130, None, 2),
 ])
-def test_train_split_emulation_matches_jax_vjp(pallas_interpret, b, h, n,
+def test_train_split_emulation_matches_jax_vjp(pallas_interpret, dh, b, h, n,
                                                n_real, parts):
-    q, k, v, do = _qkv(b, h, n, av.TRAIN_TF32_DH, seed=n + 7) + _qkv(
-        b, h, n, av.TRAIN_TF32_DH, seed=n + 8)[:1]
+    """Row 3's split-TF32 forward (its ``parts`` key parts) and the
+    backward's split products at the kernel's own tiles (32 at 64 wide, 16
+    at 80; the 80-wide kernel takes the products one 8-column tile at a
+    time, which sums the same products in the same order) against
+    ``jax.vjp`` of the JAX kernel, at both widths."""
+    assert dh in av.TRAIN_TF32_DHS
+    assert train_tile(dh) == {64: 32, 80: 16}[dh]
+    q, k, v, do = _qkv(b, h, n, dh, seed=n + 7) + _qkv(
+        b, h, n, dh, seed=n + 8)[:1]
     want = _jax_vjp(functools.partial(jav.attention_train, n_real=n_real),
                     (q, k, v), do)
     tq, tk, tv, tdo = (torch.from_numpy(t) for t in (q, k, v, do))
@@ -461,11 +489,13 @@ def test_packed_train_split_emulation_matches_jax_vjp(pallas_interpret, n,
 
 
 # (dtype, pad elements a token, dh, split-TF32 route?)
-# (heads 80 wide: the split-TF32 forward takes them, the backward does not,
-# so the trainable attention keeps the FMA pair)
+# (heads 80 wide, vit_h14's: the split-TF32 forward and backward take them
+# on the 16-byte grid; off it the trainable attention keeps the FMA pair)
 TRAIN_ROUTE_CASES = [(F32, 0, 64, True), (F32, 4, 64, True),
                      (F32, 2, 64, False), (F32, 0, 128, False),
-                     (BF16, 0, 64, False), (F32, 0, 80, False)]
+                     (BF16, 0, 64, False), (F32, 0, 80, True),
+                     (F32, 4, 80, True), (F32, 2, 80, False),
+                     (BF16, 0, 80, False)]
 
 
 @pytest.mark.parametrize("layout", ["bhnd", "packed"])
@@ -489,9 +519,10 @@ def test_tf32_route_of_the_train_layouts(layout, dtype, pad, dh, want):
     assert av._tc_ok(dtype, dh, ptrs, strides) is (
         want or av._mma_ok(dtype, dh, ptrs, strides))
     assert not (want and av._mma_ok(dtype, dh, ptrs, strides))
-    if dh == 80:  # aligned: row 3's split-TF32 route would take the forward
+    # the train route at 80 wide is row 3's split-TF32 route (its forward)
+    if dh == 80 and dtype == F32:
         assert fa.tf32_route(dtype, dh, ptrs,
-                             [s for st in strides for s in st])
+                             [s for st in strides for s in st]) is want
 
 
 # -- the wrappers on the CPU ---------------------------------------------------------
@@ -547,10 +578,10 @@ def test_wrappers_keep_the_plain_versions_on_the_cpu(n_real, dh):
 @pytest.mark.parametrize("dh", fa.TF32_DHS)
 @pytest.mark.parametrize("n_real", [None, 33])
 def test_train_wrappers_keep_the_plain_versions_on_the_cpu(n_real, dh):
-    """f32 heads of 64 (the split-TF32 route on a card) or 80 (the FMA
-    pair on a card): on CPU tensors the autograd Functions run the plain
-    versions, save no statistics and count no launch; the packed layout
-    (heads of ``PACKED_DH``) at 64 only."""
+    """f32 heads of 64 or 80 (the split-TF32 route on a card): on CPU
+    tensors the autograd Functions run the plain versions, save no
+    statistics and count no launch; the packed layout (heads of
+    ``PACKED_DH``) at 64 only."""
     g = torch.Generator().manual_seed(2)
     b, h, n = 2, 2, 40
     nr = n if n_real is None else n_real
