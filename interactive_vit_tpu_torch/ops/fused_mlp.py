@@ -24,6 +24,26 @@ The W8A8 variant has the same three pieces: ``fused_mlp_w8a8_block``
 the activation dtype and back, per-row ``quant_rows_mosaic`` (half up),
 exact s8 x s8 -> s32 products, ``acc.f32 * (sx * s_w) + b``, the tanh GELU
 on the activation dtype, per-row requantization, and the residual in f32.
+
+Both have a second kernel on Hopper's tensor cores, chosen by each
+wrapper by dtype, shape and 16-byte alignment (``mlp_route``,
+``w8a8_route``), never by a failed build or launch:
+
+* ``fused_mlp_block_mma`` (bf16, ``csrc/fused_mlp_block_mma.cu``, count
+  ``fused_mlp_block_mma.launches``) and ``fused_mlp_w8a8_block_mma``
+  (bf16 or f32 activations, ``csrc/fused_mlp_w8a8_mma.cu``, count
+  ``fused_mlp_w8a8_block_mma.launches``): rows a multiple of ``MMA_CHUNK``
+  wide up to ``MMA_MAX_WIDTH``, a hidden dimension of whole chunks, the
+  operands 16-byte aligned, the block's shared memory inside the
+  card's. A cluster of ``cluster_size(mlp_dim)`` blocks takes a tile of
+  32 or 64 rows (``row_tile``) and each block a slice of the hidden
+  dimension; fc2's partial sums are added over the cluster in rank order,
+  so two calls give the same bits. The FMA and
+  ``__dp4a`` kernels above keep every other operand and count their own
+  launches only.
+
+The 16-byte alignment these routes need is that of every operand they read
+with 16-byte loads: x, ln2_s, ln2_b and the (int8) weight matrices.
 """
 
 from __future__ import annotations
@@ -45,6 +65,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # and one chunk of h take 98 KB of a block's shared memory, always inside
 # the limit). ``load_kernel`` checks the number against the library's.
 MAX_WIDTH = 5 * 256
+
+# The C entries' parameters: the FMA kernel's (dtype, 8 pointers, M, D, MD,
+# eps, stream), the bf16 tensor-core kernel's (no dtype; the row tile after
+# MD), the __dp4a kernel's (dtype, 14 pointers, M, D, MD, eps, stream) and
+# the int8 tensor-core kernel's (the row tile after MD).
+MLP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+                + [ctypes.c_float, ctypes.c_void_p])
+MLP_MMA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
+                    + [ctypes.c_float, ctypes.c_void_p])
+W8A8_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 14
+                 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p])
+W8A8_MMA_ARGTYPES = W8A8_ARGTYPES[:18] + [ctypes.c_int] + W8A8_ARGTYPES[18:]
 
 
 def fits(d: int, mlp_dim: int) -> bool:
@@ -77,9 +109,7 @@ def _kernel_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("fused_mlp_block")
     if not getattr(lib, "_ivt_bound", False):
-        lib.ivt_fused_mlp_block.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_void_p])
+        lib.ivt_fused_mlp_block.argtypes = MLP_ARGTYPES
         lib.ivt_fused_mlp_block.restype = ctypes.c_int
         lib.ivt_mlp_max_width.argtypes = []
         lib.ivt_mlp_max_width.restype = ctypes.c_int
@@ -127,13 +157,17 @@ def fused_mlp_block(x: torch.Tensor, p: Params,
                     eps: float = 1e-6) -> torch.Tensor:
     """x [B, N, D] -> x + MLP(LN2(x)) in one kernel launch; x must be
     contiguous. ``p`` holds ln2_s, ln2_b, fc1_w [D, 4D], fc1_b, fc2_w
-    [4D, D], fc2_b."""
+    [4D, D], fc2_b. Operands that ``mlp_route`` sends to the tensor cores
+    go to ``fused_mlp_block_mma``, which counts them; this wrapper counts
+    the FMA kernel's launches."""
     if x.device.type == "cpu":
         return fused_mlp_block_reference(x, p, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block runs on cuda or cpu tensors, got "
                          f"{x.device}")
     _check_operands(x, p)
+    if _mlp_route_of(x, p) == "mma":
+        return fused_mlp_block_mma(x, p, eps)
     b, n, d = x.shape
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
@@ -221,9 +255,7 @@ def _w8a8_lib() -> ctypes.CDLL:
 
     lib = cuda_build.load("fused_mlp_w8a8_block")
     if not getattr(lib, "_ivt_bound", False):
-        lib.ivt_fused_mlp_w8a8_block.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 14 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_void_p])
+        lib.ivt_fused_mlp_w8a8_block.argtypes = W8A8_ARGTYPES
         lib.ivt_fused_mlp_w8a8_block.restype = ctypes.c_int
         lib.ivt_mlp_w8a8_max_width.argtypes = []
         lib.ivt_mlp_w8a8_max_width.restype = ctypes.c_int
@@ -288,7 +320,10 @@ def fused_mlp_w8a8_block(x: torch.Tensor, p: Params, eps: float = 1e-6,
     contiguous, ``p["fc1_w"]`` / ``p["fc2_w"]`` W8A8 leaf-dicts.
     ``want_parts`` also returns the integer stages ``{"q1", "acc1", "q2",
     "acc2"}`` (``fused_mlp_w8a8_parts``), written by the kernel itself on a
-    CUDA tensor, so a check can hold its s32 sums against exact ones."""
+    CUDA tensor, so a check can hold its s32 sums against exact ones.
+    Operands that ``w8a8_route`` sends to the tensor cores go to
+    ``fused_mlp_w8a8_block_mma``, which counts them; this wrapper counts
+    the ``__dp4a`` kernel's launches."""
     if x.device.type == "cpu":
         y, parts = fused_mlp_w8a8_parts(x, p, eps)
         return (y, parts) if want_parts else y
@@ -296,10 +331,25 @@ def fused_mlp_w8a8_block(x: torch.Tensor, p: Params, eps: float = 1e-6,
         raise ValueError(f"fused_mlp_w8a8_block runs on cuda or cpu tensors, "
                          f"got {x.device}")
     _check_w8a8_operands(x, p)
+    if _w8a8_route_of(x, p) == "mma":
+        return fused_mlp_w8a8_block_mma(x, p, eps, want_parts)
+    lib = _w8a8_lib()
+    out = _launch_w8a8(lib.ivt_fused_mlp_w8a8_block, x, p, eps, want_parts)
+    fused_mlp_w8a8_block.launches += 1
+    return out
+
+
+fused_mlp_w8a8_block.launches = 0
+
+
+def _launch_w8a8(entry, x: torch.Tensor, p: Params, eps: float,
+                 want_parts: bool, tile=()):
+    """One launch of a W8A8 kernel's C entry (the tensor-core kernel's
+    also takes its row tile, ``tile``, after MD); returns y, or (y, parts)
+    with ``want_parts``."""
     b, n, d = x.shape
     w1, w2 = p["fc1_w"], p["fc2_w"]
     md = w1[quant.AQKEY].shape[-1]
-    lib = _w8a8_lib()
     with torch.cuda.device(x.device):
         y = torch.empty_like(x)
         parts = ({"q1": torch.empty((b, n, d), dtype=torch.int8,
@@ -312,7 +362,7 @@ def fused_mlp_w8a8_block(x: torch.Tensor, p: Params, eps: float = 1e-6,
                                       device=x.device)}
                  if want_parts else {})
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ivt_fused_mlp_w8a8_block(
+        err = entry(
             _DTYPE_CODE[x.dtype], x.data_ptr(), p["ln2_s"].data_ptr(),
             p["ln2_b"].data_ptr(), w1[quant.AQKEY].data_ptr(),
             w1[quant.ASKEY].data_ptr(), p["fc1_b"].data_ptr(),
@@ -320,12 +370,361 @@ def fused_mlp_w8a8_block(x: torch.Tensor, p: Params, eps: float = 1e-6,
             p["fc2_b"].data_ptr(), y.data_ptr(),
             *(parts[k].data_ptr() if parts else None
               for k in ("q1", "acc1", "q2", "acc2")),
-            b * n, d, md, float(eps), stream)
+            b * n, d, md, *tile, float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"fused_mlp_w8a8_block kernel launch failed: "
-                           f"cudaError {err}")
-    fused_mlp_w8a8_block.launches += 1
+        raise RuntimeError(f"W8A8 MLP kernel launch failed: cudaError {err}")
     return (y, parts) if want_parts else y
 
 
-fused_mlp_w8a8_block.launches = 0
+
+# -- the tensor-core routes ------------------------------------------------------
+#
+# Mirrors csrc/mlp_cluster.cuh: a cluster of ``cluster_size(mlp_dim)``
+# blocks takes a tile of 32 or MMA_ROWS rows (``row_tile`` picks by the
+# row count; the envelope is the larger tile's); block
+# ``rank`` computes the hidden columns [rank * mlp_dim / S, (rank + 1) *
+# mlp_dim / S), MMA_CHUNK at a time, and fc2's output MMA_CHUNK columns at
+# a time, whose S partial sums the cluster adds in rank order. The loaders
+# check every number against the libraries'.
+MMA_ROWS = 64
+MMA_CHUNK = 128
+MMA_MAX_CLUSTER = 8
+MMA_MIN_CLUSTER = 4
+MMA_MAX_WIDTH = 1280
+MMA_ALIGN = 16
+_MMA_STAGES = 3
+_PBUF_BYTES = 2 * MMA_ROWS * (MMA_CHUNK + 4) * 4  # two [64][132] 32-bit
+
+
+def cluster_size(mlp_dim: int) -> int:
+    """Blocks of a cluster for ``mlp_dim`` hidden columns: the largest power
+    of two up to MMA_MAX_CLUSTER that divides mlp_dim / MMA_CHUNK, or 0
+    where that is below MMA_MIN_CLUSTER or mlp_dim is not a whole number of
+    chunks (a 4x MLP on rows of a multiple of 128 takes 4 or 8)."""
+    if mlp_dim <= 0 or mlp_dim % MMA_CHUNK:
+        return 0
+    s = MMA_MAX_CLUSTER
+    while mlp_dim % (MMA_CHUNK * s):
+        s //= 2
+    return s if s >= MMA_MIN_CLUSTER else 0
+
+
+def _mma_shape_ok(d: int, mlp_dim: int) -> bool:
+    return (0 < d <= MMA_MAX_WIDTH and d % MMA_CHUNK == 0
+            and cluster_size(mlp_dim) > 0)
+
+
+def mma_smem_bytes(d: int, mlp_dim: int) -> int:
+    """Dynamic shared memory of a bf16 tensor-core block of the larger
+    tile: LN2's rows [64][d + 8] (later the two fc2 partial buffers), h
+    [64][slice + 8] and three 64 x 136 weight tiles, bf16; 0 where the
+    route takes no such shape."""
+    if not _mma_shape_ok(d, mlp_dim):
+        return 0
+    slice_ = mlp_dim // cluster_size(mlp_dim)
+    return (max(MMA_ROWS * (d + 8) * 2, _PBUF_BYTES)
+            + MMA_ROWS * (slice_ + 8) * 2 + _MMA_STAGES * 64 * 136 * 2)
+
+
+def w8a8_mma_smem_bytes(d: int, mlp_dim: int, esize: int) -> int:
+    """Dynamic shared memory of a W8A8 tensor-core block of the larger tile
+    for an activation type of ``esize`` bytes: the row scales and maxes (7 x
+    64 f32), q1
+    [64][d + 16] int8 (later the two fc2 partial buffers), h [64][slice +
+    16 / esize] in the activation type (before it, 32 rows of x for LN2),
+    q2 [64][slice + 16] int8 and three weight tiles of 160-byte rows (128
+    rows with bf16 activations, 64 with f32); 0 where the route takes no
+    such shape."""
+    if not _mma_shape_ok(d, mlp_dim):
+        return 0
+    slice_ = mlp_dim // cluster_size(mlp_dim)
+    return (7 * MMA_ROWS * 4 + max(MMA_ROWS * (d + 16), _PBUF_BYTES)
+            + max(MMA_ROWS * (slice_ + 16 // esize), MMA_ROWS // 2 * d)
+            * esize
+            + MMA_ROWS * (slice_ + 16)
+            + _MMA_STAGES * (128 if esize == 2 else 64) * 160)
+
+
+def fits_mma(d: int, mlp_dim: int) -> bool:
+    """True when the bf16 tensor-core kernel takes rows of width ``d`` with
+    ``mlp_dim`` hidden columns: d a multiple of 128 up to 1280, mlp_dim of
+    whole 128-column chunks, the block inside the card's shared memory."""
+    return 0 < mma_smem_bytes(d, mlp_dim) <= SMEM_LIMIT
+
+
+def fits_w8a8_mma(d: int, mlp_dim: int, dtype=torch.bfloat16) -> bool:
+    """``fits_mma`` for the W8A8 tensor-core kernel in ``dtype`` (f32 h
+    takes twice bf16's room: vit_b16's 225,024 bytes still fit, with half
+    the weight stage)."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    return 0 < w8a8_mma_smem_bytes(d, mlp_dim, esize) <= SMEM_LIMIT
+
+
+def _aligned(addrs) -> bool:
+    return all(int(a) % MMA_ALIGN == 0 for a in addrs)
+
+
+def mlp_route(dtype: torch.dtype, d: int, mlp_dim: int, addrs) -> str:
+    """The fused MLP's kernel for operands of ``dtype`` with rows of width
+    ``d``, ``mlp_dim`` hidden columns and base addresses (bytes) ``addrs``
+    (x, ln2_s, ln2_b, fc1_w, fc2_w: what the kernel reads 16 bytes at a
+    time): "mma" (bf16 on the tensor cores) when the shape fits
+    ``fits_mma`` and every address is a multiple of 16 bytes, else "fma"
+    (f32 FMA; f32 operands always)."""
+    if dtype == torch.bfloat16 and fits_mma(d, mlp_dim) and _aligned(addrs):
+        return "mma"
+    return "fma"
+
+
+def w8a8_route(dtype: torch.dtype, d: int, mlp_dim: int, addrs) -> str:
+    """The W8A8 MLP's kernel for activations of ``dtype`` (bf16 or f32)
+    with rows of width ``d``, ``mlp_dim`` hidden columns and base addresses
+    ``addrs`` (x, ln2_s, ln2_b and the two int8 weight matrices): "mma"
+    (int8 tensor cores) when the shape fits ``fits_w8a8_mma`` and every
+    address is a multiple of 16 bytes, else "dp4a"."""
+    if (dtype in _DTYPE_CODE and fits_w8a8_mma(d, mlp_dim, dtype)
+            and _aligned(addrs)):
+        return "mma"
+    return "dp4a"
+
+
+def _mlp_route_of(x: torch.Tensor, p: Params) -> str:
+    return mlp_route(x.dtype, x.shape[-1], p["fc1_w"].shape[-1],
+                     (x.data_ptr(), p["ln2_s"].data_ptr(),
+                      p["ln2_b"].data_ptr(), p["fc1_w"].data_ptr(),
+                      p["fc2_w"].data_ptr()))
+
+
+def _w8a8_route_of(x: torch.Tensor, p: Params) -> str:
+    return w8a8_route(x.dtype, x.shape[-1],
+                      p["fc1_w"][quant.AQKEY].shape[-1],
+                      (x.data_ptr(), p["ln2_s"].data_ptr(),
+                       p["ln2_b"].data_ptr(),
+                       p["fc1_w"][quant.AQKEY].data_ptr(),
+                       p["fc2_w"][quant.AQKEY].data_ptr()))
+
+
+# route -> (source, C entry, its argtypes, the entries' prefix)
+_MMA_SOURCES = {
+    "mma": ("fused_mlp_block_mma", "ivt_fused_mlp_block_mma",
+            MLP_MMA_ARGTYPES, "ivt_mlp_mma_"),
+    "w8a8": ("fused_mlp_w8a8_mma", "ivt_fused_mlp_w8a8_mma",
+             W8A8_MMA_ARGTYPES, "ivt_mlp_w8a8_mma_"),
+}
+
+
+def bind_mma_library(lib, route: str):
+    """Binds the ctypes signatures of a tensor-core route's library (built
+    from ``csrc/`` or a variant of it) once; returns ``lib``."""
+    _, entry, argtypes, pre = _MMA_SOURCES[route]
+    if not getattr(lib, "_ivt_bound", False):
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = ctypes.c_int
+        for name in ("rows", "max_width", "chunk", "prepare"):
+            getattr(lib, pre + name).argtypes = []
+            getattr(lib, pre + name).restype = ctypes.c_int
+        getattr(lib, pre + "cluster").argtypes = [ctypes.c_int]
+        getattr(lib, pre + "cluster").restype = ctypes.c_int
+        smem = getattr(lib, pre + "smem_bytes")
+        smem.argtypes = [ctypes.c_int] * (3 if route == "w8a8" else 2)
+        smem.restype = ctypes.c_size_t
+        clusters = getattr(lib, pre + "max_clusters")
+        clusters.argtypes = [ctypes.c_int] * (4 if route == "w8a8" else 3)
+        clusters.restype = ctypes.c_int
+        lib._ivt_bound = True
+    return lib
+
+
+def _mma_lib(route: str) -> ctypes.CDLL:
+    """Build (first use) and load a tensor-core route's library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    return bind_mma_library(cuda_build.load(_MMA_SOURCES[route][0]), route)
+
+
+# shapes the loaders check the libraries' formulas at: vit_b16, swin_t's
+# stages 2 and 3, vit_h14's, and shapes each route refuses
+_CHECK_SHAPES = ((768, 3072), (384, 1536), (1280, 5120), (256, 640),
+                 (96, 384), (768, 100), (1408, 5632))
+
+
+def check_mma_library(lib, route: str) -> None:
+    """Raises unless the library's tile, widest row, chunk, cluster sizes
+    and shared-memory formula are this module's."""
+    pre = _MMA_SOURCES[route][3]
+    ok = (getattr(lib, pre + "rows")() == MMA_ROWS
+          and getattr(lib, pre + "max_width")() == MMA_MAX_WIDTH
+          and getattr(lib, pre + "chunk")() == MMA_CHUNK
+          and all(getattr(lib, pre + "cluster")(md) == cluster_size(md)
+                  for _, md in _CHECK_SHAPES))
+    for d, md in _CHECK_SHAPES:
+        if route == "w8a8":
+            ok = ok and all(
+                getattr(lib, pre + "smem_bytes")(d, md, e)
+                == w8a8_mma_smem_bytes(d, md, e) for e in (2, 4))
+        else:
+            ok = ok and (getattr(lib, pre + "smem_bytes")(d, md)
+                         == mma_smem_bytes(d, md))
+    if not ok:
+        raise RuntimeError(f"csrc/{_MMA_SOURCES[route][0]}.cu and "
+                           f"ops/fused_mlp.py disagree on the route's "
+                           f"envelope")
+
+
+def load_mma_kernel() -> ctypes.CDLL:
+    """Build and load the bf16 tensor-core kernel now; checks its envelope
+    (``check_mma_library``)."""
+    lib = _mma_lib("mma")
+    check_mma_library(lib, "mma")
+    return lib
+
+
+def load_w8a8_mma_kernel() -> ctypes.CDLL:
+    """Build and load the W8A8 tensor-core kernel now; checks its envelope
+    (``check_mma_library``)."""
+    lib = _mma_lib("w8a8")
+    check_mma_library(lib, "w8a8")
+    return lib
+
+
+def _device_index(device) -> int:
+    device = torch.device("cuda") if device is None else torch.device(device)
+    return (torch.cuda.current_device() if device.index is None
+            else device.index)
+
+
+def library_clusters(lib, route: str, d: int, mlp_dim: int, dtype, device,
+                     bm: int) -> int:
+    """Clusters of ``lib``'s kernel (a route's library, bound) with tiles
+    of ``bm`` rows that the card ``device`` holds at once at (d, mlp_dim)
+    (``cudaOccupancyMaxActiveClusters``). Runs the library's prepare entry
+    (the kernels' shared-memory attribute) once a device first, and asks
+    the card once a (device, dtype, d, mlp_dim, bm)."""
+    index = _device_index(device)
+    key = (index, _DTYPE_CODE[dtype], d, mlp_dim, bm)
+    counts = getattr(lib, "_ivt_clusters", None)
+    if counts is None:
+        counts = lib._ivt_clusters = {}
+    if key not in counts:
+        pre = _MMA_SOURCES[route][3]
+        prepared = getattr(lib, "_ivt_prepared", None)
+        if prepared is None:
+            prepared = lib._ivt_prepared = set()
+        with torch.cuda.device(index):
+            if index not in prepared:
+                err = getattr(lib, pre + "prepare")()
+                if err != 0:
+                    raise RuntimeError(f"{_MMA_SOURCES[route][0]}: setting "
+                                       f"the kernels' shared memory failed: "
+                                       f"cudaError {err}")
+                prepared.add(index)
+            fn = getattr(lib, pre + "max_clusters")
+            n = (fn(key[1], d, mlp_dim, bm) if route == "w8a8"
+                 else fn(d, mlp_dim, bm))
+        if n < 0:
+            raise RuntimeError(f"{_MMA_SOURCES[route][0]}: the occupancy of "
+                               f"(d={d}, mlp_dim={mlp_dim}) with tiles of "
+                               f"{bm} rows could not be read")
+        counts[key] = n
+    return counts[key]
+
+
+def library_tile(lib, route: str, m: int, d: int, mlp_dim: int, dtype,
+                 device) -> int:
+    """``row_tile`` for ``lib``, a route's library (bound)."""
+    clusters32 = library_clusters(lib, route, d, mlp_dim, dtype, device, 32)
+    return 32 if -(-m // 32) <= clusters32 else 64
+
+
+def max_active_clusters(route: str, d: int, mlp_dim: int,
+                        dtype=torch.bfloat16, bm: int = MMA_ROWS,
+                        device=None) -> int:
+    """Clusters of a route's kernel with tiles of ``bm`` rows that the card
+    holds at once at (d, mlp_dim) (``cudaOccupancyMaxActiveClusters``)."""
+    return library_clusters(_mma_lib(route), route, d, mlp_dim, dtype,
+                            device, bm)
+
+
+def row_tile(route: str, m: int, d: int, mlp_dim: int,
+             dtype=torch.bfloat16, device=None) -> int:
+    """The rows of a cluster's tile for a route's launch on ``m`` rows, the
+    one place that picks it: 32 while the ceil(m / 32) tiles of 32 rows fit
+    the clusters the card holds at once (one wave; one image of 197 rows
+    takes 7 clusters, not 4), else 64 (each block reads its weight slice
+    once for twice the rows)."""
+    return library_tile(_mma_lib(route), route, m, d, mlp_dim, dtype, device)
+
+
+def fused_mlp_block_mma(x: torch.Tensor, p: Params,
+                        eps: float = 1e-6) -> torch.Tensor:
+    """``fused_mlp_block``'s contract in bf16 on the tensor cores
+    (``csrc/fused_mlp_block_mma.cu``): one launch for CUDA tensors,
+    counted in ``fused_mlp_block_mma.launches``; raises on operands that
+    ``mlp_route`` does not send there. For CPU tensors the plain
+    version."""
+    if x.device.type == "cpu":
+        return fused_mlp_block_reference(x, p, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_block_mma runs on cuda or cpu tensors, "
+                         f"got {x.device}")
+    _check_operands(x, p)
+    if _mlp_route_of(x, p) != "mma":
+        raise ValueError(
+            f"fused_mlp_block_mma takes bf16 rows of a multiple of "
+            f"{MMA_CHUNK} up to {MMA_MAX_WIDTH} wide, whole chunks of hidden "
+            f"columns and 16-byte aligned operands; got {x.dtype}, d="
+            f"{x.shape[-1]}, mlp_dim={p['fc1_w'].shape[-1]}")
+    b, n, d = x.shape
+    md = p["fc1_w"].shape[-1]
+    lib = _mma_lib("mma")
+    bm = library_tile(lib, "mma", b * n, d, md, x.dtype, x.device)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, _MMA_SOURCES["mma"][1])(
+            x.data_ptr(), p["ln2_s"].data_ptr(), p["ln2_b"].data_ptr(),
+            p["fc1_w"].data_ptr(), p["fc1_b"].data_ptr(),
+            p["fc2_w"].data_ptr(), p["fc2_b"].data_ptr(), y.data_ptr(),
+            b * n, d, md, bm, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_block_mma kernel launch failed: "
+                           f"cudaError {err}")
+    fused_mlp_block_mma.launches += 1
+    return y
+
+
+fused_mlp_block_mma.launches = 0
+
+
+def fused_mlp_w8a8_block_mma(x: torch.Tensor, p: Params, eps: float = 1e-6,
+                             want_parts: bool = False):
+    """``fused_mlp_w8a8_block``'s contract on the int8 tensor cores
+    (``csrc/fused_mlp_w8a8_mma.cu``): one launch for CUDA tensors, counted
+    in ``fused_mlp_w8a8_block_mma.launches``; raises on operands that
+    ``w8a8_route`` does not send there. For CPU tensors the plain
+    version."""
+    if x.device.type == "cpu":
+        y, parts = fused_mlp_w8a8_parts(x, p, eps)
+        return (y, parts) if want_parts else y
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp_w8a8_block_mma runs on cuda or cpu "
+                         f"tensors, got {x.device}")
+    _check_w8a8_operands(x, p)
+    if _w8a8_route_of(x, p) != "mma":
+        raise ValueError(
+            f"fused_mlp_w8a8_block_mma takes rows of a multiple of "
+            f"{MMA_CHUNK} up to {MMA_MAX_WIDTH} wide, whole chunks of hidden "
+            f"columns, 16-byte aligned operands and a block inside shared "
+            f"memory; got {x.dtype}, d={x.shape[-1]}, mlp_dim="
+            f"{p['fc1_w'][quant.AQKEY].shape[-1]}")
+    lib = _mma_lib("w8a8")
+    b, n, d = x.shape
+    bm = library_tile(lib, "w8a8", b * n, d,
+                      p["fc1_w"][quant.AQKEY].shape[-1], x.dtype, x.device)
+    out = _launch_w8a8(getattr(lib, _MMA_SOURCES["w8a8"][1]), x, p, eps,
+                       want_parts, (bm,))
+    fused_mlp_w8a8_block_mma.launches += 1
+    return out
+
+
+fused_mlp_w8a8_block_mma.launches = 0

@@ -1,4 +1,4 @@
-"""Design variants of the tensor-core attention kernels, timed on the card.
+"""Design variants of the tensor-core kernels, timed on the card.
 
     python -m interactive_vit_tpu_torch.tools.kernel_variants
 
@@ -59,6 +59,20 @@ limit first. The variants:
   largest value; bf16: each element within 2^-6 of its plain value plus
   2^-8 of the largest) from the forward's own (m, l).
 
+* ``fused_mlp_block_mma.cu`` and ``fused_mlp_w8a8_mma.cu`` (rows 6 and 7,
+  the MLP branch on the tensor cores, on ``mlp_cluster.cuh``): the sources
+  (the row tile ``fused_mlp.row_tile`` picks by the row count, 16 KB
+  weight stages), tiles of 32 and of 64 rows always (the tile the entry is
+  handed) and 8 KB stages (a copy of the header with its constant
+  changed, written beside the variant's source), beside the
+  FMA and ``__dp4a`` kernels they replace; held against the plain versions
+  (y within 2^-6 of its scale, two calls the same bits) and timed on
+  device time alone (the stream held ~10 ms before the timed calls) at
+  vit_b16 (B = 1 and 8; row 7 in bf16 and f32) and swin_t's stages 2 and
+  3; and ``row6_time_phases`` / ``row7_time_phases``, timing only: block
+  (0, 0) stamps %globaltimer between the kernels' phases (LN2, fc1, the
+  max exchange, fc2 with the cluster sums) and reports them.
+
 Heads 64 wide are timed at dinov2_s14_reg's and vit_b16's shapes, heads
 80 wide (the variants whose names hold ``dh80``) at vit_h14's: N = 2810
 (@742) for row 4, N = 257 (@224) and 1025 (@448) for row 3 (bf16 and
@@ -104,6 +118,8 @@ import torch
 from interactive_vit_tpu_torch.ops import attention_vjp as av
 from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.ops import fused_block as fb
+from interactive_vit_tpu_torch.ops import fused_mlp as fm
+from interactive_vit_tpu_torch.ops import quant
 from interactive_vit_tpu_torch.runtime import cuda_build
 
 OUT_DIR = os.path.join(os.path.dirname(cuda_build.BUILD_DIR), "kernel_variants")
@@ -371,7 +387,77 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
         (ROW2_TF32_KT_80, ROW2_TF32_KT_80.replace("= 64", "= 32"))]),
     "row2_tf32_dh80_head_walk": ("headwise_attn_block_tf32",
                                  ROW2_TF32_WALK),
+    # rows 6 and 7 (the MLP branch) on the tensor cores: the sources (a
+    # cluster of up to 8 blocks on a tile of 64 rows, three stages), and
+    # their header's other tilings; beside them the FMA and __dp4a kernels
+    # they replace, built from this checkout
+    "row6_mma": ("fused_mlp_block_mma", []),
+    "row6_mma_tile32": ("fused_mlp_block_mma", []),
+    "row6_mma_tile64": ("fused_mlp_block_mma", []),
+    "row6_fma": ("fused_mlp_block", []),
+    "row7_mma": ("fused_mlp_w8a8_mma", []),
+    "row7_mma_tile32": ("fused_mlp_w8a8_mma", []),
+    "row7_mma_tile64": ("fused_mlp_w8a8_mma", []),
+    "row7_dp4a": ("fused_mlp_w8a8_block", []),
+    "row6_mma_stage8k": ("fused_mlp_block_mma", []),
+    "row7_mma_stage8k": ("fused_mlp_w8a8_mma", []),
 }
+
+
+_LAST_BARRIER = ("  cluster.sync();  // no block leaves while a peer may read its "
+                 "partials")
+
+
+def _phases(source, marks):
+    """A timing-only variant of ``source``: block (0, 0) stamps
+    %globaltimer, after a block barrier, where each of ``marks`` begins (the
+    last mark the kernel's final cluster barrier) and writes the
+    nanoseconds between stamps into the first words of y."""
+    gt = ("({ unsigned long long _t; asm volatile(\"mov.u64 %0, %globaltimer;\" "
+          ": \"=l\"(_t)); _t; })")
+    marks = list(marks) + [_LAST_BARRIER]
+    reps = [(m, f"  __syncthreads();\n  const unsigned long long ph_t{i} = {gt};\n"
+             + m) for i, m in enumerate(marks)]
+    write = "".join(f"    ph[{i}] = (long long)(ph_t{i + 1} - ph_t{i});\n"
+                    for i in range(len(marks) - 1))
+    reps.append((_LAST_BARRIER, _LAST_BARRIER + "\n  if (blockIdx.x == 0 && "
+                 "blockIdx.y == 0 && threadIdx.x == 0) {\n    long long* ph = "
+                 "reinterpret_cast<long long*>(a.y);\n" + write + "  }"))
+    return source, reps
+
+
+# timing-only variants: name -> the phases block (0, 0) times
+PHASES = {
+    "row6_time_phases": ("LN2", "fc1 + GELU", "fc2 + cluster sums"),
+    "row7_time_phases": ("LN2 + q1", "fc1 + GELU", "max exchange + q2",
+                         "fc2 + cluster sums"),
+}
+VARIANTS["row6_time_phases"] = _phases("fused_mlp_block_mma", [
+    "  // LN2 in place, once a cluster",
+    "  // (the ring's first __syncthreads orders these writes before fc1)",
+    "  // fc2 partials over the slice, MC_NC output columns a chunk, summed "
+    "over"])
+VARIANTS["row7_time_phases"] = _phases("fused_mlp_w8a8_mma", [
+    "  // a. LN2 + q1 (steps 1-2), once a cluster",
+    "  // (the ring's first __syncthreads orders these writes before fc1)",
+    "  // fc2's first weight stages go out now, behind the exchange and q2",
+    "  // d-e. fc2 partials over the slice, MC_NC output columns a chunk; "
+    "the"])
+
+# Variants of the MLP kernels that hand the entry a fixed row tile instead
+# of the one ``fused_mlp.row_tile`` picks: name -> the tile
+TILES = {"row6_mma_tile32": 32, "row6_mma_tile64": 64,
+         "row7_mma_tile32": 32, "row7_mma_tile64": 64}
+
+# Variants that edit the MLP kernels' shared header csrc/mlp_cluster.cuh
+# (written beside the variant's source, which includes it first): name ->
+# replacements there
+MC_STAGE_BYTES = "constexpr int MC_STAGE_BYTES = 16384"
+HEADER_EDITS: Dict[str, List[Tuple[str, str]]] = {
+    "row6_mma_stage8k": [(MC_STAGE_BYTES, MC_STAGE_BYTES.replace("16384", "8192"))],
+    "row7_mma_stage8k": [(MC_STAGE_BYTES, MC_STAGE_BYTES.replace("16384", "8192"))],
+}
+HEADER = "mlp_cluster"
 
 
 # source -> (C entry, its ctypes argtypes)
@@ -391,12 +477,18 @@ ENTRIES = {
                                  fb.HEADWISE_TC_ARGTYPES),
     "headwise_attn_block": ("ivt_headwise_attn_block",
                             fb.HEADWISE_ARGTYPES),
+    "fused_mlp_block_mma": ("ivt_fused_mlp_block_mma", fm.MLP_MMA_ARGTYPES),
+    "fused_mlp_block": ("ivt_fused_mlp_block", fm.MLP_ARGTYPES),
+    "fused_mlp_w8a8_mma": ("ivt_fused_mlp_w8a8_mma", fm.W8A8_MMA_ARGTYPES),
+    "fused_mlp_w8a8_block": ("ivt_fused_mlp_w8a8_block", fm.W8A8_ARGTYPES),
 }
 
 # A source's counterpart in the ``--baseline`` checkout: row 2's
 # tensor-core routes stand beside the FMA kernel they replace
 BASELINE_OF = {"headwise_attn_block_mma": "headwise_attn_block",
-               "headwise_attn_block_tf32": "headwise_attn_block"}
+               "headwise_attn_block_tf32": "headwise_attn_block",
+               "fused_mlp_block_mma": "fused_mlp_block",
+               "fused_mlp_w8a8_mma": "fused_mlp_w8a8_block"}
 
 
 def variant_dh(name: str) -> int:
@@ -405,14 +497,14 @@ def variant_dh(name: str) -> int:
 
 
 def variant_source(source: str, replacements,
-                   csrc: str = cuda_build.CSRC_DIR) -> str:
-    """``<csrc>/<source>.cu`` with each replacement made; each must match
-    exactly once."""
-    with open(os.path.join(csrc, source + ".cu")) as f:
+                   csrc: str = cuda_build.CSRC_DIR, ext: str = ".cu") -> str:
+    """``<csrc>/<source><ext>`` with each replacement made; each must
+    match exactly once."""
+    with open(os.path.join(csrc, source + ext)) as f:
         text = f.read()
     for old, new in replacements:
         if text.count(old) != 1:
-            raise ValueError(f"{source}.cu: a variant's text matches "
+            raise ValueError(f"{source}{ext}: a variant's text matches "
                              f"{text.count(old)} times: {old[:60]!r}")
         text = text.replace(old, new)
     return text
@@ -437,7 +529,14 @@ def build_variants(names, baseline=None) -> Dict[str, ctypes.CDLL]:
     procs = {}
     for name, (replacements, csrc) in builds.items():
         source = _source_of(name)
-        path = os.path.join(OUT_DIR, name.replace(":", "_") + ".cu")
+        out = OUT_DIR
+        if name in HEADER_EDITS:
+            out = os.path.join(OUT_DIR, name)
+            os.makedirs(out, exist_ok=True)
+            with open(os.path.join(out, HEADER + ".cuh"), "w") as f:
+                f.write(variant_source(HEADER, HEADER_EDITS[name], csrc,
+                                       ".cuh"))
+        path = os.path.join(out, name.replace(":", "_") + ".cu")
         with open(path, "w") as f:
             f.write(variant_source(source, replacements, csrc))
         procs[name] = subprocess.Popen(
@@ -452,8 +551,9 @@ def build_variants(names, baseline=None) -> Dict[str, ctypes.CDLL]:
         info = [line.split("info    : ")[-1].strip()
                 for line in err.splitlines() if "Used" in line or "spill" in line]
         print(f"{name}: {'; '.join(info)}", flush=True)
-        lib = ctypes.CDLL(os.path.join(OUT_DIR,
-                                       name.replace(":", "_") + ".so"))
+        lib = ctypes.CDLL(os.path.join(
+            os.path.join(OUT_DIR, name) if name in HEADER_EDITS else OUT_DIR,
+            name.replace(":", "_") + ".so"))
         entry, argtypes = ENTRIES[_source_of(name)]
         getattr(lib, entry).argtypes = argtypes
         libs[name] = lib
@@ -668,6 +768,128 @@ def headwise_group(libs, names, dtype, shapes) -> None:
             torch.cuda.empty_cache()
 
 
+def call_mlp(lib, name, x, p):
+    """One launch of a row-6 or row-7 variant (or of the kernel it
+    replaces) on x [M, D], as ``ops/fused_mlp.py`` launches it: y."""
+    source = _source_of(name)
+    m, d = x.shape
+    y = torch.empty_like(x)
+    stream = torch.cuda.current_stream().cuda_stream
+    code = 0 if x.dtype == torch.float32 else 1
+    w8a8 = source.startswith("fused_mlp_w8a8")
+    md = (p["fc1_w"][quant.AQKEY] if w8a8 else p["fc1_w"]).shape[-1]
+    tile = ()  # the tensor-core kernels' row tile, after MD
+    if source.endswith("_mma"):
+        route = "w8a8" if w8a8 else "mma"
+        fm.bind_mma_library(lib, route)
+        # (library_tile also prepares the library on the card)
+        picked = fm.library_tile(lib, route, m, d, md, x.dtype, x.device)
+        tile = (TILES.get(name, picked),)
+    if w8a8:
+        w1, w2 = p["fc1_w"], p["fc2_w"]
+        ptrs = [x, p["ln2_s"], p["ln2_b"], w1[quant.AQKEY], w1[quant.ASKEY],
+                p["fc1_b"], w2[quant.AQKEY], w2[quant.ASKEY], p["fc2_b"], y]
+        err = getattr(lib, ENTRIES[source][0])(
+            code, *(t.data_ptr() for t in ptrs), None, None, None, None, m,
+            d, md, *tile, 1e-6, stream)
+    else:
+        ptrs = [x, p["ln2_s"], p["ln2_b"], p["fc1_w"], p["fc1_b"],
+                p["fc2_w"], p["fc2_b"], y]
+        lead = () if source == "fused_mlp_block_mma" else (code,)
+        err = getattr(lib, ENTRIES[source][0])(
+            *lead, *(t.data_ptr() for t in ptrs), m, d, md, *tile, 1e-6,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+    return y
+
+
+def time_held_ms(fn, iters: int = 30) -> float:
+    """Device time of ``fn`` alone: the stream spins ~10 ms first, so the
+    host has issued every timed call before the card starts them."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def mlp_group(libs, names, w8a8: bool) -> None:
+    """Row-6 (bf16) or row-7 (bf16 and f32) variants against the plain
+    version (y within 2^-6 of its scale; two calls the same bits), timed
+    on device time alone in two orders, at vit_b16 (197 rows a image, B = 1
+    and 8) and, for row 6, swin_t's stages 2 and 3 (B = 1)."""
+    shapes = [(1, 197, 768), (8, 197, 768)]
+    dtypes = [torch.bfloat16]
+    if w8a8:
+        dtypes.append(torch.float32)
+    else:
+        shapes += [(1, 196, 384), (1, 49, 768)]
+    for (b, n, d), dtype in ((s, t) for t in dtypes for s in shapes):
+        md = 4 * d
+        g = torch.Generator().manual_seed(n + d + b)
+
+        def rnd(*shape, std=1.0, mean=0.0):
+            return (torch.randn(shape, generator=g) * std + mean).to(
+                "cuda", dtype)
+
+        p = {"ln2_s": rnd(d, std=0.1, mean=1.0), "ln2_b": rnd(d, std=0.1),
+             "fc1_w": rnd(d, md, std=d ** -0.5), "fc1_b": rnd(md, std=0.1),
+             "fc2_w": rnd(md, d, std=md ** -0.5), "fc2_b": rnd(d, std=0.1)}
+        if w8a8:
+            for k in ("fc1_w", "fc2_w"):
+                p[k] = quant.quantize_weight(p[k], "w8a8")
+            plain = fm.fused_mlp_w8a8_reference
+        else:
+            plain = fm.fused_mlp_block_reference
+        x = rnd(b * n, d)
+        ref = plain(x[None], p)[0].float()
+        bound = 2.0 ** -6 * max(1.0, ref.abs().max().item())
+        run = []
+        for name in names:
+            try:
+                y = call_mlp(libs[name], name, x, p)
+            except RuntimeError as e:  # a tiling over the card's shared memory
+                print(f"  {name} {(b, n, d)} {str(dtype)[6:]}: {e}",
+                      flush=True)
+                continue
+            run.append(name)
+            if name in PHASES:
+                continue
+            again = call_mlp(libs[name], name, x, p)
+            torch.cuda.synchronize()
+            use = (y.float() - ref).abs().max().item() / bound
+            if use > 1.0 or not torch.equal(y, again):
+                raise AssertionError(f"{name} {(b, n, d)}: {use:.2f} of the "
+                                     f"bound, same bits {torch.equal(y, again)}")
+        for name in run:
+            if name in PHASES:
+                y = call_mlp(libs[name], name, x, p)
+                torch.cuda.synchronize()
+                ns = y.view(-1).view(torch.int64)[:len(PHASES[name])].tolist()
+                print(f"  {name} {(b, n, d)} {str(dtype)[6:]}, block (0, 0) "
+                      f"phases (globaltimer): " + ", ".join(
+                          f"{k} {v / 1e3:.2f} us"
+                          for k, v in zip(PHASES[name], ns)), flush=True)
+        times = {name: [] for name in run}
+        for order in (run, run[::-1]):
+            for name in order:
+                times[name].append(time_held_ms(
+                    lambda: call_mlp(libs[name], name, x, p)))
+        print(f"  {'row 7 W8A8' if w8a8 else 'row 6'} MLP {(b, n, d)} "
+              f"{str(dtype)[6:]} (each within its bound, two calls the same "
+              f"bits), device time: " + ", ".join(
+                  f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, {t[1]:.4f})"
+                  for name, t in times.items()), flush=True)
+
+
 def time_ms(fn, iters: int = 30) -> float:
     for _ in range(3):
         fn()
@@ -822,6 +1044,14 @@ def main(argv=None) -> int:
         ("headwise_attn_block_tf32", 80): (torch.float32, [
             (1, 2810, 1280, 16), (1, 257, 1280, 16)]),
     }
+    for w8a8, sources in ((False, ("fused_mlp_block_mma", "fused_mlp_block")),
+                          (True, ("fused_mlp_w8a8_mma",
+                                  "fused_mlp_w8a8_block"))):
+        group = [n for n in names if VARIANTS[n][0] in sources]
+        if group and args.baseline is not None:
+            group.append(f"baseline:{sources[1]}")
+        if group:
+            mlp_group(libs, group, w8a8)
     for (source, dh), (dtype, shapes) in groups.items():
         group = [n for n in names
                  if VARIANTS[n][0] == source and variant_dh(n) == dh]

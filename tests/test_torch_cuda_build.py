@@ -106,6 +106,8 @@ def test_fused_block_entry_matches_its_ctypes_signature():
     ("headwise_attn_block_mma", "fused_block", "ivt_headwise_attn_block_mma"),
     ("headwise_attn_block_tf32", "fused_block",
      "ivt_headwise_attn_block_tf32x3"),
+    ("fused_mlp_block_mma", "fused_mlp", "ivt_fused_mlp_block_mma"),
+    ("fused_mlp_w8a8_mma", "fused_mlp", "ivt_fused_mlp_w8a8_mma"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its
@@ -128,7 +130,9 @@ def test_kernel_builds_and_loads_on_the_card(name, module, entry):
               "flash_attention_tf32": "load_tf32_kernel",
               "attention_train_tf32": "load_tf32_kernel",
               "headwise_attn_block_mma": "load_headwise_mma_kernel",
-              "headwise_attn_block_tf32": "load_headwise_tf32_kernel"}.get(
+              "headwise_attn_block_tf32": "load_headwise_tf32_kernel",
+              "fused_mlp_block_mma": "load_mma_kernel",
+              "fused_mlp_w8a8_mma": "load_w8a8_mma_kernel"}.get(
                   name, "load_kernel")
     lib = getattr(mod, loader)()  # raises if the envelopes disagree
     assert hasattr(lib, entry)

@@ -25,6 +25,11 @@ is per element: 2^-5 of the plain value (four ulps) plus 1e-6, never above
 output is a probs-weighted mean of V rows; its bound is that of y. The
 window kernel's branch output and the MLP kernel's y take y's bound, the
 window probs the per-element one. The online flash output takes y's bound.
+The fused MLP's bf16 tensor-core route (``fused_mlp_block_mma``) takes the
+FMA kernel's bound: both round LN2, h and y at the same points; fc2's f32
+sum is the sum of a cluster's per-slice partials in rank order, so two
+calls give the same bits. The W8A8 MLP's tensor-core route
+(``fused_mlp_w8a8_block_mma``) takes the ``__dp4a`` kernel's checks below.
 
 The int8 kernels. Their s32 products are exact, but an int8 is the
 rounding of an f32 value, and an f32 (or bf16) value that the kernel and
@@ -115,6 +120,8 @@ def cuda():
     fm.load_kernel()
     fa.load_online_kernel()
     fm.load_w8a8_kernel()
+    fm.load_mma_kernel()
+    fm.load_w8a8_mma_kernel()
     av.load_kernel()
     fa.load_online_mma_kernel()
     av.load_mma_kernel()
@@ -807,10 +814,10 @@ def test_s8_block_matches_plain(cuda, shape, dtype, mode, int8_pv):
     _check(got, ref, dtype, s8=True)
 
 
-def _w8a8_case(shape, dtype, device):
+def _w8a8_case(shape, dtype, device, md=None):
     from interactive_vit_tpu_torch.ops import quant
 
-    x, p = _mlp_case(shape, dtype, device)
+    x, p = _mlp_case(shape, dtype, device, md)
     for name in ("fc1_w", "fc2_w"):
         p[name] = quant.quantize_weight(p[name], "w8a8")
     return x, p
@@ -839,12 +846,74 @@ def _check_w8a8(x, p, got, parts, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_w8a8_mlp_kernel_matches_plain(cuda, shape, dtype):
     x, p = _w8a8_case(shape, dtype, cuda)
-    before = fm.fused_mlp_w8a8_block.launches
+    route = fm._w8a8_route_of(x, p)
+    before = _w8a8_counts()
     got, parts = fm.fused_mlp_w8a8_block(x, p, want_parts=True)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_w8a8_block.launches == before + 1
+    after = _w8a8_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
     assert torch.equal(got, fm.fused_mlp_w8a8_block(x, p))
     _check_w8a8(x, p, got, parts, dtype)
+
+
+def _w8a8_counts():
+    return {"dp4a": fm.fused_mlp_w8a8_block.launches,
+            "mma": fm.fused_mlp_w8a8_block_mma.launches}
+
+
+def _shifted_copy(t):
+    """A contiguous copy of ``t`` one element into its storage: its base off
+    the 16-byte grid, the same values."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+# the W8A8 MLP on the int8 tensor cores: vit_b16 (B=1 and 8, a cluster of
+# 8 blocks) and a small ragged block (d=384, a cluster of 4)
+@pytest.mark.parametrize("shape", [(1, 197, 768), (8, 197, 768),
+                                   (2, 17, 384)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_mma_kernel_matches_plain(cuda, shape, dtype):
+    """Exact integer stages, y within its bound, two calls the same bits;
+    the same values off the 16-byte grid go to the __dp4a kernel."""
+    x, p = _w8a8_case(shape, dtype, cuda)
+    assert fm._w8a8_route_of(x, p) == "mma"
+    for xr, route in ((x, "mma"), (_shifted_copy(x), "dp4a")):
+        before = _w8a8_counts()
+        got, parts = fm.fused_mlp_w8a8_block(xr, p, want_parts=True)
+        again = fm.fused_mlp_w8a8_block(xr, p)
+        torch.cuda.synchronize()
+        after = _w8a8_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 2 * int(k == route) for k in after}
+        assert torch.equal(got, again)
+        _check_w8a8(xr, p, got, parts, dtype)
+
+
+def test_w8a8_mma_wrapper_refuses_other_operands(cuda):
+    """The tensor-core wrapper raises on operands its route does not take;
+    nothing falls back."""
+    x, p = _w8a8_case((1, 17, 768), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_w8a8_block_mma takes"):
+        fm.fused_mlp_w8a8_block_mma(_shifted_copy(x), p)
+    narrow, pn = _w8a8_case((1, 17, 100), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_w8a8_block_mma takes"):
+        fm.fused_mlp_w8a8_block_mma(narrow, pn)
+    wide, pw = _w8a8_case((1, 5, 1280), torch.float32, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_w8a8_block_mma takes"):
+        fm.fused_mlp_w8a8_block_mma(wide, pw)  # f32 h over 227 KB
+
+
+@pytest.mark.parametrize("route,dtype", [("mma", torch.bfloat16),
+                                         ("w8a8", torch.bfloat16),
+                                         ("w8a8", torch.float32)])
+def test_mma_clusters_fit_the_card(cuda, route, dtype):
+    """At vit_b16 the card holds at least one cluster of 8 blocks of each
+    tensor-core MLP kernel (one block an SM)."""
+    assert fm.max_active_clusters(route, 768, 3072, dtype) >= 1
 
 
 def test_w8a8_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -939,9 +1008,9 @@ MLP_SHAPES = [(2, 197, 768), (1, 3136, 96), (1, 49, 768), (1, 196, 384),
               (2, 50, 1280), (1, 17, 100), (3, 5, 300)]
 
 
-def _mlp_case(shape, dtype, device):
+def _mlp_case(shape, dtype, device, md=None):
     b, n, d = shape
-    md = 4 * d
+    md = md or 4 * d
     g = torch.Generator().manual_seed(n + d)
 
     def rnd(*s, std=1.0, mean=0.0):
@@ -959,15 +1028,95 @@ def _mlp_case(shape, dtype, device):
 @pytest.mark.parametrize("eps", [1e-6, 1e-5])
 def test_mlp_kernel_matches_plain(cuda, shape, dtype, eps):
     x, p = _mlp_case(shape, dtype, cuda)
-    before = fm.fused_mlp_block.launches
+    route = fm._mlp_route_of(x, p)
+    before = _mlp_counts()
     got = fm.fused_mlp_block(x, p, eps)
     torch.cuda.synchronize()
-    assert fm.fused_mlp_block.launches == before + 1
+    after = _mlp_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == route) for k in after}
     ref = fm.fused_mlp_block_reference(x, p, eps)
     assert got.shape == x.shape and got.dtype == dtype
     _check((got,), (ref,), dtype)
     # the bound must refuse a kernel that returned the residual alone
     assert not _within(x, ref, 0, dtype)
+
+
+def _mlp_counts():
+    return {"fma": fm.fused_mlp_block.launches,
+            "mma": fm.fused_mlp_block_mma.launches}
+
+
+# the bf16 MLP on the tensor cores: vit_b16 (B=1 and 8), swin_t's stage 2
+# (a cluster of 4) and stage 3, and a small ragged block
+@pytest.mark.parametrize("shape", [(1, 197, 768), (8, 197, 768),
+                                   (1, 196, 384), (2, 49, 768), (3, 17, 256)])
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+def test_mlp_mma_kernel_matches_plain(cuda, shape, eps):
+    """y within the bf16 bound, two calls the same bits (fc2's partials
+    are added in rank order); the same values off the 16-byte grid go to
+    the FMA kernel."""
+    x, p = _mlp_case(shape, torch.bfloat16, cuda)
+    ref = fm.fused_mlp_block_reference(x, p, eps)
+    assert fm._mlp_route_of(x, p) == "mma"
+    for xr, route in ((x, "mma"), (_shifted_copy(x), "fma")):
+        before = _mlp_counts()
+        got = fm.fused_mlp_block(xr, p, eps)
+        again = fm.fused_mlp_block(xr, p, eps)
+        torch.cuda.synchronize()
+        after = _mlp_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 2 * int(k == route) for k in after}
+        assert torch.equal(got, again)
+        _check((got,), (ref,), torch.bfloat16)
+        assert not _within(xr, ref, 0, torch.bfloat16)
+
+
+# rows over 1024 wide on the tensor-core routes (72 16-column units of
+# LayerNorm: lanes 0-7 own three), and ln2_s / ln2_b off the 16-byte grid
+# (read 16 bytes at a time there), which go to the FMA and __dp4a kernels
+@pytest.mark.parametrize("shape,md", [((1, 197, 1152), 1024),
+                                      ((2, 17, 1152), 512)])
+@pytest.mark.parametrize("w8a8", [False, True])
+def test_mma_routes_take_rows_over_1024_wide(cuda, shape, md, w8a8):
+    case, plain, fn, counts = (
+        (_w8a8_case, fm.fused_mlp_w8a8_reference, fm.fused_mlp_w8a8_block,
+         _w8a8_counts) if w8a8 else
+        (_mlp_case, fm.fused_mlp_block_reference, fm.fused_mlp_block,
+         _mlp_counts))
+    x, p = case(shape, torch.bfloat16, cuda, md)
+    old = "dp4a" if w8a8 else "fma"
+    assert (fm._w8a8_route_of if w8a8 else fm._mlp_route_of)(x, p) == "mma"
+    ref = plain(x, p)
+    for pr, route in ((p, "mma"), ({**p, "ln2_s": _shifted_copy(p["ln2_s"])},
+                                   old),
+                      ({**p, "ln2_b": _shifted_copy(p["ln2_b"])}, old)):
+        before = counts()
+        got = fn(x, pr)
+        again = fn(x, pr)
+        torch.cuda.synchronize()
+        after = counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 2 * int(k == route) for k in after}
+        assert torch.equal(got, again)
+        _check((got,), (ref,), torch.bfloat16, s8=w8a8)
+    if w8a8:
+        got, parts = fn(x, p, want_parts=True)
+        _check_w8a8(x, p, got, parts, torch.bfloat16)
+
+
+def test_mlp_mma_wrapper_refuses_other_operands(cuda):
+    """The tensor-core wrapper raises on f32, on rows that are not whole
+    128-column chunks and on operands off the grid; nothing falls back."""
+    x, p = _mlp_case((1, 17, 768), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_block_mma takes"):
+        fm.fused_mlp_block_mma(_shifted_copy(x), p)
+    xf, pf = _mlp_case((1, 17, 768), torch.float32, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_block_mma takes"):
+        fm.fused_mlp_block_mma(xf, pf)
+    narrow, pn = _mlp_case((1, 17, 96), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_block_mma takes"):
+        fm.fused_mlp_block_mma(narrow, pn)
 
 
 def test_mlp_wrapper_refuses_what_the_kernel_does_not_take(cuda):
