@@ -7,9 +7,13 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the eighteen hand-written kernel sources from
-   ``csrc/`` with nvcc, one compiler process each, all at once (the s8 and
-   ToMe modes of the block are modes of ``fused_attn_block.cu``; the two
+2. build   -- builds the twenty hand-written kernel sources from
+   ``csrc/`` with nvcc, one compiler process each, all at once (the
+   whole-image block is ``fused_attn_block.cu`` (FMA, ``__dp4a``),
+   ``fused_attn_block_mma.cu`` (bf16 tensor cores) and
+   ``fused_attn_block_tf32.cu`` (f32 on split TF32), its s8 and ToMe modes
+   modes of each, the tensor-core routes' s8 attention on int8 mma.sync in
+   ``attn_block_s8.cuh``; the two
    trainable attentions share ``flash_attention.cu`` forward and
    ``attention_bwd.cu`` backward on their FMA route,
    ``attention_train_mma.cu`` on their bf16 tensor-core route and
@@ -26,15 +30,22 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``fused_mlp_block_mma.cu`` (bf16 tensor cores), the W8A8 MLP
    ``fused_mlp_w8a8_block.cu`` (``__dp4a``) and ``fused_mlp_w8a8_mma.cu``
    (int8 tensor cores; both tensor-core sources on ``mlp_cluster.cuh``:
-   the hidden dimension split over a thread-block cluster): twenty-three
+   the hidden dimension split over a thread-block cluster): twenty-nine
    kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
    plain, kernel, kernel, plain):
-   * the fused attention block at the vit_b16 (B=1 and 8), vit_t16 and
-     vit_t16@256 (N=257) block shapes, bf16 and f32, maps off / maps +
-     head-mean / a subset;
+   * the fused attention block (row 1) at the vit_b16 (B=1 and 8),
+     vit_t16 and vit_t16@256 (N=257) block shapes, maps off / maps +
+     head-mean / a subset: bf16 on the tensor cores, f32 on split TF32
+     (the launch counts show the route), and at vit_b16 B=1, on a copy of
+     x off the 16-byte grid, the FMA kernel; device times alone
+     (``time_held``, the wrapper's host time a call beside), the bound (f32
+     also at the TF32 peak, the one its entry carries) and, maps off, a
+     yardstick of four library
+     calls (layer_norm, addmm, scaled_dot_product_attention, addmm; the
+     port never calls them);
    * the headwise attention block (row 2) at the vit_l16@384 block shape
      (B=1 and 4; 16 heads 64 wide, N=577) maps off / maps + mean / heads
      (0, 7, 15) + mean, at vit_h14@742's (B=1; 16 heads 80 wide, N=2810)
@@ -99,13 +110,18 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      fc1 and on fc2 (two library calls, a yardstick);
    * the s8 mode of the fused block at vit_b16 (B=1 and 8), bf16 and f32,
      maps off / maps + mean / a subset with s8 scores and PV, and maps +
-     mean with s8 scores only;
+     mean with s8 scores only: on the tensor-core routes (the s8
+     attention on int8 mma.sync), and at B=1 off the grid on the
+     ``__dp4a`` kernel; each tensor-core route's s32 sums equal to the
+     exact products of its own int8 operands (si = q8 k8^T, oi = p8 v8),
+     those operands the plain version's but in at most 1% of places;
    * ToMe's mode of the fused block (``key_bias`` = log of token sizes,
      ``want_metric``) at the ends of the served ladders, N=197 (B=1 and
-     8), 109, 21 and 11, bf16 and f32, maps off and maps + mean, and the s8
-     mode with both operands at N=197; the key metric takes y's bound, a
-     zeroed or halved metric must fail, and so must the plain version
-     without the bias;
+     8), 109, 21 and 11, bf16 on the tensor cores and f32 on split TF32
+     (at N=197 B=1 also the FMA kernel off the grid), maps off and maps +
+     mean, and the s8 mode with both operands at N=197; the key metric
+     takes y's bound, a zeroed or halved metric must fail, and so must the
+     plain version without the bias;
    * the trainable attention, forward and backward (o, dq, dk, dv), in
      both layouts: ``attention_train`` on [B, H, N, dh] at vit_b16's and
      vit_t16's train shapes (B=64, 12 or 3 heads, N=197, dh=64), with keys
@@ -126,7 +142,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    before it and read just after:
    * vit_b16 (+ one vit_t16 request), bf16: ``attn`` + ``r`` on blocks
      0, 5, 11 and the logits, 5 requests in sequence and 4 at once; the
-     fused block kernel in every block;
+     fused block on the tensor cores in every block (12 launches a
+     request; by name in the profile 12 each of the LN1 + QKV, attention
+     and projection kernels and no FMA GEMM or attention kernel), the f32
+     request's 12 on split TF32;
    * vit_l16 @384, bf16: ``attn`` + ``r`` on block 0, ``attn`` of heads
      (0, 7, 15) + ``r`` on block 12, ``r`` on block 23, the logits; 3 in
      sequence and 2 at once; the headwise block on the tensor cores in all
@@ -157,11 +176,14 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      the same, the headwise block on the bf16 tensor cores in all 32
      blocks, with its client p50 and device busy;
    * vit_t16@256 from the repository's saved graph: ``attn`` + ``r`` on
-     blocks 0 and 6, ``r`` on block 11, the logits; the fused block kernel;
+     blocks 0 and 6, ``r`` on block 11, the logits; the fused block on
+     the tensor cores (by name in the profile, as vit_b16), the f32
+     request's on split TF32;
    * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
      in sequence; the W8A8 MLP on the int8 tensor cores and the s8 block
-     in every block (12 + 12 launches a request, the ``__dp4a`` kernel
-     none; by name in the profile), against the plain path with the two
+     on the tensor cores (its attention on int8 mma.sync) in every block
+     (12 + 12 launches a request, the ``__dp4a`` kernels none; by name in
+     the profile), against the plain path with the two
      kernels' plain versions (whose quantizers round half up, as the
      kernels');
    * vit_b16 ``--dtype int8`` (weight-only): no kernel launches;
@@ -169,8 +191,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      ``a`` wired along the chain), bf16: ``attn`` + ``r`` + ``merge`` on
      blocks 0, 5 and 11 and the logits, 3 in sequence and 2 at once, and
      one vit_b16_tome16 request (``merge`` etc. on block 11: N 21 -> 11);
-     the block kernel with ``key_bias`` and ``want_metric`` in all 12
-     blocks, 12 launches a request, N 197 -> 109. Matching decisions are
+     the block on the tensor cores with ``key_bias`` and ``want_metric``
+     in all 12 blocks, 12 launches a request (by name in the profile, the
+     FMA kernel none; the f32 request's on split TF32), N 197 -> 109.
+     Matching decisions are
      discrete, so each request's reference is the kernel path run
      in-process, with every block's one launch held against its plain
      version on that path's own inputs (y and the metric in every block,
@@ -328,6 +352,25 @@ KERNELS = {
                             "interactive_vit_tpu/ops/fused_mlp.py:60"),
     "fused_mlp_w8a8_block_mma": (CSRC + "fused_mlp_w8a8_mma.cu",
                                  "interactive_vit_tpu/ops/fused_mlp.py:154"),
+    # row 1 on the tensor cores, in its three modes: bf16 on mma.sync, f32
+    # on split TF32, the s8 attention on int8 m16n8k32 in both;
+    # fused_attn_block, fused_attn_block_s8 and fused_attn_block_tome above
+    # are the routes for other operands
+    "fused_attn_block_mma": (CSRC + "fused_attn_block_mma.cu",
+                             "interactive_vit_tpu/ops/fused_block.py:205"),
+    "fused_attn_block_tf32x3": (CSRC + "fused_attn_block_tf32.cu",
+                                "interactive_vit_tpu/ops/fused_block.py:205"),
+    "fused_attn_block_s8_mma": (CSRC + "fused_attn_block_mma.cu",
+                                "interactive_vit_tpu/ops/fused_block.py:205"),
+    "fused_attn_block_s8_tf32x3": (
+        CSRC + "fused_attn_block_tf32.cu",
+        "interactive_vit_tpu/ops/fused_block.py:205"),
+    "fused_attn_block_tome_mma": (
+        CSRC + "fused_attn_block_mma.cu",
+        "interactive_vit_tpu/ops/fused_block.py:205"),
+    "fused_attn_block_tome_tf32x3": (
+        CSRC + "fused_attn_block_tf32.cu",
+        "interactive_vit_tpu/ops/fused_block.py:205"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -789,13 +832,63 @@ def check_bounds_refuse(tag, got, ref, dtype, labels, s8=False,
                                  f"the bounds")
 
 
-def phase_block_kernel(device, name, kernel, plain, shapes, modes, served,
-                       s8=False):
-    """A block kernel against its plain version over ``shapes`` x dtypes x
-    ``modes``; returns the numbers of the ``served`` (shape name, batch,
-    dtype, mode) for the result line. ``s8``: the s8 mode's bounds, and
-    its attention products counted as int8 operations."""
+def row1_counts(s8=False):
+    """The launch counts of row 1's routes, fma / mma / tf32 (dense or the
+    s8 mode)."""
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+
+    names = (("fused_attn_block_s8", "fused_attn_block_s8_mma",
+              "fused_attn_block_s8_tf32x3") if s8 else
+             ("fused_attn_block", "fused_attn_block_mma",
+              "fused_attn_block_tf32x3"))
+    return tuple(getattr(fb, n).launches for n in names)
+
+
+def row1_step(route):
+    return {"fma": (1, 0, 0), "mma": (0, 1, 0), "tf32": (0, 0, 1)}[route]
+
+
+def row1_library_yardstick(x, p, heads, eps):
+    """Row 1's function (maps off) in four library calls (a yardstick, not
+    one call: ``library_ms`` stays null): ``F.layer_norm``, ``addmm`` (QKV),
+    ``scaled_dot_product_attention`` on q, k, v views of its result, and
+    ``addmm`` of the head outputs onto x + proj_b (that sum taken before the
+    timed calls). The port never calls it."""
     import torch
+    import torch.nn.functional as F
+
+    b, n, d = x.shape
+    x2 = x.reshape(-1, d)
+    xb = x2 + p["proj_b"]
+
+    def run():
+        ln = F.layer_norm(x2, (d,), p["ln1_s"], p["ln1_b"], eps)
+        qkv = torch.addmm(p["qkv_b"], ln, p["qkv_w"]).view(b, n, 3, heads,
+                                                           d // heads)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        o = F.scaled_dot_product_attention(q, k, v)
+        return torch.addmm(xb, o.transpose(1, 2).reshape(-1, d),
+                           p["proj_w"]).view(b, n, d)
+    return run
+
+
+def phase_block_kernel(device, name, kernel, plain, shapes, modes, s8=False):
+    """Row 1 (``kernel``: ``fused_attn_block`` or, ``s8``, its s8 mode)
+    against its plain version over ``shapes`` x dtypes x ``modes``: bf16 on
+    the tensor cores, f32 on split TF32 (the launch counts show the route),
+    and at vit_b16 B=1, on a copy of x off the 16-byte grid, the FMA (or
+    ``__dp4a``) kernel they replace; the bounds must refuse every output
+    zeroed or halved. Device times alone (``time_turns_held``: turns
+    plain, kernel, kernel, plain; the wrapper's host time a call logged
+    beside), the bound, and with maps off the four-call library yardstick
+    (dense mode). ``s8``: the s8 bounds, the attention's products counted
+    as int8 operations, and each tensor-core route's s32 sums checked
+    against the exact products of its own int8 operands at vit_b16 B=1.
+    Returns the numbers of each route at vit_b16 B=1 with maps + mean
+    (bf16 for the tensor cores and the FMA kernel, f32 for split TF32)."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import fused_block as fb
 
     out = {}
     for sname, b, n, d, heads in shapes:
@@ -804,58 +897,156 @@ def phase_block_kernel(device, name, kernel, plain, shapes, modes, served,
             p = random_block(d, dtype, device, seed=b * 100 + d)
             x = torch.randn((b, n, d), generator=torch.Generator()
                             .manual_seed(d + b)).to(device=device, dtype=dtype)
-            for mode, kw in modes(heads).items():
-                got = kernel(x, p, heads, 1e-6, **kw)
-                ref = plain(x, p, heads, 1e-6, **kw)
-                torch.cuda.synchronize()
-                tag = f"{name} {sname} B={b} {dt} {mode}"
-                labels = ("y", "probs", "mean")
-                errs, line = check_outputs(tag, got, ref, dtype, labels,
-                                           s8=s8)
-                check_bounds_refuse(tag, got, ref, dtype, labels, s8=s8,
-                                    first=0)
-                if mode != "subset":
-                    t_k, t_p = time_turns(
-                        lambda: kernel(x, p, heads, 1e-6, **kw),
-                        lambda: plain(x, p, heads, 1e-6, **kw))
-                    line += f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
-                    if (sname, b, dt, mode) == served:
-                        sel = kw.get("attn_heads")
-                        n_maps = (0 if not kw.get("want_attn") else
-                                  len(sel) if sel else heads)
-                        nbytes, flops = block_cost(
-                            b, n, d, heads, x.element_size(), n_maps,
-                            kw.get("want_mean", False))
-                        if s8:  # QK^T and PV in int8, the GEMMs in dt
-                            attn = 4 * b * heads * n * n * (d // heads)
-                            flops = {dt: flops - attn, "int8": attn}
-                        bms, by = bound(nbytes, flops, dt)
-                        out = {"max_abs_err": max(errs), "ms": t_k,
-                               "plain_ms": t_p, "bound_ms": bms,
-                               "bound_by": by, "library_ms": None}
-                        ops = sum(flops.values()) if s8 else flops
-                        line += (f"; bound {bms:.5f} ms ({by}: "
-                                 f"{nbytes / 1e6:.2f} MB, "
-                                 f"{ops / 1e9:.3f} G operations)")
-                log(line)
+            route = "mma" if dtype == torch.bfloat16 else "tf32"
+            runs = [(route, x)]
+            if (sname, b) == ("vit_b16", 1):
+                runs.append(("fma", off_grid(x)))
+            for rt, xr in runs:
+                if fb._block_route_of(xr, p, heads) != rt:
+                    raise AssertionError(f"{name} {sname} {dt}: route "
+                                         f"{fb._block_route_of(xr, p, heads)}"
+                                         f", expected {rt}")
+                for mode, kw in modes(heads).items():
+                    if rt == "fma" and mode not in ("maps_off", "maps_mean"):
+                        continue
+                    before = row1_counts(s8)
+                    got = kernel(xr, p, heads, 1e-6, **kw)
+                    torch.cuda.synchronize()
+                    if row1_counts(s8) != tuple(
+                            c + s for c, s in zip(before, row1_step(rt))):
+                        raise AssertionError(f"{name} {sname} {dt} {mode}: "
+                                             f"launches {row1_counts(s8)} "
+                                             f"after {before}, route {rt}")
+                    ref = plain(xr, p, heads, 1e-6, **kw)
+                    tag = (f"{name} {sname} B={b} {dt} ({rt}"
+                           + (", off the 16-byte grid" if rt == "fma" else "")
+                           + f") {mode}")
+                    labels = ("y", "probs", "mean")
+                    errs, line = check_outputs(tag, got, ref, dtype, labels,
+                                               s8=s8)
+                    check_bounds_refuse(tag, got, ref, dtype, labels, s8=s8,
+                                        first=0)
+                    del got, ref
+                    if mode == "subset":
+                        log(line)
+                        continue
+                    t_k, t_p, t_host = time_turns_held(
+                        lambda: kernel(xr, p, heads, 1e-6, **kw),
+                        lambda: plain(xr, p, heads, 1e-6, **kw))
+                    sel = kw.get("attn_heads")
+                    n_maps = (0 if not kw.get("want_attn") else
+                              len(sel) if sel else heads)
+                    nbytes, flops = block_cost(b, n, d, heads,
+                                               x.element_size(), n_maps,
+                                               kw.get("want_mean", False))
+                    if s8:  # QK^T and PV in int8, the GEMMs in dt
+                        attn = 4 * b * heads * n * n * (d // heads)
+                        flops = {dt: flops - attn, "int8": attn}
+                    bms, by = bound(nbytes, flops, dt)
+                    ops = sum(flops.values()) if s8 else flops
+                    line += (f"; device time: kernel {t_k:.4f} ms, plain "
+                             f"{t_p:.4f} ms (the wrapper's host time "
+                             f"{t_host:.4f} ms a call); bound {bms:.5f} ms "
+                             f"({by}: {nbytes / 1e6:.2f} MB, "
+                             f"{ops / 1e9:.3f} G operations)")
+                    if rt == "tf32":
+                        # the split's products, three TF32 ones a product:
+                        # the kernels line carries this bound
+                        tops = ({"tf32": 3 * (ops - attn), "int8": attn}
+                                if s8 else {"tf32": 3 * flops})
+                        bms, by = bound(nbytes, tops, dt)
+                        line += (f"; at the TF32 peak (the split's "
+                                 f"{sum(tops.values()) / 1e9:.3f} G "
+                                 f"operations) {bms:.5f} ms ({by})")
+                    if not s8 and rt != "fma" and mode == "maps_off":
+                        lib = row1_library_yardstick(xr, p, heads, 1e-6)
+                        lib_err = (lib().float() - plain(
+                            xr, p, heads, 1e-6)[0].float()).abs().max().item()
+                        t_lib, _ = time_held(lib)
+                        line += (f"; yardstick of four library calls "
+                                 f"(layer_norm, addmm, "
+                                 f"scaled_dot_product_attention, addmm) "
+                                 f"{t_lib:.4f} ms (max abs diff "
+                                 f"{lib_err:.3g} from the plain version; the "
+                                 f"kernel at {t_k / t_lib:.2f}x it)")
+                    log(line)
+                    nums = {"max_abs_err": max(errs), "ms": t_k,
+                            "plain_ms": t_p, "bound_ms": bms, "bound_by": by,
+                            "library_ms": None}
+                    if (sname, b, mode) == ("vit_b16", 1, "maps_mean") and (
+                            (rt == "tf32") == (dtype == torch.float32)):
+                        out[rt] = nums
+            if s8 and (sname, b) == ("vit_b16", 1):
+                for int8_pv in (True, False):
+                    check_s8_parts(f"{name} {sname} B={b} {dt} ({route})",
+                                   x, p, heads, int8_pv)
     return out
+
+
+def check_s8_parts(tag, x, p, heads, int8_pv) -> None:
+    """The s8 tensor-core route's integer stages on its own int8 operands:
+    si = q8 k8^T and (int8_pv) oi = p8 v8 exactly; q8 and k8 against the
+    plain version's quantization of the plain qkv, which they may differ
+    from where an f32 value the two compute in another order lands across
+    a .5 boundary (logged, at most 1% of them)."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+    from interactive_vit_tpu_torch.ops import quant
+
+    kw = {"want_attn": True, "want_mean": True}
+    _, parts = fb.fused_attn_block_s8_parts(x, p, heads, 1e-6,
+                                            int8_pv=int8_pv, **kw)
+    torch.cuda.synchronize()
+
+    def exact(a, bt):
+        return torch.matmul(a.double(), bt.double()).long()
+
+    if not torch.equal(parts["si"].long(),
+                       exact(parts["q8"], parts["k8"].transpose(-1, -2))):
+        raise AssertionError(f"{tag}: si is not q8 k8^T")
+    if int8_pv and not torch.equal(parts["oi"].long(),
+                                   exact(parts["p8"], parts["v8"])):
+        raise AssertionError(f"{tag}: oi is not p8 v8")
+    b, n, d = x.shape
+    qkv = fb._ln_qkv(x, p, 1e-6)
+    shares = {}
+    for i, name in enumerate(("q8", "k8")):
+        t = qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, d // heads)
+        q8, _ = quant.quant_rows_mosaic(t.transpose(1, 2).float())
+        shares[name] = (parts[name] != q8.to(torch.int8)).float().mean().item()
+    if max(shares.values()) > W8A8_Q_SHARE:
+        raise AssertionError(f"{tag}: int8 operands differ from the plain "
+                             f"version's in {shares}")
+    log(f"  {tag} int8_pv={int8_pv}: s32 sums equal the exact products of "
+        f"the kernel's own int8 operands ("
+        + ("si = q8 k8^T, oi = p8 v8" if int8_pv else "si = q8 k8^T")
+        + "); q8, k8 differ from the plain version's in "
+        + ", ".join(f"{k} {100 * v:.3f}%" for k, v in shares.items()))
 
 
 def phase_tome_kernel(device) -> dict:
     """ToMe's mode of the block kernel (``key_bias`` + ``want_metric``)
     against its plain version at the ends of the served ladders: vit_b16
     at N=197 (B=1 and 8) and N=109 (vit_b16_tome's last block), N=21
-    (vit_b16_tome16's last) and N=11, bf16 and f32, maps off and maps +
-    mean, and the s8 mode with both operands. The bias is the log of token
-    sizes drawn from 1..16; the result must also differ beyond the bounds
-    from the plain version without the bias (on the maps, or on y in dense
-    f32). Returns the served configuration's numbers (N=197, B=1, bf16,
-    maps + mean: the shape of row 1's entry)."""
+    (vit_b16_tome16's last) and N=11, bf16 on the tensor cores and f32 on
+    split TF32, maps off and maps + mean, and the s8 mode with both
+    operands; at N=197 B=1 also the FMA kernel on a copy of x off the
+    16-byte grid. The bias is the log of token sizes drawn from 1..16; the
+    result must also differ beyond the bounds from the plain version
+    without the bias (on the maps, or on y in dense f32). Device times
+    alone (``time_turns_held``). Returns each route's numbers at N=197,
+    B=1, maps + mean (bf16 for the tensor cores and the FMA kernel, f32 for
+    split TF32)."""
     import torch
     from interactive_vit_tpu_torch.ops import fused_block as fb
 
+    def tome_counts():
+        return tuple(getattr(fb, n).tome_launches for n in (
+            "fused_attn_block", "fused_attn_block_mma",
+            "fused_attn_block_tf32x3"))
+
     out = {}
-    served = (197, 1, "bfloat16", "maps_mean")
     for n, b in ((197, 1), (197, 8), (109, 1), (21, 1), (11, 1)):
         for dtype in (torch.bfloat16, torch.float32):
             dt = str(dtype).replace("torch.", "")
@@ -865,57 +1056,87 @@ def phase_tome_kernel(device) -> dict:
                                                          dtype=dtype)
             kb = torch.log(torch.randint(1, 17, (b, n), generator=g).float()
                            ).to(device)
-            for mode, kw, s8 in (
-                    ("maps_off", {}, False),
-                    ("maps_mean", {"want_attn": True, "want_mean": True},
-                     False),
-                    ("s8_maps_mean", {"want_attn": True, "want_mean": True},
-                     True)):
-                if s8 and (n, b) != (197, 1):
-                    continue
-                kernel = fb.fused_attn_block_s8 if s8 else fb.fused_attn_block
-                plain = functools.partial(fb.fused_attn_block_reference,
-                                          int8_scores=s8)
-                kw = dict(kw, want_metric=True)
-                got = kernel(x, p, 12, 1e-6, key_bias=kb, **kw)
-                ref = plain(x, p, 12, 1e-6, key_bias=kb, **kw)
-                torch.cuda.synchronize()
-                tag = f"fused_attn_block_tome N={n} B={b} {dt} {mode}"
-                labels = (("y", "probs", "mean", "metric") if kw.get(
-                    "want_mean") else ("y", "probs", "metric"))
-                errs, line = check_outputs(tag, got, ref, dtype, labels,
-                                           s8=s8)
-                check_bounds_refuse(tag, got, ref, dtype, labels, s8=s8,
-                                    first=0)
-                if kw.get("want_mean") or (dtype == torch.float32
-                                           and not s8):
-                    try:
-                        check_outputs(tag, got, plain(x, p, 12, 1e-6, **kw),
-                                      dtype, labels, quiet=True, s8=s8)
-                    except AssertionError:
-                        pass
-                    else:
-                        raise AssertionError(f"{tag}: the result without "
-                                             f"the key bias passed")
-                if not s8:
-                    t_k, t_p = time_turns(
-                        lambda: kernel(x, p, 12, 1e-6, key_bias=kb, **kw),
-                        lambda: plain(x, p, 12, 1e-6, key_bias=kb, **kw))
-                    line += f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms"
-                    maps = bool(kw.get("want_attn"))
-                    nbytes, flops = block_cost(b, n, 768, 12,
-                                               x.element_size(),
-                                               12 if maps else 0, maps,
-                                               tome=True)
-                    bms, by = bound(nbytes, flops, dt)
-                    line += (f"; bound {bms:.5f} ms ({by}: "
-                             f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} G "
-                             f"operations)")
-                    if (n, b, dt, mode) == served:
-                        out = {"max_abs_err": max(errs), "ms": t_k,
-                               "plain_ms": t_p, "bound_ms": bms,
-                               "bound_by": by, "library_ms": None}
-                log(line)
+            route = "mma" if dtype == torch.bfloat16 else "tf32"
+            runs = [(route, x)] + ([("fma", off_grid(x))]
+                                   if (n, b) == (197, 1) else [])
+            for rt, xr in runs:
+                for mode, kw, s8 in (
+                        ("maps_off", {}, False),
+                        ("maps_mean", {"want_attn": True, "want_mean": True},
+                         False),
+                        ("s8_maps_mean", {"want_attn": True,
+                                          "want_mean": True}, True)):
+                    if s8 and ((n, b) != (197, 1) or rt == "fma"):
+                        continue
+                    kernel = (fb.fused_attn_block_s8 if s8
+                              else fb.fused_attn_block)
+                    plain = functools.partial(fb.fused_attn_block_reference,
+                                              int8_scores=s8)
+                    kw = dict(kw, want_metric=True)
+                    before = (row1_counts(s8), tome_counts())
+                    got = kernel(xr, p, 12, 1e-6, key_bias=kb, **kw)
+                    ref = plain(xr, p, 12, 1e-6, key_bias=kb, **kw)
+                    torch.cuda.synchronize()
+                    step = row1_step(rt)
+                    if (row1_counts(s8) != tuple(
+                            c + s for c, s in zip(before[0], step))
+                            or (not s8 and tome_counts() != tuple(
+                                c + s for c, s in zip(before[1], step)))):
+                        raise AssertionError(
+                            f"ToMe N={n} {dt} {mode}: launches "
+                            f"{row1_counts(s8)}, {tome_counts()} after "
+                            f"{before}, route {rt}")
+                    tag = (f"fused_attn_block_tome N={n} B={b} {dt} ({rt}"
+                           + (", off the 16-byte grid" if rt == "fma" else "")
+                           + f") {mode}")
+                    labels = (("y", "probs", "mean", "metric") if kw.get(
+                        "want_mean") else ("y", "probs", "metric"))
+                    errs, line = check_outputs(tag, got, ref, dtype, labels,
+                                               s8=s8)
+                    check_bounds_refuse(tag, got, ref, dtype, labels, s8=s8,
+                                        first=0)
+                    if kw.get("want_mean") or (dtype == torch.float32
+                                               and not s8):
+                        try:
+                            check_outputs(tag, got, plain(xr, p, 12, 1e-6,
+                                                          **kw),
+                                          dtype, labels, quiet=True, s8=s8)
+                        except AssertionError:
+                            pass
+                        else:
+                            raise AssertionError(f"{tag}: the result "
+                                                 f"without the key bias "
+                                                 f"passed")
+                    if not s8:
+                        t_k, t_p, t_host = time_turns_held(
+                            lambda: kernel(xr, p, 12, 1e-6, key_bias=kb,
+                                           **kw),
+                            lambda: plain(xr, p, 12, 1e-6, key_bias=kb,
+                                          **kw))
+                        maps = bool(kw.get("want_attn"))
+                        nbytes, flops = block_cost(b, n, 768, 12,
+                                                   x.element_size(),
+                                                   12 if maps else 0, maps,
+                                                   tome=True)
+                        bms, by = bound(nbytes, flops, dt)
+                        line += (f"; device time: kernel {t_k:.4f} ms, "
+                                 f"plain {t_p:.4f} ms (the wrapper's host "
+                                 f"time {t_host:.4f} ms a call); bound "
+                                 f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB,"
+                                 f" {flops / 1e9:.3f} G operations)")
+                        if rt == "tf32":
+                            # three TF32 products a product: the kernels
+                            # line carries this bound
+                            bms, by = bound(nbytes, {"tf32": 3 * flops}, dt)
+                            line += (f"; at the TF32 peak (the split's "
+                                     f"{3 * flops / 1e9:.3f} G operations) "
+                                     f"{bms:.5f} ms ({by})")
+                        if (n, b, mode) == (197, 1, "maps_mean") and (
+                                (rt == "tf32") == (dtype == torch.float32)):
+                            out[rt] = {"max_abs_err": max(errs), "ms": t_k,
+                                       "plain_ms": t_p, "bound_ms": bms,
+                                       "bound_by": by, "library_ms": None}
+                    log(line)
     return out
 
 
@@ -1870,7 +2091,8 @@ class Path:
     ``f32_kernels``: the launches of the f32 request where they differ from
     ``kernels`` (a bf16 tensor-core route whose f32 twin is an FMA
     kernel). ``profile_kernels``: ``report_profile``'s ``expect`` for the
-    profiled request. ``f32_rel``: a ``dtype="float32"`` path's requests
+    profiled request (and for ``other``'s, its own). ``f32_rel``: a
+    ``dtype="float32"`` path's requests
     are held to F32_BOUND of each output's scale (``check_response``'s
     ``rel``) where F32_BOUND alone would not hold through its depth."""
 
@@ -2199,6 +2421,10 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             url + "/metrics", timeout=30).read())
         profile_request(app, chain_graph(graph, images[0], path.node_params),
                         path.taps(), tag, path.profile_kernels)
+        if opath and opath.profile_kernels:
+            profile_request(app, chain_graph(app.graphs.load(
+                opath.model + ".json"), other_image), opath.taps(),
+                f"{opath.model} {path.dtype}", opath.profile_kernels)
         if path.host_spans:
             time_host_spans(app, chain_graph(graph, images[0],
                                              path.node_params),
@@ -2350,7 +2576,7 @@ def run_forwards(device, counters) -> dict:
     if (kernel_kw["vit_b16"]["block_impl"] is not fb.fused_attn_block
             or kernel_kw["swin_t"]["window_impl"] is not fw.fused_window_attn):
         raise AssertionError("dispatch did not pick the kernels on the card")
-    runs = {"vit_b16": (vit.forward, vparams, vcfg, "fused_attn_block"),
+    runs = {"vit_b16": (vit.forward, vparams, vcfg, "fused_attn_block_mma"),
             "swin_t": (swin.forward, sparams, scfg, "fused_window_attn")}
     # the MLP kernels a forward launches: the tensor-core route where it
     # takes the stage's widths (all of vit_b16; swin_t's stages 2 and 3),
@@ -3151,6 +3377,8 @@ def main() -> int:
                       for src, _ in KERNELS.values()})
     cuda_build.build_all(sources)
     fb.load_kernel()
+    fb.load_mma_kernel()
+    fb.load_tf32_kernel()
     fb.load_headwise_kernel()
     fb.load_headwise_mma_kernel()
     fb.load_headwise_tf32_kernel()
@@ -3196,7 +3424,15 @@ def main() -> int:
                 "headwise_attn_block_mma": fb.headwise_attn_block_mma,
                 "headwise_attn_block_tf32x3": fb.headwise_attn_block_tf32x3,
                 "fused_mlp_block_mma": fm.fused_mlp_block_mma,
-                "fused_mlp_w8a8_block_mma": fm.fused_mlp_w8a8_block_mma}
+                "fused_mlp_w8a8_block_mma": fm.fused_mlp_w8a8_block_mma,
+                "fused_attn_block_mma": fb.fused_attn_block_mma,
+                "fused_attn_block_tf32x3": fb.fused_attn_block_tf32x3,
+                "fused_attn_block_s8_mma": fb.fused_attn_block_s8_mma,
+                "fused_attn_block_s8_tf32x3": fb.fused_attn_block_s8_tf32x3,
+                "fused_attn_block_tome_mma": ToMeCount(
+                    fb.fused_attn_block_mma),
+                "fused_attn_block_tome_tf32x3": ToMeCount(
+                    fb.fused_attn_block_tf32x3)}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
@@ -3209,19 +3445,33 @@ def main() -> int:
     headwise = phase_headwise_kernel(device)
     mlp = phase_mlp_kernel(device)
     w8a8 = phase_w8a8_kernel(device)
+    block = phase_block_kernel(
+        device, "fused_attn_block", fb.fused_attn_block,
+        fb.fused_attn_block_reference,
+        (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12),
+         ("vit_t16", 1, 197, 192, 3), ("vit_t16@256", 1, 257, 192, 3)),
+        lambda heads: {
+            "maps_off": {},
+            "maps_mean": {"want_attn": True, "want_mean": True},
+            "subset": {"want_attn": True,
+                       "attn_heads": tuple(sorted({0, heads // 2,
+                                                   heads - 1}))}})
+    block_s8 = phase_block_kernel(
+        device, "fused_attn_block_s8", fb.fused_attn_block_s8,
+        functools.partial(fb.fused_attn_block_reference, int8_scores=True),
+        (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12)),
+        lambda heads: {
+            "maps_off": {},
+            "maps_mean": {"want_attn": True, "want_mean": True},
+            "subset": {"want_attn": True, "attn_heads": (0, 6, 11)},
+            "qk_maps_mean": {"want_attn": True, "want_mean": True,
+                             "int8_pv": False}},
+        s8=True)
+    tome_nums = phase_tome_kernel(device)
     numbers = {
-        "fused_attn_block": phase_block_kernel(
-            device, "fused_attn_block", fb.fused_attn_block,
-            fb.fused_attn_block_reference,
-            (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12),
-             ("vit_t16", 1, 197, 192, 3), ("vit_t16@256", 1, 257, 192, 3)),
-            lambda heads: {
-                "maps_off": {},
-                "maps_mean": {"want_attn": True, "want_mean": True},
-                "subset": {"want_attn": True,
-                           "attn_heads": tuple(sorted({0, heads // 2,
-                                                       heads - 1}))}},
-            ("vit_b16", 1, "bfloat16", "maps_mean")),
+        "fused_attn_block": block["fma"],
+        "fused_attn_block_mma": block["mma"],
+        "fused_attn_block_tf32x3": block["tf32"],
         "headwise_attn_block": headwise["fma"],
         "flash_attention": flash["fma"],
         "fused_window_attn": phase_window_kernel(device),
@@ -3230,19 +3480,12 @@ def main() -> int:
         "flash_attention_online": online["fma"],
         "fused_mlp_w8a8_block": w8a8["dp4a"],
         "fused_mlp_w8a8_block_mma": w8a8["mma"],
-        "fused_attn_block_s8": phase_block_kernel(
-            device, "fused_attn_block_s8", fb.fused_attn_block_s8,
-            functools.partial(fb.fused_attn_block_reference,
-                              int8_scores=True),
-            (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12)),
-            lambda heads: {
-                "maps_off": {},
-                "maps_mean": {"want_attn": True, "want_mean": True},
-                "subset": {"want_attn": True, "attn_heads": (0, 6, 11)},
-                "qk_maps_mean": {"want_attn": True, "want_mean": True,
-                                 "int8_pv": False}},
-            ("vit_b16", 1, "bfloat16", "maps_mean"), s8=True),
-        "fused_attn_block_tome": phase_tome_kernel(device),
+        "fused_attn_block_s8": block_s8["fma"],
+        "fused_attn_block_s8_mma": block_s8["mma"],
+        "fused_attn_block_s8_tf32x3": block_s8["tf32"],
+        "fused_attn_block_tome": tome_nums["fma"],
+        "fused_attn_block_tome_mma": tome_nums["mma"],
+        "fused_attn_block_tome_tf32x3": tome_nums["tf32"],
         "attention_train": train["fma"],
         "attention_train_packed": train_packed["fma"],
         "flash_attention_online_mma": online["mma"],
@@ -3270,19 +3513,38 @@ def main() -> int:
     b16_plain = {"block_impl": fb.fused_attn_block_reference}
     tome_taps = ("attn", "r", "merge")
 
+    # row 1 on the tensor cores in all 12 blocks (the FMA kernels, a route
+    # for operands off the 16-byte grid, never: their counts come from
+    # here), the f32 requests' 12 on split TF32; by name in the profile
+    row1_bf16 = {"fused_attn_block_mma": 12, "fused_attn_block": 0}
+    row1_f32 = {"fused_attn_block_tf32x3": 12, "fused_attn_block": 0}
+    row1_profile = {"row1_qkv_mma_kernel": 12, "row1_attn_mma_kernel": 12,
+                    "proj_mma_kernel": 12, "gemm_kernel": 0,
+                    "::attention_kernel": 0}
+
+    tome_profile = {"row1_attn_mma_kernel": 12, "key_mean_kernel": 12,
+                    "::attention_kernel": 0, "gemm_kernel": 0}
+
     def tome_path(name, taps, seq, conc, **kw):
         return Path(name, tome, tome.VARIANTS[name], 224, taps,
-                    {"fused_attn_block": 12, "fused_attn_block_tome": 12},
+                    {"fused_attn_block_mma": 12,
+                     "fused_attn_block_tome_mma": 12,
+                     "fused_attn_block": 0, "fused_attn_block_tome": 0},
                     b16_plain, tome_tap_shape, seq, conc, chain=("s", "a"),
-                    lockstep=tome_lockstep, **kw)
+                    lockstep=tome_lockstep,
+                    f32_kernels={"fused_attn_block_tf32x3": 12,
+                                 "fused_attn_block_tome_tf32x3": 12,
+                                 "fused_attn_block": 0,
+                                 "fused_attn_block_tome": 0},
+                    **kw)
     tome_spans = [(tome_ops, name) for name in (
         "bipartite_matching", "apply_merge", "merge_map_render")]
     paths = [
-        vit_path("vit_b16", 224, b16_taps, {"fused_attn_block": 12},
-                 b16_plain, seq=5, conc=4,
-                 other=vit_path("vit_t16", 224, b16_taps,
-                                {"fused_attn_block": 12}, b16_plain, seq=1,
-                                conc=0)),
+        vit_path("vit_b16", 224, b16_taps, row1_bf16, b16_plain, seq=5,
+                 conc=4, f32_kernels=row1_f32, profile_kernels=row1_profile,
+                 other=vit_path("vit_t16", 224, b16_taps, row1_bf16,
+                                b16_plain, seq=1, conc=0,
+                                profile_kernels=row1_profile)),
         # row 2 on the tensor cores in all 24 blocks (the FMA kernel, a
         # route for operands off the 16-byte grid, never; its count comes
         # from here), the f32 request's 24 on split TF32
@@ -3350,21 +3612,27 @@ def main() -> int:
                                   "tiled_attention_kernel": 0}),
         # the repository's saved graph for an @ geometry (N=257)
         vit_path("vit_t16@256", 256, {2: ("attn", "r"), 8: ("attn", "r"),
-                                      13: ("r",)}, {"fused_attn_block": 12},
-                 b16_plain, seq=2, conc=0),
-        # W8A8 fc1/fc2 and the s8 block in every block: the MLP on the
-        # int8 tensor cores (the __dp4a kernel, a route for operands off
-        # the grid, never; its count comes from here), by name in the
-        # profile
+                                      13: ("r",)}, row1_bf16,
+                 b16_plain, seq=2, conc=0, f32_kernels=row1_f32,
+                 profile_kernels=row1_profile),
+        # W8A8 fc1/fc2 and the s8 block in every block: the MLP and the
+        # s8 attention on the int8 tensor cores (the __dp4a kernels, routes
+        # for operands off the grid, never; their counts come from here),
+        # by name in the profile
         vit_path("vit_b16", 224, b16_taps,
-                 {"fused_mlp_w8a8_block_mma": 12, "fused_attn_block_s8": 12,
+                 {"fused_mlp_w8a8_block_mma": 12,
+                  "fused_attn_block_s8_mma": 12, "fused_attn_block_s8": 0,
+                  "fused_attn_block_s8_tf32x3": 0,
                   "fused_mlp_w8a8_block": 0},
                  {"block_impl": functools.partial(
                      fb.fused_attn_block_reference, int8_scores=True),
                   "mlp_impl": fm.fused_mlp_w8a8_reference},
                  seq=3, conc=0, dtype="int8w8a8", attn="int8-scores",
-                 f32=False, profile_kernels={"w8a8_mma_kernel": 12,
-                                             "w8a8_mlp_kernel": 0}),
+                 f32=False, profile_kernels={
+                     "w8a8_mma_kernel": 12, "w8a8_mlp_kernel": 0,
+                     "row1_qkv_mma_kernel": 12, "row1_s8_mma_kernel": 12,
+                     "proj_mma_kernel": 12, "gemm_kernel": 0,
+                     "::attention_kernel": 0}),
         # weight-only int8: the unfused path, no kernel
         vit_path("vit_b16", 224, b16_taps, {}, {}, seq=2, conc=0,
                  dtype="int8", f32=False),
@@ -3374,8 +3642,8 @@ def main() -> int:
         tome_path("vit_b16_tome", {2: tome_taps, 7: tome_taps,
                                    13: tome_taps}, seq=3, conc=2,
                   other=tome_path("vit_b16_tome16", {13: tome_taps}, seq=1,
-                                  conc=0),
-                  host_spans=tome_spans),
+                                  conc=0, profile_kernels=tome_profile),
+                  host_spans=tome_spans, profile_kernels=tome_profile),
     ]
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_")
     try:

@@ -236,6 +236,34 @@ cudaError_t launch_head_mean(const float* head_probs, T* mean, int B, int H, int
 }
 
 // ---------------------------------------------------------------------------
+// ToMe's key metric (the fused block's kernel E): the head-meaned keys of
+// the qkv workspace [rows, 3D], metric[row, c] = (sum over heads 0..H-1 in
+// order of k) * inv_heads in f32, each add and the product rounded on its
+// own; one (row, column) of [rows, dh] per thread.
+template <typename T>
+__global__ void key_mean_kernel(const T* __restrict__ qkv, float* __restrict__ metric, int rows,
+                                int D, int H, float inv_heads) {
+  const int dh = D / H;
+  const size_t total = (size_t)rows * dh;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const T* k = qkv + (e / dh) * 3 * (size_t)D + D + e % dh;
+    float acc = to_f(k[0]);
+    for (int h = 1; h < H; ++h) acc = __fadd_rn(acc, to_f(k[(size_t)h * dh]));
+    metric[e] = __fmul_rn(acc, inv_heads);
+  }
+}
+
+template <typename T>
+cudaError_t launch_key_mean(const T* qkv, float* metric, int rows, int D, int H, float inv_heads,
+                            cudaStream_t stream) {
+  const size_t total = (size_t)rows * (D / H);
+  key_mean_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(qkv, metric, rows, D,
+                                                                          H, inv_heads);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Key-tiled attention: one block per (query tile of QTILE rows, head, image).
 //
 //   1. scores  S[QTILE][N] = scale * Q K^T in f32, K staged one tile of 64

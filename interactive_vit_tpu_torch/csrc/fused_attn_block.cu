@@ -56,7 +56,8 @@
 //                                when the head-mean is asked for)
 //   Kernel C  gemm<T, LN=false>  y = (x + o @ proj_w) + proj_b
 //
-// Kernels A, C and D live in common.cuh, shared with the headwise block.
+// Kernels A, C, D and E live in common.cuh (A, C and D shared with the
+// headwise block, E and D with row 1's tensor-core routes).
 // Plain C interface, bound from Python with ctypes; every launch goes on
 // the caller's stream and the entry returns cudaGetLastError().
 
@@ -310,21 +311,6 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, T* __restrict__ p
   }
 }
 
-// Kernel E: ToMe's metric, one (row, column) of [B*N, dh] per thread.
-template <typename T>
-__global__ void key_mean_kernel(const T* __restrict__ qkv, float* __restrict__ metric, int rows,
-                                int D, int H, float inv_heads) {
-  const int dh = D / H;
-  const size_t total = (size_t)rows * dh;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const T* k = qkv + (e / dh) * 3 * (size_t)D + D + e % dh;
-    float acc = to_f(k[0]);
-    for (int h = 1; h < H; ++h) acc = __fadd_rn(acc, to_f(k[(size_t)h * dh]));
-    metric[e] = __fmul_rn(acc, inv_heads);
-  }
-}
-
 template <typename T, bool S8>
 cudaError_t launch_attention(const T* qkv_ws, T* o_ws, T* probs, float* head_probs,
                              const float* kb, int B, int N, int D, int H, float scale, int fast,
@@ -356,10 +342,7 @@ int launch(const void* x, const void* ln_s, const void* ln_b, const void* qkv_w,
   if (err != cudaSuccess) return (int)err;
 
   if (metric != nullptr) {
-    const size_t total = (size_t)M * (D / H);
-    key_mean_kernel<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        (const T*)qkv_ws, (float*)metric, M, D, H, inv_heads);
-    err = cudaGetLastError();
+    err = launch_key_mean<T>((const T*)qkv_ws, (float*)metric, M, D, H, inv_heads, stream);
     if (err != cudaSuccess) return (int)err;
   }
 

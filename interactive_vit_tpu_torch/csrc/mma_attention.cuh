@@ -227,4 +227,22 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out, long long sn, con
   }
 }
 
+// s[n] = s[n] * scale + kb[j] for the keys j = j0 + 8 n + 2t (+ 1) of a
+// tile (rows g and g + 8 share a key), each operation rounded on its own;
+// keys at or past N are only scaled (the softmax masks them). ToMe's key
+// bias in row 1's tensor-core routes (attn_block_mma.cuh, attn_block_tf32.cuh).
+template <int NT>
+__device__ __forceinline__ void add_key_bias(float s[NT][4], const float* kb, float scale, int j0,
+                                             int N, int t) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = j0 + 8 * n + 2 * t + c;
+      const float bias = j < N ? kb[j] : 0.f;
+      s[n][c] = __fadd_rn(__fmul_rn(s[n][c], scale), bias);
+      s[n][c + 2] = __fadd_rn(__fmul_rn(s[n][c + 2], scale), bias);
+    }
+}
+
 }  // namespace

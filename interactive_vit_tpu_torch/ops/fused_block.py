@@ -37,6 +37,19 @@ mma.sync bf16), f32 ones ``headwise_attn_block_tf32x3``
 (``csrc/headwise_attn_block_tf32.cu``, three TF32 products a product);
 every other operand keeps the FMA kernel (``headwise_attn_block.launches``).
 
+The whole-image block has the same three routes, chosen by
+``block_route`` (dtype, head width, row width and 16-byte alignment of x
+and the six weights): bf16 heads of a width in ``ROW1_TC_DHS`` (64, 80)
+run ``fused_attn_block_mma`` (``csrc/fused_attn_block_mma.cu``: LN1 + QKV,
+the attention and the projection on mma.sync bf16), f32 ones
+``fused_attn_block_tf32x3`` (``csrc/fused_attn_block_tf32.cu``, split
+TF32), in the s8 mode ``fused_attn_block_s8_mma`` and
+``fused_attn_block_s8_tf32x3`` (the same sources; the s8 attention on
+int8 mma.sync m16n8k32); every other operand keeps the FMA kernel
+(``fused_attn_block.launches``, ``fused_attn_block_s8.launches``). A
+launch with ToMe's operands also counts in its route wrapper's
+``tome_launches``.
+
 The s8 mode (JAX ``int8_scores`` / ``int8_pv``, the server's ``--attn
 int8-scores``) is a mode of the whole-image kernel with its own wrapper,
 ``fused_attn_block_s8`` (count ``fused_attn_block_s8.launches``):
@@ -249,6 +262,84 @@ ENTRY_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 15
                      ctypes.c_int, ctypes.c_void_p])
 
 
+# The head widths of the whole-image block's tensor-core routes
+# (csrc/fused_attn_block_mma.cu, csrc/fused_attn_block_tf32.cu), in
+# increasing order, and the widest row their LN1 + QKV kernel takes (a
+# lane's LayerNorm units in registers: csrc/mlp_cluster.cuh's
+# MC_MAX_WIDTH).
+ROW1_TC_DHS = (64, 80)
+ROW1_TC_MAX_WIDTH = 1280
+# Rows of a tile of the bf16 LN1 + QKV kernel: 32 up to this many rows
+# (csrc/fused_attn_block_mma.cu QKV_SMALL_M), else 64; the f32 one takes 32
+ROW1_QKV_SMALL_M = 512
+# Query rows of a block of the s8 tensor-core attention
+# (csrc/attn_block_s8.cuh)
+_S8_ROWS = 32
+# The tensor-core entries take ``ivt_fused_attn_block``'s arguments
+# without the dtype, and before the stream ``s8_parts``: null, or a host
+# array of the six device pointers of ``S8_PARTS`` (a check of the s8 mode).
+TC_ENTRY_ARGTYPES = ENTRY_ARGTYPES[1:-1] + [ctypes.c_void_p, ctypes.c_void_p]
+S8_PARTS = ("q8", "k8", "v8", "p8", "si", "oi")
+
+
+def block_route(dtype: torch.dtype, dh: int, addrs, strides) -> str:
+    """The whole-image block's kernel for operands of ``dtype`` with heads
+    ``dh`` wide, whose base addresses (bytes) are ``addrs`` and whose
+    element strides and offsets are ``strides`` (the first the row width
+    D): "mma" (bf16 on the tensor cores) or "tf32" (f32 on split TF32)
+    when ``dh`` is in ``ROW1_TC_DHS``, D is at most ``ROW1_TC_MAX_WIDTH``
+    and every address and stride is a multiple of 16 bytes; else "fma"
+    (the FMA kernel). The same in the s8 mode."""
+    esize = {torch.bfloat16: 2, torch.float32: 4}.get(dtype)
+    if (esize is None or dh not in ROW1_TC_DHS
+            or int(strides[0]) > ROW1_TC_MAX_WIDTH
+            or not _aligned(addrs, strides, esize)):
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
+def _block_route_of(x: torch.Tensor, p: Params, heads: int) -> str:
+    """``block_route`` for a block's operands: x (and y, o: rows of D), the
+    six weights (qkv_w rows of 3D, proj_w rows of D), and the qkv workspace
+    the wrapper makes (its own allocation; q, k, v of a head at h dh, D +
+    h dh, 2D + h dh)."""
+    d = x.shape[-1]
+    dh = d // heads
+    return block_route(x.dtype, dh,
+                       (x.data_ptr(), *(p[k].data_ptr() for k in (
+                           "ln1_s", "ln1_b", "qkv_w", "qkv_b", "proj_w",
+                           "proj_b"))),
+                       (d, 3 * d, dh))
+
+
+def row1_s8_smem_bytes(n: int, dh: int, esize: int) -> int:
+    """Dynamic shared memory of the s8 tensor-core attention
+    (csrc/attn_block_s8.cuh ``s8_layout``) for n keys of heads dh wide in
+    activations of ``esize`` bytes: f32 scores [32][NP + 8], v [NP][dh + 8
+    (bf16) or + 4 (f32)], int8 q [32][DHP + 16] and k [NP][DHP + 16], int8
+    p [32][NP + 16] (bf16: or bf16 p [32][NP + 8]), int8 v^T [dh][NP + 16]
+    and the f32 scales, each region rounded up to 16 bytes; NP and DHP
+    are n and dh rounded up to 32."""
+    def up(b):
+        return (b + 15) // 16 * 16
+
+    np_, dhp = (n + 31) // 32 * 32, (dh + 31) // 32 * 32
+    v_ld = dh + (8 if esize == 2 else 4)
+    p_bytes = max(_S8_ROWS * (np_ + 16),
+                  _S8_ROWS * (np_ + 8) * 2 if esize == 2 else 0)
+    return (up(_S8_ROWS * (np_ + 8) * 4) + up(np_ * v_ld * esize)
+            + up(_S8_ROWS * (dhp + 16)) + up(np_ * (dhp + 16)) + up(p_bytes)
+            + up(dh * (np_ + 16)) + up((3 * _S8_ROWS + np_ + dh) * 4))
+
+
+def row1_qkv_smem_bytes(d: int, esize: int, bm: int) -> int:
+    """Dynamic shared memory of a tensor-core route's LN1 + QKV kernel for
+    rows d wide and a tile of ``bm`` rows: the LN(x) panel [bm][d + 8] and
+    a three-stage ring of weight tiles (bf16 [64][72], f32 [32][68])."""
+    ring = 3 * (64 * 72 * 2 if esize == 2 else 32 * 68 * 4)
+    return bm * (d + 8) * esize + ring
+
+
 def _kernel_lib() -> ctypes.CDLL:
     """Build (first use) and load the kernel library."""
     from interactive_vit_tpu_torch.runtime import cuda_build
@@ -274,6 +365,90 @@ def load_kernel() -> ctypes.CDLL:
                 != attn_s8_extra_bytes(n, dh)):
             raise RuntimeError("csrc/fused_attn_block.cu and fits() disagree "
                                "on the attention kernel's shared memory")
+    return lib
+
+
+# route -> (source, C entry, prefix of its shape entries)
+_ROW1_TC = {
+    "mma": ("fused_attn_block_mma", "ivt_fused_attn_block_mma",
+            "ivt_fused_block_mma_"),
+    "tf32": ("fused_attn_block_tf32", "ivt_fused_attn_block_tf32x3",
+             "ivt_fused_block_tf32_"),
+}
+
+
+def _row1_tc_lib(route: str) -> ctypes.CDLL:
+    """Build (first use) and load a tensor-core route's library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    source, entry, pre = _ROW1_TC[route]
+    lib = cuda_build.load(source)
+    if not getattr(lib, "_ivt_bound", False):
+        getattr(lib, entry).argtypes = TC_ENTRY_ARGTYPES
+        getattr(lib, entry).restype = ctypes.c_int
+        for name, args, res in (
+                ("dh", [ctypes.c_int], ctypes.c_int),
+                ("max_width", [], ctypes.c_int),
+                ("s8_smem", [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)):
+            fn = getattr(lib, pre + name)
+            fn.argtypes, fn.restype = args, res
+        if route == "mma":
+            lib.ivt_fused_block_mma_qkv_rows.argtypes = [ctypes.c_int]
+            lib.ivt_fused_block_mma_qkv_rows.restype = ctypes.c_int
+            lib.ivt_fused_block_mma_qkv_smem.argtypes = [ctypes.c_int,
+                                                         ctypes.c_int]
+            lib.ivt_fused_block_mma_qkv_smem.restype = ctypes.c_size_t
+        else:
+            lib.ivt_fused_block_tf32_qkv_smem.argtypes = [ctypes.c_int]
+            lib.ivt_fused_block_tf32_qkv_smem.restype = ctypes.c_size_t
+        lib._ivt_bound = True
+    return lib
+
+
+def check_row1_library(lib, route: str) -> None:
+    """Raises unless a tensor-core route's library takes exactly the head
+    widths of ``ROW1_TC_DHS`` and rows up to ``ROW1_TC_MAX_WIDTH``, and its
+    shared-memory formulas (the LN1 + QKV tile, the s8 attention) are this
+    module's: the route must never send a block to a library that cannot
+    take it."""
+    source, _, pre = _ROW1_TC[route]
+    src = f"csrc/{source}.cu"
+    check_library_dhs(getattr(lib, pre + "dh"), src, ROW1_TC_DHS,
+                      "ROW1_TC_DHS")
+    esize = 2 if route == "mma" else 4
+    widths = (192, 240, 384, 768, 1024, 1280)
+    ok = getattr(lib, pre + "max_width")() == ROW1_TC_MAX_WIDTH and all(
+        getattr(lib, pre + "s8_smem")(n, dh) == row1_s8_smem_bytes(n, dh,
+                                                                   esize)
+        for n in (11, 50, 197, 257, 268) for dh in ROW1_TC_DHS)
+    if route == "mma":
+        ok = ok and all(
+            lib.ivt_fused_block_mma_qkv_rows(m) == (
+                32 if m <= ROW1_QKV_SMALL_M else 64)
+            for m in (1, 197, 512, 513, 1576)) and all(
+            lib.ivt_fused_block_mma_qkv_smem(d, bm)
+            == row1_qkv_smem_bytes(d, 2, bm) for d in widths for bm in (32, 64))
+    else:
+        ok = ok and all(lib.ivt_fused_block_tf32_qkv_smem(d)
+                        == row1_qkv_smem_bytes(d, 4, 32) for d in widths)
+    if not ok:
+        raise RuntimeError(f"{src} and fused_block disagree on the widest "
+                           f"row or the shared-memory formulas")
+
+
+def load_mma_kernel() -> ctypes.CDLL:
+    """Build and load the bf16 tensor-core route now; checks it
+    (``check_row1_library``)."""
+    lib = _row1_tc_lib("mma")
+    check_row1_library(lib, "mma")
+    return lib
+
+
+def load_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 route now; checks it
+    (``check_row1_library``)."""
+    lib = _row1_tc_lib("tf32")
+    check_row1_library(lib, "tf32")
     return lib
 
 
@@ -304,13 +479,17 @@ def _check_operands(x: torch.Tensor, p: Params, heads: int,
         raise ValueError("x must be contiguous")
 
 
-def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
-                  attn_heads, key_bias, want_metric, int8_mode: int):
-    """One launch of ``csrc/fused_attn_block.cu`` (``int8_mode``: 0 dense,
-    1 s8 scores with a dense PV product, 2 s8 scores and PV); returns the
-    wrapper's result."""
+def _launch_block(route, x, p, heads, eps, want_attn, want_mean,
+                  fast_softmax, attn_heads, key_bias, want_metric,
+                  int8_mode: int, parts: Optional[Dict[str, torch.Tensor]] = None):
+    """One launch of the block's kernels on ``route`` ("fma":
+    ``csrc/fused_attn_block.cu``; "mma", "tf32": the tensor-core sources;
+    ``int8_mode``: 0 dense, 1 s8 scores with a dense PV product, 2 s8
+    scores and PV) on operands already checked; returns the wrapper's
+    result. ``parts`` (a tensor-core route's s8 mode): the tensors of
+    ``S8_PARTS`` that the kernel fills. Counts nothing: the wrappers count
+    their launches."""
     emit = _emit_heads(heads, want_attn, attn_heads)
-    _check_operands(x, p, heads, int8_scores=int8_mode > 0)
     kb = _key_bias(x, key_bias)
     b, n, d = x.shape
     emit_list = (list(range(heads)) if emit is None else list(emit)) \
@@ -318,7 +497,11 @@ def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
     mask = 0
     for h in emit_list:
         mask |= 1 << h
-    lib = _kernel_lib()
+    if route == "fma":
+        entry, lead = _kernel_lib().ivt_fused_attn_block, (
+            _DTYPE_CODE[x.dtype],)
+    else:
+        entry, lead = getattr(_row1_tc_lib(route), _ROW1_TC[route][1]), ()
     with torch.cuda.device(x.device):
         qkv_ws = torch.empty((b, n, 3 * d), dtype=x.dtype, device=x.device)
         o_ws = torch.empty((b, n, d), dtype=x.dtype, device=x.device)
@@ -333,8 +516,8 @@ def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
         metric = (torch.empty((b, n, d // heads), dtype=torch.float32,
                               device=x.device) if want_metric else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ivt_fused_attn_block(
-            _DTYPE_CODE[x.dtype], x.data_ptr(), p["ln1_s"].data_ptr(),
+        err = entry(
+            *lead, x.data_ptr(), p["ln1_s"].data_ptr(),
             p["ln1_b"].data_ptr(), p["qkv_w"].data_ptr(),
             p["qkv_b"].data_ptr(), p["proj_w"].data_ptr(),
             p["proj_b"].data_ptr(), qkv_ws.data_ptr(), o_ws.data_ptr(),
@@ -344,10 +527,13 @@ def _launch_block(x, p, heads, eps, want_attn, want_mean, fast_softmax,
             None if kb is None else kb.data_ptr(),
             None if metric is None else metric.data_ptr(), b, n, d, heads,
             float(eps), float(d // heads) ** -0.5, 1.0 / heads,
-            int(bool(fast_softmax)), mask, len(emit_list), int8_mode, stream)
+            int(bool(fast_softmax)), mask, len(emit_list), int8_mode,
+            *([] if route == "fma" else [None if parts is None else (
+                ctypes.c_void_p * 6)(*(parts[k].data_ptr()
+                                       for k in S8_PARTS))]), stream)
     if err != 0:
-        raise RuntimeError(f"fused_attn_block kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"fused_attn_block kernel launch failed on the "
+                           f"{route} route: cudaError {err}")
     out = [y, probs]
     if want_mean:
         out.append(mean)
@@ -384,10 +570,13 @@ def fused_attn_block(
     Arguments as the JAX function's. ``attn_heads`` limits the probs tap
     to those heads (ascending order); the others are never written.
     ``key_bias`` [B, N] (on x's device, else ``ValueError``) and
-    ``want_metric`` are ToMe's operands (module docstring); a launch with
-    either also counts in ``fused_attn_block.tome_launches``.
-    ``int8_scores`` / ``int8_pv`` run the s8 mode (``fused_attn_block_s8``,
-    which counts those launches)."""
+    ``want_metric`` are ToMe's operands (module docstring).
+    ``int8_scores`` / ``int8_pv`` run the s8 mode (``fused_attn_block_s8``).
+    Operands that ``block_route`` sends to the tensor cores launch there,
+    counted in ``fused_attn_block_mma`` (bf16) or
+    ``fused_attn_block_tf32x3`` (f32); this wrapper's counts
+    (``fused_attn_block.launches``, and ``.tome_launches`` for a launch
+    with ToMe's operands) are the FMA kernel's."""
     kw = dict(want_attn=want_attn, want_mean=want_mean,
               fast_softmax=fast_softmax, attn_heads=attn_heads,
               key_bias=key_bias, want_metric=want_metric)
@@ -395,15 +584,23 @@ def fused_attn_block(
         return fused_attn_block_s8(x, p, heads, eps, int8_pv=int8_pv, **kw)
     if not _on_device(x, "fused_attn_block"):
         return fused_attn_block_reference(x, p, heads, eps, **kw)
-    out = _launch_block(x, p, heads, eps, int8_mode=0, **kw)
-    fused_attn_block.launches += 1
-    if key_bias is not None or want_metric:
-        fused_attn_block.tome_launches += 1
+    _check_operands(x, p, heads)
+    return _launch_counted(_block_route_of(x, p, heads), False, x, p, heads,
+                           eps, True, kw)
+
+
+def _launch_counted(route, s8, x, p, heads, eps, int8_pv, kw):
+    """One launch on ``route`` (the s8 mode when ``s8``) of operands already
+    checked, counted in the wrapper of that route and mode
+    (``_ROW1_WRAPPERS``): ``launches``, and ``tome_launches`` where either
+    of ToMe's operands was given."""
+    out = _launch_block(route, x, p, heads, eps,
+                        int8_mode=(2 if int8_pv else 1) if s8 else 0, **kw)
+    wrapper = _ROW1_WRAPPERS[route, s8]
+    wrapper.launches += 1
+    if kw["key_bias"] is not None or kw["want_metric"]:
+        wrapper.tome_launches += 1
     return out
-
-
-fused_attn_block.launches = 0
-fused_attn_block.tome_launches = 0
 
 
 def fused_attn_block_s8(
@@ -422,22 +619,114 @@ def fused_attn_block_s8(
     """The s8 mode of ``fused_attn_block`` (the JAX function's
     ``int8_scores=True``; ``int8_pv`` quantizes the PV product too), same
     contract, ToMe's operands included. On a CUDA tensor one launch of the
-    block kernel with its s8 attention (envelope ``fits(...,
-    int8_scores=True)``), counted in ``fused_attn_block_s8.launches``; on a
-    CPU tensor the plain version."""
+    block's kernels with the s8 attention (envelope ``fits(...,
+    int8_scores=True)``): on the tensor cores where ``block_route`` sends
+    the operands there (counted in ``fused_attn_block_s8_mma`` or
+    ``fused_attn_block_s8_tf32x3``), else the FMA / ``__dp4a`` kernel,
+    counted in ``fused_attn_block_s8.launches`` (and ``.tome_launches``);
+    on a CPU tensor the plain version."""
     kw = dict(want_attn=want_attn, want_mean=want_mean,
               fast_softmax=fast_softmax, attn_heads=attn_heads,
               key_bias=key_bias, want_metric=want_metric)
     if not _on_device(x, "fused_attn_block_s8"):
         return fused_attn_block_reference(x, p, heads, eps, int8_scores=True,
                                           int8_pv=int8_pv, **kw)
-    out = _launch_block(x, p, heads, eps, int8_mode=2 if int8_pv else 1,
-                        **kw)
-    fused_attn_block_s8.launches += 1
-    return out
+    _check_operands(x, p, heads, int8_scores=True)
+    return _launch_counted(_block_route_of(x, p, heads), True, x, p, heads,
+                           eps, int8_pv, kw)
 
 
-fused_attn_block_s8.launches = 0
+# the keyword arguments of a block launch, at the wrappers' defaults
+_BLOCK_KW = dict(want_attn=False, want_mean=False, fast_softmax=True,
+                 attn_heads=None, key_bias=None, want_metric=False)
+
+
+def _row1_tc_wrapper(name: str, route: str, s8: bool, doc: str):
+    """A tensor-core route's own wrapper, with ``fused_attn_block``'s
+    arguments (and, ``s8``, ``int8_pv``): the plain version for a CPU
+    tensor; on the card one launch, counted in its ``launches`` and
+    ``tome_launches``, or ``ValueError`` for operands that ``block_route``
+    does not send to ``route``."""
+    def wrapper(x: torch.Tensor, p: Params, heads: int, eps: float = 1e-6,
+                **kw):
+        int8_pv = kw.pop("int8_pv", True) if s8 else True
+        if set(kw) - set(_BLOCK_KW):
+            raise TypeError(f"{name}() got unexpected keyword arguments "
+                            f"{sorted(set(kw) - set(_BLOCK_KW))}")
+        kw = dict(_BLOCK_KW, **kw)
+        if not _on_device(x, name):
+            return fused_attn_block_reference(x, p, heads, eps,
+                                              int8_scores=s8,
+                                              int8_pv=int8_pv, **kw)
+        _check_operands(x, p, heads, name, int8_scores=s8)
+        if _block_route_of(x, p, heads) != route:
+            raise ValueError(
+                f"{name} takes {'bf16' if route == 'mma' else 'f32'} heads "
+                f"{' or '.join(map(str, ROW1_TC_DHS))} wide, rows up to "
+                f"{ROW1_TC_MAX_WIDTH} wide, with 16-byte aligned operands, "
+                f"got {x.dtype}, dh={x.shape[-1] // heads}, D={x.shape[-1]}")
+        return _launch_counted(route, s8, x, p, heads, eps, int8_pv, kw)
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    return wrapper
+
+
+fused_attn_block_mma = _row1_tc_wrapper(
+    "fused_attn_block_mma", "mma", False,
+    """``fused_attn_block``'s dense contract in bf16 on the tensor cores
+    (``csrc/fused_attn_block_mma.cu``).""")
+fused_attn_block_tf32x3 = _row1_tc_wrapper(
+    "fused_attn_block_tf32x3", "tf32", False,
+    """``fused_attn_block``'s dense contract in f32 on split-TF32
+    tensor-core products (``csrc/fused_attn_block_tf32.cu``).""")
+fused_attn_block_s8_mma = _row1_tc_wrapper(
+    "fused_attn_block_s8_mma", "mma", True,
+    """``fused_attn_block_s8``'s contract in bf16, the s8 attention on int8
+    mma.sync (``csrc/fused_attn_block_mma.cu``).""")
+fused_attn_block_s8_tf32x3 = _row1_tc_wrapper(
+    "fused_attn_block_s8_tf32x3", "tf32", True,
+    """``fused_attn_block_s8``'s contract in f32, the s8 attention on int8
+    mma.sync and the GEMMs (and a dense PV) on split TF32
+    (``csrc/fused_attn_block_tf32.cu``).""")
+# (route, s8 mode) -> the wrapper that counts its launches
+_ROW1_WRAPPERS = {
+    ("fma", False): fused_attn_block, ("fma", True): fused_attn_block_s8,
+    ("mma", False): fused_attn_block_mma,
+    ("mma", True): fused_attn_block_s8_mma,
+    ("tf32", False): fused_attn_block_tf32x3,
+    ("tf32", True): fused_attn_block_s8_tf32x3}
+for _w in _ROW1_WRAPPERS.values():
+    _w.launches = 0
+    _w.tome_launches = 0
+del _w
+
+
+def fused_attn_block_s8_parts(x: torch.Tensor, p: Params, heads: int,
+                              eps: float = 1e-6, int8_pv: bool = True, **kw):
+    """One launch of the s8 mode on the tensor-core route ``block_route``
+    gives x (raises for "fma"), with its integer stages: returns (the
+    wrapper's result, {"q8", "k8", "v8" [B, H, N, dh] int8, "si" [B, H, N,
+    N] int32 (q8 k8^T), "p8" [B, H, N, N] int8, "oi" [B, H, N, dh] int32
+    (p8 v8)}); v8, p8 and oi only with ``int8_pv``. A check of the
+    kernel's exact integer products; counts nothing."""
+    kw = dict(_BLOCK_KW, **kw)
+    _check_operands(x, p, heads, int8_scores=True)
+    route = _block_route_of(x, p, heads)
+    if route == "fma":
+        raise ValueError("fused_attn_block_s8_parts takes the tensor-core "
+                         "routes' operands")
+    b, n, d = x.shape
+    dh = d // heads
+    shapes = {"q8": dh, "k8": dh, "v8": dh, "p8": n, "si": n, "oi": dh}
+    parts = {k: torch.zeros((b, heads, n, w), device=x.device,
+                            dtype=torch.int32 if k in ("si", "oi")
+                            else torch.int8) for k, w in shapes.items()}
+    out = _launch_block(route, x, p, heads, eps, int8_mode=2 if int8_pv
+                        else 1, parts=parts, **kw)
+    if not int8_pv:
+        parts = {k: parts[k] for k in ("q8", "k8", "si")}
+    return out, parts
 
 
 # -- headwise_attn_block ---------------------------------------------------------

@@ -73,6 +73,17 @@ limit first. The variants:
   (0, 0) stamps %globaltimer between the kernels' phases (LN2, fc1, the
   max exchange, fc2 with the cluster sums) and reports them.
 
+* ``fused_attn_block_mma.cu`` (row 1, the whole-image block, bf16 on the
+  tensor cores): the QKV kernel's row tile by the row count (the source)
+  and tiles of 32 or of 64 rows always (LN1 runs as a pass of its own
+  before the product; once a row tile in the product's prologue it was
+  slower, as the source's notes record);
+  beside them the FMA kernel they replace (``row1_fma``, this checkout's
+  ``fused_attn_block.cu``); held against ``fused_attn_block_reference``
+  (y within 2^-6 of its scale, the maps and mean per element) and timed
+  on device time alone, maps off and maps + mean, at vit_b16 (B = 1 and
+  8) and vit_t16.
+
 Heads 64 wide are timed at dinov2_s14_reg's and vit_b16's shapes, heads
 80 wide (the variants whose names hold ``dh80``) at vit_h14's: N = 2810
 (@742) for row 4, N = 257 (@224) and 1025 (@448) for row 3 (bf16 and
@@ -290,6 +301,10 @@ ROW2_TF32_WALK = _head_walk(
     __syncthreads();
   }""")
 
+# Row 1 (bf16): the QKV kernel's row tile by the row count (the source)
+ROW1_ROWS = ("__host__ __device__ inline int qkv_rows(int m) "
+             "{ return m <= QKV_SMALL_M ? 32 : 64; }")
+
 # name -> (source, replacements)
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row3_parts_by_grid": ("flash_attention_mma", []),
@@ -401,6 +416,15 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row7_dp4a": ("fused_mlp_w8a8_block", []),
     "row6_mma_stage8k": ("fused_mlp_block_mma", []),
     "row7_mma_stage8k": ("fused_mlp_w8a8_mma", []),
+    # row 1 on the tensor cores (bf16): QKV's row tile by the row count
+    # (the source) and tiles of 32 or 64 rows always; beside them the FMA
+    # kernel they replace
+    "row1_mma_rows_by_m": ("fused_attn_block_mma", []),
+    "row1_mma_rows_32": ("fused_attn_block_mma", [
+        (ROW1_ROWS, ROW1_ROWS.replace("m <= QKV_SMALL_M ? 32 : 64", "32"))]),
+    "row1_mma_rows_64": ("fused_attn_block_mma", [
+        (ROW1_ROWS, ROW1_ROWS.replace("m <= QKV_SMALL_M ? 32 : 64", "64"))]),
+    "row1_fma": ("fused_attn_block", []),
 }
 
 
@@ -481,6 +505,9 @@ ENTRIES = {
     "fused_mlp_block": ("ivt_fused_mlp_block", fm.MLP_ARGTYPES),
     "fused_mlp_w8a8_mma": ("ivt_fused_mlp_w8a8_mma", fm.W8A8_MMA_ARGTYPES),
     "fused_mlp_w8a8_block": ("ivt_fused_mlp_w8a8_block", fm.W8A8_ARGTYPES),
+    "fused_attn_block_mma": ("ivt_fused_attn_block_mma",
+                             fb.TC_ENTRY_ARGTYPES),
+    "fused_attn_block": ("ivt_fused_attn_block", fb.ENTRY_ARGTYPES),
 }
 
 # A source's counterpart in the ``--baseline`` checkout: row 2's
@@ -488,7 +515,8 @@ ENTRIES = {
 BASELINE_OF = {"headwise_attn_block_mma": "headwise_attn_block",
                "headwise_attn_block_tf32": "headwise_attn_block",
                "fused_mlp_block_mma": "fused_mlp_block",
-               "fused_mlp_w8a8_mma": "fused_mlp_w8a8_block"}
+               "fused_mlp_w8a8_mma": "fused_mlp_w8a8_block",
+               "fused_attn_block_mma": "fused_attn_block"}
 
 
 def variant_dh(name: str) -> int:
@@ -496,12 +524,25 @@ def variant_dh(name: str) -> int:
     return 80 if "dh80" in name else 64
 
 
+# Headers that rows 1 and 2 share: a variant's source takes their text in
+# place of its #include, so that one variant edits the header for its own
+# build alone
+INLINED_HEADERS = ("attn_block_mma", "attn_block_tf32")
+
+
 def variant_source(source: str, replacements,
                    csrc: str = cuda_build.CSRC_DIR, ext: str = ".cu") -> str:
     """``<csrc>/<source><ext>`` with each replacement made; each must
-    match exactly once."""
+    match exactly once (in the source or a header of INLINED_HEADERS it
+    includes)."""
     with open(os.path.join(csrc, source + ext)) as f:
         text = f.read()
+    for header in INLINED_HEADERS:
+        include = f'#include "{header}.cuh"\n'
+        if include in text:
+            with open(os.path.join(csrc, header + ".cuh")) as f:
+                body = f.read().replace("#pragma once\n", "")
+            text = text.replace(include, body)
     for old, new in replacements:
         if text.count(old) != 1:
             raise ValueError(f"{source}{ext}: a variant's text matches "
@@ -762,6 +803,87 @@ def headwise_group(libs, names, dtype, shapes) -> None:
             print(f"  headwise_attn_block {(b, n, d, heads)} "
                   f"{str(dtype)[6:]} maps + mean {'on' if maps else 'off'}"
                   f", after QKV: " + ", ".join(
+                      f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, "
+                      f"{t[1]:.4f})" for name, t in times.items()),
+                  flush=True)
+            torch.cuda.empty_cache()
+
+
+def call_row1(lib, name, x, p, heads, maps=False):
+    """One launch of a row-1 variant (or of the FMA kernel it replaces),
+    dense, as ``fused_block._launch_block`` launches it: (y, probs | None,
+    mean | None); maps: every head's probs and the head-mean."""
+    b, n, d = x.shape
+    source = _source_of(name)
+
+    def empty(*shape, dtype=x.dtype):
+        return torch.empty(shape, dtype=dtype, device=x.device)
+
+    qkv_ws, o_ws, y = empty(b, n, 3 * d), empty(b, n, d), empty(b, n, d)
+    probs_ws = empty(b, heads, n, n, dtype=torch.float32) if maps else None
+    probs = empty(b, heads, n, n) if maps else None
+    mean = empty(b, n, n) if maps else None
+    fma = source == "fused_attn_block"
+    lead = (0 if x.dtype == torch.float32 else 1,) if fma else ()
+    err = getattr(lib, ENTRIES[source][0])(
+        *lead, *(t.data_ptr() for t in (
+            x, p["ln1_s"], p["ln1_b"], p["qkv_w"], p["qkv_b"], p["proj_w"],
+            p["proj_b"], qkv_ws, o_ws)),
+        *(None if t is None else t.data_ptr() for t in (probs_ws,)),
+        y.data_ptr(), *(None if t is None else t.data_ptr()
+                        for t in (probs, mean)), None, None, b, n, d, heads,
+        1e-6, float(d // heads) ** -0.5, 1.0 / heads, 1,
+        (1 << heads) - 1 if maps else 0, heads if maps else 0, 0,
+        *(() if fma else (None,)), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+    return y, probs, mean
+
+
+def row1_group(libs, names, shapes) -> None:
+    """Row-1 variants (bf16) against ``fused_attn_block_reference`` (y
+    within 2^-6 of its scale; the maps and mean per element within
+    min(2^-7, 2^-5 |ref| + 1e-6)) and timed on device time alone, maps off
+    and maps + mean, in two orders."""
+    for b, n, d, heads in shapes:
+        g = torch.Generator().manual_seed(n + b + d)
+
+        def rnd(*shape, std=1.0, mean=0.0):
+            return (torch.randn(shape, generator=g) * std + mean).to(
+                "cuda", torch.bfloat16)
+
+        p = {"ln1_s": rnd(d, std=0.1, mean=1.0), "ln1_b": rnd(d, std=0.1),
+             "qkv_w": rnd(d, 3 * d, std=d ** -0.5),
+             "qkv_b": rnd(3 * d, std=0.1),
+             "proj_w": rnd(d, d, std=d ** -0.5), "proj_b": rnd(d, std=0.1)}
+        x = rnd(b, n, d)
+        for maps in (False, True):
+            ref = fb.fused_attn_block_reference(
+                x, p, heads, 1e-6, want_attn=maps, want_mean=maps)
+            ref = (*ref, None) if not maps else ref
+            for name in names:
+                got = call_row1(libs[name], name, x, p, heads, maps)
+                torch.cuda.synchronize()
+                use = 0.0
+                for i, (o, r) in enumerate(zip(got, ref)):
+                    if r is None:
+                        continue
+                    bound = (2.0 ** -6 * max(1.0, r.abs().max().item())
+                             if i == 0 else
+                             (2.0 ** -5 * r.float().abs() + 1e-6).clamp(
+                                 max=2.0 ** -7))
+                    use = max(use, ((o.float() - r.float()).abs() / bound)
+                              .max().item())
+                if use > 1.0:
+                    raise AssertionError(f"{name}: {use:.2f} of its bound")
+            times = {name: [] for name in names}
+            for order in (names, names[::-1]):
+                for name in order:
+                    times[name].append(time_held_ms(lambda: call_row1(
+                        libs[name], name, x, p, heads, maps)))
+            print(f"  fused_attn_block {(b, n, d, heads)} bf16 maps + mean "
+                  f"{'on' if maps else 'off'} (device time; every variant "
+                  f"within its bounds): " + ", ".join(
                       f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, "
                       f"{t[1]:.4f})" for name, t in times.items()),
                   flush=True)
@@ -1044,6 +1166,15 @@ def main(argv=None) -> int:
         ("headwise_attn_block_tf32", 80): (torch.float32, [
             (1, 2810, 1280, 16), (1, 257, 1280, 16)]),
     }
+    row1 = [n for n in names
+            if VARIANTS[n][0] in ("fused_attn_block_mma", "fused_attn_block")]
+    if row1:
+        if args.baseline is not None:
+            row1.append("baseline:fused_attn_block")
+        # vit_b16 at one image (197 rows: the 32-row tile) and eight (1576:
+        # the 64-row tile), vit_t16 at one; (B, N, D, heads)
+        row1_group(libs, row1, [(1, 197, 768, 12), (8, 197, 768, 12),
+                                (1, 197, 192, 3)])
     for w8a8, sources in ((False, ("fused_mlp_block_mma", "fused_mlp_block")),
                           (True, ("fused_mlp_w8a8_mma",
                                   "fused_mlp_w8a8_block"))):

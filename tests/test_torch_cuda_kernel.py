@@ -112,6 +112,8 @@ def cuda():
         os.path.basename(p)[:-3]
         for p in glob.glob(os.path.join(cuda_build.CSRC_DIR, "*.cu"))))
     fb.load_kernel()
+    fb.load_mma_kernel()
+    fb.load_tf32_kernel()
     fb.load_headwise_kernel()
     fb.load_headwise_mma_kernel()
     fb.load_headwise_tf32_kernel()
@@ -197,15 +199,149 @@ def test_kernel_matches_plain(cuda, shape, dtype, mode):
                    "attn_heads": (heads - 1, 0) if heads > 1 else (0,)},
         "exact_softmax": {"want_attn": True, "fast_softmax": False},
     }[mode]
-    before = fb.fused_attn_block.launches
+    wrapper = _row1_wrapper(x, p, heads)
+    before = wrapper.launches
     got = fb.fused_attn_block(x, p, heads, 1e-6, **kw)
     torch.cuda.synchronize()
-    assert fb.fused_attn_block.launches == before + 1
+    assert wrapper.launches == before + 1
     ref = fb.fused_attn_block_reference(x, p, heads, 1e-6, **kw)
     assert got[0].dtype == dtype and got[0].shape == x.shape
     if len(ref) == 3:
         assert got[2].shape == (b, n, n)
     _check(got, ref, dtype)
+
+
+def _row1_wrapper(x, p, heads, s8=False):
+    """The wrapper whose count a block launch on these operands moves:
+    the route ``block_route`` gives them."""
+    route = fb._block_route_of(x, p, heads)
+    return {("fma", False): fb.fused_attn_block,
+            ("mma", False): fb.fused_attn_block_mma,
+            ("tf32", False): fb.fused_attn_block_tf32x3,
+            ("fma", True): fb.fused_attn_block_s8,
+            ("mma", True): fb.fused_attn_block_s8_mma,
+            ("tf32", True): fb.fused_attn_block_s8_tf32x3}[route, s8]
+
+
+# row 1's tensor-core routes: vit_b16 and vit_t16 blocks (heads 64 wide),
+# heads 80 wide (d=160) at a ragged N, and B=8 (the 64-row QKV tile)
+ROW1_TC_SHAPES = [(1, 197, 768, 12), (8, 197, 768, 12), (1, 197, 192, 3),
+                  (2, 50, 160, 2), (1, 257, 192, 3)]
+
+
+@pytest.mark.parametrize("shape", ROW1_TC_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["maps_off", "maps_mean", "subset",
+                                  "exact_softmax"])
+def test_row1_tensor_core_routes_match_plain(cuda, shape, dtype, mode):
+    """bf16 on ``fused_attn_block_mma``, f32 on ``fused_attn_block_tf32x3``
+    (one launch each, by the counts), within the FMA kernel's bounds."""
+    b, n, d, heads = shape
+    x, p = _block(b, n, d, heads, dtype, cuda, seed=n + d)
+    kw = {
+        "maps_off": {},
+        "maps_mean": {"want_attn": True, "want_mean": True},
+        "subset": {"want_attn": True, "attn_heads": (heads - 1,)},
+        "exact_softmax": {"want_attn": True, "fast_softmax": False},
+    }[mode]
+    wrapper = (fb.fused_attn_block_mma if dtype == torch.bfloat16
+               else fb.fused_attn_block_tf32x3)
+    assert _row1_wrapper(x, p, heads) is wrapper
+    before = (wrapper.launches, fb.fused_attn_block.launches)
+    got = fb.fused_attn_block(x, p, heads, 1e-6, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, fb.fused_attn_block.launches) == (
+        before[0] + 1, before[1])
+    _check(got, fb.fused_attn_block_reference(x, p, heads, 1e-6, **kw), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s8", [False, True])
+def test_row1_off_the_grid_takes_the_fma_kernel(cuda, dtype, s8):
+    """x one element into its storage: the FMA (or __dp4a) kernel, with
+    the same results within the bounds; then ToMe's mode there (key bias
+    and metric), counted in ``tome_launches`` too."""
+    x, p = _block(1, 197, 768, 12, dtype, cuda)
+    flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xo = flat[1:].view(x.shape)
+    xo.copy_(x)
+    assert fb._block_route_of(xo, p, 12) == "fma"
+    wrapper = fb.fused_attn_block_s8 if s8 else fb.fused_attn_block
+    kw = {"want_attn": True, "want_mean": True}
+    before = wrapper.launches
+    got = wrapper(xo, p, 12, 1e-6, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _check(got, fb.fused_attn_block_reference(x, p, 12, 1e-6,
+                                              int8_scores=s8, **kw),
+           dtype, s8)
+    kb = torch.log(torch.randint(1, 17, (1, 197), generator=torch.Generator()
+                                 .manual_seed(197)).float()).to(cuda)
+    kw = dict(kw, key_bias=kb, want_metric=True)
+    before = (wrapper.launches, wrapper.tome_launches)
+    got = wrapper(xo, p, 12, 1e-6, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tome_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    plain = functools.partial(fb.fused_attn_block_reference, x, p, 12, 1e-6,
+                              int8_scores=s8, **kw)
+    _check(got, plain(), dtype, s8, metric=True)
+    no_bias = plain(key_bias=None)
+    assert not all(_within(g, r, i, dtype, s8) for i, (g, r)
+                   in enumerate(zip(got[:-1], no_bias[:-1])))
+
+
+@pytest.mark.parametrize("shape", [(1, 197, 768, 12), (2, 50, 160, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8_pv", [True, False])
+def test_row1_s8_route_integer_stages_are_exact(cuda, shape, dtype, int8_pv):
+    """The s8 tensor-core route's s32 sums equal the exact products of its
+    own int8 operands (si = q8 k8^T, oi = p8 v8), and those operands are
+    the plain version's but where a value that the two compute in another
+    order lands on the other side of a .5 boundary (at most 1% of them)."""
+    from interactive_vit_tpu_torch.ops import quant
+
+    b, n, d, heads = shape
+    x, p = _block(b, n, d, heads, dtype, cuda, seed=d)
+    kw = {"want_attn": True, "want_mean": True}
+    out, parts = fb.fused_attn_block_s8_parts(x, p, heads, 1e-6,
+                                              int8_pv=int8_pv, **kw)
+    torch.cuda.synchronize()
+
+    def exact(a, bt):
+        return torch.matmul(a.double(), bt.double()).long()
+
+    assert torch.equal(parts["si"].long(),
+                       exact(parts["q8"], parts["k8"].transpose(-1, -2)))
+    if int8_pv:
+        assert torch.equal(parts["oi"].long(),
+                           exact(parts["p8"], parts["v8"]))
+    qkv = fb._ln_qkv(x, p, 1e-6)
+    q, k = (qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, d // heads)
+            .transpose(1, 2).float() for i in range(2))
+    for name, ref in (("q8", q), ("k8", k)):
+        qq, _ = quant.quant_rows_mosaic(ref)
+        share = (parts[name] != qq.to(torch.int8)).float().mean().item()
+        assert share <= 0.01, (name, share)
+    _check(out, fb.fused_attn_block_reference(
+        x, p, heads, 1e-6, int8_scores=True, int8_pv=int8_pv, **kw),
+        dtype, s8=True)
+
+
+@pytest.mark.parametrize("route", ["mma", "tf32"])
+def test_row1_route_wrappers_refuse_other_operands(cuda, route):
+    dtype = torch.bfloat16 if route == "mma" else torch.float32
+    other = torch.float32 if route == "mma" else torch.bfloat16
+    x, p = _block(1, 17, 64, 4, dtype, cuda)  # heads 16 wide
+    wrappers = ((fb.fused_attn_block_mma, fb.fused_attn_block_s8_mma)
+                if route == "mma" else
+                (fb.fused_attn_block_tf32x3, fb.fused_attn_block_s8_tf32x3))
+    for fn in wrappers:
+        with pytest.raises(ValueError):
+            fn(x, p, 4)
+        x2, p2 = _block(1, 17, 128, 2, other, cuda)
+        with pytest.raises(ValueError):
+            fn(x2, p2, 2)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -245,11 +381,13 @@ def test_tome_mode_matches_plain(cuda, n, dtype, s8, mode):
     maps = mode == "maps_mean"
     kw = {"want_attn": maps, "want_mean": maps, "want_metric": True}
     wrapper = fb.fused_attn_block_s8 if s8 else fb.fused_attn_block
-    before = (wrapper.launches, fb.fused_attn_block.tome_launches)
+    route = _row1_wrapper(x, p, 12, s8)
+    assert route is not wrapper  # heads 64 wide: the tensor cores
+    before = (route.launches, route.tome_launches)
     got = wrapper(x, p, 12, 1e-6, key_bias=kb, **kw)
     torch.cuda.synchronize()
-    assert wrapper.launches == before[0] + 1
-    assert fb.fused_attn_block.tome_launches == before[1] + (0 if s8 else 1)
+    assert (route.launches, route.tome_launches) == (before[0] + 1,
+                                                     before[1] + 1)
     plain = functools.partial(fb.fused_attn_block_reference, x, p, 12, 1e-6,
                               int8_scores=s8, **kw)
     ref = plain(key_bias=kb)
@@ -804,11 +942,12 @@ def test_s8_block_matches_plain(cuda, shape, dtype, mode, int8_pv):
                    "attn_heads": (heads - 1, 0) if heads > 1 else (0,)},
         "exact_softmax": {"want_attn": True, "fast_softmax": False},
     }[mode]
-    before = (fb.fused_attn_block.launches, fb.fused_attn_block_s8.launches)
+    wrapper = _row1_wrapper(x, p, heads, s8=True)
+    before = (fb.fused_attn_block.launches, wrapper.launches)
     got = fb.fused_attn_block_s8(x, p, heads, 1e-6, int8_pv=int8_pv, **kw)
     torch.cuda.synchronize()
     assert (fb.fused_attn_block.launches,
-            fb.fused_attn_block_s8.launches) == (before[0], before[1] + 1)
+            wrapper.launches) == (before[0], before[1] + 1)
     ref = fb.fused_attn_block_reference(x, p, heads, 1e-6, int8_scores=True,
                                         int8_pv=int8_pv, **kw)
     _check(got, ref, dtype, s8=True)
