@@ -7,7 +7,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the twenty hand-written kernel sources from
+2. build   -- builds the twenty-two hand-written kernel sources from
    ``csrc/`` with nvcc, one compiler process each, all at once (the
    whole-image block is ``fused_attn_block.cu`` (FMA, ``__dp4a``),
    ``fused_attn_block_mma.cu`` (bf16 tensor cores) and
@@ -30,7 +30,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``fused_mlp_block_mma.cu`` (bf16 tensor cores), the W8A8 MLP
    ``fused_mlp_w8a8_block.cu`` (``__dp4a``) and ``fused_mlp_w8a8_mma.cu``
    (int8 tensor cores; both tensor-core sources on ``mlp_cluster.cuh``:
-   the hidden dimension split over a thread-block cluster): twenty-nine
+   the hidden dimension split over a thread-block cluster); the window
+   attention ``fused_window_attn.cu`` (FMA), ``fused_window_attn_mma.cu``
+   (bf16 tensor cores) and ``fused_window_attn_tf32.cu`` (f32 on split
+   TF32; both tensor-core sources take row 1's QKV kernel and its
+   projection without the residual from the block headers): thirty-one
    kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
@@ -77,8 +81,12 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      B=8) and one swin_b stage (14x14, 512, 16 heads), unshifted and, where
      the stage has more than one window, shifted by 3 with the seam mask
      (masked pairs must get probs of exactly 0 in bf16), maps off and on,
-     fast and exact softmax, bf16 and f32; ``scaled_dot_product_attention``
-     with the additive bias + mask is timed beside the attention part;
+     fast and exact softmax: bf16 on the tensor cores, f32 on split TF32
+     (the launch counts show the route), and each shape on a copy of y off
+     the 16-byte grid on the FMA kernel; device times alone beside the
+     bound (f32 also at the TF32 peak); ``scaled_dot_product_attention``
+     with the additive bias is timed beside the attention part in both
+     dtypes (a yardstick the port never calls);
    * the fused MLP at vit_b16 (197 x 768) and at swin_t's four stages
      (3136 x 96, 784 x 192, 196 x 384, 49 x 768), each at B=1 and 8, bf16
      and f32: bf16 rows of whole 128-column chunks (vit_b16, swin_t's
@@ -159,7 +167,9 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    * swin_t, bf16, a 240 x 300 image through the bicubic transform:
      ``attn`` on stages.0.0, stages.0.1 (shifted), stages.2.5 (window 2
      only) and stages.3.1 (heads 0, 11, 23), the logits; 5 in sequence and
-     4 at once; the window kernel in all 12 blocks, 12 launches a request;
+     4 at once; the window kernel on the tensor cores in all 12 blocks,
+     12 launches a request (kernel B by name in the profile, the FMA
+     kernel never), the f32 request's 12 on split TF32;
    * dinov2_s14_reg@742, bf16: the block outputs ``o`` of blocks 0, 6 and
      11 and the CLS features, 2 in sequence; the tensor-core online kernel
      in all 12 blocks (the profile must show it 12 times and the FMA
@@ -371,6 +381,14 @@ KERNELS = {
     "fused_attn_block_tome_tf32x3": (
         CSRC + "fused_attn_block_tf32.cu",
         "interactive_vit_tpu/ops/fused_block.py:205"),
+    # row 5 on the tensor cores: bf16 on mma.sync, f32 on split TF32, heads
+    # 32 wide in windows of up to 64 tokens; fused_window_attn above is the
+    # route for other operands
+    "fused_window_attn_mma": (CSRC + "fused_window_attn_mma.cu",
+                              "interactive_vit_tpu/ops/fused_window.py:128"),
+    "fused_window_attn_tf32x3": (
+        CSRC + "fused_window_attn_tf32.cu",
+        "interactive_vit_tpu/ops/fused_window.py:128"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -1306,17 +1324,29 @@ def mlp_cost(rows, d, md, esize):
     return esize * (2 * rows * d + 2 * d * md + md + 3 * d), 4 * rows * d * md
 
 
-def check_window_case(tag, fw, args, dtype, maps, fast):
-    """One launch of the window kernel against its plain version, the
-    bounds' refusal of a zeroed or halved tap, and the seam pairs of a
-    shifted block. Returns (max abs errs, the line for the log)."""
+def window_counts():
+    """The launch counts of row 5's routes: {"fma", "mma", "tf32": n}."""
+    from interactive_vit_tpu_torch.ops import fused_window as fw
+
+    return {rt: w.launches for rt, w in fw._WINDOW_WRAPPERS.items()}
+
+
+def check_window_case(tag, fw, args, dtype, maps, fast, route):
+    """One launch of the window wrapper against its plain version (only
+    ``route``'s count may move), the bounds' refusal of a zeroed or halved
+    tap, and the seam pairs of a shifted block. Returns (max abs errs, the
+    line for the log)."""
     import torch
 
     mask = args[-1]
     kw = {"want_attn": maps, "fast_softmax": fast}
+    before = window_counts()
     got = fw.fused_window_attn(*args, **kw)
-    ref = fw.fused_window_attn_reference(*args, **kw)
     torch.cuda.synchronize()
+    if window_counts() != dict(before, **{route: before[route] + 1}):
+        raise AssertionError(f"{tag}: launches {window_counts()} after "
+                             f"{before}, route {route}")
+    ref = fw.fused_window_attn_reference(*args, **kw)
     errs, line = check_outputs(tag, got, ref, dtype, ("a", "probs"))
     check_bounds_refuse(tag, got, ref, dtype, ("a", "probs"))
     if maps and mask is not None:
@@ -1329,9 +1359,18 @@ def check_window_case(tag, fw, args, dtype, maps, fast):
 
 
 def phase_window_kernel(device) -> dict:
-    """The window-attention kernel against its plain version; returns the
-    numbers of the shape most of a served swin_t request's launches have
-    (stage 2: 6 of 12 blocks; bf16, unshifted, maps off)."""
+    """Row 5, the window attention, against its plain version at every
+    shape a served request or the monolithic forward gives it: bf16 on
+    the tensor cores, f32 on split TF32 (the launch counts show the
+    route), shift 0 and 3, maps off and on, fast and exact softmax; and
+    the FMA kernel on a copy of y off the 16-byte grid (fast softmax).
+    Device times alone (``time_turns_held``) beside the bound (f32 also at
+    the TF32 peak, the one its entry carries); the FMA kernel timed at B=1
+    unshifted with maps off; ``scaled_dot_product_attention`` on the
+    attention part alone at B=1 in both dtypes, a yardstick the port never
+    calls. Returns the numbers of each route at the shape most of a served
+    swin_t request's launches have (stage 2: 6 of 12 blocks; unshifted,
+    maps off): "mma" bf16, "tf32" f32, "fma" bf16 off the grid."""
     import itertools
 
     import torch
@@ -1340,7 +1379,7 @@ def phase_window_kernel(device) -> dict:
     from interactive_vit_tpu_torch.models import swin
     from interactive_vit_tpu_torch.ops import fused_window as fw
 
-    out = {}
+    out, summary = {}, {}
     win = 7
     t = win * win
     # every shape a served request (B=1; concurrent requests batch) or the
@@ -1365,45 +1404,77 @@ def phase_window_kernel(device) -> dict:
              "proj_w": rnd(c, c, std=c ** -0.5), "proj_b": rnd(c, std=0.1)}
         y = rnd(b, res, res, c)
         bias = rnd(heads, t, t, std=0.5)
-        # a stage of one window has no shifted block (the shift clamps to 0)
-        for shift, maps in itertools.product((0, 3) if nw > 1 else (0,),
-                                             (False, True)):
-            mask = swin.shift_attn_mask(res, win, shift)
-            if mask is not None:
-                mask = torch.from_numpy(mask).to(device)
-            args = (y, p, heads, win, bias, mask)
-            tag = (f"fused_window_attn {sname} B={b} {dt} shift={shift} "
-                   f"maps {'on' if maps else 'off'}")
-            exact_errs, _ = check_window_case(tag + " exact", fw, args, dtype,
-                                              maps, fast=False)
-            errs, line = check_window_case(tag, fw, args, dtype, maps,
-                                           fast=True)
-            kw = {"want_attn": maps}
-            t_k, t_p = time_turns(
-                lambda: fw.fused_window_attn(*args, **kw),
-                lambda: fw.fused_window_attn_reference(*args, **kw))
-            nbytes, flops = window_cost(b, res, c, heads, win,
-                                        y.element_size(), maps,
-                                        mask is not None)
-            bms, by = bound(nbytes, flops, dt)
-            log(line + f"; exact softmax {max(exact_errs):.3g}; kernel "
-                f"{t_k:.4f} ms, plain {t_p:.4f} ms; bound {bms:.5f} ms ({by}: "
-                f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
-            if (sname, b, dt, shift, maps) == ("swin_t stage2", 1, "bfloat16",
-                                               0, False):
-                out = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
-                       "bound_ms": bms, "bound_by": by, "library_ms": None}
-        if b == 1 and dtype == torch.bfloat16:
+        route = "mma" if dtype == torch.bfloat16 else "tf32"
+        for rt, yr in ((route, y), ("fma", off_grid(y))):
+            if fw._window_route_of(yr, p, heads, win) != rt:
+                raise AssertionError(f"fused_window_attn {sname} {dt}: route "
+                                     f"{fw._window_route_of(yr, p, heads, win)}"
+                                     f", expected {rt}")
+            # a stage of one window has no shifted block (the shift clamps
+            # to 0)
+            for shift, maps in itertools.product((0, 3) if nw > 1 else (0,),
+                                                 (False, True)):
+                mask = swin.shift_attn_mask(res, win, shift)
+                if mask is not None:
+                    mask = torch.from_numpy(mask).to(device)
+                args = (yr, p, heads, win, bias, mask)
+                tag = (f"fused_window_attn {sname} B={b} {dt} ({rt}"
+                       + (", off the 16-byte grid" if rt == "fma" else "")
+                       + f") shift={shift} maps {'on' if maps else 'off'}")
+                errs, line = check_window_case(tag, fw, args, dtype, maps,
+                                               True, rt)
+                if rt != "fma":
+                    exact_errs, _ = check_window_case(tag + " exact", fw, args,
+                                                      dtype, maps, False, rt)
+                    line += f"; exact softmax {max(exact_errs):.3g}"
+                elif b > 1 or shift or maps:
+                    log(line)
+                    continue
+                kw = {"want_attn": maps}
+                t_k, t_p, t_host = time_turns_held(
+                    lambda: fw.fused_window_attn(*args, **kw),
+                    lambda: fw.fused_window_attn_reference(*args, **kw))
+                nbytes, flops = window_cost(b, res, c, heads, win,
+                                            y.element_size(), maps,
+                                            mask is not None)
+                bms, by = bound(nbytes, flops, dt)
+                line += (f"; device time: kernel {t_k:.4f} ms, plain "
+                         f"{t_p:.4f} ms (the wrapper's host time "
+                         f"{t_host:.4f} ms a call); bound {bms:.5f} ms ({by}: "
+                         f"{nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)")
+                if rt == "tf32":
+                    # three TF32 products a product: the kernels line
+                    # carries this bound
+                    bms, by = bound(nbytes, {"tf32": 3 * flops}, dt)
+                    line += (f"; at the TF32 peak {bms:.5f} ms ({by})")
+                log(line)
+                if b == 1 and not shift and not maps:
+                    summary[sname, dt, rt] = t_k
+                if ((sname, b, shift, maps) == ("swin_t stage2", 1, 0, False)
+                        and (rt != "fma" or dtype == torch.bfloat16)):
+                    out[rt] = {"max_abs_err": max(errs), "ms": t_k,
+                               "plain_ms": t_p, "bound_ms": bms,
+                               "bound_by": by, "library_ms": None}
+        if b == 1:
             # yardstick for the attention part alone (no QKV, no proj): one
             # library call on ready-made q, k, v with the additive bias; the
             # port never calls it
             q, k, v = (rnd(b, nw, heads, t, c // heads) for _ in range(3))
             add = bias[None].expand(nw, heads, t, t)
-            t_lib = time_ms(lambda: F.scaled_dot_product_attention(
+            t_lib, _ = time_held(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=add))
+            summary[sname, dt, "sdpa"] = t_lib
             log(f"  {sname} {dt}: scaled_dot_product_attention on the "
                 f"attention part (q, k, v [{b}, {nw}, {heads}, {t}, "
-                f"{c // heads}] + bias) {t_lib:.4f} ms")
+                f"{c // heads}] + bias) {t_lib:.4f} ms (device time)")
+    for sname, _, _, _ in stage_shapes + [("swin_b stage2", 0, 0, 0)]:
+        log(f"  row 5 {sname} B=1 unshifted maps off, device time: bf16 "
+            f"tensor cores {summary[sname, 'bfloat16', 'mma']:.4f} ms, FMA "
+            f"(off the grid) {summary[sname, 'bfloat16', 'fma']:.4f}; f32 "
+            f"split TF32 {summary[sname, 'float32', 'tf32']:.4f}, FMA "
+            f"{summary[sname, 'float32', 'fma']:.4f}; SDPA on the attention "
+            f"part bf16 {summary[sname, 'bfloat16', 'sdpa']:.4f}, f32 "
+            f"{summary[sname, 'float32', 'sdpa']:.4f}")
     return out
 
 
@@ -2577,7 +2648,7 @@ def run_forwards(device, counters) -> dict:
             or kernel_kw["swin_t"]["window_impl"] is not fw.fused_window_attn):
         raise AssertionError("dispatch did not pick the kernels on the card")
     runs = {"vit_b16": (vit.forward, vparams, vcfg, "fused_attn_block_mma"),
-            "swin_t": (swin.forward, sparams, scfg, "fused_window_attn")}
+            "swin_t": (swin.forward, sparams, scfg, "fused_window_attn_mma")}
     # the MLP kernels a forward launches: the tensor-core route where it
     # takes the stage's widths (all of vit_b16; swin_t's stages 2 and 3),
     # the FMA kernel for swin_t's stages 0 and 1 (rows 96 and 192 wide, not
@@ -3389,6 +3460,8 @@ def main() -> int:
     fa.load_online_tf32_kernel()
     av.load_tf32_kernel()
     fw.load_kernel()
+    fw.load_mma_kernel()
+    fw.load_tf32_kernel()
     fm.load_kernel()
     fm.load_w8a8_kernel()
     fm.load_mma_kernel()
@@ -3432,7 +3505,9 @@ def main() -> int:
                 "fused_attn_block_tome_mma": ToMeCount(
                     fb.fused_attn_block_mma),
                 "fused_attn_block_tome_tf32x3": ToMeCount(
-                    fb.fused_attn_block_tf32x3)}
+                    fb.fused_attn_block_tf32x3),
+                "fused_window_attn_mma": fw.fused_window_attn_mma,
+                "fused_window_attn_tf32x3": fw.fused_window_attn_tf32x3}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
@@ -3468,13 +3543,16 @@ def main() -> int:
                              "int8_pv": False}},
         s8=True)
     tome_nums = phase_tome_kernel(device)
+    window = phase_window_kernel(device)
     numbers = {
         "fused_attn_block": block["fma"],
         "fused_attn_block_mma": block["mma"],
         "fused_attn_block_tf32x3": block["tf32"],
         "headwise_attn_block": headwise["fma"],
         "flash_attention": flash["fma"],
-        "fused_window_attn": phase_window_kernel(device),
+        "fused_window_attn": window["fma"],
+        "fused_window_attn_mma": window["mma"],
+        "fused_window_attn_tf32x3": window["tf32"],
         "fused_mlp_block": mlp["fma"],
         "fused_mlp_block_mma": mlp["mma"],
         "flash_attention_online": online["fma"],
@@ -3569,14 +3647,23 @@ def main() -> int:
                  profile_kernels={"rowfull_mma_kernel": 12,
                                   "tiled_attention_kernel": 0}),
         # nodes 2, 3: stages.0.0 and stages.0.1 (shifted); 13: stages.2.5;
-        # 16: stages.3.1; a non-square image exercises the bicubic resize
+        # 16: stages.3.1; a non-square image exercises the bicubic resize.
+        # Row 5 on the tensor cores in all 12 blocks (the FMA kernel, a
+        # route for operands off the 16-byte grid, never), the f32
+        # request's 12 on split TF32; kernel B by name in the profile
         Path("swin_t", swin, swin.VARIANTS["swin_t"], (240, 300),
              {2: ("attn",), 3: ("attn",), 13: ("attn",), 16: ("attn",)},
-             {"fused_window_attn": 12},
+             {"fused_window_attn_mma": 12, "fused_window_attn": 0},
              {"window_impl": fw.fused_window_attn_reference},
              swin_tap_shape, seq=5, conc=4, check_tap=swin_check_tap,
              node_params={13: {"attn_win": "2"},
-                          16: {"attn_heads": "[0,11,23]"}}),
+                          16: {"attn_heads": "[0,11,23]"}},
+             f32_kernels={"fused_window_attn_tf32x3": 12,
+                          "fused_window_attn": 0},
+             profile_kernels={"window_attn_mma_kernel": 12,
+                              "row1_qkv_mma_kernel": 12,
+                              "proj_mma_kernel": 12,
+                              "window_attention_kernel": 0}),
         # a 53 x 53 grid: N=2814, the online kernel in all 12 blocks (bf16 on
         # the tensor cores, the f32 request on split TF32); the block
         # outputs o of blocks 0, 6, 11 and the CLS features

@@ -1,9 +1,12 @@
-// The split-TF32 tensor-core pieces of the attention blocks (rows 1 and 2),
-// shared by headwise_attn_block_tf32.cu (row 2, the headwise block) and
-// fused_attn_block_tf32.cu (row 1, the whole-image block): attend_head, one
-// head's attention for 64 query rows read by strides from the
-// untransposed qkv [B, N, 3D], and proj_tf32_kernel, the projection with
-// the residual, both in f32 on three TF32 products a product.
+// The split-TF32 tensor-core pieces of the attention blocks (rows 1 and 2)
+// and of the window attention (row 5), shared by headwise_attn_block_tf32.cu
+// (row 2, the headwise block), fused_attn_block_tf32.cu (row 1, the
+// whole-image block) and fused_window_attn_tf32.cu (row 5): attend_head,
+// one head's attention for 64 query rows read by strides from the
+// untransposed qkv [B, N, 3D]; row1_qkv_tf32_kernel, the QKV product from a
+// ready panel of rows (rows 1 and 5); and proj_tf32_kernel, the projection
+// with the residual (rows 1, 2) or without (row 5); all in f32 on three
+// TF32 products a product.
 // headwise_attn_block_tf32.cu's notes give the design, the
 // cast points and the measured choices (key tiles of 32 at 64 wide and 64
 // at 80, the per-head workspace of the head-mean).
@@ -238,10 +241,140 @@ __device__ __forceinline__ void attend_head(const A& a, float* smem, int q0, int
 }
 
 // ---------------------------------------------------------------------------
+// Kernel A: qkv[M, 3D] = in @ qkv_w + qkv_b on split TF32 from a ready
+// panel of rows in [M, D] (row 1: LN1's output; row 5,
+// fused_window_attn_tf32.cu: the map's NHWC rows), all f32; D a multiple of
+// 16, ragged edges zero-filled. A tile of 32 rows x 64 of the 3D columns a
+// block of 4 warps (16 x 32 each). The block copies its 32 rows into an f32
+// panel [32][D + 8] in shared memory with the first weight tiles; the
+// weight k-tiles [32][64] (rows of 68 floats, as the projection's) stream
+// through a three-stage cp.async ring; the hi products and the correction
+// terms sum apart over a k-tile and fold with round-to-nearest adds; the
+// epilogue adds qkv_b. Rows of D + 8 floats (8 or 24 mod 32) keep the
+// panel's 8-byte fragment loads conflict-free.
+constexpr int QT_BM = 32, QT_BN = 64, QT_BK = 32, QT_THREADS = 128, QT_STAGES = 3;
+constexpr int QT_W_LD = QT_BN + 4;  // weight rows, read as columns: 2 x 68 = 8 (mod 32)
+constexpr int QT_W_TILE = QT_BK * QT_W_LD;
+
+__host__ __device__ inline size_t qkv_tf32_smem_bytes(int d) {
+  return (size_t)QT_BM * (d + 8) * 4 + (size_t)QT_STAGES * QT_W_TILE * 4;
+}
+
+__device__ __forceinline__ void qkv_load_w(float* wt, const float* w, int col0, int kt, int K,
+                                           int Nc) {
+  const int k0 = kt * QT_BK;
+  for (int c = threadIdx.x; c < QT_BK * (QT_BN / 4); c += QT_THREADS) {
+    const int i = c / (QT_BN / 4), part = c % (QT_BN / 4);
+    const int kr = k0 + i, col = col0 + part * 4;
+    const bool in = kr < K && col < Nc;
+    cp_async16(smem_addr(wt + i * QT_W_LD + part * 4), w + (in ? (long long)kr * Nc + col : 0),
+               in ? 16 : 0);
+  }
+}
+
+__global__ void __launch_bounds__(QT_THREADS)
+    row1_qkv_tf32_kernel(const float* __restrict__ ln, const float* __restrict__ w,
+                         const float* __restrict__ bias, float* __restrict__ qkv, int M, int D) {
+  extern __shared__ float4 qt_smem4[];
+  float* panel = reinterpret_cast<float*>(qt_smem4);
+  const int lda = D + 8, Nc = 3 * D;
+  float* ring = panel + QT_BM * lda;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * QT_BM, col0 = blockIdx.x * QT_BN;
+  const int wm = 16 * (warp & 1), wn = 32 * (warp >> 1);  // the warp's 16 x 32
+  const int k_tiles = (D + QT_BK - 1) / QT_BK;
+
+  // the panel (the block's rows of LN(x), rows past M zero-filled) in the
+  // first group, with the first weight tile
+  for (int c = tid; c < QT_BM * (D / 4); c += QT_THREADS) {
+    const int i = c / (D / 4), part = c % (D / 4);
+    const bool in = row0 + i < M;
+    cp_async16(smem_addr(panel + i * lda + part * 4),
+               ln + (in ? (long long)(row0 + i) * D + part * 4 : 0), in ? 16 : 0);
+  }
+#pragma unroll
+  for (int s = 0; s < QT_STAGES - 1; ++s) {
+    if (s < k_tiles) qkv_load_w(ring + s * QT_W_TILE, w, col0, s, D, Nc);
+    cp_async_commit();
+  }
+
+  float acc[4][4];
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) zero4(acc[ni]);
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<QT_STAGES - 2>();
+    __syncthreads();  // tile kt (and the panel) landed for all; slot (kt - 1) % 3 is free
+    const int nx = kt + QT_STAGES - 1;
+    if (nx < k_tiles) qkv_load_w(ring + (nx % QT_STAGES) * QT_W_TILE, w, col0, nx, D, Nc);
+    cp_async_commit();
+    const float* wt = ring + (kt % QT_STAGES) * QT_W_TILE;
+    const int k0 = kt * QT_BK;
+    float big[4][4], small[4][4];
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      zero4(big[ni]);
+      zero4(small[ni]);
+    }
+#pragma unroll
+    for (int kc = 0; kc < QT_BK / 8; ++kc) {
+      if (k0 + 8 * kc >= D) break;  // D is a multiple of 16
+      // A: rows g, g + 8, columns 8 kc + 2t, + 1 (k = t, t + 4)
+      uint32_t ah[4], al[4];
+      const float* p = panel + (wm + g) * lda + k0 + 8 * kc + 2 * t;
+      const float2 top = *reinterpret_cast<const float2*>(p);
+      const float2 bot = *reinterpret_cast<const float2*>(p + 8 * lda);
+      split(top.x, ah[0], al[0]);
+      split(bot.x, ah[1], al[1]);
+      split(top.y, ah[2], al[2]);
+      split(bot.y, ah[3], al[3]);
+      // B: weight rows 8 kc + 2t, + 1 at column g of each 8
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const float* wr = wt + (8 * kc + 2 * t) * QT_W_LD + wn + 8 * ni + g;
+        mma_3xtf32(big[ni], small[ni], ah, al, wr[0], wr[QT_W_LD]);
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[ni][e] = __fadd_rn(acc[ni][e], fold_rn(big[ni][e], small[ni][e]));
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + wm + g + 8 * half;
+    if (row >= M) continue;
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int col = col0 + wn + 8 * ni + 2 * t;
+      if (col >= Nc) continue;
+      const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+      *reinterpret_cast<float2*>(qkv + (long long)row * Nc + col) =
+          make_float2(__fadd_rn(acc[ni][2 * half], bv.x), __fadd_rn(acc[ni][2 * half + 1], bv.y));
+    }
+  }
+}
+
+// Kernel A on in [M, D]
+inline cudaError_t launch_qkv_tf32(const float* in, const float* w, const float* bias,
+                                   float* qkv, int M, int D, cudaStream_t stream) {
+  const size_t smem = qkv_tf32_smem_bytes(D);
+  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(row1_qkv_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((3 * D + QT_BN - 1) / QT_BN, (M + QT_BM - 1) / QT_BM);
+  row1_qkv_tf32_kernel<<<grid, QT_THREADS, smem, stream>>>(in, w, bias, qkv, M, D);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // Kernel C: y[M, Nc] = (x + o @ w) + bias, o [M, K], w [K, Nc] row-major,
 // all f32, on split TF32; K and Nc multiples of 4 (rows of whole 16-byte
-// chunks), ragged edges zero-filled.
+// chunks), ragged edges zero-filled. RES = false (row 5's projection): y =
+// o @ w + bias, x unread (null).
 constexpr int PT_BM = 64, PT_BN = 64, PT_BK = 32, PT_THREADS = 128;
 constexpr int PT_A_LD = PT_BK + 8;  // o rows, read as 8-byte pairs: 40 = 8 (mod 32)
 constexpr int PT_W_LD = PT_BN + 4;  // proj_w rows, read as columns: 2 x 68 = 8 (mod 32)
@@ -270,6 +403,7 @@ __device__ __forceinline__ void proj_load(float* at, const float* o, const float
   }
 }
 
+template <bool RES = true>
 __global__ void __launch_bounds__(PT_THREADS)
     proj_tf32_kernel(const float* __restrict__ o, const float* __restrict__ w,
                      const float* __restrict__ bias, const float* __restrict__ x,
@@ -357,11 +491,17 @@ __global__ void __launch_bounds__(PT_THREADS)
         const int col = col0 + wn + 8 * ni + 2 * t;
         if (col >= Nc) continue;
         const long long idx = (long long)row * Nc + col;
-        const float2 xv = *reinterpret_cast<const float2*>(x + idx);
-        const float2 bv = *reinterpret_cast<const float2*>(bias + col);
-        *reinterpret_cast<float2*>(y + idx) =
-            make_float2(__fadd_rn(__fadd_rn(xv.x, acc[mi][ni][2 * half]), bv.x),
-                        __fadd_rn(__fadd_rn(xv.y, acc[mi][ni][2 * half + 1]), bv.y));
+        if constexpr (RES) {
+          const float2 xv = *reinterpret_cast<const float2*>(x + idx);
+          const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+          *reinterpret_cast<float2*>(y + idx) =
+              make_float2(__fadd_rn(__fadd_rn(xv.x, acc[mi][ni][2 * half]), bv.x),
+                          __fadd_rn(__fadd_rn(xv.y, acc[mi][ni][2 * half + 1]), bv.y));
+        } else {
+          const float2 bv = *reinterpret_cast<const float2*>(bias + col);
+          *reinterpret_cast<float2*>(y + idx) = make_float2(
+              __fadd_rn(acc[mi][ni][2 * half], bv.x), __fadd_rn(acc[mi][ni][2 * half + 1], bv.y));
+        }
       }
     }
 }

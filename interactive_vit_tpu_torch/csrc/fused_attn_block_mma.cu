@@ -16,7 +16,8 @@
 //             mc_ln_row: two-pass f32 statistics, explicitly rounded), cast
 //             to bf16, into the o workspace (which the attention writes only
 //             after QKV has read it).
-//   Kernel A  row1_qkv_mma_kernel  QKV: a tile of BM rows x 64 of the 3D
+//   Kernel A  row1_qkv_mma_kernel (attn_block_mma.cuh, which row 5 shares)
+//             QKV: a tile of BM rows x 64 of the 3D
 //             columns a block of 4 warps. The block copies its BM rows of
 //             LN(x) (kernel L's) into a bf16 panel [BM][D + 8] in shared
 //             memory with the first weight tiles; the weight k-tiles [64][64] then stream
@@ -75,34 +76,8 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Kernel A: qkv[M, 3D] = cast(LN(x)) @ qkv_w + qkv_b.
-constexpr int QK_BN = 64, QK_BK = 64, QK_THREADS = 128, QK_STAGES = 3;
-constexpr int QK_W_LD = QK_BN + 8;  // weight tile rows, bf16: 144 bytes, ldmatrix conflict-free
-constexpr int QK_W_TILE = QK_BK * QK_W_LD;
-// rows up to which a block takes 32 rows, not 64 (tools/kernel_variants.py)
-constexpr int QKV_SMALL_M = 512;
-
-__host__ __device__ inline int qkv_rows(int m) { return m <= QKV_SMALL_M ? 32 : 64; }
-
-// The panel [BM][D + 8] bf16 (rows of D / 8 + 1 16-byte units: odd for D a
-// multiple of 16, so ldmatrix reads conflict-free) and the weight ring.
-__host__ __device__ inline size_t qkv_smem_bytes(int d, int bm) {
-  return (size_t)bm * (d + 8) * 2 + (size_t)QK_STAGES * QK_W_TILE * 2;
-}
-
-// k-tile kt of qkv_w's columns col0.. into a ring slot; rows past K and
-// columns past Nc zero-filled
-__device__ __forceinline__ void qkv_load_w(bf16* wt, const bf16* w, int col0, int kt, int K,
-                                           int Nc) {
-  const int k0 = kt * QK_BK;
-  for (int c = threadIdx.x; c < QK_BK * (QK_BN / 8); c += QK_THREADS) {
-    const int i = c >> 3, part = c & 7;
-    const int kr = k0 + i, col = col0 + part * 8;
-    const bool in = kr < K && col < Nc;
-    cp_async16(smem_addr(wt + i * QK_W_LD + part * 8), w + (in ? (long long)kr * Nc + col : 0),
-               in ? 16 : 0);
-  }
-}
+// Kernel A: qkv[M, 3D] = cast(LN(x)) @ qkv_w + qkv_b, attn_block_mma.cuh's
+// row1_qkv_mma_kernel on LN1's output.
 
 // One row of LN(x) as bf16 into dst (16 bytes at a time): one warp.
 __device__ __forceinline__ void ln_row_bf16(bf16* dst, const bf16* x, const bf16* ln_s,
@@ -131,102 +106,6 @@ __global__ void __launch_bounds__(QK_THREADS)
   if (row < M)
     ln_row_bf16(ln + (long long)row * D, x + (long long)row * D, ln_s, ln_b, D, eps,
                 threadIdx.x & 31);
-}
-
-template <int BM>
-__global__ void __launch_bounds__(QK_THREADS)
-    row1_qkv_mma_kernel(const bf16* __restrict__ ln, const bf16* __restrict__ w,
-                        const bf16* __restrict__ bias, bf16* __restrict__ qkv, int M, int D) {
-  constexpr int MT = BM / 32;  // a warp's 16-row tiles
-  extern __shared__ float4 qk_smem4[];
-  bf16* panel = reinterpret_cast<bf16*>(qk_smem4);
-  const int lda = D + 8, Nc = 3 * D;
-  bf16* ring = panel + BM * lda;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * QK_BN;
-  const int wm = (BM / 2) * (warp & 1), wn = 32 * (warp >> 1);  // the warp's BM / 2 x 32
-  const int k_tiles = (D + QK_BK - 1) / QK_BK;
-
-  // the panel from LN1's pass (rows past M zero-filled), in the first group
-  // with the first weight tile
-  for (int c = tid; c < BM * (D / 8); c += QK_THREADS) {
-    const int i = c / (D / 8), part = c % (D / 8);
-    const bool in = row0 + i < M;
-    cp_async16(smem_addr(panel + i * lda + part * 8),
-               ln + (in ? (long long)(row0 + i) * D + part * 8 : 0), in ? 16 : 0);
-  }
-#pragma unroll
-  for (int s = 0; s < QK_STAGES - 1; ++s) {
-    if (s < k_tiles) qkv_load_w(ring + s * QK_W_TILE, w, col0, s, D, Nc);
-    cp_async_commit();
-  }
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<QK_STAGES - 2>();
-    __syncthreads();  // tile kt (and the panel) landed for all; slot (kt - 1) % 3 is free
-    const int nx = kt + QK_STAGES - 1;
-    if (nx < k_tiles) qkv_load_w(ring + (nx % QK_STAGES) * QK_W_TILE, w, col0, nx, D, Nc);
-    cp_async_commit();
-    const bf16* wt = ring + (kt % QK_STAGES) * QK_W_TILE;
-    const int k0 = kt * QK_BK;
-#pragma unroll
-    for (int kk = 0; kk < QK_BK / 16; ++kk) {
-      if (k0 + 16 * kk >= D) break;  // D is a multiple of 16
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi)
-        ldmatrix_x4(af[mi], smem_addr(panel + (wm + 16 * mi + (lane & 15)) * lda + k0 + kk * 16 +
-                                      (lane >> 4) * 8));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bfr[4];
-        ldmatrix_x4_trans(bfr, smem_addr(wt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * QK_W_LD +
-                                         wn + 16 * np + (lane >> 4) * 8));
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) {
-          mma_bf16(acc[mi][2 * np], af[mi], bfr[0], bfr[1]);
-          mma_bf16(acc[mi][2 * np + 1], af[mi], bfr[2], bfr[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + wm + 16 * mi + g + 8 * half;
-      if (row >= M) continue;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int col = col0 + wn + 8 * ni + 2 * t;
-        if (col >= Nc) continue;
-        const __nv_bfloat162 bv = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
-        *reinterpret_cast<__nv_bfloat162*>(qkv + (long long)row * Nc + col) = __floats2bfloat162_rn(
-            __fadd_rn(acc[mi][ni][2 * half], __low2float(bv)),
-            __fadd_rn(acc[mi][ni][2 * half + 1], __high2float(bv)));
-      }
-    }
-}
-
-template <int BM>
-cudaError_t launch_qkv_bm(const bf16* ln, const bf16* w, const bf16* bias, bf16* qkv, int M,
-                          int D, cudaStream_t stream) {
-  const size_t smem = qkv_smem_bytes(D, BM);
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(row1_qkv_mma_kernel<BM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((3 * D + QK_BN - 1) / QK_BN, (M + BM - 1) / BM);
-  row1_qkv_mma_kernel<BM><<<grid, QK_THREADS, smem, stream>>>(ln, w, bias, qkv, M, D);
-  return cudaGetLastError();
 }
 
 // ln_ws: LN1's output [M, D] (the o workspace, which the attention writes

@@ -19,7 +19,8 @@
 //             mc_ln_row), into the o workspace, as fused_attn_block_mma.cu's
 //             pass (LN1 once a row tile in the product's prologue lost to it
 //             there).
-//   Kernel A  row1_qkv_tf32_kernel  QKV: a tile of 32 rows x 64 of the 3D
+//   Kernel A  row1_qkv_tf32_kernel (attn_block_tf32.cuh, which row 5
+//             shares)  QKV: a tile of 32 rows x 64 of the 3D
 //             columns a block of 4 warps (16 x 32 each). The block copies its
 //             32 rows of LN(x) into an f32 panel [32][D + 8] in shared memory
 //             with the first weight tiles; the weight k-tiles [32][64] (rows
@@ -55,26 +56,8 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// Kernel A: qkv[M, 3D] = LN(x) @ qkv_w + qkv_b on split TF32.
-constexpr int QT_BM = 32, QT_BN = 64, QT_BK = 32, QT_THREADS = 128, QT_STAGES = 3;
-constexpr int QT_W_LD = QT_BN + 4;  // weight rows, read as columns: 2 x 68 = 8 (mod 32)
-constexpr int QT_W_TILE = QT_BK * QT_W_LD;
-
-__host__ __device__ inline size_t qkv_tf32_smem_bytes(int d) {
-  return (size_t)QT_BM * (d + 8) * 4 + (size_t)QT_STAGES * QT_W_TILE * 4;
-}
-
-__device__ __forceinline__ void qkv_load_w(float* wt, const float* w, int col0, int kt, int K,
-                                           int Nc) {
-  const int k0 = kt * QT_BK;
-  for (int c = threadIdx.x; c < QT_BK * (QT_BN / 4); c += QT_THREADS) {
-    const int i = c / (QT_BN / 4), part = c % (QT_BN / 4);
-    const int kr = k0 + i, col = col0 + part * 4;
-    const bool in = kr < K && col < Nc;
-    cp_async16(smem_addr(wt + i * QT_W_LD + part * 4), w + (in ? (long long)kr * Nc + col : 0),
-               in ? 16 : 0);
-  }
-}
+// Kernel A: qkv[M, 3D] = LN(x) @ qkv_w + qkv_b on split TF32: attn_block_tf32.cuh's
+// row1_qkv_tf32_kernel on LN1's output.
 
 // Kernel L: LN1 of one row a warp into ln [M, D].
 __global__ void __launch_bounds__(QT_THREADS)
@@ -96,92 +79,6 @@ __global__ void __launch_bounds__(QT_THREADS)
   }
 }
 
-// Kernel A on LN1's output ln [M, D].
-__global__ void __launch_bounds__(QT_THREADS)
-    row1_qkv_tf32_kernel(const float* __restrict__ ln, const float* __restrict__ w,
-                         const float* __restrict__ bias, float* __restrict__ qkv, int M, int D) {
-  extern __shared__ float4 qt_smem4[];
-  float* panel = reinterpret_cast<float*>(qt_smem4);
-  const int lda = D + 8, Nc = 3 * D;
-  float* ring = panel + QT_BM * lda;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int row0 = blockIdx.y * QT_BM, col0 = blockIdx.x * QT_BN;
-  const int wm = 16 * (warp & 1), wn = 32 * (warp >> 1);  // the warp's 16 x 32
-  const int k_tiles = (D + QT_BK - 1) / QT_BK;
-
-  // the panel (the block's rows of LN(x), rows past M zero-filled) in the
-  // first group, with the first weight tile
-  for (int c = tid; c < QT_BM * (D / 4); c += QT_THREADS) {
-    const int i = c / (D / 4), part = c % (D / 4);
-    const bool in = row0 + i < M;
-    cp_async16(smem_addr(panel + i * lda + part * 4),
-               ln + (in ? (long long)(row0 + i) * D + part * 4 : 0), in ? 16 : 0);
-  }
-#pragma unroll
-  for (int s = 0; s < QT_STAGES - 1; ++s) {
-    if (s < k_tiles) qkv_load_w(ring + s * QT_W_TILE, w, col0, s, D, Nc);
-    cp_async_commit();
-  }
-
-  float acc[4][4];
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) zero4(acc[ni]);
-
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    cp_async_wait<QT_STAGES - 2>();
-    __syncthreads();  // tile kt (and the panel) landed for all; slot (kt - 1) % 3 is free
-    const int nx = kt + QT_STAGES - 1;
-    if (nx < k_tiles) qkv_load_w(ring + (nx % QT_STAGES) * QT_W_TILE, w, col0, nx, D, Nc);
-    cp_async_commit();
-    const float* wt = ring + (kt % QT_STAGES) * QT_W_TILE;
-    const int k0 = kt * QT_BK;
-    float big[4][4], small[4][4];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      zero4(big[ni]);
-      zero4(small[ni]);
-    }
-#pragma unroll
-    for (int kc = 0; kc < QT_BK / 8; ++kc) {
-      if (k0 + 8 * kc >= D) break;  // D is a multiple of 16
-      // A: rows g, g + 8, columns 8 kc + 2t, + 1 (k = t, t + 4)
-      uint32_t ah[4], al[4];
-      const float* p = panel + (wm + g) * lda + k0 + 8 * kc + 2 * t;
-      const float2 top = *reinterpret_cast<const float2*>(p);
-      const float2 bot = *reinterpret_cast<const float2*>(p + 8 * lda);
-      split(top.x, ah[0], al[0]);
-      split(bot.x, ah[1], al[1]);
-      split(top.y, ah[2], al[2]);
-      split(bot.y, ah[3], al[3]);
-      // B: weight rows 8 kc + 2t, + 1 at column g of each 8
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const float* wr = wt + (8 * kc + 2 * t) * QT_W_LD + wn + 8 * ni + g;
-        mma_3xtf32(big[ni], small[ni], ah, al, wr[0], wr[QT_W_LD]);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] = __fadd_rn(acc[ni][e], fold_rn(big[ni][e], small[ni][e]));
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + wm + g + 8 * half;
-    if (row >= M) continue;
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = col0 + wn + 8 * ni + 2 * t;
-      if (col >= Nc) continue;
-      const float2 bv = *reinterpret_cast<const float2*>(bias + col);
-      *reinterpret_cast<float2*>(qkv + (long long)row * Nc + col) =
-          make_float2(__fadd_rn(acc[ni][2 * half], bv.x), __fadd_rn(acc[ni][2 * half + 1], bv.y));
-    }
-  }
-}
-
 // ln_ws: LN1's output [M, D] (the o workspace, which the attention writes
 // only after QKV has read it)
 cudaError_t launch_qkv(const float* x, const float* ln_s, const float* ln_b, const float* w,
@@ -192,14 +89,7 @@ cudaError_t launch_qkv(const float* x, const float* ln_s, const float* ln_b, con
                                                                       eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = qkv_tf32_smem_bytes(D);
-  if (smem > SMEM_LIMIT) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(row1_qkv_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((3 * D + QT_BN - 1) / QT_BN, (M + QT_BM - 1) / QT_BM);
-  row1_qkv_tf32_kernel<<<grid, QT_THREADS, smem, stream>>>(ln_ws, w, bias, qkv, M, D);
-  return cudaGetLastError();
+  return launch_qkv_tf32(ln_ws, w, bias, qkv, M, D, stream);
 }
 
 // ---------------------------------------------------------------------------

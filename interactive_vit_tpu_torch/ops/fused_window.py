@@ -3,15 +3,24 @@
 Counterpart of ``interactive_vit_tpu/ops/fused_window.py``'s Pallas TPU
 kernel, in three pieces, as every kernel of this package has:
 
-* ``fused_window_attn`` -- the wrapper. For a CUDA tensor it launches the
-  hand-written kernel (``csrc/fused_window_attn.cu``, built at first use)
-  or raises; for a CPU tensor it runs the plain version. It counts its
-  kernel launches in ``fused_window_attn.launches``.
+* ``fused_window_attn`` -- the wrapper. For a CUDA tensor it launches a
+  hand-written kernel (built at first use) or raises; for a CPU tensor it
+  runs the plain version. ``window_route`` picks the kernel from the
+  dtype, the shape and the operands' alignment alone: bf16 heads 32 wide
+  in windows of at most 64 tokens on the tensor cores
+  (``csrc/fused_window_attn_mma.cu``, counted in
+  ``fused_window_attn_mma.launches``), f32 ones on split-TF32 tensor-core
+  products (``csrc/fused_window_attn_tf32.cu``,
+  ``fused_window_attn_tf32x3.launches``), other operands the FMA kernel
+  (``csrc/fused_window_attn.cu``, counted in
+  ``fused_window_attn.launches``). ``fused_window_attn_mma`` and
+  ``fused_window_attn_tf32x3`` are the two routes' own wrappers.
 * ``fused_window_attn_reference`` -- the plain PyTorch version with the
   same cast points, used on the CPU and to check the kernel on the card.
-* ``fits`` -- the kernel's shape envelope, used by ``ops/dispatch.py``: one
-  (window, head) of q, k, v and its T x T scores must fit a block's shared
-  memory, which holds for window 7 (T=49) and window 12 (T=144) at dh=32.
+* ``fits`` -- the FMA kernel's shape envelope, used by ``ops/dispatch.py``:
+  one (window, head) of q, k, v and its T x T scores must fit a block's
+  shared memory, which holds for window 7 (T=49) and window 12 (T=144) at
+  dh=32. The tensor-core routes take a subset of it.
 
 The contract is the attention BRANCH: ``y`` is the LayerNorm'd (and, for
 shifted blocks, already rolled) map; the output is in the same rolled
@@ -36,7 +45,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from interactive_vit_tpu_torch.ops.fused_block import SOFTMAX_CLAMP
+from interactive_vit_tpu_torch.ops.flash_attention import (
+    MMA_ALIGN, check_library_dhs,
+)
+from interactive_vit_tpu_torch.ops.fused_block import (
+    ROW1_QKV_SMALL_M, SOFTMAX_CLAMP, _on_device, row1_qkv_smem_bytes,
+)
 from interactive_vit_tpu_torch.ops.tiled_attention import SMEM_LIMIT
 
 Params = Dict[str, torch.Tensor]
@@ -44,6 +58,22 @@ Params = Dict[str, torch.Tensor]
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # grid dimensions y (heads) and z (images) of the attention kernel
 _MAX_GRID_YZ = 65535
+
+# ``ivt_fused_window_attn``'s parameters (csrc/fused_window_attn.cu):
+# dtype; y, the four weights, bias, mask, the qkv and o workspaces, a,
+# probs; B, H, W, C, heads, window; scale; fast; stream. The tensor-core
+# entries take the same without the dtype.
+ENTRY_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
+                  + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+TC_ENTRY_ARGTYPES = ENTRY_ARGTYPES[1:]
+
+# The tensor-core routes' envelope (csrc/fused_window_attn_mma.cu,
+# csrc/fused_window_attn_tf32.cu): heads of these widths, windows of at
+# most this many tokens (one tile of 64 rows), maps of channels a multiple
+# of 16 up to this many (the QKV kernel's panel).
+WINDOW_TC_DHS = (32,)
+WINDOW_TC_MAX_TOKENS = 64
+WINDOW_TC_MAX_WIDTH = 1280
 
 
 def window_smem_bytes(t: int, dh: int) -> int:
@@ -65,6 +95,37 @@ def fits(res: int, window: int, c: int, heads: int) -> bool:
     dh = c // heads
     return (dh % 4 == 0
             and window_smem_bytes(window * window, dh) <= SMEM_LIMIT)
+
+
+def window_route(dtype: torch.dtype, window: int, dh: int, c: int,
+                 addrs) -> str:
+    """The window attention's kernel for operands of ``dtype`` in windows
+    of ``window`` x ``window`` tokens, heads ``dh`` wide, maps of ``c``
+    channels, whose base addresses (bytes) are ``addrs`` (y, the weights
+    and the biases): "mma" (bf16 on the tensor cores) or "tf32" (f32 on
+    split TF32) when a window holds at most ``WINDOW_TC_MAX_TOKENS``
+    tokens, ``dh`` is in ``WINDOW_TC_DHS``, ``c`` is a multiple of 16 up to
+    ``WINDOW_TC_MAX_WIDTH``, the route's QKV panel fits a block's shared
+    memory and every address is a multiple of 16 bytes (then so is every
+    row and head stride); else "fma" (the FMA kernel)."""
+    esize = {torch.bfloat16: 2, torch.float32: 4}.get(dtype)
+    if (esize is None or window * window > WINDOW_TC_MAX_TOKENS
+            or dh not in WINDOW_TC_DHS or c % 16 or c > WINDOW_TC_MAX_WIDTH
+            or row1_qkv_smem_bytes(c, esize, 64 if esize == 2 else 32)
+            > SMEM_LIMIT
+            or not all(int(a) % MMA_ALIGN == 0 for a in addrs)):
+        return "fma"
+    return "mma" if dtype == torch.bfloat16 else "tf32"
+
+
+def _window_route_of(y: torch.Tensor, p: Params, heads: int,
+                     window: int) -> str:
+    """``window_route`` for a branch's operands: y and the four weights
+    (the workspaces are the wrapper's own allocations)."""
+    c = y.shape[-1]
+    return window_route(y.dtype, window, c // heads, c,
+                        (y.data_ptr(), *(p[k].data_ptr() for k in (
+                            "qkv_w", "qkv_b", "proj_w", "proj_b"))))
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -139,14 +200,12 @@ def fused_window_attn_reference(
 
 
 def _kernel_lib() -> ctypes.CDLL:
-    """Build (first use) and load the kernel library."""
+    """Build (first use) and load the FMA kernel's library."""
     from interactive_vit_tpu_torch.runtime import cuda_build
 
     lib = cuda_build.load("fused_window_attn")
     if not getattr(lib, "_ivt_bound", False):
-        lib.ivt_fused_window_attn.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        lib.ivt_fused_window_attn.argtypes = ENTRY_ARGTYPES
         lib.ivt_fused_window_attn.restype = ctypes.c_int
         lib.ivt_window_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.ivt_window_smem_bytes.restype = ctypes.c_size_t
@@ -155,13 +214,92 @@ def _kernel_lib() -> ctypes.CDLL:
 
 
 def load_kernel() -> ctypes.CDLL:
-    """Build and load the CUDA kernel now (``chip_smoke.py`` times this);
+    """Build and load the FMA kernel now (``chip_smoke.py`` times this);
     checks that the library's shared-memory formula is the envelope's."""
     lib = _kernel_lib()
     for t, dh in ((49, 32), (144, 32), (16, 8), (49, 64)):
         if lib.ivt_window_smem_bytes(t, dh) != window_smem_bytes(t, dh):
             raise RuntimeError("csrc/fused_window_attn.cu and fits() disagree "
                                "on the attention kernel's shared memory")
+    return lib
+
+
+# route -> (source, C entry, prefix of its shape entries)
+_WINDOW_TC = {
+    "mma": ("fused_window_attn_mma", "ivt_fused_window_attn_mma",
+            "ivt_window_mma_"),
+    "tf32": ("fused_window_attn_tf32", "ivt_fused_window_attn_tf32x3",
+             "ivt_window_tf32_"),
+}
+
+
+def _window_tc_lib(route: str) -> ctypes.CDLL:
+    """Build (first use) and load a tensor-core route's library."""
+    from interactive_vit_tpu_torch.runtime import cuda_build
+
+    source, entry, pre = _WINDOW_TC[route]
+    lib = cuda_build.load(source)
+    if not getattr(lib, "_ivt_bound", False):
+        getattr(lib, entry).argtypes = TC_ENTRY_ARGTYPES
+        getattr(lib, entry).restype = ctypes.c_int
+        shape_entries = [("dh", [ctypes.c_int], ctypes.c_int),
+                         ("max_tokens", [], ctypes.c_int),
+                         ("max_width", [], ctypes.c_int)]
+        if route == "mma":
+            shape_entries += [("qkv_rows", [ctypes.c_int], ctypes.c_int),
+                              ("qkv_smem", [ctypes.c_int, ctypes.c_int],
+                               ctypes.c_size_t)]
+        else:
+            shape_entries += [("qkv_smem", [ctypes.c_int], ctypes.c_size_t)]
+        for name, args, res in shape_entries:
+            fn = getattr(lib, pre + name)
+            fn.argtypes, fn.restype = args, res
+        lib._ivt_bound = True
+    return lib
+
+
+def check_window_library(lib, route: str) -> None:
+    """Raises unless a tensor-core route's library takes exactly the head
+    widths of ``WINDOW_TC_DHS``, windows of up to ``WINDOW_TC_MAX_TOKENS``
+    tokens and maps up to ``WINDOW_TC_MAX_WIDTH`` channels, and its QKV
+    kernel's tile and shared memory are ``fused_block``'s formulas: the
+    route must never send a branch to a library that cannot take it."""
+    source, _, pre = _WINDOW_TC[route]
+    src = f"csrc/{source}.cu"
+    check_library_dhs(getattr(lib, pre + "dh"), src, WINDOW_TC_DHS,
+                      "WINDOW_TC_DHS")
+    widths = (96, 128, 192, 384, 768, 1024, 1280)
+    ok = (getattr(lib, pre + "max_tokens")() == WINDOW_TC_MAX_TOKENS
+          and getattr(lib, pre + "max_width")() == WINDOW_TC_MAX_WIDTH)
+    if route == "mma":
+        ok = ok and all(
+            lib.ivt_window_mma_qkv_rows(m) == (
+                32 if m <= ROW1_QKV_SMALL_M else 64)
+            for m in (49, 196, 512, 513, 3136, 25088)) and all(
+            lib.ivt_window_mma_qkv_smem(d, bm)
+            == row1_qkv_smem_bytes(d, 2, bm) for d in widths
+            for bm in (32, 64))
+    else:
+        ok = ok and all(lib.ivt_window_tf32_qkv_smem(d)
+                        == row1_qkv_smem_bytes(d, 4, 32) for d in widths)
+    if not ok:
+        raise RuntimeError(f"{src} and fused_window disagree on the window, "
+                           f"the widest map or the QKV kernel's tile")
+
+
+def load_mma_kernel() -> ctypes.CDLL:
+    """Build and load the bf16 tensor-core route now; checks it
+    (``check_window_library``)."""
+    lib = _window_tc_lib("mma")
+    check_window_library(lib, "mma")
+    return lib
+
+
+def load_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 route now; checks it
+    (``check_window_library``)."""
+    lib = _window_tc_lib("tf32")
+    check_window_library(lib, "tf32")
     return lib
 
 
@@ -202,6 +340,47 @@ def _check_operands(y: torch.Tensor, p: Params, heads: int, window: int,
                          f"{tuple(mask.shape)}")
 
 
+def _launch(route: str, y: torch.Tensor, p: Params, heads: int, window: int,
+            bias: torch.Tensor, mask, want_attn: bool, fast_softmax: bool):
+    """One launch of the branch's kernels on ``route`` ("fma":
+    ``csrc/fused_window_attn.cu``; "mma", "tf32": the tensor-core sources)
+    on operands already checked; returns ``(a, probs | None)``. Counts
+    nothing: the wrappers count their launches."""
+    b, hres, wres, c = y.shape
+    t = window * window
+    nw = (hres // window) * (wres // window)
+    bias_f = bias.to(device=y.device, dtype=torch.float32).contiguous()
+    mask_f = _mask_tensor(mask, y.device)
+    if mask_f is not None:
+        mask_f = mask_f.contiguous()
+    if route == "fma":
+        entry, lead = _kernel_lib().ivt_fused_window_attn, (
+            _DTYPE_CODE[y.dtype],)
+    else:
+        entry, lead = getattr(_window_tc_lib(route), _WINDOW_TC[route][1]), ()
+    with torch.cuda.device(y.device):
+        qkv_ws = torch.empty((b, hres, wres, 3 * c), dtype=y.dtype,
+                             device=y.device)
+        o_ws = torch.empty_like(y)
+        a = torch.empty_like(y)
+        probs = (torch.empty((b, nw, heads, t, t), dtype=y.dtype,
+                             device=y.device) if want_attn else None)
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = entry(
+            *lead, y.data_ptr(), p["qkv_w"].data_ptr(),
+            p["qkv_b"].data_ptr(), p["proj_w"].data_ptr(),
+            p["proj_b"].data_ptr(), bias_f.data_ptr(),
+            None if mask_f is None else mask_f.data_ptr(),
+            qkv_ws.data_ptr(), o_ws.data_ptr(), a.data_ptr(),
+            None if probs is None else probs.data_ptr(), b, hres, wres, c,
+            heads, window, float(c // heads) ** -0.5,
+            int(bool(fast_softmax)), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_window_attn kernel launch failed on the "
+                           f"{route} route: cudaError {err}")
+    return a, probs
+
+
 def fused_window_attn(
     y: torch.Tensor,
     p: Params,
@@ -220,45 +399,64 @@ def fused_window_attn(
     relative-position bias; ``mask`` the [nW, T, T] additive seam mask of a
     shifted block (numpy array or tensor) or None. ``probs`` is
     [B, nW, heads, T, T] in the activation dtype, windows row-major over
-    the (rolled) map."""
-    if y.device.type == "cpu":
+    the (rolled) map. Operands that ``window_route`` sends to the tensor
+    cores launch there, counted in ``fused_window_attn_mma`` (bf16) or
+    ``fused_window_attn_tf32x3`` (f32); this wrapper's count
+    (``fused_window_attn.launches``) is the FMA kernel's."""
+    if not _on_device(y, "fused_window_attn"):
         return fused_window_attn_reference(
             y, p, heads, window, bias, mask, want_attn=want_attn,
             fast_softmax=fast_softmax)
-    if y.device.type != "cuda":
-        raise ValueError(f"fused_window_attn runs on cuda or cpu tensors, "
-                         f"got {y.device}")
     _check_operands(y, p, heads, window, bias, mask)
-    b, hres, wres, c = y.shape
-    t = window * window
-    nw = (hres // window) * (wres // window)
-    bias_f = bias.to(device=y.device, dtype=torch.float32).contiguous()
-    mask_f = _mask_tensor(mask, y.device)
-    if mask_f is not None:
-        mask_f = mask_f.contiguous()
-    lib = _kernel_lib()
-    with torch.cuda.device(y.device):
-        qkv_ws = torch.empty((b, hres, wres, 3 * c), dtype=y.dtype,
-                             device=y.device)
-        o_ws = torch.empty_like(y)
-        a = torch.empty_like(y)
-        probs = (torch.empty((b, nw, heads, t, t), dtype=y.dtype,
-                             device=y.device) if want_attn else None)
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = lib.ivt_fused_window_attn(
-            _DTYPE_CODE[y.dtype], y.data_ptr(), p["qkv_w"].data_ptr(),
-            p["qkv_b"].data_ptr(), p["proj_w"].data_ptr(),
-            p["proj_b"].data_ptr(), bias_f.data_ptr(),
-            None if mask_f is None else mask_f.data_ptr(),
-            qkv_ws.data_ptr(), o_ws.data_ptr(), a.data_ptr(),
-            None if probs is None else probs.data_ptr(), b, hres, wres, c,
-            heads, window, float(c // heads) ** -0.5,
-            int(bool(fast_softmax)), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_window_attn kernel launch failed: "
-                           f"cudaError {err}")
-    fused_window_attn.launches += 1
-    return a, probs
+    route = _window_route_of(y, p, heads, window)
+    out = _launch(route, y, p, heads, window, bias, mask, want_attn,
+                  fast_softmax)
+    _WINDOW_WRAPPERS[route].launches += 1
+    return out
 
 
-fused_window_attn.launches = 0
+def _window_tc_wrapper(name: str, route: str, doc: str):
+    """A tensor-core route's own wrapper, with ``fused_window_attn``'s
+    arguments: the plain version for a CPU tensor; on the card one launch,
+    counted in its ``launches``, or ``ValueError`` for operands that
+    ``window_route`` does not send to ``route``."""
+    def wrapper(y: torch.Tensor, p: Params, heads: int, window: int,
+                bias: torch.Tensor, mask=None, want_attn: bool = False,
+                fast_softmax: bool = True):
+        if not _on_device(y, name):
+            return fused_window_attn_reference(
+                y, p, heads, window, bias, mask, want_attn=want_attn,
+                fast_softmax=fast_softmax)
+        _check_operands(y, p, heads, window, bias, mask)
+        if _window_route_of(y, p, heads, window) != route:
+            raise ValueError(
+                f"{name} takes {'bf16' if route == 'mma' else 'f32'} heads "
+                f"{' or '.join(map(str, WINDOW_TC_DHS))} wide, windows of at "
+                f"most {WINDOW_TC_MAX_TOKENS} tokens, maps of a multiple of "
+                f"16 channels up to {WINDOW_TC_MAX_WIDTH}, with 16-byte "
+                f"aligned operands; got {y.dtype}, window={window}, "
+                f"dh={y.shape[-1] // heads}, C={y.shape[-1]}")
+        out = _launch(route, y, p, heads, window, bias, mask, want_attn,
+                      fast_softmax)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    return wrapper
+
+
+fused_window_attn_mma = _window_tc_wrapper(
+    "fused_window_attn_mma", "mma",
+    """``fused_window_attn``'s contract in bf16 on the tensor cores
+    (``csrc/fused_window_attn_mma.cu``).""")
+fused_window_attn_tf32x3 = _window_tc_wrapper(
+    "fused_window_attn_tf32x3", "tf32",
+    """``fused_window_attn``'s contract in f32 on split-TF32 tensor-core
+    products (``csrc/fused_window_attn_tf32.cu``).""")
+# route -> the wrapper that counts its launches
+_WINDOW_WRAPPERS = {"fma": fused_window_attn, "mma": fused_window_attn_mma,
+                    "tf32": fused_window_attn_tf32x3}
+for _w in _WINDOW_WRAPPERS.values():
+    _w.launches = 0
+del _w

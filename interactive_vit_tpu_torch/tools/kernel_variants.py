@@ -84,6 +84,17 @@ limit first. The variants:
   on device time alone, maps off and maps + mean, at vit_b16 (B = 1 and
   8) and vit_t16.
 
+* ``fused_window_attn_mma.cu`` and ``fused_window_attn_tf32.cu`` (row 5,
+  the window attention, bf16 on the tensor cores and f32 on split TF32):
+  the attention kernel's grid, one block per (window, head, image) (the
+  sources) against one per (window, image) taking the heads in turn
+  (``row5_*_head_loop``); beside them the FMA kernel they replace
+  (``row5_fma``, this checkout's ``fused_window_attn.cu``, in both
+  dtypes); held against ``fused_window_attn_reference`` (a within 2^-6 of
+  its scale in bf16, the maps per element; f32 within 1e-4) and timed on
+  device time alone, maps off and on, unshifted, at swin_t's four stages
+  (B = 1) and stage 2 at B = 8.
+
 Heads 64 wide are timed at dinov2_s14_reg's and vit_b16's shapes, heads
 80 wide (the variants whose names hold ``dh80``) at vit_h14's: N = 2810
 (@742) for row 4, N = 257 (@224) and 1025 (@448) for row 3 (bf16 and
@@ -130,6 +141,7 @@ from interactive_vit_tpu_torch.ops import attention_vjp as av
 from interactive_vit_tpu_torch.ops import flash_attention as fa
 from interactive_vit_tpu_torch.ops import fused_block as fb
 from interactive_vit_tpu_torch.ops import fused_mlp as fm
+from interactive_vit_tpu_torch.ops import fused_window as fw
 from interactive_vit_tpu_torch.ops import quant
 from interactive_vit_tpu_torch.runtime import cuda_build
 
@@ -305,6 +317,16 @@ ROW2_TF32_WALK = _head_walk(
 ROW1_ROWS = ("__host__ __device__ inline int qkv_rows(int m) "
              "{ return m <= QKV_SMALL_M ? 32 : 64; }")
 
+# row 5's attention grid by (window, image), the block walking the heads
+ROW5_HEAD_LOOP = [
+    ("  window_head(a, tiles, blockIdx.x, blockIdx.y, blockIdx.z);",
+     "  for (int h = 0; h < a.heads; ++h) {\n"
+     "    window_head(a, tiles, blockIdx.x, h, blockIdx.z);\n"
+     "    __syncthreads();  // the tiles read before the next head's gather\n"
+     "  }"),
+    ("(H / window) * (W / window), heads, B);",
+     "(H / window) * (W / window), 1, B);")]
+
 # name -> (source, replacements)
 VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row3_parts_by_grid": ("flash_attention_mma", []),
@@ -425,6 +447,14 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row1_mma_rows_64": ("fused_attn_block_mma", [
         (ROW1_ROWS, ROW1_ROWS.replace("m <= QKV_SMALL_M ? 32 : 64", "64"))]),
     "row1_fma": ("fused_attn_block", []),
+    # row 5 on the tensor cores: the attention grid by (window, head,
+    # image) (the sources) or by (window, image) walking the heads; beside
+    # them the FMA kernel they replace
+    "row5_mma_head_grid": ("fused_window_attn_mma", []),
+    "row5_mma_head_loop": ("fused_window_attn_mma", ROW5_HEAD_LOOP),
+    "row5_tf32_head_grid": ("fused_window_attn_tf32", []),
+    "row5_tf32_head_loop": ("fused_window_attn_tf32", ROW5_HEAD_LOOP),
+    "row5_fma": ("fused_window_attn", []),
 }
 
 
@@ -508,6 +538,11 @@ ENTRIES = {
     "fused_attn_block_mma": ("ivt_fused_attn_block_mma",
                              fb.TC_ENTRY_ARGTYPES),
     "fused_attn_block": ("ivt_fused_attn_block", fb.ENTRY_ARGTYPES),
+    "fused_window_attn_mma": ("ivt_fused_window_attn_mma",
+                              fw.TC_ENTRY_ARGTYPES),
+    "fused_window_attn_tf32": ("ivt_fused_window_attn_tf32x3",
+                               fw.TC_ENTRY_ARGTYPES),
+    "fused_window_attn": ("ivt_fused_window_attn", fw.ENTRY_ARGTYPES),
 }
 
 # A source's counterpart in the ``--baseline`` checkout: row 2's
@@ -516,7 +551,9 @@ BASELINE_OF = {"headwise_attn_block_mma": "headwise_attn_block",
                "headwise_attn_block_tf32": "headwise_attn_block",
                "fused_mlp_block_mma": "fused_mlp_block",
                "fused_mlp_w8a8_mma": "fused_mlp_w8a8_block",
-               "fused_attn_block_mma": "fused_attn_block"}
+               "fused_attn_block_mma": "fused_attn_block",
+               "fused_window_attn_mma": "fused_window_attn",
+               "fused_window_attn_tf32": "fused_window_attn"}
 
 
 def variant_dh(name: str) -> int:
@@ -601,13 +638,35 @@ def build_variants(names, baseline=None) -> Dict[str, ctypes.CDLL]:
     return libs
 
 
+def _sub_down(m) -> str:
+    """A mangled substitution reference S<k>_ (k in base 36) one slot
+    lower: S<k-1>_ for k >= 1; S0_ as it is."""
+    k = int(m.group(1), 36)
+    if k == 0:
+        return m.group(0)
+    digits, k, out = "0123456789ABCDEFGHIJKLMNOPQRSTUVWXYZ", k - 1, ""
+    while True:
+        out = digits[k % 36] + out
+        k //= 36
+        if not k:
+            return f"S{out}_"
+
+
 def untemplated(kernel: str) -> str:
     """A kernel's mangled name with a leading head-width template argument
-    of 64 taken out: the name the kernel had before it was templated on
-    the width (``f<64>`` -> ``f``, ``f<64, 4>`` -> ``f<4>``)."""
+    of 64, or a lone option of ``true``, taken out: the name the kernel had
+    before it was templated on the width or given an option whose default
+    is its old code (``f<64>`` -> ``f``, ``f<64, 4>`` -> ``f<4>``,
+    ``f<true>`` -> ``f``)."""
     # f<64>: template arguments, the nested name's end and the return type
     # -> the nested name's end
     kernel = kernel.replace("ILi64EEEv", "E")
+    if "ILb1EEEv" in kernel:
+        # f<true>(...): the template's prefix took a substitution slot, so
+        # the parameters' references S<k>_ (k >= 1) are one higher than
+        # the untemplated name's
+        kernel = re.sub(r"S([0-9A-Z]+)_", _sub_down,
+                        kernel.replace("ILb1EEEv", "E"))
     return kernel.replace("ILi64ELi", "ILi")
 
 
@@ -650,17 +709,18 @@ def sass_diff(sources, baseline: str) -> int:
         there = _sass(csrc, source,
                       os.path.join(OUT_DIR, "baseline_" + source + ".cubin"))
         # a baseline kernel's counterpart here: itself, or the 64-wide
-        # instantiation it has become
+        # instantiation (or the option's default) it has become
         ours = {k: k for k in here}
         ours.update({untemplated(k): k for k in here
                      if untemplated(k) not in here})
-        same = all(ours.get(k) in here and here[ours[k]] == v
-                   for k, v in there.items())
+        differ = sorted(k for k, v in there.items()
+                        if ours.get(k) not in here or here[ours[k]] != v)
         new = sorted(set(here) - {ours.get(k) for k in there})
-        bad += not same
+        bad += bool(differ)
         print(f"{source}: baseline {len(there)} kernels, "
               f"{sum(map(len, there.values()))} instructions: "
-              f"{'identical SASS here' if same else 'DIFFERENT'}"
+              + ('identical SASS here' if not differ else
+                 f"DIFFERENT: {', '.join(differ)}")
               + (f"; new here: {', '.join(new)} ("
                  f"{sum(len(here[k]) for k in new)} instructions)"
                  if new else ""), flush=True)
@@ -884,6 +944,83 @@ def row1_group(libs, names, shapes) -> None:
             print(f"  fused_attn_block {(b, n, d, heads)} bf16 maps + mean "
                   f"{'on' if maps else 'off'} (device time; every variant "
                   f"within its bounds): " + ", ".join(
+                      f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, "
+                      f"{t[1]:.4f})" for name, t in times.items()),
+                  flush=True)
+            torch.cuda.empty_cache()
+
+
+def call_row5(lib, name, y, p, heads, window, bias, maps=False):
+    """One launch of a row-5 variant (or of the FMA kernel it replaces),
+    unshifted, as ``fused_window._launch`` launches it: (a, probs |
+    None)."""
+    b, hres, wres, c = y.shape
+    t, nw = window * window, (hres // window) * (wres // window)
+    source = _source_of(name)
+    qkv_ws = torch.empty((b, hres, wres, 3 * c), dtype=y.dtype,
+                         device=y.device)
+    o_ws, a = torch.empty_like(y), torch.empty_like(y)
+    probs = (torch.empty((b, nw, heads, t, t), dtype=y.dtype, device=y.device)
+             if maps else None)
+    lead = ((0 if y.dtype == torch.float32 else 1,)
+            if source == "fused_window_attn" else ())
+    err = getattr(lib, ENTRIES[source][0])(
+        *lead, *(t_.data_ptr() for t_ in (
+            y, p["qkv_w"], p["qkv_b"], p["proj_w"], p["proj_b"], bias)),
+        None, qkv_ws.data_ptr(), o_ws.data_ptr(), a.data_ptr(),
+        None if probs is None else probs.data_ptr(), b, hres, wres, c, heads,
+        window, float(c // heads) ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+    return a, probs
+
+
+def row5_group(libs, names, dtype, shapes) -> None:
+    """Row-5 variants against ``fused_window_attn_reference`` (bf16: a
+    within 2^-6 of its scale, the maps per element within min(2^-7, 2^-5
+    |ref| + 1e-6); f32: 1e-4), timed on device time alone, maps off and
+    on, in two orders; (B, map side, C, heads), window 7."""
+    win = 7
+    for b, res, c, heads in shapes:
+        g = torch.Generator().manual_seed(res + c + b)
+
+        def rnd(*shape, std=1.0):
+            return (torch.randn(shape, generator=g) * std).to("cuda", dtype)
+
+        p = {"qkv_w": rnd(c, 3 * c, std=c ** -0.5),
+             "qkv_b": rnd(3 * c, std=0.1),
+             "proj_w": rnd(c, c, std=c ** -0.5), "proj_b": rnd(c, std=0.1)}
+        y = rnd(b, res, res, c)
+        bias = rnd(heads, win * win, win * win, std=0.5).float()
+        for maps in (False, True):
+            ref = fw.fused_window_attn_reference(y, p, heads, win, bias,
+                                                 want_attn=maps)
+            for name in names:
+                got = call_row5(libs[name], name, y, p, heads, win, bias,
+                                maps)
+                torch.cuda.synchronize()
+                use = 0.0
+                for i, (o, r) in enumerate(zip(got, ref)):
+                    if r is None:
+                        continue
+                    bound = (1e-4 if dtype == torch.float32 else
+                             2.0 ** -6 * max(1.0, r.abs().max().item())
+                             if i == 0 else
+                             (2.0 ** -5 * r.float().abs() + 1e-6).clamp(
+                                 max=2.0 ** -7))
+                    use = max(use, ((o.float() - r.float()).abs() / bound)
+                              .max().item())
+                if use > 1.0:
+                    raise AssertionError(f"{name}: {use:.2f} of its bound")
+            times = {name: [] for name in names}
+            for order in (names, names[::-1]):
+                for name in order:
+                    times[name].append(time_held_ms(lambda: call_row5(
+                        libs[name], name, y, p, heads, win, bias, maps)))
+            print(f"  fused_window_attn {(b, res, c, heads)} "
+                  f"{str(dtype)[6:]} maps {'on' if maps else 'off'} (device "
+                  f"time; every variant within its bounds): " + ", ".join(
                       f"{name} {sum(t) / len(t):.4f} ms ({t[0]:.4f}, "
                       f"{t[1]:.4f})" for name, t in times.items()),
                   flush=True)
@@ -1175,6 +1312,17 @@ def main(argv=None) -> int:
         # the 64-row tile), vit_t16 at one; (B, N, D, heads)
         row1_group(libs, row1, [(1, 197, 768, 12), (8, 197, 768, 12),
                                 (1, 197, 192, 3)])
+    for dtype, source in ((torch.bfloat16, "fused_window_attn_mma"),
+                          (torch.float32, "fused_window_attn_tf32")):
+        group = [n for n in names
+                 if VARIANTS[n][0] in (source, "fused_window_attn")]
+        if any(VARIANTS[n][0] == source for n in group):
+            if args.baseline is not None:
+                group.append("baseline:fused_window_attn")
+            # swin_t's four stages at one image, stage 2 at eight
+            row5_group(libs, group, dtype, [
+                (1, 56, 96, 3), (1, 28, 192, 6), (1, 14, 384, 12),
+                (1, 7, 768, 24), (8, 14, 384, 12)])
     for w8a8, sources in ((False, ("fused_mlp_block_mma", "fused_mlp_block")),
                           (True, ("fused_mlp_w8a8_mma",
                                   "fused_mlp_w8a8_block"))):

@@ -119,6 +119,8 @@ def cuda():
     fb.load_headwise_tf32_kernel()
     fa.load_kernel()
     fw.load_kernel()
+    fw.load_mma_kernel()
+    fw.load_tf32_kernel()
     fm.load_kernel()
     fa.load_online_kernel()
     fm.load_w8a8_kernel()
@@ -1104,10 +1106,15 @@ def test_window_kernel_matches_plain(cuda, shape, dtype, mode):
     y, p, bias, mask = _window_case(shape, dtype, cuda, shifted)
     kw = {"want_attn": mode in ("maps_on", "shifted_on", "exact_softmax"),
           "fast_softmax": mode != "exact_softmax"}
-    before = fw.fused_window_attn.launches
+    # heads 32 wide in windows of up to 64 tokens on the tensor cores
+    route = "fma" if c // heads != 32 or win > 8 else (
+        "mma" if dtype == torch.bfloat16 else "tf32")
+    assert fw._window_route_of(y, p, heads, win) == route
+    before = _window_counts()
     got = fw.fused_window_attn(y, p, heads, win, bias, mask, **kw)
     torch.cuda.synchronize()
-    assert fw.fused_window_attn.launches == before + 1
+    want = dict(before, **{route: before[route] + 1})
+    assert _window_counts() == want
     ref = fw.fused_window_attn_reference(y, p, heads, win, bias, mask, **kw)
     assert got[0].shape == y.shape and got[0].dtype == dtype
     _check(got, ref, dtype)
@@ -1120,6 +1127,84 @@ def test_window_kernel_matches_plain(cuda, shape, dtype, mode):
             assert seam.numel() > 0 and bool((seam < 1e-37).all())
             if dtype == torch.bfloat16:
                 assert bool((seam == 0).all())
+
+
+def _window_counts():
+    return {route: w.launches for route, w in fw._WINDOW_WRAPPERS.items()}
+
+
+def _check_window(got, ref, dtype, mask, shape):
+    """The branch output and the tap within their bounds, and the seam
+    pairs of a shifted block at exactly 0 in bf16 (a denormal in f32)."""
+    b, res, c, heads, win = shape
+    _check(got, ref, dtype)
+    t = win * win
+    assert got[1].shape == (b, (res // win) ** 2, heads, t, t)
+    if mask is not None:
+        blocked = torch.as_tensor(mask, device=got[1].device)[None, :, None] < 0
+        seam = got[1].float()[blocked.expand_as(got[1])]
+        assert seam.numel() > 0 and bool((seam < 1e-37).all())
+        if dtype == torch.bfloat16:
+            assert bool((seam == 0).all())
+
+
+@pytest.mark.parametrize("shape", WINDOW_SHAPES[:4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fast", [True, False])
+def test_window_tc_routes_match_plain(cuda, shape, dtype, fast):
+    """Each tensor-core route's own wrapper at swin_t's four stages, shifted
+    (the seam mask) where the stage has more than one window, maps on;
+    only that route's count moves."""
+    b, res, c, heads, win = shape
+    y, p, bias, mask = _window_case(shape, dtype, cuda, res > win)
+    route = "mma" if dtype == torch.bfloat16 else "tf32"
+    wrapper = fw._WINDOW_WRAPPERS[route]
+    kw = {"want_attn": True, "fast_softmax": fast}
+    before = _window_counts()
+    got = wrapper(y, p, heads, win, bias, mask, **kw)
+    torch.cuda.synchronize()
+    assert _window_counts() == dict(before, **{route: before[route] + 1})
+    _check_window(got, fw.fused_window_attn_reference(y, p, heads, win, bias,
+                                                      mask, **kw),
+                  dtype, mask, shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_off_the_grid_takes_the_fma_kernel(cuda, dtype):
+    """y one element into its storage (2 or 4 bytes off the 16-byte grid):
+    the FMA kernel, with the plain version's results within the bounds;
+    each tensor-core wrapper refuses it."""
+    shape = WINDOW_SHAPES[2]
+    b, res, c, heads, win = shape
+    y, p, bias, mask = _window_case(shape, dtype, cuda, True)
+    flat = torch.empty(y.numel() + 1, dtype=dtype, device=cuda)
+    yo = flat[1:].view(y.shape)
+    yo.copy_(y)
+    assert fw._window_route_of(yo, p, heads, win) == "fma"
+    before = _window_counts()
+    got = fw.fused_window_attn(yo, p, heads, win, bias, mask, want_attn=True)
+    torch.cuda.synchronize()
+    assert _window_counts() == dict(before, fma=before["fma"] + 1)
+    _check_window(got, fw.fused_window_attn_reference(
+        y, p, heads, win, bias, mask, want_attn=True), dtype, mask, shape)
+    for route in ("mma", "tf32"):
+        with pytest.raises(ValueError, match="16-byte"):
+            fw._WINDOW_WRAPPERS[route](yo, p, heads, win, bias, mask)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("want_attn", [False, True])
+def test_window_tc_routes_give_the_same_bits_twice(cuda, dtype, want_attn):
+    shape = WINDOW_SHAPES[1]
+    b, res, c, heads, win = shape
+    y, p, bias, mask = _window_case(shape, dtype, cuda, True)
+    first = fw.fused_window_attn(y, p, heads, win, bias, mask,
+                                 want_attn=want_attn)
+    second = fw.fused_window_attn(y, p, heads, win, bias, mask,
+                                  want_attn=want_attn)
+    torch.cuda.synchronize()
+    for f, s in zip(first, second):
+        assert (f is None and s is None) or torch.equal(f, s)
 
 
 def test_window_wrapper_refuses_what_the_kernel_does_not_take(cuda):

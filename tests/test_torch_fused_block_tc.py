@@ -597,9 +597,13 @@ def test_sources_use_their_instructions():
     (tf32_attention.cuh); both: the s8 attention on m16n8k32 s8
     (attn_block_s8.cuh, mma_s8 of mlp_cluster.cuh), LN1 by mc_ln_row, the
     key metric and the head-mean passes of common.cuh. Row 2 shares its
-    attention and projection through the two block headers; no source
-    holds asm of its own, and the FMA source keeps __dp4a."""
-    mma, tf32 = _read("fused_attn_block_mma.cu"), _read("fused_attn_block_tf32.cu")
+    attention and projection through the two block headers, and row 5
+    the QKV kernel and the projection, so the products sit in the headers
+    each source includes; no source holds asm of its own, and the FMA
+    source keeps __dp4a."""
+    mma = _read("fused_attn_block_mma.cu")
+    tf32 = _read("fused_attn_block_tf32.cu")
+    mma_h, tf32_h = _read("attn_block_mma.cuh"), _read("attn_block_tf32.cuh")
     s8 = _read("attn_block_s8.cuh")
     assert ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"
             in _read("mma_attention.cuh"))
@@ -607,8 +611,18 @@ def test_sources_use_their_instructions():
             in _read("tf32_attention.cuh"))
     assert ("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
             in _read("mlp_cluster.cuh"))
-    assert "mma_bf16(" in mma and '#include "attn_block_mma.cuh"' in mma
-    assert "mma_3xtf32(" in tf32 and '#include "attn_block_tf32.cuh"' in tf32
+    assert '#include "attn_block_mma.cuh"' in mma
+    assert '#include "attn_block_tf32.cuh"' in tf32
+    # LN1 + QKV and the projection: the headers' kernels on mma.sync
+    assert "launch_qkv_bm<" in mma and "proj_mma_kernel<<<" in mma
+    assert "launch_qkv_tf32(" in tf32 and "proj_tf32_kernel<<<" in tf32
+    for kernel in ("row1_qkv_mma_kernel(", "proj_mma_kernel("):
+        body = mma_h[mma_h.index(kernel):]
+        assert "mma_bf16(" in body[:body.index("\n}\n")]
+    for kernel in ("row1_qkv_tf32_kernel(", "proj_tf32_kernel("):
+        body = tf32_h[tf32_h.index(kernel):]
+        assert ("mma_3xtf32(" in body[:body.index("\n}\n")]
+                or "mma_tf32(" in body[:body.index("\n}\n")])
     for src in (mma, tf32):
         assert '#include "attn_block_s8.cuh"' in src
         assert "mc_ln_row<" in src and "launch_key_mean<" in src
