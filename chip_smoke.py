@@ -7,7 +7,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
-2. build   -- builds the twenty-two hand-written kernel sources from
+2. build   -- builds the twenty-three hand-written kernel sources from
    ``csrc/`` with nvcc, one compiler process each, all at once (the
    whole-image block is ``fused_attn_block.cu`` (FMA, ``__dp4a``),
    ``fused_attn_block_mma.cu`` (bf16 tensor cores) and
@@ -26,15 +26,17 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``flash_attention_online_tf32.cu`` (f32 on split TF32); the headwise
    block ``headwise_attn_block.cu`` (FMA), ``headwise_attn_block_mma.cu``
    (bf16 tensor cores) and ``headwise_attn_block_tf32.cu`` (f32 on split
-   TF32); the fused MLP ``fused_mlp_block.cu`` (FMA) and
-   ``fused_mlp_block_mma.cu`` (bf16 tensor cores), the W8A8 MLP
-   ``fused_mlp_w8a8_block.cu`` (``__dp4a``) and ``fused_mlp_w8a8_mma.cu``
-   (int8 tensor cores; both tensor-core sources on ``mlp_cluster.cuh``:
-   the hidden dimension split over a thread-block cluster); the window
+   TF32); the fused MLP ``fused_mlp_block.cu`` (FMA),
+   ``fused_mlp_block_mma.cu`` (bf16 tensor cores, chunks of 128 or 96
+   columns) and ``fused_mlp_block_tf32.cu`` (f32 on split TF32), the W8A8
+   MLP ``fused_mlp_w8a8_block.cu`` (``__dp4a``) and
+   ``fused_mlp_w8a8_mma.cu`` (int8 tensor cores; the three tensor-core
+   sources on ``mlp_cluster.cuh``: the hidden dimension split over a
+   thread-block cluster); the window
    attention ``fused_window_attn.cu`` (FMA), ``fused_window_attn_mma.cu``
    (bf16 tensor cores) and ``fused_window_attn_tf32.cu`` (f32 on split
    TF32; both tensor-core sources take row 1's QKV kernel and its
-   projection without the residual from the block headers): thirty-one
+   projection without the residual from the block headers): thirty-two
    kernels).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
@@ -89,14 +91,15 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      dtypes (a yardstick the port never calls);
    * the fused MLP at vit_b16 (197 x 768) and at swin_t's four stages
      (3136 x 96, 784 x 192, 196 x 384, 49 x 768), each at B=1 and 8, bf16
-     and f32: bf16 rows of whole 128-column chunks (vit_b16, swin_t's
-     stages 2 and 3) on the tensor-core route (two calls the same bits;
-     the clusters the card holds and each shape's row tile logged) with
-     the FMA kernel beside it on a copy of x off the 16-byte grid, the rest
-     on the FMA kernel; the bound must refuse a kernel that returned the
-     residual alone; device times alone (``time_held``) beside the bound,
-     the plain version and, in bf16, five library calls as a yardstick
-     (layer_norm, addmm, gelu, addmm, residual; the port never calls
+     and f32: bf16 on the tensor-core route (chunks of 128 columns, or of
+     96 for swin_t's stages 0 and 1), f32 on the split-TF32 route (two
+     calls the same bits; the clusters the card holds and each shape's
+     row tile and chunk logged), each with the FMA kernel beside it on a
+     copy of x off the 16-byte grid; the bound must refuse a kernel that
+     returned the residual alone; device times alone (``time_held``)
+     beside the bound (f32 at the TF32 peak and at the f32 FMA peak), the
+     plain version and five library calls as a yardstick (layer_norm,
+     addmm, gelu, addmm, residual, f32 with TF32 off; the port never calls
      them);
    * the online flash attention at the dinov2_s14_reg@742 shape (6 heads,
      N=2814, dh=64; B=1 and 8, and keys masked beyond n_real=2800) on q,
@@ -221,11 +224,15 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``/metrics`` p50s and one ``executor.run`` under ``torch.profiler``
    (device busy share, the kernels that take the most time).
    Then the monolithic forwards ``vit.forward`` (vit_b16) and
-   ``swin.forward`` (swin_t) at B=1 and B=8, bf16, with the block or window
-   kernel and the fused MLP from ``default_mlp_impl("fused")``, against the
-   same forwards with the plain versions: 12 MLP launches a call, all on
-   the tensor-core route but for swin_t's stages 0 and 1 (rows 96 and 192
-   wide: 4 launches on the FMA kernel); and four ``vit.forward`` of vit_h14 (heads 80 wide, depth cut to
+   ``swin.forward`` (swin_t) at B=1 and B=8 in bf16 and at B=1 in f32,
+   with the block or window kernel and the fused MLP from
+   ``default_mlp_impl("fused")``, against the same forwards with the
+   plain versions: 12 MLP launches a call, bf16 all on
+   ``fused_mlp_block_mma`` (swin_t's stages 0 and 1 on chunks of 96) and
+   none on the FMA kernel, f32 all on ``fused_mlp_block_tf32x3`` beside 12
+   of row 1's or row 5's split-TF32 route (logits within 1e-4 of their
+   scale), and one profiled swin_t forward in each dtype (the MLP kernels
+   by name); and four ``vit.forward`` of vit_h14 (heads 80 wide, depth cut to
    2) through ``--attn auto``, 2 launches each: f32 on the split-TF32
    kernels' 80-wide instantiations, bf16 on the bf16 tensor-core kernels';
    @224 (N=257) the row-resident kernel against its plain version, @742
@@ -389,6 +396,11 @@ KERNELS = {
     "fused_window_attn_tf32x3": (
         CSRC + "fused_window_attn_tf32.cu",
         "interactive_vit_tpu/ops/fused_window.py:128"),
+    # row 6 in f32 on split TF32 on the same cluster split; with
+    # fused_mlp_block_mma (bf16, chunks of 128 or 96) it leaves the FMA
+    # kernel fused_mlp_block no main-path launch
+    "fused_mlp_block_tf32x3": (CSRC + "fused_mlp_block_tf32.cu",
+                               "interactive_vit_tpu/ops/fused_mlp.py:60"),
 }
 
 # Bounds of a kernel against its plain version (same inputs, same cast
@@ -1480,8 +1492,9 @@ def phase_window_kernel(device) -> dict:
 
 def mlp_library_yardstick(x, p, eps):
     """Row 6's function in five library calls (a yardstick, not one call:
-    ``library_ms`` stays null): bf16 ``F.layer_norm``, ``addmm``, the tanh
-    ``gelu``, ``addmm`` and the residual. The port never calls it."""
+    ``library_ms`` stays null), in the inputs' dtype (f32 with TF32 off):
+    ``F.layer_norm``, ``addmm``, the tanh ``gelu``, ``addmm`` and the
+    residual. The port never calls it."""
     import torch
     import torch.nn.functional as F
 
@@ -1493,14 +1506,19 @@ def mlp_library_yardstick(x, p, eps):
 
 
 def phase_mlp_kernel(device) -> dict:
-    """The fused MLP's kernels against their plain version: bf16 operands
-    of whole 128-column chunks on the tensor cores (``fused_mlp_block_mma``,
-    two calls the same bits), the FMA kernel beside it on a copy of x off
-    the 16-byte grid (the same values), f32 and the narrow swin_t stages on
-    the FMA kernel alone; device times alone (``time_held``: the wrappers'
-    host time exceeds the tensor-core kernel's) beside the bound, the plain
-    version and, in bf16, five library calls as a yardstick. Returns the
-    numbers of both kernels at vit_b16 (197 x 768, B=1, bf16)."""
+    """The fused MLP's kernels against their plain version at every shape
+    the monolithic forwards give them (vit_b16 and swin_t's four stages,
+    B=1 and 8): bf16 operands on the tensor cores (``fused_mlp_block_mma``:
+    rows of whole 128-column chunks, or 96-column ones for swin_t's stages
+    0 and 1), f32 on split TF32 (``fused_mlp_block_tf32x3``), each two
+    calls the same bits, and the FMA kernel beside each on a copy of x off
+    the 16-byte grid (the same values); device times alone (``time_held``:
+    the wrappers' host time exceeds the tensor-core kernels') beside the
+    bound (f32 at the TF32 peak, the one its entry carries, and at the f32
+    FMA peak), the plain version and five library calls as a yardstick (in
+    f32 with TF32 off). Returns the numbers of each kernel at vit_b16 (197
+    x 768, B=1): the bf16 tensor cores and the FMA kernel in bf16, split
+    TF32 in f32."""
     import torch
 
     from interactive_vit_tpu_torch.ops import fused_mlp as fm
@@ -1515,10 +1533,24 @@ def phase_mlp_kernel(device) -> dict:
                                        ("swin_t stage2", 196, 384, 1e-5),
                                        ("swin_t stage3", 49, 768, 1e-5))
               for b in (1, 8)]
-    log(f"  fused_mlp_block_mma: {fm.max_active_clusters('mma', 768, 3072)} "
-        f"clusters of {fm.cluster_size(3072)} blocks fit the card at once "
-        f"at vit_b16 ({fm.mma_smem_bytes(768, 3072)} bytes of shared memory "
-        f"a block)")
+    for route, (d, md) in (("mma", (768, 3072)), ("mma", (96, 384)),
+                           ("tf32", (768, 3072)), ("tf32", (96, 384))):
+        dtype = torch.bfloat16 if route == "mma" else torch.float32
+        tiles = ([(bm, fm.tf32_smem_bytes(d, md, bm))
+                  for bm in fm.tf32_tiles(d)] if route == "tf32"
+                 else [(32, None), (64, fm.mma_smem_bytes(d, md))])
+        log(f"  fused_mlp_block {route} route at ({d}, {md}), clusters of "
+            f"{fm.cluster_of(d, md)} blocks on chunks of {fm.chunk_of(d)}: "
+            + "; ".join(
+                f"tiles of {bm} rows: "
+                + (f"{smem} bytes of shared memory a block, "
+                   if smem is not None else "")
+                + (f"{fm.max_active_clusters(route, d, md, dtype, bm=bm)} "
+                   f"clusters fit the card at once"
+                   if smem is None or smem <= fm.SMEM_LIMIT else "over the "
+                   f"card's shared memory") for bm, smem in tiles))
+    names = {"mma": "fused_mlp_block_mma", "tf32": "fused_mlp_block_tf32x3",
+             "fma": "fused_mlp_block"}
     for sname, b, n, d, eps in shapes:
         md = 4 * d
         for dtype in (torch.bfloat16, torch.float32):
@@ -1538,29 +1570,33 @@ def phase_mlp_kernel(device) -> dict:
             ref = fm.fused_mlp_block_reference(x, p, eps)
             tag = f"fused_mlp_block {sname} B={b} {n}x{d} {dt}"
             nbytes, flops = mlp_cost(b * n, d, md, x.element_size())
-            bms, by = bound(nbytes, flops, dt)
+            f32 = dtype == torch.float32
+            # f32: three TF32 products a product on the tensor cores, the
+            # bound the split-TF32 entry carries; beside it the f32 FMA peak
+            bms, by = bound(nbytes, {"tf32": 3 * flops} if f32 else flops, dt)
             cost = (f"bound {bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
-                    f"{flops / 1e9:.3f} GFLOP)")
-            # the tensor-core route where it takes the operands; the FMA
-            # kernel on a copy of x off the 16-byte grid beside it
-            runs = [("fma", off_grid(x) if fm._mlp_route_of(x, p) == "mma"
-                     else x)]
-            if fm._mlp_route_of(x, p) == "mma":
-                runs.insert(0, ("mma", x))
+                    f"{flops / 1e9:.3f} GFLOP"
+                    + (f", at the TF32 peak x3; at the f32 FMA peak "
+                       f"{bound(nbytes, flops, dt)[0]:.5f} ms" if f32 else "")
+                    + ")")
+            # each dtype's tensor-core route; the FMA kernel on a copy of x
+            # off the 16-byte grid beside it
+            route = fm._mlp_route_of(x, p)
+            if route != ("tf32" if f32 else "mma"):
+                raise AssertionError(f"{tag}: the route is {route}")
             nums = {}
-            for route, xr in runs:
-                name = ("fused_mlp_block_mma" if route == "mma"
-                        else "fused_mlp_block")
+            for rt, xr in ((route, x), ("fma", off_grid(x))):
+                name = names[rt]
                 counter = getattr(fm, name)
-                before = (counter.launches, fm.fused_mlp_block.launches
-                          + fm.fused_mlp_block_mma.launches)
+                before = (counter.launches,
+                          sum(getattr(fm, k).launches for k in names.values()))
                 got = fm.fused_mlp_block(xr, p, eps)
                 again = fm.fused_mlp_block(xr, p, eps)
                 torch.cuda.synchronize()
                 if (counter.launches - before[0] != 2
-                        or fm.fused_mlp_block.launches
-                        + fm.fused_mlp_block_mma.launches - before[1] != 2):
-                    raise AssertionError(f"{tag}: not on the {route} route")
+                        or sum(getattr(fm, k).launches for k in names.values())
+                        - before[1] != 2):
+                    raise AssertionError(f"{tag}: not on the {rt} route")
                 rtag = f"{tag} ({name})"
                 errs, line = check_outputs(rtag, (got,), (ref,), dtype,
                                            ("y",))
@@ -1571,37 +1607,35 @@ def phase_mlp_kernel(device) -> dict:
                     pass
                 else:
                     raise AssertionError(f"{rtag}: x alone passed the bound")
-                if route == "mma" and not torch.equal(got, again):
+                if rt != "fma" and not torch.equal(got, again):
                     raise AssertionError(f"{rtag}: two calls differ")
                 t_k, t_p, t_host = time_turns_held(
                     lambda: fm.fused_mlp_block(xr, p, eps),
                     lambda: fm.fused_mlp_block_reference(xr, p, eps))
-                nums[route] = {"max_abs_err": max(errs), "ms": t_k,
-                               "plain_ms": t_p, "bound_ms": bms,
-                               "bound_by": by, "library_ms": None}
-                if route == "mma":
+                nums[rt] = {"max_abs_err": max(errs), "ms": t_k,
+                            "plain_ms": t_p, "bound_ms": bms,
+                            "bound_by": by, "library_ms": None}
+                if rt != "fma":
                     line += (f", two calls the same bits, tiles of "
-                             f"{fm.row_tile('mma', b * n, d, md)} rows in "
-                             f"clusters of {fm.cluster_size(md)}")
+                             f"{fm.row_tile(rt, b * n, d, md, dtype)} rows "
+                             f"in clusters of {fm.cluster_of(d, md)}, "
+                             f"chunks of {fm.chunk_of(d)}")
                 log(line + f"; kernel {t_k:.4f} ms (device "
                     f"time; the wrapper's host time {t_host:.4f} ms a "
                     f"call), plain {t_p:.4f} ms; {cost}")
-            if dtype == torch.bfloat16:
-                lib_err = (mlp_library_yardstick(x, p, eps).float()
-                           - ref.float()).abs().max().item()
-                t_lib, _ = time_held(
-                    lambda: mlp_library_yardstick(x, p, eps))
-                line = (f"  {tag}: yardstick of five library calls "
-                        f"(layer_norm, addmm, gelu, addmm, residual) "
-                        f"{t_lib:.4f} ms (device time; max abs diff "
-                        f"{lib_err:.3g} from the plain version)")
-                if "mma" in nums:
-                    line += (f"; the tensor cores at "
-                             f"{nums['mma']['ms'] / t_lib:.2f}x it, the FMA "
-                             f"kernel at {nums['fma']['ms'] / t_lib:.2f}x")
-                log(line)
-            if (sname, b, dt) == ("vit_b16", 1, "bfloat16"):
-                out = nums
+            lib_err = (mlp_library_yardstick(x, p, eps).float()
+                       - ref.float()).abs().max().item()
+            t_lib, _ = time_held(lambda: mlp_library_yardstick(x, p, eps))
+            log(f"  {tag}: yardstick of five library calls (layer_norm, "
+                f"addmm, gelu, addmm, residual{', TF32 off' if f32 else ''})"
+                f" {t_lib:.4f} ms (device time; max abs diff {lib_err:.3g} "
+                f"from the plain version); {names[route]} at "
+                f"{nums[route]['ms'] / t_lib:.2f}x it, the FMA kernel at "
+                f"{nums['fma']['ms'] / t_lib:.2f}x; {names[route]} "
+                f"{nums['fma']['ms'] / nums[route]['ms']:.2f}x faster than "
+                f"the FMA kernel")
+            if (sname, b) == ("vit_b16", 1):
+                out.update({route: nums[route]} if f32 else nums)
     return out
 
 
@@ -2590,8 +2624,12 @@ def run_forwards(device, counters) -> dict:
     """The monolithic forwards with the fused MLP kernel: ``vit.forward``
     at vit_b16 width (block kernel + MLP kernel) and ``swin.forward`` at
     swin_t width (window kernel + one MLP kernel per stage), bf16, B=1 and
-    B=8, seeded random weights, against the same forwards with the
-    kernels' plain versions. Then four ``vit.forward`` of vit_h14 (heads
+    B=8, and f32 at B=1, seeded random weights, against the same forwards
+    with the kernels' plain versions: bf16 12 ``fused_mlp_block_mma``
+    launches a forward (swin_t's stages 0 and 1 on its chunks of 96) and
+    no FMA one, f32 12 ``fused_mlp_block_tf32x3`` beside row 1's or row
+    5's split-TF32 route, the f32 logits within 1e-4 of their scale of the
+    plain forward's. Then four ``vit.forward`` of vit_h14 (heads
     80 wide, depth cut to 2) with ``--attn auto``, one launch a block: f32
     on the split-TF32 kernels' 80-wide instantiations, bf16 on the bf16
     tensor-core kernels'; the row-resident kernel at 224 (N=257) against
@@ -2601,12 +2639,12 @@ def run_forwards(device, counters) -> dict:
     blocks) in f32 and in bf16: 32 launches of the online kernel's
     80-wide split-TF32 or bf16 tensor-core instantiation, the logits
     within 1e-4 or 2^-4 of their scale. Every launch count is set to 0
-    before the checked forwards, and the MLP kernels' counts (12 a call:
-    the tensor-core route, but for swin_t's stages 0 and 1 on the FMA
-    kernel) and the FMA flash kernels' (none) are read and returned
-    straight after them; the forwards timed afterwards do not enter them: each full-depth
-    forward's wall time and one profiled forward (the attention's device
-    time)."""
+    before the checked forwards, and the MLP kernels' counts (12 a call,
+    all on the tensor cores) and the FMA flash kernels' (none) are read
+    and returned straight after them; the forwards timed afterwards do not
+    enter them: each full-depth forward's wall time and one profiled
+    forward (the attention's device time), and one profiled swin_t forward
+    at B=1 in each dtype (the MLP kernels by name)."""
     import dataclasses
 
     import torch
@@ -2617,54 +2655,60 @@ def run_forwards(device, counters) -> dict:
     from interactive_vit_tpu_torch.ops import fused_mlp as fm
     from interactive_vit_tpu_torch.ops import fused_window as fw
 
-    dtype = torch.bfloat16
     vcfg, scfg = vit.resolve_variant("vit_b16"), swin.VARIANTS["swin_t"]
-    vparams = vit.init_params(vcfg, torch.Generator().manual_seed(0), dtype,
-                              device)
-    sparams = swin.init_params(scfg, torch.Generator().manual_seed(0), dtype,
-                               device)
     stages = range(len(scfg.depths))
-    kernel_kw = {
-        "vit_b16": {
-            "block_impl": dispatch.default_block_impl(
-                "auto", dtype, vcfg.tokens, vcfg.width, vcfg.heads, device),
-            "mlp_impl": dispatch.default_mlp_impl(
-                "fused", dtype, vcfg.width, vcfg.mlp_dim, device=device)},
-        "swin_t": {
-            "window_impl": dispatch.default_window_impl(
-                "auto", dtype, scfg, device),
-            "mlp_impls": [dispatch.default_mlp_impl(
-                "fused", dtype, scfg.stage_dim(s),
-                scfg.stage_dim(s) * scfg.mlp_ratio, device=device)
-                for s in stages]},
-    }
+    params = {(name, dtype): init(cfg, torch.Generator().manual_seed(0),
+                                  dtype, device)
+              for name, init, cfg in (("vit_b16", vit.init_params, vcfg),
+                                      ("swin_t", swin.init_params, scfg))
+              for dtype in (torch.bfloat16, torch.float32)}
+
+    def kernel_kwargs(dtype):
+        return {
+            "vit_b16": {
+                "block_impl": dispatch.default_block_impl(
+                    "auto", dtype, vcfg.tokens, vcfg.width, vcfg.heads,
+                    device),
+                "mlp_impl": dispatch.default_mlp_impl(
+                    "fused", dtype, vcfg.width, vcfg.mlp_dim,
+                    device=device)},
+            "swin_t": {
+                "window_impl": dispatch.default_window_impl(
+                    "auto", dtype, scfg, device),
+                "mlp_impls": [dispatch.default_mlp_impl(
+                    "fused", dtype, scfg.stage_dim(s),
+                    scfg.stage_dim(s) * scfg.mlp_ratio, device=device)
+                    for s in stages]},
+        }
+
+    kernel_kw = {dtype: kernel_kwargs(dtype)
+                 for dtype in (torch.bfloat16, torch.float32)}
     plain_kw = {
         "vit_b16": {"block_impl": fb.fused_attn_block_reference,
                     "mlp_impl": fm.fused_mlp_block_reference},
         "swin_t": {"window_impl": fw.fused_window_attn_reference,
                    "mlp_impls": [fm.fused_mlp_block_reference for _ in stages]},
     }
-    if (kernel_kw["vit_b16"]["block_impl"] is not fb.fused_attn_block
-            or kernel_kw["swin_t"]["window_impl"] is not fw.fused_window_attn):
+    if any(kw["vit_b16"]["block_impl"] is not fb.fused_attn_block
+           or kw["swin_t"]["window_impl"] is not fw.fused_window_attn
+           for kw in kernel_kw.values()):
         raise AssertionError("dispatch did not pick the kernels on the card")
-    runs = {"vit_b16": (vit.forward, vparams, vcfg, "fused_attn_block_mma"),
-            "swin_t": (swin.forward, sparams, scfg, "fused_window_attn_mma")}
-    # the MLP kernels a forward launches: the tensor-core route where it
-    # takes the stage's widths (all of vit_b16; swin_t's stages 2 and 3),
-    # the FMA kernel for swin_t's stages 0 and 1 (rows 96 and 192 wide, not
-    # whole 128-column chunks)
-    mlp_launches = {"vit_b16": {"fused_mlp_block_mma": vcfg.depth}}
-    swin_mlp = {}
-    for st in stages:
-        dd = scfg.stage_dim(st)
-        name = ("fused_mlp_block_mma"
-                if fm.fits_mma(dd, dd * scfg.mlp_ratio)
-                else "fused_mlp_block")
-        swin_mlp[name] = swin_mlp.get(name, 0) + scfg.depths[st]
-    mlp_launches["swin_t"] = swin_mlp
-    fma_stages = [st for st in stages
-                  if not fm.fits_mma(scfg.stage_dim(st),
-                                     scfg.stage_dim(st) * scfg.mlp_ratio)]
+    forwards = {"vit_b16": (vit.forward, vcfg), "swin_t": (swin.forward, scfg)}
+    # every forward's launches: the block or window kernel's tensor-core
+    # route in each of 12 blocks, and the MLP's (bf16: all of swin_t's
+    # stages too, 0 and 1 on chunks of 96; never the FMA kernel)
+    expected = {
+        ("vit_b16", torch.bfloat16): {"fused_attn_block_mma": 12,
+                                      "fused_mlp_block_mma": 12},
+        ("swin_t", torch.bfloat16): {"fused_window_attn_mma": 12,
+                                     "fused_mlp_block_mma": 12},
+        ("vit_b16", torch.float32): {"fused_attn_block_tf32x3": 12,
+                                     "fused_mlp_block_tf32x3": 12},
+        ("swin_t", torch.float32): {"fused_window_attn_tf32x3": 12,
+                                    "fused_mlp_block_tf32x3": 12},
+    }
+    mlp_names = ("fused_mlp_block", "fused_mlp_block_mma",
+                 "fused_mlp_block_tf32x3")
 
     def wall_ms(fn, iters=3):
         fn()
@@ -2675,51 +2719,62 @@ def run_forwards(device, counters) -> dict:
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / iters
 
-    cases = [(name, b, torch.rand((b, 3, runs[name][2].img_size,
-                                   runs[name][2].img_size),
-                                  generator=torch.Generator().manual_seed(b)
-                                  ).to(device))
-             for name in runs for b in (1, 8)]
+    images = {b: torch.rand((b, 3, vcfg.img_size, vcfg.img_size),
+                            generator=torch.Generator().manual_seed(b)
+                            ).to(device) for b in (1, 8)}
+    if scfg.img_size != vcfg.img_size:
+        raise AssertionError("vit_b16 and swin_t take one image size here")
+    # bf16 at B=1 and 8 (logits and maps within 2^-4 of their scale), f32
+    # at B=1 (logits within 1e-4 of their scale)
+    cases = [(name, b, dtype) for dtype, batches in
+             ((torch.bfloat16, (1, 8)), (torch.float32, (1,)))
+             for name in forwards for b in batches]
     for fn in counters.values():  # the path starts here
         fn.launches = 0
     lines = {}
     with torch.inference_mode():
-        for name, b, imgs in cases:
-            forward, params, cfg, attn_kernel = runs[name]
+        for name, b, dtype in cases:
+            forward, cfg = forwards[name]
+            dt = str(dtype).replace("torch.", "")
+            f32 = dtype == torch.float32
+            want = expected[name, dtype]
             before = {k: f.launches for k, f in counters.items()}
-            got = forward(params, imgs, cfg, want_attn=True,
-                          **kernel_kw[name])
+            got = forward(params[name, dtype], images[b], cfg,
+                          want_attn=not f32, **kernel_kw[dtype][name])
             torch.cuda.synchronize()
             delta = {k: f.launches - before[k]
                      for k, f in counters.items() if f.launches > before[k]}
-            if delta != {attn_kernel: 12, **mlp_launches[name]}:
-                raise AssertionError(f"{name} forward B={b} launched "
-                                     f"{delta}; expected 12 {attn_kernel} "
-                                     f"and {mlp_launches[name]}")
-            ref = forward(params, imgs, cfg, want_attn=True,
-                          **plain_kw[name])
+            if delta.get("fused_mlp_block", 0):
+                raise AssertionError(f"{name} forward B={b} {dt} launched "
+                                     f"the FMA MLP kernel "
+                                     f"{delta['fused_mlp_block']} times")
+            if delta != want:
+                raise AssertionError(f"{name} forward B={b} {dt} launched "
+                                     f"{delta}; expected {want}")
+            ref = forward(params[name, dtype], images[b], cfg,
+                          want_attn=not f32, **plain_kw[name])
             logits, rlogits = got["logits"].float(), ref["logits"].float()
             if (logits.shape != (b, cfg.num_classes)
                     or not torch.isfinite(logits).all()):
-                raise AssertionError(f"{name} forward B={b}: logits "
+                raise AssertionError(f"{name} forward B={b} {dt}: logits "
                                      f"{tuple(logits.shape)} or non-finite")
-            bound = SLICE_REL * max(1.0, rlogits.abs().max().item())
+            rel = F32_BOUND if f32 else SLICE_REL
+            bound = rel * max(1.0, rlogits.abs().max().item())
             err = (logits - rlogits).abs().max().item()
-            map_use = max(
+            map_use = 0.0 if f32 else max(
                 ((g.float() - r.float()).abs().max()
                  / (SLICE_REL * r.float().abs().max())).item()
                 for g, r in zip(got["attn"], ref["attn"]))
             if err > bound or map_use > 1.0:
                 raise AssertionError(
-                    f"{name} forward B={b}: logits {err:.3g} (bound "
+                    f"{name} forward B={b} {dt}: logits {err:.3g} (bound "
                     f"{bound:.3g}), maps {map_use:.2f} of their bound")
-            lines[name, b] = (
-                f"  {name} forward B={b} bf16, {attn_kernel} + the MLP "
-                f"kernels: launches {delta}"
-                + (f" (the FMA MLP kernel in stages {fma_stages} only)"
-                   if name == "swin_t" else "") + "; logits max abs err "
-                f"vs the plain versions {err:.3g} (bound {bound:.3g}), "
-                f"maps {map_use:.2f} of their bound")
+            lines[name, b, dtype] = (
+                f"  {name} forward B={b} {dt}, the block or window kernel + "
+                f"the MLP kernels: launches {delta} (the FMA MLP kernel "
+                f"none); logits max abs err vs the plain versions "
+                f"{err:.3g} (bound {bound:.3g})"
+                + ("" if f32 else f", maps {map_use:.2f} of their bound"))
         # heads 80 wide: f32 on the split-TF32 kernels' 80-wide
         # instantiations, bf16 on the tensor-core kernels'; row-resident
         # at 224 (N=257), online above ROWFULL_MAX_N at 742
@@ -2806,8 +2861,7 @@ def run_forwards(device, counters) -> dict:
                 f"B=1 {dt}: launches {delta}; logits max abs err vs the "
                 f"plain online attention {err:.3g} (bound {bound:.3g})"))
         # the path ends here: the counts are read before the timed forwards
-        count = counters["fused_mlp_block"].launches
-        count_mma = counters["fused_mlp_block_mma"].launches
+        mlp_counts = {k: counters[k].launches for k in mlp_names}
         rowfull = counters["flash_attention"].launches
         online = counters["flash_attention_online"].launches
         for dt, (hparams, kernel_name, full_line) in full.items():
@@ -2820,26 +2874,40 @@ def run_forwards(device, counters) -> dict:
                 f"vit_h14@742 {dt} full-depth forward profile",
                 {kernel_name: hcfg.depth, "online_attention_kernel": 0})
         del full, hparams
-        want = {k: sum(mlp_launches[name].get(k, 0) for name, _, _ in cases)
-                for k in ("fused_mlp_block", "fused_mlp_block_mma")}
-        if {"fused_mlp_block": count,
-                "fused_mlp_block_mma": count_mma} != want:
-            raise AssertionError(f"the MLP kernels launched {count} (FMA) "
-                                 f"and {count_mma} (tensor cores) times in "
-                                 f"{len(cases)} forwards; expected {want}")
+        want = {k: sum(expected[name, dtype].get(k, 0)
+                       for name, _, dtype in cases) for k in mlp_names}
+        if mlp_counts != want:
+            raise AssertionError(f"the MLP kernels launched {mlp_counts} "
+                                 f"times in {len(cases)} forwards; expected "
+                                 f"{want}")
         if rowfull or online:
             raise AssertionError(f"the FMA flash kernels launched {rowfull} "
                                  f"and {online} times on the path")
-        for name, b, imgs in cases:
-            forward, params, cfg, _ = runs[name]
-            t_k = wall_ms(lambda: forward(params, imgs, cfg,
-                                          **kernel_kw[name]))
-            t_p = wall_ms(lambda: forward(params, imgs, cfg,
+        for name, b, dtype in cases:
+            forward, cfg = forwards[name]
+            p = params[name, dtype]
+            t_k = wall_ms(lambda: forward(p, images[b], cfg,
+                                          **kernel_kw[dtype][name]))
+            t_p = wall_ms(lambda: forward(p, images[b], cfg,
                                           **plain_kw[name]))
-            log(lines[name, b] + f"; maps off: kernels {t_k:.2f} ms, plain "
-                f"versions {t_p:.2f} ms (host wall, synchronized)")
-    return {"fused_mlp_block": count, "fused_mlp_block_mma": count_mma,
-            "flash_attention": rowfull, "flash_attention_online": online}
+            log(lines[name, b, dtype] + f"; maps off: kernels {t_k:.2f} ms, "
+                f"plain versions {t_p:.2f} ms (host wall, synchronized)")
+        # one swin_t forward at B=1 in each dtype under the profiler: the
+        # MLP kernels by name (bf16: 4 blocks of stages 0-1 on chunks of
+        # 96, 8 on 128; f32: 12 split-TF32) and the FMA one never
+        for dtype, mlp_profile in (
+                (torch.bfloat16, {"mlp_mma96_kernel": 4,
+                                  "mlp_mma_kernel": 8,
+                                  "window_attn_mma_kernel": 12}),
+                (torch.float32, {"mlp_tf32_kernel": 12,
+                                 "window_attn_tf32_kernel": 12})):
+            p = params["swin_t", dtype]
+            profiled(lambda: synchronized_ms(lambda: swin.forward(
+                p, images[1], scfg, **kernel_kw[dtype]["swin_t"])),
+                f"swin_t {str(dtype)[6:]} B=1 forward profile",
+                {**mlp_profile, "::mlp_kernel": 0})
+    return {**mlp_counts, "flash_attention": rowfull,
+            "flash_attention_online": online}
 
 
 class ToMeCount:
@@ -3466,6 +3534,7 @@ def main() -> int:
     fm.load_w8a8_kernel()
     fm.load_mma_kernel()
     fm.load_w8a8_mma_kernel()
+    fm.load_tf32_kernel()
     av.load_kernel()
     av.load_mma_kernel()
     log(f"phase 2 build: {', '.join(sources)} built and loaded in "
@@ -3507,7 +3576,8 @@ def main() -> int:
                 "fused_attn_block_tome_tf32x3": ToMeCount(
                     fb.fused_attn_block_tf32x3),
                 "fused_window_attn_mma": fw.fused_window_attn_mma,
-                "fused_window_attn_tf32x3": fw.fused_window_attn_tf32x3}
+                "fused_window_attn_tf32x3": fw.fused_window_attn_tf32x3,
+                "fused_mlp_block_tf32x3": fm.fused_mlp_block_tf32x3}
     if set(counters) != set(KERNELS):
         raise AssertionError("every kernel needs its launch count")
 
@@ -3555,6 +3625,7 @@ def main() -> int:
         "fused_window_attn_tf32x3": window["tf32"],
         "fused_mlp_block": mlp["fma"],
         "fused_mlp_block_mma": mlp["mma"],
+        "fused_mlp_block_tf32x3": mlp["tf32"],
         "flash_attention_online": online["fma"],
         "fused_mlp_w8a8_block": w8a8["dp4a"],
         "fused_mlp_w8a8_block_mma": w8a8["mma"],

@@ -1,5 +1,6 @@
 // Pieces shared by the tensor-core MLP-branch kernels under csrc/
-// (fused_mlp_block_mma.cu, bf16; fused_mlp_w8a8_mma.cu, W8A8): the split of
+// (fused_mlp_block_mma.cu, bf16; fused_mlp_block_tf32.cu, f32 on split
+// TF32; fused_mlp_w8a8_mma.cu, W8A8): the split of
 // the hidden dimension over the blocks of a thread-block cluster, the row
 // tile, the ring of weight tiles, the LayerNorm of a row staged in shared
 // memory, the int8 product mma.sync m16n8k32 with its B operand transposed
@@ -35,6 +36,16 @@
 // ring of 16 KB stages (8 KB for the W8A8 kernel's f32 activations, whose
 // h takes the room), every thread issuing its share of the copies.
 //
+// The narrow chunk. Rows a multiple of 96 but not of 128 wide (swin_t's
+// stages 0 and 1: d = 96 and 192, hidden 384 and 768) take chunks of
+// MC_NC_NARROW = 96 columns (the bf16 and f32 kernels; W8A8 keeps 128):
+// one or two chunks of d, and 4 or 8 of the hidden dimension, so the
+// clusters are again of 4 and 8 blocks and the rank-order sums, the
+// partial buffers and McTile's items keep their logic. A warp then takes
+// 24 columns, three 8-column tiles (McChunk<96>). The pieces below that
+// depend on the chunk take it as a template argument NC whose default is
+// MC_NC, so the 128-wide code is the code it was.
+//
 // Everything lives in an anonymous namespace, as in common.cuh.
 
 #pragma once
@@ -51,6 +62,7 @@ namespace cg = cooperative_groups;
 constexpr int MC_THREADS = 256, MC_WARPS = MC_THREADS / 32;
 constexpr int MC_ROWS = 64;            // rows of a tile (one cluster), at most
 constexpr int MC_NC = 128;             // columns of a chunk (fc1 hidden, fc2 output)
+constexpr int MC_NC_NARROW = 96;       // the narrow chunk (rows a multiple of 96, not 128)
 constexpr int MC_MAX_CLUSTER = 8;      // the portable cluster size
 constexpr int MC_MIN_CLUSTER = 4;      // so a thread owns at most McTile::ITEMS groups
 constexpr int MC_STAGES = 3;           // the weight ring
@@ -63,30 +75,58 @@ constexpr int MC_MAX_WIDTH = 1280;     // the widest row (LayerNorm in registers
 constexpr int MC_UNITS = (MC_MAX_WIDTH / 16 + 31) / 32;
 constexpr int MC_PLD = MC_NC + 4;      // a row of a partial buffer, 32-bit words
 
+// The shapes that follow from a chunk of NC columns (128 or 96): a row of a
+// partial buffer (32-bit words), a warp's columns of a chunk (four warps
+// across it) and their 8-column tiles.
+template <int NC>
+struct McChunk {
+  static_assert(NC == MC_NC || NC == MC_NC_NARROW, "chunks of 128 or 96 columns");
+  static constexpr int PLD = NC + 4;
+  static constexpr int WN = NC / 4;
+  static constexpr int NT = WN / 8;
+};
+
 // The shapes that follow from a tile of BM rows (32 or 64): a warp's 16-row
-// tiles, a thread's 4-column groups of a chunk's sums, the two partial
-// buffers ([BM][MC_PLD] of 32 bits each).
-template <int BM>
+// tiles, a thread's 4-column groups of a chunk's sums (at most: with
+// chunks of 96 the last item is short of threads), the two partial
+// buffers ([BM][PLD] of 32 bits each).
+template <int BM, int NC = MC_NC>
 struct McTile {
   static_assert(BM == 32 || BM == 64, "tiles of 32 or 64 rows");
   static constexpr int MT = BM / 32;
-  static constexpr int ITEMS = BM * MC_NC / 4 / MC_THREADS / MC_MIN_CLUSTER;
-  static constexpr size_t PBUF = 2 * (size_t)BM * MC_PLD * 4;
+  static constexpr int ITEMS = (BM * NC / 4 / MC_MIN_CLUSTER + MC_THREADS - 1) / MC_THREADS;
+  static constexpr size_t PBUF = 2 * (size_t)BM * McChunk<NC>::PLD * 4;
 };
 
-// Cluster size for md hidden columns, or 0 where md is not a whole number of
-// chunks or takes fewer than MC_MIN_CLUSTER blocks (a 4x MLP on rows of a
-// multiple of 128 always takes 4 or 8).
+// Cluster size for md hidden columns in chunks of NC, or 0 where md is not
+// a whole number of chunks or takes fewer than MC_MIN_CLUSTER blocks (a 4x
+// MLP on rows of a multiple of NC always takes 4 or 8).
+template <int NC = MC_NC>
 __host__ __device__ inline int mc_cluster_size(int md) {
-  if (md <= 0 || md % MC_NC) return 0;
+  if (md <= 0 || md % NC) return 0;
   int s = MC_MAX_CLUSTER;
-  while (md % (MC_NC * s)) s >>= 1;
+  while (md % (NC * s)) s >>= 1;
   return s >= MC_MIN_CLUSTER ? s : 0;
 }
 
 // Rows of D in [0, 2^31) a multiple of MC_NC and at most MC_MAX_WIDTH wide.
 __host__ __device__ inline bool mc_width_ok(int d) {
   return d > 0 && d % MC_NC == 0 && d <= MC_MAX_WIDTH;
+}
+
+// The chunk of the bf16 and f32 kernels for rows of D: MC_NC where D is a
+// multiple of it, else MC_NC_NARROW where D is a multiple of that, at most
+// MC_MAX_WIDTH wide; 0 otherwise.
+__host__ __device__ inline int mc_chunk_of(int d) {
+  if (d <= 0 || d > MC_MAX_WIDTH) return 0;
+  return d % MC_NC == 0 ? MC_NC : d % MC_NC_NARROW == 0 ? MC_NC_NARROW : 0;
+}
+
+// The cluster size at rows of D and md hidden columns in D's chunks.
+__host__ __device__ inline int mc_cluster_of(int d, int md) {
+  const int nc = mc_chunk_of(d);
+  return nc == MC_NC ? mc_cluster_size<MC_NC>(md)
+                     : nc == MC_NC_NARROW ? mc_cluster_size<MC_NC_NARROW>(md) : 0;
 }
 
 // Rows [row0, row0 + rows) of a row-major [M, D] matrix of T into a shared
@@ -184,8 +224,9 @@ __device__ __forceinline__ int mc_ln_row(float v[MC_UNITS][16], const T* xs,
 }
 
 // One stage of SB weight bytes: `rows` rows of a row-major matrix (rows
-// ld_src_bytes apart), MC_NC columns from src, into a shared tile of rows
-// of ld_dst bytes, with cp.async (16 bytes a copy, all threads).
+// ld_src_bytes apart), SB / rows bytes (a chunk's columns) from src, into a
+// shared tile of rows of ld_dst bytes, with cp.async (16 bytes a copy, all
+// threads).
 template <int SB>
 __device__ __forceinline__ void mc_load_stage(unsigned char* dst, const unsigned char* src,
                                               size_t ld_src_bytes, int rows, int ld_dst) {
@@ -225,17 +266,17 @@ __device__ __forceinline__ void mc_loop(int total, Load load, Compute compute) {
   __syncthreads();
 }
 
-// The 4-column groups of a chunk that block `rank` sums: the chunk's
-// columns [rank * MC_NC / S, (rank + 1) * MC_NC / S), all BM rows; thread
-// item u (< McTile<BM>::ITEMS) is group threadIdx.x + u * MC_THREADS, at
+// The 4-column groups of a chunk of NC that block `rank` sums: the chunk's
+// columns [rank * NC / S, (rank + 1) * NC / S), all BM rows; thread
+// item u (< McTile<BM, NC>::ITEMS) is group threadIdx.x + u * MC_THREADS, at
 // row r and chunk column c. False past the last group.
-template <int BM>
+template <int BM, int NC = MC_NC>
 __device__ __forceinline__ bool mc_item(int S, int rank, int u, int& r, int& c) {
-  const int w4 = MC_NC / S / 4;
+  const int w4 = NC / S / 4;
   const int e = threadIdx.x + u * MC_THREADS;
   if (e >= BM * w4) return false;
   r = e / w4;
-  c = rank * (MC_NC / S) + 4 * (e % w4);
+  c = rank * (NC / S) + 4 * (e % w4);
   return true;
 }
 
@@ -271,12 +312,12 @@ __device__ __forceinline__ void mc_gather_rows(cg::cluster_group& cluster, unsig
 }
 
 // The sum over ranks 0, 1, ..., S - 1, in that order, of the peers'
-// partials at row r, chunk columns c .. c + 3 of pbuf (V: int4 or float4;
-// add(V&, V) adds in place).
-template <typename V, typename Add>
+// partials at row r, chunk columns c .. c + 3 of pbuf (rows of
+// McChunk<NC>::PLD words; V: int4 or float4; add(V&, V) adds in place).
+template <typename V, int NC = MC_NC, typename Add>
 __device__ __forceinline__ V mc_sum_ranks(cg::cluster_group& cluster, const uint32_t* pbuf, int S,
                                           int r, int c, Add add) {
-  uint32_t* p = const_cast<uint32_t*>(pbuf) + r * MC_PLD + c;
+  uint32_t* p = const_cast<uint32_t*>(pbuf) + r * McChunk<NC>::PLD + c;
   V w[MC_MAX_CLUSTER];  // every peer's load in flight before the first add
 #pragma unroll
   for (int q = 0; q < MC_MAX_CLUSTER; ++q)
@@ -384,10 +425,28 @@ __device__ __forceinline__ void mc_mma_s8_stage(int acc[MT][4][4], const int8_t*
 // ---------------------------------------------------------------------------
 // bf16 products: mma.sync m16n8k16 with ldmatrix (A) and ldmatrix .trans (B,
 // a [k][n] tile), the accumulators in the usual layout (tile j of a warp's
-// 32 columns holds columns 8 j .. 8 j + 7).
+// 32 columns holds columns 8 j .. 8 j + 7; of its 24 with chunks of 96).
 
 constexpr int MC_BF_ROWS = MC_STAGE_BYTES / (2 * MC_NC);  // k rows of a bf16 stage (64)
 constexpr int MC_BF_LD = MC_NC + 8;                       // a row of a bf16 tile, elements
+
+// A bf16 weight stage at chunks of NC: its k rows (64 at 128, a 16 KB
+// stage; 48 at 96, which divides both 96 and a slice of 96) and its row
+// stride (NC + 8 elements: an odd number of 16-byte units, so ldmatrix's
+// eight rows fall on distinct bank groups).
+template <int NC>
+struct McBf16Stage {
+  static constexpr int ROWS = NC == MC_NC ? MC_BF_ROWS : 48;
+  static constexpr int LD = NC == MC_NC ? MC_BF_LD : NC + 8;
+  static constexpr int BYTES = ROWS * NC * 2;  // the weight bytes a stage holds
+  static_assert((LD * 2 / 16) % 2 == 1, "ldmatrix rows conflict-free");
+};
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t r[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
 
 // c += a b, bf16 operands, f32 accumulators: mma_attention.cuh's mma_bf16,
 // not volatile, so the compiler may schedule it between the shared-memory
@@ -400,17 +459,20 @@ __device__ __forceinline__ void mc_mma_bf16(float c[4], const uint32_t a[4], uin
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A warp's bf16 stage of MC_BF_ROWS / 16 k16 steps for its MT 16-row
-// tiles (A rows a_row0.. of a [*][lda] bf16 tile, k0 the stage's first k; B
-// a weight stage at b, its 32 columns from col0); every fragment of the
-// stage is loaded before the first product.
-template <int MT>
-__device__ __forceinline__ void mc_mma_bf16_stage(float acc[MT][4][4],
+// A warp's bf16 stage of McBf16Stage<NC>::ROWS / 16 k16 steps for its MT
+// 16-row tiles (A rows a_row0.. of a [*][lda] bf16 tile, k0 the stage's
+// first k; B a weight stage at b, its McChunk<NC>::WN columns from col0:
+// pairs of 8-column tiles by ldmatrix .x4 .trans, a last odd one (chunks of
+// 96) by .x2); every fragment of the stage is loaded before the first
+// product.
+template <int MT, int NC = MC_NC>
+__device__ __forceinline__ void mc_mma_bf16_stage(float acc[MT][McChunk<NC>::NT][4],
                                                   const __nv_bfloat16* a_tile, int lda, int a_row0,
                                                   int k0, const __nv_bfloat16* b, int col0,
                                                   int lane) {
-  constexpr int KS = MC_BF_ROWS / 16;
-  uint32_t a[KS][MT][4], bb[KS][2][4];
+  constexpr int KS = McBf16Stage<NC>::ROWS / 16, LD = McBf16Stage<NC>::LD;
+  constexpr int NT = McChunk<NC>::NT, JP = NT / 2;
+  uint32_t a[KS][MT][4], bb[KS][JP][4], bo[KS][2];
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
@@ -418,20 +480,29 @@ __device__ __forceinline__ void mc_mma_bf16_stage(float acc[MT][4][4],
       ldmatrix_x4(a[ks][mt], smem_addr(a_tile + (a_row0 + 16 * mt + (lane & 15)) * lda + k0 +
                                        16 * ks + (lane >> 4) * 8));
 #pragma unroll
-    for (int jp = 0; jp < 2; ++jp)
+    for (int jp = 0; jp < JP; ++jp)
       ldmatrix_x4_trans(bb[ks][jp],
-                        smem_addr(b + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * MC_BF_LD +
+                        smem_addr(b + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
                                   col0 + 16 * jp + (lane >> 4) * 8));
+    if constexpr (NT % 2 == 1) {
+      ldmatrix_x2_trans(bo[ks], smem_addr(b + (16 * ks + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                          col0 + 16 * JP));
+    }
   }
 #pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
+  for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-    for (int jp = 0; jp < 2; ++jp)
+    for (int jp = 0; jp < JP; ++jp)
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         mc_mma_bf16(acc[mt][2 * jp], a[ks][mt], bb[ks][jp][0], bb[ks][jp][1]);
         mc_mma_bf16(acc[mt][2 * jp + 1], a[ks][mt], bb[ks][jp][2], bb[ks][jp][3]);
       }
+    if constexpr (NT % 2 == 1) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mc_mma_bf16(acc[mt][NT - 1], a[ks][mt], bo[ks][0], bo[ks][1]);
+    }
+  }
 }
 
 // Lets kernel take up to SMEM_LIMIT bytes of dynamic shared memory on the

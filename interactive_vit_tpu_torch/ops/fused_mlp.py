@@ -25,20 +25,25 @@ the activation dtype and back, per-row ``quant_rows_mosaic`` (half up),
 exact s8 x s8 -> s32 products, ``acc.f32 * (sx * s_w) + b``, the tanh GELU
 on the activation dtype, per-row requantization, and the residual in f32.
 
-Both have a second kernel on Hopper's tensor cores, chosen by each
-wrapper by dtype, shape and 16-byte alignment (``mlp_route``,
-``w8a8_route``), never by a failed build or launch:
+Both have kernels on Hopper's tensor cores, chosen by each wrapper by
+dtype, shape and 16-byte alignment (``mlp_route``, ``w8a8_route``), never
+by a failed build or launch:
 
 * ``fused_mlp_block_mma`` (bf16, ``csrc/fused_mlp_block_mma.cu``, count
-  ``fused_mlp_block_mma.launches``) and ``fused_mlp_w8a8_block_mma``
-  (bf16 or f32 activations, ``csrc/fused_mlp_w8a8_mma.cu``, count
-  ``fused_mlp_w8a8_block_mma.launches``): rows a multiple of ``MMA_CHUNK``
-  wide up to ``MMA_MAX_WIDTH``, a hidden dimension of whole chunks, the
-  operands 16-byte aligned, the block's shared memory inside the
-  card's. A cluster of ``cluster_size(mlp_dim)`` blocks takes a tile of
-  32 or 64 rows (``row_tile``) and each block a slice of the hidden
-  dimension; fc2's partial sums are added over the cluster in rank order,
-  so two calls give the same bits. The FMA and
+  ``fused_mlp_block_mma.launches``), ``fused_mlp_block_tf32x3`` (f32 on
+  split TF32: three TF32 products a product, ``csrc/fused_mlp_block_tf32.cu``,
+  count ``fused_mlp_block_tf32x3.launches``) and
+  ``fused_mlp_w8a8_block_mma`` (bf16 or f32 activations,
+  ``csrc/fused_mlp_w8a8_mma.cu``, count
+  ``fused_mlp_w8a8_block_mma.launches``): rows a multiple of a chunk wide
+  up to ``MMA_MAX_WIDTH`` (the chunk ``chunk_of(d)``: ``MMA_CHUNK`` = 128,
+  or ``MMA_NARROW_CHUNK`` = 96 for rows a multiple of 96 but not of 128,
+  swin_t's stages 0 and 1; the W8A8 kernel takes 128 only), a hidden
+  dimension of whole chunks, the operands 16-byte aligned, the block's
+  shared memory inside the card's. A cluster of ``cluster_of(d,
+  mlp_dim)`` blocks takes a tile of 32 or 64 rows (``row_tile``) and each
+  block a slice of the hidden dimension; fc2's partial sums are added over
+  the cluster in rank order, so two calls give the same bits. The FMA and
   ``__dp4a`` kernels above keep every other operand and count their own
   launches only.
 
@@ -67,9 +72,9 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 5 * 256
 
 # The C entries' parameters: the FMA kernel's (dtype, 8 pointers, M, D, MD,
-# eps, stream), the bf16 tensor-core kernel's (no dtype; the row tile after
-# MD), the __dp4a kernel's (dtype, 14 pointers, M, D, MD, eps, stream) and
-# the int8 tensor-core kernel's (the row tile after MD).
+# eps, stream), the bf16 and split-TF32 tensor-core kernels' (no dtype; the
+# row tile after MD), the __dp4a kernel's (dtype, 14 pointers, M, D, MD,
+# eps, stream) and the int8 tensor-core kernel's (the row tile after MD).
 MLP_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
                 + [ctypes.c_float, ctypes.c_void_p])
 MLP_MMA_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 4
@@ -158,16 +163,18 @@ def fused_mlp_block(x: torch.Tensor, p: Params,
     """x [B, N, D] -> x + MLP(LN2(x)) in one kernel launch; x must be
     contiguous. ``p`` holds ln2_s, ln2_b, fc1_w [D, 4D], fc1_b, fc2_w
     [4D, D], fc2_b. Operands that ``mlp_route`` sends to the tensor cores
-    go to ``fused_mlp_block_mma``, which counts them; this wrapper counts
-    the FMA kernel's launches."""
+    go to ``fused_mlp_block_mma`` (bf16) or ``fused_mlp_block_tf32x3``
+    (f32), which count them; this wrapper counts the FMA kernel's
+    launches."""
     if x.device.type == "cpu":
         return fused_mlp_block_reference(x, p, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp_block runs on cuda or cpu tensors, got "
                          f"{x.device}")
     _check_operands(x, p)
-    if _mlp_route_of(x, p) == "mma":
-        return fused_mlp_block_mma(x, p, eps)
+    route = _mlp_route_of(x, p)
+    if route != "fma":
+        return _MLP_ROUTE_WRAPPERS[route](x, p, eps)
     b, n, d = x.shape
     lib = _kernel_lib()
     with torch.cuda.device(x.device):
@@ -379,34 +386,64 @@ def _launch_w8a8(entry, x: torch.Tensor, p: Params, eps: float,
 
 # -- the tensor-core routes ------------------------------------------------------
 #
-# Mirrors csrc/mlp_cluster.cuh: a cluster of ``cluster_size(mlp_dim)``
+# Mirrors csrc/mlp_cluster.cuh: a cluster of ``cluster_of(d, mlp_dim)``
 # blocks takes a tile of 32 or MMA_ROWS rows (``row_tile`` picks by the
-# row count; the envelope is the larger tile's); block
-# ``rank`` computes the hidden columns [rank * mlp_dim / S, (rank + 1) *
-# mlp_dim / S), MMA_CHUNK at a time, and fc2's output MMA_CHUNK columns at
-# a time, whose S partial sums the cluster adds in rank order. The loaders
-# check every number against the libraries'.
+# row count; the bf16 and W8A8 envelopes are the larger tile's, the
+# split-TF32 one its smallest tile's); block ``rank`` computes the hidden columns
+# [rank * mlp_dim / S, (rank + 1) * mlp_dim / S), a chunk at a time, and
+# fc2's output a chunk of columns at a time, whose S partial sums the
+# cluster adds in rank order. The loaders check every number against the
+# libraries'.
 MMA_ROWS = 64
 MMA_CHUNK = 128
+MMA_NARROW_CHUNK = 96
 MMA_MAX_CLUSTER = 8
 MMA_MIN_CLUSTER = 4
 MMA_MAX_WIDTH = 1280
 MMA_ALIGN = 16
 _MMA_STAGES = 3
 _PBUF_BYTES = 2 * MMA_ROWS * (MMA_CHUNK + 4) * 4  # two [64][132] 32-bit
+# the bf16 kernel's weight stages at each chunk: (k rows, row stride in
+# elements); the split-TF32 kernel's: TF32_STAGE_ROWS k rows of chunk + 4
+# floats; at tiles of TF32_PRESPLIT_ROWS rows (chunks of 128 only) it keeps
+# its A operands as hi and lo panels
+_BF16_STAGE = {MMA_CHUNK: (64, MMA_CHUNK + 8),
+               MMA_NARROW_CHUNK: (48, MMA_NARROW_CHUNK + 8)}
+TF32_STAGE_ROWS = 32
+TF32_PRESPLIT_ROWS = 16
 
 
-def cluster_size(mlp_dim: int) -> int:
-    """Blocks of a cluster for ``mlp_dim`` hidden columns: the largest power
-    of two up to MMA_MAX_CLUSTER that divides mlp_dim / MMA_CHUNK, or 0
-    where that is below MMA_MIN_CLUSTER or mlp_dim is not a whole number of
-    chunks (a 4x MLP on rows of a multiple of 128 takes 4 or 8)."""
-    if mlp_dim <= 0 or mlp_dim % MMA_CHUNK:
+def cluster_size(mlp_dim: int, chunk: int = MMA_CHUNK) -> int:
+    """Blocks of a cluster for ``mlp_dim`` hidden columns in chunks of
+    ``chunk``: the largest power of two up to MMA_MAX_CLUSTER that divides
+    mlp_dim / chunk, or 0 where that is below MMA_MIN_CLUSTER or mlp_dim is
+    not a whole number of chunks (a 4x MLP on rows of a multiple of the
+    chunk takes 4 or 8)."""
+    if mlp_dim <= 0 or mlp_dim % chunk:
         return 0
     s = MMA_MAX_CLUSTER
-    while mlp_dim % (MMA_CHUNK * s):
+    while mlp_dim % (chunk * s):
         s //= 2
     return s if s >= MMA_MIN_CLUSTER else 0
+
+
+def chunk_of(d: int) -> int:
+    """The chunk of the bf16 and split-TF32 kernels for rows of width
+    ``d``: MMA_CHUNK where d is a multiple of it, else MMA_NARROW_CHUNK
+    where d is a multiple of that (swin_t's 96 and 192), up to
+    MMA_MAX_WIDTH; 0 otherwise."""
+    if not 0 < d <= MMA_MAX_WIDTH:
+        return 0
+    if d % MMA_CHUNK == 0:
+        return MMA_CHUNK
+    return MMA_NARROW_CHUNK if d % MMA_NARROW_CHUNK == 0 else 0
+
+
+def cluster_of(d: int, mlp_dim: int) -> int:
+    """The cluster of the bf16 and split-TF32 kernels at rows of width
+    ``d`` with ``mlp_dim`` hidden columns (in d's chunks), or 0."""
+    chunk = chunk_of(d)
+    return cluster_size(mlp_dim, chunk) if chunk else 0
 
 
 def _mma_shape_ok(d: int, mlp_dim: int) -> bool:
@@ -416,14 +453,44 @@ def _mma_shape_ok(d: int, mlp_dim: int) -> bool:
 
 def mma_smem_bytes(d: int, mlp_dim: int) -> int:
     """Dynamic shared memory of a bf16 tensor-core block of the larger
-    tile: LN2's rows [64][d + 8] (later the two fc2 partial buffers), h
-    [64][slice + 8] and three 64 x 136 weight tiles, bf16; 0 where the
-    route takes no such shape."""
-    if not _mma_shape_ok(d, mlp_dim):
+    tile: LN2's rows [64][d + 8] (later the two fc2 partial buffers of
+    [64][chunk + 4] f32), h [64][slice + 8] and three weight tiles (64 x
+    136 at chunks of 128, 48 x 104 at 96), bf16; 0 where the route takes no
+    such shape."""
+    s = cluster_of(d, mlp_dim)
+    if not s:
         return 0
-    slice_ = mlp_dim // cluster_size(mlp_dim)
-    return (max(MMA_ROWS * (d + 8) * 2, _PBUF_BYTES)
-            + MMA_ROWS * (slice_ + 8) * 2 + _MMA_STAGES * 64 * 136 * 2)
+    chunk = chunk_of(d)
+    rows, ld = _BF16_STAGE[chunk]
+    return (max(MMA_ROWS * (d + 8) * 2, 2 * MMA_ROWS * (chunk + 4) * 4)
+            + MMA_ROWS * (mlp_dim // s + 8) * 2 + _MMA_STAGES * rows * ld * 2)
+
+
+def tf32_tiles(d: int) -> tuple:
+    """The split-TF32 kernel's row tiles for rows of width ``d``: 16, 32
+    and 64 at chunks of 128, 32 and 64 at chunks of 96."""
+    return (16, 32, 64) if chunk_of(d) == MMA_CHUNK else (32, 64)
+
+
+def tf32_smem_bytes(d: int, mlp_dim: int, bm: int) -> int:
+    """Dynamic shared memory of a split-TF32 block with tiles of ``bm``
+    rows: LN2's rows [bm][d + 8] (later the two fc2 partial buffers of
+    [bm][chunk + 4]) and h [bm][slice + 8], each twice (hi and lo) at
+    TF32_PRESPLIT_ROWS, and three weight tiles of 32 x (chunk + 4), all
+    f32; 0 where the kernel has no such tile for the shape (a block over
+    the card's shared memory is counted all the same)."""
+    s = cluster_of(d, mlp_dim)
+    if not s or bm not in tf32_tiles(d):
+        return 0
+    chunk = chunk_of(d)
+    panels = 2 if bm == TF32_PRESPLIT_ROWS else 1
+    return (max(panels * bm * (d + 8) * 4, 2 * bm * (chunk + 4) * 4)
+            + panels * bm * (mlp_dim // s + 8) * 4
+            + _MMA_STAGES * TF32_STAGE_ROWS * (chunk + 4) * 4)
+
+
+def _tf32_fits(d: int, mlp_dim: int, bm: int) -> bool:
+    return 0 < tf32_smem_bytes(d, mlp_dim, bm) <= SMEM_LIMIT
 
 
 def w8a8_mma_smem_bytes(d: int, mlp_dim: int, esize: int) -> int:
@@ -447,9 +514,17 @@ def w8a8_mma_smem_bytes(d: int, mlp_dim: int, esize: int) -> int:
 
 def fits_mma(d: int, mlp_dim: int) -> bool:
     """True when the bf16 tensor-core kernel takes rows of width ``d`` with
-    ``mlp_dim`` hidden columns: d a multiple of 128 up to 1280, mlp_dim of
-    whole 128-column chunks, the block inside the card's shared memory."""
+    ``mlp_dim`` hidden columns: d a multiple of 128 or 96 up to 1280,
+    mlp_dim of whole chunks of d's (``chunk_of``), the block inside the
+    card's shared memory."""
     return 0 < mma_smem_bytes(d, mlp_dim) <= SMEM_LIMIT
+
+
+def fits_tf32(d: int, mlp_dim: int) -> bool:
+    """``fits_mma`` for the split-TF32 kernel: the same chunks, the block
+    of its smallest tile inside the card's shared memory (vit_b16's
+    200,192 bytes at 16 rows fit; vit_h14's 298,496 do not)."""
+    return chunk_of(d) > 0 and _tf32_fits(d, mlp_dim, tf32_tiles(d)[0])
 
 
 def fits_w8a8_mma(d: int, mlp_dim: int, dtype=torch.bfloat16) -> bool:
@@ -468,11 +543,17 @@ def mlp_route(dtype: torch.dtype, d: int, mlp_dim: int, addrs) -> str:
     """The fused MLP's kernel for operands of ``dtype`` with rows of width
     ``d``, ``mlp_dim`` hidden columns and base addresses (bytes) ``addrs``
     (x, ln2_s, ln2_b, fc1_w, fc2_w: what the kernel reads 16 bytes at a
-    time): "mma" (bf16 on the tensor cores) when the shape fits
-    ``fits_mma`` and every address is a multiple of 16 bytes, else "fma"
-    (f32 FMA; f32 operands always)."""
-    if dtype == torch.bfloat16 and fits_mma(d, mlp_dim) and _aligned(addrs):
+    time), when every address is a multiple of 16 bytes: "mma" (bf16 on
+    the tensor cores) for bf16 whose shape fits ``fits_mma``, "tf32" (f32
+    on split TF32) for f32 whose shape fits ``fits_tf32``; else "fma" (the
+    FMA kernel: other dtypes, operands off the 16-byte grid, widths
+    neither route takes, blocks over the card's shared memory)."""
+    if not _aligned(addrs):
+        return "fma"
+    if dtype == torch.bfloat16 and fits_mma(d, mlp_dim):
         return "mma"
+    if dtype == torch.float32 and fits_tf32(d, mlp_dim):
+        return "tf32"
     return "fma"
 
 
@@ -510,6 +591,22 @@ _MMA_SOURCES = {
             MLP_MMA_ARGTYPES, "ivt_mlp_mma_"),
     "w8a8": ("fused_mlp_w8a8_mma", "ivt_fused_mlp_w8a8_mma",
              W8A8_MMA_ARGTYPES, "ivt_mlp_w8a8_mma_"),
+    "tf32": ("fused_mlp_block_tf32", "ivt_fused_mlp_block_tf32x3",
+             MLP_MMA_ARGTYPES, "ivt_mlp_tf32_"),
+}
+
+# route -> its envelope entries and their int parameters: the bf16 and
+# split-TF32 kernels' chunk and cluster follow the row width (chunk(d),
+# cluster(d, md)), the W8A8 kernel's are 128 and cluster(md); smem_bytes
+# takes the activation size (W8A8) or the row tile (split TF32) third,
+# max_clusters the dtype code first (W8A8)
+ENVELOPE_NARGS = {
+    "mma": {"rows": 0, "max_width": 0, "chunk": 1, "cluster": 2,
+            "smem_bytes": 2, "max_clusters": 3, "prepare": 0},
+    "w8a8": {"rows": 0, "max_width": 0, "chunk": 0, "cluster": 1,
+             "smem_bytes": 3, "max_clusters": 4, "prepare": 0},
+    "tf32": {"rows": 0, "max_width": 0, "chunk": 1, "cluster": 2,
+             "smem_bytes": 3, "max_clusters": 3, "prepare": 0},
 }
 
 
@@ -520,17 +617,11 @@ def bind_mma_library(lib, route: str):
     if not getattr(lib, "_ivt_bound", False):
         getattr(lib, entry).argtypes = argtypes
         getattr(lib, entry).restype = ctypes.c_int
-        for name in ("rows", "max_width", "chunk", "prepare"):
-            getattr(lib, pre + name).argtypes = []
-            getattr(lib, pre + name).restype = ctypes.c_int
-        getattr(lib, pre + "cluster").argtypes = [ctypes.c_int]
-        getattr(lib, pre + "cluster").restype = ctypes.c_int
-        smem = getattr(lib, pre + "smem_bytes")
-        smem.argtypes = [ctypes.c_int] * (3 if route == "w8a8" else 2)
-        smem.restype = ctypes.c_size_t
-        clusters = getattr(lib, pre + "max_clusters")
-        clusters.argtypes = [ctypes.c_int] * (4 if route == "w8a8" else 3)
-        clusters.restype = ctypes.c_int
+        for name, nargs in ENVELOPE_NARGS[route].items():
+            fn = getattr(lib, pre + name)
+            fn.argtypes = [ctypes.c_int] * nargs
+            fn.restype = (ctypes.c_size_t if name == "smem_bytes"
+                          else ctypes.c_int)
         lib._ivt_bound = True
     return lib
 
@@ -543,28 +634,37 @@ def _mma_lib(route: str) -> ctypes.CDLL:
 
 
 # shapes the loaders check the libraries' formulas at: vit_b16, swin_t's
-# stages 2 and 3, vit_h14's, and shapes each route refuses
+# four stages, vit_h14's, and shapes each route refuses
 _CHECK_SHAPES = ((768, 3072), (384, 1536), (1280, 5120), (256, 640),
-                 (96, 384), (768, 100), (1408, 5632))
+                 (96, 384), (192, 768), (768, 100), (96, 288),
+                 (1408, 5632))
 
 
 def check_mma_library(lib, route: str) -> None:
-    """Raises unless the library's tile, widest row, chunk, cluster sizes
-    and shared-memory formula are this module's."""
+    """Raises unless the library's tile, widest row, chunks, cluster
+    sizes and shared-memory formula are this module's."""
     pre = _MMA_SOURCES[route][3]
-    ok = (getattr(lib, pre + "rows")() == MMA_ROWS
-          and getattr(lib, pre + "max_width")() == MMA_MAX_WIDTH
-          and getattr(lib, pre + "chunk")() == MMA_CHUNK
-          and all(getattr(lib, pre + "cluster")(md) == cluster_size(md)
-                  for _, md in _CHECK_SHAPES))
+
+    def entry(name):
+        return getattr(lib, pre + name)
+
+    ok = (entry("rows")() == MMA_ROWS
+          and entry("max_width")() == MMA_MAX_WIDTH)
     for d, md in _CHECK_SHAPES:
         if route == "w8a8":
-            ok = ok and all(
-                getattr(lib, pre + "smem_bytes")(d, md, e)
-                == w8a8_mma_smem_bytes(d, md, e) for e in (2, 4))
+            ok = (ok and entry("chunk")() == MMA_CHUNK
+                  and entry("cluster")(md) == cluster_size(md)
+                  and all(entry("smem_bytes")(d, md, e)
+                          == w8a8_mma_smem_bytes(d, md, e) for e in (2, 4)))
+            continue
+        ok = (ok and entry("chunk")(d) == chunk_of(d)
+              and entry("cluster")(d, md) == cluster_of(d, md))
+        if route == "tf32":
+            ok = ok and all(entry("smem_bytes")(d, md, bm)
+                            == tf32_smem_bytes(d, md, bm)
+                            for bm in (16, 32, 64))
         else:
-            ok = ok and (getattr(lib, pre + "smem_bytes")(d, md)
-                         == mma_smem_bytes(d, md))
+            ok = ok and entry("smem_bytes")(d, md) == mma_smem_bytes(d, md)
     if not ok:
         raise RuntimeError(f"csrc/{_MMA_SOURCES[route][0]}.cu and "
                            f"ops/fused_mlp.py disagree on the route's "
@@ -584,6 +684,14 @@ def load_w8a8_mma_kernel() -> ctypes.CDLL:
     (``check_mma_library``)."""
     lib = _mma_lib("w8a8")
     check_mma_library(lib, "w8a8")
+    return lib
+
+
+def load_tf32_kernel() -> ctypes.CDLL:
+    """Build and load the split-TF32 kernel now; checks its envelope
+    (``check_mma_library``)."""
+    lib = _mma_lib("tf32")
+    check_mma_library(lib, "tf32")
     return lib
 
 
@@ -632,8 +740,13 @@ def library_clusters(lib, route: str, d: int, mlp_dim: int, dtype, device,
 def library_tile(lib, route: str, m: int, d: int, mlp_dim: int, dtype,
                  device) -> int:
     """``row_tile`` for ``lib``, a route's library (bound)."""
-    clusters32 = library_clusters(lib, route, d, mlp_dim, dtype, device, 32)
-    return 32 if -(-m // 32) <= clusters32 else 64
+    tiles = ([bm for bm in tf32_tiles(d) if _tf32_fits(d, mlp_dim, bm)]
+             if route == "tf32" else [32, 64])
+    for bm in tiles:
+        if -(-m // bm) <= library_clusters(lib, route, d, mlp_dim, dtype,
+                                           device, bm):
+            return bm
+    return tiles[-1]
 
 
 def max_active_clusters(route: str, d: int, mlp_dim: int,
@@ -648,11 +761,49 @@ def max_active_clusters(route: str, d: int, mlp_dim: int,
 def row_tile(route: str, m: int, d: int, mlp_dim: int,
              dtype=torch.bfloat16, device=None) -> int:
     """The rows of a cluster's tile for a route's launch on ``m`` rows, the
-    one place that picks it: 32 while the ceil(m / 32) tiles of 32 rows fit
-    the clusters the card holds at once (one wave; one image of 197 rows
-    takes 7 clusters, not 4), else 64 (each block reads its weight slice
-    once for twice the rows)."""
+    one place that picks it: the smallest tile whose ceil(m / tile) tiles
+    fit the clusters the card holds at once (one wave: one image of 197
+    rows takes 7 clusters of 32 rows, not 4 of 64; the split-TF32 route
+    also has tiles of 16 at chunks of 128, 13 clusters at vit_b16), else
+    the largest whose block fits (each block reads its weight slice once
+    for more rows; the split-TF32 route keeps 32 at vit_b16's widths)."""
     return library_tile(_mma_lib(route), route, m, d, mlp_dim, dtype, device)
+
+
+def _mlp_tc(route: str, name: str, what: str, x: torch.Tensor, p: Params,
+            eps: float) -> torch.Tensor:
+    """One launch of the bf16 ("mma") or split-TF32 ("tf32") kernel for
+    the wrapper ``name``; raises on operands ``mlp_route`` does not send
+    there (``what`` names the dtype the route takes). For CPU tensors the
+    plain version."""
+    if x.device.type == "cpu":
+        return fused_mlp_block_reference(x, p, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    _check_operands(x, p)
+    if _mlp_route_of(x, p) != route:
+        raise ValueError(
+            f"{name} takes {what} rows of a multiple of {MMA_CHUNK} or "
+            f"{MMA_NARROW_CHUNK} up to {MMA_MAX_WIDTH} wide, whole chunks of "
+            f"hidden columns, 16-byte aligned operands and a block inside "
+            f"shared memory; got {x.dtype}, d={x.shape[-1]}, mlp_dim="
+            f"{p['fc1_w'].shape[-1]}")
+    b, n, d = x.shape
+    md = p["fc1_w"].shape[-1]
+    lib = _mma_lib(route)
+    bm = library_tile(lib, route, b * n, d, md, x.dtype, x.device)
+    with torch.cuda.device(x.device):
+        y = torch.empty_like(x)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, _MMA_SOURCES[route][1])(
+            x.data_ptr(), p["ln2_s"].data_ptr(), p["ln2_b"].data_ptr(),
+            p["fc1_w"].data_ptr(), p["fc1_b"].data_ptr(),
+            p["fc2_w"].data_ptr(), p["fc2_b"].data_ptr(), y.data_ptr(),
+            b * n, d, md, bm, float(eps), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    return y
 
 
 def fused_mlp_block_mma(x: torch.Tensor, p: Params,
@@ -662,38 +813,33 @@ def fused_mlp_block_mma(x: torch.Tensor, p: Params,
     counted in ``fused_mlp_block_mma.launches``; raises on operands that
     ``mlp_route`` does not send there. For CPU tensors the plain
     version."""
-    if x.device.type == "cpu":
-        return fused_mlp_block_reference(x, p, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_mlp_block_mma runs on cuda or cpu tensors, "
-                         f"got {x.device}")
-    _check_operands(x, p)
-    if _mlp_route_of(x, p) != "mma":
-        raise ValueError(
-            f"fused_mlp_block_mma takes bf16 rows of a multiple of "
-            f"{MMA_CHUNK} up to {MMA_MAX_WIDTH} wide, whole chunks of hidden "
-            f"columns and 16-byte aligned operands; got {x.dtype}, d="
-            f"{x.shape[-1]}, mlp_dim={p['fc1_w'].shape[-1]}")
-    b, n, d = x.shape
-    md = p["fc1_w"].shape[-1]
-    lib = _mma_lib("mma")
-    bm = library_tile(lib, "mma", b * n, d, md, x.dtype, x.device)
-    with torch.cuda.device(x.device):
-        y = torch.empty_like(x)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, _MMA_SOURCES["mma"][1])(
-            x.data_ptr(), p["ln2_s"].data_ptr(), p["ln2_b"].data_ptr(),
-            p["fc1_w"].data_ptr(), p["fc1_b"].data_ptr(),
-            p["fc2_w"].data_ptr(), p["fc2_b"].data_ptr(), y.data_ptr(),
-            b * n, d, md, bm, float(eps), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_block_mma kernel launch failed: "
-                           f"cudaError {err}")
-    fused_mlp_block_mma.launches += 1
+    y = _mlp_tc("mma", "fused_mlp_block_mma", "bf16", x, p, eps)
+    if x.device.type == "cuda":
+        fused_mlp_block_mma.launches += 1
     return y
 
 
 fused_mlp_block_mma.launches = 0
+
+
+def fused_mlp_block_tf32x3(x: torch.Tensor, p: Params,
+                           eps: float = 1e-6) -> torch.Tensor:
+    """``fused_mlp_block``'s contract in f32 on the tensor cores, three
+    TF32 products a product (``csrc/fused_mlp_block_tf32.cu``): one launch
+    for CUDA tensors, counted in ``fused_mlp_block_tf32x3.launches``;
+    raises on operands that ``mlp_route`` does not send there. For CPU
+    tensors the plain version."""
+    y = _mlp_tc("tf32", "fused_mlp_block_tf32x3", "f32", x, p, eps)
+    if x.device.type == "cuda":
+        fused_mlp_block_tf32x3.launches += 1
+    return y
+
+
+fused_mlp_block_tf32x3.launches = 0
+
+# route -> the wrapper that launches it (``fused_mlp_block``'s dispatch)
+_MLP_ROUTE_WRAPPERS = {"mma": fused_mlp_block_mma,
+                       "tf32": fused_mlp_block_tf32x3}
 
 
 def fused_mlp_w8a8_block_mma(x: torch.Tensor, p: Params, eps: float = 1e-6,

@@ -65,11 +65,15 @@ limit first. The variants:
   weight stages), tiles of 32 and of 64 rows always (the tile the entry is
   handed) and 8 KB stages (a copy of the header with its constant
   changed, written beside the variant's source), beside the
-  FMA and ``__dp4a`` kernels they replace; held against the plain versions
+  FMA and ``__dp4a`` kernels they replace; row 6's f32 route
+  ``fused_mlp_block_tf32.cu`` (split TF32) as it is, with tiles of 16 or
+  32 rows always, and at 16 rows splitting A as it reads it; held against
+  the plain versions
   (y within 2^-6 of its scale, two calls the same bits) and timed on
   device time alone (the stream held ~10 ms before the timed calls) at
-  vit_b16 (B = 1 and 8; row 7 in bf16 and f32) and swin_t's stages 2 and
-  3; and ``row6_time_phases`` / ``row7_time_phases``, timing only: block
+  vit_b16 (B = 1 and 8, bf16 and f32) and swin_t's four stages (row 6;
+  stages 0 and 1 on chunks of 96); and ``row6_time_phases`` /
+  ``row7_time_phases``, timing only: block
   (0, 0) stamps %globaltimer between the kernels' phases (LN2, fc1, the
   max exchange, fc2 with the cluster sums) and reports them.
 
@@ -317,6 +321,9 @@ ROW2_TF32_WALK = _head_walk(
 ROW1_ROWS = ("__host__ __device__ inline int qkv_rows(int m) "
              "{ return m <= QKV_SMALL_M ? 32 : 64; }")
 
+# row 6's split-TF32 A operands pre-split at tiles of 16 rows (the source)
+ROW6_TF32_PRESPLIT = "return bm == 16;"
+
 # row 5's attention grid by (window, image), the block walking the heads
 ROW5_HEAD_LOOP = [
     ("  window_head(a, tiles, blockIdx.x, blockIdx.y, blockIdx.z);",
@@ -432,6 +439,14 @@ VARIANTS: Dict[str, Tuple[str, List[Tuple[str, str]]]] = {
     "row6_mma_tile32": ("fused_mlp_block_mma", []),
     "row6_mma_tile64": ("fused_mlp_block_mma", []),
     "row6_fma": ("fused_mlp_block", []),
+    # row 6 in f32 on split TF32: the source (the tile by the row count;
+    # at 16 rows the A operands pre-split into hi and lo panels), tiles of
+    # 16 or 32 always, and tiles of 16 splitting A as they read it
+    "row6_tf32": ("fused_mlp_block_tf32", []),
+    "row6_tf32_tile16": ("fused_mlp_block_tf32", []),
+    "row6_tf32_tile32": ("fused_mlp_block_tf32", []),
+    "row6_tf32_split_tile16": ("fused_mlp_block_tf32", [
+        (ROW6_TF32_PRESPLIT, "return false;")]),
     "row7_mma": ("fused_mlp_w8a8_mma", []),
     "row7_mma_tile32": ("fused_mlp_w8a8_mma", []),
     "row7_mma_tile64": ("fused_mlp_w8a8_mma", []),
@@ -489,7 +504,7 @@ PHASES = {
 VARIANTS["row6_time_phases"] = _phases("fused_mlp_block_mma", [
     "  // LN2 in place, once a cluster",
     "  // (the ring's first __syncthreads orders these writes before fc1)",
-    "  // fc2 partials over the slice, MC_NC output columns a chunk, summed "
+    "  // fc2 partials over the slice, NC output columns a chunk, summed "
     "over"])
 VARIANTS["row7_time_phases"] = _phases("fused_mlp_w8a8_mma", [
     "  // a. LN2 + q1 (steps 1-2), once a cluster",
@@ -501,7 +516,9 @@ VARIANTS["row7_time_phases"] = _phases("fused_mlp_w8a8_mma", [
 # Variants of the MLP kernels that hand the entry a fixed row tile instead
 # of the one ``fused_mlp.row_tile`` picks: name -> the tile
 TILES = {"row6_mma_tile32": 32, "row6_mma_tile64": 64,
-         "row7_mma_tile32": 32, "row7_mma_tile64": 64}
+         "row7_mma_tile32": 32, "row7_mma_tile64": 64,
+         "row6_tf32_tile16": 16, "row6_tf32_tile32": 32,
+         "row6_tf32_split_tile16": 16}
 
 # Variants that edit the MLP kernels' shared header csrc/mlp_cluster.cuh
 # (written beside the variant's source, which includes it first): name ->
@@ -533,6 +550,8 @@ ENTRIES = {
                             fb.HEADWISE_ARGTYPES),
     "fused_mlp_block_mma": ("ivt_fused_mlp_block_mma", fm.MLP_MMA_ARGTYPES),
     "fused_mlp_block": ("ivt_fused_mlp_block", fm.MLP_ARGTYPES),
+    "fused_mlp_block_tf32": ("ivt_fused_mlp_block_tf32x3",
+                             fm.MLP_MMA_ARGTYPES),
     "fused_mlp_w8a8_mma": ("ivt_fused_mlp_w8a8_mma", fm.W8A8_MMA_ARGTYPES),
     "fused_mlp_w8a8_block": ("ivt_fused_mlp_w8a8_block", fm.W8A8_ARGTYPES),
     "fused_attn_block_mma": ("ivt_fused_attn_block_mma",
@@ -1038,8 +1057,9 @@ def call_mlp(lib, name, x, p):
     w8a8 = source.startswith("fused_mlp_w8a8")
     md = (p["fc1_w"][quant.AQKEY] if w8a8 else p["fc1_w"]).shape[-1]
     tile = ()  # the tensor-core kernels' row tile, after MD
-    if source.endswith("_mma"):
-        route = "w8a8" if w8a8 else "mma"
+    if source.endswith(("_mma", "_tf32")):
+        route = ("w8a8" if w8a8 else "tf32" if source.endswith("_tf32")
+                 else "mma")
         fm.bind_mma_library(lib, route)
         # (library_tile also prepares the library on the card)
         picked = fm.library_tile(lib, route, m, d, md, x.dtype, x.device)
@@ -1054,7 +1074,7 @@ def call_mlp(lib, name, x, p):
     else:
         ptrs = [x, p["ln2_s"], p["ln2_b"], p["fc1_w"], p["fc1_b"],
                 p["fc2_w"], p["fc2_b"], y]
-        lead = () if source == "fused_mlp_block_mma" else (code,)
+        lead = () if tile else (code,)
         err = getattr(lib, ENTRIES[source][0])(
             *lead, *(t.data_ptr() for t in ptrs), m, d, md, *tile, 1e-6,
             stream)
@@ -1081,17 +1101,24 @@ def time_held_ms(fn, iters: int = 30) -> float:
 
 
 def mlp_group(libs, names, w8a8: bool) -> None:
-    """Row-6 (bf16) or row-7 (bf16 and f32) variants against the plain
-    version (y within 2^-6 of its scale; two calls the same bits), timed
-    on device time alone in two orders, at vit_b16 (197 rows a image, B = 1
-    and 8) and, for row 6, swin_t's stages 2 and 3 (B = 1)."""
+    """Row-6 or row-7 variants, in bf16 and f32 (row 6: the bf16 source in
+    bf16, the split-TF32 one in f32, the FMA kernel in both), against the
+    plain version (y within 2^-6 of its scale; two calls the same bits),
+    timed on device time alone in two orders, at vit_b16 (197 rows a
+    image, B = 1 and 8) and, for row 6, swin_t's four stages (B = 1)."""
     shapes = [(1, 197, 768), (8, 197, 768)]
-    dtypes = [torch.bfloat16]
-    if w8a8:
-        dtypes.append(torch.float32)
-    else:
-        shapes += [(1, 196, 384), (1, 49, 768)]
+    dtypes = [torch.bfloat16, torch.float32]
+    if not w8a8:
+        shapes += [(1, 3136, 96), (1, 784, 192), (1, 196, 384),
+                   (1, 49, 768)]
+    every = names
     for (b, n, d), dtype in ((s, t) for t in dtypes for s in shapes):
+        # a source that takes only the other dtype sits this one out
+        other = "_mma" if dtype == torch.float32 else "_tf32"
+        names = [name for name in every
+                 if w8a8 or not _source_of(name).endswith(other)]
+        if not names:
+            continue
         md = 4 * d
         g = torch.Generator().manual_seed(n + d + b)
 
@@ -1323,7 +1350,8 @@ def main(argv=None) -> int:
             row5_group(libs, group, dtype, [
                 (1, 56, 96, 3), (1, 28, 192, 6), (1, 14, 384, 12),
                 (1, 7, 768, 24), (8, 14, 384, 12)])
-    for w8a8, sources in ((False, ("fused_mlp_block_mma", "fused_mlp_block")),
+    for w8a8, sources in ((False, ("fused_mlp_block_mma", "fused_mlp_block",
+                                   "fused_mlp_block_tf32")),
                           (True, ("fused_mlp_w8a8_mma",
                                   "fused_mlp_w8a8_block"))):
         group = [n for n in names if VARIANTS[n][0] in sources]

@@ -111,6 +111,7 @@ def test_fused_block_entry_matches_its_ctypes_signature():
     ("fused_window_attn_mma", "fused_window", "ivt_fused_window_attn_mma"),
     ("fused_window_attn_tf32", "fused_window",
      "ivt_fused_window_attn_tf32x3"),
+    ("fused_mlp_block_tf32", "fused_mlp", "ivt_fused_mlp_block_tf32x3"),
 ])
 def test_kernel_builds_and_loads_on_the_card(name, module, entry):
     """The source builds with nvcc into its keyed library, exports its
@@ -137,7 +138,8 @@ def test_kernel_builds_and_loads_on_the_card(name, module, entry):
               "fused_mlp_block_mma": "load_mma_kernel",
               "fused_mlp_w8a8_mma": "load_w8a8_mma_kernel",
               "fused_window_attn_mma": "load_mma_kernel",
-              "fused_window_attn_tf32": "load_tf32_kernel"}.get(
+              "fused_window_attn_tf32": "load_tf32_kernel",
+              "fused_mlp_block_tf32": "load_tf32_kernel"}.get(
                   name, "load_kernel")
     lib = getattr(mod, loader)()  # raises if the envelopes disagree
     assert hasattr(lib, entry)

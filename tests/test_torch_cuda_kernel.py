@@ -126,6 +126,7 @@ def cuda():
     fm.load_w8a8_kernel()
     fm.load_mma_kernel()
     fm.load_w8a8_mma_kernel()
+    fm.load_tf32_kernel()
     av.load_kernel()
     fa.load_online_mma_kernel()
     av.load_mma_kernel()
@@ -1268,7 +1269,8 @@ def test_mlp_kernel_matches_plain(cuda, shape, dtype, eps):
 
 def _mlp_counts():
     return {"fma": fm.fused_mlp_block.launches,
-            "mma": fm.fused_mlp_block_mma.launches}
+            "mma": fm.fused_mlp_block_mma.launches,
+            "tf32": fm.fused_mlp_block_tf32x3.launches}
 
 
 # the bf16 MLP on the tensor cores: vit_b16 (B=1 and 8), swin_t's stage 2
@@ -1330,17 +1332,83 @@ def test_mma_routes_take_rows_over_1024_wide(cuda, shape, md, w8a8):
 
 
 def test_mlp_mma_wrapper_refuses_other_operands(cuda):
-    """The tensor-core wrapper raises on f32, on rows that are not whole
-    128-column chunks and on operands off the grid; nothing falls back."""
+    """The tensor-core wrapper raises on f32, on rows that are whole chunks
+    of neither 128 nor 96 columns and on operands off the grid; nothing
+    falls back."""
     x, p = _mlp_case((1, 17, 768), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="fused_mlp_block_mma takes"):
         fm.fused_mlp_block_mma(_shifted_copy(x), p)
     xf, pf = _mlp_case((1, 17, 768), torch.float32, cuda)
     with pytest.raises(ValueError, match="fused_mlp_block_mma takes"):
         fm.fused_mlp_block_mma(xf, pf)
-    narrow, pn = _mlp_case((1, 17, 96), torch.bfloat16, cuda)
+    narrow, pn = _mlp_case((1, 17, 160), torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="fused_mlp_block_mma takes"):
         fm.fused_mlp_block_mma(narrow, pn)
+
+
+# row 6 at chunks of 96 (bf16) and on split TF32 (f32): swin_t's four
+# stages (stages 0 and 1 on chunks of 96), vit_b16 at B=1 and 8, and small
+# ragged blocks at both chunks
+TC_MLP_SHAPES = [(1, 3136, 96), (1, 784, 192), (8, 784, 192), (1, 196, 384),
+                 (1, 49, 768), (1, 197, 768), (8, 197, 768), (2, 17, 96),
+                 (3, 9, 192), (3, 17, 256)]
+
+
+@pytest.mark.parametrize("shape", TC_MLP_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlp_tc_routes_match_plain(cuda, shape, dtype):
+    """bf16 on the tensor cores (chunks of 128 or 96), f32 on split TF32:
+    y within its dtype's bound (f32 1e-4), two calls the same bits (fc2's
+    partials added in rank order), only the route's count moving; the
+    same values off the 16-byte grid go to the FMA kernel."""
+    x, p = _mlp_case(shape, dtype, cuda)
+    eps = 1e-5
+    ref = fm.fused_mlp_block_reference(x, p, eps)
+    route = "tf32" if dtype == torch.float32 else "mma"
+    assert fm._mlp_route_of(x, p) == route
+    for xr, rt in ((x, route), (_shifted_copy(x), "fma")):
+        before = _mlp_counts()
+        got = fm.fused_mlp_block(xr, p, eps)
+        again = fm.fused_mlp_block(xr, p, eps)
+        torch.cuda.synchronize()
+        after = _mlp_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 2 * int(k == rt) for k in after}
+        if rt != "fma":
+            assert torch.equal(got, again)
+        _check((got,), (ref,), dtype)
+        assert not _within(xr, ref, 0, dtype)
+
+
+def test_mlp_tf32_wrapper_counts_and_refuses(cuda):
+    """The split-TF32 wrapper counts its own launches and raises on bf16,
+    on operands off the grid, on rows of neither chunk and on a block over
+    the card's shared memory (vit_h14's rows, which the FMA kernel keeps);
+    nothing falls back."""
+    x, p = _mlp_case((1, 17, 768), torch.float32, cuda)
+    before = _mlp_counts()
+    got = fm.fused_mlp_block_tf32x3(x, p)
+    torch.cuda.synchronize()
+    assert {k: _mlp_counts()[k] - before[k] for k in before} == {
+        "fma": 0, "mma": 0, "tf32": 1}
+    _check((got,), (fm.fused_mlp_block_reference(x, p),), torch.float32)
+    with pytest.raises(ValueError, match="fused_mlp_block_tf32x3 takes"):
+        fm.fused_mlp_block_tf32x3(_shifted_copy(x), p)
+    xb, pb = _mlp_case((1, 17, 768), torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_block_tf32x3 takes"):
+        fm.fused_mlp_block_tf32x3(xb, pb)
+    xn, pn = _mlp_case((1, 17, 160), torch.float32, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_block_tf32x3 takes"):
+        fm.fused_mlp_block_tf32x3(xn, pn)
+    xh, ph = _mlp_case((1, 5, 1280), torch.float32, cuda)
+    with pytest.raises(ValueError, match="fused_mlp_block_tf32x3 takes"):
+        fm.fused_mlp_block_tf32x3(xh, ph)
+    before = _mlp_counts()
+    got = fm.fused_mlp_block(xh, ph)
+    torch.cuda.synchronize()
+    assert {k: _mlp_counts()[k] - before[k] for k in before} == {
+        "fma": 1, "mma": 0, "tf32": 0}
+    _check((got,), (fm.fused_mlp_block_reference(xh, ph),), torch.float32)
 
 
 def test_mlp_wrapper_refuses_what_the_kernel_does_not_take(cuda):

@@ -88,11 +88,15 @@ def test_cluster_size(md, s):
 
 @pytest.mark.parametrize("d,md,smem", [
     (768, 3072, 201728), (384, 1536, 169984), (1280, 5120, 300032),
-    (1152, 1024, 218112), (96, 384, 0), (768, 100, 0), (1408, 5632, 0)])
+    (1152, 1024, 218112), (96, 384, 94464), (768, 100, 0), (1408, 5632, 0),
+    (192, 768, 94464), (96, 288, 0), (160, 640, 0)])
 def test_mma_smem_bytes(d, md, smem):
     """The bf16 route's block at vit_b16 (the number in its source's note),
     swin_t's stage 2 (S = 4), vit_h14's (over the card's 227 KB), a row
-    over 1024 wide that fits, and shapes it refuses."""
+    over 1024 wide that fits, swin_t's stages 0 and 1 on chunks of 96 (the
+    partial buffers [64][100] f32 over LN2's rows, three 48 x 104 weight
+    tiles), and shapes it refuses (three chunks of 96, rows neither 128
+    nor 96 divides)."""
     assert fm.mma_smem_bytes(d, md) == smem
 
 
@@ -111,10 +115,10 @@ MLP_ROUTES = [
     (BF16, 384, 1536, (256, 4096, 8192), "mma"),         # swin_t stage 2
     (BF16, 256, 640, (0, 256, 512), "fma"),              # a cluster of one
     (BF16, 256, 1024, (0, 256, 512), "mma"),
-    (F32, 768, 3072, (0, 1 << 20, 1 << 22), "fma"),      # f32 stays on FMA
+    (F32, 768, 3072, (0, 1 << 20, 1 << 22), "tf32"),     # f32 on split TF32
     (torch.float16, 768, 3072, (0, 256, 512), "fma"),
-    (BF16, 96, 384, (0, 256, 512), "fma"),               # swin_t stage 0
-    (BF16, 192, 768, (0, 256, 512), "fma"),              # swin_t stage 1
+    (BF16, 96, 384, (0, 256, 512), "mma"),               # swin_t stage 0
+    (BF16, 192, 768, (0, 256, 512), "mma"),              # swin_t stage 1
     (BF16, 1280, 5120, (0, 256, 512), "fma"),            # over 227 KB
     (BF16, 1152, 1024, (0, 256, 512), "mma"),            # 72 units a row
     (BF16, 768, 3000, (0, 256, 512), "fma"),             # no whole chunks
@@ -124,6 +128,16 @@ MLP_ROUTES = [
     (BF16, 768, 3072, (0, 32, 64, 1 << 20, 1 << 22), "mma"),
     (BF16, 768, 3072, (0, 34, 64, 1 << 20, 1 << 22), "fma"),   # ln2_s
     (BF16, 768, 3072, (0, 32, 72, 1 << 20, 1 << 22), "fma"),   # ln2_b
+    (BF16, 96, 288, (0, 256, 512), "fma"),               # three chunks of 96
+    (BF16, 160, 640, (0, 256, 512), "fma"),              # neither chunk
+    (BF16, 96, 384, (0, 264, 512), "fma"),               # ln2_s off the grid
+    (F32, 96, 384, (0, 256, 512), "tf32"),
+    (F32, 192, 768, (0, 256, 512), "tf32"),
+    (F32, 384, 1536, (0, 256, 512), "tf32"),             # swin_t stage 2
+    (F32, 1280, 5120, (0, 256, 512), "fma"),             # 32 rows over 227 KB
+    (F32, 1152, 1024, (0, 256, 512), "tf32"),
+    (F32, 768, 3072, (4, 256, 512), "fma"),              # x off the grid
+    (F32, 96, 288, (0, 256, 512), "fma"),
 ]
 
 
@@ -161,10 +175,12 @@ def _at(shape, dtype, off=0):
 
 
 @pytest.mark.parametrize("dtype,d,offset,w_offset,ln_offset,route", [
-    (BF16, 768, 0, 0, 0, "mma"), (F32, 768, 0, 0, 0, "fma"),
+    (BF16, 768, 0, 0, 0, "mma"), (F32, 768, 0, 0, 0, "tf32"),
     (BF16, 768, 1, 0, 0, "fma"), (BF16, 768, 8, 0, 0, "mma"),
-    (BF16, 768, 0, 4, 0, "fma"), (BF16, 96, 0, 0, 0, "fma"),
-    (BF16, 768, 0, 0, 1, "fma"), (BF16, 768, 0, 0, 8, "mma")])
+    (BF16, 768, 0, 4, 0, "fma"), (BF16, 96, 0, 0, 0, "mma"),
+    (BF16, 768, 0, 0, 1, "fma"), (BF16, 768, 0, 0, 8, "mma"),
+    (F32, 768, 2, 0, 0, "fma"), (F32, 768, 4, 0, 0, "tf32"),
+    (F32, 96, 0, 0, 0, "tf32"), (F32, 192, 0, 1, 0, "fma")])
 def test_route_of_an_mlp_blocks_operands(dtype, d, offset, w_offset,
                                          ln_offset, route):
     """The pointers the wrapper hands the predicate: x, ln2_s, ln2_b (read
@@ -229,6 +245,9 @@ def _entry_kinds(source: str, entry: str):
     ("fused_mlp_w8a8_block.cu", "ivt_fused_mlp_w8a8_block", fm.W8A8_ARGTYPES,
      ["dtype", "x", "ln_s", "ln_b", "w1", "s1", "b1", "w2", "s2", "b2", "y",
       "q1_out", "acc1_out", "q2_out", "acc2_out", "M", "D", "MD", "eps"]),
+    ("fused_mlp_block_tf32.cu", "ivt_fused_mlp_block_tf32x3",
+     fm.MLP_MMA_ARGTYPES, ["x", "ln_s", "ln_b", "w1", "b1", "w2", "b2", "y",
+                           "M", "D", "MD", "bm", "eps"]),
 ])
 def test_mlp_entry_matches_its_ctypes_signature(source, entry, argtypes,
                                                 first):
@@ -244,14 +263,12 @@ def test_mlp_entry_matches_its_ctypes_signature(source, entry, argtypes,
 
 @pytest.mark.parametrize("route,name,nargs", [
     (route, name, nargs)
-    for route, (src, _, _, pre) in fm._MMA_SOURCES.items()
-    for name, nargs in (("rows", 0), ("max_width", 0), ("chunk", 0),
-                        ("cluster", 1),
-                        ("smem_bytes", 3 if route == "w8a8" else 2),
-                        ("max_clusters", 4 if route == "w8a8" else 3),
-                        ("prepare", 0))])
+    for route in fm._MMA_SOURCES
+    for name, nargs in fm.ENVELOPE_NARGS[route].items()])
 def test_envelope_entries_take_ints(route, name, nargs):
-    """The envelope entries the loader binds: that many int parameters."""
+    """The envelope entries the loader binds: that many int parameters
+    (the bf16 and split-TF32 routes' chunk and cluster take the row width,
+    the W8A8 route's do not)."""
     source, _, _, pre = fm._MMA_SOURCES[route]
     kinds, _ = _entry_kinds(source + ".cu", pre + name)
     assert kinds == [ctypes.c_int] * nargs
@@ -348,7 +365,7 @@ def mlp_emulated(x, p, eps=1e-6, drop=None):
     order; y = (x + acc) + fc2_b, cast. ``drop``: a rank whose partial is
     left out (a broken reduction the bounds must refuse)."""
     md = p["fc1_w"].shape[-1]
-    s = fm.cluster_size(md)
+    s = fm.cluster_of(x.shape[-1], md)
     sl = md // s
     ln = _ln(x, p, eps).float()
     acc = None
@@ -517,19 +534,22 @@ def _fake_lib(route, **wrong):
     """An object with a route library's envelope entries, each giving this
     module's numbers unless ``wrong`` overrides it."""
     pre = fm._MMA_SOURCES[route][3]
-    smem = (fm.w8a8_mma_smem_bytes if route == "w8a8" else fm.mma_smem_bytes)
+    smem = {"w8a8": fm.w8a8_mma_smem_bytes, "mma": fm.mma_smem_bytes,
+            "tf32": fm.tf32_smem_bytes}[route]
+    w8a8 = route == "w8a8"
     entries = {"rows": lambda: fm.MMA_ROWS,
                "max_width": lambda: fm.MMA_MAX_WIDTH,
-               "chunk": lambda: fm.MMA_CHUNK,
-               "cluster": fm.cluster_size, "smem_bytes": smem}
+               "chunk": (lambda: fm.MMA_CHUNK) if w8a8 else fm.chunk_of,
+               "cluster": fm.cluster_size if w8a8 else fm.cluster_of,
+               "smem_bytes": smem}
     entries.update(wrong)
     return types.SimpleNamespace(**{pre + k: v for k, v in entries.items()})
 
 
-@pytest.mark.parametrize("route", ["mma", "w8a8"])
+@pytest.mark.parametrize("route", ["mma", "w8a8", "tf32"])
 @pytest.mark.parametrize("wrong", [
     {}, {"rows": lambda: 32}, {"max_width": lambda: 1024},
-    {"chunk": lambda: 64}, {"cluster": lambda md: 4 if md else 0},
+    {"chunk": lambda *a: 64}, {"cluster": lambda *a: 4 if a[-1] else 0},
     {"smem_bytes": lambda *a: 1}])
 def test_loader_refuses_a_library_that_disagrees(route, wrong):
     lib = _fake_lib(route, **wrong)
@@ -542,6 +562,7 @@ def test_loader_refuses_a_library_that_disagrees(route, wrong):
 
 def _counts():
     return (fm.fused_mlp_block.launches, fm.fused_mlp_block_mma.launches,
+            fm.fused_mlp_block_tf32x3.launches,
             fm.fused_mlp_w8a8_block.launches,
             fm.fused_mlp_w8a8_block_mma.launches)
 
@@ -559,7 +580,8 @@ def test_route_wrappers_keep_the_plain_version_on_the_cpu(dtype):
           for k, v in wp.items()}
     before = _counts()
     ref = fm.fused_mlp_block_reference(tx, tp)
-    for fn in (fm.fused_mlp_block, fm.fused_mlp_block_mma):
+    for fn in (fm.fused_mlp_block, fm.fused_mlp_block_mma,
+               fm.fused_mlp_block_tf32x3):
         assert torch.equal(fn(tx, tp), ref)
     wref, wparts = fm.fused_mlp_w8a8_parts(tx, wp)
     for fn in (fm.fused_mlp_w8a8_block, fm.fused_mlp_w8a8_block_mma):
@@ -571,7 +593,8 @@ def test_route_wrappers_keep_the_plain_version_on_the_cpu(dtype):
 
 
 @pytest.mark.parametrize("fn", ["fused_mlp_block_mma",
-                                "fused_mlp_w8a8_block_mma"])
+                                "fused_mlp_w8a8_block_mma",
+                                "fused_mlp_block_tf32x3"])
 def test_route_wrappers_refuse_devices_they_have_no_path_for(fn):
     with pytest.raises(ValueError):
         getattr(fm, fn)(torch.zeros((1, 5, 128), device="meta"), {})
