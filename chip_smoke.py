@@ -220,9 +220,25 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    agreement with the port's plain path on the card (the kernels' plain
    versions in every block) and for the launches of every kernel, then
    one f32 request per path of a float dtype whose output must match the
-   plain path at 1e-4. Each path also prints its
-   ``/metrics`` p50s and one ``executor.run`` under ``torch.profiler``
-   (device busy share, the kernels that take the most time).
+   plain path at 1e-4. Concurrent requests that the batcher groups run as
+   one batched pass (``Executor.run_stacked``: each kernel launches once
+   for the group, with a batch of K), and each path also runs one group
+   of max(2, its concurrent requests) through ``run_stacked`` directly,
+   which must launch each of its kernels exactly once, its K results held
+   to the single responses' bounds. The launch counts of the whole path
+   must be exactly the kernels' launches a pass times the passes (each
+   sequential request, each group the batcher formed, the direct group)
+   plus the other model's request. Each path also prints its
+   ``/metrics`` p50s, the sizes of the groups the batcher formed, and one
+   ``executor.run`` under ``torch.profiler`` (device busy share, the
+   kernels that take the most time). Then a throughput probe of micro-
+   batched serving (BASELINE config 5): vit_b16 bf16 with the ``attn`` +
+   ``r`` taps on 3 blocks, 8 closed-loop clients of 8 requests each, on
+   one server whose ``--max-batch`` is 1, 8, 8 and 1 in turn:
+   requests/s, the batch sizes, the client p50, the compute p50 and its
+   share a request, and 6 requests in sequence first (the concurrency-1
+   p50); then ``POST /profile`` (row 1's kernels by name) and
+   ``POST /debug_eval`` (every node timed, no error) on that server.
    Then the monolithic forwards ``vit.forward`` (vit_b16) and
    ``swin.forward`` (swin_t) at B=1 and B=8 in bf16 and at B=1 in f32,
    with the block or window kernel and the fused MLP from
@@ -2154,17 +2170,25 @@ def report_profile(prof, wall_ms: float, what: str, expect=None) -> None:
 
 
 def post(url: str, body: bytes) -> bytes:
+    return post_timed(url, body)[0]
+
+
+def post_timed(url: str, body: bytes):
+    """(response bytes, the ``X-IVT-Timing`` fields as floats)."""
     req = urllib.request.Request(url, data=body, method="POST")
     with urllib.request.urlopen(req, timeout=300) as r:
-        return r.read()
+        raw = r.read()
+        header = r.headers.get("X-IVT-Timing") or ""
+    return raw, {k: float(v) for k, v in
+                 (kv.split("=", 1) for kv in header.split(";") if kv)}
 
 
-def serve(models, dtype_name, device, graphs_dir, attn="auto"):
+def serve(models, dtype_name, device, graphs_dir, attn="auto", max_batch=8):
     from interactive_vit_tpu_torch.serving.server import build_app
 
     app = build_app(models=models, graphs_dir=graphs_dir,
                     dtype_name=dtype_name, device=device, seed=0,
-                    attn_impl_name=attn)
+                    attn_impl_name=attn, max_batch=max_batch)
     httpd = app.serve("127.0.0.1", 0, background=True)
     return app, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
 
@@ -2283,6 +2307,7 @@ def swin_check_tap(path, node, arr, tag, bf16) -> None:
 def plain_taps(path, model, image, device):
     """The port's plain path on ``device`` with the served model's weights:
     the same layer chain with the kernels' plain versions in every block.
+    ``image``: [3, H, W], or a group's [K, 3, H, W] run as one batch.
     Returns (head output, {node: {channel: tensor}})."""
     import torch
 
@@ -2320,37 +2345,41 @@ def tome_tap_shape(path, node, ch):
             "o": (1, n_out, cfg.width)}[ch]
 
 
-def tome_decisions(metric, r):
-    """The matching's data on ``metric`` [1, N, dh], from ``tome_ops.
-    match_scores`` as ``bipartite_matching`` reads it: (cosine scores
-    [Na, Nb] with CLS's row -inf, each a-token's best score and partner,
-    the merged a-tokens)."""
-    from interactive_vit_tpu_torch.ops import tome_ops
-
-    scores, best, idx, order = tome_ops.match_scores(metric)
-    return scores[0], best[0], idx[0], set(order[0, :r].tolist())
+def tome_decisions(scored, r, b):
+    """The matching's data for image ``b`` from ``tome_ops.match_scores``
+    (``scored``), as ``bipartite_matching`` reads it: (cosine scores [Na,
+    Nb] with CLS's row -inf, each a-token's best score and partner, the
+    merged a-tokens)."""
+    scores, best, idx, order = scored
+    return scores[b], best[b], idx[b], set(order[b, :r].tolist())
 
 
 def tome_lut_check(tag, metric_k, metric_p, r, f32) -> dict:
     """The lut that the kernel's metric gives against the plain metric's,
-    on the same block inputs: no entry may differ in f32; in bf16 each
-    decision that differs must be a near tie (``TOME_SCORE_CAP`` note)."""
+    on the same block inputs (every image of the batch): no entry may
+    differ in f32; in bf16 each decision that differs must be a near tie
+    (``TOME_SCORE_CAP`` note)."""
     from interactive_vit_tpu_torch.ops import tome_ops
 
     lut_k, _ = tome_ops.bipartite_matching(metric_k, r)
     lut_p, _ = tome_ops.bipartite_matching(metric_p, r)
     n_lut = int((lut_k != lut_p).sum())
     r = tome_ops.merge_counts(metric_k.shape[1], r)
-    sk, _, idx_k, merged_k = tome_decisions(metric_k, r)
-    sp, best_p, idx_p, merged_p = tome_decisions(metric_p, r)
-    d = float((sk[1:] - sp[1:]).abs().max())
-    gaps = []
-    for i in merged_k ^ merged_p:  # swapped into or out of the merged set
-        other = merged_p - merged_k if i in merged_k else merged_k - merged_p
-        gaps.append(min(abs(float(best_p[i] - best_p[j])) for j in other))
-    for i in merged_k & merged_p:  # merged into another partner
-        if idx_k[i] != idx_p[i]:
-            gaps.append(abs(float(sp[i, idx_k[i]] - sp[i, idx_p[i]])))
+    scored_k = tome_ops.match_scores(metric_k)
+    scored_p = tome_ops.match_scores(metric_p)
+    d, gaps = 0.0, []
+    for b in range(metric_k.shape[0]):
+        sk, _, idx_k, merged_k = tome_decisions(scored_k, r, b)
+        sp, best_p, idx_p, merged_p = tome_decisions(scored_p, r, b)
+        d = max(d, float((sk[1:] - sp[1:]).abs().max()))
+        for i in merged_k ^ merged_p:  # swapped into or out of the set
+            other = (merged_p - merged_k if i in merged_k
+                     else merged_k - merged_p)
+            gaps.append(min(abs(float(best_p[i] - best_p[j]))
+                            for j in other))
+        for i in merged_k & merged_p:  # merged into another partner
+            if idx_k[i] != idx_p[i]:
+                gaps.append(abs(float(sp[i, idx_k[i]] - sp[i, idx_p[i]])))
     if f32 and n_lut:
         raise AssertionError(f"{tag}: {n_lut} lut entries differ in f32")
     if d > TOME_SCORE_CAP or any(gap > 2 * d for gap in gaps):
@@ -2366,8 +2395,11 @@ def tome_lockstep(path, model, image, device):
     once, with the served block's operands and maps flags, holds its
     result against ``fused_attn_block_reference`` on the same x and key
     bias (y, the key metric and the maps the block's taps ask for, within
-    their bounds; the lut by ``tome_lut_check``) and passes it on. Returns
-    the kernel path's head output and taps."""
+    their bounds; the lut by ``tome_lut_check``) and passes it on.
+    ``image``: [3, H, W], or [K, 3, H, W] for a group run as one pass (the
+    same shapes through the same ops as the served group, so the same
+    bits and the same matching decisions). Returns the kernel path's head
+    output and taps."""
     import torch
     from interactive_vit_tpu_torch.models import tome
     from interactive_vit_tpu_torch.ops import fused_block as fb
@@ -2400,7 +2432,8 @@ def tome_lockstep(path, model, image, device):
             if not extra:
                 x = fn(p, {"o": x})["o"]
                 continue
-            tag.append(f"{path.model} block {node - 2} (N={x.shape[1]})")
+            tag.append(f"{path.model} block {node - 2} (B={x.shape[0]}, "
+                       f"N={x.shape[1]})")
             taps = path.tap_nodes.get(node, ())
             out = fn(p, {"o": x, **carry},
                      want=frozenset(taps) | frozenset(path.chain),
@@ -2409,8 +2442,8 @@ def tome_lockstep(path, model, image, device):
                 maps[node] = {ch: out[ch] for ch in taps}
             carry = {ch: out[ch] for ch in path.chain}
             x = out["o"]
-    log(f"  {path.model} {x.dtype}: {cfg.depth} blocks vs plain on the kernel "
-        f"path's inputs: max abs err " + ", ".join(
+    log(f"  {path.model} {x.dtype} B={x.shape[0]}: {cfg.depth} blocks vs "
+        f"plain on the kernel path's inputs: max abs err " + ", ".join(
             f"{k}={v:.3g}" for k, v in worst.items())
         + f"; lut entries differing {stats['lut']}, decisions "
           f"{stats['decisions']}, scores within {stats['score_diff']:.3g}")
@@ -2418,14 +2451,14 @@ def tome_lockstep(path, model, image, device):
 
 
 def check_response(raw, path, plain, tag, bf16=True, rel=False):
-    """Shapes, finiteness, row sums and agreement with the plain path
-    (``rel``: an f32 bound of F32_BOUND times max(1, the output's largest
+    """Shapes, finiteness, row sums and agreement with the plain path of
+    a response (its bytes, or an executor's decoded result) (``rel``: an f32 bound of F32_BOUND times max(1, the output's largest
     value) instead of F32_BOUND). Returns ({output: max abs err}, {output:
     the share of its bound that err uses}, {output: its largest plain
     value})."""
     from interactive_vit_tpu_torch.wire.codec import Response
 
-    out = Response.decode(raw)
+    out = raw if isinstance(raw, dict) else Response.decode(raw)
     head = out[path.head_node]["o"]
     if head.shape != path.head_shape:
         raise AssertionError(f"{tag}: head output shape {head.shape}")
@@ -2468,14 +2501,16 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
 
 def run_path(path, device, graphs_dir, counters) -> dict:
     """One path: warm-up, then with every launch count at 0, ``seq``
-    requests in sequence, ``conc`` at once (and one request to
-    ``path.other``), then (``path.f32``) one f32 request on a fresh f32
-    server; the counts are read after it. Returns the counts and the
-    p50."""
+    requests in sequence, ``conc`` at once, one group of max(2, ``conc``)
+    requests through ``executor.run_stacked`` (one batched pass), and one
+    request to ``path.other``; then (``path.f32``) one f32 request on a
+    fresh f32 server; the counts are read after it. Returns the counts and
+    the p50."""
     rng = np.random.default_rng(0)
     shape = path.img if isinstance(path.img, tuple) else (path.img, path.img)
+    k_group = max(2, path.conc)
     images = [rng.random((3, *shape), dtype=np.float32)
-              for _ in range(path.seq + path.conc)]
+              for _ in range(max(path.seq + path.conc, k_group))]
     opath = path.other
     variants = [path.model] + ([opath.model] if opath else [])
     tag = f"{path.model} {path.dtype}"
@@ -2485,7 +2520,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         graph = app.graphs.load(path.model + ".json")
         model = app.reg.get_node(path.model + ":head").model
         bodies = [chain_request(graph, im, path.taps(), path.node_params)
-                  for im in images]
+                  for im in images[:path.seq + path.conc]]
         other_raw = None
         if opath:
             other_image = images[0][:, :opath.img, :opath.img]
@@ -2493,6 +2528,17 @@ def run_path(path, device, graphs_dir, counters) -> dict:
                                        other_image, opath.taps())
             other_model = app.reg.get_node(opath.model + ":head").model
         post(url + "/compute", bodies[0])  # warms the allocator
+        sizes = []  # the sizes of the groups the batcher dispatches
+        app.batcher.on_dispatch = lambda g, taps, b, n: sizes.append(n)
+        # the images of each group the batcher runs as one pass
+        grouped, run_stacked = [], app.executor.run_stacked
+
+        def recorded(graphs, *args, **kw):
+            grouped.append([next(iter(g.input_edges()))[2].tensor
+                            for g in graphs])
+            return run_stacked(graphs, *args, **kw)
+
+        app.executor.run_stacked = recorded
 
         for fn in counters.values():  # the path starts here
             fn.launches = 0
@@ -2519,6 +2565,14 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         # concurrent requests may share a batch, and a batch runs each
         # block once for all its requests
         batches = app.metrics.counters.get("batches", 0) - batches0
+        app.executor.run_stacked = run_stacked
+        # one group through run_stacked: each kernel launches once for it
+        before = {k: fn.launches for k, fn in counters.items()}
+        group = app.executor.run_stacked(
+            [chain_graph(graph, im, path.node_params)
+             for im in images[:k_group]], path.taps())
+        group_launches = {k: fn.launches - before[k]
+                          for k, fn in counters.items()}
         if opath:
             other_raw = post(url + "/compute", other_body)
         counts = {k: fn.launches for k, fn in counters.items()}
@@ -2542,36 +2596,72 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     if per_request != expected:
         raise AssertionError(f"a sequential {tag} request launched "
                              f"{per_request}; expected {expected}")
-    want = {k: n * batches + (opath.kernels.get(k, 0) if opath else 0)
-            for k, n in path.kernels.items()}
-    if batches < path.seq or any(counts[k] < n for k, n in want.items()):
+    if group_launches != expected:
+        raise AssertionError(f"a group of {k_group} {tag} requests through "
+                             f"run_stacked launched {group_launches}; "
+                             f"expected one pass, {expected}")
+    # each pass (a request alone, a group) launches each kernel once
+    want = {k: n * (batches + 1) + (opath.kernels.get(k, 0) if opath else 0)
+            for k, n in expected.items()}
+    if batches < path.seq or counts != want:
         raise AssertionError(f"{counts} launches for {served} {tag} requests "
-                             f"in {batches} batches; expected >= {want}")
+                             f"in {batches} batches and a group of "
+                             f"{k_group}; expected {want}")
+    # each response's reference is the reference path run on the pass
+    # that produced it: the image alone, or its group as one batch (the
+    # batch changes the library GEMMs' bits, and ToMe's matching decisions
+    # are discrete)
+    passes = {k: (k,) for k in range(served)}
+    for arrays in grouped:
+        ks = tuple(next(k for k in range(served)
+                        if np.array_equal(a, images[k])) for a in arrays)
+        passes.update({k: ks for k in ks})
     reference = path.lockstep or plain_taps
+    refs = {}
+
+    def ref(ks, j):
+        if ks not in refs:
+            head, maps = reference(path, model, np.stack(
+                [images[k] for k in ks]) if len(ks) > 1 else images[ks[0]],
+                device)
+            refs[ks] = [(head[i:i + 1], {n: {ch: t[i:i + 1]
+                                             for ch, t in chs.items()}
+                                         for n, chs in maps.items()})
+                        for i in range(len(ks))]
+        return refs[ks][j]
+
     worst, worst_use, scales = {}, {}, {}
-    for k, raw in enumerate(raws + conc):
-        errs, uses, scales = check_response(raw, path,
-                                    reference(path, model, images[k],
-                                              device),
-                                    f"{tag} request {k}",
-                                    bf16=path.dtype != "float32",
-                                    rel=path.f32_rel)
+    labelled = ([(f"request {k} (a pass of {len(passes[k])})", raw,
+                  passes[k], passes[k].index(k))
+                 for k, raw in enumerate(raws + conc)]
+                + [(f"group of {k_group}, result {k}", res,
+                    tuple(range(k_group)), k)
+                   for k, res in enumerate(group)])
+    for label, raw, ks, j in labelled:
+        errs, uses, scales = check_response(raw, path, ref(ks, j),
+                                            f"{tag} {label}",
+                                            bf16=path.dtype != "float32",
+                                            rel=path.f32_rel)
         for key, v in errs.items():
             worst[key] = max(worst.get(key, 0.0), v)
             worst_use[key] = max(worst_use.get(key, 0.0), uses[key])
     p50 = float(np.median(lat)) * 1e3
     log(f"  {tag}: {path.seq} sequential + {path.conc} concurrent "
         f"requests{' + 1 ' + opath.model if opath else ''} in {batches} "
-        f"{path.model} batches; launches a sequential request "
-        f"{ {k: v for k, v in per_request.items() if v} }, all "
-        f"{ {k: v for k, v in counts.items() if v} } (>= {want}); p50 "
-        f"latency per request {p50:.2f} ms (client wall, sequential)")
+        f"{path.model} batches (sizes {sizes}) and a group of {k_group} "
+        f"through run_stacked; launches a sequential request "
+        f"{ {k: v for k, v in per_request.items() if v} }, the group "
+        f"{ {k: v for k, v in group_launches.items() if v} }, all "
+        f"{ {k: v for k, v in counts.items() if v} } (= "
+        f"{ {k: v for k, v in want.items() if v} }); p50 latency per "
+        f"request {p50:.2f} ms (client wall, sequential)")
     log("  server p50s (ms, all requests): " + ", ".join(
         f"{k.removesuffix('_p50_ms')} {metrics[k]:.2f}" for k in (
             "wire_p50_ms", "decode_p50_ms", "queue_p50_ms",
             "compute_p50_ms", "encode_p50_ms", "request_p50_ms"))
         + f"; mean batch {metrics['mean_batch_size']:.2f}")
-    log(f"  {tag} vs plain path, worst max abs err (share of its bound): "
+    log(f"  {tag} vs plain path, worst max abs err over the responses and "
+        f"the group's results (share of its bound): "
         + ", ".join(f"{k}={v:.3g} ({worst_use[k]:.2f})"
                     for k, v in sorted(worst.items())))
     if path.f32_rel:
@@ -2618,6 +2708,116 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         f"taps {max(v for k, v in errs32.items() if k != 'head'):.3g}; path "
         f"launch counts { {k: v for k, v in counts.items() if v} }")
     return {"launches": counts, "p50_ms": p50}
+
+
+def check_debug_routes(url, body, n_nodes) -> None:
+    """The app's debug routes on the card, with a vit_b16 bf16 request:
+    ``POST /profile`` must report device time with row 1's three
+    tensor-core kernels among the top kernels, 12 launches each a run;
+    ``POST /debug_eval`` a time and output shapes for every node, and no
+    error."""
+    rep = json.loads(post(url + "/profile?iters=2&top=40", body))
+    seen = {part: [name for name in rep["top_ops_us"] if part in name]
+            for part in ("row1_qkv_mma_kernel", "row1_attn_mma_kernel",
+                         "proj_mma_kernel")}
+    if rep["iters"] != 2 or not rep["total_device_us"] > 0 or not all(
+            seen.values()):
+        raise AssertionError(f"POST /profile: {rep}")
+    dbg = json.loads(post(url + "/debug_eval", body))
+    if dbg["errors"] or len(dbg["timings_ms"]) != n_nodes:
+        raise AssertionError(f"POST /debug_eval: {dbg}")
+    log(f"  POST /profile (2 runs): wall {rep['wall_ms']:.2f} ms, device "
+        f"{rep['total_device_us'] / 1e3:.3f} ms, row 1's kernels "
+        + ", ".join(f"{names[0][:40]} {rep['top_ops_us'][names[0]]:.1f} us"
+                    for names in seen.values())
+        + f"; POST /debug_eval: {n_nodes} nodes, "
+        f"{sum(dbg['timings_ms'].values()):.2f} ms in all, the slowest "
+        f"node {max(dbg['timings_ms'], key=dbg['timings_ms'].get)} "
+        f"{max(dbg['timings_ms'].values()):.3f} ms")
+
+
+def throughput_probe(device, graphs_dir, taps, clients=8, per_client=8,
+                     sequential=6) -> dict:
+    """Micro-batched serving (BASELINE config 5): vit_b16 bf16 with
+    ``taps``, ``clients`` closed-loop clients (each posts its next request
+    when its last one returns) of ``per_client`` requests, on one server
+    whose batcher's ``max_batch`` (``--max-batch``) is 1, 8, 8 and 1 in
+    turn (two turns of each, within one run, so that the card's clocks
+    treat both alike). Each turn first posts ``sequential`` requests one
+    at a time (the concurrency-1 p50), then one request per client at once
+    (warming the group's sizes), then the timed load. Logs requests/s, the
+    batch sizes the responses report, the client p50 and the server's
+    compute p50, whole and a request's share (compute over batch), and
+    returns them by max batch. Then ``check_debug_routes`` on that
+    server."""
+    rng = np.random.default_rng(1)
+    images = [rng.random((3, 224, 224), dtype=np.float32)
+              for _ in range(clients)]
+    out = {}
+    app, httpd, url = serve(["vit_b16"], "bfloat16", device, graphs_dir)
+    try:
+        graph = app.graphs.load("vit_b16.json")
+        bodies = [chain_request(graph, im, taps) for im in images]
+        for max_batch in (1, 8, 8, 1):
+            app.batcher.max_batch = max_batch
+            seq = []
+            for k in range(sequential):
+                t0 = time.perf_counter()
+                post(url + "/compute", bodies[k % clients])
+                seq.append(time.perf_counter() - t0)
+            walls, timings = [], []
+
+            def client(c, n, record):
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    _, timing = post_timed(url + "/compute", bodies[c])
+                    if record:
+                        walls.append(time.perf_counter() - t0)
+                        timings.append(timing)
+
+            for n, record in ((1, False), (per_client, True)):
+                threads = [threading.Thread(target=client,
+                                            args=(c, n, record))
+                           for c in range(clients)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=600)
+                elapsed = time.perf_counter() - t0
+                if any(t.is_alive() for t in threads):
+                    raise AssertionError("throughput clients did not finish")
+            if len(walls) != clients * per_client:
+                raise AssertionError(f"{len(walls)} of {clients * per_client}"
+                                     f" throughput requests answered")
+            batch = [int(t["batch"]) for t in timings]
+            res = {
+                "requests_per_s": len(walls) / elapsed,
+                "client_p50_ms": float(np.median(walls)) * 1e3,
+                "compute_p50_ms": float(np.median([t["compute"]
+                                                   for t in timings])),
+                "compute_share_p50_ms": float(np.median(
+                    [t["compute"] / t["batch"] for t in timings])),
+                "sequential_p50_ms": float(np.median(seq)) * 1e3,
+                "batches": {b: batch.count(b) for b in sorted(set(batch))},
+            }
+            out.setdefault(max_batch, []).append(res)
+            log(f"  throughput vit_b16 bf16, --max-batch {max_batch}, "
+                f"{clients} closed-loop clients x {per_client}: "
+                f"{res['requests_per_s']:.2f} requests/s; client p50 "
+                f"{res['client_p50_ms']:.2f} ms; compute p50 "
+                f"{res['compute_p50_ms']:.2f} ms, a request's share "
+                f"{res['compute_share_p50_ms']:.2f} ms; requests by the "
+                f"batch they ran in {res['batches']}; sequential p50 "
+                f"{res['sequential_p50_ms']:.2f} ms")
+        check_debug_routes(url, bodies[0], len(graph["nodes"]))
+    finally:
+        stop(app, httpd)
+    r1 = [r["requests_per_s"] for r in out[1]]
+    r8 = [r["requests_per_s"] for r in out[8]]
+    log(f"  throughput vit_b16 bf16: --max-batch 8 {r8} requests/s against "
+        f"--max-batch 1 {r1}: {np.mean(r8) / np.mean(r1):.2f}x")
+    return out
 
 
 def run_forwards(device, counters) -> dict:
@@ -3582,7 +3782,7 @@ def main() -> int:
         raise AssertionError("every kernel needs its launch count")
 
     # 3. kernels against their plain versions
-    log("phase 3 kernels vs plain versions on the card:")
+    log(f"phase 3 kernels vs plain versions on the card (at {time.perf_counter() - t_start:.1f} s):")
     online = phase_online_kernel(device)
     flash = phase_flash_kernel(device)
     train = phase_train_kernel(device, packed=False)
@@ -3650,7 +3850,7 @@ def main() -> int:
     }
 
     # 4. the paths through the server
-    log("phase 4 slice through the HTTP server:")
+    log(f"phase 4 slice through the HTTP server (at {time.perf_counter() - t_start:.1f} s):")
     from interactive_vit_tpu_torch.models import swin, tome, vit
     from interactive_vit_tpu_torch.ops import tome_ops
 
@@ -3808,17 +4008,26 @@ def main() -> int:
         graphs_dir = os.path.join(tmp, "graphs")
         shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
         for path in paths:
+            t0 = time.perf_counter()
             res = run_path(path, device, graphs_dir, counters)
+            log(f"  {path.model} {path.dtype}: the path took "
+                f"{time.perf_counter() - t0:.1f} s")
             # a kernel's first path gives its count
             for k in {**path.kernels, **path.f32_kernels}:
                 numbers[k].setdefault("launches", res["launches"][k])
+        t0 = time.perf_counter()
+        throughput_probe(device, graphs_dir, vit_path(
+            "vit_b16", 224, b16_taps, {}, {}, 0, 0).taps())
+        log(f"  throughput probe: {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  the monolithic forwards (at {time.perf_counter() - t_start:.1f} "
+        f"s):")
     for k, n in run_forwards(device, counters).items():
         numbers[k]["launches"] = n
 
     # 5. the trainer
-    log("phase 5 train through tools.train.main:")
+    log(f"phase 5 train through tools.train.main (at {time.perf_counter() - t_start:.1f} s):")
     for k, n in phase_train(device, counters).items():
         numbers[k]["launches"] = n
 

@@ -5,14 +5,22 @@ named ``NodeKind``s, each answering ``io(params)`` / ``contents(params)`` /
 ``compute(params, pinin)``. A kind's computation is a function from a dict
 of input tensors to a dict of output tensors (``NodeKind.fn``), with the
 kind's weights passed as a second argument when it has ``captures``.
-Plugin-directory scanning is not ported yet.
+``NodeKind.stacked_fn`` is the same computation over K requests at once
+(``Executor.run_stacked``), and ``scan_plugins`` registers the kinds of a
+plugin directory.
 """
 
 from __future__ import annotations
 
+import ast
+import importlib.util
 import logging
-from typing import Any, Callable, Dict, List
+import os
+import sys
+from typing import Any, Callable, Dict, List, Optional
 from urllib.parse import urlencode
+
+import torch
 
 from interactive_vit_tpu_torch.graph.ir import Pinout
 
@@ -52,6 +60,20 @@ class NodeKind:
     def captures(self, params: Dict[str, str]):
         """The node's weights (a tensor tree), or None for stateless ops."""
         return None
+
+    def stacked_fn(self, params: Dict[str, str]) -> NodeFn:
+        """``fn`` over K requests at once: every input carries a leading
+        stacked axis K, and so does every output, each slice equal to what
+        ``fn`` gives that request alone (called as ``fn`` is, with the
+        weights unstacked). The default runs ``fn`` under
+        ``torch.func.vmap``, the counterpart of the JAX executor's
+        ``jax.vmap``: exact for kinds written in plain torch ops. A kind
+        whose ``fn`` reaches a kernel through ``data_ptr`` overrides it
+        (``LayerNodeKind``): a vmapped tensor has no storage to point at."""
+        f = self.fn(params)
+        if self.captures(params) is None:
+            return torch.func.vmap(f)
+        return torch.func.vmap(f, in_dims=(0, None))
 
     def compute(self, params: Dict[str, str], inputs: Pinout) -> Pinout:
         """Eager evaluation through ``fn``."""
@@ -98,3 +120,64 @@ _instance = Registry()
 def registry() -> Registry:
     """The process-wide default registry."""
     return _instance
+
+
+# Top-level modules a plugin file of the JAX package imports; the port
+# never loads such a file (it would import JAX).
+_JAX_MODULES = frozenset({"jax", "jaxlib", "flax", "optax", "orbax",
+                          "interactive_vit_tpu"})
+
+
+def _imports_jax(path: str) -> bool:
+    """Whether the Python file at ``path`` imports JAX or the JAX package
+    (read from its syntax tree, without running it)."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        if any(n.split(".")[0] in _JAX_MODULES for n in names):
+            return True
+    return False
+
+
+def scan_plugins(dirs: List[str], reg: Optional[Registry] = None) -> None:
+    """Import every ``.py`` in ``dirs``, call its ``instances()`` and
+    register what it returns.
+
+    A file that imports JAX or the JAX package (a plugin written for it)
+    is skipped unread; a file that fails to import or register is logged
+    and skipped, never fatal, as in the JAX package."""
+    reg = reg or registry()
+    for full_dir in dirs:
+        if not os.path.isdir(full_dir):
+            logger.warning("plugin dir missing: %s", full_dir)
+            continue
+        for file in sorted(os.listdir(full_dir)):
+            path = os.path.join(full_dir, file)
+            if not os.path.isfile(path) or not path.endswith(".py"):
+                continue
+            # namespaced: a plugin file named queue.py or json.py must not
+            # take over sys.modules["queue"] for the whole process
+            name = "ivt_torch_plugins." + os.path.splitext(file)[0]
+            try:
+                if _imports_jax(path):
+                    logger.info("skipped plugin %s: it imports JAX", path)
+                    continue
+                spec = importlib.util.spec_from_file_location(name, path)
+                assert spec is not None and spec.loader is not None
+                module = importlib.util.module_from_spec(spec)
+                sys.modules[name] = module
+                try:
+                    spec.loader.exec_module(module)
+                except Exception:
+                    sys.modules.pop(name, None)
+                    raise
+                for inst in module.instances():
+                    inst.register(reg)
+            except Exception as err:  # noqa: BLE001 -- plugin isolation
+                logger.info("could not register plugin %s: %s", path, err)

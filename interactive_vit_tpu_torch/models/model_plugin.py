@@ -6,6 +6,10 @@ an ordered list of named functions over parameter subtrees
 ``"<model>:<layer>"`` whose weights are its captures. A layer may declare
 extra tap channels beyond the flowing "o" (transformer blocks add "attn",
 "r" and "cls"); they are computed only when wired or tapped.
+
+A group of K requests runs each layer once: ``LayerNodeKind.stacked_fn``
+folds the stacked axis into the model's own batch axis, so a block kernel
+sees a batch of K in one launch.
 """
 
 from __future__ import annotations
@@ -25,6 +29,20 @@ logger = logging.getLogger(__name__)
 
 # (layer_name, extra_out_channels, fn(params_subtree, ins_dict) -> outs_dict)
 LayerSpec = Tuple[str, List[str], Callable]
+
+# Per-request rank of an image sent without its batch axis ([C, H, W]).
+IMAGE_RANK = 3
+
+
+def image_entry(fn: Callable, keeps_rank: bool) -> Callable:
+    """Mark a layer fn whose "o" input is an image that a request may send
+    without its batch axis ([C, H, W] instead of [B, C, H, W]). With
+    ``keeps_rank`` such an input gives an output without the batch axis too
+    (the transform); without it, an output with a batch of 1 (the patch
+    embedding). Every other layer's inputs and outputs carry the batch
+    axis. ``LayerNodeKind.stacked_fn`` reads the mark."""
+    fn.image_entry = "keeps_rank" if keeps_rank else "adds_batch"
+    return fn
 
 
 class LayerNodeKind(NodeKind):
@@ -82,6 +100,37 @@ class LayerNodeKind(NodeKind):
         if self.captures(params) is None:
             return lambda ins: keep(f({}, ins, **kw))
         return lambda ins, caps: keep(f(caps, ins, **kw))
+
+    def stacked_fn(self, params):
+        """The layer over K requests in one call: the stacked axis K is
+        folded into the model's batch axis (per-request batch b: [K, b,
+        ...] -> [K*b, ...]), the layer fn runs once, and its outputs are
+        unfolded to [K, b, ...]. An unbatched image ([K, C, H, W] stacked)
+        is a batch of K as it stands; its outputs keep or gain the batch
+        axis as ``image_entry`` says. Exact where the layer's ops treat
+        the batch's rows apart, as the plain versions and the kernels do;
+        no ``BatchedTensor`` ever reaches a kernel."""
+        f = self.fn(params)
+        entry = getattr(self._fn, "image_entry", None)
+
+        def run(ins, *caps):
+            x = ins["o"]
+            k = x.shape[0]
+            if entry is not None and x.ndim == IMAGE_RANK + 1:
+                outs = f(ins, *caps)
+                if entry == "keeps_rank":
+                    return outs
+                return {ch: v.unsqueeze(1) for ch, v in outs.items()}
+            b = x.shape[1]
+            for ch, v in ins.items():
+                if v.shape[:2] != (k, b):
+                    raise ValueError(
+                        f"stacked input {ch!r} has leading dims "
+                        f"{tuple(v.shape[:2])}; expected ({k}, {b})")
+            outs = f({ch: v.flatten(0, 1) for ch, v in ins.items()}, *caps)
+            return {ch: v.unflatten(0, (k, b)) for ch, v in outs.items()}
+
+        return run
 
     @functools.cached_property
     def _takes_node_params(self) -> bool:

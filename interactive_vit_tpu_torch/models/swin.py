@@ -24,6 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from interactive_vit_tpu_torch.models.model_plugin import image_entry
 from interactive_vit_tpu_torch.ops import layers as L
 from interactive_vit_tpu_torch.ops.fused_window import (
     window_merge, window_partition,
@@ -409,8 +410,8 @@ def layer_fns(cfg: SwinConfig, window_impl=None, mlp_impls=None):
     def embed_fn(p, ins):
         return {"o": patch_embed(p, ins["o"], cfg)}
 
-    layers.append(("transform", [], transform_fn))
-    layers.append(("patch_embed", [], embed_fn))
+    layers.append(("transform", [], image_entry(transform_fn, True)))
+    layers.append(("patch_embed", [], image_entry(embed_fn, False)))
 
     def make_block_fn(s, b):
         shift = cfg.stage_shift(s, b)

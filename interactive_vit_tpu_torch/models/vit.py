@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from interactive_vit_tpu_torch.models.model_plugin import image_entry
 from interactive_vit_tpu_torch.ops import attention as attn_ops
 from interactive_vit_tpu_torch.ops import layers as L
 
@@ -491,8 +492,8 @@ def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None,
             x = x[None]
         return {"o": embed(p, x, cfg)}
 
-    layers.append(("transform", [], transform_fn))
-    layers.append(("embed", [], embed_fn))
+    layers.append(("transform", [], image_entry(transform_fn, True)))
+    layers.append(("embed", [], image_entry(embed_fn, False)))
 
     def block_fn(p, ins, want=frozenset(), node_params=None):
         x = ins["o"]

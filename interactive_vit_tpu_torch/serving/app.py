@@ -6,6 +6,10 @@ Counterpart of ``interactive_vit_tpu/serving/app.py``:
     GET  /list_graphs           JSON list of saved graph names
     GET  /load_graph/<name>     saved graph JSON
     POST /compute               binary wire protocol eval
+    POST /profile               device-time profile of one wire request
+                                (?iters=N&top=K; torch.profiler)
+    POST /debug_eval            per-node eval: times, shapes, fault isolation
+    POST /save_graph/<name>     persist a graph JSON to the library
     GET  /description/<name>    node IO declaration JSON (params via query)
     GET  /contents/<name>       node HTML body (params via query)
     GET  /descriptions?names=a,b,c   batched IO declarations
@@ -15,16 +19,18 @@ Counterpart of ``interactive_vit_tpu/serving/app.py``:
 
 Error contract: failures return HTTP 400 with the error text as the body;
 compute errors attributed to a node are prefixed with ``node <i> (<name>):``.
-A /compute past its deadline returns 503. Every /compute response, an error
-included, carries ``X-IVT-Request-Id: g0-<pid hex>-<counter hex>``
-(generation 0: the port does not recycle its workers). Not ported yet: ``/profile``,
-``/debug_eval``, ``/save_graph``, tap speculation, the program inventory and
-worker recycling.
+A /compute past its deadline returns 503; a /profile while another runs,
+409. Every /compute response, an error included, carries
+``X-IVT-Request-Id: g0-<pid hex>-<counter hex>`` (generation 0: the port
+does not recycle its workers) and ``X-IVT-Timing`` (decode, queue,
+compute, encode and wall ms, and the batch the request ran in). Not ported
+yet: tap speculation, the program inventory and worker recycling.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import logging
 import os
@@ -35,6 +41,9 @@ from typing import Dict, Optional
 from urllib.parse import parse_qs, unquote, urlparse
 
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity
+from torch.profiler import profile as torch_profile
 
 from interactive_vit_tpu_torch.graph.executor import Executor
 from interactive_vit_tpu_torch.graph.registry import Registry, registry
@@ -49,6 +58,11 @@ logger = logging.getLogger(__name__)
 
 class ComputeTimeout(Exception):
     """A /compute request exceeded its deadline -- mapped to HTTP 503."""
+
+
+class ProfileBusy(Exception):
+    """A /profile capture is already in progress -- mapped to HTTP 409
+    (one profiler session at a time)."""
 
 
 _MIME = {
@@ -73,6 +87,7 @@ class App:
         max_batch: int = 8,
         max_wait_ms: float = 3.0,
         compute_timeout_s: float = 120.0,
+        pipeline_depth: int = 1,
     ):
         self.compute_timeout_s = compute_timeout_s
         self.reg = reg or registry()
@@ -80,7 +95,9 @@ class App:
         self.metrics = Metrics()
         self.batcher = MicroBatcher(self.executor, max_batch=max_batch,
                                     max_wait_ms=max_wait_ms,
-                                    metrics=self.metrics)
+                                    metrics=self.metrics,
+                                    pipeline_depth=pipeline_depth)
+        self._profile_lock = threading.Lock()
         self.graphs = GraphLibrary(graphs_dir)
         self.frontend_dir = frontend_dir and os.path.abspath(frontend_dir)
         self._health_pool = concurrent.futures.ThreadPoolExecutor(
@@ -128,6 +145,74 @@ class App:
                 "wall_ms": round((t_done - t0) * 1e3, 2),
             })
         return raw
+
+    def profile(self, body: bytes, iters: int = 1, top: int = 20) -> Dict:
+        """Device-time profile of ONE wire request (``POST /profile``).
+
+        The request runs once untraced (first-run builds and allocator
+        growth stay out of the window), then ``iters`` times under
+        ``torch.profiler``, bypassing the batcher: a trace mixing other
+        sessions' groups would not attribute (their kernels still land in
+        the window if they run meanwhile: profile a quiet server). Returns
+        the wall time and, on a CUDA device, the device kernels by CUDA
+        time (``key_averages``): ``total_device_us`` and the ``top`` kernels
+        in ``top_ops_us``. One capture at a time (``ProfileBusy``)."""
+        req = WireRequest()
+        req.decode(body)
+        taps = req.taps if req.taps is not None else "primary"
+        if not self._profile_lock.acquire(blocking=False):
+            raise ProfileBusy("a profile capture is already in progress")
+        try:
+            iters = max(1, iters)
+            self.executor.run(req.graph, taps=taps)
+            cuda = self.executor.device.type == "cuda"
+            window = (torch_profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                      if cuda else contextlib.nullcontext())
+            with window as prof:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    self.executor.run(req.graph, taps=taps)
+                wall = time.perf_counter() - t0
+            kernels = sorted(
+                ((e.self_device_time_total, e.key)
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA
+                 and e.self_device_time_total > 0), reverse=True) \
+                if cuda else []
+        finally:
+            self._profile_lock.release()
+        return {
+            "iters": iters,
+            "wall_ms": round(wall * 1e3, 3),
+            "total_device_us": round(sum(t for t, _ in kernels), 3),
+            "top_ops_us": {name: round(t, 3) for t, name in kernels[:top]},
+            "note": ("device kernels by CUDA time (torch.profiler); "
+                     "summed over iters" if cuda else
+                     "CPU device: wall time only"),
+        }
+
+    def debug_eval(self, body: bytes) -> Dict:
+        """Per-node evaluation of one wire request (``POST /debug_eval``):
+        each node's steady-state time, its output shapes, and fault
+        isolation (a failing node's descendants report "eval error
+        upstream"); ``Executor.run_timed_eager``."""
+        req = WireRequest()
+        req.decode(body)
+        timings, shapes, errors = self.executor.run_timed_eager(req.graph)
+        return {
+            "timings_ms": {str(k): round(v, 3) for k, v in timings.items()},
+            "output_shapes": {str(k): v for k, v in shapes.items()},
+            "errors": {str(k): v for k, v in errors.items()},
+        }
+
+    def save_graph(self, name: str, body: bytes) -> Dict:
+        """Persist a graph JSON to the library (``POST /save_graph/``);
+        ``.json`` is appended when missing."""
+        if not name.endswith(".json"):
+            name += ".json"
+        self.graphs.save(name, json.loads(body.decode()))
+        return {"saved": name}
 
     def description(self, name: str, params: Dict[str, str]) -> Dict:
         return self.reg.get_node(name).io(params)
@@ -258,22 +343,35 @@ class App:
                 try:
                     length = int(self.headers.get("Content-Length", 0))
                     body = self.rfile.read(length)
-                    path = unquote(urlparse(self.path).path)
-                    if path != "/compute":
+                    url = urlparse(self.path)
+                    path = unquote(url.path)
+                    qs = {k: v[0] for k, v in parse_qs(url.query).items()}
+                    if path == "/compute":
+                        self._rid = app.next_request_id()
+                        timing: Dict = {}
+                        raw = app.compute(body, timing_out=timing)
+                        header = ";".join(f"{k.removesuffix('_ms')}={v}"
+                                          for k, v in sorted(timing.items()))
+                        self._send(200, raw, "application/octet-stream",
+                                   {"X-IVT-Timing": header})
+                    elif path == "/profile":
+                        self._json(app.profile(
+                            body, iters=int(qs.get("iters", 1)),
+                            top=int(qs.get("top", 20))))
+                    elif path == "/debug_eval":
+                        self._json(app.debug_eval(body))
+                    elif path.startswith("/save_graph/"):
+                        self._json(app.save_graph(
+                            path[len("/save_graph/"):], body))
+                    else:
                         self._send(404, b"not found", "text/plain")
-                        return
-                    self._rid = app.next_request_id()
-                    timing: Dict = {}
-                    raw = app.compute(body, timing_out=timing)
-                    header = ";".join(f"{k.removesuffix('_ms')}={v}"
-                                      for k, v in sorted(timing.items()))
-                    self._send(200, raw, "application/octet-stream",
-                               {"X-IVT-Timing": header})
                 except ComputeTimeout as e:
                     app.metrics.inc("errors")
                     logger.error("POST %s (rid=%s) timed out: %s", self.path,
                                  self._rid, e)
                     self._send(503, str(e).encode(), "text/plain")
+                except ProfileBusy as e:
+                    self._send(409, str(e).encode(), "text/plain")
                 except Exception as e:  # noqa: BLE001 -- 400 contract
                     logger.exception("POST %s (rid=%s) failed", self.path,
                                      self._rid)

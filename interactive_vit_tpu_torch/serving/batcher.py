@@ -1,17 +1,26 @@
 """Micro-batcher: group concurrent graph evals by signature.
 
-Counterpart of ``interactive_vit_tpu/serving/batcher.py``. One worker
-thread queues incoming (graph, taps) requests, groups consecutive requests
-whose executor group signature matches (topology, params, input shapes,
-taps) up to ``max_batch`` within ``max_wait_ms``, runs a group through
-``Executor.run_stacked`` (one request: ``Executor.run``), and resolves each
-request's future with its slice of the results. All device work happens on
-that one thread.
+Counterpart of ``interactive_vit_tpu/serving/batcher.py`` (BASELINE config
+5, continuous micro-batched serving). One worker thread queues incoming
+(graph, taps) requests, groups consecutive requests whose executor group
+signature matches (topology, params, input shapes, taps) up to
+``max_batch`` within ``max_wait_ms``, runs a group as one batched pass
+(``Executor.run_stacked``; one request: ``Executor.run``), and resolves
+each request's future with its slice of the results. All device work
+happens on that one thread.
 
-Other-signature requests seen while a group collects wait in a backlog that
-is served first on the next cycle, so a minority signature is not starved.
-The JAX batcher's dispatch pipelining (overlapping one group's transfer
-with the next group's compute) is not ported: groups run synchronously.
+Dispatch is pipelined: a group is dispatched (its launches and its
+results' copies to the host enqueued, ``defer=True``), and the worker goes
+on to collect and dispatch the next group while the card works; a group
+is materialized as soon as its copies have landed (checked before each
+collect and each dispatch: an eager dispatch is a whole host pass, which
+finished results must not wait behind), when ``pipeline_depth`` newer
+groups are in flight, or when the queue runs dry. Depth 0 materializes
+each group at once. Before a dispatch that has never run on the executor
+(``is_compiled``: it may build kernel sources for tens of seconds) the
+groups in flight are materialized first. Other-signature requests seen
+while a group collects wait in a backlog that is served first on the next
+cycle, so a minority signature is not starved.
 """
 
 from __future__ import annotations
@@ -28,6 +37,8 @@ from interactive_vit_tpu_torch.graph.ir import Graph
 from interactive_vit_tpu_torch.serving.metrics import Metrics
 
 logger = logging.getLogger(__name__)
+
+_IDLE = object()  # a poll that found nothing queued
 
 
 class _Item:
@@ -46,13 +57,25 @@ class MicroBatcher:
     """Background worker turning a request stream into micro-batches."""
 
     def __init__(self, executor: Executor, max_batch: int = 8,
-                 max_wait_ms: float = 3.0, metrics: Optional[Metrics] = None):
+                 max_wait_ms: float = 3.0, metrics: Optional[Metrics] = None,
+                 pipeline_depth: int = 1):
         self.executor = executor
         self.max_batch = max_batch
         self.max_wait_s = max_wait_ms / 1e3
         self.metrics = metrics or Metrics()
+        # groups dispatched and not yet materialized, at most
+        self.pipeline_depth = max(0, int(pipeline_depth))
         self._q: "queue.Queue[Optional[_Item]]" = queue.Queue()
         self._backlog: List[_Item] = []  # worker-thread only
+        # the newest submit or result delivery, and the groups dispatched
+        # and not yet resolved: ``quiet_for`` reads both (a dispatched
+        # group has left the queue, so an empty queue alone is not idle)
+        self.last_activity_t = 0.0
+        self.inflight = 0
+        # optional hook, called on the worker thread before each dispatch
+        # with (graph, taps, batch or None, group length); its failures
+        # are logged and never fail the group
+        self.on_dispatch = None
         self._thread: Optional[threading.Thread] = None
         self._started = False
         self._lock = threading.Lock()
@@ -92,8 +115,16 @@ class MicroBatcher:
                 raise RuntimeError(
                     "batcher is stopping (worker still exiting); retry")
             self._start_locked()
+            self.last_activity_t = time.perf_counter()
             self._q.put(item)
         return item.future
+
+    def quiet_for(self, seconds: float) -> bool:
+        """True when nothing is queued or in flight and no submit or
+        result happened for ``seconds``."""
+        return (self.inflight == 0 and self._q.empty()
+                and not self._backlog
+                and time.perf_counter() - self.last_activity_t >= seconds)
 
     # -- worker ----------------------------------------------------------------
     def _collect_group(self, first: _Item) -> List[_Item]:
@@ -124,13 +155,59 @@ class MicroBatcher:
                 self._backlog.append(item)
         return group
 
+    def _next_item(self, block: bool):
+        if self._backlog:
+            return self._backlog.pop(0)
+        try:
+            return self._q.get() if block else self._q.get_nowait()
+        except queue.Empty:
+            return _IDLE
+
     def _loop(self) -> None:
+        pending: List[tuple] = []  # FIFO of dispatched groups
         while True:
-            item = self._backlog.pop(0) if self._backlog else self._q.get()
+            item = self._next_item(block=not pending)
+            if item is _IDLE:  # nothing queued: finish what is in flight
+                for p in pending:
+                    self._materialize(p)
+                pending = []
+                continue
             if item is None:
+                for p in pending:
+                    self._materialize(p)
                 self._drain_stopped()
                 return
-            self._run_group(self._collect_group(item))
+            pending = self._resolve_ready(pending)
+            group = self._collect_group(item)
+            pending = self._resolve_ready(pending)
+            if pending and not self._warm(group):
+                for p in pending:
+                    self._materialize(p)
+                pending = []
+            dispatched = self._dispatch(group)
+            if dispatched is not None:
+                pending.append(dispatched)
+            while len(pending) > self.pipeline_depth:
+                self._materialize(pending.pop(0))
+
+    def _resolve_ready(self, pending: List[tuple]) -> List[tuple]:
+        """Materialize the oldest groups whose results have landed, in
+        order; returns the rest."""
+        while pending and pending[0][1].ready():
+            self._materialize(pending.pop(0))
+        return pending
+
+    def _warm(self, group: List[_Item]) -> bool:
+        """Whether the group's run has run once on the executor (a single
+        request runs ``run``: batch None)."""
+        try:
+            return self.executor.is_compiled(
+                group[0].graph, group[0].taps,
+                len(group) if len(group) > 1 else None)
+        except Exception:  # noqa: BLE001 -- a bad graph: _dispatch fails
+            # its futures with the attributed error; a raise here would
+            # end the worker and orphan the groups in flight
+            return False
 
     def _drain_stopped(self) -> None:
         """Fail anything still queued at shutdown: a future never resolved
@@ -149,23 +226,55 @@ class MicroBatcher:
             if not it.future.done():
                 it.future.set_exception(err)
 
-    def _run_group(self, group: List[_Item]) -> None:
+    def _dispatch(self, group: List[_Item]):
+        """Launch a group; returns (group, in-flight handle, t0), or None
+        when the dispatch failed (the group's futures then hold the
+        error)."""
         t0 = time.perf_counter()
+        self.last_activity_t = t0
+        self.inflight += 1
         for it in group:
             it.queue_s = t0 - it.enqueued
             self.metrics.queue_latency.observe(it.queue_s)
+        if self.on_dispatch is not None:
+            try:
+                self.on_dispatch(group[0].graph, group[0].taps,
+                                 len(group) if len(group) > 1 else None,
+                                 len(group))
+            except Exception:  # noqa: BLE001 -- a hook never fails a group
+                logger.debug("dispatch hook failed", exc_info=True)
         try:
             if len(group) == 1:
-                results = [self.executor.run(group[0].graph, group[0].taps)]
+                handle = self.executor.run(group[0].graph, group[0].taps,
+                                           defer=True)
             else:
-                results = self.executor.run_stacked(
-                    [it.graph for it in group], group[0].taps)
+                handle = self.executor.run_stacked(
+                    [it.graph for it in group], group[0].taps, defer=True)
+            return (group, handle, t0)
         except Exception as err:  # noqa: BLE001 -- fail the whole group
+            logger.exception("batch dispatch failed")
+            self._fail(group, err)
+            return None
+
+    def _fail(self, group: List[_Item], err: Exception) -> None:
+        self.metrics.inc("batch_errors")
+        self.inflight -= 1
+        self.last_activity_t = time.perf_counter()
+        for it in group:
+            if not it.future.done():
+                it.future.set_exception(err)
+
+    def _materialize(self, pending) -> None:
+        """Wait for a dispatched group's results and resolve its futures;
+        a device error fails that group alone."""
+        group, handle, t0 = pending
+        try:
+            results = handle.materialize()
+            if len(group) == 1:
+                results = [results]
+        except Exception as err:  # noqa: BLE001 -- device errors land here
             logger.exception("batch failed")
-            self.metrics.inc("batch_errors")
-            for it in group:
-                if not it.future.done():
-                    it.future.set_exception(err)
+            self._fail(group, err)
             return
         compute_s = time.perf_counter() - t0
         self.metrics.compute_latency.observe(compute_s)
@@ -182,3 +291,5 @@ class MicroBatcher:
             it.future.set_result(res)
             self.metrics.request_latency.observe(
                 time.perf_counter() - it.enqueued)
+        self.inflight -= 1
+        self.last_activity_t = time.perf_counter()

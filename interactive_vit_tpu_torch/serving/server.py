@@ -38,9 +38,28 @@ refused with ``--dtype int8``):
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
         --dtype int8w8a8 --attn int8-scores --port 8965
 
-Weights are a seeded random init; checkpoint loading, plugin scanning,
-multi-device serving, quantized Swin and the other families are not
-ported yet.
+Concurrent requests that share a graph signature run as one batched pass
+through the kernels (``--max-batch``, default 8; ``--max-wait-ms``, the
+window a group collects in), with ``--pipeline-depth`` groups in flight
+(default 1; 0 runs each group to its end before the next). ``--warmup``
+runs each model's saved graph once at batch 1 and once at
+``--max-batch`` before serving, so that the kernels' nvcc builds and the
+allocator's first growth happen before the first request:
+
+    python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \\
+        --dtype bfloat16 --max-batch 8 --pipeline-depth 1 --warmup
+
+``--plugin-dirs`` registers the node kinds of port plugin files (files
+that import JAX are skipped), ``--frontend-dir`` serves another frontend,
+``--compute-timeout-s`` bounds a /compute (503 past it).
+
+Weights are a seeded random init; checkpoint loading, multi-device
+serving, quantized Swin and the other families are not ported yet, nor
+are the JAX server's flags for them (``--ckpt``, ``--ckpt-layout``,
+``--mesh``, ``--from-export``, ``--export-selftest``), tap speculation and
+the warm inventory (``--speculate-buckets``, ``--no-speculate``,
+``--warm-inventory``, ``--warm-budget-s``), and its TPU-host flags
+(``--platform``, ``--jit-cache``, ``--recycle-*``).
 """
 
 from __future__ import annotations
@@ -48,10 +67,12 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import time
 
+import numpy as np
 import torch
 
-from interactive_vit_tpu_torch.graph.registry import Registry
+from interactive_vit_tpu_torch.graph.registry import Registry, scan_plugins
 from interactive_vit_tpu_torch.models.autoregister import (
     make_model, plain_vit_family,
 )
@@ -59,6 +80,7 @@ from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
 from interactive_vit_tpu_torch.runtime.device import require_device
 from interactive_vit_tpu_torch.serving.app import App
+from interactive_vit_tpu_torch.wire.schema import graph_from_json
 
 logger = logging.getLogger(__name__)
 
@@ -83,6 +105,10 @@ def build_app(
     max_batch: int = 8,
     max_wait_ms: float = 3.0,
     attn_impl_name: str = "auto",
+    frontend_dir: str = None,
+    plugin_dirs=(),
+    compute_timeout_s: float = 120.0,
+    pipeline_depth: int = 1,
 ) -> App:
     """An ``App`` with its own registry serving ``models`` on ``device``
     (the card unless the caller asks for the CPU; raises without a card).
@@ -90,7 +116,9 @@ def build_app(
     policy of blocks on the unfused path (``ops/dispatch.
     default_attn_impl``), or "int8-scores": the s8 mode of the fused block
     for plain-ViT models (the others keep "auto"), refused with the
-    weight-only "int8" dtype, as in the JAX server."""
+    weight-only "int8" dtype, as in the JAX server. ``plugin_dirs``: each
+    scanned for node-kind plugins (``graph/registry.scan_plugins``).
+    ``frontend_dir``: default the repository's ``frontend``."""
     dtype, quantize = DTYPES[dtype_name]
     block_kernel = "auto"
     if attn_impl_name == "int8-scores":
@@ -105,9 +133,11 @@ def build_app(
     attn_impl = default_attn_impl(attn_impl_name)
     reg = Registry()
     register_builtin(reg)
+    for d in plugin_dirs:
+        scan_plugins([d], reg)
     repo_lib = graphs_dir is None
     graphs_dir = graphs_dir or os.path.join(_REPO_ROOT, "static", "graphs")
-    frontend_dir = os.path.join(_REPO_ROOT, "frontend")
+    frontend_dir = frontend_dir or os.path.join(_REPO_ROOT, "frontend")
     app = App(
         reg=reg,
         graphs_dir=graphs_dir,
@@ -115,6 +145,8 @@ def build_app(
         device=device,
         max_batch=max_batch,
         max_wait_ms=max_wait_ms,
+        compute_timeout_s=compute_timeout_s,
+        pipeline_depth=pipeline_depth,
     )
     for variant in models:
         # the s8 mode exists for the plain-ViT block only; the other
@@ -131,7 +163,35 @@ def build_app(
     return app
 
 
-def main(argv=None) -> None:
+def warmup(app: App, models, batch_sizes=(1,)) -> None:
+    """Run each model's saved graph once per batch size (1: ``run``; K: a
+    group of K through ``run_stacked``) on a 224 x 224 input with the
+    primary taps, so that the kernels' builds and the allocator's first
+    growth happen before the first request. A model without a saved
+    graph is skipped."""
+    for variant in models:
+        try:
+            obj = app.graphs.load(variant + ".json")
+        except FileNotFoundError:
+            logger.info("no saved graph for %s: not warmed", variant)
+            continue
+        for bs in batch_sizes:
+            graphs = []
+            for _ in range(bs):
+                g = graph_from_json(obj)
+                g.add_input(np.zeros((3, 224, 224), np.float32),
+                            g.nodes[0], "o")
+                graphs.append(g)
+            t0 = time.perf_counter()
+            if bs == 1:
+                app.executor.run(graphs[0], taps="primary")
+            else:
+                app.executor.run_stacked(graphs, taps="primary")
+            logger.info("warmed %s batch=%d in %.1fs", variant, bs,
+                        time.perf_counter() - t0)
+
+
+def make_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="interactive_vit_tpu_torch server (PyTorch + CUDA)")
     parser.add_argument("--host", default="127.0.0.1")
@@ -157,18 +217,44 @@ def main(argv=None) -> None:
                         help="saved-graph library; a variant's chain graph "
                              "is generated into it when missing (default: "
                              "static/graphs, read only)")
+    parser.add_argument("--frontend-dir", default=None,
+                        help="frontend assets to serve (default: the "
+                             "repository's frontend/)")
+    parser.add_argument("--plugin-dirs", default="",
+                        help="comma-separated directories of node-kind "
+                             "plugins to register (files that import JAX "
+                             "are skipped)")
     parser.add_argument("--seed", type=int, default=0,
                         help="seed of the random weight init")
-    parser.add_argument("--max-batch", type=int, default=8)
-    parser.add_argument("--max-wait-ms", type=float, default=3.0)
+    parser.add_argument("--max-batch", type=int, default=8,
+                        help="most requests of one graph signature run as "
+                             "one batched pass")
+    parser.add_argument("--max-wait-ms", type=float, default=3.0,
+                        help="how long a group waits for more requests")
+    parser.add_argument("--pipeline-depth", type=int, default=1,
+                        help="dispatched groups in flight before the "
+                             "oldest is materialized (1 overlaps a group's "
+                             "copies to the host with the next group's "
+                             "host pass and kernels; 0 = none)")
+    parser.add_argument("--compute-timeout-s", type=float, default=120.0,
+                        help="per-request /compute deadline; past it the "
+                             "request gets 503")
+    parser.add_argument("--warmup", action="store_true",
+                        help="run each model's saved graph at batch 1 and "
+                             "at --max-batch before serving (kernel builds "
+                             "and allocator growth off the first request)")
     parser.add_argument("-v", "--verbose", action="store_true")
-    args = parser.parse_args(argv)
+    return parser
 
+
+def main(argv=None) -> None:
+    args = make_parser().parse_args(argv)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    models = [m for m in args.models.split(",") if m]
     app = build_app(
-        models=[m for m in args.models.split(",") if m],
+        models=models,
         graphs_dir=args.graphs_dir,
         dtype_name=args.dtype,
         device=args.device,
@@ -176,7 +262,13 @@ def main(argv=None) -> None:
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms,
         attn_impl_name=args.attn,
+        frontend_dir=args.frontend_dir,
+        plugin_dirs=[d for d in args.plugin_dirs.split(",") if d],
+        compute_timeout_s=args.compute_timeout_s,
+        pipeline_depth=args.pipeline_depth,
     )
+    if args.warmup:
+        warmup(app, models, batch_sizes=sorted({1, max(1, args.max_batch)}))
     app.serve(args.host, args.port)
 
 
