@@ -214,8 +214,9 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      probs and mean where the block's taps ask for them, within their
      bounds; no lut entry may differ in f32, and in bf16 only a near tie
      may); the f32 request must match the plain path from the image at
-     1e-4; one more request logs the host time spent in the matching,
-     the merges and the merge map;
+     1e-4; one more request, through the eager pass (a replay calls no
+     Python), logs the host time spent in the matching, the merges and
+     the merge map;
    each checked for shapes, finiteness, probs rows summing to 1 and
    agreement with the port's plain path on the card (the kernels' plain
    versions in every block) and for the launches of every kernel, then
@@ -228,13 +229,43 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    to the single responses' bounds. The launch counts of the whole path
    must be exactly the kernels' launches a pass times the passes (each
    sequential request, each group the batcher formed, the direct group)
-   plus the other model's request. Each path also prints its
-   ``/metrics`` p50s, the sizes of the groups the batcher formed, and one
-   ``executor.run`` under ``torch.profiler`` (device busy share, the
-   kernels that take the most time). Then a throughput probe of micro-
-   batched serving (BASELINE config 5): vit_b16 bf16 with the ``attn`` +
-   ``r`` taps on 3 blocks, 8 closed-loop clients of 8 requests each, on
-   one server whose ``--max-batch`` is 1, 8, 8 and 1 in turn:
+   plus the other model's request. Every request runs the executor's
+   compiled path: the first of a signature (a request alone, or a group's
+   power-of-two bucket) is one eager pass and its CUDA graph capture,
+   every later one a replay; no sequential request may capture again. A
+   replay calls no kernel wrapper, so this script counts its launches
+   (``count_replays``): the wrapper calls that a capture issued into its
+   graph are taken back off the counters and added again for each replay
+   of that program. Those replay counts are copied from the capture; the
+   profiled replay of every path (int8 weight-only included: none of the
+   port's kernels) checks them against the kernels the card ran, by name
+   (f). Then, on every path: (a)
+   the replay of the image a program was captured with and (b) of a
+   second image, each against the eager pass (``use_jit=False``) of the
+   same request, bit for bit (an output that is not must lie within the
+   path's bound against the eager one, and phase 6 lists it), each
+   program's recorded launches the path's kernels a pass; the replay's and the
+   eager pass's walls (median of 3) and one profiled run of each (device
+   busy share, the kernels that take the most time; the same kernels by
+   name in both); each capture's time, ``memory_reserved`` and the
+   cache. On the vit_b16 path also: (c) four deferred replays of vit_b16
+   and vit_t16 interleaved and two pipelined groups of one program, each
+   against its eager pass; (d) a ``cos`` node on the logits whose A is
+   edited: a cache hit, no new capture, the new values; (e) a node kind
+   that reads back to the host (``.item()``) must raise ``NodeError``
+   naming it, cache nothing, and leave the card serving. On every path,
+   (g): a program captured from a request of new constants (the image 26
+   x 36 pixels larger, the path's head subsets) replays its eager result
+   bit for bit after every device-constant cache was emptied and memory
+   of those constants' sizes on the capture's stream was filled with NaN
+   and zeros (the program holds the constants its graph reads). Each path also
+   prints its ``/metrics`` p50s and the sizes of the groups the batcher
+   formed. Then a throughput probe of micro-batched serving (BASELINE
+   config 5): vit_b16 bf16 with the ``attn`` + ``r`` taps on 3 blocks,
+   its programs for a request alone and the buckets 2, 4 and 8 captured
+   first (their times and ``memory_reserved`` logged), 8 closed-loop
+   clients of 8 requests each, on one server whose ``--max-batch`` is 1,
+   8, 8 and 1 in turn:
    requests/s, the batch sizes, the client p50, the compute p50 and its
    share a request, and 6 requests in sequence first (the concurrency-1
    p50); then ``POST /profile`` (row 1's kernels by name) and
@@ -293,8 +324,11 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    No configuration gives the trainable attentions operands off the
    16-byte grid, so their FMA routes have no main-path launch (phase 3
    holds them against their plain versions).
-6. result  -- a JSON line describing the kernels, then the final line
-   ``{"ok": true, "device": {...}}``.
+6. result  -- the profiles taken again, the replayed outputs that were
+   not the eager pass's bit for bit, a table of the compiled path (each
+   served path's replay and eager walls, profiled walls and device busy,
+   capture times, ``memory_reserved``), a JSON line describing the
+   kernels, then the final line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX. Weights are random (seeded), so the logits are
 meaningless as classifications; what is checked is that the served path
@@ -313,6 +347,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import weakref
 
 import numpy as np
 
@@ -2032,7 +2067,7 @@ def chain_request(graph_obj, image, taps, node_params=None):
 PROFILE_RETRIES = []
 
 
-def profiled(run, what: str, expect=None, tries: int = 3) -> None:
+def profiled(run, what: str, expect=None, tries: int = 3):
     """``run()`` (which returns its own wall ms, synchronized) under
     ``torch.profiler``, then ``report_profile`` (``expect`` as there).
     CUPTI can drop a kernel's record from a long trace: one trace in each
@@ -2043,7 +2078,8 @@ def profiled(run, what: str, expect=None, tries: int = 3) -> None:
     than ``expect`` and none of an absent one is taken again, up to
     ``tries`` times, and recorded in PROFILE_RETRIES; the run fails if
     every try falls short. A trace that shows more, or a kernel expected to
-    be absent, fails at once (``report_profile``)."""
+    be absent, fails at once (``report_profile``). Returns
+    ``report_profile``'s (wall ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2062,8 +2098,7 @@ def profiled(run, what: str, expect=None, tries: int = 3) -> None:
                 log(f"  {what}: the trace shows {seen} of {expect}: a "
                     f"record lost; profiling again")
                 continue
-        report_profile(prof, wall_ms, what, expect)
-        return
+        return report_profile(prof, wall_ms, what, expect)
     raise AssertionError(f"{what}: each of {tries} traces showed fewer "
                          f"launches than {expect}: {short}")
 
@@ -2078,15 +2113,17 @@ def synchronized_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def profile_request(app, graph, taps, tag, expect=None) -> None:
+def profile_request(executor, graph, taps, tag, expect=None, what="replay"):
     """One ``executor.run`` of a served request under ``torch.profiler``
-    (``profiled``, ``expect`` as there)."""
-    profiled(lambda: synchronized_ms(lambda: app.executor.run(graph, taps)),
-             f"{tag} profile of one executor.run", expect)
+    (``profiled``, ``expect`` as there); returns (wall ms, busy ms)."""
+    return profiled(lambda: synchronized_ms(
+        lambda: executor.run(graph, taps)),
+        f"{tag} profile of one executor.run ({what})", expect)
 
 
-def time_host_spans(app, graph, taps, tag, spans) -> None:
-    """One ``executor.run`` of a served request without the profiler, each
+def time_host_spans(executor, graph, taps, tag, spans) -> None:
+    """One eager ``executor.run`` (``use_jit=False``: a replay calls no
+    Python) of a served request without the profiler, each
     (module, name) of ``spans`` wrapped for the run to sum the host time of
     its calls (``time.perf_counter``; nothing inside them waits for the
     device, so this is the time the host takes to issue them). Logs each
@@ -2107,13 +2144,13 @@ def time_host_spans(app, graph, taps, tag, spans) -> None:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        app.executor.run(graph, taps)
+        executor.run(graph, taps)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    log(f"  {tag} host time in one executor.run (perf_counter, no "
+    log(f"  {tag} host time in one eager executor.run (perf_counter, no "
         f"profiler): wall {wall_ms:.2f} ms; " + "; ".join(
             f"{name} x{n} {t * 1e3:.3f} ms" for name, (n, t) in spent.items())
         + f"; together {sum(t for _, t in spent.values()) * 1e3:.3f} ms")
@@ -2137,12 +2174,13 @@ def kernels_by_name(prof, parts) -> dict:
             for part in parts}
 
 
-def report_profile(prof, wall_ms: float, what: str, expect=None) -> None:
+def report_profile(prof, wall_ms: float, what: str, expect=None):
     """Log a profile's host wall time, device busy time (the sum of kernel
     times: the port runs on one stream, so kernels do not overlap) and the
-    kernels that take the most device time. ``expect``: {a substring of a
-    kernel's name: the launches the profile must show of the kernels whose
-    names hold it} (0: none may run)."""
+    kernels that take the most device time; returns (wall ms, busy ms), or
+    (wall ms, None) when the profiler saw no kernel. ``expect``: {a
+    substring of a kernel's name: the launches the profile must show of
+    the kernels whose names hold it} (0: none may run)."""
     kernels = device_kernels(prof)
     busy = sum(t for t, _, _ in kernels)
     if not kernels:
@@ -2151,7 +2189,7 @@ def report_profile(prof, wall_ms: float, what: str, expect=None) -> None:
                                  f"{sorted(expect)} cannot be checked")
         log(f"  {what}: wall {wall_ms:.2f} ms; device time not measured "
             f"(the profiler saw no kernel)")
-        return
+        return wall_ms, None
     if expect:
         seen = kernels_by_name(prof, expect)
         if seen != expect:
@@ -2159,14 +2197,16 @@ def report_profile(prof, wall_ms: float, what: str, expect=None) -> None:
                                  f"{expect}")
         spent = {part: sum(t for t, _, name in kernels if part in name)
                  for part, n in expect.items() if n}
-        log(f"  {what}: kernels by name {seen} (as expected); their device "
-            f"time " + ", ".join(f"{part} {t:.3f} ms"
-                                 for part, t in spent.items()))
+        absent = sum(1 for n in expect.values() if not n)
+        log(f"  {what}: kernels by name { {k: n for k, n in seen.items() if n} }"
+            f" and none of {absent} others (as expected)"
+            + "".join(f"; {part} {t:.3f} ms" for part, t in spent.items()))
     top = sorted(kernels, reverse=True)[:6]
     log(f"  {what}: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
         f"({100 * busy / wall_ms:.1f}%, idle "
         f"{100 - 100 * busy / wall_ms:.1f}%); top: " + "; ".join(
             f"{name[:48]} x{n} {t:.3f} ms" for t, n, name in top))
+    return wall_ms, busy
 
 
 def post(url: str, body: bytes) -> bytes:
@@ -2223,14 +2263,16 @@ class Path:
     profiled request (and for ``other``'s, its own). ``f32_rel``: a
     ``dtype="float32"`` path's requests
     are held to F32_BOUND of each output's scale (``check_response``'s
-    ``rel``) where F32_BOUND alone would not hold through its depth."""
+    ``rel``) where F32_BOUND alone would not hold through its depth.
+    ``compiled_extras``: the path also runs ``compiled_path_extras``."""
 
     def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
                  other=None, dtype="bfloat16", attn="auto", f32=True,
                  chain=(), lockstep=None, host_spans=(), f32_kernels=None,
-                 profile_kernels=None, f32_rel=False):
+                 profile_kernels=None, f32_rel=False, compiled_extras=False):
         self.model, self.family, self.cfg = model, family, cfg
+        self.compiled_extras = compiled_extras
         self.f32_rel = f32_rel
         self.f32_kernels = kernels if f32_kernels is None else f32_kernels
         self.profile_kernels = profile_kernels
@@ -2499,6 +2541,361 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
     return errs, uses, scales
 
 
+# Every replayed output that was not the eager pass's bit for bit (each
+# then held to its path's bound against the eager result), as "<what>:
+# {output: max abs difference}"; phase 6 prints them before the result.
+REPLAY_DIFFS = []
+# One row a served path for phase 6's table of the compiled path: (tag,
+# replay and eager walls, their profiled walls and device busy, the
+# captures' seconds, memory_reserved).
+COMPILED = []
+
+
+def launch_counters():
+    """(wrapper, attribute) of every kernel launch counter in the port's
+    loaded modules: an int attribute of a function whose name ends in
+    ``launches`` (``fused_attn_block.launches``, ``.tome_launches``,
+    ``attention_train.mma_fwd_launches``, ...)."""
+    out, seen = [], set()
+    for name, mod in list(sys.modules.items()):
+        if not name.startswith("interactive_vit_tpu_torch.") or mod is None:
+            continue
+        for fn in list(vars(mod).values()):
+            attrs = getattr(fn, "__dict__", None)
+            if not callable(fn) or not attrs or id(fn) in seen:
+                continue
+            seen.add(id(fn))
+            out += [(fn, a) for a, v in attrs.items()
+                    if a.endswith("launches") and type(v) is int]
+    return out
+
+
+# each captured program's launches: the wrapper calls its capture issued
+# into its graph, as [(wrapper, attribute, count)]
+RECORDED = weakref.WeakKeyDictionary()
+
+
+def count_replays() -> None:
+    """Count the compiled path's launches in the wrappers' counters as an
+    eager pass counts them. A capture calls each wrapper, which counts the
+    launch that it records into the graph, though nothing runs on the card
+    then: those counts are taken back off the counters and recorded for
+    the program. A replay runs the recorded kernels without calling a
+    wrapper: each replay adds its program's record. These counts are thus
+    copied from the capture; the profiled replay of every served path
+    (``run_path``) checks them by name against the kernels the card
+    ran."""
+    from interactive_vit_tpu_torch.graph.executor import Executor
+
+    capture, replay = Executor._capture, Executor._replay
+
+    def counted_capture(self, prog, dyn):
+        counters = launch_counters()
+        before = [getattr(fn, a) for fn, a in counters]
+        try:
+            capture(self, prog, dyn)
+        finally:
+            after = [getattr(fn, a) for fn, a in counters]
+            for (fn, a), n in zip(counters, before):
+                setattr(fn, a, n)
+        RECORDED[prog] = [(fn, a, y - x) for (fn, a), x, y
+                          in zip(counters, before, after) if y != x]
+
+    def counted_replay(self, prog, inputs, values):
+        handle = replay(self, prog, inputs, values)
+        for fn, a, n in RECORDED[prog]:
+            setattr(fn, a, getattr(fn, a) + n)
+        return handle
+
+    Executor._capture, Executor._replay = counted_capture, counted_replay
+
+
+def port_kernel_names():
+    """The name of every ``__global__`` kernel in the port's sources: a
+    profile of a path that runs none of them expects each 0 times."""
+    import re
+
+    names = set()
+    for root, _, files in os.walk(os.path.join(
+            HERE, "interactive_vit_tpu_torch", "csrc")):
+        for fname in files:
+            with open(os.path.join(root, fname)) as fh:
+                # a declaration runs from __global__ to its body or ";"
+                for decl in re.findall(r"__global__[^{;]*", fh.read()):
+                    names |= set(re.findall(r"\b(\w+_kernel)\s*\(", decl))
+    if not names:
+        raise AssertionError("no __global__ kernel found in the sources")
+    return sorted(names)
+
+
+def watch_captures(executor):
+    """Record each CUDA graph capture of ``executor`` as (its bucket, or
+    None for a ``run``'s program; seconds)."""
+    seen, real = [], executor._capture
+
+    def timed(prog, dyn):
+        t0 = time.perf_counter()
+        real(prog, dyn)
+        seen.append((prog.k, time.perf_counter() - t0))
+
+    executor._capture = timed
+    return seen
+
+
+def median_ms(fn, n: int = 3) -> float:
+    """The median of ``n`` synchronized host walls of ``fn()`` (one call
+    first, untimed)."""
+    fn()
+    return float(np.median([synchronized_ms(fn) for _ in range(n)]))
+
+
+def compare_replay(tag, path, got, want, what) -> str:
+    """A replayed result against the eager pass (``use_jit=False``) of the
+    same request: equal bit for bit (the same kernels on the same shapes
+    and routes). Where an output is not, it must lie within the path's
+    bound against the eager result, and the difference is recorded in
+    REPLAY_DIFFS for phase 6."""
+    import torch
+
+    g = {f"{i}/{ch}": v for i, sub in got.items() for ch, v in sub.items()}
+    w = {f"{i}/{ch}": v for i, sub in want.items() for ch, v in sub.items()}
+    if sorted(g) != sorted(w):
+        raise AssertionError(f"{tag} {what}: replayed outputs {sorted(g)}, "
+                             f"eager {sorted(w)}")
+    diff = {k: float(np.abs(g[k] - w[k]).max()) for k in w
+            if not np.array_equal(g[k], w[k])}
+    if not diff:
+        return "bit for bit"
+    eager = (torch.from_numpy(want[path.head_node]["o"]),
+             {i: {ch: torch.from_numpy(want[i][ch]) for ch in chs}
+              for i, chs in path.tap_nodes.items()})
+    check_response(got, path, eager, f"{tag} {what}, replay vs eager",
+                   bf16=path.dtype != "float32", rel=path.f32_rel)
+    REPLAY_DIFFS.append(f"{tag} {what}: {diff}")
+    return f"within its bounds, differing in {diff}"
+
+
+def compiled_path_check(app, eager, path, graph, images, tag, captured,
+                        counters):
+    """The compiled path of one served path, after its requests: (a) the
+    replay of the image the program was captured with and (b) of another
+    image, each against the eager pass (``use_jit=False``) of the same
+    request; (f) the launches that a replay of the program adds
+    (``count_replays``: those its capture recorded) are each of the path's
+    kernels its count a pass, as the profiled replay in ``run_path`` shows
+    by name; neither captures again; then ``evicted_constants_check``
+    (g). Returns the notes and the replay and eager walls
+    (``median_ms``)."""
+    taps = path.taps()
+
+    def graph_of(j):
+        return chain_graph(graph, images[j], path.node_params)
+
+    n_cap = len(captured)
+    notes = []
+    for j, what in ((0, "the captured image"), (1, "a second image")):
+        before = {k: fn.launches for k, fn in counters.items()}
+        got = app.executor.run(graph_of(j), taps)
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+        if not app.executor.last_stats.cache_hit:
+            raise AssertionError(f"{tag} {what}: not a cache hit")
+        want = {k: path.kernels.get(k, 0) for k in counters}
+        if launched != want:
+            raise AssertionError(f"{tag} {what}: one replay added the "
+                                 f"launches {launched} that its capture "
+                                 f"recorded; expected {want}")
+        same = compare_replay(tag, path, got, eager.run(graph_of(j), taps),
+                              what)
+        notes.append(f"{what} {same}")
+    if len(captured) != n_cap:
+        raise AssertionError(f"{tag}: a replay captured again")
+    walls = {name: median_ms(lambda ex=ex: ex.run(graph_of(1), taps))
+             for name, ex in (("replay", app.executor), ("eager", eager))}
+    notes.append(evicted_constants_check(app.executor, eager, path, graph,
+                                         tag, captured))
+    return notes, walls
+
+
+def reads_back_kind():
+    """A node kind that reads a value back to the host inside its pass
+    (``.item()``): it cannot be captured into a CUDA graph."""
+    from interactive_vit_tpu_torch.graph.registry import NodeKind
+
+    class ReadsBack(NodeKind):
+        def io(self, params):
+            return {"ins": ["o"], "outs": ["o"]}
+
+        def fn(self, params):
+            return lambda ins: {"o": ins["o"] * float(ins["o"].sum().item())}
+
+    return ReadsBack("chip_smoke_reads_back")
+
+
+def compiled_path_extras(app, eager, path, graph, images, captured):
+    """The vit_b16 path's further checks of the compiled path: (c) four
+    deferred replays of two signatures interleaved (vit_b16, vit_t16,
+    vit_b16, vit_t16; one shared capture pool) and two pipelined groups of
+    2 of one program, each against its eager pass; (d) a ``cos`` node on
+    the logits: an edit of its A replays the cached program (a cache hit,
+    no new capture) with the new value; (e) a node kind that cannot be
+    captured raises ``NodeError`` naming it, caches nothing, and the card
+    serves on."""
+    import torch
+    from interactive_vit_tpu_torch.graph.executor import NodeError
+    from interactive_vit_tpu_torch.graph.ir import Graph
+
+    ex, taps, opath = app.executor, path.taps(), path.other
+    ograph = app.graphs.load(opath.model + ".json")
+
+    def b16(j):
+        return chain_graph(graph, images[j], path.node_params)
+
+    def t16(j):
+        return chain_graph(ograph, images[j][:, :opath.img, :opath.img])
+
+    # (c) interleaved signatures, every result on its way before any is read
+    order = [(b16(2), path), (t16(3), opath), (b16(3), path), (t16(2), opath)]
+    for g, p in order[:2]:  # capture the two programs first
+        ex.run(g, p.taps())
+    handles = [ex.run(g, p.taps(), defer=True) for g, p in order]
+    notes = []
+    for n, ((g, p), h) in enumerate(zip(order, handles)):
+        notes.append(compare_replay(p.model, p, h.materialize(),
+                                    eager.run(g, p.taps()),
+                                    f"interleaved replay {n}"))
+    # (c) two groups of one program in flight at once
+    groups = [[b16(0), b16(1)], [b16(2), b16(3)]]
+    ex.run_stacked(groups[0], taps)
+    handles = [ex.run_stacked(gs, taps, defer=True) for gs in groups]
+    for n, (gs, h) in enumerate(zip(groups, handles)):
+        for j, (got, want) in enumerate(zip(h.materialize(),
+                                            eager.run_stacked(gs, taps))):
+            notes.append(compare_replay(path.model, path, got, want,
+                                        f"pipelined group {n} result {j}"))
+    log(f"  (c) 4 interleaved deferred replays of vit_b16 and vit_t16 and 2 "
+        f"pipelined groups of 2 (4 results) against their eager passes: "
+        f"{notes.count('bit for bit')} of {len(notes)} bit for bit")
+
+    # (d) a cos edit reuses the captured program
+    def with_cos(a):
+        g = b16(1)
+        c = g.add_node("cos", {"A": str(a), "b": "0.25"})
+        g.connect(g.nodes[path.head_node], "o", c, "o")
+        return g, taps + [(c.index, "o")], c.index
+
+    g, ctaps, ci = with_cos(1.0)
+    first = ex.run(g, ctaps)
+    n_cap = len(captured)
+    g, ctaps, ci = with_cos(2.5)
+    t0 = time.perf_counter()
+    edited = ex.run(g, ctaps)
+    edit_ms = (time.perf_counter() - t0) * 1e3
+    if not ex.last_stats.cache_hit or len(captured) != n_cap:
+        raise AssertionError(f"(d) the cos edit: cache hit "
+                             f"{ex.last_stats.cache_hit}, captures "
+                             f"{len(captured) - n_cap}")
+    head = torch.from_numpy(edited[path.head_node]["o"]).bfloat16()
+    want = torch.cos(torch.tensor(2.5).bfloat16() * head
+                     + torch.tensor(0.25).bfloat16()).float().numpy()
+    err = float(np.abs(edited[ci]["o"] - want).max())
+    # one bf16 ulp of a value in [-1, 1]: the card's cos and the host's
+    # may round to either side
+    if err > 2 ** -8 or np.array_equal(edited[ci]["o"], first[ci]["o"]):
+        raise AssertionError(f"(d) the cos edit: max abs err {err} against "
+                             f"cos(2.5 x + 0.25) in bf16, or unchanged")
+    eq = np.array_equal(edited[ci]["o"], eager.run(g, ctaps)[ci]["o"])
+    log(f"  (d) cos(A x + 0.25) on the logits, A 1.0 -> 2.5: a cache hit "
+        f"and no new capture ({edit_ms:.2f} ms, the request's wall); max "
+        f"abs err against cos(2.5 x + 0.25) in bf16 on the host {err:.3g} "
+        f"(bound 2^-8); the replay's cos {'equals' if eq else 'differs from'}"
+        f" the eager pass's bit for bit")
+    if not eq:
+        raise AssertionError("(d) the cos edit's replay differs from its "
+                             "eager pass")
+
+    # (e) an uncapturable kind fails the request, attributed, no fallback
+    reads_back_kind().register(app.reg)
+    g = Graph()
+    a = g.add_node("cos")
+    b = g.add_node("chip_smoke_reads_back")
+    g.connect(a, "o", b, "o")
+    g.add_input(np.ones(64, np.float32), a, "o")
+    try:
+        ex.run(g, "all")
+    except NodeError as err:
+        if err.node_index != 1 or ex.is_compiled(g, "all"):
+            raise AssertionError(f"(e) attributed to node {err.node_index}, "
+                                 f"cached {ex.is_compiled(g, 'all')}") from err
+        message = str(err)
+    else:
+        raise AssertionError("(e) a kind that reads back to the host was "
+                             "captured")
+    ex.run(b16(1), taps)
+    if not ex.last_stats.cache_hit:
+        raise AssertionError("(e) the request after the failed capture "
+                             "missed the cache")
+    log(f"  (e) an uncapturable kind (.item() in its pass) raised "
+        f"NodeError: {message[:120]!r}; nothing cached; the next vit_b16 "
+        f"request replayed")
+
+
+def evicted_constants_check(ex, eager, path, graph, tag, captured) -> str:
+    """(g) The device constants that a program's graph reads, evicted from
+    their caches: a request of new constants (the path's image 26 x 36
+    pixels larger, its node params) is captured, every device-constant
+    cache emptied, and tensors of the evicted constants' sizes, 64 of each,
+    allocated on the stream the warm pass built them on and filled with
+    NaN (an index with 0). The replay must still equal the eager pass bit
+    for bit: the program holds the constants. Returns a note."""
+    import torch
+    from interactive_vit_tpu_torch.runtime import constants
+
+    h, w = path.img if isinstance(path.img, tuple) else (path.img, path.img)
+    image = np.random.default_rng(7).random((3, h + 26, w + 36),
+                                            dtype=np.float32)
+    taps = path.taps()
+
+    def request():
+        return chain_graph(graph, image, path.node_params)
+
+    constants.clear_all()
+    n_cap = len(captured)
+    ex.run(request(), taps)
+    with constants.retained() as seen:
+        want = eager.run(request(), taps)
+    fill = [(t.shape, t.dtype) for t in flatten_tensors(seen)]
+    constants.clear_all()
+    del seen
+    with torch.cuda.stream(ex._stream):
+        filler = [torch.full(shape, float("nan") if dtype.is_floating_point
+                             else 0, dtype=dtype, device=ex.device)
+                  for shape, dtype in fill for _ in range(64)]
+    got = ex.run(request(), taps)
+    same = (ex.last_stats.cache_hit and len(captured) == n_cap + 1
+            and sorted(got) == sorted(want)
+            and all(np.array_equal(got[i][ch], want[i][ch])
+                    for i in want for ch in want[i]))
+    del filler
+    if not fill or not same:
+        raise AssertionError(f"{tag} (g): {len(fill)} constants; the replay "
+                             f"after their eviction "
+                             f"{'equals' if same else 'differs from'} its "
+                             f"eager pass (or was not a replay)")
+    return (f"(g) {h + 26} x {w + 36}: {len(fill)} constants evicted and "
+            f"their sizes refilled, the replay bit for bit")
+
+
+def flatten_tensors(tree):
+    """The tensors of a nest of lists and tuples."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in flatten_tensors(v)]
+    return []
+
+
 def run_path(path, device, graphs_dir, counters) -> dict:
     """One path: warm-up, then with every launch count at 0, ``seq``
     requests in sequence, ``conc`` at once, one group of max(2, ``conc``)
@@ -2511,12 +2908,27 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     k_group = max(2, path.conc)
     images = [rng.random((3, *shape), dtype=np.float32)
               for _ in range(max(path.seq + path.conc, k_group))]
+    import gc
+
+    import torch
+
     opath = path.other
     variants = [path.model] + ([opath.model] if opath else [])
     tag = f"{path.model} {path.dtype}"
+    # the earlier paths' servers and their capture pools go first, so that
+    # memory_reserved below is this path's
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved() / 2 ** 30
     app, httpd, url = serve(variants, path.dtype, device, graphs_dir,
                             path.attn)
     try:
+        from interactive_vit_tpu_torch.graph.executor import Executor
+
+        # the path's requests replay captured programs; the same requests
+        # through the eager pass are their reference (compiled_path_check)
+        eager = Executor(app.reg, use_jit=False, device=device)
+        captured = watch_captures(app.executor)
         graph = app.graphs.load(path.model + ".json")
         model = app.reg.get_node(path.model + ":head").model
         bodies = [chain_request(graph, im, path.taps(), path.node_params)
@@ -2527,7 +2939,7 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             other_body = chain_request(app.graphs.load(opath.model + ".json"),
                                        other_image, opath.taps())
             other_model = app.reg.get_node(opath.model + ":head").model
-        post(url + "/compute", bodies[0])  # warms the allocator
+        post(url + "/compute", bodies[0])  # the capture of its program
         sizes = []  # the sizes of the groups the batcher dispatches
         app.batcher.on_dispatch = lambda g, taps, b, n: sizes.append(n)
         # the images of each group the batcher runs as one pass
@@ -2544,10 +2956,14 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             fn.launches = 0
         batches0 = app.metrics.counters.get("batches", 0)
         lat, raws = [], []
+        n_cap = len(captured)
         for body in bodies[:path.seq]:
             t0 = time.perf_counter()
             raws.append(post(url + "/compute", body))
             lat.append(time.perf_counter() - t0)
+        if len(captured) != n_cap:
+            raise AssertionError(f"{tag}: a sequential request captured "
+                                 f"again: every one must replay")
         per_request = {k: fn.launches / path.seq for k, fn in counters.items()}
         conc = [None] * path.conc
 
@@ -2578,16 +2994,35 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         counts = {k: fn.launches for k, fn in counters.items()}
         metrics = json.loads(urllib.request.urlopen(
             url + "/metrics", timeout=30).read())
-        profile_request(app, chain_graph(graph, images[0], path.node_params),
-                        path.taps(), tag, path.profile_kernels)
+        prof_graph = chain_graph(graph, images[0], path.node_params)
+        prof = {what: profile_request(ex, prof_graph, path.taps(), tag,
+                                      path.profile_kernels, what)
+                for what, ex in (("replay", app.executor),
+                                 ("eager, use_jit=False", eager))}
         if opath and opath.profile_kernels:
-            profile_request(app, chain_graph(app.graphs.load(
+            profile_request(app.executor, chain_graph(app.graphs.load(
                 opath.model + ".json"), other_image), opath.taps(),
                 f"{opath.model} {path.dtype}", opath.profile_kernels)
         if path.host_spans:
-            time_host_spans(app, chain_graph(graph, images[0],
-                                             path.node_params),
+            time_host_spans(eager, chain_graph(graph, images[0],
+                                               path.node_params),
                             path.taps(), tag, path.host_spans)
+        notes, walls = compiled_path_check(app, eager, path, graph, images,
+                                           tag, captured, counters)
+        if path.compiled_extras:
+            compiled_path_extras(app, eager, path, graph, images, captured)
+        reserved = torch.cuda.memory_reserved() / 2 ** 30 - reserved0
+        (rw, rb), (ew, eb) = prof.values()
+        COMPILED.append((tag, walls["replay"], walls["eager"], rw, rb, ew,
+                         eb, [s for _, s in captured], reserved))
+        log(f"  {tag} compiled path: replay vs eager pass: "
+            + "; ".join(notes) + f"; wall (median of 3, synchronized) "
+            f"replay {walls['replay']:.2f} ms, eager {walls['eager']:.2f} "
+            f"ms; captures (bucket, ms) "
+            f"{[(k, round(t * 1e3, 1)) for k, t in captured]}; "
+            f"memory_reserved {reserved:.2f} GiB above the path's start "
+            f"(the models, the allocator's cache, the capture pool), "
+            f"{app.executor.cache_info()}")
     finally:
         stop(app, httpd)
 
@@ -2620,10 +3055,13 @@ def run_path(path, device, graphs_dir, counters) -> dict:
     refs = {}
 
     def ref(ks, j):
+        # a group ran padded to its power-of-two bucket with copies of its
+        # first image: the reference runs the same batch
+        padded = ks + ks[:1] * ((1 << (len(ks) - 1).bit_length()) - len(ks))
         if ks not in refs:
             head, maps = reference(path, model, np.stack(
-                [images[k] for k in ks]) if len(ks) > 1 else images[ks[0]],
-                device)
+                [images[k] for k in padded]) if len(ks) > 1
+                else images[ks[0]], device)
             refs[ks] = [(head[i:i + 1], {n: {ch: t[i:i + 1]
                                              for ch, t in chs.items()}
                                          for n, chs in maps.items()})
@@ -2754,10 +3192,29 @@ def throughput_probe(device, graphs_dir, taps, clients=8, per_client=8,
     images = [rng.random((3, 224, 224), dtype=np.float32)
               for _ in range(clients)]
     out = {}
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved() / 2 ** 30
     app, httpd, url = serve(["vit_b16"], "bfloat16", device, graphs_dir)
     try:
         graph = app.graphs.load("vit_b16.json")
         bodies = [chain_request(graph, im, taps) for im in images]
+        # the programs of a request alone and of the buckets 2, 4 and 8,
+        # captured before the load, as the server's --warmup does for 1
+        # and --max-batch
+        captured = watch_captures(app.executor)
+        for batch in (None, 2, 4, 8):
+            app.executor.precompile(chain_graph(graph, images[0]), taps,
+                                    batch=batch)
+        log(f"  throughput probe: programs captured before the load "
+            f"(bucket, ms) {[(k, round(t * 1e3, 1)) for k, t in captured]};"
+            f" memory_reserved {torch.cuda.memory_reserved() / 2 ** 30:.2f} "
+            f"GiB ({torch.cuda.memory_reserved() / 2 ** 30 - reserved0:.2f} "
+            f"above the probe's start)")
         for max_batch in (1, 8, 8, 1):
             app.batcher.max_batch = max_batch
             seq = []
@@ -3851,6 +4308,7 @@ def main() -> int:
 
     # 4. the paths through the server
     log(f"phase 4 slice through the HTTP server (at {time.perf_counter() - t_start:.1f} s):")
+    count_replays()
     from interactive_vit_tpu_torch.models import swin, tome, vit
     from interactive_vit_tpu_torch.ops import tome_ops
 
@@ -3891,6 +4349,7 @@ def main() -> int:
     paths = [
         vit_path("vit_b16", 224, b16_taps, row1_bf16, b16_plain, seq=5,
                  conc=4, f32_kernels=row1_f32, profile_kernels=row1_profile,
+                 compiled_extras=True,
                  other=vit_path("vit_t16", 224, b16_taps, row1_bf16,
                                 b16_plain, seq=1, conc=0,
                                 profile_kernels=row1_profile)),
@@ -3991,9 +4450,11 @@ def main() -> int:
                      "row1_qkv_mma_kernel": 12, "row1_s8_mma_kernel": 12,
                      "proj_mma_kernel": 12, "gemm_kernel": 0,
                      "::attention_kernel": 0}),
-        # weight-only int8: the unfused path, no kernel
+        # weight-only int8: the unfused path, none of the port's kernels
+        # (none by name in the profile)
         vit_path("vit_b16", 224, b16_taps, {}, {}, seq=2, conc=0,
-                 dtype="int8", f32=False),
+                 dtype="int8", f32=False, profile_kernels={
+                     name: 0 for name in port_kernel_names()}),
         # ToMe from the repository's saved graph (s and a wired along the
         # chain): the block kernel with key_bias + the key metric in every
         # block, N 197 -> 109; one vit_b16_tome16 request reaches N=11
@@ -4036,6 +4497,21 @@ def main() -> int:
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"profiles taken again (a trace short of the launch counters): "
         f"{len(PROFILE_RETRIES)}" + "".join(f"; {r}" for r in PROFILE_RETRIES))
+    log(f"replayed outputs not equal to the eager pass bit for bit (each "
+        f"within its path's bound): {len(REPLAY_DIFFS)}"
+        + "".join(f"; {r}" for r in REPLAY_DIFFS))
+    log("the compiled path, each served path (ms; walls: median of 3, "
+        "synchronized; profiled: one run under torch.profiler, wall / "
+        "device busy; memory_reserved above the path's start):")
+    def busy(ms):
+        return "not measured" if ms is None else f"{ms:.2f}"
+
+    for tag, rw, ew, prw, prb, pew, peb, caps, gib in COMPILED:
+        log(f"  {tag}: replay {rw:.2f}, eager {ew:.2f} ({ew / rw:.2f}x); "
+            f"profiled replay {prw:.2f} / {busy(prb)}, eager {pew:.2f} / "
+            f"{busy(peb)}; captures "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in caps)}; memory_reserved "
+            f"{gib:.2f} GiB")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         nums = numbers[name]

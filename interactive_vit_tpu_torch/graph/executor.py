@@ -1,12 +1,58 @@
-"""Eager graph executor with the JAX executor's contract.
+"""Graph executor with the JAX executor's contract.
 
 Counterpart of ``interactive_vit_tpu/graph/executor.py``: validates a graph
-with per-node error attribution, resolves a tap spec, runs the nodes in
-topological order on one device, and returns the tapped outputs as
-``{node_index: {channel: array}}``. PyTorch runs eagerly, so there is no
-staging, program cache or jit; untapped outputs are still computed, except
-the expensive optional channels (attention maps, rollout), which node kinds
-skip unless they are tapped or wired (``ir.effective_params``).
+with per-node error attribution, resolves a tap spec, stages the graph once
+for each program signature, runs it on one device, and returns the tapped
+outputs as ``{node_index: {channel: array}}``. Untapped outputs are still
+computed, except the expensive optional channels (attention maps,
+rollout), which node kinds skip unless they are tapped or wired
+(``ir.effective_params``).
+
+Compiled path
+-------------
+``_program_sig`` (topology, node params without each kind's dynamic
+params, input shapes and dtypes, the tap set, ``use_jit`` and, for a
+stacked run, the marker and its bucket) keys an LRU of at most
+``max_cache_entries`` staged programs behind a lock (``cache_info``,
+``clear_cache``; ``is_compiled`` is membership). Staging validates the
+graph and fixes the node order, each node's effective params, its kind's
+``fn`` (``stacked_fn`` in a stacked program) and its static captures,
+placed on the device once. A cache hit skips all of that and refreshes
+only the dynamic captures (``NodeKind.dynamic_params``, such as cos's A
+and b), so an edit of them reuses the program.
+
+On a CUDA device with ``use_jit`` (the default) the first request of a
+signature runs one eager pass on the executor's side stream, from static
+input buffers (the pass builds any kernel source, loads the modules and
+sets the kernels' attributes; its outputs are that request's results),
+and then captures the same pass into a ``torch.cuda.CUDAGraph``, through
+the tapped outputs made f32 and contiguous. Each later request copies its
+inputs and dynamic values into the static buffers, replays the graph, and
+enqueues its outputs' copies into fresh page-locked host buffers behind
+the replay. The copies stay outside the graph, so that a second replay of
+the same program, queued while the first one's results are still being
+read (the batcher's pipelining), cannot overwrite them. All programs
+capture into one shared memory pool. That is safe because every replay
+and every copy runs in order on the one side stream, each replay's
+outputs are copied out before the next replay, and the static inputs lie
+outside the pool. The programs' static outputs stay allocated, so the
+cache also evicts by their bytes (``MAX_CAPTURE_BYTES``). A program also
+holds the cached device constants that its pass read
+(``runtime/constants.py``): the graph keeps only their addresses, and
+their caches are bounded.
+
+A capture that fails raises: ``NodeError`` attributed to the node whose
+work could not be captured where that work raised as it was issued,
+``GraphError`` where only the end of the capture found it void. The
+request fails, the program is not cached, and nothing falls back to an
+eager pass. A replay runs the captured kernels without calling their
+wrappers, so their launch counters (``<wrapper>.launches``) count the
+warm pass's launches and those that the capture recorded, and no replay.
+
+On the CPU, and with ``use_jit=False``, the same staging, cache, refresh
+and stats run and each request runs the staged pass eagerly (on a card,
+on the caller's stream). ``run_eager`` and ``run_timed_eager`` (the
+``/debug_eval`` engine) are always eager.
 
 Tap sets
 --------
@@ -21,23 +67,27 @@ Micro-batches
 ``run_stacked`` runs K graphs that share a group signature as ONE pass:
 each input edge's tensors stack on a new axis 0, every node runs once
 through its kind's ``stacked_fn`` (a model layer folds K into its batch
-axis, so each block kernel launches once with a batch of K), and the
-tapped outputs split into K result dicts equal to K separate ``run``s.
-``defer=True`` (both paths) returns an ``InFlight`` handle: the tapped
-outputs are already on their way to page-locked host buffers behind the
-group's own launches, and ``materialize()`` waits for them -- the
-micro-batcher's pipelining hook.
+axis, so each block kernel launches once with a batch of K), dynamic
+captures stack as per-request rows, and the tapped outputs split into K
+result dicts equal to K separate ``run``s. K is rounded up to a power of
+two (``_stacked_bucket``), padded with copies of request 0, as in the JAX
+executor: the buckets bound the programs, and so the captures and their
+memory, of each signature. ``defer=True`` (both paths) returns an
+``InFlight`` handle: the tapped outputs are already on their way to
+page-locked host buffers behind the group's own launches, and
+``materialize()`` waits for them -- the micro-batcher's pipelining hook.
 
-Not ported yet: compiled execution (CUDA graphs), layouts, pipeline
-folding, meshes and gradient nodes. The JAX executor's content-addressed
-device input cache is not ported (it hides a slow remote transfer that a
-local card does not have).
+Not ported yet: layouts, pipeline folding, meshes and gradient nodes. The
+JAX executor's content-addressed device input cache is not ported (it
+hides a slow remote transfer that a local card does not have).
 """
 
 from __future__ import annotations
 
 import logging
+import threading
 import time
+from collections import OrderedDict
 from typing import Any, Dict, Iterable, List, Optional, Set, Tuple, Union
 
 import numpy as np
@@ -45,6 +95,7 @@ import torch
 
 from interactive_vit_tpu_torch.graph.ir import Graph, GraphError, effective_params
 from interactive_vit_tpu_torch.graph.registry import Registry, registry
+from interactive_vit_tpu_torch.runtime.constants import retained
 from interactive_vit_tpu_torch.runtime.device import require_device
 
 logger = logging.getLogger(__name__)
@@ -66,6 +117,12 @@ def _consumed(graph: Graph) -> Set[Tuple[int, str]]:
     return {(e.src.node.index, e.src.channel)
             for n in graph.nodes for e in n.inputs.values()
             if e.src is not None}
+
+
+def _tap_key(taps: TapSpec) -> str:
+    if isinstance(taps, str):
+        return taps
+    return "|".join(f"{i}:{ch}" for i, ch in sorted(taps))
 
 
 def resolve_taps(
@@ -105,17 +162,46 @@ def resolve_taps(
 
 
 class ExecStats:
-    """Per-run timing of the last ``run``/``run_stacked`` (``execute_s``
-    ends at the dispatch when the run is deferred)."""
+    """Per-run timing of the last ``run``/``run_stacked``: ``stage_s`` the
+    signature, cache lookup and (on a miss) validation and staging,
+    ``compile_s`` the CUDA graph capture (0 on a hit and off the card),
+    ``execute_s`` the pass up to the results on the host (up to the
+    dispatch when the run is deferred), ``cache_hit`` whether the program
+    was in the cache."""
 
     def __init__(self) -> None:
         self.stage_s: float = 0.0
+        self.compile_s: float = 0.0
         self.execute_s: float = 0.0
+        self.cache_hit: bool = False
+
+    def as_dict(self) -> Dict[str, float]:
+        return {
+            "stage_s": self.stage_s,
+            "compile_s": self.compile_s,
+            "execute_s": self.execute_s,
+            "cache_hit": self.cache_hit,
+        }
 
 
 def host_array(t: torch.Tensor) -> np.ndarray:
     """A node output as f32 numpy (the wire's tensor type)."""
     return t.detach().float().cpu().numpy()
+
+
+def _host_tensor(t) -> torch.Tensor:
+    """A graph input as a host tensor (a copy: wire tensors are read-only
+    views of the request bytes)."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu()
+    return torch.from_numpy(np.array(t))
+
+
+def _host_stack(ts) -> torch.Tensor:
+    """One input edge's tensors of a group, stacked on a new axis 0."""
+    if any(isinstance(t, torch.Tensor) for t in ts):
+        return torch.stack([_host_tensor(t) for t in ts])
+    return torch.from_numpy(np.stack([np.asarray(t) for t in ts]))
 
 
 def _tap_order(tap_set) -> List[Tuple[int, str]]:
@@ -131,7 +217,9 @@ class InFlight:
     into a page-locked buffer enqueued right behind the run's own launches,
     with an event recorded after the copies; ``materialize`` waits on that
     event alone, so a later group's kernels, queued meanwhile, never delay
-    this one's results. ``k``: the group's size (None: one ``run``)."""
+    this one's results. ``k``: the group's size (None: one ``run``); a
+    padded group's outputs carry the bucket's rows, of which the first
+    ``k`` are returned."""
 
     def __init__(self, flat: Dict[str, torch.Tensor], k: Optional[int],
                  event=None):
@@ -155,17 +243,92 @@ class InFlight:
         return Executor.split_stacked(flat, self.k)
 
 
-class Executor:
-    """Runs graphs eagerly on ``device`` (the card unless the caller asks
-    for the CPU; raises without a card)."""
+class _Step:
+    """One node of a staged pass: its kind's fn (``stacked_fn`` in a
+    stacked program), its static captures on the device, its input keys in
+    the pass's env, whether its captures are dynamic, and whether its
+    outputs broadcast over the bucket (a node with no input in a stacked
+    program runs once)."""
 
-    def __init__(self, reg: Optional[Registry] = None, device="cuda"):
+    __slots__ = ("index", "name", "fn", "caps", "ins", "dyn", "broadcast")
+
+    def __init__(self, index, name, fn, caps, ins, dyn, broadcast):
+        self.index, self.name, self.fn, self.caps = index, name, fn, caps
+        self.ins, self.dyn, self.broadcast = ins, dyn, broadcast
+
+
+class _Dyn:
+    """A node with dynamic captures: its position in ``graph.nodes`` (the
+    rows of a group are the nodes at that position: an edge-less node's
+    index is not part of the signature), its index in the staging graph,
+    the (shape, dtype) of each dynamic key of its captures, and the static
+    rest, placed."""
+
+    __slots__ = ("pos", "index", "spec", "static")
+
+    def __init__(self, pos, index, spec, static):
+        self.pos, self.index, self.spec, self.static = pos, index, spec, static
+
+
+class _Program:
+    """One signature's staged pass; on a card also its captured graph,
+    static input, dynamic-value and output buffers, the cached device
+    constants that the graph reads (``keep``), and the bytes its static
+    buffers hold."""
+
+    def __init__(self, steps, dyn, input_keys, out_keys, k):
+        self.steps: List[_Step] = steps
+        self.dyn: List[_Dyn] = dyn
+        self.input_keys = input_keys
+        self.out_keys = out_keys
+        self.k: Optional[int] = k  # the bucket of a stacked program
+        self.graph = None
+        self.static_in: List[torch.Tensor] = []
+        self.static_dyn: Dict[int, Dict[str, torch.Tensor]] = {}
+        self.static_out: Dict[str, torch.Tensor] = {}
+        self.keep: list = []
+        self.nbytes = 0
+
+
+class Executor:
+    """Stages, caches and runs graphs on ``device`` (the card unless the
+    caller asks for the CPU; raises without a card). On a card with
+    ``use_jit`` each program signature is captured once into a CUDA graph
+    and replayed; ``use_jit=False`` runs every request eagerly."""
+
+    # LRU bound on staged programs: long-running interactive serving sees
+    # unbounded distinct (graph, shapes, taps) signatures
+    MAX_CACHE_ENTRIES = 64
+    # bound on the bytes that the captured programs' static outputs and
+    # inputs hold on the card; the least recently used programs go first,
+    # the newest always stays. The served paths' caches hold 9.5-214 MB
+    # for their 2-5 programs of buckets 1 and 2 (the most: dinov2_s14_reg
+    # @518 with the maps of block 0; vit_h14@742 149 MB; cache_info in
+    # chip_smoke.py's phase 4 on an H100 80GB), so 64 such programs fit
+    # under it and the count bounds them. It bites on wide taps at large
+    # buckets: dinov2@518 with every map at bucket 8 holds 12 x 6 x 1374^2
+    # f32 maps x 8, ~4.3 GB. The intermediates are not counted:
+    # every capture allocates them from the one shared pool, where they
+    # are reused, so they come to about the largest program's, once.
+    MAX_CAPTURE_BYTES = 8 << 30
+
+    def __init__(self, reg: Optional[Registry] = None, use_jit: bool = True,
+                 max_cache_entries: Optional[int] = None, device="cuda"):
         self.reg = reg or registry()
+        self.use_jit = use_jit
+        self.max_cache_entries = max_cache_entries or self.MAX_CACHE_ENTRIES
         self.device = require_device(device)
         self.last_stats = ExecStats()
-        # run signatures (graph, taps, batch) dispatched once: the first
-        # run of one may build kernel sources and grow the allocator
-        self._seen: Set[str] = set()
+        # signature -> _Program, LRU-ordered; _cache_lock guards the dict
+        # (precompile may fill it from another thread)
+        self._cache: "OrderedDict[str, _Program]" = OrderedDict()
+        self._cache_lock = threading.Lock()
+        # one run's device work at a time: staging, the warm pass and the
+        # capture, a replay with its copies, and the eager debug passes
+        # (an HTTP thread's /debug_eval never overlaps a capture)
+        self._device_lock = threading.RLock()
+        self._stream = None  # the compiled path's side stream
+        self._pool = None  # the captures' shared memory pool
 
     # -- validation -----------------------------------------------------------
     def validate(self, graph: Graph) -> None:
@@ -196,73 +359,367 @@ class Executor:
                         raise NodeError(n.index, n.name,
                                         f"missing input {ch!r}")
 
-    def group_sig(self, graph: Graph, extra=()) -> str:
-        """Batching signature: graphs with equal signatures have the same
-        topology, params, input shapes and (through ``extra``) taps."""
-        return graph.signature(extra=list(extra))
+    # -- signatures -------------------------------------------------------------
+    @staticmethod
+    def _stacked_bucket(k: int) -> int:
+        """Power-of-two batch bucket of a group of ``k``."""
+        return 1 << (k - 1).bit_length()
 
-    def _input(self, t) -> torch.Tensor:
-        # a copy: wire tensors are read-only views of the request bytes
-        return torch.from_numpy(np.array(t)).to(self.device)
-
-    def _stacked_input(self, ts) -> torch.Tensor:
-        # one host stack (a copy) and one transfer for the group
-        return torch.from_numpy(np.stack([np.asarray(t) for t in ts])).to(
-            self.device)
-
-    def _eval_node(self, n, env, tap_set, k: Optional[int] = None) -> None:
-        """Evaluate one node into ``env``, attributing failures to it.
-        ``k``: the group size of a stacked run (every value in ``env``
-        carries a leading axis K): the kind's ``stacked_fn`` runs, or, for
-        a node with no input, ``fn`` once with its outputs broadcast."""
-        kind = self.reg.get_node(n.name)
-        ins = {ch: (env[("in", n.index, ch)] if e.src is None
-                    else env[(e.src.node.index, e.src.channel)])
-               for ch, e in n.inputs.items()}
-        params = effective_params(n, tap_set)
+    def _sig_param_filter(self, n):
+        """Drop each kind's dynamic params from the signature: their
+        values ride as runtime captures (NodeKind.dynamic_params), so an
+        interactive edit reuses the cached program. A kind whose dynamic
+        params also decide capture shapes contributes its shape class
+        (NodeKind.dynamic_sig)."""
         try:
-            caps = kind.captures(params)
-            args = (ins,) if caps is None else (ins, caps)
-            if k is None or not ins:
-                outs = kind.fn(params)(*args)
-                if k is not None:
-                    outs = {ch: v.unsqueeze(0).expand(k, *v.shape)
-                            for ch, v in outs.items()}
-            else:
-                outs = kind.stacked_fn(params)(*args)
-        except NodeError:
-            raise
+            kind = self.reg.get_node(n.name)
+        except KeyError:
+            return n.params
+        dyn = kind.dynamic_params()
+        if not dyn:
+            return n.params
+        filtered = {k: v for k, v in n.params.items() if k not in dyn}
+        try:
+            dsig = kind.dynamic_sig(n.params)
         except Exception as err:  # noqa: BLE001 -- attribution contract
             raise NodeError(n.index, n.name, str(err)) from err
-        for ch, v in outs.items():
-            env[(n.index, ch)] = v
+        if dsig is not None:
+            filtered["__dyn_sig__"] = dsig
+        return filtered
 
-    def _run_sig(self, graph: Graph, tap_set, batch: Optional[int]) -> str:
-        return self.group_sig(graph, extra=[sorted(tap_set), batch])
+    def _program_sig(self, graph: Graph, tap_set,
+                     batch: Optional[int] = None) -> str:
+        """THE cache signature, the one that ``run``, ``run_stacked``,
+        ``is_compiled`` and ``precompile`` use (a drift between them would
+        break the batcher's pipelining: always-False wastes the overlap,
+        wrongly-True stalls finished results behind a capture)."""
+        extra = [_tap_key(tap_set), self.use_jit]
+        # ANY stacked program (k=1 included) gets the marker: run() and
+        # run_stacked([g]) stage different passes (fn vs stacked_fn)
+        if batch is not None:
+            extra += ["stacked", self._stacked_bucket(batch)]
+        return graph.signature(extra=extra,
+                               param_filter=self._sig_param_filter)
+
+    def group_sig(self, graph: Graph, extra=()) -> str:
+        """Batching signature: topology, params, input shapes and (through
+        ``extra``) taps, dynamic params EXCLUDED: requests that differ only
+        in a dynamic value (cos A / b) share one group, their values
+        stacked per request in ``run_stacked``."""
+        return graph.signature(extra=list(extra),
+                               param_filter=self._sig_param_filter)
+
+    def _sig_of(self, graph: Graph, taps: TapSpec, batch: Optional[int]):
+        """(tap set, program signature); a graph whose taps cannot resolve
+        (an unknown kind) raises validation's attributed error."""
+        try:
+            tap_set = resolve_taps(graph, taps, self.reg)
+            return tap_set, self._program_sig(graph, tap_set, batch)
+        except (NodeError, GraphError):
+            raise
+        except Exception:
+            self.validate(graph)
+            raise
+
+    # -- the program cache --------------------------------------------------------
+    def _cache_get(self, sig: str) -> Optional[_Program]:
+        with self._cache_lock:
+            hit = self._cache.get(sig)
+            if hit is not None:
+                self._cache.move_to_end(sig)
+            return hit
+
+    def _cache_put(self, sig: str, prog: _Program) -> None:
+        with self._cache_lock:
+            self._cache[sig] = prog
+            self._cache.move_to_end(sig)
+            held = sum(p.nbytes for p in self._cache.values())
+            while len(self._cache) > 1 and (
+                    len(self._cache) > self.max_cache_entries
+                    or held > self.MAX_CAPTURE_BYTES):
+                _, old = self._cache.popitem(last=False)
+                held -= old.nbytes
 
     def is_compiled(self, graph: Graph, taps: TapSpec,
                     batch: Optional[int] = None) -> bool:
-        """Whether (graph, taps, batch) has run once on this executor
-        (``batch``: a group's size, None for one ``run``). Its first run
-        may build kernel sources with nvcc for tens of seconds, the
-        counterpart of the JAX executor's cold compile: the batcher does
-        not pipeline finished groups behind such a run."""
+        """True if (graph, taps, batch bucket) has a cached program: on a
+        card, a captured graph. The batcher asks before pipelining a
+        dispatch behind finished results (a first run builds kernel
+        sources and captures, for up to tens of seconds)."""
         tap_set = resolve_taps(graph, taps, self.reg)
-        return self._run_sig(graph, tap_set, batch) in self._seen
+        sig = self._program_sig(graph, tap_set, batch)
+        with self._cache_lock:
+            return sig in self._cache
 
-    def _to_host(self, env, tap_set, k: Optional[int]) -> InFlight:
+    def cache_info(self) -> Dict[str, int]:
+        """``entries``: the cached programs; ``captured_bytes``: the bytes
+        their static buffers hold on the card."""
+        with self._cache_lock:
+            return {"entries": len(self._cache),
+                    "captured_bytes": sum(p.nbytes
+                                          for p in self._cache.values())}
+
+    def clear_cache(self) -> None:
+        with self._cache_lock:
+            self._cache.clear()
+
+    # -- staging ------------------------------------------------------------------
+    def _place(self, tree):
+        """A capture tree with every tensor (and numpy array) on the
+        device."""
+        if isinstance(tree, torch.Tensor):
+            return tree if tree.device == self.device else tree.to(self.device)
+        if isinstance(tree, np.ndarray):
+            return torch.from_numpy(np.array(tree)).to(self.device)
+        if isinstance(tree, dict):
+            return {k: self._place(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self._place(v) for v in tree)
+        return tree
+
+    def _stage(self, graph: Graph, tap_set,
+               bucket: Optional[int] = None) -> _Program:
+        """The validated graph's pass, once a signature: the node order,
+        each node's effective params, its kind's fn (``stacked_fn`` for a
+        stacked program of ``bucket`` rows) and its static captures placed
+        on the device. The program keeps no reference to the graph (or its
+        request tensors)."""
+        pos = {id(n): i for i, n in enumerate(graph.nodes)}
+        steps, dyn = [], []
+        for n in graph.order():
+            kind = self.reg.get_node(n.name)
+            params = effective_params(n, tap_set)
+            try:
+                caps = kind.captures(n.params)
+                dynamic = caps is not None and bool(kind.dynamic_params())
+                keys = None
+                if dynamic:
+                    dck = kind.dynamic_capture_keys()
+                    keys = [k for k in caps if dck is None or k in dck]
+                if bucket is None or (not n.inputs and not dynamic):
+                    fn = kind.fn(params)
+                elif dynamic:
+                    fn = kind.stacked_fn(params, {k: 0 if k in keys else None
+                                                  for k in caps})
+                else:
+                    fn = kind.stacked_fn(params)
+                if dynamic:
+                    spec = {k: (tuple(t.shape), t.dtype) for k, t in
+                            ((k, torch.as_tensor(caps[k])) for k in keys)}
+                    dyn.append(_Dyn(pos[id(n)], n.index, spec,
+                                    self._place({k: v for k, v in caps.items()
+                                                 if k not in keys})))
+                    caps = None
+                else:
+                    caps = self._place(caps)
+            except NodeError:
+                raise
+            except Exception as err:  # noqa: BLE001 -- attribution contract
+                raise NodeError(n.index, n.name, str(err)) from err
+            ins = [(ch, ("in", n.index, ch) if e.src is None
+                    else (e.src.node.index, e.src.channel))
+                   for ch, e in n.inputs.items()]
+            steps.append(_Step(n.index, n.name, fn, caps, ins, dynamic,
+                               bucket is not None and not n.inputs
+                               and not dynamic))
+        input_keys = [("in", n.index, ch) for n, ch, _ in graph.input_edges()]
+        return _Program(steps, dyn, input_keys, _tap_order(tap_set), bucket)
+
+    def _dyn_values(self, prog: _Program, graphs: List[Graph]):
+        """{node index: {key: host tensor}}: the dynamic captures of this
+        request (one graph) or of a group's rows (stacked on axis 0),
+        each node's errors attributed to it. A value whose shape or dtype
+        is not the staged one is refused: the program (on a card, its
+        buffers) was built for that one (``NodeKind.dynamic_sig``)."""
+        out = {}
+        for d in prog.dyn:
+            rows = []
+            for g in graphs:
+                n = g.nodes[d.pos]
+                try:
+                    caps = self.reg.get_node(n.name).captures(n.params)
+                    row = {k: torch.as_tensor(caps[k]) for k in d.spec}
+                except Exception as err:  # noqa: BLE001 -- attribution
+                    raise NodeError(n.index, n.name, str(err)) from err
+                for k, t in row.items():
+                    if (tuple(t.shape), t.dtype) != d.spec[k]:
+                        raise NodeError(
+                            n.index, n.name, f"dynamic capture {k!r} is "
+                            f"{tuple(t.shape)} {t.dtype}, the staged program "
+                            f"{d.spec[k][0]} {d.spec[k][1]}: a kind whose "
+                            f"dynamic params decide shapes declares them "
+                            f"in dynamic_sig")
+                rows.append(row)
+            out[d.index] = (rows[0] if prog.k is None else
+                            {k: torch.stack([r[k] for r in rows])
+                             for k in d.spec})
+        return out
+
+    def _pass(self, prog: _Program, env, dyn_caps):
+        """Run the staged steps over ``env`` (the inputs' keys filled);
+        returns the tapped outputs as {"i/ch": tensor}. A node's failure
+        (in a capture: work that cannot be captured, which raises where it
+        is issued) is attributed to it."""
+        for st in prog.steps:
+            try:
+                ins = {ch: env[key] for ch, key in st.ins}
+                caps = dyn_caps[st.index] if st.dyn else st.caps
+                outs = st.fn(ins) if caps is None else st.fn(ins, caps)
+                if st.broadcast:
+                    outs = {ch: v.unsqueeze(0).expand(prog.k, *v.shape)
+                            for ch, v in outs.items()}
+            except NodeError:
+                raise
+            except Exception as err:  # noqa: BLE001 -- attribution contract
+                raise NodeError(st.index, st.name, str(err)) from err
+            for ch, v in outs.items():
+                env[(st.index, ch)] = v
+        return {f"{i}/{ch}": env[(i, ch)] for i, ch in prog.out_keys
+                if (i, ch) in env}
+
+    def _dyn_caps(self, prog: _Program, values) -> Dict[int, Dict]:
+        """Each dynamic node's captures: its static part and ``values``."""
+        return {d.index: {**d.static, **values[d.index]} for d in prog.dyn}
+
+    # -- the passes ---------------------------------------------------------------
+    def _compiled(self) -> bool:
+        return self.use_jit and self.device.type == "cuda"
+
+    def _side(self):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._stream
+
+    def _eager(self, prog: _Program, inputs, values) -> InFlight:
+        """The staged pass run eagerly on the current stream."""
+        env = {key: t.to(self.device)
+               for key, t in zip(prog.input_keys, inputs)}
+        dyn = self._dyn_caps(prog, {i: self._place(v)
+                                    for i, v in values.items()})
+        return self._to_host(self._pass(prog, env, dyn), prog.k)
+
+    def _warm_and_capture(self, prog: _Program, inputs, values,
+                          stats: ExecStats) -> InFlight:
+        """A signature's first request on a card: static buffers, one
+        eager pass on the side stream (its outputs are this request's
+        results), then the capture of that pass."""
+        side = self._side()
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            prog.static_in = [torch.empty(t.shape, dtype=t.dtype,
+                                          device=self.device)
+                              for t in inputs]
+            prog.static_dyn = {i: {k: torch.empty(v.shape, dtype=v.dtype,
+                                                  device=self.device)
+                                   for k, v in vals.items()}
+                               for i, vals in values.items()}
+            self._fill(prog, inputs, values)
+            env = dict(zip(prog.input_keys, prog.static_in))
+            dyn = self._dyn_caps(prog, prog.static_dyn)
+            with retained() as keep:
+                handle = self._to_host(self._pass(prog, env, dyn), prog.k)
+                side.synchronize()
+                t0 = time.perf_counter()
+                self._capture(prog, dyn)
+                stats.compile_s = time.perf_counter() - t0
+            prog.keep = keep
+        prog.nbytes = sum(t.numel() * t.element_size() for t in
+                          [*prog.static_in, *prog.static_out.values()])
+        return handle
+
+    def _capture(self, prog: _Program, dyn) -> None:
+        """Capture the pass from the static buffers into ``prog.graph``
+        (on the side stream, the current one)."""
+        graph = torch.cuda.CUDAGraph()
+        env = dict(zip(prog.input_keys, prog.static_in))
+        void, passed = None, False
+        try:
+            # thread_local: another thread's unrelated CUDA calls (a
+            # health probe, a page-locked allocation) cannot invalidate it
+            graph.capture_begin(pool=self._pool,
+                                capture_error_mode="thread_local")
+            try:
+                outs = self._pass(prog, env, dyn)
+                prog.static_out = {key: t.detach().float().contiguous()
+                                   for key, t in outs.items()}
+                passed = True
+            finally:
+                try:
+                    graph.capture_end()
+                except Exception as err:  # noqa: BLE001 -- a void capture
+                    void = err
+                if void is not None or not passed:
+                    self._stop_pool_recording()
+            if void is not None:
+                raise GraphError(f"CUDA graph capture failed: {void}") \
+                    from void
+        except BaseException:
+            prog.static_out = {}
+            raise
+        prog.graph = graph
+
+    def _stop_pool_recording(self) -> None:
+        """After a void capture: ``capture_end`` raises before it stops
+        the allocator's recording into the shared pool, and the pool then
+        refuses every later capture ("already recording"). Seen on an H100
+        with torch 2.11.0+cu128, even after one ``endAllocateToPool``;
+        ``tests/test_torch_cuda_graphs.py``'s uncapturable-kind case
+        captures again after such a failure. End every recording into it
+        that is left, and give later captures a fresh pool (the cached
+        programs keep theirs)."""
+        dev = (self.device.index if self.device.index is not None
+               else torch.cuda.current_device())
+        for _ in range(8):
+            try:
+                torch._C._cuda_endAllocateToPool(dev, self._pool)
+            except RuntimeError:  # no recording into it is left
+                break
+        self._pool = torch.cuda.graph_pool_handle()
+
+    def _fill(self, prog: _Program, inputs, values) -> None:
+        """Copy a request's inputs and dynamic values into the static
+        buffers (on the current stream, the side one)."""
+        for buf, t in zip(prog.static_in, inputs):
+            buf.copy_(t, non_blocking=True)
+        for i, vals in values.items():
+            for k, v in vals.items():
+                prog.static_dyn[i][k].copy_(v, non_blocking=True)
+
+    def _replay(self, prog: _Program, inputs, values) -> InFlight:
+        side = self._side()
+        with torch.cuda.stream(side):
+            self._fill(prog, inputs, values)
+            prog.graph.replay()
+            return self._to_host(prog.static_out, prog.k)
+
+    def _execute(self, sig: str, prog: _Program, hit: bool, inputs,
+                 values, stats: ExecStats) -> InFlight:
+        """Run a looked-up (hit) or freshly staged program; a new program
+        enters the cache only once its first run (and capture) worked."""
+        if not self._compiled():
+            handle = self._eager(prog, inputs, values)
+        elif hit:
+            handle = self._replay(prog, inputs, values)
+        else:
+            handle = self._warm_and_capture(prog, inputs, values, stats)
+        if not hit:
+            self._cache_put(sig, prog)
+        return handle
+
+    def _to_host(self, outs: Dict[str, torch.Tensor],
+                 k: Optional[int]) -> InFlight:
         """Enqueue the tapped outputs' copies to the host (see InFlight)."""
-        keys = [(i, ch) for i, ch in _tap_order(tap_set) if (i, ch) in env]
         if self.device.type != "cuda":
-            return InFlight({f"{i}/{ch}": env[(i, ch)].detach().float().cpu()
-                             for i, ch in keys}, k)
+            return InFlight({key: t.detach().float().cpu()
+                             for key, t in outs.items()}, k)
         flat = {}
-        for i, ch in keys:
-            src = env[(i, ch)].detach().float().contiguous()
+        for key, t in outs.items():
+            src = t.detach().float().contiguous()
             host = torch.empty(src.shape, dtype=torch.float32,
                                pin_memory=True)
             host.copy_(src, non_blocking=True)
-            flat[f"{i}/{ch}"] = host
+            flat[key] = host
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(self.device))
         return InFlight(flat, k, event)
@@ -270,20 +727,71 @@ class Executor:
     # -- the production path ----------------------------------------------------
     @torch.inference_mode()
     def run(self, graph: Graph, taps: TapSpec = "all", defer: bool = False):
-        """Validate, run and return ``{node_index: {channel: f32 numpy}}``;
-        with ``defer``, the ``InFlight`` handle instead."""
+        """Run one graph and return ``{node_index: {channel: f32 numpy}}``;
+        with ``defer``, the ``InFlight`` handle instead. A cache hit skips
+        validation and staging (the signature guarantees them) and, on a
+        card, replays the captured graph."""
         stats = ExecStats()
         t0 = time.perf_counter()
-        self.validate(graph)
-        tap_set = resolve_taps(graph, taps, self.reg)
-        env: Dict[Any, Any] = {("in", n.index, ch): self._input(e.tensor)
-                               for n, ch, e in graph.input_edges()}
-        stats.stage_s = time.perf_counter() - t0
+        tap_set, sig = self._sig_of(graph, taps, None)
+        inputs = [_host_tensor(e.tensor) for _, _, e in graph.input_edges()]
+        with self._device_lock:
+            prog = self._cache_get(sig)
+            stats.cache_hit = prog is not None
+            if prog is None:
+                self.validate(graph)
+                prog = self._stage(graph, tap_set)
+            values = self._dyn_values(prog, [graph])
+            stats.stage_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            handle = self._execute(sig, prog, stats.cache_hit, inputs,
+                                   values, stats)
+        return self._finish(handle, stats, t0, defer)
+
+    @torch.inference_mode()
+    def run_stacked(self, graphs: List[Graph], taps: TapSpec = "all",
+                    defer: bool = False):
+        """Run K graphs that share a group signature as ONE pass; returns
+        K result dicts, equal to K separate ``run``s (keys, order, shapes
+        and values), or with ``defer`` the ``InFlight`` handle.
+
+        Inputs stack on axis 0 and dynamic captures stack as per-request
+        rows; each node runs once through its kind's ``stacked_fn`` (see
+        the module docstring). K is padded to its power-of-two bucket with
+        copies of request 0: a bucket is one program (on a card one
+        capture) for every K in it, so the buckets bound the captures of a
+        signature and the memory they hold. A failing node raises
+        ``NodeError`` for the whole group, never a quiet per-request
+        rerun."""
+        if not graphs:
+            raise ValueError("run_stacked: empty batch")
+        g0 = graphs[0]
+        sig0 = self.group_sig(g0)
+        for g in graphs[1:]:
+            if self.group_sig(g) != sig0:
+                raise ValueError("run_stacked: mixed graph signatures")
+        stats = ExecStats()
         t0 = time.perf_counter()
-        for n in graph.order():
-            self._eval_node(n, env, tap_set)
-        handle = self._to_host(env, tap_set, None)
-        self._seen.add(self._run_sig(graph, tap_set, None))
+        k = len(graphs)
+        bucket = self._stacked_bucket(k)
+        tap_set, sig = self._sig_of(g0, taps, k)
+        padded = list(graphs) + [g0] * (bucket - k)
+        per_graph = [[e.tensor for _, _, e in g.input_edges()]
+                     for g in padded]
+        inputs = [_host_stack([pg[i] for pg in per_graph])
+                  for i in range(len(per_graph[0]))]
+        with self._device_lock:
+            prog = self._cache_get(sig)
+            stats.cache_hit = prog is not None
+            if prog is None:
+                self.validate(g0)
+                prog = self._stage(g0, tap_set, bucket)
+            values = self._dyn_values(prog, padded)
+            stats.stage_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            handle = self._execute(sig, prog, stats.cache_hit, inputs,
+                                   values, stats)
+        handle.k = k
         return self._finish(handle, stats, t0, defer)
 
     def _finish(self, handle: InFlight, stats: ExecStats, t0: float,
@@ -293,6 +801,35 @@ class Executor:
         stats.execute_s = time.perf_counter() - t0
         self.last_stats = stats
         return handle
+
+    @torch.inference_mode()
+    def precompile(self, graph: Graph, taps: TapSpec = "primary",
+                   batch: Optional[int] = None) -> bool:
+        """Stage ``(graph, taps)`` into the program cache, and on a card
+        capture it, without returning results: the server's warmup. Off
+        the card nothing runs; on a card the capture needs one warm pass,
+        which runs on the graph's own inputs (``batch``: the stacked program of that group size's
+        bucket, its rows copies of the graph). Returns True if a new
+        program was cached, False if it was already cached or
+        ``use_jit`` is off."""
+        if not self.use_jit:
+            return False
+        tap_set, sig = self._sig_of(graph, taps, batch)
+        with self._device_lock:
+            if self._cache_get(sig) is not None:
+                return False
+            self.validate(graph)
+            bucket = None if batch is None else self._stacked_bucket(batch)
+            prog = self._stage(graph, tap_set, bucket)
+            edges = [e.tensor for _, _, e in graph.input_edges()]
+            inputs = ([_host_tensor(t) for t in edges] if bucket is None
+                      else [_host_stack([t] * bucket) for t in edges])
+            if self._compiled():
+                values = self._dyn_values(prog, [graph] * (bucket or 1))
+                self._execute(sig, prog, False, inputs, values, ExecStats())
+            else:
+                self._cache_put(sig, prog)
+        return True
 
     @staticmethod
     def split_single(flat) -> Dict[int, Dict[str, np.ndarray]]:
@@ -305,52 +842,35 @@ class Executor:
 
     @staticmethod
     def split_stacked(flat, k: int) -> List[Dict[int, Dict[str, np.ndarray]]]:
-        """Stacked {"i/ch": [K, ...]} -> K per-request result dicts."""
+        """Stacked {"i/ch": [bucket, ...]} -> k per-request result dicts."""
         return [Executor.split_single({key: val[j]
                                        for key, val in flat.items()})
                 for j in range(k)]
 
-    @torch.inference_mode()
-    def run_stacked(self, graphs: List[Graph], taps: TapSpec = "all",
-                    defer: bool = False):
-        """Run K graphs that share a group signature as ONE pass; returns
-        K result dicts, equal to K separate ``run``s (keys, order, shapes
-        and values), or with ``defer`` the ``InFlight`` handle.
-
-        Inputs stack on axis 0; each node runs once through its kind's
-        ``stacked_fn`` (see the module docstring). A failing node raises
-        ``NodeError`` for the whole group, never a quiet per-request rerun.
-        The group is not padded: the JAX executor pads to a power of two
-        to bound its compile count, while this eager executor compiles
-        nothing per shape, and padding would spend device time for
-        nothing."""
-        if not graphs:
-            raise ValueError("run_stacked: empty batch")
-        g0 = graphs[0]
-        sig0 = self.group_sig(g0)
-        for g in graphs[1:]:
-            if self.group_sig(g) != sig0:
-                raise ValueError("run_stacked: mixed graph signatures")
-        stats = ExecStats()
-        t0 = time.perf_counter()
-        self.validate(g0)
-        tap_set = resolve_taps(g0, taps, self.reg)
-        k = len(graphs)
-        per_graph = [{(n.index, ch): e.tensor for n, ch, e in g.input_edges()}
-                     for g in graphs]
-        env: Dict[Any, Any] = {
-            ("in", i, ch): self._stacked_input([pg[(i, ch)]
-                                                for pg in per_graph])
-            for i, ch in per_graph[0]}
-        stats.stage_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for n in g0.order():
-            self._eval_node(n, env, tap_set, k)
-        handle = self._to_host(env, tap_set, k)
-        self._seen.add(self._run_sig(g0, tap_set, k))
-        return self._finish(handle, stats, t0, defer)
-
     # -- the debug path -----------------------------------------------------------
+    def _eval_node(self, n, env) -> None:
+        """Evaluate one node eagerly into ``env``, attributing failures to
+        it."""
+        kind = self.reg.get_node(n.name)
+        try:
+            ins = {ch: (env[("in", n.index, ch)] if e.src is None
+                        else env[(e.src.node.index, e.src.channel)])
+                   for ch, e in n.inputs.items()}
+            params = effective_params(n, None)
+            caps = self._place(kind.captures(n.params))
+            args = (ins,) if caps is None else (ins, caps)
+            outs = kind.fn(params)(*args)
+        except NodeError:
+            raise
+        except Exception as err:  # noqa: BLE001 -- attribution contract
+            raise NodeError(n.index, n.name, str(err)) from err
+        for ch, v in outs.items():
+            env[(n.index, ch)] = v
+
+    def _inputs_env(self, graph: Graph) -> Dict[Any, Any]:
+        return {("in", n.index, ch): _host_tensor(e.tensor).to(self.device)
+                for n, ch, e in graph.input_edges()}
+
     @torch.inference_mode()
     def run_eager(
         self, graph: Graph
@@ -363,22 +883,22 @@ class Executor:
         outputs: Dict[int, Dict[str, np.ndarray]] = {}
         errors: Dict[int, str] = {}
         failed: Set[int] = set()
-        env: Dict[Any, Any] = {}
-        for n, ch, e in graph.input_edges():
-            env[("in", n.index, ch)] = self._input(e.tensor)
-        for n in graph.order():
-            if any(e.src is not None and e.src.node.index in failed
-                   for e in n.inputs.values()):
-                failed.add(n.index)
-                errors[n.index] = "eval error upstream"
-                continue
-            try:
-                self._eval_node(n, env, None)
-                outputs[n.index] = {k[1]: host_array(v) for k, v in env.items()
-                                    if k[0] == n.index}
-            except Exception as err:  # noqa: BLE001 -- per-node isolation
-                failed.add(n.index)
-                errors[n.index] = str(err)
+        with self._device_lock:
+            env = self._inputs_env(graph)
+            for n in graph.order():
+                if any(e.src is not None and e.src.node.index in failed
+                       for e in n.inputs.values()):
+                    failed.add(n.index)
+                    errors[n.index] = "eval error upstream"
+                    continue
+                try:
+                    self._eval_node(n, env)
+                    outputs[n.index] = {k[1]: host_array(v)
+                                        for k, v in env.items()
+                                        if k[0] == n.index}
+                except Exception as err:  # noqa: BLE001 -- isolation
+                    failed.add(n.index)
+                    errors[n.index] = str(err)
         return outputs, errors
 
     @torch.inference_mode()
@@ -395,26 +915,27 @@ class Executor:
         shapes: Dict[int, Dict[str, List[int]]] = {}
         errors: Dict[int, str] = {}
         failed: Set[int] = set()
-        env: Dict[Any, Any] = {("in", n.index, ch): self._input(e.tensor)
-                               for n, ch, e in graph.input_edges()}
-        for n in graph.order():
-            if any(e.src is not None and e.src.node.index in failed
-                   for e in n.inputs.values()):
-                failed.add(n.index)
-                errors[n.index] = "eval error upstream"
-                continue
-            try:
-                self._eval_node(n, env, None)
-                self._sync()
-                t0 = time.perf_counter()
-                self._eval_node(n, env, None)
-                self._sync()
-                timings[n.index] = (time.perf_counter() - t0) * 1e3
-                shapes[n.index] = {k[1]: list(v.shape)
-                                   for k, v in env.items() if k[0] == n.index}
-            except Exception as err:  # noqa: BLE001 -- per-node isolation
-                failed.add(n.index)
-                errors[n.index] = str(err)
+        with self._device_lock:
+            env = self._inputs_env(graph)
+            for n in graph.order():
+                if any(e.src is not None and e.src.node.index in failed
+                       for e in n.inputs.values()):
+                    failed.add(n.index)
+                    errors[n.index] = "eval error upstream"
+                    continue
+                try:
+                    self._eval_node(n, env)
+                    self._sync()
+                    t0 = time.perf_counter()
+                    self._eval_node(n, env)
+                    self._sync()
+                    timings[n.index] = (time.perf_counter() - t0) * 1e3
+                    shapes[n.index] = {k[1]: list(v.shape)
+                                       for k, v in env.items()
+                                       if k[0] == n.index}
+                except Exception as err:  # noqa: BLE001 -- isolation
+                    failed.add(n.index)
+                    errors[n.index] = str(err)
         return timings, shapes, errors
 
     def _sync(self) -> None:

@@ -7,7 +7,10 @@ of input tensors to a dict of output tensors (``NodeKind.fn``), with the
 kind's weights passed as a second argument when it has ``captures``.
 ``NodeKind.stacked_fn`` is the same computation over K requests at once
 (``Executor.run_stacked``), and ``scan_plugins`` registers the kinds of a
-plugin directory.
+plugin directory. ``dynamic_params`` / ``dynamic_sig`` /
+``dynamic_capture_keys`` name the params whose values ride as runtime
+captures, so that an edit of them reuses the executor's staged (on a card:
+captured) program.
 """
 
 from __future__ import annotations
@@ -61,11 +64,40 @@ class NodeKind:
         """The node's weights (a tensor tree), or None for stateless ops."""
         return None
 
-    def stacked_fn(self, params: Dict[str, str]) -> NodeFn:
+    def dynamic_params(self) -> frozenset:
+        """Param names whose VALUES ride as runtime captures, not as part
+        of the staged program: the executor leaves them out of its cache
+        signature and refreshes them from the graph on every run, so an
+        interactive edit (cos A / b) reuses the cached program, on a card
+        its captured CUDA graph, instead of staging and capturing anew. A
+        kind declaring these MUST deliver the values through
+        ``captures()`` as a flat dict of tensors whose keys, shapes and
+        dtypes do not depend on the values."""
+        return frozenset()
+
+    def dynamic_sig(self, params: Dict[str, str]) -> Optional[str]:
+        """Shape-class key for the dynamic params, or None. Where a dynamic
+        param also decides capture shapes in a coarser way (a list whose
+        wording is dynamic but whose length is not), return a string of
+        exactly the shape-deciding part, so that programs of different
+        shapes are never shared."""
+        return None
+
+    def dynamic_capture_keys(self) -> Optional[frozenset]:
+        """The keys of ``captures()`` whose values depend on the dynamic
+        params; None: all of them. A stacked run stacks these per request
+        and passes the others (large static weights) once, unstacked."""
+        return None
+
+    def stacked_fn(self, params: Dict[str, str],
+                   caps_axes=None) -> NodeFn:
         """``fn`` over K requests at once: every input carries a leading
         stacked axis K, and so does every output, each slice equal to what
         ``fn`` gives that request alone (called as ``fn`` is, with the
-        weights unstacked). The default runs ``fn`` under
+        weights unstacked). ``caps_axes``: for a kind with dynamic params,
+        the executor's per-key axes of its captures ({key: 0} for a value
+        stacked per request, {key: None} for one passed once); None:
+        every capture passed once. The default runs ``fn`` under
         ``torch.func.vmap``, the counterpart of the JAX executor's
         ``jax.vmap``: exact for kinds written in plain torch ops. A kind
         whose ``fn`` reaches a kernel through ``data_ptr`` overrides it
@@ -73,7 +105,7 @@ class NodeKind:
         f = self.fn(params)
         if self.captures(params) is None:
             return torch.func.vmap(f)
-        return torch.func.vmap(f, in_dims=(0, None))
+        return torch.func.vmap(f, in_dims=(0, caps_axes))
 
     def compute(self, params: Dict[str, str], inputs: Pinout) -> Pinout:
         """Eager evaluation through ``fn``."""

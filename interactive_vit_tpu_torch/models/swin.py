@@ -18,7 +18,6 @@ torchvision checkpoint converter and the training hook
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,6 +28,7 @@ from interactive_vit_tpu_torch.ops import layers as L
 from interactive_vit_tpu_torch.ops.fused_window import (
     window_merge, window_partition,
 )
+from interactive_vit_tpu_torch.runtime.constants import device_constant
 
 Params = Dict[str, Any]
 
@@ -113,7 +113,7 @@ def shift_attn_mask(res: int, window: int, shift: int) -> Optional[np.ndarray]:
     return mask  # [nW, T, T]
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _bias_index(window: int, device: torch.device) -> torch.Tensor:
     """``relative_position_index`` flattened, as an index tensor on
     ``device`` (a few KB per window size and device, built once). Built
@@ -124,7 +124,7 @@ def _bias_index(window: int, device: torch.device) -> torch.Tensor:
             relative_position_index(window).reshape(-1)).to(device)
 
 
-@functools.lru_cache(maxsize=64)
+@device_constant(maxsize=64)
 def _mask_on(res: int, window: int, shift: int,
              device: torch.device) -> Optional[torch.Tensor]:
     """``shift_attn_mask`` as an f32 tensor on ``device`` (at most 0.6 MB
@@ -172,8 +172,9 @@ def window_attention(
     qkv = L.linear(xw, p["qkv_w"], p["qkv_b"])  # [B, nW, T, 3C]
     qkv = qkv.reshape(b, nw, t, 3, heads, dh)
     q, k, v = (qkv[:, :, :, i].transpose(2, 3) for i in range(3))
-    # the scale is rounded to the activation dtype first, as jnp.asarray does
-    q = q * torch.tensor(dh ** -0.5, dtype=q.dtype, device=q.device)
+    # the scale is rounded to the activation dtype first, as jnp.asarray
+    # does; a host 0-d tensor is a scalar argument, no upload per pass
+    q = q * torch.tensor(dh ** -0.5, dtype=q.dtype)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     scores = scores + gather_bias(p, bias_idx, t, heads).float()
     if mask is not None:
@@ -438,7 +439,8 @@ def layer_fns(cfg: SwinConfig, window_impl=None, mlp_impls=None):
                         raise ValueError(
                             f"attn_heads {sorted(sel)} out of range for "
                             f"{heads} heads")
-                    probs = probs[:, :, list(sel)]
+                    probs = probs.index_select(2, L.index_on(
+                        tuple(sel), probs.device))
                 win = (node_params or {}).get("attn_win", "")
                 if win != "":
                     w = int(float(win))

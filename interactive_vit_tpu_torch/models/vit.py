@@ -348,7 +348,8 @@ def block(
         if not want_attn:
             probs = None
         elif sel is not None and probs is not None:
-            probs = probs[:, list(sel)]
+            probs = probs.index_select(1, L.index_on(tuple(sel),
+                                                     probs.device))
     if mlp_impl is not None:
         return mlp_impl(x, p, cfg.ln_eps), probs, pmean
     m = L.mlp(L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps), p)

@@ -47,9 +47,9 @@ def attention_reference(
     query, added in f32 after the scale -- ToMe's proportional attention
     (``softmax(q k^T / sqrt(dh) + log s)``, ``models/tome.py``)."""
     dh = q.shape[-1]
+    # a host 0-d tensor: a scalar argument, no upload per pass
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-        * scale.to(q.device)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_bias is not None:
         logits = logits + key_bias.float()[:, None, None, :]
     if n_real is not None and n_real < q.shape[2]:

@@ -202,7 +202,7 @@ def fused_attn_block_reference(
     if want_mean or (want_attn and emit is None):
         norm[:] = True
     elif want_attn:
-        norm[list(emit)] = True
+        norm[L.index_on(emit, x.device)] = True
     probs = pexp * r
     pb = probs.to(dt)
     if int8_scores and int8_pv:
@@ -221,7 +221,8 @@ def fused_attn_block_reference(
          + p["proj_b"].float()).to(dt)
     out = [y, None]
     if want_attn:
-        out[1] = pb if emit is None else pb[:, list(emit)]
+        out[1] = (pb if emit is None
+                  else pb.index_select(1, L.index_on(emit, pb.device)))
     if want_mean:
         out.append(_head_mean(probs, heads).to(dt))
     if want_metric:
@@ -749,8 +750,9 @@ def _subset_maps(qkv: torch.Tensor, heads: int, emit: Tuple[int, ...]
     b, n, d3 = qkv.shape
     d = d3 // 3
     dh = d // heads
+    idx = L.index_on(emit, qkv.device)
     q, k = (qkv[..., i * d:(i + 1) * d].reshape(b, n, heads, dh)
-            [:, :, list(emit)].transpose(1, 2) for i in range(2))
+            .index_select(2, idx).transpose(1, 2) for i in range(2))
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * (dh ** -0.5)
     return torch.softmax(s, dim=-1).to(qkv.dtype)
 

@@ -11,7 +11,7 @@ tree-map): activations are ``[B, N, D]``; linear weights are
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,8 +19,20 @@ import torch.nn.functional as F
 from interactive_vit_tpu_torch.ops.quant import (
     QKEY, SKEY, is_quantized, is_w8a8, linear_w8a8,
 )
+from interactive_vit_tpu_torch.runtime.constants import device_constant
 
 Params = Dict[str, torch.Tensor]
+
+
+@device_constant(maxsize=256)
+def index_on(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """``values`` as an int64 index tensor on ``device``, built once. A
+    head subset selected with it (``index_select``) uploads nothing in a
+    pass, where indexing with a Python list uploads the list each time,
+    which a CUDA graph capture refuses. Built outside inference mode, so
+    that a caller under autograd can use the cached tensor too."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=torch.long, device=device)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

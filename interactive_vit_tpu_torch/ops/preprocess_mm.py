@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from interactive_vit_tpu_torch.ops.layers import target_dims
+from interactive_vit_tpu_torch.runtime.constants import device_constant
 
 
 def _triangle(t: float) -> float:
@@ -71,6 +72,34 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@device_constant(maxsize=64)
+def crop_matrices(h: int, w: int, size: int, resize_to: Optional[int],
+                  method: str, device: torch.device):
+    """``(R_h, R_w)``: the resize matrices' rows that survive the centre
+    crop, as f32 tensors on ``device``, built once a geometry and device.
+    A pass then uploads nothing from the host, which a CUDA graph capture
+    needs: a pageable upload cannot be captured. Built outside inference
+    mode, so a caller under autograd can use the cached tensors too."""
+    nh, nw = target_dims(h, w, size, resize_to)
+    top, left = (nh - size) // 2, (nw - size) // 2
+    with torch.inference_mode(False):
+        rh = torch.from_numpy(
+            resize_matrix(h, nh, method)[top:top + size].copy()).to(device)
+        rw = torch.from_numpy(
+            resize_matrix(w, nw, method)[left:left + size].copy()).to(device)
+    return rh, rw
+
+
+@device_constant(maxsize=16)
+def norm_constants(dtype: torch.dtype, device: torch.device):
+    """``(mean, std)`` of ImageNet as [1, 3, 1, 1] tensors of ``dtype`` on
+    ``device``, built once (as ``crop_matrices``)."""
+    with torch.inference_mode(False):
+        m = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device)
+        s = torch.tensor(IMAGENET_STD, dtype=dtype, device=device)
+    return m.reshape(1, -1, 1, 1), s.reshape(1, -1, 1, 1)
+
+
 def preprocess_mm(images: torch.Tensor, size: int,
                   resize_to: Optional[int] = None,
                   method: str = "bilinear") -> torch.Tensor:
@@ -84,18 +113,13 @@ def preprocess_mm(images: torch.Tensor, size: int,
     if squeeze:
         images = images[None]
     b, c, h, w = images.shape
-    nh, nw = target_dims(h, w, size, resize_to)
-    top, left = (nh - size) // 2, (nw - size) // 2
-    dev = images.device
-    rh = torch.from_numpy(resize_matrix(h, nh, method)[top:top + size].copy()).to(dev)
-    rw = torch.from_numpy(resize_matrix(w, nw, method)[left:left + size].copy()).to(dev)
+    rh, rw = crop_matrices(h, w, size, resize_to, method, images.device)
 
     x = images.reshape(b * c, h, w).float()
     x = torch.matmul(rh, x)                  # [B*C, size, W]
     x = torch.matmul(x, rw.t())              # [B*C, size, size]
     x = x.reshape(b, c, size, size).to(images.dtype)
 
-    m = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=dev)
-    s = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=dev)
-    x = (x - m.reshape(1, -1, 1, 1)) / s.reshape(1, -1, 1, 1)
+    m, s = norm_constants(x.dtype, x.device)
+    x = (x - m) / s
     return x[0] if squeeze else x

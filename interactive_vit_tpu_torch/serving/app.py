@@ -84,6 +84,7 @@ class App:
         graphs_dir: str = "static/graphs",
         frontend_dir: Optional[str] = None,
         device="cuda",
+        use_jit: bool = True,
         max_batch: int = 8,
         max_wait_ms: float = 3.0,
         compute_timeout_s: float = 120.0,
@@ -91,7 +92,7 @@ class App:
     ):
         self.compute_timeout_s = compute_timeout_s
         self.reg = reg or registry()
-        self.executor = Executor(self.reg, device=device)
+        self.executor = Executor(self.reg, use_jit=use_jit, device=device)
         self.metrics = Metrics()
         self.batcher = MicroBatcher(self.executor, max_batch=max_batch,
                                     max_wait_ms=max_wait_ms,
@@ -149,8 +150,9 @@ class App:
     def profile(self, body: bytes, iters: int = 1, top: int = 20) -> Dict:
         """Device-time profile of ONE wire request (``POST /profile``).
 
-        The request runs once untraced (first-run builds and allocator
-        growth stay out of the window), then ``iters`` times under
+        The request runs once untraced (first-run builds, allocator
+        growth and the capture stay out of the window; on a card the traced
+        runs replay the captured graph), then ``iters`` times under
         ``torch.profiler``, bypassing the batcher: a trace mixing other
         sessions' groups would not attribute (their kernels still land in
         the window if they run meanwhile: profile a quiet server). Returns

@@ -16,9 +16,10 @@ is materialized as soon as its copies have landed (checked before each
 collect and each dispatch: an eager dispatch is a whole host pass, which
 finished results must not wait behind), when ``pipeline_depth`` newer
 groups are in flight, or when the queue runs dry. Depth 0 materializes
-each group at once. Before a dispatch that has never run on the executor
-(``is_compiled``: it may build kernel sources for tens of seconds) the
-groups in flight are materialized first. Other-signature requests seen
+each group at once. Before a dispatch whose program is not in the
+executor's cache (``is_compiled``: its first run may build kernel sources
+for tens of seconds, and on a card captures its CUDA graph) the groups in
+flight are materialized first. Other-signature requests seen
 while a group collects wait in a backlog that is served first on the next
 cycle, so a minority signature is not starved.
 """
@@ -198,8 +199,9 @@ class MicroBatcher:
         return pending
 
     def _warm(self, group: List[_Item]) -> bool:
-        """Whether the group's run has run once on the executor (a single
-        request runs ``run``: batch None)."""
+        """Whether the group's program is in the executor's cache (a
+        single request runs ``run``: batch None; a group, its power-of-two
+        bucket)."""
         try:
             return self.executor.is_compiled(
                 group[0].graph, group[0].taps,

@@ -41,10 +41,13 @@ refused with ``--dtype int8``):
 Concurrent requests that share a graph signature run as one batched pass
 through the kernels (``--max-batch``, default 8; ``--max-wait-ms``, the
 window a group collects in), with ``--pipeline-depth`` groups in flight
-(default 1; 0 runs each group to its end before the next). ``--warmup``
-runs each model's saved graph once at batch 1 and once at
-``--max-batch`` before serving, so that the kernels' nvcc builds and the
-allocator's first growth happen before the first request:
+(default 1; 0 runs each group to its end before the next). Each program
+signature (graph, input shape, taps, and a group's power-of-two bucket) is
+captured once into a CUDA graph and replayed after (``Executor``'s
+compiled path). ``--warmup`` runs each model's saved graph once at batch 1
+and once at ``--max-batch`` before serving, so that the kernels' nvcc
+builds and the captures of those two buckets happen before the first
+request:
 
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \\
         --dtype bfloat16 --max-batch 8 --pipeline-depth 1 --warmup
@@ -165,9 +168,10 @@ def build_app(
 
 def warmup(app: App, models, batch_sizes=(1,)) -> None:
     """Run each model's saved graph once per batch size (1: ``run``; K: a
-    group of K through ``run_stacked``) on a 224 x 224 input with the
-    primary taps, so that the kernels' builds and the allocator's first
-    growth happen before the first request. A model without a saved
+    group of K through ``run_stacked``, its bucket's program) on a 224 x
+    224 input with the primary taps, so that the kernels' builds and, on a
+    card, the captures of those programs happen before the first request
+    (requests of that signature then replay). A model without a saved
     graph is skipped."""
     for variant in models:
         try:

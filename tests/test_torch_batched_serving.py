@@ -251,7 +251,8 @@ def _counted_model(family, fam, seen):
 @pytest.mark.parametrize("family", ["vit", "swin", "tome"])
 def test_group_runs_each_block_once_with_batch_k(families, family):
     """A group of K calls each block's kernel wrapper once, on a batch of
-    K; the result is the same as with the unwrapped model."""
+    K's power-of-two bucket (K=3 runs padded to 4, as the JAX executor
+    pads); the result is the same as with the unwrapped model."""
     fam = families[family]
     seen = []
     model, depth = _counted_model(family, fam, seen)
@@ -261,7 +262,8 @@ def test_group_runs_each_block_once_with_batch_k(families, family):
     k = 3
     graphs = [fam.graph(seed) for seed in range(k)]
     got = ex.run_stacked(graphs, fam.taps)
-    assert seen == [k] * depth
+    assert len(got) == k
+    assert seen == [4] * depth
     seen.clear()
     single = ex.run(graphs[1], fam.taps)
     assert seen == [1] * depth

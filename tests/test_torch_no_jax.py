@@ -43,6 +43,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.models.autoregister",
     "interactive_vit_tpu_torch.models.model_plugin",
     "interactive_vit_tpu_torch.models.weights",
+    "interactive_vit_tpu_torch.runtime.constants",
     "interactive_vit_tpu_torch.runtime.cuda_build",
     "interactive_vit_tpu_torch.runtime.device",
     "interactive_vit_tpu_torch.models.vit",
