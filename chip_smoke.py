@@ -147,7 +147,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      instantiations and off the grid on the FMA pair; each bound refusing
      a gradient zeroed or halved;
      ``scaled_dot_product_attention`` forward + backward timed beside.
-4. slice   -- eleven paths through the HTTP server in-process, seeded random
+4. slice   -- twelve paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -192,6 +192,22 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      blocks 0 and 6, ``r`` on block 11, the logits; the fused block on
      the tensor cores (by name in the profile, as vit_b16), the f32
      request's on split TF32;
+   * dino_s16 (ViT-S/16: 384 wide, 12 blocks, 6 heads 64 wide, N=197)
+     from the repository's feature-view graph ``dino_s16.json``, bf16:
+     ``pca_view`` and ``patch_sim`` on the norm output, block 11's
+     ``attn`` + ``r`` (wired to ``attn_view`` and ``overlay``), the norm
+     output and the CLS features; 3 in sequence and 2 at once; row 1 on
+     the tensor cores in all 12 blocks (12 launches a pass, by name in the
+     profile, no FMA launch), the f32 request's 12 on split TF32. A bf16
+     request's views are held to the same kinds on the host from its own
+     norm output (``VIEW_BOUND``; the PCA view is ill-conditioned in its
+     input, so their distance from the plain path's views is logged), the
+     f32 request's to the plain path at 1e-4. Then (h) patch_sim's row /
+     col scrubbed through four queries, each a cache hit with no new
+     capture, its heatmap the eager pass's bit for bit and within 1e-5
+     of the kind on the host; (i) pca_view alone on the served norm
+     output, captured: one replay's launches and device time and their
+     share of the path's replay, the eigenvalue spread of its input;
    * vit_b16 ``--dtype int8w8a8 --attn int8-scores``: the vit_b16 taps, 3
      in sequence; the W8A8 MLP on the int8 tensor cores and the s8 block
      on the tensor cores (its attention on int8 mma.sync) in every block
@@ -260,10 +276,21 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    of those constants' sizes on the capture's stream was filled with NaN
    and zeros (the program holds the constants its graph reads). Each path also
    prints its ``/metrics`` p50s and the sizes of the groups the batcher
-   formed. Then a throughput probe of micro-batched serving (BASELINE
-   config 5): vit_b16 bf16 with the ``attn`` + ``r`` taps on 3 blocks,
-   its programs for a request alone and the buckets 2, 4 and 8 captured
-   first (their times and ``memory_reserved`` logged), 8 closed-loop
+   formed. Then the repository's demo graphs through ``POST /compute`` on
+   a server of no model (``run_demo_graphs``): demo_noise.json with its
+   noise seed and const value edited (each a cache hit, no new capture;
+   every output the CPU's bit for bit; a noise node of the fixture's
+   pinned seed 7), demo_slice.json on a 3 x 224 x 224 image with its conv
+   matrix edited (a cache hit; slice and shuffle exact, the f32 conv
+   within 1e-5 of float64), the fixture's similarity graph with its scale
+   edited (a cache hit), one ``run_stacked`` group of three of each (every
+   result its own run's bit for bit); and ``tools.run_graph.main`` of
+   dino_s16.json in bf16 from a ``.npy`` image (12 row-1 launches, an
+   ``.npy`` a tap, PNGs of the two feature maps). Then a throughput probe of
+   micro-batched serving (BASELINE config 5): vit_b16 bf16 with the
+   ``attn`` + ``r`` taps on 3 blocks, its programs for a request alone
+   and the buckets 2, 4 and 8 captured first (their times and
+   ``memory_reserved`` logged), 8 closed-loop
    clients of 8 requests each, on one server whose ``--max-batch`` is 1,
    8, 8 and 1 in turn:
    requests/s, the batch sizes, the client p50, the compute p50 and its
@@ -487,6 +514,21 @@ TOME_SCORE_CAP = 2.0 ** -5
 # later blocks, so each output is bound by its own scale: within 2^-4 of
 # its largest value (the head output: of max(1, its largest value)).
 SLICE_REL = 2.0 ** -4
+# A viewer node's map (pca_view, patch_sim) in a bf16 response. Its input,
+# the served norm output, is held to the plain path by SLICE_REL, but the
+# PCA view is ill-conditioned in it: a rotation of its top-3 eigenvectors
+# by ||dC|| / gap, and with seeded random weights dino_s16's eigenvalues
+# 2-4 are 0.90, 0.84 and 0.77 of the first (measured on an NVIDIA H100
+# 80GB HBM3 at 700 W), so the bf16 flips of the blocks move the view by up
+# to 0.08 against the plain path's (1.3 SLICE_REL). So in bf16 a view is held
+# to the same kind run on the host from the response's own source tap (the
+# bf16 values, exact in f32; only the order of f32 sums differs) within
+# VIEW_BOUND, and its distance from the plain path's view is logged
+# (VIEW_VS_PLAIN). An f32 request's views are held to the plain path.
+VIEW_BOUND = 1e-5
+# (path tag, view node) -> the largest distance of a bf16 view from the
+# plain path's
+VIEW_VS_PLAIN = {}
 # bf16 probs rows: each of N probs rounds by <= 2^-9 relative, so a row
 # sums to 1 within 2^-9; bound 2^-7.
 ROW_SUM_BOUND = 2.0 ** -7
@@ -2052,14 +2094,7 @@ def chain_graph(graph_obj, image, node_params=None):
 
 def chain_request(graph_obj, image, taps, node_params=None):
     """Request bytes for ``chain_graph`` with an explicit tap list."""
-    from interactive_vit_tpu_torch.wire.codec import (
-        REQUEST_MAGIC, Request, decode_message, encode_message,
-    )
-
-    g = chain_graph(graph_obj, image, node_params)
-    obj, tensors = decode_message(Request.encode(g), expect_magic=REQUEST_MAGIC)
-    obj["taps"] = [{"node": i, "channel": ch} for i, ch in taps]
-    return encode_message(REQUEST_MAGIC, obj, tensors)
+    return graph_request(chain_graph(graph_obj, image, node_params), taps)
 
 
 # Every trace that ``profiled`` took again, as "<what>: <seen> of
@@ -2264,15 +2299,24 @@ class Path:
     ``dtype="float32"`` path's requests
     are held to F32_BOUND of each output's scale (``check_response``'s
     ``rel``) where F32_BOUND alone would not hold through its depth.
-    ``compiled_extras``: the path also runs ``compiled_path_extras``."""
+    ``extras(app, eager, path, graph, images, captured, replay_busy)``:
+    further checks of the compiled path that the path runs after its own
+    (``compiled_path_extras``, ``feature_view_extras``; ``replay_busy``: the
+    profiled replay's device busy ms). ``offset``: the saved graph's node
+    index of the model's first layer (1 where an ``img_src`` node comes
+    first). ``views``: {graph node: (the layer whose "o" it takes, node
+    kind, params)} of the viewer kinds on the model's outputs, which the
+    plain path runs on its own layer outputs."""
 
     def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
                  other=None, dtype="bfloat16", attn="auto", f32=True,
                  chain=(), lockstep=None, host_spans=(), f32_kernels=None,
-                 profile_kernels=None, f32_rel=False, compiled_extras=False):
+                 profile_kernels=None, f32_rel=False, extras=None, offset=0,
+                 views=None):
         self.model, self.family, self.cfg = model, family, cfg
-        self.compiled_extras = compiled_extras
+        self.extras = extras
+        self.offset, self.views = offset, views or {}
         self.f32_rel = f32_rel
         self.f32_kernels = kernels if f32_kernels is None else f32_kernels
         self.profile_kernels = profile_kernels
@@ -2287,7 +2331,7 @@ class Path:
         self.other = other
         layers = family.layer_fns(cfg)
         self.names = [name for name, _, _ in layers]
-        self.head_node = self.names.index("head")
+        self.head_node = self.names.index("head") + offset
         # the blocks are the layers with extra (tap) channels
         self.depth = sum(1 for _, extra, _ in layers if extra)
         self.head_shape = (1, cfg.num_classes or cfg.width)
@@ -2346,19 +2390,34 @@ def swin_check_tap(path, node, arr, tag, bf16) -> None:
                              f"probs (max {seam.max()})")
 
 
+def run_view(kind_name, params, x):
+    """Node kind ``kind_name`` of the port's built-ins (a viewer such as
+    ``pca_view``) on ``x``, its captures on ``x``'s device."""
+    from interactive_vit_tpu_torch.ops import node_ops
+
+    kind = next(k for k in node_ops.instances() if k.name == kind_name)
+    caps = kind.captures(params)
+    if caps is None:
+        return kind.fn(params)({"o": x})["o"]
+    return kind.fn(params)({"o": x}, {k: v.to(x.device)
+                                      for k, v in caps.items()})["o"]
+
+
 def plain_taps(path, model, image, device):
     """The port's plain path on ``device`` with the served model's weights:
-    the same layer chain with the kernels' plain versions in every block.
+    the same layer chain with the kernels' plain versions in every block,
+    and the path's viewer kinds on its layer outputs (``path.views``).
     ``image``: [3, H, W], or a group's [K, 3, H, W] run as one batch.
-    Returns (head output, {node: {channel: tensor}})."""
+    Returns (head output, {graph node: {channel: tensor}})."""
     import torch
 
     fam, cfg = path.family, path.cfg
     x = torch.from_numpy(image).to(device)
-    maps, carry = {}, {}
+    maps, carry, layer_out = {}, {}, {}
     with torch.inference_mode():
-        for node, (name, extra, fn) in enumerate(
+        for layer, (name, extra, fn) in enumerate(
                 fam.layer_fns(cfg, **path.plain)):
+            node = layer + path.offset
             p = fam.layer_params(model.params, name)
             if extra:
                 taps = path.tap_nodes.get(node, ())
@@ -2370,7 +2429,12 @@ def plain_taps(path, model, image, device):
                 carry = {ch: out[ch] for ch in path.chain}
             else:
                 out = fn(p, {"o": x})
-            x = out["o"]
+            x = layer_out[name] = out["o"]
+            if node in path.tap_nodes and not extra:
+                maps[node] = {"o": x}
+        for node, (src, kind_name, params) in path.views.items():
+            maps[node] = {"o": run_view(kind_name, {
+                **params, **path.params_of(node)}, layer_out[src])}
     return x, maps
 
 
@@ -2494,10 +2558,13 @@ def tome_lockstep(path, model, image, device):
 
 def check_response(raw, path, plain, tag, bf16=True, rel=False):
     """Shapes, finiteness, row sums and agreement with the plain path of
-    a response (its bytes, or an executor's decoded result) (``rel``: an f32 bound of F32_BOUND times max(1, the output's largest
-    value) instead of F32_BOUND). Returns ({output: max abs err}, {output:
-    the share of its bound that err uses}, {output: its largest plain
-    value})."""
+    a response (its bytes, or an executor's decoded result) (``rel``: an
+    f32 bound of F32_BOUND times max(1, the output's largest value) instead
+    of F32_BOUND; a bf16 response's viewer maps: VIEW_BOUND against the
+    kind on the host from the response's own source tap). Returns
+    ({output: max abs err}, {output: the share of its bound that err
+    uses}, {output: its largest reference value})."""
+    import torch
     from interactive_vit_tpu_torch.wire.codec import Response
 
     out = raw if isinstance(raw, dict) else Response.decode(raw)
@@ -2523,11 +2590,24 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
                         f"{row_err} > {ROW_SUM_BOUND}")
             if path.check_tap is not None:
                 path.check_tap(path, i, arr, tag, bf16)
-            pairs[f"{ch}{i}"] = (arr, p_maps[i][ch].float().cpu().numpy())
+            ref = p_maps[i][ch].float().cpu().numpy()
+            if bf16 and i in path.views:
+                src, kind_name, params = path.views[i]
+                key = (f"{path.model} {path.dtype}", i)
+                VIEW_VS_PLAIN[key] = max(VIEW_VS_PLAIN.get(key, 0.0), float(
+                    np.abs(arr - ref).max()))
+                ref = run_view(kind_name, {**params, **path.params_of(i)},
+                               torch.from_numpy(np.array(out[
+                                   path.names.index(src) + path.offset]["o"])))
+                pairs[f"{ch}{i}"] = (arr, ref.numpy(), VIEW_BOUND)
+                continue
+            pairs[f"{ch}{i}"] = (arr, ref)
     errs, uses, scales = {}, {}, {}
-    for key, (got, ref) in pairs.items():
+    for key, (got, ref, *fixed) in pairs.items():
         scale = scales[key] = float(np.abs(ref).max())
-        if not bf16:
+        if fixed:
+            bound = fixed[0]
+        elif not bf16:
             bound = F32_BOUND * (max(1.0, scale) if rel else 1.0)
         else:
             bound = SLICE_REL * (max(1.0, scale) if key == "head" else scale)
@@ -2731,7 +2811,8 @@ def reads_back_kind():
     return ReadsBack("chip_smoke_reads_back")
 
 
-def compiled_path_extras(app, eager, path, graph, images, captured):
+def compiled_path_extras(app, eager, path, graph, images, captured,
+                         replay_busy=None):
     """The vit_b16 path's further checks of the compiled path: (c) four
     deferred replays of two signatures interleaved (vit_b16, vit_t16,
     vit_b16, vit_t16; one shared capture pool) and two pipelined groups of
@@ -2885,6 +2966,378 @@ def evicted_constants_check(ex, eager, path, graph, tag, captured) -> str:
             f"their sizes refilled, the replay bit for bit")
 
 
+def dino_tap_shape(path, node, ch):
+    """A viewer node's [1, 3, g, g] map (g: the patch grid's side), else a
+    plain ViT's tap (``vit_tap_shape``)."""
+    if node in path.views:
+        g = path.cfg.img_size // path.cfg.patch
+        return (1, 3, g, g)
+    return vit_tap_shape(path, node, ch)
+
+
+# The queries that (h) scrubs patch_sim through: patches in the grid's
+# corners and middle, then a negative row (token 0, the CLS token)
+SCRUB = ((0, 0), (3, 11), (13, 13), (-1, 5))
+
+
+def feature_view_extras(app, eager, path, graph, images, captured,
+                        replay_busy):
+    """The dino_s16 feature-view path's further checks: (h) patch_sim's
+    row / col scrubbed through four queries (``SCRUB``), each a cache hit
+    with no new capture, its heatmap the eager pass's bit for bit and
+    within 1e-5 of the same kind on the host from the served norm output
+    (bf16 values, exact in f32: only the order of f32 sums differs), each
+    heatmap another than the last; (i) pca_view alone, captured from the
+    served norm output: its replay's launches and device time, and their
+    share of the path's replay (``replay_busy``); the eigenvalue spread of
+    that output's token covariance (float64 on the host) and the largest
+    difference between the card's view and the same kind on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.graph.ir import Graph
+
+    ex, taps = app.executor, path.taps()
+    tag = f"{path.model} {path.dtype}"
+    sim = next(n for n, v in path.views.items() if v[1] == "patch_sim")
+    pca = next(n for n, v in path.views.items() if v[1] == "pca_view")
+    norm = path.names.index("norm") + path.offset
+    n_cap = len(captured)
+    heat, notes = [], []
+    for row, col in SCRUB:
+        params = {**path.node_params, sim: {"row": str(row), "col": str(col)}}
+        g = chain_graph(graph, images[1], params)
+        t0 = time.perf_counter()
+        got = ex.run(g, taps)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not ex.last_stats.cache_hit or len(captured) != n_cap:
+            raise AssertionError(f"(h) patch_sim query ({row}, {col}): cache "
+                                 f"hit {ex.last_stats.cache_hit}, captures "
+                                 f"{len(captured) - n_cap}")
+        want = eager.run(g, taps)
+        if not np.array_equal(got[sim]["o"], want[sim]["o"]):
+            raise AssertionError(f"(h) patch_sim query ({row}, {col}): the "
+                                 f"replayed heatmap is not the eager pass's")
+        notes.append(compare_replay(tag, path, got, want,
+                                    f"query ({row}, {col})"))
+        host = run_view("patch_sim", {"row": str(row), "col": str(col),
+                                      "skip": "1"},
+                        torch.from_numpy(got[norm]["o"])).numpy()
+        err = float(np.abs(host - got[sim]["o"]).max())
+        if err > 1e-5:
+            raise AssertionError(f"(h) patch_sim query ({row}, {col}): "
+                                 f"{err} from the kind on the host")
+        heat.append((got[sim]["o"], ms, err))
+    if any(np.array_equal(a[0], b[0]) for a, b in zip(heat, heat[1:])):
+        raise AssertionError("(h) a scrubbed query left the heatmap as it "
+                             "was")
+    log(f"  (h) patch_sim scrubbed through {list(SCRUB)}: each a cache hit "
+        f"and no new capture (request walls "
+        f"{', '.join(f'{ms:.2f}' for _, ms, _ in heat)} ms), each heatmap "
+        f"the eager pass's bit for bit and within "
+        f"{max(e for _, _, e in heat):.3g} of the kind on the host (bound "
+        f"1e-5); the whole replays against their eager passes: "
+        f"{notes.count('bit for bit')} of {len(notes)} bit for bit")
+
+    # (i) pca_view alone on the served norm output
+    tokens = got[norm]["o"]
+    solo = Executor(app.reg, device=ex.device)
+    g = Graph()
+    node = g.add_node("pca_view", {"skip": "1"})
+    g.add_input(tokens, node, "o")
+    view = solo.run(g)[0]["o"]
+    view_err = float(np.abs(view - got[pca]["o"]).max())
+    if view_err > 1e-6:
+        raise AssertionError(f"(i) pca_view alone on the served norm output "
+                             f"is {view_err} from the served view")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall = synchronized_ms(lambda: solo.run(g))
+    if not solo.last_stats.cache_hit:
+        raise AssertionError("(i) pca_view's second run was not a replay")
+    kernels = [k for k in device_kernels(prof)
+               if not k[2].startswith(("Memcpy", "Memset"))]
+    launches = sum(n for _, n, _ in kernels)
+    busy = sum(t for t, _, _ in kernels)
+    t = tokens[0, 1:].astype(np.float64)
+    t -= t.mean(0)
+    lam = np.linalg.eigvalsh(t.T @ t / t.shape[0])[::-1][:7]
+    host = run_view("pca_view", {"skip": "1"},
+                    torch.from_numpy(tokens)).numpy()
+    share = ("not measured" if replay_busy is None
+             else f"{100 * busy / replay_busy:.1f}% of the path's replay "
+                  f"({replay_busy:.3f} ms busy)")
+    log(f"  (i) pca_view alone, captured from the served norm output (its "
+        f"view {'equals' if view_err == 0 else f'within {view_err:.3g} of'} "
+        f"the served one): one replay launches {launches} kernels, device "
+        f"busy {busy:.3f} ms (wall {wall:.2f} ms), {share}; eigenvalues "
+        f"1-7 over the first {', '.join(f'{v / lam[0]:.4f}' for v in lam)}; "
+        f"the card's view against the kind on the host: max abs "
+        f"{float(np.abs(host - view).max()):.3g}")
+
+
+def graph_request(g, taps):
+    """Request bytes for graph ``g`` (its inputs bound) with an explicit
+    tap list."""
+    from interactive_vit_tpu_torch.wire.codec import (
+        REQUEST_MAGIC, Request, decode_message, encode_message,
+    )
+
+    obj, tensors = decode_message(Request.encode(g),
+                                  expect_magic=REQUEST_MAGIC)
+    obj["taps"] = [{"node": i, "channel": ch} for i, ch in taps]
+    return encode_message(REQUEST_MAGIC, obj, tensors)
+
+
+def conv_f64(image, m):
+    """The valid cross-correlation of each channel of ``image`` with ``m``,
+    in float64 on the host."""
+    kh, kw = m.shape
+    oh, ow = image.shape[-2] - kh + 1, image.shape[-1] - kw + 1
+    out = np.zeros((*image.shape[:-2], oh, ow))
+    for i in range(kh):
+        for j in range(kw):
+            out += (float(m[i, j])
+                    * image[..., i:i + oh, j:j + ow].astype(np.float64))
+    return out
+
+
+def run_demo_graphs(device, graphs_dir, counters) -> None:
+    """The repository's demo graphs through ``POST /compute`` on a server of
+    no model: demo_noise.json (noise, const, binop) with its seed edited
+    three times and its const value once, each a cache hit and no new
+    capture, every output the same kinds' on the CPU bit for bit; one noise
+    node of the fixture's pinned entry (seed 7, [2, 5, 5]), its values the
+    pinned ones (6 decimals) and the CPU's bits; demo_slice.json (slice,
+    shuffle, conv2d) on a 3 x 224 x 224 image, then its conv matrix edited
+    and then a second image, each a cache hit and no new capture: the
+    slice and shuffle exact, the f32 conv within 1e-5 of a float64 conv on
+    the host; the fixture's similarity graph (two noise nodes) with its
+    scale edited, a cache hit and no new capture, within 1e-5 of the scale
+    of the kind on the host. Then one group of each through
+    ``executor.run_stacked`` (three graphs that differ in their dynamic
+    values, or images): each result its own run's bit for bit. None of the
+    port's kernels launches."""
+    import base64
+
+    import torch
+    from interactive_vit_tpu_torch.graph.ir import Graph
+    from interactive_vit_tpu_torch.ops import node_ops
+    from interactive_vit_tpu_torch.wire.codec import Response
+    from interactive_vit_tpu_torch.wire.schema import graph_from_json
+
+    def kind(name):
+        return next(k for k in node_ops.instances() if k.name == name)
+
+    def noise_on_cpu(dims, seed):
+        k = kind("noise")
+        params = {"dims": dims, "seed": str(seed)}
+        return k.fn(params)({}, k.captures(params))["o"].numpy()
+
+    before = {k: fn.launches for k, fn in counters.items()}
+    app, httpd, url = serve([], "float32", device, graphs_dir)
+    try:
+        ex = app.executor
+        captured = watch_captures(ex)
+
+        def ask(g, taps):
+            t0 = time.perf_counter()
+            out = Response.decode(post(url + "/compute",
+                                       graph_request(g, taps)))
+            return out, ex.last_stats.cache_hit, (time.perf_counter()
+                                                  - t0) * 1e3
+
+        noise_obj = app.graphs.load("demo_noise.json")
+        noise_taps = [(0, "o"), (1, "o"), (2, "c"), (3, "c")]
+
+        def noise_graph(seed, value):
+            g = graph_from_json(noise_obj)
+            g.nodes[0].params["seed"] = str(seed)
+            g.nodes[1].params["value"] = str(value)
+            return g
+
+        walls = []
+        for n, (seed, value) in enumerate(((0, 0.5), (7, 0.5), (-1, 0.5),
+                                           (12345, 0.5), (12345, 2.0))):
+            out, hit, ms = ask(noise_graph(seed, value), noise_taps)
+            walls.append(ms)
+            if n and (not hit or len(captured) != 1):
+                raise AssertionError(f"demo_noise seed {seed} value {value}: "
+                                     f"cache hit {hit}, captures "
+                                     f"{len(captured)}")
+            noise = noise_on_cpu("[128, 128]", seed)
+            const = np.full((128, 128), value, np.float32)
+            for key, want in (((0, "o"), noise), ((1, "o"), const),
+                              ((2, "c"), noise * const),
+                              ((3, "c"), noise * const + const)):
+                if not np.array_equal(out[key[0]][key[1]], want):
+                    raise AssertionError(f"demo_noise seed {seed}: node "
+                                         f"{key} is not the CPU's bit for bit")
+        with open(os.path.join(HERE, "tests", "fixtures",
+                               "node_fixtures.json")) as f:
+            pinned = json.load(f)["noise"]["expected"]["0/o"]
+        g = Graph()
+        g.add_node("noise", {"dims": "[2,5,5]", "seed": "7"})
+        out, _, _ = ask(g, [(0, "o")])
+        seven = out[0]["o"]
+        pin_err = float(np.abs(seven.ravel() - pinned["values"]).max())
+        if (list(seven.shape) != pinned["dims"] or pin_err > 6e-7
+                or not np.array_equal(seven, noise_on_cpu("[2,5,5]", 7))):
+            raise AssertionError(f"the pinned noise entry: {pin_err} from "
+                                 f"its 6 decimals, or not the CPU's bits")
+        log(f"  demo_noise.json: seeds 0, 7, -1, 12345 and const 0.5 -> 2.0, "
+            f"every request after the first a cache hit and no new capture "
+            f"(walls {', '.join(f'{w:.2f}' for w in walls)} ms); noise, "
+            f"const and both binops the CPU's bit for bit; noise seed 7 "
+            f"[2, 5, 5] the CPU's bits and within {pin_err:.3g} of the "
+            f"fixture's pinned 6 decimals (bound 6e-7: half a unit of the "
+            f"6th decimal and an f32 rounding)")
+
+        slice_obj = app.graphs.load("demo_slice.json")
+        slice_taps = [(1, "o"), (2, "o"), (3, "o")]
+        rng = np.random.default_rng(3)
+        images = [rng.random((3, 224, 224), dtype=np.float32)
+                  for _ in range(2)]
+        edited = rng.standard_normal((3, 3)).astype(np.float32)
+        saved = np.frombuffer(base64.b64decode(
+            slice_obj["nodes"][3]["instance"]["matrix"]), "<f4").reshape(3, 3)
+
+        def slice_graph(image, m):
+            g = graph_from_json(slice_obj)
+            g.nodes[3].params["matrix"] = base64.b64encode(
+                m.astype("<f4").tobytes()).decode()
+            g.add_input(image, g.nodes[0], "o")
+            return g
+
+        n_cap, walls, errs = len(captured), [], []
+        for n, (image, m) in enumerate(((images[0], saved),
+                                        (images[0], edited),
+                                        (images[1], edited))):
+            out, hit, ms = ask(slice_graph(image, m), slice_taps)
+            walls.append(ms)
+            if n and (not hit or len(captured) != n_cap + 1):
+                raise AssertionError(f"demo_slice request {n}: cache hit "
+                                     f"{hit}, captures "
+                                     f"{len(captured) - n_cap}")
+            if not (np.array_equal(out[1]["o"], image[1])
+                    and np.array_equal(out[2]["o"], image[1].T)):
+                raise AssertionError(f"demo_slice request {n}: slice or "
+                                     f"shuffle not exact")
+            errs.append(float(np.abs(out[3]["o"] - conv_f64(image, m)).max()))
+            if errs[-1] > 1e-5:
+                raise AssertionError(f"demo_slice request {n}: the f32 conv "
+                                     f"is {errs[-1]} from float64")
+        log(f"  demo_slice.json on 3 x 224 x 224: the saved matrix, an "
+            f"edited matrix (a cache hit, no new capture), a second image "
+            f"(a cache hit) (walls {', '.join(f'{w:.2f}' for w in walls)} "
+            f"ms); slice and shuffle exact, the conv within "
+            f"{max(errs):.3g} of float64 (bound 1e-5)")
+
+        def sim_graph(scale):
+            g = Graph()
+            a = g.add_node("noise", {"dims": "[2,8]", "seed": "5"})
+            b = g.add_node("noise", {"dims": "[3,8]", "seed": "6"})
+            c = g.add_node("similarity", {"scale": str(scale)})
+            g.connect(a, "o", c, "a")
+            g.connect(b, "o", c, "b")
+            return g
+
+        n_cap, sim_errs = len(captured), []
+        sim = kind("similarity")
+        for n, scale in enumerate((10.0, 3.0)):
+            out, hit, _ = ask(sim_graph(scale), [(2, "o")])
+            if n and (not hit or len(captured) != n_cap + 1):
+                raise AssertionError(f"similarity scale {scale}: cache hit "
+                                     f"{hit}, captures "
+                                     f"{len(captured) - n_cap}")
+            ab = {"a": torch.from_numpy(noise_on_cpu("[2,8]", 5)),
+                  "b": torch.from_numpy(noise_on_cpu("[3,8]", 6))}
+            host = sim.fn({})(ab, sim.captures({"scale": str(scale)}))["o"]
+            sim_errs.append(float(np.abs(out[2]["o"] - host.numpy()).max()))
+            if sim_errs[-1] > 1e-5 * scale:
+                raise AssertionError(f"similarity scale {scale}: "
+                                     f"{sim_errs[-1]} from the host's")
+        groups = {
+            "demo_noise": ([noise_graph(s, v) for s, v in
+                            ((1, 0.5), (2, -1.0), (-1, 3.0))], noise_taps),
+            "demo_slice": ([slice_graph(im, m) for im, m in
+                            ((images[0], saved), (images[1], edited),
+                             (images[1], saved))], slice_taps),
+            "similarity": ([sim_graph(s) for s in (1.0, 10.0, 100.0)],
+                           [(2, "o")])}
+        for name, (graphs, taps) in groups.items():
+            results = ex.run_stacked(graphs, taps)
+            for j, (g, res) in enumerate(zip(graphs, results)):
+                single = ex.run(g, taps)
+                if not all(np.array_equal(res[i][ch], single[i][ch])
+                           for i, ch in taps):
+                    raise AssertionError(f"{name}: result {j} of a stacked "
+                                         f"group is not its own run's")
+        log(f"  similarity (two noise nodes) scale 10 -> 3: a cache hit and "
+            f"no new capture, within {max(sim_errs):.3g} of the kind on the "
+            f"host (bound 1e-5 of the scale); a group of 3 of demo_noise "
+            f"(seeds and values), demo_slice (images and matrices) and "
+            f"similarity (scales) through run_stacked: every result its own "
+            f"run's bit for bit")
+    finally:
+        stop(app, httpd)
+    launched = {k: fn.launches - before[k] for k, fn in counters.items()
+                if fn.launches != before[k]}
+    if launched:
+        raise AssertionError(f"the demo graphs launched {launched}")
+
+
+def run_graph_on_card(counters) -> None:
+    """``tools.run_graph.main`` of the repository's dino_s16.json in bf16
+    on the card from a ``.npy`` image: 12 launches of row 1's bf16
+    tensor-core route (its one warm pass; the capture's record is not
+    counted), none of another kernel; an ``.npy`` per tap and PNGs of the
+    two feature maps, [1, 3, 14, 14] in [0, 1]."""
+    from interactive_vit_tpu_torch.tools import run_graph
+
+    tmp = tempfile.mkdtemp(prefix="ivt_run_graph_")
+    try:
+        image = os.path.join(tmp, "image.npy")
+        np.save(image, np.random.default_rng(5).random((3, 224, 224),
+                                                       dtype=np.float32))
+        out = os.path.join(tmp, "taps")
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        rc = run_graph.main(["dino_s16", "--image", image, "--out", out,
+                             "--dtype", "bfloat16"])
+        secs = time.perf_counter() - t0
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+        want = {k: 12 if k == "fused_attn_block_mma" else 0 for k in counters}
+        if rc != 0 or launched != want:
+            raise AssertionError(
+                f"run_graph: rc {rc}, launches "
+                f"{ {k: n for k, n in launched.items() if n} }")
+        with open(os.path.join(out, "manifest.json")) as f:
+            man = json.load(f)
+        for stem in man:
+            if not np.isfinite(np.load(os.path.join(out,
+                                                    stem + ".npy"))).all():
+                raise AssertionError(f"run_graph: {stem}.npy not finite")
+        pngs = []
+        for kind in ("pca_view", "patch_sim"):
+            stem, meta = next((s, m) for s, m in man.items()
+                              if m["name"] == kind)
+            a = np.load(os.path.join(out, stem + ".npy"))
+            with open(os.path.join(out, stem + ".png"), "rb") as f:
+                head = f.read(8)
+            if (not meta["png"] or meta["shape"] != [1, 3, 14, 14]
+                    or head != b"\x89PNG\r\n\x1a\n"
+                    or a.min() < 0 or a.max() > 1):
+                raise AssertionError(f"run_graph: {kind} {meta}")
+            pngs.append(stem + ".png")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  run_graph.main dino_s16.json --dtype bfloat16 on the card: rc 0 "
+        f"in {secs:.1f} s (model, capture), 12 fused_attn_block_mma "
+        f"launches, {len(man)} .npy taps, PNGs {pngs}")
+
+
 def flatten_tensors(tree):
     """The tensors of a nest of lists and tuples."""
     import torch
@@ -3009,8 +3462,9 @@ def run_path(path, device, graphs_dir, counters) -> dict:
                             path.taps(), tag, path.host_spans)
         notes, walls = compiled_path_check(app, eager, path, graph, images,
                                            tag, captured, counters)
-        if path.compiled_extras:
-            compiled_path_extras(app, eager, path, graph, images, captured)
+        if path.extras:
+            path.extras(app, eager, path, graph, images, captured,
+                        prof["replay"][1])
         reserved = torch.cuda.memory_reserved() / 2 ** 30 - reserved0
         (rw, rb), (ew, eb) = prof.values()
         COMPILED.append((tag, walls["replay"], walls["eager"], rw, rb, ew,
@@ -3102,6 +3556,12 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         f"the group's results (share of its bound): "
         + ", ".join(f"{k}={v:.3g} ({worst_use[k]:.2f})"
                     for k, v in sorted(worst.items())))
+    for (vtag, node), err in VIEW_VS_PLAIN.items():
+        if vtag == tag:
+            log(f"  {tag} node {node} ({path.views[node][1]}): held to the "
+                f"kind on the host from the response's "
+                f"{path.views[node][0]} output (bound {VIEW_BOUND:g}); its "
+                f"largest distance from the plain path's view {err:.3g}")
     if path.f32_rel:
         # against the North star's 1e-4 absolute: each output's error
         # beside its scale
@@ -4349,7 +4809,7 @@ def main() -> int:
     paths = [
         vit_path("vit_b16", 224, b16_taps, row1_bf16, b16_plain, seq=5,
                  conc=4, f32_kernels=row1_f32, profile_kernels=row1_profile,
-                 compiled_extras=True,
+                 extras=compiled_path_extras,
                  other=vit_path("vit_t16", 224, b16_taps, row1_bf16,
                                 b16_plain, seq=1, conc=0,
                                 profile_kernels=row1_profile)),
@@ -4432,6 +4892,19 @@ def main() -> int:
                                       13: ("r",)}, row1_bf16,
                  b16_plain, seq=2, conc=0, f32_kernels=row1_f32,
                  profile_kernels=row1_profile),
+        # the repository's dino_s16 feature-view graph (img_src at node 0):
+        # pca_view (17) and patch_sim (19) on the norm output (15), block
+        # 11's maps and rollout (14) wired to attn_view and overlay; row 1
+        # on the tensor cores in all 12 blocks (6 heads 64 wide, N=197),
+        # the f32 request's 12 on split TF32; the views run in f32
+        Path("dino_s16", vit, vit.resolve_variant("dino_s16"), 224,
+             {14: ("attn", "r"), 15: ("o",), 17: ("o",), 19: ("o",)},
+             row1_bf16, b16_plain, dino_tap_shape, seq=3, conc=2,
+             f32_kernels=row1_f32, profile_kernels=row1_profile, offset=1,
+             views={17: ("norm", "pca_view", {"skip": "1"}),
+                    19: ("norm", "patch_sim", {"row": "-1", "col": "-1",
+                                               "skip": "1"})},
+             extras=feature_view_extras),
         # W8A8 fc1/fc2 and the s8 block in every block: the MLP and the
         # s8 attention on the int8 tensor cores (the __dp4a kernels, routes
         # for operands off the grid, never; their counts come from here),
@@ -4476,6 +4949,11 @@ def main() -> int:
             # a kernel's first path gives its count
             for k in {**path.kernels, **path.f32_kernels}:
                 numbers[k].setdefault("launches", res["launches"][k])
+        t0 = time.perf_counter()
+        run_demo_graphs(device, graphs_dir, counters)
+        run_graph_on_card(counters)
+        log(f"  the demo graphs and run_graph: "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         throughput_probe(device, graphs_dir, vit_path(
             "vit_b16", 224, b16_taps, {}, {}, 0, 0).taps())

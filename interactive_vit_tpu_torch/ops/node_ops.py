@@ -1,24 +1,51 @@
 """Built-in graph node kinds.
 
-Counterpart of ``interactive_vit_tpu/ops/node_ops.py``, limited for now to
-the identity sources and viewer sinks that the saved ViT graphs contain
-(``img_src``, ``img_view``, ``multi_view``, ``category``, ``attn_view`` and
-``overlay``) and ``cos``, the first kind with dynamic params. The sinks
-pass their inputs through so that taps can read what the client-side
-viewer renders. The other compute kinds (binop, slice, noise, conv2d,
-resize, saliency, ...) are not ported yet.
+Counterpart of ``interactive_vit_tpu/ops/node_ops.py``: every kind of the
+JAX package but the three gradient kinds (``saliency``, ``dream``,
+``occlusion``), which need the executor's gradient staging. Each kind has
+the JAX kind's ``io``, ``dynamic_params`` and ``contents`` HTML, and each
+``fn`` is capturable into a CUDA graph: no read-back to the host, no upload
+from pageable memory, no Python indexing by a tensor's value. A dynamic
+param rides as a 0-d (or, for conv2d's matrix, a fixed-shape) capture, so
+an edit of it replays the executor's cached program.
 
   cos       params A, b           -> cos(A*x + b); A and b are dynamic
+  binop     op in {+,-,*,/}       elementwise a OP b, numpy broadcasting
+  slice     fixed=[{dim,val}], free=[{in_dim,out_dim}]
+  shuffle   free=[{in_dim,out_dim}] dimension permutation
+  const     value (dynamic), dims  filled f32 tensor
+  noise     dims, seed (dynamic)   uniform [0,1), jax.random's bits
+  conv2d    matrix (dynamic, base64 f32), h, w   valid-pad 2-D conv
+  resize    dims=[H,W]            bilinear resize of the trailing two dims
+  pca_view  skip                  patch-PCA -> RGB (DINO dense-feature view)
+  patch_sim row, col (dynamic), skip   token cosine-similarity heatmap
+  similarity scale (dynamic)      scaled cosine-similarity logits
+  img_src   identity; img_view / multi_view / category / attn_view /
+            overlay: sinks that pass their inputs through for the taps
+
+These kinds are XLA ops in the JAX package (no Pallas kernel), so here they
+are plain PyTorch.
 """
 
 from __future__ import annotations
 
+import base64
 import html
+import json
 from typing import Dict, List
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from interactive_vit_tpu_torch.graph.registry import NodeKind, Registry
+
+
+def _jparam(params: Dict[str, str], key: str, default):
+    if key not in params:
+        return default
+    v = params[key]
+    return json.loads(v) if isinstance(v, str) else v
 
 
 def _num_input(name: str, value, step="any", title=None) -> str:
@@ -29,6 +56,11 @@ def _num_input(name: str, value, step="any", title=None) -> str:
         f"<label>{label} <input data-param=\"{html.escape(name)}\" "
         f"type=\"number\" step=\"{step}\" value=\"{value}\"></label>"
     )
+
+
+def _dims_input(dims) -> str:
+    return (f"<label>dims <input data-param=\"dims\" type=\"text\" "
+            f"value=\"{html.escape(json.dumps(dims))}\"></label>")
 
 
 class CosNode(NodeKind):
@@ -66,6 +98,560 @@ class CosNode(NodeKind):
             a = caps["A"].to(x.dtype)
             b = caps["b"].to(x.dtype)
             return {"o": torch.cos(a * x + b)}
+
+        return run
+
+
+class BinOpNode(NodeKind):
+    """Elementwise a OP b; channels a, b -> c. numpy broadcasting and
+    promotion (bf16 with f32 gives f32, integer division a float), as
+    ``jnp``'s."""
+
+    OPS = {"+": torch.add, "-": torch.sub, "*": torch.mul, "/": torch.div}
+
+    def __init__(self) -> None:
+        super().__init__("binop")
+
+    def contents(self, params):
+        cur = params.get("op", "+")
+        opts = "".join(
+            f"<option value=\"{o}\"{' selected' if o == cur else ''}>"
+            f"a {o} b</option>" for o in self.OPS
+        )
+        return f"<select data-param=\"op\">{opts}</select>"
+
+    def io(self, params):
+        return {"ins": ["a", "b"], "outs": ["c"]}
+
+    def fn(self, params):
+        op = self.OPS[params.get("op", "+")]
+        return lambda ins: {"c": op(ins["a"], ins["b"])}
+
+
+class _IndexNode(NodeKind):
+    """Shared slice / shuffle logic.
+
+    fixed: list of {dim, val}: input dims pinned to an index.
+    free:  list of {in_dim, out_dim}: surviving dims, re-ordered so output
+           dim ``out_dim`` reads input dim ``in_dim``.
+    """
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o"]}
+
+    def contents(self, params):
+        fixed = _jparam(params, "fixed", [])
+        free = _jparam(params, "free", [])
+        n = len(fixed) + len(free)
+        spec = ["?"] * n
+        for f in fixed:
+            if int(f["dim"]) < n:
+                spec[int(f["dim"])] = str(int(f["val"]))
+        for f in free:
+            if int(f["in_dim"]) < n:
+                spec[int(f["in_dim"])] = f"d{int(f['out_dim'])}"
+        expr = ", ".join(spec) if spec else ":"
+        return f"<p>{self.name}</p><code>y = x[{expr}]</code>"
+
+    def fn(self, params):
+        fixed = _jparam(params, "fixed", [])
+        free = _jparam(params, "free", [])
+
+        def run(ins):
+            x = ins["o"]
+            idx = [slice(None)] * x.ndim
+            for f in fixed:
+                idx[int(f["dim"])] = int(f["val"])
+            y = x[tuple(idx)]
+            # surviving input dims, ascending, map to positions 0..k-1
+            kept = sorted(int(f["in_dim"]) for f in free)
+            pos = {d: i for i, d in enumerate(kept)}
+            perm = [0] * len(free)
+            for f in free:
+                perm[int(f["out_dim"])] = pos[int(f["in_dim"])]
+            return {"o": y.permute(perm) if perm else y}
+
+        return run
+
+
+class SliceNode(_IndexNode):
+    def __init__(self) -> None:
+        super().__init__("slice")
+
+
+class ShuffleNode(_IndexNode):
+    def __init__(self) -> None:
+        super().__init__("shuffle")
+
+
+class ConstNode(NodeKind):
+    """An f32 tensor of ``dims`` filled with ``value``, a dynamic param.
+
+    The value stays on the device: the 0-d capture is expanded to ``dims``
+    and copied, where ``torch.full`` would need it as a Python number (a
+    read-back that a capture refuses)."""
+
+    def __init__(self) -> None:
+        super().__init__("const")
+
+    def contents(self, params):
+        value = float(_jparam(params, "value", 0.0))
+        dims = _jparam(params, "dims", [1])
+        return (f"<p>const fill</p>{_num_input('value', value)} "
+                f"{_dims_input(dims)}")
+
+    def io(self, params):
+        return {"ins": [], "outs": ["o"]}
+
+    def dynamic_params(self):
+        return frozenset({"value"})
+
+    def captures(self, params):
+        return {"value": torch.tensor(float(_jparam(params, "value", 0.0)),
+                                      dtype=torch.float32)}
+
+    def fn(self, params):
+        dims = [int(d) for d in _jparam(params, "dims", [1])]
+        return lambda ins, caps: {
+            "o": caps["value"].to(torch.float32).expand(dims).contiguous()}
+
+
+_U32 = 0xFFFFFFFF
+# threefry2x32's rotation schedule (Salmon et al. 2011), as jax.random's
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl32(v: torch.Tensor, r: int) -> torch.Tensor:
+    return ((v << r) | (v >> (32 - r))) & _U32
+
+
+def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
+    """The threefry2x32 block cipher of ``jax.random``'s default key (20
+    rounds, five key injections) on 32-bit words held in int64 tensors
+    (each add and shift masked back to 32 bits). ``k0``, ``k1``: the key
+    words (ints or tensors); ``x0``, ``x1``: the counter words."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _U32
+    x1 = (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _U32
+    return x0, x1
+
+
+def uniform_bits(seed: torch.Tensor, dims: List[int]) -> torch.Tensor:
+    """``jax.random.uniform(jax.random.key(seed), dims, float32)`` bit for
+    bit, with ``jax_threefry_partitionable`` (the default since JAX 0.5):
+    the key is (0, seed); element i's counter is (i >> 32, i & 0xFFFFFFFF)
+    in row-major order; its bits are the two output words XORed; the value
+    is their top 23 bits as a mantissa of [1, 2), minus 1, which is exactly
+    (bits >> 9) * 2^-23. ``seed``: an int64 tensor in [0, 2^32) on the
+    device the values are made on."""
+    n = 1
+    for d in dims:
+        n *= d
+    idx = torch.arange(n, dtype=torch.int64, device=seed.device)
+    x0, x1 = threefry2x32(0, seed, idx >> 32, idx & _U32)
+    bits = x0 ^ x1
+    return ((bits >> 9).to(torch.float32) * 2.0 ** -23).reshape(dims)
+
+
+class NoiseNode(NodeKind):
+    """Uniform [0, 1) tensor, the values of ``jax.random.uniform`` keyed by
+    the ``seed`` param, bit for bit (``uniform_bits``). The seed is a
+    dynamic param, masked to u32 and delivered as a 0-d int64 capture on
+    the device: re-randomizing replays the cached program (a ``dims``
+    change stages a new one), and a stacked run keys each row by its own
+    seed. No ``torch.Generator`` is involved."""
+
+    def __init__(self) -> None:
+        super().__init__("noise")
+
+    def contents(self, params):
+        dims = _jparam(params, "dims", [1])
+        seed = int(float(params.get("seed", 0)))
+        return (f"<p>uniform[0,1) noise</p>"
+                f"{_dims_input(dims)} "
+                f"{_num_input('seed', seed, step='1')}")
+
+    def io(self, params):
+        return {"ins": [], "outs": ["o"]}
+
+    def dynamic_params(self):
+        return frozenset({"seed"})
+
+    def captures(self, params):
+        # mask into u32 range: the UI's number input reaches -1 with one
+        # down-click
+        seed = int(float(params.get("seed", 0))) & _U32
+        return {"seed": torch.tensor(seed, dtype=torch.int64)}
+
+    def fn(self, params):
+        dims = [int(d) for d in _jparam(params, "dims", [1])]
+        return lambda ins, caps: {"o": uniform_bits(caps["seed"], dims)}
+
+
+class Conv2dNode(NodeKind):
+    """Single-channel 2-D convolution (cross-correlation), valid padding.
+
+    Input [C,H,W] or [H,W]; each channel convolved with the same k x k
+    matrix; output spatial dims shrink by k - 1. The matrix travels
+    base64-encoded f32 and is a dynamic param (a capture of shape (h, w),
+    which stay in the signature). The input must be f32, as the JAX kind's
+    (``lax.conv_general_dilated`` refuses a bf16 input against the f32
+    matrix).
+
+    Written as k*k shifted multiply-adds in f32 (``torch.addcmul``), not as
+    a cuDNN convolution: exact f32 products whatever
+    ``torch.backends.cudnn.allow_tf32`` says (the JAX kind is HIGHEST
+    precision for f32), and no library state in a captured pass.
+    """
+
+    def __init__(self) -> None:
+        super().__init__("conv2d")
+
+    def contents(self, params):
+        m = self._matrix(params)
+        h, w = m.shape
+        rows = "".join(
+            "<tr>" + "".join(
+                f"<td><input data-cell=\"{i},{j}\" type=\"number\" "
+                f"step=\"any\" value=\"{m[i, j]:g}\"></td>"
+                for j in range(w)
+            ) + "</tr>"
+            for i in range(h)
+        )
+        return (f"<p>conv2d {h}&times;{w} (valid)</p>"
+                f"{_num_input('h', h, step='1')} "
+                f"{_num_input('w', w, step='1')}"
+                f"<table data-matrix data-h=\"{h}\" data-w=\"{w}\">"
+                f"{rows}</table>")
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o"]}
+
+    def _matrix(self, params) -> np.ndarray:
+        h = int(float(params.get("h", 3)))
+        w = int(float(params.get("w", 3)))
+        if "matrix" in params:
+            raw = base64.b64decode(params["matrix"])
+            m = np.frombuffer(raw, dtype="<f4").reshape(h, w).copy()
+        else:
+            m = np.zeros((h, w), dtype=np.float32)
+            m[h // 2, w // 2] = 1.0
+        return m
+
+    def dynamic_params(self):
+        # a matrix edit (drag a cell) replays the cached program; an h / w
+        # change (a shape) stages a new one
+        return frozenset({"matrix"})
+
+    def captures(self, params):
+        return {"m": torch.from_numpy(self._matrix(params))}
+
+    def fn(self, params):
+        def run(ins, caps):
+            m = caps["m"]
+            x = ins["o"]
+            if x.dtype != torch.float32:
+                raise TypeError(
+                    f"conv2d takes a float32 input (its matrix is float32; "
+                    f"the kind does not promote), got "
+                    f"{str(x.dtype).removeprefix('torch.')}")
+            if x.ndim not in (2, 3):
+                raise ValueError(f"conv2d takes [C,H,W] or [H,W], got "
+                                 f"shape {tuple(x.shape)}")
+            kh, kw = m.shape
+            oh, ow = x.shape[-2] - kh + 1, x.shape[-1] - kw + 1
+            if oh < 1 or ow < 1:
+                raise ValueError(f"a {kh}x{kw} matrix does not fit in "
+                                 f"{tuple(x.shape[-2:])}")
+            acc = x[..., :oh, :ow] * m[0, 0]
+            for i in range(kh):
+                for j in range(kw):
+                    if i or j:
+                        acc = torch.addcmul(acc, x[..., i:i + oh, j:j + ow],
+                                            m[i, j])
+            return {"o": acc}
+
+        return run
+
+
+class ResizeNode(NodeKind):
+    """Bilinear resize of the trailing two dims to dims=[H, W], whatever
+    the rank (CHW, and the [B,C,H,W] maps of pca_view / patch_sim).
+
+    ``jax.image.resize(..., "bilinear")`` antialiases when it shrinks: a
+    triangle kernel widened by the scale, half-pixel centres, weights
+    renormalized at the edges. ``F.interpolate(mode="bilinear",
+    align_corners=False, antialias=True)`` is that filter. A non-f32 input
+    (bf16) is resized in f32 and rounded once to its dtype; the JAX kind
+    computes in the input's dtype."""
+
+    def __init__(self) -> None:
+        super().__init__("resize")
+
+    def contents(self, params):
+        dims = [int(d) for d in _jparam(params, "dims", [224, 224])]
+        return f"<p>bilinear resize</p>{_dims_input(dims)}"
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o"]}
+
+    def fn(self, params):
+        dims = [int(d) for d in _jparam(params, "dims", [224, 224])]
+
+        def run(ins):
+            x = ins["o"]
+            planes = x.reshape(-1, 1, *x.shape[-2:]).to(torch.float32)
+            y = F.interpolate(planes, size=(dims[0], dims[1]),
+                              mode="bilinear", align_corners=False,
+                              antialias=True)
+            return {"o": y.reshape(*x.shape[:-2], dims[0], dims[1])
+                    .to(x.dtype)}
+
+        return run
+
+
+def _token_grid(x, skip: int):
+    """[B,N,D] (or [N,D]) tokens -> (patch tokens [B,P,D] in f32, side g).
+
+    Drops the first ``skip`` tokens (CLS) and requires the rest to tile a
+    square patch grid. Channels-last spatial features [B,H,W,C] (Swin stage
+    outputs) flatten to their H*W tokens (no CLS, so ``skip`` does not
+    apply). The shape checks run on shapes alone, before any device work.
+    """
+    if x.ndim == 2:
+        x = x[None]
+    if x.ndim == 4:
+        b, h, w, c = x.shape
+        if h != w or h < 2:
+            raise ValueError(
+                f"spatial features must be square [B,H,W,C], got "
+                f"{tuple(x.shape)}"
+            )
+        return x.reshape(b, h * w, c).to(torch.float32), h
+    if x.ndim != 3:
+        raise ValueError(
+            f"expected token sequence [B,N,D] or [N,D], got shape "
+            f"{tuple(x.shape)}"
+        )
+    if not 0 <= skip < x.shape[1]:
+        raise ValueError(
+            f"skip={skip} out of range for {x.shape[1]} tokens"
+        )
+    p = x.shape[1] - skip
+    g = int(round(p ** 0.5))
+    if g * g != p or g < 2:
+        raise ValueError(
+            f"{p} patch tokens (after skipping {skip}) do not tile a "
+            f"square grid — wire a ViT token sequence ('o' of a block or "
+            f"norm node)"
+        )
+    return x[:, skip:].to(torch.float32), g
+
+
+def _unit(v: torch.Tensor, eps: float) -> torch.Tensor:
+    """``v`` over max(its L2 norm along the last dim, eps)."""
+    return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True).clamp_min(
+        eps)
+
+
+def _pca_top3(cov: torch.Tensor, iters: int = 96, k: int = 6) -> torch.Tensor:
+    """Top-3 eigenvectors of the batched SPD ``cov`` [B,D,D], PC1 first.
+
+    The JAX kind's formulation exactly: simultaneous (subspace) iteration
+    from the start basis q0[i, j] = cos(i (j+1) 0.573 + j) (k = 6
+    columns), modified Gram-Schmidt after every one of the ``iters`` power
+    steps, columns 0..2 of the result. Only matmuls and elementwise ops: no
+    ``torch.linalg.eigh`` or ``qr``, which check their info on the host on
+    CUDA (a capture refuses that) and choose other signs. Deferring the
+    orthonormalization would amplify the eigen-spread past f32's range; the
+    extra columns absorb slow convergence and eigenvalue clusters. About
+    65 small launches a step, some 6,300 a view: the loop runs on the host,
+    and a captured program replays every launch."""
+    bsz, d, _ = cov.shape
+    i = torch.arange(d, dtype=torch.float32, device=cov.device)[:, None]
+    j = torch.arange(k, dtype=torch.float32, device=cov.device)[None, :]
+    q0 = torch.cos(i * (j + 1.0) * 0.573 + j)  # [D,k], incoherent columns
+    q = q0[None].expand(bsz, d, k).to(cov.dtype)
+
+    def orthonormalize(q):
+        cols = []
+        for c in range(k):
+            v = q[..., c]
+            for u in cols:
+                # v - u (u . v), the product and the difference one launch
+                v = torch.addcmul(v, u, (u * v).sum(-1, keepdim=True),
+                                  value=-1.0)
+            v = _unit(v, 1e-12)
+            cols.append(v)
+        return torch.stack(cols, dim=-1)
+
+    q = orthonormalize(q)
+    for _ in range(iters):
+        q = orthonormalize(torch.matmul(cov, q))
+    return q[..., :3]
+
+
+class PcaViewNode(NodeKind):
+    """Patch-token PCA -> RGB image: the DINO / DINOv2 dense-feature view.
+
+    Every patch token is projected onto the top-3 principal components of
+    the image's own token cloud (``_pca_top3``), each component min-max
+    scaled to [0, 1]. Input "o": tokens [B,N,D] (or [N,D]) from any block
+    or norm node, or channels-last spatial features [B,H,W,C]. Output "o":
+    [B,3,g,g] f32, viewable in ``img_view`` and resizable with ``resize``.
+    Computed in f32 whatever the input's dtype."""
+
+    def __init__(self) -> None:
+        super().__init__("pca_view")
+
+    def contents(self, params):
+        skip = int(float(params.get("skip", 1)))
+        return ("<p>patch-PCA &rarr; RGB (DINO-style)</p>"
+                + _num_input("skip", skip, step="1",
+                             title="tokens to skip (CLS)"))
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o"]}
+
+    def fn(self, params):
+        skip = int(float(params.get("skip", 1)))
+
+        def run(ins):
+            t, g = _token_grid(ins["o"], skip)
+            b, p, _ = t.shape
+            t = t - t.mean(dim=1, keepdim=True)
+            cov = torch.matmul(t.transpose(1, 2), t) / p
+            top3 = _pca_top3(cov)  # [B,D,3], PC1 first
+            proj = torch.matmul(t, top3)
+            lo = proj.amin(dim=1, keepdim=True)
+            hi = proj.amax(dim=1, keepdim=True)
+            img = (proj - lo) / (hi - lo).clamp_min(1e-8)
+            return {"o": img.transpose(1, 2).reshape(b, 3, g, g)}
+
+        return run
+
+
+class PatchSimNode(NodeKind):
+    """Cosine similarity of one query token against every patch ->
+    heatmap.
+
+    Input "o": tokens [B,N,D], or channels-last spatial features [B,H,W,C]
+    (no CLS; a negative row / col then falls back to patch (0, 0)).
+    ``row`` / ``col`` select the query patch on the g x g grid, clamped to
+    it; either negative (the default) queries token 0 (the CLS token when
+    ``skip`` >= 1). They are dynamic params: 0-d int32 captures, clamped
+    and gathered on the device (``index_select`` with a device index,
+    ``torch.where`` for the token-0 fallback), so scrubbing the query
+    replays the cached program; ``skip`` changes shapes and stages anew.
+    Output "o": [B,3,g,g] f32, the similarity mapped from [-1, 1] to
+    [0, 1] and repeated on 3 channels."""
+
+    def __init__(self) -> None:
+        super().__init__("patch_sim")
+
+    def contents(self, params):
+        row = int(float(params.get("row", -1)))
+        col = int(float(params.get("col", -1)))
+        skip = int(float(params.get("skip", 1)))
+        return ("<p>token cosine-similarity heatmap</p>"
+                + _num_input("row", row, step="1",
+                             title="query row (-1 = token 0/CLS)")
+                + " " + _num_input("col", col, step="1",
+                                   title="query col (-1 = token 0/CLS)")
+                + " " + _num_input("skip", skip, step="1",
+                                   title="tokens to skip (CLS)"))
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o"]}
+
+    def dynamic_params(self):
+        return frozenset({"row", "col"})
+
+    def captures(self, params):
+        return {"row": torch.tensor(int(float(params.get("row", -1))),
+                                    dtype=torch.int32),
+                "col": torch.tensor(int(float(params.get("col", -1))),
+                                    dtype=torch.int32)}
+
+    def fn(self, params):
+        skip = int(float(params.get("skip", 1)))
+
+        def run(ins, caps):
+            x = ins["o"]
+            if x.ndim == 2:
+                x = x[None]
+            if x.ndim == 4:
+                # spatial features: no CLS token; "token 0" is patch (0, 0)
+                t, g = _token_grid(x, 0)
+                x = t
+            else:
+                t, g = _token_grid(x, skip)
+            b = t.shape[0]
+            row, col = caps["row"], caps["col"]
+            idx = (row.clamp(0, g - 1) * g + col.clamp(0, g - 1)).long()
+            q_patch = torch.index_select(t, 1, idx.reshape(1))[:, 0]
+            q_tok0 = x[:, 0].to(torch.float32)
+            use_tok0 = torch.logical_or(row < 0, col < 0)
+            q = torch.where(use_tok0, q_tok0, q_patch)
+            qn = _unit(q, 1e-8)
+            tn = _unit(t, 1e-8)
+            # a product and a sum over D, not a matvec: a stacked run
+            # (vmap) then reduces each row in the same order as one run
+            sim = (tn * qn[:, None, :]).sum(-1)
+            img = ((sim + 1.0) * 0.5).reshape(b, 1, g, g)
+            return {"o": img.expand(b, 3, g, g)}
+
+        return run
+
+
+class SimilarityNode(NodeKind):
+    """Scaled cosine-similarity logits between two embedding sets: ``a``
+    [B, D] (or [D]) against ``b`` [P, D] -> ``o`` [B, P] (squeezed to [P]
+    for a 1-D ``a``). Both sides are L2-normalized in their own dtype (a
+    zero embedding gives zero similarity, not NaN), the products are summed
+    in f32 and scaled by ``scale`` (dynamic, default 100), and the logits
+    take ``a``'s dtype."""
+
+    def __init__(self) -> None:
+        super().__init__("similarity")
+
+    def contents(self, params):
+        scale = float(params.get("scale", 100.0))
+        return (f"<p>zero-shot similarity<br>"
+                f"scale &middot; (a&#775; &middot; b&#775;&#7488;)</p>"
+                f"{_num_input('scale', scale)}")
+
+    def io(self, params):
+        return {"ins": ["a", "b"], "outs": ["o"]}
+
+    def dynamic_params(self):
+        return frozenset({"scale"})
+
+    def captures(self, params):
+        return {"scale": torch.tensor(float(params.get("scale", 100.0)),
+                                      dtype=torch.float32)}
+
+    def fn(self, params):
+        def run(ins, caps):
+            a, b = ins["a"], ins["b"]
+            squeeze = a.ndim == 1
+            if squeeze:
+                a = a[None]
+            a = _unit(a, 1e-12)
+            b = _unit(b, 1e-12)
+            # a product and a sum over D (in f32), not a matmul: a stacked
+            # run (vmap) then reduces each logit in the same order as one
+            logits = (a.to(torch.float32)[:, None, :]
+                      * b.to(torch.float32)[None, :, :]).sum(-1)
+            logits = (logits * caps["scale"].to(torch.float32)).to(
+                ins["a"].dtype)
+            return {"o": logits[0] if squeeze else logits}
 
         return run
 
@@ -120,6 +706,16 @@ def instances():
     """The built-in kinds; ``register_builtin`` registers exactly these."""
     return [
         CosNode(),
+        BinOpNode(),
+        SliceNode(),
+        ShuffleNode(),
+        ConstNode(),
+        NoiseNode(),
+        Conv2dNode(),
+        ResizeNode(),
+        PcaViewNode(),
+        PatchSimNode(),
+        SimilarityNode(),
         IdentityNode("img_src", ["o"], ["o"]),
         ImgViewNode(),
         IdentityNode("multi_view", ["o"], []),

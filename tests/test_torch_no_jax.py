@@ -54,6 +54,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.parallel.train",
     "interactive_vit_tpu_torch.tools.evaluate",
     "interactive_vit_tpu_torch.tools.kernel_variants",
+    "interactive_vit_tpu_torch.tools.run_graph",
     "interactive_vit_tpu_torch.tools.train",
     "chip_smoke",
 ]
