@@ -286,7 +286,41 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    edited (a cache hit), one ``run_stacked`` group of three of each (every
    result its own run's bit for bit); and ``tools.run_graph.main`` of
    dino_s16.json in bf16 from a ``.npy`` image (12 row-1 launches, an
-   ``.npy`` a tap, PNGs of the two feature maps). Then a throughput probe of
+   ``.npy`` a tap, PNGs of the two feature maps). Then the gradient kinds
+   (``run_saliency_graphs``): the repository's vit_t16_saliency.json
+   (saliency gradxinput, dream 32 steps, occlusion patch 32 stride 16,
+   vit_t16:attrib), swin_t_saliency.json and vit_b16_tome_saliency.json
+   through ``POST /compute``, each on a bf16 and an f32 server, a 3 x 224
+   x 224 image, every gradient node's "o" and raw channel tapped with the
+   logits: a replay launches each chain kernel 96 times (row 1, row 1's
+   ToMe mode, row 5: the main pass, occlusion's unoccluded pass and its
+   169 positions in 6 chunks of 32; saliency, dream and attrib replay the
+   plain twins, no kernel; by name in the bf16 profile; no FMA route); the
+   replay of the captured image equals the first request's eager (warm)
+   pass bit for bit; the replay of a second image against the plain path
+   (the same weights, no kernel): saliency, dream and attrib bit for bit
+   (the same plain twins on both), the logits at a served path's bound
+   (ToMe's in bf16 against ``tome_lockstep``), occlusion's drops within
+   bounds scaled to the plain path's largest drop that refuse a zeroed
+   or halved grid (f32 the grid against the plain path's; bf16 and ToMe
+   position by position against batch-1 forwards through the same
+   kernels), its first chunk of 32 masked images run again as one
+   ``run_stacked`` group through the kernels (each launched once), its
+   logits held to the plain path on the same batch (ToMe:
+   ``tome_lockstep``) and its drops equal to the response's bit for bit,
+   and the render held to the host's render of the response's own drops
+   (HEAT_BOUND); the distances of the bf16 drops and render from the
+   plain path's are logged; a scrub of dream's class and lr and
+   occlusion's fill is a cache hit with no capture and new values; the
+   replay wall (median of 3), the warm pass's wall, one profiled replay,
+   the client p50, each capture's time, ``memory_reserved`` and the time
+   of each step; on the vit_t16 bf16 server also the device busy of each
+   kind (profiled replays of the chain cut with each kind, less the chain
+   alone), saliency
+   ``mode=smooth`` (its sigma and seed scrubbed: a cache hit, new values),
+   ``mode=ig`` and Grad-CAM wrt block 3 once each, and one
+   ``run_stacked`` group of two classes, each row its own run's. Then a
+   throughput probe of
    micro-batched serving (BASELINE config 5): vit_b16 bf16 with the
    ``attn`` + ``r`` taps on 3 blocks, its programs for a request alone
    and the buckets 2, 4 and 8 captured first (their times and
@@ -2192,13 +2226,17 @@ def time_host_spans(executor, graph, taps, tag, spans) -> None:
 
 
 def device_kernels(prof):
-    """(device ms, launches, name) of each kernel a profile saw."""
+    """(device ms, launches, name) of each kernel a profile saw, kept on
+    the profile (a saliency graph's replay holds ~40,000 kernels, and each
+    ``key_averages`` walks them all)."""
     from torch.autograd import DeviceType
 
-    return [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    if not hasattr(prof, "ivt_kernels"):
+        prof.ivt_kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
+                            for e in prof.key_averages()
+                            if e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0]
+    return prof.ivt_kernels
 
 
 def kernels_by_name(prof, parts) -> dict:
@@ -3336,6 +3374,578 @@ def run_graph_on_card(counters) -> None:
     log(f"  run_graph.main dino_s16.json --dtype bfloat16 on the card: rc 0 "
         f"in {secs:.1f} s (model, capture), 12 fused_attn_block_mma "
         f"launches, {len(man)} .npy taps, PNGs {pngs}")
+
+
+# The gradient kinds' bounds. saliency, dream and attrib differentiate
+# through the plain twins, which replay the same plain ops from the same
+# image on the served path and on the plain path: their outputs must be
+# the plain path's bit for bit, in both dtypes. The logits, of the main
+# pass and of occlusion's chunked forwards (OCCLUSION_CHUNK masked images
+# in one batched pass through the kernels), are held as a served path's
+# are (``check_logits``): against the plain path on the same batch (ToMe
+# in bf16: ``tome_lockstep``, whose merges may differ from the kernel
+# path's only on near ties), bf16 within SLICE_REL of max(1, |logit|),
+# f32 within F32_BOUND. Occlusion's drops are differences of close scores,
+# each bound scaled to the plain path's largest drop ``scale`` and
+# refusing a zeroed or halved grid (bound < scale / 2): in f32 the whole
+# grid against the plain path's within F32_BOUND of max(1, scale), but
+# ToMe's (its merges flip on near ties between the kernel and the plain
+# path); those and the bf16 drops position by position against batch-1
+# forwards through the same kernels, within OCC_DROP_REL of the scale
+# (f32: F32_BOUND of max(1, scale)). Occlusion's render against the
+# host's render of the response's own drops (HEAT_BOUND).
+# OCC_DROP_REL: a bf16 score in [2, 4) (the served logits' largest, with
+# seeded random weights) has ulps of 2^-6; a forward of another batch moves
+# it by an ulp, a drop by up to two, and swin_t's largest drop is 0.125, 8
+# such ulps (measured on an NVIDIA H100 80GB HBM3 at 700 W: every drop
+# within 0.0156 of its batch-1 forward); 2^-2 of the scale is 2 ulps there
+# and still refuses a halved grid.
+OCC_DROP_REL = 2.0 ** -2
+HEAT_BOUND = 1e-4
+# the saved graphs served from the repository (occlusion patch 32 stride 16
+# on a 224 image: 169 positions in chunks of 32, 6 batched passes beside
+# the unoccluded one and the main pass: each kernel of the chain 8 times a
+# request)
+SALIENCY_PATHS = (
+    ("vit_t16", {"fused_attn_block_mma": 96},
+     {"fused_attn_block_tf32x3": 96},
+     {"row1_attn_mma_kernel": 96, "::attention_kernel": 0}),
+    ("swin_t", {"fused_window_attn_mma": 96},
+     {"fused_window_attn_tf32x3": 96},
+     {"window_attn_mma_kernel": 96, "window_attention_kernel": 0}),
+    ("vit_b16_tome", {"fused_attn_block_mma": 96,
+                      "fused_attn_block_tome_mma": 96},
+     {"fused_attn_block_tf32x3": 96, "fused_attn_block_tome_tf32x3": 96},
+     {"row1_attn_mma_kernel": 96, "key_mean_kernel": 96,
+      "::attention_kernel": 0}),
+)
+# (kind, its raw channel) of the gradient nodes a saliency graph taps
+GRAD_TAPS = {"saliency": "g", "dream": "delta", "occlusion": "g",
+             "attrib": "rel"}
+
+
+def grad_kind(name):
+    return name.rsplit(":", 1)[-1]
+
+
+def busy_str(ms):
+    return "not measured" if ms is None else f"{ms:.2f}"
+
+
+def saliency_path(variant):
+    """A served saliency variant as a ``Path`` with no taps, for
+    ``plain_taps`` (its blocks on their plain versions) and, for ToMe,
+    ``tome_lockstep``."""
+    from interactive_vit_tpu_torch.models import swin, tome, vit
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+    from interactive_vit_tpu_torch.ops import fused_window as fw
+
+    if variant.startswith("swin_"):
+        return Path(variant, swin, swin.VARIANTS[variant], 224, {}, {},
+                    {"window_impl": fw.fused_window_attn_reference},
+                    swin_tap_shape, 0, 0)
+    plain = {"block_impl": fb.fused_attn_block_reference}
+    if "_tome" in variant:
+        return Path(variant, tome, tome.VARIANTS[variant], 224, {}, {},
+                    plain, tome_tap_shape, 0, 0, chain=("s", "a"),
+                    lockstep=tome_lockstep)
+    return Path(variant, vit, vit.resolve_variant(variant), 224, {}, {},
+                plain, vit_tap_shape, 0, 0)
+
+
+def plain_model_of(variant, model, dtype, device):
+    """The served model's weights on the plain path (no kernel: the
+    reference's layers in every block)."""
+    from interactive_vit_tpu_torch.models.swin_plugin import make_swin_model
+    from interactive_vit_tpu_torch.models.tome_plugin import make_tome_model
+    from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
+
+    if variant.startswith("swin_"):
+        return make_swin_model(variant, params=model.params, dtype=dtype,
+                               device=device, kernels=False)
+    if "_tome" in variant:
+        return make_tome_model(variant, params=model.params, dtype=dtype,
+                               device=device, kernels=False)
+    return make_vit_model(variant, params=model.params, dtype=dtype,
+                          device=device, block_kernel="reference")
+
+
+def occlusion_render(g, h, w, patch, stride):
+    """Occlusion's "o" plane on the host in float64 from its drop grid
+    ``g`` [gh, gw] (the kind's coverage-normalized, min-max render)."""
+    ph, pw = min(patch, h), min(patch, w)
+    gh, gw = g.shape
+    canvas, count = np.zeros((h, w)), np.zeros((h, w))
+    for p in range(gh * gw):
+        py = min((p // gw) * stride, h - ph)
+        px = min((p % gw) * stride, w - pw)
+        canvas[py:py + ph, px:px + pw] += float(g.flat[p])
+        count[py:py + ph, px:px + pw] += 1.0
+    heat = canvas / np.maximum(count, 1.0)
+    return (heat - heat.min()) / max(heat.max() - heat.min(), 1e-12)
+
+
+def occluded(image, positions, gw, patch, stride):
+    """``image`` [3, H, W] with occlusion's window at each of
+    ``positions`` filled with 0 (the saved graphs' fill), [P, 3, H, W]."""
+    _, h, w = image.shape
+    ph, pw = min(patch, h), min(patch, w)
+    out = np.repeat(image[None], len(positions), axis=0)
+    for j, p in enumerate(positions):
+        py = min((p // gw) * stride, h - ph)
+        px = min((p % gw) * stride, w - pw)
+        out[j, :, py:py + ph, px:px + pw] = 0.0
+    return out
+
+
+def check_logits(tag, key, got, ref, f32):
+    """Logits against their reference at a served path's bound: f32
+    within F32_BOUND, bf16 within SLICE_REL of max(1, their largest
+    magnitude). Returns the difference and the bound."""
+    bound = (F32_BOUND if f32
+             else SLICE_REL * max(1.0, float(np.abs(ref).max())))
+    err = float(np.abs(got - ref).max())
+    if got.shape != ref.shape or not np.isfinite(got).all() or err > bound:
+        raise AssertionError(f"{tag} {key}: {got.shape} {err} from its "
+                             f"reference {ref.shape} (bound {bound})")
+    return err, bound
+
+
+def drop_bound(tag, scale, f32):
+    """The bound of occlusion's drops: F32_BOUND of max(1, ``scale``) in
+    f32, OCC_DROP_REL of it in bf16, ``scale`` the plain path's largest
+    drop; it must refuse a zeroed or halved grid."""
+    bound = F32_BOUND * max(1.0, scale) if f32 else OCC_DROP_REL * scale
+    if not bound < scale / 2:
+        raise AssertionError(f"{tag}: the drops' bound {bound} would not "
+                             f"refuse a halved grid (largest drop {scale})")
+    return bound
+
+
+def occlusion_positions_check(ex, chain_obj, image, g, patch, stride, tag,
+                              bound):
+    """Six positions of occlusion's drop grid (the first and last of a
+    chunk among them) against batch-1 forwards of the chain through the
+    same kernels (``ex``, eager): base minus the occluded max logit, each
+    within ``bound``. Returns the largest difference."""
+    from interactive_vit_tpu_torch.ops.node_ops import OCCLUSION_CHUNK
+
+    head = next(i for i, n in enumerate(chain_obj["nodes"])
+                if n["instance"].get("endpoint", "").endswith(":head"))
+
+    def score(img):
+        out = ex.run(chain_graph(chain_obj, img), [(head, "o")])
+        return float(out[head]["o"].max())
+
+    base = score(image)
+    worst = 0.0
+    n_pos = g.size
+    for p in sorted({0, OCCLUSION_CHUNK - 1, OCCLUSION_CHUNK, n_pos // 2,
+                     n_pos - 2, n_pos - 1}):
+        masked = occluded(image, [p], g.shape[-1], patch, stride)[0]
+        diff = abs((base - score(masked)) - float(g.flat[p]))
+        worst = max(worst, diff)
+        if diff > bound:
+            raise AssertionError(f"{tag}: occlusion position {p}'s drop is "
+                                 f"{diff} from its batch-1 forward (bound "
+                                 f"{bound})")
+    return worst
+
+
+def occlusion_chunk_check(ex, path, model, chain_obj, image, g, patch,
+                          stride, tag, f32, counters, kernels, device):
+    """Occlusion's first chunk at its own shape: its OCCLUSION_CHUNK masked
+    images as one ``run_stacked`` group of the chain through the served
+    kinds (``ex``, eager: every layer's ``stacked_fn`` at the chunked
+    replay's batch), which launches each kernel of the chain once (a
+    request's ``kernels`` over its passes); the group's logits against the
+    reference path on the same batch (``check_logits``): ``plain_taps``,
+    or for ToMe ``tome_lockstep``, every block against its plain version
+    on the kernel path's inputs, a merge that differs excused only as a
+    near tie (``tome_lut_check``); and the response's drops ``g`` of those
+    positions, base minus each row's max logit, bit for bit. Returns the
+    logits' difference and bound."""
+    from interactive_vit_tpu_torch.ops.node_ops import OCCLUSION_CHUNK
+
+    head = next(i for i, n in enumerate(chain_obj["nodes"])
+                if n["instance"].get("endpoint", "").endswith(":head"))
+    masked = occluded(image, range(OCCLUSION_CHUNK), g.shape[-1], patch,
+                      stride)
+    passes = 2 + -(-g.size // OCCLUSION_CHUNK)
+    before = {k: fn.launches for k, fn in counters.items()}
+    rows = ex.run_stacked([chain_graph(chain_obj, m) for m in masked],
+                          [(head, "o")])
+    launched = {k: fn.launches - before[k] for k, fn in counters.items()}
+    if launched != {k: kernels.get(k, 0) // passes for k in counters}:
+        raise AssertionError(f"{tag}: a chunk of {OCCLUSION_CHUNK} launched "
+                             f"{ {k: n for k, n in launched.items() if n} }")
+    logits = np.concatenate([r[head]["o"] for r in rows])
+    ref = (path.lockstep or plain_taps)(path, model, masked, device)[0]
+    err, bound = check_logits(f"{tag} occlusion's chunk", "logits", logits,
+                              ref.float().cpu().numpy(), f32)
+    base = np.float32(ex.run(chain_graph(chain_obj, image),
+                             [(head, "o")])[head]["o"].max())
+    drops = base - logits.max(axis=-1)
+    if not np.array_equal(drops, g.reshape(-1)[:OCCLUSION_CHUNK]):
+        raise AssertionError(f"{tag}: occlusion's first {OCCLUSION_CHUNK} "
+                             f"drops are not the chunk's bit for bit "
+                             f"({float(np.abs(drops - g.reshape(-1)[:OCCLUSION_CHUNK]).max())})")
+    return err, bound
+
+
+
+def run_saliency_graphs(device, graphs_dir, counters) -> None:
+    """The repository's saliency graphs through ``POST /compute`` (see the
+    module docstring, phase 4, "the gradient kinds")."""
+    import gc
+
+    import torch
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.graph.registry import Registry
+    from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+    from interactive_vit_tpu_torch.serving.server import DTYPES
+    from interactive_vit_tpu_torch.wire.codec import Response
+    from interactive_vit_tpu_torch.wire.schema import graph_from_json
+
+    rng = np.random.default_rng(21)
+    images = [rng.random((3, 224, 224), dtype=np.float32) for _ in range(2)]
+    t_phase = time.perf_counter()
+    for variant, bf16_kernels, f32_kernels, profile_names in SALIENCY_PATHS:
+        path = saliency_path(variant)
+        for dtype_name in ("bfloat16", "float32"):
+            f32 = dtype_name == "float32"
+            kernels = f32_kernels if f32 else bf16_kernels
+            tag = f"{variant}_saliency {dtype_name}"
+            t_path = t0 = time.perf_counter()
+            split = {}
+
+            def lap(what):
+                nonlocal t0
+                split[what] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved0 = torch.cuda.memory_reserved() / 2 ** 30
+            app, httpd, url = serve([variant], dtype_name, device,
+                                    graphs_dir)
+            try:
+                ex = app.executor
+                captured = watch_captures(ex)
+                obj = app.graphs.load(f"{variant}_saliency.json")
+                chain_obj = app.graphs.load(variant + ".json")
+                names = [n["instance"].get("endpoint")
+                         or n["instance"]["kind"] for n in obj["nodes"]]
+                grads = {i: grad_kind(nm) for i, nm in enumerate(names)
+                         if grad_kind(nm) in GRAD_TAPS}
+                head = next(i for i, nm in enumerate(names)
+                            if nm.endswith(":head"))
+                taps = sorted({(head, "o")} | {
+                    (i, ch) for i, k in grads.items()
+                    for ch in ("o", GRAD_TAPS[k])})
+                occ = next(i for i, k in grads.items() if k == "occlusion")
+                dream = next(i for i, k in grads.items() if k == "dream")
+                occ_p = obj["nodes"][occ]["instance"]["params"]
+                patch, stride = int(occ_p["patch"]), int(occ_p["stride"])
+                lap("server")
+
+                def graph_of(image, edits=None):
+                    g = graph_from_json(obj)
+                    for i, params in (edits or {}).items():
+                        g.nodes[i].params.update(params)
+                    g.add_input(image, g.nodes[0], "o")
+                    return g
+
+                lat = []
+
+                def ask(g):
+                    t = time.perf_counter()
+                    out = Response.decode(post(url + "/compute",
+                                               graph_request(g, taps)))
+                    lat.append((time.perf_counter() - t) * 1e3)
+                    return out
+
+                # the first request: its eager pass (the warm pass, whose
+                # outputs are the response) and the capture
+                first = ask(graph_of(images[0]))
+                stats = ex.last_stats
+                eager_ms = (stats.execute_s - stats.compile_s) * 1e3
+                if len(captured) != 1:
+                    raise AssertionError(f"{tag}: {len(captured)} captures "
+                                         f"for the first request")
+                lap("warm pass and capture")
+                lat.clear()
+                for fn in counters.values():
+                    fn.launches = 0
+                got = ask(graph_of(images[1]))
+                launched = {k: fn.launches for k, fn in counters.items()}
+                want = {k: kernels.get(k, 0) for k in counters}
+                if not ex.last_stats.cache_hit or launched != want:
+                    raise AssertionError(
+                        f"{tag}: a replay (cache hit "
+                        f"{ex.last_stats.cache_hit}) launched "
+                        f"{ {k: n for k, n in launched.items() if n} }, "
+                        f"expected {kernels}")
+                # the replay of the captured image against that request's
+                # eager pass; the second image's replay against the plain
+                # path below
+                again = ask(graph_of(images[0]))
+                same = [f"{i}/{ch}" for i, ch in taps
+                        if not np.array_equal(again[i][ch], first[i][ch])]
+                if same:
+                    raise AssertionError(f"{tag}: the replay differs from "
+                                         f"its eager pass in {same}")
+                lap("replays")
+                # the plain path (no kernel), eager, from the same image
+                plain_reg = Registry()
+                register_builtin(plain_reg)
+                model = app.reg.get_node(variant + ":head").model
+                plain_model_of(variant, model, DTYPES[dtype_name][0],
+                               device).register(plain_reg)
+                before = {k: fn.launches for k, fn in counters.items()}
+                plain = Executor(plain_reg, use_jit=False,
+                                 device=device).run(graph_of(images[1]), taps)
+                if any(fn.launches != before[k]
+                       for k, fn in counters.items()):
+                    raise AssertionError(f"{tag}: the plain path launched "
+                                         f"a kernel")
+                lap("plain path")
+                eager = Executor(app.reg, use_jit=False, device=device)
+                g_scale = float(np.abs(plain[occ]["g"]).max())
+                occ_bound = drop_bound(tag, g_scale, f32)
+                errs = {}
+                for i, ch in taps:
+                    if i in grads and grads[i] != "occlusion":
+                        if not np.array_equal(got[i][ch], plain[i][ch]):
+                            raise AssertionError(
+                                f"{tag} {names[i]} {ch}: "
+                                f"{float(np.abs(got[i][ch] - plain[i][ch]).max())} "
+                                f"from the plain path (its twins must give "
+                                f"the same bits)")
+                        errs[f"{grads[i]} {ch}"] = 0.0
+                    elif i == head:
+                        ref = plain[i][ch]
+                        if path.lockstep and not f32:
+                            # ToMe's merges may flip on near ties between
+                            # the kernels and the plain path
+                            ref = path.lockstep(path, model, images[1],
+                                                device)[0].float().cpu(
+                                                ).numpy()
+                        errs["head o"] = check_logits(tag, "head o",
+                                                      got[i][ch], ref,
+                                                      f32)[0]
+                    elif ch == "o":
+                        heat = occlusion_render(got[i]["g"], 224, 224,
+                                                patch, stride)
+                        errs["occlusion o vs its g"] = float(np.abs(
+                            got[i]["o"] - heat[None]).max())
+                        if errs["occlusion o vs its g"] > HEAT_BOUND:
+                            raise AssertionError(
+                                f"{tag}: occlusion's render is "
+                                f"{errs['occlusion o vs its g']} from the "
+                                f"host's render of its drops")
+                        errs["occlusion o vs plain (logged)"] = float(
+                            np.abs(got[i]["o"] - plain[i]["o"]).max())
+                    elif f32 and not path.lockstep:
+                        errs["occlusion g"] = float(np.abs(
+                            got[i][ch] - plain[i][ch]).max())
+                        if errs["occlusion g"] > occ_bound:
+                            raise AssertionError(
+                                f"{tag}: occlusion's drops are "
+                                f"{errs['occlusion g']} from the plain "
+                                f"path's (bound {occ_bound})")
+                    else:
+                        errs["occlusion g vs plain (logged)"] = float(
+                            np.abs(got[i]["g"] - plain[i]["g"]).max())
+                        errs["occlusion g vs batch-1"] = \
+                            occlusion_positions_check(
+                                eager, chain_obj, images[1], got[i]["g"],
+                                patch, stride, tag, occ_bound)
+                errs["occlusion's chunk logits"], chunk_bound = \
+                    occlusion_chunk_check(eager, path, model, chain_obj,
+                                          images[1], got[occ]["g"], patch,
+                                          stride, tag, f32, counters,
+                                          kernels, device)
+                lap("checks")
+                # dynamic params: dream's class and lr, occlusion's fill
+                n_cap = len(captured)
+                scrubbed = ask(graph_of(images[1], {
+                    dream: {"class": "5", "lr": "0.1"},
+                    occ: {"fill": "0.5"}}))
+                if not ex.last_stats.cache_hit or len(captured) != n_cap:
+                    raise AssertionError(f"{tag}: a dynamic scrub was not "
+                                         f"a cache hit without a capture")
+                for i in (dream, occ):
+                    ch = GRAD_TAPS[grads[i]]
+                    if np.array_equal(scrubbed[i][ch], got[i][ch]):
+                        raise AssertionError(f"{tag}: node {i}'s scrub did "
+                                             f"not change {ch}")
+                g1 = graph_of(images[1])
+                replay_ms = median_ms(lambda: ex.run(g1, taps))
+                lap("scrub and replay walls")
+                rw = rb = None
+                if not f32:
+                    # the kernels by name and the device busy (~40,000
+                    # kernels: 5-16 s a trace), in bf16 only
+                    rw, rb = profiled(
+                        lambda: synchronized_ms(lambda: ex.run(g1, taps)),
+                        f"{tag} profile of one executor.run (replay)",
+                        profile_names)
+                    lap("profiled replay")
+                reserved = (torch.cuda.memory_reserved() / 2 ** 30
+                            - reserved0)
+                kinds_ms = {}
+                if variant == "vit_t16" and not f32:
+                    kinds_ms = busy_by_kind(ex, obj, grads, images[1], rb,
+                                            tag)
+                    lap("busy by kind")
+                    saliency_modes_check(app, url, obj, images, tag,
+                                         captured)
+                    lap("modes and a group")
+                COMPILED.append((tag, replay_ms, eager_ms, rw, rb, eager_ms,
+                                 None, [t for _, t in captured], reserved))
+            finally:
+                stop(app, httpd)
+            log(f"  {tag} (the saved graph: "
+                f"{', '.join(sorted(set(grads.values())))}; dream 32 steps, "
+                f"occlusion patch {patch} stride {stride}): launches a "
+                f"request {kernels} (the main pass and occlusion's "
+                f"unoccluded and 6 chunked forwards; the FMA routes none); "
+                f"the captured image's replay equals its eager pass bit "
+                f"for bit; against the plain path "
+                + "; ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                + f" (the chunk's logits bound {chunk_bound:.3g}; the "
+                f"drops' bound {occ_bound:.3g}, their largest plain "
+                f"{g_scale:.3g}); dynamic scrub (dream class + lr, "
+                f"occlusion fill) a cache hit, no capture, new values; "
+                f"walls replay {replay_ms:.2f} (median of 3) / eager "
+                f"{eager_ms:.2f} ms (the first request's warm pass), "
+                f"profiled replay busy {busy_str(rb)} ms; client p50 "
+                f"{float(np.median(lat)):.2f} ms ({len(lat)} replays); "
+                f"captures {', '.join(f'{t:.2f}' for _, t in captured)} s"
+                + ("; device busy by kind (profiled replays of the chain "
+                   "and of the chain with each kind, less the chain; dream "
+                   "the whole graph's less the rest) "
+                   + ", ".join(f"{k} {busy_str(v)}"
+                               for k, v in kinds_ms.items()) + " ms"
+                   if kinds_ms else "")
+                + f"; memory_reserved {reserved:.2f} GiB above the path's "
+                f"start; {time.perf_counter() - t_path:.1f} s ("
+                + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + ")")
+    log(f"  the saliency graphs: {time.perf_counter() - t_phase:.1f} s")
+
+
+def busy_by_kind(ex, obj, grads, image, whole_ms, tag):
+    """Device busy ms of each gradient kind: one profiled replay of the
+    saved graph cut to the model's chain, and one of the chain with each
+    kind but dream, less the chain; dream's the whole graph's replay
+    (``whole_ms``) less the rest (a replay runs no Python that could name
+    its kernels, and dream's own program would take a second capture of
+    its 32 steps). The cut graphs are programs of their own, captured
+    first."""
+    keep = [i for i, n in enumerate(obj["nodes"]) if i not in grads
+            and n["instance"].get("kind") == "net_node"]
+
+    def cut(extra):
+        nodes = keep + extra
+        where = {old: new for new, old in enumerate(nodes)}
+        edges = [{"in_port": {**e["in_port"],
+                              "node": where[e["in_port"]["node"]]},
+                  "out_port": {**e["out_port"],
+                               "node": where[e["out_port"]["node"]]}}
+                 for e in obj["edges"] if e["in_port"]["node"] in where
+                 and e["out_port"]["node"] in where]
+        return {"nodes": [obj["nodes"][i] for i in nodes], "edges": edges}
+
+    head = next(k for k, i in enumerate(keep) if obj["nodes"][i][
+        "instance"]["endpoint"].endswith(":head"))
+    busy = {}
+    for what, extra in [("chain", [])] + [(k, [i]) for i, k in
+                                          sorted(grads.items())
+                                          if k != "dream"]:
+        g = chain_graph(cut(extra), image)
+        taps = [(len(keep), "o")] if extra else [(head, "o")]
+        ex.run(g, taps)  # its capture
+        busy[what] = profiled(lambda: synchronized_ms(lambda: ex.run(
+            g, taps)), f"{tag} profile of one replay, the chain"
+            + (f" and {what}" if extra else ""))[1]
+    if whole_ms is None or None in busy.values():
+        return {k: None for k in list(busy) + ["dream"]}
+    out = {k: (v if k == "chain" else v - busy["chain"])
+           for k, v in busy.items()}
+    out["dream"] = whole_ms - sum(out.values())
+    return out
+
+
+def saliency_modes_check(app, url, obj, images, tag, captured):
+    """On the vit_t16 bf16 server: saliency in ``mode=smooth`` (its sigma
+    and seed scrubbed: a cache hit, no capture, new values), ``mode=ig``
+    and Grad-CAM wrt block 3 (token-shaped g, the patch-grid render) once
+    each, on the chain and one saliency node; then one ``run_stacked``
+    group of two requests on distinct classes, each row its own run's bit
+    for bit."""
+    from interactive_vit_tpu_torch.graph.ir import Graph
+    from interactive_vit_tpu_torch.wire.codec import Response
+
+    ex = app.executor
+    names = [n["instance"].get("endpoint") for n in obj["nodes"]]
+    chain = [i for i, nm in enumerate(names)
+             if nm and nm.startswith("vit_t16:") and not nm.endswith(
+                 ":attrib")]
+
+    def graph(params, image):
+        g = Graph()
+        nodes = [g.add_node(names[i]) for i in chain]
+        for a, b in zip(nodes, nodes[1:]):
+            g.connect(a, "o", b, "o")
+        s = g.add_node("saliency", params)
+        g.connect(nodes[-1], "o", s, "o")
+        g.add_input(image, nodes[0], "o")
+        return g, s.index
+
+    def ask(params, image=images[0]):
+        g, s = graph(params, image)
+        out = Response.decode(post(url + "/compute",
+                                   graph_request(g, [(s, "o"), (s, "g")])))
+        return out[s], ex.last_stats.cache_hit
+
+    smooth = {"target": "max", "mode": "smooth", "steps": "4",
+              "sigma": "0.15", "seed": "0"}
+    a, _ = ask(smooth)
+    n_cap = len(captured)
+    b, hit = ask({**smooth, "sigma": "0.3", "seed": "7"})
+    if not hit or len(captured) != n_cap or np.array_equal(a["g"], b["g"]):
+        raise AssertionError(f"{tag}: smooth's sigma / seed scrub: cache "
+                             f"hit {hit}, captures {len(captured) - n_cap}")
+    ig, _ = ask({"target": "class", "class": "3", "mode": "ig",
+                 "steps": "4"})
+    cam, _ = ask({"target": "max", "mode": "gradxinput", "wrt": "node:5"})
+    for what, out, shape in (("smooth", a, (3, 224, 224)),
+                             ("ig", ig, (3, 224, 224)),
+                             ("Grad-CAM", cam, (1, 197, 192))):
+        if (out["g"].shape != shape or not np.isfinite(out["g"]).all()
+                or not np.abs(out["g"]).max() > 0):
+            raise AssertionError(f"{tag} {what}: g {out['g'].shape}")
+    if cam["o"].shape != (1, 3, 14, 14):
+        raise AssertionError(f"{tag} Grad-CAM: o {cam['o'].shape}")
+    pair = [graph({"target": "class", "class": c, "mode": "grad"}, im)
+            for c, im in (("1", images[0]), ("7", images[1]))]
+    s = pair[0][1]
+    group = ex.run_stacked([g for g, _ in pair], [(s, "g")])
+    for j, ((g, _), row) in enumerate(zip(pair, group)):
+        single = ex.run(g, [(s, "g")])[s]["g"]
+        if not np.array_equal(row[s]["g"], single):
+            raise AssertionError(
+                f"{tag} stacked: row {j} is "
+                f"{float(np.abs(row[s]['g'] - single).max())} from its own "
+                f"run")
+    if np.array_equal(group[0][s]["g"], group[1][s]["g"]):
+        raise AssertionError(f"{tag}: the stacked rows are equal")
+    log(f"  {tag} extras: saliency smooth (4 samples; sigma and seed "
+        f"scrubbed: a cache hit, no capture, new values), ig (4 steps), "
+        f"Grad-CAM wrt block 3 (g [1, 197, 192], o [1, 3, 14, 14]); one "
+        f"run_stacked group of classes 1 and 7 on two images: each row "
+        f"its own run bit for bit")
 
 
 def flatten_tensors(tree):
@@ -4954,6 +5564,7 @@ def main() -> int:
         run_graph_on_card(counters)
         log(f"  the demo graphs and run_graph: "
             f"{time.perf_counter() - t0:.1f} s")
+        run_saliency_graphs(device, graphs_dir, counters)
         t0 = time.perf_counter()
         throughput_probe(device, graphs_dir, vit_path(
             "vit_b16", 224, b16_taps, {}, {}, 0, 0).taps())
@@ -4986,7 +5597,7 @@ def main() -> int:
 
     for tag, rw, ew, prw, prb, pew, peb, caps, gib in COMPILED:
         log(f"  {tag}: replay {rw:.2f}, eager {ew:.2f} ({ew / rw:.2f}x); "
-            f"profiled replay {prw:.2f} / {busy(prb)}, eager {pew:.2f} / "
+            f"profiled replay {busy(prw)} / {busy(prb)}, eager {pew:.2f} / "
             f"{busy(peb)}; captures "
             f"{', '.join(f'{t * 1e3:.1f}' for t in caps)}; memory_reserved "
             f"{gib:.2f} GiB")

@@ -77,9 +77,32 @@ memory, of each signature. ``defer=True`` (both paths) returns an
 page-locked host buffers behind the group's own launches, and
 ``materialize()`` waits for them -- the micro-batcher's pipelining hook.
 
-Not ported yet: layouts, pipeline folding, meshes and gradient nodes. The
-JAX executor's content-addressed device input cache is not ported (it
-hides a slow remote transfer that a local card does not have).
+Gradient nodes
+--------------
+A ``grad_node`` kind (saliency, dream, occlusion) gets its ancestor cone
+as a closed ``forward(x)`` of one leaf: a graph input or an upstream
+node's output (``GradSpec``, ``_grad_specs``). Its step puts the leaf
+value into a copy of the pass's env and re-runs only the cone's nodes that
+depend on it (``GradSpec.replay``), in topo order; every other value is
+the one the pass computed. Where the replay differentiates, each replayed
+node runs ``grad_safe_fn`` (a model layer's plain twin: a kernel has no
+backward); occlusion (``differentiates = False``) keeps ``fn``, and runs
+its masked leaves through the nodes' ``stacked_fn`` (``forward.stacked``).
+A gradient node inside another one's replay composes by recursion. A
+graph with a kind that runs autograd (a gradient node, ``<model>:attrib``)
+runs under ``torch.no_grad`` (the kinds enable autograd for their own
+``torch.autograd.grad`` calls, which a capture records: the backward
+kernels run on the pass's stream, their memory from the program's pool),
+every other graph under ``torch.inference_mode`` (``_grad_mode``).
+A stacked program runs a gradient step once for each row of the group, so
+that every row is what its own ``run`` gives. ``run_eager`` and
+``run_timed_eager`` stage a gradient node's step alone and run it on the
+values computed before it (``_eager_grad``), and refuse one nested in
+another's cone.
+
+Not ported yet: layouts, pipeline folding and meshes. The JAX executor's
+content-addressed device input cache is not ported (it hides a slow remote
+transfer that a local card does not have).
 """
 
 from __future__ import annotations
@@ -159,6 +182,109 @@ def resolve_taps(
             raise NodeError(i, n.name, f"tap channel {ch!r} is not an "
                                        f"output of this node (outs: {outs})")
     return out
+
+
+class GradSpec:
+    """One gradient node's resolved differentiation plan.
+
+    ``wrt_key``  env key of the leaf: ``("in", node, ch)`` for a graph
+                 input, ``(node, ch)`` for an upstream node's output.
+    ``src_key``  env key of the tensor the scalar target reduces.
+    ``anc``      the src's whole ancestor cone, in topo order.
+    ``replay``   the nodes of ``anc`` that depend on the leaf, in topo
+                 order: the nodes a ``forward`` re-runs."""
+
+    __slots__ = ("wrt_key", "src_key", "anc", "replay")
+
+    def __init__(self, wrt_key, src_key, anc, replay):
+        self.wrt_key = wrt_key
+        self.src_key = src_key
+        self.anc = anc
+        self.replay = replay
+
+
+def _grad_specs(graph: Graph, order, input_edges, node_kinds,
+                only: Optional[int] = None) -> Dict[int, GradSpec]:
+    """Every gradient node's ``GradSpec`` (``only``: that node's alone, so
+    that the eager paths attribute one bad node's error to it). The wiring
+    errors are ``NodeError``s with the JAX executor's texts: a wrt input
+    out of range, a wrt node or channel that does not exist, a wired
+    tensor that does not depend on the leaf."""
+    specs: Dict[int, GradSpec] = {}
+    for n in graph.nodes:
+        kind = node_kinds[n.index]
+        if not kind.grad_node or (only is not None and n.index != only):
+            continue
+        try:
+            wspec = kind.grad_wrt(n.params)
+        except Exception as err:  # noqa: BLE001 -- attribution contract
+            raise NodeError(n.index, n.name, str(err)) from err
+        if wspec[0] == "input":
+            k = wspec[1]
+            if k < 0 or k >= len(input_edges):
+                raise NodeError(
+                    n.index, n.name,
+                    f"wrt={k} but the graph has {len(input_edges)} "
+                    f"input(s)")
+            wnode, wch, _e = input_edges[k]
+            wrt_key: Tuple[Any, ...] = ("in", wnode.index, wch)
+            wrt_label = f"graph input {k}"
+        else:
+            _, widx, wch = wspec
+            if widx < 0 or widx >= len(graph.nodes):
+                raise NodeError(
+                    n.index, n.name, f"wrt node {widx} does not exist")
+            wnode = graph.nodes[widx]
+            if wch not in node_kinds[wnode.index].io(wnode.params)["outs"]:
+                raise NodeError(
+                    n.index, n.name,
+                    f"wrt node {widx} has no output channel {wch!r}")
+            wrt_key = (widx, wch)
+            wrt_label = f"node {widx} channel {wch!r}"
+        e = n.inputs["o"]  # validate() enforced presence
+        if e.src is None:
+            src_key: Tuple[Any, ...] = ("in", n.index, "o")
+            anc: List[Any] = []
+        else:
+            src_key = (e.src.node.index, e.src.channel)
+            seen: Set[int] = set()
+            stack = [e.src.node]
+            while stack:
+                m = stack.pop()
+                if m.index in seen:
+                    continue
+                seen.add(m.index)
+                stack += [e2.src.node for e2 in m.inputs.values()
+                          if e2.src is not None]
+            anc = [m for m in order if m.index in seen]
+        # a node depends on the leaf if an input reads the leaf or any
+        # output of a node that depends on it (recomputing a node
+        # refreshes all its channels)
+        dep: Set[int] = set()
+
+        def reads_leaf(m) -> bool:
+            for ch, e2 in m.inputs.items():
+                key = (("in", m.index, ch) if e2.src is None
+                       else (e2.src.node.index, e2.src.channel))
+                if key == wrt_key or (e2.src is not None
+                                      and e2.src.node.index in dep):
+                    return True
+            return False
+
+        replay = []
+        for m in anc:
+            if m.index == wrt_key[0]:
+                continue  # the leaf's producer is never recomputed
+            if reads_leaf(m):
+                dep.add(m.index)
+                replay.append(m)
+        if not (src_key == wrt_key or src_key[0] in dep):
+            raise NodeError(
+                n.index, n.name,
+                f"the wired tensor does not depend on {wrt_label} — "
+                f"its gradient would be identically zero")
+        specs[n.index] = GradSpec(wrt_key, src_key, anc, replay)
+    return specs
 
 
 class ExecStats:
@@ -245,16 +371,23 @@ class InFlight:
 
 class _Step:
     """One node of a staged pass: its kind's fn (``stacked_fn`` in a
-    stacked program), its static captures on the device, its input keys in
-    the pass's env, whether its captures are dynamic, and whether its
-    outputs broadcast over the bucket (a node with no input in a stacked
-    program runs once)."""
+    stacked program or a chunked replay, ``grad_safe_fn`` in a replay that
+    differentiates, ``grad_fn`` for a gradient node), its static captures
+    on the device, its input keys in the pass's env, whether its captures
+    are dynamic, and whether its outputs broadcast over the bucket (a node
+    with no input in a stacked program runs once). A gradient node's step
+    also holds ``grad``: its ``GradSpec``, its replay's steps and, for a
+    forward-only kind outside any differentiated replay, the same steps
+    stacked (``forward.stacked``'s; None: that runs the rows one by one)."""
 
-    __slots__ = ("index", "name", "fn", "caps", "ins", "dyn", "broadcast")
+    __slots__ = ("index", "name", "fn", "caps", "ins", "dyn", "broadcast",
+                 "grad")
 
-    def __init__(self, index, name, fn, caps, ins, dyn, broadcast):
+    def __init__(self, index, name, fn, caps, ins, dyn, broadcast,
+                 grad=None):
         self.index, self.name, self.fn, self.caps = index, name, fn, caps
         self.ins, self.dyn, self.broadcast = ins, dyn, broadcast
+        self.grad = grad
 
 
 class _Dyn:
@@ -477,41 +610,73 @@ class Executor:
             return type(tree)(self._place(v) for v in tree)
         return tree
 
-    def _stage(self, graph: Graph, tap_set,
-               bucket: Optional[int] = None) -> _Program:
+    def _stage(self, graph: Graph, tap_set, bucket: Optional[int] = None,
+               grad_of=None) -> _Program:
         """The validated graph's pass, once a signature: the node order,
         each node's effective params, its kind's fn (``stacked_fn`` for a
         stacked program of ``bucket`` rows) and its static captures placed
-        on the device. The program keeps no reference to the graph (or its
-        request tensors)."""
+        on the device; for each gradient node its replay's steps. The
+        program keeps no reference to the graph (or its request tensors).
+        ``grad_of``: (a gradient node, whether to stage its cone): the
+        eager paths' program of that node alone, after its cone's steps
+        where they must compute its leaf again (``_eager_grad``)."""
+        order = graph.order()
+        kinds = {n.index: self.reg.get_node(n.name) for n in graph.nodes}
+        specs = _grad_specs(graph, order, graph.input_edges(), kinds,
+                            only=None if grad_of is None
+                            else grad_of[0].index)
+        staged = order
+        if grad_of is not None:
+            anc = specs[grad_of[0].index].anc
+            order = anc + [grad_of[0]]
+            staged = order if grad_of[1] else order[-1:]
+        # a node-wrt leaf's producer must emit the wrt channel
+        live = set(tap_set) | {s.wrt_key for s in specs.values()
+                               if s.wrt_key[0] != "in"}
         pos = {id(n): i for i, n in enumerate(graph.nodes)}
-        steps, dyn = [], []
-        for n in graph.order():
-            kind = self.reg.get_node(n.name)
-            params = effective_params(n, tap_set)
+        caps_of, dyn = {}, []
+        for n in order:
+            kind = kinds[n.index]
             try:
                 caps = kind.captures(n.params)
-                dynamic = caps is not None and bool(kind.dynamic_params())
                 keys = None
-                if dynamic:
+                if caps is not None and kind.dynamic_params():
                     dck = kind.dynamic_capture_keys()
                     keys = [k for k in caps if dck is None or k in dck]
-                if bucket is None or (not n.inputs and not dynamic):
-                    fn = kind.fn(params)
-                elif dynamic:
-                    fn = kind.stacked_fn(params, {k: 0 if k in keys else None
-                                                  for k in caps})
-                else:
-                    fn = kind.stacked_fn(params)
-                if dynamic:
                     spec = {k: (tuple(t.shape), t.dtype) for k, t in
                             ((k, torch.as_tensor(caps[k])) for k in keys)}
                     dyn.append(_Dyn(pos[id(n)], n.index, spec,
                                     self._place({k: v for k, v in caps.items()
                                                  if k not in keys})))
-                    caps = None
+                    caps_of[n.index] = (None, {k: 0 if k in keys else None
+                                               for k in caps})
                 else:
-                    caps = self._place(caps)
+                    caps_of[n.index] = (self._place(caps), None)
+            except NodeError:
+                raise
+            except Exception as err:  # noqa: BLE001 -- attribution contract
+                raise NodeError(n.index, n.name, str(err)) from err
+
+        def step(n, rows, diff) -> _Step:
+            """``n``'s step: ``rows`` None (one request), a stacked
+            program's bucket, or "chunk" (a forward-only replay's batched
+            masked leaves); ``diff``: inside a differentiated replay."""
+            kind = kinds[n.index]
+            params = effective_params(n, live)
+            caps, axes = caps_of[n.index]
+            dynamic = axes is not None
+            try:
+                if n.index in specs:
+                    fn = kind.grad_fn(params)
+                elif diff:
+                    fn = kind.grad_safe_fn(params)
+                elif rows is None or (not n.inputs and not dynamic):
+                    fn = kind.fn(params)
+                elif dynamic:
+                    fn = kind.stacked_fn(params, axes if rows != "chunk"
+                                         else dict.fromkeys(axes))
+                else:
+                    fn = kind.stacked_fn(params)
             except NodeError:
                 raise
             except Exception as err:  # noqa: BLE001 -- attribution contract
@@ -519,9 +684,18 @@ class Executor:
             ins = [(ch, ("in", n.index, ch) if e.src is None
                     else (e.src.node.index, e.src.channel))
                    for ch, e in n.inputs.items()]
-            steps.append(_Step(n.index, n.name, fn, caps, ins, dynamic,
-                               bucket is not None and not n.inputs
-                               and not dynamic))
+            grad = None
+            if n.index in specs:
+                sp = specs[n.index]
+                d = kind.differentiates or diff
+                grad = (sp, [step(m, None, d) for m in sp.replay],
+                        None if d else [step(m, "chunk", False)
+                                        for m in sp.replay])
+            return _Step(n.index, n.name, fn, caps, ins, dynamic,
+                         isinstance(rows, int) and not n.inputs
+                         and not dynamic, grad)
+
+        steps = [step(n, bucket, False) for n in staged]
         input_keys = [("in", n.index, ch) for n, ch, _ in graph.input_edges()]
         return _Program(steps, dyn, input_keys, _tap_order(tap_set), bucket)
 
@@ -560,13 +734,32 @@ class Executor:
         returns the tapped outputs as {"i/ch": tensor}. A node's failure
         (in a capture: work that cannot be captured, which raises where it
         is issued) is attributed to it."""
-        for st in prog.steps:
+        self._steps(prog, prog.steps, env, dyn_caps, prog.k)
+        return {f"{i}/{ch}": env[(i, ch)] for i, ch in prog.out_keys
+                if (i, ch) in env}
+
+    def _steps(self, prog: _Program, steps, env, dyn_caps, k,
+               chunk=None) -> None:
+        """Run ``steps`` into ``env``; ``k``: a stacked program's bucket
+        (None: one request). ``chunk``: (size, keys) of a forward-only
+        replay of ``size`` masked leaves at once, ``keys`` the env keys
+        that carry them (the leaf's); an input the replay did not compute
+        (the pass's value) broadcasts over them."""
+        for st in steps:
             try:
-                ins = {ch: env[key] for ch, key in st.ins}
+                ins = {}
+                for ch, key in st.ins:
+                    v = env[key]
+                    if chunk is not None and key not in chunk[1]:
+                        v = v.unsqueeze(0).expand(chunk[0], *v.shape)
+                    ins[ch] = v
                 caps = dyn_caps[st.index] if st.dyn else st.caps
-                outs = st.fn(ins) if caps is None else st.fn(ins, caps)
+                if st.grad is not None:
+                    outs = self._grad_step(prog, st, env, caps, dyn_caps, k)
+                else:
+                    outs = st.fn(ins) if caps is None else st.fn(ins, caps)
                 if st.broadcast:
-                    outs = {ch: v.unsqueeze(0).expand(prog.k, *v.shape)
+                    outs = {ch: v.unsqueeze(0).expand(k, *v.shape)
                             for ch, v in outs.items()}
             except NodeError:
                 raise
@@ -574,8 +767,52 @@ class Executor:
                 raise NodeError(st.index, st.name, str(err)) from err
             for ch, v in outs.items():
                 env[(st.index, ch)] = v
-        return {f"{i}/{ch}": env[(i, ch)] for i, ch in prog.out_keys
-                if (i, ch) in env}
+                if chunk is not None:
+                    chunk[1].add((st.index, ch))
+
+    def _grad_step(self, prog: _Program, st: _Step, env, caps, dyn_caps,
+                   k) -> Dict[str, torch.Tensor]:
+        """A gradient node's outputs: its kind's ``grad_fn`` given
+        ``forward`` (the replay of its cone from the leaf) and the leaf's
+        value. In a stacked program, once for each row, stacked."""
+        if k is not None:
+            per_row = {d.index: set(d.spec) for d in prog.dyn}
+
+            def row(tree, j, i):
+                return None if tree is None else {
+                    kk: v[j] if kk in per_row.get(i, ()) else v
+                    for kk, v in tree.items()}
+
+            outs = [self._grad_step(
+                prog, st, {key: v[j] for key, v in env.items()},
+                row(caps, j, st.index),
+                {i: row(c, j, i) for i, c in dyn_caps.items()},
+                None) for j in range(k)]
+            return {ch: torch.stack([o[ch] for o in outs])
+                    for ch in outs[0]}
+        spec, replay, chunked = st.grad
+
+        def forward(xv):
+            if spec.src_key == spec.wrt_key:
+                return xv
+            env2 = dict(env)
+            env2[spec.wrt_key] = xv
+            self._steps(prog, replay, env2, dyn_caps, None)
+            return env2[spec.src_key]
+
+        def stacked(xs):
+            if chunked is None:
+                return torch.stack([forward(x) for x in xs.unbind(0)])
+            if spec.src_key == spec.wrt_key:
+                return xs
+            env2 = dict(env)
+            env2[spec.wrt_key] = xs
+            self._steps(prog, chunked, env2, dyn_caps, None,
+                        chunk=(xs.shape[0], {spec.wrt_key}))
+            return env2[spec.src_key]
+
+        forward.stacked = stacked
+        return st.fn(forward, env[spec.wrt_key], caps)
 
     def _dyn_caps(self, prog: _Program, values) -> Dict[int, Dict]:
         """Each dynamic node's captures: its static part and ``values``."""
@@ -725,7 +962,19 @@ class Executor:
         return InFlight(flat, k, event)
 
     # -- the production path ----------------------------------------------------
-    @torch.inference_mode()
+    def _grad_mode(self, graph: Graph):
+        """The autograd mode of ``graph``'s staging and passes:
+        ``inference_mode`` (the cheapest on the host), or ``no_grad`` where
+        a kind runs autograd (``NodeKind.autograd``): autograd cannot save
+        an inference tensor for backward, so the static buffers and
+        captures of its graph must be ordinary tensors."""
+        try:
+            grad = any(self.reg.get_node(n.name).autograd
+                       for n in graph.nodes)
+        except KeyError:  # validation attributes the unknown kind
+            grad = False
+        return torch.no_grad() if grad else torch.inference_mode()
+
     def run(self, graph: Graph, taps: TapSpec = "all", defer: bool = False):
         """Run one graph and return ``{node_index: {channel: f32 numpy}}``;
         with ``defer``, the ``InFlight`` handle instead. A cache hit skips
@@ -735,7 +984,7 @@ class Executor:
         t0 = time.perf_counter()
         tap_set, sig = self._sig_of(graph, taps, None)
         inputs = [_host_tensor(e.tensor) for _, _, e in graph.input_edges()]
-        with self._device_lock:
+        with self._device_lock, self._grad_mode(graph):
             prog = self._cache_get(sig)
             stats.cache_hit = prog is not None
             if prog is None:
@@ -748,7 +997,6 @@ class Executor:
                                    values, stats)
         return self._finish(handle, stats, t0, defer)
 
-    @torch.inference_mode()
     def run_stacked(self, graphs: List[Graph], taps: TapSpec = "all",
                     defer: bool = False):
         """Run K graphs that share a group signature as ONE pass; returns
@@ -780,7 +1028,7 @@ class Executor:
                      for g in padded]
         inputs = [_host_stack([pg[i] for pg in per_graph])
                   for i in range(len(per_graph[0]))]
-        with self._device_lock:
+        with self._device_lock, self._grad_mode(g0):
             prog = self._cache_get(sig)
             stats.cache_hit = prog is not None
             if prog is None:
@@ -802,7 +1050,6 @@ class Executor:
         self.last_stats = stats
         return handle
 
-    @torch.inference_mode()
     def precompile(self, graph: Graph, taps: TapSpec = "primary",
                    batch: Optional[int] = None) -> bool:
         """Stage ``(graph, taps)`` into the program cache, and on a card
@@ -815,7 +1062,7 @@ class Executor:
         if not self.use_jit:
             return False
         tap_set, sig = self._sig_of(graph, taps, batch)
-        with self._device_lock:
+        with self._device_lock, self._grad_mode(graph):
             if self._cache_get(sig) is not None:
                 return False
             self.validate(graph)
@@ -867,11 +1114,48 @@ class Executor:
         for ch, v in outs.items():
             env[(n.index, ch)] = v
 
+    def _eager_grad(self, graph: Graph, n, env) -> Dict[str, torch.Tensor]:
+        """One gradient node on the eager paths, from the values ``env``
+        holds (the eager loop runs in topo order, so its whole cone is
+        there): its step staged alone and run as the staged pass runs it.
+        Where the leaf is a node's channel that was not computed (an
+        unwired extra), the cone's steps run first from the graph's inputs
+        with that channel on. A gradient node that this would evaluate is
+        refused (the staged path composes them)."""
+        order = graph.order()
+        kinds = {m.index: self.reg.get_node(m.name) for m in graph.nodes}
+        spec = _grad_specs(graph, order, graph.input_edges(), kinds,
+                           only=n.index)[n.index]
+        cone = spec.wrt_key not in env
+        for m in spec.anc if cone else spec.replay:
+            if kinds[m.index].grad_node:
+                raise NodeError(
+                    n.index, n.name,
+                    f"node {m.index} ({m.name}) is a gradient node "
+                    f"inside this node's differentiation cone — "
+                    f"nested gradients evaluate on the staged path "
+                    f"(/compute), not the eager debug path")
+        prog = self._stage(graph, (), grad_of=(n, cone))
+        dyn = self._dyn_caps(prog, {
+            i: self._place(v)
+            for i, v in self._dyn_values(prog, [graph]).items()})
+        base = ({k: v for k, v in env.items() if k[0] == "in"} if cone
+                else dict(env))
+        self._steps(prog, prog.steps, base, dyn, None)
+        return {k[1]: v for k, v in base.items() if k[0] == n.index}
+
+    def _eval_any(self, graph: Graph, n, env) -> None:
+        """``_eval_node``, or ``_eager_grad`` for a gradient node."""
+        if self.reg.get_node(n.name).grad_node:
+            for ch, v in self._eager_grad(graph, n, env).items():
+                env[(n.index, ch)] = v
+        else:
+            self._eval_node(n, env)
+
     def _inputs_env(self, graph: Graph) -> Dict[Any, Any]:
         return {("in", n.index, ch): _host_tensor(e.tensor).to(self.device)
                 for n, ch, e in graph.input_edges()}
 
-    @torch.inference_mode()
     def run_eager(
         self, graph: Graph
     ) -> Tuple[Dict[int, Dict[str, np.ndarray]], Dict[int, str]]:
@@ -879,11 +1163,12 @@ class Executor:
 
         Returns (outputs, errors). A failing node's descendants are skipped
         with an "eval error upstream" marker, the client graph engine's
-        semantics; the other nodes still run."""
+        semantics; the other nodes still run, a gradient node beside a
+        failing one too."""
         outputs: Dict[int, Dict[str, np.ndarray]] = {}
         errors: Dict[int, str] = {}
         failed: Set[int] = set()
-        with self._device_lock:
+        with self._device_lock, self._grad_mode(graph):
             env = self._inputs_env(graph)
             for n in graph.order():
                 if any(e.src is not None and e.src.node.index in failed
@@ -892,7 +1177,7 @@ class Executor:
                     errors[n.index] = "eval error upstream"
                     continue
                 try:
-                    self._eval_node(n, env)
+                    self._eval_any(graph, n, env)
                     outputs[n.index] = {k[1]: host_array(v)
                                         for k, v in env.items()
                                         if k[0] == n.index}
@@ -901,21 +1186,21 @@ class Executor:
                     errors[n.index] = str(err)
         return outputs, errors
 
-    @torch.inference_mode()
     def run_timed_eager(
         self, graph: Graph
     ) -> Tuple[Dict[int, float], Dict[int, Dict[str, List[int]]],
                Dict[int, str]]:
         """Per-node evaluation with fault isolation (``run_eager``'s
         semantics) and each node's steady-state time: the node runs once,
-        then once more timed, the device synchronized before and after.
-        The ``/debug_eval`` engine. Returns (timings_ms, output_shapes,
+        then once more timed, the device synchronized before and after (a
+        gradient node's time is its replay, backward and render). The
+        ``/debug_eval`` engine. Returns (timings_ms, output_shapes,
         errors)."""
         timings: Dict[int, float] = {}
         shapes: Dict[int, Dict[str, List[int]]] = {}
         errors: Dict[int, str] = {}
         failed: Set[int] = set()
-        with self._device_lock:
+        with self._device_lock, self._grad_mode(graph):
             env = self._inputs_env(graph)
             for n in graph.order():
                 if any(e.src is not None and e.src.node.index in failed
@@ -924,10 +1209,10 @@ class Executor:
                     errors[n.index] = "eval error upstream"
                     continue
                 try:
-                    self._eval_node(n, env)
+                    self._eval_any(graph, n, env)
                     self._sync()
                     t0 = time.perf_counter()
-                    self._eval_node(n, env)
+                    self._eval_any(graph, n, env)
                     self._sync()
                     timings[n.index] = (time.perf_counter() - t0) * 1e3
                     shapes[n.index] = {k[1]: list(v.shape)

@@ -10,7 +10,10 @@ kind's weights passed as a second argument when it has ``captures``.
 plugin directory. ``dynamic_params`` / ``dynamic_sig`` /
 ``dynamic_capture_keys`` name the params whose values ride as runtime
 captures, so that an edit of them reuses the executor's staged (on a card:
-captured) program.
+captured) program. A ``grad_node`` kind (saliency, dream, occlusion, a
+model's ``:attrib``) is handed its ancestor cone as a closed function by
+the executor (``NodeKind.grad_fn``); inside a replay that differentiates,
+each node of the cone runs ``grad_safe_fn``.
 """
 
 from __future__ import annotations
@@ -34,7 +37,20 @@ NodeFn = Callable[[Dict[str, Any]], Dict[str, Any]]
 
 
 class NodeKind:
-    """Base class for a registered node kind."""
+    """Base class for a registered node kind.
+
+    ``grad_node``: the executor evaluates the kind through
+    ``grad_fn(params)(forward, x, caps)``, where ``forward`` re-runs the
+    node's ancestor cone as a function of one leaf tensor ``x`` (its
+    ``grad_wrt(params)``: a graph input or an upstream node's output).
+    ``differentiates``: whether those replays run under autograd (False:
+    forwards only, so they keep the kernel-backed ``fn``). ``autograd``:
+    the kind runs ``torch.autograd`` itself (every ``grad_node`` does), so
+    a graph that holds one runs under ``no_grad``, not ``inference_mode``."""
+
+    grad_node = False
+    differentiates = True
+    autograd = False
 
     def __init__(self, name: str):
         self.name = name
@@ -59,6 +75,14 @@ class NodeKind:
         """The node's computation; ``fn(ins, caps)`` when ``captures``
         returns non-None."""
         raise NotImplementedError(f"fn() not implemented for {self.name}")
+
+    def grad_safe_fn(self, params: Dict[str, str]) -> NodeFn:
+        """``fn`` for a replay that autograd differentiates (a downstream
+        saliency, dream or attrib node). A kind whose ``fn`` launches a
+        hand-written kernel (which has no backward) or rounds activations
+        (zero gradient almost everywhere) overrides it with a plain
+        PyTorch twin (``models/model_plugin.TorchModel(grad_layers=)``)."""
+        return self.fn(params)
 
     def captures(self, params: Dict[str, str]):
         """The node's weights (a tensor tree), or None for stateless ops."""

@@ -10,6 +10,13 @@ extra tap channels beyond the flowing "o" (transformer blocks add "attn",
 A group of K requests runs each layer once: ``LayerNodeKind.stacked_fn``
 folds the stacked axis into the model's own batch axis, so a block kernel
 sees a batch of K in one launch.
+
+A layer whose ``fn`` launches a hand-written kernel (no backward) or runs
+int8 weights has a differentiable twin (``TorchModel(grad_layers=)``): the
+same layer math in plain PyTorch, which a gradient replay runs
+(``LayerNodeKind.grad_safe_fn``), as the JAX package's replays run plain
+XLA twins of its Pallas layers. ``extra_kinds`` are node kinds registered
+with the model outside its chain (the ViT family's ``:attrib``).
 """
 
 from __future__ import annotations
@@ -20,7 +27,12 @@ import inspect
 import logging
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import torch
+
 from interactive_vit_tpu_torch.graph.registry import NodeKind, Registry
+from interactive_vit_tpu_torch.ops.quant import (
+    dequantize_weight, is_quantized, is_w8a8,
+)
 from interactive_vit_tpu_torch.wire.schema import (
     GraphLibrary, generate_model_graph_json,
 )
@@ -32,6 +44,41 @@ LayerSpec = Tuple[str, List[str], Callable]
 
 # Per-request rank of an image sent without its batch axis ([C, H, W]).
 IMAGE_RANK = 3
+
+
+def dequant_grad_twin(fn: Callable) -> Callable:
+    """Wrap a layer fn for gradient replays over a quantized param tree:
+    each int8 leaf-dict (weight-only or W8A8) is dequantized inline to the
+    tree's activation dtype (its first floating tensor's; f32 where it has
+    none), so that the replayed math is dense and its gradient flows where
+    the serving path's activation rounding would zero it almost
+    everywhere."""
+
+    def dq(obj, dtype):
+        if is_quantized(obj) or is_w8a8(obj):
+            return dequantize_weight(obj, dtype=dtype)
+        if isinstance(obj, dict):
+            return {k: dq(v, dtype) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(dq(v, dtype) for v in obj)
+        return obj
+
+    def act_dtype(obj):
+        if isinstance(obj, torch.Tensor):
+            return obj.dtype if obj.is_floating_point() else None
+        items = (obj.values() if isinstance(obj, dict) else
+                 obj if isinstance(obj, (list, tuple)) else ())
+        for v in items:
+            dt = act_dtype(v)
+            if dt is not None:
+                return dt
+        return None
+
+    @functools.wraps(fn)
+    def run(p, ins, **kw):
+        return fn(dq(p, act_dtype(p) or torch.float32), ins, **kw)
+
+    return run
 
 
 def image_entry(fn: Callable, keeps_rank: bool) -> Callable:
@@ -46,15 +93,19 @@ def image_entry(fn: Callable, keeps_rank: bool) -> Callable:
 
 
 class LayerNodeKind(NodeKind):
-    """One model layer as a graph node kind."""
+    """One model layer as a graph node kind. ``grad_fn_impl``: the layer's
+    differentiable twin (the ``fn`` contract), which ``grad_safe_fn`` runs;
+    None: ``fn`` is differentiable as it is."""
 
     def __init__(self, model: "TorchModel", layer_name: str,
-                 extra_outs: List[str], fn: Callable):
+                 extra_outs: List[str], fn: Callable,
+                 grad_fn_impl: Optional[Callable] = None):
         super().__init__(model.prefix() + layer_name)
         self.model = model
         self.layer_name = layer_name
         self._extra = list(extra_outs)
         self._fn = fn
+        self._grad_fn_impl = grad_fn_impl
 
     def io(self, params):
         # layers with an "r" (rollout) extra also accept an optional "r"
@@ -87,12 +138,19 @@ class LayerNodeKind(NodeKind):
         return caps if caps else None
 
     def fn(self, params):
+        return self._bind(self._fn, params)
+
+    def grad_safe_fn(self, params):
+        """``fn`` for gradient replays: the model's twin where it has one
+        (a kernel has no backward; int8 activations round)."""
+        return self._bind(self._grad_fn_impl or self._fn, params)
+
+    def _bind(self, f, params):
         taps = set((params.get("__taps__") or "").split(","))
         want = frozenset(taps & set(self._extra))
         kw: Dict[str, Any] = {"want": want} if self._extra else {}
         if self._takes_node_params:
             kw["node_params"] = params
-        f = self._fn
 
         def keep(outs):
             return {ch: v for ch, v in outs.items() if ch == "o" or ch in want}
@@ -144,7 +202,9 @@ class TorchModel:
 
     ``register`` also writes the chained graph JSON into the graph library
     when the library has none for this model (the reference app's
-    behaviour)."""
+    behaviour). ``grad_layers``: layer name -> its differentiable twin
+    (the layer fn contract), run in gradient replays; ``extra_kinds``:
+    node kinds registered with the model outside the chain."""
 
     def __init__(
         self,
@@ -154,6 +214,8 @@ class TorchModel:
         layer_params_fn: Callable[[Any, str], Any],
         descriptions: Optional[Dict[str, str]] = None,
         category_names: Optional[List[str]] = None,
+        grad_layers: Optional[Dict[str, Callable]] = None,
+        extra_kinds: Optional[List[NodeKind]] = None,
     ):
         self.name = name
         self.layers = list(layers)
@@ -161,6 +223,8 @@ class TorchModel:
         self._layer_params_fn = layer_params_fn
         self.descriptions = descriptions or {}
         self.category_names = category_names
+        self.grad_layers = grad_layers or {}
+        self.extra_kinds = list(extra_kinds or [])
 
     def prefix(self) -> str:
         return self.name + ":"
@@ -191,6 +255,57 @@ class TorchModel:
             })
         return obj
 
+    def generate_saliency_graph_json(self) -> Dict:
+        """The model chain plus the gradient-tap workflow, each node
+        feeding an ``img_view``: ``saliency`` (grad x input of the winning
+        class wrt the image), ``dream`` (gradient ascent on class 0),
+        ``occlusion`` (patch 32, stride 16) wired from the ``:head`` node,
+        and, where the model has an ``:attrib`` kind and an ``:embed``
+        node, the attribution node wired from the embed output. Raises for
+        a chain without a ``:head`` layer."""
+        obj = self.generate_graph_json()
+        head = next((i for i, n in enumerate(obj["nodes"])
+                     if n["instance"].get("endpoint", "").endswith(":head")),
+                    None)
+        if head is None:
+            raise ValueError(f"{self.name} has no :head node — saliency "
+                             f"demo needs a classifier chain")
+        hx = obj["nodes"][head]["pos"]["x"]
+        hy = obj["nodes"][head]["pos"]["y"]
+
+        def add(inst, dx, dy):
+            obj["nodes"].append(
+                {"instance": inst, "pos": {"x": hx + dx, "y": hy + dy}})
+            return len(obj["nodes"]) - 1
+
+        def wire(a, ach, b, bch):
+            obj["edges"].append({"in_port": {"node": a, "channel": ach},
+                                 "out_port": {"node": b, "channel": bch}})
+
+        def with_view(src, src_ch, inst, dy):
+            node = add(inst, 220, dy)
+            wire(src, src_ch, node, "o")
+            wire(node, "o", add({"kind": "img_view"}, 440, dy), "o")
+
+        with_view(head, "o", {"kind": "net_node", "endpoint": "saliency",
+                              "params": {"target": "max",
+                                         "mode": "gradxinput"}}, 120)
+        with_view(head, "o", {"kind": "net_node", "endpoint": "dream",
+                              "params": {"target": "class", "class": "0",
+                                         "steps": "32", "lr": "0.05"}}, 280)
+        with_view(head, "o", {"kind": "net_node", "endpoint": "occlusion",
+                              "params": {"target": "max", "patch": "32",
+                                         "stride": "16"}}, 440)
+        if any(k.get_name().endswith(":attrib") for k in self.extra_kinds):
+            emb = next((i for i, n in enumerate(obj["nodes"])
+                        if n["instance"].get("endpoint",
+                                             "").endswith(":embed")), None)
+            if emb is not None:
+                with_view(emb, "o", {"kind": "net_node",
+                                     "endpoint": self.name + ":attrib",
+                                     "params": {"target": "max"}}, 600)
+        return obj
+
     def _kind_cls(self, layer_name: str) -> type:
         """Node-kind class for ``layer_name``; a subclass hook (the Swin
         model swaps in a kind with a window selector)."""
@@ -202,4 +317,8 @@ class TorchModel:
             graph_lib.save(self.name + ".json", self.generate_graph_json())
             logger.info("generated graph %s.json", self.name)
         for lname, extra, fn in self.layers:
-            self._kind_cls(lname)(self, lname, extra, fn).register(reg)
+            self._kind_cls(lname)(
+                self, lname, extra, fn,
+                grad_fn_impl=self.grad_layers.get(lname)).register(reg)
+        for kind in self.extra_kinds:
+            kind.register(reg)

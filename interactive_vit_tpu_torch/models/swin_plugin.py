@@ -12,7 +12,8 @@ swin_t:
     <name>:merge.s       patch merging between stages
     <name>:norm / :pool / :head
 
-Quantization and the gradient twins are not ported yet.
+With the window kernel each layer has a plain PyTorch twin for gradient
+replays (``grad_layers``). Quantization is not ported yet.
 """
 
 from __future__ import annotations
@@ -106,6 +107,10 @@ def make_swin_model(
                 f"{cfg.stage_dim(s)} -> {cfg.stage_dim(s + 1)}")
     cats = (class_names(cfg.num_classes)
             if with_categories and cfg.num_classes else None)
+    # the window kernel has no backward: gradient replays run the plain
+    # path's layers
+    grad_layers = ({ln: f for ln, _extra, f in swin.layer_fns(cfg)}
+                   if window_impl is not None else None)
     return SwinTorchModel(
         name=cfg.name,
         layers=swin.layer_fns(cfg, window_impl=window_impl),
@@ -113,4 +118,5 @@ def make_swin_model(
         layer_params_fn=swin.layer_params,
         descriptions=descriptions,
         category_names=cats,
+        grad_layers=grad_layers,
     )

@@ -62,6 +62,7 @@ def make_tome_model(
     seed: int = 0,
     dtype=torch.float32,
     device="cuda",
+    kernels: bool = True,
 ) -> TorchModel:
     """Build a registerable ToMe-ViT on ``device`` (the card unless the
     caller asks for the CPU; raises without a card).
@@ -72,17 +73,21 @@ def make_tome_model(
     is resolved through ``default_block_impl("auto")``, sized at the entry
     length (the ladder's largest N, so every later block fits too): on a
     CUDA device ``fused_attn_block`` with ``key_bias`` and ``want_metric``
-    in every block, on the CPU the unfused path. The JAX maker's gradient
-    twins (``grad_layers``) wait for the gradient node kinds, which are not
-    ported."""
+    in every block, on the CPU (or with ``kernels=False``) the unfused
+    path. With the kernel, every layer has its plain twin for gradient
+    replays (``grad_layers``)."""
     device = require_device(device)
     cfg = tome.VARIANTS[variant]
     if params is None:
         params = tome.init_params(cfg, torch.Generator().manual_seed(seed),
                                   dtype=dtype, device=device)
-    block_impl = default_block_impl("auto", dtype=dtype, n=cfg.tokens,
-                                    d=cfg.width, heads=cfg.heads,
-                                    device=device)
+    block_impl = (default_block_impl("auto", dtype=dtype, n=cfg.tokens,
+                                     d=cfg.width, heads=cfg.heads,
+                                     device=device) if kernels else None)
+    # the block kernel has no backward: gradient replays run the plain
+    # path's layers
+    grad_layers = ({ln: f for ln, _e, f in tome.layer_fns(cfg)}
+                   if block_impl is not None else None)
     n_last = cfg.n_tokens(cfg.depth)
     descriptions = {
         "transform": f"Resize+CenterCrop({cfg.img_size})+Normalize",
@@ -104,4 +109,5 @@ def make_tome_model(
         descriptions=descriptions,
         category_names=(class_names(1000) if cfg.num_classes == 1000
                         else None),
+        grad_layers=grad_layers,
     )

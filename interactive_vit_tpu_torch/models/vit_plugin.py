@@ -12,8 +12,11 @@ Counterpart of ``interactive_vit_tpu/models/vit_plugin.py``:
 checkpoint adapts on load) and the int8 serving modes: weight-only
 (``quantize="w8"``, the unfused path) and W8A8 (``quantize="w8a8"``: fc1
 and fc2 int8, the W8A8 MLP kernel beside the dense or s8 block kernel).
-The tensor-parallel qkv layout, the attention-attribution node and the
-gradient twins are not ported yet.
+Each layer that launches a kernel or runs int8 weights has a plain
+PyTorch twin for gradient replays (``grad_layers``, dequantized inline
+under int8), and the model registers ``<name>:attrib``, the Chefer
+attention attribution (``models/attrib.py``). The tensor-parallel qkv
+layout is not ported.
 """
 
 from __future__ import annotations
@@ -23,8 +26,11 @@ from typing import Any, Optional
 import torch
 
 from interactive_vit_tpu_torch.models import vit
+from interactive_vit_tpu_torch.models.attrib import AttribNodeKind
 from interactive_vit_tpu_torch.models.labels import class_names
-from interactive_vit_tpu_torch.models.model_plugin import TorchModel
+from interactive_vit_tpu_torch.models.model_plugin import (
+    TorchModel, dequant_grad_twin,
+)
 from interactive_vit_tpu_torch.ops.dispatch import (
     default_block_impl, default_mlp_impl,
 )
@@ -116,7 +122,15 @@ def make_vit_model(
            for i in range(cfg.depth)},
     }
     cats = class_names(cfg.num_classes) if cfg.num_classes else None
-    return TorchModel(
+    # differentiable twins for gradient replays: a kernel has no backward
+    # and int8 activations round (zero gradient almost everywhere), so a
+    # replay runs the plain dense layers, int8 weights dequantized inline
+    grad_layers = None
+    if (block_impl is not None or mlp_impl is not None
+            or attn_impl is not None or mode):
+        grad_layers = {ln: (dequant_grad_twin(f) if mode else f)
+                       for ln, _extra, f in vit.layer_fns(cfg)}
+    model = TorchModel(
         name=variant,
         layers=vit.layer_fns(cfg, attn_impl=attn_impl,
                              block_impl=block_impl, mlp_impl=mlp_impl),
@@ -124,4 +138,8 @@ def make_vit_model(
         layer_params_fn=vit.layer_params,
         descriptions=descriptions,
         category_names=cats,
+        grad_layers=grad_layers,
     )
+    model.extra_kinds.append(AttribNodeKind(model, cfg,
+                                            quantized=bool(mode)))
+    return model

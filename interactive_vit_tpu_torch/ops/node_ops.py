@@ -1,13 +1,12 @@
 """Built-in graph node kinds.
 
 Counterpart of ``interactive_vit_tpu/ops/node_ops.py``: every kind of the
-JAX package but the three gradient kinds (``saliency``, ``dream``,
-``occlusion``), which need the executor's gradient staging. Each kind has
-the JAX kind's ``io``, ``dynamic_params`` and ``contents`` HTML, and each
-``fn`` is capturable into a CUDA graph: no read-back to the host, no upload
-from pageable memory, no Python indexing by a tensor's value. A dynamic
-param rides as a 0-d (or, for conv2d's matrix, a fixed-shape) capture, so
-an edit of it replays the executor's cached program.
+JAX package. Each kind has the JAX kind's ``io``, ``dynamic_params`` and
+``contents`` HTML, and each ``fn`` is capturable into a CUDA graph: no
+read-back to the host, no upload from pageable memory, no Python indexing
+by a tensor's value. A dynamic param rides as a 0-d (or, for conv2d's
+matrix, a fixed-shape) capture, so an edit of it replays the executor's
+cached program.
 
   cos       params A, b           -> cos(A*x + b); A and b are dynamic
   binop     op in {+,-,*,/}       elementwise a OP b, numpy broadcasting
@@ -20,11 +19,21 @@ an edit of it replays the executor's cached program.
   pca_view  skip                  patch-PCA -> RGB (DINO dense-feature view)
   patch_sim row, col (dynamic), skip   token cosine-similarity heatmap
   similarity scale (dynamic)      scaled cosine-similarity logits
+  saliency  target, class, mode, steps, sigma, seed, wrt, skip
+                                  input-gradient attribution heatmap
+  dream     target, class, steps, lr, clip_lo, clip_hi, wrt
+                                  normalized gradient ascent on the leaf
+  occlusion target, class, patch, stride, fill, wrt
+                                  score drop under a sliding occluder
   img_src   identity; img_view / multi_view / category / attn_view /
             overlay: sinks that pass their inputs through for the taps
 
 These kinds are XLA ops in the JAX package (no Pallas kernel), so here they
-are plain PyTorch.
+are plain PyTorch. The three gradient kinds (``grad_node``) are handed
+their ancestor cone as a closed ``forward`` by the executor
+(``graph/executor.py``); saliency and dream differentiate it with
+``torch.autograd.grad`` (the cone's layers on their plain twins), occlusion
+only runs it forward, in chunks of ``OCCLUSION_CHUNK`` masked copies.
 """
 
 from __future__ import annotations
@@ -242,21 +251,80 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def uniform_bits(seed: torch.Tensor, dims: List[int]) -> torch.Tensor:
-    """``jax.random.uniform(jax.random.key(seed), dims, float32)`` bit for
-    bit, with ``jax_threefry_partitionable`` (the default since JAX 0.5):
-    the key is (0, seed); element i's counter is (i >> 32, i & 0xFFFFFFFF)
-    in row-major order; its bits are the two output words XORed; the value
-    is their top 23 bits as a mantissa of [1, 2), minus 1, which is exactly
-    (bits >> 9) * 2^-23. ``seed``: an int64 tensor in [0, 2^32) on the
-    device the values are made on."""
+def _unit_floats(k0, k1, dims: List[int], device) -> torch.Tensor:
+    """``jax.random``'s [0, 1) floats of key (k0, k1), with
+    ``jax_threefry_partitionable`` (the default since JAX 0.5): element
+    i's counter is (i >> 32, i & 0xFFFFFFFF) in row-major order; its bits
+    are the two output words XORed; the value is their top 23 bits as a
+    mantissa of [1, 2), minus 1, which is exactly (bits >> 9) * 2^-23."""
     n = 1
     for d in dims:
         n *= d
-    idx = torch.arange(n, dtype=torch.int64, device=seed.device)
-    x0, x1 = threefry2x32(0, seed, idx >> 32, idx & _U32)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & _U32)
     bits = x0 ^ x1
     return ((bits >> 9).to(torch.float32) * 2.0 ** -23).reshape(dims)
+
+
+def uniform_bits(seed: torch.Tensor, dims: List[int]) -> torch.Tensor:
+    """``jax.random.uniform(jax.random.key(seed), dims, float32)`` bit for
+    bit: the key is (0, seed). ``seed``: an int64 tensor in [0, 2^32) on
+    the device the values are made on."""
+    return _unit_floats(0, seed, dims, seed.device)
+
+
+def fold_in(key, data: int):
+    """``jax.random.fold_in`` of a threefry key (k0, k1) and a u32
+    ``data``: the key's threefry2x32 of the counter (0, data), bit for
+    bit. The words are int64 tensors (or ints) holding u32 values."""
+    dev = next(k.device for k in key if isinstance(k, torch.Tensor))
+    x0 = torch.zeros((), dtype=torch.int64, device=dev)
+    return threefry2x32(key[0], key[1], x0, x0 + (data & _U32))
+
+
+# XLA's f32 erf_inv (M. Giles, "Approximating the erfinv function"), the
+# polynomial jax.random.normal's values go through: w < 5 and w >= 5
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv`` formulation in torch ops: w = -log1p(-x^2),
+    Giles' degree-8 polynomial in w - 2.5 (w < 5) or sqrt(w) - 3, times x;
+    x times the largest f32 at |x| = 1. Its log1p is torch's, not XLA's, so
+    a value may differ from ``jax.lax.erf_inv`` in its last bits
+    (``tests/test_torch_grad_nodes.py`` states the bound)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+# jax.random.normal draws uniform on (lo, 1), lo = nextafter(-1, 0), as
+# lo + u * (1 - lo) in f32, and scales erf_inv by f32 sqrt(2)
+_NORMAL_LO = np.nextafter(np.float32(-1.0), np.float32(0.0))
+_NORMAL_SPAN = float(np.float32(1.0) - _NORMAL_LO)
+_SQRT2 = float(np.float32(np.sqrt(2)))
+
+
+def normal_bits(key, dims: List[int]) -> torch.Tensor:
+    """``jax.random.normal(key, dims, float32)`` of a threefry key (k0,
+    k1): the uniform floats of ``_unit_floats`` (JAX's bit for bit) scaled
+    to (nextafter(-1, 0), 1) as ``jax.random.uniform`` scales them, then
+    sqrt(2) times ``_erf_inv_f32``. Scalars only: nothing is uploaded."""
+    dev = next(k.device for k in key if isinstance(k, torch.Tensor))
+    u = _unit_floats(key[0], key[1], dims, dev)
+    lo = float(_NORMAL_LO)
+    u = (u * _NORMAL_SPAN + lo).clamp_min(lo)
+    return _erf_inv_f32(u) * _SQRT2
 
 
 class NoiseNode(NodeKind):
@@ -656,6 +724,466 @@ class SimilarityNode(NodeKind):
         return run
 
 
+def grad_of(scalar, x: torch.Tensor) -> torch.Tensor:
+    """d scalar(x) / d x, in x's dtype (``jax.grad(scalar)(x)``). The leaf
+    alone is differentiated (``inputs=``): served weights keep
+    ``requires_grad=False``. Where ``x`` already carries a graph (the node
+    sits inside an outer differentiated replay) the gradient keeps its own
+    graph, so the outer one differentiates through it."""
+    nested = x.requires_grad
+    with torch.enable_grad():
+        xv = x if nested else x.detach().requires_grad_()
+        (g,) = torch.autograd.grad(scalar(xv), xv, create_graph=nested)
+    return g
+
+
+def take_class(y: torch.Tensor, cls: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(y, clip(cls, 0, K - 1), axis=-1)`` with the 0-d class
+    tensor on the device (no read-back)."""
+    c = cls.clamp(0, y.shape[-1] - 1).reshape(1).long()
+    return torch.index_select(y, -1, c).squeeze(-1)
+
+
+class _GradNode(NodeKind):
+    """Shared base of the gradient kinds (saliency, dream, occlusion): the
+    wrt-leaf spec, the target check, the scalar objective and the HTML.
+
+    The executor contract (``graph/executor._grad_specs``): a
+    ``grad_node`` kind gets its ancestor cone as a closed ``forward`` and
+    implements ``grad_fn(params) -> run(forward, x, caps)``."""
+
+    grad_node = True
+    autograd = True
+    TARGETS = ("max", "sum", "class")
+
+    def grad_wrt(self, params):
+        """("input", k) or ("node", idx, channel)."""
+        w = str(params.get("wrt", "0"))
+        if w.startswith("node:"):
+            parts = w.split(":")
+            if len(parts) == 2:
+                return ("node", int(parts[1]), "o")
+            if len(parts) == 3:
+                return ("node", int(parts[1]), parts[2])
+            raise ValueError(f"bad wrt spec {w!r} (node:<i> or "
+                             f"node:<i>:<ch>)")
+        return ("input", int(float(w)))
+
+    def _check_target(self, target: str) -> str:
+        if target not in self.TARGETS:
+            raise ValueError(f"target must be one of {self.TARGETS}, "
+                             f"got {target!r}")
+        return target
+
+    @staticmethod
+    def _scalar_fn(forward, target, caps):
+        """The differentiated objective: the wired tensor reduced to one
+        scalar (per sample, summed over the batch: samples independent)."""
+
+        def scalar(xv):
+            y = forward(xv).to(torch.float32)
+            if target == "class":
+                y = take_class(y, caps["class"])
+            elif target == "max":
+                y = y.amax(dim=-1)
+            return y.sum()
+
+        return scalar
+
+    @staticmethod
+    def _sel_html(name, options, cur):
+        opts = "".join(
+            f"<option value=\"{o}\"{' selected' if o == cur else ''}>"
+            f"{o}</option>" for o in options)
+        return (f"<label>{html.escape(name)} <select data-param="
+                f"\"{html.escape(name)}\">{opts}</select></label>")
+
+    @staticmethod
+    def _wrt_html(params):
+        wrt = html.escape(str(params.get("wrt", "0")))
+        return ("<label>wrt <input data-param=\"wrt\" type=\"text\" "
+                f"value=\"{wrt}\" size=\"9\" "
+                "title=\"input index, or node:&lt;i&gt;[:&lt;ch&gt;] "
+                "for an upstream activation\"></label>")
+
+    @staticmethod
+    def _class_cap(params):
+        return torch.tensor(np.int32(int(float(params.get("class", 0)))))
+
+    def fn(self, params):
+        self._decode(params)  # param errors first, with node attribution
+        raise NotImplementedError(
+            f"{self.name} re-evaluates the WHOLE upstream graph -- it has "
+            f"no per-node function; evaluate via the staged executor")
+
+    def compute(self, params, inputs):
+        self.fn(params)
+
+
+class SaliencyNode(_GradNode):
+    """Input-gradient saliency: d(scalar of the wired tensor)/d(leaf).
+
+    Wiring: input "o" is any tensor downstream of the leaf, typically the
+    classifier logits. Outputs: "o", the leaf-shaped normalized heatmap
+    (``_heat``); "g", the raw attribution in f32 (an extra channel).
+
+    Params (the JAX kind's): ``target`` max | sum | class; ``class``
+    (dynamic); ``mode`` grad | gradxinput | ig (integrated gradients on
+    the zero-baseline path) | smooth (SmoothGrad); ``steps`` (16, the
+    IG / SmoothGrad count); ``sigma`` (0.15, dynamic) and ``seed`` (0,
+    dynamic), SmoothGrad's noise scale relative to the input range and
+    its key, drawn as ``jax.random.normal(fold_in(key(seed), i))``
+    (``normal_bits``); ``wrt`` "0" | "node:<i>" | "node:<i>:<ch>" (a
+    graph input, or an upstream node's output: the Grad-CAM case, whose
+    token-shaped attribution renders on the patch grid, ``_token_cam``);
+    ``skip`` (1), the leading tokens the grid render drops."""
+
+    MODES = ("grad", "gradxinput", "ig", "smooth")
+
+    def __init__(self) -> None:
+        super().__init__("saliency")
+
+    def contents(self, params):
+        target = params.get("target", "max")
+        mode = params.get("mode", "grad")
+        sel = self._sel_html
+        return ("<p>input-gradient saliency</p>"
+                + sel("target", self.TARGETS, target) + " "
+                + _num_input("class", int(float(params.get("class", 0))),
+                             step="1", title="class (target=class)")
+                + "<br>" + sel("mode", self.MODES, mode) + " "
+                + _num_input("steps", int(float(params.get("steps", 16))),
+                             step="1", title="IG / SmoothGrad steps")
+                + " " + _num_input(
+                    "sigma", float(params.get("sigma", 0.15)),
+                    title="smooth noise (rel. to input range)")
+                + "<br>" + self._wrt_html(params) + " "
+                + _num_input("skip", int(float(params.get("skip", 1))),
+                             step="1", title="CLS tokens to skip"))
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o", "g"]}
+
+    def extra_outs(self, params):
+        return ["g"]
+
+    def dynamic_params(self):
+        return frozenset({"class", "sigma", "seed"})
+
+    def captures(self, params):
+        # the seed as JAX takes it (an int32, viewed as u32 by its key)
+        seed = int(np.int32(int(float(params.get("seed", 0))))) & _U32
+        return {"class": self._class_cap(params),
+                "sigma": torch.tensor(np.float32(
+                    float(params.get("sigma", 0.15)))),
+                "seed": torch.tensor(seed, dtype=torch.int64)}
+
+    def _decode(self, params):
+        target = self._check_target(params.get("target", "max"))
+        mode = params.get("mode", "grad")
+        steps = int(float(params.get("steps", 16)))
+        if mode not in self.MODES:
+            raise ValueError(f"mode must be one of {self.MODES}, "
+                             f"got {mode!r}")
+        if steps < 1:
+            raise ValueError("steps must be >= 1")
+        return target, mode, steps
+
+    @staticmethod
+    def _token_cam(attr, skip: int):
+        """[B,N,D] token attribution -> [B,3,g,g] patch-grid heatmap: each
+        token's L1 norm over D, per-sample max-normalized (the magnitude:
+        a LayerNorm downstream makes the signed x . grad ~0)."""
+        t, g = _token_grid(attr, skip)
+        cam = t.abs().sum(dim=-1)
+        cam = cam / cam.amax(dim=-1, keepdim=True).clamp_min(1e-12)
+        return cam.reshape(cam.shape[0], 1, g, g).expand(
+            cam.shape[0], 3, g, g)
+
+    def _heat(self, attr, skip: int, node_wrt: bool = False):
+        """The attribution rendered for img_view / overlay: a token stream
+        whose N - skip tiles a square grid as a patch heatmap; a
+        CHW-looking tensor |attr|, max over the channel axis, per-sample
+        max-normalized, broadcast to 3 channels; anything else |attr|
+        normalized in place (per sample at rank >= 3). ``node_wrt``: the
+        leaf is an upstream node's output, batch-leading and never
+        channel-planar."""
+        if attr.ndim == 3:
+            try:
+                return self._token_cam(attr, skip)
+            except ValueError:
+                pass  # not a token grid: the image rules
+        h = attr.abs()
+        chw = (not node_wrt) and h.ndim >= 3 and h.shape[-3] in (1, 3)
+        if chw:
+            h = h.amax(dim=-3, keepdim=True)
+        if h.ndim >= 3:
+            m = h.amax(dim=tuple(range(1, h.ndim)), keepdim=True)
+        else:
+            m = h.amax()
+        h = h / m.clamp_min(1e-12)
+        if chw:
+            h = h.expand(*h.shape[:-3], 3, *h.shape[-2:])
+        return h
+
+    def grad_fn(self, params):
+        target, mode, steps = self._decode(params)
+        skip = int(float(params.get("skip", 1)))
+        node_wrt = self.grad_wrt(params)[0] == "node"
+
+        def run(forward, x, caps):
+            scalar = self._scalar_fn(forward, target, caps)
+            xf = x.to(torch.float32)
+            if mode == "ig":
+                alphas = (torch.arange(steps, dtype=torch.float32,
+                                       device=x.device) + 1.0) / steps
+                tot = torch.zeros(x.shape, dtype=torch.float32,
+                                  device=x.device)
+                for i in range(steps):
+                    g = grad_of(scalar, (xf * alphas[i]).to(x.dtype))
+                    tot = tot + g.to(torch.float32)
+                attr = (tot / steps) * xf
+            elif mode == "smooth":
+                # a per-sample input range where the batch axis is known
+                # (node-wrt leaves, rank >= 4 inputs); a rank <= 3 graph
+                # input is one unbatched image
+                if node_wrt or xf.ndim >= 4:
+                    axes = tuple(range(1, xf.ndim))
+                    rng_ = (xf.amax(dim=axes, keepdim=True)
+                            - xf.amin(dim=axes, keepdim=True))
+                else:
+                    rng_ = xf.amax() - xf.amin()
+                scale = caps["sigma"].to(torch.float32) * rng_
+                key = (0, caps["seed"])
+                tot = torch.zeros(x.shape, dtype=torch.float32,
+                                  device=x.device)
+                for i in range(steps):
+                    eps = normal_bits(fold_in(key, i), list(x.shape))
+                    g = grad_of(scalar, (xf + scale * eps).to(x.dtype))
+                    tot = tot + g.to(torch.float32)
+                attr = tot / steps
+            else:
+                g = grad_of(scalar, x).to(torch.float32)
+                attr = g * xf if mode == "gradxinput" else g
+            return {"o": self._heat(attr, skip, node_wrt).to(x.dtype),
+                    "g": attr}
+
+        return run
+
+
+class DreamNode(_GradNode):
+    """Feature visualization by normalized gradient ascent on the leaf
+    (default: the image), maximizing the scalar target of the wired
+    tensor: ``steps`` ascent steps (static), each of ``lr`` (dynamic) input
+    units along g / rms(g), clipped to [``clip_lo``, ``clip_hi``] (default
+    0..1; "none" leaves a side open). Outputs: "o" the optimized leaf,
+    "delta" (extra) the optimized minus the original in f32. ``target`` /
+    ``class`` / ``wrt`` as saliency."""
+
+    def __init__(self) -> None:
+        super().__init__("dream")
+
+    def contents(self, params):
+        target = params.get("target", "class")
+        return ("<p>gradient-ascent feature visualization</p>"
+                + self._sel_html("target", self.TARGETS, target) + " "
+                + _num_input("class", int(float(params.get("class", 0))),
+                             step="1", title="class (target=class)")
+                + "<br>" + _num_input(
+                    "steps", int(float(params.get("steps", 32))),
+                    step="1", title="ascent steps")
+                + " " + _num_input("lr", float(params.get("lr", 0.05)),
+                                   title="step size")
+                + "<br>" + self._wrt_html(params))
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o", "delta"]}
+
+    def extra_outs(self, params):
+        return ["delta"]
+
+    def dynamic_params(self):
+        return frozenset({"class", "lr"})
+
+    def captures(self, params):
+        return {"class": self._class_cap(params),
+                "lr": torch.tensor(np.float32(float(params.get("lr",
+                                                               0.05))))}
+
+    def _decode(self, params):
+        target = self._check_target(params.get("target", "class"))
+        steps = int(float(params.get("steps", 32)))
+        if steps < 1:
+            raise ValueError("steps must be >= 1")
+
+        def clip_of(key, default):
+            v = str(params.get(key, default))
+            return None if v == "none" else float(v)
+
+        return target, steps, clip_of("clip_lo", "0"), clip_of("clip_hi", "1")
+
+    def grad_fn(self, params):
+        target, steps, clip_lo, clip_hi = self._decode(params)
+
+        def run(forward, x, caps):
+            scalar = self._scalar_fn(forward, target, caps)
+            lr = caps["lr"].to(torch.float32)
+            xv = x
+            for _ in range(steps):
+                g = grad_of(scalar, xv).to(torch.float32)
+                norm = g.square().mean().sqrt() + 1e-12
+                nxt = xv.to(torch.float32) + lr * g / norm
+                if clip_lo is not None or clip_hi is not None:
+                    nxt = nxt.clamp(clip_lo, clip_hi)
+                xv = nxt.to(xv.dtype)
+            return {"o": xv,
+                    "delta": xv.to(torch.float32) - x.to(torch.float32)}
+
+        return run
+
+
+#: masked copies of the leaf that occlusion runs through its cone as one
+#: batched pass (P = 169 positions at patch 32, stride 16 on a 224 image:
+#: six passes)
+OCCLUSION_CHUNK = 32
+
+
+class OcclusionNode(_GradNode):
+    """Occlusion sensitivity (Zeiler & Fergus): slide a ``patch`` x
+    ``patch`` occluder of value ``fill`` (dynamic) over the image leaf at
+    ``stride`` (default ``patch``; the last window of a row or column
+    clamps to the edge), score each position with the wired scalar
+    (``target`` / ``class`` as saliency, one score per leaf sample) and
+    render the drop from the unoccluded score. Outputs: "o" the mean drop
+    per pixel over the windows covering it, min-max normalized per sample
+    and broadcast to 3 channels; "g" (extra) the raw signed drop grid
+    ``[..., gh, gw]`` in f32.
+
+    Forwards only (``differentiates = False``): the replay keeps each
+    layer's kernel-backed ``fn``. The P masked leaves run through the cone
+    ``OCCLUSION_CHUNK`` at a time as one batched pass
+    (``forward.stacked``: each replayed node's ``stacked_fn``, as
+    ``run_stacked`` folds a group)."""
+
+    differentiates = False
+
+    def __init__(self) -> None:
+        super().__init__("occlusion")
+
+    def contents(self, params):
+        target = params.get("target", "max")
+        return ("<p>occlusion sensitivity</p>"
+                + self._sel_html("target", self.TARGETS, target) + " "
+                + _num_input("class", int(float(params.get("class", 0))),
+                             step="1", title="class (target=class)")
+                + "<br>" + _num_input(
+                    "patch", int(float(params.get("patch", 32))),
+                    step="1", title="occluder size (px)")
+                + " " + _num_input(
+                    "stride",
+                    int(float(params.get("stride",
+                                         params.get("patch", 32)))),
+                    step="1", title="slide step (px)")
+                + " " + _num_input("fill", float(params.get("fill", 0.0)),
+                                   title="occluder fill value")
+                + "<br>" + self._wrt_html(params))
+
+    def io(self, params):
+        return {"ins": ["o"], "outs": ["o", "g"]}
+
+    def extra_outs(self, params):
+        return ["g"]
+
+    def dynamic_params(self):
+        return frozenset({"class", "fill"})
+
+    def captures(self, params):
+        return {"class": self._class_cap(params),
+                "fill": torch.tensor(np.float32(float(params.get("fill",
+                                                                 0.0))))}
+
+    def _decode(self, params):
+        target = self._check_target(params.get("target", "max"))
+        patch = int(float(params.get("patch", 32)))
+        stride = int(float(params.get("stride", patch)))
+        if patch < 1:
+            raise ValueError("patch must be >= 1")
+        if stride < 1:
+            raise ValueError("stride must be >= 1")
+        return target, patch, stride
+
+    def grad_fn(self, params):
+        target, patch, stride = self._decode(params)
+
+        def run(forward, x, caps):
+            if x.ndim not in (3, 4) or x.shape[-3] not in (1, 3):
+                raise ValueError(
+                    "occlusion needs an image-shaped wrt leaf [C,H,W] or "
+                    f"[B,C,H,W] with 1 or 3 channels; got {tuple(x.shape)}")
+            H, W = int(x.shape[-2]), int(x.shape[-1])
+            ph, pw = min(patch, H), min(patch, W)
+            gh = 1 + -(-(H - ph) // stride)
+            gw = 1 + -(-(W - pw) // stride)
+            fill = caps["fill"].to(x.dtype)
+            batched = x.ndim == 4
+            B = int(x.shape[0]) if batched else None
+
+            def reduce(y, lead):
+                """Per-sample scores of a forward's output with ``lead``
+                leading chunk axes: the target reduces the class axis,
+                everything but the leaf's batch axis sums."""
+                y = y.to(torch.float32)
+                if target == "class":
+                    y = take_class(y, caps["class"])
+                elif target == "max":
+                    y = y.amax(dim=-1)
+                else:
+                    y = y.sum(dim=-1)
+                if batched and y.ndim > lead and y.shape[lead] == B:
+                    rest = tuple(range(lead + 1, y.ndim))
+                    return y.sum(dim=rest) if rest else y
+                s = y.reshape(*y.shape[:lead], -1).sum(dim=-1)
+                # a wired tensor with no matching batch axis: every
+                # sample shares the score
+                return s.unsqueeze(-1).expand(*s.shape, B) if batched else s
+
+            base = reduce(forward(x), 0)
+            rows = torch.arange(H, device=x.device)
+            cols = torch.arange(W, device=x.device)
+            n_pos = gh * gw
+            canvas = torch.zeros((*base.shape, H * W), dtype=torch.float32,
+                                 device=x.device)
+            count = torch.zeros(H * W, dtype=torch.float32, device=x.device)
+            drops = []
+            for start in range(0, n_pos, OCCLUSION_CHUNK):
+                p = torch.arange(start, min(start + OCCLUSION_CHUNK, n_pos),
+                                 device=x.device)
+                c = p.shape[0]
+                py = ((p // gw) * stride).clamp_max(H - ph)[:, None, None]
+                px = ((p % gw) * stride).clamp_max(W - pw)[:, None, None]
+                m = ((rows[:, None] >= py) & (rows[:, None] < py + ph)
+                     & (cols[None, :] >= px) & (cols[None, :] < px + pw))
+                mb = m.reshape(c, *([1] * (x.ndim - 2)), H, W)
+                d = base - reduce(forward.stacked(torch.where(mb, fill, x)),
+                                  1)
+                mf = m.reshape(c, H * W).to(torch.float32)
+                canvas = canvas + torch.matmul(
+                    d.reshape(c, -1).transpose(0, 1), mf).reshape(
+                        canvas.shape)
+                count = count + mf.sum(dim=0)
+                drops.append(d)
+            heat = (canvas / count.clamp_min(1.0)).reshape(*base.shape, H, W)
+            hw = (base.ndim, base.ndim + 1)
+            lo = heat.amin(dim=hw, keepdim=True)
+            hi = heat.amax(dim=hw, keepdim=True)
+            heat = (heat - lo) / (hi - lo).clamp_min(1e-12)
+            heat = heat.unsqueeze(-3).expand(*base.shape, 3, H, W)
+            g = torch.cat(drops).movedim(0, -1).reshape(*base.shape, gh, gw)
+            return {"o": heat.to(x.dtype), "g": g}
+
+        return run
+
+
 class IdentityNode(NodeKind):
     """Pass-through for sources and sinks rendered client-side.
 
@@ -716,6 +1244,9 @@ def instances():
         PcaViewNode(),
         PatchSimNode(),
         SimilarityNode(),
+        SaliencyNode(),
+        DreamNode(),
+        OcclusionNode(),
         IdentityNode("img_src", ["o"], ["o"]),
         ImgViewNode(),
         IdentityNode("multi_view", ["o"], []),

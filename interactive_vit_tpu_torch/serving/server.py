@@ -52,6 +52,13 @@ request:
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \\
         --dtype bfloat16 --max-batch 8 --pipeline-depth 1 --warmup
 
+A classifier's saved ``<variant>_saliency.json`` (the chain with
+``saliency``, ``dream`` and ``occlusion`` off its head and, for a plain
+ViT, ``<variant>:attrib`` off its embed node) serves the gradient kinds;
+with ``--graphs-dir`` the server writes that graph where the library lacks
+it, as the JAX server does. The server turns TF32 off first: the f32 paths
+and the gradient twins hold the 1e-4 contract only on exact f32 matmuls.
+
 ``--plugin-dirs`` registers the node kinds of port plugin files (files
 that import JAX are skipped), ``--frontend-dir`` serves another frontend,
 ``--compute-timeout-s`` bounds a /compute (503 past it).
@@ -81,7 +88,9 @@ from interactive_vit_tpu_torch.models.autoregister import (
 )
 from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
-from interactive_vit_tpu_torch.runtime.device import require_device
+from interactive_vit_tpu_torch.runtime.device import (
+    exact_f32_matmuls, require_device,
+)
 from interactive_vit_tpu_torch.serving.app import App
 from interactive_vit_tpu_torch.wire.schema import graph_from_json
 
@@ -122,6 +131,7 @@ def build_app(
     weight-only "int8" dtype, as in the JAX server. ``plugin_dirs``: each
     scanned for node-kind plugins (``graph/registry.scan_plugins``).
     ``frontend_dir``: default the repository's ``frontend``."""
+    exact_f32_matmuls()
     dtype, quantize = DTYPES[dtype_name]
     block_kernel = "auto"
     if attn_impl_name == "int8-scores":
@@ -163,6 +173,14 @@ def build_app(
         model.register(reg, None if repo_lib else app.graphs)
         logger.info("registered model %s (%d nodes) on %s in %s", variant,
                     len(model.layers), device, dtype_name)
+        # classifier chains also get the gradient-tap demo graph
+        # (saliency, dream and occlusion off the head; attrib off embed)
+        sal_name = f"{variant}_saliency.json"
+        if (not repo_lib
+                and any(n.endswith(":head") for n in model.list_node_names())
+                and not app.graphs.exists(sal_name)):
+            app.graphs.save(sal_name, model.generate_saliency_graph_json())
+            logger.info("generated graph %s", sal_name)
     return app
 
 

@@ -22,7 +22,9 @@ node kinds are registered from the graph's endpoints
 (``models.autoregister.make_model``, seeded random weights), and
 ``--plugin-dirs`` adds plugin kinds, as the server does. It runs on the
 card (``--device cuda``, the default; it raises where there is none)
-unless ``--device cpu`` is given. Not ported: ``--platform`` (a TPU-rig
+unless ``--device cpu`` is given, with TF32 off (exact f32 matmuls). The
+``*_saliency.json`` graphs run too (their gradient kinds on the executor's
+cone staging). Not ported: ``--platform`` (a TPU-rig
 flag) and ``--ckpt`` (the weight loaders are not ported yet); the parser
 refuses both.
 """
@@ -145,10 +147,13 @@ def main(argv=None) -> int:
         Registry, scan_plugins,
     )
     from interactive_vit_tpu_torch.ops.node_ops import register_builtin
-    from interactive_vit_tpu_torch.runtime.device import require_device
+    from interactive_vit_tpu_torch.runtime.device import (
+        exact_f32_matmuls, require_device,
+    )
     from interactive_vit_tpu_torch.wire.schema import graph_from_json
 
     device = require_device(args.device)
+    exact_f32_matmuls()
     path = args.graph
     if not os.path.exists(path):
         root = args.graphs_dir or os.path.join(_REPO_ROOT, "static",

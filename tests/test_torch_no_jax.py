@@ -41,6 +41,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.models.tome_plugin",
     "interactive_vit_tpu_torch.ops.tome_ops",
     "interactive_vit_tpu_torch.models.autoregister",
+    "interactive_vit_tpu_torch.models.attrib",
     "interactive_vit_tpu_torch.models.model_plugin",
     "interactive_vit_tpu_torch.models.weights",
     "interactive_vit_tpu_torch.runtime.constants",
@@ -230,7 +231,8 @@ def test_server_entry_point_serves_on_cpu(tmp_path):
                 time.sleep(0.5)
         assert health["ok"] is True
         with urllib.request.urlopen(base + "/list_graphs", timeout=5) as r:
-            assert json.loads(r.read()) == ["vit_t16.json"]
+            assert json.loads(r.read()) == ["vit_t16.json",
+                                            "vit_t16_saliency.json"]
         with urllib.request.urlopen(
                 base + "/description/vit_t16:blocks.11", timeout=5) as r:
             assert json.loads(r.read()) == {"ins": ["o", "r"],

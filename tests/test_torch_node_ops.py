@@ -1,7 +1,8 @@
 """The port's built-in node kinds on the CPU, against the JAX package.
 
 * Every entry of ``tests/fixtures/node_fixtures.json`` but the gradient
-  kinds (saliency, dream, occlusion: not ported): the committed request
+  kinds (saliency, dream, occlusion: ``tests/test_torch_grad_nodes.py``
+  holds those): the committed request
   bytes decode and ``Executor(device="cpu")`` gives the pinned values
   (atol 5e-5: they carry 6 decimals); the committed f32 and bf16 responses
   are our outputs encoded, byte for byte where the kinds are exact (noise,
@@ -87,10 +88,13 @@ def _b64(m: np.ndarray) -> str:
 
 
 def test_unported_kinds_are_the_gradient_kinds():
+    """No kind is left unported: the gradient kinds, the last ones, are
+    ported too, and their fixture entries are held in
+    ``tests/test_torch_grad_nodes.py``, not replayed here."""
     jnames = {k.name for k in J.instances()}
     tnames = {k.name for k in T.instances()}
-    assert tnames <= jnames
-    assert jnames - tnames == GRADIENT_KINDS
+    assert tnames == jnames
+    assert GRADIENT_KINDS <= tnames
     assert set(FIXTURES) - set(REPLAYED) == GRADIENT_KINDS | {
         "img_src", "error_contract"}
 

@@ -301,7 +301,8 @@ def test_frontend_assets_and_traversal_guard(tmp_path):
 
 def test_build_app_never_writes_the_repo_graph_library(servers, tmp_path):
     """A variant with no saved graph: the default library (the repo's
-    static/graphs) is left alone; an explicit one gets the chain graph."""
+    static/graphs) is left alone; an explicit one gets the chain graph and
+    the classifier's saliency graph (as the JAX server writes them)."""
     from interactive_vit_tpu_torch.serving import server
 
     repo_lib = os.path.join(server._REPO_ROOT, "static", "graphs")
@@ -315,7 +316,8 @@ def test_build_app_never_writes_the_repo_graph_library(servers, tmp_path):
     app = server.build_app(models=[NAME], graphs_dir=str(tmp_path),
                            device="cpu")
     try:
-        assert app.list_graphs() == [NAME + ".json"]
+        assert app.list_graphs() == [NAME + ".json",
+                                     NAME + "_saliency.json"]
     finally:
         app.close()
 

@@ -186,7 +186,9 @@ def test_build_app_serves_swin_beside_vit(tmp_path):
     try:
         names = app.reg.names()
         assert "swin_t:stages.2.5" in names and "vit_t16:blocks.11" in names
-        assert sorted(app.graphs.list()) == ["swin_t.json", "vit_t16.json"]
+        assert sorted(app.graphs.list()) == [
+            "swin_t.json", "swin_t_saliency.json", "vit_t16.json",
+            "vit_t16_saliency.json"]
         assert len(app.graphs.load("swin_t.json")["nodes"]) == 21
     finally:
         app.close()
