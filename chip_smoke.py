@@ -43,10 +43,13 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
    plain, kernel, kernel, plain):
    * the fused attention block (row 1) at the vit_b16 (B=1 and 8),
-     vit_t16 and vit_t16@256 (N=257) block shapes, maps off / maps +
-     head-mean / a subset: bf16 on the tensor cores, f32 on split TF32
-     (the launch counts show the route), and at vit_b16 B=1, on a copy of
-     x off the 16-byte grid, the FMA kernel; device times alone
+     vit_t16, vit_t16@256 (N=257) and clip_b32 (N=50) block shapes, maps
+     off / maps + head-mean / a subset: bf16 on the tensor cores, f32 on
+     split TF32 (the launch counts show the route), and at vit_b16 B=1, on
+     a copy of x off the 16-byte grid, the FMA kernel; at clip_b32's N=50
+     (no multiple of the kernels' row tiles) also x followed by NaN rows
+     and the workspaces' free blocks NaN-filled, the results finite and a
+     clean call's bit for bit (``check_row1_padded_rows``); device times alone
      (``time_held``, the wrapper's host time a call beside), the bound (f32
      also at the TF32 peak, the one its entry carries) and, maps off, a
      yardstick of four library
@@ -147,7 +150,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      instantiations and off the grid on the FMA pair; each bound refusing
      a gradient zeroed or halved;
      ``scaled_dot_product_attention`` forward + backward timed beside.
-4. slice   -- twelve paths through the HTTP server in-process, seeded random
+4. slice   -- fourteen paths through the HTTP server in-process, seeded random
    weights, the saved graphs copied to a temp dir (a missing chain graph
    is generated there). Each path's launch counts are set to 0 just
    before it and read just after:
@@ -233,6 +236,17 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
      1e-4; one more request, through the eager pass (a replay calls no
      Python), logs the host time spent in the matching, the merges and
      the merge map;
+   * clip_b32 (CLIP ViT-B/32's image tower, BASELINE config 4) from the
+     repository's saved graph, bf16: ``attn`` on blocks 0 and 11 and the
+     L2-normalised embedding (its norm 1 within 2^-8 in bf16, 1e-5 in
+     f32); 3 in sequence and 2 at once; row 1 on the tensor cores in all
+     12 blocks at N=50 (12 launches a request, by name in the profile, no
+     FMA launch), the f32 request's 12 on split TF32;
+   * vgg16 (the reference's model) from the repository's saved graph,
+     bf16, an unbatched image as the reference sent it: features.0,
+     features.30, flatten and the logits; 3 in sequence and 2 at once; no
+     kernel of the port (none by name in the profile: cuDNN's
+     convolutions, ``layers.linear``'s GEMMs);
    each checked for shapes, finiteness, probs rows summing to 1 and
    agreement with the port's plain path on the card (the kernels' plain
    versions in every block) and for the launches of every kernel, then
@@ -276,7 +290,16 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    of those constants' sizes on the capture's stream was filled with NaN
    and zeros (the program holds the constants its graph reads). Each path also
    prints its ``/metrics`` p50s and the sizes of the groups the batcher
-   formed. Then the repository's demo graphs through ``POST /compute`` on
+   formed. Then vgg16 in f32 (``run_vgg_f32``: one request, no kernel
+   of the port, each tap within 1e-4 of a float64 host forward of the
+   same weights) and the repository's ``clip_zeroshot.json`` with both
+   CLIP towers on one bf16 server (``run_zeroshot``: the image and text
+   embeddings and the similarity logits against the plain path, 12 row-1
+   launches a pass; a reworded prompt replays with no capture, its text
+   embedding the plain path's and the image embedding unchanged bit for
+   bit; an added prompt captures once; two requests that differ only in
+   wording sent together run as one group, batch=2, each with its own
+   embeddings). Then the repository's demo graphs through ``POST /compute`` on
    a server of no model (``run_demo_graphs``): demo_noise.json with its
    noise seed and const value edited (each a cache hit, no new capture;
    every output the CPU's bit for bit; a noise node of the fixture's
@@ -399,6 +422,7 @@ and the plain path agree.
 from __future__ import annotations
 
 import functools
+import inspect
 import json
 import os
 import shutil
@@ -1138,6 +1162,61 @@ def phase_block_kernel(device, name, kernel, plain, shapes, modes, s8=False):
                     check_s8_parts(f"{name} {sname} B={b} {dt} ({route})",
                                    x, p, heads, int8_pv)
     return out
+
+
+def check_row1_padded_rows(device) -> None:
+    """Row 1 at clip_b32's N=50 (no multiple of the LN1 + QKV kernel's
+    32-row tiles or of the attention's query blocks): the rows a tile holds
+    past N must never reach y, the maps or the head mean. x is given in a
+    buffer whose storage runs on into 64 rows of NaN, and free blocks of
+    the sizes of the wrapper's workspaces and outputs are filled with NaN
+    first (the caching allocator hands them out again); the results must
+    be finite and equal bit for bit to those of a clean call, at B=1 and
+    2, in both dtypes (their routes), maps off, maps + mean and a head
+    subset."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+
+    n, d, heads, eps = 50, 768, 12, 1e-5
+    nan = float("nan")
+    checked = []
+    for dtype in (torch.bfloat16, torch.float32):
+        p = random_block(d, dtype, device, seed=50)
+        for b in (1, 2):
+            x = torch.randn((b, n, d), generator=torch.Generator()
+                            .manual_seed(b)).to(device=device, dtype=dtype)
+            buf = torch.full(((b * n + 64) * d,), nan, dtype=dtype,
+                             device=device)
+            buf[:x.numel()] = x.flatten()
+            xn = buf[:x.numel()].view(b, n, d)
+            for mode, kw in (("maps_off", {}),
+                             ("maps_mean", {"want_attn": True,
+                                            "want_mean": True}),
+                             ("subset", {"want_attn": True, "want_mean": True,
+                                         "attn_heads": (0, 5, 11)})):
+                want = fb.fused_attn_block(x, p, heads, eps, **kw)
+                sizes = [((b, n, 3 * d), dtype), ((b, n, d), dtype),
+                         ((b, heads, n, n), torch.float32),
+                         ((b, heads, n, n), dtype), ((b, n, n), dtype)]
+                poison = [torch.full(shape, nan, dtype=dt, device=device)
+                          for shape, dt in sizes for _ in range(4)]
+                del poison
+                got = fb.fused_attn_block(xn, p, heads, eps, **kw)
+                torch.cuda.synchronize()
+                for i, (g, w) in enumerate(zip(got, want)):
+                    if w is None:
+                        continue
+                    if not (torch.isfinite(g).all() and torch.equal(g, w)):
+                        raise AssertionError(
+                            f"row 1 clip_b32 B={b} {dtype} {mode}: output "
+                            f"{i} reads the rows past N=50 (NaN there gives "
+                            f"{int((~torch.isfinite(g)).sum())} non-finite "
+                            f"values, or other bits than a clean call)")
+                checked.append(f"{str(dtype)[6:]} B={b} {mode}")
+    log(f"  row 1 at clip_b32's N=50, x followed by NaN rows and the "
+        f"workspaces' free blocks NaN-filled: finite and bit for bit a "
+        f"clean call's ({len(checked)} cases: {', '.join(checked)})")
 
 
 def check_s8_parts(tag, x, p, heads, int8_pv) -> None:
@@ -2344,14 +2423,18 @@ class Path:
     index of the model's first layer (1 where an ``img_src`` node comes
     first). ``views``: {graph node: (the layer whose "o" it takes, node
     kind, params)} of the viewer kinds on the model's outputs, which the
-    plain path runs on its own layer outputs."""
+    plain path runs on its own layer outputs. ``head``: the layer whose
+    output every request taps (a classifier's head; CLIP's embedding,
+    VGG's last linear) and ``head_shape`` its shape in a response (by
+    default [1, the classes or the width]). ``check_head(path, head, tag,
+    bf16)`` holds what else the family asks of it."""
 
     def __init__(self, model, family, cfg, img, taps, kernels, plain,
                  tap_shape, seq, conc, check_tap=None, node_params=None,
                  other=None, dtype="bfloat16", attn="auto", f32=True,
                  chain=(), lockstep=None, host_spans=(), f32_kernels=None,
                  profile_kernels=None, f32_rel=False, extras=None, offset=0,
-                 views=None):
+                 views=None, head="head", head_shape=None, check_head=None):
         self.model, self.family, self.cfg = model, family, cfg
         self.extras = extras
         self.offset, self.views = offset, views or {}
@@ -2369,10 +2452,11 @@ class Path:
         self.other = other
         layers = family.layer_fns(cfg)
         self.names = [name for name, _, _ in layers]
-        self.head_node = self.names.index("head") + offset
+        self.head_node = self.names.index(head) + offset
         # the blocks are the layers with extra (tap) channels
         self.depth = sum(1 for _, extra, _ in layers if extra)
-        self.head_shape = (1, cfg.num_classes or cfg.width)
+        self.head_shape = head_shape or (1, cfg.num_classes or cfg.width)
+        self.check_head = check_head
 
     def taps(self):
         return ([(i, ch) for i, chs in self.tap_nodes.items() for ch in chs]
@@ -2459,9 +2543,10 @@ def plain_taps(path, model, image, device):
             p = fam.layer_params(model.params, name)
             if extra:
                 taps = path.tap_nodes.get(node, ())
+                kw = ({"node_params": path.params_of(node)} if "node_params"
+                      in inspect.signature(fn).parameters else {})
                 out = fn(p, {"o": x, **carry},
-                         want=frozenset(taps) | frozenset(path.chain),
-                         node_params=path.params_of(node))
+                         want=frozenset(taps) | frozenset(path.chain), **kw)
                 if taps:
                     maps[node] = {ch: out[ch] for ch in taps}
                 carry = {ch: out[ch] for ch in path.chain}
@@ -2611,6 +2696,8 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
         raise AssertionError(f"{tag}: head output shape {head.shape}")
     if not np.isfinite(head).all():
         raise AssertionError(f"{tag}: non-finite head output")
+    if path.check_head is not None:
+        path.check_head(path, head, tag, bf16)
     p_head, p_maps = plain
     pairs = {"head": (head, p_head.float().cpu().numpy())}
     for i, chs in path.tap_nodes.items():
@@ -3139,6 +3226,332 @@ def conv_f64(image, m):
             out += (float(m[i, j])
                     * image[..., i:i + oh, j:j + ow].astype(np.float64))
     return out
+
+
+# CLIP's embedding against 1: its f32 norm within 1e-5; stored in bf16 each
+# element rounds by up to 2^-9 of itself, so the norm of the response's
+# bf16 vector lies within 2^-9 of 1 (bound 2^-8)
+NORM_F32 = 1e-5
+NORM_BF16 = 2.0 ** -8
+
+
+def unit_norm(path, head, tag, bf16) -> None:
+    """A CLIP embedding's rows have norm 1 (NORM_F32, NORM_BF16)."""
+    err = float(np.abs(np.linalg.norm(head.astype(np.float64), axis=-1)
+                       - 1.0).max())
+    bound = NORM_BF16 if bf16 else NORM_F32
+    if err > bound:
+        raise AssertionError(f"{tag}: embedding norm off 1 by {err:.3g} "
+                             f"> {bound:g}")
+
+
+class VggFamily:
+    """``models/vgg`` behind the ``layer_fns(cfg, **plain)`` signature of
+    the families with a config (VGG16 has one size and no kernel of the
+    port, so its plain path is its served path's layers)."""
+
+    @staticmethod
+    def layer_fns(cfg=None, **_):
+        from interactive_vit_tpu_torch.models import vgg
+
+        return vgg.layer_fns()
+
+    @staticmethod
+    def layer_params(params, name):
+        from interactive_vit_tpu_torch.models import vgg
+
+        return vgg.layer_params(params, name)
+
+
+# the saved vgg16.json's nodes: 1 features.0, 31 features.30, 33 flatten,
+# 40 classifier.6; the reference's unbatched request keeps no batch axis
+VGG_TAPS = {1: (64, 224, 224), 31: (512, 7, 7), 33: (25088,)}
+
+
+def vgg_tap_shape(path, node, ch):
+    return VGG_TAPS[node]
+
+
+def vgg_f64_forward(params, x):
+    """VGG16 on the host in float64, written apart from the port's layer
+    fns (torch's own conv2d, max_pool2d, adaptive_avg_pool2d, linear), from
+    the transform's output ``x`` [3, 224, 224]: {saved-graph node: f64
+    output} for the features, the flatten and the logits."""
+    import torch
+    import torch.nn.functional as F
+
+    from interactive_vit_tpu_torch.models import vgg
+
+    out = {}
+    h = x.double()[None]
+    for idx, (kind, _) in enumerate(vgg._FEATURES):
+        if kind == "conv":
+            p = params["features"][str(idx)]
+            h = F.conv2d(h, p["w"].cpu().double(), p["b"].cpu().double(),
+                         padding=1)
+        elif kind == "relu":
+            h = torch.relu(h)
+        else:
+            h = F.max_pool2d(h, 2, 2)
+        out[1 + idx] = h[0]
+    h = F.adaptive_avg_pool2d(h, (7, 7)).flatten(1)
+    out[33] = h[0]
+    for idx, kind in enumerate(vgg._CLASSIFIER):
+        if kind == "linear":
+            p = params["classifier"][str(idx)]
+            h = F.linear(h, p["w"].cpu().double().t(), p["b"].cpu().double())
+        elif kind == "relu":
+            h = torch.relu(h)
+    out[40] = h[0]
+    return out
+
+
+def run_vgg_f32(device, graphs_dir, counters) -> None:
+    """vgg16 in f32 from the saved graph: one request of a 240 x 200 image
+    with the transform, features.0, features.30, flatten and the logits
+    tapped; no launch of the port's kernels; the transform within 1e-5 of
+    the same kind on the host and every other tap within F32_BOUND of a
+    float64 host forward (``vgg_f64_forward``) of the same seeded weights
+    from the response's own transform output. TF32 is off (the server's
+    ``exact_f32_matmuls``): cuDNN's f32 convolutions are exact products."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops.preprocess_mm import preprocess_mm
+    from interactive_vit_tpu_torch.wire.codec import Response
+
+    image = np.random.default_rng(5).random((3, 240, 200), dtype=np.float32)
+    app, httpd, url = serve(["vgg16"], "float32", device, graphs_dir)
+    try:
+        graph = app.graphs.load("vgg16.json")
+        model = app.reg.get_node("vgg16:transform").model
+        before = {k: fn.launches for k, fn in counters.items()}
+        t0 = time.perf_counter()
+        raw = post(url + "/compute", chain_request(
+            graph, image, [(0, "o"), *((i, "o") for i in VGG_TAPS),
+                           (40, "o")]))
+        wall = (time.perf_counter() - t0) * 1e3
+        launched = {k: fn.launches - before[k] for k, fn in counters.items()
+                    if fn.launches != before[k]}
+        if launched:
+            raise AssertionError(f"vgg16 f32: launched {launched}; the "
+                                 f"path runs no kernel of the port")
+        t0 = time.perf_counter()
+        want = vgg_f64_forward(model.params, torch.from_numpy(
+            np.array(Response.decode(raw)[0]["o"])))
+        host_s = time.perf_counter() - t0
+    finally:
+        stop(app, httpd)
+    out = Response.decode(raw)
+    pre = preprocess_mm(torch.from_numpy(image), 224).numpy()
+    errs = {"transform": float(np.abs(out[0]["o"] - pre).max())}
+    if errs["transform"] > 1e-5:
+        raise AssertionError(f"vgg16 f32 transform off the host's by "
+                             f"{errs['transform']:.3g}")
+    for i in (*VGG_TAPS, 40):
+        ref = want[i].numpy()
+        if out[i]["o"].shape != ref.shape:
+            raise AssertionError(f"vgg16 f32 node {i}: {out[i]['o'].shape}")
+        errs[i] = float(np.abs(out[i]["o"] - ref).max())
+    bad = {k: v for k, v in errs.items() if v > F32_BOUND}
+    if bad:
+        raise AssertionError(f"vgg16 f32 vs the float64 host forward: {bad}")
+    log(f"  vgg16 float32: 1 request (client wall {wall:.2f} ms, the "
+        f"first of its signature: an eager pass and its capture), no kernel "
+        f"of the port; max abs err vs the float64 host forward of the same "
+        f"weights (node: err, bound {F32_BOUND:g}): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+        + f"; the host forward took {host_s:.1f} s")
+
+
+# The zero-shot graph's prompts (the saved graph's) and their edits: one
+# reworded, one added
+ZS_REWORD = (2, "a sketch of a tree")
+ZS_ADDED = "a photo of a bird"
+
+
+def zeroshot_plain(vision, text, image, prompts, device):
+    """The zero-shot graph on its plain path: the image tower's layers with
+    row 1's plain version in every block, the text tower's forward on the
+    prompts' tokens, the similarity kind (scale 100) on the two. Returns
+    (image embedding, text embeddings, logits); ``image`` [3, H, W]."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import clip, clip_text
+    from interactive_vit_tpu_torch.models.clip_bpe import default_tokenizer
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+    from interactive_vit_tpu_torch.ops import node_ops
+
+    vcfg, tcfg = clip.CLIPVisionConfig(), clip_text.CLIPTextConfig()
+    x = torch.from_numpy(image).to(device)
+    with torch.inference_mode():
+        for name, extra, fn in clip.layer_fns(
+                vcfg, block_impl=fb.fused_attn_block_reference):
+            p = clip.layer_params(vision.params, name)
+            x = (fn(p, {"o": x}, want=frozenset()) if extra
+                 else fn(p, {"o": x}))["o"]
+        tokens = torch.from_numpy(default_tokenizer().batch(
+            prompts, tcfg.context)).to(device)
+        t = clip_text.forward(text.params, tokens, tcfg)["embedding"]
+        sim = next(k for k in node_ops.instances() if k.name == "similarity")
+        caps = {k: v.to(device) for k, v in sim.captures({}).items()}
+        logits = sim.fn({})({"a": x, "b": t}, caps)["o"]
+    return x, t, logits
+
+
+def run_zeroshot(device, graphs_dir, counters) -> None:
+    """The repository's ``clip_zeroshot.json`` with both CLIP towers on one
+    bf16 server (``max_wait_ms`` 100, so that two requests sent together
+    form one group): the image embedding (node 15), the text embeddings
+    (29) and the similarity logits (30) of each response held to the plain
+    path (``zeroshot_plain``) within SLICE_REL of max(1, their scale), the
+    embeddings' norms within NORM_BF16; each pass 12 launches of row 1's
+    bf16 route (the image tower; the text tower runs no kernel), no other.
+    The first request captures its program, the second (another image)
+    replays it; one prompt reworded: a replay (no capture), the new text
+    embeddings the plain path's and the image embedding the first
+    request's bit for bit; a prompt added: exactly one capture; two
+    requests that differ only in wording sent at once: one group
+    (``X-IVT-Timing`` batch=2, one pass), each with its own prompts'
+    embeddings; one profiled replay (row 1's kernels by name)."""
+    import gc
+
+    import torch
+
+    from interactive_vit_tpu_torch.serving.server import build_app
+    from interactive_vit_tpu_torch.wire.codec import Response
+
+    rng = np.random.default_rng(3)
+    images = [rng.random((3, 224, 224), dtype=np.float32) for _ in range(2)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    app = build_app(models=["clip_b32", "clip_text_b32"],
+                    graphs_dir=graphs_dir, dtype_name="bfloat16",
+                    device=device, seed=0, max_batch=8, max_wait_ms=100.0)
+    httpd = app.serve("127.0.0.1", 0, background=True)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        obj = app.graphs.load("clip_zeroshot.json")
+        base = json.loads(obj["nodes"][16]["instance"]["params"]["prompts"])
+        vision = app.reg.get_node("clip_b32:embed").model
+        text = app.reg.get_node("clip_text_b32:embed").model
+        captured = watch_captures(app.executor)
+        taps = [(15, "o"), (29, "o"), (30, "o")]
+
+        def body(image, prompts):
+            return chain_request(obj, image, taps, {16: {
+                "prompts": json.dumps(prompts)}})
+
+        def check_launches(tag, before, passes):
+            launched = {k: fn.launches - before[k]
+                        for k, fn in counters.items()}
+            want = {k: 12 * passes if k == "fused_attn_block_mma" else 0
+                    for k in counters}
+            if launched != want:
+                raise AssertionError(
+                    f"zero-shot {tag}: launched "
+                    f"{ {k: v for k, v in launched.items() if v} }, "
+                    f"expected 12 of fused_attn_block_mma a pass")
+
+        def check_values(tag, out, image, prompts):
+            ref = zeroshot_plain(vision, text, image, prompts, device)
+            for node, r in zip((15, 29, 30), ref):
+                got, r = out[node]["o"], r.float().cpu().numpy()
+                if got.shape != r.shape or not np.isfinite(got).all():
+                    raise AssertionError(f"zero-shot {tag}: node {node} "
+                                         f"{got.shape}, plain {r.shape}")
+                bound = SLICE_REL * max(1.0, float(np.abs(r).max()))
+                err = float(np.abs(got - r).max())
+                worst[node] = max(worst.get(node, 0.0), err)
+                if err > bound:
+                    raise AssertionError(f"zero-shot {tag}: node {node} "
+                                         f"{err:.3g} from the plain path "
+                                         f"(bound {bound:g})")
+                if node != 30:
+                    unit_norm(None, got, f"zero-shot {tag} node {node}", True)
+
+        def send(tag, image, prompts, caps):
+            n_cap = len(captured)
+            before = {k: fn.launches for k, fn in counters.items()}
+            t0 = time.perf_counter()
+            raw = post(url + "/compute", body(image, prompts))
+            walls[tag] = (time.perf_counter() - t0) * 1e3
+            check_launches(tag, before, 1)
+            if len(captured) - n_cap != caps:
+                raise AssertionError(f"zero-shot {tag}: "
+                                     f"{len(captured) - n_cap} captures, "
+                                     f"expected {caps}")
+            out = Response.decode(raw)
+            check_values(tag, out, image, prompts)
+            return out
+
+        worst, walls = {}, {}
+        first = send("first request", images[0], base, 1)
+        send("another image", images[1], base, 0)
+        reworded = list(base)
+        reworded[ZS_REWORD[0]] = ZS_REWORD[1]
+        edited = send("reworded", images[0], reworded, 0)
+        if not np.array_equal(edited[15]["o"], first[15]["o"]):
+            raise AssertionError("zero-shot: rewording a prompt moved the "
+                                 "image embedding")
+        k = ZS_REWORD[0]
+        if np.array_equal(edited[29]["o"][k], first[29]["o"][k]):
+            raise AssertionError("zero-shot: the reworded prompt's "
+                                 "embedding did not change")
+        added = send("a prompt added", images[0], base + [ZS_ADDED], 1)
+        if added[30]["o"].shape != (1, len(base) + 1):
+            raise AssertionError(f"zero-shot: {added[30]['o'].shape} logits "
+                                 f"for {len(base) + 1} prompts")
+        # two requests that differ only in wording, sent together
+        pair = [(images[0], base), (images[0], reworded)]
+        before = {k: fn.launches for k, fn in counters.items()}
+        results = [None, None]
+
+        def worker(j):
+            results[j] = post_timed(url + "/compute", body(*pair[j]))
+
+        threads = [threading.Thread(target=worker, args=(j,))
+                   for j in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if None in results:
+            raise AssertionError("zero-shot: a request of the pair did not "
+                                 "complete")
+        batches = [timing.get("batch") for _, timing in results]
+        if batches != [2.0, 2.0]:
+            raise AssertionError(f"zero-shot: the reworded pair ran in "
+                                 f"batches {batches}, not one group of 2")
+        check_launches("the reworded pair", before, 1)
+        for j, (raw, _) in enumerate(results):
+            check_values(f"the pair's request {j}", Response.decode(raw),
+                         *pair[j])
+        rows = [Response.decode(raw)[29]["o"][k] for raw, _ in results]
+        if np.array_equal(*rows):
+            raise AssertionError("zero-shot: the pair's reworded prompt got "
+                                 "the other request's embedding")
+        prof = profile_request(
+            app.executor, chain_graph(obj, images[1], {16: {
+                "prompts": json.dumps(base)}}), taps,
+            "clip_zeroshot bfloat16", {"row1_qkv_mma_kernel": 12,
+                                       "row1_attn_mma_kernel": 12,
+                                       "proj_mma_kernel": 12,
+                                       "::attention_kernel": 0})
+        reserved = torch.cuda.memory_reserved() / 2 ** 30
+    finally:
+        stop(app, httpd)
+    log(f"  clip_zeroshot bfloat16 (clip_b32 + clip_text_b32, "
+        f"{len(base)} prompts): client walls (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in walls.items())
+        + f"; captures (bucket, ms) "
+        f"{[(k, round(t * 1e3, 1)) for k, t in captured]} (the first "
+        f"request, the added prompt, the pair's bucket 2); the reworded "
+        f"pair in one group (batch=2 in both X-IVT-Timing headers); worst "
+        f"max abs err vs the plain path: image embedding {worst[15]:.3g}, "
+        f"text embeddings {worst[29]:.3g}, logits {worst[30]:.3g} (bound "
+        f"{SLICE_REL:g} of max(1, scale)); profiled replay wall "
+        f"{prof[0]:.2f} ms, device busy {prof[1]:.2f} ms; memory_reserved "
+        f"{reserved:.2f} GiB")
 
 
 def run_demo_graphs(device, graphs_dir, counters) -> None:
@@ -3993,7 +4406,9 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         eager = Executor(app.reg, use_jit=False, device=device)
         captured = watch_captures(app.executor)
         graph = app.graphs.load(path.model + ".json")
-        model = app.reg.get_node(path.model + ":head").model
+        model = app.reg.get_node(path.model + ":"
+                                 + path.names[path.head_node - path.offset]
+                                 ).model
         bodies = [chain_request(graph, im, path.taps(), path.node_params)
                   for im in images[:path.seq + path.conc]]
         other_raw = None
@@ -4126,10 +4541,15 @@ def run_path(path, device, graphs_dir, counters) -> dict:
             head, maps = reference(path, model, np.stack(
                 [images[k] for k in padded]) if len(ks) > 1
                 else images[ks[0]], device)
-            refs[ks] = [(head[i:i + 1], {n: {ch: t[i:i + 1]
-                                             for ch, t in chs.items()}
-                                         for n, chs in maps.items()})
-                        for i in range(len(ks))]
+            # a group's reference is one batch: each result is its row,
+            # with a batch axis of 1 where the responses keep one (an
+            # unbatched request to VGG16 keeps none)
+            batched = len(ks) == 1 or head.ndim == len(path.head_shape)
+            refs[ks] = [(head, maps)] if len(ks) == 1 else [
+                (head[i:i + 1] if batched else head[i],
+                 {n: {ch: t[i:i + 1] if batched else t[i]
+                      for ch, t in chs.items()} for n, chs in maps.items()})
+                for i in range(len(ks))]
         return refs[ks][j]
 
     worst, worst_use, scales = {}, {}, {}
@@ -4198,7 +4618,9 @@ def run_path(path, device, graphs_dir, counters) -> dict:
         launches_f32 = {k: fn.launches - before[k]
                         for k, fn in counters.items()}
         counts = {k: counts[k] + launches_f32[k] for k in counters}
-        model = app.reg.get_node(path.model + ":head").model
+        model = app.reg.get_node(path.model + ":"
+                                 + path.names[path.head_node - path.offset]
+                                 ).model
     finally:
         stop(app, httpd)
     want32 = {k: path.f32_kernels.get(k, 0)
@@ -5321,7 +5743,8 @@ def main() -> int:
         device, "fused_attn_block", fb.fused_attn_block,
         fb.fused_attn_block_reference,
         (("vit_b16", 1, 197, 768, 12), ("vit_b16", 8, 197, 768, 12),
-         ("vit_t16", 1, 197, 192, 3), ("vit_t16@256", 1, 257, 192, 3)),
+         ("vit_t16", 1, 197, 192, 3), ("vit_t16@256", 1, 257, 192, 3),
+         ("clip_b32", 1, 50, 768, 12)),
         lambda heads: {
             "maps_off": {},
             "maps_mean": {"want_attn": True, "want_mean": True},
@@ -5339,6 +5762,7 @@ def main() -> int:
             "qk_maps_mean": {"want_attn": True, "want_mean": True,
                              "int8_pv": False}},
         s8=True)
+    check_row1_padded_rows(device)
     tome_nums = phase_tome_kernel(device)
     window = phase_window_kernel(device)
     numbers = {
@@ -5379,7 +5803,7 @@ def main() -> int:
     # 4. the paths through the server
     log(f"phase 4 slice through the HTTP server (at {time.perf_counter() - t_start:.1f} s):")
     count_replays()
-    from interactive_vit_tpu_torch.models import swin, tome, vit
+    from interactive_vit_tpu_torch.models import clip, swin, tome, vit
     from interactive_vit_tpu_torch.ops import tome_ops
 
     def vit_path(name, img, taps, kernels, plain, seq, conc, **kw):
@@ -5546,6 +5970,24 @@ def main() -> int:
                   other=tome_path("vit_b16_tome16", {13: tome_taps}, seq=1,
                                   conc=0, profile_kernels=tome_profile),
                   host_spans=tome_spans, profile_kernels=tome_profile),
+        # CLIP ViT-B/32's image tower (BASELINE config 4) from the
+        # repository's saved graph: row 1 on the tensor cores in all 12
+        # blocks at N=50 (by name in the profile; the FMA route never), the
+        # f32 request's 12 on split TF32; attn of blocks 0 and 11 and the
+        # L2-normalised embedding (its norm held to 1)
+        Path("clip_b32", clip, clip.CLIPVisionConfig(), 224,
+             {2: ("attn",), 13: ("attn",)}, row1_bf16, b16_plain,
+             vit_tap_shape, seq=3, conc=2, f32_kernels=row1_f32,
+             profile_kernels=row1_profile, head="embedding",
+             head_shape=(1, 512), check_head=unit_norm),
+        # the reference's VGG16 from its saved graph, unbatched as the
+        # reference sent it: cuDNN's convolutions and layers.linear's
+        # GEMMs, no kernel of the port (none by name in the profile); its
+        # f32 request is run_vgg_f32's, against a float64 host forward
+        Path("vgg16", VggFamily, None, 224, {i: ("o",) for i in VGG_TAPS},
+             {}, {}, vgg_tap_shape, seq=3, conc=2, f32=False,
+             head="classifier.6", head_shape=(1000,),
+             profile_kernels={name: 0 for name in port_kernel_names()}),
     ]
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_")
     try:
@@ -5559,6 +6001,11 @@ def main() -> int:
             # a kernel's first path gives its count
             for k in {**path.kernels, **path.f32_kernels}:
                 numbers[k].setdefault("launches", res["launches"][k])
+        t0 = time.perf_counter()
+        run_vgg_f32(device, graphs_dir, counters)
+        run_zeroshot(device, graphs_dir, counters)
+        log(f"  vgg16 f32 and clip_zeroshot: "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         run_demo_graphs(device, graphs_dir, counters)
         run_graph_on_card(counters)

@@ -3,7 +3,8 @@
 Counterpart of ``interactive_vit_tpu/models/autoregister.py`` for the
 families this package has: the plain ViTs (``vit_*``, ``dino_*``,
 ``deit_*``, ``dinov2_*``, each also at an ``@<pixels>p<patch>`` geometry),
-Swin (``swin_*``) and ToMe (``*_tome*``). A variant of a family that is not
+Swin (``swin_*``), ToMe (``*_tome*``), the CLIP towers (``clip_b32``,
+``clip_text_b32``) and VGG16 (``vgg16``). A variant of a family that is not
 ported yet raises with the family's name.
 """
 
@@ -19,9 +20,11 @@ logger = logging.getLogger(__name__)
 # Families the JAX package serves that this package does not yet: prefix
 # (or whole name) -> what it is.
 _UNPORTED = {
-    "clip_": "CLIP", "vgg16": "VGG-16", "resnet50": "ResNet-50",
-    "convnext_": "ConvNeXt", "vit_moe": "ViT-MoE", "mae_": "MAE",
+    "resnet50": "ResNet-50", "convnext_": "ConvNeXt", "vit_moe": "ViT-MoE",
+    "mae_": "MAE",
 }
+# The families of one variant each
+_SINGLE = frozenset({"clip_b32", "clip_text_b32", "vgg16"})
 
 
 def _unported_family(variant: str) -> Optional[str]:
@@ -32,19 +35,20 @@ def _unported_family(variant: str) -> Optional[str]:
 def plain_vit_family(variant: str) -> bool:
     """True when ``variant`` (its ``@`` suffix aside) names the plain-ViT
     family, the only one with the block kernels' policies
-    (``block_kernel``): not Swin, not ToMe, not a family that is not
-    ported. The JAX package's ``_family_maker(variant.partition("@")[0])
-    is None``."""
+    (``block_kernel``): not Swin, not ToMe, not CLIP or VGG16, not a
+    family that is not ported. The JAX package's
+    ``_family_maker(variant.partition("@")[0]) is None``."""
     base = variant.partition("@")[0]
     return not (base.startswith("swin_") or "_tome" in base
-                or _unported_family(base) is not None)
+                or base in _SINGLE or _unported_family(base) is not None)
 
 
 def known_variants() -> List[str]:
     """Every variant name ``make_model`` accepts (sorted)."""
     from interactive_vit_tpu_torch.models import swin, tome, vit
 
-    return sorted(set(vit.VARIANTS) | set(swin.VARIANTS) | set(tome.VARIANTS))
+    return sorted(set(vit.VARIANTS) | set(swin.VARIANTS) | set(tome.VARIANTS)
+                  | set(_SINGLE))
 
 
 def _check_family_options(variant: str, block_kernel: str) -> None:
@@ -82,8 +86,9 @@ def make_model(
     (``@<pixels>p<patch>`` geometries included). Swin and ToMe refuse the
     ``@`` suffix and a ``block_kernel`` other than "auto", as in the JAX
     package; Swin's quantized modes are not ported (``make_swin_model``
-    raises) and ToMe, as in JAX, logs a warning for ``quantize`` and serves
-    the float ``dtype``."""
+    raises) and ToMe, CLIP and VGG16, as in JAX, log a warning for
+    ``quantize`` and serve the float ``dtype``. The CLIP image tower takes
+    ``attn_impl`` for its unfused path."""
     if variant.startswith("swin_"):
         from interactive_vit_tpu_torch.models.swin_plugin import (
             make_swin_model,
@@ -103,6 +108,29 @@ def make_model(
                            dtype)
         return make_tome_model(variant, params=params, seed=seed,
                                dtype=dtype, device=device)
+    if variant.partition("@")[0] in _SINGLE:
+        _check_family_options(variant, block_kernel)
+        if quantize:
+            logger.warning("int8 not wired for %s; serving %s", variant,
+                           dtype)
+        kw = dict(params=params, seed=seed, dtype=dtype, device=device)
+        if variant == "clip_b32":
+            from interactive_vit_tpu_torch.models.clip_plugin import (
+                make_clip_model,
+            )
+
+            return make_clip_model(attn_impl=attn_impl, **kw)
+        if variant == "clip_text_b32":
+            from interactive_vit_tpu_torch.models.clip_text_plugin import (
+                make_clip_text_model,
+            )
+
+            return make_clip_text_model(**kw)
+        from interactive_vit_tpu_torch.models.vgg_plugin import (
+            make_vgg16_model,
+        )
+
+        return make_vgg16_model(**kw)
     family = _unported_family(variant.partition("@")[0])
     if family is not None:
         raise NotImplementedError(

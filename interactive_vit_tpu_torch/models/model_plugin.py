@@ -81,14 +81,18 @@ def dequant_grad_twin(fn: Callable) -> Callable:
     return run
 
 
-def image_entry(fn: Callable, keeps_rank: bool) -> Callable:
+def image_entry(fn: Callable, keeps_rank: bool,
+                rank: int = IMAGE_RANK) -> Callable:
     """Mark a layer fn whose "o" input is an image that a request may send
     without its batch axis ([C, H, W] instead of [B, C, H, W]). With
     ``keeps_rank`` such an input gives an output without the batch axis too
     (the transform); without it, an output with a batch of 1 (the patch
-    embedding). Every other layer's inputs and outputs carry the batch
-    axis. ``LayerNodeKind.stacked_fn`` reads the mark."""
+    embedding). ``rank``: the rank of such an input without its batch axis
+    (3 for an image; 1 for the features of a classifier that the reference
+    ran unbatched, VGG's). Every other layer's inputs and outputs carry the
+    batch axis. ``LayerNodeKind.stacked_fn`` reads the mark."""
     fn.image_entry = "keeps_rank" if keeps_rank else "adds_batch"
+    fn.image_rank = rank
     return fn
 
 
@@ -163,18 +167,19 @@ class LayerNodeKind(NodeKind):
         """The layer over K requests in one call: the stacked axis K is
         folded into the model's batch axis (per-request batch b: [K, b,
         ...] -> [K*b, ...]), the layer fn runs once, and its outputs are
-        unfolded to [K, b, ...]. An unbatched image ([K, C, H, W] stacked)
-        is a batch of K as it stands; its outputs keep or gain the batch
-        axis as ``image_entry`` says. Exact where the layer's ops treat
+        unfolded to [K, b, ...]. An unbatched image ([K, C, H, W] stacked;
+        of ``image_entry``'s rank) is a batch of K as it stands; its
+        outputs keep or gain the batch axis as ``image_entry`` says. Exact where the layer's ops treat
         the batch's rows apart, as the plain versions and the kernels do;
         no ``BatchedTensor`` ever reaches a kernel."""
         f = self.fn(params)
         entry = getattr(self._fn, "image_entry", None)
+        rank = getattr(self._fn, "image_rank", IMAGE_RANK)
 
         def run(ins, *caps):
             x = ins["o"]
             k = x.shape[0]
-            if entry is not None and x.ndim == IMAGE_RANK + 1:
+            if entry is not None and x.ndim == rank + 1:
                 outs = f(ins, *caps)
                 if entry == "keeps_rank":
                     return outs

@@ -39,22 +39,32 @@ def attention_reference(
     want_attn: bool = False,
     n_real: Optional[int] = None,
     key_bias: Optional[torch.Tensor] = None,
+    causal: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """softmax(q k^T / sqrt(dh)) v with f32 softmax, inputs [B, H, N, Dh].
 
     ``n_real``: keys beyond it are masked out (padded token domain).
     ``key_bias``: a [B, N] logit bias per key, shared by every head and
     query, added in f32 after the scale -- ToMe's proportional attention
-    (``softmax(q k^T / sqrt(dh) + log s)``, ``models/tome.py``)."""
+    (``softmax(q k^T / sqrt(dh) + log s)``, ``models/tome.py``).
+    ``causal``: keys strictly after the query masked out (the CLIP text
+    tower), before the ``n_real`` mask and with the same constant, as in
+    the JAX function."""
     dh = q.shape[-1]
     # a host 0-d tensor: a scalar argument, no upload per pass
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_bias is not None:
         logits = logits + key_bias.float()[:, None, None, :]
-    if n_real is not None and n_real < q.shape[2]:
-        neg = -0.7 * torch.finfo(torch.float32).max
+    neg = -0.7 * torch.finfo(torch.float32).max
+    col = None
+    if causal or (n_real is not None and n_real < q.shape[2]):
         col = torch.arange(logits.shape[-1], device=logits.device)
+    if causal:
+        row = torch.arange(logits.shape[-2], device=logits.device)
+        logits = torch.where(col[None, :] <= row[:, None], logits,
+                             torch.full_like(logits, neg))
+    if n_real is not None and n_real < q.shape[2]:
         logits = torch.where(col < n_real, logits,
                              torch.full_like(logits, neg))
     probs = torch.softmax(logits, dim=-1)

@@ -91,24 +91,26 @@ def crop_matrices(h: int, w: int, size: int, resize_to: Optional[int],
 
 
 @device_constant(maxsize=16)
-def norm_constants(dtype: torch.dtype, device: torch.device):
-    """``(mean, std)`` of ImageNet as [1, 3, 1, 1] tensors of ``dtype`` on
-    ``device``, built once (as ``crop_matrices``)."""
+def norm_constants(dtype: torch.dtype, device: torch.device,
+                   mean=IMAGENET_MEAN, std=IMAGENET_STD):
+    """``(mean, std)`` (ImageNet's by default) as [1, 3, 1, 1] tensors of
+    ``dtype`` on ``device``, built once (as ``crop_matrices``)."""
     with torch.inference_mode(False):
-        m = torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device)
-        s = torch.tensor(IMAGENET_STD, dtype=dtype, device=device)
+        m = torch.tensor(mean, dtype=dtype, device=device)
+        s = torch.tensor(std, dtype=dtype, device=device)
     return m.reshape(1, -1, 1, 1), s.reshape(1, -1, 1, 1)
 
 
-def preprocess_mm(images: torch.Tensor, size: int,
-                  resize_to: Optional[int] = None,
+def preprocess_mm(images: torch.Tensor, size: int, mean=IMAGENET_MEAN,
+                  std=IMAGENET_STD, resize_to: Optional[int] = None,
                   method: str = "bilinear") -> torch.Tensor:
-    """resize -> centre crop -> ImageNet normalise via two matmuls.
+    """resize -> centre crop -> normalise via two matmuls.
 
     [B, C, H, W] or [C, H, W] in [0, 1] -> [..., C, size, size], in the
-    input's dtype (the products accumulate in f32). ``resize_to``: the
-    shorter side's target (default size*256/224); ``method``: "bilinear"
-    or "bicubic"."""
+    input's dtype (the products accumulate in f32). ``mean`` / ``std``:
+    per-channel tuples (ImageNet's by default; CLIP passes its own).
+    ``resize_to``: the shorter side's target (default size*256/224);
+    ``method``: "bilinear" or "bicubic"."""
     squeeze = images.ndim == 3
     if squeeze:
         images = images[None]
@@ -120,6 +122,6 @@ def preprocess_mm(images: torch.Tensor, size: int,
     x = torch.matmul(x, rw.t())              # [B*C, size, size]
     x = x.reshape(b, c, size, size).to(images.dtype)
 
-    m, s = norm_constants(x.dtype, x.device)
+    m, s = norm_constants(x.dtype, x.device, tuple(mean), tuple(std))
     x = (x - m) / s
     return x[0] if squeeze else x

@@ -1,8 +1,8 @@
 """Server entry point: ``python -m interactive_vit_tpu_torch.serving.server``.
 
 Counterpart of ``interactive_vit_tpu/serving/server.py``: register the
-built-in node kinds and the requested model variants (plain ViTs, Swin and
-ToMe, through ``models/autoregister``), then serve. With
+built-in node kinds and the requested model variants (plain ViTs, Swin,
+ToMe, CLIP and VGG16, through ``models/autoregister``), then serve. With
 ``--graphs-dir``, a variant's chained graph JSON is written into that
 library when it lacks one; the repository's own ``static/graphs`` (the
 default) is only read. Example, on one CUDA card:
@@ -28,6 +28,18 @@ A plain-ViT name takes an ``@[<pixels>][p<patch>]`` suffix:
 ``--models dinov2_s14_reg@742`` (a 53 x 53 grid, 2814 tokens) serves
 through the online-softmax flash kernel, ``--models vit_t16@256`` through
 the fused block kernel (the repository has its saved graph).
+
+``--models clip_b32,clip_text_b32,vgg16`` serves CLIP ViT-B/32's image
+tower (the fused block kernel in all 12 blocks at N=50, ending in an
+L2-normalised embedding node), its text tower (the prompts of the embed
+node tokenized on the host; causal attention on the plain path) and the
+reference's VGG16 (cuDNN convolutions, no kernel of this package); with
+both CLIP towers and ``--graphs-dir`` the server writes
+``clip_zeroshot.json`` (the towers joined at a ``similarity`` node) where
+the library lacks it:
+
+    python -m interactive_vit_tpu_torch.serving.server \
+        --models clip_b32,clip_text_b32,vgg16 --dtype bfloat16 --port 8965
 
 ``--dtype int8`` serves weight-only int8 (qkv, proj, fc1, fc2) over bf16
 activations on the unfused path; ``--dtype int8w8a8`` quantizes fc1 and
@@ -85,6 +97,9 @@ import torch
 from interactive_vit_tpu_torch.graph.registry import Registry, scan_plugins
 from interactive_vit_tpu_torch.models.autoregister import (
     make_model, plain_vit_family,
+)
+from interactive_vit_tpu_torch.models.clip_text_plugin import (
+    generate_zeroshot_graph_json,
 )
 from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
@@ -181,6 +196,12 @@ def build_app(
                 and not app.graphs.exists(sal_name)):
             app.graphs.save(sal_name, model.generate_saliency_graph_json())
             logger.info("generated graph %s", sal_name)
+    if (not repo_lib and {"clip_b32", "clip_text_b32"} <= set(models)
+            and not app.graphs.exists("clip_zeroshot.json")):
+        # both CLIP towers served: the zero-shot graph (the image chain and
+        # the prompt chain joined at a similarity node)
+        app.graphs.save("clip_zeroshot.json", generate_zeroshot_graph_json())
+        logger.info("generated graph clip_zeroshot.json")
     return app
 
 
@@ -220,8 +241,8 @@ def make_parser() -> argparse.ArgumentParser:
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--models", default="vit_t16",
                         help="comma-separated model variants to register "
-                             "(plain ViTs, swin_t/s/b and the *_tome "
-                             "variants)")
+                             "(plain ViTs, swin_t/s/b, the *_tome variants, "
+                             "clip_b32, clip_text_b32 and vgg16)")
     parser.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
                         help="weight and activation dtype; int8 = weight-"
                              "only int8 weights, int8w8a8 = W8A8 fc1/fc2 "

@@ -41,6 +41,13 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.models.tome_plugin",
     "interactive_vit_tpu_torch.ops.tome_ops",
     "interactive_vit_tpu_torch.models.autoregister",
+    "interactive_vit_tpu_torch.models.clip",
+    "interactive_vit_tpu_torch.models.clip_bpe",
+    "interactive_vit_tpu_torch.models.clip_plugin",
+    "interactive_vit_tpu_torch.models.clip_text",
+    "interactive_vit_tpu_torch.models.clip_text_plugin",
+    "interactive_vit_tpu_torch.models.vgg",
+    "interactive_vit_tpu_torch.models.vgg_plugin",
     "interactive_vit_tpu_torch.models.attrib",
     "interactive_vit_tpu_torch.models.model_plugin",
     "interactive_vit_tpu_torch.models.weights",
@@ -159,6 +166,11 @@ def test_train_entry_point_parses():
 def _default_device_entry_points():
     from interactive_vit_tpu_torch.graph.executor import Executor
     from interactive_vit_tpu_torch.models.autoregister import make_model
+    from interactive_vit_tpu_torch.models.clip_plugin import make_clip_model
+    from interactive_vit_tpu_torch.models.clip_text_plugin import (
+        make_clip_text_model,
+    )
+    from interactive_vit_tpu_torch.models.vgg_plugin import make_vgg16_model
     from interactive_vit_tpu_torch.models.swin_plugin import make_swin_model
     from interactive_vit_tpu_torch.models.tome_plugin import make_tome_model
     from interactive_vit_tpu_torch.models.vit import VARIANTS
@@ -166,6 +178,7 @@ def _default_device_entry_points():
     from interactive_vit_tpu_torch.parallel.train import setup
     from interactive_vit_tpu_torch.serving.app import App
     from interactive_vit_tpu_torch.serving.server import build_app
+    from interactive_vit_tpu_torch.tools.run_graph import main as run_graph
     from interactive_vit_tpu_torch.tools.train import main as train_main
 
     return {
@@ -182,6 +195,15 @@ def _default_device_entry_points():
         "make_model_tome": lambda tmp: make_model("vit_s16_tome"),
         "train_setup": lambda tmp: setup(VARIANTS["vit_t16"]),
         "train_main": lambda tmp: train_main(["--steps", "1"]),
+        "make_clip_model": lambda tmp: make_clip_model(),
+        "make_clip_text_model": lambda tmp: make_clip_text_model(),
+        "make_vgg16_model": lambda tmp: make_vgg16_model(),
+        "make_model_clip": lambda tmp: make_model("clip_b32"),
+        "make_model_vgg16": lambda tmp: make_model("vgg16"),
+        "build_app_clip_vgg": lambda tmp: build_app(
+            models=("clip_b32", "clip_text_b32", "vgg16"),
+            graphs_dir=str(tmp)),
+        "run_graph_zeroshot": lambda tmp: run_graph(["clip_zeroshot"]),
     }
 
 
@@ -189,7 +211,11 @@ def _default_device_entry_points():
                                    "make_vit_model", "build_app_swin",
                                    "make_swin_model", "make_model",
                                    "make_tome_model", "make_model_tome",
-                                   "train_setup", "train_main"])
+                                   "train_setup", "train_main",
+                                   "make_clip_model", "make_clip_text_model",
+                                   "make_vgg16_model", "make_model_clip",
+                                   "make_model_vgg16", "build_app_clip_vgg",
+                                   "run_graph_zeroshot"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):
     """The entry points run on the card unless asked for the CPU: with no
