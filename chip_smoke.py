@@ -273,7 +273,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    the replay of the image a program was captured with and (b) of a
    second image, each against the eager pass (``use_jit=False``) of the
    same request, bit for bit (an output that is not must lie within the
-   path's bound against the eager one, and phase 6 lists it), each
+   path's bound against the eager one, and phase 7 lists it), each
    program's recorded launches the path's kernels a pass; the replay's and the
    eager pass's walls (median of 3) and one profiled run of each (device
    busy share, the kernels that take the most time; the same kernels by
@@ -408,15 +408,31 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    No configuration gives the trainable attentions operands off the
    16-byte grid, so their FMA routes have no main-path launch (phase 3
    holds them against their plain versions).
-6. result  -- the profiles taken again, the replayed outputs that were
+6. checkpoints -- real weights through the checkpoint paths
+   (``phase_checkpoints``): vit_b16's seeded params in a torchvision-
+   naming ``.safetensors`` file and, through ``tools.convert.main``, in a
+   checkpoint directory, and swin_t's in a native-naming file, served with
+   ``--ckpt`` in bf16 and f32 (and vit_b16 as ``--dtype int8w8a8``), each
+   request bit for bit a server that draws the same seeded params itself,
+   with rows 1, 5 and 7 launching 12 times a request (rows 1 and 5 also by
+   name in a profile); the accuracy oracle (vit_t16 trained by
+   ``tools.train.main`` through ``attention_train``'s kernels, exported
+   with ``--export-safetensors``, served from the file over HTTP; top-1
+   over its 32 images above 0.9); vit_b16 mixed saved with ``--output
+   --save-every`` and resumed (the state bit for bit, the step and the
+   optimizer's count restored, the exported ``params/`` served bit for bit
+   the returned params, a resume under the other qkv layout refused); the
+   load times, the first request after a load and the async save's stall.
+7. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Weights are random (seeded), so the logits are
-meaningless as classifications; what is checked is that the served path
-and the plain path agree.
+It imports nothing of JAX. Phases 3-5 use random (seeded) weights, so their
+logits are meaningless as classifications; what is checked is that the
+served path and the plain path agree. Phase 6's oracle classifies with
+weights the trainer made.
 """
 
 from __future__ import annotations
@@ -2211,7 +2227,7 @@ def chain_request(graph_obj, image, taps, node_params=None):
 
 
 # Every trace that ``profiled`` took again, as "<what>: <seen> of
-# <expected>"; phase 6 prints them before the result.
+# <expected>"; phase 7 prints them before the result.
 PROFILE_RETRIES = []
 
 
@@ -2375,12 +2391,13 @@ def post_timed(url: str, body: bytes):
                  (kv.split("=", 1) for kv in header.split(";") if kv)}
 
 
-def serve(models, dtype_name, device, graphs_dir, attn="auto", max_batch=8):
+def serve(models, dtype_name, device, graphs_dir, attn="auto", max_batch=8,
+          ckpts=None, seed=0):
     from interactive_vit_tpu_torch.serving.server import build_app
 
     app = build_app(models=models, graphs_dir=graphs_dir,
-                    dtype_name=dtype_name, device=device, seed=0,
-                    attn_impl_name=attn, max_batch=max_batch)
+                    dtype_name=dtype_name, device=device, seed=seed,
+                    attn_impl_name=attn, max_batch=max_batch, ckpts=ckpts)
     httpd = app.serve("127.0.0.1", 0, background=True)
     return app, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
 
@@ -2748,9 +2765,9 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
 
 # Every replayed output that was not the eager pass's bit for bit (each
 # then held to its path's bound against the eager result), as "<what>:
-# {output: max abs difference}"; phase 6 prints them before the result.
+# {output: max abs difference}"; phase 7 prints them before the result.
 REPLAY_DIFFS = []
-# One row a served path for phase 6's table of the compiled path: (tag,
+# One row a served path for phase 7's table of the compiled path: (tag,
 # replay and eager walls, their profiled walls and device busy, the
 # captures' seconds, memory_reserved).
 COMPILED = []
@@ -2859,7 +2876,7 @@ def compare_replay(tag, path, got, want, what) -> str:
     same request: equal bit for bit (the same kernels on the same shapes
     and routes). Where an output is not, it must lie within the path's
     bound against the eager result, and the difference is recorded in
-    REPLAY_DIFFS for phase 6."""
+    REPLAY_DIFFS for phase 7."""
     import torch
 
     g = {f"{i}/{ch}": v for i, sub in got.items() for ch, v in sub.items()}
@@ -5628,6 +5645,423 @@ def phase_train(device, counters) -> dict:
         False, {"attention_train_mma": (2, 2)}, compute_dtype=torch.bfloat16)
     return launches
 
+# -- phase 6: real weights through the checkpoint paths ---------------------
+
+# row 1's kernels by name in one vit_b16 bf16 pass: 12 each on the tensor
+# cores, the FMA block kernel never
+ROW1_PROFILE = {"row1_qkv_mma_kernel": 12, "row1_attn_mma_kernel": 12,
+                "proj_mma_kernel": 12, "gemm_kernel": 0,
+                "::attention_kernel": 0}
+# row 5's in one swin_t bf16 pass
+ROW5_PROFILE = {"window_attn_mma_kernel": 12, "row1_qkv_mma_kernel": 12,
+                "proj_mma_kernel": 12, "window_attention_kernel": 0}
+# The accuracy oracle at full width: vit_t16 trained by tools.train on a
+# memorised set of 32 patterned images of 10 classes (the JAX package's
+# tests/test_accuracy_oracle.py at vit_t16's width and depth), then served
+# from its exported file; JAX's threshold
+ORACLE_ARGS = ["--variant", "vit_t16", "--dtype", "mixed", "--memorize",
+               "32", "--distinct-classes", "10", "--batch", "32",
+               "--steps", "60", "--lr", "5e-4", "--warmup", "10",
+               "--clip-norm", "1.0"]
+ORACLE_STEPS = 60
+ORACLE_TOP1 = 0.9
+
+
+def decoded(url, body):
+    """POST ``body`` to /compute; the decoded response."""
+    from interactive_vit_tpu_torch.wire.codec import Response
+
+    return Response.decode(post(url + "/compute", body))
+
+
+def same_bits(tag, got, want) -> int:
+    """Two results ({node: {channel: array}}) equal bit for bit, every
+    output finite; returns the outputs compared."""
+    keys = sorted((i, ch) for i in want for ch in want[i])
+    if keys != sorted((i, ch) for i in got for ch in got[i]):
+        raise AssertionError(f"{tag}: outputs {sorted(got)} vs {keys}")
+    for i, ch in keys:
+        a, b = np.asarray(got[i][ch]), np.asarray(want[i][ch])
+        if not np.isfinite(b).all():
+            raise AssertionError(f"{tag}: node {i} {ch} not finite")
+        if a.shape != b.shape or a.dtype != b.dtype or \
+                a.tobytes() != b.tobytes():
+            diff = (float(np.abs(a - b).max()) if a.shape == b.shape
+                    else f"shape {a.shape} vs {b.shape}")
+            raise AssertionError(f"{tag}: node {i} {ch} differs from the "
+                                 f"direct weights' (max abs {diff})")
+    return len(keys)
+
+
+def same_tree(tag, got, want) -> int:
+    """Two trees of tensors (and Python scalars) equal bit for bit: the
+    same structure, dtypes and bytes; returns the leaves compared."""
+    import torch
+
+    from interactive_vit_tpu_torch.parallel.train import (
+        tree_leaves_with_path,
+    )
+
+    ga, wa = tree_leaves_with_path(got), tree_leaves_with_path(want)
+    if [p for p, _ in ga] != [p for p, _ in wa]:
+        raise AssertionError(f"{tag}: tree paths differ")
+    for (path, a), (_, b) in zip(ga, wa):
+        if isinstance(b, torch.Tensor):
+            if not (isinstance(a, torch.Tensor) and a.dtype == b.dtype
+                    and a.shape == b.shape and a.device == b.device
+                    and torch.equal(a.reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8))):
+                raise AssertionError(f"{tag}: {path} differs")
+        elif a != b or type(a) is not type(b):
+            raise AssertionError(f"{tag}: {path} {a!r} vs {b!r}")
+    return len(wa)
+
+
+def one_request_counts(url, body, counters, tag, expect):
+    """One request (its program captured already) with every count set to
+    0 just before and read just after: the kernels that launched must be
+    ``expect`` ({name: launches}), exactly."""
+    import torch
+
+    for fn in counters.values():
+        fn.launches = 0
+    out = decoded(url, body)
+    torch.cuda.synchronize()
+    seen = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if seen != expect:
+        raise AssertionError(f"{tag}: launches {seen}, expected {expect}")
+    return out
+
+
+def oracle_chain(variant, depth):
+    """The model chain from embed on (the trainer fed raw tensors, so the
+    served requests do too)."""
+    return ([f"{variant}:embed"]
+            + [f"{variant}:blocks.{i}" for i in range(depth)]
+            + [f"{variant}:norm", f"{variant}:head"])
+
+
+def oracle_request(chain, image):
+    from interactive_vit_tpu_torch.graph.ir import Graph
+    from interactive_vit_tpu_torch.wire.codec import Request
+
+    g = Graph()
+    nodes = [g.add_node(name) for name in chain]
+    for a, b in zip(nodes, nodes[1:]):
+        g.connect(a, "o", b, "o")
+    g.add_input(image, nodes[0], "o")
+    return Request.encode(g)
+
+
+def phase_checkpoints(device, counters) -> None:
+    """Phase 6: real weights through the checkpoint paths, at full width.
+
+    (a) vit_b16's seeded params written in torchvision naming (the port's
+    ``to_torchvision`` and ``save_file``) and served with ``--ckpt`` in
+    bf16 and f32: each request's taps (maps and rollout of 3 blocks, the
+    logits) bit for bit those of a server that draws the same seeded params
+    itself (the loading servers use another seed, so their weights can only
+    come from the file); 12 row-1 launches a request, by counter and, in
+    bf16, by name in the profile. (b) the same file through
+    ``tools.convert.main`` into a checkpoint directory, served from it. (c)
+    swin_t from a ``to_native_flat`` file (layout sniffed): row 5, 12 a
+    request. (d) ``--dtype int8w8a8`` from the vit_b16 file: equal to the
+    seeded int8w8a8 server (quantization after the load). (e) the accuracy
+    oracle: vit_t16 trained by ``tools.train.main`` (attention_train's
+    tensor-core kernels in every step), exported with
+    ``--export-safetensors``, served from the file over HTTP through the
+    batcher; top-1 over its 32 images must exceed ORACLE_TOP1. (f) vit_b16
+    mixed (head-major, the packed kernels) with ``--output --save-every 2``
+    for 4 steps, then ``--resume`` to 6: the saved state is the first run's
+    final state bit for bit, ``load_state`` restores it bit for bit, the
+    resumed run starts at step 4 with the optimizer's count restored, its
+    exported ``params/`` served with ``--ckpt`` give the returned params'
+    logits bit for bit, and a resume under the other layout raises. (g)
+    the load times, the first request after a load and the async save's
+    stall, logged."""
+    import torch
+
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.graph.registry import Registry
+    from interactive_vit_tpu_torch.models import swin, vit
+    from interactive_vit_tpu_torch.models.autoregister import make_model
+    from interactive_vit_tpu_torch.models.weights import (
+        to_native_flat, to_torchvision,
+    )
+    from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+    from interactive_vit_tpu_torch.serving.server import load_model_params
+    from interactive_vit_tpu_torch.tools import convert as convert_tool
+    from interactive_vit_tpu_torch.tools import train as train_tool
+    from interactive_vit_tpu_torch.utils import checkpoint as ckpt_lib
+    from interactive_vit_tpu_torch.utils.safetensors_io import save_file
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_ckpt_")
+    try:
+        graphs_dir = os.path.join(tmp, "graphs")
+        shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
+        seed = 5
+        b16, scfg = vit.VARIANTS["vit_b16"], swin.VARIANTS["swin_t"]
+        t0 = time.perf_counter()
+        tv_file = os.path.join(tmp, "vit_b16_tv.safetensors")
+        save_file(to_torchvision(vit.init_params(
+            b16, torch.Generator().manual_seed(seed)), b16), tv_file)
+        swin_file = os.path.join(tmp, "swin_t_native.safetensors")
+        save_file(to_native_flat(swin.init_params(
+            scfg, torch.Generator().manual_seed(seed))), swin_file)
+        port_dir = os.path.join(tmp, "vit_b16_dir")
+        convert_tool.main(["--model", "vit_b16", "--input", tv_file,
+                           "--output", port_dir])
+        log(f"  checkpoints: vit_b16 in torchvision naming "
+            f"({os.path.getsize(tv_file) / 2**20:.1f} MiB), swin_t in the "
+            f"native naming, vit_b16 through tools.convert.main into a "
+            f"checkpoint directory: {time.perf_counter() - t0:.2f} s")
+        loads = {}
+        for what, path in (("torchvision .safetensors", tv_file),
+                           ("checkpoint directory", port_dir)):
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params = load_model_params("vit_b16", path, device=device)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                if params["blocks"][0]["qkv_w"].device != device:
+                    raise AssertionError(f"{what}: loaded onto "
+                                         f"{params['blocks'][0]['qkv_w'].device}")
+                del params
+            loads[what] = times
+        log("  vit_b16 load_model_params onto the card (file cache warm "
+            "after the write; two loads each): " + "; ".join(
+                f"{k} {', '.join(f'{t:.3f}' for t in v)} s"
+                for k, v in loads.items()))
+
+        rng = np.random.default_rng(23)
+        image = rng.random((3, 224, 224), dtype=np.float32)
+        b16_path = Path("vit_b16", vit, b16, 224,
+                        {2: ("attn", "r"), 7: ("attn", "r"),
+                         13: ("attn", "r")}, {}, {}, vit_tap_shape, 0, 0)
+        swin_path = Path("swin_t", swin, scfg, 224,
+                         {2: ("attn",), 13: ("attn",)}, {}, {},
+                         swin_tap_shape, 0, 0)
+
+        def bodies(app):
+            return {p.model: (chain_graph(app.graphs.load(p.model + ".json"),
+                                          image), p.taps())
+                    for p in (b16_path, swin_path)}
+
+        def served(models, dtype_name, ckpts, s):
+            t0 = time.perf_counter()
+            app, httpd, url = serve(models, dtype_name, device, graphs_dir,
+                                    ckpts=ckpts, seed=s)
+            return app, httpd, url, time.perf_counter() - t0
+
+        kernels = {"bfloat16": {"vit_b16": {"fused_attn_block_mma": 12},
+                                "swin_t": {"fused_window_attn_mma": 12}},
+                   "float32": {"vit_b16": {"fused_attn_block_tf32x3": 12},
+                               "swin_t": {"fused_window_attn_tf32x3": 12}}}
+        for dtype_name in ("bfloat16", "float32"):
+            models = ["vit_b16", "swin_t"]
+            d_app, d_httpd, d_url, _ = served(models, dtype_name, None, seed)
+            c_app, c_httpd, c_url, build_s = served(
+                models, dtype_name, {"vit_b16": tv_file, "swin_t": swin_file},
+                seed + 1)
+            try:
+                reqs = bodies(c_app)
+                for model in models:
+                    g, taps = reqs[model]
+                    body = graph_request(g, taps)
+                    t0 = time.perf_counter()
+                    first = decoded(c_url, body)
+                    first_s = time.perf_counter() - t0
+                    want = decoded(d_url, body)
+                    n = same_bits(f"{model} {dtype_name} --ckpt", first, want)
+                    tag = f"{model} {dtype_name} from its file"
+                    again = one_request_counts(c_url, body, counters, tag,
+                                               kernels[dtype_name][model])
+                    same_bits(f"{tag} (a replay)", again, want)
+                    log(f"  {tag}: {n} outputs bit for bit the seeded "
+                        f"server's; launches {kernels[dtype_name][model]} a "
+                        f"request; server built in {build_s:.2f} s, first "
+                        f"request after the load (its capture) "
+                        f"{first_s * 1e3:.1f} ms")
+                    if dtype_name == "bfloat16":
+                        profile_request(c_app.executor, g, taps, tag,
+                                        ROW1_PROFILE if model == "vit_b16"
+                                        else ROW5_PROFILE)
+                if dtype_name == "bfloat16":
+                    # (b) the checkpoint directory of tools.convert
+                    stop(c_app, c_httpd)
+                    c_app, c_httpd, c_url, build_s = served(
+                        ["vit_b16"], dtype_name, {"vit_b16": port_dir},
+                        seed + 1)
+                    g, taps = reqs["vit_b16"]
+                    body = graph_request(g, taps)
+                    t0 = time.perf_counter()
+                    got = decoded(c_url, body)
+                    first_s = time.perf_counter() - t0
+                    n = same_bits("vit_b16 bf16 from the directory", got,
+                                  decoded(d_url, body))
+                    one_request_counts(c_url, body, counters,
+                                       "vit_b16 bf16 from the directory",
+                                       kernels[dtype_name]["vit_b16"])
+                    log(f"  vit_b16 bfloat16 from the checkpoint directory: "
+                        f"{n} outputs bit for bit the seeded server's; "
+                        f"server built in {build_s:.2f} s, first request "
+                        f"{first_s * 1e3:.1f} ms")
+            finally:
+                stop(c_app, c_httpd)
+                stop(d_app, d_httpd)
+
+        # (d) W8A8 serving of the file: the quantization follows the load
+        w8a8 = {"fused_attn_block_mma": 12, "fused_mlp_w8a8_block_mma": 12}
+        d_app, d_httpd, d_url, _ = served(["vit_b16"], "int8w8a8", None, seed)
+        c_app, c_httpd, c_url, _ = served(["vit_b16"], "int8w8a8",
+                                          {"vit_b16": tv_file}, seed + 1)
+        try:
+            g, taps = bodies(c_app)["vit_b16"]
+            body = graph_request(g, taps)
+            n = same_bits("vit_b16 int8w8a8 --ckpt", decoded(c_url, body),
+                          decoded(d_url, body))
+            one_request_counts(c_url, body, counters, "vit_b16 int8w8a8",
+                               w8a8)
+            log(f"  vit_b16 int8w8a8 from its file: {n} outputs bit for bit "
+                f"the seeded int8w8a8 server's; launches {w8a8} a request")
+        finally:
+            stop(c_app, c_httpd)
+            stop(d_app, d_httpd)
+
+        # (e) the accuracy oracle
+        oracle_file = os.path.join(tmp, "vit_t16_oracle.safetensors")
+        t0 = time.perf_counter()
+        res = run_train(
+            "oracle vit_t16", ORACLE_ARGS + [
+                "--log-every", str(ORACLE_STEPS // 3),
+                "--export-safetensors", oracle_file],
+            counters, {"attention_train_mma": (12 * ORACLE_STEPS,
+                                               12 * ORACLE_STEPS)})
+        train_s = time.perf_counter() - t0
+        t16 = vit.VARIANTS["vit_t16"]
+        images, labels = train_tool.pattern_set(0, 32, t16.img_size,
+                                                t16.num_classes, 10)
+        app, httpd, url = serve(["vit_t16"], "float32", device, graphs_dir,
+                                ckpts={"vit_t16": oracle_file})
+        try:
+            chain = oracle_chain("vit_t16", t16.depth)
+            preds = [None] * len(labels)
+
+            def worker(i):
+                out = decoded(url, oracle_request(chain, images[i]))
+                preds[i] = int(np.asarray(out[len(chain) - 1]["o"]).argmax())
+
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            for lo in range(0, len(labels), 8):  # 8 clients at once
+                threads = [threading.Thread(target=worker, args=(i,))
+                           for i in range(lo, min(lo + 8, len(labels)))]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+            serve_s = time.perf_counter() - t0
+            seen = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+            if (set(seen) != {"fused_attn_block_tf32x3"}
+                    or seen["fused_attn_block_tf32x3"] % 12):
+                raise AssertionError(f"oracle serving: launches {seen}")
+        finally:
+            stop(app, httpd)
+        if None in preds:
+            raise AssertionError("oracle: a request did not complete")
+        top1 = float(np.mean([p == int(y) for p, y in zip(preds, labels)]))
+        losses = [f"{loss:.4f}" for _, loss, _ in res["history"]]
+        log(f"  oracle: vit_t16 mixed, {ORACLE_STEPS} steps at B=32 "
+            f"({' '.join(ORACLE_ARGS[8:])}), attention_train tensor-core "
+            f"launches {res['counts']['attention_train_mma']}, loss "
+            f"{' '.join(losses)}, {train_s:.1f} s with the export; served "
+            f"float32 from the file over HTTP (32 requests, 8 clients, "
+            f"{seen['fused_attn_block_tf32x3']} row-1 launches, "
+            f"{serve_s:.2f} s): top-1 {top1:.4f}")
+        if not top1 > ORACLE_TOP1:
+            raise AssertionError(f"oracle: served top-1 {top1} <= "
+                                 f"{ORACLE_TOP1}")
+
+        # (f) save, resume, export, serve
+        out_dir = os.path.join(tmp, "resume_b16")
+        state_dir = os.path.join(out_dir, "state")
+        base = ["--variant", "vit_b16", "--dtype", "mixed", "--batch", "8",
+                "--memorize", "16", "--log-every", "1", "--output", out_dir]
+        r1 = run_train("save vit_b16", base + ["--steps", "4",
+                                               "--save-every", "2"],
+                       counters, {"attention_train_packed_mma": (48, 48)})
+        if not r1["head_major"]:
+            raise AssertionError("vit_b16 mixed did not train head-major")
+        saved = ckpt_lib.load_params(state_dir, device=device)
+        if int(saved.pop("step")) != 4 or int(saved.pop(
+                "qkv_head_major")) != 1:
+            raise AssertionError("the saved state's step or layout marker")
+        n_saved = same_tree("the saved state", saved, {
+            "params": r1["state"]["params"],
+            "opt_state": r1["state"]["opt_state"]})
+        del saved
+        lp, lo, lstep = train_tool.load_state(
+            state_dir, r1["state"]["params"], r1["state"]["opt_state"],
+            expect_head_major=True)
+        n_loaded = same_tree("load_state", {"params": lp, "opt_state": lo},
+                             {"params": r1["state"]["params"],
+                              "opt_state": r1["state"]["opt_state"]})
+        del lp, lo
+        if lstep != 4:
+            raise AssertionError(f"load_state: step {lstep}")
+        r2 = run_train("resume vit_b16", base + ["--steps", "6", "--resume"],
+                       counters, {"attention_train_packed_mma": (24, 24)})
+        count = r2["state"]["opt_state"]["count"]
+        if r2["start_step"] != 4 or count != 6:
+            raise AssertionError(f"resume: started at {r2['start_step']}, "
+                                 f"optimizer count {count}")
+        app, httpd, url = serve(["vit_b16"], "float32", device, graphs_dir,
+                                ckpts={"vit_b16": os.path.join(out_dir,
+                                                               "params")})
+        try:
+            reg = Registry()
+            register_builtin(reg)
+            make_model("vit_b16", params=r2["params"], device=device
+                       ).register(reg)
+            direct = Executor(reg=reg, device=device)
+            g, _ = bodies(app)["vit_b16"]
+            taps = [(b16_path.head_node, "o")]
+            n = same_bits("the exported params/ served",
+                          decoded(url, graph_request(g, taps)),
+                          direct.run(g, taps))
+        finally:
+            stop(app, httpd)
+        try:
+            train_tool.main(base + ["--steps", "6", "--resume", "--attn",
+                                    "reference"])
+        except ValueError as err:
+            if "layout mismatch" not in str(err):
+                raise
+        else:
+            raise AssertionError("a resume under the other qkv layout "
+                                 "did not raise")
+        steps = [t for _, _, t in r1["history"]]
+        step_ms = [1e3 * (b - a) for a, b in zip(steps, steps[1:])]
+        log(f"  vit_b16 mixed B=8 --save-every 2, 4 steps then --resume to "
+            f"6: the saved state ({n_saved} leaves) and load_state's "
+            f"({n_loaded}) bit for bit the first run's final state; resumed "
+            f"at step {r2['start_step']}, optimizer count {count}; the "
+            f"exported params/ served f32 give the returned params' logits "
+            f"bit for bit ({n} output); the other layout's --resume raised. "
+            f"Step walls (ms, from step 0's end) "
+            f"{', '.join(f'{t:.1f}' for t in step_ms)}; the --save-every "
+            f"saves held the loop "
+            + ", ".join(f"{t * 1e3:.1f} ms at step {s}"
+                        for s, t in r1["saves"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s")
+
 
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
@@ -6028,8 +6462,12 @@ def main() -> int:
     for k, n in phase_train(device, counters).items():
         numbers[k]["launches"] = n
 
-    # 6. result
-    log(f"phase 6 result: all phases passed in "
+    # 6. real weights: the checkpoint paths
+    log(f"phase 6 checkpoints (at {time.perf_counter() - t_start:.1f} s):")
+    phase_checkpoints(device, counters)
+
+    # 7. result
+    log(f"phase 7 result: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"profiles taken again (a trace short of the launch counters): "
         f"{len(PROFILE_RETRIES)}" + "".join(f"; {r}" for r in PROFILE_RETRIES))

@@ -261,7 +261,9 @@ def state_dict_reader(sd: Dict[str, Any], dtype, device):
     on ``device``."""
     def get(name, transpose=False):
         arr = np.asarray(sd[name], dtype=np.float32)
-        arr = np.array(arr.T if transpose else arr)  # contiguous, writable
+        # a C-ordered writable copy (order "K" would keep the transpose's
+        # Fortran order, and the kernels take contiguous weights only)
+        arr = np.array(arr.T if transpose else arr, order="C")
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     return get
@@ -276,7 +278,7 @@ def from_openai(sd: Dict[str, Any], cfg: CLIPVisionConfig,
     conv = np.asarray(sd["visual.conv1.weight"], dtype=np.float32)
     return {
         "patch_embed": {"w": torch.from_numpy(np.array(
-            conv.reshape(d, -1).T)).to(device=device, dtype=dtype)},
+            conv.reshape(d, -1).T, order="C")).to(device=device, dtype=dtype)},
         "cls_token": get("visual.class_embedding").reshape(1, 1, d),
         "pos_emb": get("visual.positional_embedding")[None],
         "ln_pre": {"s": get("visual.ln_pre.weight"),

@@ -10,9 +10,9 @@ compute the same thing.
 Activations flow NHWC ``[B, H, W, C]``: window partition and merge are
 reshapes and transposes, the shifted-window roll is ``torch.roll`` with
 static shifts, and the relative-position index and the seam mask are
-static numpy tables (this module keeps its own copy of them). The
-torchvision checkpoint converter and the training hook
-(``block_wrapper``) are not ported.
+static numpy tables (this module keeps its own copy of them).
+``from_torch`` converts a torchvision Swin v1 state dict. The training hook
+(``block_wrapper``) is not ported.
 """
 
 from __future__ import annotations
@@ -350,6 +350,63 @@ def init_params(cfg: SwinConfig, generator: torch.Generator,
     if cfg.num_classes:
         params["head"] = {"w": dense(cf, (cf, cfg.num_classes)),
                           "b": zeros(cfg.num_classes)}
+    return params
+
+
+def from_torch(sd: Dict[str, Any], cfg: SwinConfig, dtype=torch.float32,
+               device="cpu") -> Params:
+    """torchvision ``swin_t``-style (v1) state dict -> our tree, each entry
+    read as f32 on the host, then a tensor of ``dtype`` on ``device``.
+
+    features.0 = patch embed (conv 4x4 + LN), features.{1,3,5,7} = stages,
+    features.{2,4,6} = patch mergings. Linear weights transpose to our
+    [D_in, D_out]; the patch conv [D, C, p, p] reshapes to the patchify
+    layout as the ViT converter's does (``weights.from_torchvision``)."""
+    from interactive_vit_tpu_torch.models.weights import _reader
+
+    get = _reader(sd, dtype, device)
+    d0 = cfg.embed_dim
+    params: Params = {
+        "patch_embed": {
+            "w": get("features.0.0.weight").reshape(d0, -1).t().contiguous(),
+            "b": get("features.0.0.bias"),
+            "ln_s": get("features.0.2.weight"),
+            "ln_b": get("features.0.2.bias"),
+        },
+        "stages": [],
+        "merges": [],
+        "norm": {"s": get("norm.weight"), "b": get("norm.bias")},
+        "head": ({"w": get("head.weight", True), "b": get("head.bias")}
+                 if cfg.num_classes else {}),
+    }
+    for s, depth in enumerate(cfg.depths):
+        fi = 2 * s + 1
+        blocks = []
+        for b in range(depth):
+            pre = f"features.{fi}.{b}."
+            blocks.append({
+                "ln1_s": get(pre + "norm1.weight"),
+                "ln1_b": get(pre + "norm1.bias"),
+                "qkv_w": get(pre + "attn.qkv.weight", True),
+                "qkv_b": get(pre + "attn.qkv.bias"),
+                "bias_table": get(pre + "attn.relative_position_bias_table"),
+                "proj_w": get(pre + "attn.proj.weight", True),
+                "proj_b": get(pre + "attn.proj.bias"),
+                "ln2_s": get(pre + "norm2.weight"),
+                "ln2_b": get(pre + "norm2.bias"),
+                "fc1_w": get(pre + "mlp.0.weight", True),
+                "fc1_b": get(pre + "mlp.0.bias"),
+                "fc2_w": get(pre + "mlp.3.weight", True),
+                "fc2_b": get(pre + "mlp.3.bias"),
+            })
+        params["stages"].append(blocks)
+        if s + 1 < len(cfg.depths):
+            mpre = f"features.{fi + 1}."
+            params["merges"].append({
+                "ln_s": get(mpre + "norm.weight"),
+                "ln_b": get(mpre + "norm.bias"),
+                "w": get(mpre + "reduction.weight", True),
+            })
     return params
 
 

@@ -136,7 +136,9 @@ def from_torchvision(sd: Dict[str, Any], dtype=torch.float32,
     weights transposed to [D_in, D_out]."""
     def get(name, transpose=False):
         arr = np.asarray(sd[name], dtype=np.float32)
-        arr = np.array(arr.T if transpose else arr)  # contiguous, writable
+        # a C-ordered writable copy (order "K" would keep the transpose's
+        # Fortran order, and the kernels take contiguous weights only)
+        arr = np.array(arr.T if transpose else arr, order="C")
         return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
     params: Params = {"features": {}, "classifier": {}}

@@ -75,10 +75,21 @@ and the gradient twins hold the 1e-4 contract only on exact f32 matmuls.
 that import JAX are skipped), ``--frontend-dir`` serves another frontend,
 ``--compute-timeout-s`` bounds a /compute (503 past it).
 
-Weights are a seeded random init; checkpoint loading, multi-device
-serving, quantized Swin and the other families are not ported yet, nor
-are the JAX server's flags for them (``--ckpt``, ``--ckpt-layout``,
-``--mesh``, ``--from-export``, ``--export-selftest``), tap speculation and
+Weights are a seeded random init (``--seed``) unless ``--ckpt MODEL=PATH``
+(repeatable) names a checkpoint: a ``.safetensors`` file, a torch ``.pth``
+(``tools/convert.py``'s converters; ``--ckpt-layout`` names the state
+dict's naming, "auto" sniffs it) or a checkpoint directory of this package
+(``tools/convert.py --output``, the trainer's ``--output``). The weights
+load as f32, are cast to the serving dtype and then quantized (``--dtype
+int8`` / ``int8w8a8``). An orbax directory of the JAX package is refused;
+the JAX trainer's ``--export-safetensors`` file serves:
+
+    python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
+        --ckpt vit_b16=vit_b_16.safetensors --ckpt-layout torchvision
+
+Multi-device serving, quantized Swin and the other families are not ported
+yet, nor are the JAX server's flags for them (``--mesh``,
+``--from-export``, ``--export-selftest``), tap speculation and
 the warm inventory (``--speculate-buckets``, ``--no-speculate``,
 ``--warm-inventory``, ``--warm-budget-s``), and its TPU-host flags
 (``--platform``, ``--jit-cache``, ``--recycle-*``).
@@ -103,6 +114,7 @@ from interactive_vit_tpu_torch.models.clip_text_plugin import (
 )
 from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+from interactive_vit_tpu_torch.parallel.train import cast_params
 from interactive_vit_tpu_torch.runtime.device import (
     exact_f32_matmuls, require_device,
 )
@@ -123,6 +135,24 @@ DTYPES = {"float32": (torch.float32, False),
 ATTN_CHOICES = ("auto", "flash", "reference", "int8-scores")
 
 
+def load_model_params(variant: str, path: str, layout: str = "auto",
+                      device="cuda"):
+    """Real weights for ``variant`` from a checkpoint directory of this
+    package (``utils/checkpoint.py``), a ``.safetensors`` file or a torch
+    ``.pth`` (the files through ``tools/convert.convert`` in ``layout``),
+    as f32 tensors on ``device`` (a directory's leaves keep their saved
+    dtypes). An orbax directory raises ``ValueError``."""
+    if os.path.isdir(path):
+        from interactive_vit_tpu_torch.utils.checkpoint import load_params
+
+        return load_params(path, device=device)
+    from interactive_vit_tpu_torch.tools.convert import (
+        convert, load_state_dict,
+    )
+
+    return convert(variant, layout, load_state_dict(path), device=device)
+
+
 def build_app(
     models=("vit_t16",),
     graphs_dir: str = None,
@@ -136,6 +166,8 @@ def build_app(
     plugin_dirs=(),
     compute_timeout_s: float = 120.0,
     pipeline_depth: int = 1,
+    ckpts=None,
+    ckpt_layout: str = "auto",
 ) -> App:
     """An ``App`` with its own registry serving ``models`` on ``device``
     (the card unless the caller asks for the CPU; raises without a card).
@@ -145,8 +177,19 @@ def build_app(
     for plain-ViT models (the others keep "auto"), refused with the
     weight-only "int8" dtype, as in the JAX server. ``plugin_dirs``: each
     scanned for node-kind plugins (``graph/registry.scan_plugins``).
-    ``frontend_dir``: default the repository's ``frontend``."""
+    ``frontend_dir``: default the repository's ``frontend``. ``ckpts``:
+    {variant: checkpoint path} (``load_model_params``, ``ckpt_layout`` for
+    files); the others take the seeded random init. A key of ``ckpts``
+    that is not served raises, as in the JAX server."""
     exact_f32_matmuls()
+    ckpts = dict(ckpts or {})
+    unused = set(ckpts) - set(models)
+    if unused:
+        # a mistyped --ckpt key would otherwise serve random weights with
+        # no hint
+        raise ValueError(
+            f"--ckpt given for models not being served: {sorted(unused)} "
+            f"(serving {sorted(models)})")
     dtype, quantize = DTYPES[dtype_name]
     block_kernel = "auto"
     if attn_impl_name == "int8-scores":
@@ -180,9 +223,18 @@ def build_app(
         # the s8 mode exists for the plain-ViT block only; the other
         # families take their own auto dispatch, as in the JAX server
         bk = block_kernel if plain_vit_family(variant) else "auto"
-        model = make_model(variant, seed=seed, dtype=dtype, device=device,
-                           attn_impl=attn_impl, quantize=quantize,
-                           block_kernel=bk)
+        params = None
+        if variant in ckpts:
+            t0 = time.perf_counter()
+            # f32 from the file, the serving dtype here, quantization in
+            # make_model
+            params = cast_params(load_model_params(
+                variant, ckpts[variant], ckpt_layout, device), dtype)
+            logger.info("loaded %s weights from %s in %.2f s", variant,
+                        ckpts[variant], time.perf_counter() - t0)
+        model = make_model(variant, params=params, seed=seed, dtype=dtype,
+                           device=device, attn_impl=attn_impl,
+                           quantize=quantize, block_kernel=bk)
         # the repository's library is never written: a variant without a
         # saved graph there gets none
         model.register(reg, None if repo_lib else app.graphs)
@@ -268,7 +320,18 @@ def make_parser() -> argparse.ArgumentParser:
                              "plugins to register (files that import JAX "
                              "are skipped)")
     parser.add_argument("--seed", type=int, default=0,
-                        help="seed of the random weight init")
+                        help="seed of the random weight init (models "
+                             "without --ckpt)")
+    parser.add_argument("--ckpt", action="append", default=[],
+                        metavar="MODEL=PATH",
+                        help="serve MODEL with real weights from PATH (a "
+                             "checkpoint directory of this package, a "
+                             ".safetensors file, or a torch .pth); "
+                             "repeatable")
+    parser.add_argument("--ckpt-layout", default="auto",
+                        choices=["auto", "torchvision", "timm", "openai"],
+                        help="state-dict naming of file checkpoints "
+                             "('auto' sniffs key prefixes)")
     parser.add_argument("--max-batch", type=int, default=8,
                         help="most requests of one graph signature run as "
                              "one batched pass")
@@ -309,6 +372,8 @@ def main(argv=None) -> None:
         plugin_dirs=[d for d in args.plugin_dirs.split(",") if d],
         compute_timeout_s=args.compute_timeout_s,
         pipeline_depth=args.pipeline_depth,
+        ckpts=dict(kv.split("=", 1) for kv in args.ckpt),
+        ckpt_layout=args.ckpt_layout,
     )
     if args.warmup:
         warmup(app, models, batch_sizes=sorted({1, max(1, args.max_batch)}))

@@ -19,14 +19,14 @@ The image binds to every ``img_src`` node and to every unwired root that
 takes "o" and feeds another node (the bare ``<model>:transform`` heads of
 generated graphs); a dangling sink neither demands nor receives it. Model
 node kinds are registered from the graph's endpoints
-(``models.autoregister.make_model``, seeded random weights), and
-``--plugin-dirs`` adds plugin kinds, as the server does. It runs on the
+(``models.autoregister.make_model``: seeded random weights, or a
+checkpoint's with ``--ckpt VARIANT=PATH``, repeatable, the server's
+contract), and ``--plugin-dirs`` adds plugin kinds, as the server does. It runs on the
 card (``--device cuda``, the default; it raises where there is none)
 unless ``--device cpu`` is given, with TF32 off (exact f32 matmuls). The
 ``*_saliency.json`` graphs run too (their gradient kinds on the executor's
 cone staging). Not ported: ``--platform`` (a TPU-rig
-flag) and ``--ckpt`` (the weight loaders are not ported yet); the parser
-refuses both.
+flag); the parser refuses it.
 """
 
 from __future__ import annotations
@@ -65,16 +65,20 @@ def _model_variants(endpoints: Set[str]) -> Set[str]:
 
 
 def _register_models(reg, variants: Set[str], dtype_name: str,
-                     device: str) -> None:
+                     device: str,
+                     ckpts: Optional[Dict[str, str]] = None) -> None:
     """Register every model family the graph references, through the one
     variant dispatch (``autoregister.make_model``). An unknown prefix is
     left to the built-in and plugin kinds, with a warning; a known variant
-    that fails to build raises."""
+    that fails to build raises. ``ckpts``: variant -> checkpoint path (the
+    server's ``--ckpt`` contract, ``serving.server.load_model_params``)."""
     import torch
 
     from interactive_vit_tpu_torch.models.autoregister import (
         known_variants, make_model,
     )
+    from interactive_vit_tpu_torch.parallel.train import cast_params
+    from interactive_vit_tpu_torch.serving.server import load_model_params
 
     dtype = torch.float32 if dtype_name == "float32" else torch.bfloat16
     known = set(known_variants())
@@ -83,7 +87,12 @@ def _register_models(reg, variants: Set[str], dtype_name: str,
             print(f"warning: unknown model prefix {v!r} — relying on "
                   f"builtin/plugin kinds", file=sys.stderr)
             continue
-        make_model(v, dtype=dtype, device=device).register(reg)
+        params = None
+        if ckpts and v in ckpts:
+            params = cast_params(load_model_params(v, ckpts[v],
+                                                   device=device), dtype)
+        make_model(v, params=params, dtype=dtype,
+                   device=device).register(reg)
 
 
 def _png_bytes(pixels: np.ndarray) -> bytes:
@@ -138,6 +147,10 @@ def main(argv=None) -> int:
     ap.add_argument("--plugin-dirs", default="",
                     help="comma-separated plugin dirs (same contract as "
                          "the server)")
+    ap.add_argument("--ckpt", action="append", default=[],
+                    metavar="VARIANT=PATH",
+                    help="load real weights for a model family (same "
+                         "contract as the server's --ckpt); repeatable")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     args = ap.parse_args(argv)
@@ -174,7 +187,8 @@ def main(argv=None) -> int:
         scan_plugins(dirs, reg)
     endpoints = {n["instance"].get("endpoint") or n["instance"]["kind"]
                  for n in obj["nodes"]}
-    _register_models(reg, _model_variants(endpoints), args.dtype, device)
+    _register_models(reg, _model_variants(endpoints), args.dtype, device,
+                     ckpts=dict(kv.split("=", 1) for kv in args.ckpt))
 
     g = graph_from_json(obj)
     image: Optional[np.ndarray] = (_load_image(args.image) if args.image

@@ -1,7 +1,9 @@
-"""The trainer: ViT training on one device.
+"""The trainer: ViT training on one device, with train-state checkpoints
+and resume.
 
     python -m interactive_vit_tpu_torch.tools.train \
-        --variant vit_b16 --dtype mixed --attn auto --batch 64 --steps 100
+        --variant vit_b16 --dtype mixed --attn auto --batch 64 --steps 100 \
+        --output ckpts/vit_b16 --save-every 50
 
 Counterpart of ``interactive_vit_tpu/tools/train.py`` on one card (or the
 CPU with ``--device cpu``). Data is synthetic: class-conditional Gaussian
@@ -12,15 +14,26 @@ step. The step is ``parallel/train.py``'s: AdamW as optax's chain
 rematerialisation, mixed precision, gradient accumulation, and on a card
 the hand-written attention kernels (``--attn auto``): the packed kernel
 for an even head count of width 64 (vit_b16), the [B, H, N, dh] one
-otherwise (vit_t16). Not ported: the device mesh, checkpoints and resume,
-``--init``, the data loader and augmentation, distillation and the
-safetensors export; the parser refuses their flags.
+otherwise (vit_t16).
+
+Checkpoints are directories of ``utils/checkpoint.py`` (the JAX trainer
+writes orbax ones): ``--output D`` writes the export params to ``D/params``
+(qkv columns in the canonical layout, the EMA cast to the param dtype with
+``--ema-decay``) and the train state (params in the training layout,
+optimizer state, step, the qkv-layout marker, the EMA) to ``D/state``;
+``--save-every N`` also saves the state every N steps in the background;
+``--resume`` continues from ``D/state``; ``--init FILE`` starts a fresh run
+from a checkpoint's trunk; ``--export-safetensors FILE`` writes the export
+params in the native "/" naming, which the server's ``--ckpt`` serves. Not
+ported: the device mesh, the data loader and augmentation, and
+distillation; the parser refuses their flags.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import time
 
 import numpy as np
@@ -101,6 +114,146 @@ def _seed_ema(params):
         if p.is_floating_point() else p.clone(), params)
 
 
+def _same_structure(a, b) -> bool:
+    """Equal tree structure (dict keys, list lengths) and leaf shapes:
+    ``jax.tree.structure`` equality plus the shapes."""
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (isinstance(a, dict) and isinstance(b, dict)
+                and sorted(a) == sorted(b)
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+                and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return getattr(a, "shape", None) == getattr(b, "shape", None)
+
+
+def merge_pretrained(params, tree, cfg, head_major: bool = False):
+    """Merge a converted pretrained ViT tree into freshly initialized
+    params (the fine-tune init).
+
+    The tree is geometry-adapted first (``vit.adapt_checkpoint``) and its
+    qkv columns repacked head-major when this run's layout wants it. Each
+    top-level key whose structure and shapes match loads onto its target's
+    device and dtype; everything else (typically a classifier head of
+    another label space) keeps the fresh init. Returns ``(merged_params,
+    loaded_keys, skipped_keys)``; raises if the block trunk did not load
+    (a checkpoint of another model)."""
+    from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
+    from interactive_vit_tpu_torch.parallel.train import (
+        tree_leaves, tree_unflatten,
+    )
+
+    tree = vit.adapt_checkpoint(tree, cfg)
+    if head_major:
+        tree = mesh_lib.permute_qkv_head_major(tree, cfg.heads)
+    merged = dict(params)
+    loaded, skipped = [], []
+    for key, new in tree.items():
+        old = merged.get(key)
+        if old is None:
+            skipped.append(key)
+            continue
+        compatible = _same_structure(new, old)
+        if not compatible or not tree_leaves(new):
+            # empty subtrees ({} heads) carry no weights: nothing to load
+            (skipped if not compatible else loaded).append(key)
+            continue
+        merged[key] = tree_unflatten(new, [
+            n.to(device=o.device, dtype=o.dtype)
+            for n, o in zip(tree_leaves(new), tree_leaves(old))])
+        loaded.append(key)
+    if "blocks" not in loaded:
+        raise ValueError(
+            f"--init checkpoint does not match {cfg.name}: the block "
+            f"trunk failed to load (loaded={loaded}, skipped={skipped}) "
+            f"— wrong variant or depth?")
+    return merged, loaded, skipped
+
+
+def init_from_checkpoint(path: str, params, cfg, variant: str,
+                         head_major: bool):
+    """``--init``: load ``path`` (safetensors or torch .pth, the layout
+    sniffed) and merge its trunk into ``params`` (``merge_pretrained``)."""
+    from interactive_vit_tpu_torch.tools.convert import (
+        convert, load_state_dict,
+    )
+
+    tree = convert(variant, "auto", load_state_dict(path))
+    return merge_pretrained(params, tree, cfg, head_major)
+
+
+def save_state(path: str, params, opt_state, step: int, saver=None,
+               head_major: bool = False, ema=None) -> None:
+    """Train-state checkpoint: params, optimizer state and step in one
+    directory (``utils/checkpoint.py``); through ``saver`` (an
+    ``AsyncSaver``) the write overlaps the next steps. ``head_major``
+    records the qkv column layout of the params, which ``load_state``
+    checks: the layout follows --attn and --dtype, and a same-shape load of
+    permuted columns would otherwise pass unseen."""
+    from interactive_vit_tpu_torch.utils.checkpoint import save_params
+
+    tree = {"params": params, "opt_state": opt_state,
+            "step": torch.tensor(step),
+            "qkv_head_major": torch.tensor(int(head_major))}
+    if ema is not None:
+        tree["ema"] = ema
+    if saver is not None:
+        saver.save(path, tree)
+    else:
+        save_params(path, tree)
+
+
+def load_state(path: str, like_params, like_opt_state,
+               expect_head_major=None, want_ema: bool = False):
+    """Restore ``save_state``'s tree onto the devices and dtypes of
+    ``like_params`` / ``like_opt_state``. The layout marker and the EMA are
+    optional (they follow the saving run's flags): the ``like`` tree is
+    built from what the checkpoint holds (``state_keys``). A layout that
+    differs from ``expect_head_major`` raises. Returns ``(params,
+    opt_state, step)``, and the EMA (None when the checkpoint has none)
+    with ``want_ema``."""
+    from interactive_vit_tpu_torch.parallel.train import (
+        tree_leaves, tree_map_with_path,
+    )
+    from interactive_vit_tpu_torch.utils.checkpoint import (
+        LeafSpec, load_params, state_keys,
+    )
+
+    saved = state_keys(path)
+    dev = tree_leaves(like_params)[0].device
+    scalar = LeafSpec((), torch.int64, dev)
+    like = {"params": like_params, "opt_state": like_opt_state,
+            "step": scalar}
+    if "qkv_head_major" in saved:
+        like["qkv_head_major"] = scalar
+    if "ema" in saved:
+        # the EMA accumulates in f32 whatever the param dtype
+        like["ema"] = tree_map_with_path(
+            lambda _, p: LeafSpec(
+                tuple(p.shape),
+                torch.float32 if p.is_floating_point() else p.dtype,
+                p.device), like_params)
+    st = load_params(path, like=like)
+    saved_hm = (bool(int(st.pop("qkv_head_major")))
+                if "qkv_head_major" in saved else None)
+    if (expect_head_major is not None and saved_hm is not None
+            and saved_hm != bool(expect_head_major)):
+        raise ValueError(
+            f"--resume layout mismatch: checkpoint at {path} stores qkv "
+            f"{'head-major' if saved_hm else 'torch-layout'} columns but "
+            f"this run resolves to "
+            f"{'head-major' if expect_head_major else 'torch-layout'} "
+            f"(the layout follows --attn/--dtype/device via "
+            f"wants_head_major). Resume with the original flags, or "
+            f"export via --export-safetensors and restart from --ckpt.")
+    if want_ema:
+        return (st["params"], st["opt_state"], int(st["step"]),
+                st.get("ema"))
+    return st["params"], st["opt_state"], int(st["step"])
+
+
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
@@ -151,12 +304,39 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="keep an f32 exponential moving average of the "
                              "params; evals use it (0 = off)")
     parser.add_argument("--log-every", type=int, default=10)
+    parser.add_argument("--output", default=None,
+                        help="checkpoint directory (params/: the export "
+                             "weights; state/: the train state)")
+    parser.add_argument("--save-every", type=int, default=0,
+                        help="also save the train state every N steps (in "
+                             "the background)")
+    parser.add_argument("--resume", action="store_true",
+                        help="restore the train state from --output/state "
+                             "and continue at the saved step (pass the same "
+                             "--warmup/--clip-norm/--llrd as the original "
+                             "run)")
+    parser.add_argument("--init", default=None, metavar="FILE",
+                        help="initialize the trunk from a checkpoint "
+                             "(safetensors or .pth, layout sniffed); the "
+                             "classifier head stays fresh where it does "
+                             "not match. Mutually exclusive with --resume")
+    parser.add_argument("--export-safetensors", default=None,
+                        help="also write the final export params as a "
+                             ".safetensors file in the native '/' naming "
+                             "(servable via --ckpt)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or "
                              "cpu")
     args = parser.parse_args(argv)
     if args.accum_steps > 1 and args.batch % args.accum_steps:
         parser.error("--batch must be divisible by --accum-steps")
+    if args.init and args.resume:
+        parser.error("--init and --resume are mutually exclusive: "
+                     "--resume restores the full train state, --init "
+                     "seeds a fresh run from pretrained weights")
+    state_dir = os.path.join(args.output, "state") if args.output else None
+    if args.resume and not (state_dir and os.path.exists(state_dir)):
+        parser.error(f"--resume: no state at {state_dir}")
     return args
 
 
@@ -173,10 +353,13 @@ def resolve_cfg(variant: str):
 
 def main(argv=None) -> dict:
     """Train; returns what the run saw: ``history`` [(step, loss, seconds
-    since the first step began)] at the logged steps (the clock is read
-    after the loss reached the host), ``evals`` [(step, top-1)],
-    ``remat``, ``head_major``, ``attn`` and the final ``params`` in the
-    canonical qkv layout."""
+    since the run's first step began)] at the logged steps (the clock is
+    read after the loss reached the host), ``evals`` [(step, top-1)],
+    ``remat``, ``head_major``, ``attn``, the final export ``params`` (the
+    canonical qkv layout; the EMA in the param dtype with --ema-decay),
+    ``start_step`` (the resumed step, else 0), ``saves`` [(step, seconds
+    the --save-every save held the loop)] and the final train ``state``
+    (params in the training layout, optimizer state, step)."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -212,10 +395,33 @@ def main(argv=None) -> dict:
         accum_steps=args.accum_steps, label_smoothing=args.label_smoothing,
         compute_dtype=compute_dtype)
     head_major = train_lib.wants_head_major(cfg, attn_impl)
+    if args.init:
+        params, loaded, skipped = init_from_checkpoint(
+            args.init, params, cfg, args.variant, head_major)
+        # the optimizer state is zeros shaped like the params: unchanged
+        logger.info("initialized from %s: loaded %s%s", args.init, loaded,
+                    f", fresh {skipped}" if skipped else "")
+    state_dir = os.path.join(args.output, "state") if args.output else None
+    start_step = 0
+    ema = None
     ema_update = make_ema_update(args.ema_decay) if args.ema_decay else None
-    ema = _seed_ema(params) if args.ema_decay else None
+    if args.resume:
+        params, opt_state, start_step, *rest = load_state(
+            state_dir, params, opt_state, expect_head_major=head_major,
+            want_ema=bool(args.ema_decay))
+        if args.ema_decay:
+            ema = rest[0]
+            if ema is None:
+                logger.info("checkpoint has no EMA state; seeding the "
+                            "average from the restored params")
+        logger.info("resumed from %s at step %d", state_dir, start_step)
+    if args.ema_decay and ema is None:
+        ema = _seed_ema(params)
 
-    rng = np.random.default_rng(args.seed)
+    # as in the JAX trainer, a resumed synthetic or --memorize stream is
+    # drawn from a generator seeded at --seed + the resumed step: it is not
+    # the stream the uninterrupted run would have gone on with
+    rng = np.random.default_rng(args.seed + start_step)
     if args.memorize:
         eval_images, eval_labels = pattern_set(
             args.seed, args.memorize, cfg.img_size, cfg.num_classes,
@@ -228,9 +434,10 @@ def main(argv=None) -> dict:
             np.random.default_rng(10_007), args.batch, cfg.img_size,
             cfg.num_classes)
 
-    history, evals = [], []
+    history, evals, saves = [], [], []
+    saver = None  # an AsyncSaver, made at the first --save-every save
     t0 = time.perf_counter()
-    for step in range(args.steps):
+    for step in range(start_step, args.steps):
         if args.memorize:
             idx = torch.from_numpy(
                 rng.integers(0, args.memorize, size=(args.batch,))).to(device)
@@ -248,21 +455,61 @@ def main(argv=None) -> dict:
             dt = time.perf_counter() - t0
             history.append((step, value, dt))
             logger.info("step %4d  loss %.4f  (%.1f imgs/s)", step, value,
-                        (step + 1) * args.batch / dt)
+                        (step - start_step + 1) * args.batch / dt)
         if args.eval_every and (step + 1) % args.eval_every == 0:
             acc = evaluate(infer_fn, ema if ema is not None else params,
                            eval_images, eval_labels, args.batch)
             evals.append((step, acc))
             logger.info("step %4d  %seval top-1 %.3f", step,
                         "EMA " if ema is not None else "", acc)
+        if (args.save_every and state_dir
+                and (step + 1) % args.save_every == 0):
+            if saver is None:
+                from interactive_vit_tpu_torch.utils.checkpoint import (
+                    AsyncSaver,
+                )
 
-    final = ema if ema is not None else params
+                saver = AsyncSaver()
+            ts = time.perf_counter()
+            save_state(state_dir, params, opt_state, step + 1, saver=saver,
+                       head_major=head_major, ema=ema)
+            saves.append((step + 1, time.perf_counter() - ts))
+            logger.info("async-saving train state at step %d", step + 1)
+    if saver is not None:
+        saver.close()  # drain the write in flight before the final save
+
+    # the export layout: canonical qkv columns (the train state keeps the
+    # training layout, which --resume re-enters); with --ema-decay the
+    # average, cast back to the param dtype, is the artifact
+    export_params = params
+    if ema is not None:
+        export_params = train_lib.tree_unflatten(params, [
+            e.to(p.dtype) if e.is_floating_point() else e
+            for e, p in zip(train_lib.tree_leaves(ema),
+                            train_lib.tree_leaves(params))])
     if head_major:
-        final = mesh_lib.unpermute_qkv_head_major(final, cfg.heads)
+        export_params = mesh_lib.unpermute_qkv_head_major(export_params,
+                                                          cfg.heads)
+    if args.output:
+        from interactive_vit_tpu_torch.utils.checkpoint import save_params
+
+        save_params(os.path.join(args.output, "params"), export_params)
+        save_state(state_dir, params, opt_state, args.steps,
+                   head_major=head_major, ema=ema)
+        logger.info("saved checkpoint to %s", args.output)
+    if args.export_safetensors:
+        from interactive_vit_tpu_torch.models.weights import to_native_flat
+        from interactive_vit_tpu_torch.utils.safetensors_io import save_file
+
+        save_file(to_native_flat(export_params), args.export_safetensors)
+        logger.info("exported %s", args.export_safetensors)
     return {"history": history, "evals": evals, "remat": remat,
             "head_major": head_major,
             "attn": None if attn_impl is None else attn_impl.__name__,
-            "params": final}
+            "params": export_params, "start_step": start_step,
+            "saves": saves,
+            "state": {"params": params, "opt_state": opt_state,
+                      "step": args.steps}}
 
 
 if __name__ == "__main__":

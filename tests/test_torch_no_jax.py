@@ -64,6 +64,9 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.tools.kernel_variants",
     "interactive_vit_tpu_torch.tools.run_graph",
     "interactive_vit_tpu_torch.tools.train",
+    "interactive_vit_tpu_torch.tools.convert",
+    "interactive_vit_tpu_torch.utils.safetensors_io",
+    "interactive_vit_tpu_torch.utils.checkpoint",
     "chip_smoke",
 ]
 

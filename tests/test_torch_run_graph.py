@@ -153,11 +153,10 @@ def test_png_writer_decodes_with_pil(tmp_path, shape):
 
 
 def test_refused_flags_and_no_card(tmp_path):
-    for flag in (["--ckpt", "dino_s16=x.safetensors"],
-                 ["--platform", "cpu"]):
-        with pytest.raises(SystemExit) as exc:
-            run_graph.main(["demo_noise", "--out", str(tmp_path), *flag])
-        assert exc.value.code == 2
+    with pytest.raises(SystemExit) as exc:
+        run_graph.main(["demo_noise", "--out", str(tmp_path), "--platform",
+                        "cpu"])
+    assert exc.value.code == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             run_graph.main(["demo_noise", "--out", str(tmp_path)])
