@@ -273,7 +273,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    the replay of the image a program was captured with and (b) of a
    second image, each against the eager pass (``use_jit=False``) of the
    same request, bit for bit (an output that is not must lie within the
-   path's bound against the eager one, and phase 7 lists it), each
+   path's bound against the eager one, and phase 8 lists it), each
    program's recorded launches the path's kernels a pass; the replay's and the
    eager pass's walls (median of 3) and one profiled run of each (device
    busy share, the kernels that take the most time; the same kernels by
@@ -423,15 +423,37 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    optimizer's count restored, the exported ``params/`` served bit for bit
    the returned params, a resume under the other qkv layout refused); the
    load times, the first request after a load and the async save's stall.
-7. result  -- the profiles taken again, the replayed outputs that were
+7. families -- the last four families from the repository's saved
+   graphs through ``build_app`` at their published widths
+   (``phase_families``): row 3 held against its plain version at
+   vit_moe_s16's block shape (1, 6, 197, 64) in bf16, maps off and on,
+   with its device time; resnet50.json, convnext_t.json, vit_moe_s16.json
+   (``--attn auto``: the plain attention at N=197) and mae_t16.json on one
+   f32 and one bf16 server, each request's replay bit for bit its eager
+   pass and launching no kernel of the port (none by name in a profiled
+   replay); the f32 taps within 1e-4 of max(1, the scale) of a float64
+   host forward (the convnets, written apart from the port's layer fns)
+   or of the same kinds on the host (MoE, MAE), the bf16 taps within
+   FAMILY_BF16_REL of the scale of the same kinds run on the host in bf16
+   (vit_moe_s16's within the MOE_* bounds: routing can flip);
+   MAE's seed edit replayed with a new mask, the host's draw of the seed,
+   and a mask_ratio edit captured once; deit_s16.json and dinov2_s14.json
+   once each in bf16 (12 launches of row 1 / row 3); vit_moe_s16 in bf16
+   under ``--attn flash`` with block 0's and 11's maps and rollout tapped:
+   exactly 12 row-3 launches a request, by name in a profiled replay;
+   convnext_t_saliency.json and vit_moe_s16_saliency.json in bf16 (the
+   capture time, the replay wall, the replay bit for bit its eager pass);
+   a table of each request's first wall, capture, replay wall and device
+   busy.
+8. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5 use random (seeded) weights, so their
-logits are meaningless as classifications; what is checked is that the
-served path and the plain path agree. Phase 6's oracle classifies with
+It imports nothing of JAX. Phases 3-5 and 7 use random (seeded) weights,
+so their logits are meaningless as classifications; what is checked is
+that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
 """
 
@@ -2227,7 +2249,7 @@ def chain_request(graph_obj, image, taps, node_params=None):
 
 
 # Every trace that ``profiled`` took again, as "<what>: <seen> of
-# <expected>"; phase 7 prints them before the result.
+# <expected>"; phase 8 prints them before the result.
 PROFILE_RETRIES = []
 
 
@@ -2242,16 +2264,26 @@ def profiled(run, what: str, expect=None, tries: int = 3):
     than ``expect`` and none of an absent one is taken again, up to
     ``tries`` times, and recorded in PROFILE_RETRIES; the run fails if
     every try falls short. A trace that shows more, or a kernel expected to
-    be absent, fails at once (``report_profile``). Returns
-    ``report_profile``'s (wall ms, device busy ms)."""
+    be absent, fails at once (``report_profile``). A lost record has
+    also recurred at the same place in every try of one trace (11 of 12
+    launches of one kernel, three times running), so a try after the first
+    starts its trace with a few device-to-device copies and a wait on the
+    host before ``run``: the run's records then sit elsewhere in the
+    trace. Returns ``report_profile``'s (wall ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     short = []
-    for _ in range(tries):
+    for attempt in range(tries):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            if attempt and torch.cuda.is_available():
+                pad = torch.zeros(2, device="cuda")
+                for _ in range(8 * attempt):
+                    pad[1:].copy_(pad[:1])
+                torch.cuda.synchronize()
+                time.sleep(0.002 * attempt)
             wall_ms = run()
         if expect:
             seen = kernels_by_name(prof, expect)
@@ -2765,9 +2797,9 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
 
 # Every replayed output that was not the eager pass's bit for bit (each
 # then held to its path's bound against the eager result), as "<what>:
-# {output: max abs difference}"; phase 7 prints them before the result.
+# {output: max abs difference}"; phase 8 prints them before the result.
 REPLAY_DIFFS = []
-# One row a served path for phase 7's table of the compiled path: (tag,
+# One row a served path for phase 8's table of the compiled path: (tag,
 # replay and eager walls, their profiled walls and device busy, the
 # captures' seconds, memory_reserved).
 COMPILED = []
@@ -2876,7 +2908,7 @@ def compare_replay(tag, path, got, want, what) -> str:
     same request: equal bit for bit (the same kernels on the same shapes
     and routes). Where an output is not, it must lie within the path's
     bound against the eager result, and the difference is recorded in
-    REPLAY_DIFFS for phase 7."""
+    REPLAY_DIFFS for phase 8."""
     import torch
 
     g = {f"{i}/{ch}": v for i, sub in got.items() for ch, v in sub.items()}
@@ -6063,6 +6095,548 @@ def phase_checkpoints(device, counters) -> None:
     log(f"  phase 6 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 7: the last four families from their saved graphs ---------------
+
+# bf16 taps against the same kinds run on the host in bf16 (the same seeded
+# weights and code on the CPU): max abs error within FAMILY_BF16_REL of the
+# tap's largest magnitude. The two sum their f32 products in different
+# orders, so a value can round to the next bf16 step on one side; such
+# steps carry through up to 50 layers (measured on the card: 0.5-1.2% of
+# the scale for resnet50, convnext_t and mae_t16).
+FAMILY_BF16_REL = 2.0 ** -4
+# vit_moe_s16 in bf16: a token whose two best gates lie within those steps
+# takes the other expert on one side (measured on the card: 7 of 196 patch
+# tokens in some routed block), and its MLP branch is then another
+# expert's output, of the order of the tap's scale, which attention passes
+# on to the other tokens; so the block outputs and logits within
+# MOE_BF16_REL of the scale (measured 6.2% on block 6), the gates
+# ("experts", in [0, 1]) within MOE_GATE_ABS, the maps and the rollout (in
+# [0, 1]) within MOE_MAP_ABS, absolute.
+MOE_BF16_REL = 2.0 ** -2
+MOE_GATE_ABS = 2.0 ** -3
+MOE_MAP_ABS = 2.0 ** -5
+
+
+def f32_bound(ch, scale):
+    # the gates tap is bf16 at every dtype (the JAX contract): f32 gates a
+    # hair apart can round to neighbouring bf16 steps, 2^-8 at most in [0, 1]
+    return 2.0 ** -8 if ch == "experts" else F32_BOUND * max(1.0, scale)
+
+
+def bf16_bound(ch, scale):
+    return FAMILY_BF16_REL * scale
+
+
+def moe_bf16_bound(ch, scale):
+    return {"experts": MOE_GATE_ABS, "attn": MOE_MAP_ABS,
+            "r": MOE_MAP_ABS}.get(ch, MOE_BF16_REL * scale)
+
+
+# the taps of each saved graph: node -> channels (resnet50: transform,
+# conv1, layer3.0, layer4.2, fc; convnext_t: transform, stem,
+# downsample.2, stages.2.8, stages.3.2, head; vit_moe_s16: transform,
+# the experts of every routed block, block 6, head; mae_t16: transform
+# and the four views)
+FAMILY_TAPS = {
+    "resnet50": {0: ("o",), 1: ("o",), 10: ("o",), 18: ("o",), 20: ("o",)},
+    "convnext_t": {0: ("o",), 1: ("o",), 9: ("o",), 18: ("o",),
+                   22: ("o",), 24: ("o",)},
+    "vit_moe_s16": {0: ("o",), 3: ("experts",), 5: ("experts",),
+                    7: ("experts",), 8: ("o",), 9: ("experts",),
+                    11: ("experts",), 13: ("experts",), 15: ("o",)},
+    "mae_t16": {0: ("o",), 1: ("o", "masked", "err", "mask")},
+}
+# vit_moe_s16 under --attn flash: block 0's and 11's maps and rollout too
+MOE_FLASH_TAPS = {**FAMILY_TAPS["vit_moe_s16"], 2: ("attn", "r"),
+                  13: ("attn", "r", "experts")}
+# the other saved graphs of the ViT family served once: (variant, head
+# shape, kernel launches a bf16 request)
+VIT_ONCE = (("deit_s16", (1, 1000), {"fused_attn_block_mma": 12}),
+            ("dinov2_s14", (1, 384), {"flash_attention_mma": 12}))
+MAE_SEEDS = (17, 18)
+
+
+def tap_list(taps):
+    return sorted((i, ch) for i, chs in taps.items() for ch in chs)
+
+
+def host_chain(app, obj, transform_out, taps, node_params=None):
+    """The saved chain's kinds from node 1 on, on the host (each kind's
+    ``fn`` with its captures copied to the CPU, where a kernel wrapper
+    runs its plain version), from the served transform output: {node: {ch:
+    f32 array}} of ``taps``. The served dtype is kept."""
+    import torch
+
+    def cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.cpu()
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree
+
+    out = {}
+    x = torch.from_numpy(np.array(transform_out))
+    env = {"o": x}
+    with torch.inference_mode():
+        for i, node in enumerate(obj["nodes"][1:], 1):
+            name = node["instance"].get("endpoint", "")
+            if ":" not in name:
+                continue
+            kind = app.reg.get_node(name)
+            params = {**node["instance"].get("params", {}),
+                      **(node_params or {}).get(i, {}),
+                      "__taps__": ",".join(taps.get(i, ()))}
+            caps = kind.captures(params)
+            fn = kind.fn(params)
+            res = fn(env) if caps is None else fn(env, cpu(caps))
+            out[i] = {ch: res[ch].float().numpy() for ch in taps.get(i, ())}
+            env = {"o": res["o"]}
+    return out
+
+
+def resnet_f64(params, x):
+    """ResNet-50 on the host in float64, written apart from the port's
+    layer fns (torch's conv2d, max_pool2d, matmul; each batch norm as its
+    folded affine), from the transform's output ``x`` [3, 224, 224]:
+    {saved-graph node: output}."""
+    import torch
+    import torch.nn.functional as F
+
+    from interactive_vit_tpu_torch.models import resnet
+
+    def d(t):
+        return t.cpu().double()
+
+    def bn(h, p):
+        return h * d(p["s"])[None, :, None, None] + d(p["b"])[None, :,
+                                                              None, None]
+
+    out = {}
+    h = torch.relu(bn(F.conv2d(x.double()[None], d(params["conv1_w"]),
+                               stride=2, padding=3), params["bn1"]))
+    out[1] = h
+    h = F.max_pool2d(h, 3, 2, 1)
+    out[2] = h
+    node = 3
+    for si, (blocks, _) in enumerate(resnet.STAGES):
+        for bi in range(blocks):
+            p = params["layers"][si][bi]
+            s = 2 if (si > 0 and bi == 0) else 1
+            y = torch.relu(bn(F.conv2d(h, d(p["conv1_w"])), p["bn1"]))
+            y = torch.relu(bn(F.conv2d(y, d(p["conv2_w"]), stride=s,
+                                       padding=1), p["bn2"]))
+            y = bn(F.conv2d(y, d(p["conv3_w"])), p["bn3"])
+            idn = (bn(F.conv2d(h, d(p["down_w"]), stride=s), p["down_bn"])
+                   if "down_w" in p else h)
+            h = torch.relu(y + idn)
+            out[node] = h
+            node += 1
+    h = h.mean(dim=(2, 3))
+    out[19] = h
+    out[20] = h @ d(params["fc"]["w"]) + d(params["fc"]["b"])
+    return {i: v[0].numpy() for i, v in out.items()}
+
+
+def convnext_f64(params, x, cfg):
+    """ConvNeXt on the host in float64, written apart from the port's layer
+    fns (torch's conv2d on NCHW with OIHW kernels, a LayerNorm of its own,
+    erf GELU), from the transform's output ``x``: {saved-graph node:
+    output}, NHWC as the served taps."""
+    import torch
+    import torch.nn.functional as F
+
+    def d(t):
+        return t.cpu().double()
+
+    def ln(h, p):
+        mu = h.mean(-1, keepdim=True)
+        var = (h - mu).square().mean(-1, keepdim=True)
+        return (h - mu) / torch.sqrt(var + cfg.ln_eps) * d(p["g"]) + d(p["b"])
+
+    def conv(h, w, b, stride, pad, groups=1):
+        y = F.conv2d(h.permute(0, 3, 1, 2), d(w).permute(3, 2, 0, 1), d(b),
+                     stride=stride, padding=pad, groups=groups)
+        return y.permute(0, 2, 3, 1)
+
+    out = {}
+    st = params["stem"]
+    h = ln(conv(x.double()[None].permute(0, 2, 3, 1), st["w"], st["b"], 4,
+                0), st["ln"])
+    out[1] = h
+    node = 2
+    for s in range(len(cfg.depths)):
+        for blk in params["stages"][s]:
+            y = conv(h, blk["dw_w"], blk["dw_b"], 1, 3, groups=h.shape[-1])
+            y = ln(y, blk["ln"]) @ d(blk["fc1"]["w"]) + d(blk["fc1"]["b"])
+            y = F.gelu(y) @ d(blk["fc2"]["w"]) + d(blk["fc2"]["b"])
+            h = h + d(blk["gamma"]) * y
+            out[node] = h
+            node += 1
+        if s < len(params["downs"]):
+            dp = params["downs"][s]
+            h = conv(ln(h, dp["ln"]), dp["w"], dp["b"], 2, 0)
+            out[node] = h
+            node += 1
+    h = h.mean(dim=(1, 2))
+    out[node] = h
+    hp = params["head"]
+    out[node + 1] = ln(h, hp["ln"]) @ d(hp["fc"]["w"]) + d(hp["fc"]["b"])
+    return {i: v[0].numpy() for i, v in out.items()}
+
+
+def family_errors(tag, got, want, taps, bound=None):
+    """Max abs errors of ``got`` (a response) against ``want`` ({node: {ch:
+    array}}) over ``taps`` (the transform, node 0, aside), each within
+    ``bound(ch, the tap's largest magnitude)``; ``bound`` None: reported
+    only. The "mask" tap exactly. Returns {"node ch": (err, scale)}."""
+    errs = {}
+    for i, chs in taps.items():
+        for ch in chs:
+            if i == 0:
+                continue
+            a = np.asarray(got[i][ch], np.float64)
+            b = np.asarray(want[i][ch], np.float64)
+            if a.shape != b.shape or not np.isfinite(a).all():
+                raise AssertionError(f"{tag} {i} {ch}: shape {a.shape} vs "
+                                     f"{b.shape} or not finite")
+            err = float(np.abs(a - b).max())
+            scale = float(np.abs(b).max())
+            if ch == "mask" and err:
+                raise AssertionError(f"{tag}: the mask differs")
+            if bound is not None and err > bound(ch, scale):
+                raise AssertionError(f"{tag} node {i} {ch}: max abs err "
+                                     f"{err:.3g} at scale {scale:.3g}, "
+                                     f"bound {bound(ch, scale):.3g}")
+            errs[f"{i} {ch}"] = (err, scale)
+    return errs
+
+
+def moe_routing_report(got, want, taps) -> str:
+    """vit_moe_s16 in bf16 against the same kinds on the host: the patch
+    tokens whose expert (the argmax of a routed block's "experts" tap)
+    differs on the two sides in any routed block, and the largest error
+    of the other patch tokens' rows of each block output, as a share of
+    the tap's scale. Reported, not bounded: a token that kept its experts
+    still attends to those that changed theirs (measured on the card: 7
+    of 196 changed, the others' rows 6.2% off the scale at block 6)."""
+    flipped = np.zeros(0, dtype=bool)
+    for i, chs in taps.items():
+        if "experts" in chs:
+            a = np.asarray(got[i]["experts"])[0].reshape(
+                got[i]["experts"].shape[1], -1).argmax(0)
+            b = np.asarray(want[i]["experts"])[0].reshape(
+                want[i]["experts"].shape[1], -1).argmax(0)
+            flipped = (a != b) | (flipped if flipped.size else False)
+    worst = {}
+    for i, chs in taps.items():
+        if "o" in chs and i and np.asarray(got[i]["o"]).ndim == 3:
+            a = np.asarray(got[i]["o"], np.float64)[0, 1:][~flipped]
+            b = np.asarray(want[i]["o"], np.float64)[0, 1:][~flipped]
+            scale = float(np.abs(np.asarray(want[i]["o"])).max())
+            worst[i] = float(np.abs(a - b).max()) / scale
+    return (f"{int(flipped.sum())} of {flipped.size} patch tokens took "
+            f"another expert in some routed block; the others' rows within "
+            + ", ".join(f"{r:.3g}" for r in worst.values())
+            + " of the scale")
+
+
+def err_str(errs):
+    return ", ".join(f"{k} {e:.3g}/{s:.3g}" for k, (e, s) in errs.items())
+
+
+def row3_at_moe_shape(device) -> None:
+    """Row 3 (``flash_attention``, the tensor-core route) against its plain
+    version at vit_moe_s16's block shape (1, 6, 197, 64) in bf16, maps off
+    and on; its device time beside the plain version's and the bound."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import flash_attention as fa
+
+    shape = (1, 6, 197, 64)
+    g = torch.Generator().manual_seed(197)
+    qkv = [(torch.randn(shape, generator=g) * 2).to(device, torch.bfloat16)
+           for _ in range(3)]
+    for maps in (False, True):
+        before = fa.flash_attention_mma.launches
+        got = fa.flash_attention(*qkv, want_attn=maps)
+        torch.cuda.synchronize()
+        if fa.flash_attention_mma.launches != before + 1:
+            raise AssertionError("row 3 at the MoE shape: not on the "
+                                 "tensor-core route")
+        ref = fa.flash_attention_reference(*qkv, want_attn=maps)
+        tag = (f"flash_attention vit_moe_s16 {shape} bfloat16 (tensor "
+               f"cores) maps {'on' if maps else 'off'}")
+        _, line = check_outputs(tag, got, ref, torch.bfloat16,
+                                ("o", "probs"))
+        nbytes, flops = flash_cost(*shape, 2, maps)
+        bms, by = bound(nbytes, flops, "bfloat16")
+        t_k, t_p, t_host = time_turns_held(
+            lambda: fa.flash_attention(*qkv, want_attn=maps),
+            lambda: fa.flash_attention_reference(*qkv, want_attn=maps))
+        log(line + f"; kernel {t_k:.4f} ms, plain {t_p:.4f} ms (device "
+            f"time; the wrapper's host time {t_host:.4f} ms a call); bound "
+            f"{bms:.5f} ms ({by})")
+
+
+def phase_families(device, counters) -> None:
+    """Phase 7: resnet50, convnext_t, vit_moe_s16 and mae_t16 from the
+    repository's saved graphs through ``build_app`` (see the module
+    docstring)."""
+    import gc
+
+    import torch
+
+    from interactive_vit_tpu_torch.models import convnext
+
+    t_phase = time.perf_counter()
+    image = np.random.default_rng(24).random((3, 240, 260), np.float32)
+    none_of_ours = {name: 0 for name in port_kernel_names()}
+    walls = []
+    row3_at_moe_shape(device)
+    resp = {}
+    for dtype_name in ("float32", "bfloat16"):
+        f32 = dtype_name == "float32"
+        gc.collect()
+        torch.cuda.empty_cache()
+        models = ["resnet50", "convnext_t", "vit_moe_s16", "mae_t16"]
+        if not f32:
+            models += [v for v, _, _ in VIT_ONCE]
+        t0 = time.perf_counter()
+        app, httpd, url = serve(models, dtype_name, device, None)
+        log(f"  {dtype_name} server with {', '.join(models)}: built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            ex = app.executor
+            captured = watch_captures(ex)
+            for variant, taps in FAMILY_TAPS.items():
+                tag = f"{variant} {dtype_name}"
+                obj = app.graphs.load(variant + ".json")
+                npar = ({1: {"seed": str(MAE_SEEDS[0])}}
+                        if variant == "mae_t16" else None)
+                body = chain_request(obj, image, tap_list(taps), npar)
+                t0 = time.perf_counter()
+                eager = decoded(url, body)
+                first_ms = (time.perf_counter() - t0) * 1e3
+                cap_s = captured[-1][1]
+                replay = one_request_counts(url, body, counters, tag, {})
+                same_bits(f"{tag} replay vs its eager pass", replay, eager)
+                resp[tag] = replay
+                x = torch.from_numpy(np.array(replay[0]["o"]))
+                if f32 and variant in ("resnet50", "convnext_t"):
+                    model = app.reg.get_node(variant + ":head" if variant
+                                             == "convnext_t" else
+                                             variant + ":fc").model
+                    t1 = time.perf_counter()
+                    f64 = (resnet_f64(model.params, x) if variant ==
+                           "resnet50" else convnext_f64(
+                               model.params, x, convnext.VARIANTS[variant]))
+                    want = {i: {"o": f64[i]} for i in taps if i}
+                    what = (f"the float64 host forward "
+                            f"({time.perf_counter() - t1:.1f} s)")
+                else:
+                    want = host_chain(app, obj, replay[0]["o"], taps, npar)
+                    what = f"the same kinds on the host in {dtype_name}"
+                errs = family_errors(tag, replay, want, taps, (
+                    f32_bound if f32 else moe_bf16_bound
+                    if variant == "vit_moe_s16" else bf16_bound))
+                if variant == "vit_moe_s16" and not f32:
+                    what += "; " + moe_routing_report(replay, want, taps)
+                g = chain_graph(obj, image, npar)
+                wall, busy = profile_request(ex, g, tap_list(taps), tag,
+                                             none_of_ours)
+                rw = median_ms(lambda: ex.run(g, tap_list(taps)))
+                walls.append((tag, first_ms, cap_s, rw, wall, busy))
+                log(f"  {tag}: replay bit for bit its eager pass, no kernel "
+                    f"of the port; max abs err / scale vs {what}: "
+                    + err_str(errs))
+                if variant == "mae_t16":
+                    mae_edits(app, url, obj, image, taps, captured, tag)
+            if not f32:
+                for variant, head_shape, expect in VIT_ONCE:
+                    obj = app.graphs.load(variant + ".json")
+                    head = next(i for i, n in enumerate(obj["nodes"]) if n[
+                        "instance"].get("endpoint", "").endswith(":head"))
+                    body = chain_request(obj, image, [(head, "o")])
+                    decoded(url, body)
+                    out = one_request_counts(url, body, counters,
+                                             f"{variant} bf16", expect)
+                    o = out[head]["o"]
+                    if o.shape != head_shape or not np.isfinite(o).all():
+                        raise AssertionError(f"{variant}: head {o.shape}")
+                    log(f"  {variant}.json bfloat16: one request, "
+                        f"{expect} a request, the head {o.shape} finite")
+        finally:
+            stop(app, httpd)
+    for variant, taps in FAMILY_TAPS.items():
+        errs = family_errors(f"{variant} bf16 vs f32", resp[
+            f"{variant} bfloat16"], resp[f"{variant} float32"], taps)
+        log(f"  {variant} bf16 vs the f32 server (its weights unrounded; "
+            f"reported, not bounded; the MAE mask equal), max abs err / "
+            f"scale: " + err_str(errs))
+    moe_flash(device, image, counters, resp["vit_moe_s16 bfloat16"], walls)
+    saliency_families(device, image, walls)
+    log("  the four families (ms; the first request: its eager pass and "
+        "capture, client wall; capture s; replay: median of 3 executor.run "
+        "walls, synchronized; profiled replay wall / device busy):")
+    for tag, first_ms, cap_s, rw, wall, busy in walls:
+        log(f"    {tag}: first {first_ms:.1f}, capture {cap_s:.2f} s, "
+            f"replay {rw:.2f}, profiled {wall:.2f} / {busy_str(busy)}")
+    log(f"  phase 7 took {time.perf_counter() - t_phase:.1f} s")
+
+
+def mae_edits(app, url, obj, image, taps, captured, tag) -> None:
+    """A seed edit replays the captured program with a new mask, the draw
+    of ``jax.random.uniform(key(seed))`` as the host makes it; a
+    mask_ratio edit captures once."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import mae
+
+    cfg = app.reg.get_node("mae_t16:reconstruct").model.cfg
+    n_caps = len(captured)
+    masks = []
+    for seed in MAE_SEEDS:
+        out = decoded(url, chain_request(obj, image, tap_list(taps),
+                                         {1: {"seed": str(seed)}}))
+        masks.append(out[1]["mask"])
+        _, want, _ = mae.random_masking(torch.tensor(seed), 1,
+                                        cfg.num_patches, cfg.len_keep())
+        if not np.array_equal(out[1]["mask"].reshape(1, -1), want.numpy()):
+            raise AssertionError(f"{tag} seed {seed}: the mask is not the "
+                                 f"host's draw")
+    if len(captured) != n_caps:
+        raise AssertionError(f"{tag}: a seed edit captured anew")
+    if np.array_equal(masks[0], masks[1]):
+        raise AssertionError(f"{tag}: a seed edit kept the mask")
+    out = decoded(url, chain_request(obj, image, tap_list(taps), {
+        1: {"seed": "5", "mask_ratio": "0.5"}}))
+    if len(captured) != n_caps + 1 or out[1]["mask"].sum() != 98:
+        raise AssertionError(f"{tag}: a mask_ratio edit made "
+                             f"{len(captured) - n_caps} captures, masked "
+                             f"{out[1]['mask'].sum()}")
+    log(f"  {tag}: seed {MAE_SEEDS[0]} -> {MAE_SEEDS[1]} replayed (no "
+        f"capture), each mask the host's draw; mask_ratio 0.5 captured "
+        f"once ({captured[-1][1]:.2f} s), 98 of 196 patches masked")
+
+
+def moe_flash(device, image, counters, auto_bf16, walls) -> None:
+    """vit_moe_s16 in bf16 under ``--attn flash``: row 3 in all 12 blocks
+    (exactly 12 launches a request, by name in one profiled replay), the
+    maps and rollout of blocks 0 and 11 tapped; held to the same kinds on
+    the host (the wrapper's plain version there) and to the auto server."""
+    import torch
+
+    taps = MOE_FLASH_TAPS
+    tag = "vit_moe_s16 bfloat16 --attn flash"
+    app, httpd, url = serve(["vit_moe_s16"], "bfloat16", device, None,
+                            attn="flash")
+    try:
+        ex = app.executor
+        captured = watch_captures(ex)
+        obj = app.graphs.load("vit_moe_s16.json")
+        body = chain_request(obj, image, tap_list(taps))
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        eager = decoded(url, body)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        seen = {k: fn.launches for k, fn in counters.items() if fn.launches}
+        if seen != {"flash_attention_mma": 12}:
+            raise AssertionError(f"{tag} eager pass: launches {seen}")
+        replay = one_request_counts(url, body, counters, tag,
+                                    {"flash_attention_mma": 12})
+        same_bits(f"{tag} replay vs its eager pass", replay, eager)
+        want = host_chain(app, obj, replay[0]["o"], taps)
+        errs = family_errors(tag, replay, want, taps, moe_bf16_bound)
+        routing = moe_routing_report(replay, want, taps)
+        g = chain_graph(obj, image)
+        row3 = {"rowfull_mma_kernel": 12, "tiled_attention_kernel": 0}
+        wall, busy = profile_request(ex, g, tap_list(taps), tag, row3)
+        rw = median_ms(lambda: ex.run(g, tap_list(taps)))
+        walls.append((tag, first_ms, captured[-1][1], rw, wall, busy))
+        # the auto server's taps (maps off): row 3 against the plain
+        # attention on the same request
+        auto_taps = tap_list(FAMILY_TAPS["vit_moe_s16"])
+        decoded(url, chain_request(obj, image, auto_taps))
+        wall, busy = profile_request(ex, g, auto_taps, tag + ", maps off",
+                                     row3)
+        rw = median_ms(lambda: ex.run(g, auto_taps))
+        walls.append((tag + ", maps off", float("nan"), captured[-1][1], rw,
+                      wall, busy))
+        auto = {i: {ch: auto_bf16[i][ch] for ch in chs}
+                for i, chs in FAMILY_TAPS["vit_moe_s16"].items()}
+        same = {i: {ch: replay[i][ch] for ch in chs}
+                for i, chs in FAMILY_TAPS["vit_moe_s16"].items()}
+        aerrs = family_errors(f"{tag} vs auto", same, auto,
+                              FAMILY_TAPS["vit_moe_s16"])
+        log(f"  {tag}: 12 row-3 launches a request (eager and replay), the "
+            f"replay bit for bit its eager pass; max abs err / scale vs the "
+            f"kinds on the host (row 3's plain version): {err_str(errs)}; "
+            f"{routing}; "
+            f"vs the --attn auto server (plain attention; reported): "
+            f"{err_str(aerrs)}")
+    finally:
+        stop(app, httpd)
+
+
+def saliency_families(device, image, walls) -> None:
+    """convnext_t_saliency.json and vit_moe_s16_saliency.json in bf16, one
+    server each: the first request (eager pass and capture: dream's 32
+    steps, occlusion's chunks), its capture time, a replay of another
+    image and the replay of the first image bit for bit its eager pass."""
+    import gc
+
+    import torch
+
+    image2 = np.random.default_rng(25).random(image.shape, np.float32)
+    for variant in ("convnext_t", "vit_moe_s16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        tag = f"{variant}_saliency bfloat16"
+        app, httpd, url = serve([variant], "bfloat16", device, None)
+        try:
+            ex = app.executor
+            captured = watch_captures(ex)
+            obj = app.graphs.load(f"{variant}_saliency.json")
+            names = [n["instance"].get("endpoint") or n["instance"]["kind"]
+                     for n in obj["nodes"]]
+            grads = {i: grad_kind(nm) for i, nm in enumerate(names)
+                     if grad_kind(nm) in GRAD_TAPS}
+            head = next(i for i, nm in enumerate(names)
+                        if nm.endswith(":head"))
+            taps = sorted({(head, "o")} | {(i, "o") for i in grads})
+            t0 = time.perf_counter()
+            eager = decoded(url, chain_request(obj, image, taps))
+            first_ms = (time.perf_counter() - t0) * 1e3
+            if len(captured) != 1:
+                raise AssertionError(f"{tag}: {len(captured)} captures")
+            t0 = time.perf_counter()
+            other = decoded(url, chain_request(obj, image2, taps))
+            other_ms = (time.perf_counter() - t0) * 1e3
+            replay = decoded(url, chain_request(obj, image, taps))
+            same_bits(f"{tag} replay vs its eager pass", replay, eager)
+            for i in grads:
+                for out in (replay, other):
+                    o = out[i]["o"]
+                    if not np.isfinite(o).all() or not np.abs(o).max() > 0:
+                        raise AssertionError(f"{tag} node {i}: {o.shape}")
+            g = chain_graph(obj, image)
+            wall, busy = profile_request(ex, g, taps, tag)
+            rw = median_ms(lambda: ex.run(g, taps))
+            walls.append((tag, first_ms, captured[0][1], rw, wall, busy))
+            log(f"  {tag}: first request {first_ms:.0f} ms (capture "
+                f"{captured[0][1]:.2f} s), a replay of another image "
+                f"{other_ms:.1f} ms (client wall), the replay of the first "
+                f"bit for bit "
+                f"its eager pass; " + ", ".join(
+                    f"{grads[i]} {replay[i]['o'].shape}" for i in grads))
+        finally:
+            stop(app, httpd)
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -6466,8 +7040,12 @@ def main() -> int:
     log(f"phase 6 checkpoints (at {time.perf_counter() - t_start:.1f} s):")
     phase_checkpoints(device, counters)
 
-    # 7. result
-    log(f"phase 7 result: all phases passed in "
+    # 7. the last four families from their saved graphs
+    log(f"phase 7 families (at {time.perf_counter() - t_start:.1f} s):")
+    phase_families(device, counters)
+
+    # 8. result
+    log(f"phase 8 result: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"profiles taken again (a trace short of the launch counters): "
         f"{len(PROFILE_RETRIES)}" + "".join(f"; {r}" for r in PROFILE_RETRIES))

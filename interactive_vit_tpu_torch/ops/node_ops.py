@@ -41,7 +41,7 @@ from __future__ import annotations
 import base64
 import html
 import json
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -251,15 +251,17 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def _unit_floats(k0, k1, dims: List[int], device) -> torch.Tensor:
+def _unit_floats(k0, k1, dims: List[int], device, n: Optional[int] = None
+                 ) -> torch.Tensor:
     """``jax.random``'s [0, 1) floats of key (k0, k1), with
     ``jax_threefry_partitionable`` (the default since JAX 0.5): element
     i's counter is (i >> 32, i & 0xFFFFFFFF) in row-major order; its bits
     are the two output words XORed; the value is their top 23 bits as a
-    mantissa of [1, 2), minus 1, which is exactly (bits >> 9) * 2^-23."""
-    n = 1
-    for d in dims:
-        n *= d
+    mantissa of [1, 2), minus 1, which is exactly (bits >> 9) * 2^-23.
+    ``n``: the element count of one key's draw, where the key words
+    broadcast over several keys (default: the product of ``dims``)."""
+    if n is None:
+        n = int(np.prod(dims))
     idx = torch.arange(n, dtype=torch.int64, device=device)
     x0, x1 = threefry2x32(k0, k1, idx >> 32, idx & _U32)
     bits = x0 ^ x1
@@ -271,6 +273,16 @@ def uniform_bits(seed: torch.Tensor, dims: List[int]) -> torch.Tensor:
     bit: the key is (0, seed). ``seed``: an int64 tensor in [0, 2^32) on
     the device the values are made on."""
     return _unit_floats(0, seed, dims, seed.device)
+
+
+def uniform_bits_stacked(seeds: torch.Tensor, dims: List[int]
+                         ) -> torch.Tensor:
+    """``uniform_bits`` of each seed of ``seeds`` ([K] int64), stacked:
+    [K, *dims], row k bit for bit ``uniform_bits(seeds[k], dims)``, in one
+    pass of the cipher for all K."""
+    k = seeds.shape[0]
+    return _unit_floats(0, seeds.reshape(k, 1), [-1], seeds.device,
+                        n=int(np.prod(dims))).reshape(k, *dims)
 
 
 def fold_in(key, data: int):

@@ -2,7 +2,8 @@
 
 Counterpart of ``interactive_vit_tpu/serving/server.py``: register the
 built-in node kinds and the requested model variants (plain ViTs, Swin,
-ToMe, CLIP and VGG16, through ``models/autoregister``), then serve. With
+ToMe, CLIP, VGG16, ResNet-50, ConvNeXt, the MoE ViT and MAE, through
+``models/autoregister``), then serve. With
 ``--graphs-dir``, a variant's chained graph JSON is written into that
 library when it lacks one; the repository's own ``static/graphs`` (the
 default) is only read. Example, on one CUDA card:
@@ -40,6 +41,18 @@ the library lacks it:
 
     python -m interactive_vit_tpu_torch.serving.server \
         --models clip_b32,clip_text_b32,vgg16 --dtype bfloat16 --port 8965
+
+``--models resnet50,convnext_t,vit_moe_s16,mae_t16`` serves the
+repository's saved graphs of the last four families: ResNet-50 and
+ConvNeXt-T on cuDNN convolutions (no kernel of this package), the MoE ViT
+(8 experts in every odd block, routed per image; under ``--attn flash``
+every block's attention runs the row-resident flash kernel, under
+``auto`` the plain path at its 197 tokens) and MAE (a seed edit of
+``reconstruct`` redraws the mask on the device and replays the captured
+program; a ``mask_ratio`` edit captures anew):
+
+    python -m interactive_vit_tpu_torch.serving.server \
+        --models resnet50,convnext_t,vit_moe_s16,mae_t16 --attn flash
 
 ``--dtype int8`` serves weight-only int8 (qkv, proj, fc1, fc2) over bf16
 activations on the unfused path; ``--dtype int8w8a8`` quantizes fc1 and
@@ -87,9 +100,9 @@ the JAX trainer's ``--export-safetensors`` file serves:
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
         --ckpt vit_b16=vit_b_16.safetensors --ckpt-layout torchvision
 
-Multi-device serving, quantized Swin and the other families are not ported
-yet, nor are the JAX server's flags for them (``--mesh``,
-``--from-export``, ``--export-selftest``), tap speculation and
+Multi-device serving and quantized Swin are not ported yet, nor are the
+JAX server's flags for them (``--mesh``, ``--from-export``,
+``--export-selftest``), tap speculation and
 the warm inventory (``--speculate-buckets``, ``--no-speculate``,
 ``--warm-inventory``, ``--warm-budget-s``), and its TPU-host flags
 (``--platform``, ``--jit-cache``, ``--recycle-*``).

@@ -10,8 +10,11 @@ this package serves:
 
 writes a directory of ``utils/checkpoint.py`` (not an orbax one), which the
 server's and ``run_graph``'s ``--ckpt MODEL=DIR`` serve. ``convert`` is
-also what those flags run on a ``.safetensors`` or ``.pth`` file. ResNet-50,
-ConvNeXt and MAE are not ported: ``convert`` refuses them.
+also what those flags run on a ``.safetensors`` or ``.pth`` file, for every
+family: torchvision's naming for VGG16, ResNet-50, Swin and ConvNeXt,
+OpenAI's for the CLIP towers, torchvision's or timm's for the ViTs, and the
+native "/" naming (the JAX package's export) for any model, MAE's and the
+MoE ViT's included.
 """
 
 from __future__ import annotations
@@ -38,11 +41,6 @@ VALID_LAYOUTS = {
     # every ViT variant accepts either framework naming, or our own
     "_vit": {"torchvision", "timm", "native"},
 }
-
-# families of VALID_LAYOUTS that this package does not serve yet
-_UNPORTED = {"resnet50": "ResNet-50", "convnext_": "ConvNeXt",
-             "mae_": "MAE"}
-
 
 def load_state_dict(path: str):
     """Load a checkpoint file into {name: numpy array}.
@@ -85,12 +83,6 @@ def convert(model: str, layout: str, sd, dtype=torch.float32, device="cpu"):
     port's tree for ``model``, each entry read as f32 on the host, then a
     tensor of ``dtype`` on ``device`` (the CPU default is a staging place:
     a loader that serves passes its device)."""
-    family = next((name for prefix, name in _UNPORTED.items()
-                   if model.startswith(prefix)), None)
-    if family is not None:
-        raise ValueError(f"{model}: the {family} family is not yet ported "
-                         f"to the torch package; its checkpoints convert "
-                         f"only in the JAX package")
     allowed = VALID_LAYOUTS.get(model, VALID_LAYOUTS["_vit"])
     if layout == "auto":
         if any("/" in k for k in sd.keys()):
@@ -108,11 +100,12 @@ def convert(model: str, layout: str, sd, dtype=torch.float32, device="cpu"):
         from interactive_vit_tpu_torch.models.weights import from_native_flat
 
         params = from_native_flat(sd, **kw)
-        if (model not in ("vgg16", "clip_b32", "clip_text_b32")
-                and not model.startswith("swin_")):
-            # ViT only: empty containers do not survive flattening, so put
-            # back the optional classifier head ({} = feature extractor)
-            # and a depth-0 trunk
+        if (model not in ("vgg16", "clip_b32", "clip_text_b32", "resnet50")
+                and not model.startswith(("swin_", "convnext_", "mae_"))):
+            # ViT only (MAE's maker puts back its encoder's head itself):
+            # empty containers do not survive flattening, so put back the
+            # optional classifier head ({} = feature extractor) and a
+            # depth-0 trunk
             params.setdefault("head", {})
             params.setdefault("blocks", [])
         return params
@@ -120,10 +113,18 @@ def convert(model: str, layout: str, sd, dtype=torch.float32, device="cpu"):
         from interactive_vit_tpu_torch.models import vgg
 
         return vgg.from_torchvision(sd, **kw)
+    if model == "resnet50":
+        from interactive_vit_tpu_torch.models import resnet
+
+        return resnet.from_torchvision(sd, **kw)
     if model.startswith("swin_"):
         from interactive_vit_tpu_torch.models import swin
 
         return swin.from_torch(sd, swin.VARIANTS[model], **kw)
+    if model.startswith("convnext_"):
+        from interactive_vit_tpu_torch.models import convnext
+
+        return convnext.from_torchvision(sd, convnext.VARIANTS[model], **kw)
     if model == "clip_b32":
         from interactive_vit_tpu_torch.models import clip
 
@@ -149,7 +150,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--model", required=True,
                         help="vit_t16|vit_s16|vit_b16|vit_l16|...|clip_b32|"
-                             "clip_text_b32|vgg16|swin_*")
+                             "clip_text_b32|vgg16|resnet50|swin_*|"
+                             "convnext_*|vit_moe_s16|mae_*")
     parser.add_argument("--layout", default="auto",
                         choices=["auto", "torchvision", "timm", "openai",
                                  "native"])

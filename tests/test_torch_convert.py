@@ -276,9 +276,15 @@ def test_wrong_layout_raises_jax_message(model, layout):
     ("resnet50", "ResNet-50"), ("convnext_t", "ConvNeXt"),
     ("convnext_b", "ConvNeXt"), ("mae_b16", "MAE")])
 def test_unported_families_raise(model, family):
-    with pytest.raises(ValueError, match=f"{family} family is not yet "
-                                         f"ported"):
-        tconvert.convert(model, "auto", {"x/y": np.zeros(1)})
+    """The families the port once refused convert now: a native-named
+    state dict gives the JAX converter's tree (no ViT head or trunk put
+    back for them)."""
+    sd = {"x/y": np.arange(3, dtype=np.float32)}
+    got = tconvert.convert(model, "auto", sd)
+    want = jconvert.convert(model, "auto", sd)
+    assert sorted(got) == sorted(want) == ["x"], family
+    np.testing.assert_array_equal(got["x"]["y"].numpy(),
+                                  np.asarray(want["x"]["y"]))
 
 
 class _Tiny(torch.nn.Module):

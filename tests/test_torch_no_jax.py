@@ -49,6 +49,14 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.models.vgg",
     "interactive_vit_tpu_torch.models.vgg_plugin",
     "interactive_vit_tpu_torch.models.attrib",
+    "interactive_vit_tpu_torch.models.resnet",
+    "interactive_vit_tpu_torch.models.resnet_plugin",
+    "interactive_vit_tpu_torch.models.convnext",
+    "interactive_vit_tpu_torch.models.convnext_plugin",
+    "interactive_vit_tpu_torch.models.moe",
+    "interactive_vit_tpu_torch.models.moe_plugin",
+    "interactive_vit_tpu_torch.models.mae",
+    "interactive_vit_tpu_torch.models.mae_plugin",
     "interactive_vit_tpu_torch.models.model_plugin",
     "interactive_vit_tpu_torch.models.weights",
     "interactive_vit_tpu_torch.runtime.constants",

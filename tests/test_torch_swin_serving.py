@@ -180,7 +180,8 @@ def test_block_node_description_and_controls(servers):
 
 def test_build_app_serves_swin_beside_vit(tmp_path):
     """``--models swin_t,vit_t16`` registers both families through
-    ``models/autoregister``; an unported family raises with its name."""
+    ``models/autoregister``; so does ``convnext_t``, which the port once
+    refused, with its chain and saliency graphs written."""
     app = build_app(models=("swin_t", "vit_t16"), graphs_dir=str(tmp_path),
                     device="cpu")
     try:
@@ -192,6 +193,11 @@ def test_build_app_serves_swin_beside_vit(tmp_path):
         assert len(app.graphs.load("swin_t.json")["nodes"]) == 21
     finally:
         app.close()
-    with pytest.raises(NotImplementedError, match="ConvNeXt"):
-        build_app(models=("convnext_t",), graphs_dir=str(tmp_path),
-                  device="cpu")
+    app = build_app(models=("convnext_t",), graphs_dir=str(tmp_path),
+                    device="cpu")
+    try:
+        assert "convnext_t:stages.2.8" in app.reg.names()
+        assert {"convnext_t.json", "convnext_t_saliency.json"} <= set(
+            app.graphs.list())
+    finally:
+        app.close()
