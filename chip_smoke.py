@@ -8,7 +8,8 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
 1. device  -- a CUDA card must be present; TF32 is turned off; prints the
    card's name and power limit as ``nvidia-smi`` reports them.
 2. build   -- builds the twenty-three hand-written kernel sources from
-   ``csrc/`` with nvcc, one compiler process each, all at once (the
+   ``csrc/`` with nvcc, one compiler process each, all at once, and beside
+   them the host library with g++ (``runtime/build.py``) (the
    whole-image block is ``fused_attn_block.cu`` (FMA, ``__dp4a``),
    ``fused_attn_block_mma.cu`` (bf16 tensor cores) and
    ``fused_attn_block_tf32.cu`` (f32 on split TF32), its s8 and ToMe modes
@@ -273,7 +274,7 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    the replay of the image a program was captured with and (b) of a
    second image, each against the eager pass (``use_jit=False``) of the
    same request, bit for bit (an output that is not must lie within the
-   path's bound against the eager one, and phase 8 lists it), each
+   path's bound against the eager one, and phase 9 lists it), each
    program's recorded launches the path's kernels a pass; the replay's and the
    eager pass's walls (median of 3) and one profiled run of each (device
    busy share, the kernels that take the most time; the same kernels by
@@ -445,13 +446,39 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    capture time, the replay wall, the replay bit for bit its eager pass);
    a table of each request's first wall, capture, replay wall and device
    busy.
-8. result  -- the profiles taken again, the replayed outputs that were
+8. native  -- the native host tier and the trainer's data path
+   (``phase_native_data``): the host library (``wirecodec.cpp`` and
+   ``dataloader.cpp``, built with g++ in phase 2 beside the kernels) and
+   the codec's native tier asserted in the serving process; the real
+   /compute responses of dinov2_s14_reg @518 with one block's map (row 3,
+   12 launches a request), vit_l16 @384 with maps (row 2, 24) and vit_b16
+   with maps + rollout on 3 blocks and with its head alone (row 1, 12),
+   10 sequential requests each: the served (native) bytes, ``native.pack``'s
+   and the Python encoder's byte for byte equal, both encoders timed on the
+   same outputs (median of 20, turns Python / native / native / Python),
+   the server's decode and encode p50; a dataset of 1,024 images [3, 224,
+   224] f32 written by ``save_dataset``: the native loader's first 20
+   batches of 64 (borrowed; the epoch boundary at 16) the Python
+   backend's bit for bit, and its rate alone; ``tools.train.main`` on
+   vit_b16 mixed B=64 ``--data`` with all six augmentations for 24 steps
+   (12 + 12 packed tensor-core launches a step, finite losses, the step
+   time beside phase 5's synthetic one), 12 steps saved and resumed to 24
+   (the export params bit for bit the uninterrupted run's), vit_t16 mixed
+   ``--data`` for 4 steps (12 + 12 ``attention_train_mma`` a step); each
+   augmentation and all six on a [64, 3, 224, 224] batch on the card
+   against the same draws on the host (moved values bit for bit, color
+   jitter, mixup and the soft labels within 1e-6; zeroed and halved results
+   refused);
+   ``tools.evaluate.main`` (``ivt-eval``) on the dataset with ``--limit
+   200 --batch 64``: n = 200 and the JSON line's keys. The dataset and the
+   checkpoints are deleted at the end of the phase.
+9. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5 and 7 use random (seeded) weights,
+It imports nothing of JAX. Phases 3-5, 7 and 8 use random (seeded) weights,
 so their logits are meaningless as classifications; what is checked is
 that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
@@ -459,6 +486,7 @@ weights the trainer made.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import inspect
 import json
@@ -2249,7 +2277,7 @@ def chain_request(graph_obj, image, taps, node_params=None):
 
 
 # Every trace that ``profiled`` took again, as "<what>: <seen> of
-# <expected>"; phase 8 prints them before the result.
+# <expected>"; phase 9 prints them before the result.
 PROFILE_RETRIES = []
 
 
@@ -2269,7 +2297,9 @@ def profiled(run, what: str, expect=None, tries: int = 3):
     launches of one kernel, three times running), so a try after the first
     starts its trace with a few device-to-device copies and a wait on the
     host before ``run``: the run's records then sit elsewhere in the
-    trace. Returns ``report_profile``'s (wall ms, device busy ms)."""
+    trace. A trace that holds no kernel at all (one of CUPTI's traces of
+    a replay on the card came back empty) is taken again likewise.
+    Returns ``report_profile``'s (wall ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2285,6 +2315,12 @@ def profiled(run, what: str, expect=None, tries: int = 3):
                 torch.cuda.synchronize()
                 time.sleep(0.002 * attempt)
             wall_ms = run()
+        if expect and not ran_kernels(prof):
+            short.append({})
+            PROFILE_RETRIES.append(f"{what}: no kernel in the trace")
+            log(f"  {what}: the trace holds no kernel (the run launches "
+                f"some): its records lost; profiling again")
+            continue
         if expect:
             seen = kernels_by_name(prof, expect)
             if (seen != expect and all(seen[k] <= n for k, n in expect.items())
@@ -2296,7 +2332,8 @@ def profiled(run, what: str, expect=None, tries: int = 3):
                 continue
         return report_profile(prof, wall_ms, what, expect)
     raise AssertionError(f"{what}: each of {tries} traces showed fewer "
-                         f"launches than {expect}: {short}")
+                         f"launches than {expect} ({{}}: no kernel at "
+                         f"all): {short}")
 
 
 def synchronized_ms(fn) -> float:
@@ -2366,6 +2403,13 @@ def device_kernels(prof):
     return prof.ivt_kernels
 
 
+def ran_kernels(prof):
+    """``device_kernels`` less the copies and fills (``profiled``'s
+    padding makes some), so what is left was launched by the run."""
+    return [k for k in device_kernels(prof)
+            if not k[2].startswith(("Memcpy", "Memset"))]
+
+
 def kernels_by_name(prof, parts) -> dict:
     """The launches a profile saw of the kernels whose names hold each of
     ``parts``."""
@@ -2383,7 +2427,7 @@ def report_profile(prof, wall_ms: float, what: str, expect=None):
     the kernels whose names hold it} (0: none may run)."""
     kernels = device_kernels(prof)
     busy = sum(t for t, _, _ in kernels)
-    if not kernels:
+    if not ran_kernels(prof):
         if expect:
             raise AssertionError(f"{what}: the profiler saw no kernel, so "
                                  f"{sorted(expect)} cannot be checked")
@@ -2797,9 +2841,9 @@ def check_response(raw, path, plain, tag, bf16=True, rel=False):
 
 # Every replayed output that was not the eager pass's bit for bit (each
 # then held to its path's bound against the eager result), as "<what>:
-# {output: max abs difference}"; phase 8 prints them before the result.
+# {output: max abs difference}"; phase 9 prints them before the result.
 REPLAY_DIFFS = []
-# One row a served path for phase 8's table of the compiled path: (tag,
+# One row a served path for phase 9's table of the compiled path: (tag,
 # replay and eager walls, their profiled walls and device busy, the
 # captures' seconds, memory_reserved).
 COMPILED = []
@@ -2908,7 +2952,7 @@ def compare_replay(tag, path, got, want, what) -> str:
     same request: equal bit for bit (the same kernels on the same shapes
     and routes). Where an output is not, it must lie within the path's
     bound against the eager result, and the difference is recorded in
-    REPLAY_DIFFS for phase 8."""
+    REPLAY_DIFFS for phase 9."""
     import torch
 
     g = {f"{i}/{ch}": v for i, sub in got.items() for ch, v in sub.items()}
@@ -5498,6 +5542,7 @@ def phase_train(device, counters) -> dict:
         raise AssertionError(f"train vit_b16: loss did not fall: {losses}")
     launches["attention_train_packed_mma"] = sum(res["counts"][
         "attention_train_packed_mma"])
+    SYNTH_STEP_MS["vit_b16"] = res["ms_per_step"]
     log(f"  train vit_b16 @224 mixed, B={batch}, {steps} steps: remat auto "
         f"-> off, head-major {res['head_major']}, packed tensor-core "
         f"launches {res['counts']['attention_train_packed_mma']} (12 + 12 a "
@@ -6637,6 +6682,344 @@ def saliency_families(device, image, walls) -> None:
             stop(app, httpd)
 
 
+# -- phase 8: the native host tier and the trainer's data path --------------
+
+# The host library's path and build seconds (phase 2 builds it).
+HOST_BUILD = {}
+# Phase 5's synthetic vit_b16 mixed B=64 step (ms), the --data run's
+# yardstick.
+SYNTH_STEP_MS = {}
+# The served responses whose encode phase 8 times: (tag, model, image side,
+# taps by node, node params, launches of one request).
+ENCODE_PATHS = (
+    ("dinov2_s14_reg @518 map", "dinov2_s14_reg", 518,
+     {2: ("attn", "r"), 8: ("r",), 13: ("r",)}, {},
+     {"flash_attention_mma": 12}),
+    ("vit_l16 @384 maps", "vit_l16", 384,
+     {2: ("attn", "r"), 14: ("attn", "r"), 25: ("r",)},
+     {14: {"attn_heads": "[0,7,15]"}}, {"headwise_attn_block_mma": 24}),
+    ("vit_b16 maps + rollout", "vit_b16", 224,
+     {2: ("attn", "r"), 7: ("attn", "r"), 13: ("attn", "r")}, {},
+     {"fused_attn_block_mma": 12}),
+    ("vit_b16 head only", "vit_b16", 224, {}, {},
+     {"fused_attn_block_mma": 12}),
+)
+# The loader check's dataset: 1,024 images [3, 224, 224] f32 (617 MB),
+# labels over 1,000 classes; B=64 puts the epoch boundary at batch 16.
+DATA_N, DATA_BATCH = 1024, 64
+# The augmentations on the card against the host: (recipe, bound of the
+# images, bound of the labels). Values moved only (flip, crop, cutout,
+# cutmix's pixels) bit for bit; color jitter's means and mixup's and
+# cutmix's soft labels are f32 arithmetic, within 1e-6.
+AUG_CASES = {"hflip": (dict(hflip=True), 0.0, 0.0),
+             "crop": (dict(crop_pad=4), 0.0, 0.0),
+             "color": (dict(color_jitter=0.4), 1e-6, 0.0),
+             "cutout": (dict(cutout=16), 0.0, 0.0),
+             "mixup": (dict(mixup_alpha=0.8), 1e-6, 1e-6),
+             "cutmix": (dict(cutmix_alpha=1.0), 0.0, 1e-6),
+             "all": (dict(hflip=True, crop_pad=4, color_jitter=0.4,
+                          cutout=16, mixup_alpha=0.8, cutmix_alpha=1.0),
+                     1e-6, 1e-6)}
+
+
+def zero_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def read_counts(counters) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return {k: fn.launches for k, fn in counters.items() if fn.launches}
+
+
+def encode_turns(outs, n: int = 20) -> dict:
+    """Median ms of ``n`` encodes of ``outs`` on each tier, in turns
+    Python, native, native, Python."""
+    from interactive_vit_tpu_torch.wire import codec
+
+    turns = {"python": [], "native": []}
+    try:
+        for tier in ("python", "native", "native", "python"):
+            codec._tier = tier
+            ts = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                codec.Response(outs).encode()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            turns[tier].append(float(np.median(ts)))
+    finally:
+        codec._tier = "native"
+    return turns
+
+
+def served_encode(device, counters) -> None:
+    """The real /compute responses of ENCODE_PATHS on one bf16 server:
+    each request's launches exactly its path's, the server's (native)
+    bytes the Python encoder's byte for byte and ``native.pack``'s, both
+    encoders timed on the same outputs, the server's decode and encode
+    p50 over 10 sequential requests a path."""
+    from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.wire import codec
+
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_native_")
+    try:
+        graphs_dir = os.path.join(tmp, "graphs")
+        shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
+        app, httpd, url = serve(
+            sorted({p[1] for p in ENCODE_PATHS}), "bfloat16", device,
+            graphs_dir)
+        try:
+            if codec.native_tier() != "native":
+                raise AssertionError(f"the serving process runs the "
+                                     f"{codec.native_tier()} tier")
+            rng = np.random.default_rng(8)
+            for tag, model, side, taps, node_params, per_req in ENCODE_PATHS:
+                path = Path(model, vit, vit.resolve_variant(model), side,
+                            taps, {}, {}, vit_tap_shape, 0, 0)
+                image = rng.random((3, side, side), dtype=np.float32)
+                body = chain_request(app.graphs.load(model + ".json"), image,
+                                     path.taps(), node_params)
+                post(url + "/compute", body)  # its capture
+                zero_counts(counters)
+                raws, timing = [], []
+                for _ in range(10):
+                    raw, t = post_timed(url + "/compute", body)
+                    raws.append(raw)
+                    timing.append(t)
+                seen = read_counts(counters)
+                want = {k: 10 * n for k, n in per_req.items()}
+                if seen != want:
+                    raise AssertionError(f"encode {tag}: launches {seen}, "
+                                         f"expected {want}")
+                outs = codec.Response.decode(raws[-1])
+                if sorted((i, ch) for i in outs for ch in outs[i]) != sorted(
+                        path.taps()):
+                    raise AssertionError(f"encode {tag}: taps {outs}")
+                for i in outs:
+                    for ch, arr in outs[i].items():
+                        if not np.isfinite(arr).all():
+                            raise AssertionError(f"encode {tag}: node {i} "
+                                                 f"{ch} not finite")
+                codec._tier = "python"
+                want_bytes = codec.Response(outs).encode()
+                codec._tier = "native"
+                packed = codec.Response(outs).encode()
+                if not (bytes(packed) == want_bytes == raws[-1]):
+                    raise AssertionError(f"encode {tag}: native pack and "
+                                         f"the served bytes differ from "
+                                         f"the Python encoder's")
+                turns = encode_turns(outs)
+                py, nat = turns["python"], turns["native"]
+                dec = float(np.median([t["decode"] for t in timing]))
+                enc = float(np.median([t["encode"] for t in timing]))
+                log(f"  encode {tag}: {len(raws[-1]) / 2 ** 20:.2f} MiB, "
+                    f"{len(want_bytes)} bytes equal on both tiers and the "
+                    f"served ones; Python {py[0]:.3f} / {py[1]:.3f} ms, "
+                    f"native {nat[0]:.3f} / {nat[1]:.3f} ms (median of 20, "
+                    f"turns P/N/N/P; native at "
+                    f"{min(nat) / min(py):.2f} of Python); served p50 over "
+                    f"10: decode {dec:.2f} ms, encode {enc:.2f} ms; "
+                    f"launches {seen} (10 requests)")
+            with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+                snap = json.loads(r.read())
+            n_req = snap["counters"].get("compute_requests", 0)
+            log(f"  /metrics over the phase's {n_req} requests (native "
+                f"tier): decode p50 "
+                f"{snap['decode_p50_ms']:.3f} ms, encode p50 "
+                f"{snap['encode_p50_ms']:.3f} ms")
+        finally:
+            stop(app, httpd)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def check_loader(prefix) -> None:
+    """The native loader's first 20 batches (borrowed) against the Python
+    backend's, bit for bit (the epoch boundary at batch 16), then the
+    native loader's rate alone."""
+    from interactive_vit_tpu_torch.data.loader import Loader
+
+    files = (prefix + "_images.npy", prefix + "_labels.npy")
+    nat = Loader(*files, DATA_BATCH, seed=0, flip=True, borrow=True)
+    py = Loader(*files, DATA_BATCH, seed=0, flip=True, borrow=True,
+                backend="python")
+    if not nat.native or py.native:
+        raise AssertionError("loader backends: native "
+                             f"{nat.native}, python {not py.native}")
+    try:
+        epochs = []
+        for b in range(20):
+            ai, al, ae = next(nat)
+            bi, bl, be = next(py)
+            if ae != be or not (np.array_equal(al, bl)
+                                and ai.tobytes() == bi.tobytes()):
+                raise AssertionError(f"loader batch {b}: native differs "
+                                     f"from the Python backend")
+            epochs.append(ae)
+        if epochs != [0] * 16 + [1] * 4:
+            raise AssertionError(f"loader epochs {epochs}")
+    finally:
+        nat.close()
+    rate = Loader(*files, DATA_BATCH, seed=1, flip=True, borrow=True)
+    try:
+        next(rate)
+        t0 = time.perf_counter()
+        for _ in range(48):
+            next(rate)
+        dt = time.perf_counter() - t0
+    finally:
+        rate.close()
+    mb = DATA_BATCH * 3 * 224 * 224 * 4 / 1e6
+    log(f"  loader: 20 batches of {DATA_BATCH} (epoch boundary at 16) "
+        f"native = Python bit for bit, borrowed; native alone "
+        f"{48 / dt:.1f} batches/s ({48 * mb / dt / 1e3:.2f} GB/s, "
+        f"{mb:.1f} MB a batch, 2 threads, depth 4)")
+
+
+def check_augment(device) -> None:
+    """Each augmentation and all six on a [64, 3, 224, 224] batch on the
+    card against the same draws applied on the host; each bound refuses a
+    result zeroed or halved."""
+    import torch
+
+    from interactive_vit_tpu_torch.data import augment as aug
+    from interactive_vit_tpu_torch.ops import node_ops
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.rand((64, 3, 224, 224), generator=g)
+    y = torch.randint(0, 1000, (64,), generator=g)
+    xd, yd = x.to(device), y.to(device)
+    worst = {}
+    for name, (kw, image_bound, label_bound) in AUG_CASES.items():
+        cfg = aug.AugmentConfig(**kw)
+        for step in (3, 4):  # "all": one mixup step, one cutmix step
+            key = node_ops.fold_in(node_ops.prng_key(7 + 0x5EED), step)
+            want = aug.augment(key, x, y, 1000, cfg)
+            got = aug.augment(key, xd, yd, 1000, cfg)
+            for part, a, b, bound in (
+                    ("images", got[0], want[0], image_bound),
+                    ("labels", got[1], want[1], label_bound)):
+                a = a.cpu()
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise AssertionError(f"augment {name} {part}: "
+                                         f"{a.shape} {a.dtype}")
+                err = float((a.double() - b.double()).abs().max())
+                if not err <= bound:
+                    raise AssertionError(f"augment {name} step {step} "
+                                         f"{part}: {err} > {bound}")
+                for bad in (a * 0.5, a * 0.0):
+                    if float((bad.double() - b.double()).abs().max()
+                             ) <= bound and b.abs().max() > 0:
+                        raise AssertionError(f"augment {name} {part}: a "
+                                             f"mutated result passed")
+                worst[f"{name} {part}"] = max(
+                    worst.get(f"{name} {part}", 0.0), err)
+    cfg = aug.AugmentConfig(**AUG_CASES["all"][0])
+    fn = aug.make_augment_fn(cfg, 1000, seed=7)
+    ms = median_ms(lambda: fn(9, xd, yd), n=5)
+    log(f"  augment on the card vs the host at [64, 3, 224, 224]: "
+        + ", ".join(f"{k} {v:.1e}" for k, v in worst.items())
+        + f" (max abs; AUG_CASES' bounds; zeroed and halved refused); all "
+        f"six {ms:.2f} ms a batch (median of 5, synchronized)")
+
+
+def phase_native_data(device, counters) -> None:
+    """Phase 8: the native host tier and the trainer's data path (the
+    module docstring, phase 8)."""
+    import torch
+
+    from interactive_vit_tpu_torch.data.loader import save_dataset
+    from interactive_vit_tpu_torch.tools import evaluate
+    from interactive_vit_tpu_torch.wire import codec
+
+    t_phase = time.perf_counter()
+    # 1. the build and the tier
+    if codec.native_tier() != "native":
+        raise AssertionError(f"codec tier {codec.native_tier()}")
+    log(f"  host library {HOST_BUILD['path']}: built from the checkout's "
+        f"wirecodec.cpp and dataloader.cpp in {HOST_BUILD['s']:.2f} s "
+        f"(phase 2); codec tier native")
+    # 2. the served encode
+    served_encode(device, counters)
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_data_")
+    try:
+        # 3. the loader
+        t0 = time.perf_counter()
+        prefix = os.path.join(tmp, "ds")
+        rng = np.random.default_rng(0)
+        save_dataset(prefix, rng.random((DATA_N, 3, 224, 224),
+                                        dtype=np.float32),
+                     rng.integers(0, 1000, DATA_N))
+        log(f"  dataset: {DATA_N} images [3, 224, 224] f32, 1000 classes, "
+            f"written in {time.perf_counter() - t0:.1f} s")
+        check_loader(prefix)
+        # 4. the trainer through the loader
+        data = ["--data", prefix, "--hflip", "--crop-pad", "4",
+                "--color-jitter", "0.4", "--cutout", "16", "--mixup", "0.8",
+                "--cutmix", "1.0"]
+        base = ["--variant", "vit_b16", "--dtype", "mixed", "--attn", "auto",
+                "--batch", str(DATA_BATCH), "--log-every", "1", *data]
+        steps = 24
+        res = run_train("train vit_b16 --data", base + ["--steps",
+                                                        str(steps)],
+                        counters, {"attention_train_packed_mma":
+                                   (12 * steps, 12 * steps)})
+        if res["backend"] != "native":
+            raise AssertionError(f"--data loader backend {res['backend']}")
+        ms = res["ms_per_step"]
+        synth = SYNTH_STEP_MS.get("vit_b16")
+        log(f"  train vit_b16 mixed B={DATA_BATCH} --data + all six "
+            f"augmentations, {steps} steps (the epoch boundary after step "
+            f"14): packed tensor-core launches "
+            f"{res['counts']['attention_train_packed_mma']} (12 + 12 a "
+            f"step); loss " + " ".join(f"{x:.4f}" for _, x, _ in
+                                     res["history"])
+            + f"; {ms:.2f} ms a step, {DATA_BATCH * 1e3 / ms:.1f} images/s "
+            f"(steps 3-{steps})" + (
+                f"; the synthetic run's {synth:.2f} ms (phase 5): "
+                f"{ms / synth:.3f}x" if synth else ""))
+        out = os.path.join(tmp, "resume")
+        run_train("--data 12 steps saved", base + [
+            "--steps", "12", "--output", out, "--save-every", "12"],
+            counters, {"attention_train_packed_mma": (144, 144)})
+        resumed = run_train("--data resumed to 24", base + [
+            "--steps", str(steps), "--output", out, "--resume"], counters,
+            {"attention_train_packed_mma": (144, 144)})
+        if resumed["start_step"] != 12:
+            raise AssertionError(f"resumed at {resumed['start_step']}")
+        n = same_tree("--data resume", resumed["params"], res["params"])
+        log(f"  --data resume: 12 steps saved, resumed to {steps}: the "
+            f"export params bit for bit the uninterrupted run's ({n} "
+            f"leaves)")
+        t16 = run_train("train vit_t16 --data", [
+            "--variant", "vit_t16", "--dtype", "mixed", "--batch",
+            str(DATA_BATCH), "--steps", "4", "--log-every", "1", *data],
+            counters, {"attention_train_mma": (48, 48)})
+        log(f"  train vit_t16 mixed --data + augmentations, 4 steps: "
+            f"tensor-core launches {t16['counts']['attention_train_mma']} "
+            f"(12 + 12 a step); loss "
+            + " ".join(f"{x:.4f}" for _, x, _ in t16["history"]))
+        # 5. the augmentations on the card
+        check_augment(device)
+        # 6. ivt-eval
+        zero_counts(counters)
+        line = evaluate.main(["--variant", "vit_b16", "--data", prefix,
+                              "--limit", "200", "--batch", "64"])
+        keys = ["imgs_per_s", "n", "top1", "top5", "variant", "wall_s"]
+        if line["n"] != 200 or sorted(line) != keys:
+            raise AssertionError(f"ivt-eval: {line}")
+        log(f"  ivt-eval vit_b16 --data --limit 200 --batch 64 (random "
+            f"init: a smoke run): n {line['n']} (three chunks of 64 and a "
+            f"tail of 8), {line['imgs_per_s']} images/s; launches "
+            f"{read_counts(counters)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -6667,11 +7050,24 @@ def main() -> int:
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi[0])
 
-    # 2. build: one nvcc per source, all at once
+    # 2. build: one nvcc per source, all at once, and beside them the host
+    # library (the wire codec and the data loader) with g++
     t0 = time.perf_counter()
     sources = sorted({os.path.basename(src)[:-3]
                       for src, _ in KERNELS.values()})
-    cuda_build.build_all(sources)
+    from interactive_vit_tpu_torch.runtime import build as host_build
+    from interactive_vit_tpu_torch.runtime import native
+
+    def build_host():
+        t = time.perf_counter()
+        native.get_lib()
+        HOST_BUILD.update(path=host_build.library_path(),
+                          s=time.perf_counter() - t)
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(build_host)
+        cuda_build.build_all(sources)
+        host.result()
     fb.load_kernel()
     fb.load_mma_kernel()
     fb.load_tf32_kernel()
@@ -6695,7 +7091,10 @@ def main() -> int:
     av.load_kernel()
     av.load_mma_kernel()
     log(f"phase 2 build: {', '.join(sources)} built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s; the host library "
+        f"{os.path.basename(HOST_BUILD['path'])} (g++ "
+        f"{' '.join(host_build.FLAGS)}) in {HOST_BUILD['s']:.2f} s beside "
+        f"them")
     counters = {"fused_attn_block": fb.fused_attn_block,
                 "headwise_attn_block": fb.headwise_attn_block,
                 "flash_attention": fa.flash_attention,
@@ -7044,8 +7443,13 @@ def main() -> int:
     log(f"phase 7 families (at {time.perf_counter() - t_start:.1f} s):")
     phase_families(device, counters)
 
-    # 8. result
-    log(f"phase 8 result: all phases passed in "
+    # 8. the native host tier and the trainer's data path
+    log(f"phase 8 native tier and data (at "
+        f"{time.perf_counter() - t_start:.1f} s):")
+    phase_native_data(device, counters)
+
+    # 9. result
+    log(f"phase 9 result: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"profiles taken again (a trace short of the launch counters): "
         f"{len(PROFILE_RETRIES)}" + "".join(f"; {r}" for r in PROFILE_RETRIES))

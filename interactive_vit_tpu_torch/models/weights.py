@@ -239,9 +239,13 @@ def from_timm(sd: Dict[str, Any], cfg, dtype=torch.float32, device="cpu"):
 # holding "/"), in both packages.
 
 
-def to_native_flat(params) -> Dict[str, np.ndarray]:
+def to_native_flat(params, keep_bf16: bool = False
+                   ) -> Dict[str, np.ndarray]:
     """Flatten a tree to {path: numpy array} with "/"-joined keys. Empty
-    containers flatten to nothing; Python scalars to 0-d arrays."""
+    containers flatten to nothing; Python scalars to 0-d arrays.
+    ``keep_bf16``: a bf16 leaf stays a host ``torch.bfloat16`` tensor (which
+    ``utils/safetensors_io.save_file`` writes as its bits under the BF16
+    tag) instead of its exact f32 upcast."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(prefix, node):
@@ -251,6 +255,9 @@ def to_native_flat(params) -> Dict[str, np.ndarray]:
         elif isinstance(node, (list, tuple)):
             for i, v in enumerate(node):
                 walk(f"{prefix}/{i}" if prefix else str(i), v)
+        elif (keep_bf16 and isinstance(node, torch.Tensor)
+              and node.dtype == torch.bfloat16):
+            out[prefix] = node.detach().to("cpu", copy=True)
         else:
             out[prefix] = _leaf_np(node)
 

@@ -288,8 +288,11 @@ def uniform_bits_stacked(seeds: torch.Tensor, dims: List[int]
 def fold_in(key, data: int):
     """``jax.random.fold_in`` of a threefry key (k0, k1) and a u32
     ``data``: the key's threefry2x32 of the counter (0, data), bit for
-    bit. The words are int64 tensors (or ints) holding u32 values."""
-    dev = next(k.device for k in key if isinstance(k, torch.Tensor))
+    bit. The words are int64 tensors, or Python ints (a host key, whose
+    fold is ints too)."""
+    dev = next((k.device for k in key if isinstance(k, torch.Tensor)), None)
+    if dev is None:
+        return threefry2x32(key[0], key[1], 0, data & _U32)
     x0 = torch.zeros((), dtype=torch.int64, device=dev)
     return threefry2x32(key[0], key[1], x0, x0 + (data & _U32))
 
@@ -337,6 +340,138 @@ def normal_bits(key, dims: List[int]) -> torch.Tensor:
     lo = float(_NORMAL_LO)
     u = (u * _NORMAL_SPAN + lo).clamp_min(lo)
     return _erf_inv_f32(u) * _SQRT2
+
+
+# -- host draws: the rest of jax.random's samplers that the training
+# augmentations use (data/augment.py), for small draws on the host. A host
+# key is a pair of Python ints holding u32 words; the cipher is
+# threefry2x32 above on ints or on numpy uint64 arrays (its adds, shifts
+# and masks are the same there). Each sampler follows
+# jax_threefry_partitionable (the default since JAX 0.5), as _unit_floats
+# does: under it split's key i is the cipher of the counter (0, i), which
+# is fold_in(key, i), and element i of a draw ciphers (i >> 32,
+# i & 0xFFFFFFFF). Values come out as numpy arrays.
+
+
+def prng_key(seed: int):
+    """``jax.random.key(seed)``'s threefry words (0, seed) for a seed in
+    [0, 2^32), as a host key."""
+    return 0, seed & _U32
+
+
+def split(key, num: int = 2):
+    """``jax.random.split(key, num)`` as a list of ``num`` host keys (one
+    cipher on ints a key: faster than numpy at a handful)."""
+    return [threefry2x32(key[0], key[1], 0, i) for i in range(num)]
+
+
+def _bits32(key, n: int) -> np.ndarray:
+    """``jax.random.bits(key, (n,), uint32)`` as uint64 values."""
+    if n == 1:  # one cipher on ints: faster than numpy
+        x0, x1 = threefry2x32(key[0], key[1], 0, 0)
+        return np.array([x0 ^ x1], dtype=np.uint64)
+    idx = np.arange(n, dtype=np.uint64)
+    x0, x1 = threefry2x32(key[0], key[1], idx >> 32, idx & _U32)
+    return x0 ^ x1
+
+
+def uniform(key, dims: List[int], minval: float = 0.0,
+            maxval: float = 1.0) -> np.ndarray:
+    """``jax.random.uniform(key, dims, float32, minval, maxval)``: the
+    unit floats ((bits >> 9) 2^-23) times the f32 span plus the f32
+    minval, floored at it. XLA fuses the multiply and the add (one
+    rounding); here both run in f64, where they are exact (a unit float
+    has 23 bits, the span 24), and the sum is rounded once to f32."""
+    n = int(np.prod(dims))
+    u = (_bits32(key, n) >> 9).astype(np.float64) * 2.0 ** -23
+    lo, hi = np.float32(minval), np.float32(maxval)
+    fused = (u * np.float64(hi - lo) + np.float64(lo)).astype(np.float32)
+    return np.maximum(lo, fused).reshape(dims)
+
+
+def randint(key, n: int, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, (n,), minval, maxval)`` (int32 values, as
+    int64): JAX's two-draw algorithm, the higher and the lower 32 bits of
+    two split keys folded into the span by the multiplier 2^32 mod span,
+    every product and sum wrapped to u32 as JAX's unsigned arithmetic
+    wraps."""
+    k1, k2 = split(key)
+    higher, lower = _bits32(k1, n), _bits32(k2, n)
+    span = (maxval - minval) & _U32 if maxval > minval else 1
+    m = 2 ** 16 % span
+    mult = np.uint64(((m * m) & _U32) % span)
+    span = np.uint64(span)
+    off = (((higher % span) * mult) & _U32) + lower % span
+    return minval + ((off & _U32) % span).astype(np.int64)
+
+
+def bernoulli(key, p: float, dims: List[int]) -> np.ndarray:
+    """``jax.random.bernoulli(key, p, dims)``: f32 uniform below f32 p."""
+    return uniform(key, dims) < np.float32(p)
+
+
+def _normal_scalar(key) -> np.float32:
+    """``jax.random.normal(key, ())``: ``uniform`` on (nextafter(-1, 0),
+    1), then sqrt(2) times the f32 erf_inv (``_erf_inv_f32``)."""
+    u = torch.from_numpy(uniform(key, [1], float(_NORMAL_LO)))
+    return np.float32((_erf_inv_f32(u) * _SQRT2)[0].item())
+
+
+def _loggamma(key, alpha: float):
+    """``jax.random.loggamma(key, alpha)`` of a scalar f32 alpha, and the
+    number of trips its rejection loop took: JAX's Marsaglia-Tsang sampler
+    (``_gamma_one`` with ``log_space``), its key first split to the shape of
+    alpha (one key), then split for the loop and the boost; the loop draws
+    a normal until v = 1 + x c > 0, then a uniform U, and stops once U <
+    1 - 0.0331 X^2 or log U < X / 2 + d (1 - V + log V); alpha < 1 is
+    boosted to alpha + 1 and corrected by -Exponential / alpha. Every
+    operation in f32, in JAX's order."""
+    f32 = np.float32
+    (key,) = split(key, 1)
+    one, a = f32(1.0), f32(alpha)
+    third = f32(1.0 / 3.0)
+    boost = bool(a >= one)
+    a_b = a if boost else a + one
+    d = a_b - third
+    c = third / np.sqrt(d)
+    key, subkey = split(key)
+    big_x, big_v, big_u = f32(0.0), one, f32(2.0)
+    trips = 0
+    while ((big_u >= one - f32(0.0331) * (big_x * big_x))
+           and (np.log(big_u) >= big_x * f32(0.5)
+                + d * ((one - big_v) + np.log(big_v)))):
+        key, x_key, u_key = split(key, 3)
+        v = f32(-1.0)
+        while v <= 0:
+            x_key, sub = split(x_key)
+            x = _normal_scalar(sub)
+            v = one + x * c
+        big_x, big_v = x * x, (v * v) * v
+        big_u = uniform(u_key, [1])[0]
+        trips += 1
+    # -Exponential = -(-log1p(-u))
+    log_samples = np.log1p(-uniform(subkey, [1])[0])
+    if boost or log_samples == 0:
+        log_boost = f32(0.0)
+    else:
+        log_boost = log_samples * (one / a)
+    return (np.log(d) + np.log(big_v)) + log_boost, trips
+
+
+def beta(key, a: float, b: float, trips: Optional[list] = None
+         ) -> np.float32:
+    """``jax.random.beta(key, a, b)`` (an f32 scalar): two log-space
+    gammas of split keys, exp of each minus their max, a over the sum.
+    ``trips``: a list that receives the two rejection loops' trip
+    counts."""
+    key_a, key_b = split(key)
+    la, ta = _loggamma(key_a, a)
+    lb, tb = _loggamma(key_b, b)
+    if trips is not None:
+        trips.extend((ta, tb))
+    m = max(la, lb)
+    ga, gb = np.exp(la - m), np.exp(lb - m)
+    return np.float32(ga / (ga + gb))
 
 
 class NoiseNode(NodeKind):

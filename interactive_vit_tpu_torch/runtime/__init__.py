@@ -1,1 +1,1 @@
-"""Build and load the hand-written CUDA kernels."""
+"""Build and load the hand-written CUDA kernels and the host library."""

@@ -6,12 +6,21 @@ and resume.
         --output ckpts/vit_b16 --save-every 50
 
 Counterpart of ``interactive_vit_tpu/tools/train.py`` on one card (or the
-CPU with ``--device cpu``). Data is synthetic: class-conditional Gaussian
-blobs, or with ``--memorize N`` a fixed set of N patterned images (the
+CPU with ``--device cpu``). Data is synthetic (class-conditional Gaussian
+blobs), or with ``--memorize N`` a fixed set of N patterned images (the
 end-to-end accuracy oracle), kept on the device and gathered by index each
-step. The step is ``parallel/train.py``'s: AdamW as optax's chain
-(warmup + cosine, global-norm clipping, layer-wise LR decay), per-block
-rematerialisation, mixed precision, gradient accumulation, and on a card
+step, or with ``--data PREFIX`` the ``{PREFIX}_images.npy`` /
+``_labels.npy`` files of ``data/loader.save_dataset`` through the native
+prefetching loader (``data/loader.py``: a seeded shuffle each epoch and a
+deterministic flip per sample; the first batch is the train-stream eval
+sample, and ``--resume`` skips the batches the interrupted run had
+consumed, so the resumed stream is the uninterrupted one). ``--hflip``,
+``--crop-pad``, ``--color-jitter``, ``--cutout``, ``--mixup`` and
+``--cutmix`` augment each batch on the device (``data/augment.py``,
+deterministic per (seed, step)). The step is ``parallel/train.py``'s:
+AdamW as optax's chain (warmup + cosine, global-norm clipping, layer-wise
+LR decay), per-block rematerialisation, mixed precision, gradient
+accumulation, and on a card
 the hand-written attention kernels (``--attn auto``): the packed kernel
 for an even head count of width 64 (vit_b16), the [B, H, N, dh] one
 otherwise (vit_t16).
@@ -25,8 +34,8 @@ optimizer state, step, the qkv-layout marker, the EMA) to ``D/state``;
 ``--resume`` continues from ``D/state``; ``--init FILE`` starts a fresh run
 from a checkpoint's trunk; ``--export-safetensors FILE`` writes the export
 params in the native "/" naming, which the server's ``--ckpt`` serves. Not
-ported: the device mesh, the data loader and augmentation, and
-distillation; the parser refuses their flags.
+ported: the device mesh, ``--no-remat`` and distillation; the parser
+refuses their flags.
 """
 
 from __future__ import annotations
@@ -299,6 +308,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "instead of streaming synthetic batches")
     parser.add_argument("--distinct-classes", type=int, default=64,
                         help="distinct labels in the --memorize set")
+    parser.add_argument("--data", default=None, metavar="PREFIX",
+                        help="train on {PREFIX}_images.npy/_labels.npy via "
+                             "the native prefetching loader (data/loader.py)"
+                             " instead of synthetic batches; augments with "
+                             "deterministic horizontal flips")
+    parser.add_argument("--hflip", action="store_true",
+                        help="random horizontal flips (on the device — "
+                             "data/augment.py; the --data loader's own "
+                             "deterministic flip is independent)")
+    parser.add_argument("--crop-pad", type=int, default=0,
+                        help="zero-pad N px per side + random same-size "
+                             "crop (shift augmentation)")
+    parser.add_argument("--color-jitter", type=float, default=0.0,
+                        help="brightness/contrast/saturation jitter "
+                             "strength s (factors from U[1-s, 1+s])")
+    parser.add_argument("--cutout", type=int, default=0,
+                        help="zero-fill a random NxN square per image")
+    parser.add_argument("--mixup", type=float, default=0.0,
+                        help="mixup Beta(a,a) alpha (0 = off); emits soft "
+                             "labels")
+    parser.add_argument("--cutmix", type=float, default=0.0,
+                        help="cutmix Beta(a,a) alpha (0 = off); with "
+                             "--mixup, one of the two is chosen per step")
     parser.add_argument("--label-smoothing", type=float, default=0.0)
     parser.add_argument("--ema-decay", type=float, default=0.0,
                         help="keep an f32 exponential moving average of the "
@@ -330,6 +362,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = parser.parse_args(argv)
     if args.accum_steps > 1 and args.batch % args.accum_steps:
         parser.error("--batch must be divisible by --accum-steps")
+    if args.data and args.memorize:
+        parser.error("--data and --memorize are mutually exclusive "
+                     "(the loader stream would silently win)")
     if args.init and args.resume:
         parser.error("--init and --resume are mutually exclusive: "
                      "--resume restores the full train state, --init "
@@ -358,8 +393,10 @@ def main(argv=None) -> dict:
     ``remat``, ``head_major``, ``attn``, the final export ``params`` (the
     canonical qkv layout; the EMA in the param dtype with --ema-decay),
     ``start_step`` (the resumed step, else 0), ``saves`` [(step, seconds
-    the --save-every save held the loop)] and the final train ``state``
-    (params in the training layout, optimizer state, step)."""
+    the --save-every save held the loop)], the final train ``state``
+    (params in the training layout, optimizer state, step), the loader's
+    ``backend`` ("native" / "python"; None without --data) and the
+    ``eval_sample`` (images, labels) the evals read."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -417,12 +454,43 @@ def main(argv=None) -> dict:
         logger.info("resumed from %s at step %d", state_dir, start_step)
     if args.ema_decay and ema is None:
         ema = _seed_ema(params)
+    from interactive_vit_tpu_torch.data.augment import (
+        AugmentConfig, make_augment_fn,
+    )
+
+    aug_cfg = AugmentConfig(
+        hflip=args.hflip, crop_pad=args.crop_pad,
+        color_jitter=args.color_jitter, cutout=args.cutout,
+        mixup_alpha=args.mixup, cutmix_alpha=args.cutmix)
+    aug_fn = make_augment_fn(aug_cfg, cfg.num_classes, seed=args.seed)
+    if aug_fn is not None:
+        logger.info("augment: %s", aug_cfg)
 
     # as in the JAX trainer, a resumed synthetic or --memorize stream is
     # drawn from a generator seeded at --seed + the resumed step: it is not
-    # the stream the uninterrupted run would have gone on with
+    # the stream the uninterrupted run would have gone on with (the --data
+    # stream is: the loader skips the consumed batches below)
     rng = np.random.default_rng(args.seed + start_step)
-    if args.memorize:
+    loader = backend = None
+    if args.data:
+        from interactive_vit_tpu_torch.data.loader import Loader
+
+        # borrow=True: a batch views a prefetch slot (no host copy); each
+        # step copies it to the device before the next next() reuses it
+        loader = Loader(args.data + "_images.npy", args.data + "_labels.npy",
+                        args.batch, seed=args.seed, flip=True, borrow=True)
+        backend = "native" if loader.native else "python"
+        logger.info("data loader: %d samples, %s backend", loader.n, backend)
+        # a smoke metric over the training stream (these samples re-enter
+        # training after epoch 0); np.array: the borrowed views die at the
+        # next batch
+        ev = next(loader)
+        eval_images, eval_labels = np.array(ev[0]), np.array(ev[1])
+        # the batches the interrupted run consumed: the resumed stream
+        # goes on where the uninterrupted run would be
+        for _ in range(start_step):
+            next(loader)
+    elif args.memorize:
         eval_images, eval_labels = pattern_set(
             args.seed, args.memorize, cfg.img_size, cfg.num_classes,
             args.distinct_classes)
@@ -438,7 +506,13 @@ def main(argv=None) -> dict:
     saver = None  # an AsyncSaver, made at the first --save-every save
     t0 = time.perf_counter()
     for step in range(start_step, args.steps):
-        if args.memorize:
+        if loader is not None:
+            images, labels, _epoch = next(loader)
+            # a blocking copy out of the pageable slot (copy=True: on the
+            # CPU too), done before the next next() lets a worker refill it
+            images = torch.from_numpy(images).to(device, copy=True)
+            labels = torch.from_numpy(labels).to(device, copy=True)
+        elif args.memorize:
             idx = torch.from_numpy(
                 rng.integers(0, args.memorize, size=(args.batch,))).to(device)
             images, labels = mem_images[idx], mem_labels[idx]
@@ -447,6 +521,9 @@ def main(argv=None) -> dict:
                                              cfg.num_classes)
             images = torch.from_numpy(images).to(device)
             labels = torch.from_numpy(labels).to(device)
+        if aug_fn is not None:
+            # deterministic per (seed, step): a resumed run replays it
+            images, labels = aug_fn(step, images, labels)
         params, opt_state, loss = step_fn(params, opt_state, images, labels)
         if ema_update is not None:
             ema = ema_update(ema, params)
@@ -460,8 +537,10 @@ def main(argv=None) -> dict:
             acc = evaluate(infer_fn, ema if ema is not None else params,
                            eval_images, eval_labels, args.batch)
             evals.append((step, acc))
-            logger.info("step %4d  %seval top-1 %.3f", step,
-                        "EMA " if ema is not None else "", acc)
+            logger.info("step %4d  %s%s top-1 %.3f", step,
+                        "EMA " if ema is not None else "",
+                        "train-stream" if loader is not None else "eval",
+                        acc)
         if (args.save_every and state_dir
                 and (step + 1) % args.save_every == 0):
             if saver is None:
@@ -475,6 +554,8 @@ def main(argv=None) -> dict:
                        head_major=head_major, ema=ema)
             saves.append((step + 1, time.perf_counter() - ts))
             logger.info("async-saving train state at step %d", step + 1)
+    if loader is not None:
+        loader.close()
     if saver is not None:
         saver.close()  # drain the write in flight before the final save
 
@@ -501,13 +582,17 @@ def main(argv=None) -> dict:
         from interactive_vit_tpu_torch.models.weights import to_native_flat
         from interactive_vit_tpu_torch.utils.safetensors_io import save_file
 
-        save_file(to_native_flat(export_params), args.export_safetensors)
+        # bf16 leaves keep their bits under BF16 tags, as JAX's writer's
+        save_file(to_native_flat(export_params, keep_bf16=True),
+                  args.export_safetensors)
         logger.info("exported %s", args.export_safetensors)
     return {"history": history, "evals": evals, "remat": remat,
             "head_major": head_major,
             "attn": None if attn_impl is None else attn_impl.__name__,
             "params": export_params, "start_step": start_step,
             "saves": saves,
+            "backend": backend,
+            "eval_sample": (eval_images, eval_labels),
             "state": {"params": params, "opt_state": opt_state,
                       "step": args.steps}}
 

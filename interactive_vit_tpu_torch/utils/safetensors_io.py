@@ -22,11 +22,13 @@ import struct
 from typing import Dict, Optional
 
 import numpy as np
+import torch
 
 # safetensors dtype tag <-> numpy. BF16 has no numpy dtype: it is read as
 # its raw uint16 bits and upcast to float32 (exact — bf16 is the top half
-# of f32), and written from an array whose dtype is named "bfloat16"
-# (``ml_dtypes``, where installed) as its raw bits.
+# of f32), and written as its raw bits from a ``torch.bfloat16`` tensor or
+# from an array whose dtype is named "bfloat16" (``ml_dtypes``, where
+# installed).
 _DTYPES = {
     "F64": np.float64,
     "F32": np.float32,
@@ -114,17 +116,28 @@ def load_file(path: str) -> Dict[str, np.ndarray]:
 
 def save_file(tensors: Dict[str, np.ndarray], path: str,
               metadata: Optional[Dict[str, str]] = None) -> None:
-    """Write tensors to a .safetensors file (row-major, little-endian)."""
+    """Write tensors to a .safetensors file (row-major, little-endian).
+    Values are numpy arrays or host torch tensors; a ``torch.bfloat16``
+    tensor is written as its 16-bit patterns under the BF16 tag."""
     header: Dict[str, object] = {}
     if metadata:
         header["__metadata__"] = dict(metadata)
     chunks = []
     off = 0
     for name, t in tensors.items():
+        bf16_bits = isinstance(t, torch.Tensor) and t.dtype == torch.bfloat16
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().contiguous()
+            # numpy has no bfloat16: the bits, through int16, as <u2
+            t = (t.view(torch.int16).numpy().view("<u2") if bf16_bits
+                 else t.numpy())
         # np.asarray(order="C") keeps 0-d shapes (ascontiguousarray
         # promotes scalars to 1-d)
         arr = np.asarray(t, order="C")
-        if str(arr.dtype) == "bfloat16":  # an ml_dtypes array
+        if bf16_bits:
+            data = arr.tobytes()
+            tag = "BF16"
+        elif str(arr.dtype) == "bfloat16":  # an ml_dtypes array
             bits = arr.view(np.uint16)
             data = bits.astype("<u2").tobytes()
             tag = "BF16"

@@ -1,8 +1,13 @@
 """Binary tensor wire protocol, byte-compatible with the JAX package.
 
-Pure-Python port of ``interactive_vit_tpu/wire/codec.py`` (its native C++
-block scanner is not ported yet); the bytes are identical, pinned by the
-committed fixtures ``tests/fixtures/wire_*.bin``.
+Port of ``interactive_vit_tpu/wire/codec.py``; the bytes are identical,
+pinned by the committed fixtures ``tests/fixtures/wire_*.bin``. Two tiers:
+the native one (``runtime/native.py``: the host library's single-pass block
+scan decodes all-f32 messages of an expected magic, its single-allocation
+pack encodes all-f32 messages) and this module's Python code, which
+encodes bf16 blocks and is the behavioural spec. The tier is picked once,
+at first use (``native_tier()``): native, unless ``IVT_NATIVE=0`` asks for
+Python; a library that cannot be built raises instead of falling back.
 
     header  : u32 byte_size | u32 magic | u32 block_cnt | u32 json_size
     json    : utf-8 bytes, padded with zero bytes to the next 4-byte boundary
@@ -43,6 +48,34 @@ def _align4(n: int) -> int:
     return (n + 3) & ~3
 
 
+_tier: Optional[str] = None
+
+
+def native_tier() -> str:
+    """``"native"`` or ``"python"``: the tier this process encodes and
+    decodes with, picked at the first call (building the host library
+    there unless ``IVT_NATIVE=0``)."""
+    global _tier
+    if _tier is None:
+        from interactive_vit_tpu_torch.runtime import native
+
+        if native.enabled():
+            native.get_lib()  # raises where it cannot be built
+            _tier = "native"
+        else:
+            _tier = "python"
+    return _tier
+
+
+def _native():
+    """The native module where the native tier runs, else None."""
+    if native_tier() != "native":
+        return None
+    from interactive_vit_tpu_torch.runtime import native
+
+    return native
+
+
 def _bf16_payload(arr: np.ndarray) -> bytes:
     """f32 array -> bf16 bits (u16 LE), zero-padded to a 4-byte boundary.
 
@@ -80,6 +113,10 @@ def encode_message(
     contract fixtures pin the client layout with this flag."""
     seps = (",", ":") if compact else None
     json_utf8 = json.dumps(json_obj, separators=seps).encode("utf-8")
+    all_f32 = dtypes is None or all(d == "f32" for d in dtypes)
+    native = _native() if all_f32 else None
+    if native is not None:
+        return native.pack(magic, json_utf8, tensors)
     parts: List[bytes] = []
     offset = _HEADER.size + len(json_utf8)
     pad = _align4(offset) - offset
@@ -149,10 +186,27 @@ def decode_message(b: bytes, expect_magic: Optional[int] = None):
     off = _align4(off + json_size)
 
     dtypes = _block_dtypes(json_obj)
+    native = (_native() if expect_magic is not None and dtypes is None
+              else None)
+    if native is not None:
+        # all f32: the single-pass native block scan
+        try:
+            _, blocks = native.scan(b, expect_magic)
+        except ValueError as err:
+            raise WireError(str(err)) from err
+        tensors = []
+        for dims_off, dim_cnt, data_off, elem_cnt in blocks:
+            dims = np.frombuffer(b, dtype="<u4", count=dim_cnt,
+                                 offset=dims_off)
+            data = np.frombuffer(b, dtype="<f4", count=elem_cnt,
+                                 offset=data_off)
+            tensors.append(data.reshape(tuple(int(d) for d in dims)))
+        return json_obj, tensors
+
     tensors: List[np.ndarray] = []
     for i in range(block_cnt):
         # bounds-check each extent before reading so a truncated block table
-        # raises WireError, matching the JAX package native scanner's -3 ("truncated
+        # raises WireError, matching the native scanner's -3 ("truncated
         # message") instead of leaking struct.error / ValueError
         start = off
         if off + 8 > len(b):
@@ -166,7 +220,7 @@ def decode_message(b: bytes, expect_magic: Optional[int] = None):
         # exact product in Python ints: np.prod over u32 wraps mod 2^64,
         # so a crafted dims list (e.g. 65536^4) could pass the extent
         # check with a forged block_size and leak a reshape ValueError
-        # instead of WireError (the JAX package native scanner guards this as -4)
+        # instead of WireError (the native scanner guards this as -4)
         elem_cnt = math.prod(int(d) for d in dims) if dim_cnt > 0 else 1
         if elem_cnt > len(b):
             raise WireError(

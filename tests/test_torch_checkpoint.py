@@ -412,3 +412,32 @@ def test_init_from_jax_export_and_from_jax_tree(tmp_path, tiny):
     for p, v in tree_leaves_with_path(want):
         got = dict(tree_leaves_with_path(merged))[p]
         assert torch.equal(got, v), p
+
+
+def test_export_safetensors_keeps_bf16_tags(tmp_path, tiny):
+    """A bf16 run's export is written as the JAX trainer writes it: BF16
+    tags and the params' own 16-bit patterns (not F32 upcasts)."""
+    import json
+    import struct
+
+    path = str(tmp_path / "w.safetensors")
+    res = train_tool.main(["--device", "cpu", "--variant", "vit_tiny_ck",
+                           "--batch", "4", "--steps", "1", "--dtype",
+                           "bfloat16", "--export-safetensors", path])
+    raw = open(path, "rb").read()
+    n = struct.unpack("<Q", raw[:8])[0]
+    header = json.loads(raw[8:8 + n])
+    from interactive_vit_tpu_torch.models.weights import to_native_flat
+
+    flat = to_native_flat(res["params"], keep_bf16=True)
+    assert sorted(flat) == sorted(header)
+    for key, v in flat.items():
+        assert v.dtype == torch.bfloat16
+        assert header[key]["dtype"] == "BF16", key
+        lo, hi = header[key]["data_offsets"]
+        assert raw[8 + n + lo:8 + n + hi] == v.view(torch.int16).numpy(
+        ).astype("<i2").tobytes(), key
+    # and it reads back as its exact f32 upcast
+    back = load_file(path)
+    for key, v in flat.items():
+        assert back[key].tobytes() == v.float().numpy().tobytes(), key

@@ -22,6 +22,13 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.graph.executor",
     "interactive_vit_tpu_torch.wire.codec",
     "interactive_vit_tpu_torch.wire.schema",
+    "interactive_vit_tpu_torch.wire.partition",
+    "interactive_vit_tpu_torch.wire.render",
+    "interactive_vit_tpu_torch.config",
+    "interactive_vit_tpu_torch.runtime.build",
+    "interactive_vit_tpu_torch.runtime.native",
+    "interactive_vit_tpu_torch.data.loader",
+    "interactive_vit_tpu_torch.data.augment",
     "interactive_vit_tpu_torch.ops.fused_block",
     "interactive_vit_tpu_torch.ops.fused_window",
     "interactive_vit_tpu_torch.ops.fused_mlp",
@@ -170,7 +177,21 @@ def test_train_entry_point_parses():
                  "--clip-norm", "--llrd", "--seed", "--remat", "--dtype",
                  "--accum-steps", "--attn", "--eval-every", "--memorize",
                  "--distinct-classes", "--label-smoothing", "--ema-decay",
-                 "--log-every", "--device"):
+                 "--log-every", "--device", "--data", "--hflip",
+                 "--crop-pad", "--color-jitter", "--cutout", "--mixup",
+                 "--cutmix"):
+        assert flag in res.stdout
+
+
+def test_evaluate_entry_point_parses():
+    res = subprocess.run(
+        [sys.executable, "-m", "interactive_vit_tpu_torch.tools.evaluate",
+         "--help"], capture_output=True, text=True, cwd=ROOT, env=_env(),
+        timeout=120)
+    assert res.returncode == 0, res.stderr
+    for flag in ("--variant", "--ckpt", "--ckpt-layout", "--data",
+                 "--memorize", "--distinct-classes", "--batch", "--limit",
+                 "--top-k", "--seed", "--dtype", "--device"):
         assert flag in res.stdout
 
 
@@ -190,6 +211,7 @@ def _default_device_entry_points():
     from interactive_vit_tpu_torch.serving.app import App
     from interactive_vit_tpu_torch.serving.server import build_app
     from interactive_vit_tpu_torch.tools.run_graph import main as run_graph
+    from interactive_vit_tpu_torch.tools.evaluate import main as eval_main
     from interactive_vit_tpu_torch.tools.train import main as train_main
 
     return {
@@ -215,6 +237,9 @@ def _default_device_entry_points():
             models=("clip_b32", "clip_text_b32", "vgg16"),
             graphs_dir=str(tmp)),
         "run_graph_zeroshot": lambda tmp: run_graph(["clip_zeroshot"]),
+        "train_main_data": lambda tmp: train_main(
+            ["--steps", "1", "--data", str(tmp / "none"), "--hflip"]),
+        "eval_main": lambda tmp: eval_main(["--memorize", "4"]),
     }
 
 
@@ -226,7 +251,8 @@ def _default_device_entry_points():
                                    "make_clip_model", "make_clip_text_model",
                                    "make_vgg16_model", "make_model_clip",
                                    "make_model_vgg16", "build_app_clip_vgg",
-                                   "run_graph_zeroshot"])
+                                   "run_graph_zeroshot", "train_main_data",
+                                   "eval_main"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):
     """The entry points run on the card unless asked for the CPU: with no

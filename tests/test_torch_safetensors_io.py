@@ -137,3 +137,45 @@ def test_malformed_files_raise(tmp_path, case):
     for mod in (tst, jst):
         with pytest.raises(mod.SafetensorsError):
             mod.load_file(p)
+
+
+def test_bf16_torch_tree_writes_the_jax_writers_file(tmp_path):
+    """A ``torch.bfloat16`` tree flattened with ``keep_bf16`` is written
+    with BF16 tags and its raw bits: the same header dtypes and tensor
+    bytes as the JAX writer's file for the same values."""
+    import torch
+
+    from interactive_vit_tpu.models.weights import (
+        to_native_flat as jto_native_flat,
+    )
+    from interactive_vit_tpu_torch.models.weights import to_native_flat
+
+    rng = np.random.default_rng(3)
+    vals = {"w": rng.standard_normal((4, 6)).astype(np.float32),
+            "b": rng.standard_normal((6,)).astype(np.float32),
+            "s": np.float32(0.1)}
+    ttree = {"blocks": [{k: torch.tensor(v).to(torch.bfloat16)
+                         for k, v in vals.items()}],
+             "step": torch.tensor(3, dtype=torch.int32)}
+    jtree = {"blocks": [{k: jnp.asarray(v, jnp.bfloat16)
+                         for k, v in vals.items()}],
+             "step": jnp.asarray(np.int32(3))}
+    tst.save_file(to_native_flat(ttree, keep_bf16=True),
+                  str(tmp_path / "port.safetensors"))
+    jst.save_file(jto_native_flat(jtree), str(tmp_path / "jax.safetensors"))
+
+    def header_and_bytes(path):
+        raw = open(path, "rb").read()
+        n = struct.unpack("<Q", raw[:8])[0]
+        header = json.loads(raw[8:8 + n])
+        return ({k: (v["dtype"], v["shape"]) for k, v in header.items()},
+                {k: raw[8 + n + v["data_offsets"][0]:
+                        8 + n + v["data_offsets"][1]]
+                 for k, v in header.items()})
+
+    got = header_and_bytes(str(tmp_path / "port.safetensors"))
+    want = header_and_bytes(str(tmp_path / "jax.safetensors"))
+    assert got[0] == want[0]
+    assert {got[0][k][0] for k in got[0] if k.startswith("blocks")} == {
+        "BF16"}
+    assert got[1] == want[1]

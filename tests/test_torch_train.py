@@ -515,8 +515,8 @@ def test_main_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "data=1"], ["--data", "prefix"], ["--hflip"],
-    ["--mixup", "0.2"], ["--distill-teacher", "t.pth"],
+    ["--mesh", "data=1"], ["--no-remat"], ["--teacher-variant", "vit_t16"],
+    ["--distill-alpha", "0.2"], ["--distill-teacher", "t.pth"],
     ["--platform", "cpu"]])
 def test_unported_flags_are_refused(flag):
     with pytest.raises(SystemExit):
