@@ -472,14 +472,49 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``tools.evaluate.main`` (``ivt-eval``) on the dataset with ``--limit
    200 --batch 64``: n = 200 and the JSON line's keys. The dataset and the
    checkpoints are deleted at the end of the phase.
+8b. the rest of training (``phase_rest_of_training``), each run at full
+   width, B=64, ``--dtype mixed``, through the ``main`` functions, with
+   its ms a step, images/s, peak device memory (above what was allocated
+   before the run) and launches beside the card's name and power limit:
+   (h) a vit_b16 teacher trained 2 steps by ``tools.train.main`` and
+       exported (``--export-safetensors``); deit_b16 distilled from it
+       (``--distill-teacher --teacher-variant vit_b16``) 10 steps hard and
+       4 soft (``--distill-tau 1``): the loss falls, 12 + 12 packed
+       tensor-core launches (row 9) and 12 teacher forwards of
+       ``attention_train`` (row 8, canonical qkv) a step; one profiled
+       step by the names of ``port_kernel_names()`` (24 forward, 12 dq,
+       12 dk/dv kernels, no other kernel of the port); a soft first step
+       against the plain attention, mixed at B=64 through the bf16
+       kernels (12 + 12 packed, 12 teacher forwards; the loss within
+       TRAIN_BF16_LOSS_REL, each gradient within TRAIN_BF16_GRAD_REL of
+       its largest value) and f32 through the split-TF32 kernels (within
+       TRAIN_GRAD_REL);
+   (i) vit_moe_s16, 10 steps: the loss falls, 12 + 12 packed launches a
+       step, the loss CE + 0.01 aux; first-step gradients against the
+       plain attention in f32 (TRAIN_GRAD_REL) and in mixed precision
+       (MOE_BF16_REL: routing can flip under bf16), on the first seeded
+       batch whose routing has no near tie (MOE_TIE_GAP);
+   (j) swin_t and convnext_t, 4 steps each with ``--remat on`` and with
+       ``--no-remat``: no launch of the port's kernels, the two runs'
+       losses within ``train_bound``, one profiled step with none of
+       ``port_kernel_names()``; ``--attn flash_vjp`` on swin_t refused;
+   (k) mae_b16 through ``tools.pretrain.main`` on ``--data`` (the
+       pretrainer's 256 pattern images saved by ``save_dataset``): 10
+       steps unbroken, then 5 saved (``--save-every 5``) and resumed to
+       10 (``--resume --probe --export-encoder``; the loader skips the
+       consumed batches): the resumed params bit for bit the
+       unbroken run's, both probe accuracies logged, the exported encoder
+       served as ``vit_b16 --ckpt`` in bf16: 12 row-1 launches a request,
+       its CLS features within SLICE_REL of ``mae.encode``'s.
+   The new launches of rows 1, 8 and 9 are added to the kernels line.
 9. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5, 7 and 8 use random (seeded) weights,
-so their logits are meaningless as classifications; what is checked is
+It imports nothing of JAX. Phases 3-5, 7, 8 and 8b use random (seeded)
+weights, so their logits are meaningless as classifications; what is checked is
 that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
 """
@@ -5470,22 +5505,30 @@ def profile_train_step(cfg, device, attn, compute_dtype, dtype, tag,
              expect)
 
 
-def run_train(tag, argv, counters, expect) -> dict:
-    """``tools.train.main(argv)`` with every count set to 0 just before and
-    read just after; ``expect``: {kernel: (forward, backward) launches}
-    (every other kernel 0). Checks a finite loss at every logged step;
-    returns main's result with ``counts`` and steady ``ms_per_step`` (the
-    steps after the first two, when every step is logged)."""
+def run_train(tag, argv, counters, expect, main=None) -> dict:
+    """``main(argv)`` (default ``tools.train.main``) with every count set
+    to 0 just before and read just after; ``expect``: {kernel: (forward,
+    backward) launches} (every other kernel 0). Checks a finite loss at
+    every logged step; returns main's result with ``counts``, the run's
+    own ``peak_gib`` (``max_memory_allocated`` less what was allocated
+    before it began: earlier phases' tensors are not the run's), the
+    ``base_gib`` it stood on, and steady ``ms_per_step`` (the steps after
+    the first two, when every step is logged)."""
     import math
 
     import torch
 
     from interactive_vit_tpu_torch.tools import train as train_tool
 
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():  # the run starts here
         fn.launches = 0
-    res = train_tool.main(argv)
+    res = (main or train_tool.main)(argv)
     torch.cuda.synchronize()
+    res["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    res["base_gib"] = base / 2 ** 30
     counts = {k: (fn.pair if isinstance(fn, FwdBwdCount) else fn.launches)
               for k, fn in counters.items()}
     want = {k: expect.get(k, (0, 0) if isinstance(fn, FwdBwdCount) else 0)
@@ -7020,6 +7063,497 @@ def phase_native_data(device, counters) -> None:
     log(f"  phase 8 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 8b: the rest of training ----------------------------------------
+
+# The card's name and power limit as nvidia-smi gives them (phase 1), beside
+# every number a run of phase 8b logs.
+CARD = {}
+# The teacher, the distilled student (and its mixed first-step check), the
+# MoE and the MAE encoder at B=TRAIN_BATCH; the f32 first-step gradient
+# checks at B=GRAD_BATCH, the MoE's
+# at B=MOE_GRAD_BATCH: its top-1 routing is discrete, so its check takes
+# the first seed whose plain routing has no near tie (every routed token's
+# two best gates more than MOE_TIE_GAP apart, a hundred times the ~1e-7 by
+# which the kernels move a gate in f32); the patterned images have gaps of
+# ~1e-5 at B=8 (measured on the CPU), fewer tokens make a tie rarer.
+TRAIN_BATCH, GRAD_BATCH, MOE_GRAD_BATCH = 64, 8, 2
+MOE_TIE_GAP = 1e-5
+
+
+def run_line(tag, res, batch, steps, what) -> str:
+    """One run's numbers on one line: its launches ``what``, the losses,
+    ms a step and images/s (steps 3 on), the peak device memory, the
+    card."""
+    ms = res.get("ms_per_step")
+    rate = (f"{ms:.2f} ms a step, {batch * 1e3 / ms:.1f} images/s (steps "
+            f"{res['history'][2][0] + 1}-{steps})" if ms
+            else "ms a step not measured")
+    return (f"  {tag}, B={batch}, {steps} steps: {what}; loss "
+            + " ".join(f"{x:.4f}" for _, x, _ in res["history"])
+            + f"; {rate}; peak device memory {res['peak_gib']:.2f} GiB "
+            f"above the {res['base_gib']:.2f} GiB allocated before the run "
+            f"[{CARD['smi']}]")
+
+
+def falls(tag, res) -> None:
+    losses = [x for _, x, _ in res["history"]]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: the loss did not fall: {losses}")
+
+
+def grads_of(loss_of, params):
+    """(loss, the gradient of each leaf of ``params``) of
+    ``loss_of(params)``; zeros where the loss does not reach a leaf."""
+    import torch
+
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+
+    leaves = [x.detach().requires_grad_(True)
+              for x in train_lib.tree_leaves(params)]
+    loss = loss_of(train_lib.tree_unflatten(params, leaves))
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.item(), [torch.zeros_like(x) if g is None else g
+                         for x, g in zip(leaves, grads)]
+
+
+def kernels_vs_plain(tag, params, kernel_loss, plain_loss, heads, counters,
+                     expect, rel, loss_rel) -> None:
+    """One step's loss and gradients through the kernels (``kernel_loss``
+    on the head-major ``params``, every count 0 just before and read just
+    after: ``expect``, every other trainable-attention count 0) against
+    the plain attention (``plain_loss`` on the canonical ones): the loss
+    within ``loss_rel`` of max(1, |loss|), each parameter's gradient
+    within ``rel`` of its largest value, a zeroed or halved gradient
+    refused."""
+    import torch
+
+    from interactive_vit_tpu_torch.parallel import mesh
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+
+    zero_counts(counters)
+    loss_k, g_k = grads_of(kernel_loss,
+                           mesh.permute_qkv_head_major(params, heads))
+    torch.cuda.synchronize()
+    counts = {k: fn.pair for k, fn in counters.items()
+              if isinstance(fn, FwdBwdCount)}
+    want = {k: expect.get(k, (0, 0)) for k in counts}
+    if counts != want:
+        raise AssertionError(f"{tag}: launches {counts}, expected {want}")
+    g_k = train_lib.tree_leaves(mesh.unpermute_qkv_head_major(
+        train_lib.tree_unflatten(params, g_k), heads))
+    loss_r, g_r = grads_of(plain_loss, params)
+    if abs(loss_k - loss_r) > loss_rel * max(1.0, abs(loss_r)):
+        raise AssertionError(f"{tag}: loss {loss_k} vs plain {loss_r}")
+
+    def use(a, b):
+        return ((a - b).abs().max() / (rel * b.abs().max())).item()
+
+    worst = (0.0, "")
+    for (path, _), a, b in zip(train_lib.tree_leaves_with_path(params), g_k,
+                               g_r):
+        if not b.abs().max() > 0:
+            # 0 on the plain path (an expert no token reached): so on both
+            if a.abs().max() > 0:
+                raise AssertionError(f"{tag}: {path} is 0 on the plain path "
+                                     f"only")
+            continue
+        u = use(a, b)
+        if not u <= 1.0:
+            raise AssertionError(f"{tag}: {path} at {u:.2f} of its bound")
+        if not (use(a * 0.5, b) > 1.0 and use(a * 0.0, b) > 1.0):
+            raise AssertionError(f"{tag}: {path} halved or zeroed passed "
+                                 f"its bound")
+        worst = max(worst, (u, path))
+    ran = {k: v for k, v in counts.items() if v != (0, 0)}
+    log(f"  {tag}: kernels ({ran}) vs plain attention: loss {loss_k:.6f} "
+        f"vs {loss_r:.6f}; every parameter's gradient within {rel:g} of its "
+        f"largest value, the nearest {worst[1]} at {worst[0]:.3f} of its "
+        f"bound")
+
+
+def phase_distill(device, counters, tmp) -> dict:
+    """(h): a vit_b16 teacher exported by ``tools.train.main``, deit_b16
+    distilled from it (10 steps hard, 4 soft), one profiled step, a mixed
+    and an f32 soft step against the plain attention. Returns the
+    main-path launches."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.ops import attention_vjp as av
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+    from interactive_vit_tpu_torch.tools.convert import (
+        convert, load_state_dict,
+    )
+    from interactive_vit_tpu_torch.tools.train import pattern_set
+
+    b = TRAIN_BATCH
+    teacher = os.path.join(tmp, "teacher.safetensors")
+    common = ["--dtype", "mixed", "--batch", str(b), "--memorize", "64",
+              "--log-every", "1"]
+    res = run_train("train the vit_b16 teacher", [
+        "--variant", "vit_b16", "--steps", "2", "--export-safetensors",
+        teacher, *common], counters,
+        {"attention_train_packed_mma": (24, 24)})
+    log(run_line("train the vit_b16 teacher", res, b, 2,
+                 f"packed tensor-core launches "
+                 f"{res['counts']['attention_train_packed_mma']}, exported "
+                 f"to {os.path.basename(teacher)}"))
+    launches = {"attention_train_packed_mma": 0, "attention_train_mma": 0}
+    distill = ["--variant", "deit_b16", "--distill-teacher", teacher,
+               "--teacher-variant", "vit_b16", *common]
+    for tag, steps, extra in (("hard", 10, []),
+                              ("soft tau 1", 4, ["--distill-tau", "1"])):
+        # the student's 12 + 12 packed launches and the teacher's 12
+        # forwards of attention_train a step
+        res = run_train(f"distil deit_b16 {tag}", distill + [
+            "--steps", str(steps), *extra], counters,
+            {"attention_train_packed_mma": (12 * steps, 12 * steps),
+             "attention_train_mma": (12 * steps, 0)})
+        if res["remat"] is not False or not res["head_major"]:
+            raise AssertionError(f"distil {tag}: remat {res['remat']}, "
+                                 f"head-major {res['head_major']}")
+        falls(f"distil deit_b16 {tag}", res)
+        for k in launches:
+            launches[k] += sum(res["counts"][k])
+        log(run_line(f"distil deit_b16 {tag} from vit_b16", res, b, steps,
+                     f"student packed tensor-core launches "
+                     f"{res['counts']['attention_train_packed_mma']} (12 + "
+                     f"12 a step), teacher forward launches "
+                     f"{res['counts']['attention_train_mma']} (12 + 0 a "
+                     f"step)"))
+    # one step by name: the student's forward, dq and dk/dv kernels 12
+    # times each, the teacher's forward 12 more; no other kernel of the port
+    cfg, tcfg = vit.VARIANTS["deit_b16"], vit.VARIANTS["vit_b16"]
+    tparams = convert("vit_b16", "auto", load_state_dict(teacher),
+                      device=device)
+    params, state, step, _ = train_lib.setup_distill(
+        cfg, tcfg, tparams, device=device, seed=1, attn_impl="auto",
+        compute_dtype=torch.bfloat16)
+    images, labels = pattern_set(1, b, cfg.img_size, cfg.num_classes)
+    images = torch.from_numpy(images).to(device)
+    labels = torch.from_numpy(labels).to(device)
+    for _ in range(2):
+        params, state, loss = step(params, state, images, labels)
+
+    def one_step():
+        nonlocal params, state
+        params, state, loss = step(params, state, images, labels)
+        float(loss)
+
+    expect = {name: 0 for name in port_kernel_names()}
+    expect.update(train_fwd_mma_kernel=24, train_dq_mma_kernel=12,
+                  train_dkdv_mma_kernel=12)
+    profiled(lambda: synchronized_ms(one_step),
+             "distil deit_b16 mixed profile of one step", expect)
+    del params, state, step
+
+    # one soft first step (a hard target is the teacher's argmax,
+    # discrete) against the plain attention on the same params and batch:
+    # mixed at the main path's B=64 (the student's packed bf16 kernels at
+    # N=198, the teacher's bf16 forward) within phase 5's mixed bounds;
+    # f32 at B=GRAD_BATCH (the split-TF32 student and teacher forward)
+    # within TRAIN_GRAD_REL
+    student = vit.init_params(cfg, torch.Generator().manual_seed(3),
+                              device=device)
+
+    def distill_loss(attn, head_major, images, labels, dtype=None):
+        teach = train_lib.make_teacher_fn(
+            tcfg, train_lib.cast_params(tparams, dtype), attn)
+
+        def loss_of(p):
+            cls_l, dist_l = train_lib._student_logits(
+                train_lib.cast_params(p, dtype), images, cfg,
+                attn_impl=attn, qkv_head_major=head_major)
+            return train_lib.distill_loss(cls_l, dist_l, teach(images),
+                                          labels, 0.5, 1.0)
+
+        return loss_of
+
+    kernels_vs_plain(
+        f"distil deit_b16 mixed soft first-step gradients, B={b}", student,
+        distill_loss(av.trainable_flash_mhsa, True, images, labels,
+                     torch.bfloat16),
+        distill_loss(None, False, images, labels, torch.bfloat16),
+        cfg.heads, counters,
+        {"attention_train_packed_mma": (12, 12),
+         "attention_train_mma": (12, 0)}, TRAIN_BF16_GRAD_REL,
+        TRAIN_BF16_LOSS_REL)
+    images, labels = images[:GRAD_BATCH], labels[:GRAD_BATCH]
+    kernels_vs_plain(
+        f"distil deit_b16 f32 soft first-step gradients, B={GRAD_BATCH}",
+        student, distill_loss(av.trainable_flash_mhsa, True, images, labels),
+        distill_loss(None, False, images, labels), cfg.heads, counters,
+        {"attention_train_packed_tf32": (12, 12),
+         "attention_train_tf32": (12, 0)}, TRAIN_GRAD_REL, 1e-5)
+    return launches
+
+
+def routing_margin(params, images, cfg) -> float:
+    """The least gap between a token's two best gates over the MoE blocks
+    of the plain forward (a gap within the kernels' rounding of the plain
+    path's would let the two paths route that token apart)."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import moe, vit
+    from interactive_vit_tpu_torch.ops import layers as L
+
+    margin = float("inf")
+    with torch.no_grad():
+        x = vit.embed(params, images, cfg)
+        for i, p in enumerate(params["blocks"]):
+            if cfg.is_moe(i):
+                h, _ = moe.attn_ops.mhsa(L.layer_norm(
+                    x, p["ln1_s"], p["ln1_b"], cfg.ln_eps), p, cfg.heads)
+                h = L.layer_norm(x + h, p["ln2_s"], p["ln2_b"], cfg.ln_eps)
+                top2 = moe.route(h, p["router_w"], cfg)[2].topk(2).values
+                margin = min(margin, (top2[..., 0] - top2[..., 1]).min()
+                             .item())
+            x = moe.block(p, x, cfg, i)[0]
+    return margin
+
+
+def phase_moe_train(device, counters) -> dict:
+    """(i): vit_moe_s16 mixed through the packed kernels, the aux term in
+    the loss, an f32 step and a mixed one against the plain attention."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import moe
+    from interactive_vit_tpu_torch.ops import attention_vjp as av
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+    from interactive_vit_tpu_torch.tools.train import pattern_set
+
+    b, steps = TRAIN_BATCH, 10
+    res = run_train("train vit_moe_s16", [
+        "--variant", "vit_moe_s16", "--dtype", "mixed", "--batch", str(b),
+        "--steps", str(steps), "--memorize", "64", "--log-every", "1"],
+        counters, {"attention_train_packed_mma": (12 * steps, 12 * steps)})
+    if res["remat"] is not False or not res["head_major"]:
+        raise AssertionError(f"vit_moe_s16: remat {res['remat']}, "
+                             f"head-major {res['head_major']}")
+    falls("train vit_moe_s16", res)
+    log(run_line("train vit_moe_s16 mixed", res, b, steps,
+                 f"packed tensor-core (row 9) launches "
+                 f"{res['counts']['attention_train_packed_mma']} (12 + 12 a "
+                 f"step)"))
+    cfg = moe.VARIANTS["vit_moe_s16"]
+    # the seeded batch whose plain routing has no near tie (the gap
+    # logged): the kernels' f32 rounding cannot move a token's expert
+    for seed in range(16):
+        images, labels = pattern_set(seed, MOE_GRAD_BATCH, cfg.img_size,
+                                     cfg.num_classes)
+        images = torch.from_numpy(images).to(device)
+        labels = torch.from_numpy(labels).to(device)
+        params = moe.init_params(cfg, torch.Generator().manual_seed(seed),
+                                 device=device)
+        margin = routing_margin(params, images, cfg)
+        if margin > MOE_TIE_GAP:
+            break
+    else:
+        raise AssertionError("vit_moe_s16: no seed of 16 routes without a "
+                             "near tie")
+    # the loss holds the aux term: CE + MOE_AUX_WEIGHT aux
+    with torch.no_grad():
+        out = moe.forward(params, images, cfg, want_aux=True)
+        ce = train_lib.cross_entropy(out["logits"], labels)
+        loss = train_lib.loss_fn(params, images, labels, cfg)
+    aux = out["aux"].item()
+    if not (aux > 0 and abs(loss.item() - ce.item()
+                            - train_lib.MOE_AUX_WEIGHT * aux) < 1e-5):
+        raise AssertionError(f"vit_moe_s16 loss {loss.item()} is not CE "
+                             f"{ce.item()} + 0.01 aux {aux}")
+    log(f"  vit_moe_s16 loss = CE {ce.item():.6f} + "
+        f"{train_lib.MOE_AUX_WEIGHT} x aux {aux:.6f} (f32, seed {seed}, "
+        f"least top-2 gate gap {margin:.2e})")
+
+    def moe_loss(attn, head_major, dtype=None):
+        return lambda p: train_lib.loss_fn(
+            train_lib.cast_params(p, dtype), images, labels, cfg,
+            attn_impl=attn, qkv_head_major=head_major)
+
+    kernels_vs_plain(
+        f"vit_moe_s16 f32 first-step gradients, B={MOE_GRAD_BATCH}", params,
+        moe_loss(av.trainable_flash_mhsa, True), moe_loss(None, False),
+        cfg.heads, counters, {"attention_train_packed_tf32": (12, 12)},
+        TRAIN_GRAD_REL, 1e-5)
+    # bf16 rounding can route a near-tied token apart: the documented MoE
+    # bound (ROADMAP.md section 3), not a tighter one
+    kernels_vs_plain(
+        f"vit_moe_s16 mixed first-step gradients, B={MOE_GRAD_BATCH}",
+        params,
+        moe_loss(av.trainable_flash_mhsa, True, torch.bfloat16),
+        moe_loss(None, False, torch.bfloat16), cfg.heads, counters,
+        {"attention_train_packed_mma": (12, 12)}, MOE_BF16_REL,
+        MOE_BF16_REL)
+    return {"attention_train_packed_mma": sum(
+        res["counts"]["attention_train_packed_mma"])}
+
+
+def phase_plain_families(device, counters) -> None:
+    """(j): swin_t and convnext_t mixed, --remat on and --no-remat, no
+    kernel of the port (by count and by name), the losses of the two runs
+    within train_bound; --attn flash_vjp on swin_t refused."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import convnext, swin
+    from interactive_vit_tpu_torch.tools import train as train_tool
+
+    b, steps = TRAIN_BATCH, 4
+    for name, cfg in (("swin_t", swin.VARIANTS["swin_t"]),
+                      ("convnext_t", convnext.VARIANTS["convnext_t"])):
+        runs = {}
+        for flag in (["--remat", "on"], ["--no-remat"]):
+            tag = f"train {name} mixed {' '.join(flag)}"
+            # --memorize: the batches gathered on the card (a synthetic
+            # batch is drawn by numpy on the host each step, which the
+            # step time would include)
+            res = run_train(tag, ["--variant", name, "--dtype", "mixed",
+                                  "--batch", str(b), "--steps", str(steps),
+                                  "--memorize", "64", "--log-every", "1",
+                                  *flag], counters, {})
+            if res["remat"] is not (flag[0] == "--remat"):
+                raise AssertionError(f"{tag}: remat {res['remat']}")
+            runs[flag[0]] = res
+            log(run_line(tag, res, b, steps, "no kernel of the port"))
+        on, off = ([x for _, x, _ in runs[k]["history"]]
+                   for k in ("--remat", "--no-remat"))
+        ref = torch.tensor(off)
+        bound, text = train_bound(ref, torch.bfloat16)
+        use = ((torch.tensor(on) - ref).abs() / bound).max().item()
+        if not use <= 1.0:
+            raise AssertionError(f"{name}: remat on {on} vs off {off}")
+        log(f"  {name}: the losses of --remat on and --no-remat within "
+            f"train_bound ({text}; {use:.3f} of it)")
+        profile_train_step(cfg, device, "auto", torch.bfloat16, None,
+                           f"train {name} mixed, no kernel of the port",
+                           {n: 0 for n in port_kernel_names()}, batch=b)
+    try:
+        train_tool.main(["--variant", "swin_t", "--attn", "flash_vjp",
+                         "--steps", "1", "--batch", "2"])
+    except ValueError as e:
+        log(f"  swin_t --attn flash_vjp refused: {e}")
+    else:
+        raise AssertionError("swin_t --attn flash_vjp was not refused")
+
+
+# (k)'s dataset: the pretrainer's --memorize set (its default 256 images
+# of 64 pattern classes) saved for --data
+MAE_DATA_N, MAE_DATA_CLASSES = 256, 64
+
+
+def phase_mae(device, counters, tmp) -> dict:
+    """(k): mae_b16 pretrained by ``tools.pretrain.main`` through
+    ``--data`` in two runs of 5 steps (saved, resumed: the loader skips
+    the consumed batches) bit for bit an unbroken 10-step run, the probe,
+    the exported encoder served as vit_b16 through row 1."""
+    import torch
+
+    from interactive_vit_tpu_torch.data.loader import save_dataset
+    from interactive_vit_tpu_torch.models import mae
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+    from interactive_vit_tpu_torch.tools import pretrain
+    from interactive_vit_tpu_torch.tools.train import pattern_set
+
+    b = TRAIN_BATCH
+    out, enc = os.path.join(tmp, "mae"), os.path.join(tmp, "enc.safetensors")
+    prefix = os.path.join(tmp, "mae_ds")
+    images, labels = pattern_set(0, MAE_DATA_N, 224, 1000, MAE_DATA_CLASSES)
+    save_dataset(prefix, images, labels.astype(np.int64))
+    del images, labels
+    base = ["--variant", "mae_b16", "--dtype", "mixed", "--batch", str(b),
+            "--data", prefix, "--log-every", "1"]
+    # the encoder and decoder through the plain attention: no kernel
+    whole = run_train("pretrain mae_b16 10 steps", base + ["--steps", "10"],
+                      counters, {}, main=pretrain.main)
+    falls("pretrain mae_b16", whole)
+    log(run_line("pretrain mae_b16 mixed --data", whole, b, 10,
+                 "no kernel of the port (the plain attention, as in JAX)"))
+    first = run_train("pretrain mae_b16 5 steps saved", base + [
+        "--steps", "5", "--output", out, "--save-every", "5"], counters, {},
+        main=pretrain.main)
+    resumed = run_train("pretrain mae_b16 resumed to 10", base + [
+        "--steps", "10", "--output", out, "--resume", "--probe",
+        "--export-encoder", enc], counters, {}, main=pretrain.main)
+    if first["start_step"] != 0 or resumed["start_step"] != 5:
+        raise AssertionError(f"mae resume at {resumed['start_step']}")
+    n = same_tree("mae_b16 resume", resumed["params"], whole["params"])
+    log(run_line("pretrain mae_b16 resumed at step 5", resumed, b, 10,
+                 f"the params bit for bit the unbroken run's ({n} leaves)"))
+    acc, acc0 = resumed["probe"]
+    log(f"  mae_b16 linear probe top-1: pretrained {acc:.3f} vs random-init "
+        f"{acc0:.3f} (the dataset's {MAE_DATA_N} images of "
+        f"{MAE_DATA_CLASSES} classes, 20% held out)")
+    # the exported encoder as vit_b16's weights (a headless tree: its
+    # head emits the CLS features), served in bf16 through row 1
+    graphs_dir = os.path.join(tmp, "graphs")
+    shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
+    app, httpd, url = serve(["vit_b16"], "bfloat16", device, graphs_dir,
+                            ckpts={"vit_b16": enc})
+    ecfg = mae.resolve_variant("mae_b16").enc_cfg
+    try:
+        chain = oracle_chain("vit_b16", ecfg.depth)
+        image = np.random.default_rng(31).random(
+            (3, ecfg.img_size, ecfg.img_size), dtype=np.float32)
+        body = oracle_request(chain, image)
+        decoded(url, body)  # its capture
+        got = one_request_counts(url, body, counters,
+                                 "the MAE encoder served as vit_b16",
+                                 {"fused_attn_block_mma": 12})
+    finally:
+        stop(app, httpd)
+    feats = np.asarray(got[len(chain) - 1]["o"], np.float32).reshape(-1)
+    with torch.no_grad():
+        want = mae.encode(train_lib.cast_params(resumed["params"],
+                                                torch.bfloat16),
+                          torch.from_numpy(image)[None].to(device),
+                          mae.resolve_variant("mae_b16"))[0, 0].float()
+    want = want.cpu().numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    err = float(np.abs(feats - want).max())
+    if feats.shape != (ecfg.width,) or not (
+            err <= SLICE_REL * scale):
+        raise AssertionError(f"served encoder: {feats.shape}, max abs err "
+                             f"{err} against the encoder's CLS features")
+    log(f"  the exported encoder served as vit_b16 --ckpt (bf16): 12 "
+        f"fused_attn_block_mma launches a request, its CLS features within "
+        f"{err:.3g} of mae.encode's on the card (bound {SLICE_REL * scale:.3g}"
+        f"; SLICE_REL of max(1, scale))")
+    return {"fused_attn_block_mma": 12}
+
+
+def phase_rest_of_training(device, counters) -> dict:
+    """Phase 8b: runs (h)-(k) (the module docstring); returns the main-path
+    launches of each kernel to add to the kernels line."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_train_")
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    try:
+        t0 = time.perf_counter()
+        add(phase_distill(device, counters, tmp))
+        log(f"  (h) distillation took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add(phase_moe_train(device, counters))
+        log(f"  (i) vit_moe_s16 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_plain_families(device, counters)
+        log(f"  (j) swin_t and convnext_t took "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add(phase_mae(device, counters, tmp))
+        log(f"  (k) mae_b16 took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  phase 8b took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -7049,6 +7583,7 @@ def main() -> int:
     log(f"phase 1 device: {kind}, {torch.cuda.device_count()} visible, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi[0])
+    CARD["smi"] = smi[0]
 
     # 2. build: one nvcc per source, all at once, and beside them the host
     # library (the wire codec and the data loader) with g++
@@ -7447,6 +7982,12 @@ def main() -> int:
     log(f"phase 8 native tier and data (at "
         f"{time.perf_counter() - t_start:.1f} s):")
     phase_native_data(device, counters)
+
+    # 8b. the rest of training: distillation, MoE, Swin / ConvNeXt, MAE
+    log(f"phase 8b the rest of training (at "
+        f"{time.perf_counter() - t_start:.1f} s):")
+    for k, n in phase_rest_of_training(device, counters).items():
+        numbers[k]["launches"] += n
 
     # 9. result
     log(f"phase 9 result: all phases passed in "

@@ -26,6 +26,7 @@ contract needs TF32 off (``runtime/device.exact_f32_matmuls``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -240,14 +241,22 @@ def from_torchvision(sd: Dict[str, Any], cfg: ConvNeXtConfig,
     return params
 
 
-def forward(params: Params, images: torch.Tensor, cfg: ConvNeXtConfig
-            ) -> torch.Tensor:
-    """[B, 3, H, W] (or [3, H, W]) -> logits [B, num_classes]."""
+def forward(params: Params, images: torch.Tensor, cfg: ConvNeXtConfig,
+            block_wrapper=None) -> torch.Tensor:
+    """[B, 3, H, W] (or [3, H, W]) -> logits [B, num_classes].
+
+    ``block_wrapper``: the training hook: each CNBlock runs as one ``(p,
+    x) -> y`` unit wrapped by it (``parallel/train.remat_wrapper``). The
+    gradients of the HWIO kernels come back HWIO: the convolutions see
+    them through permuted views, whose backward permutes back."""
     x, squeeze = _ensure_batched(images)
     x = stem(params["stem"], x, cfg)
+    one = functools.partial(block, cfg=cfg)
+    if block_wrapper is not None:
+        one = block_wrapper(one)
     for s, stage in enumerate(params["stages"]):
         for blk in stage:
-            x = block(blk, x, cfg)
+            x = one(blk, x)
         if s < len(params["downs"]):
             x = downsample(params["downs"][s], x, cfg)
     logits = head(params["head"], avgpool(x), cfg)

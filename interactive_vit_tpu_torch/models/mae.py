@@ -11,11 +11,16 @@ serves here.
 The mask is the JAX draw bit for bit: ``jax.random.uniform(jax.random.
 key(seed), (B, L))`` is ``ops/node_ops.uniform_bits`` on the seed (a 0-d
 int64 tensor on the device, so a seed edit replays a captured program),
-and the two argsorts are stable, as ``jnp.argsort``. Everything runs on
-the device and is capturable into a CUDA graph; the blocks run
-``vit.block``'s plain path (no kernel of this package is on MAE's path).
-The pretraining step and its command line are not ported;
-``forward_pretrain`` (the loss of one pass) is.
+and the two argsorts are stable, as ``jnp.argsort``. Pretraining draws
+from a threefry key (k0, k1) folded on the host (``node_ops.fold_in``:
+``key(seed + 0xAE)``, the step, a microbatch's index), through
+``node_ops.uniform_key_bits``. Everything runs on the device and is
+capturable into a CUDA graph; the blocks run ``vit.block``'s plain path
+(no kernel of this package is on MAE's path). ``encode``, ``decode`` and
+``forward_pretrain`` take the training hook ``block_wrapper``
+(``parallel/train.remat_wrapper``); the pretraining step is
+``parallel/train.make_mae_train_step``, its command line
+``tools/pretrain.py``.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ import torch
 
 from interactive_vit_tpu_torch.models import vit
 from interactive_vit_tpu_torch.ops import layers as L
-from interactive_vit_tpu_torch.ops.node_ops import uniform_bits
+from interactive_vit_tpu_torch.ops.node_ops import (
+    uniform_bits, uniform_key_bits,
+)
 
 Params = Dict[str, Any]
 
@@ -171,11 +178,17 @@ def masking_from_noise(noise: torch.Tensor, len_keep: int):
     return ids_keep, mask, ids_restore
 
 
-def random_masking(seed: torch.Tensor, batch: int, length: int,
-                   len_keep: int):
+def random_masking(seed, batch: int, length: int, len_keep: int,
+                   device=None):
     """Per-image uniform random masking, the JAX function's draw bit for
-    bit: ``seed`` a 0-d int64 tensor in [0, 2^32) on the device."""
-    return masking_from_noise(uniform_bits(seed, [batch, length]), len_keep)
+    bit: ``seed`` a 0-d int64 tensor in [0, 2^32) on the device (the key
+    ``jax.random.key(seed)``), or a threefry key (k0, k1) whose noise is
+    made on ``device``."""
+    if isinstance(seed, tuple):
+        noise = uniform_key_bits(seed, [batch, length], device)
+    else:
+        noise = uniform_bits(seed, [batch, length])
+    return masking_from_noise(noise, len_keep)
 
 
 def _gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -186,8 +199,23 @@ def _gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 # -- forward ------------------------------------------------------------------
 
 
+def _trunk(blocks, x: torch.Tensor, cfg: vit.ViTConfig,
+           block_wrapper=None) -> torch.Tensor:
+    """``vit.block``'s plain path over ``blocks``, each block one ``(p, x)
+    -> y`` unit wrapped by ``block_wrapper`` when given."""
+    def one(p, x):
+        return vit.block(p, x, cfg)[0]
+
+    if block_wrapper is not None:
+        one = block_wrapper(one)
+    for p in blocks:
+        x = one(p, x)
+    return x
+
+
 def encode(params: Params, images: torch.Tensor, cfg: MAEConfig,
-           ids_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+           ids_keep: Optional[torch.Tensor] = None,
+           block_wrapper=None) -> torch.Tensor:
     """Patch-embed + position (the whole grid), the kept tokens gathered,
     the encoder trunk and its final norm: [B, C, H, W] -> [B, 1+K, D], CLS
     first. ``ids_keep=None`` keeps every token (the plain ViT features)."""
@@ -196,13 +224,12 @@ def encode(params: Params, images: torch.Tensor, cfg: MAEConfig,
     x = vit.embed(enc, images, e)
     if ids_keep is not None:
         x = torch.cat([x[:, :1], _gather_rows(x[:, 1:], ids_keep)], dim=1)
-    for p in enc["blocks"]:
-        x, _, _ = vit.block(p, x, e)
+    x = _trunk(enc["blocks"], x, e, block_wrapper)
     return vit.final_norm(enc, x, e)
 
 
 def decode(params: Params, x_enc: torch.Tensor, ids_restore: torch.Tensor,
-           cfg: MAEConfig) -> torch.Tensor:
+           cfg: MAEConfig, block_wrapper=None) -> torch.Tensor:
     """The decoder: embed, the mask tokens put back at their grid positions
     (one gather), its position table, trunk and norm, the per-patch pixel
     prediction: [B, 1+K, D] -> [B, L, p*p*C]."""
@@ -216,8 +243,7 @@ def decode(params: Params, x_enc: torch.Tensor, ids_restore: torch.Tensor,
     # shuffled order (kept tokens, then mask tokens), restored to the grid
     x_ = _gather_rows(torch.cat([x[:, 1:], mask_tok], dim=1), ids_restore)
     x = torch.cat([x[:, :1], x_], dim=1) + dec["pos_emb"].to(x.dtype)
-    for p in dec["blocks"]:
-        x, _, _ = vit.block(p, x, d)
+    x = _trunk(dec["blocks"], x, d, block_wrapper)
     x = L.layer_norm(x, dec["norm"]["s"], dec["norm"]["b"], d.ln_eps)
     return L.linear(x, dec["pred"]["w"], dec["pred"]["b"])[:, 1:]
 
@@ -242,11 +268,12 @@ def _act_dtype(params: Params) -> torch.dtype:
 
 
 def forward_pretrain(params: Params, images: torch.Tensor, cfg: MAEConfig,
-                     seed: torch.Tensor, mask_ratio: Optional[float] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     seed, mask_ratio: Optional[float] = None,
+                     block_wrapper=None) -> Dict[str, torch.Tensor]:
     """One masked-reconstruction pass: {"loss" (f32, the squared error over
     the masked patches), "pred" [B, L, p*p*C], "mask" [B, L]}, the mask
-    drawn from ``seed``."""
+    drawn from ``seed`` (``random_masking``'s: a seed tensor or a threefry
+    key). ``block_wrapper``: the training hook of both trunks."""
     keep = cfg.len_keep(mask_ratio)
     if keep >= cfg.num_patches:
         raise ValueError(
@@ -254,9 +281,9 @@ def forward_pretrain(params: Params, images: torch.Tensor, cfg: MAEConfig,
             f"(len_keep {keep} of {cfg.num_patches})")
     images = images.to(_act_dtype(params))
     ids_keep, mask, ids_restore = random_masking(
-        seed, images.shape[0], cfg.num_patches, keep)
-    z = encode(params, images, cfg, ids_keep)
-    pred = decode(params, z, ids_restore, cfg)
+        seed, images.shape[0], cfg.num_patches, keep, images.device)
+    z = encode(params, images, cfg, ids_keep, block_wrapper)
+    pred = decode(params, z, ids_restore, cfg, block_wrapper)
     target, _, _ = patch_targets(images, cfg)
     per_patch = (pred.float() - target).square().mean(dim=-1)
     loss = (per_patch * mask).sum() / mask.sum()

@@ -205,16 +205,34 @@ def block(p: Params, x: torch.Tensor, cfg: MoEViTConfig, i: int,
 
 def forward(params: Params, images: torch.Tensor, cfg: MoEViTConfig,
             want_attn: bool = False, want_aux: bool = False,
-            attn_impl=None) -> Dict[str, Any]:
+            attn_impl=None, block_wrapper=None,
+            qkv_head_major: bool = False) -> Dict[str, Any]:
     """The monolithic forward: {"logits"} plus "attn" (a tuple of per-block
     maps) with ``want_attn`` and "aux" (the load-balance term averaged over
-    the MoE blocks) with ``want_aux``."""
+    the MoE blocks) with ``want_aux``. ``qkv_head_major``: the qkv columns
+    are ``[H][3][dh]`` (``parallel/mesh.permute_qkv_head_major``).
+    ``block_wrapper``: the training hook (``vit.forward``'s contract): each
+    block runs as one ``(p, x) -> (y, aux)`` unit wrapped by it, aux 0 for
+    a dense block; taps do not compose with it."""
+    if block_wrapper is not None and want_attn:
+        raise ValueError("block_wrapper requires taps off")
     x = vit.embed(params, images, cfg)
     attns, aux_sum = [], 0.0
     for i in range(cfg.depth):
+        if block_wrapper is not None:
+            def one(p, x, i=i):
+                y, _, _, moe_out = block(p, x, cfg, i, attn_impl=attn_impl,
+                                         qkv_head_major=qkv_head_major)
+                return y, (moe_out[1] if moe_out is not None
+                           else x.new_zeros((), dtype=torch.float32))
+
+            x, aux = block_wrapper(one)(params["blocks"][i], x)
+            aux_sum = aux_sum + aux
+            continue
         x, probs, _, moe_out = block(params["blocks"][i], x, cfg, i,
                                      want_attn=want_attn,
-                                     attn_impl=attn_impl)
+                                     attn_impl=attn_impl,
+                                     qkv_head_major=qkv_head_major)
         if want_attn:
             attns.append(probs)
         if moe_out is not None:

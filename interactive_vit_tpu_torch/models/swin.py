@@ -11,8 +11,7 @@ Activations flow NHWC ``[B, H, W, C]``: window partition and merge are
 reshapes and transposes, the shifted-window roll is ``torch.roll`` with
 static shifts, and the relative-position index and the seam mask are
 static numpy tables (this module keeps its own copy of them).
-``from_torch`` converts a torchvision Swin v1 state dict. The training hook
-(``block_wrapper``) is not ported.
+``from_torch`` converts a torchvision Swin v1 state dict.
 """
 
 from __future__ import annotations
@@ -420,15 +419,32 @@ def forward(
     want_attn: bool = False,
     window_impl=None,
     mlp_impls=None,
+    block_wrapper=None,
 ) -> Dict[str, Any]:
     """Full forward: [B,3,H,W] -> {"logits": [B,K]} (+ "attn": a tuple of
     per-block [B, nW, heads, T, T] window maps when requested; a tuple
     because the shapes differ per stage). ``window_impl`` as in ``block``;
-    ``mlp_impls``: one fused MLP kernel (or None) per stage."""
+    ``mlp_impls``: one fused MLP kernel (or None) per stage.
+
+    ``block_wrapper``: the training hook (``vit.forward``'s contract):
+    each block runs as one ``(p, x) -> y`` unit wrapped by it. It forces
+    ``window_impl`` and ``mlp_impls`` to None, as the JAX forward does (the
+    fused kernels have no backward), so Swin trains on the plain window
+    attention; taps do not compose with it."""
+    if block_wrapper is not None:
+        if want_attn:
+            raise ValueError("block_wrapper requires taps off")
+        window_impl = mlp_impls = None
     x = patch_embed(params["patch_embed"], images, cfg)
     attns: List[torch.Tensor] = []
     for s, blocks in enumerate(params["stages"]):
         for bi, p in enumerate(blocks):
+            if block_wrapper is not None:
+                def one(p, x, _s=s, _shift=cfg.stage_shift(s, bi)):
+                    return block(p, x, cfg, _s, _shift)[0]
+
+                x = block_wrapper(one)(p, x)
+                continue
             x, probs = block(p, x, cfg, s, cfg.stage_shift(s, bi),
                              want_attn=want_attn, window_impl=window_impl,
                              mlp_impl=(mlp_impls[s] if mlp_impls else None))

@@ -376,6 +376,23 @@ def head(params: Params, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def head_split(params: Params, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The training heads, un-averaged: (class logits on token 0,
+    distillation logits on token 1, or None for a plain head). ``head``
+    averages the two (DeiT's inference contract); distillation supervises
+    them apart (``parallel/train.make_distill_train_step``)."""
+    hp = params.get("head") or {}
+    if "w" not in hp:
+        raise ValueError("head_split needs a classifier head "
+                         "(num_classes=0 variants have none)")
+    cls = L.linear(x[:, 0], hp["w"], hp["b"])
+    hd = params.get("head_dist") or {}
+    if "w" not in hd:
+        return cls, None
+    return cls, L.linear(x[:, 1], hd["w"], hd["b"])
+
+
 # -- monolithic forward ---------------------------------------------------------
 
 

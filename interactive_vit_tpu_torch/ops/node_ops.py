@@ -275,6 +275,13 @@ def uniform_bits(seed: torch.Tensor, dims: List[int]) -> torch.Tensor:
     return _unit_floats(0, seed, dims, seed.device)
 
 
+def uniform_key_bits(key, dims: List[int], device) -> torch.Tensor:
+    """``jax.random.uniform(key, dims, float32)`` of a threefry key (k0, k1)
+    (Python ints, as ``prng_key`` / ``fold_in`` make them on the host, or
+    int64 tensors) bit for bit, made on ``device``."""
+    return _unit_floats(key[0], key[1], dims, device)
+
+
 def uniform_bits_stacked(seeds: torch.Tensor, dims: List[int]
                          ) -> torch.Tensor:
     """``uniform_bits`` of each seed of ``seeds`` ([K] int64), stacked:

@@ -1,29 +1,42 @@
-"""The trainer: ViT training on one device, with train-state checkpoints
-and resume.
+"""The trainer: the ViT, MoE, Swin and ConvNeXt families and DeiT
+distillation on one device, with train-state checkpoints and resume.
 
     python -m interactive_vit_tpu_torch.tools.train \
         --variant vit_b16 --dtype mixed --attn auto --batch 64 --steps 100 \
         --output ckpts/vit_b16 --save-every 50
+    python -m interactive_vit_tpu_torch.tools.train --variant deit_b16 \
+        --dtype mixed --distill-teacher vit_b16.safetensors \
+        --teacher-variant vit_b16 --distill-tau 1
 
 Counterpart of ``interactive_vit_tpu/tools/train.py`` on one card (or the
-CPU with ``--device cpu``). Data is synthetic (class-conditional Gaussian
-blobs), or with ``--memorize N`` a fixed set of N patterned images (the
-end-to-end accuracy oracle), kept on the device and gathered by index each
-step, or with ``--data PREFIX`` the ``{PREFIX}_images.npy`` /
-``_labels.npy`` files of ``data/loader.save_dataset`` through the native
-prefetching loader (``data/loader.py``: a seeded shuffle each epoch and a
-deterministic flip per sample; the first batch is the train-stream eval
-sample, and ``--resume`` skips the batches the interrupted run had
-consumed, so the resumed stream is the uninterrupted one). ``--hflip``,
-``--crop-pad``, ``--color-jitter``, ``--cutout``, ``--mixup`` and
-``--cutmix`` augment each batch on the device (``data/augment.py``,
-deterministic per (seed, step)). The step is ``parallel/train.py``'s:
-AdamW as optax's chain (warmup + cosine, global-norm clipping, layer-wise
-LR decay), per-block rematerialisation, mixed precision, gradient
-accumulation, and on a card
-the hand-written attention kernels (``--attn auto``): the packed kernel
-for an even head count of width 64 (vit_b16), the [B, H, N, dh] one
-otherwise (vit_t16).
+CPU with ``--device cpu``). ``--variant`` is a plain ViT (with an optional
+``@`` geometry), ``vit_moe_s16``, ``swin_*`` or ``convnext_*``. Data is
+synthetic (class-conditional Gaussian blobs), or with ``--memorize N`` a
+fixed set of N patterned images (the end-to-end accuracy oracle), kept on
+the device and gathered by index each step, or with ``--data PREFIX`` the
+``{PREFIX}_images.npy`` / ``_labels.npy`` files of
+``data/loader.save_dataset`` through the native prefetching loader
+(``data/loader.py``: a seeded shuffle each epoch and a deterministic flip
+per sample; the first batch is the train-stream eval sample, and
+``--resume`` skips the batches the interrupted run had consumed, so the
+resumed stream is the uninterrupted one). ``--hflip``, ``--crop-pad``,
+``--color-jitter``, ``--cutout``, ``--mixup`` and ``--cutmix`` augment
+each batch on the device (``data/augment.py``, deterministic per (seed,
+step)). The step is ``parallel/train.py``'s: AdamW as optax's chain
+(warmup + cosine, global-norm clipping, layer-wise LR decay), per-block
+rematerialisation (``--no-remat`` is the deprecated ``--remat off``),
+mixed precision, gradient accumulation, and on a card the hand-written
+attention kernels (``--attn auto``): the packed kernel for an even head
+count of width 64 (vit_b16, deit_b16, vit_moe_s16), the [B, H, N, dh] one
+otherwise (vit_t16); Swin and ConvNeXt train through no kernel of the
+port, as in the JAX package. The f32 matmuls and convolutions run with TF32
+off (``runtime/device.exact_f32_matmuls``).
+
+``--distill-teacher FILE --teacher-variant V`` trains a distilled student
+(deit_*) against a frozen teacher of any trainable family, loaded through
+``tools/convert.convert`` (``--distill-alpha``, ``--distill-tau``: 0 hard,
+above 0 soft). The teacher runs the canonical qkv layout under
+``no_grad`` and is in neither the optimizer state nor a checkpoint.
 
 Checkpoints are directories of ``utils/checkpoint.py`` (the JAX trainer
 writes orbax ones): ``--output D`` writes the export params to ``D/params``
@@ -32,10 +45,10 @@ writes orbax ones): ``--output D`` writes the export params to ``D/params``
 optimizer state, step, the qkv-layout marker, the EMA) to ``D/state``;
 ``--save-every N`` also saves the state every N steps in the background;
 ``--resume`` continues from ``D/state``; ``--init FILE`` starts a fresh run
-from a checkpoint's trunk; ``--export-safetensors FILE`` writes the export
-params in the native "/" naming, which the server's ``--ckpt`` serves. Not
-ported: the device mesh, ``--no-remat`` and distillation; the parser
-refuses their flags.
+of a plain ViT from a checkpoint's trunk; ``--export-safetensors FILE``
+writes the export params in the native "/" naming, which the server's
+``--ckpt`` serves. Not ported: the device mesh (``--mesh``) and
+``--platform``; the parser refuses their flags.
 """
 
 from __future__ import annotations
@@ -268,7 +281,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     parser.add_argument("--variant", default="vit_t16",
                         help="a plain ViT variant, with an optional "
-                             "@<pixels>p<patch> geometry (vit_b16@384)")
+                             "@<pixels>p<patch> geometry (vit_b16@384), "
+                             "vit_moe_s16, swin_* or convnext_*")
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--lr", type=float, default=3e-4)
@@ -282,6 +296,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "lr*llrd^(L+1), head and final norm at lr "
                              "(0 = uniform)")
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--no-remat", action="store_true",
+                        help="(deprecated) same as --remat off")
     parser.add_argument("--remat", default="auto",
                         choices=["auto", "on", "off", "dots"],
                         help="per-block rematerialisation; auto keeps it "
@@ -332,6 +348,23 @@ def parse_args(argv=None) -> argparse.Namespace:
                         help="cutmix Beta(a,a) alpha (0 = off); with "
                              "--mixup, one of the two is chosen per step")
     parser.add_argument("--label-smoothing", type=float, default=0.0)
+    parser.add_argument("--distill-teacher", default=None, metavar="FILE",
+                        help="DeiT distillation: a frozen teacher "
+                             "checkpoint whose predictions supervise the "
+                             "student's distillation head (token 1); the "
+                             "student must be a distilled variant (deit_*). "
+                             "Requires --teacher-variant")
+    parser.add_argument("--teacher-variant", default=None,
+                        help="the teacher checkpoint's variant (any "
+                             "trainable family; the student's resolution "
+                             "and label space)")
+    parser.add_argument("--distill-alpha", type=float, default=0.5,
+                        help="distillation weight: loss = (1-a) CE(cls, "
+                             "labels) + a distill")
+    parser.add_argument("--distill-tau", type=float, default=0.0,
+                        help="0 = hard distillation (CE against the "
+                             "teacher's argmax); >0 = soft (the teacher's "
+                             "softmax at tau, scaled tau^2)")
     parser.add_argument("--ema-decay", type=float, default=0.0,
                         help="keep an f32 exponential moving average of the "
                              "params; evals use it (0 = off)")
@@ -369,21 +402,69 @@ def parse_args(argv=None) -> argparse.Namespace:
         parser.error("--init and --resume are mutually exclusive: "
                      "--resume restores the full train state, --init "
                      "seeds a fresh run from pretrained weights")
+    if bool(args.distill_teacher) != bool(args.teacher_variant):
+        parser.error("--distill-teacher and --teacher-variant go together")
+    from interactive_vit_tpu_torch.models import vit
+
+    if args.init and args.variant.partition("@")[0] not in vit.VARIANTS:
+        parser.error("--init supports the plain-ViT family only "
+                     "(vit_*/deit_*/dino* variants)")
     state_dir = os.path.join(args.output, "state") if args.output else None
     if args.resume and not (state_dir and os.path.exists(state_dir)):
         parser.error(f"--resume: no state at {state_dir}")
     return args
 
 
-def resolve_cfg(variant: str):
-    """The plain ViT family only (``@`` geometries included)."""
-    from interactive_vit_tpu_torch.models import vit
+def resolve_remat(args, cfg, run_dtype, attn_impl, device):
+    """``--remat`` (``--no-remat`` is ``off``) as ``remat_wrapper``'s
+    argument; ``auto``: ``parallel/train.auto_remat`` at the microbatch."""
+    from interactive_vit_tpu_torch.parallel import train as train_lib
 
-    if variant.partition("@")[0] not in vit.VARIANTS:
-        raise ValueError(
-            f"--variant {variant!r}: the port trains the plain ViT family "
-            f"only (one of {sorted(vit.VARIANTS)}, optionally @<geometry>)")
-    return vit.resolve_variant(variant)
+    if args.no_remat:
+        return False
+    if args.remat != "auto":
+        return {"on": True, "off": False, "dots": "dots"}[args.remat]
+    remat = train_lib.auto_remat(
+        cfg, max(1, args.batch // args.accum_steps), dtype=run_dtype,
+        flash_attn=attn_impl is not None, device=device)
+    logger.info("remat auto -> %s", "on" if remat else "off")
+    return remat
+
+
+def resolve_cfg(variant: str):
+    """A trainable family's config (JAX's ``resolve_cfg``): a plain ViT
+    (``@`` geometries included), ``swin_*``, ``convnext_*`` or an MoE
+    variant."""
+    from interactive_vit_tpu_torch.models import convnext, moe, swin, vit
+
+    if variant.partition("@")[0] in vit.VARIANTS:
+        return vit.resolve_variant(variant)
+    for fam in (swin, convnext, moe):
+        if variant in fam.VARIANTS:
+            return fam.VARIANTS[variant]
+    raise ValueError(
+        f"--variant {variant!r} is not a trainable model: a plain ViT (one "
+        f"of {sorted(vit.VARIANTS)}, optionally @<geometry>) or one of "
+        f"{sorted([*swin.VARIANTS, *convnext.VARIANTS, *moe.VARIANTS])}")
+
+
+def load_teacher(args, dtype, device):
+    """``--distill-teacher``: the teacher's config and params through
+    ``tools/convert.convert`` (the layout sniffed), in ``dtype`` (None:
+    f32) on ``device``."""
+    from interactive_vit_tpu_torch.tools.convert import (
+        convert, load_state_dict,
+    )
+
+    teacher_cfg = resolve_cfg(args.teacher_variant)
+    params = convert(args.teacher_variant, "auto",
+                     load_state_dict(args.distill_teacher),
+                     dtype=dtype or torch.float32, device=device)
+    logger.info("distillation: frozen %s teacher from %s (alpha=%g, %s)",
+                args.teacher_variant, args.distill_teacher,
+                args.distill_alpha, f"soft tau={args.distill_tau}"
+                if args.distill_tau > 0 else "hard")
+    return teacher_cfg, params
 
 
 def main(argv=None) -> dict:
@@ -403,9 +484,12 @@ def main(argv=None) -> dict:
     from interactive_vit_tpu_torch.ops.dispatch import default_train_attn_impl
     from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
     from interactive_vit_tpu_torch.parallel import train as train_lib
-    from interactive_vit_tpu_torch.runtime.device import require_device
+    from interactive_vit_tpu_torch.runtime.device import (
+        exact_f32_matmuls, require_device,
+    )
 
     device = require_device(args.device)
+    exact_f32_matmuls()
     cfg = resolve_cfg(args.variant)
     optimizer = train_lib.make_optimizer(
         args.lr, warmup_steps=args.warmup,
@@ -418,19 +502,21 @@ def main(argv=None) -> dict:
                                         device=device)
     logger.info("train attention: %s", "kernels (attention_vjp)"
                 if attn_impl is not None else "plain (autograd)")
-    if args.remat == "auto":
-        remat = train_lib.auto_remat(
-            cfg, max(1, args.batch // args.accum_steps), dtype=run_dtype,
-            flash_attn=attn_impl is not None, device=device)
-        logger.info("remat auto -> %s", "on" if remat else "off")
-    else:
-        remat = {"on": True, "off": False, "dots": "dots"}[args.remat]
+    remat = resolve_remat(args, cfg, run_dtype, attn_impl, device)
 
-    params, opt_state, step_fn, infer_fn = train_lib.setup(
-        cfg, device=device, seed=args.seed, lr=args.lr, remat=remat,
-        optimizer=optimizer, dtype=dtype, attn_impl=attn_impl,
-        accum_steps=args.accum_steps, label_smoothing=args.label_smoothing,
-        compute_dtype=compute_dtype)
+    common = dict(device=device, seed=args.seed, lr=args.lr, remat=remat,
+                  optimizer=optimizer, dtype=dtype, attn_impl=attn_impl,
+                  accum_steps=args.accum_steps,
+                  label_smoothing=args.label_smoothing,
+                  compute_dtype=compute_dtype)
+    if args.distill_teacher:
+        teacher_cfg, teacher_params = load_teacher(args, dtype, device)
+        params, opt_state, step_fn, infer_fn = train_lib.setup_distill(
+            cfg, teacher_cfg, teacher_params, alpha=args.distill_alpha,
+            tau=args.distill_tau, **common)
+        del teacher_params  # the step's closure holds the teacher
+    else:
+        params, opt_state, step_fn, infer_fn = train_lib.setup(cfg, **common)
     head_major = train_lib.wants_head_major(cfg, attn_impl)
     if args.init:
         params, loaded, skipped = init_from_checkpoint(

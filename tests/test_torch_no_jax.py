@@ -79,6 +79,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.tools.kernel_variants",
     "interactive_vit_tpu_torch.tools.run_graph",
     "interactive_vit_tpu_torch.tools.train",
+    "interactive_vit_tpu_torch.tools.pretrain",
     "interactive_vit_tpu_torch.tools.convert",
     "interactive_vit_tpu_torch.utils.safetensors_io",
     "interactive_vit_tpu_torch.utils.checkpoint",
@@ -179,7 +180,23 @@ def test_train_entry_point_parses():
                  "--distinct-classes", "--label-smoothing", "--ema-decay",
                  "--log-every", "--device", "--data", "--hflip",
                  "--crop-pad", "--color-jitter", "--cutout", "--mixup",
-                 "--cutmix"):
+                 "--cutmix", "--no-remat", "--distill-teacher",
+                 "--teacher-variant", "--distill-alpha", "--distill-tau"):
+        assert flag in res.stdout
+
+
+def test_pretrain_entry_point_parses():
+    res = subprocess.run(
+        [sys.executable, "-m", "interactive_vit_tpu_torch.tools.pretrain",
+         "--help"], capture_output=True, text=True, cwd=ROOT, env=_env(),
+        timeout=120)
+    assert res.returncode == 0, res.stderr
+    for flag in ("--variant", "--steps", "--batch", "--lr", "--warmup",
+                 "--weight-decay", "--mask-ratio", "--no-norm-pix", "--seed",
+                 "--dtype", "--remat", "--accum-steps", "--memorize",
+                 "--distinct-classes", "--data", "--probe", "--output",
+                 "--save-every", "--resume", "--export-encoder",
+                 "--export-safetensors", "--log-every", "--device"):
         assert flag in res.stdout
 
 
@@ -212,6 +229,7 @@ def _default_device_entry_points():
     from interactive_vit_tpu_torch.serving.server import build_app
     from interactive_vit_tpu_torch.tools.run_graph import main as run_graph
     from interactive_vit_tpu_torch.tools.evaluate import main as eval_main
+    from interactive_vit_tpu_torch.tools.pretrain import main as pretrain_main
     from interactive_vit_tpu_torch.tools.train import main as train_main
 
     return {
@@ -240,6 +258,12 @@ def _default_device_entry_points():
         "train_main_data": lambda tmp: train_main(
             ["--steps", "1", "--data", str(tmp / "none"), "--hflip"]),
         "eval_main": lambda tmp: eval_main(["--memorize", "4"]),
+        "pretrain_main": lambda tmp: pretrain_main(["--steps", "1"]),
+        "train_main_swin": lambda tmp: train_main(
+            ["--steps", "1", "--variant", "swin_t", "--no-remat"]),
+        "train_main_distill": lambda tmp: train_main(
+            ["--steps", "1", "--variant", "deit_b16", "--distill-teacher",
+             str(tmp / "t.safetensors"), "--teacher-variant", "vit_b16"]),
     }
 
 
@@ -252,7 +276,8 @@ def _default_device_entry_points():
                                    "make_vgg16_model", "make_model_clip",
                                    "make_model_vgg16", "build_app_clip_vgg",
                                    "run_graph_zeroshot", "train_main_data",
-                                   "eval_main"])
+                                   "eval_main", "pretrain_main",
+                                   "train_main_swin", "train_main_distill"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):
     """The entry points run on the card unless asked for the CPU: with no

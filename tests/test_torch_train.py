@@ -432,11 +432,13 @@ def test_auto_remat_defaults_to_the_device_memory(monkeypatch):
 
 
 def test_model_family_refuses_other_families():
-    from interactive_vit_tpu_torch.models import swin
+    """The served-only families (CLIP here) are not trainable; the ViT,
+    MoE, Swin and ConvNeXt ones are (``tests/test_torch_family_train.py``)."""
+    from interactive_vit_tpu_torch.models import clip
 
     assert train.model_family(vit.VARIANTS["vit_t16"]) is vit
-    with pytest.raises(NotImplementedError, match="swin_t"):
-        train.model_family(swin.VARIANTS["swin_t"])
+    with pytest.raises(NotImplementedError, match="CLIPVisionConfig"):
+        train.model_family(clip.CLIPVisionConfig())
 
 
 def test_forward_refuses_taps_with_a_block_wrapper():
@@ -515,17 +517,21 @@ def test_main_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "data=1"], ["--no-remat"], ["--teacher-variant", "vit_t16"],
-    ["--distill-alpha", "0.2"], ["--distill-teacher", "t.pth"],
-    ["--platform", "cpu"]])
+    ["--mesh", "data=1"], ["--mesh", "data=4,model=2"],
+    ["--teacher-variant", "vit_t16"],
+    ["--distill-alpha", "0.2", "--teacher-variant", "vit_t16"],
+    ["--distill-teacher", "t.pth"], ["--platform", "cpu"]])
 def test_unported_flags_are_refused(flag):
+    """The mesh's flags are not ported; the distillation pair
+    (``--distill-teacher`` / ``--teacher-variant``) is refused alone."""
     with pytest.raises(SystemExit):
         train_tool.parse_args(["--device", "cpu", *flag])
 
 
 def test_main_refuses_other_families():
-    with pytest.raises(ValueError, match="plain ViT family"):
-        train_tool.main(["--device", "cpu", "--variant", "swin_t",
+    """A served-only family (ResNet-50) has no train step."""
+    with pytest.raises(ValueError, match="not a trainable model"):
+        train_tool.main(["--device", "cpu", "--variant", "resnet50",
                          "--steps", "1"])
 
 

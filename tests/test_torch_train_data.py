@@ -140,12 +140,13 @@ def test_unaugmented_data_run_feeds_int_labels(tiny, prefix):
 @pytest.mark.parametrize("argv", [
     ["--data", "x", "--memorize", "8"],
     ["--mesh", "data=1"],
-    ["--no-remat"],
-    ["--distill-teacher", "t.safetensors", "--teacher-variant", "vit_t16"],
+    ["--init", "x.safetensors", "--variant", "swin_t"],
+    ["--distill-teacher", "t.safetensors"],
 ])
 def test_parser_refusals(argv):
-    """--data and --memorize stay exclusive; the mesh, --no-remat and
-    distillation stay refused."""
+    """--data and --memorize stay exclusive; the mesh stays refused;
+    --init takes the plain-ViT family only; --distill-teacher needs
+    --teacher-variant."""
     with pytest.raises(SystemExit) as exc:
         train_tool.parse_args(["--device", "cpu", *argv])
     assert exc.value.code == 2
