@@ -31,14 +31,16 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    ``fused_mlp_block_mma.cu`` (bf16 tensor cores, chunks of 128 or 96
    columns) and ``fused_mlp_block_tf32.cu`` (f32 on split TF32), the W8A8
    MLP ``fused_mlp_w8a8_block.cu`` (``__dp4a``) and
-   ``fused_mlp_w8a8_mma.cu`` (int8 tensor cores; the three tensor-core
+   ``fused_mlp_w8a8_mma.cu`` (int8 tensor cores, chunks of 128 or 96
+   columns; the three tensor-core
    sources on ``mlp_cluster.cuh``: the hidden dimension split over a
    thread-block cluster); the window
    attention ``fused_window_attn.cu`` (FMA), ``fused_window_attn_mma.cu``
    (bf16 tensor cores) and ``fused_window_attn_tf32.cu`` (f32 on split
    TF32; both tensor-core sources take row 1's QKV kernel and its
-   projection without the residual from the block headers): thirty-two
-   kernels).
+   projection without the residual from the block headers): thirty-three
+   kernels, the W8A8 source's instantiation at chunks of 96 counted as
+   one of them).
 3. kernel  -- each kernel against its plain PyTorch version on the card,
    with max abs errors against the stated bounds (which must refuse the
    kernel's maps or mean zeroed or halved) and CUDA-event times (turns
@@ -507,13 +509,48 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        served as ``vit_b16 --ckpt`` in bf16: 12 row-1 launches a request,
        its CLS features within SLICE_REL of ``mae.encode``'s.
    The new launches of rows 1, 8 and 9 are added to the kernels line.
+8c. tracing and quantized Swin -- each step at full width:
+   (l) row 7 at swin_t's four stage shapes (3136 x 96, 784 x 192, 196 x
+       384, 49 x 768; hidden 4x), B=1 and 8, bf16 and f32: ``w8a8_route``
+       gives "mma" at every stage (stages 0-1 on the instantiation at
+       chunks of 96, ``w8a8_mma96_kernel``, counted apart in
+       ``fused_mlp_w8a8_block_mma.narrow_launches``); the integer stages
+       exact and y within its bound (``check_w8a8_parts``, as at vit_b16
+       in phase 3), zeroed and halved outputs refused; device times beside
+       the bound, the plain version, the ``__dp4a`` kernel on the same
+       values off the grid and ``torch._int_mm`` on both products;
+   (m) swin_t served from ``swin_t.json`` in ``--dtype int8w8a8`` (12
+       row-7 launches a request on the tensor cores, 4 of them at chunks
+       of 96, none on ``__dp4a``, and 12 row-5 launches, by count and by
+       name in the profiled replay; the responses within the vit_b16
+       ``int8w8a8`` path's bound of the plain path; every replay bit for
+       bit its eager pass) and in ``--dtype int8`` (no kernel of the
+       port, by count and by name); one ``swin_t_saliency.json`` request
+       in ``int8w8a8`` whose replay is its eager pass bit for bit;
+   (n) ``utils/tracing``: ``trace(dir)`` around one eager pass
+       (``use_jit=False``) and one replay of vit_b16's graph with maps:
+       the eager trace holds one ``n<i>_<kind>`` range for each node, and
+       each of row 1's 36 kernel launches (12 x qkv, attention,
+       projection) lies, through its correlation id, on a launch call
+       inside the range of the block that issued it; the replay's trace
+       holds row 1's kernels and no node range (``profiled``'s retry rule
+       for lost records; a range or a launch call out of place fails at
+       once). ``node_timings`` of swin_t.json beside its eager wall;
+       ``debug_nans`` on a graph whose node 0 makes a NaN: the warm pass
+       and a replay raise ``FloatingPointError`` naming node 0, and with
+       the switch off the graph runs. vit_b16's replay and eager walls
+       with no profiler, beside phase 4's;
+   (o) ``tools/quant_agreement.main`` for vit_b16 and swin_t at 2 rounds x
+       16 images: each mode's top-1 agreement with bf16 and logit MAE.
+   The new launches of rows 1, 5 and 7 are added to the kernels line, the
+   96-column instantiation as a row of its own.
 9. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5, 7, 8 and 8b use random (seeded)
+It imports nothing of JAX. Phases 3-5, 7, 8, 8b and 8c use random (seeded)
 weights, so their logits are meaningless as classifications; what is checked is
 that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
@@ -606,6 +643,11 @@ KERNELS = {
                             "interactive_vit_tpu/ops/fused_mlp.py:60"),
     "fused_mlp_w8a8_block_mma": (CSRC + "fused_mlp_w8a8_mma.cu",
                                  "interactive_vit_tpu/ops/fused_mlp.py:154"),
+    # row 7's tensor-core source at chunks of 96 columns (w8a8_mma96_kernel:
+    # swin_t's 96- and 192-wide stages), counted apart
+    "fused_mlp_w8a8_block_mma96": (
+        CSRC + "fused_mlp_w8a8_mma.cu",
+        "interactive_vit_tpu/ops/fused_mlp.py:154"),
     # row 1 on the tensor cores, in its three modes: bf16 on mma.sync, f32
     # on split TF32, the s8 attention on int8 m16n8k32 in both;
     # fused_attn_block, fused_attn_block_s8 and fused_attn_block_tome above
@@ -2179,23 +2221,119 @@ def check_w8a8_parts(tag, p, parts, rparts) -> str:
     return ", ".join(notes)
 
 
-def phase_w8a8_kernel(device) -> dict:
-    """The W8A8 MLP's kernels against their plain version at vit_b16 (197 x
-    768, hidden 3072; B=1 and 8), bf16 and f32: the int8 tensor-core route
+def w8a8_case(device, label, b, n, d, md, dtype, seed) -> dict:
+    """One W8A8 MLP shape (B=``b``, ``n`` rows of ``d``, ``md`` hidden) in
+    ``dtype``, seeded weights and x: the int8 tensor-core route
     (``fused_mlp_w8a8_block_mma``, two calls the same bits) and, on a copy
-    of x off the 16-byte grid, the ``__dp4a`` kernel; each with exact
+    of x off the 16-byte grid, the ``__dp4a`` kernel, each with exact
     integer stages and y within its bound; device times alone beside the
     bound, the plain version and ``torch._int_mm`` on both products (a
     yardstick of two library calls, no LayerNorm or quantization). Returns
-    both kernels' B=1 bf16 numbers."""
+    {route: the kernels-line numbers}."""
     import torch
 
     from interactive_vit_tpu_torch.ops import fused_mlp as fm
     from interactive_vit_tpu_torch.ops import quant
 
+    eps = 1e-6
+    dt = str(dtype).replace("torch.", "")
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, std=1.0, mean=0.0):
+        return (torch.randn(shape, generator=g) * std + mean).to(
+            device=device, dtype=dtype)
+
+    p = {"ln2_s": rnd(d, std=0.1, mean=1.0), "ln2_b": rnd(d, std=0.1),
+         "fc1_w": quant.quantize_weight(rnd(d, md, std=d ** -0.5), "w8a8"),
+         "fc1_b": rnd(md, std=0.1),
+         "fc2_w": quant.quantize_weight(rnd(md, d, std=md ** -0.5), "w8a8"),
+         "fc2_b": rnd(d, std=0.1)}
+    x = rnd(b, n, d)
+    ref, rparts = fm.fused_mlp_w8a8_parts(x, p, eps)
+    rows = b * n
+    nbytes = (x.element_size() * (2 * rows * d + 3 * d + md)
+              + 2 * d * md + 4 * (md + d))
+    ops = {"int8": 4 * rows * d * md}
+    bms, by = bound(nbytes, ops, dt)
+    tag = f"fused_mlp_w8a8_block {label} B={b} {n}x{d} {dt}"
+    if fm._w8a8_route_of(x, p) != "mma":
+        raise AssertionError(f"{tag}: not on the tensor-core route")
+    nums = {}
+    for route, xr in (("mma", x), ("dp4a", off_grid(x))):
+        name = ("fused_mlp_w8a8_block_mma" if route == "mma"
+                else "fused_mlp_w8a8_block")
+        counter = getattr(fm, name)
+        before = (counter.launches, fm.fused_mlp_w8a8_block.launches
+                  + fm.fused_mlp_w8a8_block_mma.launches,
+                  fm.fused_mlp_w8a8_block_mma.narrow_launches)
+        got, parts = fm.fused_mlp_w8a8_block(xr, p, eps, want_parts=True)
+        again = fm.fused_mlp_w8a8_block(xr, p, eps)
+        torch.cuda.synchronize()
+        # the instantiation at chunks of 96 counts its launches apart too
+        narrow = 2 * (route == "mma" and fm.chunk_of(d) == 96)
+        if (counter.launches - before[0] != 2
+                or fm.fused_mlp_w8a8_block.launches
+                + fm.fused_mlp_w8a8_block_mma.launches - before[1] != 2
+                or fm.fused_mlp_w8a8_block_mma.narrow_launches - before[2]
+                != narrow):
+            raise AssertionError(f"{tag}: not on the {route} route")
+        rtag = f"{tag} ({name})"
+        errs, line = check_outputs(rtag, (got,), (ref,), dtype, ("y",),
+                                   s8=True)
+        check_bounds_refuse(rtag, (got,), (ref,), dtype, ("y",), s8=True,
+                            first=0)
+        try:  # the bound must refuse the residual alone
+            check_outputs(rtag, (xr,), (ref,), dtype, ("y",), quiet=True,
+                          s8=True)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"{rtag}: x alone passed the bound")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{rtag}: two calls differ")
+        line += ("; " + check_w8a8_parts(rtag, p, parts, rparts)
+                 + ", two calls the same bits")
+        if route == "mma":
+            line += (f", tiles of {fm.row_tile('w8a8', rows, d, md, dtype)} "
+                     f"rows in clusters of {fm.cluster_of(d, md)} at chunks "
+                     f"of {fm.chunk_of(d)}")
+        t_k, t_p, t_host = time_turns_held(
+            lambda: fm.fused_mlp_w8a8_block(xr, p, eps),
+            lambda: fm.fused_mlp_w8a8_reference(xr, p, eps))
+        nums[route] = {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p,
+                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+        log(line + f"; kernel {t_k:.4f} ms (device time; the wrapper's host "
+            f"time {t_host:.4f} ms a call), plain {t_p:.4f} ms; bound "
+            f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB, "
+            f"{ops['int8'] / 1e9:.3f} G int8 operations)")
+    # the two products alone, one library call each: a yardstick (no
+    # LayerNorm, GELU or quantization); the port never calls it
+    q1 = rparts["q1"].reshape(rows, d)
+    q2 = rparts["q2"].reshape(rows, md)
+    w1, w2 = p["fc1_w"][quant.AQKEY], p["fc2_w"][quant.AQKEY]
+    try:
+        t_lib, _ = time_held(lambda: (torch._int_mm(q1, w1),
+                                      torch._int_mm(q2, w2)))
+        t_fc1, _ = time_held(lambda: torch._int_mm(q1, w1))
+        log(f"  {tag}: yardstick torch._int_mm on fc1 and fc2 {t_lib:.4f} "
+            f"ms (device time; fc1 alone {t_fc1:.4f}); the tensor cores at "
+            f"{nums['mma']['ms'] / t_lib:.2f}x it, __dp4a at "
+            f"{nums['dp4a']['ms'] / t_lib:.2f}x")
+    except RuntimeError as e:
+        log(f"  {tag}: torch._int_mm refused: {str(e)[:80]}")
+    return nums
+
+
+def phase_w8a8_kernel(device) -> dict:
+    """The W8A8 MLP's kernels against their plain version at vit_b16 (197 x
+    768, hidden 3072; B=1 and 8), bf16 and f32 (``w8a8_case``). Returns
+    both kernels' B=1 bf16 numbers."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+
     out = {}
     n, d, md = W8A8_SHAPE
-    eps = 1e-6
     log(f"  fused_mlp_w8a8_block_mma: "
         f"{fm.max_active_clusters('w8a8', d, md, torch.bfloat16)} clusters "
         f"of {fm.cluster_size(md)} blocks fit the card at once in bf16 "
@@ -2204,93 +2342,8 @@ def phase_w8a8_kernel(device) -> dict:
         f"in f32 ({fm.w8a8_mma_smem_bytes(d, md, 4)} bytes)")
     for b in (1, 8):
         for dtype in (torch.bfloat16, torch.float32):
-            dt = str(dtype).replace("torch.", "")
-            g = torch.Generator().manual_seed(b + 7)
-
-            def rnd(*shape, std=1.0, mean=0.0):
-                return (torch.randn(shape, generator=g) * std + mean).to(
-                    device=device, dtype=dtype)
-
-            p = {"ln2_s": rnd(d, std=0.1, mean=1.0), "ln2_b": rnd(d, std=0.1),
-                 "fc1_w": quant.quantize_weight(rnd(d, md, std=d ** -0.5),
-                                                "w8a8"),
-                 "fc1_b": rnd(md, std=0.1),
-                 "fc2_w": quant.quantize_weight(rnd(md, d, std=md ** -0.5),
-                                                "w8a8"),
-                 "fc2_b": rnd(d, std=0.1)}
-            x = rnd(b, n, d)
-            ref, rparts = fm.fused_mlp_w8a8_parts(x, p, eps)
-            rows = b * n
-            nbytes = (x.element_size() * (2 * rows * d + 3 * d + md)
-                      + 2 * d * md + 4 * (md + d))
-            ops = {"int8": 4 * rows * d * md}
-            bms, by = bound(nbytes, ops, dt)
-            tag = f"fused_mlp_w8a8_block vit_b16 B={b} {n}x{d} {dt}"
-            if fm._w8a8_route_of(x, p) != "mma":
-                raise AssertionError(f"{tag}: not on the tensor-core route")
-            nums = {}
-            for route, xr in (("mma", x), ("dp4a", off_grid(x))):
-                name = ("fused_mlp_w8a8_block_mma" if route == "mma"
-                        else "fused_mlp_w8a8_block")
-                counter = getattr(fm, name)
-                before = (counter.launches, fm.fused_mlp_w8a8_block.launches
-                          + fm.fused_mlp_w8a8_block_mma.launches)
-                got, parts = fm.fused_mlp_w8a8_block(xr, p, eps,
-                                                     want_parts=True)
-                again = fm.fused_mlp_w8a8_block(xr, p, eps)
-                torch.cuda.synchronize()
-                if (counter.launches - before[0] != 2
-                        or fm.fused_mlp_w8a8_block.launches
-                        + fm.fused_mlp_w8a8_block_mma.launches
-                        - before[1] != 2):
-                    raise AssertionError(f"{tag}: not on the {route} route")
-                rtag = f"{tag} ({name})"
-                errs, line = check_outputs(rtag, (got,), (ref,), dtype,
-                                           ("y",), s8=True)
-                check_bounds_refuse(rtag, (got,), (ref,), dtype, ("y",),
-                                    s8=True, first=0)
-                try:  # the bound must refuse the residual alone
-                    check_outputs(rtag, (xr,), (ref,), dtype, ("y",),
-                                  quiet=True, s8=True)
-                except AssertionError:
-                    pass
-                else:
-                    raise AssertionError(f"{rtag}: x alone passed the bound")
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{rtag}: two calls differ")
-                line += ("; " + check_w8a8_parts(rtag, p, parts, rparts)
-                         + ", two calls the same bits")
-                if route == "mma":
-                    line += (f", tiles of "
-                             f"{fm.row_tile('w8a8', rows, d, md, dtype)} rows "
-                             f"in clusters of {fm.cluster_size(md)}")
-                t_k, t_p, t_host = time_turns_held(
-                    lambda: fm.fused_mlp_w8a8_block(xr, p, eps),
-                    lambda: fm.fused_mlp_w8a8_reference(xr, p, eps))
-                nums[route] = {"max_abs_err": max(errs), "ms": t_k,
-                               "plain_ms": t_p, "bound_ms": bms,
-                               "bound_by": by, "library_ms": None}
-                log(line + f"; kernel {t_k:.4f} ms (device time; the "
-                    f"wrapper's host time {t_host:.4f} ms a call), plain "
-                    f"{t_p:.4f} ms; bound {bms:.5f} ms ({by}: "
-                    f"{nbytes / 1e6:.2f} MB, {ops['int8'] / 1e9:.3f} G int8 "
-                    f"operations)")
-            # the two products alone, one library call each: a yardstick
-            # (no LayerNorm, GELU or quantization); the port never calls it
-            q1 = rparts["q1"].reshape(rows, d)
-            q2 = rparts["q2"].reshape(rows, md)
-            w1, w2 = p["fc1_w"][quant.AQKEY], p["fc2_w"][quant.AQKEY]
-            try:
-                t_lib, _ = time_held(lambda: (torch._int_mm(q1, w1),
-                                              torch._int_mm(q2, w2)))
-                t_fc1, _ = time_held(lambda: torch._int_mm(q1, w1))
-                log(f"  {tag}: yardstick torch._int_mm on fc1 and fc2 "
-                    f"{t_lib:.4f} ms (device time; fc1 alone {t_fc1:.4f}); "
-                    f"the tensor cores at {nums['mma']['ms'] / t_lib:.2f}x "
-                    f"it, __dp4a at {nums['dp4a']['ms'] / t_lib:.2f}x")
-            except RuntimeError as e:
-                log(f"  {tag}: torch._int_mm refused: {str(e)[:80]}")
-            if (b, dt) == (1, "bfloat16"):
+            nums = w8a8_case(device, "vit_b16", b, n, d, md, dtype, b + 7)
+            if (b, dtype) == (1, torch.bfloat16):
                 out = nums
     return out
 
@@ -2427,14 +2480,16 @@ def time_host_spans(executor, graph, taps, tag, spans) -> None:
 def device_kernels(prof):
     """(device ms, launches, name) of each kernel a profile saw, kept on
     the profile (a saliency graph's replay holds ~40,000 kernels, and each
-    ``key_averages`` walks them all)."""
+    ``key_averages`` walks them all). The executor's node ranges, which a
+    profile also puts on the device's timeline, are no kernels."""
     from torch.autograd import DeviceType
 
     if not hasattr(prof, "ivt_kernels"):
         prof.ivt_kernels = [(e.self_device_time_total / 1e3, e.count, e.key)
                             for e in prof.key_averages()
                             if e.device_type == DeviceType.CUDA
-                            and e.self_device_time_total > 0]
+                            and e.self_device_time_total > 0
+                            and not getattr(e, "is_user_annotation", False)]
     return prof.ivt_kernels
 
 
@@ -5203,6 +5258,22 @@ class ToMeCount:
         self.fn.tome_launches = value
 
 
+class NarrowCount:
+    """The W8A8 tensor-core kernel's launches at chunks of 96 columns
+    (``w8a8_mma96_kernel``) as one ``launches`` counter."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self) -> int:
+        return self.fn.narrow_launches
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        self.fn.narrow_launches = value
+
+
 class FwdBwdCount:
     """The forward and backward launch counts of a trainable attention's
     route (``prefix`` "" for FMA, "mma_" for the bf16 tensor cores, "tf32_"
@@ -7554,6 +7625,511 @@ def phase_rest_of_training(device, counters) -> dict:
     return launches
 
 
+# -- phase 8c: tracing and quantized Swin -----------------------------------
+
+# swin_t's MLP branch by stage at 224 px: (tokens, width, hidden)
+SWIN_T_MLP = ((3136, 96, 384), (784, 192, 768), (196, 384, 1536),
+              (49, 768, 3072))
+# the served swin_t graph's taps and node params (phase 4's swin_t path's):
+# nodes 2, 3 stages.0.0 / .0.1 (shifted), 13 stages.2.5 (one window), 16
+# stages.3.1 (three heads)
+SWIN_TAPS = {2: ("attn",), 3: ("attn",), 13: ("attn",), 16: ("attn",)}
+SWIN_NODE_PARAMS = {13: {"attn_win": "2"}, 16: {"attn_heads": "[0,11,23]"}}
+# vit_b16's taps in (n): maps + rollout on 3 blocks (phase 4's)
+VIT_B16_TAPS = {2: ("attn", "r"), 7: ("attn", "r"), 13: ("attn", "r")}
+# row 1's kernels by name: each once a block of a vit_b16 pass
+ROW1_PARTS = ("row1_qkv_mma_kernel", "row1_attn_mma_kernel",
+              "proj_mma_kernel")
+
+
+def row7_swin_stages(device) -> dict:
+    """(l): row 7 at swin_t's four stage shapes, B=1 and 8, bf16 and f32
+    (``w8a8_case``); the route takes the tensor cores at each, stages 0-1
+    at chunks of 96. Returns stage 0's B=1 bf16 numbers on the tensor
+    cores (the kernels line's row for the instantiation at 96)."""
+    import torch
+
+    from interactive_vit_tpu_torch.models import swin
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+
+    cfg = swin.VARIANTS["swin_t"]
+    out = None
+    for s, (n, d, md) in enumerate(SWIN_T_MLP):
+        if (n, d, md) != (cfg.stage_res(s) ** 2, cfg.stage_dim(s),
+                          cfg.stage_dim(s) * cfg.mlp_ratio):
+            raise AssertionError(f"swin_t stage {s} is not {(n, d, md)}")
+        log(f"  row 7 at swin_t stage {s} ({n} x {d}, hidden {md}): chunks "
+            f"of {fm.chunk_of(d)}, clusters of {fm.cluster_of(d, md)} blocks "
+            f"({md // fm.cluster_of(d, md)} hidden columns each; "
+            f"{fm.w8a8_mma_smem_bytes(d, md, 2)} / "
+            f"{fm.w8a8_mma_smem_bytes(d, md, 4)} bytes of shared memory a "
+            f"block in bf16 / f32, "
+            f"{fm.max_active_clusters('w8a8', d, md, torch.bfloat16)} "
+            f"clusters at once in bf16)")
+        for b in (1, 8):
+            for dtype in (torch.bfloat16, torch.float32):
+                nums = w8a8_case(device, f"swin_t stage {s}", b, n, d, md,
+                                 dtype, 31 + 8 * s + b)
+                if (s, b, dtype) == (0, 1, torch.bfloat16):
+                    out = nums["mma"]
+    return out
+
+
+def served_quant_swin(device, graphs_dir, counters) -> dict:
+    """(m): swin_t served in ``--dtype int8w8a8`` and ``int8``
+    (``run_path``: exact launches a request and a group, by name in the
+    profiled replay, the responses against the plain path, the compiled
+    path), every replay its eager pass bit for bit; then one
+    ``swin_t_saliency.json`` request in int8w8a8. Returns the paths'
+    launches."""
+    from interactive_vit_tpu_torch.models import swin
+    from interactive_vit_tpu_torch.ops import fused_mlp as fm
+    from interactive_vit_tpu_torch.ops import fused_window as fw
+
+    cfg = swin.VARIANTS["swin_t"]
+    w8a8 = Path(
+        "swin_t", swin, cfg, (240, 300), SWIN_TAPS,
+        {"fused_mlp_w8a8_block_mma": 12, "fused_mlp_w8a8_block_mma96": 4,
+         "fused_window_attn_mma": 12, "fused_mlp_w8a8_block": 0,
+         "fused_window_attn": 0},
+        {"window_impl": fw.fused_window_attn_reference,
+         "mlp_impls": [fm.fused_mlp_w8a8_reference] * len(cfg.depths)},
+        swin_tap_shape, seq=3, conc=2, check_tap=swin_check_tap,
+        node_params=SWIN_NODE_PARAMS, dtype="int8w8a8", f32=False,
+        profile_kernels={"w8a8_mma_kernel": 8, "w8a8_mma96_kernel": 4,
+                         "w8a8_mlp_kernel": 0, "window_attn_mma_kernel": 12,
+                         "row1_qkv_mma_kernel": 12, "proj_mma_kernel": 12,
+                         "window_attention_kernel": 0})
+    w8 = Path("swin_t", swin, cfg, (240, 300), SWIN_TAPS, {}, {},
+              swin_tap_shape, seq=2, conc=0, check_tap=swin_check_tap,
+              node_params=SWIN_NODE_PARAMS, dtype="int8", f32=False,
+              profile_kernels={name: 0 for name in port_kernel_names()})
+    launches = {}
+    for path in (w8a8, w8):
+        t0 = time.perf_counter()
+        n_diffs = len(REPLAY_DIFFS)
+        res = run_path(path, device, graphs_dir, counters)
+        if len(REPLAY_DIFFS) != n_diffs:
+            raise AssertionError(f"swin_t {path.dtype}: a replay is not its "
+                                 f"eager pass bit for bit: "
+                                 f"{REPLAY_DIFFS[n_diffs:]}")
+        for k, n in res["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"  swin_t {path.dtype}: the path took "
+            f"{time.perf_counter() - t0:.1f} s")
+    quant_saliency(device, graphs_dir)
+    return launches
+
+
+def quant_saliency(device, graphs_dir) -> None:
+    """One ``swin_t_saliency.json`` request in int8w8a8 (the W8A8 kernel
+    in the main pass, the dequantized plain twins in the gradient kinds'
+    replays): its first run captures, a second image's replays, and that
+    replay equals the eager pass (``use_jit=False``) of the same request
+    bit for bit in every tapped output."""
+    import torch
+
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.wire.schema import graph_from_json
+
+    rng = np.random.default_rng(27)
+    images = [rng.random((3, 224, 224), dtype=np.float32) for _ in range(2)]
+    app, httpd, _ = serve(["swin_t"], "int8w8a8", device, graphs_dir)
+    try:
+        ex = app.executor
+        eager = Executor(app.reg, use_jit=False, device=device)
+        obj = app.graphs.load("swin_t_saliency.json")
+        names = [node_name(obj, i) for i in range(len(obj["nodes"]))]
+        head = next(i for i, nm in enumerate(names) if nm.endswith(":head"))
+        taps = sorted({(head, "o")} | {
+            (i, GRAD_TAPS[grad_kind(nm)]) for i, nm in enumerate(names)
+            if grad_kind(nm) in GRAD_TAPS})
+
+        def graph_of(image):
+            g = graph_from_json(obj)
+            g.add_input(image, g.nodes[0], "o")
+            return g
+
+        t0 = time.perf_counter()
+        ex.run(graph_of(images[0]), taps)
+        first_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = ex.run(graph_of(images[1]), taps)
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        if not ex.last_stats.cache_hit:
+            raise AssertionError("swin_t_saliency int8w8a8: the second "
+                                 "request was not a replay")
+        t0 = time.perf_counter()
+        want = eager.run(graph_of(images[1]), taps)
+        eager_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        stop(app, httpd)
+    diff = {f"{i}/{ch}": float(np.abs(got[i][ch] - want[i][ch]).max())
+            for i, ch in taps if not np.array_equal(got[i][ch], want[i][ch])}
+    if diff:
+        raise AssertionError(f"swin_t_saliency int8w8a8: the replay differs "
+                             f"from its eager pass: {diff}")
+    if not all(np.isfinite(got[i][ch]).all() for i, ch in taps):
+        raise AssertionError("swin_t_saliency int8w8a8: non-finite output")
+    log(f"  swin_t_saliency.json int8w8a8: {len(taps)} tapped outputs (the "
+        f"head, {', '.join(names[i] for i, _ in taps if i != head)}), the "
+        f"replay equal to its eager pass bit for bit; first request "
+        f"(warm pass and capture) {first_s:.2f} s, replay {replay_ms:.2f} ms, "
+        f"eager {eager_ms:.2f} ms (host walls)")
+
+
+def node_name(obj, i) -> str:
+    """Node ``i``'s kind in a saved graph's JSON."""
+    inst = obj["nodes"][i]["instance"]
+    return inst.get("endpoint") or inst["kind"]
+
+
+def traced(run, check, what: str, tries: int = 5):
+    """``run()`` under ``utils/tracing.trace`` into a fresh directory, its
+    Chrome trace's events handed to ``check``, which raises on a record
+    out of place and returns None when every expected record is there,
+    else what is short. A short trace (CUPTI can drop a record:
+    ``profiled``; one block's three row-1 records went missing from three
+    traces running, in one run on the card) is taken again, up to
+    ``tries`` times, after 64 device-to-device copies a try and a wait,
+    and recorded in PROFILE_RETRIES.
+    Returns ``check``'s result on the trace that passed."""
+    import glob
+
+    import torch
+
+    from interactive_vit_tpu_torch.utils import tracing
+
+    short = []
+    for attempt in range(tries):
+        tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_trace_")
+        try:
+            torch.cuda.synchronize()
+            with tracing.trace(tmp):
+                if attempt:
+                    pad = torch.zeros(2, device="cuda")
+                    for _ in range(64 * attempt):
+                        pad[1:].copy_(pad[:1])
+                    torch.cuda.synchronize()
+                    time.sleep(0.005 * attempt)
+                run()
+                torch.cuda.synchronize()
+            (name,) = glob.glob(os.path.join(tmp, "*.json"))
+            with open(name) as fh:
+                events = json.load(fh)["traceEvents"]
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        lost = check(events)
+        if lost is None:
+            return
+        short.append(lost)
+        PROFILE_RETRIES.append(f"{what}: {lost}")
+        log(f"  {what}: the trace is short ({lost}): a record lost; "
+            f"tracing again")
+    raise AssertionError(f"{what}: each of {tries} traces was short: "
+                         f"{short}")
+
+
+def node_ranges(events):
+    """The executor's node ranges (``n<i>_<kind>``) of a Chrome trace."""
+    import re
+
+    return [e for e in events if e.get("cat") == "user_annotation"
+            and re.fullmatch(r"n\d+_\S+", e.get("name", ""))]
+
+
+def row1_kernels(events):
+    """(part, kernel event) of each of row 1's kernels in a trace."""
+    return [(part, e) for e in events if e.get("cat") == "kernel"
+            for part in ROW1_PARTS if part in e.get("name", "")]
+
+
+def short_trace(events, counts) -> str:
+    """What a trace short of row 1's kernels lacks, for the log: the
+    kernel records against the launch calls, and where in the pass's
+    kernel order (by start time) row 1's QKV kernels fall, so a missing
+    block shows as a wider gap."""
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"),
+                     key=lambda e: e["ts"])
+    calls = sum(1 for e in events if e.get("cat") in ("cuda_runtime",
+                                                      "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and "aunch" in e.get("name", ""))
+    qkv = [i for i, e in enumerate(kernels) if ROW1_PARTS[0] in e["name"]]
+    return (f"row 1's kernels {counts} of 12 each; {len(kernels)} kernel "
+            f"records, {calls} launch calls; the QKV kernels at positions "
+            f"{qkv}")
+
+
+def check_eager_trace(events, scopes, report):
+    """The eager pass's trace: one range a node, named ``scopes``; each of
+    row 1's 36 launches on a launch call (runtime or driver, matched by
+    correlation id) whose host interval lies inside one range, the range
+    of a ``blocks.*`` node, one launch of each kernel in each block's
+    range. ``report`` collects what the log prints."""
+    ranges = node_ranges(events)
+    names = sorted(e["name"] for e in ranges)
+    if names != sorted(scopes):
+        raise AssertionError(f"(n) eager trace: node ranges {names}, "
+                             f"expected {sorted(scopes)}")
+    kernels = row1_kernels(events)
+    counts = {part: sum(1 for p, _ in kernels if p == part)
+              for part in ROW1_PARTS}
+    if any(n > 12 for n in counts.values()):
+        raise AssertionError(f"(n) eager trace: row 1's kernels {counts}")
+    if any(n < 12 for n in counts.values()):
+        return short_trace(events, counts)
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    blocks = {e["name"]: [] for e in ranges if ".blocks." in e["name"]}
+    apis, slack = set(), float("inf")
+    for part, k in kernels:
+        call = calls.get(k.get("args", {}).get("correlation"))
+        if call is None:
+            return f"no launch call recorded for a {part}"
+        t0, t1 = call["ts"], call["ts"] + call.get("dur", 0)
+        inside = [r for r in ranges
+                  if r["ts"] <= t0 and t1 <= r["ts"] + r["dur"]]
+        if len(inside) != 1 or inside[0]["name"] not in blocks:
+            raise AssertionError(
+                f"(n) eager trace: the launch call {call['name']} of a "
+                f"{part} at {t0} us lies in the ranges "
+                f"{[r['name'] for r in inside]}, not in one block's")
+        r = inside[0]
+        slack = min(slack, t0 - r["ts"], r["ts"] + r["dur"] - t1)
+        blocks[r["name"]].append(part)
+        apis.add(f"{call['cat']}:{call['name']}")
+    if len(blocks) != 12 or any(sorted(v) != sorted(ROW1_PARTS)
+                                for v in blocks.values()):
+        raise AssertionError(f"(n) eager trace: row 1's launches by block "
+                             f"range {blocks}")
+    report.update(ranges=len(ranges), apis=sorted(apis), slack=slack,
+                  kernels=sum(1 for e in events if e.get("cat") == "kernel"))
+    return None
+
+
+def check_replay_trace(events, report):
+    """A replay's trace: row 1's kernels, 12 each, and no node range."""
+    ranges = node_ranges(events)
+    if ranges:
+        raise AssertionError(f"(n) replay trace: node ranges "
+                             f"{[e['name'] for e in ranges][:4]}...: a "
+                             f"replay has no host step to range")
+    kernels = row1_kernels(events)
+    counts = {part: sum(1 for p, _ in kernels if p == part)
+              for part in ROW1_PARTS}
+    if any(n > 12 for n in counts.values()):
+        raise AssertionError(f"(n) replay trace: row 1's kernels {counts}")
+    if any(n < 12 for n in counts.values()):
+        return short_trace(events, counts)
+    report.update(kernels=sum(1 for e in events if e.get("cat") == "kernel"))
+    return None
+
+
+def nan_graph(zero: bool):
+    """binop "/" of two equal vectors into cos: node 0 makes 0 / 0 = NaN
+    when ``zero``, ones otherwise; node 1 carries it."""
+    from interactive_vit_tpu_torch.graph.ir import Graph
+
+    g = Graph()
+    d = g.add_node("binop", {"op": "/"})
+    c = g.add_node("cos")
+    g.connect(d, "c", c, "o")
+    x = np.zeros(4096, np.float32) if zero else np.ones(4096, np.float32)
+    g.add_input(x, d, "a")
+    g.add_input(x.copy(), d, "b")
+    return g
+
+
+def check_debug_nans(device) -> None:
+    """``debug_nans`` on the card: on, a replay whose tap holds a NaN and a
+    fresh signature's warm pass raise ``FloatingPointError`` naming node 0,
+    and ``run_eager`` gives node 0 the NaN error and node 1 "eval error
+    upstream"; off, the same program replays and returns the NaNs."""
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.graph.registry import Registry
+    from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+    from interactive_vit_tpu_torch.utils import tracing
+
+    reg = Registry()
+    register_builtin(reg)
+    ex = Executor(reg, device=device)
+    taps = [(1, "o")]
+    ex.run(nan_graph(False), taps)  # the capture, finite
+    said = {}
+    tracing.debug_nans(True)
+    try:
+        if not (ex.run(nan_graph(False), taps)[1]["o"] > 0).all():
+            raise AssertionError("(n) debug_nans: a finite replay failed")
+        for what, run in (
+                ("a replay", lambda: ex.run(nan_graph(True), taps)),
+                ("a warm pass", lambda: Executor(reg, device=device).run(
+                    nan_graph(True), taps))):
+            try:
+                run()
+            except FloatingPointError as err:
+                if "node 0 (binop)" not in str(err):
+                    raise AssertionError(f"(n) debug_nans, {what}: {err}")
+                said[what] = str(err)
+            else:
+                raise AssertionError(f"(n) debug_nans, {what}: no raise")
+        _, errs = Executor(reg, use_jit=False, device=device).run_eager(
+            nan_graph(True))
+        if (set(errs) != {0, 1} or "nan" not in errs[0]
+                or errs[1] != "eval error upstream"):
+            raise AssertionError(f"(n) debug_nans, run_eager: {errs}")
+    finally:
+        tracing.debug_nans(False)
+    out = ex.run(nan_graph(True), taps)
+    if not ex.last_stats.cache_hit or not np.isnan(out[1]["o"]).all():
+        raise AssertionError("(n) debug_nans off: the NaN graph did not "
+                             "replay its NaNs")
+    log(f"  (n) debug_nans: {said['a replay']!r} on a replay, the same on a "
+        f"warm pass; run_eager {errs}; off, the graph replays its NaNs")
+
+
+def phase_tracing(device, graphs_dir, counters) -> dict:
+    """(n): the node ranges in an eager pass's trace and none in a
+    replay's, node_timings, debug_nans, vit_b16's walls with no profiler.
+    Returns the traced passes' launches."""
+    import torch
+
+    from interactive_vit_tpu_torch.graph.executor import Executor, node_scope
+    from interactive_vit_tpu_torch.utils import tracing
+
+    rng = np.random.default_rng(33)
+    image = rng.random((3, 224, 224), dtype=np.float32)
+    app, httpd, _ = serve(["vit_b16", "swin_t"], "bfloat16", device,
+                          graphs_dir)
+    try:
+        eager = Executor(app.reg, use_jit=False, device=device)
+        obj = app.graphs.load("vit_b16.json")
+        nodes = chain_graph(obj, image).nodes
+        head = next(n.index for n in nodes if n.name == "vit_b16:head")
+        taps = sorted({(head, "o")} | {(i, ch) for i, chs in
+                                       VIT_B16_TAPS.items() for ch in chs})
+        scopes = [node_scope(n.index, n.name) for n in nodes]
+
+        def run_eager_pass():
+            eager.run(chain_graph(obj, image), taps)
+
+        def run_replay():
+            app.executor.run(chain_graph(obj, image), taps)
+            if not app.executor.last_stats.cache_hit:
+                raise AssertionError("(n) the traced replay was a capture")
+
+        app.executor.run(chain_graph(obj, image), taps)  # the capture
+        run_eager_pass()  # warm
+        for fn in counters.values():
+            fn.launches = 0
+        eager_rep, replay_rep = {}, {}
+        traced(run_eager_pass,
+               lambda ev: check_eager_trace(ev, scopes, eager_rep),
+               "(n) vit_b16 eager pass trace")
+        traced(run_replay, lambda ev: check_replay_trace(ev, replay_rep),
+               "(n) vit_b16 replay trace")
+        launches = {k: fn.launches for k, fn in counters.items()
+                    if fn.launches}
+        # a profiled eager pass's kernels (busy, by name) hold no node
+        # range, though the ranges sit on the device's timeline too
+        profiled(lambda: synchronized_ms(run_eager_pass),
+                 "(n) vit_b16 profile of one eager pass",
+                 {**dict.fromkeys(ROW1_PARTS, 12), scopes[2]: 0})
+        log(f"  (n) tracing.trace: the eager pass's trace holds "
+            f"{eager_rep['ranges']} node ranges (one a node, JAX's scope "
+            f"names) and {eager_rep['kernels']} kernels; row 1's 36 launches "
+            f"each inside its block's range through its launch call "
+            f"({', '.join(eager_rep['apis'])}; the nearest call "
+            f"{eager_rep['slack']:.1f} us from its range's edge); the "
+            f"replay's trace {replay_rep['kernels']} kernels (row 1's 36 "
+            f"among them) and no node range; the traced passes' launches "
+            f"{launches}")
+        walls = {what: median_ms(fn) for what, fn in
+                 (("replay", run_replay), ("eager", run_eager_pass))}
+        phase4 = next((row for row in COMPILED
+                       if row[0] == "vit_b16 bfloat16"), None)
+        log(f"  (n) vit_b16 with no profiler (median of 3, synchronized): "
+            f"replay {walls['replay']:.2f} ms, eager {walls['eager']:.2f} ms"
+            + (f"; phase 4's: replay {phase4[1]:.2f}, eager {phase4[2]:.2f}"
+               if phase4 else ""))
+        sobj = app.graphs.load("swin_t.json")
+        timings = tracing.node_timings(eager, chain_graph(sobj, image))
+        swin_wall = median_ms(lambda: eager.run(chain_graph(sobj, image),
+                                                "all"))
+        if sorted(timings) != list(range(len(sobj["nodes"]))):
+            raise AssertionError(f"(n) node_timings: keys {sorted(timings)}")
+        slow = sorted(timings, key=timings.get, reverse=True)[:3]
+        log(f"  (n) node_timings of swin_t.json (bf16, eager, each node "
+            f"between syncs): {len(timings)} nodes, "
+            f"{sum(timings.values()) * 1e3:.2f} ms in all beside the eager "
+            f"pass's wall {swin_wall:.2f} ms (median of 3, every output); "
+            f"the slowest " + ", ".join(
+                f"{i} ({node_name(sobj, i)}) {timings[i] * 1e3:.3f} ms"
+                for i in slow))
+    finally:
+        stop(app, httpd)
+    check_debug_nans(device)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def quant_agreement_runs() -> None:
+    """(o): ``tools/quant_agreement.main`` for vit_b16 and swin_t at 2
+    rounds x 16 images on the card."""
+    from interactive_vit_tpu_torch.tools import quant_agreement
+
+    for variant in quant_agreement.VARIANTS:
+        rows = {r["mode"]: r for r in quant_agreement.main(
+            ["--variant", variant, "--rounds", "2", "--batch", "16"])}
+        if (rows["bf16"]["top1_agreement"] != 1.0
+                or rows["bf16"]["logit_mae"] != 0.0):
+            raise AssertionError(f"(o) {variant}: bf16 against itself "
+                                 f"{rows['bf16']}")
+        log(f"  (o) {variant}, 32 images: " + "; ".join(
+            f"{m} top-1 agreement {r['top1_agreement']:.4f}, logit MAE "
+            f"{r['logit_mae']:.5f} ({r['logit_mae_over_spread']:.4f} of the "
+            f"spread)" for m, r in rows.items() if m != "bf16"))
+
+
+def phase_tracing_quant_swin(device, counters):
+    """Phase 8c: runs (l)-(o) (the module docstring); returns the
+    main-path launches of each kernel to add to the kernels line, and the
+    numbers of row 7's instantiation at chunks of 96."""
+    import torch
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    narrow = row7_swin_stages(device)
+    log(f"  (l) row 7 at swin_t's stages took "
+        f"{time.perf_counter() - t0:.1f} s")
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_8c_")
+    try:
+        graphs_dir = os.path.join(tmp, "graphs")
+        shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
+        t0 = time.perf_counter()
+        add(served_quant_swin(device, graphs_dir, counters))
+        log(f"  (m) quantized swin_t took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        add(phase_tracing(device, graphs_dir, counters))
+        log(f"  (n) tracing took {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    quant_agreement_runs()
+    log(f"  (o) quant_agreement took {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    log(f"  phase 8c took {time.perf_counter() - t_phase:.1f} s")
+    return launches, narrow
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -7658,6 +8234,8 @@ def main() -> int:
                 "headwise_attn_block_tf32x3": fb.headwise_attn_block_tf32x3,
                 "fused_mlp_block_mma": fm.fused_mlp_block_mma,
                 "fused_mlp_w8a8_block_mma": fm.fused_mlp_w8a8_block_mma,
+                "fused_mlp_w8a8_block_mma96": NarrowCount(
+                    fm.fused_mlp_w8a8_block_mma),
                 "fused_attn_block_mma": fb.fused_attn_block_mma,
                 "fused_attn_block_tf32x3": fb.fused_attn_block_tf32x3,
                 "fused_attn_block_s8_mma": fb.fused_attn_block_s8_mma,
@@ -7987,6 +8565,15 @@ def main() -> int:
     log(f"phase 8b the rest of training (at "
         f"{time.perf_counter() - t_start:.1f} s):")
     for k, n in phase_rest_of_training(device, counters).items():
+        numbers[k]["launches"] += n
+
+    # 8c. tracing and quantized Swin: row 7 at chunks of 96, swin_t int8,
+    # utils/tracing, tools/quant_agreement
+    log(f"phase 8c tracing and quantized Swin (at "
+        f"{time.perf_counter() - t_start:.1f} s):")
+    launches, narrow = phase_tracing_quant_swin(device, counters)
+    numbers["fused_mlp_w8a8_block_mma96"] = {**narrow, "launches": 0}
+    for k, n in launches.items():
         numbers[k]["launches"] += n
 
     # 9. result

@@ -6,7 +6,7 @@
 // blocks of a thread-block cluster.
 //
 // Replaces, for operands it takes (activations bf16 or f32, rows a multiple
-// of 128 wide and at most 1280, a hidden dimension of whole 128-column
+// of 128 or of 96 wide and at most 1280, a hidden dimension of whole
 // chunks, 16-byte aligned), the Pallas TPU kernel
 // interactive_vit_tpu/ops/fused_mlp.py::fused_mlp_w8a8_block
 // (_w8a8_kernel); other operands keep fused_mlp_w8a8_block.cu (__dp4a).
@@ -53,6 +53,17 @@
 //   e. writes y for those columns (step 8).
 // int8 B operands are transposed in shared memory by prmt (mlp_cluster.cuh);
 // the weights are never repacked in device memory.
+//
+// Chunks of 96 (mlp_cluster.cuh's narrow chunk: swin_t / swin_s stages 0
+// and 1, d = 96 and 192, hidden 384 and 768, clusters of 4 and 8 whose
+// slice is one chunk, so fc1's k is 3 or 6 steps of 32 and fc2's 3): the
+// same code at NC = 96 (w8a8_mma96_kernel). The prmt transpose gives a
+// warp 32 columns (a thread's four consecutive columns feed four n8
+// tiles), so three of the four column warps take a chunk and the fourth
+// has no products; it still copies, quantizes and sums with the others.
+// Weight stages of 96 k rows of 96 bytes (24 words: a warp's four k rows t
+// land on banks 24 t apart, all 32 distinct). w8a8_mma_kernel, at 128, is
+// the code it was.
 //
 // Shared memory (dynamic): the row scales and maxes; q1 [BM][d + 16] int8,
 // whose space the fc2 partial buffers take over; h [BM][slice + pad] in T
@@ -112,38 +123,53 @@ struct W8Layout {
   int ldq1, ldh, ldq2;  // row strides: bytes, elements of T, bytes
 };
 
-// k rows of an int8 weight stage for activations of esize bytes
+// The shapes of an int8 weight stage at chunks of NC: its k rows for
+// activations of esize bytes (at 128: 16 KB stages, 8 KB with f32
+// activations; at 96: 96 rows, which divide d and every slice), its rows'
+// stride in bytes, and the column warps with products (a warp takes 32
+// columns of a chunk).
+template <int NC>
+struct W8Stage {
+  static constexpr int LD = NC == MC_NC ? MC_W8_LD : NC;
+  static constexpr int CW = NC / 32;
+  static_assert((LD / 4) % 8 == 0 && (LD / 4 / 8) % 2 == 1, "k rows t on banks 8 apart");
+};
+
+template <int NC = MC_NC>
 __host__ __device__ constexpr int w8_stage_rows(int esize) {
-  return (esize == 2 ? MC_STAGE_BYTES : MC_STAGE_BYTES_F32) / MC_NC;
+  return NC == MC_NC ? (esize == 2 ? MC_STAGE_BYTES : MC_STAGE_BYTES_F32) / MC_NC : NC;
 }
 
+template <int NC = MC_NC>
 __host__ __device__ inline W8Layout w8_layout(int d, int md, int esize, int bm) {
   W8Layout L;
-  const int slice = md / mc_cluster_size(md);
+  const int slice = md / mc_cluster_size<NC>(md);
   L.ldq1 = d + 16;                  // d / 16 even: an odd number of 16-byte units
   L.ldh = slice + 16 / esize;       // one 16-byte unit of padding
   L.ldq2 = slice + 16;
   L.scales = 0;                     // sx1, sx2, the local max, its warp parts [4]
   L.q1 = 7 * bm * sizeof(float);
-  const size_t q1 = (size_t)bm * L.ldq1, pbuf = 2 * (size_t)bm * MC_PLD * 4;
+  const size_t q1 = (size_t)bm * L.ldq1, pbuf = 2 * (size_t)bm * McChunk<NC>::PLD * 4;
   L.h = L.q1 + (q1 > pbuf ? q1 : pbuf);
   // h, or before it the block's rows of x for LN2 (at most half the tile)
   const size_t hb = (size_t)bm * L.ldh * esize, xb = (size_t)(bm / 2) * d * esize;
   L.q2 = L.h + (hb > xb ? hb : xb);
   L.ring = L.q2 + (size_t)bm * L.ldq2;
-  L.total = L.ring + (size_t)MC_STAGES * w8_stage_rows(esize) * MC_W8_LD;
+  L.total = L.ring + (size_t)MC_STAGES * w8_stage_rows<NC>(esize) * W8Stage<NC>::LD;
   return L;
 }
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs a) {
-  constexpr int MT = McTile<BM>::MT, ITEMS = McTile<BM>::ITEMS;
+// The kernel at activations of T, tiles of BM rows and chunks of NC columns.
+template <typename T, int BM, int NC>
+__device__ __forceinline__ void w8a8_mma_body(const W8a8MmaArgs& a) {
+  constexpr int MT = McTile<BM, NC>::MT, ITEMS = McTile<BM, NC>::ITEMS;
+  constexpr int LD = W8Stage<NC>::LD, CW = W8Stage<NC>::CW, PLD = McChunk<NC>::PLD;
   extern __shared__ int4 w8m_smem4[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(w8m_smem4);
   cg::cluster_group cluster = cg::this_cluster();
   const int S = (int)gridDim.x, rank = (int)cluster.block_rank();  // grid x = cluster x
   const int D = a.D, MD = a.MD, slice = MD / S, hid0 = rank * slice;
-  const W8Layout L = w8_layout(D, MD, sizeof(T), BM);
+  const W8Layout L = w8_layout<NC>(D, MD, sizeof(T), BM);
   float* sx1 = reinterpret_cast<float*>(smem + L.scales);
   float* sx2 = sx1 + BM;
   float* rmax = sx2 + BM;      // this block's max |h| of each row
@@ -154,8 +180,8 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
   T* xs = hs;                                                 // before fc1
   int8_t* q2s = reinterpret_cast<int8_t*>(smem + L.q2);
   unsigned char* ring = smem + L.ring;
-  constexpr int W8_ROWS = w8_stage_rows(sizeof(T)), SB = W8_ROWS * MC_NC;
-  constexpr int STAGE = W8_ROWS * MC_W8_LD;
+  constexpr int W8_ROWS = w8_stage_rows<NC>(sizeof(T)), SB = W8_ROWS * NC;
+  constexpr int STAGE = W8_ROWS * LD;
 
   const T* x = static_cast<const T*>(a.x);
   const T* b1 = static_cast<const T*>(a.b1);
@@ -165,14 +191,17 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
   const int g = lane >> 2, t = lane & 3;
   const int wr0 = (warp >> 2) * (BM / 2), wn = warp & 3;
   const int row0 = blockIdx.y * BM;
+  // the warp takes a chunk's columns wn * 32 ..: every warp at 128, three
+  // of the four at 96
+  const bool cols = CW == 4 || wn < CW;
 
-  const int ks1 = D / W8_ROWS, total1 = (slice / MC_NC) * ks1;
+  const int ks1 = D / W8_ROWS, total1 = (slice / NC) * ks1;
   auto load1 = [&](int it, int slot) {
     const int c = it / ks1, kt = it % ks1;
     mc_load_stage<SB>(ring + slot * STAGE,
                   reinterpret_cast<const unsigned char*>(a.w1) + (size_t)kt * W8_ROWS * MD +
-                      hid0 + c * MC_NC,
-                  (size_t)MD, W8_ROWS, MC_W8_LD);
+                      hid0 + c * NC,
+                  (size_t)MD, W8_ROWS, LD);
   };
 
   // a. LN2 + q1 (steps 1-2), once a cluster: each block stages its
@@ -219,7 +248,7 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
   // reused for fc2's partials)
   // (the ring's first __syncthreads orders these writes before fc1)
 
-  // b. fc1 + GELU over the slice, MC_NC hidden columns a chunk (steps 3-5);
+  // b. fc1 + GELU over the slice, NC hidden columns a chunk (steps 3-5);
   // each chunk's b1 and s1 are fetched into registers at its first stage
   int acc[MT][4][4];
   float hmax[MT][2], b1p[8], s1p[8];
@@ -230,16 +259,18 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
     for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0;
   }
   mc_loop(total1, load1, [&](int it, int slot) {
+    if (!cols) return;
     const int c = it / ks1, kt = it % ks1;
     if (kt == 0) {
 #pragma unroll
       for (int cc = 0; cc < 8; ++cc) {
-        const int hj = hid0 + c * MC_NC + wn * 32 + 8 * t + cc;
+        const int hj = hid0 + c * NC + wn * 32 + 8 * t + cc;
         b1p[cc] = to_f(b1[hj]);
         s1p[cc] = a.s1[hj];
       }
     }
-    mc_mma_s8_stage<W8_ROWS / 32, MT>(acc, q1s, L.ldq1, wr0, kt * W8_ROWS, ring + slot * STAGE, wn * 32, lane);
+    mc_mma_s8_stage<W8_ROWS / 32, MT, LD>(acc, q1s, L.ldq1, wr0, kt * W8_ROWS, ring + slot * STAGE,
+                                          wn * 32, lane);
     if (kt != ks1 - 1) return;
     // the chunk's h: thread (g, t) holds rows g, g + 8 of each 16-row tile
     // at the chunk's columns wn * 32 + 8 t + cc, cc = 0..7
@@ -251,7 +282,7 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
         const float sxr = sx1[r];
 #pragma unroll
         for (int cc = 0; cc < 8; ++cc) {
-          const int col = c * MC_NC + wn * 32 + 8 * t + cc;
+          const int col = c * NC + wn * 32 + 8 * t + cc;
           const int v = acc[mt][cc & 3][(cc >> 2) + 2 * half];
           const float h = __fadd_rn(__fmul_rn((float)v, __fmul_rn(sxr, s1p[cc])), b1p[cc]);
           const T gv = from_f<T>(gelu_tanh(to_f(from_f<T>(h))));
@@ -268,13 +299,13 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
   });
 
   // fc2's first weight stages go out now, behind the exchange and q2
-  const int ks2 = slice / W8_ROWS, total2 = (D / MC_NC) * ks2;
+  const int ks2 = slice / W8_ROWS, total2 = (D / NC) * ks2;
   auto load2 = [&](int it, int slot) {
     const int oc = it / ks2, kt = it % ks2;
     mc_load_stage<SB>(ring + slot * STAGE,
                   reinterpret_cast<const unsigned char*>(a.w2) +
-                      (size_t)(hid0 + kt * W8_ROWS) * D + oc * MC_NC,
-                  (size_t)D, W8_ROWS, MC_W8_LD);
+                      (size_t)(hid0 + kt * W8_ROWS) * D + oc * NC,
+                  (size_t)D, W8_ROWS, LD);
   };
   mc_prologue(total2, load2);
 
@@ -287,9 +318,13 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
       if (t == 0) rpart[wn * BM + wr0 + 16 * mt + g + 8 * half] = m;
     }
   __syncthreads();
-  if (tid < BM)
-    rmax[tid] = fmaxf(fmaxf(rpart[tid], rpart[BM + tid]),
-                      fmaxf(rpart[2 * BM + tid], rpart[3 * BM + tid]));
+  if (tid < BM) {
+    if constexpr (CW == 4)
+      rmax[tid] = fmaxf(fmaxf(rpart[tid], rpart[BM + tid]),
+                        fmaxf(rpart[2 * BM + tid], rpart[3 * BM + tid]));
+    else
+      rmax[tid] = fmaxf(fmaxf(rpart[tid], rpart[BM + tid]), rpart[2 * BM + tid]);
+  }
   cluster.sync();  // every block's rmax written and visible
   if (tid < BM) {
     float m = 0.f;
@@ -311,7 +346,7 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
   }
   // (the ring's first __syncthreads orders q2 before fc2)
 
-  // d-e. fc2 partials over the slice, MC_NC output columns a chunk; the
+  // d-e. fc2 partials over the slice, NC output columns a chunk; the
   // cluster sums each chunk's partials (step 7), then y (step 8)
   // y for the owned columns of chunk c from the partials of pbuf[c & 1],
   // x, b2 and s2 fetched into registers beforehand
@@ -320,11 +355,11 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
 #pragma unroll
     for (int u = 0; u < ITEMS; ++u) {
       int r, cc;
-      if (!mc_item<BM>(S, rank, u, r, cc)) break;
+      if (!mc_item<BM, NC>(S, rank, u, r, cc)) break;
       const int row = min(row0 + r, a.M - 1);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int col = c * MC_NC + cc + i;
+        const int col = c * NC + cc + i;
         xp[u][i] = to_f(x[(size_t)row * D + col]);
         b2p[u][i] = to_f(b2[col]);
         s2p[u][i] = a.s2[col];
@@ -332,12 +367,12 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
     }
   };
   auto reduce = [&](int c) {
-    const uint32_t* pb = pbuf + (c & 1) * BM * MC_PLD;
+    const uint32_t* pb = pbuf + (c & 1) * BM * PLD;
 #pragma unroll
     for (int u = 0; u < ITEMS; ++u) {
       int r, cc;
-      if (!mc_item<BM>(S, rank, u, r, cc)) break;
-      const int4 v = mc_sum_ranks<int4>(cluster, pb, S, r, cc, [](int4& v, const int4 w) {
+      if (!mc_item<BM, NC>(S, rank, u, r, cc)) break;
+      const int4 v = mc_sum_ranks<int4, NC>(cluster, pb, S, r, cc, [](int4& v, const int4 w) {
         v.x += w.x;
         v.y += w.y;
         v.z += w.z;
@@ -349,7 +384,7 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
       const float sxr = sx2[r];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const size_t idx = (size_t)row * D + c * MC_NC + cc + i;
+        const size_t idx = (size_t)row * D + c * NC + cc + i;
         const float tv = __fmul_rn((float)vs[i], __fmul_rn(sxr, s2p[u][i]));
         y[idx] = from_f<T>(__fadd_rn(__fadd_rn(xp[u][i], tv), b2p[u][i]));
         if (a.acc2_out != nullptr) a.acc2_out[idx] = vs[i];
@@ -361,18 +396,21 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
   mc_loop(total2, load2, [&](int it, int slot) {
     const int oc = it / ks2, kt = it % ks2;
     if (kt == 0 && oc > 0) fetch(oc - 1);
-    mc_mma_s8_stage<W8_ROWS / 32, MT>(acc, q2s, L.ldq2, wr0, kt * W8_ROWS, ring + slot * STAGE, wn * 32, lane);
+    if (cols)
+      mc_mma_s8_stage<W8_ROWS / 32, MT, LD>(acc, q2s, L.ldq2, wr0, kt * W8_ROWS,
+                                            ring + slot * STAGE, wn * 32, lane);
     if (kt != ks2 - 1) return;
     if (oc > 0) {
       mc_cluster_wait();  // chunk oc - 1's partials written
       reduce(oc - 1);
     }
-    uint32_t* pb = pbuf + (oc & 1) * BM * MC_PLD;
+    uint32_t* pb = pbuf + (oc & 1) * BM * PLD;
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        int* p = reinterpret_cast<int*>(pb + (wr0 + 16 * mt + g + 8 * half) * MC_PLD + wn * 32 +
+        if (!cols) break;
+        int* p = reinterpret_cast<int*>(pb + (wr0 + 16 * mt + g + 8 * half) * PLD + wn * 32 +
                                         8 * t);
         const int e = 2 * half;
         *reinterpret_cast<int4*>(p) =
@@ -384,62 +422,97 @@ __global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs 
       }
     mc_cluster_arrive();  // the chunk's partials written
   });
-  fetch(D / MC_NC - 1);
+  fetch(D / NC - 1);
   mc_cluster_wait();
-  reduce(D / MC_NC - 1);
+  reduce(D / NC - 1);
   cluster.sync();  // no block leaves while a peer may read its partials
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(MC_THREADS) w8a8_mma_kernel(const W8a8MmaArgs a) {
+  w8a8_mma_body<T, BM, MC_NC>(a);
+}
+
+template <typename T, int BM>
+__global__ void __launch_bounds__(MC_THREADS) w8a8_mma96_kernel(const W8a8MmaArgs a) {
+  w8a8_mma_body<T, BM, MC_NC_NARROW>(a);
+}
+
+// The instantiation for activations of T, chunks of nc and tiles of bm rows
+// (32 or 64), and its block's shared memory at (d, md).
+struct W8Kernel {
+  void (*fn)(const W8a8MmaArgs);
+  size_t smem;
+};
+
+template <typename T>
+W8Kernel w8_kernel(int nc, int bm, int d, int md) {
+  if (nc == MC_NC)
+    return {bm == 32 ? w8a8_mma_kernel<T, 32> : w8a8_mma_kernel<T, 64>,
+            w8_layout<MC_NC>(d, md, sizeof(T), bm).total};
+  return {bm == 32 ? w8a8_mma96_kernel<T, 32> : w8a8_mma96_kernel<T, 64>,
+          w8_layout<MC_NC_NARROW>(d, md, sizeof(T), bm).total};
+}
+
+// Rows of d and md hidden columns the kernel takes: their chunk, else 0.
+inline int w8_chunk(int d, int md) { return mc_cluster_of(d, md) == 0 ? 0 : mc_chunk_of(d); }
+
+// A block of the largest tile, bytes, at (d, md) and activations of esize
+// bytes (0 where the kernel takes no such rows).
+inline size_t w8_smem(int d, int md, int esize) {
+  const int nc = w8_chunk(d, md);
+  if (nc == 0) return 0;
+  return nc == MC_NC ? w8_layout<MC_NC>(d, md, esize, MC_ROWS).total
+                     : w8_layout<MC_NC_NARROW>(d, md, esize, MC_ROWS).total;
 }
 
 template <typename T>
 int launch(const W8a8MmaArgs& a, int bm, cudaStream_t stream) {
-  const int S = mc_cluster_size(a.MD);
-  if (a.M <= 0 || !mc_width_ok(a.D) || S == 0 || (bm != 32 && bm != 64))
-    return (int)cudaErrorInvalidValue;
-  if (w8_layout(a.D, a.MD, sizeof(T), MC_ROWS).total > SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
-  if (bm == 32)
-    return (int)mc_launch(w8a8_mma_kernel<T, 32>, a, S, a.M, 32,
-                          w8_layout(a.D, a.MD, sizeof(T), 32).total, stream);
-  return (int)mc_launch(w8a8_mma_kernel<T, 64>, a, S, a.M, 64,
-                        w8_layout(a.D, a.MD, sizeof(T), 64).total, stream);
+  const int nc = w8_chunk(a.D, a.MD);
+  if (a.M <= 0 || nc == 0 || (bm != 32 && bm != 64)) return (int)cudaErrorInvalidValue;
+  if (w8_smem(a.D, a.MD, sizeof(T)) > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  const W8Kernel k = w8_kernel<T>(nc, bm, a.D, a.MD);
+  return (int)mc_launch(k.fn, a, mc_cluster_of(a.D, a.MD), a.M, bm, k.smem, stream);
 }
 
 template <typename T>
 cudaError_t prepare() {
   cudaError_t err = mc_prepare(w8a8_mma_kernel<T, 32>);
-  return err != cudaSuccess ? err : mc_prepare(w8a8_mma_kernel<T, 64>);
+  if (err == cudaSuccess) err = mc_prepare(w8a8_mma_kernel<T, 64>);
+  if (err == cudaSuccess) err = mc_prepare(w8a8_mma96_kernel<T, 32>);
+  return err != cudaSuccess ? err : mc_prepare(w8a8_mma96_kernel<T, 64>);
 }
 
 template <typename T>
 int max_clusters(int d, int md, int bm) {
-  const int S = mc_cluster_size(md);
-  if (!mc_width_ok(d) || S == 0 || (bm != 32 && bm != 64)) return -1;
-  if (bm == 32)
-    return mc_max_clusters(w8a8_mma_kernel<T, 32>, S, w8_layout(d, md, sizeof(T), 32).total);
-  return mc_max_clusters(w8a8_mma_kernel<T, 64>, S, w8_layout(d, md, sizeof(T), 64).total);
+  const int nc = w8_chunk(d, md);
+  if (nc == 0 || (bm != 32 && bm != 64)) return -1;
+  const W8Kernel k = w8_kernel<T>(nc, bm, d, md);
+  return mc_max_clusters(k.fn, mc_cluster_of(d, md), k.smem);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest tile's rows, the widest row and a chunk's columns;
-// ops/fused_mlp.py holds the same numbers and checks them after the build.
+// The largest tile's rows and the widest row; ops/fused_mlp.py holds the
+// same numbers and checks them after the build.
 int ivt_mlp_w8a8_mma_rows() { return MC_ROWS; }
 int ivt_mlp_w8a8_mma_max_width() { return MC_MAX_WIDTH; }
-int ivt_mlp_w8a8_mma_chunk() { return MC_NC; }
 
-// The cluster size for md hidden columns (0: the route does not take md).
-int ivt_mlp_w8a8_mma_cluster(int md) { return mc_cluster_size(md); }
+// The chunk of rows of width d (128, 96, or 0: the route does not take d).
+int ivt_mlp_w8a8_mma_chunk(int d) { return mc_chunk_of(d); }
+
+// The cluster size at rows of width d and md hidden columns (0: the route
+// does not take them).
+int ivt_mlp_w8a8_mma_cluster(int d, int md) { return mc_cluster_of(d, md); }
 
 // Dynamic shared memory a block of the largest tile takes for rows of width
-// d, md hidden columns and an activation type of esize bytes.
-size_t ivt_mlp_w8a8_mma_smem_bytes(int d, int md, int esize) {
-  if (!mc_width_ok(d) || mc_cluster_size(md) == 0) return 0;
-  return w8_layout(d, md, esize, MC_ROWS).total;
-}
+// d, md hidden columns and an activation type of esize bytes (0 where the
+// route does not take them).
+size_t ivt_mlp_w8a8_mma_smem_bytes(int d, int md, int esize) { return w8_smem(d, md, esize); }
 
-// Lets the four instantiations take the shared memory they need on the
+// Lets the eight instantiations take the shared memory they need on the
 // current device: once a device, before its first launch or max_clusters.
 // Returns a cudaError_t value.
 int ivt_mlp_w8a8_mma_prepare() {

@@ -38,13 +38,14 @@
 //
 // The narrow chunk. Rows a multiple of 96 but not of 128 wide (swin_t's
 // stages 0 and 1: d = 96 and 192, hidden 384 and 768) take chunks of
-// MC_NC_NARROW = 96 columns (the bf16 and f32 kernels; W8A8 keeps 128):
-// one or two chunks of d, and 4 or 8 of the hidden dimension, so the
-// clusters are again of 4 and 8 blocks and the rank-order sums, the
-// partial buffers and McTile's items keep their logic. A warp then takes
-// 24 columns, three 8-column tiles (McChunk<96>). The pieces below that
-// depend on the chunk take it as a template argument NC whose default is
-// MC_NC, so the 128-wide code is the code it was.
+// MC_NC_NARROW = 96 columns (all three kernels): one or two chunks of d,
+// and 4 or 8 of the hidden dimension, so the clusters are again of 4 and 8
+// blocks and the rank-order sums, the partial buffers and McTile's items
+// keep their logic. A bf16 or f32 warp then takes 24 columns, three
+// 8-column tiles (McChunk<96>); an int8 warp keeps 32 (the prmt transpose's
+// four columns a thread), so three warps take a chunk. The pieces below
+// that depend on the chunk take it as a template argument NC whose default
+// is MC_NC, so the 128-wide code is the code it was.
 //
 // Everything lives in an anonymous namespace, as in common.cuh.
 
@@ -109,12 +110,7 @@ __host__ __device__ inline int mc_cluster_size(int md) {
   return s >= MC_MIN_CLUSTER ? s : 0;
 }
 
-// Rows of D in [0, 2^31) a multiple of MC_NC and at most MC_MAX_WIDTH wide.
-__host__ __device__ inline bool mc_width_ok(int d) {
-  return d > 0 && d % MC_NC == 0 && d <= MC_MAX_WIDTH;
-}
-
-// The chunk of the bf16 and f32 kernels for rows of D: MC_NC where D is a
+// The chunk of the three kernels for rows of D: MC_NC where D is a
 // multiple of it, else MC_NC_NARROW where D is a multiple of that, at most
 // MC_MAX_WIDTH wide; 0 otherwise.
 __host__ __device__ inline int mc_chunk_of(int d) {
@@ -346,8 +342,9 @@ __device__ __forceinline__ V mc_sum_ranks(cg::cluster_group& cluster, const uint
 //     thread's accumulators of the four tiles are 8 consecutive columns;
 //   * depth: within each 16 k of a k32 step, mma index 4 t + i is k = t + 4 i,
 //     so the four rows a thread reads are t, t + 4, t + 8, t + 12 (rows
-//     MC_W8_LD = 160 bytes apart: 40 words, so the four t land on banks 8
-//     apart and a warp's 32 loads on 32 banks); the A operand (the
+//     MC_W8_LD = 160 bytes apart at chunks of 128: 40 words, so the four t
+//     land on banks 8 apart and a warp's 32 loads on 32 banks; 96 bytes, 24
+//     words, at chunks of 96 do the same); the A operand (the
 //     activations, which the kernel writes into shared memory itself) is
 //     stored with the same 4 x 4 transpose of each 16-byte group
 //     (mc_pack16_mma), and ldmatrix reads it unchanged.
@@ -396,9 +393,10 @@ __device__ __forceinline__ void mc_load_b_s8(uint32_t b[4], const unsigned char*
 // A warp's int8 stage of KS k32 steps: acc[mt][j] += A[16 mt.., k32]
 // B[k32, tile j] for its MT 16-row tiles (A rows a_row0.. of a
 // [*][lda] int8 tile in the mc_pack16_mma order, k0 the stage's first k) and
-// its four 8-column tiles (B: a weight stage at b, its 32 columns from
-// col0); every fragment of the stage is loaded before the first product.
-template <int KS, int MT>
+// its four 8-column tiles (B: a weight stage at b, rows LDB bytes apart,
+// its 32 columns from col0); every fragment of the stage is loaded before
+// the first product.
+template <int KS, int MT, int LDB = MC_W8_LD>
 __device__ __forceinline__ void mc_mma_s8_stage(int acc[MT][4][4], const int8_t* a_tile, int lda,
                                                 int a_row0, int k0, const unsigned char* b,
                                                 int col0, int lane) {
@@ -410,9 +408,9 @@ __device__ __forceinline__ void mc_mma_s8_stage(int acc[MT][4][4], const int8_t*
     for (int mt = 0; mt < MT; ++mt)
       ldmatrix_x4(a[ks][mt], smem_addr(a_tile + (a_row0 + 16 * mt + (lane & 15)) * lda + k0 +
                                        32 * ks + (lane >> 4) * 16));
-    const unsigned char* bp = b + 32 * ks * MC_W8_LD + col0 + 4 * g;
-    mc_load_b_s8(b0[ks], bp + t * MC_W8_LD, MC_W8_LD);
-    mc_load_b_s8(b1[ks], bp + (16 + t) * MC_W8_LD, MC_W8_LD);
+    const unsigned char* bp = b + 32 * ks * LDB + col0 + 4 * g;
+    mc_load_b_s8(b0[ks], bp + t * LDB, LDB);
+    mc_load_b_s8(b1[ks], bp + (16 + t) * LDB, LDB);
   }
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks)

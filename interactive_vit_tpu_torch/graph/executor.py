@@ -54,6 +54,18 @@ and stats run and each request runs the staged pass eagerly (on a card,
 on the caller's stream). ``run_eager`` and ``run_timed_eager`` (the
 ``/debug_eval`` engine) are always eager.
 
+Tracing
+-------
+While a profiler runs, every node of a pass (a staged step, a gradient
+cone's replay, an eager debug node) runs inside
+``torch.profiler.record_function("n<i>_<kind>")``, the JAX executor's
+``jax.named_scope`` name; with none running nothing is recorded. A capture
+records the kernels, not the ranges: a replay has no host step to range.
+Under ``utils/tracing.debug_nans`` an eager pass checks each node's
+outputs, a replay its tapped outputs (and on a NaN reruns its eager pass
+to name the node), and both raise ``FloatingPointError``; the eager debug
+paths record it as the node's error.
+
 Tap sets
 --------
 ``taps="all"``      every output channel of every node (wire-protocol parity).
@@ -107,6 +119,7 @@ transfer that a local card does not have).
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -120,6 +133,7 @@ from interactive_vit_tpu_torch.graph.ir import Graph, GraphError, effective_para
 from interactive_vit_tpu_torch.graph.registry import Registry, registry
 from interactive_vit_tpu_torch.runtime.constants import retained
 from interactive_vit_tpu_torch.runtime.device import require_device
+from interactive_vit_tpu_torch.utils import tracing
 
 logger = logging.getLogger(__name__)
 
@@ -381,13 +395,20 @@ class _Step:
     stacked (``forward.stacked``'s; None: that runs the rows one by one)."""
 
     __slots__ = ("index", "name", "fn", "caps", "ins", "dyn", "broadcast",
-                 "grad")
+                 "grad", "scope")
 
     def __init__(self, index, name, fn, caps, ins, dyn, broadcast,
                  grad=None):
         self.index, self.name, self.fn, self.caps = index, name, fn, caps
         self.ins, self.dyn, self.broadcast = ins, dyn, broadcast
         self.grad = grad
+        self.scope = node_scope(index, name)
+
+
+def node_scope(index: int, name: str) -> str:
+    """The profiler range of node ``index`` of kind ``name``: the JAX
+    executor's ``jax.named_scope`` name."""
+    return f"n{index}_{name.replace(':', '.')}"
 
 
 class _Dyn:
@@ -744,7 +765,11 @@ class Executor:
         (None: one request). ``chunk``: (size, keys) of a forward-only
         replay of ``size`` masked leaves at once, ``keys`` the env keys
         that carry them (the leaf's); an input the replay did not compute
-        (the pass's value) broadcasts over them."""
+        (the pass's value) broadcasts over them. Under ``debug_nans``,
+        outside a capture, each node's outputs are checked after it runs."""
+        nans = tracing.nans_enabled() and not (
+            self.device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
         for st in steps:
             try:
                 ins = {}
@@ -754,17 +779,22 @@ class Executor:
                         v = v.unsqueeze(0).expand(chunk[0], *v.shape)
                     ins[ch] = v
                 caps = dyn_caps[st.index] if st.dyn else st.caps
-                if st.grad is not None:
-                    outs = self._grad_step(prog, st, env, caps, dyn_caps, k)
-                else:
-                    outs = st.fn(ins) if caps is None else st.fn(ins, caps)
+                with tracing.node_range(st.scope):
+                    if st.grad is not None:
+                        outs = self._grad_step(prog, st, env, caps,
+                                               dyn_caps, k)
+                    else:
+                        outs = (st.fn(ins) if caps is None
+                                else st.fn(ins, caps))
                 if st.broadcast:
                     outs = {ch: v.unsqueeze(0).expand(k, *v.shape)
                             for ch, v in outs.items()}
-            except NodeError:
+            except (NodeError, FloatingPointError):
                 raise
             except Exception as err:  # noqa: BLE001 -- attribution contract
                 raise NodeError(st.index, st.name, str(err)) from err
+            if nans:
+                tracing.check_nans(st.index, st.name, outs)
             for ch, v in outs.items():
                 env[(st.index, ch)] = v
                 if chunk is not None:
@@ -877,7 +907,13 @@ class Executor:
             graph.capture_begin(pool=self._pool,
                                 capture_error_mode="thread_local")
             try:
-                outs = self._pass(prog, env, dyn)
+                # debug_nans's anomaly mode checks a backward's outputs on
+                # the host: a sync, which a capture cannot hold (a replay
+                # checks its taps instead)
+                with (torch.autograd.set_detect_anomaly(False)
+                      if torch.is_anomaly_enabled()
+                      else contextlib.nullcontext()):
+                    outs = self._pass(prog, env, dyn)
                 prog.static_out = {key: t.detach().float().contiguous()
                                    for key, t in outs.items()}
                 passed = True
@@ -928,7 +964,23 @@ class Executor:
         with torch.cuda.stream(side):
             self._fill(prog, inputs, values)
             prog.graph.replay()
+            if tracing.nans_enabled():
+                self._replay_nans(prog)
             return self._to_host(prog.static_out, prog.k)
+
+    def _replay_nans(self, prog: _Program) -> None:
+        """``debug_nans`` after a replay: where a tapped output holds a NaN,
+        the program's eager pass on the same static buffers, with the
+        per-node checks, raises at the node that made it."""
+        bad = [key for key, t in prog.static_out.items()
+               if bool(torch.isnan(t).any())]
+        if not bad:
+            return
+        env = dict(zip(prog.input_keys, prog.static_in))
+        self._pass(prog, env, self._dyn_caps(prog, prog.static_dyn))
+        raise FloatingPointError(
+            f"invalid value (nan) in the replay's tapped outputs {bad}; the "
+            f"eager pass on the same inputs holds none")
 
     def _execute(self, sig: str, prog: _Program, hit: bool, inputs,
                  values, stats: ExecStats) -> InFlight:
@@ -1095,9 +1147,9 @@ class Executor:
                 for j in range(k)]
 
     # -- the debug path -----------------------------------------------------------
-    def _eval_node(self, n, env) -> None:
-        """Evaluate one node eagerly into ``env``, attributing failures to
-        it."""
+    def _eval_node(self, n, env) -> Dict[str, torch.Tensor]:
+        """Evaluate one node eagerly, attributing failures to it; returns
+        its outputs."""
         kind = self.reg.get_node(n.name)
         try:
             ins = {ch: (env[("in", n.index, ch)] if e.src is None
@@ -1106,13 +1158,12 @@ class Executor:
             params = effective_params(n, None)
             caps = self._place(kind.captures(n.params))
             args = (ins,) if caps is None else (ins, caps)
-            outs = kind.fn(params)(*args)
+            with tracing.node_range(node_scope(n.index, n.name)):
+                return kind.fn(params)(*args)
         except NodeError:
             raise
         except Exception as err:  # noqa: BLE001 -- attribution contract
             raise NodeError(n.index, n.name, str(err)) from err
-        for ch, v in outs.items():
-            env[(n.index, ch)] = v
 
     def _eager_grad(self, graph: Graph, n, env) -> Dict[str, torch.Tensor]:
         """One gradient node on the eager paths, from the values ``env``
@@ -1145,12 +1196,15 @@ class Executor:
         return {k[1]: v for k, v in base.items() if k[0] == n.index}
 
     def _eval_any(self, graph: Graph, n, env) -> None:
-        """``_eval_node``, or ``_eager_grad`` for a gradient node."""
-        if self.reg.get_node(n.name).grad_node:
-            for ch, v in self._eager_grad(graph, n, env).items():
-                env[(n.index, ch)] = v
-        else:
-            self._eval_node(n, env)
+        """``_eval_node``, or ``_eager_grad`` for a gradient node, into
+        ``env``; under ``debug_nans`` a NaN in its outputs raises."""
+        outs = (self._eager_grad(graph, n, env)
+                if self.reg.get_node(n.name).grad_node
+                else self._eval_node(n, env))
+        for ch, v in outs.items():
+            env[(n.index, ch)] = v
+        if tracing.nans_enabled():
+            tracing.check_nans(n.index, n.name, outs)
 
     def _inputs_env(self, graph: Graph) -> Dict[Any, Any]:
         return {("in", n.index, ch): _host_tensor(e.tensor).to(self.device)

@@ -83,9 +83,9 @@ def make_model(
     ``make_vit_model`` for the plain-ViT family (``@<pixels>p<patch>``
     geometries included). The other families refuse the ``@`` suffix
     (MAE's names its encoder's geometry) and a ``block_kernel`` other than
-    "auto", as in the JAX package; Swin's quantized modes are not ported
-    (``make_swin_model`` raises), and every other family, as in JAX, logs
-    a warning for ``quantize`` and serves the float ``dtype``."""
+    "auto", as in the JAX package; ``quantize`` goes to ``make_swin_model``
+    for Swin (both int8 modes), and every other family, as in JAX, logs a
+    warning for it and serves the float ``dtype``."""
     if plain_vit_family(variant):
         from interactive_vit_tpu_torch.models.vit_plugin import (
             make_vit_model,

@@ -12,8 +12,9 @@ swin_t:
     <name>:merge.s       patch merging between stages
     <name>:norm / :pool / :head
 
-With the window kernel each layer has a plain PyTorch twin for gradient
-replays (``grad_layers``). Quantization is not ported yet.
+With the window kernel, the W8A8 MLP kernel or int8 weights each layer has
+a plain PyTorch twin for gradient replays (``grad_layers``; int8 leaves
+dequantized inline).
 """
 
 from __future__ import annotations
@@ -26,9 +27,12 @@ import torch
 from interactive_vit_tpu_torch.models import swin
 from interactive_vit_tpu_torch.models.labels import class_names
 from interactive_vit_tpu_torch.models.model_plugin import (
-    LayerNodeKind, TorchModel,
+    LayerNodeKind, TorchModel, dequant_grad_twin,
 )
-from interactive_vit_tpu_torch.ops.dispatch import default_window_impl
+from interactive_vit_tpu_torch.ops.dispatch import (
+    default_mlp_impl, default_window_impl,
+)
+from interactive_vit_tpu_torch.ops.quant import quantize_mode, quantize_tree
 from interactive_vit_tpu_torch.runtime.device import require_device
 
 
@@ -71,16 +75,46 @@ def make_swin_model(
     be on ``device`` in ``dtype``. With ``kernels`` a CUDA model runs the
     fused window kernel in every block when every stage fits it
     (``ops/dispatch.default_window_impl("auto")``); ``kernels=False``
-    forces the unfused window path. ``quantize`` is not ported."""
-    if quantize:
-        raise NotImplementedError(
-            "quantized Swin serving (weight-only int8 and the W8A8 MLP "
-            "kernel) is not ported to the torch package yet")
+    forces the unfused window path.
+
+    ``quantize`` (the JAX maker's contract): ``True`` / ``"w8"`` stores
+    every block linear (qkv, proj, fc1, fc2) as weight-only int8 and turns
+    the window kernel off (it takes dense qkv); ``"w8a8"`` stores fc1 and
+    fc2 only, as W8A8: the window kernel stays on, and each stage's MLP
+    runs ``default_mlp_impl("auto", quant="w8a8")`` -- on a card the W8A8
+    kernel where the stage fits it (every stage of swin_t / s / b in bf16),
+    None elsewhere (``mlp_impls`` None where no stage fits), the unfused
+    ``quant.linear_w8a8`` then. The two paths round the activations
+    differently, each as its JAX twin: the kernel and its plain version
+    half up (the Pallas kernel's ``floor(x + 0.5)``), the unfused path (the
+    CPU's: "auto" gives no kernel there) half to even (``jnp.round``, as
+    JAX's unfused path off the TPU). ``"w8a8"`` with ``kernels=False``
+    raises, as in JAX."""
+    mode = quantize_mode(quantize)
+    if mode == "w8a8" and not kernels:
+        # as the JAX maker: without the MLP kernel the quantized fc1 / fc2
+        # would pay the accuracy cost on the slower unfused chain
+        raise ValueError(
+            "swin w8a8 needs the Pallas MLP kernel (kernels=True); "
+            "mesh-sharded serving should use bfloat16 or int8 weight-only")
     device = require_device(device)
     cfg = cfg or swin.VARIANTS[variant]
     if params is None:
         gen = torch.Generator().manual_seed(seed)
         params = swin.init_params(cfg, gen, dtype=dtype, device=device)
+    mlp_impls = None
+    if mode == "w8a8":
+        params = quantize_tree(params, names=frozenset({"fc1_w", "fc2_w"}),
+                               mode=mode)
+        mlp_impls = [default_mlp_impl(
+            "auto", dtype=dtype, d=cfg.stage_dim(s),
+            mlp_dim=cfg.stage_dim(s) * cfg.mlp_ratio, quant="w8a8",
+            device=device) for s in range(len(cfg.depths))]
+        if not any(mlp_impls):
+            mlp_impls = None
+    elif mode == "w8":
+        params = quantize_tree(params, mode=mode)
+        kernels = False  # quantized qkv dicts cannot feed the window kernel
     window_impl = (default_window_impl("auto", dtype=dtype, cfg=cfg,
                                        device=device) if kernels else None)
     descriptions = {
@@ -107,13 +141,17 @@ def make_swin_model(
                 f"{cfg.stage_dim(s)} -> {cfg.stage_dim(s + 1)}")
     cats = (class_names(cfg.num_classes)
             if with_categories and cfg.num_classes else None)
-    # the window kernel has no backward: gradient replays run the plain
-    # path's layers
-    grad_layers = ({ln: f for ln, _extra, f in swin.layer_fns(cfg)}
-                   if window_impl is not None else None)
+    # the kernels have no backward and int8 activations round (zero
+    # gradient almost everywhere): gradient replays run the plain path's
+    # layers, int8 weights dequantized inline
+    grad_layers = None
+    if window_impl is not None or mlp_impls is not None or mode:
+        grad_layers = {ln: (dequant_grad_twin(f) if mode else f)
+                       for ln, _extra, f in swin.layer_fns(cfg)}
     return SwinTorchModel(
         name=cfg.name,
-        layers=swin.layer_fns(cfg, window_impl=window_impl),
+        layers=swin.layer_fns(cfg, window_impl=window_impl,
+                              mlp_impls=mlp_impls),
         params=params,
         layer_params_fn=swin.layer_params,
         descriptions=descriptions,

@@ -34,7 +34,7 @@ from interactive_vit_tpu_torch.models.model_plugin import (
 from interactive_vit_tpu_torch.ops.dispatch import (
     default_block_impl, default_mlp_impl,
 )
-from interactive_vit_tpu_torch.ops.quant import quantize_tree
+from interactive_vit_tpu_torch.ops.quant import quantize_mode, quantize_tree
 from interactive_vit_tpu_torch.runtime.device import require_device
 
 
@@ -72,10 +72,7 @@ def make_vit_model(
     quant="w8a8")``: the W8A8 kernel on a CUDA device where it fits.
     LayerScale configs refuse "w8a8" (their blocks cannot take the fused
     MLP kernel)."""
-    mode = (quantize if isinstance(quantize, str) else "w8") \
-        if quantize else ""
-    if mode not in ("", "w8", "w8a8"):
-        raise ValueError(f"unknown quantize mode {quantize!r}")
+    mode = quantize_mode(quantize)
     if block_kernel not in ("auto", "none", "reference") and mode == "w8":
         # w8a8 is exempt: it quantizes fc1/fc2 only, the attention block
         # stays dense, so the block kernels compose with it

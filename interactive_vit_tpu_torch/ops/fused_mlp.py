@@ -38,7 +38,7 @@ by a failed build or launch:
   ``fused_mlp_w8a8_block_mma.launches``): rows a multiple of a chunk wide
   up to ``MMA_MAX_WIDTH`` (the chunk ``chunk_of(d)``: ``MMA_CHUNK`` = 128,
   or ``MMA_NARROW_CHUNK`` = 96 for rows a multiple of 96 but not of 128,
-  swin_t's stages 0 and 1; the W8A8 kernel takes 128 only), a hidden
+  swin_t's stages 0 and 1), a hidden
   dimension of whole chunks, the operands 16-byte aligned, the block's
   shared memory inside the card's. A cluster of ``cluster_of(d,
   mlp_dim)`` blocks takes a tile of 32 or 64 rows (``row_tile``) and each
@@ -402,13 +402,15 @@ MMA_MIN_CLUSTER = 4
 MMA_MAX_WIDTH = 1280
 MMA_ALIGN = 16
 _MMA_STAGES = 3
-_PBUF_BYTES = 2 * MMA_ROWS * (MMA_CHUNK + 4) * 4  # two [64][132] 32-bit
 # the bf16 kernel's weight stages at each chunk: (k rows, row stride in
 # elements); the split-TF32 kernel's: TF32_STAGE_ROWS k rows of chunk + 4
 # floats; at tiles of TF32_PRESPLIT_ROWS rows (chunks of 128 only) it keeps
-# its A operands as hi and lo panels
+# its A operands as hi and lo panels; the W8A8 kernel's: (k rows with bf16
+# activations, with f32 ones, row stride in bytes)
 _BF16_STAGE = {MMA_CHUNK: (64, MMA_CHUNK + 8),
                MMA_NARROW_CHUNK: (48, MMA_NARROW_CHUNK + 8)}
+_W8_STAGE = {MMA_CHUNK: (128, 64, MMA_CHUNK + 32),
+             MMA_NARROW_CHUNK: (96, 96, MMA_NARROW_CHUNK)}
 TF32_STAGE_ROWS = 32
 TF32_PRESPLIT_ROWS = 16
 
@@ -444,11 +446,6 @@ def cluster_of(d: int, mlp_dim: int) -> int:
     ``d`` with ``mlp_dim`` hidden columns (in d's chunks), or 0."""
     chunk = chunk_of(d)
     return cluster_size(mlp_dim, chunk) if chunk else 0
-
-
-def _mma_shape_ok(d: int, mlp_dim: int) -> bool:
-    return (0 < d <= MMA_MAX_WIDTH and d % MMA_CHUNK == 0
-            and cluster_size(mlp_dim) > 0)
 
 
 def mma_smem_bytes(d: int, mlp_dim: int) -> int:
@@ -496,20 +493,24 @@ def _tf32_fits(d: int, mlp_dim: int, bm: int) -> bool:
 def w8a8_mma_smem_bytes(d: int, mlp_dim: int, esize: int) -> int:
     """Dynamic shared memory of a W8A8 tensor-core block of the larger tile
     for an activation type of ``esize`` bytes: the row scales and maxes (7 x
-    64 f32), q1
-    [64][d + 16] int8 (later the two fc2 partial buffers), h [64][slice +
-    16 / esize] in the activation type (before it, 32 rows of x for LN2),
-    q2 [64][slice + 16] int8 and three weight tiles of 160-byte rows (128
-    rows with bf16 activations, 64 with f32); 0 where the route takes no
-    such shape."""
-    if not _mma_shape_ok(d, mlp_dim):
+    64 f32), q1 [64][d + 16] int8 (later the two fc2 partial buffers of
+    [64][chunk + 4] 32-bit words), h [64][slice + 16 / esize] in the
+    activation type (before it, 32 rows of x for LN2), q2 [64][slice + 16]
+    int8 and three weight tiles (at chunks of 128: rows of 160 bytes, 128
+    rows with bf16 activations, 64 with f32; at 96: 96 rows of 96 bytes);
+    0 where the route takes no such shape."""
+    s = cluster_of(d, mlp_dim)
+    if not s:
         return 0
-    slice_ = mlp_dim // cluster_size(mlp_dim)
-    return (7 * MMA_ROWS * 4 + max(MMA_ROWS * (d + 16), _PBUF_BYTES)
+    chunk = chunk_of(d)
+    slice_ = mlp_dim // s
+    bf16_rows, f32_rows, ld = _W8_STAGE[chunk]
+    return (7 * MMA_ROWS * 4
+            + max(MMA_ROWS * (d + 16), 2 * MMA_ROWS * (chunk + 4) * 4)
             + max(MMA_ROWS * (slice_ + 16 // esize), MMA_ROWS // 2 * d)
             * esize
             + MMA_ROWS * (slice_ + 16)
-            + _MMA_STAGES * (128 if esize == 2 else 64) * 160)
+            + _MMA_STAGES * (bf16_rows if esize == 2 else f32_rows) * ld)
 
 
 def fits_mma(d: int, mlp_dim: int) -> bool:
@@ -528,9 +529,10 @@ def fits_tf32(d: int, mlp_dim: int) -> bool:
 
 
 def fits_w8a8_mma(d: int, mlp_dim: int, dtype=torch.bfloat16) -> bool:
-    """``fits_mma`` for the W8A8 tensor-core kernel in ``dtype`` (f32 h
-    takes twice bf16's room: vit_b16's 225,024 bytes still fit, with half
-    the weight stage)."""
+    """``fits_mma`` for the W8A8 tensor-core kernel in ``dtype``: the same
+    chunks (swin_t's 96- and 192-wide stages at 96), and f32 h takes twice
+    bf16's room: vit_b16's 225,024 bytes still fit, with half the weight
+    stage; swin_b's last stage (1024 wide, hidden 4096) does not."""
     esize = torch.tensor([], dtype=dtype).element_size()
     return 0 < w8a8_mma_smem_bytes(d, mlp_dim, esize) <= SMEM_LIMIT
 
@@ -595,15 +597,14 @@ _MMA_SOURCES = {
              MLP_MMA_ARGTYPES, "ivt_mlp_tf32_"),
 }
 
-# route -> its envelope entries and their int parameters: the bf16 and
-# split-TF32 kernels' chunk and cluster follow the row width (chunk(d),
-# cluster(d, md)), the W8A8 kernel's are 128 and cluster(md); smem_bytes
-# takes the activation size (W8A8) or the row tile (split TF32) third,
-# max_clusters the dtype code first (W8A8)
+# route -> its envelope entries and their int parameters: each kernel's
+# chunk and cluster follow the row width (chunk(d), cluster(d, md));
+# smem_bytes takes the activation size (W8A8) or the row tile (split TF32)
+# third, max_clusters the dtype code first (W8A8)
 ENVELOPE_NARGS = {
     "mma": {"rows": 0, "max_width": 0, "chunk": 1, "cluster": 2,
             "smem_bytes": 2, "max_clusters": 3, "prepare": 0},
-    "w8a8": {"rows": 0, "max_width": 0, "chunk": 0, "cluster": 1,
+    "w8a8": {"rows": 0, "max_width": 0, "chunk": 1, "cluster": 2,
              "smem_bytes": 3, "max_clusters": 4, "prepare": 0},
     "tf32": {"rows": 0, "max_width": 0, "chunk": 1, "cluster": 2,
              "smem_bytes": 3, "max_clusters": 3, "prepare": 0},
@@ -651,15 +652,12 @@ def check_mma_library(lib, route: str) -> None:
     ok = (entry("rows")() == MMA_ROWS
           and entry("max_width")() == MMA_MAX_WIDTH)
     for d, md in _CHECK_SHAPES:
-        if route == "w8a8":
-            ok = (ok and entry("chunk")() == MMA_CHUNK
-                  and entry("cluster")(md) == cluster_size(md)
-                  and all(entry("smem_bytes")(d, md, e)
-                          == w8a8_mma_smem_bytes(d, md, e) for e in (2, 4)))
-            continue
         ok = (ok and entry("chunk")(d) == chunk_of(d)
               and entry("cluster")(d, md) == cluster_of(d, md))
-        if route == "tf32":
+        if route == "w8a8":
+            ok = ok and all(entry("smem_bytes")(d, md, e)
+                            == w8a8_mma_smem_bytes(d, md, e) for e in (2, 4))
+        elif route == "tf32":
             ok = ok and all(entry("smem_bytes")(d, md, bm)
                             == tf32_smem_bytes(d, md, bm)
                             for bm in (16, 32, 64))
@@ -846,7 +844,9 @@ def fused_mlp_w8a8_block_mma(x: torch.Tensor, p: Params, eps: float = 1e-6,
                              want_parts: bool = False):
     """``fused_mlp_w8a8_block``'s contract on the int8 tensor cores
     (``csrc/fused_mlp_w8a8_mma.cu``): one launch for CUDA tensors, counted
-    in ``fused_mlp_w8a8_block_mma.launches``; raises on operands that
+    in ``fused_mlp_w8a8_block_mma.launches`` (and, for rows on chunks of
+    96, the ``w8a8_mma96_kernel`` instantiation, also in
+    ``fused_mlp_w8a8_block_mma.narrow_launches``); raises on operands that
     ``w8a8_route`` does not send there. For CPU tensors the plain
     version."""
     if x.device.type == "cpu":
@@ -859,9 +859,9 @@ def fused_mlp_w8a8_block_mma(x: torch.Tensor, p: Params, eps: float = 1e-6,
     if _w8a8_route_of(x, p) != "mma":
         raise ValueError(
             f"fused_mlp_w8a8_block_mma takes rows of a multiple of "
-            f"{MMA_CHUNK} up to {MMA_MAX_WIDTH} wide, whole chunks of hidden "
-            f"columns, 16-byte aligned operands and a block inside shared "
-            f"memory; got {x.dtype}, d={x.shape[-1]}, mlp_dim="
+            f"{MMA_CHUNK} or {MMA_NARROW_CHUNK} up to {MMA_MAX_WIDTH} wide, "
+            f"whole chunks of hidden columns, 16-byte aligned operands and a "
+            f"block inside shared memory; got {x.dtype}, d={x.shape[-1]}, mlp_dim="
             f"{p['fc1_w'][quant.AQKEY].shape[-1]}")
     lib = _mma_lib("w8a8")
     b, n, d = x.shape
@@ -870,7 +870,10 @@ def fused_mlp_w8a8_block_mma(x: torch.Tensor, p: Params, eps: float = 1e-6,
     out = _launch_w8a8(getattr(lib, _MMA_SOURCES["w8a8"][1]), x, p, eps,
                        want_parts, (bm,))
     fused_mlp_w8a8_block_mma.launches += 1
+    if chunk_of(d) == MMA_NARROW_CHUNK:
+        fused_mlp_w8a8_block_mma.narrow_launches += 1
     return out
 
 
 fused_mlp_w8a8_block_mma.launches = 0
+fused_mlp_w8a8_block_mma.narrow_launches = 0

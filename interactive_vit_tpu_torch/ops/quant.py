@@ -42,6 +42,16 @@ AQKEY, ASKEY = "int8a8_q", "int8a8_s"
 BLOCK_WEIGHTS = frozenset({"qkv_w", "proj_w", "fc1_w", "fc2_w"})
 
 
+def quantize_mode(quantize) -> str:
+    """A model maker's ``quantize`` argument as its mode: "" (dense),
+    "w8" (``True`` or "w8") or "w8a8"; raises on any other string."""
+    mode = (quantize if isinstance(quantize, str) else "w8") \
+        if quantize else ""
+    if mode not in ("", "w8", "w8a8"):
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+    return mode
+
+
 def is_quantized(w: Any) -> bool:
     return isinstance(w, dict) and QKEY in w
 

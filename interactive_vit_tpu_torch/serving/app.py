@@ -180,7 +180,10 @@ class App:
                 ((e.self_device_time_total, e.key)
                  for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA
-                 and e.self_device_time_total > 0), reverse=True) \
+                 and e.self_device_time_total > 0
+                 # the executor's node ranges (utils/tracing) are no kernels
+                 and not getattr(e, "is_user_annotation", False)),
+                reverse=True) \
                 if cuda else []
         finally:
             self._profile_lock.release()

@@ -63,6 +63,14 @@ refused with ``--dtype int8``):
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
         --dtype int8w8a8 --attn int8-scores --port 8965
 
+Swin takes both modes: ``--dtype int8w8a8`` keeps the window kernel in
+every block and runs the W8A8 MLP kernel in each stage (swin_t: 12 of
+each a request), ``--dtype int8`` the unfused path with int8 block
+weights and no kernel:
+
+    python -m interactive_vit_tpu_torch.serving.server --models swin_t \
+        --dtype int8w8a8
+
 Concurrent requests that share a graph signature run as one batched pass
 through the kernels (``--max-batch``, default 8; ``--max-wait-ms``, the
 window a group collects in), with ``--pipeline-depth`` groups in flight
@@ -100,8 +108,8 @@ the JAX trainer's ``--export-safetensors`` file serves:
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
         --ckpt vit_b16=vit_b_16.safetensors --ckpt-layout torchvision
 
-Multi-device serving and quantized Swin are not ported yet, nor are the
-JAX server's flags for them (``--mesh``, ``--from-export``,
+Multi-device serving is not ported yet, nor are the JAX server's flags
+for it (``--mesh``, ``--from-export``,
 ``--export-selftest``), tap speculation and
 the warm inventory (``--speculate-buckets``, ``--no-speculate``,
 ``--warm-inventory``, ``--warm-budget-s``), and its TPU-host flags

@@ -510,7 +510,7 @@ VARIANTS["row7_time_phases"] = _phases("fused_mlp_w8a8_mma", [
     "  // a. LN2 + q1 (steps 1-2), once a cluster",
     "  // (the ring's first __syncthreads orders these writes before fc1)",
     "  // fc2's first weight stages go out now, behind the exchange and q2",
-    "  // d-e. fc2 partials over the slice, MC_NC output columns a chunk; "
+    "  // d-e. fc2 partials over the slice, NC output columns a chunk; "
     "the"])
 
 # Variants of the MLP kernels that hand the entry a fixed row tile instead

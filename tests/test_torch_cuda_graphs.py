@@ -221,3 +221,39 @@ def test_evicted_constants_replay_unchanged(cuda, name):
     assert ex.last_stats.cache_hit
     _assert_equal(got, want)
     del filler
+
+
+def _nan_graph(zero: bool):
+    """binop "/" of two equal inputs into cos: node 0 makes 0 / 0 = NaN
+    when ``zero``, 1 otherwise; node 1 carries it."""
+    g = Graph()
+    d = g.add_node("binop", {"op": "/"})
+    c = g.add_node("cos")
+    g.connect(d, "c", c, "o")
+    x = np.zeros(16, np.float32) if zero else np.ones(16, np.float32)
+    g.add_input(x, d, "a")
+    g.add_input(x.copy(), d, "b")
+    return g
+
+
+def test_debug_nans_names_the_node_on_a_replay(cuda):
+    """With ``debug_nans`` on, a replay whose tapped output holds a NaN
+    reruns its eager pass and raises ``FloatingPointError`` naming node 0;
+    the warm pass of a fresh signature raises the same; off, the same
+    replay returns its NaNs."""
+    from interactive_vit_tpu_torch.utils import tracing
+
+    ex = Executor(_registry(), device="cuda")
+    ex.run(_nan_graph(False), taps=[(1, "o")])  # captured, finite
+    try:
+        tracing.debug_nans(True)
+        assert ex.run(_nan_graph(False), taps=[(1, "o")])[1]["o"].min() > 0
+        assert ex.last_stats.cache_hit
+        with pytest.raises(FloatingPointError, match=r"node 0 \(binop\)"):
+            ex.run(_nan_graph(True), taps=[(1, "o")])
+        with pytest.raises(FloatingPointError, match=r"node 0 \(binop\)"):
+            Executor(_registry(), device="cuda").run(_nan_graph(True))
+    finally:
+        tracing.debug_nans(False)
+    out = ex.run(_nan_graph(True), taps=[(1, "o")])
+    assert ex.last_stats.cache_hit and np.isnan(out[1]["o"]).all()

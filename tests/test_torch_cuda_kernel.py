@@ -1035,6 +1035,36 @@ def test_w8a8_mma_kernel_matches_plain(cuda, shape, dtype):
         _check_w8a8(xr, p, got, parts, dtype)
 
 
+# the W8A8 MLP at chunks of 96 columns: swin_t's stages 0 (3136 x 96,
+# hidden 384, a cluster of 4) and 1 (784 x 192, hidden 768, a cluster of 8),
+# fc2's k one slice of 96 in both; a short block of each width too
+@pytest.mark.parametrize("shape", [(1, 3136, 96), (2, 784, 192),
+                                   (1, 17, 96), (3, 5, 192)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_mma96_kernel_matches_plain(cuda, shape, dtype):
+    """The narrow chunk's tensor-core route: exact integer stages, y within
+    its bound, two calls the same bits; off the 16-byte grid the __dp4a
+    kernel."""
+    x, p = _w8a8_case(shape, dtype, cuda)
+    d = shape[-1]
+    assert fm.chunk_of(d) == fm.MMA_NARROW_CHUNK
+    assert fm.cluster_of(d, 4 * d) == {96: 4, 192: 8}[d]
+    for xr, route in ((x, "mma"), (_shifted_copy(x), "dp4a")):
+        assert fm._w8a8_route_of(xr, p) == route
+        before = _w8a8_counts()
+        narrow = fm.fused_mlp_w8a8_block_mma.narrow_launches
+        got, parts = fm.fused_mlp_w8a8_block(xr, p, want_parts=True)
+        again = fm.fused_mlp_w8a8_block(xr, p)
+        torch.cuda.synchronize()
+        after = _w8a8_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            k: 2 * int(k == route) for k in after}
+        assert (fm.fused_mlp_w8a8_block_mma.narrow_launches - narrow
+                == 2 * int(route == "mma"))
+        assert torch.equal(got, again)
+        _check_w8a8(xr, p, got, parts, dtype)
+
+
 def test_w8a8_mma_wrapper_refuses_other_operands(cuda):
     """The tensor-core wrapper raises on operands its route does not take;
     nothing falls back."""

@@ -103,8 +103,11 @@ def test_mma_smem_bytes(d, md, smem):
 @pytest.mark.parametrize("d,md,esize,smem", [
     (768, 3072, 2, 206592), (768, 3072, 4, 225024),
     (1280, 5120, 2, 271104), (1152, 1024, 2, 220928),
-    (1152, 1024, 4, 263936), (96, 384, 2, 0)])
+    (1152, 1024, 4, 263936), (96, 384, 2, 101120)])
 def test_w8a8_mma_smem_bytes(d, md, esize, smem):
+    """vit_b16's block (the number in its source's note), rows over
+    1024 wide, and swin_t's stage 0 on chunks of 96 (the partial buffers
+    [64][100] 32-bit words over q1, three 96 x 96-byte weight tiles)."""
     assert fm.w8a8_mma_smem_bytes(d, md, esize) == smem
 
 
@@ -267,8 +270,7 @@ def test_mlp_entry_matches_its_ctypes_signature(source, entry, argtypes,
     for name, nargs in fm.ENVELOPE_NARGS[route].items()])
 def test_envelope_entries_take_ints(route, name, nargs):
     """The envelope entries the loader binds: that many int parameters
-    (the bf16 and split-TF32 routes' chunk and cluster take the row width,
-    the W8A8 route's do not)."""
+    (each route's chunk and cluster take the row width)."""
     source, _, _, pre = fm._MMA_SOURCES[route]
     kinds, _ = _entry_kinds(source + ".cu", pre + name)
     assert kinds == [ctypes.c_int] * nargs
@@ -536,11 +538,9 @@ def _fake_lib(route, **wrong):
     pre = fm._MMA_SOURCES[route][3]
     smem = {"w8a8": fm.w8a8_mma_smem_bytes, "mma": fm.mma_smem_bytes,
             "tf32": fm.tf32_smem_bytes}[route]
-    w8a8 = route == "w8a8"
     entries = {"rows": lambda: fm.MMA_ROWS,
                "max_width": lambda: fm.MMA_MAX_WIDTH,
-               "chunk": (lambda: fm.MMA_CHUNK) if w8a8 else fm.chunk_of,
-               "cluster": fm.cluster_size if w8a8 else fm.cluster_of,
+               "chunk": fm.chunk_of, "cluster": fm.cluster_of,
                "smem_bytes": smem}
     entries.update(wrong)
     return types.SimpleNamespace(**{pre + k: v for k, v in entries.items()})

@@ -228,8 +228,11 @@ def test_bf16_source_instantiates_the_narrow_chunk():
                      header).group(1) == str(fm.MMA_NARROW_CHUNK)
     assert re.search(r"constexpr int MC_NC = (\d+);",
                      header).group(1) == str(fm.MMA_CHUNK)
-    # mc_width_ok keeps its 128-only rule (the W8A8 kernel's)
-    assert "return d > 0 && d % MC_NC == 0 && d <= MC_MAX_WIDTH;" in header
+    # the W8A8 source takes the narrow chunk too (its row predicate is
+    # mc_chunk_of's, no 128-only rule is left)
+    w8 = _read("fused_mlp_w8a8_mma.cu")
+    assert "w8a8_mma_body<T, BM, MC_NC_NARROW>(a)" in w8
+    assert "mc_width_ok" not in header + w8
 
 
 def test_stage_shapes_match_the_sources():

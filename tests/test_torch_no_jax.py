@@ -83,6 +83,8 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.tools.convert",
     "interactive_vit_tpu_torch.utils.safetensors_io",
     "interactive_vit_tpu_torch.utils.checkpoint",
+    "interactive_vit_tpu_torch.utils.tracing",
+    "interactive_vit_tpu_torch.tools.quant_agreement",
     "chip_smoke",
 ]
 

@@ -183,8 +183,12 @@ def test_autoregister_takes_at_geometries_and_refuses_swin(micro_variants):
         make_model("swin_t@384", device="cpu")
     with pytest.raises(ValueError, match="plain-ViT family only"):
         make_model("swin_t", device="cpu", block_kernel="int8-scores")
-    with pytest.raises(NotImplementedError, match="Swin"):
-        make_model("swin_t", device="cpu", quantize="w8")
+    # Swin takes the quantized modes: weight-only int8 in every block linear
+    swin_q = make_model("swin_t", device="cpu", quantize="w8")
+    blk = swin_q.params["stages"][2][5]
+    assert {k for k, v in blk.items() if isinstance(v, dict)} == {
+        "qkv_w", "proj_w", "fc1_w", "fc2_w"}
+    assert blk["qkv_w"]["int8_q"].dtype == torch.int8
 
 
 def test_vit_t16_at_256_saved_graph_served_like_jax(tmp_path):

@@ -27,6 +27,7 @@ from interactive_vit_tpu_torch.models.weights import from_jax
 from interactive_vit_tpu_torch.ops import fused_window as fw
 from interactive_vit_tpu_torch.ops import layers as tlayers
 from interactive_vit_tpu_torch.ops import preprocess_mm as tpre
+from interactive_vit_tpu_torch.ops import quant as tq
 
 torch.set_num_threads(2)
 
@@ -298,8 +299,14 @@ def test_make_swin_model_surface(shared):
     bare = make_swin_model("swin_port", params=tparams, cfg=TCFG,
                            device="cpu", with_categories=False)
     assert bare.category_names is None
-    with pytest.raises(NotImplementedError, match="quantized Swin"):
-        make_swin_model("swin_t", device="cpu", quantize="w8a8")
+    # the quantized modes build (tests/test_torch_swin_quant.py holds them
+    # to JAX): fc1 / fc2 as W8A8, the window kernel's qkv / proj dense
+    q = make_swin_model("swin_port", params=tparams, cfg=TCFG, device="cpu",
+                        quantize="w8a8")
+    blk = q.params["stages"][0][0]
+    assert tq.is_w8a8(blk["fc1_w"]) and tq.is_w8a8(blk["fc2_w"])
+    assert isinstance(blk["qkv_w"], torch.Tensor)
+    assert q.grad_layers is not None
 
 
 def test_cached_tables_outlive_inference_mode(shared):
