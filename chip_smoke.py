@@ -544,13 +544,41 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        16 images: each mode's top-1 agreement with bf16 and logit MAE.
    The new launches of rows 1, 5 and 7 are added to the kernels line, the
    96-column instantiation as a row of its own.
+8d. graph export -- the forward kernel routes as ``torch.library`` custom
+   ops (``ops/custom_ops.py``) and ``graph/export.py``:
+   (p) ``torch.library.opcheck`` (``test_schema``, ``test_faketensor``) of
+       each ``ivt`` op at one main-path shape (rows 1-7), and the host time
+       of a call through the op against its CUDA body called directly
+       (rows 1 and 6 at vit_b16, turns op, direct, direct, op);
+   (q) each graph of ``EXPORTS`` built by the server (``build_app``),
+       replayed live, exported from the live executor, loaded and run: the
+       program's ``ivt`` nodes (vit_b16 bf16 and f32, vit_t16_saliency with
+       its gradient cone, vit_b16_tome, vit_b16 int8w8a8 + int8-scores,
+       the generated vit_l16@384, dinov2_s14_reg@518 and @742 chain graphs,
+       swin_t: every op of rows 1-5 and 7 inside a loaded artifact), the
+       loaded replay's launches equal to the live replay's, its outputs
+       bit for bit the live replay's (else within the served bound, which
+       the log line names), ``selftest`` ok; export seconds, artifact MB,
+       load seconds, the first call's eager pass and capture, and the
+       loaded and live CUDA-graph replays' device-synchronized walls; the
+       gradient graph (dream cut to one step, ``SAL_PARAMS``) is exported
+       by a child process that runs beside the others' (its trace and
+       save are minutes of host-bound Python);
+   (r) a ``--from-export`` server (``build_export_app``, selftests on)
+       over the vit_b16 bf16 and vit_t16_saliency artifacts beside the
+       live server: vit_b16's /compute response bytes equal, a saliency
+       class edit over the wire replays the artifact's program (no
+       capture) and equals the live server's; the client p50 of 20
+       sequential vit_b16 requests on each;
+   (s) the vit_b16 artifact loaded and run in a fresh interpreter that
+       imports no model code, its outputs bit for bit this process's.
 9. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5, 7, 8, 8b and 8c use random (seeded)
+It imports nothing of JAX. Phases 3-5, 7, 8, 8b, 8c and 8d use random (seeded)
 weights, so their logits are meaningless as classifications; what is checked is
 that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
@@ -2383,9 +2411,10 @@ def profiled(run, what: str, expect=None, tries: int = 3):
     be absent, fails at once (``report_profile``). A lost record has
     also recurred at the same place in every try of one trace (11 of 12
     launches of one kernel, three times running), so a try after the first
-    starts its trace with a few device-to-device copies and a wait on the
-    host before ``run``: the run's records then sit elsewhere in the
-    trace. A trace that holds no kernel at all (one of CUPTI's traces of
+    starts its trace with 64 device-to-device copies a try (the 32
+    records at the head of a vit_b16 eager pass's trace were lost in each
+    of three tries after 8 and 16) and a wait on the host before ``run``:
+    the run's records then sit elsewhere in the trace. A trace that holds no kernel at all (one of CUPTI's traces of
     a replay on the card came back empty) is taken again likewise.
     Returns ``report_profile``'s (wall ms, device busy ms)."""
     import torch
@@ -2398,7 +2427,7 @@ def profiled(run, what: str, expect=None, tries: int = 3):
                                  ProfilerActivity.CUDA]) as prof:
             if attempt and torch.cuda.is_available():
                 pad = torch.zeros(2, device="cuda")
-                for _ in range(8 * attempt):
+                for _ in range(64 * attempt):
                     pad[1:].copy_(pad[:1])
                 torch.cuda.synchronize()
                 time.sleep(0.002 * attempt)
@@ -8130,6 +8159,576 @@ def phase_tracing_quant_swin(device, counters):
     return launches, narrow
 
 
+# -- phase 8d: graph export -------------------------------------------------------
+
+# ivt op -> the launch counters of its routes (the ToMe and chunk-of-96
+# views count launches that these already count)
+OP_COUNTERS = {
+    "fused_attn_block": ("fused_attn_block", "fused_attn_block_mma",
+                         "fused_attn_block_tf32x3", "fused_attn_block_s8",
+                         "fused_attn_block_s8_mma",
+                         "fused_attn_block_s8_tf32x3"),
+    "headwise_attn_block": ("headwise_attn_block", "headwise_attn_block_mma",
+                            "headwise_attn_block_tf32x3"),
+    "flash_attention": ("flash_attention", "flash_attention_mma",
+                        "flash_attention_tf32x3"),
+    "flash_attention_online": ("flash_attention_online",
+                               "flash_attention_online_mma",
+                               "flash_attention_online_tf32x3"),
+    "fused_window_attn": ("fused_window_attn", "fused_window_attn_mma",
+                          "fused_window_attn_tf32x3"),
+    "fused_mlp_block": ("fused_mlp_block", "fused_mlp_block_mma",
+                        "fused_mlp_block_tf32x3"),
+    "fused_mlp_w8a8_block": ("fused_mlp_w8a8_block",
+                             "fused_mlp_w8a8_block_mma"),
+}
+# vit_t16_saliency.json's edits in phase 8d: saliency (node 17) on a class,
+# whose index a request edits over the wire; dream (node 19) cut to one
+# step: its 32 steps unroll into the program, which multiplies the program's
+# nodes, and with them its export and load times, about nine-fold
+SAL_PARAMS = {17: {"target": "class", "class": "3"}, 19: {"steps": "1"}}
+# The graphs of phase 8d: (tag, model, --dtype, --attn, saved graph,
+# node params, the program's ivt nodes, a request's launches). The three
+# chain graphs are the ones the server generates into --graphs-dir.
+EXPORTS = (
+    ("vit_b16 bf16", "vit_b16", "bfloat16", "auto", "vit_b16", {},
+     {"fused_attn_block": 12}, {"fused_attn_block_mma": 12}),
+    ("vit_b16 f32", "vit_b16", "float32", "auto", "vit_b16", {},
+     {"fused_attn_block": 12}, {"fused_attn_block_tf32x3": 12}),
+    ("vit_b16_tome bf16", "vit_b16_tome", "bfloat16", "auto",
+     "vit_b16_tome", {}, {"fused_attn_block": 12},
+     {"fused_attn_block_mma": 12, "fused_attn_block_tome_mma": 12}),
+    ("vit_b16 int8w8a8 int8-scores", "vit_b16", "int8w8a8", "int8-scores",
+     "vit_b16", {}, {"fused_attn_block": 12, "fused_mlp_w8a8_block": 12},
+     {"fused_attn_block_s8_mma": 12, "fused_mlp_w8a8_block_mma": 12}),
+    ("vit_l16@384 bf16", "vit_l16", "bfloat16", "auto", "vit_l16", {},
+     {"headwise_attn_block": 24}, {"headwise_attn_block_mma": 24}),
+    ("dinov2_s14_reg@518 bf16", "dinov2_s14_reg", "bfloat16", "auto",
+     "dinov2_s14_reg", {}, {"flash_attention": 12},
+     {"flash_attention_mma": 12}),
+    ("dinov2_s14_reg@742 bf16", "dinov2_s14_reg@742", "bfloat16", "auto",
+     "dinov2_s14_reg@742", {}, {"flash_attention_online": 12},
+     {"flash_attention_online_mma": 12}),
+    ("swin_t bf16", "swin_t", "bfloat16", "auto", "swin_t", {},
+     {"fused_window_attn": 12}, {"fused_window_attn_mma": 12}),
+    # last: exported by a child process that starts with the phase
+    ("vit_t16_saliency bf16", "vit_t16", "bfloat16", "auto",
+     "vit_t16_saliency", SAL_PARAMS, {"fused_attn_block": 96},
+     {"fused_attn_block_mma": 96}),
+)
+# A loaded artifact's outputs against the live replay's where the two
+# programs differ in a plain op (an ATen op that torch.export records in
+# another form): the served bf16 bound, within 2^-4 of each output's
+# scale; f32: 1e-4 of it.
+EXPORT_BF16_REL = 2.0 ** -4
+EXPORT_F32_REL = 1e-4
+# each exported program's captures (the count_exported_replays record)
+EXPORT_CAPTURES = weakref.WeakKeyDictionary()
+
+
+def count_exported_replays() -> None:
+    """``count_replays`` for loaded artifacts: an ``ExportedGraph``'s
+    capture records the launches its CUDA graph holds (and takes them back
+    off the counters), each replay adds them, and each capture is counted
+    in ``EXPORT_CAPTURES``."""
+    from interactive_vit_tpu_torch.graph.export import ExportedGraph
+
+    capture, replay = ExportedGraph._capture, ExportedGraph._replay
+
+    def counted_capture(self):
+        counters = launch_counters()
+        before = [getattr(fn, a) for fn, a in counters]
+        try:
+            capture(self)
+        finally:
+            after = [getattr(fn, a) for fn, a in counters]
+            for (fn, a), n in zip(counters, before):
+                setattr(fn, a, n)
+        RECORDED[self] = [(fn, a, y - x) for (fn, a), x, y
+                          in zip(counters, before, after) if y != x]
+        EXPORT_CAPTURES[self] = EXPORT_CAPTURES.get(self, 0) + 1
+
+    def counted_replay(self):
+        replay(self)
+        for fn, a, n in RECORDED[self]:
+            setattr(fn, a, getattr(fn, a) + n)
+
+    ExportedGraph._capture, ExportedGraph._replay = (counted_capture,
+                                                     counted_replay)
+
+
+def replay_ms(replay, n: int = 20) -> float:
+    """Median device-synchronized wall of one CUDA graph replay."""
+    import torch
+
+    for _ in range(3):
+        replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        replay()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def live_program(ex):
+    """The executor's most recently used captured program."""
+    with ex._cache_lock:
+        return next(reversed(ex._cache.values()))
+
+
+def export_vs_live(tag, got, want, dtype_name) -> str:
+    """The loaded artifact's outputs against the live replay's: bit for
+    bit, or (a plain op recorded in another form) within the served
+    bound of each output's scale; returns what held."""
+    keys = sorted((i, ch) for i in want for ch in want[i])
+    if keys != sorted((i, ch) for i in got for ch in got[i]):
+        raise AssertionError(f"{tag}: outputs {sorted(got)} vs "
+                             f"{sorted(want)}")
+    worst, bits = 0.0, True
+    rel = EXPORT_F32_REL if dtype_name == "float32" else EXPORT_BF16_REL
+    for i, ch in keys:
+        a, b = np.asarray(got[i][ch]), np.asarray(want[i][ch])
+        if not np.isfinite(a).all() or a.shape != b.shape:
+            raise AssertionError(f"{tag}: node {i} {ch} not finite or "
+                                 f"shaped {a.shape} vs {b.shape}")
+        if a.tobytes() == b.tobytes():
+            continue
+        bits = False
+        scale = max(float(np.abs(b).max()), 1e-6)
+        err = float(np.abs(a - b).max()) / scale
+        worst = max(worst, err)
+        if err > rel:
+            raise AssertionError(f"{tag}: node {i} {ch} differs from the "
+                                 f"live replay by {err:.3e} of its scale "
+                                 f"(bound {rel:.3e})")
+    return ("bit for bit" if bits else
+            f"within {worst:.2e} of scale (bound {rel:.2e})")
+
+
+def opcheck_cases(device):
+    """{op: its arguments} at one main-path shape each, bf16: vit_b16's
+    block (rows 1, 6, 7), vit_l16@384's (row 2), dinov2@518's and @742's
+    attention (rows 3, 4), swin_t's stage 0 (row 5); and vit_b16's block
+    parameters."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import custom_ops, quant
+
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=0.05, mean=0.0):
+        return (torch.randn(*shape, generator=gen, device=device) * scale
+                + mean).to(dtype)
+
+    p = random_block(768, torch.bfloat16, device, 0)
+    p.update(ln2_s=rand(768, mean=1.0), ln2_b=rand(768),
+             fc1_w=rand(768, 3072), fc1_b=rand(3072), fc2_w=rand(3072, 768),
+             fc2_b=rand(768))
+    x = rand(1, 197, 768, scale=1.0)
+    hw = random_block(1024, torch.bfloat16, device, 1)
+    q1 = quant.quantize_weight(p["fc1_w"], "w8a8")
+    q2 = quant.quantize_weight(p["fc2_w"], "w8a8")
+    cases = {
+        "fused_attn_block": (x, *(p[k] for k in custom_ops.ROW1_KEYS), 12,
+                             1e-6, True, True, True, [0, 6, 11], None, False,
+                             0),
+        "headwise_attn_block": (rand(1, 577, 1024, scale=1.0),
+                                *(hw[k] for k in custom_ops.ROW1_KEYS), 16,
+                                1e-6, False, True, True, None),
+        "flash_attention": (*(rand(1, 6, 1374, 64, scale=1.0)
+                              for _ in range(3)), True, 1374),
+        "flash_attention_online": (*(rand(1, 6, 2814, 64, scale=1.0)
+                                     for _ in range(3)), 2814),
+        "fused_window_attn": (rand(1, 56, 56, 96, scale=1.0),
+                              rand(96, 288), rand(288), rand(96, 96),
+                              rand(96), 3, 7,
+                              rand(3, 49, 49, dtype=torch.float32), None,
+                              False, True),
+        "fused_mlp_block": (x, *(p[k] for k in custom_ops.MLP_KEYS), 1e-6),
+        "fused_mlp_w8a8_block": (
+            x, p["ln2_s"], p["ln2_b"], q1[quant.AQKEY], q1[quant.ASKEY],
+            p["fc1_b"], q2[quant.AQKEY], q2[quant.ASKEY], p["fc2_b"], 1e-6),
+    }
+    return cases, p
+
+
+def export_opcheck(device) -> None:
+    """(p) ``torch.library.opcheck`` of every ivt op at one main-path shape
+    (its schema and its fake implementation against the card's kernel),
+    and the dispatcher's cost: the op's wrapper against its CUDA body
+    called directly, host time a call."""
+    import torch
+
+    from interactive_vit_tpu_torch.ops import (
+        custom_ops, fused_block as fb, fused_mlp as fm,
+    )
+
+    cases, p = opcheck_cases(device)
+    x = cases["fused_attn_block"][0]
+    for name, args in cases.items():
+        torch.library.opcheck(getattr(torch.ops.ivt, name).default, args,
+                              test_utils=("test_schema", "test_faketensor"))
+    torch.cuda.synchronize()
+    log(f"  (p) opcheck (test_schema, test_faketensor) of "
+        f"{len(cases)} ops passed: ivt::{', ivt::'.join(custom_ops.ROWS)}")
+
+    # the dispatcher's cost: the same launch through the op and direct
+    route = fb._block_route_of(x, p, 12)
+    kw = dict(want_attn=False, want_mean=False, fast_softmax=True,
+              attn_heads=None, key_bias=None, want_metric=False)
+
+    def host_us(fn, n=200):
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        host = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return host
+
+    with torch.inference_mode():
+        turns = [host_us(lambda: fb.fused_attn_block(x, p, 12, 1e-6)),
+                 host_us(lambda: fb._launch_counted(route, False, x, p, 12,
+                                                    1e-6, True, kw)),
+                 host_us(lambda: fb._launch_counted(route, False, x, p, 12,
+                                                    1e-6, True, kw)),
+                 host_us(lambda: fb.fused_attn_block(x, p, 12, 1e-6))]
+        mturns = [host_us(lambda: fm.fused_mlp_block(x, p, 1e-6)),
+                  host_us(lambda: fm.mlp_launch(x, p, 1e-6)),
+                  host_us(lambda: fm.mlp_launch(x, p, 1e-6)),
+                  host_us(lambda: fm.fused_mlp_block(x, p, 1e-6))]
+    via, direct = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    mvia, mdirect = (mturns[0] + mturns[3]) / 2, (mturns[1] + mturns[2]) / 2
+    EXPORT_NUMS["dispatch"] = (via, direct, mvia, mdirect)
+    log(f"  (p) host time a call at vit_b16 B=1 bf16, through the op vs "
+        f"its CUDA body direct (turns op, direct, direct, op; 200 calls "
+        f"each): row 1 {via:.1f} vs {direct:.1f} us ({via - direct:+.1f}), "
+        f"row 6 {mvia:.1f} vs {mdirect:.1f} us ({mvia - mdirect:+.1f}) "
+        f"[{CARD['smi']}]")
+
+
+# phase 8d's numbers for the summary line
+EXPORT_NUMS = {}
+
+
+def artifact_dir(tmp, spec) -> str:
+    return os.path.join(tmp, spec[4].replace("@", "_") + "_" + spec[2])
+
+
+# A child process that exports a graph on the card beside the parent's
+# work: (q)'s gradient graph, whose trace and save are host-bound Python
+# that takes minutes, is exported while the parent takes the other graphs.
+EXPORT_CHILD = """
+import json, sys, time
+import numpy as np
+from interactive_vit_tpu_torch.graph.export import export_graph
+from interactive_vit_tpu_torch.serving.server import build_app
+from interactive_vit_tpu_torch.wire.schema import graph_from_json
+(device, model, dtype_name, attn, graph, params, graphs_dir, image,
+ out) = sys.argv[1:]
+app = build_app(models=[model], graphs_dir=graphs_dir, dtype_name=dtype_name,
+                device=device, attn_impl_name=attn)
+obj = app.graphs.load(graph + ".json")
+g = graph_from_json(obj)
+for i, p in json.loads(params).items():
+    g.nodes[int(i)].params.update(p)
+g.add_input(np.load(image), g.nodes[0], "o")
+t0 = time.perf_counter()
+export_graph(g, out, taps="primary", executor=app.executor, client_graph=obj,
+             provenance={"graph": graph + ".json", "dtype": dtype_name})
+print(json.dumps({"export_s": time.perf_counter() - t0}))
+app.close()
+"""
+
+
+def export_in_child(spec, device, graphs_dir, tmp, image):
+    """Start ``EXPORT_CHILD`` for one graph of ``EXPORTS`` (its own app,
+    the same seeded weights as the parent's), its output in files under
+    ``tmp``; ``export_one`` waits for it."""
+    path = os.path.join(tmp, "child_image.npy")
+    np.save(path, image)
+    _, model, dtype_name, attn, graph, params = spec[:6]
+    with open(os.path.join(tmp, "child.out"), "w") as out, \
+            open(os.path.join(tmp, "child.err"), "w") as err:
+        return subprocess.Popen(
+            [sys.executable, "-c", EXPORT_CHILD, str(device), model,
+             dtype_name, attn, graph, json.dumps(params), graphs_dir, path,
+             artifact_dir(tmp, spec)], cwd=HERE, stdout=out, stderr=err)
+
+
+def export_one(spec, device, graphs_dir, counters, tmp, image, child=None):
+    """(q) one graph of ``EXPORTS``: the live app's replay (launches,
+    outputs, device replay wall), the export (seconds, MB; by ``child``, a
+    process of ``export_in_child``, where given), the load, the loaded
+    artifact's first call (eager pass and capture) and replay (launches
+    equal to the live replay's, outputs against the live replay's,
+    selftest, device replay wall). Returns (app, artifact dir, the graph
+    JSON, the artifact) for the server step."""
+    import torch
+
+    from interactive_vit_tpu_torch.graph.export import (
+        export_graph, load_artifact,
+    )
+    from interactive_vit_tpu_torch.ops import custom_ops
+    from interactive_vit_tpu_torch.serving.server import build_app
+
+    tag, model, dtype_name, attn, graph, params, want_ops, want_launch = spec
+    app = build_app(models=[model], graphs_dir=graphs_dir,
+                    dtype_name=dtype_name, device=device,
+                    attn_impl_name=attn)
+    obj = app.graphs.load(graph + ".json")
+    g = chain_graph(obj, image, params)
+    ex = app.executor
+    ex.run(g, taps="primary")  # the capture
+    zero_counts(counters)
+    live = ex.run(chain_graph(obj, image, params), taps="primary")
+    live_counts = read_counts(counters)
+    if live_counts != want_launch:
+        raise AssertionError(f"{tag}: the live replay launched "
+                             f"{live_counts}, expected {want_launch}")
+    live_ms = replay_ms(live_program(ex).graph.replay)
+
+    d = artifact_dir(tmp, spec)
+    if child is None:
+        t0 = time.perf_counter()
+        export_graph(chain_graph(obj, image, params), d, taps="primary",
+                     executor=ex, client_graph=obj,
+                     provenance={"graph": graph + ".json",
+                                 "dtype": dtype_name})
+        export_s = time.perf_counter() - t0
+    else:
+        child.wait(timeout=900)
+        with open(os.path.join(tmp, "child.out")) as f:
+            out = f.read()
+        if child.returncode != 0:
+            with open(os.path.join(tmp, "child.err")) as f:
+                raise AssertionError(f"{tag}: the exporting process failed: "
+                                     f"{f.read()[-4000:]}")
+        export_s = json.loads(out.strip().splitlines()[-1])["export_s"]
+    mb = sum(os.path.getsize(os.path.join(d, f))
+             for f in os.listdir(d)) / 1e6
+    t0 = time.perf_counter()
+    art = load_artifact(d)
+    load_s = time.perf_counter() - t0
+    if art.manifest["platforms"] != [torch.device(device).type]:
+        raise AssertionError(f"{tag}: platforms {art.manifest['platforms']}")
+    ops = custom_ops.count_ivt_nodes(art._module.graph)
+    if ops != want_ops:
+        raise AssertionError(f"{tag}: the program holds {ops}, expected "
+                             f"{want_ops}")
+    t0 = time.perf_counter()
+    first = art(image)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    zero_counts(counters)
+    got = art(image)
+    art_counts = read_counts(counters)
+    if art_counts != live_counts:
+        raise AssertionError(f"{tag}: the loaded replay launched "
+                             f"{art_counts}, the live replay {live_counts}")
+    held = export_vs_live(tag, got, live, dtype_name)
+    export_vs_live(tag + " (first call)", first, live, dtype_name)
+    st = art.selftest()
+    if not st["ok"]:
+        raise AssertionError(f"{tag}: selftest failed: {st['worst']}")
+    art_ms = replay_ms(art._replay)
+    EXPORT_NUMS.setdefault("rows", []).append(
+        (tag, export_s, mb, load_s, first_s, art_ms, live_ms))
+    log(f"  (q) {tag}: program {ops}; export {export_s:.2f} s, "
+        f"{mb:.1f} MB, load {load_s:.2f} s, first call (eager pass + "
+        f"capture) {first_s:.2f} s; replay {art_ms:.3f} ms vs live "
+        f"{live_ms:.3f} ms ({art_ms / live_ms:.3f}x); launches a replay "
+        f"{art_counts} = live; outputs {held}; selftest worst rel "
+        f"{st['worst']['rel']:.1e}")
+    return app, d, obj, art
+
+
+def export_servers(device, arts, counters, image) -> None:
+    """(r) a --from-export server (``build_export_app``) over the vit_b16
+    bf16 and vit_t16_saliency artifacts that (q) loaded, beside the live
+    server: a vit_b16
+    /compute's response bytes equal the live server's, a saliency class
+    edit over the wire is served by the artifact's captured program (no
+    capture) and equals the live server's, and 20 sequential vit_b16
+    requests a server give the client p50s."""
+    import torch
+
+    from interactive_vit_tpu_torch.serving.server import (
+        build_app, build_export_app,
+    )
+
+    from interactive_vit_tpu_torch.serving import export_app
+
+    b16, sal = arts["vit_b16 bf16"], arts["vit_t16_saliency bf16"]
+    # the server's app over the artifacts (q) loaded already: a load of
+    # the saliency program takes as long as its export's save
+    loaded = {d: art for art, d, _ in arts.values()}
+    load = export_app.ExportedGraph
+    export_app.ExportedGraph = lambda path: loaded.get(path) or load(path)
+    try:
+        xapp = build_export_app([b16[1], sal[1]], selftest=True)
+    finally:
+        export_app.ExportedGraph = load
+    live = build_app(models=["vit_b16", "vit_t16"], dtype_name="bfloat16",
+                     device=device, graphs_dir=None)
+    servers = [xapp.serve("127.0.0.1", 0, background=True),
+               live.serve("127.0.0.1", 0, background=True)]
+    try:
+        xurl, lurl = (f"http://127.0.0.1:{s.server_address[1]}"
+                      for s in servers)
+
+        def taps_of(art_dir):
+            unit = next(u for u in xapp.units if u.artifact_dir == art_dir)
+            return unit, sorted(unit.art.out_keys,
+                                key=lambda k: f"{k[0]}/{k[1]}")
+
+        unit, taps = taps_of(b16[1])
+        body = chain_request(b16[2], image, taps)
+        for _ in range(2):  # the live capture, then a replay each
+            xraw, lraw = post(xurl + "/compute", body), post(
+                lurl + "/compute", body)
+        if xraw != lraw:
+            raise AssertionError("vit_b16 bf16: the --from-export response "
+                                 "bytes differ from the live server's")
+        sunit, staps = taps_of(sal[1])
+        s_idx = 17
+        for cls in ("3", "5"):
+            sbody = chain_request(sal[2], image, staps, {
+                **SAL_PARAMS, s_idx: {"target": "class", "class": cls}})
+            graph_before = sunit.art._graph
+            caps_before = EXPORT_CAPTURES.get(sunit.art, 0)
+            zero_counts(counters)
+            xs = decoded(xurl, sbody)
+            xcounts = read_counts(counters)
+            post(lurl + "/compute", sbody)  # the live capture of a class
+            ls = decoded(lurl, sbody)
+            if cls == "5" and (sunit.art._graph is not graph_before
+                               or EXPORT_CAPTURES.get(sunit.art, 0)
+                               != caps_before):
+                raise AssertionError("saliency class edit: the artifact "
+                                     "captured again")
+            export_vs_live(f"vit_t16_saliency class {cls} over the wire",
+                           xs, ls, "bfloat16")
+            if cls == "5" and xcounts != {"fused_attn_block_mma": 96}:
+                raise AssertionError(f"saliency class edit launched "
+                                     f"{xcounts}")
+
+        def p50(url, n=20):
+            times = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                post(url + "/compute", body)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return float(np.median(times))
+
+        x50, l50, x50b, l50b = p50(xurl), p50(lurl), p50(lurl), p50(xurl)
+        EXPORT_NUMS["p50"] = ((x50 + x50b) / 2, (l50 + l50b) / 2)
+        log(f"  (r) --from-export vit_b16 bf16 + vit_t16_saliency (selftests "
+            f"ok): /compute bytes equal to the live server's; a saliency "
+            f"class edit 3 -> 5 replayed the artifact's program (96 row-1 "
+            f"launches, no capture) and equals the live server's; client "
+            f"p50 of 20 sequential vit_b16 requests (turns export, live, "
+            f"live, export): --from-export {EXPORT_NUMS['p50'][0]:.2f} ms, "
+            f"live {EXPORT_NUMS['p50'][1]:.2f} ms [{CARD['smi']}]")
+    finally:
+        for s in servers:
+            s.shutdown()
+        live.close()
+        del xapp
+        torch.cuda.empty_cache()
+
+
+def export_subprocess(art_dir, image, want) -> None:
+    """(s) the vit_b16 artifact loaded and run in a fresh interpreter that
+    imports no model code: its outputs equal this process's artifact's."""
+    code = f"""
+import sys, numpy as np
+from interactive_vit_tpu_torch.graph.export import load_artifact
+art = load_artifact({art_dir!r})
+out = art(np.load({art_dir + '/image.npy'!r}))
+np.savez({art_dir + '/sub.npz'!r}, **{{f"{{i}}/{{ch}}": v for i, c in out.items() for ch, v in c.items()}})
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m.startswith("interactive_vit_tpu_torch.models")
+             or m in ("interactive_vit_tpu_torch.graph.registry",
+                      "interactive_vit_tpu_torch.ops.node_ops"))
+assert not bad, bad
+print("clean")
+"""
+    np.save(os.path.join(art_dir, "image.npy"), image)
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=HERE, timeout=300)
+    if res.returncode != 0 or res.stdout.strip() != "clean":
+        raise AssertionError(f"the subprocess load failed: {res.stderr}")
+    with np.load(os.path.join(art_dir, "sub.npz")) as sub:
+        got = {}
+        for key in sub.files:
+            i, ch = key.split("/", 1)
+            got.setdefault(int(i), {})[ch] = sub[key]
+    held = export_vs_live("the subprocess's vit_b16 bf16", got, want,
+                          "bfloat16")
+    log(f"  (s) a fresh interpreter loaded and ran the vit_b16 bf16 "
+        f"artifact with no model module imported in "
+        f"{time.perf_counter() - t0:.1f} s: its "
+        f"{sum(len(c) for c in got.values())} outputs "
+        f"{held} this process's")
+
+
+def phase_export(device, counters) -> None:
+    """Phase 8d: runs (p)-(s) (the module docstring)."""
+    import torch
+
+    t_phase = time.perf_counter()
+    count_exported_replays()
+    export_opcheck(device)
+    image = np.random.default_rng(28).random((3, 224, 224),
+                                             dtype=np.float32)
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_8d_")
+    child = None
+    try:
+        graphs_dir = os.path.join(tmp, "graphs")
+        shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
+        keep = {}
+        # the gradient graph's export runs in a child process from the
+        # start; its row of EXPORTS comes last
+        grad = EXPORTS[-1]
+        child = export_in_child(grad, device, graphs_dir, tmp, image)
+        for spec in EXPORTS:
+            t0 = time.perf_counter()
+            app, d, obj, art = export_one(
+                spec, device, graphs_dir, counters, tmp, image,
+                child if spec is grad else None)
+            if spec[0] in ("vit_b16 bf16", "vit_t16_saliency bf16"):
+                keep[spec[0]] = (art, d, obj)
+            if spec[0] == "vit_b16 bf16":
+                b16_want = art(image)
+            app.close()
+            del app, art
+            torch.cuda.empty_cache()
+            log(f"      ({time.perf_counter() - t0:.1f} s)")
+        export_servers(device, keep, counters, image)
+        export_subprocess(keep["vit_b16 bf16"][1], image, b16_want)
+        keep.clear()
+    finally:
+        if child is not None and child.poll() is None:
+            child.kill()
+            child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = EXPORT_NUMS["rows"]
+    log("  export summary (s, MB, s, s, ms, ms): graph, export, artifact, "
+        "load, first call, loaded replay, live replay [" + CARD["smi"] + "]")
+    for tag, es, mb, ls, fs, am, lm in rows:
+        log(f"    {tag}: {es:.2f}, {mb:.1f}, {ls:.2f}, {fs:.2f}, {am:.3f}, "
+            f"{lm:.3f}")
+    log(f"  phase 8d took {time.perf_counter() - t_phase:.1f} s")
+
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -8575,6 +9174,11 @@ def main() -> int:
     numbers["fused_mlp_w8a8_block_mma96"] = {**narrow, "launches": 0}
     for k, n in launches.items():
         numbers[k]["launches"] += n
+
+    # 8d. graph export: the ivt custom ops, export / load / replay of a
+    # graph for each forward row, serving from an artifact
+    log(f"phase 8d graph export (at {time.perf_counter() - t_start:.1f} s):")
+    phase_export(device, counters)
 
     # 9. result
     log(f"phase 9 result: all phases passed in "

@@ -11,6 +11,11 @@ Counterpart of ``interactive_vit_tpu/ops/flash_attention.py::flash_attention``
   cast points, used on the CPU and to check the kernel on the card.
 * ``fits`` -- the kernel's shape envelope.
 
+A public wrapper reaches its kernels on a CUDA tensor through its
+``torch.library`` custom op (``ops/custom_ops.py``: the launch is the op's
+body, so ``torch.export`` records the op where fake tensors have no
+address to route by).
+
 Branches, by shape as in the JAX function: maps asked for with N above
 ``ROWFULL_MAX_N`` return ``attention_reference`` (f32 probs); maps off
 above it go to the online-softmax kernel, which has the same three pieces:
@@ -271,6 +276,22 @@ def flash_attention(
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
     _check_operands(q, k, v)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.flash_attention(q, k, v, want_attn, n_real)
+
+
+flash_attention.launches = 0
+
+
+def rowfull_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   want_attn: bool, n_real: int):
+    """``ivt::flash_attention``'s CUDA body (``ops/custom_ops.py``) on
+    checked operands: bf16 operands that ``mma_route`` takes to
+    ``flash_attention_mma``, f32 ones that ``tf32_route`` takes to
+    ``flash_attention_tf32x3``, the rest to the FMA kernel, counted in
+    ``flash_attention.launches``; returns ``(o, probs | None)``."""
+    b, h, n, dh = q.shape
     if _mma_operands(q, k, v):
         return flash_attention_mma(q, k, v, want_attn, n_real)
     if _tf32_operands(q, k, v):
@@ -296,9 +317,6 @@ def flash_attention(
                            f"cudaError {err}")
     flash_attention.launches += 1
     return o, probs
-
-
-flash_attention.launches = 0
 
 
 def flash_mhsa(q, k, v, want_attn=False, n_real=None):
@@ -561,6 +579,21 @@ def flash_attention_online(
         raise ValueError(f"flash_attention_online runs on cuda or cpu "
                          f"tensors, got {q.device}")
     _check_operands(q, k, v, fits_online)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.flash_attention_online(q, k, v, n_real)
+
+
+flash_attention_online.launches = 0
+
+
+def online_launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  n_real: int) -> torch.Tensor:
+    """``ivt::flash_attention_online``'s CUDA body (``ops/custom_ops.py``)
+    on checked operands: the tensor-core kernels where ``mma_route`` or
+    ``tf32_route`` take them, else ``csrc/flash_attention_online.cu``,
+    counted in ``flash_attention_online.launches``; returns o."""
+    b, h, n, dh = q.shape
     if _mma_operands(q, k, v):
         return flash_attention_online_mma(q, k, v, n_real)
     if _tf32_operands(q, k, v):
@@ -582,9 +615,6 @@ def flash_attention_online(
                            f"cudaError {err}")
     flash_attention_online.launches += 1
     return o
-
-
-flash_attention_online.launches = 0
 
 
 # -- the online kernel on the tensor cores (bf16) -------------------------------

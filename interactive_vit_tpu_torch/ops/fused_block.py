@@ -16,6 +16,11 @@ kernels, each in three pieces, as every kernel of this package has:
   all keys in shared memory; the headwise one streams keys in tiles and
   takes the longer sequences (vit_l16 at 384 px).
 
+A public wrapper reaches its kernels on a CUDA tensor through its
+``torch.library`` custom op (``ops/custom_ops.py``: the launch is the op's
+body, so ``torch.export`` records the op where fake tensors have no
+address to route by).
+
 Numerics (the JAX kernels'): f32 LayerNorm cast to the activation dtype;
 qkv f32-accumulated plus bias, cast; per-head scores and softmax in f32 --
 ``fast_softmax`` is ``exp(min(s, 80))`` with no max subtraction and the
@@ -586,8 +591,9 @@ def fused_attn_block(
     if not _on_device(x, "fused_attn_block"):
         return fused_attn_block_reference(x, p, heads, eps, **kw)
     _check_operands(x, p, heads)
-    return _launch_counted(_block_route_of(x, p, heads), False, x, p, heads,
-                           eps, True, kw)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.fused_attn_block(x, p, heads, eps, 0, **kw)
 
 
 def _launch_counted(route, s8, x, p, heads, eps, int8_pv, kw):
@@ -633,8 +639,10 @@ def fused_attn_block_s8(
         return fused_attn_block_reference(x, p, heads, eps, int8_scores=True,
                                           int8_pv=int8_pv, **kw)
     _check_operands(x, p, heads, int8_scores=True)
-    return _launch_counted(_block_route_of(x, p, heads), True, x, p, heads,
-                           eps, int8_pv, kw)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.fused_attn_block(x, p, heads, eps,
+                                       2 if int8_pv else 1, **kw)
 
 
 # the keyword arguments of a block launch, at the wrappers' defaults
@@ -1003,6 +1011,19 @@ def headwise_attn_block(
                          f"got {x.device}")
     _emit_heads(heads, want_attn, attn_heads)
     _check_operands(x, p, heads, "headwise_attn_block", fits_headwise)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.headwise_attn_block(x, p, heads, eps, **kw)
+
+
+headwise_attn_block.launches = 0
+
+
+def headwise_launch(x: torch.Tensor, p: Params, heads: int, eps: float,
+                    **kw):
+    """``ivt::headwise_attn_block``'s CUDA body (``ops/custom_ops.py``) on
+    checked operands: the route ``headwise_route`` gives them, one launch
+    counted in that route's wrapper."""
     route = _route_of(x, p, heads)
     if route == "mma":
         return headwise_attn_block_mma(x, p, heads, eps, **kw)
@@ -1011,9 +1032,6 @@ def headwise_attn_block(
     out = _launch_headwise("fma", x, p, heads, eps, **kw)
     headwise_attn_block.launches += 1
     return out
-
-
-headwise_attn_block.launches = 0
 
 
 def _headwise_tc(route, name, x, p, heads, eps, **kw):

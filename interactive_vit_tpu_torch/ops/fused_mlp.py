@@ -11,6 +11,11 @@ Counterpart of ``interactive_vit_tpu/ops/fused_mlp.py``'s Pallas TPU kernel
   cast points, used on the CPU and to check the kernel on the card.
 * ``fits`` -- the kernel's shape envelope, used by ``ops/dispatch.py``.
 
+A public wrapper reaches its kernels on a CUDA tensor through its
+``torch.library`` custom op (``ops/custom_ops.py``: the launch is the op's
+body, so ``torch.export`` records the op where fake tensors have no
+address to route by).
+
 Numerics (the JAX kernel's): LayerNorm with f32 statistics cast to the
 activation dtype; ``h = gelu_tanh(ln @ fc1_w + fc1_b)`` accumulated and
 activated in f32, cast -- the tanh GELU in EVERY dtype, unlike
@@ -172,6 +177,19 @@ def fused_mlp_block(x: torch.Tensor, p: Params,
         raise ValueError(f"fused_mlp_block runs on cuda or cpu tensors, got "
                          f"{x.device}")
     _check_operands(x, p)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.fused_mlp_block(x, p, eps)
+
+
+fused_mlp_block.launches = 0
+
+
+def mlp_launch(x: torch.Tensor, p: Params, eps: float) -> torch.Tensor:
+    """``ivt::fused_mlp_block``'s CUDA body (``ops/custom_ops.py``) on
+    checked operands: the tensor-core routes through their wrappers, which
+    count them, else one FMA launch counted in
+    ``fused_mlp_block.launches``."""
     route = _mlp_route_of(x, p)
     if route != "fma":
         return _MLP_ROUTE_WRAPPERS[route](x, p, eps)
@@ -191,9 +209,6 @@ def fused_mlp_block(x: torch.Tensor, p: Params,
                            f"cudaError {err}")
     fused_mlp_block.launches += 1
     return y
-
-
-fused_mlp_block.launches = 0
 
 
 # -- fused_mlp_w8a8_block ----------------------------------------------------
@@ -338,15 +353,29 @@ def fused_mlp_w8a8_block(x: torch.Tensor, p: Params, eps: float = 1e-6,
         raise ValueError(f"fused_mlp_w8a8_block runs on cuda or cpu tensors, "
                          f"got {x.device}")
     _check_w8a8_operands(x, p)
+    if want_parts:
+        return w8a8_launch(x, p, eps, True)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.fused_mlp_w8a8_block(x, p, eps)
+
+
+fused_mlp_w8a8_block.launches = 0
+
+
+def w8a8_launch(x: torch.Tensor, p: Params, eps: float,
+                want_parts: bool = False):
+    """``ivt::fused_mlp_w8a8_block``'s CUDA body (``ops/custom_ops.py``) on
+    checked operands (and, with ``want_parts``, the wrapper's check of the
+    integer stages, which calls it directly): the tensor-core route
+    through its wrapper, which counts it, else one ``__dp4a`` launch
+    counted in ``fused_mlp_w8a8_block.launches``."""
     if _w8a8_route_of(x, p) == "mma":
         return fused_mlp_w8a8_block_mma(x, p, eps, want_parts)
     lib = _w8a8_lib()
     out = _launch_w8a8(lib.ivt_fused_mlp_w8a8_block, x, p, eps, want_parts)
     fused_mlp_w8a8_block.launches += 1
     return out
-
-
-fused_mlp_w8a8_block.launches = 0
 
 
 def _launch_w8a8(entry, x: torch.Tensor, p: Params, eps: float,

@@ -22,6 +22,11 @@ kernel, in three pieces, as every kernel of this package has:
   shared memory, which holds for window 7 (T=49) and window 12 (T=144) at
   dh=32. The tensor-core routes take a subset of it.
 
+A public wrapper reaches its kernels on a CUDA tensor through its
+``torch.library`` custom op (``ops/custom_ops.py``: the launch is the op's
+body, so ``torch.export`` records the op where fake tensors have no
+address to route by).
+
 The contract is the attention BRANCH: ``y`` is the LayerNorm'd (and, for
 shifted blocks, already rolled) map; the output is in the same rolled
 space; ``models/swin.py::block`` owns LN, roll and residual.
@@ -408,6 +413,19 @@ def fused_window_attn(
             y, p, heads, window, bias, mask, want_attn=want_attn,
             fast_softmax=fast_softmax)
     _check_operands(y, p, heads, window, bias, mask)
+    from interactive_vit_tpu_torch.ops import custom_ops
+
+    return custom_ops.fused_window_attn(y, p, heads, window, bias,
+                                        _mask_tensor(mask, y.device),
+                                        want_attn, fast_softmax)
+
+
+def window_launch(y: torch.Tensor, p: Params, heads: int, window: int,
+                  bias: torch.Tensor, mask, want_attn: bool,
+                  fast_softmax: bool):
+    """``ivt::fused_window_attn``'s CUDA body (``ops/custom_ops.py``) on
+    checked operands: one launch on the route ``window_route`` gives them,
+    counted in that route's wrapper; returns ``(a, probs | None)``."""
     route = _window_route_of(y, p, heads, window)
     out = _launch(route, y, p, heads, window, bias, mask, want_attn,
                   fast_softmax)

@@ -108,12 +108,21 @@ the JAX trainer's ``--export-safetensors`` file serves:
     python -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
         --ckpt vit_b16=vit_b_16.safetensors --ckpt-layout torchvision
 
-Multi-device serving is not ported yet, nor are the JAX server's flags
-for it (``--mesh``, ``--from-export``,
-``--export-selftest``), tap speculation and
-the warm inventory (``--speculate-buckets``, ``--no-speculate``,
-``--warm-inventory``, ``--warm-budget-s``), and its TPU-host flags
-(``--platform``, ``--jit-cache``, ``--recycle-*``).
+``--from-export DIR[,DIR]`` serves exported artifacts
+(``tools/export_graph.py``) instead of live models, through
+``serving/export_app.py``: no registry, no model code, no plugin, and the
+same endpoints; ``--export-selftest`` replays each artifact's seeded
+inputs against its recorded statistics first and refuses to boot on a
+failure. TF32 is off on this route too:
+
+    python -m interactive_vit_tpu_torch.serving.server \
+        --from-export /tmp/vit_b16_art --export-selftest --port 8965
+
+Multi-device serving is not ported yet, nor is the JAX server's flag for
+it (``--mesh``), tap speculation and the warm inventory
+(``--speculate-buckets``, ``--no-speculate``, ``--warm-inventory``,
+``--warm-budget-s``), and its TPU-host flags (``--platform``,
+``--jit-cache``, ``--recycle-*``).
 """
 
 from __future__ import annotations
@@ -370,8 +379,48 @@ def make_parser() -> argparse.ArgumentParser:
                         help="run each model's saved graph at batch 1 and "
                              "at --max-batch before serving (kernel builds "
                              "and allocator growth off the first request)")
+    parser.add_argument("--from-export", default="", metavar="DIR",
+                        help="serve exported artifact(s) (tools/"
+                             "export_graph.py output; comma-separated) "
+                             "instead of live models: no registry, no "
+                             "model code, no plugin code "
+                             "(serving/export_app.py)")
+    parser.add_argument("--export-selftest", action="store_true",
+                        help="with --from-export: verify each artifact "
+                             "(seeded replay against its recorded output "
+                             "statistics) before serving; refuse to boot "
+                             "on a failure")
     parser.add_argument("-v", "--verbose", action="store_true")
     return parser
+
+
+def build_export_app(dirs, frontend_dir=None, selftest: bool = False):
+    """The ``--from-export`` app over the artifact directories ``dirs``
+    (one: ``ExportApp``, more: ``MultiExportApp``), TF32 off. With
+    ``selftest`` each artifact's selftest runs first and a failure raises
+    ``SystemExit``: the server does not boot on a corrupt artifact."""
+    from interactive_vit_tpu_torch.serving.export_app import (
+        ExportApp, MultiExportApp,
+    )
+
+    exact_f32_matmuls()
+    dirs = [d for d in dirs if d]
+    if len(dirs) == 1:
+        xapp = ExportApp(dirs[0], frontend_dir=frontend_dir)
+    else:
+        xapp = MultiExportApp(dirs, frontend_dir=frontend_dir)
+    logger.info("artifact(s) %s loaded in %.2fs; serving with no model "
+                "code", xapp.artifact_dir, xapp.boot_load_s)
+    if selftest:
+        for u in getattr(xapp, "units", [xapp]):
+            res = u.art.selftest()
+            logger.info("selftest %s: ok=%s (%d outputs, worst rel=%.2e)",
+                        u.artifact_dir, res["ok"], res["checked"],
+                        res["worst"]["rel"])
+            if not res["ok"]:
+                raise SystemExit(f"artifact {u.artifact_dir} failed "
+                                 f"selftest: {res['worst']}")
+    return xapp
 
 
 def main(argv=None) -> None:
@@ -379,6 +428,10 @@ def main(argv=None) -> None:
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    if args.from_export:
+        build_export_app(args.from_export.split(","), args.frontend_dir,
+                         args.export_selftest).serve(args.host, args.port)
+        return
     models = [m for m in args.models.split(",") if m]
     app = build_app(
         models=models,

@@ -730,7 +730,9 @@ def test_each_launch_is_counted_once_in_its_routes_wrapper(monkeypatch,
 
     def launch(rt, x, p, heads, eps, int8_mode, **kw):
         calls.append((rt, int8_mode))
-        return (x,)
+        # the launch's result: y, probs | None, then mean and metric
+        return (torch.empty_like(x), None) + tuple(
+            torch.empty(0) for k in ("want_mean", "want_metric") if kw[k])
 
     monkeypatch.setattr(tfb, "_on_device", lambda x, name: True)
     monkeypatch.setattr(tfb, "_block_route_of", lambda x, p, heads: route)

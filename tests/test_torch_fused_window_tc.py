@@ -457,7 +457,7 @@ def test_each_launch_is_counted_once_in_its_routes_wrapper(monkeypatch,
 
     def launch(rt, y, p, heads, window, bias, mask, want_attn, fast):
         calls.append((rt, want_attn, fast))
-        return y, None
+        return torch.empty_like(y), None  # a launch's fresh output
 
     monkeypatch.setattr(fw, "_on_device", lambda y, name: True)
     monkeypatch.setattr(fw, "_window_route_of",

@@ -85,6 +85,11 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.utils.checkpoint",
     "interactive_vit_tpu_torch.utils.tracing",
     "interactive_vit_tpu_torch.tools.quant_agreement",
+    "interactive_vit_tpu_torch.ops.custom_ops",
+    "interactive_vit_tpu_torch.graph.export",
+    "interactive_vit_tpu_torch.serving.export_app",
+    "interactive_vit_tpu_torch.tools.export_graph",
+    "interactive_vit_tpu_torch.tools.run_exported",
     "chip_smoke",
 ]
 
