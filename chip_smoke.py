@@ -572,13 +572,37 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        sequential vit_b16 requests on each;
    (s) the vit_b16 artifact loaded and run in a fresh interpreter that
        imports no model code, its outputs bit for bit this process's.
+8e. the mesh (``phase_mesh``; ``parallel/mesh.py``, ``parallel/train.py``'s
+   ``setup_sharded``, ``parallel/sequence.py``):
+   (a) a one-rank NCCL group in this process (``make_mesh({"data": 1,
+       "model": 1})``): vit_b16 @224 mixed, B=64, three ``setup_sharded``
+       steps against three ``setup`` steps from the same seed, losses and
+       every param equal bit for bit; the sharded steps' launches counted
+       (every count set to 0 just before: 12 + 12 packed tensor-core
+       launches a step, every other kernel 0; added to the kernels line)
+       and one sharded step profiled (the three packed kernels 12 times
+       each by name); a sharded step through the plain attention launches
+       none of them (by count and by name);
+   (b) ``python -m torch.distributed.run --standalone --nproc-per-node 1
+       -m interactive_vit_tpu_torch.tools.train --mesh data=1`` (vit_t16
+       bf16 through row 8, B=64, 3 steps): its logged losses equal the
+       same run's in this process without torchrun; then
+       ``tools.evaluate --mesh data=1`` under torchrun on its checkpoint
+       equals ``evaluate.main`` here (n, top-1, top-5; that forward's
+       launches listed: none);
+   (c) ring and Ulysses attention on the one-rank mesh at
+       dinov2_s14_reg@518's attention shape (B=1, 6 heads, N=1374, dh 64,
+       f32) against the plain attention within 1e-5 (Ulysses' maps too);
+   (d) the tests' four-rank gloo dry run (``tools/dryrun_multichip``,
+       ``--device cpu``) on this machine's CPU, started beside (a)-(c),
+       its case lines printed.
 9. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5, 7, 8, 8b, 8c and 8d use random (seeded)
+It imports nothing of JAX. Phases 3-5, 7, 8, 8b, 8c, 8d and 8e use random (seeded)
 weights, so their logits are meaningless as classifications; what is checked is
 that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
@@ -8729,6 +8753,277 @@ def phase_export(device, counters) -> None:
 
 
 
+# -- phase 8e: the mesh ------------------------------------------------------------
+
+# (a)'s run: vit_b16 @224 mixed at phase 8b's batch, three steps
+MESH_STEPS = 3
+# (c)'s attention shape: dinov2_s14_reg@518's (B, heads, N, dh), f32
+SP_SHAPE = (1, 6, 1374, 64)
+SP_BOUND = 1e-5
+
+
+def _torchrun_start(nproc, module, argv, env=None):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    nproc -m module argv`` from the checkout, started (a ``Popen``)."""
+    run_env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""), **(env or {}))
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), "-m", module, *argv],
+        cwd=HERE, env=run_env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def _torchrun_wait(tag, proc, timeout=600):
+    """(stdout, stderr) of a ``_torchrun_start`` launch; raises on a
+    non-zero exit (the tail of its output in the message), and kills it
+    past ``timeout``."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: exit {proc.returncode}: "
+                             f"{(out + err)[-3000:]}")
+    return out, err
+
+
+def _torchrun(tag, nproc, module, argv, env=None, timeout=600):
+    """``_torchrun_start`` and ``_torchrun_wait``."""
+    return _torchrun_wait(tag, _torchrun_start(nproc, module, argv, env),
+                          timeout)
+
+
+def mesh_steps(device, counters, tmp) -> dict:
+    """(a) and (c) on a one-rank NCCL group; returns the main-path
+    launches of (a)'s sharded steps."""
+    import torch
+    import torch.distributed as dist
+
+    from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.ops.attention import attention_reference
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
+    from interactive_vit_tpu_torch.parallel import train as train_lib
+    from interactive_vit_tpu_torch.parallel.sequence import (
+        ring_attention, ulysses_attention,
+    )
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'rdzv')}", rank=0,
+        world_size=1, device_id=device)
+    try:
+        mesh = mesh_lib.make_mesh({"data": 1, "model": 1})
+        if mesh_lib.mesh_shape(mesh) != {"data": 1, "model": 1}:
+            raise AssertionError(f"mesh {mesh_lib.mesh_shape(mesh)}")
+        cfg = vit.VARIANTS["vit_b16"]
+        b = TRAIN_BATCH
+        g = torch.Generator().manual_seed(5)
+        batches = [(torch.randn((b, 3, 224, 224), generator=g).to(device),
+                    torch.randint(0, cfg.num_classes, (b,),
+                                  generator=g).to(device))
+                   for _ in range(MESH_STEPS)]
+        kw = dict(seed=1, attn_impl="auto", remat=False,
+                  compute_dtype=torch.bfloat16)
+        rows = mesh_lib.batch_sharding(mesh)
+
+        def run(setup_fn, *args, **extra):
+            params, state, step, _ = setup_fn(cfg, *args, **kw, **extra)
+            losses = []
+            for images, labels in batches:
+                params, state, loss = step(params, state, rows(images),
+                                           rows(labels))
+                losses.append(loss)
+            torch.cuda.synchronize()
+            return params, losses
+
+        ref_params, ref_losses = run(train_lib.setup, device=device)
+        for fn in counters.values():  # the mesh path starts here
+            fn.launches = 0
+        params, losses = run(train_lib.setup_sharded, mesh)
+        counts = {k: (fn.pair if isinstance(fn, FwdBwdCount)
+                      else fn.launches) for k, fn in counters.items()}
+        want = {k: (0, 0) if isinstance(fn, FwdBwdCount) else 0
+                for k, fn in counters.items()}
+        want["attention_train_packed_mma"] = (12 * MESH_STEPS,
+                                              12 * MESH_STEPS)
+        if counts != want:
+            raise AssertionError(f"mesh steps: launches {counts}, expected "
+                                 f"{want}")
+        same_loss = all(torch.equal(a, b) for a, b in zip(losses,
+                                                          ref_losses))
+        diff = [path for (path, a), c in zip(
+            train_lib.tree_leaves_with_path(params),
+            train_lib.tree_leaves(ref_params)) if not torch.equal(a, c)]
+        if not same_loss or diff:
+            raise AssertionError(
+                f"mesh steps: losses {[x.item() for x in losses]} vs "
+                f"{[x.item() for x in ref_losses]}; params not bit-equal: "
+                f"{diff[:5]}")
+        log(f"  (a) vit_b16 @224 mixed, B={b}, one-rank NCCL mesh "
+            f"data=1,model=1: {MESH_STEPS} setup_sharded steps equal "
+            f"{MESH_STEPS} setup steps bit for bit (losses "
+            + " ".join(f"{x.item():.6f}" for x in losses)
+            + f", every param); packed tensor-core launches "
+            f"{counts['attention_train_packed_mma']} (12 + 12 a step), "
+            f"every other kernel 0")
+
+        def profile_step(attn, tag, expect):
+            p, st, step, _ = train_lib.setup_sharded(
+                cfg, mesh, seed=1, attn_impl=attn, remat=False,
+                compute_dtype=torch.bfloat16)
+            images, labels = batches[0]
+            for _ in range(2):
+                p, st, _ = step(p, st, images, labels)
+
+            def one():
+                nonlocal p, st
+                p, st, loss = step(p, st, images, labels)
+                float(loss)
+
+            return profiled(lambda: synchronized_ms(one), tag, expect)
+
+        profile_step("auto", "mesh vit_b16 mixed, kernels: one sharded step",
+                     TRAIN_MMA_PROFILE)
+        for fn in counters.values():
+            fn.launches = 0
+        profile_step("reference", "mesh vit_b16 mixed, plain attention: one "
+                     "sharded step", {k: 0 for k in TRAIN_MMA_PROFILE})
+        plain = {k: fn.launches for k, fn in counters.items()
+                 if fn.launches}
+        if plain:
+            raise AssertionError(f"mesh plain-attention steps launched "
+                                 f"{plain}")
+        log("  (a) the sharded step through the plain attention launched no "
+            "kernel of the port (by count and by name)")
+        mesh_launches = {"attention_train_packed_mma": sum(
+            counts["attention_train_packed_mma"])}
+
+        # (c) ring and Ulysses against the plain attention
+        gq = torch.Generator().manual_seed(9)
+        q, k, v = (torch.randn(SP_SHAPE, generator=gq).to(device)
+                   for _ in range(3))
+        ref = attention_reference(q, k, v, True)
+        for tag, fn in (("ring", lambda: (ring_attention(
+                q, k, v, mesh, axis="data"), None)),
+                        ("ulysses", lambda: ulysses_attention(
+                            q, k, v, mesh, axis="data", want_attn=True))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, probs = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            err = (out - ref[0]).abs().max().item()
+            perr = 0.0 if probs is None else (
+                probs - ref[1]).abs().max().item()
+            if not (err <= SP_BOUND and perr <= SP_BOUND):
+                raise AssertionError(f"(c) {tag}: max abs err {err}, probs "
+                                     f"{perr} (bound {SP_BOUND})")
+            log(f"  (c) {tag} attention on the one-rank mesh at "
+                f"dinov2_s14_reg@518's shape {SP_SHAPE} f32: max abs err "
+                f"{err:.3g}" + ("" if probs is None else
+                                f", probs {perr:.3g}")
+                + f" (bound {SP_BOUND:g}); first call {ms:.1f} ms "
+                f"(synchronized wall, {CARD['smi']})")
+        return mesh_launches
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_cli(device, counters, tmp) -> None:
+    """(b): the trainer under torchrun with --mesh data=1 against the same
+    run in this process without torchrun (the logged losses equal), then
+    ivt-eval --mesh data=1 on the mesh run's checkpoint against
+    ``evaluate.main`` in this process (the metrics equal; its launches
+    counted here)."""
+    import re
+
+    from interactive_vit_tpu_torch.tools import evaluate
+    from interactive_vit_tpu_torch.tools import train as train_tool
+
+    argv = ["--variant", "vit_t16", "--dtype", "bfloat16", "--batch",
+            str(TRAIN_BATCH), "--steps", "3", "--memorize", "64",
+            "--log-every", "1"]
+    out_dir = os.path.join(tmp, "mesh_ckpt")
+    t0 = time.perf_counter()
+    _, err = _torchrun("(b) torchrun train", 1,
+                       "interactive_vit_tpu_torch.tools.train",
+                       [*argv, "--mesh", "data=1", "--output", out_dir])
+    t_run = time.perf_counter() - t0
+    logged = re.findall(r"step\s+\d+\s+loss\s+([-\d.]+)", err)
+    res = train_tool.main(argv)
+    local = [f"{x:.6f}" for _, x, _ in res["history"]]
+    if logged != local:
+        raise AssertionError(f"(b) torchrun --mesh data=1 losses {logged} "
+                             f"vs one process {local}")
+    log(f"  (b) torchrun --nproc-per-node 1 tools.train --mesh data=1 "
+        f"(vit_t16 bf16 through row 8, B={TRAIN_BATCH}, 3 steps): logged "
+        f"losses "
+        f"{' '.join(logged)} equal the run without torchrun; "
+        f"{t_run:.1f} s with the launch and the checkpoint")
+    ev = ["--variant", "vit_t16", "--ckpt", os.path.join(out_dir, "params"),
+          "--memorize", "64", "--batch", "32", "--dtype", "bfloat16"]
+    stdout, _ = _torchrun("(b) torchrun ivt-eval", 1,
+                          "interactive_vit_tpu_torch.tools.evaluate",
+                          [*ev, "--mesh", "data=1"])
+    got = [json.loads(x) for x in stdout.splitlines() if x.startswith("{")]
+    for fn in counters.values():
+        fn.launches = 0
+    want = evaluate.main(ev)
+    ran = {k: fn.launches for k, fn in counters.items() if fn.launches}
+    if len(got) != 1 or any(got[0][k] != want[k]
+                            for k in ("n", "top1", "top5")):
+        raise AssertionError(f"(b) ivt-eval --mesh data=1 {got} vs {want}")
+    log(f"  (b) ivt-eval --mesh data=1 on that checkpoint: n {want['n']}, "
+        f"top-1 {want['top1']}, top-5 {want['top5']}, equal to the run "
+        f"without torchrun; its forward is the plain vit.forward: "
+        f"launches of the port's kernels {ran or 'none'}")
+
+
+def mesh_dryrun(proc, t0) -> None:
+    """(d): the four-rank gloo dry run on this machine's CPU (``proc``,
+    started at ``t0`` beside (a)-(c)); its case lines printed."""
+    stdout, _ = _torchrun_wait("(d) gloo dry run", proc)
+    lines = [x for x in stdout.splitlines() if x.startswith("dryrun")]
+    if not lines or not lines[-1].startswith("dryrun_multichip ok"):
+        raise AssertionError(f"(d) dry run: {stdout[-2000:]}")
+    for line in lines:
+        log(f"  (d) {line}")
+    log(f"  (d) the four-rank gloo dry run took "
+        f"{time.perf_counter() - t0:.1f} s, beside (a)-(c)")
+
+
+def phase_mesh(device, counters) -> dict:
+    """Phase 8e: runs (a)-(d) (the module docstring); returns the
+    main-path launches of (a) to add to the kernels line."""
+    import torch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_mesh_")
+    # (d) runs on the CPU beside the card's (a)-(c)
+    dry = _torchrun_start(4, "interactive_vit_tpu_torch.tools."
+                          "dryrun_multichip", ["--device", "cpu"],
+                          env={"OMP_NUM_THREADS": "1"})
+    try:
+        t0 = time.perf_counter()
+        launches = mesh_steps(device, counters, tmp)
+        log(f"  (a) and (c) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_cli(device, counters, tmp)
+        log(f"  (b) took {time.perf_counter() - t0:.1f} s")
+        mesh_dryrun(dry, t_phase)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  phase 8e took {time.perf_counter() - t_phase:.1f} s "
+        f"({CARD['smi']})")
+    return launches
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "interactive_vit_tpu_torch")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the "
@@ -9179,6 +9474,12 @@ def main() -> int:
     # graph for each forward row, serving from an artifact
     log(f"phase 8d graph export (at {time.perf_counter() - t_start:.1f} s):")
     phase_export(device, counters)
+
+    # 8e. the mesh: sharded steps on a one-rank NCCL group, the trainer
+    # and ivt-eval under torchrun, ring / Ulysses, the gloo dry run
+    log(f"phase 8e the mesh (at {time.perf_counter() - t_start:.1f} s):")
+    for k, n in phase_mesh(device, counters).items():
+        numbers[k]["launches"] += n
 
     # 9. result
     log(f"phase 9 result: all phases passed in "

@@ -301,12 +301,15 @@ def augment(key, images: torch.Tensor, labels: torch.Tensor,
 
 
 def make_augment_fn(cfg: AugmentConfig, num_classes: int, seed: int = 0,
-                    device=None):
+                    device=None, batch_sharding=None):
     """``(step, images, labels) -> (images, labels)`` on ``device`` (where
     given, the batch is moved there first), keyed by ``fold_in(key(seed +
     0x5EED), step)``: deterministic per (seed, step), so a resumed run
     replays the stream. None when ``cfg`` is all off, so callers skip the
-    stage."""
+    stage. ``batch_sharding``: a data-parallel rank's ``rows(x)``
+    (``parallel/mesh.batch_sharding``): the draws are made for the global
+    batch it is given (mixup's partners included) and the rank's rows of
+    the result returned, so every row is the one-device run's."""
     if not cfg.enabled:
         return None
     base = rng.prng_key(seed + 0x5EED)
@@ -314,7 +317,10 @@ def make_augment_fn(cfg: AugmentConfig, num_classes: int, seed: int = 0,
     def fn(step: int, images: torch.Tensor, labels: torch.Tensor):
         if device is not None:
             images, labels = images.to(device), labels.to(device)
-        return augment(rng.fold_in(base, step), images, labels,
-                       num_classes, cfg)
+        images, labels = augment(rng.fold_in(base, step), images, labels,
+                                 num_classes, cfg)
+        if batch_sharding is not None:
+            images, labels = batch_sharding(images), batch_sharding(labels)
+        return images, labels
 
     return fn

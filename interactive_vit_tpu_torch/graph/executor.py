@@ -112,9 +112,11 @@ that every row is what its own ``run`` gives. ``run_eager`` and
 values computed before it (``_eager_grad``), and refuse one nested in
 another's cone.
 
-Not ported yet: layouts, pipeline folding and meshes. The JAX executor's
-content-addressed device input cache is not ported (it hides a slow remote
-transfer that a local card does not have).
+Not ported yet: layouts, and of the mesh (``parallel/mesh.py``, which the
+trainers use) only the executor's mesh mode and its pipeline folding are
+still to come. The JAX executor's content-addressed device input cache is
+not ported (it hides a slow remote transfer that a local card does not
+have).
 """
 
 from __future__ import annotations

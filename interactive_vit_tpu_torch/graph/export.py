@@ -36,7 +36,7 @@ Artifact layout (a directory):
 On a card, ``ExportedGraph`` captures the loaded program into a CUDA graph
 at its first call (static input, capture and output buffers) and replays
 it after, the counterpart of the JAX loader's ``jax.jit`` of the exported
-call. Not ported: mesh-sharded programs (``ROADMAP.md`` queue 1 item 6)
+call. Not ported: mesh-sharded programs (``ROADMAP.md`` queue 1 item 7)
 and the JAX loader's content-addressed input cache. An artifact of the JAX
 package (``program.stablehlo``) is refused by name.
 """
@@ -60,7 +60,7 @@ CAPS_FILE = "captures.safetensors"
 MANIFEST_FILE = "manifest.json"
 JAX_PROGRAM_FILE = "program.stablehlo"
 MESH_NOT_PORTED = ("mesh-sharded export is not ported yet (ROADMAP.md "
-                   "queue 1 item 6)")
+                   "queue 1 item 7)")
 
 
 class ExportError(Exception):

@@ -184,11 +184,15 @@ def random_masking(seed, batch: int, length: int, len_keep: int,
     bit: ``seed`` a 0-d int64 tensor in [0, 2^32) on the device (the key
     ``jax.random.key(seed)``), or a threefry key (k0, k1) whose noise is
     made on ``device``."""
+    return masking_from_noise(mask_noise(seed, batch, length, device),
+                              len_keep)
+
+
+def mask_noise(seed, batch: int, length: int, device=None) -> torch.Tensor:
+    """The per-patch noise [batch, length] of ``random_masking``."""
     if isinstance(seed, tuple):
-        noise = uniform_key_bits(seed, [batch, length], device)
-    else:
-        noise = uniform_bits(seed, [batch, length])
-    return masking_from_noise(noise, len_keep)
+        return uniform_key_bits(seed, [batch, length], device)
+    return uniform_bits(seed, [batch, length])
 
 
 def _gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -269,19 +273,26 @@ def _act_dtype(params: Params) -> torch.dtype:
 
 def forward_pretrain(params: Params, images: torch.Tensor, cfg: MAEConfig,
                      seed, mask_ratio: Optional[float] = None,
-                     block_wrapper=None) -> Dict[str, torch.Tensor]:
+                     block_wrapper=None,
+                     rows: Optional[Tuple[int, int]] = None
+                     ) -> Dict[str, torch.Tensor]:
     """One masked-reconstruction pass: {"loss" (f32, the squared error over
     the masked patches), "pred" [B, L, p*p*C], "mask" [B, L]}, the mask
     drawn from ``seed`` (``random_masking``'s: a seed tensor or a threefry
-    key). ``block_wrapper``: the training hook of both trunks."""
+    key). ``block_wrapper``: the training hook of both trunks. ``rows``:
+    (first row, global batch) of a data-parallel rank's share: the noise is
+    drawn for the global batch and the rank's rows of it kept, so each
+    image is masked as in the one-device run."""
     keep = cfg.len_keep(mask_ratio)
     if keep >= cfg.num_patches:
         raise ValueError(
             f"mask_ratio leaves no masked patches to reconstruct "
             f"(len_keep {keep} of {cfg.num_patches})")
     images = images.to(_act_dtype(params))
-    ids_keep, mask, ids_restore = random_masking(
-        seed, images.shape[0], cfg.num_patches, keep, images.device)
+    b = images.shape[0]
+    lo, total = (0, b) if rows is None else rows
+    noise = mask_noise(seed, total, cfg.num_patches, images.device)
+    ids_keep, mask, ids_restore = masking_from_noise(noise[lo:lo + b], keep)
     z = encode(params, images, cfg, ids_keep, block_wrapper)
     pred = decode(params, z, ids_restore, cfg, block_wrapper)
     target, _, _ = patch_targets(images, cfg)

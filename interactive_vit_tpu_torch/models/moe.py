@@ -122,7 +122,20 @@ def route(x: torch.Tensor, router_w: torch.Tensor, cfg: MoEViTConfig):
     return dispatch, combine, gates
 
 
-def moe_mlp(x: torch.Tensor, p: Params, cfg: MoEViTConfig
+def _combine(combine: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``einsum("bnec,becd->bnd")``: each token's expert output weighted
+    by its gate. Under expert parallelism (``out`` a DTensor sharded on
+    e) the product runs experts first and the experts' slices are summed
+    after: the einsum would flatten (c, e) with the shard on e, a view
+    some torch versions' DTensor refuses."""
+    if getattr(out, "placements", None) is None:
+        return torch.einsum("bnec,becd->bnd", combine, out)
+    return torch.matmul(combine.permute(2, 0, 1, 3),
+                        out.transpose(0, 1)).sum(dim=0)
+
+
+def moe_mlp(x: torch.Tensor, p: Params, cfg: MoEViTConfig,
+            aux_reduce=None
             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Routed MLP branch on [B, N, D] (the LN'ed input, no residual).
 
@@ -131,7 +144,15 @@ def moe_mlp(x: torch.Tensor, p: Params, cfg: MoEViTConfig
     sum in f32, the JAX einsums' ``preferred_element_type``); the expert
     hidden layer is cast to x's dtype before the GELU, as there. ``aux``
     is the Switch load-balance term E * sum_e f_e P_e, f_e the raw routed
-    fraction (before capacity drops)."""
+    fraction (before capacity drops). Both are batch means, so on a data
+    mesh ``aux_reduce`` (``parallel/mesh.mean_over`` on "data") averages
+    f_e and P_e over the ranks before the product: the mean of per-rank
+    products is not the term of the whole batch.
+
+    Under expert parallelism the expert leaves are DTensors sharded on
+    their first dim over "model": the routing runs on every rank, each
+    rank's expert products cover its experts' slice of the per-image
+    dispatch (capacity stays per image), and the combine sums the slices."""
     dispatch, combine, gates = route(x, p["router_w"], cfg)
     expert_in = torch.einsum("bnec,bnd->becd", dispatch,
                              x.float()).to(x.dtype)
@@ -141,10 +162,12 @@ def moe_mlp(x: torch.Tensor, p: Params, cfg: MoEViTConfig
     h = L.gelu(h.to(x.dtype))
     out = (torch.einsum("becm,emd->becd", h.float(), p["exp_fc2_w"].float())
            + p["exp_fc2_b"].float()[None, :, None, :])
-    y = torch.einsum("bnec,becd->bnd", combine, out).to(x.dtype)
+    y = _combine(combine, out).to(x.dtype)
     assign = _one_hot(torch.argmax(gates, dim=-1), cfg.n_experts)
     frac = assign.mean(dim=(0, 1))
     prob = gates.mean(dim=(0, 1))
+    if aux_reduce is not None:
+        frac, prob = aux_reduce(frac), aux_reduce(prob)
     aux = cfg.n_experts * (frac * prob).sum()
     return y, gates, aux
 
@@ -182,10 +205,10 @@ def moe_mlp_reference(x: torch.Tensor, p: Params,
 
 def block(p: Params, x: torch.Tensor, cfg: MoEViTConfig, i: int,
           want_attn: bool = False, want_mean: bool = False, attn_impl=None,
-          qkv_head_major: bool = False):
+          qkv_head_major: bool = False, aux_reduce=None):
     """Pre-LN block on the unfused attention path; returns ``(y, probs,
     mean, moe_out)`` with ``moe_out`` = (gates, aux) for an MoE block, else
-    None."""
+    None. ``aux_reduce``: see ``moe_mlp``."""
     h, probs = attn_ops.mhsa(
         L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps), p, cfg.heads,
         want_attn=want_attn or want_mean, attn_impl=attn_impl,
@@ -198,7 +221,7 @@ def block(p: Params, x: torch.Tensor, cfg: MoEViTConfig, i: int,
         probs = None
     h = L.layer_norm(x, p["ln2_s"], p["ln2_b"], cfg.ln_eps)
     if cfg.is_moe(i):
-        y, gates, aux = moe_mlp(h, p, cfg)
+        y, gates, aux = moe_mlp(h, p, cfg, aux_reduce)
         return x + y, probs, pmean, (gates, aux)
     return x + L.mlp(h, p), probs, pmean, None
 
@@ -206,14 +229,15 @@ def block(p: Params, x: torch.Tensor, cfg: MoEViTConfig, i: int,
 def forward(params: Params, images: torch.Tensor, cfg: MoEViTConfig,
             want_attn: bool = False, want_aux: bool = False,
             attn_impl=None, block_wrapper=None,
-            qkv_head_major: bool = False) -> Dict[str, Any]:
+            qkv_head_major: bool = False, aux_reduce=None) -> Dict[str, Any]:
     """The monolithic forward: {"logits"} plus "attn" (a tuple of per-block
     maps) with ``want_attn`` and "aux" (the load-balance term averaged over
     the MoE blocks) with ``want_aux``. ``qkv_head_major``: the qkv columns
     are ``[H][3][dh]`` (``parallel/mesh.permute_qkv_head_major``).
     ``block_wrapper``: the training hook (``vit.forward``'s contract): each
     block runs as one ``(p, x) -> (y, aux)`` unit wrapped by it, aux 0 for
-    a dense block; taps do not compose with it."""
+    a dense block; taps do not compose with it. ``aux_reduce``: see
+    ``moe_mlp``."""
     if block_wrapper is not None and want_attn:
         raise ValueError("block_wrapper requires taps off")
     x = vit.embed(params, images, cfg)
@@ -222,7 +246,8 @@ def forward(params: Params, images: torch.Tensor, cfg: MoEViTConfig,
         if block_wrapper is not None:
             def one(p, x, i=i):
                 y, _, _, moe_out = block(p, x, cfg, i, attn_impl=attn_impl,
-                                         qkv_head_major=qkv_head_major)
+                                         qkv_head_major=qkv_head_major,
+                                         aux_reduce=aux_reduce)
                 return y, (moe_out[1] if moe_out is not None
                            else x.new_zeros((), dtype=torch.float32))
 
@@ -232,7 +257,8 @@ def forward(params: Params, images: torch.Tensor, cfg: MoEViTConfig,
         x, probs, _, moe_out = block(params["blocks"][i], x, cfg, i,
                                      want_attn=want_attn,
                                      attn_impl=attn_impl,
-                                     qkv_head_major=qkv_head_major)
+                                     qkv_head_major=qkv_head_major,
+                                     aux_reduce=aux_reduce)
         if want_attn:
             attns.append(probs)
         if moe_out is not None:

@@ -151,6 +151,21 @@ def gather_bias(p: Params, bias_idx, t: int, heads: int) -> torch.Tensor:
     return bias.reshape(t, t, heads).permute(2, 0, 1)
 
 
+def _roll(x: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll`` of a [B, H, W, C] map by ``shift`` on H and W. A
+    DTensor (a mesh's model axis; the map is replicated there) rolls its
+    local tensor: some torch versions' DTensor has no rule for roll."""
+    if getattr(x, "placements", None) is None:
+        return torch.roll(x, (shift, shift), dims=(1, 2))
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = x.device_mesh
+    x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return DTensor.from_local(torch.roll(x.to_local(), (shift, shift),
+                                         dims=(1, 2)),
+                              mesh, x.placements, run_check=False)
+
+
 def window_attention(
     p: Params,
     xw: torch.Tensor,
@@ -169,7 +184,7 @@ def window_attention(
     b, nw, t, c = xw.shape
     dh = c // heads
     qkv = L.linear(xw, p["qkv_w"], p["qkv_b"])  # [B, nW, T, 3C]
-    qkv = qkv.reshape(b, nw, t, 3, heads, dh)
+    qkv = L.split_last(qkv, 3, heads, dh)
     q, k, v = (qkv[:, :, :, i].transpose(2, 3) for i in range(3))
     # the scale is rounded to the activation dtype first, as jnp.asarray
     # does; a host 0-d tensor is a scalar argument, no upload per pass
@@ -181,7 +196,7 @@ def window_attention(
         scores = scores + mask[None, :, None]
     probs = torch.softmax(scores, dim=-1).to(xw.dtype)
     out = torch.matmul(probs.float(), v.float()).to(xw.dtype)
-    out = out.transpose(2, 3).reshape(b, nw, t, c)
+    out = L.merge_last(out.transpose(2, 3), 2)
     out = L.linear(out, p["proj_w"], p["proj_b"])
     return out, (probs if want_attn else None)
 
@@ -219,7 +234,7 @@ def block(
             f"feature map {res} not divisible by window {cfg.window}")
     y = L.layer_norm(x, p["ln1_s"], p["ln1_b"], cfg.ln_eps)
     if shift:
-        y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+        y = _roll(y, -shift)
     mask = _mask_on(res, cfg.window, shift, x.device)
     bias_idx = _bias_index(cfg.window, x.device)
     if window_impl is not None:
@@ -233,7 +248,7 @@ def block(
                                      mask, want_attn=want_attn)
         a = window_merge(aw, cfg.window, res, res)
     if shift:
-        a = torch.roll(a, (shift, shift), dims=(1, 2))
+        a = _roll(a, shift)
     x = x + a
     if mlp_impl is not None:
         # the MLP branch is row-local: the map flattens to the [B, N, C]

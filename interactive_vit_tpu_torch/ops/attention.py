@@ -11,7 +11,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from interactive_vit_tpu_torch.ops.layers import linear
+from interactive_vit_tpu_torch.ops.layers import (
+    linear, merge_last, split_last,
+)
 
 Params = Dict[str, torch.Tensor]
 
@@ -26,10 +28,20 @@ def qkv_proj(x: torch.Tensor, p: Params, heads: int, head_major: bool = False
     dh = d // heads
     qkv = linear(x, p["qkv_w"], p["qkv_b"])
     if head_major:
-        qkv = qkv.reshape(b, n, heads, 3, dh)
+        qkv = split_last(qkv, heads, 3, dh)
         return tuple(qkv[:, :, :, i].transpose(1, 2) for i in range(3))
-    qkv = qkv.reshape(b, n, 3, heads, dh)
+    qkv = split_last(qkv, 3, heads, dh)
     return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+def _matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` on [B, H, ...]. A DTensor (heads sharded over a mesh's
+    model axis) multiplies heads first: the batched product flattens its
+    two leading dims, and a flatten whose shard is on the second dim is a
+    view some torch versions' DTensor refuses."""
+    if getattr(a, "placements", None) is None:
+        return torch.matmul(a, b)
+    return torch.matmul(a.transpose(0, 1), b.transpose(0, 1)).transpose(0, 1)
 
 
 def attention_reference(
@@ -53,7 +65,7 @@ def attention_reference(
     dh = q.shape[-1]
     # a host 0-d tensor: a scalar argument, no upload per pass
     scale = 1.0 / torch.sqrt(torch.tensor(float(dh), dtype=torch.float32))
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = _matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if key_bias is not None:
         logits = logits + key_bias.float()[:, None, None, :]
     neg = -0.7 * torch.finfo(torch.float32).max
@@ -68,7 +80,7 @@ def attention_reference(
         logits = torch.where(col < n_real, logits,
                              torch.full_like(logits, neg))
     probs = torch.softmax(logits, dim=-1)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
+    out = _matmul(probs.to(v.dtype).float(), v.float()).to(v.dtype)
     return out, (probs if want_attn else None)
 
 
@@ -99,7 +111,7 @@ def mhsa(
     q, k, v = qkv_proj(x, p, heads, head_major=head_major)
     impl = attn_impl or attention_reference
     out, probs = impl(q, k, v, want_attn, n_real=n_real)
-    out = out.transpose(1, 2).reshape(b, n, d)
+    out = merge_last(out.transpose(1, 2), 2)
     return linear(out, p["proj_w"], p["proj_b"]), probs
 
 

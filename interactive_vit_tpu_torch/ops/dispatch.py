@@ -210,11 +210,22 @@ def default_mlp_impl(name: str = "auto", dtype=None, d: int = 0,
 
 
 def default_train_attn_impl(name: str = "auto", dtype=None, cfg=None,
-                            device=None):
+                            device=None, n_devices: int = 1,
+                            model_axis: int = 1):
     """Resolve the attention of a train step to a callable (the
     ``attention.mhsa`` contract, with ``.packed`` / ``.packed_ok``) or
     None. ``cfg``: the model config, when known; ``device``: where the
-    step runs."""
+    step runs (a rank's device on a mesh).
+
+    The mesh rule: "auto" gives the kernels by dtype, device and shape
+    whatever the number of devices (``n_devices``), except where the
+    mesh's model axis is above 1 (``model_axis``): there the weights are
+    DTensors, which the kernels do not take, so it gives the plain
+    attention, and an explicit "flash_vjp" raises. Where the model axis is
+    1 every rank holds whole weights as plain tensors and its step is the
+    one-device step on its rows. (The JAX function keeps Pallas off any
+    mesh of more than one device because GSPMD cannot partition a Pallas
+    call; per-rank code has no such limit.)"""
     if cfg is not None:
         from interactive_vit_tpu_torch.models import swin
 
@@ -231,11 +242,17 @@ def default_train_attn_impl(name: str = "auto", dtype=None, cfg=None,
     )
 
     if name == "flash_vjp":
+        if model_axis > 1:
+            raise ValueError(
+                f"the flash_vjp train kernels take no DTensor: a mesh with "
+                f"model={model_axis} trains the plain attention (--attn "
+                f"auto or reference)")
         return trainable_flash_mhsa
     if name == "auto":
         dev: Optional[torch.device] = (torch.device(device)
                                        if device is not None else None)
-        if dev is not None and dev.type == "cuda" and dtype in _DTYPES:
+        if (model_axis == 1 and dev is not None and dev.type == "cuda"
+                and dtype in _DTYPES):
             return trainable_flash_mhsa
         return None
     raise ValueError(f"unknown train attention impl {name!r}")

@@ -11,6 +11,8 @@ tree-map): activations are ``[B, N, D]``; linear weights are
 
 from __future__ import annotations
 
+import math
+
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -33,6 +35,37 @@ def index_on(values: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     that a caller under autograd can use the cached tensor too."""
     with torch.inference_mode(False):
         return torch.tensor(values, dtype=torch.long, device=device)
+
+
+def split_last(x: torch.Tensor, *dims: int) -> torch.Tensor:
+    """The last dim of ``x`` reshaped into ``dims`` (the heads' split of a
+    fused qkv activation). A DTensor sharded on that dim (a mesh's model
+    axis, ``parallel/mesh.py``) whose shard would not fall evenly on
+    ``dims[0]`` is gathered first: where GSPMD reshards at the reshape in
+    the JAX package (Swin's and a teacher's flat qkv columns)."""
+    placements = getattr(x, "placements", None)
+    if placements is not None:
+        mesh, last = x.device_mesh, x.ndim - 1
+        if any(getattr(pl, "dim", None) == last and dims[0] % mesh.size(i)
+               for i, pl in enumerate(placements)):
+            from torch.distributed.tensor import Replicate
+
+            x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    return x.reshape(*x.shape[:-1], *dims)
+
+
+def merge_last(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The last ``n`` dims of ``x`` merged into one (the heads' merge of an
+    attention output). A DTensor result is pinned to its placements with
+    a redistribute, whose backward hands the gradient back so placed: a
+    product's backward may otherwise give a gradient sharded where the
+    merge's backward view cannot split it (heads that do not divide the
+    model axis)."""
+    x = x.reshape(*x.shape[:-n], math.prod(x.shape[-n:]))
+    placements = getattr(x, "placements", None)
+    if placements is not None:
+        x = x.redistribute(x.device_mesh, placements)
+    return x
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

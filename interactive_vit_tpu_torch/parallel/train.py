@@ -7,12 +7,20 @@ AdamW chain written out on the parameter dict), per-block
 rematerialisation, mixed precision, gradient accumulation, ``setup`` (the
 one-device counterpart of ``setup_sharded``), the distillation step and
 ``setup_distill`` (``setup_sharded_distill``), the MAE step and
-``setup_mae`` (``setup_sharded_mae``). The parameter trees are the JAX
-package's (dicts and lists of tensors), so the paths that pick weight decay
-and layer-wise LR decay are the same strings (``"['blocks'][3]['qkv_w']"``).
-PyTorch runs eagerly, so a train step is a plain function; it is functional
-like the JAX one (new params and state come back, nothing is updated in
-place). The device mesh is not ported.
+``setup_mae`` (``setup_sharded_mae``), and their counterparts on a device
+mesh (``parallel/mesh.py``): ``setup_sharded``, ``setup_sharded_distill``
+and ``setup_sharded_mae``. The parameter trees are the JAX package's (dicts
+and lists of tensors), so the paths that pick weight decay and layer-wise
+LR decay are the same strings (``"['blocks'][3]['qkv_w']"``). PyTorch runs
+eagerly, so a train step is a plain function; it is functional like the
+JAX one (new params and state come back, nothing is updated in place).
+
+On a mesh each rank runs the step on its rows of the global batch
+(``mesh.batch_sharding``); the loss and the gradients are averaged over
+"data" before the update, which every data rank then applies alike, so the
+replicas stay equal. Where the model axis is above 1 the params are
+DTensors (``mesh.shard_params``) and the step runs under DTensor's
+implicit replication, so the family forwards run unchanged on them.
 """
 
 from __future__ import annotations
@@ -200,7 +208,9 @@ class AdamW:
 
     def init(self, params) -> Dict[str, Any]:
         def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            # zeros_like: a DTensor leaf gets a DTensor moment of its shards
+            return torch.zeros_like(p, dtype=torch.float32,
+                                    memory_format=torch.contiguous_format)
 
         return {"count": 0,
                 "mu": tree_map_with_path(lambda _, p: zeros(p), params),
@@ -353,11 +363,12 @@ def _logits(out) -> torch.Tensor:
 
 
 def _family_logits(cfg, params, images, attn_impl=None, block_wrapper=None,
-                   qkv_head_major: bool = False, want_aux: bool = False):
+                   qkv_head_major: bool = False, want_aux: bool = False,
+                   aux_reduce=None):
     """(logits, aux) of ``cfg``'s family's forward: the one place that
     knows which knobs a family takes (swin and convnext only
     ``block_wrapper``). ``aux``: MoE's load-balance term with ``want_aux``,
-    else None."""
+    else None; ``aux_reduce``: ``moe.moe_mlp``'s."""
     fam = model_family(cfg)
     if _plain_forward_family(fam):
         out = fam.forward(params, images, cfg, block_wrapper=block_wrapper)
@@ -365,7 +376,8 @@ def _family_logits(cfg, params, images, attn_impl=None, block_wrapper=None,
     kw = dict(attn_impl=attn_impl, block_wrapper=block_wrapper,
               qkv_head_major=qkv_head_major)
     if fam is moe and want_aux:
-        out = moe.forward(params, images, cfg, want_aux=True, **kw)
+        out = moe.forward(params, images, cfg, want_aux=True,
+                          aux_reduce=aux_reduce, **kw)
         return out["logits"], out["aux"]
     return fam.forward(params, images, cfg, **kw)["logits"], None
 
@@ -373,25 +385,28 @@ def _family_logits(cfg, params, images, attn_impl=None, block_wrapper=None,
 def loss_fn(params: Params, images: torch.Tensor, labels: torch.Tensor,
             cfg, attn_impl=None, block_wrapper=None,
             qkv_head_major: bool = False,
-            label_smoothing: float = 0.0) -> torch.Tensor:
+            label_smoothing: float = 0.0, aux_reduce=None) -> torch.Tensor:
     """Cross-entropy of any trainable family; MoE adds ``MOE_AUX_WEIGHT``
-    times its load-balance term."""
+    times its load-balance term (``aux_reduce``: ``moe.moe_mlp``'s)."""
     logits, aux = _family_logits(cfg, params, images, attn_impl,
                                  block_wrapper, qkv_head_major,
-                                 want_aux=True)
+                                 want_aux=True, aux_reduce=aux_reduce)
     loss = cross_entropy(logits, labels, label_smoothing)
     return loss if aux is None else loss + MOE_AUX_WEIGHT * aux
 
 
-def wants_head_major(cfg, attn_impl=None) -> bool:
+def wants_head_major(cfg, attn_impl=None, mesh=None) -> bool:
     """Whether training runs head-major qkv columns: never for swin and
-    convnext; otherwise when the packed kernel is in play and takes the
-    shape (``packed_ok``). The JAX function also repacks whenever a mesh
-    has a model axis above 1; the port has no mesh, so that branch has no
-    counterpart. Exports must consult this: the canonical layout on disk
-    is torch's ``[3][H][dh]`` (``mesh.unpermute_qkv_head_major``)."""
+    convnext (per-stage head counts; they keep flat columns on a mesh too);
+    otherwise when ``mesh``'s model axis is above 1 (the column shard of a
+    model rank is then whole heads, the Megatron split) or the packed
+    kernel is in play and takes the shape (``packed_ok``). Exports must
+    consult this: the canonical layout on disk is torch's ``[3][H][dh]``
+    (``mesh.unpermute_qkv_head_major``)."""
     if _plain_forward_family(model_family(cfg)):
         return False
+    if mesh_lib.axis_size(mesh, "model") > 1:
+        return True
     return (getattr(attn_impl, "packed", None) is not None
             and attn_impl.packed_ok(cfg.heads, cfg.width // cfg.heads,
                                     cfg.tokens))
@@ -449,8 +464,9 @@ def _value_and_grad(lf, params, *args):
     leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
     loss = lf(tree_unflatten(params, leaves), *args)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(x) if g is None else g
-                           for x, g in zip(leaves, grads)]
+    return (mesh_lib.full_tensor(loss.detach()),
+            [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)])
 
 
 def _split_batch(i: int, mb: int, images, labels):
@@ -459,14 +475,16 @@ def _split_batch(i: int, mb: int, images, labels):
     return images[sl], labels[sl]
 
 
-def _step(lf, optimizer, accum_steps: int, microbatch=_split_batch):
+def _step(lf, optimizer, accum_steps: int, microbatch=_split_batch,
+          reduce=None):
     """``step(params, opt_state, images, extra) -> (params, opt_state,
     loss)`` of the loss ``lf(params, images, extra)``. ``accum_steps=k``:
     the batch is split into k microbatches run in turn (``microbatch(i,
     mb, images, extra)`` gives microbatch i's arguments), their gradients
     summed in f32 and averaged before one optimizer update (the full-batch
     step by linearity of the mean loss), as the JAX package's
-    ``lax.scan``."""
+    ``lax.scan``. ``reduce(loss, grads, params) -> (loss, grads)`` runs
+    before the update (the mesh's average over "data")."""
     def step(params, opt_state, images, extra):
         if accum_steps == 1:
             loss, grads = _value_and_grad(lf, params, images, extra)
@@ -484,6 +502,8 @@ def _step(lf, optimizer, accum_steps: int, microbatch=_split_batch):
             grads = [(a / accum_steps).to(x.dtype)
                      for a, x in zip(acc, tree_leaves(params))]
             loss = loss / accum_steps
+        if reduce is not None:
+            loss, grads = reduce(loss, grads, params)
         updates, opt_state = optimizer.update(
             tree_unflatten(params, grads), opt_state, params)
         return apply_updates(params, updates), opt_state, loss
@@ -491,50 +511,102 @@ def _step(lf, optimizer, accum_steps: int, microbatch=_split_batch):
     return step
 
 
+def _aux_reduce(mesh):
+    """MoE's f_e / P_e reduction on a mesh with a data axis above 1, else
+    None."""
+    if mesh_lib.axis_size(mesh, "data") == 1:
+        return None
+    return functools.partial(mesh_lib.mean_over, mesh=mesh, axis="data")
+
+
+def _data_reduce(mesh):
+    """``_step``'s ``reduce`` on a mesh (None without one): each gradient
+    placed as its parameter (a DTensor's may come back partial), then the
+    loss and the gradients averaged over "data" in one all-reduce a
+    dtype."""
+    if mesh is None:
+        return None
+
+    def reduce(loss, grads, params):
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 if mesh_lib.is_dtensor(g) and g.placements != p.placements
+                 else g for g, p in zip(grads, tree_leaves(params))]
+        out = mesh_lib.all_reduce_mean([*grads, loss], mesh)
+        return out[-1], out[:-1]
+
+    return reduce
+
+
+def _on_mesh(fn, mesh):
+    """``fn`` under DTensor's implicit replication where the mesh's model
+    axis is above 1 (plain tensors made inside the forward and backward
+    then act as replicated), else ``fn`` itself."""
+    if mesh_lib.axis_size(mesh, "model") == 1:
+        return fn
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    @functools.wraps(fn)
+    def run(*args):
+        with implicit_replication():
+            return fn(*args)
+
+    return run
+
+
 def make_train_step(cfg, optimizer=None, attn_impl=None, remat=True,
                     qkv_head_major: bool = False, accum_steps: int = 1,
-                    label_smoothing: float = 0.0, compute_dtype=None):
+                    label_smoothing: float = 0.0, compute_dtype=None,
+                    mesh=None):
     """A train step ``(params, opt_state, images, labels) -> (params,
     opt_state, loss)`` of any trainable family.
 
     ``remat``: see ``remat_wrapper``. ``accum_steps``: see ``_step``.
-    ``compute_dtype``: mixed precision (``cast_params``).
+    ``compute_dtype``: mixed precision (``cast_params``). ``mesh``: the
+    step of one rank (``_on_mesh``): images and labels are its rows.
     """
     optimizer = optimizer or make_optimizer()
     wrapper = remat_wrapper(remat)
+    aux_reduce = _aux_reduce(mesh)
 
     def lf(p, images, labels):
         return loss_fn(cast_params(p, compute_dtype), images, labels, cfg,
                        attn_impl=attn_impl, block_wrapper=wrapper,
                        qkv_head_major=qkv_head_major,
-                       label_smoothing=label_smoothing)
+                       label_smoothing=label_smoothing,
+                       aux_reduce=aux_reduce)
 
-    return _step(lf, optimizer, accum_steps)
+    return _on_mesh(_step(lf, optimizer, accum_steps,
+                          reduce=_data_reduce(mesh)), mesh)
 
 
-def _resolve_attn(attn_impl, cfg, dtype, device):
-    """A policy name through ``ops.dispatch.default_train_attn_impl``; a
-    callable or None unchanged."""
+def _resolve_attn(attn_impl, cfg, dtype, device, mesh=None):
+    """A policy name through ``ops.dispatch.default_train_attn_impl``
+    (with ``mesh``'s size and model axis); a callable or None
+    unchanged."""
     if not isinstance(attn_impl, str):
         return attn_impl
     from interactive_vit_tpu_torch.ops.dispatch import default_train_attn_impl
 
-    return default_train_attn_impl(attn_impl, dtype=dtype, cfg=cfg,
-                                   device=device)
+    return default_train_attn_impl(
+        attn_impl, dtype=dtype, cfg=cfg, device=device,
+        n_devices=1 if mesh is None else mesh.size(),
+        model_axis=mesh_lib.axis_size(mesh, "model"))
 
 
-def _infer_fn(cfg, dev, attn_impl, head_major: bool, compute_dtype):
+def _infer_fn(cfg, dev, attn_impl, head_major: bool, compute_dtype,
+              mesh=None):
     """``infer(params, images) -> logits`` under ``no_grad``: the plain
     forward for swin and convnext, the family's forward with the train
-    attention and layout otherwise."""
+    attention and layout otherwise. On a mesh: a rank's rows in, their
+    logits out (whole tensors)."""
     def infer(params, images):
         with torch.no_grad():
             images = torch.as_tensor(images, device=dev)
-            return _family_logits(cfg, cast_params(params, compute_dtype),
-                                  images, attn_impl,
-                                  qkv_head_major=head_major)[0]
+            return mesh_lib.full_tensor(_family_logits(
+                cfg, cast_params(params, compute_dtype), images, attn_impl,
+                qkv_head_major=head_major)[0])
 
-    return infer
+    return _on_mesh(infer, mesh)
 
 
 def _init(cfg, seed: int, dtype, dev) -> Params:
@@ -639,13 +711,14 @@ def make_distill_train_step(cfg, teacher_cfg, teacher_params,
                             qkv_head_major: bool = False,
                             accum_steps: int = 1, alpha: float = 0.5,
                             tau: float = 0.0, label_smoothing: float = 0.0,
-                            compute_dtype=None):
+                            compute_dtype=None, mesh=None):
     """The DeiT distillation step (Touvron et al. 2021), ``(params,
     opt_state, images, labels) -> (params, opt_state, loss)``: the
     student's class head trains on the labels, its distillation head
     (token 1) on a frozen teacher's predictions (``distill_loss``). The
     teacher is cast once to ``compute_dtype`` and runs through
-    ``make_teacher_fn`` with the student's ``attn_impl``."""
+    ``make_teacher_fn`` with the student's ``attn_impl``. ``mesh``: see
+    ``make_train_step``."""
     if not cfg.distilled:
         raise ValueError(
             f"{cfg.name} has no distillation token/head (distilled=False) "
@@ -672,7 +745,8 @@ def make_distill_train_step(cfg, teacher_cfg, teacher_params,
         return distill_loss(cls_l, dist_l, teacher(images), labels, alpha,
                             tau, label_smoothing)
 
-    return _step(lf, optimizer, accum_steps)
+    return _on_mesh(_step(lf, optimizer, accum_steps,
+                          reduce=_data_reduce(mesh)), mesh)
 
 
 def setup_distill(cfg, teacher_cfg, teacher_params, device="cuda",
@@ -717,22 +791,30 @@ def _split_keyed(i: int, mb: int, images, key):
 
 def make_mae_train_step(cfg, optimizer=None, remat=False,
                         accum_steps: int = 1, mask_ratio: float = None,
-                        compute_dtype=None):
+                        compute_dtype=None, mesh=None):
     """The MAE pretraining step ``(params, opt_state, images, key) ->
     (params, opt_state, loss)``: ``make_train_step``'s structure on the
     masked-reconstruction loss (``mae.forward_pretrain``). ``key``: a
     threefry key (k0, k1) of ``jax.random``'s (``ops/node_ops.prng_key`` /
     ``fold_in``: fold the step into it for a resumable stream); under
-    accumulation microbatch i draws from ``fold_in(key, i)``."""
+    accumulation microbatch i draws from ``fold_in(key, i)``. ``mesh``:
+    see ``make_train_step``; each (micro)batch's noise is drawn for the
+    whole data axis's rows and the rank's kept (``mae.forward_pretrain``'s
+    ``rows``)."""
     optimizer = optimizer or make_optimizer()
     wrapper = remat_wrapper(remat)
+    n_data = mesh_lib.axis_size(mesh, "data")
+    d = mesh_lib.axis_index(mesh, "data")
 
     def lf(p, images, key):
+        b = images.shape[0]
         return mae.forward_pretrain(
             cast_params(p, compute_dtype), images, cfg, key,
-            mask_ratio=mask_ratio, block_wrapper=wrapper)["loss"]
+            mask_ratio=mask_ratio, block_wrapper=wrapper,
+            rows=None if mesh is None else (d * b, n_data * b))["loss"]
 
-    return _step(lf, optimizer, accum_steps, _split_keyed)
+    return _on_mesh(_step(lf, optimizer, accum_steps, _split_keyed,
+                          reduce=_data_reduce(mesh)), mesh)
 
 
 def setup_mae(cfg, device="cuda", seed: int = 0, lr: float = 1.5e-4,
@@ -752,4 +834,116 @@ def setup_mae(cfg, device="cuda", seed: int = 0, lr: float = 1.5e-4,
                                accum_steps=accum_steps,
                                mask_ratio=mask_ratio,
                                compute_dtype=compute_dtype)
+    return params, opt_state, step
+
+
+# -- on a device mesh ---------------------------------------------------------
+
+
+def _mesh_params(cfg, seed, dtype, dev, params, init=None) -> Params:
+    """Whole params on ``dev``: ``params`` (moved there) or the family's
+    init from ``seed`` (``init(cfg, generator, dtype, device)`` where
+    given)."""
+    if params is not None:
+        return tree_map_with_path(lambda _, x: x.to(dev), params)
+    if init is not None:
+        return init(cfg, torch.Generator().manual_seed(seed),
+                    dtype=dtype or torch.float32, device=dev)
+    return _init(cfg, seed, dtype, dev)
+
+
+def _sharded_params(cfg, mesh, seed, dtype, compute_dtype, attn_impl,
+                    params):
+    """``(dev, params, attn_impl, head_major)`` of a sharded setup: this
+    rank's device, the params (``_mesh_params``) head-major where
+    ``wants_head_major`` says so and placed by ``mesh.shard_params``, and
+    the attention resolved with the mesh."""
+    dev = mesh_lib.mesh_device(mesh)
+    params = _mesh_params(cfg, seed, dtype, dev, params)
+    attn_impl = _resolve_attn(attn_impl, cfg,
+                              compute_dtype or dtype or torch.float32, dev,
+                              mesh)
+    head_major = wants_head_major(cfg, attn_impl, mesh)
+    if head_major:
+        params = mesh_lib.permute_qkv_head_major(params, cfg.heads)
+    return dev, mesh_lib.shard_params(params, mesh), attn_impl, head_major
+
+
+def setup_sharded(cfg, mesh, seed: int = 0, lr: float = 3e-4,
+                  attn_impl=None, remat=True, optimizer=None, dtype=None,
+                  accum_steps: int = 1, label_smoothing: float = 0.0,
+                  compute_dtype=None, params: Optional[Params] = None):
+    """``setup`` on a device mesh (``parallel/mesh.make_mesh``): returns
+    ``(params, opt_state, train_step, infer_fn)`` of this rank.
+
+    The params are ``params`` (whole tensors, the same on every rank) or
+    the init from ``seed``; head-major where ``wants_head_major`` says so
+    (always when the model axis is above 1), then placed by
+    ``mesh.shard_params`` (DTensors where the model axis is above 1). The
+    optimizer state is shaped like them. ``train_step(params, opt_state,
+    images, labels)`` takes this rank's rows (``mesh.batch_sharding(mesh,
+    accum_steps)``), averages the loss and gradients over "data" and
+    applies the update; ``infer_fn(params, images)`` gives the logits of
+    the rows it is given. ``attn_impl`` as in ``setup``, the policy read
+    with the mesh (``ops.dispatch.default_train_attn_impl``): where the
+    model axis is 1 the kernels run as in ``setup``."""
+    optimizer = optimizer or make_optimizer(lr)
+    dev, params, attn_impl, head_major = _sharded_params(
+        cfg, mesh, seed, dtype, compute_dtype, attn_impl, params)
+    opt_state = optimizer.init(params)
+    step = make_train_step(cfg, optimizer, attn_impl=attn_impl, remat=remat,
+                           qkv_head_major=head_major,
+                           accum_steps=accum_steps,
+                           label_smoothing=label_smoothing,
+                           compute_dtype=compute_dtype, mesh=mesh)
+    return (params, opt_state, step,
+            _infer_fn(cfg, dev, attn_impl, head_major, compute_dtype, mesh))
+
+
+def setup_sharded_distill(cfg, teacher_cfg, teacher_params, mesh,
+                          seed: int = 0, lr: float = 3e-4, remat=False,
+                          optimizer=None, dtype=None, attn_impl=None,
+                          accum_steps: int = 1, alpha: float = 0.5,
+                          tau: float = 0.0, label_smoothing: float = 0.0,
+                          compute_dtype=None,
+                          params: Optional[Params] = None):
+    """``setup_distill`` on a device mesh: ``setup_sharded``'s tuple for a
+    distilled student. The teacher (whole tensors) is cast to ``dtype``
+    and placed by the same rules (``mesh.shard_params``), in the
+    canonical qkv layout, and lives only in the step's closure."""
+    optimizer = optimizer or make_optimizer(lr)
+    dev, params, attn_impl, head_major = _sharded_params(
+        cfg, mesh, seed, dtype, compute_dtype, attn_impl, params)
+    teacher_params = mesh_lib.shard_params(tree_map_with_path(
+        lambda _, x: x.to(dev), cast_params(teacher_params, dtype)), mesh)
+    opt_state = optimizer.init(params)
+    step = make_distill_train_step(
+        cfg, teacher_cfg, teacher_params, optimizer, attn_impl=attn_impl,
+        remat=remat, qkv_head_major=head_major, accum_steps=accum_steps,
+        alpha=alpha, tau=tau, label_smoothing=label_smoothing,
+        compute_dtype=compute_dtype, mesh=mesh)
+    return (params, opt_state, step,
+            _infer_fn(cfg, dev, attn_impl, head_major, compute_dtype, mesh))
+
+
+def setup_sharded_mae(cfg, mesh, seed: int = 0, lr: float = 1.5e-4,
+                      remat=False, optimizer=None, dtype=None,
+                      accum_steps: int = 1, mask_ratio: float = None,
+                      compute_dtype=None, params: Optional[Params] = None):
+    """``setup_mae`` on a device mesh: ``(params, opt_state, train_step)``
+    of this rank. The encoder and decoder blocks carry the plain ViT leaf
+    names, so ``param_spec``'s rules shard them unchanged; the canonical
+    qkv layout through the plain attention, as ``setup_mae``.
+    ``train_step(params, opt_state, images, key)`` takes this rank's
+    rows."""
+    dev = mesh_lib.mesh_device(mesh)
+    optimizer = optimizer or make_optimizer(lr)
+    params = mesh_lib.shard_params(
+        _mesh_params(cfg, seed, dtype, dev, params, init=mae.init_params),
+        mesh)
+    opt_state = optimizer.init(params)
+    step = make_mae_train_step(cfg, optimizer, remat=remat,
+                               accum_steps=accum_steps,
+                               mask_ratio=mask_ratio,
+                               compute_dtype=compute_dtype, mesh=mesh)
     return params, opt_state, step

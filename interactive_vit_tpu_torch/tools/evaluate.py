@@ -17,7 +17,16 @@ the batch size. Prints one JSON line:
     {"variant": ..., "n": N, "top1": ..., "top5": ..., "wall_s": ...,
      "imgs_per_s": ...}
 
-Not ported: ``--mesh`` (one device) and ``--platform`` (``--device``).
+``--mesh data=N`` under ``torchrun`` evaluates on N ranks (pure data
+parallelism): each rank runs its rows of every padded chunk and the hit
+counts are summed over the ranks, so the metrics are the one-device run's;
+only rank 0 prints. ``--mesh`` is "data=all" (every launched rank) by
+default; outside ``torchrun`` the run is the one-device one. Not ported:
+``--platform`` (``--device`` takes its place).
+
+    torchrun --standalone --nproc-per-node 2 -m \
+        interactive_vit_tpu_torch.tools.evaluate --mesh data=2 \
+        --variant vit_t16 --memorize 64 --batch 32 --device cpu
 """
 
 from __future__ import annotations
@@ -33,11 +42,20 @@ import torch
 logger = logging.getLogger(__name__)
 
 
-def run_eval(infer, params, batches, batch: int, top_k: int = 5):
+def run_eval(infer, params, batches, batch: int, top_k: int = 5,
+             mesh=None):
     """Stream (images, labels) chunks through ``infer(params, images) ->
     logits``. A short final chunk is padded to ``batch`` rows by repeating
     its first image, so every call sees the training batch size. Returns
-    (n, top1_hits, topk_hits)."""
+    (n, top1_hits, topk_hits). ``mesh``: each rank runs its rows
+    (``parallel/mesh.batch_sharding``) of every padded chunk and counts the
+    hits of its real rows; the counts are summed over "data", so every
+    rank returns the one-device numbers."""
+    rows = None
+    if mesh is not None:
+        from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
+
+        rows = mesh_lib.batch_sharding(mesh)
     n = hits1 = hitsk = 0
     for images, labels in batches:
         k = len(labels)
@@ -45,15 +63,26 @@ def run_eval(infer, params, batches, batch: int, top_k: int = 5):
         if k < batch:
             pad = np.repeat(images[:1], batch - k, axis=0)
             images = np.concatenate([images, pad])
+        idx = np.arange(len(images))
+        if rows is not None:
+            images, idx = rows(images), rows(idx)
         logits = infer(params, images)
         if isinstance(logits, torch.Tensor):
             logits = logits.float().cpu().numpy()
-        logits = np.asarray(logits)[:k]
-        labels = np.asarray(labels)[:k]
+        real = idx < k  # the rows of this chunk that are not padding
+        logits = np.asarray(logits)[real]
+        labels = np.asarray(labels)[idx[real]]
         order = np.argsort(-logits, axis=-1)
         hits1 += int((order[:, 0] == labels).sum())
         hitsk += int((order[:, :top_k] == labels[:, None]).any(-1).sum())
         n += k
+    if mesh is not None:
+        import torch.distributed as dist
+
+        counts = torch.tensor([hits1, hitsk], dtype=torch.int64,
+                              device=mesh_lib.mesh_device(mesh))
+        dist.all_reduce(counts, group=mesh_lib.axis_group(mesh, "data"))
+        hits1, hitsk = (int(c) for c in counts.tolist())
     return n, hits1, hitsk
 
 
@@ -136,12 +165,24 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16"])
+    parser.add_argument("--mesh", default="data=all",
+                        help="pure-DP evaluation mesh under torchrun "
+                             "(data=all / data=N)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the default; raises without a card) or "
                              "cpu")
     args = parser.parse_args(argv)
     if bool(args.data) == bool(args.memorize):
         parser.error("exactly one of --data / --memorize is required")
+    from interactive_vit_tpu_torch.parallel.mesh import parse_mesh
+
+    try:
+        sizes = parse_mesh(args.mesh)
+    except ValueError as err:
+        parser.error(str(err))
+    if sizes and (sizes.get("model", 1) > 1 or sizes.get("stage", 1) > 1):
+        parser.error(f"--mesh {args.mesh}: evaluation is pure data "
+                     f"parallelism (data=all / data=N)")
     return args
 
 
@@ -150,15 +191,24 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
     from interactive_vit_tpu_torch.parallel.train import (
         tree_leaves, tree_unflatten,
     )
-    from interactive_vit_tpu_torch.runtime.device import (
-        exact_f32_matmuls, require_device,
-    )
+    from interactive_vit_tpu_torch.runtime.device import exact_f32_matmuls
 
-    device = require_device(args.device)
+    device = mesh_lib.init_distributed(args.device)
     exact_f32_matmuls()
+    mesh = mesh_lib.make_run_mesh(args.mesh)
+    if mesh is not None:
+        n_data = mesh_lib.axis_size(mesh, "data")
+        if args.batch % n_data:
+            raise SystemExit(f"--batch {args.batch} must be divisible by "
+                             f"the mesh data axis ({n_data} devices)")
+        if not mesh_lib.is_chief():
+            logging.getLogger().setLevel(logging.WARNING)
+        if not mesh_lib.in_mesh(mesh):
+            return {}
     infer_raw, cfg, init_fn = make_logits_fn(args.variant)
     if args.ckpt:
         from interactive_vit_tpu_torch.serving.server import (
@@ -208,14 +258,16 @@ def main(argv=None) -> dict:
             yield images[lo:lo + args.batch], labels[lo:lo + args.batch]
 
     t0 = time.perf_counter()
-    n, h1, hk = run_eval(infer, params, chunked(), args.batch, args.top_k)
+    n, h1, hk = run_eval(infer, params, chunked(), args.batch, args.top_k,
+                         mesh=mesh)
     wall = time.perf_counter() - t0
     out = {"variant": args.variant, "n": n,
            "top1": round(h1 / max(1, n), 4),
            f"top{args.top_k}": round(hk / max(1, n), 4),
            "wall_s": round(wall, 2),
            "imgs_per_s": round(n / wall, 1)}
-    print(json.dumps(out))
+    if mesh_lib.is_chief():
+        print(json.dumps(out))
     return out
 
 

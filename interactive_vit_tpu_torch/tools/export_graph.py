@@ -17,7 +17,7 @@ artifact and holds it against the live executor on seeded random inputs
 (max abs difference 1e-5 in f32, 2e-2 in bf16) before declaring success.
 TF32 is turned off first (exact f32 matmuls), as the server and
 ``run_graph`` do. ``--mesh`` is refused: mesh-sharded export is not
-ported (``ROADMAP.md`` queue 1 item 6).
+ported (``ROADMAP.md`` queue 1 item 7).
 
 Run an artifact headlessly with ``tools/run_exported.py``.
 """
@@ -79,7 +79,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.mesh:
         print("--mesh: mesh-sharded export is not ported yet (ROADMAP.md "
-              "queue 1 item 6)", file=sys.stderr)
+              "queue 1 item 7)", file=sys.stderr)
         return 2
 
     import numpy as np

@@ -1,4 +1,4 @@
-"""MAE self-supervised pretraining on one device.
+"""MAE self-supervised pretraining on one device or a device mesh.
 
     python -m interactive_vit_tpu_torch.tools.pretrain \\
         --variant mae_b16 --dtype mixed --steps 400 --batch 64 \\
@@ -31,7 +31,11 @@ Outputs:
   --export-safetensors FILE the full MAE tree (the reconstruction demo:
                             ``--models mae_* --ckpt``)
 
-Not ported: the device mesh (``--mesh``) and ``--platform``.
+``--mesh`` pretrains on a device mesh under ``torchrun`` (as
+``tools/train.py``: "data=all" by default, one device outside
+``torchrun``; ``parallel/train.setup_sharded_mae``): every rank draws the
+global batch and the masks of the global batch and trains its rows; rank 0
+logs and writes whole tensors. Not ported: ``--platform``.
 """
 
 from __future__ import annotations
@@ -85,6 +89,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--no-norm-pix", action="store_true",
                         help="raw-pixel targets instead of per-patch "
                              "normalised ones")
+    parser.add_argument("--mesh", default="data=all",
+                        help="the device mesh under torchrun (e.g. "
+                             "data=2,model=2; 'data=all' = pure DP)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--dtype", default="float32",
                         choices=["float32", "bfloat16", "mixed"],
@@ -123,6 +130,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     state_dir = os.path.join(args.output, "state") if args.output else None
     if args.resume and not (state_dir and os.path.exists(state_dir)):
         parser.error(f"--resume: no state at {state_dir}")
+    from interactive_vit_tpu_torch.parallel.mesh import parse_mesh
+
+    try:
+        parse_mesh(args.mesh)
+    except ValueError as err:
+        parser.error(str(err))
     return args
 
 
@@ -146,22 +159,33 @@ def main(argv=None) -> dict:
     seconds since the run's first step began)] at the logged steps,
     ``probe`` (pretrained top-1, random-init top-1) with ``--probe`` else
     None, ``start_step`` (the resumed step, else 0), the final ``params``
-    and the train ``state`` (params, optimizer state, step)."""
+    and the train ``state`` (params, optimizer state, step). On a mesh
+    the params are whole on every rank, the probe is rank 0's (None
+    elsewhere), and a rank outside the mesh returns ``{}``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from interactive_vit_tpu_torch.models import mae
     from interactive_vit_tpu_torch.ops.node_ops import fold_in, prng_key
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
     from interactive_vit_tpu_torch.parallel import train as train_lib
-    from interactive_vit_tpu_torch.runtime.device import (
-        exact_f32_matmuls, require_device,
-    )
+    from interactive_vit_tpu_torch.runtime.device import exact_f32_matmuls
     from interactive_vit_tpu_torch.tools.train import (
         load_state, pattern_set, save_state,
     )
 
-    device = require_device(args.device)
+    device = mesh_lib.init_distributed(args.device)
     exact_f32_matmuls()
+    mesh = mesh_lib.make_run_mesh(args.mesh)
+    if not mesh_lib.is_chief():
+        logging.getLogger().setLevel(logging.WARNING)
+    if not mesh_lib.in_mesh(mesh):
+        return {}
+    rows = mesh_lib.replicated(mesh)
+    if mesh is not None:
+        rows = mesh_lib.batch_sharding(mesh, args.accum_steps)
+        logger.info("mesh: %s over %d devices", mesh_lib.mesh_shape(mesh),
+                    mesh.size())
     cfg = mae.resolve_variant(args.variant)
     if args.no_norm_pix:
         cfg = dataclasses.replace(cfg, norm_pix=False)
@@ -176,10 +200,16 @@ def main(argv=None) -> dict:
     compute_dtype = torch.bfloat16 if args.dtype == "mixed" else None
     remat = {"on": True, "off": False, "dots": "dots"}[args.remat]
 
-    params, opt_state, step_fn = train_lib.setup_mae(
-        cfg, device=device, seed=args.seed, lr=args.lr, remat=remat,
-        optimizer=optimizer, dtype=dtype, accum_steps=args.accum_steps,
-        mask_ratio=args.mask_ratio, compute_dtype=compute_dtype)
+    common = dict(seed=args.seed, lr=args.lr, remat=remat,
+                  optimizer=optimizer, dtype=dtype,
+                  accum_steps=args.accum_steps, mask_ratio=args.mask_ratio,
+                  compute_dtype=compute_dtype)
+    if mesh is None:
+        params, opt_state, step_fn = train_lib.setup_mae(
+            cfg, device=device, **common)
+    else:
+        params, opt_state, step_fn = train_lib.setup_sharded_mae(
+            cfg, mesh, **common)
     start_step = 0
     if args.resume:
         params, opt_state, start_step = load_state(state_dir, params,
@@ -219,13 +249,13 @@ def main(argv=None) -> dict:
                 rng.integers(0, args.memorize, size=(args.batch,))).to(device)
             images = mem_images_d[idx]
         # deterministic per (seed, step): --resume replays the stream
-        params, opt_state, loss = step_fn(params, opt_state, images,
+        params, opt_state, loss = step_fn(params, opt_state, rows(images),
                                           fold_in(base_key, step))
         if step % args.log_every == 0 or step == args.steps - 1:
             value = float(loss)
             dt = time.perf_counter() - t0
             history.append((step, value, dt))
-            logger.info("step %4d  recon loss %.4f  (%.1f imgs/s)", step,
+            logger.info("step %4d  recon loss %.6f  (%.1f imgs/s)", step,
                         value, (step - start_step + 1) * args.batch / dt)
         if (args.save_every and state_dir
                 and (step + 1) % args.save_every == 0):
@@ -242,8 +272,10 @@ def main(argv=None) -> dict:
     if saver is not None:
         saver.close()  # drain the write in flight before the final save
 
+    # whole tensors (DTensor leaves gathered on a mesh)
+    state_params, params = params, mesh_lib.unshard(params)
     probe = None
-    if args.probe:
+    if args.probe and mesh_lib.is_chief():
         if args.data:
             # copies: a read-only memmap cannot back a torch tensor
             probe_images = np.array(np.load(args.data + "_images.npy",
@@ -269,10 +301,12 @@ def main(argv=None) -> dict:
     if args.output:
         from interactive_vit_tpu_torch.utils.checkpoint import save_params
 
-        save_params(os.path.join(args.output, "params"), params)
-        save_state(state_dir, params, opt_state, args.steps)
+        if mesh_lib.is_chief():
+            save_params(os.path.join(args.output, "params"), params)
+        save_state(state_dir, state_params, opt_state, args.steps)
         logger.info("saved checkpoint to %s", args.output)
-    if args.export_encoder or args.export_safetensors:
+    if (args.export_encoder or args.export_safetensors) \
+            and mesh_lib.is_chief():
         from interactive_vit_tpu_torch.models.weights import to_native_flat
         from interactive_vit_tpu_torch.utils.safetensors_io import save_file
 
@@ -289,7 +323,7 @@ def main(argv=None) -> dict:
                         args.export_safetensors)
     return {"history": history, "probe": probe, "start_step": start_step,
             "params": params,
-            "state": {"params": params, "opt_state": opt_state,
+            "state": {"params": state_params, "opt_state": opt_state,
                       "step": args.steps}}
 
 

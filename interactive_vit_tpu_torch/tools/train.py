@@ -47,8 +47,24 @@ optimizer state, step, the qkv-layout marker, the EMA) to ``D/state``;
 ``--resume`` continues from ``D/state``; ``--init FILE`` starts a fresh run
 of a plain ViT from a checkpoint's trunk; ``--export-safetensors FILE``
 writes the export params in the native "/" naming, which the server's
-``--ckpt`` serves. Not ported: the device mesh (``--mesh``) and
-``--platform``; the parser refuses their flags.
+``--ckpt`` serves.
+
+``--mesh`` trains on a device mesh under ``torchrun`` (one process a
+device: NCCL on the cards, gloo with ``--device cpu``), e.g.
+
+    torchrun --standalone --nproc-per-node 4 -m \
+        interactive_vit_tpu_torch.tools.train --mesh data=2,model=2 \
+        --variant vit_t16 --batch 16 --steps 10 --device cpu
+
+"data=all" (the default) puts every launched rank on the data axis;
+outside ``torchrun`` the run is the one-device one. Every rank draws the
+global batch from the same seeded stream (synthetic, ``--memorize``,
+``--data``, the augmentations) and trains its rows of it
+(``parallel/train.setup_sharded``), so the losses are the one-device
+run's up to f32 summation order; only rank 0 logs and writes the
+checkpoints, whose tensors are whole (a mesh's state resumes on one
+device, and the other way round). Not ported: ``--platform`` (the parser
+refuses it).
 """
 
 from __future__ import annotations
@@ -99,15 +115,18 @@ def pattern_set(seed: int, n: int, img: int, classes: int,
     return images, labels.astype(np.int64)
 
 
-def evaluate(infer_fn, params, images, labels, batch: int) -> float:
-    """Top-1 over a set, in chunks of the training batch size."""
+def evaluate(infer_fn, params, images, labels, batch: int,
+             mesh=None) -> float:
+    """Top-1 over a set, in chunks of the training batch size (on a
+    mesh, each rank its rows of every chunk: ``tools/evaluate.run_eval``)."""
     from interactive_vit_tpu_torch.tools.evaluate import run_eval
 
     def chunks():
         for lo in range(0, len(labels), batch):
             yield images[lo:lo + batch], labels[lo:lo + batch]
 
-    n, hits1, _ = run_eval(infer_fn, params, chunks(), batch, top_k=1)
+    n, hits1, _ = run_eval(infer_fn, params, chunks(), batch, top_k=1,
+                           mesh=mesh)
     return hits1 / n
 
 
@@ -212,10 +231,15 @@ def save_state(path: str, params, opt_state, step: int, saver=None,
     directory (``utils/checkpoint.py``); through ``saver`` (an
     ``AsyncSaver``) the write overlaps the next steps. ``head_major``
     records the qkv column layout of the params, which ``load_state``
-    checks: the layout follows --attn and --dtype, and a same-shape load of
-    permuted columns would otherwise pass unseen."""
+    checks: the layout follows --mesh, --attn and --dtype, and a same-shape
+    load of permuted columns would otherwise pass unseen. On a mesh every
+    rank calls it: DTensor leaves are gathered whole and rank 0 writes."""
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
     from interactive_vit_tpu_torch.utils.checkpoint import save_params
 
+    params, opt_state, ema = mesh_lib.unshard((params, opt_state, ema))
+    if not mesh_lib.is_chief():
+        return
     tree = {"params": params, "opt_state": opt_state,
             "step": torch.tensor(step),
             "qkv_head_major": torch.tensor(int(head_major))}
@@ -235,7 +259,10 @@ def load_state(path: str, like_params, like_opt_state,
     built from what the checkpoint holds (``state_keys``). A layout that
     differs from ``expect_head_major`` raises. Returns ``(params,
     opt_state, step)``, and the EMA (None when the checkpoint has none)
-    with ``want_ema``."""
+    with ``want_ema``. On a mesh every rank reads the whole tensors and
+    keeps its shards of the DTensor leaves of the ``like`` trees (the EMA
+    placed as the params)."""
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
     from interactive_vit_tpu_torch.parallel.train import (
         tree_leaves, tree_map_with_path,
     )
@@ -267,13 +294,17 @@ def load_state(path: str, like_params, like_opt_state,
             f"{'head-major' if saved_hm else 'torch-layout'} columns but "
             f"this run resolves to "
             f"{'head-major' if expect_head_major else 'torch-layout'} "
-            f"(the layout follows --attn/--dtype/device via "
+            f"(the layout follows --mesh/--attn/--dtype/platform via "
             f"wants_head_major). Resume with the original flags, or "
             f"export via --export-safetensors and restart from --ckpt.")
+    params = mesh_lib.reshard_like(st["params"], like_params)
+    opt_state = mesh_lib.reshard_like(st["opt_state"], like_opt_state)
     if want_ema:
-        return (st["params"], st["opt_state"], int(st["step"]),
-                st.get("ema"))
-    return st["params"], st["opt_state"], int(st["step"])
+        ema = st.get("ema")
+        if ema is not None:
+            ema = mesh_lib.reshard_like(ema, like_params)
+        return params, opt_state, int(st["step"]), ema
+    return params, opt_state, int(st["step"])
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -295,6 +326,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "lr*llrd^(L-j), the embedding tier at "
                              "lr*llrd^(L+1), head and final norm at lr "
                              "(0 = uniform)")
+    parser.add_argument("--mesh", default="data=all",
+                        help="the device mesh under torchrun, e.g. "
+                             "data=4,model=2; 'data=all' = every rank on "
+                             "data (pure DP); outside torchrun: one device")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--no-remat", action="store_true",
                         help="(deprecated) same as --remat off")
@@ -405,6 +440,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     if bool(args.distill_teacher) != bool(args.teacher_variant):
         parser.error("--distill-teacher and --teacher-variant go together")
     from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.parallel.mesh import parse_mesh
+
+    try:
+        parse_mesh(args.mesh)
+    except ValueError as err:
+        parser.error(str(err))
 
     if args.init and args.variant.partition("@")[0] not in vit.VARIANTS:
         parser.error("--init supports the plain-ViT family only "
@@ -415,9 +456,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def resolve_remat(args, cfg, run_dtype, attn_impl, device):
+def resolve_remat(args, cfg, run_dtype, attn_impl, device, n_data: int = 1):
     """``--remat`` (``--no-remat`` is ``off``) as ``remat_wrapper``'s
-    argument; ``auto``: ``parallel/train.auto_remat`` at the microbatch."""
+    argument; ``auto``: ``parallel/train.auto_remat`` at a rank's
+    microbatch (the batch over the ``n_data`` data ranks and the
+    accumulation steps)."""
     from interactive_vit_tpu_torch.parallel import train as train_lib
 
     if args.no_remat:
@@ -425,8 +468,8 @@ def resolve_remat(args, cfg, run_dtype, attn_impl, device):
     if args.remat != "auto":
         return {"on": True, "off": False, "dots": "dots"}[args.remat]
     remat = train_lib.auto_remat(
-        cfg, max(1, args.batch // args.accum_steps), dtype=run_dtype,
-        flash_attn=attn_impl is not None, device=device)
+        cfg, max(1, args.batch // n_data // args.accum_steps),
+        dtype=run_dtype, flash_attn=attn_impl is not None, device=device)
     logger.info("remat auto -> %s", "on" if remat else "off")
     return remat
 
@@ -477,19 +520,30 @@ def main(argv=None) -> dict:
     the --save-every save held the loop)], the final train ``state``
     (params in the training layout, optimizer state, step), the loader's
     ``backend`` ("native" / "python"; None without --data) and the
-    ``eval_sample`` (images, labels) the evals read."""
+    ``eval_sample`` (images, labels) the evals read. On a mesh every rank
+    returns the same (whole) params and history; a rank outside the mesh
+    returns ``{}``."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
     from interactive_vit_tpu_torch.ops.dispatch import default_train_attn_impl
     from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
     from interactive_vit_tpu_torch.parallel import train as train_lib
-    from interactive_vit_tpu_torch.runtime.device import (
-        exact_f32_matmuls, require_device,
-    )
+    from interactive_vit_tpu_torch.runtime.device import exact_f32_matmuls
 
-    device = require_device(args.device)
+    device = mesh_lib.init_distributed(args.device)
     exact_f32_matmuls()
+    mesh = mesh_lib.make_run_mesh(args.mesh)
+    if not mesh_lib.is_chief():
+        logging.getLogger().setLevel(logging.WARNING)
+    if not mesh_lib.in_mesh(mesh):
+        return {}
+    rows = mesh_lib.replicated(mesh)
+    if mesh is not None:
+        rows = mesh_lib.batch_sharding(mesh, args.accum_steps)
+        logger.info("mesh: %s over %d devices", mesh_lib.mesh_shape(mesh),
+                    mesh.size())
+    n_data = mesh_lib.axis_size(mesh, "data")
     cfg = resolve_cfg(args.variant)
     optimizer = train_lib.make_optimizer(
         args.lr, warmup_steps=args.warmup,
@@ -498,29 +552,45 @@ def main(argv=None) -> dict:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else None
     compute_dtype = torch.bfloat16 if args.dtype == "mixed" else None
     run_dtype = compute_dtype or dtype or torch.float32
-    attn_impl = default_train_attn_impl(args.attn, dtype=run_dtype, cfg=cfg,
-                                        device=device)
+    attn_impl = default_train_attn_impl(
+        args.attn, dtype=run_dtype, cfg=cfg, device=device,
+        n_devices=1 if mesh is None else mesh.size(),
+        model_axis=mesh_lib.axis_size(mesh, "model"))
     logger.info("train attention: %s", "kernels (attention_vjp)"
                 if attn_impl is not None else "plain (autograd)")
-    remat = resolve_remat(args, cfg, run_dtype, attn_impl, device)
+    remat = resolve_remat(args, cfg, run_dtype, attn_impl, device, n_data)
 
-    common = dict(device=device, seed=args.seed, lr=args.lr, remat=remat,
+    common = dict(seed=args.seed, lr=args.lr, remat=remat,
                   optimizer=optimizer, dtype=dtype, attn_impl=attn_impl,
                   accum_steps=args.accum_steps,
                   label_smoothing=args.label_smoothing,
                   compute_dtype=compute_dtype)
+    if mesh is None:
+        common["device"] = device
     if args.distill_teacher:
         teacher_cfg, teacher_params = load_teacher(args, dtype, device)
-        params, opt_state, step_fn, infer_fn = train_lib.setup_distill(
-            cfg, teacher_cfg, teacher_params, alpha=args.distill_alpha,
-            tau=args.distill_tau, **common)
+        if mesh is None:
+            params, opt_state, step_fn, infer_fn = train_lib.setup_distill(
+                cfg, teacher_cfg, teacher_params, alpha=args.distill_alpha,
+                tau=args.distill_tau, **common)
+        else:
+            params, opt_state, step_fn, infer_fn = \
+                train_lib.setup_sharded_distill(
+                    cfg, teacher_cfg, teacher_params, mesh,
+                    alpha=args.distill_alpha, tau=args.distill_tau, **common)
         del teacher_params  # the step's closure holds the teacher
-    else:
+    elif mesh is None:
         params, opt_state, step_fn, infer_fn = train_lib.setup(cfg, **common)
-    head_major = train_lib.wants_head_major(cfg, attn_impl)
+    else:
+        params, opt_state, step_fn, infer_fn = train_lib.setup_sharded(
+            cfg, mesh, **common)
+    head_major = train_lib.wants_head_major(cfg, attn_impl, mesh)
     if args.init:
+        fresh = params
         params, loaded, skipped = init_from_checkpoint(
             args.init, params, cfg, args.variant, head_major)
+        # on a mesh the loaded (whole) leaves take the fresh ones' shards
+        params = mesh_lib.reshard_like(params, fresh)
         # the optimizer state is zeros shaped like the params: unchanged
         logger.info("initialized from %s: loaded %s%s", args.init, loaded,
                     f", fresh {skipped}" if skipped else "")
@@ -548,7 +618,8 @@ def main(argv=None) -> dict:
         hflip=args.hflip, crop_pad=args.crop_pad,
         color_jitter=args.color_jitter, cutout=args.cutout,
         mixup_alpha=args.mixup, cutmix_alpha=args.cutmix)
-    aug_fn = make_augment_fn(aug_cfg, cfg.num_classes, seed=args.seed)
+    aug_fn = make_augment_fn(aug_cfg, cfg.num_classes, seed=args.seed,
+                             batch_sharding=rows)
     if aug_fn is not None:
         logger.info("augment: %s", aug_cfg)
 
@@ -608,8 +679,11 @@ def main(argv=None) -> dict:
             images = torch.from_numpy(images).to(device)
             labels = torch.from_numpy(labels).to(device)
         if aug_fn is not None:
-            # deterministic per (seed, step): a resumed run replays it
+            # deterministic per (seed, step): a resumed run replays it;
+            # on a mesh it draws for the global batch and keeps our rows
             images, labels = aug_fn(step, images, labels)
+        else:
+            images, labels = rows(images), rows(labels)
         params, opt_state, loss = step_fn(params, opt_state, images, labels)
         if ema_update is not None:
             ema = ema_update(ema, params)
@@ -617,11 +691,11 @@ def main(argv=None) -> dict:
             value = float(loss)
             dt = time.perf_counter() - t0
             history.append((step, value, dt))
-            logger.info("step %4d  loss %.4f  (%.1f imgs/s)", step, value,
+            logger.info("step %4d  loss %.6f  (%.1f imgs/s)", step, value,
                         (step - start_step + 1) * args.batch / dt)
         if args.eval_every and (step + 1) % args.eval_every == 0:
             acc = evaluate(infer_fn, ema if ema is not None else params,
-                           eval_images, eval_labels, args.batch)
+                           eval_images, eval_labels, args.batch, mesh)
             evals.append((step, acc))
             logger.info("step %4d  %s%s top-1 %.3f", step,
                         "EMA " if ema is not None else "",
@@ -648,23 +722,25 @@ def main(argv=None) -> dict:
     # the export layout: canonical qkv columns (the train state keeps the
     # training layout, which --resume re-enters); with --ema-decay the
     # average, cast back to the param dtype, is the artifact
-    export_params = params
+    # whole tensors (DTensor leaves gathered on a mesh)
+    export_params = mesh_lib.unshard(params)
     if ema is not None:
         export_params = train_lib.tree_unflatten(params, [
             e.to(p.dtype) if e.is_floating_point() else e
-            for e, p in zip(train_lib.tree_leaves(ema),
-                            train_lib.tree_leaves(params))])
+            for e, p in zip(train_lib.tree_leaves(mesh_lib.unshard(ema)),
+                            train_lib.tree_leaves(export_params))])
     if head_major:
         export_params = mesh_lib.unpermute_qkv_head_major(export_params,
                                                           cfg.heads)
     if args.output:
         from interactive_vit_tpu_torch.utils.checkpoint import save_params
 
-        save_params(os.path.join(args.output, "params"), export_params)
+        if mesh_lib.is_chief():
+            save_params(os.path.join(args.output, "params"), export_params)
         save_state(state_dir, params, opt_state, args.steps,
                    head_major=head_major, ema=ema)
         logger.info("saved checkpoint to %s", args.output)
-    if args.export_safetensors:
+    if args.export_safetensors and mesh_lib.is_chief():
         from interactive_vit_tpu_torch.models.weights import to_native_flat
         from interactive_vit_tpu_torch.utils.safetensors_io import save_file
 

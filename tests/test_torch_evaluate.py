@@ -84,11 +84,12 @@ def test_random_init_and_bfloat16_run(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [[], ["--data", "x", "--memorize", "4"],
-                                  ["--memorize", "4", "--mesh", "data=all"],
+                                  ["--memorize", "4", "--mesh",
+                                   "data=2,model=2"],
                                   ["--memorize", "4", "--platform", "cpu"]])
 def test_parser_refusals(argv):
-    """Exactly one of --data / --memorize; --mesh and --platform are not
-    ported."""
+    """Exactly one of --data / --memorize; --mesh is data parallelism
+    only (a model axis is refused); --platform is not ported."""
     with pytest.raises(SystemExit) as exc:
         evaluate.parse_args(argv)
     assert exc.value.code == 2

@@ -471,11 +471,11 @@ def test_cpu_artifact_names_its_platform(vit_arts):
 
 
 def test_mesh_sharded_export_is_refused(reg, tmp_path):
-    """Mesh-sharded export is not ported (ROADMAP queue 1 item 6): the
+    """Mesh-sharded export is not ported (ROADMAP queue 1 item 7): the
     exporter and the loader refuse it with ``ExportError``."""
     x = np.linspace(0.0, 1.0, 8, dtype=np.float32)
     g, _ = chain(Graph, x)
-    with pytest.raises(ExportError, match="queue 1 item 6"):
+    with pytest.raises(ExportError, match="queue 1 item 7"):
         export_graph(g, str(tmp_path / "m"), executor=ex_cpu(reg),
                      mesh={"data": 4, "model": 2})
     out_dir = str(tmp_path / "art")
@@ -484,7 +484,7 @@ def test_mesh_sharded_export_is_refused(reg, tmp_path):
     m = json.load(open(mpath))
     m["mesh"] = {"axes": ["data", "model"], "shape": [4, 2]}
     json.dump(m, open(mpath, "w"))
-    with pytest.raises(ExportError, match="queue 1 item 6"):
+    with pytest.raises(ExportError, match="queue 1 item 7"):
         load_artifact(out_dir)
 
 

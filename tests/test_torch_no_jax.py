@@ -75,6 +75,10 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.serving.server",
     "interactive_vit_tpu_torch.parallel.mesh",
     "interactive_vit_tpu_torch.parallel.train",
+    "interactive_vit_tpu_torch.parallel.sequence",
+    "interactive_vit_tpu_torch.parallel.sp_attention",
+    "interactive_vit_tpu_torch.parallel.pipeline",
+    "interactive_vit_tpu_torch.tools.dryrun_multichip",
     "interactive_vit_tpu_torch.tools.evaluate",
     "interactive_vit_tpu_torch.tools.kernel_variants",
     "interactive_vit_tpu_torch.tools.run_graph",
@@ -188,7 +192,8 @@ def test_train_entry_point_parses():
                  "--log-every", "--device", "--data", "--hflip",
                  "--crop-pad", "--color-jitter", "--cutout", "--mixup",
                  "--cutmix", "--no-remat", "--distill-teacher",
-                 "--teacher-variant", "--distill-alpha", "--distill-tau"):
+                 "--teacher-variant", "--distill-alpha", "--distill-tau",
+                 "--mesh"):
         assert flag in res.stdout
 
 
@@ -203,7 +208,8 @@ def test_pretrain_entry_point_parses():
                  "--dtype", "--remat", "--accum-steps", "--memorize",
                  "--distinct-classes", "--data", "--probe", "--output",
                  "--save-every", "--resume", "--export-encoder",
-                 "--export-safetensors", "--log-every", "--device"):
+                 "--export-safetensors", "--log-every", "--device",
+                 "--mesh"):
         assert flag in res.stdout
 
 
@@ -215,7 +221,7 @@ def test_evaluate_entry_point_parses():
     assert res.returncode == 0, res.stderr
     for flag in ("--variant", "--ckpt", "--ckpt-layout", "--data",
                  "--memorize", "--distinct-classes", "--batch", "--limit",
-                 "--top-k", "--seed", "--dtype", "--device"):
+                 "--top-k", "--seed", "--dtype", "--device", "--mesh"):
         assert flag in res.stdout
 
 
@@ -238,6 +244,9 @@ def _default_device_entry_points():
     from interactive_vit_tpu_torch.tools.evaluate import main as eval_main
     from interactive_vit_tpu_torch.tools.pretrain import main as pretrain_main
     from interactive_vit_tpu_torch.tools.train import main as train_main
+    from interactive_vit_tpu_torch.tools.dryrun_multichip import (
+        main as dryrun_main,
+    )
 
     return {
         "build_app": lambda tmp: build_app(models=["vit_t16"],
@@ -271,6 +280,13 @@ def _default_device_entry_points():
         "train_main_distill": lambda tmp: train_main(
             ["--steps", "1", "--variant", "deit_b16", "--distill-teacher",
              str(tmp / "t.safetensors"), "--teacher-variant", "vit_b16"]),
+        "train_main_mesh": lambda tmp: train_main(
+            ["--steps", "1", "--mesh", "data=1"]),
+        "pretrain_main_mesh": lambda tmp: pretrain_main(
+            ["--steps", "1", "--mesh", "data=1"]),
+        "eval_main_mesh": lambda tmp: eval_main(
+            ["--memorize", "4", "--mesh", "data=1"]),
+        "dryrun_main": lambda tmp: dryrun_main([]),
     }
 
 
@@ -284,7 +300,9 @@ def _default_device_entry_points():
                                    "make_model_vgg16", "build_app_clip_vgg",
                                    "run_graph_zeroshot", "train_main_data",
                                    "eval_main", "pretrain_main",
-                                   "train_main_swin", "train_main_distill"])
+                                   "train_main_swin", "train_main_distill",
+                                   "train_main_mesh", "pretrain_main_mesh",
+                                   "eval_main_mesh", "dryrun_main"])
 def test_default_device_entry_points_raise_without_a_card(
         entry, tmp_path, monkeypatch):
     """The entry points run on the card unless asked for the CPU: with no

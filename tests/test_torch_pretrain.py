@@ -302,7 +302,7 @@ def test_pretrain_defaults_to_the_card(monkeypatch):
         pretrain.main(["--steps", "1"])
 
 
-@pytest.mark.parametrize("flags", [["--mesh", "data=1"],
+@pytest.mark.parametrize("flags", [["--mesh", "pipe=2"],
                                    ["--platform", "cpu"],
                                    ["--batch", "6", "--accum-steps", "4"]])
 def test_pretrain_refuses_unported_and_bad_flags(flags):

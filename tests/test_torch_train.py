@@ -517,13 +517,15 @@ def test_main_defaults_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "data=1"], ["--mesh", "data=4,model=2"],
+    ["--mesh", "data=one"], ["--mesh", "data=4,pipe=2"],
     ["--teacher-variant", "vit_t16"],
     ["--distill-alpha", "0.2", "--teacher-variant", "vit_t16"],
     ["--distill-teacher", "t.pth"], ["--platform", "cpu"]])
 def test_unported_flags_are_refused(flag):
-    """The mesh's flags are not ported; the distillation pair
-    (``--distill-teacher`` / ``--teacher-variant``) is refused alone."""
+    """A malformed --mesh (a size that is not a number, an axis other
+    than data / model / stage) and --platform are refused; the
+    distillation pair (``--distill-teacher`` / ``--teacher-variant``) is
+    refused alone."""
     with pytest.raises(SystemExit):
         train_tool.parse_args(["--device", "cpu", *flag])
 
