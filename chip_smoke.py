@@ -314,7 +314,8 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
    dino_s16.json in bf16 from a ``.npy`` image (12 row-1 launches, an
    ``.npy`` a tap, PNGs of the two feature maps). Then the gradient kinds
    (``run_saliency_graphs``): the repository's vit_t16_saliency.json
-   (saliency gradxinput, dream 32 steps, occlusion patch 32 stride 16,
+   (saliency gradxinput, dream cut from its saved 32 steps to
+   ``SALIENCY_DREAM_STEPS``, occlusion patch 32 stride 16,
    vit_t16:attrib), swin_t_saliency.json and vit_b16_tome_saliency.json
    through ``POST /compute``, each on a bf16 and an f32 server, a 3 x 224
    x 224 image, every gradient node's "o" and raw channel tapped with the
@@ -561,9 +562,10 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        the log line names), ``selftest`` ok; export seconds, artifact MB,
        load seconds, the first call's eager pass and capture, and the
        loaded and live CUDA-graph replays' device-synchronized walls; the
-       gradient graph (dream cut to one step, ``SAL_PARAMS``) is exported
-       by a child process that runs beside the others' (its trace and
-       save are minutes of host-bound Python);
+       gradient graph (dream cut to one step and occlusion to stride 32,
+       ``SAL_PARAMS``: 4 passes of the chain, 48 row-1 launches) is
+       exported by a child process that runs beside the others' (its
+       trace and save are minutes of host-bound Python);
    (r) a ``--from-export`` server (``build_export_app``, selftests on)
        over the vit_b16 bf16 and vit_t16_saliency artifacts beside the
        live server: vit_b16's /compute response bytes equal, a saliency
@@ -571,7 +573,8 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        capture) and equals the live server's; the client p50 of 20
        sequential vit_b16 requests on each;
    (s) the vit_b16 artifact loaded and run in a fresh interpreter that
-       imports no model code, its outputs bit for bit this process's.
+       imports no model code (started once that artifact exists, beside
+       the other exports), its outputs bit for bit this process's.
 8e. the mesh (``phase_mesh``; ``parallel/mesh.py``, ``parallel/train.py``'s
    ``setup_sharded``, ``parallel/sequence.py``):
    (a) a one-rank NCCL group in this process (``make_mesh({"data": 1,
@@ -595,14 +598,35 @@ Drives ``interactive_vit_tpu_torch`` through its main paths and fails
        f32) against the plain attention within 1e-5 (Ulysses' maps too);
    (d) the tests' four-rank gloo dry run (``tools/dryrun_multichip``,
        ``--device cpu``) on this machine's CPU, started beside (a)-(c),
-       its case lines printed.
+       started with 8e, beside (a)-(c) and phase 8f, which prints its case
+       lines (the serving cases' among them) at its end.
+8f. serving on the mesh (``phase_mesh_serving``; ``graph/executor.py``'s
+   mesh mode, ``serving/server.py``'s ``--mesh``):
+   (t) ``python -m torch.distributed.run --standalone --nproc-per-node 1
+       chip_smoke.py --counted-server COUNTS --models vit_b16 --mesh
+       data=1`` in bf16 and in f32 (the server module's ``main`` under
+       torchrun on a one-rank NCCL group, ``counted_server``: the compiled
+       path's launches counted as phase 4's, the counters written to
+       COUNTS after each executor call), each beside the same server
+       without ``--mesh`` in a process of its own, all four started at the
+       phase's start: 3 requests one after another and a group of 4 (batch
+       4) with phase 4's vit_b16 taps, each response's bytes equal to the
+       no-mesh server's (the same sequence); a pass (a request or the
+       group) launches ``fused_attn_block_mma`` (bf16) or
+       ``fused_attn_block_tf32x3`` (f32) 12 times and nothing else, on
+       both servers (the mesh's added to the kernels line); ``/health``
+       and ``/metrics`` name the mesh;
+   (u) a replay's wall and device busy on each server, from ``POST
+       /profile`` (20 ``executor.run``s under torch.profiler, the batcher
+       bypassed; turns mesh, no-mesh, no-mesh, mesh);
+   (v) the wait for the dry run (d), its lines printed.
 9. result  -- the profiles taken again, the replayed outputs that were
    not the eager pass's bit for bit, a table of the compiled path (each
    served path's replay and eager walls, profiled walls and device busy,
    capture times, ``memory_reserved``), a JSON line describing the
    kernels, then the final line ``{"ok": true, "device": {...}}``.
 
-It imports nothing of JAX. Phases 3-5, 7, 8, 8b, 8c, 8d and 8e use random (seeded)
+It imports nothing of JAX. Phases 3-5, 7, 8, 8b, 8c, 8d, 8e and 8f use random (seeded)
 weights, so their logits are meaningless as classifications; what is checked is
 that the served path and the plain path agree. Phase 6's oracle classifies with
 weights the trainer made.
@@ -4068,6 +4092,10 @@ SALIENCY_PATHS = (
      {"row1_attn_mma_kernel": 96, "key_mean_kernel": 96,
       "::attention_kernel": 0}),
 )
+# run_saliency_graphs' dream steps (the saved graphs' 32 cut: a step is a
+# forward and a backward through the plain twins, no kernel, so the cut
+# moves no launch count, only the busy and the capture time)
+SALIENCY_DREAM_STEPS = "8"
 # (kind, its raw channel) of the gradient nodes a saliency graph taps
 GRAD_TAPS = {"saliency": "g", "dream": "delta", "occlusion": "g",
              "attrib": "rel"}
@@ -4287,6 +4315,10 @@ def run_saliency_graphs(device, graphs_dir, counters) -> None:
                          or n["instance"]["kind"] for n in obj["nodes"]]
                 grads = {i: grad_kind(nm) for i, nm in enumerate(names)
                          if grad_kind(nm) in GRAD_TAPS}
+                for i, k in grads.items():
+                    if k == "dream":
+                        obj["nodes"][i]["instance"]["params"]["steps"] = \
+                            SALIENCY_DREAM_STEPS
                 head = next(i for i, nm in enumerate(names)
                             if nm.endswith(":head"))
                 taps = sorted({(head, "o")} | {
@@ -4456,7 +4488,8 @@ def run_saliency_graphs(device, graphs_dir, counters) -> None:
             finally:
                 stop(app, httpd)
             log(f"  {tag} (the saved graph: "
-                f"{', '.join(sorted(set(grads.values())))}; dream 32 steps, "
+                f"{', '.join(sorted(set(grads.values())))}; dream "
+                f"{SALIENCY_DREAM_STEPS} steps, "
                 f"occlusion patch {patch} stride {stride}): launches a "
                 f"request {kernels} (the main pass and occlusion's "
                 f"unoccluded and 6 chunked forwards; the FMA routes none); "
@@ -8209,8 +8242,13 @@ OP_COUNTERS = {
 # vit_t16_saliency.json's edits in phase 8d: saliency (node 17) on a class,
 # whose index a request edits over the wire; dream (node 19) cut to one
 # step: its 32 steps unroll into the program, which multiplies the program's
-# nodes, and with them its export and load times, about nine-fold
-SAL_PARAMS = {17: {"target": "class", "class": "3"}, 19: {"steps": "1"}}
+# nodes, and with them its export and load times, about nine-fold;
+# occlusion (node 21) at stride 32: 49 positions in 2 chunks of 32, so the
+# program holds 4 passes of the chain (the main pass, the unoccluded one,
+# the chunks) instead of 8, 48 row-1 launches a request
+SAL_PARAMS = {17: {"target": "class", "class": "3"}, 19: {"steps": "1"},
+              21: {"stride": "32"}}
+SAL_LAUNCHES = 48
 # The graphs of phase 8d: (tag, model, --dtype, --attn, saved graph,
 # node params, the program's ivt nodes, a request's launches). The three
 # chain graphs are the ones the server generates into --graphs-dir.
@@ -8237,8 +8275,8 @@ EXPORTS = (
      {"fused_window_attn": 12}, {"fused_window_attn_mma": 12}),
     # last: exported by a child process that starts with the phase
     ("vit_t16_saliency bf16", "vit_t16", "bfloat16", "auto",
-     "vit_t16_saliency", SAL_PARAMS, {"fused_attn_block": 96},
-     {"fused_attn_block_mma": 96}),
+     "vit_t16_saliency", SAL_PARAMS, {"fused_attn_block": SAL_LAUNCHES},
+     {"fused_attn_block_mma": SAL_LAUNCHES}),
 )
 # A loaded artifact's outputs against the live replay's where the two
 # programs differ in a plain op (an ATen op that torch.export records in
@@ -8638,7 +8676,8 @@ def export_servers(device, arts, counters, image) -> None:
                                      "captured again")
             export_vs_live(f"vit_t16_saliency class {cls} over the wire",
                            xs, ls, "bfloat16")
-            if cls == "5" and xcounts != {"fused_attn_block_mma": 96}:
+            if cls == "5" and xcounts != {"fused_attn_block_mma":
+                                          SAL_LAUNCHES}:
                 raise AssertionError(f"saliency class edit launched "
                                      f"{xcounts}")
 
@@ -8654,8 +8693,9 @@ def export_servers(device, arts, counters, image) -> None:
         EXPORT_NUMS["p50"] = ((x50 + x50b) / 2, (l50 + l50b) / 2)
         log(f"  (r) --from-export vit_b16 bf16 + vit_t16_saliency (selftests "
             f"ok): /compute bytes equal to the live server's; a saliency "
-            f"class edit 3 -> 5 replayed the artifact's program (96 row-1 "
-            f"launches, no capture) and equals the live server's; client "
+            f"class edit 3 -> 5 replayed the artifact's program "
+            f"({SAL_LAUNCHES} row-1 launches, no capture) and equals the "
+            f"live server's; client "
             f"p50 of 20 sequential vit_b16 requests (turns export, live, "
             f"live, export): --from-export {EXPORT_NUMS['p50'][0]:.2f} ms, "
             f"live {EXPORT_NUMS['p50'][1]:.2f} ms [{CARD['smi']}]")
@@ -8667,9 +8707,11 @@ def export_servers(device, arts, counters, image) -> None:
         torch.cuda.empty_cache()
 
 
-def export_subprocess(art_dir, image, want) -> None:
+def export_subprocess(art_dir, image):
     """(s) the vit_b16 artifact loaded and run in a fresh interpreter that
-    imports no model code: its outputs equal this process's artifact's."""
+    imports no model code, started (a ``Popen``, with its start time) to
+    run beside the other exports; ``export_subprocess_check`` waits for
+    it."""
     code = f"""
 import sys, numpy as np
 from interactive_vit_tpu_torch.graph.export import load_artifact
@@ -8684,11 +8726,23 @@ assert not bad, bad
 print("clean")
 """
     np.save(os.path.join(art_dir, "image.npy"), image)
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, cwd=HERE, timeout=300)
-    if res.returncode != 0 or res.stdout.strip() != "clean":
-        raise AssertionError(f"the subprocess load failed: {res.stderr}")
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, cwd=HERE), time.perf_counter()
+
+
+def export_subprocess_check(started, art_dir, want) -> None:
+    """(s)'s end: the fresh interpreter's outputs equal this process's
+    artifact's."""
+    proc, t0 = started
+    try:
+        stdout, stderr = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0 or stdout.strip() != "clean":
+        raise AssertionError(f"the subprocess load failed: {stderr}")
     with np.load(os.path.join(art_dir, "sub.npz")) as sub:
         got = {}
         for key in sub.files:
@@ -8698,7 +8752,7 @@ print("clean")
                           "bfloat16")
     log(f"  (s) a fresh interpreter loaded and ran the vit_b16 bf16 "
         f"artifact with no model module imported in "
-        f"{time.perf_counter() - t0:.1f} s: its "
+        f"{time.perf_counter() - t0:.1f} s (beside the other exports): its "
         f"{sum(len(c) for c in got.values())} outputs "
         f"{held} this process's")
 
@@ -8713,7 +8767,7 @@ def phase_export(device, counters) -> None:
     image = np.random.default_rng(28).random((3, 224, 224),
                                              dtype=np.float32)
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_8d_")
-    child = None
+    child = sub = None
     try:
         graphs_dir = os.path.join(tmp, "graphs")
         shutil.copytree(os.path.join(HERE, "static", "graphs"), graphs_dir)
@@ -8731,17 +8785,20 @@ def phase_export(device, counters) -> None:
                 keep[spec[0]] = (art, d, obj)
             if spec[0] == "vit_b16 bf16":
                 b16_want = art(image)
+                # (s) starts now, beside the other exports
+                sub = export_subprocess(d, image)
             app.close()
             del app, art
             torch.cuda.empty_cache()
             log(f"      ({time.perf_counter() - t0:.1f} s)")
         export_servers(device, keep, counters, image)
-        export_subprocess(keep["vit_b16 bf16"][1], image, b16_want)
+        export_subprocess_check(sub, keep["vit_b16 bf16"][1], b16_want)
         keep.clear()
     finally:
-        if child is not None and child.poll() is None:
-            child.kill()
-            child.wait()
+        for proc in (child, sub and sub[0]):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     rows = EXPORT_NUMS["rows"]
     log("  export summary (s, MB, s, s, ms, ms): graph, export, artifact, "
@@ -8983,28 +9040,36 @@ def mesh_cli(device, counters, tmp) -> None:
 
 def mesh_dryrun(proc, t0) -> None:
     """(d): the four-rank gloo dry run on this machine's CPU (``proc``,
-    started at ``t0`` beside (a)-(c)); its case lines printed."""
+    started at ``t0`` beside phases 8e and 8f); its case lines printed,
+    the serving cases' among them."""
     stdout, _ = _torchrun_wait("(d) gloo dry run", proc)
     lines = [x for x in stdout.splitlines() if x.startswith("dryrun")]
-    if not lines or not lines[-1].startswith("dryrun_multichip ok"):
+    if not lines or not lines[-1].startswith("dryrun_multichip ok") \
+            or not any(x.startswith("dryrun serving: ok") for x in lines):
         raise AssertionError(f"(d) dry run: {stdout[-2000:]}")
     for line in lines:
         log(f"  (d) {line}")
     log(f"  (d) the four-rank gloo dry run took "
-        f"{time.perf_counter() - t0:.1f} s, beside (a)-(c)")
+        f"{time.perf_counter() - t0:.1f} s, beside phases 8e and 8f")
+
+
+def start_dryrun():
+    """(d): the four-rank gloo dry run (``tools/dryrun_multichip``, its
+    training and serving cases) on this machine's CPU, started (a
+    ``Popen``) to run beside phases 8e and 8f."""
+    return _torchrun_start(4, "interactive_vit_tpu_torch.tools."
+                           "dryrun_multichip", ["--device", "cpu"],
+                           env={"OMP_NUM_THREADS": "1"})
 
 
 def phase_mesh(device, counters) -> dict:
-    """Phase 8e: runs (a)-(d) (the module docstring); returns the
-    main-path launches of (a) to add to the kernels line."""
+    """Phase 8e: runs (a)-(c) (the module docstring; (d), the dry run, runs
+    beside it and phase 8f, which waits for it); returns the main-path
+    launches of (a) to add to the kernels line."""
     import torch
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_mesh_")
-    # (d) runs on the CPU beside the card's (a)-(c)
-    dry = _torchrun_start(4, "interactive_vit_tpu_torch.tools."
-                          "dryrun_multichip", ["--device", "cpu"],
-                          env={"OMP_NUM_THREADS": "1"})
     try:
         t0 = time.perf_counter()
         launches = mesh_steps(device, counters, tmp)
@@ -9012,14 +9077,298 @@ def phase_mesh(device, counters) -> dict:
         t0 = time.perf_counter()
         mesh_cli(device, counters, tmp)
         log(f"  (b) took {time.perf_counter() - t0:.1f} s")
-        mesh_dryrun(dry, t_phase)
     finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.communicate()
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"  phase 8e took {time.perf_counter() - t_phase:.1f} s "
+        f"({CARD['smi']})")
+    return launches
+
+
+# -- phase 8f: serving on the mesh ------------------------------------------------
+
+# the served path: vit_b16 from the repository's saved graph with phase 4's
+# taps (maps and rollout of blocks 0, 5, 11 and the head)
+MESH_SERVE_TAPS = [(2, "attn"), (2, "r"), (7, "attn"), (7, "r"),
+                   (13, "attn"), (13, "r"), (15, "o")]
+# sequential requests, then one group of MESH_SERVE_GROUP at once (the
+# group collects in a 200 ms window); each is one pass of the path
+MESH_SERVE_REQUESTS = 3
+MESH_SERVE_GROUP = 4
+# each dtype's route of row 1: its launches a pass (a request alone or a
+# group), every other kernel none
+MESH_SERVE_KERNELS = {"bfloat16": "fused_attn_block_mma",
+                      "float32": "fused_attn_block_tf32x3"}
+MESH_SERVE_ARGV = ["--models", "vit_b16", "--max-batch",
+                   str(MESH_SERVE_GROUP), "--max-wait-ms", "200"]
+
+
+def counter_key(fn, attr: str = "launches") -> str:
+    """A launch counter's name across processes: its wrapper's module and
+    name, and the attribute."""
+    return f"{fn.__module__}:{fn.__qualname__}.{attr}"
+
+
+def counted_server(counts_path: str, argv) -> int:
+    """Phase 8f's server process, ``chip_smoke.py --counted-server COUNTS
+    ARGV``: ``serving/server.main(argv)`` (under ``torchrun`` where ARGV
+    has ``--mesh``) with the compiled path's launches counted as phase 4
+    counts them (``count_replays``) and, after each executor call, every
+    launch counter of the port written to COUNTS (a JSON object, replaced
+    whole)."""
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.serving import server
+
+    count_replays()
+    found = {"modules": -1, "counters": []}
+
+    def dump():
+        # the counters are looked up again only when a module was loaded
+        # since (a scan of every module is a millisecond a call)
+        loaded = len(sys.modules)
+        if loaded != found["modules"]:
+            found.update(modules=loaded, counters=launch_counters())
+        counts = {counter_key(fn, a): getattr(fn, a)
+                  for fn, a in found["counters"]}
+        with open(counts_path + ".tmp", "w") as f:
+            json.dump(counts, f)
+        os.replace(counts_path + ".tmp", counts_path)
+
+    for entry in ("run", "run_stacked"):
+        def counted(self, *args, _call=getattr(Executor, entry), **kw):
+            try:
+                return _call(self, *args, **kw)
+            finally:
+                dump()
+
+        setattr(Executor, entry, counted)
+    server.main(argv)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def start_counted_server(dtype_name, mesh, tmp):
+    """A ``counted_server`` of vit_b16 in ``dtype_name``: with ``mesh``
+    under ``python -m torch.distributed.run --standalone --nproc-per-node
+    1`` with ``--mesh data=1``, else a plain process with no mesh; its
+    output to a log file. Returns (process, url, counts path, log
+    path)."""
+    port = free_port()
+    tag = f"{dtype_name}_{'mesh' if mesh else 'one'}"
+    counts = os.path.join(tmp, f"counts_{tag}.json")
+    log_path = os.path.join(tmp, f"server_{tag}.log")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    launch = ([sys.executable, "-m", "torch.distributed.run",
+               "--standalone", "--nproc-per-node", "1"] if mesh
+              else [sys.executable])
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [*launch, os.path.join(HERE, "chip_smoke.py"),
+             "--counted-server", counts, *MESH_SERVE_ARGV, "--dtype",
+             dtype_name, "--port", str(port),
+             *(["--mesh", "data=1"] if mesh else [])],
+            cwd=HERE, env=env, stdout=out, stderr=subprocess.STDOUT)
+    return proc, f"http://127.0.0.1:{port}", counts, log_path
+
+
+def get_json(url: str):
+    """(status, the JSON body) of a GET; an HTTP error's too."""
+    import urllib.error
+
+    try:
+        with urllib.request.urlopen(url, timeout=60) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def wait_healthy(url, proc, log_path, timeout: float = 300.0) -> float:
+    """Seconds until ``url``'s /health answers ok; raises if the process
+    ends first or the time runs out (the tail of its log in the
+    message)."""
+    import urllib.error
+
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        if proc.poll() is not None:
+            break
+        try:
+            status, body = get_json(url + "/health")
+            if status == 200 and body.get("ok"):
+                return time.perf_counter() - t0
+        except (urllib.error.URLError, ConnectionError, OSError):
+            pass
+        time.sleep(0.5)
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    raise AssertionError(f"the server at {url} did not come up (exit "
+                         f"{proc.poll()}): {tail}")
+
+
+def serve_sequence(url, bodies, group, counts):
+    """``bodies`` one after another, then ``group`` at once (each posted
+    30 ms after the one before, within the 200 ms window: the group's
+    rows in the same order on every server); returns [(response bytes,
+    X-IVT-Timing)] in that order and each pass's counter deltas from the
+    server's ``counts`` file (the group's one)."""
+    def read():
+        if not os.path.exists(counts):
+            return {}
+        with open(counts) as f:
+            return json.load(f)
+
+    def delta(a, b):
+        return {k: b[k] - a.get(k, 0) for k in b if b[k] != a.get(k, 0)}
+
+    out, deltas = [], []
+    prev = read()
+    for body in bodies:
+        out.append(post_timed(url + "/compute", body))
+        now = read()
+        deltas.append(delta(prev, now))
+        prev = now
+    with concurrent.futures.ThreadPoolExecutor(len(group)) as pool:
+        futures = []
+        for body in group:
+            futures.append(pool.submit(post_timed, url + "/compute", body))
+            time.sleep(0.03)
+        out += [f.result() for f in futures]
+    deltas.append(delta(prev, read()))
+    return out, deltas
+
+
+def profiled_replay(url, body, iters: int = 20):
+    """(wall ms, device busy ms) a replay of ``body``'s program, from the
+    server's ``POST /profile`` (``iters`` ``executor.run``s under
+    torch.profiler, the batcher and its window bypassed)."""
+    res = json.loads(post(url + f"/profile?iters={iters}&top=5", body))
+    return res["wall_ms"] / iters, res["total_device_us"] / iters / 1e3
+
+
+def stop_process(proc, timeout: float = 60.0) -> None:
+    """End a launched server (SIGTERM; torchrun ends its worker); kill
+    it past ``timeout``."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def check_mesh_served(tag, kernel, got, want, deltas, wdeltas):
+    """(t)'s checks of one dtype: every response's bytes the no-mesh
+    server's, the group in batches of ``MESH_SERVE_GROUP`` on both, and
+    12 launches of ``kernel`` a pass, nothing else, on both."""
+    from interactive_vit_tpu_torch.ops import fused_block as fb
+    from interactive_vit_tpu_torch.wire.codec import Response
+
+    for j, ((raw, timing), (wraw, wtiming)) in enumerate(zip(got, want)):
+        if raw != wraw:
+            a, w = Response.decode(raw), Response.decode(wraw)
+            diff = {f"{i}/{ch}": float(np.abs(a[i][ch] - w[i][ch]).max())
+                    for i in w for ch in w[i]}
+            raise AssertionError(
+                f"{tag}: response {j} differs from the no-mesh server's "
+                f"(batches {timing.get('batch')} / {wtiming.get('batch')}; "
+                f"max abs {diff})")
+        if j >= MESH_SERVE_REQUESTS and not (
+                timing.get("batch") == wtiming.get("batch")
+                == MESH_SERVE_GROUP):
+            raise AssertionError(
+                f"{tag}: the group ran in batches {timing.get('batch')} / "
+                f"{wtiming.get('batch')}, not {MESH_SERVE_GROUP}")
+    key = counter_key(getattr(fb, kernel))
+    for who, ds in (("--mesh", deltas), ("no-mesh", wdeltas)):
+        for j, d in enumerate(ds):
+            if d != {key: 12}:
+                raise AssertionError(
+                    f"{tag}: the {who} server's pass {j} launched {d}, "
+                    f"expected 12 of {kernel} and nothing else")
+
+
+def phase_mesh_serving(dry, t_dry) -> dict:
+    """Phase 8f: runs (t)-(v) (the module docstring), then waits for the
+    gloo dry run (``dry``, started at ``t_dry`` with phase 8e) and prints
+    its case lines; returns the main path's launches to add to the
+    kernels line."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ivt_chip_smoke_8f_")
+    # every server starts now; they come up side by side
+    servers = {(d, mesh): start_counted_server(d, mesh, tmp)
+               for d in MESH_SERVE_KERNELS for mesh in (True, False)}
+    launches = {}
+    try:
+        with open(os.path.join(HERE, "static", "graphs", "vit_b16.json")) \
+                as f:
+            obj = json.load(f)
+        rng = np.random.default_rng(31)
+        images = [rng.random((3, 224, 224), dtype=np.float32)
+                  for _ in range(MESH_SERVE_REQUESTS + MESH_SERVE_GROUP)]
+        bodies = [chain_request(obj, im, MESH_SERVE_TAPS)
+                  for im in images[:MESH_SERVE_REQUESTS]]
+        group = [chain_request(obj, im, MESH_SERVE_TAPS)
+                 for im in images[MESH_SERVE_REQUESTS:]]
+        for dtype_name, kernel in MESH_SERVE_KERNELS.items():
+            t0 = time.perf_counter()
+            (mproc, url, mcounts, mlog), (oproc, ourl, ocounts, olog) = (
+                servers[dtype_name, True], servers[dtype_name, False])
+            up = wait_healthy(url, mproc, mlog)
+            wait_healthy(ourl, oproc, olog)
+            tag = f"--mesh data=1 vit_b16 {dtype_name}"
+            want, wdeltas = serve_sequence(ourl, bodies, group, ocounts)
+            got, deltas = serve_sequence(url, bodies, group, mcounts)
+            check_mesh_served(tag, kernel, got, want, deltas, wdeltas)
+            launches[kernel] = 12 * len(deltas)
+            shape = {"data": 1, "model": 1}
+            status, health = get_json(url + "/health")
+            _, metrics = get_json(url + "/metrics")
+            _, ohealth = get_json(ourl + "/health")
+            if not (status == 200 and health.get("mesh") == shape
+                    and metrics.get("mesh") == shape
+                    and ohealth.get("mesh") is None):
+                raise AssertionError(f"{tag}: /health {health}, /metrics "
+                                     f"mesh {metrics.get('mesh')}, the "
+                                     f"no-mesh /health {ohealth}")
+            walls = [profiled_replay(u, bodies[0])
+                     for u in (url, ourl, ourl, url)]
+            for proc in (mproc, oproc):
+                stop_process(proc)
+            log(f"  (t) {tag} under torchrun --nproc-per-node 1 (the server "
+                f"module's main, a one-rank NCCL group; up in {up:.1f} s) "
+                f"beside the same server with no mesh, each in a process of "
+                f"its own: {MESH_SERVE_REQUESTS} requests and a group of "
+                f"{MESH_SERVE_GROUP} (batch {MESH_SERVE_GROUP} on both) "
+                f"answered bit for bit as the no-mesh server (response "
+                f"bytes equal); launches a pass {kernel} 12, every other "
+                f"kernel 0, on both ({len(deltas)} passes: "
+                f"{launches[kernel]} on the mesh); /health and /metrics "
+                f"name the mesh {shape} (the no-mesh server's None)")
+            (mw, mb), (ow, ob), (ow2, ob2), (mw2, mb2) = walls
+            log(f"  (u) {tag}: a replay under /profile (20 executor.runs, "
+                f"profiled; turns mesh, no-mesh, no-mesh, mesh): wall "
+                f"--mesh {mw:.3f} / {mw2:.3f} ms, no-mesh {ow:.3f} / "
+                f"{ow2:.3f} ms; device busy --mesh {mb:.3f} / {mb2:.3f}, "
+                f"no-mesh {ob:.3f} / {ob2:.3f} ms [{CARD['smi']}]; "
+                f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mesh_dryrun(dry, t_dry)
+        log(f"  (v) the dry run's end waited {time.perf_counter() - t0:.1f} "
+            f"s")
+    finally:
+        for proc, *_ in servers.values():
+            stop_process(proc)
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 8f took {time.perf_counter() - t_phase:.1f} s "
         f"({CARD['smi']})")
     return launches
 
@@ -9476,10 +9825,26 @@ def main() -> int:
     phase_export(device, counters)
 
     # 8e. the mesh: sharded steps on a one-rank NCCL group, the trainer
-    # and ivt-eval under torchrun, ring / Ulysses, the gloo dry run
+    # and ivt-eval under torchrun, ring / Ulysses; the gloo dry run starts
+    # here and runs beside 8e and 8f
     log(f"phase 8e the mesh (at {time.perf_counter() - t_start:.1f} s):")
-    for k, n in phase_mesh(device, counters).items():
-        numbers[k]["launches"] += n
+    t_dry = time.perf_counter()
+    dry = start_dryrun()
+    try:
+        for k, n in phase_mesh(device, counters).items():
+            numbers[k]["launches"] += n
+
+        # 8f. serving on the mesh: the server under torchrun with --mesh
+        # data=1 (bf16 and f32) against the no-mesh server; the dry run's
+        # end, its serving cases among its lines
+        log(f"phase 8f serving on the mesh (at "
+            f"{time.perf_counter() - t_start:.1f} s):")
+        for k, n in phase_mesh_serving(dry, t_dry).items():
+            numbers[k]["launches"] += n
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.communicate()
 
     # 9. result
     log(f"phase 9 result: all phases passed in "
@@ -9518,4 +9883,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--counted-server"]:
+        sys.exit(counted_server(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

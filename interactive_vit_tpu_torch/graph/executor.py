@@ -112,11 +112,44 @@ that every row is what its own ``run`` gives. ``run_eager`` and
 values computed before it (``_eager_grad``), and refuse one nested in
 another's cone.
 
-Not ported yet: layouts, and of the mesh (``parallel/mesh.py``, which the
-trainers use) only the executor's mesh mode and its pipeline folding are
-still to come. The JAX executor's content-addressed device input cache is
-not ported (it hides a slow remote transfer that a local card does not
-have).
+Mesh
+----
+``Executor(mesh=)`` (a ``DeviceMesh`` of ``parallel/mesh.make_mesh``, axes
+("data", "model"[, "stage"])) is the JAX executor's mesh mode in the
+port's one-process-per-device form: every rank runs its own executor and
+makes the same calls in the same order (the server's followers,
+``serving/mesh_link.py``), so that each collective of a pass meets its
+peers. A node's captures are placed once a signature by
+``mesh.shard_captures``: where the model axis is above 1 the leaves that
+``param_spec`` shards become DTensors on it (the pass then runs under
+DTensor's implicit replication), every other leaf stays whole. A single
+request's inputs are replicated (every rank holds the whole graph). A
+stacked group's bucket is rounded up to the size of the data axis
+(``_stacked_bucket``) and each rank runs its ``batch_rows`` of it, inputs
+and dynamic values alike. Every tapped output is gathered whole on every
+rank before its copy to the host (``mesh.gather_whole``: a DTensor's
+``full_tensor``, a group's data rows), so rank 0 answers with the whole.
+
+Pipeline folding: on a mesh whose "stage" axis is above 1, each maximal
+chain of same-``fold_group`` layer nodes (``find_pp_segments``, the JAX
+executor's rules) runs as one GPipe schedule over that axis
+(``parallel/pipeline.pipeline_apply_stacked``); a rank stacks its own
+stage's layers' captures (the JAX executor's ``__pp<i>`` capture), the
+chain's interior "o" taps come out of the pipe (``tap_layers``), and
+``last_pp_segments`` lists the node indices of the chains the last staging
+folded.
+
+On a mesh a pass is captured into a CUDA graph and replayed only where it
+holds no collective: a mesh whose model and stage axes are 1 (a group's
+data gather runs after the replay, outside the graph). Otherwise every rank
+runs the staged pass eagerly: gloo collectives cannot be captured, and an
+NCCL capture of DTensor's redistributions cannot be checked with more than
+one rank on one card. ``precompile`` returns False on a mesh, as in JAX.
+The eager debug paths (``run_eager``, ``run_timed_eager``) evaluate every
+node whole on every rank, with no collective.
+
+Not ported: layouts, and the JAX executor's content-addressed device input
+cache (it hides a slow remote transfer that a local card does not have).
 """
 
 from __future__ import annotations
@@ -133,6 +166,7 @@ import torch
 
 from interactive_vit_tpu_torch.graph.ir import Graph, GraphError, effective_params
 from interactive_vit_tpu_torch.graph.registry import Registry, registry
+from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
 from interactive_vit_tpu_torch.runtime.constants import retained
 from interactive_vit_tpu_torch.runtime.device import require_device
 from interactive_vit_tpu_torch.utils import tracing
@@ -303,6 +337,74 @@ def _grad_specs(graph: Graph, order, input_edges, node_kinds,
     return specs
 
 
+def find_pp_segments(order, graph: Graph, node_kinds, tap_set, captures,
+                     n_stages: int, protected=frozenset()
+                     ) -> List[List[Any]]:
+    """The maximal foldable chains of same-``fold_group`` layer nodes, in
+    topo order: the JAX executor's ``_find_pp_segments`` for ``n_stages``
+    pipeline stages.
+
+    A chain n_0 -> ... -> n_k folds into one GPipe schedule iff every node
+    shares a ``fold_group``, each interior link is exactly one o -> o edge
+    with fan-out 1, no node is tapped on an extra channel or has a wired
+    extra channel, none is in a gradient node's cone (``protected``: its
+    replay runs node by node), none has dynamic params (a folded capture is
+    not refreshed on a cache hit), and every node has captures
+    (``captures``: node index -> its captures or None). Interior "o" taps
+    are fine: the pipe emits them. Chains are trimmed to the largest
+    multiple of the stage count; the rest runs node by node."""
+    extra_tapped = {i for i, ch in tap_set if ch != "o"}
+    segments: List[List[Any]] = []
+    in_segment: Set[int] = set()
+
+    def foldable(n) -> bool:
+        kind = node_kinds[n.index]
+        # a consumed extra channel would be missing: the fold emits only
+        # the chain's "o"
+        extra_consumed = any(e.dst is not None
+                             for ch, es in n.outputs.items() if ch != "o"
+                             for e in es)
+        return (getattr(kind, "fold_group", None) is not None
+                and n.index not in protected
+                and captures.get(n.index) is not None
+                and not kind.dynamic_params()
+                and set(n.inputs.keys()) <= {"o"}
+                and n.index not in extra_tapped
+                and not extra_consumed)
+
+    def links_to(a, b) -> bool:
+        """a's only consumed output is one o -> o edge into b."""
+        edges = [e for es in a.outputs.values() for e in es
+                 if e.dst is not None]
+        return (len(edges) == 1 and edges[0].src.channel == "o"
+                and edges[0].dst.node.index == b.index
+                and edges[0].dst.channel == "o")
+
+    for n in order:
+        if n.index in in_segment or not foldable(n):
+            continue
+        group = node_kinds[n.index].fold_group
+        chain, cur = [n], n
+        while True:
+            nxt_edges = [e for es in cur.outputs.values() for e in es
+                         if e.dst is not None]
+            if len(nxt_edges) != 1:
+                break
+            nxt = nxt_edges[0].dst.node
+            if (nxt.index in in_segment or not foldable(nxt)
+                    or node_kinds[nxt.index].fold_group != group
+                    or not links_to(cur, nxt)
+                    or set(nxt.inputs.keys()) != {"o"}):
+                break
+            chain.append(nxt)
+            cur = nxt
+        keep = (len(chain) // n_stages) * n_stages
+        if keep >= n_stages and keep >= 2:
+            segments.append(chain[:keep])
+            in_segment.update(m.index for m in chain[:keep])
+    return segments
+
+
 class ExecStats:
     """Per-run timing of the last ``run``/``run_stacked``: ``stage_s`` the
     signature, cache lookup and (on a miss) validation and staging,
@@ -397,14 +499,18 @@ class _Step:
     stacked (``forward.stacked``'s; None: that runs the rows one by one)."""
 
     __slots__ = ("index", "name", "fn", "caps", "ins", "dyn", "broadcast",
-                 "grad", "scope")
+                 "grad", "scope", "pp")
 
     def __init__(self, index, name, fn, caps, ins, dyn, broadcast,
-                 grad=None):
+                 grad=None, pp=False):
         self.index, self.name, self.fn, self.caps = index, name, fn, caps
         self.ins, self.dyn, self.broadcast = ins, dyn, broadcast
         self.grad = grad
         self.scope = node_scope(index, name)
+        # a folded chain (its first node's index and kind): ``fn`` returns
+        # {env key: value}, the chain's last "o" and its tapped interior
+        # ones
+        self.pp = pp
 
 
 def node_scope(index: int, name: str) -> str:
@@ -430,14 +536,18 @@ class _Program:
     """One signature's staged pass; on a card also its captured graph,
     static input, dynamic-value and output buffers, the cached device
     constants that the graph reads (``keep``), and the bytes its static
-    buffers hold."""
+    buffers hold. ``k``: a stacked program's rows on this rank (its bucket,
+    or on a mesh with a data axis above 1 its ``batch_rows``);
+    ``rows_sharded``: the latter."""
 
-    def __init__(self, steps, dyn, input_keys, out_keys, k):
+    def __init__(self, steps, dyn, input_keys, out_keys, k,
+                 rows_sharded: bool = False):
         self.steps: List[_Step] = steps
         self.dyn: List[_Dyn] = dyn
         self.input_keys = input_keys
         self.out_keys = out_keys
-        self.k: Optional[int] = k  # the bucket of a stacked program
+        self.k: Optional[int] = k  # the rows of a stacked program
+        self.rows_sharded = rows_sharded
         self.graph = None
         self.static_in: List[torch.Tensor] = []
         self.static_dyn: Dict[int, Dict[str, torch.Tensor]] = {}
@@ -450,7 +560,9 @@ class Executor:
     """Stages, caches and runs graphs on ``device`` (the card unless the
     caller asks for the CPU; raises without a card). On a card with
     ``use_jit`` each program signature is captured once into a CUDA graph
-    and replayed; ``use_jit=False`` runs every request eagerly."""
+    and replayed; ``use_jit=False`` runs every request eagerly. ``mesh``:
+    this rank's executor on a ``DeviceMesh`` (the module docstring's
+    Mesh); ``device`` is then this rank's, of the mesh's device type."""
 
     # LRU bound on staged programs: long-running interactive serving sees
     # unbounded distinct (graph, shapes, taps) signatures
@@ -469,12 +581,21 @@ class Executor:
     MAX_CAPTURE_BYTES = 8 << 30
 
     def __init__(self, reg: Optional[Registry] = None, use_jit: bool = True,
-                 max_cache_entries: Optional[int] = None, device="cuda"):
+                 max_cache_entries: Optional[int] = None, device="cuda",
+                 mesh=None):
         self.reg = reg or registry()
         self.use_jit = use_jit
         self.max_cache_entries = max_cache_entries or self.MAX_CACHE_ENTRIES
         self.device = require_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(
+                f"a {mesh.device_type} mesh cannot serve on {self.device}: "
+                f"give this rank's device (parallel/mesh.init_distributed)")
+        self.mesh = mesh
         self.last_stats = ExecStats()
+        # the node indices of the chains folded into pipeline schedules by
+        # the most recent staging
+        self.last_pp_segments: List[List[int]] = []
         # signature -> _Program, LRU-ordered; _cache_lock guards the dict
         # (precompile may fill it from another thread)
         self._cache: "OrderedDict[str, _Program]" = OrderedDict()
@@ -515,11 +636,46 @@ class Executor:
                         raise NodeError(n.index, n.name,
                                         f"missing input {ch!r}")
 
+    # -- the mesh -------------------------------------------------------------
+    def _axis(self, axis: str) -> int:
+        return mesh_lib.axis_size(self.mesh, axis)
+
+    def _pp_stages(self) -> int:
+        """Pipeline stage count (the mesh's "stage" axis; 0 = off)."""
+        s = self._axis("stage")
+        return s if s > 1 else 0
+
+    def _collective_pass(self) -> bool:
+        """Whether a staged pass holds collectives: a mesh whose model or
+        stage axis is above 1."""
+        return self._axis("model") > 1 or self._pp_stages() > 0
+
+    def _on_mesh(self):
+        """The context of a pass: DTensor's implicit replication where the
+        model axis is above 1 (plain tensors then act as replicated)."""
+        if self._axis("model") == 1:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import (
+            implicit_replication,
+        )
+
+        return implicit_replication()
+
+    def _find_pp_segments(self, order, graph: Graph, node_kinds, tap_set,
+                          captures, protected=frozenset()
+                          ) -> List[List[Any]]:
+        """``find_pp_segments`` at this mesh's stage count."""
+        return find_pp_segments(order, graph, node_kinds, tap_set, captures,
+                                self._pp_stages(), protected)
+
     # -- signatures -------------------------------------------------------------
-    @staticmethod
-    def _stacked_bucket(k: int) -> int:
-        """Power-of-two batch bucket of a group of ``k``."""
-        return 1 << (k - 1).bit_length()
+    def _stacked_bucket(self, k: int) -> int:
+        """Power-of-two batch bucket of a group of ``k``, rounded up to the
+        mesh's data axis (a data axis of 3 or 6 is legal, so a power of two
+        alone need not divide by it)."""
+        bucket = 1 << (k - 1).bit_length()
+        nd = self._axis("data")
+        return -(-bucket // nd) * nd
 
     def _sig_param_filter(self, n):
         """Drop each kind's dynamic params from the signature: their
@@ -633,16 +789,28 @@ class Executor:
             return type(tree)(self._place(v) for v in tree)
         return tree
 
+    def _place_captures(self, tree, shard: bool):
+        """A capture tree on the device; with ``shard``, on a mesh, placed
+        by ``mesh.shard_captures`` (the JAX executor's
+        ``_place_captures``)."""
+        tree = self._place(tree)
+        if shard and self.mesh is not None:
+            tree = mesh_lib.shard_captures(tree, self.mesh)
+        return tree
+
     def _stage(self, graph: Graph, tap_set, bucket: Optional[int] = None,
-               grad_of=None) -> _Program:
+               grad_of=None, rows_sharded: bool = False) -> _Program:
         """The validated graph's pass, once a signature: the node order,
         each node's effective params, its kind's fn (``stacked_fn`` for a
-        stacked program of ``bucket`` rows) and its static captures placed
-        on the device; for each gradient node its replay's steps. The
-        program keeps no reference to the graph (or its request tensors).
-        ``grad_of``: (a gradient node, whether to stage its cone): the
-        eager paths' program of that node alone, after its cone's steps
-        where they must compute its leaf again (``_eager_grad``)."""
+        stacked program of ``bucket`` rows on this rank; ``rows_sharded``:
+        a mesh's data rank's ``batch_rows``) and its static captures placed
+        on the device (on a mesh by ``_place_captures``), a folded chain's
+        pipeline step (``_pp_step``); for each gradient node its replay's
+        steps. The program keeps no reference to the graph (or its request
+        tensors). ``grad_of``: (a gradient node, whether to stage its
+        cone): the eager paths' program of that node alone, after its
+        cone's steps where they must compute its leaf again
+        (``_eager_grad``); its captures are whole and nothing folds."""
         order = graph.order()
         kinds = {n.index: self.reg.get_node(n.name) for n in graph.nodes}
         specs = _grad_specs(graph, order, graph.input_edges(), kinds,
@@ -657,11 +825,36 @@ class Executor:
         live = set(tap_set) | {s.wrt_key for s in specs.values()
                                if s.wrt_key[0] != "in"}
         pos = {id(n): i for i, n in enumerate(graph.nodes)}
+        raw = {}
+        for n in order:
+            try:
+                raw[n.index] = kinds[n.index].captures(n.params)
+            except Exception as err:  # noqa: BLE001 -- attribution contract
+                raise NodeError(n.index, n.name, str(err)) from err
+        segments: List[List[Any]] = []
+        if grad_of is None:
+            if self._pp_stages():
+                # a gradient node's cone (and its leaf's producer) replays
+                # node by node: none of it folds
+                protected: Set[int] = set()
+                for gi, sp in specs.items():
+                    protected.add(gi)
+                    protected.update(m.index for m in sp.anc)
+                    if sp.wrt_key[0] != "in":
+                        protected.add(sp.wrt_key[0])
+                segments = self._find_pp_segments(order, graph, kinds,
+                                                  tap_set, raw, protected)
+            self.last_pp_segments = [[m.index for m in seg]
+                                     for seg in segments]
+        folded = {m.index for seg in segments for m in seg}
+        shard = grad_of is None
         caps_of, dyn = {}, []
         for n in order:
+            if n.index in folded:
+                continue
             kind = kinds[n.index]
             try:
-                caps = kind.captures(n.params)
+                caps = raw[n.index]
                 keys = None
                 if caps is not None and kind.dynamic_params():
                     dck = kind.dynamic_capture_keys()
@@ -669,12 +862,14 @@ class Executor:
                     spec = {k: (tuple(t.shape), t.dtype) for k, t in
                             ((k, torch.as_tensor(caps[k])) for k in keys)}
                     dyn.append(_Dyn(pos[id(n)], n.index, spec,
-                                    self._place({k: v for k, v in caps.items()
-                                                 if k not in keys})))
+                                    self._place_captures(
+                                        {k: v for k, v in caps.items()
+                                         if k not in keys}, shard)))
                     caps_of[n.index] = (None, {k: 0 if k in keys else None
                                                for k in caps})
                 else:
-                    caps_of[n.index] = (self._place(caps), None)
+                    caps_of[n.index] = (self._place_captures(caps, shard),
+                                        None)
             except NodeError:
                 raise
             except Exception as err:  # noqa: BLE001 -- attribution contract
@@ -718,9 +913,58 @@ class Executor:
                          isinstance(rows, int) and not n.inputs
                          and not dynamic, grad)
 
-        steps = [step(n, bucket, False) for n in staged]
+        seg_at = {seg[0].index: (sid, seg)
+                  for sid, seg in enumerate(segments)}
+        steps = [self._pp_step(*seg_at[n.index], raw, kinds, tap_set, bucket)
+                 if n.index in seg_at else step(n, bucket, False)
+                 for n in staged if n.index in seg_at or n.index not in folded]
         input_keys = [("in", n.index, ch) for n, ch, _ in graph.input_edges()]
-        return _Program(steps, dyn, input_keys, _tap_order(tap_set), bucket)
+        return _Program(steps, dyn, input_keys, _tap_order(tap_set), bucket,
+                        rows_sharded)
+
+    def _pp_step(self, sid: int, seg, raw, kinds, tap_set,
+                 rows: Optional[int]) -> _Step:
+        """A folded chain's step: its stage's layers' captures stacked on a
+        leading layer dim (this rank's share of the JAX executor's
+        ``__pp<sid>``), run through ``pipeline_apply_stacked`` over the
+        "stage" axis; it emits the chain's last "o" and its tapped interior
+        ones. In a stacked program (``rows``) the group's rows fold into
+        the batch, as ``LayerNodeKind.stacked_fn`` folds them. Every rank
+        pipelines its own rows (``data_axis=None``: they are replicated or
+        already this data rank's)."""
+        from interactive_vit_tpu_torch.parallel import pipeline
+
+        lps = len(seg) // self._pp_stages()
+        s = mesh_lib.axis_index(self.mesh, "stage")
+        stacked = self._place(pipeline._stack_blocks(
+            [raw[m.index] for m in seg[s * lps:(s + 1) * lps]]))
+        layer_fn = kinds[seg[0].index].fold_fn()
+        taps = tuple(k for k, m in enumerate(seg[:-1])
+                     if (m.index, "o") in tap_set)
+        mesh = self.mesh
+
+        def fn(ins, caps):
+            x = mesh_lib.full_tensor(ins["o"])
+            lead = x.shape[:2] if rows is not None else None
+            if lead is not None:
+                x = x.flatten(0, 1)
+            y = pipeline.pipeline_apply_stacked(
+                caps, x, layer_fn, mesh, n_layers=len(seg), tap_layers=taps,
+                data_axis=None)
+            y, emitted = y if taps else (y, {})
+            out = {(seg[-1].index, "o"): y}
+            out.update({(seg[k].index, "o"): v for k, v in emitted.items()})
+            if lead is not None:
+                out = {key: v.unflatten(0, lead) for key, v in out.items()}
+            return out
+
+        first = seg[0]
+        st = _Step(first.index, first.name, fn, stacked, [("o", (
+            ("in", first.index, "o") if first.inputs["o"].src is None
+            else (first.inputs["o"].src.node.index,
+                  first.inputs["o"].src.channel)))], False, False, pp=True)
+        st.scope = f"pp{sid}_n{first.index}-{seg[-1].index}"
+        return st
 
     def _dyn_values(self, prog: _Program, graphs: List[Graph]):
         """{node index: {key: host tensor}}: the dynamic captures of this
@@ -798,7 +1042,7 @@ class Executor:
             if nans:
                 tracing.check_nans(st.index, st.name, outs)
             for ch, v in outs.items():
-                env[(st.index, ch)] = v
+                env[ch if st.pp else (st.index, ch)] = v
                 if chunk is not None:
                     chunk[1].add((st.index, ch))
 
@@ -852,7 +1096,11 @@ class Executor:
 
     # -- the passes ---------------------------------------------------------------
     def _compiled(self) -> bool:
-        return self.use_jit and self.device.type == "cuda"
+        """Whether a program is captured and replayed: on a card with
+        ``use_jit``, off a mesh or on one whose pass holds no
+        collective."""
+        return (self.use_jit and self.device.type == "cuda"
+                and not self._collective_pass())
 
     def _side(self):
         if self._stream is None:
@@ -866,7 +1114,7 @@ class Executor:
                for key, t in zip(prog.input_keys, inputs)}
         dyn = self._dyn_caps(prog, {i: self._place(v)
                                     for i, v in values.items()})
-        return self._to_host(self._pass(prog, env, dyn), prog.k)
+        return self._to_host(self._pass(prog, env, dyn), prog)
 
     def _warm_and_capture(self, prog: _Program, inputs, values,
                           stats: ExecStats) -> InFlight:
@@ -887,7 +1135,7 @@ class Executor:
             env = dict(zip(prog.input_keys, prog.static_in))
             dyn = self._dyn_caps(prog, prog.static_dyn)
             with retained() as keep:
-                handle = self._to_host(self._pass(prog, env, dyn), prog.k)
+                handle = self._to_host(self._pass(prog, env, dyn), prog)
                 side.synchronize()
                 t0 = time.perf_counter()
                 self._capture(prog, dyn)
@@ -968,7 +1216,7 @@ class Executor:
             prog.graph.replay()
             if tracing.nans_enabled():
                 self._replay_nans(prog)
-            return self._to_host(prog.static_out, prog.k)
+            return self._to_host(prog.static_out, prog)
 
     def _replay_nans(self, prog: _Program) -> None:
         """``debug_nans`` after a replay: where a tapped output holds a NaN,
@@ -999,8 +1247,14 @@ class Executor:
         return handle
 
     def _to_host(self, outs: Dict[str, torch.Tensor],
-                 k: Optional[int]) -> InFlight:
-        """Enqueue the tapped outputs' copies to the host (see InFlight)."""
+                 prog: _Program) -> InFlight:
+        """Enqueue the tapped outputs' copies to the host (see InFlight);
+        on a mesh each is gathered whole first (``mesh.gather_whole``)."""
+        k = prog.k
+        if self.mesh is not None:
+            outs = {key: mesh_lib.gather_whole(t, self.mesh,
+                                               prog.rows_sharded)
+                    for key, t in outs.items()}
         if self.device.type != "cuda":
             return InFlight({key: t.detach().float().cpu()
                              for key, t in outs.items()}, k)
@@ -1038,7 +1292,7 @@ class Executor:
         t0 = time.perf_counter()
         tap_set, sig = self._sig_of(graph, taps, None)
         inputs = [_host_tensor(e.tensor) for _, _, e in graph.input_edges()]
-        with self._device_lock, self._grad_mode(graph):
+        with self._device_lock, self._grad_mode(graph), self._on_mesh():
             prog = self._cache_get(sig)
             stats.cache_hit = prog is not None
             if prog is None:
@@ -1064,7 +1318,9 @@ class Executor:
         capture) for every K in it, so the buckets bound the captures of a
         signature and the memory they hold. A failing node raises
         ``NodeError`` for the whole group, never a quiet per-request
-        rerun."""
+        rerun. On a mesh with a data axis above 1 the bucket is rounded up
+        to it and this rank runs its ``batch_rows`` of the padded group;
+        the outputs come back whole."""
         if not graphs:
             raise ValueError("run_stacked: empty batch")
         g0 = graphs[0]
@@ -1078,16 +1334,21 @@ class Executor:
         bucket = self._stacked_bucket(k)
         tap_set, sig = self._sig_of(g0, taps, k)
         padded = list(graphs) + [g0] * (bucket - k)
+        rows_sharded = self._axis("data") > 1
+        if rows_sharded:
+            padded = [padded[i]
+                      for i in mesh_lib.batch_rows(self.mesh, bucket)]
         per_graph = [[e.tensor for _, _, e in g.input_edges()]
                      for g in padded]
         inputs = [_host_stack([pg[i] for pg in per_graph])
                   for i in range(len(per_graph[0]))]
-        with self._device_lock, self._grad_mode(g0):
+        with self._device_lock, self._grad_mode(g0), self._on_mesh():
             prog = self._cache_get(sig)
             stats.cache_hit = prog is not None
             if prog is None:
                 self.validate(g0)
-                prog = self._stage(g0, tap_set, bucket)
+                prog = self._stage(g0, tap_set, len(padded),
+                                   rows_sharded=rows_sharded)
             values = self._dyn_values(prog, padded)
             stats.stage_s = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -1111,9 +1372,10 @@ class Executor:
         the card nothing runs; on a card the capture needs one warm pass,
         which runs on the graph's own inputs (``batch``: the stacked program of that group size's
         bucket, its rows copies of the graph). Returns True if a new
-        program was cached, False if it was already cached or
-        ``use_jit`` is off."""
-        if not self.use_jit:
+        program was cached, False if it was already cached, ``use_jit`` is
+        off, or the executor is on a mesh (as in JAX: a mesh's ranks stage
+        in the calls they make together)."""
+        if not self.use_jit or self.mesh is not None:
             return False
         tap_set, sig = self._sig_of(graph, taps, batch)
         with self._device_lock, self._grad_mode(graph):

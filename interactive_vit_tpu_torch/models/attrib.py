@@ -62,6 +62,7 @@ def _make_inject_impl(delta: torch.Tensor, store: List[torch.Tensor]):
 
 def trunk_with_attn_grads(
     caps: Params, tokens: torch.Tensor, cfg: vit.ViTConfig, scalar_fn,
+    qkv_head_major: bool = False,
 ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...],
            torch.Tensor]:
     """Run the block trunk from post-embed tokens; return per-block
@@ -70,7 +71,9 @@ def trunk_with_attn_grads(
     ``caps``: ``{"blocks": [...], "norm": ..., "head": ...}``, the subtrees
     the chained nodes close over. One forward and one backward whatever the
     depth. Where ``tokens`` carries a graph (the node sits in an outer
-    differentiated replay) the gradients keep theirs."""
+    differentiated replay) the gradients keep theirs. ``qkv_head_major``:
+    the blocks' qkv columns are head-major (a model served on a mesh's
+    model axis, ``parallel/mesh.permute_qkv_head_major``)."""
     blocks = caps["blocks"]
     b, n, _ = tokens.shape
     nested = tokens.requires_grad
@@ -82,7 +85,8 @@ def trunk_with_attn_grads(
         x = tokens
         for p, dl in zip(blocks, deltas):
             x, _, _ = vit.block(p, x, cfg,
-                                attn_impl=_make_inject_impl(dl, store))
+                                attn_impl=_make_inject_impl(dl, store),
+                                qkv_head_major=qkv_head_major)
         feats = vit.final_norm({"norm": caps["norm"]},
                                x[:, : cfg.prefix_tokens], cfg)
         logits = vit.head(caps, feats)
@@ -131,12 +135,15 @@ class AttribNodeKind(NodeKind):
     Params: ``target`` max | class; ``class`` (dynamic: a 0-d capture
     beside the trunk's weights, which ride unstacked in a group).
     ``quantized``: dequantize the trunk's int8 leaf-dicts inline, as the
-    saliency twins do (``model_plugin.dequant_grad_twin``)."""
+    saliency twins do (``model_plugin.dequant_grad_twin``); ``tp_layout``:
+    the trunk's qkv columns are head-major (``make_vit_model(tp_layout=
+    True)``)."""
 
     TARGETS = ("max", "class")
     autograd = True
 
-    def __init__(self, model, cfg: vit.ViTConfig, quantized: bool = False):
+    def __init__(self, model, cfg: vit.ViTConfig, quantized: bool = False,
+                 tp_layout: bool = False):
         # the injected attention has no ToMe key bias: a subclassed config
         # would attribute against the wrong forward with matching shapes
         if type(cfg) is not vit.ViTConfig:
@@ -148,6 +155,7 @@ class AttribNodeKind(NodeKind):
         self.model = model
         self.cfg = cfg
         self._quantized = quantized
+        self._tp_layout = tp_layout
 
     def io(self, params):
         return {"ins": ["o"], "outs": ["o", "rel", "logits"]}
@@ -193,7 +201,7 @@ class AttribNodeKind(NodeKind):
 
     def fn(self, params):
         target = self._decode(params)
-        cfg = self.cfg
+        cfg, head_major = self.cfg, self._tp_layout
         dequant = (dequant_grad_twin(lambda p, _ins: p) if self._quantized
                    else None)
 
@@ -215,8 +223,8 @@ class AttribNodeKind(NodeKind):
                      else y.amax(dim=-1))
                 return y.sum()
 
-            probs, grads, logits = trunk_with_attn_grads(trunk, x, cfg,
-                                                         scalar)
+            probs, grads, logits = trunk_with_attn_grads(
+                trunk, x, cfg, scalar, qkv_head_major=head_major)
             rel = chefer_relevance(probs, grads)
             # the CLS row, the prefix columns dropped (DeiT: CLS + DIST)
             row = rel[:, 0, cfg.prefix_tokens:]

@@ -75,6 +75,8 @@ def make_model(
     attn_impl=None,
     quantize=False,
     block_kernel: str = "auto",
+    kernels: bool = True,
+    tp_layout: bool = False,
 ):
     """Build the registerable ``TorchModel`` for ``variant`` on ``device``
     (the card unless the caller asks for the CPU). ``attn_impl`` is the
@@ -85,7 +87,10 @@ def make_model(
     (MAE's names its encoder's geometry) and a ``block_kernel`` other than
     "auto", as in the JAX package; ``quantize`` goes to ``make_swin_model``
     for Swin (both int8 modes), and every other family, as in JAX, logs a
-    warning for it and serves the float ``dtype``."""
+    warning for it and serves the float ``dtype``. ``kernels`` goes to every
+    family maker that has it (the plain ViTs, Swin, ToMe and CLIP's image
+    tower; the others launch no kernel of the port) and ``tp_layout`` to
+    the plain ViTs' (``make_vit_model``), as in JAX."""
     if plain_vit_family(variant):
         from interactive_vit_tpu_torch.models.vit_plugin import (
             make_vit_model,
@@ -94,7 +99,8 @@ def make_model(
         return make_vit_model(variant, params=params, seed=seed,
                               dtype=dtype, device=device,
                               attn_impl=attn_impl, quantize=quantize,
-                              block_kernel=block_kernel)
+                              block_kernel=block_kernel, kernels=kernels,
+                              tp_layout=tp_layout)
     _check_family_options(variant, block_kernel)
     kw = dict(params=params, seed=seed, dtype=dtype, device=device)
     if variant.startswith("swin_"):
@@ -102,7 +108,8 @@ def make_model(
             make_swin_model,
         )
 
-        return make_swin_model(variant, quantize=quantize, **kw)
+        return make_swin_model(variant, quantize=quantize, kernels=kernels,
+                               **kw)
     if quantize:
         logger.warning("int8 not wired for %s; serving %s", variant, dtype)
     if "_tome" in variant:
@@ -110,13 +117,13 @@ def make_model(
             make_tome_model,
         )
 
-        return make_tome_model(variant, **kw)
+        return make_tome_model(variant, kernels=kernels, **kw)
     if variant == "clip_b32":
         from interactive_vit_tpu_torch.models.clip_plugin import (
             make_clip_model,
         )
 
-        return make_clip_model(attn_impl=attn_impl, **kw)
+        return make_clip_model(attn_impl=attn_impl, kernels=kernels, **kw)
     if variant == "clip_text_b32":
         from interactive_vit_tpu_torch.models.clip_text_plugin import (
             make_clip_text_model,

@@ -19,8 +19,8 @@ from interactive_vit_tpu_torch.runtime.device import require_device
 
 def make_clip_model(params: Optional[Any] = None, seed: int = 0,
                     dtype=torch.float32, device="cuda", attn_impl=None,
-                    cfg: Optional[clip.CLIPVisionConfig] = None
-                    ) -> TorchModel:
+                    cfg: Optional[clip.CLIPVisionConfig] = None,
+                    kernels: bool = True) -> TorchModel:
     """Build the registerable CLIP image tower on ``device`` (the card
     unless the caller asks for the CPU; raises without a card).
     ``params=None`` draws a random init from ``torch.Generator`` seeded
@@ -30,7 +30,9 @@ def make_clip_model(params: Optional[Any] = None, seed: int = 0,
     768 wide, 12 heads: the bf16 tensor cores or split TF32 in f32), on
     the CPU the unfused path (``attn_impl`` its attention). Where a kernel
     or ``attn_impl`` is in the chain, every layer has its plain twin for
-    gradient replays (``grad_layers``)."""
+    gradient replays (``grad_layers``). ``kernels=False`` keeps the block
+    kernel out (a mesh whose model axis is above 1: DTensor weights), as
+    the JAX maker's flag does."""
     device = require_device(device)
     cfg = cfg or clip.CLIPVisionConfig()
     if params is None:
@@ -38,7 +40,7 @@ def make_clip_model(params: Optional[Any] = None, seed: int = 0,
         params = clip.init_params(cfg, gen, dtype=dtype, device=device)
     block_impl = default_block_impl(
         "auto", dtype=params["proj"].dtype, n=cfg.tokens, d=cfg.width,
-        heads=cfg.heads, device=device)
+        heads=cfg.heads, device=device) if kernels else None
     descriptions = {
         "transform": f"Resize+CenterCrop({cfg.img_size})+CLIP-Normalize",
         "embed": f"PatchEmbed p={cfg.patch} + CLS + pos + ln_pre",

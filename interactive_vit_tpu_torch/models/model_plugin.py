@@ -17,6 +17,12 @@ same layer math in plain PyTorch, which a gradient replay runs
 (``LayerNodeKind.grad_safe_fn``), as the JAX package's replays run plain
 XLA twins of its Pallas layers. ``extra_kinds`` are node kinds registered
 with the model outside its chain (the ViT family's ``:attrib``).
+
+A layer kind with a ``fold_group`` (``TorchModel(fold_groups=)``: every
+kind of one group runs the same computation over its own captures, as a
+ViT's blocks do) is pipeline-foldable: on a mesh with a "stage" axis the
+executor may run a chain of them as one GPipe schedule
+(``parallel/pipeline.py``) through ``LayerNodeKind.fold_fn``.
 """
 
 from __future__ import annotations
@@ -99,17 +105,34 @@ def image_entry(fn: Callable, keeps_rank: bool,
 class LayerNodeKind(NodeKind):
     """One model layer as a graph node kind. ``grad_fn_impl``: the layer's
     differentiable twin (the ``fn`` contract), which ``grad_safe_fn`` runs;
-    None: ``fn`` is differentiable as it is."""
+    None: ``fn`` is differentiable as it is. ``fold_group``: non-None marks
+    the kind pipeline-foldable (the module docstring)."""
 
     def __init__(self, model: "TorchModel", layer_name: str,
                  extra_outs: List[str], fn: Callable,
-                 grad_fn_impl: Optional[Callable] = None):
+                 grad_fn_impl: Optional[Callable] = None,
+                 fold_group: Optional[str] = None):
         super().__init__(model.prefix() + layer_name)
         self.model = model
         self.layer_name = layer_name
         self._extra = list(extra_outs)
         self._fn = fn
         self._grad_fn_impl = grad_fn_impl
+        self.fold_group = fold_group
+
+    def fold_fn(self) -> Optional[Callable]:
+        """``(params, x) -> y``: one layer for ``pipeline_apply_stacked``,
+        its extra channels off (only a chain with no extra tap folds);
+        None for a kind that does not fold."""
+        if self.fold_group is None:
+            return None
+        f = self._fn
+        kw: Dict[str, Any] = {"want": frozenset()} if self._extra else {}
+
+        def layer(p, x):
+            return f(p, {"o": x}, **kw)["o"]
+
+        return layer
 
     def io(self, params):
         # layers with an "r" (rollout) extra also accept an optional "r"
@@ -209,7 +232,8 @@ class TorchModel:
     when the library has none for this model (the reference app's
     behaviour). ``grad_layers``: layer name -> its differentiable twin
     (the layer fn contract), run in gradient replays; ``extra_kinds``:
-    node kinds registered with the model outside the chain."""
+    node kinds registered with the model outside the chain;
+    ``fold_groups``: layer name -> its pipeline fold group."""
 
     def __init__(
         self,
@@ -221,6 +245,7 @@ class TorchModel:
         category_names: Optional[List[str]] = None,
         grad_layers: Optional[Dict[str, Callable]] = None,
         extra_kinds: Optional[List[NodeKind]] = None,
+        fold_groups: Optional[Dict[str, str]] = None,
     ):
         self.name = name
         self.layers = list(layers)
@@ -230,6 +255,7 @@ class TorchModel:
         self.category_names = category_names
         self.grad_layers = grad_layers or {}
         self.extra_kinds = list(extra_kinds or [])
+        self.fold_groups = fold_groups or {}
 
     def prefix(self) -> str:
         return self.name + ":"
@@ -324,6 +350,7 @@ class TorchModel:
         for lname, extra, fn in self.layers:
             self._kind_cls(lname)(
                 self, lname, extra, fn,
-                grad_fn_impl=self.grad_layers.get(lname)).register(reg)
+                grad_fn_impl=self.grad_layers.get(lname),
+                fold_group=self.fold_groups.get(lname)).register(reg)
         for kind in self.extra_kinds:
             kind.register(reg)

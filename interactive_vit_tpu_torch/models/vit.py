@@ -492,11 +492,12 @@ def rollout_carry(pmean: torch.Tensor, ins, x: torch.Tensor) -> torch.Tensor:
 
 
 def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None,
-              mlp_impl=None):
+              mlp_impl=None, qkv_head_major: bool = False):
     """The model as an ordered list of ``(layer_name, extra_out_channels,
     fn(params_subtree, ins) -> outs)``; channel "o" carries the flowing
     activation, the block extras "attn", "r" and "cls" carry taps.
-    ``attn_impl`` / ``block_impl`` / ``mlp_impl`` as in ``block``."""
+    ``attn_impl`` / ``block_impl`` / ``mlp_impl`` / ``qkv_head_major`` as
+    in ``block``."""
     layers: List[Tuple[str, List[str], Callable]] = []
 
     def transform_fn(p, ins):
@@ -519,7 +520,7 @@ def layer_fns(cfg: ViTConfig, attn_impl=None, block_impl=None,
         y, probs, pmean = block(
             p, x, cfg, want_attn="attn" in want, attn_impl=attn_impl,
             block_impl=block_impl, mlp_impl=mlp_impl, want_mean="r" in want,
-            attn_heads=sel,
+            attn_heads=sel, qkv_head_major=qkv_head_major,
         )
         outs = {"o": y}
         if probs is not None and "attn" in want:

@@ -256,3 +256,17 @@ def default_train_attn_impl(name: str = "auto", dtype=None, cfg=None,
             return trainable_flash_mhsa
         return None
     raise ValueError(f"unknown train attention impl {name!r}")
+
+
+def mesh_serving_options(model_axis: int) -> dict:
+    """The kernel rule of serving on a mesh (``serving/server.build_app``'s
+    ``--mesh``), the train steps' rule above: where the mesh's model axis
+    is 1 every rank holds whole plain weights and serves the one-device
+    models, the kernels chosen by "auto" ({}: nothing changes); where it is
+    above 1 the weights are DTensors, which no kernel takes, so the makers
+    get ``kernels=False``, the plain ViTs their head-major qkv layout
+    (``tp_layout``) and the attention policy is "reference", as the JAX
+    server forces on its mesh."""
+    if model_axis == 1:
+        return {}
+    return {"kernels": False, "tp_layout": True, "attn": "reference"}

@@ -300,6 +300,42 @@ def shard_params(params: Params, mesh) -> Params:
     return _walk(params, place)
 
 
+def shard_captures(tree, mesh):
+    """The serving placement of one graph node's captures
+    (``Executor(mesh=)``, the JAX executor's ``_place_captures``): where
+    the model axis is above 1, each tensor leaf that ``param_spec`` shards
+    over it becomes a DTensor on ``mesh["model"]`` (each rank slices its
+    own shard; nothing is sent) and every other leaf stays a plain tensor,
+    whole on every rank: replicated, as DTensor's implicit replication,
+    under which such a mesh's pass runs, treats it. Where the model axis is
+    1 the tree is returned as it is."""
+    from torch.distributed.tensor import distribute_tensor
+
+    if axis_size(mesh, "model") == 1:
+        return tree
+
+    def place(path, x):
+        spec = param_spec(path)
+        if not isinstance(x, torch.Tensor) or "model" not in spec:
+            return x
+        return distribute_tensor(x, mesh["model"], _placements(spec),
+                                 src_data_rank=None)
+
+    return _walk(tree, place)
+
+
+def gather_whole(x, mesh, rows_sharded: bool = False):
+    """A pass's output whole: a DTensor gathered over its mesh
+    (``full_tensor``) and, with ``rows_sharded`` (a stacked group whose
+    rows ``batch_rows`` scattered over "data"), every data rank's rows
+    concatenated in axis order. Every rank of the mesh calls it, in the
+    same order, and every rank gets the whole tensor."""
+    x = full_tensor(x)
+    if rows_sharded:
+        x = all_gather_rows(x, mesh, "data")
+    return x
+
+
 def is_dtensor(x) -> bool:
     from torch.distributed.tensor import DTensor
 

@@ -13,7 +13,9 @@ summed over the stages (each row written by its one owner).
 The data axis composes: where each microbatch's rows divide by it, a rank
 pipelines only its data rows of every microbatch and the results are
 gathered over "data" at the end, so every rank returns the whole batch, as
-the JAX function's result holds it. No gradient flows through the hops.
+the JAX function's result holds it. A caller whose ranks already hold
+different rows (the serving executor's data-sharded group) turns that off
+(``data_axis=None``). No gradient flows through the hops.
 """
 
 from __future__ import annotations
@@ -112,6 +114,7 @@ def pipeline_apply_stacked(
     n_micro: Optional[int] = None,
     n_layers: Optional[int] = None,
     tap_layers=(),
+    data_axis: Optional[str] = "data",
 ):
     """``x`` through the layers of a layer-stacked tree, pipelined over
     ``mesh[axis]``. ``stacked``: this stage's layers (a leading dim of
@@ -120,7 +123,9 @@ def pipeline_apply_stacked(
 
     ``n_micro`` defaults to the stage count where it divides the batch,
     else 1. ``tap_layers``: global layer indices whose activations are also
-    returned: the result is then ``(y, {layer: [B, ...] activation})``."""
+    returned: the result is then ``(y, {layer: [B, ...] activation})``.
+    ``data_axis``: the axis whose ranks split each microbatch's rows (the
+    module docstring); None: every rank pipelines its whole ``x``."""
     n_stages = mesh_lib.axis_size(mesh, axis)
     if n_layers is None:
         n_layers = _n_rows(stacked) * n_stages
@@ -129,11 +134,11 @@ def pipeline_apply_stacked(
             f"{n_layers} layers not divisible by {n_stages} stages")
     layers = [_unstack(stacked, i) for i in range(_n_rows(stacked))]
     return _pipeline(layers, n_layers, x, layer_fn, mesh, axis, n_micro,
-                     tap_layers)
+                     tap_layers, data_axis)
 
 
 def _pipeline(layers, n_layers, x, layer_fn, mesh, axis, n_micro,
-              tap_layers):
+              tap_layers, data_axis="data"):
     b = x.shape[0]
     n_stages = mesh_lib.axis_size(mesh, axis)
     if n_micro is not None and n_micro < 1:
@@ -151,18 +156,18 @@ def _pipeline(layers, n_layers, x, layer_fn, mesh, axis, n_micro,
             f"tap_layers {tap_layers} out of range 0..{n_layers - 1}")
     # PP composes with DP: a rank pipelines its data rows of each
     # microbatch where they divide (else every data rank runs them all)
-    n_data = mesh_lib.axis_size(mesh, "data")
+    n_data = 1 if data_axis is None else mesh_lib.axis_size(mesh, data_axis)
     data_ok = n_data > 1 and mb % n_data == 0
     if data_ok:
         ml = mb // n_data
-        d = mesh_lib.axis_index(mesh, "data")
+        d = mesh_lib.axis_index(mesh, data_axis)
         x_micro = x_micro[:, d * ml:(d + 1) * ml]
     res = _pp_local(layers, x_micro, layer_fn, mesh, axis, tap_layers)
     y, taps = (res if tap_layers else (res, None))
     if data_ok:
-        y = mesh_lib.all_gather_rows(y, mesh, "data", dim=1)
+        y = mesh_lib.all_gather_rows(y, mesh, data_axis, dim=1)
         if taps is not None:
-            taps = mesh_lib.all_gather_rows(taps, mesh, "data", dim=2)
+            taps = mesh_lib.all_gather_rows(taps, mesh, data_axis, dim=2)
     y = y.reshape(b, *x.shape[1:])
     if not tap_layers:
         return y

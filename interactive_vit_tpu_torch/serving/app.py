@@ -23,8 +23,15 @@ A /compute past its deadline returns 503; a /profile while another runs,
 409. Every /compute response, an error included, carries
 ``X-IVT-Request-Id: g0-<pid hex>-<counter hex>`` (generation 0: the port
 does not recycle its workers) and ``X-IVT-Timing`` (decode, queue,
-compute, encode and wall ms, and the batch the request ran in). Not ported
-yet: tap speculation, the program inventory and worker recycling.
+compute, encode and wall ms, and the batch the request ran in).
+
+The app serves on a mesh (``App(mesh=)``, the server's ``--mesh``): its
+executor is ``Executor(mesh=)``; where the mesh has more than one rank,
+rank 0 serves HTTP and sends each of its executor calls to the other
+ranks first (``serving/mesh_link.py``), which run ``follow`` instead of
+serving. ``/health`` and ``/metrics`` name the mesh. Not ported yet: tap
+speculation and the program inventory (``ROADMAP.md`` queue 1 item 9);
+worker recycling, a TPU host's remedy, is not ported.
 """
 
 from __future__ import annotations
@@ -41,13 +48,18 @@ from typing import Dict, Optional
 from urllib.parse import parse_qs, unquote, urlparse
 
 import torch
+import torch.distributed as dist
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity
 from torch.profiler import profile as torch_profile
 
 from interactive_vit_tpu_torch.graph.executor import Executor
 from interactive_vit_tpu_torch.graph.registry import Registry, registry
+from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
 from interactive_vit_tpu_torch.serving.batcher import MicroBatcher
+from interactive_vit_tpu_torch.serving.mesh_link import (
+    LeadExecutor, MeshLink, follow,
+)
 from interactive_vit_tpu_torch.serving.metrics import Metrics
 from interactive_vit_tpu_torch.wire.codec import Request as WireRequest
 from interactive_vit_tpu_torch.wire.codec import Response as WireResponse
@@ -76,7 +88,10 @@ _MIME = {
 
 
 class App:
-    """Server state: registry, executor, batcher, graph library, metrics."""
+    """Server state: registry, executor, batcher, graph library, metrics.
+    ``mesh``: this rank's share of a mesh (``Executor(mesh=)``; with more
+    than one rank, the link to the others, ``follower`` on every rank but
+    0)."""
 
     def __init__(
         self,
@@ -89,10 +104,21 @@ class App:
         max_wait_ms: float = 3.0,
         compute_timeout_s: float = 120.0,
         pipeline_depth: int = 1,
+        mesh=None,
     ):
         self.compute_timeout_s = compute_timeout_s
         self.reg = reg or registry()
-        self.executor = Executor(self.reg, use_jit=use_jit, device=device)
+        self.mesh = mesh
+        self.executor = Executor(self.reg, use_jit=use_jit, device=device,
+                                 mesh=mesh)
+        self.link: Optional[MeshLink] = None
+        self.follower = False
+        if mesh is not None and dist.is_initialized() \
+                and dist.get_world_size() > 1:
+            self.link = MeshLink()
+            self.follower = dist.get_rank() != 0
+            if not self.follower:
+                self.executor = LeadExecutor(self.executor, self.link)
         self.metrics = Metrics()
         self.batcher = MicroBatcher(self.executor, max_batch=max_batch,
                                     max_wait_ms=max_wait_ms,
@@ -243,6 +269,9 @@ class App:
         One probe thread for the process; while a probe is stuck, report
         failure at once instead of queueing more."""
         dev = self.executor.device
+        if self.link is not None and self.link.lost is not None:
+            return {"ok": False, "mesh": self.mesh_shape(),
+                    "error": f"mesh follower lost ({self.link.lost})"}
 
         def probe():
             x = torch.ones((8, 8), device=dev) @ torch.ones((8, 8), device=dev)
@@ -261,13 +290,31 @@ class App:
             return {"ok": False, "error": f"device probe exceeded {timeout_s}s"}
         except Exception as e:  # noqa: BLE001 -- reported, not raised
             return {"ok": False, "error": str(e)}
-        return {"ok": True, "device": device,
+        return {"ok": True, "device": device, "mesh": self.mesh_shape(),
                 "latency_ms": round((time.perf_counter() - t0) * 1e3, 2)}
 
+    def mesh_shape(self) -> Optional[Dict[str, int]]:
+        """The mesh's axis sizes, or None off a mesh."""
+        return None if self.mesh is None else mesh_lib.mesh_shape(self.mesh)
+
+    def follow(self) -> int:
+        """A follower rank's loop (``mesh_link.follow``), until rank 0's
+        stop; returns the number of calls it made."""
+        if not self.follower:
+            raise RuntimeError("only a rank other than 0 follows")
+        return follow(self.executor, self.link)
+
     def close(self) -> None:
-        """Stop the batcher and the health-probe thread."""
+        """Stop the batcher and the health-probe thread; on rank 0 of a
+        mesh, the followers too."""
         self.batcher.stop()
         self._health_pool.shutdown(wait=False)
+        if self.link is not None and not self.follower:
+            try:
+                self.link.stop()
+            except RuntimeError:  # a lost follower: nothing to stop
+                logger.warning("mesh followers not stopped: %s",
+                               self.link.lost)
 
     # -- HTTP plumbing ----------------------------------------------------------
     def make_handler(self):
@@ -331,6 +378,7 @@ class App:
                         snap = app.metrics.snapshot()
                         snap["pid"] = os.getpid()
                         snap["device"] = str(app.executor.device)
+                        snap["mesh"] = app.mesh_shape()
                         self._json(snap)
                     elif path == "/health":
                         h = app.health()

@@ -22,6 +22,11 @@ for tens of seconds, and on a card captures its CUDA graph) the groups in
 flight are materialized first. Other-signature requests seen
 while a group collects wait in a backlog that is served first on the next
 cycle, so a minority signature is not starved.
+
+On rank 0 of a mesh the executor is ``mesh_link.LeadExecutor``: each
+dispatch is sent to the other ranks as it is made, so the order of the
+calls they follow is this worker's order of dispatches, deferred ones
+included (their materialization makes no collective).
 """
 
 from __future__ import annotations

@@ -118,22 +118,40 @@ failure. TF32 is off on this route too:
     python -m interactive_vit_tpu_torch.serving.server \
         --from-export /tmp/vit_b16_art --export-selftest --port 8965
 
-Multi-device serving is not ported yet, nor is the JAX server's flag for
-it (``--mesh``), tap speculation and the warm inventory
+``--mesh`` serves on a device mesh, one process a device under
+``torchrun`` (``parallel/mesh.py``; the spec's product must be the number
+of ranks launched). Rank 0 serves HTTP; every other rank follows its
+executor calls (``serving/mesh_link.py``). The kernel rule is the train
+steps' (``ops/dispatch.mesh_serving_options``): where the model axis is 1
+every rank holds whole weights and serves as one device does, kernels
+included (a stacked group's rows spread over "data"; "stage" folds the
+block chain into a pipeline); where it is above 1 the weights are
+DTensors, so the models are made with ``kernels=False``, the plain ViTs
+with their qkv head-major, and the attention is "reference", as the JAX
+server forces. One card runs a one-rank mesh (NCCL takes no two ranks on
+one card); four ranks of gloo run the multi-rank mesh on the CPU:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m interactive_vit_tpu_torch.serving.server --models vit_b16 \
+        --mesh data=2,model=2 --device cpu --port 8965
+
+Not ported yet: tap speculation and the warm inventory
 (``--speculate-buckets``, ``--no-speculate``, ``--warm-inventory``,
-``--warm-budget-s``), and its TPU-host flags (``--platform``,
-``--jit-cache``, ``--recycle-*``).
+``--warm-budget-s``; ``ROADMAP.md`` queue 1 item 9); the TPU-host flags
+(``--platform``, ``--jit-cache``, ``--recycle-*``) have no counterpart.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import math
 import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from interactive_vit_tpu_torch.graph.registry import Registry, scan_plugins
 from interactive_vit_tpu_torch.models.autoregister import (
@@ -142,8 +160,11 @@ from interactive_vit_tpu_torch.models.autoregister import (
 from interactive_vit_tpu_torch.models.clip_text_plugin import (
     generate_zeroshot_graph_json,
 )
-from interactive_vit_tpu_torch.ops.dispatch import default_attn_impl
+from interactive_vit_tpu_torch.ops.dispatch import (
+    default_attn_impl, mesh_serving_options,
+)
 from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
 from interactive_vit_tpu_torch.parallel.train import cast_params
 from interactive_vit_tpu_torch.runtime.device import (
     exact_f32_matmuls, require_device,
@@ -198,6 +219,7 @@ def build_app(
     pipeline_depth: int = 1,
     ckpts=None,
     ckpt_layout: str = "auto",
+    mesh_spec: str = "",
 ) -> App:
     """An ``App`` with its own registry serving ``models`` on ``device``
     (the card unless the caller asks for the CPU; raises without a card).
@@ -210,7 +232,12 @@ def build_app(
     ``frontend_dir``: default the repository's ``frontend``. ``ckpts``:
     {variant: checkpoint path} (``load_model_params``, ``ckpt_layout`` for
     files); the others take the seeded random init. A key of ``ckpts``
-    that is not served raises, as in the JAX server."""
+    that is not served raises, as in the JAX server. ``mesh_spec``
+    (``--mesh``, ``parallel/mesh.parse_mesh``'s grammar): serve on the mesh
+    of this ``torchrun`` launch (``make_serving_mesh``), each rank on its
+    own device, the models made by the mesh's kernel rule (the module
+    docstring); on every rank but 0 the app is a follower (``App.follow``
+    instead of ``serve``)."""
     exact_f32_matmuls()
     ckpts = dict(ckpts or {})
     unused = set(ckpts) - set(models)
@@ -231,6 +258,14 @@ def build_app(
         block_kernel = "int8-scores"
         attn_impl_name = "auto"
     device = require_device(device)
+    mesh, mesh_opts = None, {}
+    if mesh_spec:
+        mesh, device = make_serving_mesh(mesh_spec, device)
+        mesh_opts = mesh_serving_options(mesh_lib.axis_size(mesh, "model"))
+        attn_impl_name = mesh_opts.get("attn", attn_impl_name)
+        logger.info("serving on mesh %s, this rank %d on %s (kernel rule: "
+                    "%s)", mesh_lib.mesh_shape(mesh), dist.get_rank(),
+                    device, mesh_opts or "the one-device models")
     attn_impl = default_attn_impl(attn_impl_name)
     reg = Registry()
     register_builtin(reg)
@@ -248,7 +283,9 @@ def build_app(
         max_wait_ms=max_wait_ms,
         compute_timeout_s=compute_timeout_s,
         pipeline_depth=pipeline_depth,
+        mesh=mesh,
     )
+    writes = not repo_lib and not app.follower
     for variant in models:
         # the s8 mode exists for the plain-ViT block only; the other
         # families take their own auto dispatch, as in the JAX server
@@ -264,27 +301,51 @@ def build_app(
                         ckpts[variant], time.perf_counter() - t0)
         model = make_model(variant, params=params, seed=seed, dtype=dtype,
                            device=device, attn_impl=attn_impl,
-                           quantize=quantize, block_kernel=bk)
-        # the repository's library is never written: a variant without a
-        # saved graph there gets none
-        model.register(reg, None if repo_lib else app.graphs)
+                           quantize=quantize, block_kernel=bk,
+                           kernels=mesh_opts.get("kernels", True),
+                           tp_layout=mesh_opts.get("tp_layout", False))
+        # the repository's library is never written (a variant without a
+        # saved graph there gets none), and on a mesh only rank 0 writes
+        model.register(reg, app.graphs if writes else None)
         logger.info("registered model %s (%d nodes) on %s in %s", variant,
                     len(model.layers), device, dtype_name)
         # classifier chains also get the gradient-tap demo graph
         # (saliency, dream and occlusion off the head; attrib off embed)
         sal_name = f"{variant}_saliency.json"
-        if (not repo_lib
+        if (writes
                 and any(n.endswith(":head") for n in model.list_node_names())
                 and not app.graphs.exists(sal_name)):
             app.graphs.save(sal_name, model.generate_saliency_graph_json())
             logger.info("generated graph %s", sal_name)
-    if (not repo_lib and {"clip_b32", "clip_text_b32"} <= set(models)
+    if (writes and {"clip_b32", "clip_text_b32"} <= set(models)
             and not app.graphs.exists("clip_zeroshot.json")):
         # both CLIP towers served: the zero-shot graph (the image chain and
         # the prompt chain joined at a similarity node)
         app.graphs.save("clip_zeroshot.json", generate_zeroshot_graph_json())
         logger.info("generated graph clip_zeroshot.json")
     return app
+
+
+def make_serving_mesh(spec: str, device):
+    """``--mesh``: (the mesh, this rank's device). Joins the process group
+    of this ``torchrun`` launch (``mesh.init_distributed``) and builds the
+    mesh of ``mesh.parse_mesh(spec)``; raises where there is no launch or
+    the spec's product is not the number of ranks launched."""
+    sizes = mesh_lib.parse_mesh(spec)
+    device = mesh_lib.init_distributed(device)
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"--mesh {spec!r} serves one process a device: launch the "
+            f"server under torchrun (python -m torch.distributed.run "
+            f"--nproc-per-node N -m interactive_vit_tpu_torch.serving."
+            f"server ...)")
+    world = dist.get_world_size()
+    need = math.prod(sizes.values()) if sizes else world
+    if need != world:
+        raise ValueError(
+            f"--mesh {spec!r} needs {need} ranks, but {world} were launched "
+            f"(torchrun --nproc-per-node {need})")
+    return mesh_lib.make_mesh(sizes), device
 
 
 def warmup(app: App, models, batch_sizes=(1,)) -> None:
@@ -385,6 +446,14 @@ def make_parser() -> argparse.ArgumentParser:
                              "instead of live models: no registry, no "
                              "model code, no plugin code "
                              "(serving/export_app.py)")
+    parser.add_argument("--mesh", default="",
+                        help="multi-device serving mesh, e.g. "
+                             "'data=4,model=2' (add 'stage=N' for "
+                             "pipeline-parallel serving of untapped block "
+                             "chains), one process a device under torchrun "
+                             "(the product must be the ranks launched; "
+                             "'data=all' spreads every rank on data); "
+                             "empty = single device")
     parser.add_argument("--export-selftest", action="store_true",
                         help="with --from-export: verify each artifact "
                              "(seeded replay against its recorded output "
@@ -448,10 +517,24 @@ def main(argv=None) -> None:
         pipeline_depth=args.pipeline_depth,
         ckpts=dict(kv.split("=", 1) for kv in args.ckpt),
         ckpt_layout=args.ckpt_layout,
+        mesh_spec=args.mesh,
     )
-    if args.warmup:
-        warmup(app, models, batch_sizes=sorted({1, max(1, args.max_batch)}))
-    app.serve(args.host, args.port)
+    if app.follower:
+        logger.info("rank %d follows rank 0's executor calls",
+                    dist.get_rank())
+        app.follow()
+        logger.info("rank %d stopped", dist.get_rank())
+        dist.destroy_process_group()
+        return
+    try:
+        if args.warmup:
+            warmup(app, models,
+                   batch_sizes=sorted({1, max(1, args.max_batch)}))
+        app.serve(args.host, args.port)
+    finally:
+        app.close()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

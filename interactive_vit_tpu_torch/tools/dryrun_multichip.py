@@ -25,13 +25,32 @@ Counterpart of ``dryrun_multichip`` in the JAX package's
   ``pipeline_apply_stacked`` on ``data=2,stage=2``;
 * the refusals (heads or tokens not divisible, a ring asked for maps);
 * checkpoints: a state saved on the mesh reads back whole on one rank,
-  and one saved on one rank reads back onto the mesh.
+  and one saved on one rank reads back onto the mesh;
+
+and the serving cases (``serving_cases``, the JAX dry run's mesh executor
+cases), each through ``Executor(mesh=)`` with the models the server's
+kernel rule makes (``ops/dispatch.mesh_serving_options``):
+
+* ``serve_a``: a stacked group of 4 requests on ``data=2,model=2`` (each
+  data rank runs 2 rows; ``kernels=False, tp_layout=True`` captures, the
+  qkv and fc1 columns and the proj and fc2 rows sharded), every tap of
+  the chain (``taps="all"``: the head-sharded maps, a head subset, the
+  rollout, the CLS), gathered whole;
+* ``serve_grad``: a saliency gradient and an ``:attrib`` relevance on that
+  mesh, through the TP-sharded captures; ``serve_eager``: the same graph
+  through ``run_eager`` (every node whole on every rank);
+* ``serve_pp``: the block chain folded into one GPipe schedule on
+  ``data=2,stage=2`` with an interior "o" tap, one request and a stacked
+  group of 4 (``last_pp_segments`` recorded);
+* ``serve_dp``: a stacked group of 3 on ``data=4`` (its bucket 4, a row a
+  rank), whose rule keeps "auto" (the plain path on the CPU).
 
 ``run_cases`` returns every result whole on every rank (the tests hold
-rank 0's against the JAX functions on a mesh of the same shape);
-``main`` holds them against ``reference`` (one device, the same inputs)
-and prints one line a case on rank 0. The mesh executor, gradient taps,
-mesh export and pipeline-folded serving are not part of it yet.
+rank 0's against the JAX functions on a mesh of the same shape, and the
+serving cases against JAX's ``Executor(mesh=)``); ``main`` holds them
+against ``reference`` (one device, the same inputs; the serving cases
+through the one-device executor) and prints one line a case on rank 0.
+Mesh-sharded export is not part of it (``ROADMAP.md`` queue 1 item 7b).
 """
 
 from __future__ import annotations
@@ -51,6 +70,11 @@ CFG = dict(img_size=32, patch=16, width=64, depth=2, heads=4,
            num_classes=16)
 BATCH = 8
 N_REAL = 13  # of 16 tokens: the ring and Ulysses mask 3 padded keys
+PARTS = ("train", "serve")
+# the serving cases' meshes (``serving_cases``)
+SERVE_MESHES = {"a": {"data": 2, "model": 2}, "pp": {"data": 2, "stage": 2},
+                "dp": {"data": 4}}
+SERVE_HEADS = {3: {"attn_heads": "[1,2]"}}  # case a's head subset, blocks.1
 
 
 def configs() -> Dict[str, Any]:
@@ -107,6 +131,7 @@ def make_inputs(seed: int = 0) -> Dict[str, Any]:
         "batches": batches,
         "qkv": [rng.standard_normal((2, 4, 16, 8)).astype(np.float32)
                 for _ in range(3)],
+        "serve_images": rng.random((8, 3, 32, 32), dtype=np.float32),
     }
 
 
@@ -150,9 +175,125 @@ def _refusal(fn: Callable) -> str:
     return ""
 
 
+def serving_graphs(model, images, node_params=None):
+    """``model``'s chain graph (its generated JSON) once for each image,
+    ``node_params`` ({node: params}) added to its nodes."""
+    from interactive_vit_tpu_torch.wire.schema import graph_from_json
+
+    obj = model.generate_graph_json()
+    graphs = []
+    for image in images:
+        g = graph_from_json(obj)
+        for i, params in (node_params or {}).items():
+            g.nodes[i].params.update(params)
+        g.add_input(np.asarray(image), g.nodes[0], "o")
+        graphs.append(g)
+    return graphs
+
+
+def gradient_graph(model, image):
+    """The chain with a saliency node off its head and ``:attrib`` off its
+    embed node; returns (graph, taps: the saliency's "g", the relevance
+    "rel" and the attribution's heatmap "o")."""
+    g = serving_graphs(model, [image])[0]
+    head = next(n for n in g.nodes if n.name.endswith(":head"))
+    emb = next(n for n in g.nodes if n.name.endswith(":embed"))
+    sal = g.add_node("saliency", {"target": "max"})
+    g.connect(head, "o", sal, "o")
+    att = g.add_node(model.name + ":attrib", {"target": "max"})
+    g.connect(emb, "o", att, "o")
+    return g, {(sal.index, "g"), (att.index, "rel"), (att.index, "o")}
+
+
+def _results(prefix: str, res) -> Dict[str, np.ndarray]:
+    """A run's ``{node: {channel: array}}`` (or a group's list of them) as
+    ``{"<prefix>/[<row>/]<node>/<channel>": array}``."""
+    if isinstance(res, list):
+        out = {}
+        for j, r in enumerate(res):
+            out.update(_results(f"{prefix}/{j}", r))
+        return out
+    return {f"{prefix}/{i}/{ch}": np.asarray(v)
+            for i, chans in res.items() for ch, v in chans.items()}
+
+
+def serving_cases(inputs: Dict[str, Any], device="cpu",
+                  mesh_of: Callable = None) -> Dict[str, Any]:
+    """The serving cases (the module docstring) through
+    ``Executor(mesh=mesh_of(sizes))`` for each of ``SERVE_MESHES``; the
+    models are made by the server's kernel rule for that mesh. ``mesh_of``
+    None: every case on one device (``reference``'s side), with the
+    one-device models."""
+    from interactive_vit_tpu_torch.graph.executor import Executor
+    from interactive_vit_tpu_torch.graph.registry import Registry
+    from interactive_vit_tpu_torch.models import vit
+    from interactive_vit_tpu_torch.models.vit_plugin import make_vit_model
+    from interactive_vit_tpu_torch.ops.dispatch import (
+        default_attn_impl, mesh_serving_options,
+    )
+    from interactive_vit_tpu_torch.ops.node_ops import register_builtin
+    from interactive_vit_tpu_torch.parallel import mesh as mesh_lib
+    from interactive_vit_tpu_torch.parallel.train import tree_map_with_path
+
+    cfg = configs()["vit"]
+    images = inputs["serve_images"]
+    params = tree_map_with_path(lambda _, x: x.to(device), inputs["vit"])
+    out: Dict[str, Any] = {}
+    vit.VARIANTS[cfg.name] = cfg
+    try:
+        exs = {}
+        for case, sizes in SERVE_MESHES.items():
+            mesh = None if mesh_of is None else mesh_of(sizes)
+            opts = mesh_serving_options(mesh_lib.axis_size(mesh, "model"))
+            reg = Registry()
+            register_builtin(reg)
+            model = make_vit_model(
+                cfg.name, params=params, device=device,
+                attn_impl=default_attn_impl(opts.get("attn", "auto")),
+                kernels=opts.get("kernels", True),
+                tp_layout=opts.get("tp_layout", False))
+            model.register(reg, None)
+            exs[case] = (Executor(reg, device=device, mesh=mesh), model)
+        ex, model = exs["a"]
+        out.update(_results("serve_a", ex.run_stacked(
+            serving_graphs(model, images[:4], SERVE_HEADS), taps="all")))
+        if mesh_of is not None:
+            # this model rank's shard of blocks.0's qkv columns, as the
+            # group's staged program holds it
+            prog = next(iter(ex._cache.values()))
+            st = next(st for st in prog.steps
+                      if st.name == f"{cfg.name}:blocks.0")
+            out["serve_qkv_local"] = np.asarray(
+                mesh_lib.local(st.caps["qkv_w"]).shape)
+        g, taps = gradient_graph(model, images[4])
+        out.update(_results("serve_grad", ex.run(g, taps=taps)))
+        outs, errors = ex.run_eager(gradient_graph(model, images[4])[0])
+        if errors:
+            raise RuntimeError(f"run_eager on the mesh: {errors}")
+        out.update(_results("serve_eager", outs))
+        ex, model = exs["pp"]
+        graphs = serving_graphs(model, images[:5])
+        head = next(n.index for n in graphs[0].nodes
+                    if n.name.endswith(":head"))
+        taps = {(2, "o"), (head, "o")}  # blocks.0, inside the fold
+        out.update(_results("serve_pp_one", ex.run(graphs[4], taps=taps)))
+        segments = ex.last_pp_segments
+        out.update(_results("serve_pp_group",
+                            ex.run_stacked(graphs[:4], taps=taps)))
+        if mesh_of is not None:
+            out["pp_segments"] = np.asarray([segments, ex.last_pp_segments])
+        ex, model = exs["dp"]
+        out.update(_results("serve_dp", ex.run_stacked(
+            serving_graphs(model, images[5:8]), taps="primary")))
+    finally:
+        del vit.VARIANTS[cfg.name]
+    return out
+
+
 def run_cases(inputs: Dict[str, Any], device="cpu",
-              ckpt_dir: str = "") -> Dict[str, Any]:
-    """Every case on the mesh (all ``WORLD`` ranks call it); returns
+              ckpt_dir: str = "", parts=PARTS) -> Dict[str, Any]:
+    """Every case of ``parts`` ("train": the training half, "serve":
+    ``serving_cases``) on the mesh (all ``WORLD`` ranks call it); returns
     ``{name: numpy array or str}``, whole on every rank. ``ckpt_dir``: a
     directory every rank sees (the checkpoint case writes there)."""
     import torch.distributed as dist
@@ -174,8 +315,12 @@ def run_cases(inputs: Dict[str, Any], device="cpu",
     if dist.get_world_size() != WORLD:
         raise RuntimeError(f"the dry run takes {WORLD} ranks, got "
                            f"{dist.get_world_size()}")
-    cfgs = configs()
     out: Dict[str, Any] = {}
+    if "serve" in parts:
+        out.update(serving_cases(inputs, device, mesh_lib.make_mesh))
+    if "train" not in parts:
+        return out
+    cfgs = configs()
     mesh22 = mesh_lib.make_mesh({"data": 2, "model": 2})
     dp4 = mesh_lib.make_mesh({"data": 4})
 
@@ -412,6 +557,7 @@ def reference(inputs: Dict[str, Any]) -> Dict[str, Any]:
     out["pipeline_tap0"] = _np(y0)
     out["pipeline_trunk"] = _np(vit.block(inputs["vit"]["blocks"][1], y0,
                                           cfgs["vit"])[0])
+    out.update(serving_cases(inputs, "cpu"))
     return out
 
 
@@ -420,7 +566,13 @@ def reference(inputs: Dict[str, Any]) -> Dict[str, Any]:
 TOLERANCE = {"train3": 1e-5, "train_aug_logits": 1e-4, "distill": 1e-5,
              "mae": 1e-5, "moe_logits": 1e-4, "moe_loss": 1e-5,
              "swin": 1e-4, "tome": 1e-4, "convnext": 1e-4, "ring": 1e-5,
-             "ulysses": 1e-5, "pipeline": 1e-5}
+             "ulysses": 1e-5, "pipeline": 1e-5,
+             # the served taps: the JAX dry run's mesh-executor bound
+             "serve_a": 1e-4, "serve_grad": 1e-4, "serve_eager": 1e-4,
+             "serve_pp": 1e-4, "serve_dp": 1e-4}
+# the chain the PP cases fold: blocks.0 and blocks.1 (nodes 2 and 3), in
+# the single run and in the group
+PP_SEGMENTS = [[[2, 3]], [[2, 3]]]
 
 REFUSALS = {
     "err_ulysses_heads": "heads 3 must be divisible by mesh axis 'data'",
@@ -438,9 +590,12 @@ def check(got: Dict[str, Any], want: Dict[str, Any]) -> Dict[str, float]:
     for key, ref in want.items():
         group = next(g for g in sorted(TOLERANCE, key=len, reverse=True)
                      if key.startswith(g))
+        assert np.shape(got[key]) == np.shape(ref), (key, np.shape(got[key]))
         err = float(np.max(np.abs(np.asarray(got[key]) - ref)))
         errs[group] = max(errs.get(group, 0.0), err)
         assert err <= TOLERANCE[group], (key, err, TOLERANCE[group])
+    assert got["pp_segments"].tolist() == PP_SEGMENTS, got["pp_segments"]
+    assert tuple(got["serve_qkv_local"]) == (64, 96)
     for key, text in REFUSALS.items():
         assert text in got[key], (key, got[key])
     assert tuple(got["train3_qkv_local"]) == (64, 96)
@@ -489,6 +644,9 @@ def main(argv=None) -> int:
         print(f"dryrun refusals: ok ({len(REFUSALS)} texts)")
         print("dryrun checkpoints: ok (mesh -> one rank and one rank -> "
               "mesh round-trip bit for bit)")
+        print(f"dryrun serving: ok, {sum(k.startswith('serve_') and '/' in k for k in got)}"
+              f" served outputs whole on rank 0; the PP fold "
+              f"{got['pp_segments'].tolist()[0]}")
         print(f"dryrun_multichip ok: {WORLD} ranks on {device.type} "
               f"(data=2,model=2; data=4; data=2,stage=2), train loss "
               f"{got['train3_loss'][-1]:.4f}")

@@ -94,6 +94,7 @@ PORT_MODULES = [
     "interactive_vit_tpu_torch.serving.export_app",
     "interactive_vit_tpu_torch.tools.export_graph",
     "interactive_vit_tpu_torch.tools.run_exported",
+    "interactive_vit_tpu_torch.serving.mesh_link",
     "chip_smoke",
 ]
 

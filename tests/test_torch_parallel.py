@@ -106,6 +106,7 @@ def _inputs():
                       for _ in range(3)]
     out["qkv"] = [rng.standard_normal((2, 4, 16, 8)).astype(np.float32)
                   for _ in range(3)]
+    out["serve_images"] = rng.random((8, 3, 32, 32), dtype=np.float32)
     return out
 
 
@@ -224,7 +225,7 @@ def runs(tmp_path_factory):
                                                              ""))
     procs = [subprocess.Popen(
         [sys.executable, WORKER, str(r), "4", str(tmp / "rdzv"),
-         str(tmp / "inputs.pkl"), str(tmp / "out.npz")],
+         str(tmp / "inputs.pkl"), str(tmp / "out.npz"), "train"],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(4)]
     try:
